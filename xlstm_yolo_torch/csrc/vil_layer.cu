@@ -1,0 +1,558 @@
+// ViL layer forward (K3) for NVIDIA Hopper, fp32, plain C interface.
+//
+// Replaces the TPU kernel `_kernel_vil_layer` in
+// xlstm_yolo_tpu/kernels/mlstm_pallas.py (entered through
+// `mlstm_vil_layer_fused_pallas`). It computes the whole ViLLayer minus the
+// depthwise conv: RMSNorm, proj_up (both halves), headwise q/k/v, the i/f
+// gate dots, the chunkwise mLSTM, the per-head outnorm, the learnable skip,
+// the SiLU(z) output gate, proj_down and the residual. Inputs x (B, S, DIM)
+// and conv_act (B, S, INNER) in their natural layout; output (B, S, DIM).
+//
+// What bounds it on this card: at the ViL-YOLO-n shapes the layer does
+// 370 (P3) to 1,200 (P5) fp32 operations per byte of x + conv_act + out,
+// far above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 op/B), so
+// the least time is set by operations. This first version issues them as fp32 FMAs on
+// the CUDA cores (no tensor cores), so the fp32 rate is the bound it is
+// held to.
+//
+// What the design does about it: the TPU kernel walked the sequence in
+// order on one core. Here the recurrence is split into the chunkwise
+// parallel form so that every SM has work even at batch 1:
+//   1. prologue (token-parallel, TT tokens per CTA): RMSNorm, proj_up,
+//      headwise q/k/v and the gate dots; q/k/v/z and the gates go to a
+//      workspace;
+//   2. chunk summaries (one CTA per (chunk, batch*head)): the decayed k v^T
+//      and k sums of each chunk, its total decay and local max;
+//   3. state scan (one CTA per (batch*head, 256 state entries)): the only
+//      sequential part, NS steps of an elementwise update of C, n, m;
+//   4. chunk outputs (one CTA per (chunk, batch*head)): intra-chunk
+//      attention-like term plus the carried-in state term, normalized;
+//   5. epilogue (token-parallel): outnorm, skip, SiLU(z) gate, proj_down,
+//      residual.
+// Every product is an fp32 FMA loop over shared-memory tiles (rows padded
+// to DH+1 floats against bank conflicts). The workspace round trips
+// (q/k/v/z/h and the per-chunk states) cost bytes the TPU kernel avoided;
+// tensor-core (wgmma) products, bf16 operands and one-launch fusion are
+// later work.
+//
+// Head dim and chunk size are fixed at 64. A sequence that is not a
+// multiple of 64 is handled by masking the last chunk: missing positions
+// load as zeros with an input-gate log of -1e30, so they add nothing to any
+// valid position.
+
+#include <cuda_runtime.h>
+
+#include <math.h>
+
+namespace {
+
+constexpr int DH = 64;        // head dim
+constexpr int CS = 64;        // chunk length
+constexpr int LD = DH + 1;    // padded smem row stride
+constexpr int TT = 16;        // tokens per CTA in prologue and epilogue
+constexpr int NT = 256;       // threads per CTA
+constexpr int NW = NT / 32;   // warps per CTA
+constexpr float NEG = -1e30f;
+
+struct Params {
+  const float* x;
+  const float* conv;
+  const float* nrm;
+  const float* wu;    // (DIM, 2*INNER), in x out
+  const float* bu;    // (2*INNER)
+  const float* wq;    // (NH, DH_in, DH_out)
+  const float* wk;
+  const float* wv;
+  const float* bq;    // (INNER)
+  const float* bk;
+  const float* bv;
+  const float* wgi;   // (NH, 3*INNER)
+  const float* bgi;   // (NH)
+  const float* wgf;
+  const float* bgf;
+  const float* nsc;   // (INNER) effective outnorm scale
+  const float* nbi;   // (INNER)
+  const float* skip;  // (INNER)
+  const float* wd;    // (INNER, DIM), in x out
+  const float* bd;    // (DIM)
+  float* out;         // (B, S, DIM)
+  // workspace
+  float* q;           // (B, S, INNER), unscaled
+  float* k;
+  float* v;
+  float* z;
+  float* h;           // (B, S, INNER) cell output before outnorm
+  float* ig;          // (B*NH, S) gate preacts
+  float* fg;
+  float* kv;          // (B*NH, NS, DH, DH) chunk summaries
+  float* ksum;        // (B*NH, NS, DH)
+  float* btot;        // (B*NH, NS)
+  float* mloc;        // (B*NH, NS)
+  float* cprev;       // (B*NH, NS, DH, DH) carried-in states
+  float* nprev;       // (B*NH, NS, DH)
+  float* mprev;       // (B*NH, NS)
+  int B, S, DIM, INNER, NH, NS, igate_exp;
+  float eps, norm_eps, rms_eps;
+};
+
+__device__ __forceinline__ float logsigmoid(float x) {
+  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Inclusive scan (sum, or max when MAX) of a[0..63] in place; called by all
+// 32 lanes of one warp. Lane l owns a[2l] and a[2l+1].
+template <bool MAX>
+__device__ void warp_scan64(float* a) {
+  const int l = threadIdx.x & 31;
+  const float a0 = a[2 * l], a1 = a[2 * l + 1];
+  float inc = MAX ? fmaxf(a0, a1) : a0 + a1;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (l >= o) inc = MAX ? fmaxf(inc, t) : inc + t;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (l == 0) excl = MAX ? NEG : 0.f;
+  a[2 * l] = MAX ? fmaxf(excl, a0) : excl + a0;
+  a[2 * l + 1] = MAX ? fmaxf(excl, fmaxf(a0, a1)) : excl + a0 + a1;
+}
+
+// 1. RMSNorm + proj_up + headwise q/k/v + gate dots for TT tokens.
+__global__ void __launch_bounds__(NT) vil_prologue(Params p) {
+  extern __shared__ float sm[];
+  const int DIM = p.DIM, INNER = p.INNER, NH = p.NH;
+  float* xn = sm;                   // TT x DIM
+  float* xm = xn + TT * DIM;        // TT x INNER   x_mlstm half of proj_up
+  float* cv = xm + TT * INNER;      // TT x INNER   conv_act
+  float* qkv = cv + TT * INNER;     // TT x 3*INNER q | k | v per token
+  const long ntok = (long)p.B * p.S;
+  const long tok0 = (long)blockIdx.x * TT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < TT * DIM; i += NT) {
+    const long t = tok0 + i / DIM;
+    xn[i] = t < ntok ? p.x[t * DIM + i % DIM] : 0.f;
+  }
+  for (int i = tid; i < TT * INNER; i += NT) {
+    const long t = tok0 + i / INNER;
+    cv[i] = t < ntok ? p.conv[t * INNER + i % INNER] : 0.f;
+  }
+  __syncthreads();
+
+  for (int t = warp; t < TT; t += NW) {
+    float s = 0.f;
+    for (int d = lane; d < DIM; d += 32) s += xn[t * DIM + d] * xn[t * DIM + d];
+    s = warp_sum(s);
+    const float r = rsqrtf(s / DIM + p.rms_eps);
+    for (int d = lane; d < DIM; d += 32) xn[t * DIM + d] = xn[t * DIM + d] * r * p.nrm[d];
+  }
+  __syncthreads();
+
+  // proj_up: column c < INNER is x_mlstm (kept in smem), the rest is z
+  for (int c = tid; c < 2 * INNER; c += NT) {
+    float acc[TT];
+    const float bias = p.bu[c];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) acc[t] = bias;
+    for (int d = 0; d < DIM; ++d) {
+      const float w = p.wu[(long)d * 2 * INNER + c];
+#pragma unroll
+      for (int t = 0; t < TT; ++t) acc[t] += xn[t * DIM + d] * w;
+    }
+    if (c < INNER) {
+#pragma unroll
+      for (int t = 0; t < TT; ++t) xm[t * INNER + c] = acc[t];
+    } else {
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+        if (tok0 + t < ntok) p.z[(tok0 + t) * INNER + (c - INNER)] = acc[t];
+    }
+  }
+  __syncthreads();
+
+  // headwise (block-diagonal) projections: q, k from conv_act, v from x_mlstm
+  for (int c = tid; c < INNER; c += NT) {
+    const int n = c / DH, o = c % DH;
+    float aq[TT], ak[TT], av[TT];
+    const float bq = p.bq[c], bk = p.bk[c], bv = p.bv[c];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) { aq[t] = bq; ak[t] = bk; av[t] = bv; }
+    const long wo = (long)n * DH * DH + o;
+    for (int d = 0; d < DH; ++d) {
+      const float wqd = p.wq[wo + d * DH], wkd = p.wk[wo + d * DH], wvd = p.wv[wo + d * DH];
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        const float c_in = cv[t * INNER + n * DH + d];
+        aq[t] += c_in * wqd;
+        ak[t] += c_in * wkd;
+        av[t] += xm[t * INNER + n * DH + d] * wvd;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      qkv[t * 3 * INNER + c] = aq[t];
+      qkv[t * 3 * INNER + INNER + c] = ak[t];
+      qkv[t * 3 * INNER + 2 * INNER + c] = av[t];
+      if (tok0 + t < ntok) {
+        const long off = (tok0 + t) * INNER + c;
+        p.q[off] = aq[t];
+        p.k[off] = ak[t];
+        p.v[off] = av[t];
+      }
+    }
+  }
+  __syncthreads();
+
+  // gate preacts: one warp per (gate, token, head) dot over cat(q, k, v)
+  for (int job = warp; job < 2 * TT * NH; job += NW) {
+    const int which = job / (TT * NH), r = job % (TT * NH), t = r / NH, hh = r % NH;
+    const float* w = (which ? p.wgf : p.wgi) + (long)hh * 3 * INNER;
+    float s = 0.f;
+    for (int j = lane; j < 3 * INNER; j += 32) s += qkv[t * 3 * INNER + j] * w[j];
+    s = warp_sum(s);
+    const long tk = tok0 + t;
+    if (lane == 0 && tk < ntok) {
+      const long b = tk / p.S, si = tk % p.S;
+      float* dst = which ? p.fg : p.ig;
+      dst[(b * NH + hh) * p.S + si] = s + (which ? p.bgf[hh] : p.bgi[hh]);
+    }
+  }
+}
+
+// Loads chunk j's gate logs of row bh: lf (log forget), li (log input,
+// NEG where masked).
+__device__ __forceinline__ void load_gates(const Params& p, int bh, int s0, float* lf,
+                                           float* li) {
+  const int tid = threadIdx.x;
+  if (tid < CS) {
+    const int s = s0 + tid;
+    const bool ok = s < p.S;
+    const float fp = ok ? p.fg[(long)bh * p.S + s] : 0.f;
+    const float ip = ok ? p.ig[(long)bh * p.S + s] : 0.f;
+    lf[tid] = ok ? logsigmoid(fp) : 0.f;
+    li[tid] = ok ? (p.igate_exp ? ip : logsigmoid(ip)) : NEG;
+  }
+}
+
+__device__ __forceinline__ void load_rows(const float* src, const Params& p, int b, int n,
+                                          int s0, float* dst, float scale) {
+  for (int i = threadIdx.x; i < CS * DH; i += NT) {
+    const int r = i / DH, d = i % DH, s = s0 + r;
+    dst[r * LD + d] = s < p.S ? src[((long)b * p.S + s) * p.INNER + n * DH + d] * scale : 0.f;
+  }
+}
+
+// 2. Per-chunk state summaries.
+__global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
+  __shared__ float ks[CS * LD], vs[CS * LD];
+  __shared__ float bcs[CS], li[CS], gw[CS];
+  __shared__ float s_mloc;
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, s0 = j * CS;
+
+  load_gates(p, bh, s0, bcs, li);
+  load_rows(p.k, p, b, n, s0, ks, 1.f);
+  load_rows(p.v, p, b, n, s0, vs, 1.f);
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(bcs);  // b = inclusive cumsum of log f
+  __syncthreads();
+  const float btot = bcs[CS - 1];
+  if (tid < CS) gw[tid] = li[tid] + (btot - bcs[tid]);
+  __syncthreads();
+  if (tid < 32) {
+    float m = fmaxf(gw[tid], gw[tid + 32]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (tid == 0) s_mloc = m;
+  }
+  __syncthreads();
+  const float mloc = s_mloc;
+  if (tid < CS) gw[tid] = expf(gw[tid] - mloc);
+  __syncthreads();
+
+  const long base = (long)bh * p.NS + j;
+  const int e = tid % DH, d0 = tid / DH;
+  float acc[DH / 4];
+#pragma unroll
+  for (int i = 0; i < DH / 4; ++i) acc[i] = 0.f;
+  for (int s = 0; s < CS; ++s) {
+    const float vg = vs[s * LD + e] * gw[s];
+#pragma unroll
+    for (int i = 0; i < DH / 4; ++i) acc[i] += ks[s * LD + d0 + 4 * i] * vg;
+  }
+  float* kvo = p.kv + base * DH * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 4; ++i) kvo[(d0 + 4 * i) * DH + e] = acc[i];
+  if (tid < DH) {
+    float s_ = 0.f;
+    for (int s = 0; s < CS; ++s) s_ += ks[s * LD + tid] * gw[s];
+    p.ksum[base * DH + tid] = s_;
+  }
+  if (tid == 0) {
+    p.btot[base] = btot;
+    p.mloc[base] = mloc;
+  }
+}
+
+// 3. Sequential scan over chunks: writes the state carried into each chunk.
+__global__ void __launch_bounds__(NT) vil_state_scan(Params p) {
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const int idx = blockIdx.y * NT + tid;  // entry of C
+  const bool own_n = blockIdx.y == 0 && tid < DH;
+  const bool own_m = blockIdx.y == 0 && tid == 0;
+  const long row = (long)bh * p.NS;
+  float c = 0.f, nn = 0.f, m = 0.f;
+  float bt = p.btot[row], ml = p.mloc[row], kvv = p.kv[row * DH * DH + idx];
+  float ks = own_n ? p.ksum[row * DH + tid] : 0.f;
+  for (int j = 0; j < p.NS; ++j) {
+    const long base = row + j;
+    float nbt = 0.f, nml = 0.f, nkv = 0.f, nks = 0.f;
+    if (j + 1 < p.NS) {  // prefetch the next chunk's summary
+      nbt = p.btot[base + 1];
+      nml = p.mloc[base + 1];
+      nkv = p.kv[(base + 1) * DH * DH + idx];
+      if (own_n) nks = p.ksum[(base + 1) * DH + tid];
+    }
+    p.cprev[base * DH * DH + idx] = c;
+    if (own_n) p.nprev[base * DH + tid] = nn;
+    if (own_m) p.mprev[base] = m;
+    const float mn = fmaxf(bt + m, ml);
+    const float dold = expf(bt + m - mn), dnew = expf(ml - mn);
+    c = c * dold + kvv * dnew;
+    nn = nn * dold + ks * dnew;
+    m = mn;
+    bt = nbt;
+    ml = nml;
+    kvv = nkv;
+    ks = nks;
+  }
+}
+
+// 4. Per-chunk outputs h = (intra + inter) / normalizer.
+__global__ void __launch_bounds__(NT) vil_chunk_output(Params p) {
+  extern __shared__ float sm[];
+  float* qs = sm;                // CS x LD, q / sqrt(DH)
+  float* ks = qs + CS * LD;
+  float* vs = ks + CS * LD;
+  float* E = vs + CS * LD;       // CS x LD, decayed q k^T (row t, col s)
+  float* Cs = E + CS * LD;       // DH x DH carried-in C
+  float* nv = Cs + DH * DH;      // DH carried-in n
+  float* bcs = nv + DH;          // CS cumsum of log f
+  float* li = bcs + CS;          // CS log input gate
+  float* cm = li + CS;           // CS running max of li - b
+  float* stab = cm + CS;         // CS stabilizer
+  float* av = stab + CS;         // CS inter-chunk scale
+  float* den = av + CS;          // CS normalizer
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
+  const long base = (long)bh * p.NS + j;
+
+  load_gates(p, bh, s0, bcs, li);
+  load_rows(p.q, p, b, n, s0, qs, 0.125f);  // 1 / sqrt(64)
+  load_rows(p.k, p, b, n, s0, ks, 1.f);
+  load_rows(p.v, p, b, n, s0, vs, 1.f);
+  for (int i = tid; i < DH * DH; i += NT) Cs[i] = p.cprev[base * DH * DH + i];
+  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  const float m_prev = p.mprev[base];
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(bcs);
+  __syncthreads();
+  if (tid < CS) cm[tid] = li[tid] - bcs[tid];
+  __syncthreads();
+  if (tid < 32) warp_scan64<true>(cm);
+  __syncthreads();
+  if (tid < CS) {
+    // row max of log D: b_t + max_{s<=t}(li_s - b_s); the stabilizer also
+    // covers the carried-in term m_prev + b_t
+    const float inter_log = m_prev + bcs[tid];
+    const float st = fmaxf(bcs[tid] + cm[tid], inter_log);
+    stab[tid] = st;
+    av[tid] = expf(inter_log - st);
+  }
+  __syncthreads();
+
+  {
+    const int s = tid % CS, t0 = tid / CS;
+    const float ws = li[s] - bcs[s];
+    for (int i = 0; i < CS / 4; ++i) {
+      const int t = t0 + 4 * i;
+      float val = 0.f;
+      if (s <= t) {
+        float dot = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < DH; ++d) dot += qs[t * LD + d] * ks[s * LD + d];
+        val = dot * expf(ws + bcs[t] - stab[t]);
+      }
+      E[t * LD + s] = val;
+    }
+  }
+  __syncthreads();
+
+  for (int t = warp; t < CS; t += NW) {
+    const float es = warp_sum(E[t * LD + lane] + E[t * LD + lane + 32]);
+    const float qn = warp_sum(qs[t * LD + lane] * nv[lane] + qs[t * LD + lane + 32] * nv[lane + 32]);
+    if (lane == 0) den[t] = fmaxf(fabsf(es + av[t] * qn), expf(-stab[t])) + p.eps;
+  }
+  __syncthreads();
+
+  {
+    const int e = tid % DH, t0 = tid / DH;
+    for (int i = 0; i < CS / 4; ++i) {
+      const int t = t0 + 4 * i, s_glob = s0 + t;
+      float intra = 0.f, inter = 0.f;
+      for (int s = 0; s <= t; ++s) intra += E[t * LD + s] * vs[s * LD + e];
+#pragma unroll 16
+      for (int d = 0; d < DH; ++d) inter += qs[t * LD + d] * Cs[d * DH + e];
+      if (s_glob < p.S)
+        p.h[((long)b * p.S + s_glob) * p.INNER + n * DH + e] = (intra + av[t] * inter) / den[t];
+    }
+  }
+}
+
+// 5. Outnorm + skip + SiLU(z) gate + proj_down + residual for TT tokens.
+__global__ void __launch_bounds__(NT) vil_epilogue(Params p) {
+  extern __shared__ float sm[];
+  const int DIM = p.DIM, INNER = p.INNER, NH = p.NH;
+  float* ys = sm;  // TT x INNER
+  const long ntok = (long)p.B * p.S;
+  const long tok0 = (long)blockIdx.x * TT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < TT * INNER; i += NT) {
+    const long t = tok0 + i / INNER;
+    ys[i] = t < ntok ? p.h[t * INNER + i % INNER] : 0.f;
+  }
+  __syncthreads();
+
+  for (int job = warp; job < TT * NH; job += NW) {
+    const int t = job / NH, n = job % NH;
+    float* r = ys + t * INNER + n * DH;
+    const float a0 = r[lane], a1 = r[lane + 32];
+    const float mu = warp_sum(a0 + a1) / DH;
+    const float d0 = a0 - mu, d1 = a1 - mu;
+    const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + p.norm_eps);
+    const long tk = tok0 + t;
+    const bool ok = tk < ntok;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int cl = lane + 32 * half, c = n * DH + cl;
+      const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
+      const float c_in = ok ? p.conv[tk * INNER + c] : 0.f;
+      const float zz = ok ? p.z[tk * INNER + c] : 0.f;
+      r[cl] = (hn + p.skip[c] * c_in) * silu(zz);
+    }
+  }
+  __syncthreads();
+
+  for (int c = tid; c < DIM; c += NT) {
+    float acc[TT];
+    const float bias = p.bd[c];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) acc[t] = bias;
+    for (int jj = 0; jj < INNER; ++jj) {
+      const float w = p.wd[(long)jj * DIM + c];
+#pragma unroll
+      for (int t = 0; t < TT; ++t) acc[t] += ys[t * INNER + jj] * w;
+    }
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      const long tk = tok0 + t;
+      if (tk < ntok) p.out[tk * DIM + c] = acc[t] + p.x[tk * DIM + c];
+    }
+  }
+}
+
+long workspace_floats(int B, int S, int INNER, int NH) {
+  const long NS = (S + CS - 1) / CS;
+  const long tok = (long)B * S;
+  return 5 * tok * INNER + 2 * (long)B * NH * S + (long)B * NH * NS * (2 * DH * DH + 2 * DH + 3);
+}
+
+size_t prologue_smem(int DIM, int INNER) {
+  return sizeof(float) * TT * (DIM + 5 * (size_t)INNER);
+}
+
+constexpr size_t kOutputSmem = sizeof(float) * (4 * CS * LD + DH * DH + DH + 6 * CS);
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch the wrapper must allocate for one call.
+long vil_layer_workspace_floats(int B, int S, int INNER, int NH) {
+  return workspace_floats(B, S, INNER, NH);
+}
+
+// Dynamic shared memory the prologue needs; the wrapper checks it against
+// the device limit before launching.
+long vil_layer_prologue_smem(int DIM, int INNER) { return (long)prologue_smem(DIM, INNER); }
+
+const char* vil_layer_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Returns 0 on success, else the CUDA error code of the first failed step.
+int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const float* wu,
+                      const float* bu, const float* wq, const float* wk, const float* wv,
+                      const float* bq, const float* bk, const float* bv, const float* wgi,
+                      const float* bgi, const float* wgf, const float* bgf, const float* nsc,
+                      const float* nbi, const float* skip, const float* wd, const float* bd,
+                      float* out, float* ws, int B, int S, int DIM, int INNER, int NH,
+                      int igate_exp, float eps, float norm_eps, float rms_eps, void* stream) {
+  if (INNER != NH * DH || B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Params p;
+  p.x = x; p.conv = conv; p.nrm = nrm; p.wu = wu; p.bu = bu;
+  p.wq = wq; p.wk = wk; p.wv = wv; p.bq = bq; p.bk = bk; p.bv = bv;
+  p.wgi = wgi; p.bgi = bgi; p.wgf = wgf; p.bgf = bgf;
+  p.nsc = nsc; p.nbi = nbi; p.skip = skip; p.wd = wd; p.bd = bd; p.out = out;
+  p.B = B; p.S = S; p.DIM = DIM; p.INNER = INNER; p.NH = NH;
+  p.NS = (S + CS - 1) / CS;
+  p.igate_exp = igate_exp; p.eps = eps; p.norm_eps = norm_eps; p.rms_eps = rms_eps;
+  const long tok = (long)B * S, rows = (long)B * NH;
+  float* w = ws;
+  p.q = w; w += tok * INNER;
+  p.k = w; w += tok * INNER;
+  p.v = w; w += tok * INNER;
+  p.z = w; w += tok * INNER;
+  p.h = w; w += tok * INNER;
+  p.ig = w; w += rows * S;
+  p.fg = w; w += rows * S;
+  p.kv = w; w += rows * p.NS * DH * DH;
+  p.cprev = w; w += rows * p.NS * DH * DH;
+  p.ksum = w; w += rows * p.NS * DH;
+  p.nprev = w; w += rows * p.NS * DH;
+  p.btot = w; w += rows * p.NS;
+  p.mloc = w; w += rows * p.NS;
+  p.mprev = w; w += rows * p.NS;
+
+  cudaError_t err;
+  const size_t pro_smem = prologue_smem(DIM, INNER);
+  const size_t epi_smem = sizeof(float) * TT * (size_t)INNER;
+  if ((err = cudaFuncSetAttribute(vil_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)pro_smem)) != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(vil_chunk_output, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kOutputSmem)) != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(vil_epilogue, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)epi_smem)) != cudaSuccess) return err;
+
+  const unsigned tok_blocks = (unsigned)((tok + TT - 1) / TT);
+  vil_prologue<<<tok_blocks, NT, pro_smem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil_chunk_summary<<<dim3(p.NS, rows), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil_chunk_output<<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil_epilogue<<<tok_blocks, NT, epi_smem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,50 @@
+"""Box geometry: format conversion, pairwise IoU and letterbox un-mapping.
+
+Port of ``xywh2xyxy``, ``clip_boxes``, ``scale_boxes`` and ``box_iou`` in
+``xlstm_yolo_tpu/ops/boxes.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-7
+
+
+def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (x1, y1, x2, y2) on the last axis."""
+    cx, cy, w, h = x.unbind(-1)
+    hw, hh = w * 0.5, h * 0.5
+    return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)
+
+
+def clip_boxes(boxes: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Clip xyxy boxes to an image of shape (h, w)."""
+    h, w = shape
+    hi = torch.tensor([w, h, w, h], dtype=boxes.dtype, device=boxes.device)
+    return torch.minimum(boxes.clamp(min=0), hi)
+
+
+def scale_boxes(boxes: torch.Tensor, from_shape: tuple[int, int], to_shape: tuple[int, int],
+                padded: bool = True) -> torch.Tensor:
+    """Rescale xyxy boxes from a letterboxed ``from_shape`` back to
+    ``to_shape``: remove the centered padding, divide by the gain, clip."""
+    gain = min(from_shape[0] / to_shape[0], from_shape[1] / to_shape[1])
+    pad_w = round((from_shape[1] - to_shape[1] * gain) / 2 - 0.1)
+    pad_h = round((from_shape[0] - to_shape[0] * gain) / 2 - 0.1)
+    if padded:
+        boxes = boxes - torch.tensor([pad_w, pad_h, pad_w, pad_h], dtype=boxes.dtype,
+                                     device=boxes.device)
+    return clip_boxes(boxes / gain, to_shape)
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Pairwise IoU of (..., M, 4) and (..., N, 4) xyxy boxes -> (..., M, N)."""
+    a = a[..., :, None, :]
+    b = b[..., None, :, :]
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area_a + area_b - inter + eps)
