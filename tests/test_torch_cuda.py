@@ -68,6 +68,15 @@ def test_vil_layer_kernel_rejects_bad_input(cuda_device):
         vil_layer_fwd(*args, 4)
 
 
+def test_vil_layer_kernel_refuses_grad(cuda_device):
+    args = _layer_args(1, 64, 64, 2, cuda_device, seed=0)
+    args[3].requires_grad_()
+    before = vil_layer_fwd.launches
+    with pytest.raises(NotImplementedError):
+        vil_layer_fwd(*args, 2)
+    assert vil_layer_fwd.launches == before
+
+
 def test_vil_yolo_forward_launches_kernel_per_stage(cuda_device):
     import xlstm_yolo_torch.nn.vil as vil_mod
     from xlstm_yolo_torch.nn.tasks import TaskModel

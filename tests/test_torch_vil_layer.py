@@ -83,6 +83,18 @@ def test_vil_layer_fwd_rejects_other_devices():
         vil_layer_fwd(*(torch.from_numpy(a[n]).to("meta") for n in NAMES), 2)
 
 
+def test_vil_layer_fwd_off_cpu_refuses_grad():
+    """The kernel has no backward: off the CPU, a call that needs gradients
+    raises instead of returning an output cut from the graph."""
+    a = layer_args(S=8)
+    args = [torch.from_numpy(a[n]).to("meta") for n in NAMES]
+    args[3].requires_grad_()  # proj_up kernel, as a module parameter would be
+    with pytest.raises(NotImplementedError):
+        vil_layer_fwd(*args, 2)
+    with torch.no_grad(), pytest.raises(ValueError):  # no grad: on to the device check
+        vil_layer_fwd(*args, 2)
+
+
 def _port(module, jax_vars):
     return load_jax_variables(module, flatten_variables(jax_vars)).eval()
 

@@ -14,7 +14,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -65,15 +64,13 @@ class CudaLibrary:
         self.source = source
         self.declare = declare
         self._lib = None
-        self._lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(build_library(self.source)))
-                for name, (restype, argtypes) in self.declare.items():
-                    fn = getattr(lib, name)
-                    fn.restype = restype
-                    fn.argtypes = list(argtypes)
-                self._lib = lib
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.source)))
+            for name, (restype, argtypes) in self.declare.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = list(argtypes)
+            self._lib = lib
         return self._lib

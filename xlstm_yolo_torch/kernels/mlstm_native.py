@@ -38,7 +38,6 @@ def mlstm_chunkwise(
     chunk_size: int = 64,
     igate_act: str = "exp",
     eps: float = 1e-6,
-    initial_state=None,
     return_last_state: bool = False,
 ):
     """Chunked-parallel mLSTM. q/k (B, NH, S, DQK), v (B, NH, S, DV), gate
@@ -70,12 +69,9 @@ def mlstm_chunkwise(
     kv = torch.einsum("bncsd,bncse->bncde", kc * gw[..., None], vc)
     ksum = (kc * gw[..., None]).sum(dim=-2)  # (B, NH, NS, DH)
 
-    if initial_state is None:
-        c_st = q.new_zeros((B, NH, DH, DV), dtype=f32)
-        n_st = q.new_zeros((B, NH, DH), dtype=f32)
-        m_st = q.new_zeros((B, NH), dtype=f32)
-    else:
-        c_st, n_st, m_st = (t.to(f32) for t in initial_state)
+    c_st = q.new_zeros((B, NH, DH, DV), dtype=f32)
+    n_st = q.new_zeros((B, NH, DH), dtype=f32)
+    m_st = q.new_zeros((B, NH), dtype=f32)
 
     c_prev, n_prev, m_prev = [], [], []
     for j in range(NS):

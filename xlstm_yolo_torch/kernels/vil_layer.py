@@ -31,6 +31,7 @@ from ._build import CudaLibrary
 from .mlstm_native import mlstm_chunkwise
 
 KERNEL_DH = 64  # head dim the CUDA kernel is written for
+KERNEL_CS = 64  # chunk length the CUDA kernel fixes (CS in csrc/vil_layer.cu)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = CudaLibrary("vil_layer.cu", {
@@ -103,10 +104,20 @@ def vil_layer_fwd(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,
                   norm_eps: float = 1e-3, rms_eps: float = 1e-6) -> torch.Tensor:
     """ViL layer forward. CPU tensors take ``vil_layer_ref``; CUDA tensors
     launch the hand-written kernel (fp32, head dim 64) or raise. Each kernel
-    launch adds one to ``vil_layer_fwd.launches``. The kernel picks its own
-    chunk length; the result does not depend on it beyond rounding."""
+    launch adds one to ``vil_layer_fwd.launches``.
+
+    ``chunk_size`` is read by the plain version only: the kernel always
+    walks chunks of ``KERNEL_CS``, and the result does not depend on the
+    chunk length beyond rounding. The kernel has no backward yet, so off the
+    CPU a call that would need gradients raises instead of returning a
+    tensor cut from the graph."""
     args = (x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv, wgi, bgi,
             wgf, bgf, nscale, nbias, skip, wd, bd)
+    if (x.device.type != "cpu" and torch.is_grad_enabled()
+            and any(a.requires_grad for a in args)):
+        raise NotImplementedError(
+            "vil_layer_fwd: the ViL layer kernel has no backward yet; run the forward "
+            "under torch.no_grad() or torch.inference_mode(), or on the CPU")
     if x.device.type == "cpu":
         return vil_layer_ref(*args, num_heads, chunk_size=chunk_size, igate_act=igate_act,
                              eps=eps, norm_eps=norm_eps, rms_eps=rms_eps)

@@ -120,7 +120,9 @@ class MatrixLSTMCell(nn.Module):
 
 
 class ViLLayer(nn.Module):
-    """The ViL mixing layer on (B, S, D); see the module docstring."""
+    """The ViL mixing layer on (B, S, D); see the module docstring.
+    ``chunk_size`` sets the chunk length of the plain (CPU) path only; the
+    CUDA kernel walks chunks of its own fixed length."""
 
     def __init__(self, dim: int, direction: str = "forward", expansion: int = 2,
                  qkv_block_size: int = 4, conv_kernel_size: int = 3, seqlens=None,
