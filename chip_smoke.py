@@ -2,13 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernels from ``xlstm_yolo_torch/csrc``,
-holds each against its plain PyTorch version at the shapes the main path
-gives it, then drives the main path — ViL-YOLO-n detection inference,
-uint8 540x810 frames -> letterbox -> forward -> decode -> NMS at 640 px —
-through ``xlstm_yolo_torch.engine.predictor.Predictor`` on seeded random
-weights, and checks what comes out against the same model with the plain
-versions forced in. Every phase prints one JSON line; then come the
+Builds the port's hand-written CUDA kernels from ``xlstm_yolo_torch/csrc``
+(one nvcc per source, all started together), holds each against its plain
+PyTorch version at the shapes the main path gives it, then drives both ends
+of the main path on seeded random ViL-YOLO-n weights at 640 px:
+
+* inference — uint8 540x810 frames -> letterbox -> forward -> decode -> NMS
+  through ``xlstm_yolo_torch.engine.predictor.Predictor``, checked against
+  the same model with the plain versions forced in;
+* the train step — uint8 images and padded labels -> train-mode forward ->
+  v8 loss -> backward -> clip, decay, nesterov SGD, EMA through
+  ``xlstm_yolo_torch.engine.trainer.TrainStep``; the loss and every
+  parameter gradient are checked against the same step with the plain
+  versions forced in, then the step is timed by stage.
+
+Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
 non-zero, printing no result, when there is no GPU or any phase fails.
@@ -20,6 +28,8 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -33,6 +43,8 @@ BATCH, SRC_HW, IMGSZ = 8, (540, 810), 640
 # ViL-YOLO-n stages at 640 px: (name, S, DIM, INNER, NH)
 STAGES = [("P3", 6400, 64, 128, 2), ("P4", 1600, 128, 256, 4), ("P5", 400, 256, 512, 8)]
 CHUNK = 128  # the YAML's chunk size, read by the plain version only
+N_LABELS = 32  # padded label slots of a train batch, as the JAX bench_train.py
+TRAIN_TIMED, TRAIN_WARMUP = 3, 1
 
 
 def emit(obj) -> None:
@@ -118,7 +130,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = sorted(p.name for p in CSRC_DIR.glob("*.cu"))
-    libs = [build_library(src) for src in sources]
+    with ThreadPoolExecutor(len(sources)) as pool:  # nvcc runs in subprocesses
+        libs = list(pool.map(build_library, sources))
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for lib in libs for ln in lib.with_suffix(".log").read_text().splitlines()
              if "Used" in ln or "Compiling entry" in ln]
@@ -133,40 +146,56 @@ def compare(got, want):
     return abs_err, abs_err / want.abs().max().item(), bool(torch.isfinite(got).all())
 
 
-def phase_kernel_parity():
-    """vil_layer_fwd vs vil_layer_ref at the stage shapes, at the main path's
-    batch (the arguments that are then timed) and at batch 2."""
-    import torch
+def bwd_bound(B, S, INNER, NH):
+    """Least time for one chunkwise-backward call. FLOPs count the
+    multiply-adds the CUDA function does per chunk and head of the
+    (padded) sequence: six products over the causal half of the chunk
+    (q k^T, E v, E^T dA, dA v^T, dqk k, dqk^T q: 3 CS (CS+1) DH) and five
+    DH x DH products per token (q C, dA C^T, the dC_attn sum, and the
+    carry's dv and dk terms: 5 CS DH^2), times 2 FLOPs; bytes count q, k,
+    v, dh, the gates and the carry states read once and dq, dk, dv, di, df
+    written once. Elementwise work (exp, norms, scans) is left out."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS as CS
 
-    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd, vil_layer_ref
+    dh = INNER // NH
+    ns = -(-S // CS)
+    macs = B * NH * ns * (3 * CS * (CS + 1) * dh + 5 * CS * dh * dh)
+    nbytes = 4 * (7 * B * S * INNER + 4 * B * NH * S + B * NH * ns * (dh * dh + dh + 3))
+    t_ops, t_bytes = 2 * macs / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    dev = torch.device("cuda")
+
+def kernel_parity(kernel, make_case, run, plain, bound):
+    """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) at
+    the stage shapes, on ``make_case(B, stage)`` at the main path's batch
+    (the case that is then timed) and at batch 2; both return a tuple of
+    outputs, each held to TOL_REL of its own max. Emits one line per stage
+    and returns the totals over the stages for the kernels line."""
     worst_rel, worst_abs = 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = set()
-    for name, S, DIM, INNER, NH in STAGES:
+    for stage in STAGES:
+        name, S, DIM, INNER, NH = stage
         errs = {}
         for B in (BATCH, 2):
-            args = layer_args(B, S, DIM, INNER, NH, seed=S + B, device=dev)
-            errs[B] = compare(vil_layer_fwd(*args, NH, chunk_size=CHUNK),
-                              vil_layer_ref(*args, NH, chunk_size=CHUNK))
+            case = make_case(B, stage)
+            per = [compare(g, w) for g, w in zip(run(case, NH), plain(case, NH))]
+            errs[B] = (max(e[0] for e in per), max(e[1] for e in per), all(e[2] for e in per))
             if B == BATCH:
-                timed = args
+                timed = case
         ok = all(fin and rel <= TOL_REL for _, rel, fin in errs.values())
         abs_err = max(e[0] for e in errs.values())
         rel = max(e[1] for e in errs.values())
-        args = timed
-        ms = cuda_time_ms(lambda: vil_layer_fwd(*args, NH, chunk_size=CHUNK), iters=20)
-        plain_ms = cuda_time_ms(lambda: vil_layer_ref(*args, NH, chunk_size=CHUNK), iters=5)
-        n_w = sum(a.numel() for a in args[2:])
-        bound_ms, by = layer_bound(BATCH, S, DIM, INNER, NH, n_w)
-        emit({"phase": "kernel_parity", "kernel": "vil_layer_fwd", "stage": name,
+        ms = cuda_time_ms(lambda: run(timed, NH), iters=20)
+        plain_ms = cuda_time_ms(lambda: plain(timed, NH), iters=5)
+        bound_ms, by = bound(timed, stage)
+        emit({"phase": "kernel_parity", "kernel": kernel, "stage": name,
               "shape": [BATCH, S, DIM, INNER, NH],
               "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
               "max_abs_err": abs_err, "maxrelerr": rel, "tol": TOL_REL, "ok": ok,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by})
         if not ok:
-            raise PhaseError(f"vil_layer_fwd disagrees with vil_layer_ref at {name}: "
+            raise PhaseError(f"{kernel} disagrees with its plain version at {name}: "
                              f"maxrelerr {rel}")
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
         totals["ms"] += ms
@@ -177,11 +206,46 @@ def phase_kernel_parity():
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations"}
 
 
-def build_main_model(device):
+def phase_kernel_parity():
+    """K3 (vil_layer_fwd vs vil_layer_ref) on seeded layer arguments, then
+    K2 (mlstm_chunkwise_bwd vs mlstm_chunkwise_bwd_plain) on the
+    activations and carry states the layer kernel's forward leaves for
+    seeded layer arguments, with a seeded output gradient."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain
+    from xlstm_yolo_torch.kernels.vil_layer import _launch, vil_layer_fwd, vil_layer_ref
+
+    dev = torch.device("cuda")
+    k3 = kernel_parity(
+        "vil_layer_fwd",
+        lambda B, st: layer_args(B, *st[1:], seed=st[1] + B, device=dev),
+        lambda args, nh: (vil_layer_fwd(*args, nh, chunk_size=CHUNK),),
+        lambda args, nh: (vil_layer_ref(*args, nh, chunk_size=CHUNK),),
+        lambda args, st: layer_bound(BATCH, *st[1:], sum(a.numel() for a in args[2:])))
+
+    def bwd_case(B, stage):
+        _, S, DIM, INNER, NH = stage
+        args = layer_args(B, S, DIM, INNER, NH, seed=S + B + 1, device=dev)
+        _, (_, q, k, v, ig, fg), carry = _launch(args, NH, "exp", 1e-6, 1e-3, 1e-6)
+        dh = torch.from_numpy(np.random.default_rng(S + B).normal(
+            size=(B, S, INNER)).astype(np.float32)).to(dev)
+        return (q, k, v, ig, fg, dh), carry
+
+    k2 = kernel_parity(
+        "mlstm_chunkwise_bwd", bwd_case,
+        lambda case, nh: mlstm_chunkwise_bwd(*case[0], nh, carry=case[1]),
+        lambda case, nh: mlstm_chunkwise_bwd_plain(*case[0], nh),
+        lambda case, st: bwd_bound(BATCH, st[1], st[3], st[4]))
+    return k3, k2
+
+
+def build_main_model(device, train: bool = False):
     """ViL-YOLO-n on ``device``: seeded init with the JAX scheme, then seeded
-    gate kernels (zero at init) and zero class biases, so the mLSTM gates
-    vary along the sequence and detections clear the confidence threshold;
-    conv+BN folded."""
+    gate kernels (zero at init), so the mLSTM gates vary along the
+    sequence. For inference, zero class biases (detections clear the
+    confidence threshold) and conv+BN folded; for training (``train``), the
+    init class biases and separate BatchNorms, as a run starts."""
     import torch
 
     from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
@@ -195,6 +259,8 @@ def build_main_model(device):
             if isinstance(m, MatrixLSTMCell):
                 for lin in (m.igate, m.fgate):
                     lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+        if train:
+            return model
         det = getattr(model, f"l{model.parsed.head_index}")
         for i in range(det.nl):
             getattr(det, f"cv3_{i}_2").bias.zero_()
@@ -262,6 +328,125 @@ def phase_main_path():
     return launches
 
 
+@contextmanager
+def plain_vil_kernels():
+    """The ViL layer's autograd Function with the plain versions forced in:
+    the plain forward instead of the layer kernel, the plain chunkwise
+    backward instead of its kernel."""
+    import xlstm_yolo_torch.kernels.vil_layer as vl
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd_plain
+
+    def plain_launch(args, num_heads, igate_act, eps, norm_eps, rms_eps):
+        out, acts = vl._vil_layer_plain(*args, num_heads, CHUNK, igate_act, eps, norm_eps,
+                                        rms_eps)
+        return out, acts, ()
+
+    def plain_bwd(*a, carry=None, **kw):
+        return mlstm_chunkwise_bwd_plain(*a, **kw)
+
+    with mock.patch.object(vl, "_launch", plain_launch), \
+            mock.patch.object(vl, "mlstm_chunkwise_bwd", plain_bwd):
+        yield
+
+
+def train_batch(device):
+    """Seeded uint8 640 px images and fixed padded labels: three boxes per
+    image in N_LABELS slots, (cls, x1, y1, x2, y2) pixels."""
+    import torch
+
+    imgs = np.random.default_rng(2).integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    cb = np.zeros((BATCH, N_LABELS, 5), np.float32)
+    mask = np.zeros((BATCH, N_LABELS), bool)
+    boxes = [[1, 100, 100, 400, 400], [7, 320, 40, 600, 260], [15, 20, 380, 250, 630]]
+    cb[:, :3] = boxes
+    mask[:, :3] = True
+    return {"img": torch.from_numpy(imgs).to(device), "cls_boxes": torch.from_numpy(cb).to(device),
+            "mask": torch.from_numpy(mask).to(device)}
+
+
+def phase_train_path():
+    """One TrainStep with the kernels against the same step with the plain
+    versions forced in (loss, and every parameter gradient within TOL_REL of
+    that tensor's max), then TRAIN_TIMED steps after TRAIN_WARMUP timed by
+    stage with CUDA events."""
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+
+    batch = train_batch("cuda")
+    steps = {}
+    for kind in ("kernels", "plain"):
+        model = build_main_model("cuda", train=True)
+        step = TrainStep(model)
+        ctx = plain_vil_kernels() if kind == "plain" else nullcontext()
+        with ctx:
+            vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+            total, aux = step.forward_loss(batch)
+            step.backward(total)
+            torch.cuda.synchronize()
+            launches = (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        steps[kind] = (step, float(total.detach()), grads, launches,
+                       {k: float(v.detach()) for k, v in aux.items()})
+    step, loss_k, grads_k, launches, aux = steps["kernels"]
+    _, loss_p, grads_p, plain_launches, _ = steps["plain"]
+    del steps
+    gmax = max(g.abs().max().item() for g in grads_p.values())
+    worst_rel, worst_name, vanishing = 0.0, None, 0
+    for n, gp in grads_p.items():
+        scale = gp.abs().max().item()
+        err = (grads_k[n] - gp).abs().max().item()
+        if scale < 1e-6 * gmax:
+            # zero up to rounding (a bias that a train-mode BatchNorm removes)
+            vanishing += 1
+            rel = err / gmax
+        else:
+            rel = err / scale
+        if rel > worst_rel:
+            worst_rel, worst_name = rel, n
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    step.apply_update()
+
+    times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+    losses = [loss_k]
+    vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+    for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _ = step.forward_loss(batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        step.apply_update()
+        ev[3].record()
+        torch.cuda.synchronize()
+        losses.append(float(total.detach()))
+        if it >= TRAIN_WARMUP:
+            for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                times[k] += a.elapsed_time(b) / TRAIN_TIMED
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    per_step = (vil_layer_fwd.launches / n_steps, mlstm_chunkwise_bwd.launches / n_steps)
+    total_ms = sum(times.values())
+    finite = all(np.isfinite(losses)) and grads_finite
+    expect = (len(STAGES), len(STAGES))
+    ok = (finite and launches == expect and per_step == expect and plain_launches == (0, 0)
+          and worst_rel <= TOL_REL and loss_rel <= TOL_REL)
+    emit({"phase": "train_path", "model": "vil_yolon.yaml", "batch": BATCH, "imgsz": IMGSZ,
+          "labels": N_LABELS, "launches_vil_layer_fwd": launches[0],
+          "launches_mlstm_chunkwise_bwd": launches[1], "launches_per_timed_step": per_step,
+          "expected_launches": expect, "loss": loss_k, "loss_plain": loss_p,
+          "loss_relerr": loss_rel, "loss_terms": aux, "grad_maxrelerr": worst_rel,
+          "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+          "losses": losses, "finite": finite, "ms": times, "total_ms": total_ms,
+          "img_per_s": BATCH / total_ms * 1e3, "ok": ok})
+    if not ok:
+        raise PhaseError("train path check failed")
+    return launches
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -269,9 +454,11 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k = phase_kernel_parity()
+        k, k2 = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
+        phase = "train_path"
+        train_launches = phase_train_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -282,7 +469,13 @@ def main() -> int:
         "replaces": "xlstm_yolo_tpu/kernels/mlstm_pallas.py:1142 (_kernel_vil_layer)",
         "launches": launches, "max_abs_err": k["max_abs_err"], "maxrelerr": k["maxrelerr"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]})
+        "bound_by": k["bound_by"], "library_ms": None}, {
+        "name": "mlstm_chunkwise_bwd", "route": "cuda",
+        "source": "xlstm_yolo_torch/csrc/mlstm_bwd.cu",
+        "replaces": "xlstm_yolo_tpu/kernels/mlstm_pallas_bwd.py:255 (_kernel)",
+        "launches": train_launches[1], "max_abs_err": k2["max_abs_err"],
+        "maxrelerr": k2["maxrelerr"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -4,13 +4,17 @@ Marked ``cuda``; each test skips where there is no CUDA device (the
 kernels have no CPU mode). Imports nothing of JAX, so it runs on a GPU host
 with only the port installed: ``pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance: relative error (max |kernel - plain| / max |plain|) 1e-3, fp32
-with other summation orders and chunk lengths than the plain version.
+with other summation orders and chunk lengths than the plain version; each
+gradient is held to its own max.
 """
 import numpy as np
 import pytest
 import torch
 
-from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd, vil_layer_ref
+from xlstm_yolo_torch.kernels.mlstm_bwd import (
+    chunk_carry_states, mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
+from xlstm_yolo_torch.kernels.vil_layer import (
+    _vil_layer_plain, vil_layer_bwd_ref, vil_layer_fwd, vil_layer_ref)
 
 pytestmark = pytest.mark.cuda
 TOL_REL = 1e-3
@@ -69,12 +73,47 @@ def test_vil_layer_kernel_rejects_bad_input(cuda_device):
 
 
 def test_vil_layer_kernel_refuses_grad(cuda_device):
-    args = _layer_args(1, 64, 64, 2, cuda_device, seed=0)
-    args[3].requires_grad_()
-    before = vil_layer_fwd.launches
-    with pytest.raises(NotImplementedError):
-        vil_layer_fwd(*args, 2)
-    assert vil_layer_fwd.launches == before
+    """With gradients needed the call goes through the hand-written backward:
+    one forward launch, and one chunkwise-backward launch in backward();
+    the gradients match the plain backward on the plain forward's
+    activations."""
+    args = _layer_args(2, 200, 64, 2, cuda_device, seed=1)
+    leaves = [a.clone().requires_grad_() for a in args]
+    gout = torch.randn(2, 200, 64, device=cuda_device)
+    f0, b0 = vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches
+    out = vil_layer_fwd(*leaves, 2, chunk_size=128)
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
+    _, acts = _vil_layer_plain(*args, 2, 128, "exp", 1e-6, 1e-3, 1e-6)
+    want = vil_layer_bwd_ref(args, acts, gout, 2, chunk_size=128)
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        assert _rel(leaf.grad, w) <= TOL_REL, i
+
+
+def _cell_args(B, S, NH, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(device)
+    INNER = NH * 64
+    q = mk(B, S, INNER)
+    k = q + 0.3 * mk(B, S, INNER)
+    return (q, k, mk(B, S, INNER), mk(B, NH, S) - 3.0, mk(B, NH, S) + 3.0, mk(B, S, INNER))
+
+
+@pytest.mark.parametrize("S,igate_act", [(256, "exp"), (400, "exp"), (77, "sigmoid")],
+                         ids=["whole_chunks", "ragged_p5", "short_sigmoid"])
+def test_mlstm_bwd_kernel_matches_plain(cuda_device, S, igate_act):
+    q, k, v, i, f, dh = _cell_args(2, S, 2, cuda_device, seed=S)
+    heads = lambda t: t.reshape(2, S, 2, 64).transpose(1, 2)
+    carry = chunk_carry_states(heads(k), heads(v), i, f, 64, igate_act)
+    before = mlstm_chunkwise_bwd.launches
+    got = mlstm_chunkwise_bwd(q, k, v, i, f, dh, 2, carry=carry, igate_act=igate_act)
+    want = mlstm_chunkwise_bwd_plain(q, k, v, i, f, dh, 2, igate_act=igate_act)
+    torch.cuda.synchronize()
+    assert mlstm_chunkwise_bwd.launches == before + 1
+    for name, g_, w in zip("qkvif", got, want):
+        assert bool(torch.isfinite(g_).all()), name
+        assert _rel(g_, w) <= TOL_REL, name
 
 
 def test_vil_yolo_forward_launches_kernel_per_stage(cuda_device):

@@ -3,12 +3,14 @@
 Seeded numpy inputs go through the JAX functions and the port's on the CPU.
 Candidate scores are distinct (even after the bfloat16 rounding of the
 predict path's selection), so no tie can reorder the kept detections.
-Tolerance 1e-5 for fp32 arithmetic, exact for indices and masks.
+Tolerance 1e-5 for fp32 arithmetic, exact for indices and masks; the CIoU
+gradient (its alpha carries none) at 1e-5 as well.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from xlstm_yolo_tpu.ops import anchors as JA, boxes as JB, letterbox as JL, nms as JN
@@ -50,6 +52,30 @@ def test_box_ops_match_jax():
     np.testing.assert_allclose(TB.box_iou(tx, tx).numpy(), np.asarray(JB.box_iou(jx, jx)), **TOL)
     np.testing.assert_allclose(TB.scale_boxes(tx, (64, 64), (54, 81)).numpy(),
                                np.asarray(JB.scale_boxes(jx, (64, 64), (54, 81))), **TOL)
+
+
+def test_bbox_iou_and_its_gradient_match_jax():
+    rng = np.random.default_rng(5)
+    lt = rng.uniform(0, 40, (2, 30, 2))
+    b1 = np.concatenate([lt, lt + rng.uniform(1, 20, (2, 30, 2))], -1).astype(np.float32)
+    b2 = (b1 + rng.normal(size=b1.shape) * 3).astype(np.float32)
+    b2[..., 2:] = np.maximum(b2[..., 2:], b2[..., :2] + 0.5)
+    jfn = lambda a: JB.bbox_iou(a, jnp.asarray(b2), xywh=False, CIoU=True)
+    want, jgrad = jfn(jnp.asarray(b1)), jax.grad(lambda a: jnp.sum(jfn(a)))(jnp.asarray(b1))
+    t1 = torch.from_numpy(b1).requires_grad_()
+    got = TB.bbox_iou(t1, torch.from_numpy(b2))
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(t1.grad.numpy(), np.asarray(jgrad), **TOL)
+
+
+def test_bbox2dist_matches_jax():
+    rng = np.random.default_rng(6)
+    a = rng.uniform(0, 8, (40, 2)).astype(np.float32)
+    b = np.concatenate([a - rng.uniform(-1, 20, (2, 40, 2)), a + rng.uniform(-1, 20, (2, 40, 2))],
+                       -1).astype(np.float32)
+    np.testing.assert_allclose(TA.bbox2dist(torch.from_numpy(a), torch.from_numpy(b), 15).numpy(),
+                               np.asarray(JA.bbox2dist(jnp.asarray(a), jnp.asarray(b), 15)), **TOL)
 
 
 @pytest.mark.parametrize("hw,imgsz", [((54, 81), 64), ((70, 40), 48)])

@@ -84,14 +84,15 @@ def test_vil_layer_fwd_rejects_other_devices():
 
 
 def test_vil_layer_fwd_off_cpu_refuses_grad():
-    """The kernel has no backward: off the CPU, a call that needs gradients
-    raises instead of returning an output cut from the graph."""
+    """Off the CPU and CUDA, a call refuses whether or not it needs
+    gradients: there is no plain fallback for another device, and the
+    autograd Function (the hand-written backward) is not entered."""
     a = layer_args(S=8)
     args = [torch.from_numpy(a[n]).to("meta") for n in NAMES]
     args[3].requires_grad_()  # proj_up kernel, as a module parameter would be
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         vil_layer_fwd(*args, 2)
-    with torch.no_grad(), pytest.raises(ValueError):  # no grad: on to the device check
+    with torch.no_grad(), pytest.raises(ValueError):
         vil_layer_fwd(*args, 2)
 
 

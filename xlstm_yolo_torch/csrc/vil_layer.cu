@@ -467,10 +467,19 @@ __global__ void __launch_bounds__(NT) vil_epilogue(Params p) {
   }
 }
 
-long workspace_floats(int B, int S, int INNER, int NH) {
+// The workspace's arrays, in this order, with their sizes in floats; the
+// backward reads q/k/v/h, the gates and the carried-in states from it.
+enum WsArray { WQ, WK, WV, WZ, WH, WIG, WFG, WKV, WCPREV, WKSUM, WNPREV, WBTOT, WMLOC, WMPREV,
+               kNumWs };
+
+void workspace_layout(int B, int S, int INNER, int NH, long* off) {
   const long NS = (S + CS - 1) / CS;
-  const long tok = (long)B * S;
-  return 5 * tok * INNER + 2 * (long)B * NH * S + (long)B * NH * NS * (2 * DH * DH + 2 * DH + 3);
+  const long tok = (long)B * S, rows = (long)B * NH;
+  const long size[kNumWs] = {tok * INNER, tok * INNER, tok * INNER, tok * INNER, tok * INNER,
+                             rows * S, rows * S, rows * NS * DH * DH, rows * NS * DH * DH,
+                             rows * NS * DH, rows * NS * DH, rows * NS, rows * NS, rows * NS};
+  off[0] = 0;
+  for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + size[i];
 }
 
 size_t prologue_smem(int DIM, int INNER) {
@@ -483,9 +492,11 @@ constexpr size_t kOutputSmem = sizeof(float) * (4 * CS * LD + DH * DH + DH + 6 *
 
 extern "C" {
 
-// Floats of scratch the wrapper must allocate for one call.
-long vil_layer_workspace_floats(int B, int S, int INNER, int NH) {
-  return workspace_floats(B, S, INNER, NH);
+// Writes the offsets (in floats) of the workspace's arrays q, k, v, z, h,
+// ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev into off[0..13] and its
+// total size into off[14]; the wrapper allocates off[14] floats.
+void vil_layer_workspace_layout(int B, int S, int INNER, int NH, long* off) {
+  workspace_layout(B, S, INNER, NH, off);
 }
 
 // Dynamic shared memory the prologue needs; the wrapper checks it against
@@ -515,21 +526,12 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
   p.NS = (S + CS - 1) / CS;
   p.igate_exp = igate_exp; p.eps = eps; p.norm_eps = norm_eps; p.rms_eps = rms_eps;
   const long tok = (long)B * S, rows = (long)B * NH;
-  float* w = ws;
-  p.q = w; w += tok * INNER;
-  p.k = w; w += tok * INNER;
-  p.v = w; w += tok * INNER;
-  p.z = w; w += tok * INNER;
-  p.h = w; w += tok * INNER;
-  p.ig = w; w += rows * S;
-  p.fg = w; w += rows * S;
-  p.kv = w; w += rows * p.NS * DH * DH;
-  p.cprev = w; w += rows * p.NS * DH * DH;
-  p.ksum = w; w += rows * p.NS * DH;
-  p.nprev = w; w += rows * p.NS * DH;
-  p.btot = w; w += rows * p.NS;
-  p.mloc = w; w += rows * p.NS;
-  p.mprev = w; w += rows * p.NS;
+  long off[kNumWs + 1];
+  workspace_layout(B, S, INNER, NH, off);
+  p.q = ws + off[WQ]; p.k = ws + off[WK]; p.v = ws + off[WV]; p.z = ws + off[WZ];
+  p.h = ws + off[WH]; p.ig = ws + off[WIG]; p.fg = ws + off[WFG]; p.kv = ws + off[WKV];
+  p.cprev = ws + off[WCPREV]; p.ksum = ws + off[WKSUM]; p.nprev = ws + off[WNPREV];
+  p.btot = ws + off[WBTOT]; p.mloc = ws + off[WMLOC]; p.mprev = ws + off[WMPREV];
 
   cudaError_t err;
   const size_t pro_smem = prologue_smem(DIM, INNER);

@@ -56,6 +56,20 @@ def build_library(source: str, extra_flags: tuple = ()) -> Path:
     return out
 
 
+def check_tensor(where: str, name: str, t, shape, device):
+    """A kernel argument as the C interface needs it: float32, on
+    ``device``, of ``shape``; returned contiguous. Raises otherwise."""
+    import torch
+
+    if t.dtype != torch.float32:
+        raise TypeError(f"{where}: {name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{where}: {name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{where}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return t.contiguous()
+
+
 class CudaLibrary:
     """A ``csrc`` source built and loaded on first use. ``declare`` maps each
     exported C function to its (restype, argtypes)."""

@@ -4,7 +4,9 @@ Port of ``Detect``, ``split_maps`` and ``decode_detections`` in
 ``xlstm_yolo_tpu/nn/heads.py``. The head emits, per scale, separate box
 (B, 4*reg_max, H, W) and class (B, nc, H, W) maps; decoding to
 (B, N, 4 + nc) pixel xywh boxes plus sigmoid scores is a standalone
-function, with anchors in row-major (H, W) order per scale.
+function, with anchors in row-major (H, W) order per scale. In train mode
+the head's output is the same list of raw maps; ``split_maps`` flattens it
+for the loss (``utils.loss.detection_loss``) as for the decode.
 """
 from __future__ import annotations
 

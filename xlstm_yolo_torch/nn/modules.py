@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-3  # the JAX ConvBN's BatchNorm epsilon
+BN_MOMENTUM = 0.03  # torch convention: flax's momentum 0.97 keeps 0.97 of the old value
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:
@@ -33,21 +34,36 @@ def lecun_normal_(w: torch.Tensor, g: torch.Generator) -> torch.Tensor:
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm with flax semantics: normalize with the batch's
+    biased variance, and update the running statistics with that same
+    biased variance (torch's own update uses the unbiased one) at the
+    module's momentum. ``num_batches_tracked`` is not used."""
+    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+    return y
+
+
 class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm (eps 1e-3) + SiLU: the JAX ``ConvBN``."""
+    """Conv2d (no bias) + BatchNorm (eps 1e-3) + SiLU: the JAX ``ConvBN``.
+    In train mode the BatchNorm follows ``batch_norm_train``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
                  g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=0.03)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     def init_params(self, g: torch.Generator) -> None:
         lecun_normal_(self.conv.weight, g)
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = self.conv(x)
+        x = batch_norm_train(x, self.bn) if self.training else self.bn(x)
         return F.silu(x) if self.act else x
 
 

@@ -5,7 +5,8 @@ The torch model owns its parameters (the JAX one keeps them outside as a
 pytree): they are initialized from a ``torch.Generator`` seed with the JAX
 package's init scheme, or loaded from a JAX variable tree with
 ``utils.jax_weights.load_jax_variables``. ``predictions`` keeps the JAX
-boundary: NHWC images in, (B, N, 4 + nc) candidates out.
+boundary: NHWC images in, (B, N, 4 + nc) candidates out; ``loss`` is the
+forward plus the v8 detection loss on a padded-label batch.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from ..cfg import load_model_yaml
 from ..utils import resolve_device
+from ..utils.loss import detection_loss
 from . import heads as H
 from .graph import GraphModel, ParsedModel, parse_model
 
@@ -63,6 +65,17 @@ class TaskModel(GraphModel):
         (pixel xywh + sigmoid scores)."""
         raw = self(x.permute(0, 3, 1, 2))
         return H.decode_detections(raw, self.strides, self.nc, self.reg_max)
+
+    def loss(self, batch: dict):
+        """Forward on ``batch["img"]`` (B, H, W, 3) float images plus the v8
+        detection loss against ``batch["cls_boxes"]`` (B, n_max, 5) = (cls,
+        x1, y1, x2, y2) pixels and ``batch["mask"]`` (B, n_max). The forward
+        runs in the module's mode: in train mode (``model.train()``, as the
+        trainer sets it) BatchNorm uses the batch statistics and updates its
+        running ones. Returns (total, {"box", "cls", "dfl"})."""
+        raw = self(batch["img"].permute(0, 3, 1, 2))
+        lo = detection_loss(raw, batch["cls_boxes"], batch["mask"], self.strides, self.reg_max)
+        return lo.total, {"box": lo.box, "cls": lo.cls, "dfl": lo.dfl}
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

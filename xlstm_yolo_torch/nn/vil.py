@@ -1,6 +1,6 @@
 """Vision-LSTM (ViL) layers in torch.
 
-Port of the inference path of ``xlstm_yolo_tpu/nn/vil.py``: RMSNorm,
+Port of the layer-fused path of ``xlstm_yolo_tpu/nn/vil.py``: RMSNorm,
 MultiHeadLayerNorm, SequenceConv2d, ViLLayer, ViLBlock and ViLBlockPair.
 Sequences are (B, S, D) with tokens in row-major (H, W) order, as the JAX
 NHWC reshape gives them. Submodule and parameter names follow the JAX tree
@@ -12,8 +12,11 @@ ViLLayer follows the JAX layer-fused branch: RMSNorm and the x_mlstm half of
 proj_up run as torch ops to feed the depthwise conv, then
 ``kernels.vil_layer.vil_layer_fwd`` computes the rest of the layer from
 (x, conv_act) — on the GPU in one hand-written kernel call, on the CPU
-through its plain version. Fork quirks kept: forward-only traversal in the
-pair, no FFN, i-gate bias -10 and f-gate bias linspace(3, 6) at init.
+through its plain version. Under autograd, x's gradient sums the two paths,
+as in JAX: the conv branch's (autograd through the torch ops) and the
+layer function's own (its hand-written backward). Fork quirks kept:
+forward-only traversal in the pair, no FFN, i-gate bias -10 and f-gate bias
+linspace(3, 6) at init. The non-fused cell path (drop_path) is not ported.
 """
 from __future__ import annotations
 

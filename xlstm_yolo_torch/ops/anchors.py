@@ -1,6 +1,6 @@
 """Anchor grid and distribution-focal decode.
 
-Port of ``make_anchors``, ``dist2bbox`` and ``dfl_decode`` in
+Port of ``make_anchors``, ``dist2bbox``, ``bbox2dist`` and ``dfl_decode`` in
 ``xlstm_yolo_tpu/ops/anchors.py``.
 """
 from __future__ import annotations
@@ -31,6 +31,13 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=dim)
     return torch.cat([x1y1, x2y2], dim=dim)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances from the anchor centers, clipped
+    to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox.chunk(2, dim=-1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1).clamp(0, reg_max - 0.01)
 
 
 def dfl_decode(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Box geometry: format conversion, pairwise IoU and letterbox un-mapping.
 
-Port of ``xywh2xyxy``, ``clip_boxes``, ``scale_boxes`` and ``box_iou`` in
-``xlstm_yolo_tpu/ops/boxes.py``.
+Port of ``xywh2xyxy``, ``clip_boxes``, ``scale_boxes``, ``box_iou`` and
+``bbox_iou`` in ``xlstm_yolo_tpu/ops/boxes.py``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,3 +50,27 @@ def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
     area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
     return inter / (area_a + area_b - inter + eps)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Elementwise CIoU of broadcastable (..., 4) xyxy boxes -> (...): the
+    JAX ``bbox_iou(..., xywh=False, CIoU=True)``, the form the loss and the
+    assigner use. The IoU minus the center-distance and aspect-ratio
+    penalties; the trade-off weight alpha carries no gradient, as in the
+    reference."""
+    b1x1, b1y1, b1x2, b1y2 = box1.unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = box2.unbind(-1)
+    w1, h1 = b1x2 - b1x1, (b1y2 - b1y1) + eps
+    w2, h2 = b2x2 - b2x1, (b2y2 - b2y1) + eps
+    inter = ((torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0)
+             * (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1 + eps))
+    return iou - (rho2 / c2 + v * alpha)

@@ -12,8 +12,10 @@ the layout conventions converted:
 * everything else (biases, norm scales, headwise (nh, dh, dh) weights,
   ``learnable_skip``) keeps its name and shape.
 
-Any missing or extra key, or a shape mismatch, raises. This module reads
-plain numpy arrays and imports nothing of JAX.
+Any missing or extra key, or a shape mismatch, raises. ``port_named`` maps
+any tree shaped like ``params`` (gradients, an optimizer trace, an EMA) to
+port names and layouts the same way. This module reads plain numpy arrays
+and imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -57,6 +59,20 @@ def torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     elif leaf == "scale" and mods and mods[-1] == "bn":
         leaf = "weight"
     return ".".join([*mods, leaf]), np.ascontiguousarray(arr)
+
+
+def port_named(flat: Mapping[str, np.ndarray], collection: str = "params"
+               ) -> dict[str, np.ndarray]:
+    """A flattened tree shaped like the JAX ``collection`` (keys without the
+    collection, as ``flatten_variables(grads)`` gives them) -> {port
+    state_dict name: array in the port's layout}."""
+    out = {}
+    for path, arr in flat.items():
+        name, a = torch_name(f"{collection}/{path}", np.asarray(arr))
+        if name in out:
+            raise KeyError(f"two JAX keys map to {name!r}")
+        out[name] = a
+    return out
 
 
 @torch.no_grad()
