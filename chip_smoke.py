@@ -4,8 +4,8 @@
 
 Builds the port's hand-written CUDA kernels from ``xlstm_yolo_torch/csrc``
 (one nvcc per source, all started together), holds each against its plain
-PyTorch version at the shapes the main path gives it, then drives both ends
-of the main path on seeded random ViL-YOLO-n weights at 640 px:
+PyTorch version at the shapes the main paths give it, then drives the main
+paths on seeded random weights. ViL-YOLO-n at 640 px:
 
 * inference — uint8 540x810 frames -> letterbox -> forward -> decode -> NMS
   through ``xlstm_yolo_torch.engine.predictor.Predictor``, checked against
@@ -15,6 +15,16 @@ of the main path on seeded random ViL-YOLO-n weights at 640 px:
   ``xlstm_yolo_torch.engine.trainer.TrainStep``; the loss and every
   parameter gradient are checked against the same step with the plain
   versions forced in, then the step is timed by stage.
+
+The xLSTM language model, through ``xlstm_yolo_torch.nn.xlstm``:
+
+* serving — token ids -> ``xLSTMLMModel`` forward -> logits, and greedy
+  ``generate`` from a prompt, at the configuration of the NX-AI xlstm
+  library's README language-model example (vocab 50304, embedding 128, 7
+  blocks, sLSTM at block 1, 4 heads, context 256), and one forward of a
+  wider model (embedding 512, 8 blocks, S 1024); logits and generated
+  tokens are checked against the same models with the plain versions
+  forced in, then timed.
 
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
@@ -45,6 +55,15 @@ STAGES = [("P3", 6400, 64, 128, 2), ("P4", 1600, 128, 256, 4), ("P5", 400, 256, 
 CHUNK = 128  # the YAML's chunk size, read by the plain version only
 N_LABELS = 32  # padded label slots of a train batch, as the JAX bench_train.py
 TRAIN_TIMED, TRAIN_WARMUP = 3, 1
+# xLSTM language model: the NX-AI xlstm README example, and the widest model
+# whose sLSTM head dim (128) the sLSTM kernel still takes
+LM_README = dict(vocab_size=50304, embedding_dim=128, num_blocks=7, slstm_at=(1,), num_heads=4)
+LM_WIDE = dict(vocab_size=50304, embedding_dim=512, num_blocks=8, slstm_at=(1,), num_heads=4)
+LM_CONTEXT, LM_PROMPT, LM_NEW, LM_WIDE_S = 256, 192, 64, 1024
+# kernel cases at the language model's shapes: (name, NH, S, DH)
+K1_CASES = [("readme_S256_DH64", 4, 256, 64), ("ragged_S200_DH64", 4, 200, 64),
+            ("wide_S1024_DH256", 4, 1024, 256)]
+K5_CASES = [("readme_S256_DH32", 4, 256, 32), ("wide_S1024_DH128", 4, 1024, 128)]
 
 
 def emit(obj) -> None:
@@ -102,9 +121,7 @@ def layer_bound(B, S, DIM, INNER, NH, n_weight_floats):
     macs = (2 * INNER * DIM + 3 * INNER * dh + 6 * INNER * NH
             + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh) + INNER * DIM)
     flops = 2 * B * S * macs
-    nbytes = 4 * (B * S * (2 * DIM + INNER) + n_weight_floats)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return roofline(flops, 4 * (B * S * (2 * DIM + INNER) + n_weight_floats))
 
 
 def phase_device():
@@ -160,42 +177,71 @@ def bwd_bound(B, S, INNER, NH):
     dh = INNER // NH
     ns = -(-S // CS)
     macs = B * NH * ns * (3 * CS * (CS + 1) * dh + 5 * CS * dh * dh)
-    nbytes = 4 * (7 * B * S * INNER + 4 * B * NH * S + B * NH * ns * (dh * dh + dh + 3))
-    t_ops, t_bytes = 2 * macs / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return roofline(2 * macs, 4 * (7 * B * S * INNER + 4 * B * NH * S
+                                   + B * NH * ns * (dh * dh + dh + 3)))
+
+
+def roofline(flops, nbytes):
+    """(least ms, what bounds it) for ``flops`` fp32 operations and
+    ``nbytes`` bytes moved."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_parity(kernel, make_case, run, plain, bound):
-    """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) at
-    the stage shapes, on ``make_case(B, stage)`` at the main path's batch
-    (the case that is then timed) and at batch 2; both return a tuple of
-    outputs, each held to TOL_REL of its own max. Emits one line per stage
-    and returns the totals over the stages for the kernels line."""
+def mlstm_fwd_bound(B, NH, S, DH):
+    """Least time for one chunkwise-forward call. FLOPs count the
+    multiply-adds the function needs per token and head at the kernel's
+    chunk length: the causal half of q k^T and of E v ((CS + 1) DH), the
+    inter-chunk q C and the chunk-summary k^T v (2 DH^2), times 2; bytes
+    count q, k, v and the gates read once and h written once. Elementwise
+    work (exp, scans, the normalizer) is left out."""
+    from xlstm_yolo_torch.kernels.mlstm_fwd import KERNEL_CS
+
+    flops = 2 * B * NH * S * ((KERNEL_CS + 1) * DH + 2 * DH * DH)
+    return roofline(flops, 4 * (4 * B * NH * S * DH + 2 * B * NH * S))
+
+
+def slstm_bound(B, NH, S, DH):
+    """Least time for one sLSTM scan call. FLOPs count the per-head
+    recurrent product y R of every step (DH x 4DH multiply-adds, times 2;
+    no block-diagonal zeros); bytes count wx, r and b read once and y
+    written once. The pointwise gate math is left out."""
+    flops = 2 * B * S * NH * DH * 4 * DH
+    return roofline(flops, 4 * (5 * B * S * NH * DH + NH * 4 * DH * (DH + 1)))
+
+
+def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None):
+    """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) on
+    ``make_case(B, case)`` for every case, at the main path's batch (the
+    arguments that are then timed) and at batch 2; both return a tuple of
+    outputs, each held to TOL_REL of its own max. Emits one line per case
+    (with ``extra(case, ms)`` merged in) and returns the totals over the
+    cases for the kernels line."""
     worst_rel, worst_abs = 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = set()
-    for stage in STAGES:
-        name, S, DIM, INNER, NH = stage
+    for case in cases:
         errs = {}
         for B in (BATCH, 2):
-            case = make_case(B, stage)
-            per = [compare(g, w) for g, w in zip(run(case, NH), plain(case, NH))]
+            args = make_case(B, case)
+            per = [compare(g, w) for g, w in zip(run(args, case), plain(args, case))]
             errs[B] = (max(e[0] for e in per), max(e[1] for e in per), all(e[2] for e in per))
             if B == BATCH:
-                timed = case
+                timed = args
         ok = all(fin and rel <= TOL_REL for _, rel, fin in errs.values())
         abs_err = max(e[0] for e in errs.values())
         rel = max(e[1] for e in errs.values())
-        ms = cuda_time_ms(lambda: run(timed, NH), iters=20)
-        plain_ms = cuda_time_ms(lambda: plain(timed, NH), iters=5)
-        bound_ms, by = bound(timed, stage)
-        emit({"phase": "kernel_parity", "kernel": kernel, "stage": name,
-              "shape": [BATCH, S, DIM, INNER, NH],
+        ms = cuda_time_ms(lambda: run(timed, case), iters=20)
+        plain_ms = cuda_time_ms(lambda: plain(timed, case), iters=5)
+        bound_ms, by = bound(timed, case)
+        emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0],
+              "shape": [BATCH, *case[1:]],
               "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
               "max_abs_err": abs_err, "maxrelerr": rel, "tol": TOL_REL, "ok": ok,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by})
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+              **(extra(case, ms) if extra else {})})
         if not ok:
-            raise PhaseError(f"{kernel} disagrees with its plain version at {name}: "
+            raise PhaseError(f"{kernel} disagrees with its plain version at {case[0]}: "
                              f"maxrelerr {rel}")
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
         totals["ms"] += ms
@@ -207,21 +253,25 @@ def kernel_parity(kernel, make_case, run, plain, bound):
 
 
 def phase_kernel_parity():
-    """K3 (vil_layer_fwd vs vil_layer_ref) on seeded layer arguments, then
-    K2 (mlstm_chunkwise_bwd vs mlstm_chunkwise_bwd_plain) on the
-    activations and carry states the layer kernel's forward leaves for
-    seeded layer arguments, with a seeded output gradient."""
+    """K3 (vil_layer_fwd vs vil_layer_ref) on seeded layer arguments; K2
+    (mlstm_chunkwise_bwd vs mlstm_chunkwise_bwd_plain) on the activations
+    and carry states the layer kernel's forward leaves for seeded layer
+    arguments, with a seeded output gradient; K1 (mlstm_chunkwise_fwd vs
+    mlstm_chunkwise_fwd_plain) and K5 (slstm_scan_fwd vs slstm_scan) on
+    seeded arguments at the language model's shapes."""
     import torch
 
     from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
+    from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
     from xlstm_yolo_torch.kernels.vil_layer import _launch, vil_layer_fwd, vil_layer_ref
 
     dev = torch.device("cuda")
     k3 = kernel_parity(
-        "vil_layer_fwd",
+        "vil_layer_fwd", STAGES,
         lambda B, st: layer_args(B, *st[1:], seed=st[1] + B, device=dev),
-        lambda args, nh: (vil_layer_fwd(*args, nh, chunk_size=CHUNK),),
-        lambda args, nh: (vil_layer_ref(*args, nh, chunk_size=CHUNK),),
+        lambda args, st: (vil_layer_fwd(*args, st[4], chunk_size=CHUNK),),
+        lambda args, st: (vil_layer_ref(*args, st[4], chunk_size=CHUNK),),
         lambda args, st: layer_bound(BATCH, *st[1:], sum(a.numel() for a in args[2:])))
 
     def bwd_case(B, stage):
@@ -233,11 +283,60 @@ def phase_kernel_parity():
         return (q, k, v, ig, fg, dh), carry
 
     k2 = kernel_parity(
-        "mlstm_chunkwise_bwd", bwd_case,
-        lambda case, nh: mlstm_chunkwise_bwd(*case[0], nh, carry=case[1]),
-        lambda case, nh: mlstm_chunkwise_bwd_plain(*case[0], nh),
+        "mlstm_chunkwise_bwd", STAGES, bwd_case,
+        lambda case, st: mlstm_chunkwise_bwd(*case[0], st[4], carry=case[1]),
+        lambda case, st: mlstm_chunkwise_bwd_plain(*case[0], st[4]),
         lambda case, st: bwd_bound(BATCH, st[1], st[3], st[4]))
-    return k3, k2
+
+    def seeded(seed):
+        rng = np.random.default_rng(seed)
+        return lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+
+    def fwd_case(B, case):
+        _, NH, S, DH = case
+        mk = seeded(S + DH + B)
+        return (mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S),
+                mk(B, NH, S) + 2.0)
+
+    k1 = kernel_parity(
+        "mlstm_chunkwise_fwd", K1_CASES, fwd_case,
+        lambda args, case: (mlstm_chunkwise_fwd(*args),),
+        lambda args, case: (mlstm_chunkwise_fwd_plain(*args),),
+        lambda args, case: mlstm_fwd_bound(BATCH, *case[1:]))
+
+    def scan_case(B, case):
+        _, NH, S, DH = case
+        mk = seeded(S + DH + B + 1)
+        return mk(B, S, NH, 4, DH), mk(NH, DH, 4, DH) * DH ** -0.5, mk(NH, 4, DH)
+
+    k5 = kernel_parity(
+        "slstm_scan_fwd", K5_CASES, scan_case,
+        lambda args, case: (slstm_scan_fwd(*args),),
+        lambda args, case: (slstm_scan(*args),),
+        lambda args, case: slstm_bound(BATCH, *case[1:]),
+        extra=lambda case, ms: {"us_per_step": ms * 1e3 / case[2]})
+    for case in K5_CASES:  # the state carried through the kernel: two halves are the full scan
+        wx, r, b = scan_case(2, case)
+        half = case[2] // 2
+        launched = slstm_scan_fwd.launches
+        y1, mid = slstm_scan_fwd(wx[:, :half], r, b, return_last_state=True)
+        y2, last = slstm_scan_fwd(wx[:, half:], r, b, initial_state=mid, return_last_state=True)
+        launched = slstm_scan_fwd.launches - launched
+        want = slstm_scan(wx, r, b, return_last_state=True)
+        per = [compare(g, w) for g, w in zip((torch.cat([y1, y2], 1), *last), (want[0], *want[1]))]
+        rel = max(e[1] for e in per)
+        ok = launched == 2 and all(e[2] for e in per) and rel <= TOL_REL
+        wx, r, b = scan_case(BATCH, case)  # a carried call's time at the main path's batch
+        state = slstm_scan_fwd(wx, r, b, return_last_state=True)[1]
+        carry_ms = cuda_time_ms(lambda: slstm_scan_fwd(wx, r, b, initial_state=state,
+                                                       return_last_state=True), iters=20)
+        emit({"phase": "kernel_parity", "kernel": "slstm_scan_fwd", "case": case[0] + "_carry",
+              "shape": [2, *case[1:]], "launches": launched, "maxrelerr": rel, "tol": TOL_REL,
+              "ok": ok, "carry_ms_at_batch": {str(BATCH): carry_ms}})
+        if not ok:
+            raise PhaseError(f"slstm_scan_fwd's state carry disagrees with the plain scan at "
+                             f"{case[0]}: maxrelerr {rel}")
+    return k3, k2, k1, k5
 
 
 def build_main_model(device, train: bool = False):
@@ -447,6 +546,132 @@ def phase_train_path():
     return launches
 
 
+def build_lm_model(cfg, device):
+    """The xLSTM language model on ``device``: seeded init with the JAX
+    scheme, then seeded cell gate kernels and sLSTM recurrent kernels (zero
+    at init), so that the gates vary along the sequence and the recurrent
+    product matters."""
+    import torch
+
+    from xlstm_yolo_torch.nn.xlstm import xLSTMLMModel
+
+    model = xLSTMLMModel(**cfg, device=device, seed=0)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("mlstm_cell.igate.weight", "mlstm_cell.fgate.weight")):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+            elif name.endswith("recurrent_kernel"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5 * p.shape[1] ** -0.5)
+    return model
+
+
+def lm_inputs():
+    """What ``lm_path`` drives, on the card: the README model and its
+    context-length tokens, the wide model and its tokens."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    vocab = LM_README["vocab_size"]
+    tokens = torch.from_numpy(rng.integers(0, vocab, (BATCH, LM_CONTEXT))).cuda()
+    wide_tokens = torch.from_numpy(rng.integers(0, vocab, (BATCH, LM_WIDE_S))).cuda()
+    return build_lm_model(LM_README, "cuda"), tokens, build_lm_model(LM_WIDE, "cuda"), wide_tokens
+
+
+@contextmanager
+def plain_lm_kernels():
+    """The language model's two kernels replaced by their plain versions."""
+    import xlstm_yolo_torch.nn.vil as vil_mod
+    import xlstm_yolo_torch.nn.xlstm as lm_mod
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd_plain
+    from xlstm_yolo_torch.kernels.slstm import slstm_scan
+
+    with mock.patch.object(vil_mod, "mlstm_chunkwise_fwd", mlstm_chunkwise_fwd_plain), \
+            mock.patch.object(lm_mod, "slstm_scan_fwd", slstm_scan):
+        yield
+
+
+def phase_lm_path():
+    """The xLSTM language model's serving path at batch BATCH. With the
+    launch counts at 0: one forward of the README model at its context, a
+    greedy ``generate`` of LM_NEW tokens from an LM_PROMPT-token prompt, and
+    one forward of the wide model at LM_WIDE_S. The same three with the
+    plain versions forced in give the references (logits within TOL_REL of
+    their max, identical tokens). Then the three are timed."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd
+    from xlstm_yolo_torch.kernels.slstm import slstm_scan_fwd
+    from xlstm_yolo_torch.nn.xlstm import generate
+
+    vocab = LM_README["vocab_size"]
+    model, tokens, wide, wide_tokens = lm_inputs()
+    prompt = tokens[:, :LM_PROMPT]
+
+    def drive():
+        with torch.no_grad():
+            out = model(tokens), generate(model, prompt, max_new_tokens=LM_NEW), wide(wide_tokens)
+        torch.cuda.synchronize()
+        return out
+
+    mlstm_chunkwise_fwd.launches = slstm_scan_fwd.launches = 0
+    logits, gen, wide_logits = drive()
+    launches = (mlstm_chunkwise_fwd.launches, slstm_scan_fwd.launches)
+    with plain_lm_kernels():
+        ref_logits, ref_gen, ref_wide = drive()
+    plain_launches = (mlstm_chunkwise_fwd.launches - launches[0],
+                      slstm_scan_fwd.launches - launches[1])
+
+    n_m = [cfg["num_blocks"] - len(cfg["slstm_at"]) for cfg in (LM_README, LM_WIDE)]
+    n_s = [len(cfg["slstm_at"]) for cfg in (LM_README, LM_WIDE)]
+    per_forward = (n_m[0], n_s[0])
+    expect = (n_m[0] * (1 + LM_NEW) + n_m[1], n_s[0] * (1 + LM_NEW) + n_s[1])
+    shapes_ok = (tuple(logits.shape) == (BATCH, LM_CONTEXT, vocab)
+                 and tuple(wide_logits.shape) == (BATCH, LM_WIDE_S, vocab)
+                 and tuple(gen.shape) == (BATCH, LM_PROMPT + LM_NEW)
+                 and bool((gen[:, :LM_PROMPT] == prompt).all()))
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(wide_logits).all())
+    rel = compare(logits, ref_logits)[1]
+    wide_rel = compare(wide_logits, ref_wide)[1]
+    same_tokens = bool((gen == ref_gen).all())
+    del logits, ref_logits, wide_logits, ref_wide
+
+    def stage_ms(m, toks, iters):
+        """Forward of ``m`` split into embedding + block stack, and the head."""
+        x = m.stack(m.embedding(toks))
+        return {"stack": cuda_time_ms(lambda: m.stack(m.embedding(toks)), iters=iters),
+                "lm_head": cuda_time_ms(lambda: m.lm_head(x), iters=iters)}
+
+    with torch.no_grad():
+        forward_ms = cuda_time_ms(lambda: model(tokens), iters=10)
+        wide_ms = cuda_time_ms(lambda: wide(wide_tokens), iters=5)
+        stages, wide_stages = stage_ms(model, tokens, 10), stage_ms(wide, wide_tokens, 5)
+        generate(model, prompt, max_new_tokens=2)  # warm-up at the prompt's length
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, prompt, max_new_tokens=LM_NEW)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+    ok = (shapes_ok and finite and launches == expect and plain_launches == (0, 0)
+          and rel <= TOL_REL and wide_rel <= TOL_REL and same_tokens)
+    emit({"phase": "lm_path", "model": LM_README, "params": model.num_params(),
+          "wide_model": LM_WIDE, "wide_params": wide.num_params(), "batch": BATCH,
+          "context": LM_CONTEXT, "prompt": LM_PROMPT, "new_tokens": LM_NEW, "wide_S": LM_WIDE_S,
+          "launches_mlstm_chunkwise_fwd": launches[0], "launches_slstm_scan_fwd": launches[1],
+          "expected_launches": expect, "launches_per_forward": per_forward,
+          "shapes_ok": shapes_ok, "finite": finite, "logits_maxrelerr": rel,
+          "wide_logits_maxrelerr": wide_rel, "same_tokens": same_tokens, "tol": TOL_REL,
+          "forward_ms": forward_ms, "forward_stage_ms": stages,
+          "wide_forward_stage_ms": wide_stages, "forward_tokens_per_s": BATCH * LM_CONTEXT / forward_ms * 1e3,
+          "generate_ms": gen_ms, "ms_per_generated_token": gen_ms / LM_NEW,
+          "generated_tokens_per_s": BATCH * LM_NEW / gen_ms * 1e3,
+          "wide_forward_ms": wide_ms,
+          "wide_forward_tokens_per_s": BATCH * LM_WIDE_S / wide_ms * 1e3, "ok": ok})
+    if not ok:
+        raise PhaseError("language-model path check failed")
+    return launches
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -454,28 +679,33 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k, k2 = phase_kernel_parity()
+        k3, k2, k1, k5 = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
         phase = "train_path"
         train_launches = phase_train_path()
+        phase = "lm_path"
+        lm_launches = phase_lm_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     import torch
 
-    emit({"kernels": [{
-        "name": "vil_layer_fwd", "route": "cuda", "source": "xlstm_yolo_torch/csrc/vil_layer.cu",
-        "replaces": "xlstm_yolo_tpu/kernels/mlstm_pallas.py:1142 (_kernel_vil_layer)",
-        "launches": launches, "max_abs_err": k["max_abs_err"], "maxrelerr": k["maxrelerr"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}, {
-        "name": "mlstm_chunkwise_bwd", "route": "cuda",
-        "source": "xlstm_yolo_torch/csrc/mlstm_bwd.cu",
-        "replaces": "xlstm_yolo_tpu/kernels/mlstm_pallas_bwd.py:255 (_kernel)",
-        "launches": train_launches[1], "max_abs_err": k2["max_abs_err"],
-        "maxrelerr": k2["maxrelerr"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None}]})
+    def entry(name, source, replaces, n_launches, k):
+        return {"name": name, "route": "cuda", "source": f"xlstm_yolo_torch/csrc/{source}",
+                "replaces": f"xlstm_yolo_tpu/kernels/{replaces}", "launches": n_launches,
+                "max_abs_err": k["max_abs_err"], "maxrelerr": k["maxrelerr"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None}
+
+    emit({"kernels": [
+        entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",
+              launches, k3),
+        entry("mlstm_chunkwise_bwd", "mlstm_bwd.cu", "mlstm_pallas_bwd.py:255 (_kernel)",
+              train_launches[1], k2),
+        entry("mlstm_chunkwise_fwd", "mlstm_fwd.cu", "mlstm_pallas.py:198 (_kernel)",
+              lm_launches[0], k1),
+        entry("slstm_scan_fwd", "slstm.cu", "slstm_pallas.py:41 (_kernel)", lm_launches[1], k5)]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

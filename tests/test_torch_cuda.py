@@ -13,6 +13,9 @@ import torch
 
 from xlstm_yolo_torch.kernels.mlstm_bwd import (
     chunk_carry_states, mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
+from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
+from xlstm_yolo_torch.kernels.mlstm_native import mlstm_recurrent
+from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
 from xlstm_yolo_torch.kernels.vil_layer import (
     _vil_layer_plain, vil_layer_bwd_ref, vil_layer_fwd, vil_layer_ref)
 
@@ -132,3 +135,129 @@ def test_vil_yolo_forward_launches_kernel_per_stage(cuda_device):
         finally:
             vil_mod.vil_layer_fwd = vil_layer_fwd
     assert _rel(got, want) <= TOL_REL
+
+
+def _mlstm_args(B, NH, S, DH, device, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    return mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S), mk(B, NH, S) + 2.0
+
+
+@pytest.mark.parametrize("S,DH,igate_act", [
+    (256, 64, "exp"), (256, 128, "exp"), (256, 256, "exp"), (200, 64, "exp"),
+    (77, 128, "sigmoid"), (193, 256, "sigmoid"), (1, 64, "exp"),
+], ids=["dh64", "dh128", "dh256", "ragged_dh64", "short_sigmoid_dh128", "ragged_sigmoid_dh256",
+        "one_step"])
+def test_mlstm_fwd_kernel_matches_plain(cuda_device, S, DH, igate_act):
+    """K1 at every head dim it takes, at whole and ragged S (as ``generate``
+    gives it), both gate activations; also against the step-by-step form."""
+    args = _mlstm_args(2, 4, S, DH, cuda_device, seed=S + DH)
+    before = mlstm_chunkwise_fwd.launches
+    got = mlstm_chunkwise_fwd(*args, chunk_size=64, igate_act=igate_act)
+    want = mlstm_chunkwise_fwd_plain(*args, chunk_size=64, igate_act=igate_act)
+    torch.cuda.synchronize()
+    assert mlstm_chunkwise_fwd.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL_REL
+    assert _rel(got, mlstm_recurrent(*args, igate_act=igate_act)) <= TOL_REL
+
+
+def test_mlstm_fwd_kernel_refuses(cuda_device):
+    """No fallback on the card: gradients, another head dim and another
+    dtype each raise."""
+    args = _mlstm_args(1, 2, 64, 64, cuda_device, seed=0)
+    with pytest.raises(NotImplementedError):
+        mlstm_chunkwise_fwd(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="head dim"):
+        mlstm_chunkwise_fwd(*_mlstm_args(1, 2, 64, 32, cuda_device, seed=0))
+    with pytest.raises(TypeError):
+        mlstm_chunkwise_fwd(args[0].double(), *args[1:])
+
+
+def _slstm_args(B, S, NH, DH, device, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    return mk(B, S, NH, 4, DH), mk(NH, DH, 4, DH) * DH ** -0.5, mk(NH, 4, DH)
+
+
+@pytest.mark.parametrize("B,S,DH", [(2, 64, 32), (3, 50, 64), (2, 64, 128), (1, 1, 32)],
+                         ids=["dh32", "dh64_odd", "dh128", "one_step"])
+def test_slstm_kernel_matches_plain(cuda_device, B, S, DH):
+    """K5 at every head dim it takes, with a recurrent kernel that matters."""
+    args = _slstm_args(B, S, 4, DH, cuda_device, seed=S + DH)
+    before = slstm_scan_fwd.launches
+    got = slstm_scan_fwd(*args)
+    want = slstm_scan(*args)
+    torch.cuda.synchronize()
+    assert slstm_scan_fwd.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL_REL
+
+
+def test_slstm_kernel_refuses_and_state_carry(cuda_device):
+    """Gradients (of an input or of a carried state) and another head dim
+    raise; an explicit state carry launches the kernel, never the plain
+    scan."""
+    wx, r, b = _slstm_args(1, 8, 2, 32, cuda_device, seed=1)
+    with pytest.raises(NotImplementedError):
+        slstm_scan_fwd(wx, r.clone().requires_grad_(), b)
+    with pytest.raises(ValueError, match="head dim"):
+        slstm_scan_fwd(*_slstm_args(1, 8, 2, 16, cuda_device, seed=1))
+    before = slstm_scan_fwd.launches
+    y, last = slstm_scan_fwd(wx, r, b, return_last_state=True)
+    assert slstm_scan_fwd.launches == before + 1 and len(last) == 4
+    assert _rel(slstm_scan_fwd(wx, r, b), y) <= TOL_REL
+    with pytest.raises(NotImplementedError):
+        slstm_scan_fwd(wx, r, b, initial_state=tuple(s.clone().requires_grad_() for s in last))
+    with pytest.raises(ValueError, match="initial_state"):
+        slstm_scan_fwd(wx, r, b, initial_state=tuple(s[:, :1] for s in last))
+
+
+@pytest.mark.parametrize("DH", [32, 64, 128])
+def test_slstm_kernel_state_carry_matches_plain(cuda_device, DH):
+    """K5 reads the carried-in (y, c, n, m) and writes the last one: two
+    carried halves are the full scan, and every state agrees with the plain
+    scan's."""
+    wx, r, b = _slstm_args(2, 40, 4, DH, cuda_device, seed=DH)
+    before = slstm_scan_fwd.launches
+    y1, mid = slstm_scan_fwd(wx[:, :17], r, b, return_last_state=True)
+    y2, last = slstm_scan_fwd(wx[:, 17:], r, b, initial_state=mid, return_last_state=True)
+    assert slstm_scan_fwd.launches == before + 2
+    want, want_last = slstm_scan(wx, r, b, return_last_state=True)
+    _, want_mid = slstm_scan(wx[:, :17], r, b, return_last_state=True)
+    assert _rel(torch.cat([y1, y2], 1), want) <= TOL_REL
+    assert _rel(torch.cat([y1, y2], 1), slstm_scan_fwd(wx, r, b)) <= TOL_REL
+    for got, ref in zip((*mid, *last), (*want_mid, *want_last)):
+        assert got.shape == ref.shape and _rel(got, ref) <= TOL_REL
+    y3 = slstm_scan_fwd(wx[:, 17:], r, b, initial_state=want_mid)  # carry in only
+    assert _rel(y3, want[:, 17:]) <= TOL_REL
+
+
+def test_xlstm_lm_forward_launches_kernels(cuda_device):
+    """The language model on the card: one K1 launch per mLSTM block and one
+    K5 launch per sLSTM block, logits within tolerance of the same model
+    with the plain versions forced in; ``generate`` appends tokens."""
+    import xlstm_yolo_torch.nn.vil as vil_mod
+    import xlstm_yolo_torch.nn.xlstm as lm_mod
+    from xlstm_yolo_torch.nn.xlstm import generate, xLSTMLMModel
+
+    model = xLSTMLMModel(1000, embedding_dim=128, num_blocks=3, slstm_at=(1,), device=cuda_device)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "gate.weight" in name or "recurrent_kernel" in name:
+                p.copy_((torch.randn(p.shape, generator=g) * 0.05).to(p.device))
+    tokens = torch.randint(0, 1000, (2, 100), generator=g).to(cuda_device)
+    k1, k5 = mlstm_chunkwise_fwd.launches, slstm_scan_fwd.launches
+    with torch.no_grad():
+        got = model(tokens)
+    assert (mlstm_chunkwise_fwd.launches, slstm_scan_fwd.launches) == (k1 + 2, k5 + 1)
+    vil_mod.mlstm_chunkwise_fwd, lm_mod.slstm_scan_fwd = mlstm_chunkwise_fwd_plain, slstm_scan
+    try:
+        with torch.no_grad():
+            want = model(tokens)
+    finally:
+        vil_mod.mlstm_chunkwise_fwd, lm_mod.slstm_scan_fwd = mlstm_chunkwise_fwd, slstm_scan_fwd
+    assert _rel(got, want) <= TOL_REL
+    out = generate(model, tokens[:, :20], max_new_tokens=3)
+    assert out.shape == (2, 23) and bool((out[:, :20] == tokens[:, :20]).all())

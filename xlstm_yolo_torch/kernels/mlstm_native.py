@@ -1,8 +1,8 @@
-"""mLSTM chunkwise recurrence in plain torch.
+"""mLSTM recurrence in plain torch: the chunkwise and the step-by-step form.
 
-Port of ``xlstm_yolo_tpu/kernels/mlstm_native.py`` (``_log_igate`` and
-``mlstm_chunkwise``). Recurrence per head, head dim DH, log-space
-max-stabilized:
+Port of ``xlstm_yolo_tpu/kernels/mlstm_native.py`` (``_log_igate``,
+``mlstm_recurrent_step``, ``mlstm_recurrent`` and ``mlstm_chunkwise``).
+Recurrence per head, head dim DH, log-space max-stabilized:
 
     m_t = max(log f̃_t + m_{t-1}, log ĩ_t)
     C_t = exp(log f̃_t + m_{t-1} - m_t) C_{t-1} + exp(log ĩ_t - m_t) k_t v_tᵀ
@@ -10,8 +10,9 @@ max-stabilized:
     h_t = q̃_tᵀ C_t / (max(|q̃_tᵀ n_t|, exp(-m_t)) + eps),   q̃ = q / sqrt(DH)
 
 with log f̃ = logsigmoid(f_preact), and log ĩ = i_preact (``"exp"``) or
-logsigmoid(i_preact) (``"sigmoid"``). This is the oracle the ViL layer
-kernel's plain version is built on.
+logsigmoid(i_preact) (``"sigmoid"``). ``mlstm_chunkwise`` is the oracle the
+kernels' plain versions are built on; ``mlstm_recurrent`` is a second oracle
+that takes any sequence length.
 """
 from __future__ import annotations
 
@@ -27,6 +28,46 @@ def _log_igate(i_preact: torch.Tensor, igate_act: str) -> torch.Tensor:
     if igate_act == "sigmoid":
         return F.logsigmoid(i_preact)
     raise ValueError(f"unknown igate_act {igate_act!r}")
+
+
+def mlstm_recurrent_step(c_state, n_state, m_state, q, k, v, i_preact, f_preact,
+                         igate_act: str = "exp", eps: float = 1e-6):
+    """One autoregressive step. States C (B, NH, DH, DV), n (B, NH, DH), m
+    (B, NH); q/k (B, NH, DH), v (B, NH, DV), gate preacts (B, NH). Returns
+    (h, (C', n', m'))."""
+    DH = q.shape[-1]
+    logf = F.logsigmoid(f_preact)
+    logi = _log_igate(i_preact, igate_act)
+    m_new = torch.maximum(logf + m_state, logi)
+    f_act = torch.exp(logf + m_state - m_new)[..., None]
+    i_act = torch.exp(logi - m_new)[..., None]
+    qs = q / math.sqrt(DH)
+    c_new = f_act[..., None] * c_state + i_act[..., None] * (k[..., :, None] * v[..., None, :])
+    n_new = f_act * n_state + i_act * k
+    h_num = torch.einsum("bnd,bnde->bne", qs, c_new)
+    qn = (qs * n_new).sum(-1)
+    denom = torch.maximum(qn.abs(), torch.exp(-m_new)) + eps
+    return h_num / denom[..., None], (c_new, n_new, m_new)
+
+
+def mlstm_recurrent(q, k, v, i_preact, f_preact, igate_act: str = "exp", eps: float = 1e-6,
+                    return_last_state: bool = False):
+    """Full-sequence loop of the single-step form (slow reference path), any
+    S. q/k (B, NH, S, DH), v (B, NH, S, DV), gates (B, NH, S) -> h
+    (B, NH, S, DV) fp32; the state starts at zero (m = 0)."""
+    B, NH, S, DH = q.shape
+    f32 = torch.float32
+    q, k, v, i_preact, f_preact = (t.to(f32) for t in (q, k, v, i_preact, f_preact))
+    state = (q.new_zeros((B, NH, DH, v.shape[-1])), q.new_zeros((B, NH, DH)),
+             q.new_zeros((B, NH)))
+    hs = []
+    for t in range(S):
+        h, state = mlstm_recurrent_step(*state, q[:, :, t], k[:, :, t], v[:, :, t],
+                                        i_preact[:, :, t], f_preact[:, :, t],
+                                        igate_act=igate_act, eps=eps)
+        hs.append(h)
+    h = torch.stack(hs, dim=2)
+    return (h, state) if return_last_state else h
 
 
 def mlstm_chunkwise(

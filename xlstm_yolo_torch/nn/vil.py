@@ -1,7 +1,8 @@
 """Vision-LSTM (ViL) layers in torch.
 
 Port of the layer-fused path of ``xlstm_yolo_tpu/nn/vil.py``: RMSNorm,
-MultiHeadLayerNorm, SequenceConv2d, ViLLayer, ViLBlock and ViLBlockPair.
+LayerNorm, MultiHeadLayerNorm, LinearHeadwiseExpand, SequenceConv2d,
+MatrixLSTMCell, ViLLayer, ViLBlock and ViLBlockPair.
 Sequences are (B, S, D) with tokens in row-major (H, W) order, as the JAX
 NHWC reshape gives them. Submodule and parameter names follow the JAX tree
 (``norm/scale``, ``proj_up``, ``conv/conv``, ``q_proj/weight``,
@@ -16,7 +17,11 @@ through its plain version. Under autograd, x's gradient sums the two paths,
 as in JAX: the conv branch's (autograd through the torch ops) and the
 layer function's own (its hand-written backward). Fork quirks kept:
 forward-only traversal in the pair, no FFN, i-gate bias -10 and f-gate bias
-linspace(3, 6) at init. The non-fused cell path (drop_path) is not ported.
+linspace(3, 6) at init. ViLLayer's own non-fused cell path (drop_path) is
+not ported. The xLSTM language model (``nn/xlstm.py``) uses the pieces on
+their own: ``LinearHeadwiseExpand.forward``, ``LayerNorm`` and
+``MatrixLSTMCell.forward`` on natural-layout q/k/v, which runs the chunkwise
+mLSTM forward ``kernels.mlstm_fwd.mlstm_chunkwise_fwd``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.mlstm_fwd import mlstm_chunkwise_fwd
 from ..kernels.vil_layer import vil_layer_fwd
 from .modules import lecun_normal_
 
@@ -42,21 +48,41 @@ class RMSNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim without bias, under the residual
+    convention: the stored ``scale`` starts at zero and the applied weight
+    is ``1 + scale``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + self.eps) * (1.0 + self.scale)
+        return y.to(x.dtype)
+
+
 class MultiHeadLayerNorm(nn.Module):
     """Per-head LayerNorm over DH of a (B, NH, S, DH) tensor with one
     (NH*DH,) affine, under the residual convention: the stored ``scale``
-    starts at zero and the applied weight is ``1 + scale``."""
+    starts at zero and the applied weight is ``1 + scale``.
+    ``with_bias=False`` leaves the bias parameter out."""
 
-    def __init__(self, num_heads: int, dim: int, eps: float = 1e-3):
+    def __init__(self, num_heads: int, dim: int, eps: float = 1e-3, with_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.eps = eps
         self.scale = nn.Parameter(torch.zeros(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if with_bias else None
 
     def affine(self):
         """(effective weight, bias), each (NH*DH,)."""
-        return 1.0 + self.scale, self.bias
+        weight = 1.0 + self.scale
+        return weight, torch.zeros_like(weight) if self.bias is None else self.bias
 
     def forward(self, x):
         nh, dh = self.num_heads, x.shape[-1]
@@ -69,15 +95,22 @@ class MultiHeadLayerNorm(nn.Module):
 
 
 class LinearHeadwiseExpand(nn.Module):
-    """Parameters of a block-diagonal per-head projection: ``weight``
-    (NH, DH_out, DH_in) and ``bias`` (NH*DH,). The projection itself runs
-    inside the ViL layer function."""
+    """Block-diagonal per-head projection: ``weight`` (NH, DH_out, DH_in) and,
+    with ``use_bias``, ``bias`` (NH*DH,). The ViL layer function applies the
+    projection itself from these parameters; ``forward`` applies it to a
+    (..., dim) tensor for callers outside that function."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, use_bias: bool = True):
         super().__init__()
         dh = dim // num_heads
         self.weight = nn.Parameter(torch.empty(num_heads, dh, dh))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def forward(self, x):
+        nh, dh = self.weight.shape[:2]
+        y = torch.einsum("...nd,nod->...no", x.reshape(*x.shape[:-1], nh, dh), self.weight)
+        y = y.reshape(x.shape)
+        return y if self.bias is None else y + self.bias
 
     def init_params(self, g: torch.Generator) -> None:
         dh = self.weight.shape[-1]
@@ -105,21 +138,48 @@ class SequenceConv2d(nn.Module):
 
 
 class MatrixLSTMCell(nn.Module):
-    """Parameters of the mLSTM cell: i/f gate projections over cat(q, k, v)
-    and the per-head outnorm. The cell math runs in the ViL layer function."""
+    """The mLSTM cell: i/f gate projections over cat(q, k, v), the chunkwise
+    mLSTM and the per-head outnorm. The ViL layer function runs the cell
+    math itself from these parameters; ``forward`` runs it on natural-layout
+    q/k/v for callers outside that function. ``igate_init``: ``"vil"``
+    starts the input-gate bias at -10, ``"xlstm"`` draws it from N(0, 0.1).
+    ``chunk_size`` sets the chunk length of the plain (CPU) path only."""
 
-    def __init__(self, dim: int, num_heads: int, norm_eps: float = 1e-3):
+    def __init__(self, dim: int, num_heads: int, norm_eps: float = 1e-3, chunk_size: int = 64,
+                 igate_act: str = "exp", norm_bias: bool = True, igate_init: str = "vil"):
         super().__init__()
+        if igate_init not in ("vil", "xlstm"):
+            raise ValueError(f"unknown igate_init {igate_init!r}")
+        self.num_heads = num_heads
+        self.chunk_size = chunk_size
+        self.igate_act = igate_act
+        self.igate_init = igate_init
         self.igate = nn.Linear(3 * dim, num_heads)
         self.fgate = nn.Linear(3 * dim, num_heads)
-        self.outnorm = MultiHeadLayerNorm(num_heads, dim, eps=norm_eps)
+        self.outnorm = MultiHeadLayerNorm(num_heads, dim, eps=norm_eps, with_bias=norm_bias)
 
     def init_params(self, g: torch.Generator) -> None:
         nn.init.zeros_(self.igate.weight)
         nn.init.zeros_(self.fgate.weight)
-        nn.init.constant_(self.igate.bias, -10.0)
         with torch.no_grad():
+            if self.igate_init == "xlstm":
+                self.igate.bias.normal_(0.0, 0.1, generator=g)
+            else:
+                self.igate.bias.fill_(-10.0)
             self.fgate.bias.copy_(torch.linspace(3.0, 6.0, self.fgate.bias.numel()))
+
+    def forward(self, q, k, v):
+        """q/k/v (B, S, D) -> (B, S, D): gate preacts from a Linear over
+        cat(q, k, v), the chunkwise mLSTM per head, the per-head outnorm."""
+        b, s, d = q.shape
+        nh = self.num_heads
+        qkv = torch.cat([q, k, v], dim=-1)
+        i_pre = self.igate(qkv).transpose(1, 2)  # (B, NH, S)
+        f_pre = self.fgate(qkv).transpose(1, 2)
+        heads = lambda t: t.reshape(b, s, nh, d // nh).transpose(1, 2)
+        h = mlstm_chunkwise_fwd(heads(q), heads(k), heads(v), i_pre, f_pre,
+                                chunk_size=self.chunk_size, igate_act=self.igate_act)
+        return self.outnorm(h.to(q.dtype)).transpose(1, 2).reshape(b, s, d)
 
 
 class ViLLayer(nn.Module):

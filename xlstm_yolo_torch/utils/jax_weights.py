@@ -4,13 +4,17 @@ The port's modules carry the JAX tree's names (``l4.pair0.fwd.layer.proj_up``
 for ``params/l4/pair0/fwd/layer/proj_up``), so the mapping is by path with
 the layout conventions converted:
 
-* conv ``kernel`` (kh, kw, in/groups, out) HWIO -> ``weight`` OIHW;
+* 2-D conv ``kernel`` (kh, kw, in/groups, out) HWIO -> ``weight`` OIHW;
+* 1-D conv ``kernel`` (k, in/groups, out) -> ``weight`` (out, in/groups, k);
 * dense ``kernel`` (in, out) -> ``weight`` (out, in), the gate kernels
-  (3*inner, nh) included;
+  (3*inner, nh) and ``lm_head`` included;
+* an embedding table ``embedding`` (vocab, dim) -> ``weight``, not transposed;
 * BatchNorm ``bn/scale`` -> ``bn.weight``; ``batch_stats`` ``mean``/``var``
   -> ``running_mean``/``running_var``;
 * everything else (biases, norm scales, headwise (nh, dh, dh) weights,
-  ``learnable_skip``) keeps its name and shape.
+  ``learnable_skip``, the sLSTM ``recurrent_kernel`` (nh, dh, 4, dh) and
+  ``bias`` (nh, 4, dh)) keeps its name and shape. The layout rules apply to
+  leaves named ``kernel`` only.
 
 Any missing or extra key, or a shape mismatch, raises. ``port_named`` maps
 any tree shaped like ``params`` (gradients, an optimizer trace, an EMA) to
@@ -52,11 +56,15 @@ def torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         leaf = "weight"
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
         elif arr.ndim == 2:
             arr = arr.T
         else:
             raise ValueError(f"unexpected kernel rank {arr.ndim} at {path!r}")
     elif leaf == "scale" and mods and mods[-1] == "bn":
+        leaf = "weight"
+    elif leaf == "embedding":
         leaf = "weight"
     return ".".join([*mods, leaf]), np.ascontiguousarray(arr)
 
