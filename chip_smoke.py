@@ -26,6 +26,18 @@ The xLSTM language model, through ``xlstm_yolo_torch.nn.xlstm``:
   tokens are checked against the same models with the plain versions
   forced in, then timed.
 
+The standalone ViL classifier, through ``xlstm_yolo_torch.nn.vil_extra``:
+
+* ``VisionLSTM2`` at its published width (dim 192, depth 12, patch 16, 224
+  px, 1000 classes; head dim 64, stochastic depth 0.05 decayed over the
+  depth), batch 64 of seeded images: one eval forward, and one train step
+  (train-mode forward with a seeded generator -> cross-entropy -> backward
+  -> clip, decay, nesterov SGD, EMA); logits, loss and every gradient are
+  checked against the same model with the plain versions forced in (the
+  same masks), then both are timed. The block-fused entry
+  (``MatrixLSTMCell.forward_block``) is driven once on the first block's
+  activations and held against that block's layer-fused output.
+
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -64,6 +76,18 @@ LM_CONTEXT, LM_PROMPT, LM_NEW, LM_WIDE_S = 256, 192, 64, 1024
 K1_CASES = [("readme_S256_DH64", 4, 256, 64), ("ragged_S200_DH64", 4, 200, 64),
             ("wide_S1024_DH256", 4, 1024, 256)]
 K5_CASES = [("readme_S256_DH32", 4, 256, 32), ("wide_S1024_DH128", 4, 1024, 128)]
+# the ViL classifier: VisionLSTM2's defaults (NX-AI vision-lstm's vil2-tiny
+# widths) with the head dim the ViL kernels take and stochastic depth on
+CLS = dict(dim=192, depth=12, patch_size=16, output_shape=(1000,), mode="classifier",
+           pooling="bilateral_flatten", qkv_block_size=64, chunk_size=64, bidirectional=False,
+           drop_path_rate=0.05, drop_path_decay=True)
+CLS_BATCH, CLS_HW = 64, 224
+# kernel cases at the ViL shapes: (name, S, DIM, INNER, NH, timed batch). The
+# layer kernel and the chunkwise backward run at every ViL-YOLO stage and at
+# the classifier's shape, the cell and block kernels at the classifier's and P3
+CLS_CASE = ("cls_S196", 196, 192, 384, 6, CLS_BATCH)
+LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE]
+FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH)]
 
 
 def emit(obj) -> None:
@@ -107,21 +131,29 @@ def layer_args(B, S, DIM, INNER, NH, seed, device):
             mk(INNER, DIM) * INNER ** -0.5, mk(DIM) * 0.1]
 
 
-def layer_bound(B, S, DIM, INNER, NH, n_weight_floats):
-    """Least time for one layer call: the larger of its FLOPs over the fp32
-    peak and the bytes of x, conv_act, out and the weights over the HBM rate.
-    FLOPs count the work the CUDA function does per token: proj_up (both
-    halves), headwise q/k/v, the two gate dots, per head the causal half of
-    the intra-chunk q k^T and E v products over the kernel's chunk length
-    plus the inter-chunk q C and chunk-summary k v^T products, and
-    proj_down. Elementwise work (norms, exp, gating) is left out."""
-    from xlstm_yolo_torch.kernels.vil_layer import KERNEL_CS
+def vil_bound(kind, B, S, DIM, INNER, NH, n_weight_floats):
+    """Least time for one call of the ViL family's ``kind`` ("cell", "block"
+    or "layer"): the larger of its FLOPs over the fp32 peak and the bytes of
+    its inputs, output and weights over the HBM rate. FLOPs count the work
+    the CUDA function does per token. The cell: headwise q/k/v, the two gate
+    dots, per head the causal half of the intra-chunk q k^T and E v products
+    over the kernel's chunk length plus the inter-chunk q C and
+    chunk-summary k v^T products; it reads conv_act and x_mlstm and writes
+    h. The block adds proj_down and reads z and the residual too, writing
+    (B, S, DIM). The layer adds proj_up (both halves) and reads only x and
+    conv_act. Elementwise work (norms, exp, gating) is left out."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
 
     dh = INNER // NH
-    macs = (2 * INNER * DIM + 3 * INNER * dh + 6 * INNER * NH
-            + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh) + INNER * DIM)
-    flops = 2 * B * S * macs
-    return roofline(flops, 4 * (B * S * (2 * DIM + INNER) + n_weight_floats))
+    macs = 3 * INNER * dh + 6 * INNER * NH + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh)
+    floats = 3 * INNER
+    if kind != "cell":
+        macs += INNER * DIM
+        floats = 3 * INNER + 2 * DIM
+    if kind == "layer":
+        macs += 2 * INNER * DIM
+        floats = 2 * DIM + INNER
+    return roofline(2 * B * S * macs, 4 * (B * S * floats + n_weight_floats))
 
 
 def phase_device():
@@ -161,6 +193,26 @@ def compare(got, want):
 
     abs_err = (got - want).abs().max().item()
     return abs_err, abs_err / want.abs().max().item(), bool(torch.isfinite(got).all())
+
+
+def grad_errors(grads_k, grads_p):
+    """(worst relative error, its name, count of vanishing tensors, the
+    largest gradient) of the kernels' gradients against the plain-forced
+    ones, each tensor held to its own max; a tensor that is zero up to
+    rounding is held to the largest gradient of the model."""
+    gmax = max(g.abs().max().item() for g in grads_p.values())
+    worst_rel, worst_name, vanishing = 0.0, None, 0
+    for n, gp in grads_p.items():
+        scale = gp.abs().max().item()
+        err = (grads_k[n] - gp).abs().max().item()
+        if scale < 1e-6 * gmax:
+            vanishing += 1
+            rel = err / gmax
+        else:
+            rel = err / scale
+        if rel > worst_rel:
+            worst_rel, worst_name = rel, n
+    return worst_rel, worst_name, vanishing, gmax
 
 
 def bwd_bound(B, S, INNER, NH):
@@ -210,23 +262,24 @@ def slstm_bound(B, NH, S, DH):
     return roofline(flops, 4 * (5 * B * S * NH * DH + NH * 4 * DH * (DH + 1)))
 
 
-def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None):
+def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
+                  batch_of=lambda case: BATCH):
     """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) on
-    ``make_case(B, case)`` for every case, at the main path's batch (the
-    arguments that are then timed) and at batch 2; both return a tuple of
-    outputs, each held to TOL_REL of its own max. Emits one line per case
-    (with ``extra(case, ms)`` merged in) and returns the totals over the
-    cases for the kernels line."""
+    ``make_case(B, case)`` for every case, at the main path's batch
+    ``batch_of(case)`` (the arguments that are then timed) and at batch 2;
+    both return a tuple of outputs, each held to TOL_REL of its own max.
+    Emits one line per case (with ``extra(case, ms)`` merged in) and returns
+    the totals over the cases for the kernels line."""
     worst_rel, worst_abs = 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = set()
     for case in cases:
         errs = {}
-        for B in (BATCH, 2):
+        for B in (batch_of(case), 2):
             args = make_case(B, case)
             per = [compare(g, w) for g, w in zip(run(args, case), plain(args, case))]
             errs[B] = (max(e[0] for e in per), max(e[1] for e in per), all(e[2] for e in per))
-            if B == BATCH:
+            if B == batch_of(case):
                 timed = args
         ok = all(fin and rel <= TOL_REL for _, rel, fin in errs.values())
         abs_err = max(e[0] for e in errs.values())
@@ -235,7 +288,7 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None):
         plain_ms = cuda_time_ms(lambda: plain(timed, case), iters=5)
         bound_ms, by = bound(timed, case)
         emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0],
-              "shape": [BATCH, *case[1:]],
+              "shape": [batch_of(case), *case[1:5]],
               "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
               "max_abs_err": abs_err, "maxrelerr": rel, "tol": TOL_REL, "ok": ok,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
@@ -256,37 +309,48 @@ def phase_kernel_parity():
     """K3 (vil_layer_fwd vs vil_layer_ref) on seeded layer arguments; K2
     (mlstm_chunkwise_bwd vs mlstm_chunkwise_bwd_plain) on the activations
     and carry states the layer kernel's forward leaves for seeded layer
-    arguments, with a seeded output gradient; K1 (mlstm_chunkwise_fwd vs
+    arguments, with a seeded output gradient, both at the ViL-YOLO stages
+    and at the classifier's shape; K1 (mlstm_chunkwise_fwd vs
     mlstm_chunkwise_fwd_plain) and K5 (slstm_scan_fwd vs slstm_scan) on
-    seeded arguments at the language model's shapes."""
+    seeded arguments at the language model's shapes; K4 (vil_cell_fwd vs
+    vil_cell_plain) and K7 (vil_block_fwd vs vil_block_plain) on arguments
+    cut from seeded layer arguments at the classifier's shape and at
+    ViL-YOLO's P3, and the three of the family against each other."""
     import torch
 
     from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain
     from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
     from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
-    from xlstm_yolo_torch.kernels.vil_layer import _launch, vil_layer_fwd, vil_layer_ref
+    from xlstm_yolo_torch.kernels.vil_block import tail_plain, vil_block_fwd, vil_block_plain
+    from xlstm_yolo_torch.kernels.vil_cell import Cfg, vil_cell_fwd, vil_cell_plain
+    from xlstm_yolo_torch.kernels.vil_layer import (_head, _launch, vil_layer_fwd,
+                                                    vil_layer_ref)
 
     dev = torch.device("cuda")
+    timed_batch = lambda case: case[5]
     k3 = kernel_parity(
-        "vil_layer_fwd", STAGES,
-        lambda B, st: layer_args(B, *st[1:], seed=st[1] + B, device=dev),
-        lambda args, st: (vil_layer_fwd(*args, st[4], chunk_size=CHUNK),),
-        lambda args, st: (vil_layer_ref(*args, st[4], chunk_size=CHUNK),),
-        lambda args, st: layer_bound(BATCH, *st[1:], sum(a.numel() for a in args[2:])))
+        "vil_layer_fwd", LAYER_CASES,
+        lambda B, case: layer_args(B, *case[1:5], seed=case[1] + B, device=dev),
+        lambda args, case: (vil_layer_fwd(*args, case[4], chunk_size=CHUNK),),
+        lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=CHUNK),),
+        lambda args, case: vil_bound("layer", case[5], *case[1:5],
+                                     sum(a.numel() for a in args[2:])),
+        batch_of=timed_batch)
 
-    def bwd_case(B, stage):
-        _, S, DIM, INNER, NH = stage
+    def bwd_case(B, case):
+        _, S, DIM, INNER, NH, _ = case
         args = layer_args(B, S, DIM, INNER, NH, seed=S + B + 1, device=dev)
-        _, (_, q, k, v, ig, fg), carry = _launch(args, NH, "exp", 1e-6, 1e-3, 1e-6)
+        _, (_, q, k, v, ig, fg), carry = _launch(args, Cfg(NH))
         dh = torch.from_numpy(np.random.default_rng(S + B).normal(
             size=(B, S, INNER)).astype(np.float32)).to(dev)
         return (q, k, v, ig, fg, dh), carry
 
     k2 = kernel_parity(
-        "mlstm_chunkwise_bwd", STAGES, bwd_case,
-        lambda case, st: mlstm_chunkwise_bwd(*case[0], st[4], carry=case[1]),
-        lambda case, st: mlstm_chunkwise_bwd_plain(*case[0], st[4]),
-        lambda case, st: bwd_bound(BATCH, st[1], st[3], st[4]))
+        "mlstm_chunkwise_bwd", LAYER_CASES, bwd_case,
+        lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1]),
+        lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4]),
+        lambda args, case: bwd_bound(case[5], case[1], case[3], case[4]),
+        batch_of=timed_batch)
 
     def seeded(seed):
         rng = np.random.default_rng(seed)
@@ -336,7 +400,53 @@ def phase_kernel_parity():
         if not ok:
             raise PhaseError(f"slstm_scan_fwd's state carry disagrees with the plain scan at "
                              f"{case[0]}: maxrelerr {rel}")
-    return k3, k2, k1, k5
+
+    def block_case(B, case):
+        """conv_act, x_mlstm, z, x_res, the cell's 10 and the tail's 5
+        arguments, from seeded layer arguments."""
+        _, S, DIM, INNER, NH, _ = case
+        a = layer_args(B, S, DIM, INNER, NH, seed=S + B + 2, device=dev)
+        mk = seeded(S + B + 3)
+        return [a[1], mk(B, S, INNER), mk(B, S, INNER), a[0], *a[5:]]
+
+    cell_of = lambda args: [args[0], args[1], *args[4:14]]
+    k4 = kernel_parity(
+        "vil_cell_fwd", FAMILY_CASES, lambda B, case: cell_of(block_case(B, case)),
+        lambda args, case: (vil_cell_fwd(*args, case[4], chunk_size=CHUNK),),
+        lambda args, case: (vil_cell_plain(*args, case[4], chunk_size=CHUNK),),
+        lambda args, case: vil_bound("cell", case[5], *case[1:5], sum(a.numel() for a in args[2:])),
+        batch_of=timed_batch)
+    k7 = kernel_parity(
+        "vil_block_fwd", FAMILY_CASES, block_case,
+        lambda args, case: (vil_block_fwd(*args, case[4], chunk_size=CHUNK),),
+        lambda args, case: (vil_block_plain(*args, case[4], chunk_size=CHUNK),),
+        lambda args, case: vil_bound("block", case[5], *case[1:5],
+                                     sum(a.numel() for a in args[4:])),
+        batch_of=timed_batch)
+
+    # one set of layer arguments three ways: the layer kernel; the block
+    # kernel behind RMSNorm and proj_up in torch; the torch tail over the
+    # cell kernel's h; each also against the plain layer
+    _, S, DIM, INNER, NH, B = CLS_CASE
+    a = layer_args(B, S, DIM, INNER, NH, seed=7, device=dev)
+    x, conv_act = a[:2]
+    *_, x_mlstm, z = _head(x, *a[2:5], 1e-6)
+    layer = vil_layer_fwd(*a, NH)
+    block = vil_block_fwd(conv_act, x_mlstm, z, x, *a[5:], NH)
+    tail = tail_plain(vil_cell_fwd(conv_act, x_mlstm, *a[5:15], NH), conv_act, z, x, *a[15:],
+                      Cfg(NH))
+    plain = vil_layer_ref(*a, NH)
+    rels = {"block_vs_layer": compare(block, layer)[1], "tail_over_cell_vs_layer":
+            compare(tail, layer)[1], "tail_over_cell_vs_block": compare(tail, block)[1],
+            "layer_vs_plain": compare(layer, plain)[1], "block_vs_plain": compare(block, plain)[1],
+            "tail_over_cell_vs_plain": compare(tail, plain)[1]}
+    ok = all(r <= TOL_REL for r in rels.values())
+    emit({"phase": "kernel_parity", "kernel": "vil_family_three_way", "shape": [B, S, DIM, INNER, NH],
+          "maxrelerr": rels, "tol": TOL_REL, "ok": ok})
+    if not ok:
+        raise PhaseError(f"the layer, block and cell kernels disagree with each other or "
+                         f"with the plain layer: {rels}")
+    return k3, k2, k1, k5, k4, k7
 
 
 def build_main_model(device, train: bool = False):
@@ -429,22 +539,12 @@ def phase_main_path():
 
 @contextmanager
 def plain_vil_kernels():
-    """The ViL layer's autograd Function with the plain versions forced in:
-    the plain forward instead of the layer kernel, the plain chunkwise
-    backward instead of its kernel."""
-    import xlstm_yolo_torch.kernels.vil_layer as vl
-    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd_plain
+    """The ViL family's calls with the plain versions forced in on the card:
+    the plain forward instead of the layer, cell and block kernels, and
+    with it (no carry states kept) the plain chunkwise backward."""
+    import xlstm_yolo_torch.kernels.vil_cell as vc
 
-    def plain_launch(args, num_heads, igate_act, eps, norm_eps, rms_eps):
-        out, acts = vl._vil_layer_plain(*args, num_heads, CHUNK, igate_act, eps, norm_eps,
-                                        rms_eps)
-        return out, acts, ()
-
-    def plain_bwd(*a, carry=None, **kw):
-        return mlstm_chunkwise_bwd_plain(*a, **kw)
-
-    with mock.patch.object(vl, "_launch", plain_launch), \
-            mock.patch.object(vl, "mlstm_chunkwise_bwd", plain_bwd):
+    with mock.patch.object(vc, "_on_card", lambda t: False):
         yield
 
 
@@ -492,19 +592,8 @@ def phase_train_path():
     step, loss_k, grads_k, launches, aux = steps["kernels"]
     _, loss_p, grads_p, plain_launches, _ = steps["plain"]
     del steps
-    gmax = max(g.abs().max().item() for g in grads_p.values())
-    worst_rel, worst_name, vanishing = 0.0, None, 0
-    for n, gp in grads_p.items():
-        scale = gp.abs().max().item()
-        err = (grads_k[n] - gp).abs().max().item()
-        if scale < 1e-6 * gmax:
-            # zero up to rounding (a bias that a train-mode BatchNorm removes)
-            vanishing += 1
-            rel = err / gmax
-        else:
-            rel = err / scale
-        if rel > worst_rel:
-            worst_rel, worst_name = rel, n
+    # a bias that a train-mode BatchNorm removes has a gradient that is zero up to rounding
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
     grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     step.apply_update()
@@ -672,6 +761,169 @@ def phase_lm_path():
     return launches
 
 
+def build_cls_model(train: bool):
+    """The ViL classifier on the card: seeded init with the JAX scheme, then
+    seeded gate kernels (zero at init), so the mLSTM gates vary along the
+    sequence."""
+    import torch
+
+    from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
+    from xlstm_yolo_torch.nn.vil_extra import VisionLSTM2
+
+    model = VisionLSTM2(**CLS, resolution=(CLS_HW, CLS_HW), device="cuda", seed=0)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MatrixLSTMCell):
+                for lin in (m.igate, m.fgate):
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    return model.train(train)
+
+
+def cls_inputs():
+    """What ``cls_path`` drives, on the card: seeded noise images (NHWC) and
+    seeded labels."""
+    import torch
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(CLS_BATCH, CLS_HW, CLS_HW, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, CLS["output_shape"][0], CLS_BATCH))
+    return x.cuda(), labels.cuda()
+
+
+def phase_cls_path():
+    """The ViL classifier at batch CLS_BATCH. (a) One eval forward against
+    the plain-forced model, then timed. (b) One stochastic-depth train step
+    (forward with a seeded generator, cross-entropy, backward) against the
+    plain-forced step under the same masks, then TRAIN_TIMED steps after
+    TRAIN_WARMUP timed by stage. (c) The block-fused entry on the first
+    block's activations against that block's layer-fused output."""
+    import torch
+    import torch.nn.functional as F
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_block import vil_block_fwd
+    from xlstm_yolo_torch.kernels.vil_cell import vil_cell_fwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.utils.loss import classification_loss
+    from xlstm_yolo_torch.utils.train_utils import StepUpdate
+
+    counters = (vil_layer_fwd, vil_cell_fwd, mlstm_chunkwise_bwd, vil_block_fwd)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    count = lambda: tuple(c.launches for c in counters)
+    x, labels = cls_inputs()
+    depth = CLS["depth"]
+
+    # (a) eval forward
+    model = build_cls_model(train=False)
+    reset()
+    with torch.no_grad():
+        logits = model(x)
+        torch.cuda.synchronize()
+        eval_launches = count()
+        with plain_vil_kernels():
+            ref = model(x)
+        eval_ms = cuda_time_ms(lambda: model(x), iters=5)
+    eval_rel = compare(logits, ref)[1]
+    eval_ok = (tuple(logits.shape) == (CLS_BATCH, CLS["output_shape"][0])
+               and bool(torch.isfinite(logits).all()) and eval_rel <= TOL_REL
+               and eval_launches == (depth, 0, 0, 0))
+
+    # (c) the block-fused entry, on block 0's own activations
+    with torch.no_grad():
+        layer = model.block0.fwd.layer
+        tokens = model.pos_embed(model.patch_embed(x)).flatten(1, 2)
+        x_mlstm, z = layer.proj_up(layer.norm(tokens)).split(layer.inner, dim=-1)
+        conv_act = F.silu(layer.conv(x_mlstm, layer.seqlens))
+        reset()
+        by_block = layer.mlstm_cell.forward_block(conv_act, x_mlstm, z, tokens, layer.q_proj,
+                                                  layer.k_proj, layer.v_proj,
+                                                  layer.learnable_skip, layer.proj_down)
+        torch.cuda.synchronize()
+        block_launches = vil_block_fwd.launches
+        block_rel = compare(by_block, layer(tokens))[1]
+    block_ok = block_launches == 1 and block_rel <= TOL_REL
+    del model, logits, ref, by_block
+
+    # (b) one train step, kernels against plain-forced under the same masks
+    steps = {}
+    for kind in ("kernels", "plain"):
+        model = build_cls_model(train=True)
+        update = StepUpdate(model)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with plain_vil_kernels() if kind == "plain" else nullcontext():
+            reset()
+            loss = classification_loss(model(x, generator=gen), labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = count()
+        steps[kind] = (model, update, float(loss.detach()),
+                       {n: p.grad for n, p in model.named_parameters()}, launches)
+    model, update, loss_k, grads_k, launches = steps["kernels"]
+    _, _, loss_p, grads_p, plain_launches = steps["plain"]
+    del steps
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_p
+    update(1)
+
+    times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+    losses = [loss_k]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        model.zero_grad(set_to_none=True)
+        loss = classification_loss(model(x, generator=gen), labels)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        update(it + 2)
+        ev[3].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        if it >= TRAIN_WARMUP:
+            for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                times[k] += a.elapsed_time(b) / TRAIN_TIMED
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    per_step = tuple(c / n_steps for c in count())
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    total_ms = sum(times.values())
+    expect = (1, depth - 1, depth, 0)  # block 0 has rate 0 under the decayed schedule
+    train_ok = (all(np.isfinite(losses)) and grads_finite and launches == expect
+                and per_step == expect and plain_launches == (0, 0, 0, 0)
+                and worst_rel <= TOL_REL and loss_rel <= TOL_REL)
+    ok = eval_ok and block_ok and train_ok
+    emit({"phase": "cls_path", "model": {**CLS, "resolution": CLS_HW}, "params": model.num_params(),
+          "batch": CLS_BATCH, "tol": TOL_REL,
+          "eval": {"launches_vil_layer_fwd": eval_launches[0], "expected_launches": depth,
+                   "logits_maxrelerr": eval_rel, "ms": eval_ms,
+                   "img_per_s": CLS_BATCH / eval_ms * 1e3, "ok": eval_ok},
+          "block_entry": {"launches_vil_block_fwd": block_launches, "maxrelerr_vs_layer": block_rel,
+                          "ok": block_ok},
+          "train": {"launches": dict(zip(("vil_layer_fwd", "vil_cell_fwd", "mlstm_chunkwise_bwd",
+                                          "vil_block_fwd"), launches)),
+                    "launches_per_timed_step": per_step, "expected_launches": expect,
+                    "loss": loss_k, "loss_plain": loss_p, "loss_relerr": loss_rel,
+                    "grad_maxrelerr": worst_rel, "grad_worst": worst_name,
+                    "grads_vanishing": vanishing, "grad_max": gmax, "losses": losses,
+                    "ms": times, "total_ms": total_ms, "img_per_s": CLS_BATCH / total_ms * 1e3,
+                    "peak_memory_gib": peak_gib, "ok": train_ok},
+          "ok": ok})
+    if not ok:
+        raise PhaseError("classifier path check failed")
+    names = ("vil_layer_fwd", "vil_cell_fwd", "mlstm_chunkwise_bwd", "vil_block_fwd")
+    return {"cls_eval": dict(zip(names, eval_launches)), "cls_train": dict(zip(names, launches)),
+            "cls_block_entry": {"vil_block_fwd": block_launches}}
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -679,33 +931,49 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k3, k2, k1, k5 = phase_kernel_parity()
+        k3, k2, k1, k5, k4, k7 = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
         phase = "train_path"
         train_launches = phase_train_path()
         phase = "lm_path"
         lm_launches = phase_lm_path()
+        phase = "cls_path"
+        by_path = phase_cls_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     import torch
 
-    def entry(name, source, replaces, n_launches, k):
+    # every path's counts, read just after it ran from counters set to 0 just before
+    by_path = {"main_path": {"vil_layer_fwd": launches},
+               "train_path": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), train_launches)),
+               "lm_path": dict(zip(("mlstm_chunkwise_fwd", "slstm_scan_fwd"), lm_launches)),
+               **by_path}
+
+    def entry(name, source, replaces, path, k):
+        """``launches`` is the count on ``path``, the first path that ran
+        this kernel; ``launches_by_path`` has every path that launched it."""
+        on_paths = {p: counts[name] for p, counts in by_path.items() if counts.get(name)}
         return {"name": name, "route": "cuda", "source": f"xlstm_yolo_torch/csrc/{source}",
-                "replaces": f"xlstm_yolo_tpu/kernels/{replaces}", "launches": n_launches,
+                "replaces": f"xlstm_yolo_tpu/kernels/{replaces}", "launches": on_paths[path],
+                "launches_by_path": on_paths,
                 "max_abs_err": k["max_abs_err"], "maxrelerr": k["maxrelerr"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": None}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",
-              launches, k3),
+              "main_path", k3),
         entry("mlstm_chunkwise_bwd", "mlstm_bwd.cu", "mlstm_pallas_bwd.py:255 (_kernel)",
-              train_launches[1], k2),
+              "train_path", k2),
         entry("mlstm_chunkwise_fwd", "mlstm_fwd.cu", "mlstm_pallas.py:198 (_kernel)",
-              lm_launches[0], k1),
-        entry("slstm_scan_fwd", "slstm.cu", "slstm_pallas.py:41 (_kernel)", lm_launches[1], k5)]})
+              "lm_path", k1),
+        entry("slstm_scan_fwd", "slstm.cu", "slstm_pallas.py:41 (_kernel)", "lm_path", k5),
+        entry("vil_cell_fwd", "vil_layer.cu", "mlstm_pallas.py:532 (_kernel_vil_fused)",
+              "cls_train", k4),
+        entry("vil_block_fwd", "vil_layer.cu", "mlstm_pallas.py:799 (_kernel_vil_block)",
+              "cls_block_entry", k7)]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -16,8 +16,12 @@ from xlstm_yolo_torch.kernels.mlstm_bwd import (
 from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
 from xlstm_yolo_torch.kernels.mlstm_native import mlstm_recurrent
 from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
+from xlstm_yolo_torch.kernels.vil_block import (
+    _block_plain, block_bwd, vil_block_fwd, vil_block_plain)
+from xlstm_yolo_torch.kernels.vil_cell import (
+    Cfg, _cell_plain, cell_bwd, vil_cell_fwd, vil_cell_plain)
 from xlstm_yolo_torch.kernels.vil_layer import (
-    _vil_layer_plain, vil_layer_bwd_ref, vil_layer_fwd, vil_layer_ref)
+    _layer_plain, vil_layer_bwd_ref, vil_layer_fwd, vil_layer_ref)
 
 pytestmark = pytest.mark.cuda
 TOL_REL = 1e-3
@@ -88,7 +92,7 @@ def test_vil_layer_kernel_refuses_grad(cuda_device):
     (out * gout).sum().backward()
     torch.cuda.synchronize()
     assert (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
-    _, acts = _vil_layer_plain(*args, 2, 128, "exp", 1e-6, 1e-3, 1e-6)
+    _, acts = _layer_plain(args, Cfg(2, 128))
     want = vil_layer_bwd_ref(args, acts, gout, 2, chunk_size=128)
     for i, (leaf, w) in enumerate(zip(leaves, want)):
         assert _rel(leaf.grad, w) <= TOL_REL, i
@@ -261,3 +265,165 @@ def test_xlstm_lm_forward_launches_kernels(cuda_device):
     assert _rel(got, want) <= TOL_REL
     out = generate(model, tokens[:, :20], max_new_tokens=3)
     assert out.shape == (2, 23) and bool((out[:, :20] == tokens[:, :20]).all())
+
+
+def _block_args(B, S, DIM, NH, device, seed):
+    """The block function's 19 arguments, cut from seeded layer arguments:
+    conv_act, x_mlstm, z, x_res, then the cell's and the tail's."""
+    a = _layer_args(B, S, DIM, NH, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    return [a[1], mk(B, S, NH * 64), mk(B, S, NH * 64), a[0], *a[5:]]
+
+
+FAMILY = {"cell": (vil_cell_fwd, vil_cell_plain, 12), "block": (vil_block_fwd, vil_block_plain, 19)}
+FAMILY_SHAPES = [(196, 192, 6, "exp"), (6400, 64, 2, "exp"), (77, 64, 2, "sigmoid"),
+                 (64, 128, 4, "exp")]
+FAMILY_IDS = ["classifier_ragged", "P3", "short_sigmoid", "one_chunk"]
+
+
+def _family_args(which, B, S, DIM, NH, device, seed):
+    args = _block_args(B, S, DIM, NH, device, seed)
+    return args if which == "block" else [args[0], args[1], *args[4:14]]
+
+
+@pytest.mark.parametrize("S,DIM,NH,igate_act", FAMILY_SHAPES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("which", ["cell", "block"])
+def test_vil_cell_and_block_kernels_match_plain(cuda_device, which, S, DIM, NH, igate_act):
+    """The classifier's shape (S 196, ragged, 6 heads), ViL-YOLO's P3, an S
+    shorter than one chunk and exactly one chunk."""
+    fwd, plain, n = FAMILY[which]
+    args = _family_args(which, 2, S, DIM, NH, cuda_device, seed=S)
+    assert len(args) == n
+    before = fwd.launches
+    got = fwd(*args, NH, chunk_size=128, igate_act=igate_act)
+    want = plain(*args, NH, chunk_size=128, igate_act=igate_act)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL_REL
+
+
+@pytest.mark.parametrize("which", ["cell", "block"])
+def test_vil_cell_and_block_kernels_reject_bad_input(cuda_device, which):
+    fwd = FAMILY[which][0]
+    args = _family_args(which, 1, 64, 64, 2, cuda_device, seed=0)
+    with pytest.raises(TypeError):
+        fwd(args[0].double(), *args[1:], 2)
+    with pytest.raises(ValueError):  # head dim 32: not what the kernel is written for
+        fwd(*args, 4)
+    with pytest.raises(ValueError):  # an argument left on the CPU
+        fwd(args[0], args[1].cpu(), *args[2:], 2)
+    with pytest.raises(ValueError):
+        fwd(*args, 2, igate_act="tanh")
+
+
+@pytest.mark.parametrize("S,igate_act", [(196, "exp"), (77, "sigmoid")])
+@pytest.mark.parametrize("which", ["cell", "block"])
+def test_vil_cell_and_block_gradients_match_plain(cuda_device, which, S, igate_act):
+    """With gradients needed: one forward launch, one chunkwise-backward
+    launch in backward(); the gradients match the plain backward on the
+    plain forward's activations."""
+    fwd = FAMILY[which][0]
+    args = _family_args(which, 2, S, 64, 2, cuda_device, seed=S + 2)
+    leaves = [a.clone().requires_grad_() for a in args]
+    f0, b0 = fwd.launches, mlstm_chunkwise_bwd.launches
+    out = fwd(*leaves, 2, chunk_size=128, igate_act=igate_act)
+    gout = torch.randn(out.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(S))
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
+    cfg = Cfg(2, 128, igate_act)
+    if which == "cell":
+        _, acts = _cell_plain(*args, cfg)
+        want = cell_bwd(args, acts, gout, cfg, mlstm_chunkwise_bwd_plain)
+    else:
+        _, acts = _block_plain(args, cfg)
+        want = block_bwd(args, acts, gout, cfg, mlstm_chunkwise_bwd_plain)
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        assert _rel(leaf.grad, w) <= TOL_REL, i
+
+
+def test_vil_family_agrees_three_ways(cuda_device):
+    """On one set of arguments: the layer kernel, the block kernel behind
+    RMSNorm and proj_up in torch, and the torch tail over the cell kernel's h."""
+    from xlstm_yolo_torch.kernels.vil_block import tail_plain
+    from xlstm_yolo_torch.kernels.vil_layer import _head
+
+    NH = 6
+    a = _layer_args(2, 196, 192, NH, cuda_device, seed=7)
+    x, conv_act = a[:2]
+    *_, x_mlstm, z = _head(x, *a[2:5], 1e-6)
+    layer = vil_layer_fwd(*a, NH)
+    block = vil_block_fwd(conv_act, x_mlstm, z, x, *a[5:], NH)
+    h = vil_cell_fwd(conv_act, x_mlstm, *a[5:15], NH)
+    tail = tail_plain(h, conv_act, z, x, *a[15:], Cfg(NH))
+    assert _rel(block, layer) <= TOL_REL and _rel(tail, layer) <= TOL_REL
+    assert _rel(tail, block) <= TOL_REL
+
+
+def _classifier(device, **kw):
+    from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
+    from xlstm_yolo_torch.nn.vil_extra import VisionLSTM2
+
+    model = VisionLSTM2(dim=64, depth=3, patch_size=16, output_shape=(10,), qkv_block_size=64,
+                        resolution=(96, 96), device=device, **kw)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MatrixLSTMCell):
+                for lin in (m.igate, m.fgate):
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    return model
+
+
+def test_vision_lstm2_train_step_launches_cell_kernel(cuda_device):
+    """Depth 3 with the decayed schedule: block 0 (rate 0) takes the layer
+    kernel, blocks 1 and 2 the cell kernel, every block one chunkwise
+    backward; eval launches the layer kernel three times."""
+    from xlstm_yolo_torch.utils.loss import classification_loss
+
+    model = _classifier(cuda_device, drop_path_rate=0.5)
+    x = torch.randn(4, 96, 96, 3, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    c0 = (vil_layer_fwd.launches, vil_cell_fwd.launches, mlstm_chunkwise_bwd.launches)
+    with torch.no_grad():
+        model(x)
+    assert vil_layer_fwd.launches == c0[0] + 3 and vil_cell_fwd.launches == c0[1]
+    model.train()
+    c0 = (vil_layer_fwd.launches, vil_cell_fwd.launches, mlstm_chunkwise_bwd.launches)
+    logits = model(x, generator=torch.Generator(cuda_device).manual_seed(9))
+    classification_loss(logits, torch.tensor([0, 1, 2, 3], device=cuda_device)).backward()
+    torch.cuda.synchronize()
+    c1 = (vil_layer_fwd.launches, vil_cell_fwd.launches, mlstm_chunkwise_bwd.launches)
+    assert tuple(b - a for a, b in zip(c0, c1)) == (1, 2, 3)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+    with pytest.raises(ValueError):
+        model(x)  # train mode without a generator
+
+
+def test_vil_layer_drop_path_on_card_leaves_dropped_rows_to_the_residual(cuda_device):
+    """One layer under stochastic depth, through the cell kernel: a dropped
+    sample's output is exactly its input and its input gradient exactly the
+    output gradient; a kept sample's differ from both."""
+    layer = _classifier(cuda_device, drop_path_rate=0.5).block2.fwd.layer.train()
+    keep = 1.0 - layer.drop_path.rate
+    for seed in range(32):  # the first seed that keeps one sample of four and drops another
+        mask = torch.rand(4, generator=torch.Generator(cuda_device).manual_seed(seed),
+                          device=cuda_device) < keep
+        if mask.any() and not mask.all():
+            break
+    g = torch.Generator(cuda_device).manual_seed(3)
+    x = torch.randn(4, 36, 64, device=cuda_device, generator=g).requires_grad_()
+    gout = torch.randn(4, 36, 64, device=cuda_device, generator=g)
+    c0 = (vil_cell_fwd.launches, mlstm_chunkwise_bwd.launches)
+    out = layer(x, generator=torch.Generator(cuda_device).manual_seed(seed))
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (vil_cell_fwd.launches, mlstm_chunkwise_bwd.launches) == (c0[0] + 1, c0[1] + 1)
+    assert torch.equal(out[~mask], x[~mask]) and torch.equal(x.grad[~mask], gout[~mask])
+    kept_out = (out[mask] - x[mask]).abs().amax((1, 2))
+    kept_grad = (x.grad[mask] - gout[mask]).abs().amax((1, 2))
+    assert bool((kept_out > 0).all()) and bool((kept_grad > 0).all())

@@ -25,8 +25,8 @@ from xlstm_yolo_tpu.kernels import mlstm_pallas_bwd as JP
 from xlstm_yolo_tpu.kernels.mlstm_bwd import mlstm_chunkwise_bwd_ref as jax_bwd_ref
 from xlstm_yolo_tpu.kernels.mlstm_pallas import mlstm_vil_layer_fused_pallas
 from xlstm_yolo_torch.kernels import mlstm_bwd as T
-from xlstm_yolo_torch.kernels.vil_layer import (
-    _vil_layer_plain, vil_layer_bwd_ref, vil_layer_fwd)
+from xlstm_yolo_torch.kernels.vil_cell import Cfg
+from xlstm_yolo_torch.kernels.vil_layer import _layer_plain, vil_layer_bwd_ref, vil_layer_fwd
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LAYER_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -119,7 +119,7 @@ def test_vil_layer_bwd_ref_matches_jax_custom_vjp(S):
 
     want = jax.grad(loss, argnums=tuple(range(20)))(*(jnp.asarray(a[n]) for n in NAMES))
     args = [torch.from_numpy(a[n]) for n in NAMES]
-    out, acts = _vil_layer_plain(*args, 2, 64, "exp", 1e-6, 1e-3, 1e-6)
+    out, acts = _layer_plain(args, Cfg(2, 64))
     got = vil_layer_bwd_ref(args, acts, 2 * out, 2, chunk_size=64)
     for n, g, w in zip(NAMES, got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=n, **LAYER_TOL)

@@ -23,7 +23,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 
-TOP = 8
+TOP = 12
 
 
 def profile_window(name: str, fn, calls: int) -> None:

@@ -1,12 +1,27 @@
-// ViL layer forward (K3) for NVIDIA Hopper, fp32, plain C interface.
+// The ViL layer family, forward, for NVIDIA Hopper, fp32, plain C interface:
+// the layer-fused (K3), cell-fused (K4) and block-fused (K7) functions.
 //
-// Replaces the TPU kernel `_kernel_vil_layer` in
+// K3 replaces the TPU kernel `_kernel_vil_layer` in
 // xlstm_yolo_tpu/kernels/mlstm_pallas.py (entered through
 // `mlstm_vil_layer_fused_pallas`). It computes the whole ViLLayer minus the
 // depthwise conv: RMSNorm, proj_up (both halves), headwise q/k/v, the i/f
 // gate dots, the chunkwise mLSTM, the per-head outnorm, the learnable skip,
 // the SiLU(z) output gate, proj_down and the residual. Inputs x (B, S, DIM)
 // and conv_act (B, S, INNER) in their natural layout; output (B, S, DIM).
+//
+// K4 replaces `_kernel_vil_fused` (entry `mlstm_vil_fused_pallas`): the
+// cell alone. Headwise q, k from conv_act and v from x_mlstm (both streamed
+// in, (B, S, INNER)), the gate dots and the chunkwise mLSTM; output h
+// (B, S, INNER) before the outnorm. It is what the layer runs when
+// stochastic depth keeps the residual outside the kernel.
+//
+// K7 replaces `_kernel_vil_block` (entry `mlstm_vil_block_fused_pallas`):
+// K4 plus the layer's tail (outnorm, skip, SiLU(z) gate, proj_down,
+// residual), with z (B, S, INNER) and the residual x_res (B, S, DIM)
+// streamed in. K3 is K7 plus RMSNorm and proj_up computed in the kernel, so
+// the three share every stage but the prologue: K3 runs prologue, chunk
+// summaries, state scan, chunk outputs, epilogue; K4 a smaller prologue and
+// the middle three; K7 the smaller prologue and the other four.
 //
 // What bounds it on this card: at the ViL-YOLO-n shapes the layer does
 // 370 (P3) to 1,200 (P5) fp32 operations per byte of x + conv_act + out,
@@ -49,14 +64,22 @@ namespace {
 constexpr int DH = 64;        // head dim
 constexpr int CS = 64;        // chunk length
 constexpr int LD = DH + 1;    // padded smem row stride
-constexpr int TT = 16;        // tokens per CTA in prologue and epilogue
+constexpr int TT = 16;        // tokens per CTA in the layer's prologue and the epilogue
+constexpr int TC = 8;         // tokens per CTA in the cell's and block's prologue: at
+                              // INNER 384 its 61 KB of shared memory let three CTAs
+                              // share an SM (16 tokens: one CTA, a third slower)
 constexpr int NT = 256;       // threads per CTA
 constexpr int NW = NT / 32;   // warps per CTA
 constexpr float NEG = -1e30f;
 
 struct Params {
-  const float* x;
-  const float* conv;
+  const float* x;     // (B, S, DIM) layer input, K3 only
+  const float* conv;  // (B, S, INNER) activated conv branch
+  const float* xm;    // (B, S, INNER) x_mlstm streamed in, K4 and K7
+  const float* zr;    // (B, S, INNER) output-gate branch the epilogue reads:
+                      // the workspace's z (K3) or the streamed one (K7)
+  const float* xres;  // (B, S, DIM) residual the epilogue adds: x (K3) or
+                      // the streamed one (K7)
   const float* nrm;
   const float* wu;    // (DIM, 2*INNER), in x out
   const float* bu;    // (2*INNER)
@@ -80,8 +103,8 @@ struct Params {
   float* q;           // (B, S, INNER), unscaled
   float* k;
   float* v;
-  float* z;
-  float* h;           // (B, S, INNER) cell output before outnorm
+  float* z;           // K3 only: the z half of proj_up
+  float* h;           // (B, S, INNER) cell output before outnorm; K4's output
   float* ig;          // (B*NH, S) gate preacts
   float* fg;
   float* kv;          // (B*NH, NS, DH, DH) chunk summaries
@@ -123,10 +146,69 @@ __device__ void warp_scan64(float* a) {
   a[2 * l + 1] = MAX ? fmaxf(excl, fmaxf(a0, a1)) : excl + a0 + a1;
 }
 
+// Headwise (block-diagonal) q, k from conv_act and v from x_mlstm, then the
+// i/f gate pre-activations, for the T tokens from tok0 on whose conv_act
+// (cv) and x_mlstm (xm) rows lie in shared memory (T x INNER each); qkv is
+// T x 3*INNER of scratch there. Every thread of the CTA calls it, after a
+// barrier.
+template <int T>
+__device__ void headwise_and_gates(const Params& p, const float* cv, const float* xm,
+                                   float* qkv, long tok0, long ntok) {
+  const int INNER = p.INNER, NH = p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int c = tid; c < INNER; c += NT) {
+    const int n = c / DH, o = c % DH;
+    float aq[T], ak[T], av[T];
+    const float bq = p.bq[c], bk = p.bk[c], bv = p.bv[c];
+#pragma unroll
+    for (int t = 0; t < T; ++t) { aq[t] = bq; ak[t] = bk; av[t] = bv; }
+    const long wo = (long)n * DH * DH + o;
+    for (int d = 0; d < DH; ++d) {
+      const float wqd = p.wq[wo + d * DH], wkd = p.wk[wo + d * DH], wvd = p.wv[wo + d * DH];
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        const float c_in = cv[t * INNER + n * DH + d];
+        aq[t] += c_in * wqd;
+        ak[t] += c_in * wkd;
+        av[t] += xm[t * INNER + n * DH + d] * wvd;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      qkv[t * 3 * INNER + c] = aq[t];
+      qkv[t * 3 * INNER + INNER + c] = ak[t];
+      qkv[t * 3 * INNER + 2 * INNER + c] = av[t];
+      if (tok0 + t < ntok) {
+        const long off = (tok0 + t) * INNER + c;
+        p.q[off] = aq[t];
+        p.k[off] = ak[t];
+        p.v[off] = av[t];
+      }
+    }
+  }
+  __syncthreads();
+
+  // gate preacts: one warp per (gate, token, head) dot over cat(q, k, v)
+  for (int job = warp; job < 2 * T * NH; job += NW) {
+    const int which = job / (T * NH), r = job % (T * NH), t = r / NH, hh = r % NH;
+    const float* w = (which ? p.wgf : p.wgi) + (long)hh * 3 * INNER;
+    float s = 0.f;
+    for (int j = lane; j < 3 * INNER; j += 32) s += qkv[t * 3 * INNER + j] * w[j];
+    s = warp_sum(s);
+    const long tk = tok0 + t;
+    if (lane == 0 && tk < ntok) {
+      const long b = tk / p.S, si = tk % p.S;
+      float* dst = which ? p.fg : p.ig;
+      dst[(b * NH + hh) * p.S + si] = s + (which ? p.bgf[hh] : p.bgi[hh]);
+    }
+  }
+}
+
 // 1. RMSNorm + proj_up + headwise q/k/v + gate dots for TT tokens.
 __global__ void __launch_bounds__(NT) vil_prologue(Params p) {
   extern __shared__ float sm[];
-  const int DIM = p.DIM, INNER = p.INNER, NH = p.NH;
+  const int DIM = p.DIM, INNER = p.INNER;
   float* xn = sm;                   // TT x DIM
   float* xm = xn + TT * DIM;        // TT x INNER   x_mlstm half of proj_up
   float* cv = xm + TT * INNER;      // TT x INNER   conv_act
@@ -176,53 +258,26 @@ __global__ void __launch_bounds__(NT) vil_prologue(Params p) {
   }
   __syncthreads();
 
-  // headwise (block-diagonal) projections: q, k from conv_act, v from x_mlstm
-  for (int c = tid; c < INNER; c += NT) {
-    const int n = c / DH, o = c % DH;
-    float aq[TT], ak[TT], av[TT];
-    const float bq = p.bq[c], bk = p.bk[c], bv = p.bv[c];
-#pragma unroll
-    for (int t = 0; t < TT; ++t) { aq[t] = bq; ak[t] = bk; av[t] = bv; }
-    const long wo = (long)n * DH * DH + o;
-    for (int d = 0; d < DH; ++d) {
-      const float wqd = p.wq[wo + d * DH], wkd = p.wk[wo + d * DH], wvd = p.wv[wo + d * DH];
-#pragma unroll
-      for (int t = 0; t < TT; ++t) {
-        const float c_in = cv[t * INNER + n * DH + d];
-        aq[t] += c_in * wqd;
-        ak[t] += c_in * wkd;
-        av[t] += xm[t * INNER + n * DH + d] * wvd;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < TT; ++t) {
-      qkv[t * 3 * INNER + c] = aq[t];
-      qkv[t * 3 * INNER + INNER + c] = ak[t];
-      qkv[t * 3 * INNER + 2 * INNER + c] = av[t];
-      if (tok0 + t < ntok) {
-        const long off = (tok0 + t) * INNER + c;
-        p.q[off] = aq[t];
-        p.k[off] = ak[t];
-        p.v[off] = av[t];
-      }
-    }
+  headwise_and_gates<TT>(p, cv, xm, qkv, tok0, ntok);
+}
+
+// 1'. The prologue of K4 and K7: conv_act and x_mlstm are streamed in, then
+// headwise q/k/v and the gate dots for TC tokens.
+__global__ void __launch_bounds__(NT) vil_cell_prologue(Params p) {
+  extern __shared__ float sm[];
+  const int INNER = p.INNER;
+  float* xm = sm;                   // TC x INNER   x_mlstm
+  float* cv = xm + TC * INNER;      // TC x INNER   conv_act
+  float* qkv = cv + TC * INNER;     // TC x 3*INNER q | k | v per token
+  const long ntok = (long)p.B * p.S;
+  const long tok0 = (long)blockIdx.x * TC;
+  for (int i = threadIdx.x; i < TC * INNER; i += NT) {
+    const long t = tok0 + i / INNER;
+    cv[i] = t < ntok ? p.conv[t * INNER + i % INNER] : 0.f;
+    xm[i] = t < ntok ? p.xm[t * INNER + i % INNER] : 0.f;
   }
   __syncthreads();
-
-  // gate preacts: one warp per (gate, token, head) dot over cat(q, k, v)
-  for (int job = warp; job < 2 * TT * NH; job += NW) {
-    const int which = job / (TT * NH), r = job % (TT * NH), t = r / NH, hh = r % NH;
-    const float* w = (which ? p.wgf : p.wgi) + (long)hh * 3 * INNER;
-    float s = 0.f;
-    for (int j = lane; j < 3 * INNER; j += 32) s += qkv[t * 3 * INNER + j] * w[j];
-    s = warp_sum(s);
-    const long tk = tok0 + t;
-    if (lane == 0 && tk < ntok) {
-      const long b = tk / p.S, si = tk % p.S;
-      float* dst = which ? p.fg : p.ig;
-      dst[(b * NH + hh) * p.S + si] = s + (which ? p.bgf[hh] : p.bgi[hh]);
-    }
-  }
+  headwise_and_gates<TC>(p, cv, xm, qkv, tok0, ntok);
 }
 
 // Loads chunk j's gate logs of row bh: lf (log forget), li (log input,
@@ -443,7 +498,7 @@ __global__ void __launch_bounds__(NT) vil_epilogue(Params p) {
       const int cl = lane + 32 * half, c = n * DH + cl;
       const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
       const float c_in = ok ? p.conv[tk * INNER + c] : 0.f;
-      const float zz = ok ? p.z[tk * INNER + c] : 0.f;
+      const float zz = ok ? p.zr[tk * INNER + c] : 0.f;
       r[cl] = (hn + p.skip[c] * c_in) * silu(zz);
     }
   }
@@ -462,81 +517,65 @@ __global__ void __launch_bounds__(NT) vil_epilogue(Params p) {
 #pragma unroll
     for (int t = 0; t < TT; ++t) {
       const long tk = tok0 + t;
-      if (tk < ntok) p.out[tk * DIM + c] = acc[t] + p.x[tk * DIM + c];
+      if (tk < ntok) p.out[tk * DIM + c] = acc[t] + p.xres[tk * DIM + c];
     }
   }
 }
 
+// Which function of the family a call computes.
+enum Kind { LAYER = 0, CELL = 1, BLOCK = 2 };
+
 // The workspace's arrays, in this order, with their sizes in floats; the
-// backward reads q/k/v/h, the gates and the carried-in states from it.
+// backward reads q/k/v/h, the gates and the carried-in states from it. z
+// exists for the layer only (the others stream it in or have none), and the
+// cell writes h to its output instead.
 enum WsArray { WQ, WK, WV, WZ, WH, WIG, WFG, WKV, WCPREV, WKSUM, WNPREV, WBTOT, WMLOC, WMPREV,
                kNumWs };
 
-void workspace_layout(int B, int S, int INNER, int NH, long* off) {
+void workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
   const long NS = (S + CS - 1) / CS;
   const long tok = (long)B * S, rows = (long)B * NH;
-  const long size[kNumWs] = {tok * INNER, tok * INNER, tok * INNER, tok * INNER, tok * INNER,
+  const long size[kNumWs] = {tok * INNER, tok * INNER, tok * INNER,
+                             kind == LAYER ? tok * INNER : 0, kind == CELL ? 0 : tok * INNER,
                              rows * S, rows * S, rows * NS * DH * DH, rows * NS * DH * DH,
                              rows * NS * DH, rows * NS * DH, rows * NS, rows * NS, rows * NS};
   off[0] = 0;
   for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + size[i];
 }
 
+// Dynamic shared memory of the prologue: the layer's with its DIM, the
+// cell's and the block's (no x rows, their own token tile) with DIM = 0.
 size_t prologue_smem(int DIM, int INNER) {
-  return sizeof(float) * TT * (DIM + 5 * (size_t)INNER);
+  return sizeof(float) * (DIM ? TT * (DIM + 5 * (size_t)INNER) : TC * 5 * (size_t)INNER);
 }
 
 constexpr size_t kOutputSmem = sizeof(float) * (4 * CS * LD + DH * DH + DH + 6 * CS);
 
-}  // namespace
-
-extern "C" {
-
-// Writes the offsets (in floats) of the workspace's arrays q, k, v, z, h,
-// ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev into off[0..13] and its
-// total size into off[14]; the wrapper allocates off[14] floats.
-void vil_layer_workspace_layout(int B, int S, int INNER, int NH, long* off) {
-  workspace_layout(B, S, INNER, NH, off);
-}
-
-// Dynamic shared memory the prologue needs; the wrapper checks it against
-// the device limit before launching.
-long vil_layer_prologue_smem(int DIM, int INNER) { return (long)prologue_smem(DIM, INNER); }
-
-const char* vil_layer_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Returns 0 on success, else the CUDA error code of the first failed step.
-int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const float* wu,
-                      const float* bu, const float* wq, const float* wk, const float* wv,
-                      const float* bq, const float* bk, const float* bv, const float* wgi,
-                      const float* bgi, const float* wgf, const float* bgf, const float* nsc,
-                      const float* nbi, const float* skip, const float* wd, const float* bd,
-                      float* out, float* ws, int B, int S, int DIM, int INNER, int NH,
-                      int igate_exp, float eps, float norm_eps, float rms_eps, void* stream) {
-  if (INNER != NH * DH || B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// Points p at the workspace and launches the stages of `kind` on the stream;
+// p holds the inputs, the sizes and (for the cell) h already. Returns 0 or
+// the CUDA error code of the first failed step.
+int run(Params& p, float* ws, int kind, void* stream) {
+  if (p.INNER != p.NH * DH || p.B <= 0 || p.S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Params p;
-  p.x = x; p.conv = conv; p.nrm = nrm; p.wu = wu; p.bu = bu;
-  p.wq = wq; p.wk = wk; p.wv = wv; p.bq = bq; p.bk = bk; p.bv = bv;
-  p.wgi = wgi; p.bgi = bgi; p.wgf = wgf; p.bgf = bgf;
-  p.nsc = nsc; p.nbi = nbi; p.skip = skip; p.wd = wd; p.bd = bd; p.out = out;
-  p.B = B; p.S = S; p.DIM = DIM; p.INNER = INNER; p.NH = NH;
-  p.NS = (S + CS - 1) / CS;
-  p.igate_exp = igate_exp; p.eps = eps; p.norm_eps = norm_eps; p.rms_eps = rms_eps;
-  const long tok = (long)B * S, rows = (long)B * NH;
+  p.NS = (p.S + CS - 1) / CS;
+  const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
   long off[kNumWs + 1];
-  workspace_layout(B, S, INNER, NH, off);
+  workspace_layout(kind, p.B, p.S, p.INNER, p.NH, off);
   p.q = ws + off[WQ]; p.k = ws + off[WK]; p.v = ws + off[WV]; p.z = ws + off[WZ];
-  p.h = ws + off[WH]; p.ig = ws + off[WIG]; p.fg = ws + off[WFG]; p.kv = ws + off[WKV];
+  if (kind != CELL) p.h = ws + off[WH];
+  p.ig = ws + off[WIG]; p.fg = ws + off[WFG]; p.kv = ws + off[WKV];
   p.cprev = ws + off[WCPREV]; p.ksum = ws + off[WKSUM]; p.nprev = ws + off[WNPREV];
   p.btot = ws + off[WBTOT]; p.mloc = ws + off[WMLOC]; p.mprev = ws + off[WMPREV];
+  if (kind == LAYER) {
+    p.zr = p.z;
+    p.xres = p.x;
+  }
 
   cudaError_t err;
-  const size_t pro_smem = prologue_smem(DIM, INNER);
-  const size_t epi_smem = sizeof(float) * TT * (size_t)INNER;
-  if ((err = cudaFuncSetAttribute(vil_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto prologue = kind == LAYER ? vil_prologue : vil_cell_prologue;
+  const size_t pro_smem = prologue_smem(kind == LAYER ? p.DIM : 0, p.INNER);
+  const size_t epi_smem = sizeof(float) * TT * (size_t)p.INNER;
+  if ((err = cudaFuncSetAttribute(prologue, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)pro_smem)) != cudaSuccess) return err;
   if ((err = cudaFuncSetAttribute(vil_chunk_output, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kOutputSmem)) != cudaSuccess) return err;
@@ -544,7 +583,8 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
                                   (int)epi_smem)) != cudaSuccess) return err;
 
   const unsigned tok_blocks = (unsigned)((tok + TT - 1) / TT);
-  vil_prologue<<<tok_blocks, NT, pro_smem, st>>>(p);
+  const int pro_tile = kind == LAYER ? TT : TC;
+  prologue<<<(unsigned)((tok + pro_tile - 1) / pro_tile), NT, pro_smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   vil_chunk_summary<<<dim3(p.NS, rows), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -552,9 +592,95 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   vil_chunk_output<<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (kind == CELL) return 0;
   vil_epilogue<<<tok_blocks, NT, epi_smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return 0;
+}
+
+// The cell's arguments, shared by the three entries.
+void set_cell(Params& p, const float* conv, const float* wq, const float* wk, const float* wv,
+              const float* bq, const float* bk, const float* bv, const float* wgi,
+              const float* bgi, const float* wgf, const float* bgf, int B, int S, int INNER,
+              int NH, int igate_exp, float eps) {
+  p.conv = conv;
+  p.wq = wq; p.wk = wk; p.wv = wv; p.bq = bq; p.bk = bk; p.bv = bv;
+  p.wgi = wgi; p.bgi = bgi; p.wgf = wgf; p.bgf = bgf;
+  p.B = B; p.S = S; p.INNER = INNER; p.NH = NH;
+  p.igate_exp = igate_exp; p.eps = eps;
+}
+
+// The tail's arguments, shared by the layer and the block.
+void set_tail(Params& p, const float* nsc, const float* nbi, const float* skip, const float* wd,
+              const float* bd, float* out, int DIM, float norm_eps) {
+  p.nsc = nsc; p.nbi = nbi; p.skip = skip; p.wd = wd; p.bd = bd; p.out = out;
+  p.DIM = DIM; p.norm_eps = norm_eps;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Writes the offsets (in floats) of the workspace's arrays q, k, v, z, h,
+// ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev into off[0..13] and its
+// total size into off[14]; the wrapper allocates off[14] floats. `kind`: 0
+// the layer, 1 the cell (no z, no h), 2 the block (no z).
+void vil_workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
+  workspace_layout(kind, B, S, INNER, NH, off);
+}
+
+// Dynamic shared memory the prologue needs (DIM = 0 for the cell and the
+// block); the wrapper checks it against the device limit before launching.
+long vil_prologue_smem(int DIM, int INNER) { return (long)prologue_smem(DIM, INNER); }
+
+const char* vil_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Each entry returns 0 on success, else the CUDA error code of the first
+// failed step. Headwise weights arrive as (NH, DH_in, DH_out), gate kernels
+// as (NH, 3*INNER).
+
+// K3: the layer from x and conv_act.
+int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const float* wu,
+                      const float* bu, const float* wq, const float* wk, const float* wv,
+                      const float* bq, const float* bk, const float* bv, const float* wgi,
+                      const float* bgi, const float* wgf, const float* bgf, const float* nsc,
+                      const float* nbi, const float* skip, const float* wd, const float* bd,
+                      float* out, float* ws, int B, int S, int DIM, int INNER, int NH,
+                      int igate_exp, float eps, float norm_eps, float rms_eps, void* stream) {
+  Params p = {};
+  set_cell(p, conv, wq, wk, wv, bq, bk, bv, wgi, bgi, wgf, bgf, B, S, INNER, NH, igate_exp, eps);
+  set_tail(p, nsc, nbi, skip, wd, bd, out, DIM, norm_eps);
+  p.x = x; p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
+  return run(p, ws, LAYER, stream);
+}
+
+// K4: the cell from conv_act and x_mlstm; h (B, S, INNER) out.
+int vil_cell_fwd_f32(const float* conv, const float* xm, const float* wq, const float* wk,
+                     const float* wv, const float* bq, const float* bk, const float* bv,
+                     const float* wgi, const float* bgi, const float* wgf, const float* bgf,
+                     float* h, float* ws, int B, int S, int INNER, int NH, int igate_exp,
+                     float eps, void* stream) {
+  Params p = {};
+  set_cell(p, conv, wq, wk, wv, bq, bk, bv, wgi, bgi, wgf, bgf, B, S, INNER, NH, igate_exp, eps);
+  p.xm = xm; p.h = h;
+  return run(p, ws, CELL, stream);
+}
+
+// K7: the cell and the tail from conv_act, x_mlstm, z and the residual.
+int vil_block_fwd_f32(const float* conv, const float* xm, const float* z, const float* xres,
+                      const float* wq, const float* wk, const float* wv, const float* bq,
+                      const float* bk, const float* bv, const float* wgi, const float* bgi,
+                      const float* wgf, const float* bgf, const float* nsc, const float* nbi,
+                      const float* skip, const float* wd, const float* bd, float* out, float* ws,
+                      int B, int S, int DIM, int INNER, int NH, int igate_exp, float eps,
+                      float norm_eps, void* stream) {
+  Params p = {};
+  set_cell(p, conv, wq, wk, wv, bq, bk, bv, wgi, bgi, wgf, bgf, B, S, INNER, NH, igate_exp, eps);
+  set_tail(p, nsc, nbi, skip, wd, bd, out, DIM, norm_eps);
+  p.xm = xm; p.zr = z; p.xres = xres;
+  return run(p, ws, BLOCK, stream);
 }
 
 }  // extern "C"

@@ -31,9 +31,11 @@ import torch.nn.functional as F
 from ._build import CudaLibrary, check_tensor
 from .mlstm_native import _log_igate
 
-KERNEL_DH = 64  # head dim the CUDA kernels are written for
-KERNEL_CS = 64  # chunk length of both CUDA kernels (CS in csrc/*.cu): the
-                # layer kernel's carry states are per chunk of this length
+# Shared by the launchers of this kernel and of the ViL layer, cell and block
+# kernels (kernels/vil_cell.py), whose forward leaves the carry states:
+KERNEL_DH = 64  # head dim those CUDA kernels are written for
+KERNEL_CS = 64  # their chunk length (CS in csrc/vil_layer.cu and
+                # csrc/mlstm_bwd.cu): the carry states are per chunk of it
 NEG = -1e30  # log input gate of a masked step
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -34,6 +34,17 @@ def lecun_normal_(w: torch.Tensor, g: torch.Generator) -> torch.Tensor:
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
 
 
+def init_tree(model: nn.Module, seed: int) -> torch.Generator:
+    """Initialize every submodule that has ``init_params`` from a generator
+    seeded with ``seed``; returns the generator, for what the model itself
+    still draws."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if hasattr(m, "init_params"):
+            m.init_params(g)
+    return g
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Train-mode BatchNorm with flax semantics: normalize with the batch's
     biased variance, and update the running statistics with that same

@@ -17,6 +17,7 @@ from ..utils import resolve_device
 from ..utils.loss import detection_loss
 from . import heads as H
 from .graph import GraphModel, ParsedModel, parse_model
+from .modules import init_tree
 
 
 class TaskModel(GraphModel):
@@ -48,10 +49,7 @@ class TaskModel(GraphModel):
     def init_weights(self, seed: int = 0) -> None:
         """Re-initialize every parameter with the JAX package's scheme,
         drawing from a generator seeded with ``seed``."""
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if hasattr(m, "init_params"):
-                m.init_params(g)
+        init_tree(self, seed)
 
     @torch.no_grad()
     def _probe_strides(self, imgsz: int = 64) -> tuple:

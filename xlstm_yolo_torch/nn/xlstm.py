@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ..kernels.slstm import powerlaw_blockdependent_bias, slstm_scan_fwd
 from ..utils import resolve_device
-from .modules import lecun_normal_
+from .modules import init_tree, lecun_normal_
 from .vil import LayerNorm, LinearHeadwiseExpand, MatrixLSTMCell, MultiHeadLayerNorm
 
 
@@ -252,10 +252,7 @@ class xLSTMLMModel(nn.Module):
     def init_weights(self, seed: int = 0) -> None:
         """Re-initialize every parameter, drawing from a generator seeded
         with ``seed``."""
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if hasattr(m, "init_params"):
-                m.init_params(g)
+        g = init_tree(self, seed)
         self.embedding.weight.normal_(0.0, 1.0 / math.sqrt(self.embedding_dim), generator=g)
         if self.lm_head is not None:
             lecun_normal_(self.lm_head.weight, g)

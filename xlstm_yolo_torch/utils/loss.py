@@ -1,7 +1,7 @@
-"""The v8 detection loss on padded ground truth.
+"""The v8 detection loss on padded ground truth, and the classification loss.
 
-Port of ``_bce_logits``, ``df_loss`` and ``detection_loss`` in
-``xlstm_yolo_tpu/utils/loss.py``: TAL assignment, BCE on the class logits,
+Port of ``_bce_logits``, ``df_loss``, ``detection_loss`` and
+``classification_loss`` in ``xlstm_yolo_tpu/utils/loss.py``. Detection: TAL assignment, BCE on the class logits,
 CIoU on the boxes and the distribution focal loss, with gains box 7.5, cls
 0.5 and dfl 1.5, the total scaled by the batch size. Labels arrive as
 (B, n_max, 5) = (cls, x1, y1, x2, y2) in pixels with a (B, n_max) validity
@@ -72,3 +72,10 @@ def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch
 
     box, cls, dfl_l = loss_box * BOX_GAIN, loss_cls * CLS_GAIN, loss_dfl * DFL_GAIN
     return DetectionLossOut(total=(box + cls + dfl_l) * b, box=box, cls=cls, dfl=dfl_l)
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of (B, C) logits against (B,) integer labels, taken in
+    fp32 and averaged over the batch."""
+    logp = logits.float().log_softmax(-1)
+    return -logp.gather(-1, labels[:, None]).mean()
