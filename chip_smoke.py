@@ -38,6 +38,25 @@ The standalone ViL classifier, through ``xlstm_yolo_torch.nn.vil_extra``:
   (``MatrixLSTMCell.forward_block``) is driven once on the first block's
   activations and held against that block's layer-fused output.
 
+The two entries no model calls, each driven on a model's real data:
+
+* the conv-fused ViL layer (``ViLLayer.forward_conv_fused``) — a forward hook
+  takes the real input of every ViL layer of the full ViL-YOLO-n at batch 8
+  and 640 px; the entry, with that layer's own weights, must give that
+  layer's output, in the model's direction and in the flipped one; once per
+  stage also under grad, input and weight gradients against the layer's
+  own path;
+* the row-wise kth value (``rowwise_kth_value``) — on the candidate metric
+  the task-aligned assigner really sees in a train-mode forward of the
+  model (batch 8 x 32 label slots over 8400 anchors, k 10): equal to the
+  assigner's chain of max and suppress passes, and giving its membership.
+
+One train step of the mLSTM-only language model at the README widths
+(``slstm_at=()``, the class default): forward -> ``lm_loss`` -> backward
+through the chunkwise backward kernel -> ``StepUpdate``; loss and every
+gradient against the same step with the plain versions forced in, then
+timed by stage.
+
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -72,6 +91,8 @@ TRAIN_TIMED, TRAIN_WARMUP = 3, 1
 LM_README = dict(vocab_size=50304, embedding_dim=128, num_blocks=7, slstm_at=(1,), num_heads=4)
 LM_WIDE = dict(vocab_size=50304, embedding_dim=512, num_blocks=8, slstm_at=(1,), num_heads=4)
 LM_CONTEXT, LM_PROMPT, LM_NEW, LM_WIDE_S = 256, 192, 64, 1024
+# the model that trains on the card: the README widths, every block an mLSTM block
+LM_TRAIN = {**LM_README, "slstm_at": ()}
 # kernel cases at the language model's shapes: (name, NH, S, DH)
 K1_CASES = [("readme_S256_DH64", 4, 256, 64), ("ragged_S200_DH64", 4, 200, 64),
             ("wide_S1024_DH256", 4, 1024, 256)]
@@ -88,6 +109,13 @@ CLS_BATCH, CLS_HW = 64, 224
 CLS_CASE = ("cls_S196", 196, 192, 384, 6, CLS_BATCH)
 LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE]
 FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH)]
+# the kth-value kernel: (name, R, N, k, rows with ties and few distinct values). The
+# assigner at batch 8 (8 x 32 label slots over 8400 anchors), at the JAX
+# bench's batch 128, and a small case with ties inside the top k
+TAL_K = 10
+K8_CASES = [("tal_b8_R256", BATCH * N_LABELS, 8400, TAL_K, False),
+            ("tal_b128_R4096", 128 * N_LABELS, 8400, TAL_K, False),
+            ("ties_R7_N300", 7, 300, TAL_K, True)]
 
 
 def emit(obj) -> None:
@@ -154,6 +182,18 @@ def vil_bound(kind, B, S, DIM, INNER, NH, n_weight_floats):
         macs += 2 * INNER * DIM
         floats = 2 * DIM + INNER
     return roofline(2 * B * S * macs, 4 * (B * S * floats + n_weight_floats))
+
+
+def conv_bound(B, S, DIM, INNER, NH, n_weight_floats):
+    """Least time for one conv-fused layer call: the layer's operations
+    (``vil_bound``) plus the nine multiply-adds per token and channel of the
+    depthwise conv, against the bytes of x, out and the weights only."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
+
+    dh = INNER // NH
+    macs = (3 * INNER * dh + 6 * INNER * NH + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh)
+            + 3 * INNER * DIM + 9 * INNER)
+    return roofline(2 * B * S * macs, 4 * (2 * B * S * DIM + n_weight_floats))
 
 
 def phase_device():
@@ -263,11 +303,14 @@ def slstm_bound(B, NH, S, DH):
 
 
 def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
-                  batch_of=lambda case: BATCH):
+                  batch_of=lambda case: BATCH, cross=None):
     """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) on
     ``make_case(B, case)`` for every case, at the main path's batch
     ``batch_of(case)`` (the arguments that are then timed) and at batch 2;
-    both return a tuple of outputs, each held to TOL_REL of its own max.
+    both return a tuple of outputs, each held to TOL_REL of its own max;
+    ``cross(args, case)``, where given, returns further references the
+    kernel's outputs are held to in the same way; its time at the timed
+    batch is printed as ``cross_ms`` and used nowhere else.
     Emits one line per case (with ``extra(case, ms)`` merged in) and returns
     the totals over the cases for the kernels line."""
     worst_rel, worst_abs = 0.0, 0.0
@@ -277,7 +320,10 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         errs = {}
         for B in (batch_of(case), 2):
             args = make_case(B, case)
-            per = [compare(g, w) for g, w in zip(run(args, case), plain(args, case))]
+            got = run(args, case)
+            per = [compare(g, w) for g, w in zip(got, plain(args, case))]
+            if cross is not None:
+                per += [compare(g, w) for g, w in zip(got, cross(args, case))]
             errs[B] = (max(e[0] for e in per), max(e[1] for e in per), all(e[2] for e in per))
             if B == batch_of(case):
                 timed = args
@@ -287,7 +333,8 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         ms = cuda_time_ms(lambda: run(timed, case), iters=20)
         plain_ms = cuda_time_ms(lambda: plain(timed, case), iters=5)
         bound_ms, by = bound(timed, case)
-        emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0],
+        cross_ms = {"cross_ms": cuda_time_ms(lambda: cross(timed, case), iters=10)} if cross else {}
+        emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0], **cross_ms,
               "shape": [batch_of(case), *case[1:5]],
               "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
               "max_abs_err": abs_err, "maxrelerr": rel, "tol": TOL_REL, "ok": ok,
@@ -305,6 +352,65 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations"}
 
 
+def kth_rows(R, N, ties, seed, device):
+    """Rows as the assigner's masked metric has them: mostly zeros, no
+    negatives. ``ties``: rows 0 and 1 tie their four largest values and
+    their 6th with their 7th (ties inside the top k) and the last row holds
+    fewer than TAL_K distinct values."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.random((R, N)) < 0.97, 0.0, np.abs(rng.standard_normal((R, N))))
+    x = x.astype(np.float32)
+    if ties:
+        order = np.argsort(-x[:2], axis=1)
+        for r in range(2):
+            x[r, order[r, 1:4]] = x[r, order[r, 0]]
+            x[r, order[r, 6]] = x[r, order[r, 5]]
+        x[-1] = rng.integers(0, 4, N).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def kth_parity(device):
+    """K8 (rowwise_kth_value vs rowwise_kth_value_plain) at K8_CASES: exact
+    equality (the function selects, it does not round). ``library_ms`` times
+    ``torch.topk(x, k).values[:, -1:]`` on the same rows: another function
+    where values tie, a yardstick for time only. The bound is the bytes of
+    x read once and the result written once; at R 256 that is 2.6 us, below
+    the cost of a launch."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.topk import rowwise_kth_value, rowwise_kth_value_plain
+
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    worst_abs = 0.0
+    for name, R, N, k, ties in K8_CASES:
+        x = kth_rows(R, N, ties, seed=R + N, device=device)
+        got, want = rowwise_kth_value(x, k), rowwise_kth_value_plain(x, k)
+        torch.cuda.synchronize()
+        exact = tuple(got.shape) == (R, 1) and bool(torch.equal(got, want))
+        abs_err = (got - want).abs().max().item()
+        below_k = int((want <= -1e30).sum())  # rows with fewer than k distinct values
+        ok = exact and (not ties or below_k >= 1)
+        ms = cuda_time_ms(lambda: rowwise_kth_value(x, k), iters=20)
+        plain_ms = cuda_time_ms(lambda: rowwise_kth_value_plain(x, k), iters=5)
+        library_ms = cuda_time_ms(lambda: torch.topk(x, k).values[:, -1:], iters=20)
+        bound_ms, by = roofline(R * N, 4 * (R * N + R))
+        emit({"phase": "kernel_parity", "kernel": "rowwise_kth_value", "case": name,
+              "shape": [R, N], "k": k, "exact": exact, "max_abs_err": abs_err,
+              "rows_below_k_distinct": below_k, "tol": 0.0, "ok": ok, "ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": by, "gb_per_s": 4 * R * N / ms / 1e6})
+        if not ok:
+            raise PhaseError(f"rowwise_kth_value differs from its plain version at {name}: "
+                             f"max abs err {abs_err}")
+        worst_abs = max(worst_abs, abs_err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                         ("library_ms", library_ms)):
+            totals[key] += val
+    return {"maxrelerr": 0.0, "max_abs_err": worst_abs, **totals, "bound_by": "bytes"}
+
+
 def phase_kernel_parity():
     """K3 (vil_layer_fwd vs vil_layer_ref) on seeded layer arguments; K2
     (mlstm_chunkwise_bwd vs mlstm_chunkwise_bwd_plain) on the activations
@@ -315,7 +421,10 @@ def phase_kernel_parity():
     seeded arguments at the language model's shapes; K4 (vil_cell_fwd vs
     vil_cell_plain) and K7 (vil_block_fwd vs vil_block_plain) on arguments
     cut from seeded layer arguments at the classifier's shape and at
-    ViL-YOLO's P3, and the three of the family against each other."""
+    ViL-YOLO's P3, and the three of the family against each other; K6
+    (vil_layer_conv_fwd vs vil_layer_conv_plain, and vs the library conv
+    feeding K3) at the ViL-YOLO stages' grids and the classifier's; K8
+    (``kth_parity``)."""
     import torch
 
     from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain
@@ -323,6 +432,8 @@ def phase_kernel_parity():
     from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
     from xlstm_yolo_torch.kernels.vil_block import tail_plain, vil_block_fwd, vil_block_plain
     from xlstm_yolo_torch.kernels.vil_cell import Cfg, vil_cell_fwd, vil_cell_plain
+    from xlstm_yolo_torch.kernels.vil_conv import (_conv_pre, vil_layer_conv_fwd,
+                                                    vil_layer_conv_plain)
     from xlstm_yolo_torch.kernels.vil_layer import (_head, _launch, vil_layer_fwd,
                                                     vil_layer_ref)
 
@@ -446,7 +557,34 @@ def phase_kernel_parity():
     if not ok:
         raise PhaseError(f"the layer, block and cell kernels disagree with each other or "
                          f"with the plain layer: {rels}")
-    return k3, k2, k1, k5, k4, k7
+
+    def conv_case(B, case):
+        """x, the norm and proj_up, a seeded depthwise kernel and bias, the
+        cell's and the tail's arguments, from seeded layer arguments."""
+        _, S, DIM, INNER, NH, _ = case
+        a = layer_args(B, S, DIM, INNER, NH, seed=S + B + 4, device=dev)
+        mk = seeded(S + B + 5)
+        return [a[0], *a[2:5], mk(INNER, 1, 3, 3) * 0.3, mk(INNER) * 0.1, *a[5:]]
+
+    grid = lambda case: (int(round(case[1] ** 0.5)),) * 2  # 80x80, 40x40, 20x20, 14x14
+
+    def conv_then_layer(args, case):
+        """The library's depthwise conv feeding the layer kernel."""
+        import torch.nn.functional as F
+
+        *_, x_mlstm, _ = _head(args[0], *args[1:4], 1e-6)
+        conv_act = F.silu(_conv_pre(x_mlstm, args[4], args[5], grid(case)))
+        return (vil_layer_fwd(args[0], conv_act, *args[1:4], *args[6:], case[4]),)
+
+    k6 = kernel_parity(
+        "vil_layer_conv_fwd", LAYER_CASES, conv_case,
+        lambda args, case: (vil_layer_conv_fwd(*args, case[4], grid(case), chunk_size=CHUNK),),
+        lambda args, case: (vil_layer_conv_plain(*args, case[4], grid(case), chunk_size=CHUNK),),
+        lambda args, case: conv_bound(case[5], *case[1:5], sum(a.numel() for a in args[1:])),
+        batch_of=timed_batch, cross=conv_then_layer,
+        extra=lambda case, ms: {"grid": list(grid(case))})
+    k8 = kth_parity(dev)
+    return k3, k2, k1, k5, k4, k7, k6, k8
 
 
 def build_main_model(device, train: bool = False):
@@ -635,6 +773,143 @@ def phase_train_path():
     return launches
 
 
+def phase_kth_path():
+    """The kth-value entry on the candidate metric the assigner really sees:
+    one train-mode forward and loss of ViL-YOLO-n on the train batch, with
+    the assigner's ``topk_positive_mask`` watched for its argument (B x
+    N_LABELS x 8400). ``rowwise_kth_value`` on those rows must equal the
+    assigner's own chain exactly, and its threshold must give the
+    assigner's membership."""
+    import torch
+
+    import xlstm_yolo_torch.utils.tal as tal_mod
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.kernels.topk import rowwise_kth_value, rowwise_kth_value_plain
+
+    step = TrainStep(build_main_model("cuda", train=True))
+    seen = []
+    chain = tal_mod.topk_positive_mask
+
+    def watched(metric, k):
+        seen.append((metric, k, chain(metric, k)))
+        return seen[-1][2]
+
+    with mock.patch.object(tal_mod, "topk_positive_mask", watched), torch.no_grad():
+        step.forward_loss(train_batch("cuda"))
+    metric, k, members = seen[0]
+    rows = metric.reshape(-1, metric.shape[-1])
+    rowwise_kth_value.launches = 0
+    kth = rowwise_kth_value(rows, k)
+    torch.cuda.synchronize()
+    launches = rowwise_kth_value.launches
+    exact = bool(torch.equal(kth, rowwise_kth_value_plain(rows, k)))
+    mine = ((rows >= kth.clamp(min=0.0)) & (rows > 0.0)).reshape(metric.shape)
+    same_members = bool(torch.equal(mine, members > 0))
+    n_members = int(mine.sum())
+    positive_rows = int((rows > 0).any(dim=1).sum())
+    ms = cuda_time_ms(lambda: rowwise_kth_value(rows, k), iters=20)
+    chain_ms = cuda_time_ms(lambda: rowwise_kth_value_plain(rows, k), iters=5)
+    ok = (len(seen) == 1 and tuple(rows.shape) == (BATCH * N_LABELS, 8400) and k == TAL_K
+          and launches == 1 and exact and same_members and n_members > 0)
+    emit({"phase": "kth_path", "model": "vil_yolon.yaml", "batch": BATCH, "rows": list(rows.shape),
+          "k": k, "launches_rowwise_kth_value": launches, "expected_launches": 1, "exact": exact,
+          "same_members_as_assigner": same_members, "members": n_members,
+          "rows_with_candidates": positive_rows, "ms": ms, "chain_ms": chain_ms, "ok": ok})
+    if not ok:
+        raise PhaseError("kth-value path check failed")
+    return launches
+
+
+def phase_conv_path():
+    """The conv-fused entry on the full ViL-YOLO-n's real activations. A
+    forward hook takes every ViL layer's input, token grid and output in one
+    inference forward at batch BATCH; ``forward_conv_fused`` with the layer's
+    own weights must reproduce the output within TOL_REL, in the model's
+    direction and with the layer turned to the other direction (against the
+    layer's own path there). Once per stage also under grad: the input's and
+    every weight's gradient against the layer's own path."""
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_conv import vil_layer_conv_fwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.nn.vil import ViLLayer
+
+    counters = (vil_layer_conv_fwd, vil_layer_fwd, mlstm_chunkwise_bwd)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    count = lambda: tuple(c.launches for c in counters)
+    model = build_main_model("cuda")
+    pred = Predictor(model, imgsz=IMGSZ)
+    frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
+    layers = [(n, m) for n, m in model.named_modules() if isinstance(m, ViLLayer)]
+    taken = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=n: taken.__setitem__(name, (args[0], args[1], out)))
+        for n, m in layers]
+    with torch.inference_mode():
+        x, _ = pred.preprocess(torch.from_numpy(frames).cuda())
+        model.predictions(x)
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+
+    per_layer, total_launches, ok = [], [0, 0, 0], len(taken) == len(layers) == len(STAGES)
+    for name, layer in layers:
+        x_in, seqlens, want = (t.clone() if torch.is_tensor(t) else t for t in taken[name])
+        rels, launches = {}, {}
+        model_direction = layer.direction
+        for direction in (model_direction, "backward" if model_direction == "forward"
+                          else "forward"):
+            layer.direction = direction
+            with torch.no_grad():
+                ref = want if direction == model_direction else layer(x_in, seqlens)
+                reset()
+                got = layer.forward_conv_fused(x_in, seqlens)
+                torch.cuda.synchronize()
+                launches[direction] = count()
+            rels[direction] = compare(got, ref)[1]
+            ok = ok and launches[direction] == (1, 0, 0) and rels[direction] <= TOL_REL \
+                and bool(torch.isfinite(got).all())
+            total_launches = [a + b for a, b in zip(total_launches, launches[direction])]
+        layer.direction = model_direction
+
+        grads = {}
+        for which in ("conv_fused", "layer"):
+            xg = x_in.clone().requires_grad_()
+            layer.zero_grad(set_to_none=True)
+            reset()
+            with torch.enable_grad():
+                out = layer.forward_conv_fused(xg, seqlens) if which == "conv_fused" \
+                    else layer(xg, seqlens)
+                out.square().mean().backward()
+            torch.cuda.synchronize()
+            launches["grad_" + which] = count()
+            grads[which] = {"x": xg.grad, **{n: p.grad for n, p in layer.named_parameters()}}
+        layer.zero_grad(set_to_none=True)
+        worst_rel, worst_name, vanishing, _ = grad_errors(grads["conv_fused"], grads["layer"])
+        ok = ok and launches["grad_conv_fused"] == (1, 0, 1) \
+            and launches["grad_layer"] == (0, 1, 1) and worst_rel <= TOL_REL
+        total_launches = [a + b for a, b in zip(total_launches, launches["grad_conv_fused"])]
+        per_layer.append({"layer": name, "grid": list(seqlens), "shape": list(x_in.shape),
+                          "maxrelerr_by_direction": rels, "grad_maxrelerr": worst_rel,
+                          "grad_worst": worst_name, "grads_vanishing": vanishing,
+                          "launches": {k: list(v) for k, v in launches.items()}})
+    names = ("vil_layer_conv_fwd", "vil_layer_fwd", "mlstm_chunkwise_bwd")
+    emit({"phase": "conv_path", "model": "vil_yolon.yaml", "batch": BATCH, "imgsz": IMGSZ,
+          "layers": per_layer, "launch_order": list(names), "tol": TOL_REL,
+          "launches": dict(zip(names, total_launches)),
+          "expected_launches": {"vil_layer_conv_fwd": 3 * len(STAGES), "vil_layer_fwd": 0,
+                                "mlstm_chunkwise_bwd": len(STAGES)}, "ok": ok})
+    if not ok or total_launches != [3 * len(STAGES), 0, len(STAGES)]:
+        raise PhaseError("conv-fused path check failed")
+    return dict(zip(names, total_launches))
+
+
 def build_lm_model(cfg, device):
     """The xLSTM language model on ``device``: seeded init with the JAX
     scheme, then seeded cell gate kernels and sLSTM recurrent kernels (zero
@@ -758,6 +1033,99 @@ def phase_lm_path():
           "wide_forward_tokens_per_s": BATCH * LM_WIDE_S / wide_ms * 1e3, "ok": ok})
     if not ok:
         raise PhaseError("language-model path check failed")
+    return launches
+
+
+def lm_train_inputs():
+    """What ``lm_train_path`` trains on, on the card: seeded token ids as
+    (inputs, next-token targets), each (BATCH, LM_CONTEXT)."""
+    import torch
+
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, LM_TRAIN["vocab_size"], (BATCH, LM_CONTEXT + 1))).cuda()
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def phase_lm_train_path():
+    """One train step of the mLSTM-only language model at the README widths
+    (LM_TRAIN) at batch BATCH and context LM_CONTEXT: forward -> ``lm_loss``
+    -> backward -> ``StepUpdate``, with the kernels against the same step
+    with the plain versions forced in (loss, and every parameter gradient
+    within TOL_REL of that tensor's max), then TRAIN_TIMED steps after
+    TRAIN_WARMUP timed by stage with CUDA events."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd
+    from xlstm_yolo_torch.utils.loss import lm_loss
+    from xlstm_yolo_torch.utils.train_utils import StepUpdate
+
+    inputs, targets = lm_train_inputs()
+    count = lambda: (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches)
+
+    def reset():
+        mlstm_chunkwise_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+
+    steps = {}
+    for kind in ("kernels", "plain"):
+        model = build_lm_model(LM_TRAIN, "cuda").train()
+        update = StepUpdate(model)
+        with plain_lm_kernels() if kind == "plain" else nullcontext():
+            reset()
+            loss = lm_loss(model(inputs), targets)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = count()
+        steps[kind] = (model, update, float(loss.detach()),
+                       {n: p.grad for n, p in model.named_parameters()}, launches)
+    model, update, loss_k, grads_k, launches = steps["kernels"]
+    _, _, loss_p, grads_p, plain_launches = steps["plain"]
+    del steps
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_p
+    update(1)
+
+    times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+    losses = [loss_k]
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        model.zero_grad(set_to_none=True)
+        loss = lm_loss(model(inputs), targets)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        update(it + 2)
+        ev[3].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        if it >= TRAIN_WARMUP:
+            for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                times[k] += a.elapsed_time(b) / TRAIN_TIMED
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    per_step = tuple(c / n_steps for c in count())
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    total_ms = sum(times.values())
+    n_blocks = LM_TRAIN["num_blocks"]
+    expect = (n_blocks, n_blocks)
+    ok = (all(np.isfinite(losses)) and grads_finite and launches == expect
+          and per_step == expect and plain_launches == (0, 0) and worst_rel <= TOL_REL
+          and loss_rel <= TOL_REL and losses[-1] < losses[0])
+    emit({"phase": "lm_train_path", "model": {**LM_TRAIN, "slstm_at": []},
+          "params": model.num_params(), "batch": BATCH, "context": LM_CONTEXT, "tol": TOL_REL,
+          "launches_mlstm_chunkwise_fwd": launches[0],
+          "launches_mlstm_chunkwise_bwd": launches[1], "launches_per_timed_step": per_step,
+          "expected_launches": expect, "loss": loss_k, "loss_plain": loss_p,
+          "loss_relerr": loss_rel, "grad_maxrelerr": worst_rel, "grad_worst": worst_name,
+          "grads_vanishing": vanishing, "grad_max": gmax, "losses": losses, "ms": times,
+          "total_ms": total_ms, "tokens_per_s": BATCH * LM_CONTEXT / total_ms * 1e3,
+          "peak_memory_gib": peak_gib, "ok": ok})
+    if not ok:
+        raise PhaseError("language-model train path check failed")
     return launches
 
 
@@ -931,7 +1299,7 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k3, k2, k1, k5, k4, k7 = phase_kernel_parity()
+        k3, k2, k1, k5, k4, k7, k6, k8 = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
         phase = "train_path"
@@ -940,6 +1308,12 @@ def main() -> int:
         lm_launches = phase_lm_path()
         phase = "cls_path"
         by_path = phase_cls_path()
+        phase = "kth_path"
+        kth_launches = phase_kth_path()
+        phase = "conv_path"
+        conv_launches = phase_conv_path()
+        phase = "lm_train_path"
+        lm_train_launches = phase_lm_train_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -949,9 +1323,13 @@ def main() -> int:
     by_path = {"main_path": {"vil_layer_fwd": launches},
                "train_path": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), train_launches)),
                "lm_path": dict(zip(("mlstm_chunkwise_fwd", "slstm_scan_fwd"), lm_launches)),
-               **by_path}
+               **by_path,
+               "kth_path": {"rowwise_kth_value": kth_launches},
+               "conv_path": conv_launches,
+               "lm_train_path": dict(zip(("mlstm_chunkwise_fwd", "mlstm_chunkwise_bwd"),
+                                         lm_train_launches))}
 
-    def entry(name, source, replaces, path, k):
+    def entry(name, source, replaces, path, k, library_ms=None):
         """``launches`` is the count on ``path``, the first path that ran
         this kernel; ``launches_by_path`` has every path that launched it."""
         on_paths = {p: counts[name] for p, counts in by_path.items() if counts.get(name)}
@@ -960,7 +1338,7 @@ def main() -> int:
                 "launches_by_path": on_paths,
                 "max_abs_err": k["max_abs_err"], "maxrelerr": k["maxrelerr"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": None}
+                "library_ms": library_ms}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",
@@ -973,7 +1351,11 @@ def main() -> int:
         entry("vil_cell_fwd", "vil_layer.cu", "mlstm_pallas.py:532 (_kernel_vil_fused)",
               "cls_train", k4),
         entry("vil_block_fwd", "vil_layer.cu", "mlstm_pallas.py:799 (_kernel_vil_block)",
-              "cls_block_entry", k7)]})
+              "cls_block_entry", k7),
+        entry("vil_layer_conv_fwd", "vil_layer.cu", "mlstm_pallas.py:1659 (_kernel_vil_conv)",
+              "conv_path", k6),
+        entry("rowwise_kth_value", "topk.cu", "topk_pallas.py:26 (_kth_kernel)", "kth_path", k8,
+              library_ms=k8["library_ms"])]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

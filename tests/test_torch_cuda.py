@@ -13,13 +13,18 @@ import torch
 
 from xlstm_yolo_torch.kernels.mlstm_bwd import (
     chunk_carry_states, mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
-from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
+from xlstm_yolo_torch.kernels.mlstm_fwd import (
+    mlstm_chunkwise_bwd_heads, mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
 from xlstm_yolo_torch.kernels.mlstm_native import mlstm_recurrent
 from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
+from xlstm_yolo_torch.kernels.topk import (
+    NEG_INF, rowwise_kth_value, rowwise_kth_value_plain)
 from xlstm_yolo_torch.kernels.vil_block import (
     _block_plain, block_bwd, vil_block_fwd, vil_block_plain)
 from xlstm_yolo_torch.kernels.vil_cell import (
     Cfg, _cell_plain, cell_bwd, vil_cell_fwd, vil_cell_plain)
+from xlstm_yolo_torch.kernels.vil_conv import (
+    _conv_plain, conv_layer_bwd, vil_layer_conv_fwd, vil_layer_conv_plain)
 from xlstm_yolo_torch.kernels.vil_layer import (
     _layer_plain, vil_layer_bwd_ref, vil_layer_fwd, vil_layer_ref)
 
@@ -167,15 +172,89 @@ def test_mlstm_fwd_kernel_matches_plain(cuda_device, S, DH, igate_act):
 
 
 def test_mlstm_fwd_kernel_refuses(cuda_device):
-    """No fallback on the card: gradients, another head dim and another
-    dtype each raise."""
+    """No fallback on the card: gradients at a head dim the backward kernel
+    does not take, another head dim and another dtype each raise."""
     args = _mlstm_args(1, 2, 64, 64, cuda_device, seed=0)
-    with pytest.raises(NotImplementedError):
-        mlstm_chunkwise_fwd(args[0].clone().requires_grad_(), *args[1:])
+    for DH in (128, 256):
+        wide = _mlstm_args(1, 2, 64, DH, cuda_device, seed=0)
+        before = mlstm_chunkwise_fwd.launches
+        with pytest.raises(NotImplementedError):
+            mlstm_chunkwise_fwd(wide[0].clone().requires_grad_(), *wide[1:])
+        assert mlstm_chunkwise_fwd.launches == before
     with pytest.raises(ValueError, match="head dim"):
         mlstm_chunkwise_fwd(*_mlstm_args(1, 2, 64, 32, cuda_device, seed=0))
     with pytest.raises(TypeError):
         mlstm_chunkwise_fwd(args[0].double(), *args[1:])
+
+
+@pytest.mark.parametrize("S,igate_act", [(256, "exp"), (200, "exp"), (40, "sigmoid")],
+                         ids=["whole_chunks", "ragged", "short_sigmoid"])
+def test_mlstm_fwd_kernel_under_grad_runs_the_backward_kernel(cuda_device, S, igate_act):
+    """K1 under grad at head dim 64: one forward launch, and one
+    chunkwise-backward launch in backward() on the carry states the forward
+    kernel left; h and the five gradients match the plain pair (the plain
+    forward with the plain chunkwise backward as its backward)."""
+    args = _mlstm_args(2, 4, S, 64, cuda_device, seed=S)
+    leaves = [a.clone().requires_grad_() for a in args]
+    dh = torch.randn(2, 4, S, 64, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(S))
+    f0, b0 = mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches
+    h = mlstm_chunkwise_fwd(*leaves, igate_act=igate_act)
+    (h * dh).sum().backward()
+    torch.cuda.synchronize()
+    assert (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
+    assert _rel(h, mlstm_chunkwise_fwd_plain(*args, igate_act=igate_act)) <= TOL_REL
+    cpu = [a.cpu() for a in args]
+    want = mlstm_chunkwise_bwd_heads(*cpu, dh.cpu(), igate_act=igate_act)
+    for name, leaf, w in zip("qkvif", leaves, want):
+        assert bool(torch.isfinite(leaf.grad).all()), name
+        assert _rel(leaf.grad.cpu(), w) <= TOL_REL, name
+
+
+def test_xlstm_lm_train_step_on_card(cuda_device):
+    """One train step of an mLSTM-only language model (cell head dim 64):
+    K1 and K2 once per block, the loss and every gradient within tolerance
+    of the same step with the plain forward (autograd) forced in; a model
+    with an sLSTM block raises under grad."""
+    import xlstm_yolo_torch.nn.vil as vil_mod
+    from xlstm_yolo_torch.nn.xlstm import xLSTMLMModel
+    from xlstm_yolo_torch.utils.loss import lm_loss
+    from xlstm_yolo_torch.utils.train_utils import StepUpdate
+
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, 500, (2, 101), generator=g).to(cuda_device)
+    results = {}
+    for kind in ("kernels", "plain"):
+        model = xLSTMLMModel(500, embedding_dim=128, num_blocks=2, device=cuda_device).train()
+        gg = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "gate.weight" in name:
+                    p.copy_((torch.randn(p.shape, generator=gg) * 0.05).to(p.device))
+        update = StepUpdate(model)
+        k1, k2 = mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches
+        if kind == "plain":
+            vil_mod.mlstm_chunkwise_fwd = mlstm_chunkwise_fwd_plain
+        try:
+            loss = lm_loss(model(tokens[:, :-1]), tokens[:, 1:])
+            loss.backward()
+        finally:
+            vil_mod.mlstm_chunkwise_fwd = mlstm_chunkwise_fwd
+        torch.cuda.synchronize()
+        counts = (mlstm_chunkwise_fwd.launches - k1, mlstm_chunkwise_bwd.launches - k2)
+        assert counts == ((2, 2) if kind == "kernels" else (0, 0))
+        results[kind] = (float(loss.detach()), {n: p.grad.clone() for n, p in
+                                                model.named_parameters()})
+        update(1)
+        assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    (lk, gk), (lp, gp) = results["kernels"], results["plain"]
+    assert abs(lk - lp) <= TOL_REL * abs(lp)
+    for n in gp:
+        assert _rel(gk[n], gp[n]) <= TOL_REL, n
+    mixed = xLSTMLMModel(500, embedding_dim=128, num_blocks=2, slstm_at=(1,),
+                         device=cuda_device).train()
+    with pytest.raises(NotImplementedError):
+        mixed(tokens[:, :-1])
 
 
 def _slstm_args(B, S, NH, DH, device, seed):
@@ -427,3 +506,151 @@ def test_vil_layer_drop_path_on_card_leaves_dropped_rows_to_the_residual(cuda_de
     kept_out = (out[mask] - x[mask]).abs().amax((1, 2))
     kept_grad = (x.grad[mask] - gout[mask]).abs().amax((1, 2))
     assert bool((kept_out > 0).all()) and bool((kept_grad > 0).all())
+
+
+def _kth_rows(R, N, seed, device):
+    """Rows as the assigner's metric has them (mostly zeros, no negatives)
+    on even rows and normal draws on odd ones, with ties inside the top k on
+    rows 0 and 1 and fewer than 10 distinct values on the last row."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((R, N)).astype(np.float32)
+    x[::2] = np.where(rng.random((len(x[::2]), N)) < 0.97, 0.0, np.abs(x[::2]))
+    top = np.argsort(-x[:2], axis=1)
+    for r in range(2):
+        x[r, top[r, 1:4]] = x[r, top[r, 0]]  # the four largest tie
+        x[r, top[r, 6]] = x[r, top[r, 5]]
+    x[-1] = rng.integers(0, 4, N).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("R,N,k", [(7, 300, 10), (16, 131, 3), (256, 8400, 10), (5, 8400, 1),
+                                   (9, 1000, 16), (3, 7, 10)])
+def test_rowwise_kth_value_kernel_is_exact(cuda_device, R, N, k):
+    """K8 selects, it does not round: equal to the suppress chain bit for
+    bit, ties inside the top k, N no multiple of 4 or 32, a row with fewer
+    than k distinct values (-1e30) and N < k included."""
+    x = _kth_rows(R, N, seed=R + N + k, device=cuda_device)
+    before = rowwise_kth_value.launches
+    got = rowwise_kth_value(x, k)
+    want = rowwise_kth_value_plain(x, k)
+    torch.cuda.synchronize()
+    assert rowwise_kth_value.launches == before + 1
+    assert got.shape == (R, 1) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    if k > 4:
+        assert float(got[-1]) == float(np.float32(NEG_INF))
+
+
+def test_rowwise_kth_value_kernel_casts_and_refuses(cuda_device):
+    x = _kth_rows(8, 515, seed=0, device=cuda_device)
+    for dtype in (torch.bfloat16, torch.float16):
+        assert torch.equal(rowwise_kth_value(x.to(dtype), 5),
+                           rowwise_kth_value_plain(x.to(dtype), 5))
+    assert torch.equal(rowwise_kth_value(x[:, ::2], 3), rowwise_kth_value_plain(x[:, ::2], 3))
+    for bad_k in (0, 17):
+        with pytest.raises(ValueError):
+            rowwise_kth_value(x, bad_k)
+    with pytest.raises(TypeError):
+        rowwise_kth_value(x.double(), 3)
+    with pytest.raises(ValueError):
+        rowwise_kth_value(x[0], 3)
+
+
+def _conv_args(B, H, W, DIM, NH, device, seed):
+    """The conv-fused layer's 21 arguments from seeded layer arguments: x,
+    the norm and proj_up, a seeded depthwise kernel and bias, the rest."""
+    a = _layer_args(B, H * W, DIM, NH, device, seed)
+    rng = np.random.default_rng(seed + 5)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    return [a[0], *a[2:5], mk(NH * 64, 1, 3, 3) * 0.3, mk(NH * 64) * 0.1, *a[5:]]
+
+
+@pytest.mark.parametrize("H,W,DIM,NH,igate_act", [
+    (80, 80, 64, 2, "exp"), (40, 40, 128, 4, "exp"), (20, 20, 256, 8, "exp"),
+    (14, 14, 192, 6, "exp"), (5, 9, 64, 2, "sigmoid"), (1, 70, 64, 2, "exp")],
+    ids=["P3", "P4", "P5", "classifier_ragged", "short_sigmoid", "one_row"])
+def test_vil_conv_kernel_matches_plain_and_layer_kernel(cuda_device, H, W, DIM, NH, igate_act):
+    """K6 against its plain version, and against the library conv feeding
+    the layer kernel on the same arguments."""
+    import torch.nn.functional as F
+    from xlstm_yolo_torch.kernels.vil_conv import _conv_pre
+    from xlstm_yolo_torch.kernels.vil_layer import _head
+
+    args = _conv_args(2, H, W, DIM, NH, cuda_device, seed=H * W)
+    before = vil_layer_conv_fwd.launches, vil_layer_fwd.launches
+    got = vil_layer_conv_fwd(*args, NH, (H, W), chunk_size=128, igate_act=igate_act)
+    assert (vil_layer_conv_fwd.launches, vil_layer_fwd.launches) == (before[0] + 1, before[1])
+    want = vil_layer_conv_plain(*args, NH, (H, W), chunk_size=128, igate_act=igate_act)
+    *_, x_mlstm, _ = _head(args[0], *args[1:4], 1e-6)
+    conv_act = F.silu(_conv_pre(x_mlstm, args[4], args[5], (H, W)))
+    by_layer = vil_layer_fwd(args[0], conv_act, *args[1:4], *args[6:], NH, igate_act=igate_act)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL_REL
+    assert _rel(got, by_layer) <= TOL_REL
+
+
+def test_vil_conv_kernel_rejects_bad_input(cuda_device):
+    args = _conv_args(1, 8, 8, 64, 2, cuda_device, seed=0)
+    with pytest.raises(TypeError):
+        vil_layer_conv_fwd(args[0].double(), *args[1:], 2, (8, 8))
+    with pytest.raises(ValueError):  # head dim 32: not what the kernel is written for
+        vil_layer_conv_fwd(*args, 4, (8, 8))
+    with pytest.raises(ValueError):  # no grid of 64 tokens
+        vil_layer_conv_fwd(*args, 2, (8, 9))
+    with pytest.raises(ValueError):  # an argument left on the CPU
+        vil_layer_conv_fwd(*args[:4], args[4].cpu(), *args[5:], 2, (8, 8))
+
+
+@pytest.mark.parametrize("H,W,igate_act", [(14, 14, "exp"), (7, 11, "sigmoid")])
+def test_vil_conv_gradients_match_plain(cuda_device, H, W, igate_act):
+    """With gradients needed: one forward launch, one chunkwise-backward
+    launch in backward(); the 21 gradients match the plain backward on the
+    plain forward's activations."""
+    args = _conv_args(2, H, W, 64, 2, cuda_device, seed=H + W)
+    leaves = [a.clone().requires_grad_() for a in args]
+    f0, b0 = vil_layer_conv_fwd.launches, mlstm_chunkwise_bwd.launches
+    out = vil_layer_conv_fwd(*leaves, 2, (H, W), chunk_size=128, igate_act=igate_act)
+    gout = torch.randn(out.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(H))
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (vil_layer_conv_fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
+    cfg = Cfg(2, 128, igate_act, seqlens=(H, W))
+    _, acts = _conv_plain(args, cfg)
+    want = conv_layer_bwd(args, acts, gout, cfg, mlstm_chunkwise_bwd_plain)
+    assert len(want) == len(leaves) == 21
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        assert _rel(leaf.grad, w) <= TOL_REL, i
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_vil_layer_forward_conv_fused_on_card(cuda_device, direction):
+    """``ViLLayer.forward_conv_fused`` with the layer's own weights equals
+    ``ViLLayer.forward`` (library conv + the layer kernel), output and
+    gradients, in both directions."""
+    from xlstm_yolo_torch.nn.modules import init_tree
+    from xlstm_yolo_torch.nn.vil import ViLLayer
+
+    layer = ViLLayer(64, direction=direction, qkv_block_size=64, seqlens=(9, 13))
+    init_tree(layer, 0)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for lin in (layer.mlstm_cell.igate, layer.mlstm_cell.fgate):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+        layer.conv.conv.bias.copy_(torch.randn(128, generator=g) * 0.1)
+    layer.to(cuda_device)
+    x = torch.randn(2, 117, 64, generator=g).to(cuda_device)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    want = layer(xa)
+    want.square().sum().backward()
+    grads = {n: p.grad.clone() for n, p in layer.named_parameters()}
+    layer.zero_grad()
+    before = vil_layer_conv_fwd.launches
+    got = layer.forward_conv_fused(xb)
+    got.square().sum().backward()
+    torch.cuda.synchronize()
+    assert vil_layer_conv_fwd.launches == before + 1
+    assert _rel(got, want) <= TOL_REL and _rel(xb.grad, xa.grad) <= TOL_REL
+    for n, p in layer.named_parameters():
+        assert _rel(p.grad, grads[n]) <= TOL_REL, n

@@ -8,17 +8,27 @@ and ``xlstm_yolo_torch.kernels.mlstm_native``, fp32 on the CPU. Tolerance
 with fp32 operands, to the JAX native forms and to the step-by-step form, at
 whole and ragged S, within 1e-5 of each output's max. The CUDA kernel itself
 is checked on the card in ``test_torch_cuda.py``.
+
+The pair the card runs under autograd, forward kernel with the chunkwise
+backward kernel as its backward, is held here through its plain versions
+(``mlstm_chunkwise_fwd_plain`` with ``mlstm_chunkwise_bwd_heads`` on CPU
+tensors): the five gradients against the JAX ``mlstm_chunkwise_bwd_ref``
+(frozen stabilizer, 1e-5), and dq/dk/dv, which do not depend on the
+stabilizer, against JAX autodiff of the chunkwise forward.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from xlstm_yolo_tpu.kernels import mlstm_native as J
+from xlstm_yolo_tpu.kernels.mlstm_bwd import mlstm_chunkwise_bwd_ref as jax_bwd_ref
 from xlstm_yolo_tpu.kernels.mlstm_pallas import _mlstm_pallas_fwd_impl, mlstm_chunkwise_pallas
 from xlstm_yolo_torch.kernels import mlstm_native as T
-from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
+from xlstm_yolo_torch.kernels.mlstm_fwd import (
+    mlstm_chunkwise_bwd_heads, mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -133,16 +143,61 @@ def test_mlstm_chunkwise_fwd_on_cpu_is_the_plain_version():
 
 def test_mlstm_chunkwise_fwd_off_cpu_refuses():
     """Off the CPU nothing falls back to the plain version: a call that
-    needs gradients, a head dim the kernel does not take, an unknown gate
-    activation and a device that is no CUDA device each raise, without
-    touching a card."""
+    needs gradients at a head dim the backward kernel does not take, a head
+    dim the kernel does not take, an unknown gate activation and a device
+    that is no CUDA device (with and without gradients at head dim 64, where
+    the backward kernel is bound) each raise, without touching a card."""
     meta = lambda DH: tuple(torch.from_numpy(a).to("meta") for a in _inputs(8, S=16, DH=DH))
+    before = mlstm_chunkwise_fwd.launches
+    for DH in (128, 256):
+        args = meta(DH)
+        with pytest.raises(NotImplementedError, match="head dim 64"):
+            mlstm_chunkwise_fwd(args[0].requires_grad_(), *args[1:])
     args = meta(64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unsupported device"):
         mlstm_chunkwise_fwd(args[0].requires_grad_(), *args[1:])
+    assert mlstm_chunkwise_fwd.launches == before
     with pytest.raises(ValueError, match="head dim"):
         mlstm_chunkwise_fwd(*meta(32))
     with pytest.raises(ValueError, match="igate_act"):
         mlstm_chunkwise_fwd(*meta(64), igate_act="relu")
     with pytest.raises(ValueError, match="unsupported device"):
         mlstm_chunkwise_fwd(*meta(64))
+
+
+def _pair_inputs(seed, B=2, NH=2, S=32, DH=8):
+    """q and k aligned, so that the normalizer stays away from zero and the
+    gradients are well conditioned."""
+    r = np.random.default_rng(seed)
+    q = r.normal(size=(B, NH, S, DH)).astype(np.float32)
+    k = (q + 0.1 * r.normal(size=q.shape)).astype(np.float32)
+    v, dh = (r.normal(size=(B, NH, S, DH)).astype(np.float32) for _ in range(2))
+    i = r.normal(size=(B, NH, S)).astype(np.float32)
+    f = (r.normal(size=(B, NH, S)) + 2).astype(np.float32)
+    return q, k, v, i, f, dh
+
+
+@pytest.mark.parametrize("igate_act", ["exp", "sigmoid"])
+def test_plain_forward_backward_pair_matches_jax_bwd_ref(igate_act):
+    a = _pair_inputs(9)
+    want = jax_bwd_ref(*map(jnp.asarray, a), chunk_size=8, igate_act=igate_act)
+    got = mlstm_chunkwise_bwd_heads(*map(torch.from_numpy, a), chunk_size=8, igate_act=igate_act)
+    for name, g, w in zip("qkvif", got, want):
+        assert tuple(g.shape) == w.shape, name
+        assert_close_rel(g.numpy(), w)
+
+
+def test_plain_forward_backward_pair_ragged_matches_jax_autodiff_on_qkv():
+    """S 27 against a chunk of 8: the pair pads, JAX autodiff runs the
+    step-by-step form; dq/dk/dv are exact whatever the stabilizer, the gate
+    gradients are held to the frozen-stabilizer reference above."""
+    q, k, v, i, f, dh = _pair_inputs(10, S=27)
+    loss = lambda q_, k_, v_: jnp.sum(
+        J.mlstm_recurrent(q_, k_, v_, jnp.asarray(i), jnp.asarray(f)) * jnp.asarray(dh))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    targs = tuple(map(torch.from_numpy, (q, k, v, i, f, dh)))
+    got = mlstm_chunkwise_bwd_heads(*targs, chunk_size=8)
+    for g, w in zip(got[:3], want):
+        assert_close_rel(g.numpy(), w, 1e-4)
+    h = mlstm_chunkwise_fwd_plain(*targs[:5], chunk_size=8)
+    assert_close_rel(h.numpy(), J.mlstm_recurrent(*map(jnp.asarray, (q, k, v, i, f))))

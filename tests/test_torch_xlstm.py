@@ -22,7 +22,10 @@ from xlstm_yolo_tpu.nn import vil as JV
 from xlstm_yolo_tpu.nn import xlstm as JX
 from xlstm_yolo_torch.nn import vil as TV
 from xlstm_yolo_torch.nn import xlstm as TX
-from xlstm_yolo_torch.utils.jax_weights import flatten_variables, load_jax_variables, torch_name
+from xlstm_yolo_torch.utils.jax_weights import (
+    flatten_variables, load_jax_variables, port_named, torch_name)
+from xlstm_yolo_torch.utils.loss import lm_loss
+from xlstm_yolo_torch.utils.train_utils import StepUpdate
 
 TOL_REL = 1e-4
 LM = dict(vocab_size=50, embedding_dim=32, num_blocks=2, slstm_at=(1,), num_heads=4,
@@ -362,3 +365,62 @@ def test_loader_rejects_a_mismatched_language_model():
     wide = TX.xLSTMLMModel(**{**LM, "vocab_size": 60}, device="cpu")
     with pytest.raises(ValueError, match="shape mismatch"):
         load_jax_variables(wide, flat)
+
+
+def test_lm_loss_matches_optax():
+    import optax
+
+    rng = np.random.default_rng(20)
+    logits = (rng.normal(size=(2, 7, 11)) * 3).astype(np.float32)
+    targets = rng.integers(0, 11, (2, 7))
+    want = optax.softmax_cross_entropy_with_integer_labels(jnp.asarray(logits),
+                                                           jnp.asarray(targets)).mean()
+    got = lm_loss(torch.from_numpy(logits), torch.from_numpy(targets))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("S", [17, 14])
+def test_mlstm_lm_train_step_matches_jax(S):
+    """One train step of a small mLSTM-only language model (the class
+    default ``slstm_at=()``): next-token loss and every gradient against
+    ``jax.value_and_grad`` (1e-4 of each tensor's max), then the parameters
+    and their EMA after ``StepUpdate`` against the JAX package's SGD step."""
+    import optax  # noqa: F401  (build_flat_step's optimizer)
+
+    from xlstm_yolo_tpu.utils import train_utils as JTU
+
+    cfg = dict(vocab_size=50, embedding_dim=32, num_blocks=2, num_heads=4, chunk_size=8)
+    tokens = np.random.default_rng(21).integers(0, 50, (2, S))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    jm = JX.xLSTMLMModel(**cfg)
+    v = jax_init(jm, x, 21)
+
+    def loss_fn(params):
+        import optax as ox
+
+        logits = jm.apply({"params": params}, jnp.asarray(x))
+        return ox.softmax_cross_entropy_with_integer_labels(logits, jnp.asarray(y)).mean()
+
+    want, grads = jax.value_and_grad(loss_fn)(v["params"])
+    tm = port(TX.xLSTMLMModel(**cfg, device="cpu"), v).train()
+    update = StepUpdate(tm)
+    got = lm_loss(tm(torch.from_numpy(x)), torch.from_numpy(y))
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    named = dict(tm.named_parameters())
+    want_g = port_named(flatten_variables(grads))
+    assert sorted(want_g) == sorted(named)
+    for n, g in want_g.items():
+        assert_close(named[n].grad.numpy(), g)
+
+    step_update, init_fn, *_ = JTU.build_flat_step(v["params"], name="SGD", lr=0.01,
+                                                   momentum=0.937, clip_norm=0.5)
+    p, ema, _ = step_update(grads, init_fn(v["params"]), v["params"], v["params"],
+                            jnp.float32(0.01), 1)
+    update(1)
+    want_p, want_e = port_named(flatten_variables(p)), port_named(flatten_variables(ema))
+    for i, n in enumerate(update.names):
+        np.testing.assert_allclose(named[n].detach().numpy(), want_p[n], rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+        np.testing.assert_allclose(update.ema[i].numpy(), want_e[n], rtol=1e-5, atol=1e-6,
+                                   err_msg=n)

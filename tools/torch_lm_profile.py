@@ -6,7 +6,9 @@ Traces, with ``torch.profiler`` (CPU and CUDA activities), the models that
 ``chip_smoke.py`` drives in its ``lm_path`` phase, on the same tokens
 (``chip_smoke.lm_inputs``): a few forwards of the README model at its
 context, a few greedy ``generate`` steps from the prompt, and a few forwards
-of the wide model. For each window it prints one JSON line: the wall time
+of the wide model; then the train step that ``lm_train_path`` drives (the
+mLSTM-only model at the README widths on ``chip_smoke.lm_train_inputs``:
+forward, ``lm_loss``, backward, ``StepUpdate``). For each window it prints one JSON line: the wall time
 per call, the device-busy time per call (the sum of the CUDA kernels' own
 times), the idle share (1 - busy / wall), the number of kernels per call,
 and the kernels that take most of the device time, by name. The last line
@@ -58,6 +60,8 @@ def main() -> int:
     import torch
 
     from xlstm_yolo_torch.nn.xlstm import generate
+    from xlstm_yolo_torch.utils.loss import lm_loss
+    from xlstm_yolo_torch.utils.train_utils import StepUpdate
 
     smi_line, _ = cs.phase_device()
     cs.phase_build()
@@ -67,6 +71,17 @@ def main() -> int:
         profile_window("readme_generate_8_tokens_from_S192",
                        lambda: generate(model, tokens[:, :cs.LM_PROMPT], max_new_tokens=8), calls=2)
         profile_window("wide_forward_S1024", lambda: wide(wide_tokens), calls=3)
+    del model, wide
+    trained = cs.build_lm_model(cs.LM_TRAIN, "cuda").train()
+    update = StepUpdate(trained)
+    inputs, targets = cs.lm_train_inputs()
+
+    def train_step():
+        trained.zero_grad(set_to_none=True)
+        lm_loss(trained(inputs), targets).backward()
+        update(1)
+
+    profile_window("mlstm_only_train_step_S256", train_step, calls=3)
     print(smi_line, flush=True)
     return 0
 

@@ -319,14 +319,22 @@ const char* mlstm_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Floats of workspace the call needs for B*NH rows of length S, head dim DH.
-long mlstm_fwd_workspace_floats(int rows, int S, int DH) {
-  const long NS = (S + CS - 1) / CS;
-  return (long)rows * NS * ((long)DH * DH + DH + 3);
+// Writes the offsets (in floats) of the workspace's arrays for B*NH rows of
+// length S, head dim DH, into off[0..4] and its total size into off[5]; the
+// wrapper allocates off[5] floats. After a call the arrays hold, per row and
+// chunk of 64 steps, the state carried INTO the chunk and the chunk's gate
+// summaries, which the chunkwise backward reads: C (rows, NS, DH, DH) as
+// [k index][v index], n (rows, NS, DH), btot (total log decay), mloc (local
+// max) and m (the stabilizer carried in), each (rows, NS).
+void mlstm_fwd_workspace_layout(int rows, int S, int DH, long* off) {
+  const long n = (long)rows * ((S + CS - 1) / CS);
+  const long size[5] = {n * DH * DH, n * DH, n, n, n};
+  off[0] = 0;
+  for (int i = 0; i < 5; ++i) off[i + 1] = off[i] + size[i];
 }
 
 // q/k/v (rows, S, DH), gates (rows, S) -> h (rows, S, DH), rows = B * NH, all
-// contiguous fp32; ws as mlstm_fwd_workspace_floats says. Returns 0 on
+// contiguous fp32; ws as mlstm_fwd_workspace_layout says. Returns 0 on
 // success, else the CUDA error code of the first failed step
 // (cudaErrorInvalidValue for an unsupported shape).
 int mlstm_fwd_f32(const float* q, const float* k, const float* v, const float* ig,
@@ -339,12 +347,13 @@ int mlstm_fwd_f32(const float* q, const float* k, const float* v, const float* i
   p.q = q; p.k = k; p.v = v; p.ig = ig; p.fg = fg; p.h = h;
   p.S = S; p.DH = DH; p.NS = (S + CS - 1) / CS;
   p.igate_exp = igate_exp; p.qscale = 1.f / sqrtf((float)DH); p.eps = eps;
-  const size_t n = (size_t)rows * p.NS;
-  p.kv = ws;
-  p.ksum = p.kv + n * DH * DH;
-  p.btot = p.ksum + n * DH;
-  p.mloc = p.btot + n;
-  p.mprev = p.mloc + n;
+  long off[6];
+  mlstm_fwd_workspace_layout(rows, S, DH, off);
+  p.kv = ws + off[0];
+  p.ksum = ws + off[1];
+  p.btot = ws + off[2];
+  p.mloc = ws + off[3];
+  p.mprev = ws + off[4];
 
   cudaError_t err;
   const size_t sum_smem = summary_smem(DH), out_smem = output_smem(DH);

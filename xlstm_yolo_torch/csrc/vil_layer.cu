@@ -1,5 +1,6 @@
 // The ViL layer family, forward, for NVIDIA Hopper, fp32, plain C interface:
-// the layer-fused (K3), cell-fused (K4) and block-fused (K7) functions.
+// the layer-fused (K3), cell-fused (K4), block-fused (K7) and conv-fused (K6)
+// functions.
 //
 // K3 replaces the TPU kernel `_kernel_vil_layer` in
 // xlstm_yolo_tpu/kernels/mlstm_pallas.py (entered through
@@ -22,6 +23,24 @@
 // the three share every stage but the prologue: K3 runs prologue, chunk
 // summaries, state scan, chunk outputs, epilogue; K4 a smaller prologue and
 // the middle three; K7 the smaller prologue and the other four.
+//
+// K6 replaces `_kernel_vil_conv` (entry `mlstm_vil_layer_conv_fused_pallas`):
+// K3 plus the x_mlstm half of proj_up feeding the 3x3 depthwise conv on the
+// (H, W) token grid and its SiLU, all inside: x (B, S = H*W, DIM) is the
+// only activation read and out (B, S, DIM) the only one written. The TPU
+// kernel kept a window of the sequence with W+1 rows of halo each side in
+// fast memory; a block's shared memory holds no such window at these widths
+// (a 3x3 tap reaches W+1 tokens away in sequence order, 81 at the 80-wide
+// grid, against a prologue tile of 8 to 16 tokens), and recomputing proj_up
+// for the halo would multiply the prologue's dominant product. So K6 runs
+// two kernels in the prologue's place: a head (RMSNorm and both halves of
+// proj_up, token-parallel; x_mlstm and z go to the workspace) and a conv
+// prologue (per token the nine taps of x_mlstm read back through L2, the
+// zero padding applied to the conv's INPUT: taps outside the grid are
+// skipped, which also keeps the left and right columns from wrapping to the
+// neighbouring image row; then SiLU, headwise q/k/v and the gate dots as in
+// K4's prologue). The other four stages are the shared ones; x_mlstm and
+// conv_act stay in the workspace for the epilogue and the backward.
 //
 // What bounds it on this card: at the ViL-YOLO-n shapes the layer does
 // 370 (P3) to 1,200 (P5) fp32 operations per byte of x + conv_act + out,
@@ -103,7 +122,12 @@ struct Params {
   float* q;           // (B, S, INNER), unscaled
   float* k;
   float* v;
-  float* z;           // K3 only: the z half of proj_up
+  float* z;           // K3 and K6: the z half of proj_up
+  float* xmw;         // K6 only: (B, S, INNER) x_mlstm, written by the head
+  float* convw;       // K6 only: (B, S, INNER) conv_act, written by the conv prologue
+  const float* wc;    // K6 only: (9, INNER) depthwise taps, [kh*3 + kw][channel]
+  const float* bc;    // K6 only: (INNER)
+  int H, W;           // K6 only: the token grid, S = H * W
   float* h;           // (B, S, INNER) cell output before outnorm; K4's output
   float* ig;          // (B*NH, S) gate preacts
   float* fg;
@@ -205,25 +229,18 @@ __device__ void headwise_and_gates(const Params& p, const float* cv, const float
   }
 }
 
-// 1. RMSNorm + proj_up + headwise q/k/v + gate dots for TT tokens.
-__global__ void __launch_bounds__(NT) vil_prologue(Params p) {
-  extern __shared__ float sm[];
+// RMSNorm and proj_up for the TT tokens from tok0 on: loads their x rows into
+// xn (TT x DIM of shared memory) and normalizes them there, then column c <
+// INNER of proj_up (x_mlstm) goes to xm_s (TT x INNER of shared memory) when
+// that is given, else to the workspace's xmw; the other half (z) goes to the
+// workspace. Every thread of the CTA calls it; it ends with a barrier.
+__device__ void norm_proj_up(const Params& p, float* xn, float* xm_s, long tok0, long ntok) {
   const int DIM = p.DIM, INNER = p.INNER;
-  float* xn = sm;                   // TT x DIM
-  float* xm = xn + TT * DIM;        // TT x INNER   x_mlstm half of proj_up
-  float* cv = xm + TT * INNER;      // TT x INNER   conv_act
-  float* qkv = cv + TT * INNER;     // TT x 3*INNER q | k | v per token
-  const long ntok = (long)p.B * p.S;
-  const long tok0 = (long)blockIdx.x * TT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < TT * DIM; i += NT) {
     const long t = tok0 + i / DIM;
     xn[i] = t < ntok ? p.x[t * DIM + i % DIM] : 0.f;
-  }
-  for (int i = tid; i < TT * INNER; i += NT) {
-    const long t = tok0 + i / INNER;
-    cv[i] = t < ntok ? p.conv[t * INNER + i % INNER] : 0.f;
   }
   __syncthreads();
 
@@ -236,7 +253,6 @@ __global__ void __launch_bounds__(NT) vil_prologue(Params p) {
   }
   __syncthreads();
 
-  // proj_up: column c < INNER is x_mlstm (kept in smem), the rest is z
   for (int c = tid; c < 2 * INNER; c += NT) {
     float acc[TT];
     const float bias = p.bu[c];
@@ -247,18 +263,87 @@ __global__ void __launch_bounds__(NT) vil_prologue(Params p) {
 #pragma unroll
       for (int t = 0; t < TT; ++t) acc[t] += xn[t * DIM + d] * w;
     }
-    if (c < INNER) {
+    if (c < INNER && xm_s != nullptr) {
 #pragma unroll
-      for (int t = 0; t < TT; ++t) xm[t * INNER + c] = acc[t];
+      for (int t = 0; t < TT; ++t) xm_s[t * INNER + c] = acc[t];
     } else {
+      float* dst = c < INNER ? p.xmw + c : p.z + (c - INNER);
 #pragma unroll
       for (int t = 0; t < TT; ++t)
-        if (tok0 + t < ntok) p.z[(tok0 + t) * INNER + (c - INNER)] = acc[t];
+        if (tok0 + t < ntok) dst[(tok0 + t) * INNER] = acc[t];
     }
   }
   __syncthreads();
+}
 
+// 1. RMSNorm + proj_up + headwise q/k/v + gate dots for TT tokens.
+__global__ void __launch_bounds__(NT) vil_prologue(Params p) {
+  extern __shared__ float sm[];
+  const int DIM = p.DIM, INNER = p.INNER;
+  float* xn = sm;                   // TT x DIM
+  float* xm = xn + TT * DIM;        // TT x INNER   x_mlstm half of proj_up
+  float* cv = xm + TT * INNER;      // TT x INNER   conv_act
+  float* qkv = cv + TT * INNER;     // TT x 3*INNER q | k | v per token
+  const long ntok = (long)p.B * p.S;
+  const long tok0 = (long)blockIdx.x * TT;
+
+  for (int i = threadIdx.x; i < TT * INNER; i += NT) {
+    const long t = tok0 + i / INNER;
+    cv[i] = t < ntok ? p.conv[t * INNER + i % INNER] : 0.f;
+  }
+  norm_proj_up(p, xn, xm, tok0, ntok);
   headwise_and_gates<TT>(p, cv, xm, qkv, tok0, ntok);
+}
+
+// 1a. K6's head: RMSNorm + proj_up for TT tokens; x_mlstm and z go to the
+// workspace.
+__global__ void __launch_bounds__(NT) vil_conv_head(Params p) {
+  extern __shared__ float sm[];  // TT x DIM
+  norm_proj_up(p, sm, nullptr, (long)blockIdx.x * TT, (long)p.B * p.S);
+}
+
+// 1b. K6's conv prologue for TC tokens: the 3x3 depthwise conv of x_mlstm on
+// the (H, W) token grid (zero padding of the conv's input: a tap outside the
+// grid adds nothing) and its SiLU, then headwise q/k/v and the gate dots.
+// conv_act goes to the workspace for the epilogue's skip term.
+__global__ void __launch_bounds__(NT) vil_conv_prologue(Params p) {
+  extern __shared__ float sm[];
+  const int INNER = p.INNER, H = p.H, W = p.W;
+  float* xm = sm;                   // TC x INNER   x_mlstm
+  float* cv = xm + TC * INNER;      // TC x INNER   conv_act
+  float* qkv = cv + TC * INNER;     // TC x 3*INNER q | k | v per token
+  const long ntok = (long)p.B * p.S;
+  const long tok0 = (long)blockIdx.x * TC;
+  for (int i = threadIdx.x; i < TC * INNER; i += NT) {
+    const long tk = tok0 + i / INNER;
+    const int c = i % INNER;
+    float center = 0.f, act = 0.f;
+    if (tk < ntok) {
+      const long b = tk / p.S;
+      const int s = (int)(tk % p.S), r = s / W, col = s % W;
+      const float* img = p.xmw + b * p.S * INNER + c;
+      float acc = p.bc[c];
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        const int rr = r + kh - 1;
+        if (rr < 0 || rr >= H) continue;
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          const int cc = col + kw - 1;
+          if (cc < 0 || cc >= W) continue;
+          const float v = img[(long)(rr * W + cc) * INNER];
+          if (kh == 1 && kw == 1) center = v;
+          acc += v * p.wc[(kh * 3 + kw) * INNER + c];
+        }
+      }
+      act = silu(acc);
+      p.convw[tk * INNER + c] = act;
+    }
+    xm[i] = center;
+    cv[i] = act;
+  }
+  __syncthreads();
+  headwise_and_gates<TC>(p, cv, xm, qkv, tok0, ntok);
 }
 
 // 1'. The prologue of K4 and K7: conv_act and x_mlstm are streamed in, then
@@ -523,22 +608,25 @@ __global__ void __launch_bounds__(NT) vil_epilogue(Params p) {
 }
 
 // Which function of the family a call computes.
-enum Kind { LAYER = 0, CELL = 1, BLOCK = 2 };
+enum Kind { LAYER = 0, CELL = 1, BLOCK = 2, CONV = 3 };
 
 // The workspace's arrays, in this order, with their sizes in floats; the
 // backward reads q/k/v/h, the gates and the carried-in states from it. z
-// exists for the layer only (the others stream it in or have none), and the
-// cell writes h to its output instead.
+// exists for the layer and the conv-fused layer only (the others stream it
+// in or have none), the cell writes h to its output instead, and x_mlstm and
+// conv_act exist for the conv-fused layer only (the others stream them in).
 enum WsArray { WQ, WK, WV, WZ, WH, WIG, WFG, WKV, WCPREV, WKSUM, WNPREV, WBTOT, WMLOC, WMPREV,
-               kNumWs };
+               WXM, WCONV, kNumWs };
 
 void workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
   const long NS = (S + CS - 1) / CS;
   const long tok = (long)B * S, rows = (long)B * NH;
+  const bool has_z = kind == LAYER || kind == CONV;
   const long size[kNumWs] = {tok * INNER, tok * INNER, tok * INNER,
-                             kind == LAYER ? tok * INNER : 0, kind == CELL ? 0 : tok * INNER,
+                             has_z ? tok * INNER : 0, kind == CELL ? 0 : tok * INNER,
                              rows * S, rows * S, rows * NS * DH * DH, rows * NS * DH * DH,
-                             rows * NS * DH, rows * NS * DH, rows * NS, rows * NS, rows * NS};
+                             rows * NS * DH, rows * NS * DH, rows * NS, rows * NS, rows * NS,
+                             kind == CONV ? tok * INNER : 0, kind == CONV ? tok * INNER : 0};
   off[0] = 0;
   for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + size[i];
 }
@@ -566,14 +654,23 @@ int run(Params& p, float* ws, int kind, void* stream) {
   p.ig = ws + off[WIG]; p.fg = ws + off[WFG]; p.kv = ws + off[WKV];
   p.cprev = ws + off[WCPREV]; p.ksum = ws + off[WKSUM]; p.nprev = ws + off[WNPREV];
   p.btot = ws + off[WBTOT]; p.mloc = ws + off[WMLOC]; p.mprev = ws + off[WMPREV];
-  if (kind == LAYER) {
+  if (kind == LAYER || kind == CONV) {
     p.zr = p.z;
     p.xres = p.x;
   }
+  if (kind == CONV) {
+    if (p.H <= 0 || p.W <= 0 || (long)p.H * p.W != p.S)
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.xmw = ws + off[WXM];
+    p.convw = ws + off[WCONV];
+    p.conv = p.convw;
+  }
 
   cudaError_t err;
-  const auto prologue = kind == LAYER ? vil_prologue : vil_cell_prologue;
+  const auto prologue = kind == LAYER ? vil_prologue
+                        : kind == CONV ? vil_conv_prologue : vil_cell_prologue;
   const size_t pro_smem = prologue_smem(kind == LAYER ? p.DIM : 0, p.INNER);
+  const size_t head_smem = sizeof(float) * TT * (size_t)p.DIM;
   const size_t epi_smem = sizeof(float) * TT * (size_t)p.INNER;
   if ((err = cudaFuncSetAttribute(prologue, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)pro_smem)) != cudaSuccess) return err;
@@ -584,6 +681,12 @@ int run(Params& p, float* ws, int kind, void* stream) {
 
   const unsigned tok_blocks = (unsigned)((tok + TT - 1) / TT);
   const int pro_tile = kind == LAYER ? TT : TC;
+  if (kind == CONV) {
+    if ((err = cudaFuncSetAttribute(vil_conv_head, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)head_smem)) != cudaSuccess) return err;
+    vil_conv_head<<<tok_blocks, NT, head_smem, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   prologue<<<(unsigned)((tok + pro_tile - 1) / pro_tile), NT, pro_smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   vil_chunk_summary<<<dim3(p.NS, rows), NT, 0, st>>>(p);
@@ -598,7 +701,7 @@ int run(Params& p, float* ws, int kind, void* stream) {
   return 0;
 }
 
-// The cell's arguments, shared by the three entries.
+// The cell's arguments, shared by the four entries.
 void set_cell(Params& p, const float* conv, const float* wq, const float* wk, const float* wv,
               const float* bq, const float* bk, const float* bv, const float* wgi,
               const float* bgi, const float* wgf, const float* bgf, int B, int S, int INNER,
@@ -622,9 +725,10 @@ void set_tail(Params& p, const float* nsc, const float* nbi, const float* skip, 
 extern "C" {
 
 // Writes the offsets (in floats) of the workspace's arrays q, k, v, z, h,
-// ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev into off[0..13] and its
-// total size into off[14]; the wrapper allocates off[14] floats. `kind`: 0
-// the layer, 1 the cell (no z, no h), 2 the block (no z).
+// ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev, xm, conv into off[0..15]
+// and its total size into off[16]; the wrapper allocates off[16] floats.
+// `kind`: 0 the layer, 1 the cell (no z, no h), 2 the block (no z), 3 the
+// conv-fused layer (the only one with xm and conv).
 void vil_workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
   workspace_layout(kind, B, S, INNER, NH, off);
 }
@@ -654,6 +758,26 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
   set_tail(p, nsc, nbi, skip, wd, bd, out, DIM, norm_eps);
   p.x = x; p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
   return run(p, ws, LAYER, stream);
+}
+
+// K6: the layer from x alone, the depthwise conv on the (H, W) token grid
+// inside; wc arrives as (9, INNER), tap kh*3 + kw of every channel.
+int vil_layer_conv_fwd_f32(const float* x, const float* nrm, const float* wu, const float* bu,
+                           const float* wc, const float* bc, const float* wq, const float* wk,
+                           const float* wv, const float* bq, const float* bk, const float* bv,
+                           const float* wgi, const float* bgi, const float* wgf,
+                           const float* bgf, const float* nsc, const float* nbi,
+                           const float* skip, const float* wd, const float* bd, float* out,
+                           float* ws, int B, int S, int DIM, int INNER, int NH, int igate_exp,
+                           int H, int W, float eps, float norm_eps, float rms_eps,
+                           void* stream) {
+  Params p = {};
+  set_cell(p, nullptr, wq, wk, wv, bq, bk, bv, wgi, bgi, wgf, bgf, B, S, INNER, NH, igate_exp,
+           eps);
+  set_tail(p, nsc, nbi, skip, wd, bd, out, DIM, norm_eps);
+  p.x = x; p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
+  p.wc = wc; p.bc = bc; p.H = H; p.W = W;
+  return run(p, ws, CONV, stream);
 }
 
 // K4: the cell from conv_act and x_mlstm; h (B, S, INNER) out.

@@ -15,9 +15,11 @@ gradients, and the gate gradients equal them wherever the normalizer's
 ``mlstm_chunkwise_bwd`` is the entry the ViL layer's backward calls, on q, k,
 v and dh in the layer's natural (B, S, INNER) layout: CPU tensors take the
 plain version, CUDA tensors launch the kernel (head dim and chunk 64) or
-raise. The kernel reads the per-chunk carry-in states that the layer
-kernel's forward leaves in its workspace, or that ``chunk_carry_states``
-(phase 1 in plain torch, as on the TPU) computes.
+raise. The kernel reads the per-chunk carry-in states that a forward kernel
+leaves in its workspace (the ViL family's, or the chunkwise forward's, which
+calls this entry through ``kernels.mlstm_fwd.mlstm_chunkwise_bwd_heads``),
+or that ``chunk_carry_states`` (phase 1 in plain torch, as on the TPU)
+computes.
 """
 from __future__ import annotations
 

@@ -21,14 +21,15 @@ headwise ``wq/wk/wv`` (NH, DH_out, DH_in), gate kernels (3*INNER, NH).
 ``vil_cell_plain`` is the plain forward (the CPU path and the kernel's
 oracle), ``cell_bwd`` over the plain chunkwise backward the plain backward. ``vil_cell_fwd`` sends
 CPU tensors to the plain versions and CUDA tensors to the hand-written
-kernels: the forward in ``csrc/vil_layer.cu`` (one source for the three
+kernels: the forward in ``csrc/vil_layer.cu`` (one source for the four
 functions of the family), whose workspace (q/k/v, the gate preacts and the
 per-chunk carry states) is kept as the saved activations when gradients are
 needed, and the backward's products around the chunkwise backward kernel
 ``kernels.mlstm_bwd.mlstm_chunkwise_bwd``. It never falls back from a CUDA
 tensor to a plain version.
 
-This module also holds what the three functions share: the library
+This module also holds what the four functions share (the cell, the block,
+the layer and the conv-fused layer, ``kernels.vil_conv``): the library
 binding, the workspace views, and the autograd Function and device dispatch
 (``Member``, ``call_member``).
 """
@@ -46,14 +47,15 @@ from .mlstm_bwd import (KERNEL_CS, KERNEL_DH, CarryStates, _natural,
                         mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
 from .mlstm_native import mlstm_chunkwise
 
-N_WS = 14  # arrays in the kernels' workspace (vil_workspace_layout)
-LAYER, CELL, BLOCK = 0, 1, 2  # the family's members, as csrc/vil_layer.cu numbers them
+N_WS = 16  # arrays in the kernels' workspace (vil_workspace_layout)
+LAYER, CELL, BLOCK, CONV = 0, 1, 2, 3  # the family's members, as csrc/vil_layer.cu numbers them
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = CudaLibrary("vil_layer.cu", {
     "vil_layer_fwd_f32": (_I, [_P] * 22 + [_I] * 6 + [_F] * 3 + [_P]),
     "vil_cell_fwd_f32": (_I, [_P] * 14 + [_I] * 5 + [_F] + [_P]),
     "vil_block_fwd_f32": (_I, [_P] * 21 + [_I] * 6 + [_F] * 2 + [_P]),
+    "vil_layer_conv_fwd_f32": (_I, [_P] * 23 + [_I] * 8 + [_F] * 3 + [_P]),
     "vil_workspace_layout": (None, [_I] * 5 + [ctypes.POINTER(ctypes.c_long)]),
     "vil_prologue_smem": (ctypes.c_long, [_I] * 2),
     "vil_error_string": (ctypes.c_char_p, [_I]),
@@ -61,13 +63,15 @@ LIB = CudaLibrary("vil_layer.cu", {
 
 
 class Cfg(NamedTuple):
-    """The static arguments of a call; the cell reads the first four."""
+    """The static arguments of a call; the cell reads the first four, the
+    conv-fused layer alone the (H, W) token grid ``seqlens``."""
     num_heads: int
     chunk_size: int = 64
     igate_act: str = "exp"
     eps: float = 1e-6
     norm_eps: float = 1e-3
     rms_eps: float = 1e-6
+    seqlens: tuple | None = None
 
 
 def _cell_plain(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf, cfg: Cfg):
@@ -203,7 +207,8 @@ class Workspace:
         """(q, k, v, i_pre, f_pre) and the carry states."""
         B, S, INNER, nh = self.shape
         ns, dh, tok = -(-S // KERNEL_CS), KERNEL_DH, (B, S, INNER)
-        # workspace order: q, k, v, z, h, ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev
+        # workspace order: q, k, v, z, h, ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev,
+        # xm, conv
         acts = (self.view(0, *tok), self.view(1, *tok), self.view(2, *tok),
                 self.view(5, B, nh, S), self.view(6, B, nh, S))
         carry = CarryStates(self.view(8, B * nh, ns, dh, dh), self.view(10, B * nh, ns, dh),
@@ -214,6 +219,11 @@ class Workspace:
     def h(self):
         B, S, INNER, _ = self.shape
         return self.view(4, B, S, INNER)
+
+    def conv_acts(self):
+        """(x_mlstm, z, conv_act) as the conv-fused layer leaves them."""
+        B, S, INNER, _ = self.shape
+        return self.view(14, B, S, INNER), self.view(3, B, S, INNER), self.view(15, B, S, INNER)
 
 
 def run_kernel(where: str, lib, entry: str, tensors, sizes, floats, device):

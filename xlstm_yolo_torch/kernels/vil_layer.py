@@ -41,14 +41,32 @@ from .vil_cell import (LAYER, Cfg, Member, Workspace, call_member, cell_kernel_a
                        run_kernel)
 
 
-def _head(x, rms_scale, wu, bu, rms_eps):
-    """RMSNorm and proj_up -> (xhat, inv, xn, x_mlstm, z), fp32."""
+def _norm(x, rms_scale, rms_eps):
+    """RMSNorm -> (xhat, inv, xn), fp32."""
     xf = x.float()
     inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + rms_eps)
     xhat = xf * inv
-    xn = xhat * rms_scale
+    return xhat, inv, xhat * rms_scale
+
+
+def _head(x, rms_scale, wu, bu, rms_eps):
+    """RMSNorm and proj_up -> (xhat, inv, xn, x_mlstm, z), fp32."""
+    xhat, inv, xn = _norm(x, rms_scale, rms_eps)
     x_mlstm, z = (xn @ wu + bu).split(wu.shape[1] // 2, dim=-1)
     return xhat, inv, xn, x_mlstm, z
+
+
+def head_bwd(xhat, inv, xn, nrm, wu, dxm, dz, dres):
+    """The gradients of proj_up and RMSNorm from those of x_mlstm, z and the
+    residual -> (dx, dnrm, dwu, dbu)."""
+    dy2 = torch.cat([dxm, dz], dim=-1)
+    dwu = torch.einsum("bsd,bse->de", xn, dy2)
+    dbu = dy2.sum((0, 1))
+    dxn = dy2 @ wu.t()
+    dnrm = (dxn * xhat).sum((0, 1))
+    dxhat = dxn * nrm
+    dx = inv * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + dres
+    return dx, dnrm, dwu, dbu
 
 
 def _layer_plain(args, cfg: Cfg):
@@ -81,13 +99,7 @@ def layer_bwd(args, acts, gout, cfg: Cfg, mlstm_bwd):
     xhat, inv, xn, x_mlstm, z = _head(x, nrm, wu, bu, cfg.rms_eps)
     dconv, dxm, dz, dres, *rest = block_bwd((conv_act, x_mlstm, z, x, *args[5:]), acts, gout,
                                             cfg, mlstm_bwd)
-    dy2 = torch.cat([dxm, dz], dim=-1)
-    dwu = torch.einsum("bsd,bse->de", xn, dy2)
-    dbu = dy2.sum((0, 1))
-    dxn = dy2 @ wu.t()
-    dnrm = (dxn * xhat).sum((0, 1))
-    dxhat = dxn * nrm
-    dx = inv * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + dres
+    dx, dnrm, dwu, dbu = head_bwd(xhat, inv, xn, nrm, wu, dxm, dz, dres)
     return (dx, dconv, dnrm, dwu, dbu, *rest)
 
 

@@ -22,7 +22,11 @@ residual itself, so a layer under stochastic depth (train mode and
 function ``kernels.vil_cell.vil_cell_fwd`` (its own kernel on the GPU),
 then outnorm, skip, SiLU(z) gate, proj_down, ``DropPath`` and the residual
 as torch ops. Randomness is explicit: such a forward takes a
-``torch.Generator`` and never reads the global random state. Fork quirks
+``torch.Generator`` and never reads the global random state.
+``ViLLayer.forward_conv_fused`` is a third entry, which no model calls (as
+in the JAX package): the conv-fused function
+``kernels.vil_conv.vil_layer_conv_fwd`` computes the whole layer, the conv
+branch included, from x alone. Fork quirks
 kept: forward-only traversal in the pair, no FFN, i-gate bias -10 and
 f-gate bias linspace(3, 6) at init. The xLSTM language model
 (``nn/xlstm.py``) uses the pieces on their own:
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from ..kernels.mlstm_fwd import mlstm_chunkwise_fwd
 from ..kernels.vil_block import vil_block_fwd
 from ..kernels.vil_cell import vil_cell_fwd
+from ..kernels.vil_conv import vil_layer_conv_fwd
 from ..kernels.vil_layer import vil_layer_fwd
 from ..utils import resolve_device
 from .modules import init_tree, lecun_normal_
@@ -313,6 +318,31 @@ class ViLLayer(nn.Module):
             self.learnable_skip, self.proj_down.weight.t(), self.proj_down.bias, self.num_heads,
             chunk_size=self.chunk_size, igate_act=self.igate_act,
             eps=1e-6, norm_eps=cell.outnorm.eps, rms_eps=self.norm.eps)
+        return out.flip(1) if backward else out
+
+    def forward_conv_fused(self, x, seqlens=None):
+        """The layer through the conv-fused function (the JAX package's v4
+        entry, which its layer does not call either): the layer's own
+        parameters go to ``kernels.vil_conv.vil_layer_conv_fwd``, which
+        computes RMSNorm, proj_up, the depthwise conv and the rest from x
+        alone, on the GPU in hand-written kernels. Equals ``forward`` without
+        stochastic depth; ``seqlens`` (H, W) is required here or at
+        construction."""
+        seqlens = seqlens if seqlens is not None else self.seqlens
+        if seqlens is None:
+            raise ValueError("forward_conv_fused needs the (H, W) token grid")
+        backward = self.direction == "backward"
+        xs = x.flip(1) if backward else x
+        cell = self.mlstm_cell
+        nscale, nbias = cell.outnorm.affine()
+        out = vil_layer_conv_fwd(
+            xs, self.norm.scale, self.proj_up.weight.t(), self.proj_up.bias,
+            self.conv.conv.weight, self.conv.conv.bias,
+            *cell.cell_args(self.q_proj, self.k_proj, self.v_proj), nscale, nbias,
+            self.learnable_skip, self.proj_down.weight.t(), self.proj_down.bias, self.num_heads,
+            tuple(seqlens), chunk_size=self.chunk_size, igate_act=self.igate_act,
+            eps=1e-6, norm_eps=cell.outnorm.eps, rms_eps=self.norm.eps)
+        out = out.to(x.dtype)
         return out.flip(1) if backward else out
 
     def _forward_drop_path(self, x, seqlens, backward: bool, generator):

@@ -16,8 +16,15 @@ The two recurrences run through the port's kernels: every mLSTM block calls
 every sLSTM block ``kernels.slstm.slstm_scan_fwd`` — hand-written CUDA on the
 GPU, their plain versions on the CPU. The dense projections, the 4x4
 headwise projections, the causal conv, the FFN and the LM head are torch
-ops. The model serves (forward and ``generate``); on the GPU it does not
-train yet, since the two kernels have no backward bound to them.
+ops. The model serves (forward and ``generate``) with either kind of block.
+It trains on the GPU when every block is an mLSTM block (``slstm_at=()``,
+the class default) with cell head dim 64: the chunkwise forward kernel then
+has the chunkwise backward kernel bound as its backward. One train step is
+forward -> ``utils.loss.lm_loss`` -> ``backward()`` ->
+``utils.train_utils.StepUpdate``; the JAX package has no trainer for the
+language model, and the port adds none. The sLSTM kernel has no backward
+bound to it (the JAX package differentiates its plain form there), so on the
+GPU a model with an sLSTM block raises under grad.
 """
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
-"""The v8 detection loss on padded ground truth, and the classification loss.
+"""The v8 detection loss on padded ground truth, the classification loss and
+the language-model loss.
 
 Port of ``_bce_logits``, ``df_loss``, ``detection_loss`` and
 ``classification_loss`` in ``xlstm_yolo_tpu/utils/loss.py``. Detection: TAL assignment, BCE on the class logits,
 CIoU on the boxes and the distribution focal loss, with gains box 7.5, cls
 0.5 and dfl 1.5, the total scaled by the batch size. Labels arrive as
 (B, n_max, 5) = (cls, x1, y1, x2, y2) in pixels with a (B, n_max) validity
-mask.
+mask. ``lm_loss`` is the mean token cross-entropy the JAX package's language
+model tests train with (``optax.softmax_cross_entropy_with_integer_labels``
+averaged over batch and positions).
 """
 from __future__ import annotations
 
@@ -79,3 +82,11 @@ def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Ten
     fp32 and averaged over the batch."""
     logp = logits.float().log_softmax(-1)
     return -logp.gather(-1, labels[:, None]).mean()
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of (B, S, vocab) logits against (B, S) integer
+    targets, taken in fp32 over every position. For next-token training the
+    caller shifts: ``lm_loss(model(tokens[:, :-1]), tokens[:, 1:])``."""
+    logp = logits.float().log_softmax(-1)
+    return -logp.gather(-1, targets[..., None]).mean()

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.topk import rowwise_kth_value_plain
 from ..ops.boxes import bbox_iou
 
 TOPK = 10
@@ -28,14 +29,13 @@ def select_candidates_in_gts(xy_centers: torch.Tensor, gt_bboxes: torch.Tensor,
 
 
 def topk_positive_mask(candidate_metric: torch.Tensor, k: int) -> torch.Tensor:
-    """Top-k membership over the last axis as a kth-value threshold: k-1
-    passes each suppress every entry equal to the row max, then an entry is
-    a member when it reaches the kth value and is positive. Ties at the kth
-    value are all admitted; this is not ``torch.topk`` membership."""
-    v = candidate_metric
-    for _ in range(k - 1):
-        v = torch.where(v >= v.amax(dim=-1, keepdim=True), float("-inf"), v)
-    kth = v.amax(dim=-1, keepdim=True).clamp(min=0.0)
+    """Top-k membership over the last axis as a kth-value threshold
+    (``kernels.topk.rowwise_kth_value_plain``: k-1 passes each suppress every
+    entry equal to the row max): an entry is a member when it reaches the
+    kth value and is positive. Ties at the kth value are all admitted; this
+    is not ``torch.topk`` membership. The chain runs on every device, as in
+    the JAX package, whose assigner does not call its kth-value kernel."""
+    kth = rowwise_kth_value_plain(candidate_metric, k).clamp(min=0.0)
     return ((candidate_metric >= kth) & (candidate_metric > 0.0)).to(candidate_metric.dtype)
 
 
