@@ -57,6 +57,11 @@ through the chunkwise backward kernel -> ``StepUpdate``; loss and every
 gradient against the same step with the plain versions forced in, then
 timed by stage.
 
+ViL-YOLO above scale n (``vil_yolo{s,m,l,x}``, ViL widths up to DIM 640,
+INNER 1280, 20 heads): one inference forward of each at batch 2 and 640
+px, and one train step of ``vil_yolox``, each against the same model with
+the plain versions forced in.
+
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -71,13 +76,19 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
+from typing import NamedTuple
 from unittest import mock
 
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA
-# cores and HBM3 bandwidth — the kernel is fp32 without tensor cores.
+# cores, TF32 on the tensor cores and HBM3 bandwidth. ``bound_ms`` holds the
+# kernels' multiply-adds to the fp32 CUDA-core rate (one yardstick for every
+# version of a kernel); ``bound_tc_ms`` to the tensor cores at the three TF32
+# passes the 3xTF32 tile product makes of each (csrc/tile_mma.cuh).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 TOL_REL = 1e-3
 BATCH, SRC_HW, IMGSZ = 8, (540, 810), 640
@@ -104,11 +115,19 @@ CLS = dict(dim=192, depth=12, patch_size=16, output_shape=(1000,), mode="classif
            drop_path_rate=0.05, drop_path_decay=True)
 CLS_BATCH, CLS_HW = 64, 224
 # kernel cases at the ViL shapes: (name, S, DIM, INNER, NH, timed batch). The
-# layer kernel and the chunkwise backward run at every ViL-YOLO stage and at
-# the classifier's shape, the cell and block kernels at the classifier's and P3
+# layer kernel and the chunkwise backward run at every ViL-YOLO-n stage, at the
+# classifier's shape and at scale x's P5, the cell and block kernels at the
+# classifier's, P3 and scale x's P5
 CLS_CASE = ("cls_S196", 196, 192, 384, 6, CLS_BATCH)
-LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE]
-FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH)]
+# the widest ViL stage of the flagship YAML: scale x's P5 at 640 px (P4 has the
+# same widths at S 1600)
+X_P5_CASE = ("xP5_S400", 400, 640, 1280, 20, BATCH)
+LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE, X_P5_CASE]
+FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH), X_P5_CASE]
+# the flagship YAML's scales above n: (YAML, ViL layers per forward)
+SCALES = [("vil_yolos.yaml", 3), ("vil_yolom.yaml", 3), ("vil_yolol.yaml", 6),
+          ("vil_yolox.yaml", 6)]
+SCALES_BATCH = 2
 # the kth-value kernel: (name, R, N, k, rows with ties and few distinct values). The
 # assigner at batch 8 (8 x 32 label slots over 8400 anchors), at the JAX
 # bench's batch 128, and a small case with ties inside the top k
@@ -142,6 +161,16 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def gate_std(inner: int) -> float:
+    """Spread of the seeded gate kernels (zero at init): 0.05, shrunk above
+    INNER 512 (scale n's widest stage) by sqrt(1536 / (3 INNER)), so that
+    the 3*INNER-long gate dots keep the spread they have at scale n. At a
+    flat 0.05 the 3,840-long dots of scale x put exp input gates near e^30
+    and the normalizer near cancellation, where two fp32 summation orders
+    of the backward differ by 1e-3 of its largest gradient."""
+    return 0.05 * min(1.0, (1536 / (3 * inner)) ** 0.5)
+
+
 def layer_args(B, S, DIM, INNER, NH, seed, device):
     """Seeded fp32 arguments of the ViL layer function (JAX layouts)."""
     import torch
@@ -153,8 +182,8 @@ def layer_args(B, S, DIM, INNER, NH, seed, device):
             mk(DIM, 2 * INNER) * DIM ** -0.5, mk(2 * INNER) * 0.1,
             mk(NH, DH, DH) * 0.3, mk(INNER) * 0.1, mk(NH, DH, DH) * 0.3, mk(INNER) * 0.1,
             mk(NH, DH, DH) * 0.3, mk(INNER) * 0.1,
-            mk(3 * INNER, NH) * 0.05, torch.full((NH,), -8.0, device=device),
-            mk(3 * INNER, NH) * 0.05, torch.full((NH,), 4.0, device=device),
+            mk(3 * INNER, NH) * gate_std(INNER), torch.full((NH,), -8.0, device=device),
+            mk(3 * INNER, NH) * gate_std(INNER), torch.full((NH,), 4.0, device=device),
             1.0 + mk(INNER) * 0.2, mk(INNER) * 0.1, 1.0 + mk(INNER) * 0.1,
             mk(INNER, DIM) * INNER ** -0.5, mk(DIM) * 0.1]
 
@@ -273,11 +302,27 @@ def bwd_bound(B, S, INNER, NH):
                                    + B * NH * ns * (dh * dh + dh + 3)))
 
 
-def roofline(flops, nbytes):
-    """(least ms, what bounds it) for ``flops`` fp32 operations and
+class Bound(NamedTuple):
+    """Least time of a call: ``ms`` with its operations at the fp32
+    CUDA-core peak, ``tc_ms`` with them at the TF32 tensor-core peak over
+    TF32_PASSES (for work that is no product, the same as ``ms``), each
+    against the bytes over the HBM rate; ``by`` and ``tc_by`` say which
+    side bounds it."""
+    ms: float
+    by: str
+    tc_ms: float
+    tc_by: str
+
+
+def roofline(flops, nbytes, products: bool = True) -> Bound:
+    """The ``Bound`` of ``flops`` operations (multiply-adds count two;
+    ``products``: they are matrix products the tensor cores can take) and
     ``nbytes`` bytes moved."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_tc = flops * TF32_PASSES / PEAK_TF32_FLOPS * 1e3 if products else t_ops
+    side = lambda t: (t, "operations") if t >= t_bytes else (t_bytes, "bytes")
+    return Bound(*side(t_ops), *side(t_tc))
 
 
 def mlstm_fwd_bound(B, NH, S, DH):
@@ -307,6 +352,7 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
     """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) on
     ``make_case(B, case)`` for every case, at the main path's batch
     ``batch_of(case)`` (the arguments that are then timed) and at batch 2;
+    ``bound(args, case)`` gives the case's ``Bound``;
     both return a tuple of outputs, each held to TOL_REL of its own max;
     ``cross(args, case)``, where given, returns further references the
     kernel's outputs are held to in the same way; its time at the timed
@@ -314,8 +360,8 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
     Emits one line per case (with ``extra(case, ms)`` merged in) and returns
     the totals over the cases for the kernels line."""
     worst_rel, worst_abs = 0.0, 0.0
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    bound_by = set()
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_tc_ms": 0.0}
+    bound_by, bound_tc_by, ms_by_case = set(), set(), {}
     for case in cases:
         errs = {}
         for B in (batch_of(case), 2):
@@ -332,13 +378,14 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         rel = max(e[1] for e in errs.values())
         ms = cuda_time_ms(lambda: run(timed, case), iters=20)
         plain_ms = cuda_time_ms(lambda: plain(timed, case), iters=5)
-        bound_ms, by = bound(timed, case)
+        bnd = bound(timed, case)
         cross_ms = {"cross_ms": cuda_time_ms(lambda: cross(timed, case), iters=10)} if cross else {}
         emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0], **cross_ms,
               "shape": [batch_of(case), *case[1:5]],
               "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
               "max_abs_err": abs_err, "maxrelerr": rel, "tol": TOL_REL, "ok": ok,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd.ms, "bound_by": bnd.by,
+              "bound_tc_ms": bnd.tc_ms, "bound_tc_by": bnd.tc_by,
               **(extra(case, ms) if extra else {})})
         if not ok:
             raise PhaseError(f"{kernel} disagrees with its plain version at {case[0]}: "
@@ -346,10 +393,14 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
-        totals["bound_ms"] += bound_ms
-        bound_by.add(by)
+        totals["bound_ms"] += bnd.ms
+        totals["bound_tc_ms"] += bnd.tc_ms
+        bound_by.add(bnd.by)
+        bound_tc_by.add(bnd.tc_by)
+        ms_by_case[case[0]] = ms
+    one = lambda sides: sides.pop() if len(sides) == 1 else "operations"
     return {"maxrelerr": worst_rel, "max_abs_err": worst_abs, **totals,
-            "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations"}
+            "bound_by": one(bound_by), "bound_tc_by": one(bound_tc_by), "ms_by_case": ms_by_case}
 
 
 def kth_rows(R, N, ties, seed, device):
@@ -382,7 +433,7 @@ def kth_parity(device):
 
     from xlstm_yolo_torch.kernels.topk import rowwise_kth_value, rowwise_kth_value_plain
 
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_tc_ms": 0.0, "library_ms": 0.0}
     worst_abs = 0.0
     for name, R, N, k, ties in K8_CASES:
         x = kth_rows(R, N, ties, seed=R + N, device=device)
@@ -395,7 +446,8 @@ def kth_parity(device):
         ms = cuda_time_ms(lambda: rowwise_kth_value(x, k), iters=20)
         plain_ms = cuda_time_ms(lambda: rowwise_kth_value_plain(x, k), iters=5)
         library_ms = cuda_time_ms(lambda: torch.topk(x, k).values[:, -1:], iters=20)
-        bound_ms, by = roofline(R * N, 4 * (R * N + R))
+        bound = roofline(R * N, 4 * (R * N + R), products=False)
+        bound_ms, by = bound.ms, bound.by
         emit({"phase": "kernel_parity", "kernel": "rowwise_kth_value", "case": name,
               "shape": [R, N], "k": k, "exact": exact, "max_abs_err": abs_err,
               "rows_below_k_distinct": below_k, "tol": 0.0, "ok": ok, "ms": ms,
@@ -406,24 +458,26 @@ def kth_parity(device):
                              f"max abs err {abs_err}")
         worst_abs = max(worst_abs, abs_err)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                         ("library_ms", library_ms)):
+                         ("bound_tc_ms", bound.tc_ms), ("library_ms", library_ms)):
             totals[key] += val
-    return {"maxrelerr": 0.0, "max_abs_err": worst_abs, **totals, "bound_by": "bytes"}
+    return {"maxrelerr": 0.0, "max_abs_err": worst_abs, **totals, "bound_by": "bytes",
+            "bound_tc_by": "bytes"}
 
 
 def phase_kernel_parity():
     """K3 (vil_layer_fwd vs vil_layer_ref) on seeded layer arguments; K2
     (mlstm_chunkwise_bwd vs mlstm_chunkwise_bwd_plain) on the activations
     and carry states the layer kernel's forward leaves for seeded layer
-    arguments, with a seeded output gradient, both at the ViL-YOLO stages
-    and at the classifier's shape; K1 (mlstm_chunkwise_fwd vs
+    arguments, with a seeded output gradient, both at the ViL-YOLO-n stages,
+    at the classifier's shape and at scale x's P5; K1 (mlstm_chunkwise_fwd vs
     mlstm_chunkwise_fwd_plain) and K5 (slstm_scan_fwd vs slstm_scan) on
     seeded arguments at the language model's shapes; K4 (vil_cell_fwd vs
     vil_cell_plain) and K7 (vil_block_fwd vs vil_block_plain) on arguments
-    cut from seeded layer arguments at the classifier's shape and at
-    ViL-YOLO's P3, and the three of the family against each other; K6
+    cut from seeded layer arguments at the classifier's shape, at
+    ViL-YOLO's P3 and at scale x's P5, and the three of the family against
+    each other; K6
     (vil_layer_conv_fwd vs vil_layer_conv_plain, and vs the library conv
-    feeding K3) at the ViL-YOLO stages' grids and the classifier's; K8
+    feeding K3) at the grids of K3's cases; K8
     (``kth_parity``)."""
     import torch
 
@@ -587,25 +641,27 @@ def phase_kernel_parity():
     return k3, k2, k1, k5, k4, k7, k6, k8
 
 
-def build_main_model(device, train: bool = False):
-    """ViL-YOLO-n on ``device``: seeded init with the JAX scheme, then seeded
-    gate kernels (zero at init), so the mLSTM gates vary along the
-    sequence. For inference, zero class biases (detections clear the
-    confidence threshold) and conv+BN folded; for training (``train``), the
-    init class biases and separate BatchNorms, as a run starts."""
+def build_main_model(device, train: bool = False, cfg: str = "vil_yolon.yaml"):
+    """ViL-YOLO (scale n unless ``cfg`` names another) on ``device``: seeded
+    init with the JAX scheme, then seeded gate kernels (zero at init;
+    ``gate_std``), so the mLSTM gates vary along the sequence. For
+    inference, zero class biases (detections clear the confidence
+    threshold) and conv+BN folded; for training (``train``), the init class
+    biases and separate BatchNorms, as a run starts."""
     import torch
 
     from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
     from xlstm_yolo_torch.nn.tasks import TaskModel
     from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
 
-    model = TaskModel("vil_yolon.yaml", device=device, seed=0)
+    model = TaskModel(cfg, device=device, seed=0)
     g = torch.Generator(device="cpu").manual_seed(1)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, MatrixLSTMCell):
                 for lin in (m.igate, m.fgate):
-                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+                    std = gate_std(lin.weight.shape[1] // 3)
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * std)
         if train:
             return model
         det = getattr(model, f"l{model.parsed.head_index}")
@@ -686,14 +742,14 @@ def plain_vil_kernels():
         yield
 
 
-def train_batch(device):
+def train_batch(device, batch: int = BATCH):
     """Seeded uint8 640 px images and fixed padded labels: three boxes per
     image in N_LABELS slots, (cls, x1, y1, x2, y2) pixels."""
     import torch
 
-    imgs = np.random.default_rng(2).integers(0, 256, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)
-    cb = np.zeros((BATCH, N_LABELS, 5), np.float32)
-    mask = np.zeros((BATCH, N_LABELS), bool)
+    imgs = np.random.default_rng(2).integers(0, 256, (batch, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    cb = np.zeros((batch, N_LABELS, 5), np.float32)
+    mask = np.zeros((batch, N_LABELS), bool)
     boxes = [[1, 100, 100, 400, 400], [7, 320, 40, 600, 260], [15, 20, 380, 250, 630]]
     cb[:, :3] = boxes
     mask[:, :3] = True
@@ -1292,6 +1348,85 @@ def phase_cls_path():
             "cls_block_entry": {"vil_block_fwd": block_launches}}
 
 
+def phase_scales_path():
+    """ViL-YOLO above scale n. (a) For each of SCALES one
+    inference forward (``predictions``) at batch SCALES_BATCH of seeded 640
+    px images, against the same model with the plain versions forced in:
+    box coordinates within TOL_REL of their max, scores within TOL_REL, one
+    K3 launch per ViL layer; then timed. (b) One train step of the widest,
+    vil_yolox (forward, loss, backward) at batch SCALES_BATCH against the
+    plain-forced step: loss and every gradient within TOL_REL; one K3 and
+    one K2 launch per ViL layer."""
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (SCALES_BATCH, IMGSZ, IMGSZ, 3)).astype(np.float32)).cuda()
+    forwards, ok, launches_by_scale = {}, True, {}
+    for cfg, n_layers in SCALES:
+        model = build_main_model("cuda", cfg=cfg)
+        vil_layer_fwd.launches = 0
+        with torch.inference_mode():
+            got = model.predictions(x)
+            torch.cuda.synchronize()
+            launches = vil_layer_fwd.launches
+            with plain_vil_kernels():
+                ref = model.predictions(x)
+            ms = cuda_time_ms(lambda: model.predictions(x), iters=3, warmup=1)
+        box_rel = ((got[..., :4] - ref[..., :4]).abs().max() / ref[..., :4].abs().max()).item()
+        score_abs = (got[..., 4:] - ref[..., 4:]).abs().max().item()
+        good = (launches == n_layers and bool(torch.isfinite(got).all())
+                and box_rel <= TOL_REL and score_abs <= TOL_REL)
+        forwards[cfg] = {"params_after_fuse": model.num_params(), "launches_vil_layer_fwd": launches,
+                         "expected_launches": n_layers, "box_maxrelerr": box_rel,
+                         "score_max_abs_err": score_abs, "forward_ms": ms, "ok": good}
+        launches_by_scale[cfg] = launches
+        ok = ok and good
+        del model, got, ref
+
+    cfg, n_layers = SCALES[-1]
+    batch = train_batch("cuda", SCALES_BATCH)
+    steps = {}
+    for kind in ("kernels", "plain"):
+        model = build_main_model("cuda", train=True, cfg=cfg)
+        step = TrainStep(model)
+        with plain_vil_kernels() if kind == "plain" else nullcontext():
+            vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+            total, _ = step.forward_loss(batch)
+            step.backward(total)
+            torch.cuda.synchronize()
+            launches = (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches)
+        steps[kind] = (float(total.detach()), {n: p.grad for n, p in model.named_parameters()},
+                       launches)
+        del step, model
+    loss_k, grads_k, train_launches = steps["kernels"]
+    loss_p, grads_p, plain_launches = steps["plain"]
+    del steps
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    train_ok = (np.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+                and train_launches == (n_layers, n_layers) and plain_launches == (0, 0)
+                and worst_rel <= TOL_REL and loss_rel <= TOL_REL)
+    del grads_k, grads_p
+    ok = ok and train_ok
+    emit({"phase": "scales_path", "batch": SCALES_BATCH, "imgsz": IMGSZ, "tol": TOL_REL,
+          "forward": forwards,
+          "train": {"model": cfg, "launches_vil_layer_fwd": train_launches[0],
+                    "launches_mlstm_chunkwise_bwd": train_launches[1],
+                    "expected_launches": [n_layers, n_layers], "loss": loss_k,
+                    "loss_plain": loss_p, "loss_relerr": loss_rel, "grad_maxrelerr": worst_rel,
+                    "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+                    "ok": train_ok},
+          "ok": ok})
+    if not ok:
+        raise PhaseError("scales path check failed")
+    return {"vil_layer_fwd": sum(launches_by_scale.values()) + train_launches[0],
+            "mlstm_chunkwise_bwd": train_launches[1]}
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -1314,6 +1449,8 @@ def main() -> int:
         conv_launches = phase_conv_path()
         phase = "lm_train_path"
         lm_train_launches = phase_lm_train_path()
+        phase = "scales_path"
+        scales_launches = phase_scales_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -1327,7 +1464,8 @@ def main() -> int:
                "kth_path": {"rowwise_kth_value": kth_launches},
                "conv_path": conv_launches,
                "lm_train_path": dict(zip(("mlstm_chunkwise_fwd", "mlstm_chunkwise_bwd"),
-                                         lm_train_launches))}
+                                         lm_train_launches)),
+               "scales_path": scales_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None):
         """``launches`` is the count on ``path``, the first path that ran
@@ -1338,7 +1476,9 @@ def main() -> int:
                 "launches_by_path": on_paths,
                 "max_abs_err": k["max_abs_err"], "maxrelerr": k["maxrelerr"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": library_ms}
+                "bound_tc_ms": k["bound_tc_ms"], "bound_tc_by": k["bound_tc_by"],
+                "library_ms": library_ms, **({"ms_by_case": k["ms_by_case"]}
+                                             if "ms_by_case" in k else {})}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",

@@ -61,11 +61,12 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("S,DIM,NH,igate_act", [
     (6400, 64, 2, "exp"), (1600, 128, 4, "exp"), (400, 256, 8, "exp"),
-    (200, 64, 2, "exp"), (77, 64, 2, "sigmoid"),
-], ids=["P3", "P4", "P5", "ragged", "short_sigmoid"])
+    (200, 64, 2, "exp"), (77, 64, 2, "sigmoid"), (100, 70, 2, "exp"),
+], ids=["P3", "P4", "P5", "ragged", "short_sigmoid", "odd_dim"])
 def test_vil_layer_kernel_matches_plain(cuda_device, S, DIM, NH, igate_act):
-    """ViL-YOLO-n stage shapes at 640 px, a ragged S and an S shorter than
-    one chunk."""
+    """ViL-YOLO-n stage shapes at 640 px, a ragged S, an S shorter than one
+    chunk, and a DIM whose rows are not 16-byte aligned and whose last
+    64-column tile is partial."""
     args = _layer_args(2, S, DIM, NH, cuda_device, seed=S)
     before = vil_layer_fwd.launches
     got = vil_layer_fwd(*args, NH, chunk_size=128, igate_act=igate_act)
@@ -567,8 +568,9 @@ def _conv_args(B, H, W, DIM, NH, device, seed):
 
 @pytest.mark.parametrize("H,W,DIM,NH,igate_act", [
     (80, 80, 64, 2, "exp"), (40, 40, 128, 4, "exp"), (20, 20, 256, 8, "exp"),
-    (14, 14, 192, 6, "exp"), (5, 9, 64, 2, "sigmoid"), (1, 70, 64, 2, "exp")],
-    ids=["P3", "P4", "P5", "classifier_ragged", "short_sigmoid", "one_row"])
+    (14, 14, 192, 6, "exp"), (5, 9, 64, 2, "sigmoid"), (1, 70, 64, 2, "exp"),
+    (6, 7, 70, 2, "exp")],
+    ids=["P3", "P4", "P5", "classifier_ragged", "short_sigmoid", "one_row", "odd_dim"])
 def test_vil_conv_kernel_matches_plain_and_layer_kernel(cuda_device, H, W, DIM, NH, igate_act):
     """K6 against its plain version, and against the library conv feeding
     the layer kernel on the same arguments."""
@@ -654,3 +656,75 @@ def test_vil_layer_forward_conv_fused_on_card(cuda_device, direction):
     assert _rel(got, want) <= TOL_REL and _rel(xb.grad, xa.grad) <= TOL_REL
     for n, p in layer.named_parameters():
         assert _rel(p.grad, grads[n]) <= TOL_REL, n
+
+
+def _tile_lib():
+    import ctypes
+
+    from xlstm_yolo_torch.kernels._build import CudaLibrary
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return CudaLibrary("tile_mma_test.cu", {
+        "tile_mma_test_f32": (I, [P, P, P, I, I, I, P]),
+        "tile_mma_error_string": (ctypes.c_char_p, [I])}).load()
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["AB", "AtB", "ABt", "AtBt"])
+@pytest.mark.parametrize("K", [64, 192])
+def test_tile_product_is_fp32_accurate(cuda_device, K, ta, tb):
+    """The shared 3xTF32 tile product (csrc/tile_mma.cuh) through its C
+    entry: C (64 x 64) = op(A) op(B) against an fp64 product, with TF32 off
+    in torch; 1e-5 of the output's max, where one TF32 pass keeps about
+    three digits."""
+    lib = _tile_lib()
+    g = torch.Generator(cuda_device).manual_seed(K + 2 * ta + tb)
+    a = torch.randn((K, 64) if ta else (64, K), device=cuda_device, generator=g)
+    b = torch.randn((64, K) if tb else (K, 64), device=cuda_device, generator=g)
+    c = torch.empty(64, 64, device=cuda_device)
+    err = lib.tile_mma_test_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), K, int(ta), int(tb),
+                                torch.cuda.current_stream(cuda_device).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0, lib.tile_mma_error_string(err)
+    want = (a.double().t() if ta else a.double()) @ (b.double().t() if tb else b.double())
+    assert ((c.double() - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+# scale x's P5 at 640 px (20 x 20 tokens, DIM 640, INNER 1280, 20 heads), and a
+# ragged S at the same widths (a 10 x 23 grid)
+WIDE_SHAPES = [(20, 20), (10, 23)]
+
+
+@pytest.mark.parametrize("H,W", WIDE_SHAPES, ids=["x_P5", "x_ragged"])
+@pytest.mark.parametrize("which", ["layer", "cell", "block", "conv", "bwd"])
+def test_vil_kernels_at_scale_x_width_match_plain(cuda_device, which, H, W):
+    """K3, K4, K7, K6 and K2 at the widest ViL stage of the flagship YAML."""
+    S, DIM, NH = H * W, 640, 20
+    if which == "layer":
+        args = _layer_args(2, S, DIM, NH, cuda_device, seed=S)
+        fwd, got = vil_layer_fwd, lambda: vil_layer_fwd(*args, NH, chunk_size=128)
+        want = (vil_layer_ref(*args, NH, chunk_size=128),)
+    elif which in FAMILY:
+        fwd, plain, _ = FAMILY[which]
+        args = _family_args(which, 2, S, DIM, NH, cuda_device, seed=S)
+        got = lambda: fwd(*args, NH, chunk_size=128)
+        want = (plain(*args, NH, chunk_size=128),)
+    elif which == "conv":
+        args = _conv_args(2, H, W, DIM, NH, cuda_device, seed=S)
+        fwd, got = vil_layer_conv_fwd, lambda: vil_layer_conv_fwd(*args, NH, (H, W))
+        want = (vil_layer_conv_plain(*args, NH, (H, W)),)
+    else:
+        q, k, v, i, f, dh = _cell_args(2, S, NH, cuda_device, seed=S)
+        heads = lambda t: t.reshape(2, S, NH, 64).transpose(1, 2)
+        carry = chunk_carry_states(heads(k), heads(v), i, f, 64)
+        fwd = mlstm_chunkwise_bwd
+        got = lambda: mlstm_chunkwise_bwd(q, k, v, i, f, dh, NH, carry=carry)
+        want = mlstm_chunkwise_bwd_plain(q, k, v, i, f, dh, NH)
+    before = fwd.launches
+    out = got()
+    out = out if isinstance(out, tuple) else (out,)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    for n, (g_, w) in enumerate(zip(out, want)):
+        assert g_.shape == w.shape and bool(torch.isfinite(g_).all()), n
+        assert _rel(g_, w) <= TOL_REL, n

@@ -1,0 +1,24 @@
+#!/usr/bin/env bash
+# Times the hand-written kernels of several checkouts of this repository on
+# one card, in turns. For each root given, in order, chip_smoke.py's
+# kernel_parity phase (build, parity against the plain versions, per-case
+# times) runs in that root, in a process of its own; its output goes to
+# $AB_OUT/ab_<turn>_<root's last name>.txt (AB_OUT defaults to ab/out). To
+# compare a parent commit with the working tree, unpack the parent into a
+# directory .gitignore lists and run parent, change, change, parent:
+#
+#     mkdir -p ab/parent
+#     git archive <parent> xlstm_yolo_torch chip_smoke.py | tar -x -C ab/parent
+#     bash tools/ab_kernels.sh ab/parent . . ab/parent
+set -u
+out=${AB_OUT:-ab/out}
+mkdir -p "$out"
+out=$(cd "$out" && pwd)
+turn=0
+for root in "$@"; do
+  turn=$((turn + 1))
+  name=$(basename "$(cd "$root" && pwd)")
+  (cd "$root" && python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.phase_kernel_parity()") \
+    > "$out/ab_${turn}_${name}.txt" 2>&1
+  echo "turn $turn: $root rc=$?"
+done

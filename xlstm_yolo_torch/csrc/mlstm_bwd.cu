@@ -29,10 +29,25 @@
 //   C. per chunk: the carry terms (the k v^T summary's gradient into dk and
 //      dv, the gate weights' terms, dbtot), then the in-chunk reverse cumsum
 //      that turns d(cumsum log f) into dlogf.
-// Every product is an fp32 FMA loop over shared-memory tiles (rows padded to
-// DH+1 floats against bank conflicts); tensor cores and TMA are later work.
+// What bounds it on this card: per chunk and head it does 3 CS (CS+1) DH +
+// 5 CS DH^2 multiply-adds against 7 CS DH floats of activations, 37
+// operations per byte at DH 64: above the fp32 CUDA cores' ridge (67 TFLOP/s
+// over 3.35 TB/s = 20 op/B), so operations bound it there; below that of
+// the tensor cores at three TF32 passes (165 TFLOP/s: 49 op/B), where the
+// bytes would.
 //
-// Head dim and chunk are fixed at 64, as in the layer kernel. A sequence that
+// What the design does about it: every product runs on the tensor cores
+// through the shared 3xTF32 tile product (tile_mma.cuh, fp32 accuracy),
+// with operands staged by cp.async in 64 x 64 tiles: in A the causal q k^T,
+// the recomputed E v and q C, E^T dA, dA v^T, dqk k, dA C^T, dqk^T q and
+// (a q)^T dA; in C k dC and dC v^T. Stage A keeps D and E in one tile (the
+// decay is rebuilt from the gate logs where a product needs it), so it
+// holds six tiles, 109 KB, and two CTAs share an SM; C holds three.
+// Gate math, stabilizers, exp/log, normalizer and scans stay fp32 on the
+// CUDA cores.
+//
+// The chunk is fixed at 64 and the head dim is a template parameter of the
+// kernels, instantiated at 64 (one tile product per head). A sequence that
 // is not a chunk multiple is masked in its last chunk exactly as the forward
 // masks it: missing steps load zeros with an input-gate log of -1e30 and a
 // forget-gate log of 0; nothing is written for them.
@@ -41,13 +56,17 @@
 
 #include <math.h>
 
+#include "tile_mma.cuh"
+
 namespace {
 
-constexpr int DH = 64;        // head dim
-constexpr int CS = 64;        // chunk length
-constexpr int LD = DH + 1;    // padded smem row stride
-constexpr int NT = 256;       // threads per CTA
-constexpr int NW = NT / 32;   // warps per CTA
+using tile::Acc;
+using tile::LDS;
+
+constexpr int CS = 64;             // chunk length
+constexpr int NT = tile::THREADS;  // threads per CTA
+constexpr int NW = NT / 32;        // warps per CTA
+constexpr int TF = tile::FLOATS;   // floats of one 64 x 64 shared tile
 constexpr float NEG = -1e30f;
 
 struct Params {
@@ -116,14 +135,6 @@ __device__ __forceinline__ void load_gates(const Params& p, int bh, int s0, floa
   }
 }
 
-__device__ __forceinline__ void load_rows(const float* src, const Params& p, int b, int n,
-                                          int s0, float* dst, float scale) {
-  for (int i = threadIdx.x; i < CS * DH; i += NT) {
-    const int r = i / DH, d = i % DH, s = s0 + r;
-    dst[r * LD + d] = s < p.S ? src[((long)b * p.S + s) * p.INNER + n * DH + d] * scale : 0.f;
-  }
-}
-
 // The chunk's decay scalars from the forward's carry scalars: log of the
 // decay of the carried-in state (ld_old) and of the chunk summary (ld_new).
 __device__ __forceinline__ void chunk_decays(const Params& p, long base, float* ld_old,
@@ -134,17 +145,53 @@ __device__ __forceinline__ void chunk_decays(const Params& p, long base, float* 
   *ld_new = ml - mn;
 }
 
+// The warp's row sums (rows Acc::row(0) and Acc::row(2)) of a quantity it
+// accumulated per thread in pr: quad sums into part[column half][row].
+__device__ __forceinline__ void put_row_sums(float (&pr)[2], float* part) {
+  const float r0 = tile::quad_sum(pr[0]), r1 = tile::quad_sum(pr[1]);
+  if ((threadIdx.x & 3) == 0) {
+    part[(threadIdx.x >> 7) * CS + Acc::row(0)] = r0;
+    part[(threadIdx.x >> 7) * CS + Acc::row(2)] = r1;
+  }
+}
+
+// Writes acc * scale to rows s0 + row < S of the (B, S, INNER) array dst at
+// head column offset hcol, adding what is there when ADD.
+template <bool ADD>
+__device__ __forceinline__ void put_rows(const Acc& a, float* dst, const Params& p, int b,
+                                         int s0, int hcol, float scale) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh, t = Acc::row(r);
+      if (s0 + t < p.S) {
+        float2* o = reinterpret_cast<float2*>(dst + ((long)b * p.S + s0 + t) * p.INNER + hcol +
+                                              Acc::col(j, r));
+        float2 v = make_float2(a.c[j][r] * scale, a.c[j][r + 1] * scale);
+        if (ADD) {
+          const float2 w = *o;
+          v.x += w.x;
+          v.y += w.y;
+        }
+        *o = v;
+      }
+    }
+}
+
 // A. Per chunk: forward recompute and the carry-independent gradients.
-__global__ void __launch_bounds__(NT) bwd_chunk_local(Params p) {
-  extern __shared__ float sm[];
-  float* qs = sm;                // CS x LD, q / sqrt(DH)
-  float* ks = qs + CS * LD;      // CS x LD
-  float* vs = ks + CS * LD;      // CS x LD
-  float* dA = vs + CS * LD;      // CS x LD, dh, then dh / normalizer
-  float* E = dA + CS * LD;       // CS x LD, row t col s: (q_t . k_s) D_ts; later G
-  float* D = E + CS * LD;        // CS x LD, decay D_ts (0 above the diagonal); later dqk
-  float* Cs = D + CS * LD;       // DH x LD, carried-in C
-  float* nv = Cs + DH * LD;      // DH carried-in n
+template <int DH>
+__global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
+  static_assert(DH == tile::T, "one 64 x 64 tile product per head");
+  constexpr float QS = 0.125f;   // 1 / sqrt(DH)
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                // q (unscaled); at the end q a_t / sqrt(DH)
+  float* ks = qs + TF;
+  float* vs = ks + TF;
+  float* dA = vs + TF;           // dh, then dh / normalizer
+  float* Cs = dA + TF;           // carried-in C [d][e]
+  float* E = Cs + TF;            // row t col s: (q_t . k_s / sqrt(DH)) D_ts; later dqk = de D
+  float* nv = E + TF;            // DH carried-in n
   float* bcs = nv + DH;          // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
   float* cm = li + CS;           // CS running max of li - b
@@ -153,19 +200,28 @@ __global__ void __launch_bounds__(NT) bwd_chunk_local(Params p) {
   float* nrm = av + CS;          // CS normalizer
   float* row = nrm + CS;         // CS unnormalized row sum (its sign and size)
   float* dR = row + CS;          // CS
-  float* part = dR + CS;         // 4 x CS partial sums
+  float* rpart = dR + CS;        // 2 x CS row partials of the two column halves
+  float* cpart = rpart + 2 * CS; // 4 x CS column partials of the four row quarters
+  float* dbv = cpart + 4 * CS;   // CS d b, in-chunk part
+  float* dli = dbv + CS;         // CS d log i, in-chunk part
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
   const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
+  // the decay D_ts of a causal entry (s <= t)
+  auto decay = [&](int t, int s) { return expf(li[s] - bcs[s] + bcs[t] - stab[t]); };
 
+  tile::load_async<CS, DH>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(dA, LDS, p.dh + hoff, p.INNER, nrows, DH);
+  tile::load_async<DH, DH>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
+  tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
-  load_rows(p.q, p, b, n, s0, qs, 0.125f);  // 1 / sqrt(64)
-  load_rows(p.k, p, b, n, s0, ks, 1.f);
-  load_rows(p.v, p, b, n, s0, vs, 1.f);
-  load_rows(p.dh, p, b, n, s0, dA, 1.f);
-  for (int i = tid; i < DH * DH; i += NT) Cs[(i / DH) * LD + i % DH] = p.cprev[base * DH * DH + i];
   if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
   const float m_prev = p.mprev[base];
+  tile::cp_async_wait_all();
   __syncthreads();
   if (tid < 32) warp_scan64<false>(bcs);
   __syncthreads();
@@ -181,30 +237,26 @@ __global__ void __launch_bounds__(NT) bwd_chunk_local(Params p) {
   }
   __syncthreads();
 
-  // decay matrix and E
+  // E = (q k^T / sqrt(DH)) D, causal
   {
-    const int s = tid % CS, t0 = tid / CS;
-    const float ws = li[s] - bcs[s];
-    for (int i = 0; i < CS / 4; ++i) {
-      const int t = t0 + 4 * i;
-      float dv_ = 0.f, e = 0.f;
-      if (s <= t) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot += qs[t * LD + d] * ks[s * LD + d];
-        dv_ = expf(ws + bcs[t] - stab[t]);
-        e = dot * dv_;
+    Acc s;
+    s.zero();
+    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), c = Acc::col(jj, r);
+        E[t * LDS + c] = c <= t ? s.c[jj][r] * QS * decay(t, c) : 0.f;
       }
-      D[t * LD + s] = dv_;
-      E[t * LD + s] = e;
-    }
   }
   __syncthreads();
 
   // normalizer
   for (int t = warp; t < CS; t += NW) {
-    const float es = warp_sum(E[t * LD + lane] + E[t * LD + lane + 32]);
-    const float qn = warp_sum(qs[t * LD + lane] * nv[lane] + qs[t * LD + lane + 32] * nv[lane + 32]);
+    const float es = warp_sum(E[t * LDS + lane] + E[t * LDS + lane + 32]);
+    const float qn = QS * warp_sum(qs[t * LDS + lane] * nv[lane] +
+                                   qs[t * LDS + lane + 32] * nv[lane + 32]);
     if (lane == 0) {
       const float r = es + av[t] * qn;
       row[t] = r;
@@ -213,134 +265,159 @@ __global__ void __launch_bounds__(NT) bwd_chunk_local(Params p) {
   }
   __syncthreads();
 
-  // h (recomputed), then dN_t = -sum_e dh h / normalizer via per-warp partials
+  // h (recomputed), then dN_t = -sum_e dh h / normalizer
   {
-    const int e = tid % DH, t0 = tid / DH;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int t = t0 + 4 * i;
-      float intra = 0.f, inter = 0.f;
-      for (int s = 0; s <= t; ++s) intra += E[t * LD + s] * vs[s * LD + e];
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) inter += qs[t * LD + d] * Cs[d * LD + e];
-      const float h = (intra + av[t] * inter) / nrm[t];
-      const float pr = warp_sum(dA[t * LD + e] * h);
-      if (lane == 0) part[2 * t + (e >> 5)] = pr;
-    }
+    Acc intra, inter;
+    intra.zero();
+    inter.zero();
+    tile::mma<false, false, tile::K_LE_M>(intra, E, LDS, vs, LDS, CS);
+    tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), e = Acc::col(jj, r);
+        const float h = (intra.c[jj][r] + av[t] * QS * inter.c[jj][r]) / nrm[t];
+        pr[r >> 1] += dA[t * LDS + e] * h;
+      }
+    put_row_sums(pr, rpart);
   }
   __syncthreads();
   if (tid < CS) {
-    const float dN = -(part[2 * tid] + part[2 * tid + 1]) / nrm[tid];
+    const float dN = -(rpart[tid] + rpart[CS + tid]) / nrm[tid];
     const float r = row[tid];
     dR[tid] = fabsf(r) > expf(-stab[tid]) ? (r > 0.f ? dN : (r < 0.f ? -dN : 0.f)) : 0.f;
   }
   for (int i = tid; i < CS * DH; i += NT) {
-    const int t = i / DH, e = i % DH;
-    dA[t * LD + e] /= nrm[t];
+    const int t = i / DH;
+    dA[t * LDS + i % DH] /= nrm[t];
   }
   __syncthreads();
 
-  // dv (intra part) = E^T dA, before E is overwritten
+  // dv (in-chunk part) = E^T dA
   {
-    const int e = tid % DH, s0r = tid / DH;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int s = s0r + 4 * i, sg = s0 + s;
-      float acc = 0.f;
-      for (int t = s; t < CS; ++t) acc += E[t * LD + s] * dA[t * LD + e];
-      if (sg < p.S) p.dv[((long)b * p.S + sg) * p.INNER + n * DH + e] = acc;
-    }
+    Acc a;
+    a.zero();
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, dA, LDS, CS);
+    put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f);
   }
-  __syncthreads();
+  __syncthreads();  // E is overwritten below
 
-  // de = dA_t . v_s + dR_t (causal); D <- dqk = de D; E <- G = de E
+  // de = dA v^T + dR (causal); G = de E gives the gate sums; E <- dqk = de D
   {
-    const int s = tid % CS, t0 = tid / CS;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int t = t0 + 4 * i;
-      float de = 0.f;
-      if (s <= t) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int e = 0; e < DH; ++e) dot += dA[t * LD + e] * vs[s * LD + e];
-        de = dot + dR[t];
+    Acc d;
+    d.zero();
+    tile::mma<false, true, tile::OUT_LOWER>(d, dA, LDS, vs, LDS, DH);
+    float rs[2] = {0.f, 0.f};
+    float cs[4][2];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      cs[jj][0] = 0.f;
+      cs[jj][1] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), s = Acc::col(jj, r);
+        float g = 0.f, dqk = 0.f;
+        if (s <= t) {
+          const float de = d.c[jj][r] + dR[t];
+          g = de * E[t * LDS + s];
+          dqk = de * decay(t, s);
+        }
+        E[t * LDS + s] = dqk;
+        rs[r >> 1] += g;
+        cs[jj][r & 1] += g;
       }
-      D[t * LD + s] *= de;
-      E[t * LD + s] *= de;
     }
+    put_row_sums(rs, rpart);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        float c = cs[jj][par];
+        c += __shfl_xor_sync(0xffffffffu, c, 4);
+        c += __shfl_xor_sync(0xffffffffu, c, 8);
+        c += __shfl_xor_sync(0xffffffffu, c, 16);
+        if (lane < 4) cpart[(warp & 3) * CS + Acc::col(jj, par)] = c;
+      }
+  }
+  __syncthreads();
+  if (tid < CS) {  // db[t] = rowsum G - colsum G, dlogi[s] = colsum G
+    const float colsum = cpart[tid] + cpart[CS + tid] + cpart[2 * CS + tid] + cpart[3 * CS + tid];
+    dli[tid] = colsum;
+    dbv[tid] = rpart[tid] + rpart[CS + tid] - colsum;
   }
   __syncthreads();
 
-  // gate partials: db[t] = rowsum G - colsum G, dlogi[s] = colsum G; plus the
-  // inter term of db below
-  if (tid < CS) {  // 64 threads sum rows, the next 64 sum columns
-    float r = 0.f;
-    for (int s = 0; s <= tid; ++s) r += E[tid * LD + s];
-    part[tid] = r;
-  } else if (tid < 2 * CS) {
-    const int s = tid - CS;
-    float c = 0.f;
-    for (int t = s; t < CS; ++t) c += E[t * LD + s];
-    part[CS + s] = c;
-  }
-  __syncthreads();
-
-  // dq = (dqk k + (dA C^T + dR n) a_t) / sqrt(DH); inter db[t] = a_t sum_d dqt q
+  // dq = (dqk k + (dA C^T + dR n) a_t) / sqrt(DH); inter d b_t = a_t sum_d dqt q / sqrt(DH)
   {
-    const int d = tid % DH, t0 = tid / DH;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int t = t0 + 4 * i, sg = s0 + t;
-      float intra = 0.f, dqt = 0.f;
-      for (int s = 0; s <= t; ++s) intra += D[t * LD + s] * ks[s * LD + d];
-#pragma unroll 16
-      for (int e = 0; e < DH; ++e) dqt += dA[t * LD + e] * Cs[d * LD + e];
-      dqt += dR[t] * nv[d];
-      const float pr = warp_sum(dqt * qs[t * LD + d]);
-      if (lane == 0) part[2 * CS + 2 * t + (d >> 5)] = pr * av[t];
-      if (sg < p.S)
-        p.dq[((long)b * p.S + sg) * p.INNER + n * DH + d] = (intra + dqt * av[t]) * 0.125f;
-    }
+    Acc a, c;
+    a.zero();
+    c.zero();
+    tile::mma<false, false, tile::K_LE_M>(a, E, LDS, ks, LDS, CS);
+    tile::mma<false, true>(c, dA, LDS, Cs, LDS, DH);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), d = Acc::col(jj, r);
+        const float dqt = c.c[jj][r] + dR[t] * nv[d];
+        pr[r >> 1] += dqt * qs[t * LDS + d];
+        a.c[jj][r] += dqt * av[t];
+      }
+    put_row_sums(pr, rpart);
+    put_rows<false>(a, p.dq, p, b, s0, n * DH, QS);
   }
   __syncthreads();
+  if (tid < CS) dbv[tid] += av[tid] * QS * (rpart[tid] + rpart[CS + tid]);
+
+  // dk (in-chunk part) = dqk^T q / sqrt(DH)
+  {
+    Acc a;
+    a.zero();
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, qs, LDS, CS);
+    put_rows<false>(a, p.dk, p, b, s0, n * DH, QS);
+  }
+  __syncthreads();  // q is rescaled below
+  for (int i = tid; i < CS * DH; i += NT) {
+    const int t = i / DH;
+    qs[t * LDS + i % DH] *= av[t] * QS;
+  }
+  __syncthreads();
+
+  // dC_attn[d][e] = sum_t a_t q_td dA_te / sqrt(DH); dn_attn[d] = sum_t dR_t a_t q_td / sqrt(DH)
+  {
+    Acc a;
+    a.zero();
+    tile::mma<true, false>(a, qs, LDS, dA, LDS, CS);
+    float* dco = p.dcs + base * DH * DH;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * hh;
+        *reinterpret_cast<float2*>(dco + Acc::row(r) * DH + Acc::col(jj, r)) =
+            make_float2(a.c[jj][r], a.c[jj][r + 1]);
+      }
+    if (tid < DH) {
+      float acc = 0.f;
+      for (int t = 0; t < CS; ++t) acc += dR[t] * qs[t * LDS + tid];
+      p.dns[base * DH + tid] = acc;
+    }
+  }
   if (tid < CS) {
     const int sg = s0 + tid;
     if (sg < p.S) {
-      const float colsum = part[CS + tid];
-      p.df[(long)bh * p.S + sg] =
-          part[tid] - colsum + part[2 * CS + 2 * tid] + part[2 * CS + 2 * tid + 1];
-      p.di[(long)bh * p.S + sg] = colsum;
-    }
-  }
-
-  // dk (intra part) = dqk^T q
-  {
-    const int d = tid % DH, s0r = tid / DH;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int s = s0r + 4 * i, sg = s0 + s;
-      float acc = 0.f;
-      for (int t = s; t < CS; ++t) acc += D[t * LD + s] * qs[t * LD + d];
-      if (sg < p.S) p.dk[((long)b * p.S + sg) * p.INNER + n * DH + d] = acc;
-    }
-  }
-
-  // dC_attn[d][e] = sum_t a_t q_td dA_te; dn_attn[d] = sum_t dR_t a_t q_td
-  {
-    const int e = tid % DH, d0 = tid / DH;
-    float* dco = p.dcs + base * DH * DH;
-    for (int i = 0; i < DH / 4; ++i) {
-      const int d = d0 + 4 * i;
-      float acc = 0.f;
-      for (int t = 0; t < CS; ++t) acc += av[t] * qs[t * LD + d] * dA[t * LD + e];
-      dco[d * DH + e] = acc;
-    }
-    if (tid < DH) {
-      float acc = 0.f;
-      for (int t = 0; t < CS; ++t) acc += dR[t] * av[t] * qs[t * LD + tid];
-      p.dns[base * DH + tid] = acc;
+      p.df[(long)bh * p.S + sg] = dbv[tid];
+      p.di[(long)bh * p.S + sg] = dli[tid];
     }
   }
 }
 
 // B. Reverse scan over chunks: dC_attn_j is replaced in place by the carry
 // dC_j (the gradient with respect to the state chunk j leaves behind).
+template <int DH>
 __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int idx = blockIdx.y * NT + tid;  // entry of C
@@ -366,31 +443,33 @@ __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
 }
 
 // C. Per chunk: the terms that need the reverse carry, then d log f.
-__global__ void __launch_bounds__(NT) bwd_chunk_carry(Params p) {
-  extern __shared__ float sm[];
-  float* ks = sm;                // CS x LD
-  float* vs = ks + CS * LD;      // CS x LD
-  float* dkv = vs + CS * LD;     // DH x LD, dC_j scaled by the chunk's summary decay
-  __shared__ float bcs[CS], li[CS], gw[CS], dks[DH], db[CS], part[2 * CS], red[NW];
+template <int DH>
+__global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;                // CS x DH
+  float* vs = ks + TF;           // CS x DH
+  float* dC = vs + TF;           // DH x DH, the carry dC_j
+  __shared__ float bcs[CS], li[CS], gw[CS], dks[DH], db[CS], rev[CS], rpart[2 * CS], red[NW];
+  __shared__ float gsum[2];
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
   const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
   float ld_old, ld_new;
   chunk_decays(p, base, &ld_old, &ld_new);
   const float d_new = expf(ld_new), d_old = expf(ld_old);
   const float btot = p.btot[base], mloc = p.mloc[base];
 
+  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  tile::load_async<DH, DH>(dC, LDS, p.dcs + base * DH * DH, DH, DH, DH);
+  tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
-  load_rows(p.k, p, b, n, s0, ks, 1.f);
-  load_rows(p.v, p, b, n, s0, vs, 1.f);
   const float* dcn = p.dcs + base * DH * DH;
   const float* cpv = p.cprev + base * DH * DH;
   float acc = 0.f;  // sum dC_j * C_prev (+ dn_j * n_prev)
-  for (int i = tid; i < DH * DH; i += NT) {
-    const float g = dcn[i];
-    dkv[(i / DH) * LD + i % DH] = g * d_new;
-    acc += g * cpv[i];
-  }
+  for (int i = tid; i < DH * DH; i += NT) acc += dcn[i] * cpv[i];
   if (tid < DH) {
     const float g = p.dns[base * DH + tid];
     dks[tid] = g * d_new;
@@ -398,35 +477,41 @@ __global__ void __launch_bounds__(NT) bwd_chunk_carry(Params p) {
   }
   acc = warp_sum(acc);
   if (lane == 0) red[warp] = acc;
+  tile::cp_async_wait_all();
   __syncthreads();
   if (tid < 32) warp_scan64<false>(bcs);
   __syncthreads();
   if (tid < CS) gw[tid] = expf(li[tid] + (btot - bcs[tid]) - mloc);
   __syncthreads();
 
-  // dv += (k gw) dkv
+  // dv += gw_s d_new (k dC)
   {
-    const int e = tid % DH, s0r = tid / DH;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int s = s0r + 4 * i, sg = s0 + s;
-      float a = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) a += ks[s * LD + d] * dkv[d * LD + e];
-      if (sg < p.S) p.dv[((long)b * p.S + sg) * p.INNER + n * DH + e] += a * gw[s];
-    }
+    Acc a;
+    a.zero();
+    tile::mma<false, false>(a, ks, LDS, dC, LDS, DH);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a.c[jj][r] *= gw[Acc::row(r)];
+    put_rows<true>(a, p.dv, p, b, s0, n * DH, d_new);
   }
-  // dk_state = v dkv^T + dksum; dk += dk_state gw; dgw = sum_d dk_state k
+  // dk_state = d_new (v dC^T) + dksum; dk += dk_state gw; dgw = sum_d dk_state k
   {
-    const int d = tid % DH, s0r = tid / DH;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int s = s0r + 4 * i, sg = s0 + s;
-      float a = dks[d];
-#pragma unroll 16
-      for (int e = 0; e < DH; ++e) a += dkv[d * LD + e] * vs[s * LD + e];
-      const float pr = warp_sum(a * ks[s * LD + d]);
-      if (lane == 0) part[2 * s + (d >> 5)] = pr;
-      if (sg < p.S) p.dk[((long)b * p.S + sg) * p.INNER + n * DH + d] += a * gw[s];
-    }
+    Acc a;
+    a.zero();
+    tile::mma<false, true>(a, vs, LDS, dC, LDS, DH);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int s = Acc::row(r), d = Acc::col(jj, r);
+        const float st = a.c[jj][r] * d_new + dks[d];
+        pr[r >> 1] += st * ks[s * LDS + d];
+        a.c[jj][r] = st * gw[s];
+      }
+    put_row_sums(pr, rpart);
+    put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f);
   }
   __syncthreads();
 
@@ -434,30 +519,29 @@ __global__ void __launch_bounds__(NT) bwd_chunk_carry(Params p) {
   float gi = 0.f;
   if (tid < CS) {
     const int sg = s0 + tid;
-    gi = (part[2 * tid] + part[2 * tid + 1]) * gw[tid];
+    gi = (rpart[tid] + rpart[CS + tid]) * gw[tid];
     const float dbp = sg < p.S ? p.df[(long)bh * p.S + sg] : 0.f;
     db[tid] = dbp - gi;
   }
-  float gsum = warp_sum(gi);  // warps 0 and 1 hold the chunk's gi
-  __syncthreads();
-  if (lane == 0 && warp < 2) part[warp] = gsum;
+  const float gs = warp_sum(gi);  // warps 0 and 1 hold the chunk's gi
+  if (lane == 0 && warp < 2) gsum[warp] = gs;
   __syncthreads();
   if (tid == 0) {
     float dbt = 0.f;
     for (int w = 0; w < NW; ++w) dbt += red[w];
-    db[CS - 1] += dbt * d_old + part[0] + part[1];
+    db[CS - 1] += dbt * d_old + gsum[0] + gsum[1];
   }
   __syncthreads();
   // reverse inclusive cumsum: dlogf_t = sum_{s >= t} db_s
-  if (tid < CS) part[tid] = db[CS - 1 - tid];
+  if (tid < CS) rev[tid] = db[CS - 1 - tid];
   __syncthreads();
-  if (tid < 32) warp_scan64<false>(part);
+  if (tid < 32) warp_scan64<false>(rev);
   __syncthreads();
   if (tid < CS) {
     const int sg = s0 + tid;
     if (sg < p.S) {
       const long o = (long)bh * p.S + sg;
-      const float dlogf = part[CS - 1 - tid];
+      const float dlogf = rev[CS - 1 - tid];
       const float dli = p.di[o] + gi;
       p.df[o] = dlogf * sigmoid(-p.fg[o]);
       p.di[o] = p.igate_exp ? dli : dli * sigmoid(-p.ig[o]);
@@ -465,9 +549,41 @@ __global__ void __launch_bounds__(NT) bwd_chunk_carry(Params p) {
   }
 }
 
-constexpr size_t kLocalSmem =
-    sizeof(float) * (6 * CS * LD + DH * LD + DH + 8 * CS + 4 * CS);
-constexpr size_t kCarrySmem = sizeof(float) * (2 * CS * LD + DH * LD);
+template <int DH>
+constexpr size_t local_smem() {
+  return sizeof(float) * (6 * TF + DH + 16 * CS);
+}
+
+constexpr size_t kCarrySmem = sizeof(float) * 3 * TF;
+
+template <class K>
+cudaError_t allow_smem(K* kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The three launches at head dim DH.
+template <int DH>
+int launch(Params& p, float* ws, cudaStream_t st) {
+  const long rows = (long)p.B * p.NH;
+  p.dcs = ws;
+  p.dns = ws + rows * p.NS * DH * DH;
+  cudaError_t err;
+  if ((err = allow_smem(bwd_chunk_local<DH>, local_smem<DH>())) != cudaSuccess) return err;
+  if ((err = allow_smem(bwd_chunk_carry<DH>, kCarrySmem)) != cudaSuccess) return err;
+  bwd_chunk_local<DH><<<dim3(p.NS, rows), NT, local_smem<DH>(), st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_state_scan<DH><<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_chunk_carry<DH><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return 0;
+}
+
+constexpr int kDH = 64;  // the head dim instantiated
 
 }  // namespace
 
@@ -477,7 +593,7 @@ extern "C" {
 // carries of every chunk).
 long mlstm_bwd_workspace_floats(int B, int S, int NH) {
   const long NS = (S + CS - 1) / CS;
-  return (long)B * NH * NS * (DH * DH + DH);
+  return (long)B * NH * NS * (kDH * kDH + kDH);
 }
 
 const char* mlstm_bwd_error_string(int code) {
@@ -490,8 +606,7 @@ int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* d
                   const float* mprev, const float* btot, const float* mloc, float* dq,
                   float* dk, float* dv, float* di, float* df, float* ws, int B, int S,
                   int INNER, int NH, int igate_exp, float eps, void* stream) {
-  if (INNER != NH * DH || B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (INNER != NH * kDH || B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v; p.dh = dh; p.ig = ig; p.fg = fg;
   p.cprev = cprev; p.nprev = nprev; p.mprev = mprev; p.btot = btot; p.mloc = mloc;
@@ -499,22 +614,7 @@ int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* d
   p.B = B; p.S = S; p.INNER = INNER; p.NH = NH;
   p.NS = (S + CS - 1) / CS;
   p.igate_exp = igate_exp; p.eps = eps;
-  const long rows = (long)B * NH;
-  p.dcs = ws;
-  p.dns = ws + rows * p.NS * DH * DH;
-
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(bwd_chunk_local, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kLocalSmem)) != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(bwd_chunk_carry, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kCarrySmem)) != cudaSuccess) return err;
-  bwd_chunk_local<<<dim3(p.NS, rows), NT, kLocalSmem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_chunk_carry<<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return 0;
+  return launch<kDH>(p, ws, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

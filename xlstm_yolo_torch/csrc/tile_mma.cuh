@@ -1,0 +1,201 @@
+// The tensor-core tile product shared by the port's mLSTM kernels (the ViL
+// layer family in vil_layer.cu, the chunkwise backward in mlstm_bwd.cu).
+//
+// One CTA of 8 warps computes a 64 x 64 fp32 output tile C += op(A) op(B)
+// from operands in shared memory, on the tensor cores: warp-level
+// `mma.sync.aligned.m16n8k8` with TF32 operands and fp32 accumulators, in
+// the 3xTF32 split that keeps fp32 accuracy (the port's parity rule is
+// fp32 with TF32 off):
+//   hi = cvt.rna.tf32(x),  lo = cvt.rna.tf32(x - hi),
+//   acc += lo*hi' + hi*lo' + hi*hi'        (lo*lo' is below fp32's rounding)
+// At a third of the 495 TFLOP/s TF32 rate that is 165 TFLOP/s, 2.5x the
+// 67 TFLOP/s fp32 CUDA-core peak, and each warp reads 12 shared-memory
+// words per 12 products of 1,024 multiply-adds, where an FMA loop reads one
+// or two per multiply-add.
+//
+// Warp w owns output rows 16*(w % 4) .. +16 and columns 32*(w / 4) .. +32:
+// four 16 x 8 accumulator fragments (`Acc`, 16 floats a thread). Operands
+// are read as op(A)[m][k] = A[m*lda + k] (or A[k*lda + m] when TA) and
+// op(B)[k][n] = B[k*ldb + n] (or B[n*ldb + k] when TB). Tiles are 64 rows
+// of `LDS` = 68 floats: rows stay 16-byte aligned for cp.async, and the
+// fragment loads of a row-indexed operand (A, or B when TB) hit 32
+// different banks; a k-indexed one (TA, or B without TB) takes two ways.
+//
+// `Causal` skips work that a triangular operand makes zero: OUT_LOWER
+// leaves the 16 x 8 output fragments above the diagonal (column > row)
+// at zero; K_LE_M runs the k loop only to the warp's last row (A lower
+// triangular, A[m][k] = 0 for k > m); K_GE_M starts it at the warp's first
+// row (A upper triangular).
+//
+// wgmma is not used: the chunk products are 64 x 64 x 64 with gate math
+// between them, and TF32 wgmma wants both operands K-major in shared memory
+// and a warpgroup pipeline that does not pay at this size.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tile {
+
+constexpr int T = 64;             // tile rows and columns
+constexpr int LDS = T + 4;        // shared-memory row stride (floats)
+constexpr int FLOATS = T * LDS;   // one tile
+constexpr int THREADS = 256;      // the CTA the product is written for
+
+enum Causal { FULL = 0, OUT_LOWER = 1, K_LE_M = 2, K_GE_M = 3 };
+
+// The 16 accumulators of one thread: c[j][r] is row row(r), column col(j, r)
+// of the output tile.
+struct Acc {
+  float c[4][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) c[j][r] = 0.f;
+  }
+  __device__ __forceinline__ static int row(int r) {
+    return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * (r >> 1);
+  }
+  __device__ __forceinline__ static int col(int j, int r) {
+    return 32 * (threadIdx.x >> 7) + 8 * j + 2 * (threadIdx.x & 3) + (r & 1);
+  }
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  hi &= 0xffffe000u;  // the tensor core reads the top 19 bits: make hi exactly that
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += op(A) op(B) over k in [0, K), K a multiple of 8, for the warp's
+// 16 x 32 part of the 64 x 64 tile. `kscale`, where given, multiplies
+// column k of op(A) (a shared or global array of K floats). Every warp of
+// the CTA calls it; nothing here synchronizes.
+template <bool TA, bool TB, int MODE = FULL>
+__device__ __forceinline__ void mma(Acc& acc, const float* A, int lda, const float* B, int ldb,
+                                    int K, const float* kscale = nullptr) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int m0 = 16 * (w & 3), n0 = 32 * (w >> 2);
+  const int g = lane >> 2, t = lane & 3;
+  int kbeg = 0, kend = K;
+  if (MODE == K_LE_M) kend = K < m0 + 16 ? K : m0 + 16;
+  if (MODE == K_GE_M) kbeg = m0;
+#pragma unroll 2
+  for (int k0 = kbeg; k0 < kend; k0 += 8) {
+    float af[4];
+    if (TA) {
+      af[0] = A[(k0 + t) * lda + m0 + g];
+      af[1] = A[(k0 + t) * lda + m0 + g + 8];
+      af[2] = A[(k0 + t + 4) * lda + m0 + g];
+      af[3] = A[(k0 + t + 4) * lda + m0 + g + 8];
+    } else {
+      af[0] = A[(m0 + g) * lda + k0 + t];
+      af[1] = A[(m0 + g + 8) * lda + k0 + t];
+      af[2] = A[(m0 + g) * lda + k0 + t + 4];
+      af[3] = A[(m0 + g + 8) * lda + k0 + t + 4];
+    }
+    if (kscale != nullptr) {
+      const float s0 = kscale[k0 + t], s1 = kscale[k0 + t + 4];
+      af[0] *= s0;
+      af[1] *= s0;
+      af[2] *= s1;
+      af[3] *= s1;
+    }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(af[i], ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (MODE == OUT_LOWER && n0 + 8 * j > m0 + 15) continue;  // warp-uniform
+      const int n = n0 + 8 * j + g;
+      const float b0f = TB ? B[n * ldb + k0 + t] : B[(k0 + t) * ldb + n];
+      const float b1f = TB ? B[n * ldb + k0 + t + 4] : B[(k0 + t + 4) * ldb + n];
+      uint32_t bh0, bl0, bh1, bl1;
+      split(b0f, bh0, bl0);
+      split(b1f, bh1, bl1);
+      mma_tf32(acc.c[j], al, bh0, bh1);
+      mma_tf32(acc.c[j], ah, bl0, bl1);
+      mma_tf32(acc.c[j], ah, bh0, bh1);
+    }
+  }
+}
+
+// Sum over the four lanes of a quad: the lanes that hold one accumulator row
+// of a warp's 32 columns (call with each thread's share of Acc::row(r)).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Writes the accumulators to a 64 x 64 tile at row stride ldc.
+__device__ __forceinline__ void store(const Acc& acc, float* C, int ldc) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * h;
+      *reinterpret_cast<float2*>(C + Acc::row(r) * ldc + Acc::col(j, r)) =
+          make_float2(acc.c[j][r], acc.c[j][r + 1]);
+    }
+}
+
+// ---- asynchronous copies into shared memory --------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait for every committed group, or for all but the newest one.
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Starts the copy of a ROWS x COLS block of a row-major global matrix (row
+// stride `ld` floats, `src` its element (0, 0), which must be a valid
+// address) into shared memory at row stride `ldd`; rows >= nrows and
+// columns >= ncols land as zeros. 16-byte copies where the rows are
+// 16-byte aligned, else 4-byte ones. The caller commits and waits.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_async(float* dst, int ldd, const float* src, long ld,
+                                           int nrows, int ncols) {
+  const bool vec = (ld & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * (COLS / 4); i += THREADS) {
+      const int r = i / (COLS / 4), c = 4 * (i % (COLS / 4));
+      const int left = ncols - c;
+      const int nb = r < nrows && left > 0 ? 4 * (left < 4 ? left : 4) : 0;
+      cp_async16(dst + r * ldd + c, nb ? src + r * ld + c : src, nb);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r < nrows && c < ncols;
+      cp_async4(dst + r * ldd + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
+    }
+  }
+}
+
+}  // namespace tile

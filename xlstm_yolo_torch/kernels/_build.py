@@ -2,10 +2,10 @@
 
 Each ``csrc/*.cu`` source exposes a plain C interface. On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout (named by the source's content hash, so an edited source
-rebuilds) and loaded with ``ctypes``. Nothing happens at import time: the
-package imports on hosts with no CUDA toolkit, where only the kernels' plain
-versions run.
+the checkout (named by the content hash of the source and the ``csrc/*.cuh``
+headers, so an edited source or header rebuilds) and loaded with
+``ctypes``. Nothing happens at import time: the package imports on hosts
+with no CUDA toolkit, where only the kernels' plain versions run.
 """
 from __future__ import annotations
 
@@ -34,13 +34,14 @@ def find_nvcc() -> str:
 
 
 def build_library(source: str, extra_flags: tuple = ()) -> Path:
-    """Compile ``csrc/<source>`` into a shared library (cached by content
-    hash) and return its path. nvcc's output (ptxas register and shared
-    memory counts included) is kept beside it as ``.log``; a failed build
-    raises with that output."""
+    """Compile ``csrc/<source>`` into a shared library (cached by the
+    content hash of the source and of the headers beside it) and return its
+    path. nvcc's output (ptxas register and shared memory counts included)
+    is kept beside it as ``.log``; a failed build raises with that output."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + extra_flags).encode()
-                            ).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS + extra_flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out

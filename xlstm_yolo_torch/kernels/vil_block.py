@@ -109,11 +109,13 @@ def block_bwd(args, acts, gout, cfg: Cfg, mlstm_bwd):
 
 
 def tail_kernel_args(where: str, conv_act, nscale, nbias, skip, wd, bd, dim: int) -> list:
-    """The tail's arguments as the C entries take them."""
+    """The tail's arguments as the C entries take them: proj_down's weight
+    as (DIM, INNER), out x in (the module's ``nn.Linear`` weight, so no
+    copy there)."""
     INNER, dev = conv_act.shape[-1], conv_act.device
     chk = lambda name, t, shape: check_tensor(where, name, t, shape, dev)
     return [chk("nscale", nscale, (INNER,)), chk("nbias", nbias, (INNER,)),
-            chk("skip", skip, (INNER,)), chk("wd", wd, (INNER, dim)), chk("bd", bd, (dim,))]
+            chk("skip", skip, (INNER,)), chk("wd^T", wd.t(), (dim, INNER)), chk("bd", bd, (dim,))]
 
 
 def _launch(args, cfg: Cfg):

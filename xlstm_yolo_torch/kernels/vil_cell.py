@@ -47,7 +47,7 @@ from .mlstm_bwd import (KERNEL_CS, KERNEL_DH, CarryStates, _natural,
                         mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
 from .mlstm_native import mlstm_chunkwise
 
-N_WS = 16  # arrays in the kernels' workspace (vil_workspace_layout)
+N_WS = 18  # arrays in the kernels' workspace (vil_workspace_layout)
 LAYER, CELL, BLOCK, CONV = 0, 1, 2, 3  # the family's members, as csrc/vil_layer.cu numbers them
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -57,7 +57,6 @@ LIB = CudaLibrary("vil_layer.cu", {
     "vil_block_fwd_f32": (_I, [_P] * 21 + [_I] * 6 + [_F] * 2 + [_P]),
     "vil_layer_conv_fwd_f32": (_I, [_P] * 23 + [_I] * 8 + [_F] * 3 + [_P]),
     "vil_workspace_layout": (None, [_I] * 5 + [ctypes.POINTER(ctypes.c_long)]),
-    "vil_prologue_smem": (ctypes.c_long, [_I] * 2),
     "vil_error_string": (ctypes.c_char_p, [_I]),
 })
 
@@ -154,40 +153,32 @@ def cell_bwd(args, acts, dh, cfg: Cfg, mlstm_bwd):
     return dconv, dxm, dwq, dbq, dwk, dbk, dwv, dbv, dwgi, dbgi, dwgf, dbgf
 
 
-def check_call(where: str, conv_act, cfg: Cfg, dim: int = 0):
+def check_call(where: str, conv_act, cfg: Cfg):
     """What every kernel of the family refuses before it builds or launches:
-    an unknown gate activation, a head dim other than ``KERNEL_DH``, a width
-    whose prologue does not fit the device's shared memory (``dim`` = 0 for
-    the cell and the block, which load no x rows). Returns the library."""
+    an unknown gate activation, a head dim other than ``KERNEL_DH``. Any
+    width runs: each stage's shared memory is fixed by its tiles. Returns
+    the library."""
     if cfg.igate_act not in ("exp", "sigmoid"):
         raise ValueError(f"unknown igate_act {cfg.igate_act!r}")
     INNER = conv_act.shape[-1]
     if INNER != cfg.num_heads * KERNEL_DH:
         raise ValueError(f"{where}: the CUDA kernel needs head dim {KERNEL_DH}, "
                          f"got INNER={INNER} over {cfg.num_heads} heads")
-    lib = LIB.load()
-    smem = lib.vil_prologue_smem(dim, INNER)
-    limit = torch.cuda.get_device_properties(conv_act.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"{where}: DIM={dim}, INNER={INNER} needs {smem} B of shared "
-                         f"memory per block, the device allows {limit}")
-    return lib
+    return LIB.load()
 
 
 def cell_kernel_args(where: str, conv_act, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
                      nh: int) -> list:
     """The cell's arguments after conv_act as the C entries take them:
-    headwise weights as (NH, DH_in, DH_out), so that the kernel's loads
-    along the output index are coalesced, then the biases, then each gate
-    kernel as (NH, 3*INNER) with its bias."""
+    headwise weights as (NH, DH_out, DH_in), as they come, then the biases,
+    then each gate kernel as (NH, 3*INNER) (the layout of the module's
+    ``nn.Linear`` weight, so no copy there) with its bias."""
     INNER, dh, dev = conv_act.shape[-1], KERNEL_DH, conv_act.device
     chk = lambda name, t, shape: check_tensor(where, name, t, shape, dev)
-    return [chk("wq", wq, (nh, dh, dh)).transpose(1, 2).contiguous(),
-            chk("wk", wk, (nh, dh, dh)).transpose(1, 2).contiguous(),
-            chk("wv", wv, (nh, dh, dh)).transpose(1, 2).contiguous(),
+    return [chk("wq", wq, (nh, dh, dh)), chk("wk", wk, (nh, dh, dh)), chk("wv", wv, (nh, dh, dh)),
             chk("bq", bq, (INNER,)), chk("bk", bk, (INNER,)), chk("bv", bv, (INNER,)),
-            chk("wgi", wgi, (3 * INNER, nh)).t().contiguous(), chk("bgi", bgi, (nh,)),
-            chk("wgf", wgf, (3 * INNER, nh)).t().contiguous(), chk("bgf", bgf, (nh,))]
+            chk("wgi^T", wgi.t(), (nh, 3 * INNER)), chk("bgi", bgi, (nh,)),
+            chk("wgf^T", wgf.t(), (nh, 3 * INNER)), chk("bgf", bgf, (nh,))]
 
 
 class Workspace:
@@ -208,7 +199,7 @@ class Workspace:
         B, S, INNER, nh = self.shape
         ns, dh, tok = -(-S // KERNEL_CS), KERNEL_DH, (B, S, INNER)
         # workspace order: q, k, v, z, h, ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev,
-        # xm, conv
+        # xm, conv, gp, y
         acts = (self.view(0, *tok), self.view(1, *tok), self.view(2, *tok),
                 self.view(5, B, nh, S), self.view(6, B, nh, S))
         carry = CarryStates(self.view(8, B * nh, ns, dh, dh), self.view(10, B * nh, ns, dh),

@@ -129,7 +129,7 @@ def _launch(args, cfg: Cfg):
     nh, dev = cfg.num_heads, x.device
     chk = lambda name, t, shape: check_tensor(where, name, t, shape, dev)
     t = [chk("x", x, (B, S, DIM)), chk("rms_scale", rms_scale, (DIM,)),
-         chk("wu", wu, (DIM, 2 * INNER)), chk("bu", bu, (2 * INNER,)),
+         chk("wu^T", wu.t(), (2 * INNER, DIM)), chk("bu", bu, (2 * INNER,)),
          chk("wc", wc, (INNER, 1, 3, 3)).reshape(INNER, 9).t().contiguous(),  # (tap, channel)
          chk("bc", bc, (INNER,)),
          *cell_kernel_args(where, like_conv, *args[N_HEAD:N_HEAD + N_CELL], nh),

@@ -122,11 +122,11 @@ def _launch(args, cfg: Cfg):
     x, conv_act, rms_scale, wu, bu = args[:5]
     B, S, DIM = x.shape
     INNER = conv_act.shape[-1]
-    lib = check_call("vil_layer_fwd", conv_act, cfg, dim=DIM)
+    lib = check_call("vil_layer_fwd", conv_act, cfg)
     nh, dev = cfg.num_heads, x.device
     chk = lambda name, t, shape: check_tensor("vil_layer_fwd", name, t, shape, dev)
     t = [chk("x", x, (B, S, DIM)), chk("conv_act", conv_act, (B, S, INNER)),
-         chk("rms_scale", rms_scale, (DIM,)), chk("wu", wu, (DIM, 2 * INNER)),
+         chk("rms_scale", rms_scale, (DIM,)), chk("wu^T", wu.t(), (2 * INNER, DIM)),
          chk("bu", bu, (2 * INNER,)),
          *cell_kernel_args("vil_layer_fwd", conv_act, *args[5:5 + N_CELL], nh),
          *tail_kernel_args("vil_layer_fwd", conv_act, *args[5 + N_CELL:], DIM)]

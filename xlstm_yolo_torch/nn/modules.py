@@ -71,6 +71,8 @@ class ConvBN(nn.Module):
 
     def init_params(self, g: torch.Generator) -> None:
         lecun_normal_(self.conv.weight, g)
+        if isinstance(self.bn, nn.BatchNorm2d):  # scale 1, bias 0, running mean 0, var 1
+            self.bn.reset_parameters()
 
     def forward(self, x):
         x = self.conv(x)

@@ -57,6 +57,9 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
 
+    def init_params(self, g: torch.Generator) -> None:
+        nn.init.ones_(self.scale)
+
     def forward(self, x):
         xf = x.float()
         y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps) * self.scale
@@ -72,6 +75,9 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.zeros(dim))
+
+    def init_params(self, g: torch.Generator) -> None:
+        nn.init.zeros_(self.scale)
 
     def forward(self, x):
         xf = x.float()
@@ -92,6 +98,10 @@ class AffineLayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
+    def init_params(self, g: torch.Generator) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
     def forward(self, x):
         y = F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, self.eps)
         return y.to(x.dtype)
@@ -109,6 +119,11 @@ class MultiHeadLayerNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.zeros(dim))
         self.bias = nn.Parameter(torch.zeros(dim)) if with_bias else None
+
+    def init_params(self, g: torch.Generator) -> None:
+        nn.init.zeros_(self.scale)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def affine(self):
         """(effective weight, bias), each (NH*DH,)."""
@@ -147,6 +162,8 @@ class LinearHeadwiseExpand(nn.Module):
         dh = self.weight.shape[-1]
         with torch.no_grad():
             self.weight.normal_(0.0, math.sqrt(2.0 / 5.0 / dh), generator=g)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
 
 class SequenceConv2d(nn.Module):
@@ -300,6 +317,7 @@ class ViLLayer(nn.Module):
         for lin in (self.proj_up, self.proj_down):
             nn.init.xavier_uniform_(lin.weight, generator=g)
             nn.init.zeros_(lin.bias)
+        nn.init.ones_(self.learnable_skip)
 
     def forward(self, x, seqlens=None, generator: torch.Generator | None = None):
         seqlens = seqlens if seqlens is not None else self.seqlens
