@@ -107,7 +107,8 @@ LM_TRAIN = {**LM_README, "slstm_at": ()}
 # kernel cases at the language model's shapes: (name, NH, S, DH)
 K1_CASES = [("readme_S256_DH64", 4, 256, 64), ("ragged_S200_DH64", 4, 200, 64),
             ("wide_S1024_DH256", 4, 1024, 256)]
-K5_CASES = [("readme_S256_DH32", 4, 256, 32), ("wide_S1024_DH128", 4, 1024, 128)]
+K5_CASES = [("readme_S256_DH32", 4, 256, 32), ("wide_S1024_DH128", 4, 1024, 128),
+            ("S1024_DH64", 4, 1024, 64)]  # head dim 64: on no model path
 # the ViL classifier: VisionLSTM2's defaults (NX-AI vision-lstm's vil2-tiny
 # widths) with the head dim the ViL kernels take and stochastic depth on
 CLS = dict(dim=192, depth=12, patch_size=16, output_shape=(1000,), mode="classifier",
@@ -471,8 +472,9 @@ def phase_kernel_parity():
     arguments, with a seeded output gradient, both at the ViL-YOLO-n stages,
     at the classifier's shape and at scale x's P5; K1 (mlstm_chunkwise_fwd vs
     mlstm_chunkwise_fwd_plain) and K5 (slstm_scan_fwd vs slstm_scan) on
-    seeded arguments at the language model's shapes; K4 (vil_cell_fwd vs
-    vil_cell_plain) and K7 (vil_block_fwd vs vil_block_plain) on arguments
+    seeded arguments at the language model's shapes (and K5 at head dim 64);
+    K4 (vil_cell_fwd vs vil_cell_plain) and K7 (vil_block_fwd vs
+    vil_block_plain) on arguments
     cut from seeded layer arguments at the classifier's shape, at
     ViL-YOLO's P3 and at scale x's P5, and the three of the family against
     each other; K6
@@ -531,7 +533,8 @@ def phase_kernel_parity():
         "mlstm_chunkwise_fwd", K1_CASES, fwd_case,
         lambda args, case: (mlstm_chunkwise_fwd(*args),),
         lambda args, case: (mlstm_chunkwise_fwd_plain(*args),),
-        lambda args, case: mlstm_fwd_bound(BATCH, *case[1:]))
+        lambda args, case: mlstm_fwd_bound(BATCH, *case[1:]),
+        extra=lambda case, ms: {"us_per_step": ms * 1e3 / case[2]})
 
     def scan_case(B, case):
         _, NH, S, DH = case

@@ -13,6 +13,8 @@ import torch
 
 from xlstm_yolo_torch.kernels.mlstm_bwd import (
     chunk_carry_states, mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
+from xlstm_yolo_torch.kernels.mlstm_fwd import _carry_states
+from xlstm_yolo_torch.kernels.mlstm_fwd import _launch as mlstm_fwd_launch
 from xlstm_yolo_torch.kernels.mlstm_fwd import (
     mlstm_chunkwise_bwd_heads, mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
 from xlstm_yolo_torch.kernels.mlstm_native import mlstm_recurrent
@@ -188,6 +190,28 @@ def test_mlstm_fwd_kernel_refuses(cuda_device):
         mlstm_chunkwise_fwd(args[0].double(), *args[1:])
 
 
+@pytest.mark.parametrize("S,igate_act", [(256, "exp"), (200, "sigmoid"), (77, "exp")],
+                         ids=["whole_chunks", "ragged_sigmoid", "ragged"])
+@pytest.mark.parametrize("DH", [64, 128, 256])
+def test_mlstm_fwd_kernel_workspace_is_the_carry_states(cuda_device, DH, S, igate_act):
+    """With a workspace (the call under autograd) K1 writes the state carried
+    into every chunk, which the chunkwise backward reads: it equals
+    ``chunk_carry_states`` (fp32, other summation orders: 1e-5 of each
+    array's max). Without one it writes nothing but h, and h is the same
+    bit for bit."""
+    args = _mlstm_args(2, 4, S, DH, cuda_device, seed=S + DH + 1)
+    h, ws, off = mlstm_fwd_launch(*args, igate_act, 1e-6, states=True)
+    h_free, ws_free, _ = mlstm_fwd_launch(*args, igate_act, 1e-6)
+    torch.cuda.synchronize()
+    assert ws_free is None and torch.equal(h, h_free)
+    got = _carry_states(ws, off, 2 * 4, S, DH)
+    want = chunk_carry_states(*args[1:], 64, igate_act)
+    for name in ("c", "n", "m", "btot", "mloc"):
+        g_, w = getattr(got, name), getattr(want, name)
+        assert g_.shape == w.shape and bool(torch.isfinite(g_).all()), name
+        assert _rel(g_, w) <= 1e-5, name
+
+
 @pytest.mark.parametrize("S,igate_act", [(256, "exp"), (200, "exp"), (40, "sigmoid")],
                          ids=["whole_chunks", "ragged", "short_sigmoid"])
 def test_mlstm_fwd_kernel_under_grad_runs_the_backward_kernel(cuda_device, S, igate_act):
@@ -276,6 +300,30 @@ def test_slstm_kernel_matches_plain(cuda_device, B, S, DH):
     assert slstm_scan_fwd.launches == before + 1
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert _rel(got, want) <= TOL_REL
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("DH", [32, 64, 128])
+def test_slstm_kernel_batches_match_plain(cuda_device, DH, B):
+    """K5 at every head dim over three heads and batches of 1 to 11 (one CTA
+    or cluster per chain): the full scan with its last state, a single step,
+    and two calls with the state carried through the kernel."""
+    wx, r, b = _slstm_args(B, 37, 3, DH, cuda_device, seed=B + DH)
+    want, want_last = slstm_scan(wx, r, b, return_last_state=True)
+    before = slstm_scan_fwd.launches
+    y, last = slstm_scan_fwd(wx, r, b, return_last_state=True)
+    one = slstm_scan_fwd(wx[:, :1].contiguous(), r, b)
+    y1, mid = slstm_scan_fwd(wx[:, :20].contiguous(), r, b, return_last_state=True)
+    y2, last2 = slstm_scan_fwd(wx[:, 20:].contiguous(), r, b, initial_state=mid,
+                               return_last_state=True)
+    torch.cuda.synchronize()
+    assert slstm_scan_fwd.launches == before + 4
+    assert y.shape == want.shape and bool(torch.isfinite(y).all())
+    assert _rel(y, want) <= TOL_REL
+    assert _rel(one, slstm_scan(wx[:, :1], r, b)) <= TOL_REL
+    assert _rel(torch.cat([y1, y2], 1), want) <= TOL_REL
+    for got, got2, ref in zip(last, last2, want_last):
+        assert _rel(got, ref) <= TOL_REL and _rel(got2, ref) <= TOL_REL
 
 
 def test_slstm_kernel_refuses_and_state_carry(cuda_device):

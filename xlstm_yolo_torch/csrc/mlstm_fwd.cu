@@ -10,64 +10,98 @@
 //
 // What bounds it on this card: per token and head the work is
 // (CS + 1) DH + 2 DH^2 multiply-adds on 16 DH bytes of q, k, v and h, i.e.
-// 24 (DH 64) to 72 (DH 256) op/B, above the fp32 ridge of 20 op/B, so the
-// least time is set by operations. The products are fp32 FMAs on the CUDA
-// cores (no tensor cores yet), so the fp32 rate is the bound it is held to.
+// 24 (DH 64) to 72 (DH 256) op/B, so the least time is set by operations.
+// Every product runs on the tensor cores through the shared 3xTF32 tile
+// product (tile_mma.cuh: fp32 accuracy at a third of the TF32 rate).
 //
 // What the design does about it: the TPU kernel walked the chunks of a row
-// in order on one core with (C, n, m) in scratch. Here the recurrence is
-// split so that every SM has work, as in the ViL layer kernel:
-//   1. chunk summaries (one CTA per (chunk, batch*head, value tile)): the
-//      decayed k^T v and k sums of each chunk, its total decay and local max;
-//   2. state scan (one CTA per (batch*head, 256 state entries)): the only
-//      sequential part, NS steps of an elementwise update that turns the
-//      summaries, in place, into the state carried into each chunk;
-//   3. chunk outputs (one CTA per (chunk, batch*head, value tile)): the
-//      intra-chunk term plus the carried-in term, normalized.
-// Head dims 64, 128 and 256: a DH x DH fp32 state is 256 KB at DH 256, more
-// than a block's shared memory, so the value dimension is tiled. A CTA owns
-// all DH columns of q and k and a 64-column tile of v, C and h. Tiles
-// need no exchange: the normalizer's inputs (q n and the row sums of the
-// decay-weighted q k^T) depend on q, k and the gates only, and every tile
-// recomputes them. In the output kernel the carried-in C tile is loaded
-// over k's tile once q k^T is done, which keeps the CTA at 164 KB at DH 256.
+// in order on one core with (C, n, m) in scratch. Here a cluster of DH / 64
+// CTAs walks them the same way, in one launch; CTA r of the cluster owns
+// value tile r (columns 64r .. 64r+63 of v, C and h) and the r-th 64-column
+// slice of q and k. Per chunk:
+//   1. the gate logs, the stabilizer and the chunk's decay weights (every
+//      CTA alike, from the 64 gate preacts);
+//   2. for each 64-column slice c of q and k, streamed through shared memory
+//      by cp.async: the inter-chunk q_c C[c, r] (C's slice staged from
+//      registers into one shared tile) and the state update C[c, r] =
+//      decay C[c, r] + k_c^T (g v_r), in one k loop; at c = r also this
+//      CTA's share of q k^T (q_r k_r^T) and of q n, and the n update;
+//   3. with several CTAs a row, they sum their q k^T and q n shares in rank
+//      order through distributed shared memory (one cluster barrier per
+//      chunk, two exchange buffers by chunk parity), so q k^T is computed
+//      once per chunk and head and every CTA gets the same E and normalizer;
+//   4. h[:, tile r] = (E v_r + q C[:, r]) / normalizer.
+// The carried C[:, r] (DH x 64) lives in registers as DH / 64 accumulator
+// tiles. At DH 64 and 128 a CTA has two groups of 256 threads: group 0 runs
+// the recurrence (step 2's products, then step 4) while group 1 runs the
+// chunk's own part (q k^T, q n, the n update, E and the normalizer), and
+// the next stage's loads fly during this one's products (ten 64 x 68 tiles
+// of shared memory, 174 KB). At DH 256 a cluster of four such CTAs, one an
+// SM, left only 30 clusters resident on the card and the language model's
+// 32 rows ran in two waves; there a CTA has one group and one buffer (six
+// tiles, 107 KB, at most 128 registers a thread) and two share an SM, so
+// 62 clusters fit. Shared memory never grows with DH. Without a workspace
+// nothing but h goes to device memory. With one (under autograd, where the
+// chunkwise backward reads them) the state carried into each chunk is
+// written as `mlstm_fwd_workspace_layout` lays it out.
+//
+// The walk replaced a split into three launches (chunk summaries, an
+// elementwise state scan, chunk outputs) whose states round-tripped device
+// memory; PERF.md has both on the card.
 //
 // The stabilizer is the recurrent one per position, stab_t = max(b_t +
-// cummax(logi - b)_t, m_prev + b_t), which does not depend on the chunk
-// length: the result agrees with any other chunking up to rounding. The
-// chunk length is 64. A sequence that is not a multiple of 64 is handled by
-// masking the last chunk: missing positions load as zeros with an
-// input-gate log of -1e30 and a forget-gate log of 0, so they add nothing
-// to any valid position.
+// cummax(logi - b)_t, m_prev + b_t), with m = 0 carried into the first
+// chunk; it does not depend on the chunk length, so the result agrees with
+// any other chunking up to rounding. The chunk length is 64. A sequence that
+// is not a multiple of 64 is handled by masking the last chunk: missing
+// positions load as zeros with an input-gate log of -1e30 and a forget-gate
+// log of 0, so they add nothing to any valid position.
 
 #include <cuda_runtime.h>
-
 #include <math.h>
+#include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
-constexpr int CS = 64;        // chunk length
-constexpr int VT = 64;        // value-tile width
-constexpr int MAX_DH = 256;  // widest head dim taken
-constexpr int LV = VT + 1;    // padded smem row stride of a value tile or E
-constexpr int NT = 256;       // threads per CTA
-constexpr int NW = NT / 32;   // warps per CTA
+using tile::Acc;
+using tile::LDS;
+
+constexpr int CS = 64;                 // chunk length
+constexpr int VT = 64;                 // value tile and q/k slice width
+constexpr int MAX_ND = 4;              // widest head dim taken: 64 * MAX_ND
+constexpr int NT = tile::THREADS;      // threads of one group (one tile product)
+constexpr int TF = tile::FLOATS;       // one 64 x 68 tile
 constexpr float NEG = -1e30f;
 
+// How a head dim walks (the note at the top says why): ND = DH / 64 CTAs a
+// row, groups() groups of NT threads a CTA, buffers() buffers a stage.
+__host__ __device__ constexpr int groups(int nd) { return nd == 4 ? 1 : 2; }
+__host__ __device__ constexpr int buffers(int nd) { return nd == 4 ? 1 : 2; }
+
+// shared memory: q and k slices and the value tile (BUF each), the C
+// staging tile and E (one tile with one group), the exchange tiles (2, by
+// chunk parity), then the gate preacts (BUF) and the per-chunk vectors
+__host__ __device__ constexpr size_t smem_bytes(int nd) {
+  return sizeof(float) * ((3 * buffers(nd) + 2 + groups(nd)) * TF + 2 * CS * buffers(nd) +
+                          8 * CS + 4 * VT + VT + 4);
+}
+
 struct Params {
-  const float* q;     // (B*NH, S, DH), unscaled
+  const float* q;     // (rows, S, DH), unscaled
   const float* k;
   const float* v;
-  const float* ig;    // (B*NH, S) gate preacts
+  const float* ig;    // (rows, S) gate preacts
   const float* fg;
-  float* h;           // (B*NH, S, DH)
-  // workspace
-  float* kv;          // (B*NH, NS, DH, DH): chunk summaries, then carried-in C
-  float* ksum;        // (B*NH, NS, DH): chunk k sums, then carried-in n
-  float* btot;        // (B*NH, NS)
-  float* mloc;        // (B*NH, NS)
-  float* mprev;       // (B*NH, NS)
-  int S, DH, NS, igate_exp;
+  float* h;           // (rows, S, DH)
+  // workspace, or all null: the states stay on chip
+  float* kv;          // (rows, NS, DH, DH): C carried into each chunk, [k index][v index]
+  float* ksum;        // (rows, NS, DH): n carried in
+  float* btot;        // (rows, NS): the chunk's total log decay
+  float* mloc;        // (rows, NS): its local max
+  float* mprev;       // (rows, NS): the stabilizer carried in
+  int S, NS, igate_exp;
   float qscale, eps;
 };
 
@@ -75,10 +109,13 @@ __device__ __forceinline__ float logsigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// Barrier of the NT threads of group 1 alone (barrier 0 is __syncthreads).
+__device__ __forceinline__ void group1_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(NT)); }
 
 // Inclusive scan (sum, or max when MAX) of a[0..63] in place; called by all
 // 32 lanes of one warp. Lane l owns a[2l] and a[2l+1].
@@ -97,218 +134,293 @@ __device__ void warp_scan64(float* a) {
   a[2 * l + 1] = MAX ? fmaxf(excl, fmaxf(a0, a1)) : excl + a0 + a1;
 }
 
-// Chunk j's gate logs of row bh: lf (log forget, 0 where masked), li (log
-// input, NEG where masked).
-__device__ __forceinline__ void load_gates(const Params& p, int bh, int s0, float* lf,
-                                           float* li) {
-  const int tid = threadIdx.x;
-  if (tid < CS) {
-    const int s = s0 + tid;
-    const bool ok = s < p.S;
-    const float fp = ok ? p.fg[(size_t)bh * p.S + s] : 0.f;
-    const float ip = ok ? p.ig[(size_t)bh * p.S + s] : 0.f;
-    lf[tid] = ok ? logsigmoid(fp) : 0.f;
-    li[tid] = ok ? (p.igate_exp ? ip : logsigmoid(ip)) : NEG;
-  }
-}
-
-// Rows s0..s0+CS of src (row bh, width p.DH), columns c0..c0+W, into dst with
-// row stride ld, scaled; rows past S load as zeros.
-__device__ __forceinline__ void load_rows(const float* src, const Params& p, int bh, int s0,
-                                          int c0, int W, int ld, float* dst, float scale) {
-  for (int i = threadIdx.x; i < CS * W; i += NT) {
-    const int r = i / W, d = i % W, s = s0 + r;
-    dst[r * ld + d] = s < p.S ? src[((size_t)bh * p.S + s) * p.DH + c0 + d] * scale : 0.f;
-  }
-}
-
-// 1. Per-chunk state summaries for one value tile.
-__global__ void __launch_bounds__(NT) mlstm_chunk_summary(Params p) {
-  extern __shared__ float sm[];
-  const int DH = p.DH, LD = DH + 1;
-  float* ks = sm;               // CS x LD
-  float* vs = ks + CS * LD;     // CS x LV, value tile
-  float* bcs = vs + CS * LV;    // CS cumsum of log f
-  float* li = bcs + CS;         // CS log input gate
-  float* gw = li + CS;          // CS weights of each step in the chunk's summary
-  __shared__ float s_mloc;
-  const int j = blockIdx.x, bh = blockIdx.y, vt = blockIdx.z;
-  const int tid = threadIdx.x, s0 = j * CS;
-
-  load_gates(p, bh, s0, bcs, li);
-  load_rows(p.k, p, bh, s0, 0, DH, LD, ks, 1.f);
-  load_rows(p.v, p, bh, s0, vt * VT, VT, LV, vs, 1.f);
-  __syncthreads();
-  if (tid < 32) warp_scan64<false>(bcs);
-  __syncthreads();
-  const float btot = bcs[CS - 1];
-  if (tid < CS) gw[tid] = li[tid] + (btot - bcs[tid]);
-  __syncthreads();
-  if (tid < 32) {
-    float m = fmaxf(gw[tid], gw[tid + 32]);
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (tid == 0) s_mloc = m;
-  }
-  __syncthreads();
-  const float mloc = s_mloc;
-  if (tid < CS) gw[tid] = expf(gw[tid] - mloc);
-  __syncthreads();
-
-  const size_t base = (size_t)bh * p.NS + j;
-  const int e = tid % VT, d0 = tid / VT;  // d0 in 0..3
-  float* kvo = p.kv + base * DH * DH + vt * VT;
-  for (int dt = 0; dt < DH; dt += 64) {   // 64 rows of k^T v per pass
-    float acc[16];
+// Writes a 64 x 64 accumulator tile to global memory at row stride ld.
+__device__ __forceinline__ void store_global(const Acc& acc, float* dst, long ld) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-    for (int s = 0; s < CS; ++s) {
-      const float vg = vs[s * LV + e] * gw[s];
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] += ks[s * LD + dt + d0 + 4 * i] * vg;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh;
+      *reinterpret_cast<float2*>(dst + Acc::row(r) * ld + Acc::col(j, r)) =
+          make_float2(acc.c[j][r], acc.c[j][r + 1]);
     }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) kvo[(size_t)(dt + d0 + 4 * i) * DH + e] = acc[i];
-  }
-  if (vt == 0) {
-    for (int d = tid; d < DH; d += NT) {
-      float s_ = 0.f;
-      for (int s = 0; s < CS; ++s) s_ += ks[s * LD + d] * gw[s];
-      p.ksum[base * DH + d] = s_;
-    }
-    if (tid == 0) {
-      p.btot[base] = btot;
-      p.mloc[base] = mloc;
-    }
-  }
 }
 
-// 2. Sequential scan over chunks, in place: kv[j] and ksum[j] become the
-// state carried into chunk j.
-__global__ void __launch_bounds__(NT) mlstm_state_scan(Params p) {
-  const int bh = blockIdx.x, tid = threadIdx.x, DH = p.DH;
-  const size_t idx = (size_t)blockIdx.y * NT + tid;  // entry of C
-  const bool own_n = idx < (size_t)DH;
-  const bool own_m = idx == 0;
-  const size_t row = (size_t)bh * p.NS, DD = (size_t)DH * DH;
-  float c = 0.f, nn = 0.f, m = 0.f;
-  float bt = p.btot[row], ml = p.mloc[row], kvv = p.kv[row * DD + idx];
-  float ks = own_n ? p.ksum[row * DH + idx] : 0.f;
-  for (int j = 0; j < p.NS; ++j) {
-    const size_t base = row + j;
-    float nbt = 0.f, nml = 0.f, nkv = 0.f, nks = 0.f;
-    if (j + 1 < p.NS) {  // prefetch the next chunk's summary
-      nbt = p.btot[base + 1];
-      nml = p.mloc[base + 1];
-      nkv = p.kv[(base + 1) * DD + idx];
-      if (own_n) nks = p.ksum[(base + 1) * DH + idx];
-    }
-    p.kv[base * DD + idx] = c;
-    if (own_n) p.ksum[base * DH + idx] = nn;
-    if (own_m) p.mprev[base] = m;
-    const float mn = fmaxf(bt + m, ml);
-    const float dold = expf(bt + m - mn), dnew = expf(ml - mn);
-    c = c * dold + kvv * dnew;
-    nn = nn * dold + ks * dnew;
-    m = mn;
-    bt = nbt;
-    ml = nml;
-    kvv = nkv;
-    ks = nks;
-  }
-}
-
-// 3. Per-chunk outputs h = (intra + inter) / normalizer for one value tile.
-__global__ void __launch_bounds__(NT) mlstm_chunk_output(Params p) {
-  extern __shared__ float sm[];
-  const int DH = p.DH, LD = DH + 1;
-  float* qs = sm;                // CS x LD, q / sqrt(DH)
-  float* ks = qs + CS * LD;      // CS x LD; then the carried-in C tile, DH x VT
-  float* vs = ks + CS * LD;      // CS x LV, value tile
-  float* E = vs + CS * LV;       // CS x LV, decayed q k^T (row t, col s)
-  float* nv = E + CS * LV;       // DH carried-in n
-  float* bcs = nv + DH;          // CS cumsum of log f
+// One cluster of ND CTAs per row (batch * head), CTA rank r = value tile r.
+template <int ND>
+__global__ void __launch_bounds__(NT * groups(ND), 3 - buffers(ND)) mlstm_walk(Params p) {
+  constexpr int DH = ND * VT, G = groups(ND), BUF = buffers(ND);
+  extern __shared__ __align__(16) float sm[];
+  float* qb = sm;                // [BUF] q slices, unscaled
+  float* kb = qb + BUF * TF;     // [BUF] k slices
+  float* vb = kb + BUF * TF;     // [BUF] value tile, by chunk parity
+  float* Cst = vb + BUF * TF;    // C[c, r] staged for q_c C
+  float* E = Cst + (G - 1) * TF; // E (row t, col s); with one group the staging tile
+  float* X = E + TF;             // [2] q_r k_r^T, with q_r n_r in column 64, by chunk parity
+  float* graw = X + 2 * TF;      // [BUF][2][CS] gate preacts (input, forget), by chunk parity
+  float* bcs = graw + BUF * 2 * CS;  // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
   float* cm = li + CS;           // CS running max of li - b
   float* stab = cm + CS;         // CS stabilizer
   float* av = stab + CS;         // CS inter-chunk scale
   float* den = av + CS;          // CS normalizer
-  const int j = blockIdx.x, bh = blockIdx.y, vt = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
-  const size_t base = (size_t)bh * p.NS + j;
+  float* gwd = den + CS;         // CS weights of the chunk's steps in the state update
+  float* qnv = gwd + CS;         // CS q n (one CTA a row)
+  float* npart = qnv + CS;       // [4][VT] the n update's partial sums
+  float* nv = npart + 4 * VT;    // VT carried n, slice r
+  float* scal = nv + VT;         // [0] decay of the carried state, [1] the new m
+  const int tid = threadIdx.x, lt = tile::thread_in_group(), lane = tid & 31;
+  const int gwarp = lt >> 5;     // warp within the group
+  const bool rec = tid < NT;               // group 0: the recurrence, E v, h
+  const bool own = G == 1 || tid >= NT;    // the chunk's own part
+  const int rank = ND > 1 ? (int)tile::cluster_rank() : 0;
+  const int bh = blockIdx.y, S = p.S, NS = p.NS, NST = NS * ND;
+  const float QS = p.qscale;
+  const float* rowq = p.q + (long)bh * S * DH;
+  const float* rowk = p.k + (long)bh * S * DH;
+  const float* rowv = p.v + (long)bh * S * DH + rank * VT;
 
-  load_gates(p, bh, s0, bcs, li);
-  load_rows(p.q, p, bh, s0, 0, DH, LD, qs, p.qscale);
-  load_rows(p.k, p, bh, s0, 0, DH, LD, ks, 1.f);
-  load_rows(p.v, p, bh, s0, vt * VT, VT, LV, vs, 1.f);
-  for (int d = tid; d < DH; d += NT) nv[d] = p.ksum[base * DH + d];
-  const float m_prev = p.mprev[base];
-  __syncthreads();
-  if (tid < 32) warp_scan64<false>(bcs);
-  __syncthreads();
-  if (tid < CS) cm[tid] = li[tid] - bcs[tid];
-  __syncthreads();
-  if (tid < 32) warp_scan64<true>(cm);
-  __syncthreads();
-  if (tid < CS) {
-    // row max of log D: b_t + max_{s<=t}(li_s - b_s); the stabilizer also
-    // covers the carried-in term m_prev + b_t
-    const float inter_log = m_prev + bcs[tid];
-    const float st = fmaxf(bcs[tid] + cm[tid], inter_log);
-    stab[tid] = st;
-    av[tid] = expf(inter_log - st);
-  }
-  __syncthreads();
-
-  {
-    const int s = tid % CS, t0 = tid / CS;
-    const float ws = li[s] - bcs[s];
-    for (int i = 0; i < CS / 4; ++i) {
-      const int t = t0 + 4 * i;
-      float val = 0.f;
-      if (s <= t) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot += qs[t * LD + d] * ks[s * LD + d];
-        val = dot * expf(ws + bcs[t] - stab[t]);
+  // stage st = (chunk st / ND, slice st % ND): q and k slices, and with the
+  // first slice of a chunk its value tile and gate preacts; issued by group 0
+  auto issue = [&](int st) {
+    const int j = st / ND, c = st % ND, buf = BUF == 2 ? st & 1 : 0, s0 = j * CS;
+    const int cb = BUF == 2 ? j & 1 : 0;
+    const int nrows = S - s0 < CS ? S - s0 : CS;
+    const long off = (long)s0 * DH + c * VT;
+    tile::load_async<CS, VT>(qb + buf * TF, LDS, rowq + off, DH, nrows, VT);
+    tile::load_async<CS, VT>(kb + buf * TF, LDS, rowk + off, DH, nrows, VT);
+    if (c == 0) {
+      tile::load_async<CS, VT>(vb + cb * TF, LDS, rowv + (long)s0 * DH, DH, nrows, VT);
+      if (tid < 2 * CS) {
+        const int s = tid % CS;
+        const float* src = tid < CS ? p.ig : p.fg;
+        const long at = (long)bh * S + s0 + s;
+        tile::cp_async4(graw + cb * 2 * CS + tid, s0 + s < S ? src + at : src,
+                        s0 + s < S ? 4 : 0);
       }
-      E[t * LV + s] = val;
     }
-  }
-  __syncthreads();
+    tile::cp_async_commit();
+  };
 
-  // k is done: its tile now holds the carried-in C[:, vt tile]
-  float* Cs = ks;
-  {
-    const float* csrc = p.kv + base * DH * DH + vt * VT;
-    for (int i = tid; i < DH * VT; i += NT) Cs[i] = csrc[(size_t)(i / VT) * DH + i % VT];
-  }
-  for (int t = warp; t < CS; t += NW) {
-    float es = E[t * LV + lane] + E[t * LV + lane + 32], qn = 0.f;
-    for (int d = lane; d < DH; d += 32) qn += qs[t * LD + d] * nv[d];
-    es = warp_sum(es);
-    qn = warp_sum(qn);
-    if (lane == 0) den[t] = fmaxf(fabsf(es + av[t] * qn), expf(-stab[t])) + p.eps;
-  }
-  __syncthreads();
+  Acc C[ND];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) C[c].zero();
+  if (tid < VT) nv[tid] = 0.f;
+  float m_prev = 0.f;
+  if (BUF == 2 && rec) issue(0);
 
-  {
-    const int e = tid % VT, t0 = tid / VT;
-    for (int i = 0; i < CS / 4; ++i) {
-      const int t = t0 + 4 * i, s_glob = s0 + t;
-      float intra = 0.f, inter = 0.f;
-      for (int s = 0; s <= t; ++s) intra += E[t * LV + s] * vs[s * LV + e];
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) inter += qs[t * LD + d] * Cs[d * VT + e];
-      if (s_glob < p.S)
-        p.h[((size_t)bh * p.S + s_glob) * DH + vt * VT + e] = (intra + av[t] * inter) / den[t];
+  for (int j = 0; j < NS; ++j) {
+    const int s0 = j * CS;
+    const long base = (long)bh * NS + j;
+    const int cb = BUF == 2 ? j & 1 : 0;
+    const float* vs = vb + cb * TF;
+    float* Xj = X + (j & 1) * TF;
+    Acc inter;
+    inter.zero();
+    float dold = 0.f;
+#pragma unroll
+    for (int c = 0; c < ND; ++c) {
+      const int st = j * ND + c, buf = BUF == 2 ? st & 1 : 0;
+      __syncthreads();  // the previous stage's buffers, Cst, E and nv are free
+      if (rec) {
+        if (BUF == 1) issue(st);
+        else if (st + 1 < NST) issue(st + 1);
+        else tile::cp_async_commit();  // an empty group keeps the count
+        tile::store(C[c], Cst, LDS);   // C[c, r] as carried into chunk j
+        if (p.kv != nullptr) store_global(C[c], p.kv + (base * DH + c * VT) * DH + rank * VT, DH);
+        if (BUF == 2) tile::cp_async_wait_one();
+        else tile::cp_async_wait_all();
+      }
+      __syncthreads();
+      if (c == 0) {
+        // gate math of chunk j, by warp 0 (lane l owns positions 2l, 2l+1)
+        if (tid < 32) {
+          const float* gi = graw + cb * 2 * CS;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int s = 2 * lane + u;
+            const bool ok = s0 + s < S;
+            bcs[s] = ok ? logsigmoid(gi[CS + s]) : 0.f;
+            li[s] = ok ? (p.igate_exp ? gi[s] : logsigmoid(gi[s])) : NEG;
+          }
+          __syncwarp();
+          warp_scan64<false>(bcs);
+          __syncwarp();
+#pragma unroll
+          for (int u = 0; u < 2; ++u) cm[2 * lane + u] = li[2 * lane + u] - bcs[2 * lane + u];
+          __syncwarp();
+          warp_scan64<true>(cm);
+          __syncwarp();
+          const float btot = bcs[CS - 1];
+          float glog[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            // row max of log D: b_t + max_{s<=t}(li_s - b_s); the stabilizer
+            // also covers the carried-in term m_prev + b_t
+            const int s = 2 * lane + u;
+            const float inter_log = m_prev + bcs[s];
+            const float sv = fmaxf(bcs[s] + cm[s], inter_log);
+            stab[s] = sv;
+            av[s] = expf(inter_log - sv);
+            glog[u] = li[s] + (btot - bcs[s]);
+          }
+          const float mloc = warp_max(fmaxf(glog[0], glog[1]));
+          const float m_new = fmaxf(btot + m_prev, mloc);
+          const float dnew = expf(mloc - m_new);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) gwd[2 * lane + u] = expf(glog[u] - mloc) * dnew;
+          if (lane == 0) {
+            scal[0] = expf(btot + m_prev - m_new);
+            scal[1] = m_new;
+            if (p.kv != nullptr && rank == 0) {
+              p.btot[base] = btot;
+              p.mloc[base] = mloc;
+              p.mprev[base] = m_prev;
+            }
+          }
+        }
+        if (p.kv != nullptr && tid < VT) p.ksum[base * DH + rank * VT + tid] = nv[tid];
+        __syncthreads();
+      }
+      dold = scal[0];
+      const float* qs = qb + buf * TF;
+      const float* ks = kb + buf * TF;
+      if (rec) {
+        // q_c C[c, r] on the carried C, and C[c, r] = decay C[c, r] +
+        // k_c^T (g v_r) (gwd scales column s of k_c^T), in one k loop
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) C[c].c[jj][rr] *= dold;
+        tile::mma_pair<false, false, true, false>(inter, qs, Cst, C[c], ks, vs, LDS, VT, gwd);
+      }
+      if (own && c == rank) {
+        Acc s;
+        s.zero();
+        tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, VT);  // q_r k_r^T
+        {  // q_r n_r on the carried n: four threads a row
+          const int t = lt >> 2, part = 16 * (lt & 3);
+          float a = 0.f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) a += qs[t * LDS + part + i] * nv[part + i];
+          a = tile::quad_sum(a);
+          if ((lt & 3) == 0) (ND > 1 ? Xj + t * LDS + VT : qnv + t)[0] = a;
+        }
+        {  // the n update's partial sums over four quarters of the chunk,
+           // summed into nv after the chunk's barrier
+          const int d = lt & (VT - 1), q0 = (lt >> 6) * (CS / 4);
+          float a = 0.f;
+#pragma unroll
+          for (int s_ = 0; s_ < CS / 4; ++s_) a += gwd[q0 + s_] * ks[(q0 + s_) * LDS + d];
+          npart[lt] = a;
+        }
+        if (ND > 1) {
+          tile::store(s, Xj, LDS);
+        } else {  // one CTA a row: E and the normalizer now, beside the recurrence
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int t = Acc::row(r), cc = Acc::col(jj, r);
+              E[t * LDS + cc] =
+                  cc <= t ? s.c[jj][r] * QS * expf(li[cc] - bcs[cc] + bcs[t] - stab[t]) : 0.f;
+            }
+          if (G == 2) group1_sync();
+          else __syncthreads();
+          const int t = lt >> 2, part = 16 * (lt & 3);
+          float es = 0.f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) es += E[t * LDS + part + i];
+          es = tile::quad_sum(es);
+          if ((lt & 3) == 0)
+            den[t] = fmaxf(fabsf(es + av[t] * QS * qnv[t]), expf(-stab[t])) + p.eps;
+        }
+      }
     }
+
+    // with several CTAs a row: their q k^T and q n shares, summed in rank order
+    if (ND > 1) tile::cluster_sync();
+    else __syncthreads();
+    if (own && lt < VT)  // every thread read nv before the barrier
+      nv[lt] = dold * nv[lt] + ((npart[lt] + npart[VT + lt]) +
+                                (npart[2 * VT + lt] + npart[3 * VT + lt]));
+    if (ND > 1 && own) {
+      const float* xr[ND];
+#pragma unroll
+      for (int r = 0; r < ND; ++r) xr[r] = tile::cluster_peer(Xj, r);
+#pragma unroll
+      for (int u = 0; u < CS * CS / 4 / NT; ++u) {
+        const int i = lt + u * NT, t = i >> 4, s4 = 4 * (i & 15);
+        float4 xs[ND];  // every share's load in flight at once
+#pragma unroll
+        for (int r = 0; r < ND; ++r) xs[r] = *reinterpret_cast<const float4*>(xr[r] + t * LDS + s4);
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < ND; ++r) {
+          a.x += xs[r].x;
+          a.y += xs[r].y;
+          a.z += xs[r].z;
+          a.w += xs[r].w;
+        }
+        const float row = bcs[t] - stab[t];
+        const float av4[4] = {a.x, a.y, a.z, a.w};
+        float es = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int s = s4 + w;
+          const float e = s <= t ? av4[w] * QS * expf(li[s] - bcs[s] + row) : 0.f;
+          E[t * LDS + s] = e;
+          es += e;
+        }
+        // the row's sum over the 16 lanes that hold it, then its normalizer
+        for (int o = 1; o < 16; o <<= 1) es += __shfl_xor_sync(0xffffffffu, es, o);
+        if ((lane & 15) == 0) {
+          float qn = 0.f;
+#pragma unroll
+          for (int r = 0; r < ND; ++r) qn += xr[r][t * LDS + VT];
+          den[t] = fmaxf(fabsf(es + av[t] * QS * qn), expf(-stab[t])) + p.eps;
+        }
+      }
+    }
+    if (ND > 1) __syncthreads();
+    if (rec) {
+      Acc hv;
+      hv.zero();
+      tile::mma<false, false, tile::K_LE_M>(hv, E, LDS, vs, LDS, CS);
+      float* hout = p.h + ((long)bh * S + s0) * DH + rank * VT;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 2 * hh, t = Acc::row(r);
+          if (s0 + t < S) {
+            const float inv = 1.f / den[t], sc = av[t] * QS;
+            *reinterpret_cast<float2*>(hout + (long)t * DH + Acc::col(jj, r)) =
+                make_float2((hv.c[jj][r] + sc * inter.c[jj][r]) * inv,
+                            (hv.c[jj][r + 1] + sc * inter.c[jj][r + 1]) * inv);
+          }
+        }
+    }
+    m_prev = scal[1];
   }
+  if (ND > 1) tile::cluster_sync();  // no CTA leaves while a peer may read its X
 }
 
-size_t summary_smem(int DH) { return sizeof(float) * (CS * (DH + 1) + CS * LV + 3 * CS); }
-
-size_t output_smem(int DH) {
-  return sizeof(float) * (2 * CS * (DH + 1) + 2 * CS * LV + DH + 6 * CS);
+template <int ND>
+cudaError_t launch(const Params& p, int rows, cudaStream_t st) {
+  constexpr size_t SMEM = smem_bytes(ND);
+  static int configured = -1;  // device on which the shared-memory limit is raised
+  int dev;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev != configured) {
+    if ((err = cudaFuncSetAttribute(mlstm_walk<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)SMEM)) != cudaSuccess)
+      return err;
+    configured = dev;
+  }
+  return tile::launch_cluster(mlstm_walk<ND>, dim3(ND, rows), dim3(NT * groups(ND)), SMEM, st,
+                              ND, p);
 }
 
 }  // namespace
@@ -334,9 +446,9 @@ void mlstm_fwd_workspace_layout(int rows, int S, int DH, long* off) {
 }
 
 // q/k/v (rows, S, DH), gates (rows, S) -> h (rows, S, DH), rows = B * NH, all
-// contiguous fp32; ws as mlstm_fwd_workspace_layout says. Returns 0 on
-// success, else the CUDA error code of the first failed step
-// (cudaErrorInvalidValue for an unsupported shape).
+// contiguous fp32. ws is null (no states leave the chip) or as
+// mlstm_fwd_workspace_layout says. Returns 0 on success, else the CUDA error
+// code of the launch (cudaErrorInvalidValue for an unsupported shape).
 int mlstm_fwd_f32(const float* q, const float* k, const float* v, const float* ig,
                   const float* fg, float* h, float* ws, int rows, int S, int DH, int igate_exp,
                   float eps, void* stream) {
@@ -345,39 +457,23 @@ int mlstm_fwd_f32(const float* q, const float* k, const float* v, const float* i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   p.q = q; p.k = k; p.v = v; p.ig = ig; p.fg = fg; p.h = h;
-  p.S = S; p.DH = DH; p.NS = (S + CS - 1) / CS;
+  p.S = S; p.NS = (S + CS - 1) / CS;
   p.igate_exp = igate_exp; p.qscale = 1.f / sqrtf((float)DH); p.eps = eps;
-  long off[6];
-  mlstm_fwd_workspace_layout(rows, S, DH, off);
-  p.kv = ws + off[0];
-  p.ksum = ws + off[1];
-  p.btot = ws + off[2];
-  p.mloc = ws + off[3];
-  p.mprev = ws + off[4];
-
-  cudaError_t err;
-  const size_t sum_smem = summary_smem(DH), out_smem = output_smem(DH);
-  // raise the kernels' shared-memory limit once per device, to the widest head dim's need
-  static int configured = -1;
-  int dev;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if (dev != configured) {
-    if ((err = cudaFuncSetAttribute(mlstm_chunk_summary,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)summary_smem(MAX_DH))) != cudaSuccess) return err;
-    if ((err = cudaFuncSetAttribute(mlstm_chunk_output,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)output_smem(MAX_DH))) != cudaSuccess) return err;
-    configured = dev;
+  p.kv = p.ksum = p.btot = p.mloc = p.mprev = nullptr;
+  if (ws != nullptr) {
+    long off[6];
+    mlstm_fwd_workspace_layout(rows, S, DH, off);
+    p.kv = ws + off[0];
+    p.ksum = ws + off[1];
+    p.btot = ws + off[2];
+    p.mloc = ws + off[3];
+    p.mprev = ws + off[4];
   }
-  const dim3 chunks(p.NS, rows, DH / VT);
-  mlstm_chunk_summary<<<chunks, NT, sum_smem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_chunk_output<<<chunks, NT, out_smem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return 0;
+  switch (DH / VT) {
+    case 1: return static_cast<int>(launch<1>(p, rows, st));
+    case 2: return static_cast<int>(launch<2>(p, rows, st));
+    default: return static_cast<int>(launch<MAX_ND>(p, rows, st));
+  }
 }
 
 }  // extern "C"

@@ -14,154 +14,270 @@
 // read before the first step and written after the last.
 //
 // What bounds it on this card: the work is 2 * 4 * DH^2 operations per
-// 20 * DH bytes of wx and y, i.e. 0.4 * DH op/B (51 at DH 128), above the
-// fp32 ridge of 20 op/B at DH >= 64 and at it for DH 32, so the least time is
-// set by operations. In practice the chain is bound by latency: S steps in
-// order, each a product of depth DH and two block-wide barriers.
+// 20 * DH bytes of wx and y, i.e. 0.4 * DH op/B, so the least time is set by
+// operations (bytes at DH 32). In practice the chain is bound by latency: S
+// steps in order, each a product of depth DH, the gate math, and the
+// exchange of y between the threads that hold R.
 //
 // What the design does about it: the TPU kernel folded the heads into one
 // block-diagonal product because one core runs grid steps serially. Here
-// heads and batch rows are independent blocks: one CTA per (batch row,
-// head), so B * NH chains run side by side and no zero block is multiplied.
-// A CTA has 4 * DH threads, one per output column (gate g, channel e). Each
-// thread keeps its column of R on chip for the whole sequence: the first
-// min(DH, 64) entries in registers, the rest (DH 128: 64 entries, 128 KB
-// per CTA) in shared memory, because R at DH 128 is 256 KB, more than either
-// the register file's share or the shared memory of one SM alone. Per
-// step a thread adds its dot of y (broadcast from shared memory) with its
-// column to the prefetched wx entry, the four gates of a channel meet in
-// shared memory, and DH threads do the pointwise update with c, n, m in
-// registers.
+// every (batch row, head) chain runs side by side; one thread per gate
+// column (gate g, channel e) holds R[:, g, e] in registers for the whole
+// sequence, and wx is staged into shared memory RING steps ahead of its step
+// by cp.async, each thread copying the one word a step it alone reads (so the
+// ring needs no barrier). Each thread applies its own gate's nonlinearity
+// (logsigmoid of f, tanh of z, sigmoid of o) before the gates meet, so the
+// transcendentals run on four sets of threads at once and the chain after
+// the exchange is two exps, two FMAs and one division. By head dim:
+//   DH 32: one CTA of four warps per chain, warp g = gate g, lane e =
+//     channel e. Every warp runs the pointwise update of all 32 channels and
+//     keeps its own copy of y in shared memory, which the next step's y R
+//     reads as broadcasts: one block barrier a step, the rest warp-local.
+//   DH 64: one CTA of 256 threads per chain; y goes through shared memory
+//     (two block barriers a step).
+//   DH 128: R is 256 KB, as much as one SM's register file, so a cluster of
+//     two CTAs holds it (two gates each, 128 registers a thread). Each thread
+//     writes its gate value into both CTAs' shared memory with st.async,
+//     which counts the bytes down on that CTA's mbarrier; a CTA's pointwise
+//     threads wait for the barrier's phase alone (no cluster barrier a
+//     step), and both CTAs run the update, so both hold the new y.
+// The per-step times of these designs and of the ones they replaced are in
+// PERF.md.
 
 #include <cuda_runtime.h>
-
 #include <math.h>
+#include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
 constexpr float NEG_INIT = -1e30f;
+constexpr int RING = 16;  // steps of wx staged ahead
 
+// The gate math runs on the fast exp, log and division intrinsics (tanh
+// stays accurate): at head dim 32 the pointwise chain paces each step, and
+// these took it from 0.40 to 0.28 us a step while the scan moved from 4e-7
+// to 7e-6 of the plain one's max (PERF.md), far inside the 1e-3 gate.
 __device__ __forceinline__ float logsigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
+  return fminf(x, 0.f) - __logf(1.f + __expf(-fabsf(x)));
 }
 
-template <int DH>
-struct Cfg {
-  static constexpr int NT = 4 * DH;                 // threads: one per (gate, channel)
-  static constexpr int DREG = DH < 64 ? DH : 64;    // R entries per thread in registers
-  static constexpr int DSM = DH - DREG;             // R entries per thread in shared memory
-  static constexpr size_t kSmem = sizeof(float) * (size_t)DSM * NT;
+// Gate g's nonlinearity, applied where its preact is made: i as it is, f
+// to logsigmoid(f), z to tanh(z), o to sigmoid(o).
+__device__ __forceinline__ float gate_act(int g, float raw) {
+  if (g == 1) return logsigmoid(raw);
+  if (g == 2) return tanhf(raw);
+  if (g == 3) return __fdividef(1.f, 1.f + __expf(-raw));
+  return raw;
+}
+
+// The pointwise update of one channel from its four gate values; returns
+// the new y.
+__device__ __forceinline__ float cell(float i, float lsf, float tz, float so, float& c, float& n,
+                                      float& m) {
+  const float logfplusm = m + lsf;
+  const float mn = fmaxf(i, logfplusm);
+  const float ig = __expf(i - mn), fg = __expf(logfplusm - mn);
+  c = fg * c + ig * tz;
+  n = fg * n + ig;
+  m = mn;
+  return __fdividef(c * so, n);
+}
+
+struct Args {
+  const float* wx;        // (B, S, NH, 4, DH)
+  const float* r;         // (NH, DH, 4, DH)
+  const float* bias;      // (NH, 4, DH)
+  const float* state_in;  // (4, B, NH, DH) or null
+  float* y;               // (B, S, NH, DH)
+  float* state_out;       // (4, B, NH, DH) or null
+  int B, S, NH;
 };
 
-// CARRY: the call reads state_in and/or writes state_out (either may still
-// be null); without it the states start from their initial values and stay
-// on chip, and the kernel touches neither pointer.
-template <int DH, bool CARRY>
-__global__ void __launch_bounds__(Cfg<DH>::NT)
-slstm_fwd_kernel(const float* __restrict__ wx, const float* __restrict__ r,
-                 const float* __restrict__ bias, const float* __restrict__ state_in,
-                 float* __restrict__ y, float* __restrict__ state_out, int S, int NH) {
-  constexpr int NT = Cfg<DH>::NT, DREG = Cfg<DH>::DREG, DSM = Cfg<DH>::DSM;
-  extern __shared__ float rs[];                 // DSM x NT: rs[d][col] = R[DREG + d][col]
-  __shared__ __align__(16) float ys[DH];        // y of the previous step
-  __shared__ float raw[NT];                     // gate preacts of this step, gate-major
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;  // tid = g * DH + e
+// ---- DH 32: a warp per gate -------------------------------------------------
 
-  // r[h] is (DH, 4, DH): entry (d, g, e) at d * 4DH + g * DH + e = d * NT + tid
-  const float* rh = r + (size_t)h * DH * NT;
-  float rr[DREG];
+template <bool CARRY>
+__global__ void __launch_bounds__(128) slstm_gate_warps(Args a) {
+  constexpr int DH = 32;
+  __shared__ __align__(16) float ys[4][DH];  // y of the previous step, one copy per warp
+  __shared__ float xb[2][4][DH];             // the step's gate values, by step parity
+  __shared__ float ring[RING][4 * DH];
+  const int tid = threadIdx.x, e = tid & 31, g = tid >> 5;  // tid = g * DH + e
+  const int b = blockIdx.x, h = blockIdx.y, S = a.S, NH = a.NH;
+
+  float rr[DH];  // R[h][d][g][e]
+  const float* rh = a.r + (size_t)h * DH * 4 * DH + tid;
 #pragma unroll
-  for (int d = 0; d < DREG; ++d) rr[d] = rh[(size_t)d * NT + tid];
-  for (int d = 0; d < DSM; ++d) rs[d * NT + tid] = rh[(size_t)(DREG + d) * NT + tid];
-  const float bcol = bias[(size_t)h * NT + tid];
-  float c = 0.f, n = 0.f, m = NEG_INIT;          // state of channel tid (tid < DH)
-  // packed states: plane p of (y, c, n, m) at p * plane + sidx
-  const size_t plane = (size_t)gridDim.x * NH * DH, sidx = ((size_t)b * NH + h) * DH + tid;
+  for (int d = 0; d < DH; ++d) rr[d] = rh[(size_t)d * 4 * DH];
+  const float bcol = a.bias[(size_t)h * 4 * DH + tid];
+  const size_t plane = (size_t)a.B * NH * DH, sidx = ((size_t)b * NH + h) * DH + e;
+  float yv = 0.f, c = 0.f, n = 0.f, m = NEG_INIT;  // channel e, in every warp
+  if (CARRY && a.state_in) {
+    yv = a.state_in[sidx];
+    c = a.state_in[plane + sidx];
+    n = a.state_in[2 * plane + sidx];
+    m = a.state_in[3 * plane + sidx];
+  }
+  ys[g][e] = yv;
+  __syncwarp();
+
+  const size_t step = (size_t)NH * 4 * DH;
+  const float* src = a.wx + ((size_t)b * S * NH + h) * 4 * DH + tid;
+  float* yp = a.y + ((size_t)b * S * NH + h) * DH + e;
+  auto issue = [&](int t) {
+    if (t < S) tile::cp_async4(&ring[t % RING][tid], src + t * step, 4);
+    tile::cp_async_commit();
+  };
+  for (int t = 0; t < RING - 1; ++t) issue(t);
+
+  for (int t = 0; t < S; ++t) {
+    issue(t + RING - 1);
+    tile::cp_async_wait<RING - 1>();
+    float a0 = ring[t % RING][tid] + bcol, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      const float4 y4 = *reinterpret_cast<const float4*>(&ys[g][d]);
+      a0 += y4.x * rr[d];
+      a1 += y4.y * rr[d + 1];
+      a2 += y4.z * rr[d + 2];
+      a3 += y4.w * rr[d + 3];
+    }
+    const int par = t & 1;
+    xb[par][g][e] = gate_act(g, (a0 + a1) + (a2 + a3));
+    __syncthreads();  // the four gates of every channel are in
+    yv = cell(xb[par][0][e], xb[par][1][e], xb[par][2][e], xb[par][3][e], c, n, m);
+    __syncwarp();     // every lane of this warp has read its ys copy
+    ys[g][e] = yv;
+    __syncwarp();
+    if (g == 0) yp[(size_t)t * NH * DH] = yv;
+  }
+  if (CARRY && a.state_out && g == 0) {
+    a.state_out[sidx] = yv;
+    a.state_out[plane + sidx] = c;
+    a.state_out[2 * plane + sidx] = n;
+    a.state_out[3 * plane + sidx] = m;
+  }
+}
+
+// ---- DH 64, 128: a thread per gate column, NC CTAs per chain -------------------
+
+template <int DH, int NC, bool CARRY>
+__global__ void __launch_bounds__(4 * DH / NC, 1) slstm_columns(Args a) {
+  constexpr int NT = 4 * DH / NC;  // this CTA's columns: gates NT / DH * rank ..
+  __shared__ __align__(16) float ys[DH];     // y of the previous step
+  __shared__ float xb[2][4 * DH];            // the step's gate values, by step parity
+  __shared__ float ring[RING][NT];
+  __shared__ __align__(8) uint64_t full[2];  // NC > 1: xb[p] is complete, by step parity
+  const int rank = NC > 1 ? (int)tile::cluster_rank() : 0;
+  const int b = blockIdx.y, h = blockIdx.z, tid = threadIdx.x, col = rank * NT + tid;
+  const int g = col / DH, S = a.S, NH = a.NH;
+  constexpr unsigned XBYTES = sizeof(float) * 4 * DH;  // one step's gate values, from all CTAs
+
+  // r[h] is (DH, 4, DH): entry (d, g, e) at d * 4DH + g * DH + e = d * 4DH + col
+  float rr[DH];
+  const float* rh = a.r + (size_t)h * DH * 4 * DH + col;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) rr[d] = rh[(size_t)d * 4 * DH];
+  const float bcol = a.bias[(size_t)h * 4 * DH + col];
+  const size_t plane = (size_t)a.B * NH * DH, sidx = ((size_t)b * NH + h) * DH + tid;
+  float c = 0.f, n = 0.f, m = NEG_INIT;  // state of channel tid (tid < DH)
   if (tid < DH) {
-    ys[tid] = CARRY && state_in ? state_in[sidx] : 0.f;
-    if (CARRY && state_in) {
-      c = state_in[plane + sidx];
-      n = state_in[2 * plane + sidx];
-      m = state_in[3 * plane + sidx];
+    ys[tid] = CARRY && a.state_in ? a.state_in[sidx] : 0.f;
+    if (CARRY && a.state_in) {
+      c = a.state_in[plane + sidx];
+      n = a.state_in[2 * plane + sidx];
+      m = a.state_in[3 * plane + sidx];
     }
   }
 
-  const size_t step = (size_t)NH * NT;           // wx floats per (batch row, step)
-  const float* wxp = wx + ((size_t)b * S * NH + h) * NT + tid;
-  float* yp = y + ((size_t)b * S * NH + h) * DH + tid;
-  float wcur = wxp[0];
-  __syncthreads();
+  const size_t step = (size_t)NH * 4 * DH;
+  const float* src = a.wx + ((size_t)b * S * NH + h) * 4 * DH + col;
+  float* yp = a.y + ((size_t)b * S * NH + h) * DH + tid;
+  auto issue = [&](int t) {
+    if (t < S) tile::cp_async4(&ring[t % RING][tid], src + t * step, 4);
+    tile::cp_async_commit();
+  };
+  for (int t = 0; t < RING - 1; ++t) issue(t);
+  uint32_t xdst[NC], bdst[NC][2];  // this thread's xb[0] word and the barriers, in every CTA
+  if (NC > 1) {
+#pragma unroll
+    for (int r = 0; r < NC; ++r) {
+      xdst[r] = tile::cluster_u32(&xb[0][col], r);
+      bdst[r][0] = tile::cluster_u32(&full[0], r);
+      bdst[r][1] = tile::cluster_u32(&full[1], r);
+    }
+    if (tid == 0) {
+      tile::mbar_init(&full[0], 1);
+      tile::mbar_init(&full[1], 1);
+      tile::mbar_init_fence();
+      tile::mbar_expect_tx(&full[0], XBYTES);
+      tile::mbar_expect_tx(&full[1], XBYTES);
+    }
+    tile::cluster_sync();  // the peers' barriers are set; ys is set
+  } else {
+    __syncthreads();
+  }
 
   for (int t = 0; t < S; ++t) {
-    const float wnext = t + 1 < S ? wxp[(size_t)(t + 1) * step] : 0.f;  // prefetch
-    float a0 = wcur + bcol, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    issue(t + RING - 1);
+    tile::cp_async_wait<RING - 1>();
+    float a0 = ring[t % RING][tid] + bcol, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
-    for (int d = 0; d < DREG; d += 4) {
+    for (int d = 0; d < DH; d += 4) {
       const float4 yv = *reinterpret_cast<const float4*>(ys + d);
       a0 += yv.x * rr[d];
       a1 += yv.y * rr[d + 1];
       a2 += yv.z * rr[d + 2];
       a3 += yv.w * rr[d + 3];
     }
-#pragma unroll 4
-    for (int d = 0; d < DSM; d += 4) {
-      const float4 yv = *reinterpret_cast<const float4*>(ys + DREG + d);
-      a0 += yv.x * rs[d * NT + tid];
-      a1 += yv.y * rs[(d + 1) * NT + tid];
-      a2 += yv.z * rs[(d + 2) * NT + tid];
-      a3 += yv.w * rs[(d + 3) * NT + tid];
+    const float v = gate_act(g, (a0 + a1) + (a2 + a3));
+    const int par = t & 1;
+    if (NC > 1) {
+#pragma unroll
+      for (int r = 0; r < NC; ++r)
+        tile::st_async(xdst[r] + par * XBYTES, v, bdst[r][par]);
+    } else {
+      xb[par][col] = v;
+      __syncthreads();
     }
-    raw[tid] = (a0 + a1) + (a2 + a3);
-    __syncthreads();  // every thread has read ys; raw is complete
     if (tid < DH) {
-      const float iraw = raw[tid], fraw = raw[DH + tid], zraw = raw[2 * DH + tid],
-                  oraw = raw[3 * DH + tid];
-      const float logfplusm = m + logsigmoid(fraw);
-      const float mn = fmaxf(iraw, logfplusm);
-      const float ig = expf(iraw - mn), fg = expf(logfplusm - mn);
-      c = fg * c + ig * tanhf(zraw);
-      n = fg * n + ig;
-      m = mn;
-      const float yn = c / n / (1.f + expf(-oraw));
+      if (NC > 1) {
+        // every column of the step is in, so every local thread is past its
+        // read of ys; then re-arm this barrier for its next phase
+        tile::mbar_wait(&full[par], (t >> 1) & 1);
+        if (tid == 0) tile::mbar_expect_tx(&full[par], XBYTES);
+      }
+      const float* x = xb[par];
+      const float yn = cell(x[tid], x[DH + tid], x[2 * DH + tid], x[3 * DH + tid], c, n, m);
       ys[tid] = yn;
-      yp[(size_t)t * NH * DH] = yn;
+      if (rank == 0) yp[(size_t)t * NH * DH] = yn;
     }
-    wcur = wnext;
     __syncthreads();  // ys holds this step's y
   }
-  if (CARRY && state_out && tid < DH) {
-    state_out[sidx] = ys[tid];
-    state_out[plane + sidx] = c;
-    state_out[2 * plane + sidx] = n;
-    state_out[3 * plane + sidx] = m;
+  if (CARRY && a.state_out && rank == 0 && tid < DH) {
+    a.state_out[sidx] = ys[tid];
+    a.state_out[plane + sidx] = c;
+    a.state_out[2 * plane + sidx] = n;
+    a.state_out[3 * plane + sidx] = m;
   }
+  if (NC > 1) tile::cluster_sync();  // no CTA leaves while a peer's st.async may target it
 }
 
-template <int DH, bool CARRY>
-cudaError_t launch_variant(const float* wx, const float* r, const float* bias, const float* state_in,
-                   float* y, float* state_out, int B, int S, int NH, cudaStream_t st) {
-  static int configured = -1;  // device on which this variant's shared-memory limit is raised
-  int dev;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if (Cfg<DH>::kSmem > 0 && dev != configured) {
-    if ((err = cudaFuncSetAttribute(slstm_fwd_kernel<DH, CARRY>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)Cfg<DH>::kSmem)) != cudaSuccess)
-      return err;
-    configured = dev;
+template <bool CARRY>
+cudaError_t launch(const Args& a, int DH, cudaStream_t st) {
+  if (DH == 32) {
+    slstm_gate_warps<CARRY><<<dim3(a.B, a.NH), 128, 0, st>>>(a);
+    return cudaGetLastError();
   }
-  slstm_fwd_kernel<DH, CARRY><<<dim3(B, NH), Cfg<DH>::NT, Cfg<DH>::kSmem, st>>>(
-      wx, r, bias, state_in, y, state_out, S, NH);
-  return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t launch(const float* wx, const float* r, const float* bias, const float* state_in,
-                   float* y, float* state_out, int B, int S, int NH, cudaStream_t st) {
-  return state_in || state_out
-             ? launch_variant<DH, true>(wx, r, bias, state_in, y, state_out, B, S, NH, st)
-             : launch_variant<DH, false>(wx, r, bias, state_in, y, state_out, B, S, NH, st);
+  if (DH == 64) {
+    slstm_columns<64, 1, CARRY><<<dim3(1, a.B, a.NH), 256, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  if (DH == 128)
+    return tile::launch_cluster(slstm_columns<128, 2, CARRY>, dim3(2, a.B, a.NH), dim3(256), 0,
+                                st, 2, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -173,20 +289,19 @@ const char* slstm_error_string(int code) {
 }
 
 // wx (B, S, NH, 4, DH), r (NH, DH, 4, DH), bias (NH, 4, DH) -> y
-// (B, S, NH, DH), all contiguous fp32. state_in and state_out are the packed
-// (y, c, n, m), (4, B, NH, DH), or null: no state_in starts from zeros with
-// m = -1e30, no state_out writes no last state. Returns 0 on success, else
-// the CUDA error code (cudaErrorInvalidValue for an unsupported shape).
+// (B, S, NH, DH), all contiguous fp32, DH 32, 64 or 128. state_in and
+// state_out are the packed (y, c, n, m), (4, B, NH, DH), or null: no
+// state_in starts from zeros with m = -1e30, no state_out writes no last
+// state. Returns 0 on success, else the CUDA error code
+// (cudaErrorInvalidValue for an unsupported shape).
 int slstm_fwd_f32(const float* wx, const float* r, const float* bias, const float* state_in,
                   float* y, float* state_out, int B, int S, int NH, int DH, void* stream) {
-  if (B <= 0 || S <= 0 || NH <= 0 || NH > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || B > 65535 || S <= 0 || NH <= 0 || NH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{wx, r, bias, state_in, y, state_out, B, S, NH};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (DH) {
-    case 32: return launch<32>(wx, r, bias, state_in, y, state_out, B, S, NH, st);
-    case 64: return launch<64>(wx, r, bias, state_in, y, state_out, B, S, NH, st);
-    case 128: return launch<128>(wx, r, bias, state_in, y, state_out, B, S, NH, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(state_in || state_out ? launch<true>(a, DH, st)
+                                                : launch<false>(a, DH, st));
 }
 
 }  // extern "C"

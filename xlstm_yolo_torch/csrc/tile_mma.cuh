@@ -1,5 +1,7 @@
 // The tensor-core tile product shared by the port's mLSTM kernels (the ViL
-// layer family in vil_layer.cu, the chunkwise backward in mlstm_bwd.cu).
+// layer family in vil_layer.cu, the chunkwise backward in mlstm_bwd.cu, the
+// chunkwise forward in mlstm_fwd.cu), with the cp.async, cluster and
+// mbarrier helpers those kernels and the sLSTM scan (slstm.cu) share.
 //
 // One CTA of 8 warps computes a 64 x 64 fp32 output tile C += op(A) op(B)
 // from operands in shared memory, on the tensor cores: warp-level
@@ -45,6 +47,10 @@ constexpr int THREADS = 256;      // the CTA the product is written for
 
 enum Causal { FULL = 0, OUT_LOWER = 1, K_LE_M = 2, K_GE_M = 3 };
 
+// The thread's index within its group of THREADS: a CTA of 2 * THREADS
+// threads runs two tile products at once, one per group.
+__device__ __forceinline__ int thread_in_group() { return threadIdx.x & (THREADS - 1); }
+
 // The 16 accumulators of one thread: c[j][r] is row row(r), column col(j, r)
 // of the output tile.
 struct Acc {
@@ -57,10 +63,10 @@ struct Acc {
       for (int r = 0; r < 4; ++r) c[j][r] = 0.f;
   }
   __device__ __forceinline__ static int row(int r) {
-    return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * (r >> 1);
+    return 16 * ((thread_in_group() >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * (r >> 1);
   }
   __device__ __forceinline__ static int col(int j, int r) {
-    return 32 * (threadIdx.x >> 7) + 8 * j + 2 * (threadIdx.x & 3) + (r & 1);
+    return 32 * (thread_in_group() >> 7) + 8 * j + 2 * (threadIdx.x & 3) + (r & 1);
   }
 };
 
@@ -80,56 +86,81 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// One k step (k0 .. k0+7) of acc += op(A) op(B) for the warp's 16 x 32 part
+// (rows m0.., columns n0..) of the 64 x 64 tile; lane = (g, t).
+template <bool TA, bool TB, int MODE>
+__device__ __forceinline__ void mma_k8(Acc& acc, const float* A, int lda, const float* B, int ldb,
+                                       int k0, int m0, int n0, int g, int t,
+                                       const float* kscale) {
+  float af[4];
+  if (TA) {
+    af[0] = A[(k0 + t) * lda + m0 + g];
+    af[1] = A[(k0 + t) * lda + m0 + g + 8];
+    af[2] = A[(k0 + t + 4) * lda + m0 + g];
+    af[3] = A[(k0 + t + 4) * lda + m0 + g + 8];
+  } else {
+    af[0] = A[(m0 + g) * lda + k0 + t];
+    af[1] = A[(m0 + g + 8) * lda + k0 + t];
+    af[2] = A[(m0 + g) * lda + k0 + t + 4];
+    af[3] = A[(m0 + g + 8) * lda + k0 + t + 4];
+  }
+  if (kscale != nullptr) {
+    const float s0 = kscale[k0 + t], s1 = kscale[k0 + t + 4];
+    af[0] *= s0;
+    af[1] *= s0;
+    af[2] *= s1;
+    af[3] *= s1;
+  }
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(af[i], ah[i], al[i]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (MODE == OUT_LOWER && n0 + 8 * j > m0 + 15) continue;  // warp-uniform
+    const int n = n0 + 8 * j + g;
+    const float b0f = TB ? B[n * ldb + k0 + t] : B[(k0 + t) * ldb + n];
+    const float b1f = TB ? B[n * ldb + k0 + t + 4] : B[(k0 + t + 4) * ldb + n];
+    uint32_t bh0, bl0, bh1, bl1;
+    split(b0f, bh0, bl0);
+    split(b1f, bh1, bl1);
+    mma_tf32(acc.c[j], al, bh0, bh1);
+    mma_tf32(acc.c[j], ah, bl0, bl1);
+    mma_tf32(acc.c[j], ah, bh0, bh1);
+  }
+}
+
 // acc += op(A) op(B) over k in [0, K), K a multiple of 8, for the warp's
 // 16 x 32 part of the 64 x 64 tile. `kscale`, where given, multiplies
 // column k of op(A) (a shared or global array of K floats). Every warp of
-// the CTA calls it; nothing here synchronizes.
+// the CTA (or of its group) calls it; nothing here synchronizes.
 template <bool TA, bool TB, int MODE = FULL>
 __device__ __forceinline__ void mma(Acc& acc, const float* A, int lda, const float* B, int ldb,
                                     int K, const float* kscale = nullptr) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, w = thread_in_group() >> 5;
   const int m0 = 16 * (w & 3), n0 = 32 * (w >> 2);
   const int g = lane >> 2, t = lane & 3;
   int kbeg = 0, kend = K;
   if (MODE == K_LE_M) kend = K < m0 + 16 ? K : m0 + 16;
   if (MODE == K_GE_M) kbeg = m0;
 #pragma unroll 2
-  for (int k0 = kbeg; k0 < kend; k0 += 8) {
-    float af[4];
-    if (TA) {
-      af[0] = A[(k0 + t) * lda + m0 + g];
-      af[1] = A[(k0 + t) * lda + m0 + g + 8];
-      af[2] = A[(k0 + t + 4) * lda + m0 + g];
-      af[3] = A[(k0 + t + 4) * lda + m0 + g + 8];
-    } else {
-      af[0] = A[(m0 + g) * lda + k0 + t];
-      af[1] = A[(m0 + g + 8) * lda + k0 + t];
-      af[2] = A[(m0 + g) * lda + k0 + t + 4];
-      af[3] = A[(m0 + g + 8) * lda + k0 + t + 4];
-    }
-    if (kscale != nullptr) {
-      const float s0 = kscale[k0 + t], s1 = kscale[k0 + t + 4];
-      af[0] *= s0;
-      af[1] *= s0;
-      af[2] *= s1;
-      af[3] *= s1;
-    }
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(af[i], ah[i], al[i]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (MODE == OUT_LOWER && n0 + 8 * j > m0 + 15) continue;  // warp-uniform
-      const int n = n0 + 8 * j + g;
-      const float b0f = TB ? B[n * ldb + k0 + t] : B[(k0 + t) * ldb + n];
-      const float b1f = TB ? B[n * ldb + k0 + t + 4] : B[(k0 + t + 4) * ldb + n];
-      uint32_t bh0, bl0, bh1, bl1;
-      split(b0f, bh0, bl0);
-      split(b1f, bh1, bl1);
-      mma_tf32(acc.c[j], al, bh0, bh1);
-      mma_tf32(acc.c[j], ah, bl0, bl1);
-      mma_tf32(acc.c[j], ah, bh0, bh1);
-    }
+  for (int k0 = kbeg; k0 < kend; k0 += 8)
+    mma_k8<TA, TB, MODE>(acc, A, lda, B, ldb, k0, m0, n0, g, t, kscale);
+}
+
+// Two independent full products over the same K in one k loop, so that
+// each warp has eight accumulator chains in flight instead of four:
+// acc1 += op(A1) op(B1), acc2 += op(A2) op(B2) (kscale2 as mma's kscale).
+template <bool TA1, bool TB1, bool TA2, bool TB2>
+__device__ __forceinline__ void mma_pair(Acc& acc1, const float* A1, const float* B1, Acc& acc2,
+                                         const float* A2, const float* B2, int ld, int K,
+                                         const float* kscale2 = nullptr) {
+  const int lane = threadIdx.x & 31, w = thread_in_group() >> 5;
+  const int m0 = 16 * (w & 3), n0 = 32 * (w >> 2);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    mma_k8<TA1, TB1, FULL>(acc1, A1, ld, B1, ld, k0, m0, n0, g, t, nullptr);
+    mma_k8<TA2, TB2, FULL>(acc2, A2, ld, B2, ld, k0, m0, n0, g, t, kscale2);
   }
 }
 
@@ -168,10 +199,16 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-// Wait for every committed group, or for all but the newest one.
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+// Wait for every committed group, or for all but the newest one.
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
+__device__ __forceinline__ void cp_async_wait_one() { cp_async_wait<1>(); }
 
 // Starts the copy of a ROWS x COLS block of a row-major global matrix (row
 // stride `ld` floats, `src` its element (0, 0), which must be a valid
@@ -196,6 +233,113 @@ __device__ __forceinline__ void load_async(float* dst, int ldd, const float* src
       cp_async4(dst + r * ldd + c, ok ? src + r * ld + c : src, ok ? 4 : 0);
     }
   }
+}
+
+// ---- thread block clusters ---------------------------------------------------
+// The kernels that split one recurrence over a few CTAs (K1's value tiles,
+// K5's gates) exchange partial results through distributed shared memory.
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives; shared-memory writes
+// before it (local or remote) are visible to every thread after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The generic address of `p` (this CTA's shared memory) in the CTA of the
+// cluster with rank `rank`; ordinary loads and stores reach it.
+template <typename T>
+__device__ __forceinline__ T* cluster_peer(T* p, unsigned rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// One-way exchange without a cluster barrier: a producer writes a 32-bit
+// word into a CTA's shared memory with st.async, which counts its bytes down
+// on that CTA's mbarrier; the consumer waits for the barrier's phase.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of `p` (this CTA's shared memory) in the CTA
+// of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_u32(const void* p, unsigned rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes initialized mbarriers visible to the cluster (then cluster_sync).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of st.async data in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the completion of the phase of parity `parity`; what the
+// st.async writes of that phase stored is visible after it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred p;\n"
+      " WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Stores v at shared::cluster address `dst`, counting 4 bytes down on the
+// mbarrier at shared::cluster address `bar` (of the same CTA as dst).
+__device__ __forceinline__ void st_async(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   dst),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// Launches `kernel` with clusters of `cx` CTAs along x; returns the launch's
+// error (a cluster the card cannot place is refused here, never run).
+template <typename... K, typename... A>
+cudaError_t launch_cluster(void (*kernel)(K...), dim3 grid, dim3 block, size_t smem,
+                           cudaStream_t st, int cx, A&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cx;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<A&&>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace tile

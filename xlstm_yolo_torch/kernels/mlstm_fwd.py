@@ -17,7 +17,9 @@ real position either way.
 Under autograd on the card the forward kernel is paired with the chunkwise
 backward kernel (``kernels/mlstm_bwd.py``) at head dim 64, as the JAX entry's
 ``_bwd`` pairs them for square heads; on the CPU autograd differentiates the
-plain version.
+plain version. Only then does the kernel write the state carried into every
+chunk to a workspace, which the backward reads; without gradients the
+states stay on chip and the call allocates nothing but h.
 """
 from __future__ import annotations
 
@@ -57,23 +59,27 @@ def mlstm_chunkwise_fwd_plain(q, k, v, i_preact, f_preact, chunk_size: int = 64,
     return h[:, :, :S] if pad else h
 
 
-def _launch(q, k, v, i_preact, f_preact, igate_act: str, eps: float):
-    """Launch the kernel on checked CUDA tensors -> (h, ws, off): the
-    kernel's workspace and the offsets of its arrays, which after the call
-    hold the state carried into every chunk (``_carry_states``)."""
+def _launch(q, k, v, i_preact, f_preact, igate_act: str, eps: float, states: bool = False):
+    """Launch the kernel on checked CUDA tensors -> (h, ws, off). With
+    ``states`` the kernel also writes the state carried into every chunk to
+    ``ws`` (``_carry_states`` views it, at the offsets ``off``); without, it
+    keeps them on chip and ``ws`` and ``off`` are None."""
     B, NH, S, DH = q.shape
     dev = q.device
     chk = lambda name, t, shape: check_tensor("mlstm_chunkwise_fwd", name, t, shape, dev)
     t = [chk(n, x, (B, NH, S, DH)) for n, x in (("q", q), ("k", k), ("v", v))]
     t += [chk("i_preact", i_preact, (B, NH, S)), chk("f_preact", f_preact, (B, NH, S))]
     lib = _LIB.load()
-    off = (ctypes.c_long * 6)()
-    lib.mlstm_fwd_workspace_layout(B * NH, S, DH, off)
+    ws = off = None
+    if states:
+        off = (ctypes.c_long * 6)()
+        lib.mlstm_fwd_workspace_layout(B * NH, S, DH, off)
+        ws = torch.empty(off[5], device=dev, dtype=torch.float32)
     h = torch.empty((B, NH, S, DH), device=dev, dtype=torch.float32)
-    ws = torch.empty(off[5], device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mlstm_fwd_f32(*(x.data_ptr() for x in t), h.data_ptr(), ws.data_ptr(),
+        err = lib.mlstm_fwd_f32(*(x.data_ptr() for x in t), h.data_ptr(),
+                                None if ws is None else ws.data_ptr(),
                                 B * NH, S, DH, int(igate_act == "exp"), eps, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_chunkwise_fwd: CUDA error {err}: "
@@ -117,7 +123,7 @@ class _ChunkwiseFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, i_preact, f_preact, igate_act, eps):
-        h, ws, off = _launch(q, k, v, i_preact, f_preact, igate_act, eps)
+        h, ws, off = _launch(q, k, v, i_preact, f_preact, igate_act, eps, states=True)
         B, NH, S, DH = q.shape
         ctx.save_for_backward(q, k, v, i_preact, f_preact,
                               *_carry_states(ws, off, B * NH, S, DH))

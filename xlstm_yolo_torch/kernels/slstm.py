@@ -89,10 +89,10 @@ def slstm_scan_fwd(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
                    initial_state: tuple | None = None, return_last_state: bool = False):
     """Full-sequence sLSTM: y (B, S, NH, DH), plus the last (y, c, n, m)
     with ``return_last_state``. CPU tensors take ``slstm_scan``. CUDA tensors
-    launch the hand-written kernel (fp32, head dim 32, 64 or 128, any B and
-    S; one launch runs the whole time loop, reads ``initial_state`` before
-    the first step and writes the last state after the last) or raise; each
-    launch adds one to ``slstm_scan_fwd.launches``.
+    launch the hand-written kernel (fp32, head dim 32, 64 or 128, B at most
+    65535, any S; one launch runs the whole time loop, reads
+    ``initial_state`` before the first step and writes the last state after
+    the last) or raise; each launch adds one to ``slstm_scan_fwd.launches``.
 
     The kernel has no backward: off the CPU a call that needs gradients
     raises ``NotImplementedError`` rather than return a tensor cut from the
@@ -108,6 +108,8 @@ def slstm_scan_fwd(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     if DH not in KERNEL_DHS:
         raise ValueError(f"slstm_scan_fwd: the CUDA kernel needs head dim in {KERNEL_DHS}, "
                          f"got {DH}")
+    if B > 65535:
+        raise ValueError(f"slstm_scan_fwd: batch {B} exceeds 65535")
     if wx.device.type != "cuda":
         raise ValueError(f"slstm_scan_fwd: unsupported device {wx.device}")
     dev = wx.device
