@@ -51,11 +51,14 @@ The two entries no model calls, each driven on a model's real data:
   model (batch 8 x 32 label slots over 8400 anchors, k 10): equal to the
   assigner's chain of max and suppress passes, and giving its membership.
 
-One train step of the mLSTM-only language model at the README widths
-(``slstm_at=()``, the class default): forward -> ``lm_loss`` -> backward
-through the chunkwise backward kernel -> ``StepUpdate``; loss and every
-gradient against the same step with the plain versions forced in, then
-timed by stage.
+Train steps of the language model: forward -> ``lm_loss`` -> backward ->
+``StepUpdate``, for three models: the mLSTM-only one at the README widths
+(``slstm_at=()``, the class default; the chunkwise backward kernel at head
+dim 64), the README model itself (its sLSTM block trained through the
+reverse-time sLSTM kernel at head dim 32) and the wide model at S 1024 (the
+chunkwise backward kernel at head dim 256, the sLSTM one at 128); loss and
+every gradient against the same step with the plain versions forced in,
+then timed by stage.
 
 ViL-YOLO above scale n (``vil_yolo{s,m,l,x}``, ViL widths up to DIM 640,
 INNER 1280, 20 heads): one inference forward of each at batch 2 and 640
@@ -102,13 +105,18 @@ TRAIN_TIMED, TRAIN_WARMUP = 3, 1
 LM_README = dict(vocab_size=50304, embedding_dim=128, num_blocks=7, slstm_at=(1,), num_heads=4)
 LM_WIDE = dict(vocab_size=50304, embedding_dim=512, num_blocks=8, slstm_at=(1,), num_heads=4)
 LM_CONTEXT, LM_PROMPT, LM_NEW, LM_WIDE_S = 256, 192, 64, 1024
-# the model that trains on the card: the README widths, every block an mLSTM block
+# the models that train on the card: the README widths with every block an
+# mLSTM block, the README model, and the wide model at LM_WIDE_S
 LM_TRAIN = {**LM_README, "slstm_at": ()}
+LM_TRAIN_MODELS = [("mlstm_only", LM_TRAIN, LM_CONTEXT), ("readme", LM_README, LM_CONTEXT),
+                   ("wide", LM_WIDE, LM_WIDE_S)]
 # kernel cases at the language model's shapes: (name, NH, S, DH)
 K1_CASES = [("readme_S256_DH64", 4, 256, 64), ("ragged_S200_DH64", 4, 200, 64),
             ("wide_S1024_DH256", 4, 1024, 256)]
 K5_CASES = [("readme_S256_DH32", 4, 256, 32), ("wide_S1024_DH128", 4, 1024, 128),
             ("S1024_DH64", 4, 1024, 64)]  # head dim 64: on no model path
+# the chunkwise backward at the language model's wide head dims, on K1's workspace
+K2_LM_CASES = [("wide_S1024_DH256", 4, 1024, 256), ("S1024_DH128", 4, 1024, 128)]
 # the ViL classifier: VisionLSTM2's defaults (NX-AI vision-lstm's vil2-tiny
 # widths) with the head dim the ViL kernels take and stochastic depth on
 CLS = dict(dim=192, depth=12, patch_size=16, output_shape=(1000,), mode="classifier",
@@ -339,6 +347,30 @@ def mlstm_fwd_bound(B, NH, S, DH):
     return roofline(flops, 4 * (4 * B * NH * S * DH + 2 * B * NH * S))
 
 
+def slstm_bwd_bound(B, NH, S, DH):
+    """Least time for one sLSTM backward call (``slstm_scan_bwd``: the
+    reverse-time kernel, then dr and db). FLOPs count the per-step
+    transposed recurrent product R draw (DH x 4DH multiply-adds) and the dr
+    sum y_{t-1}^T draw (as many), times 2; bytes count what the call reads
+    once (the forward's saved gate values and states, 7 DH a step, y, dy and
+    r) and writes once (dwx, dr, db). The kernel reads the forward's gate
+    values in place of wx (the same 4 DH a step). The pointwise gate math is
+    left out."""
+    flops = 2 * 2 * B * S * NH * DH * 4 * DH
+    return roofline(flops, 4 * (13 * B * S * NH * DH + 2 * NH * 4 * DH * (DH + 1)))
+
+
+def merged(a, b):
+    """The kernels-line totals of two ``kernel_parity`` runs of one kernel."""
+    out = {k: a[k] + b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}
+    out.update(maxrelerr=max(a["maxrelerr"], b["maxrelerr"]),
+               max_abs_err=max(a["max_abs_err"], b["max_abs_err"]),
+               bound_by=a["bound_by"] if a["bound_by"] == b["bound_by"] else "operations",
+               bound_tc_by=a["bound_tc_by"] if a["bound_tc_by"] == b["bound_tc_by"]
+               else "operations", ms_by_case={**a["ms_by_case"], **b["ms_by_case"]})
+    return out
+
+
 def slstm_bound(B, NH, S, DH):
     """Least time for one sLSTM scan call. FLOPs count the per-head
     recurrent product y R of every step (DH x 4DH multiply-adds, times 2;
@@ -473,6 +505,9 @@ def phase_kernel_parity():
     at the classifier's shape and at scale x's P5; K1 (mlstm_chunkwise_fwd vs
     mlstm_chunkwise_fwd_plain) and K5 (slstm_scan_fwd vs slstm_scan) on
     seeded arguments at the language model's shapes (and K5 at head dim 64);
+    K2 also at the language model's head dims 128 and 256 on K1's workspace
+    (vs mlstm_chunkwise_bwd_ref), and the sLSTM backward (slstm_scan_bwd vs
+    slstm_scan_bwd_plain) on K5's workspace at K5's shapes;
     K4 (vil_cell_fwd vs vil_cell_plain) and K7 (vil_block_fwd vs
     vil_block_plain) on arguments
     cut from seeded layer arguments at the classifier's shape, at
@@ -483,9 +518,14 @@ def phase_kernel_parity():
     (``kth_parity``)."""
     import torch
 
-    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain
-    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain
-    from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
+    from xlstm_yolo_torch.kernels.mlstm_bwd import (mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain,
+                                                    mlstm_chunkwise_bwd_ref)
+    from xlstm_yolo_torch.kernels.mlstm_fwd import (_carry_states, mlstm_chunkwise_bwd_heads,
+                                                    mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
+    from xlstm_yolo_torch.kernels.mlstm_fwd import _launch as mlstm_fwd_launch
+    from xlstm_yolo_torch.kernels.slstm import (SAVED, slstm_scan, slstm_scan_bwd,
+                                                slstm_scan_bwd_plain, slstm_scan_fwd)
+    from xlstm_yolo_torch.kernels.slstm import _launch as slstm_launch
     from xlstm_yolo_torch.kernels.vil_block import tail_plain, vil_block_fwd, vil_block_plain
     from xlstm_yolo_torch.kernels.vil_cell import Cfg, vil_cell_fwd, vil_cell_plain
     from xlstm_yolo_torch.kernels.vil_conv import (_conv_pre, vil_layer_conv_fwd,
@@ -546,6 +586,37 @@ def phase_kernel_parity():
         lambda args, case: (slstm_scan_fwd(*args),),
         lambda args, case: (slstm_scan(*args),),
         lambda args, case: slstm_bound(BATCH, *case[1:]),
+        extra=lambda case, ms: {"us_per_step": ms * 1e3 / case[2]})
+
+    def k2_lm_case(B, case):
+        """Aligned q and k (the normalizer away from zero), gates, dh, and
+        the carry states K1's forward leaves in its workspace."""
+        _, NH, S, DH = case
+        mk = seeded(S + DH + B + 2)
+        q = mk(B, NH, S, DH)
+        args = (q, q + 0.3 * mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S) - 3.0,
+                mk(B, NH, S) + 3.0)
+        _, ws, off = mlstm_fwd_launch(*args, "exp", 1e-6, states=True)
+        return (*args, mk(B, NH, S, DH)), _carry_states(ws, off, B * NH, S, DH)
+
+    k2 = merged(k2, kernel_parity(
+        "mlstm_chunkwise_bwd", K2_LM_CASES, k2_lm_case,
+        lambda args, case: mlstm_chunkwise_bwd_heads(*args[0], carry=args[1]),
+        lambda args, case: mlstm_chunkwise_bwd_ref(*args[0], chunk_size=64),
+        lambda args, case: bwd_bound(BATCH, case[2], case[1] * case[3], case[1])))
+
+    def scan_bwd_case(B, case):
+        """K5's arguments, its forward's workspace and y, a seeded dy."""
+        wx, r, b = scan_case(B, case)
+        y, _, saved = slstm_launch(wx, r, b, None, return_last_state=False, save=True)
+        return wx, r, b, y, saved, seeded(case[2] + B + 9)(*y.shape)
+
+    k5b = kernel_parity(
+        "slstm_scan_bwd", K5_CASES, scan_bwd_case,
+        lambda args, case: slstm_scan_bwd(args[1], args[3], args[4], args[5]),
+        lambda args, case: slstm_scan_bwd_plain(*args[:4], args[4][:, :, :, 4:SAVED].unbind(3),
+                                                args[5]),
+        lambda args, case: slstm_bwd_bound(BATCH, *case[1:]),
         extra=lambda case, ms: {"us_per_step": ms * 1e3 / case[2]})
     for case in K5_CASES:  # the state carried through the kernel: two halves are the full scan
         wx, r, b = scan_case(2, case)
@@ -641,7 +712,7 @@ def phase_kernel_parity():
         batch_of=timed_batch, cross=conv_then_layer,
         extra=lambda case, ms: {"grid": list(grid(case))})
     k8 = kth_parity(dev)
-    return k3, k2, k1, k5, k4, k7, k6, k8
+    return k3, k2, k1, k5, k5b, k4, k7, k6, k8
 
 
 def build_main_model(device, train: bool = False, cfg: str = "vil_yolon.yaml"):
@@ -1095,97 +1166,110 @@ def phase_lm_path():
     return launches
 
 
-def lm_train_inputs():
-    """What ``lm_train_path`` trains on, on the card: seeded token ids as
-    (inputs, next-token targets), each (BATCH, LM_CONTEXT)."""
+def lm_train_inputs(vocab: int = LM_TRAIN["vocab_size"], S: int = LM_CONTEXT):
+    """Seeded token ids on the card as (inputs, next-token targets), each
+    (BATCH, S)."""
     import torch
 
-    tokens = torch.from_numpy(np.random.default_rng(5).integers(
-        0, LM_TRAIN["vocab_size"], (BATCH, LM_CONTEXT + 1))).cuda()
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, vocab, (BATCH, S + 1))).cuda()
     return tokens[:, :-1], tokens[:, 1:]
 
 
 def phase_lm_train_path():
-    """One train step of the mLSTM-only language model at the README widths
-    (LM_TRAIN) at batch BATCH and context LM_CONTEXT: forward -> ``lm_loss``
-    -> backward -> ``StepUpdate``, with the kernels against the same step
-    with the plain versions forced in (loss, and every parameter gradient
-    within TOL_REL of that tensor's max), then TRAIN_TIMED steps after
-    TRAIN_WARMUP timed by stage with CUDA events."""
+    """One train step of each of LM_TRAIN_MODELS (the mLSTM-only model at
+    the README widths, the README model with its sLSTM block, the wide
+    model) at batch BATCH: forward -> ``lm_loss`` -> backward ->
+    ``StepUpdate``, with the kernels against the same step with the plain
+    versions forced in (loss, and every parameter gradient within TOL_REL of
+    that tensor's max), then TRAIN_TIMED steps after TRAIN_WARMUP timed by
+    stage with CUDA events. Launches per step: K1 and K2 once per mLSTM
+    block, K5 and the sLSTM backward once per sLSTM block."""
     import torch
 
     from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
     from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd
+    from xlstm_yolo_torch.kernels.slstm import slstm_scan_bwd, slstm_scan_fwd
     from xlstm_yolo_torch.utils.loss import lm_loss
     from xlstm_yolo_torch.utils.train_utils import StepUpdate
 
-    inputs, targets = lm_train_inputs()
-    count = lambda: (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches)
+    counters = (mlstm_chunkwise_fwd, mlstm_chunkwise_bwd, slstm_scan_fwd, slstm_scan_bwd)
+    names = tuple(c.__name__ for c in counters)
+    count = lambda: tuple(c.launches for c in counters)
 
     def reset():
-        mlstm_chunkwise_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+        for c in counters:
+            c.launches = 0
 
-    steps = {}
-    for kind in ("kernels", "plain"):
-        model = build_lm_model(LM_TRAIN, "cuda").train()
-        update = StepUpdate(model)
-        with plain_lm_kernels() if kind == "plain" else nullcontext():
-            reset()
+    total_launches, per_model, ok = [0] * len(counters), {}, True
+    for label, cfg, S in LM_TRAIN_MODELS:
+        inputs, targets = lm_train_inputs(cfg["vocab_size"], S)
+        steps = {}
+        for kind in ("kernels", "plain"):
+            model = build_lm_model(cfg, "cuda").train()
+            update = StepUpdate(model)
+            with plain_lm_kernels() if kind == "plain" else nullcontext():
+                reset()
+                loss = lm_loss(model(inputs), targets)
+                loss.backward()
+                torch.cuda.synchronize()
+                launches = count()
+            steps[kind] = (model, update, float(loss.detach()),
+                           {n: p.grad for n, p in model.named_parameters()}, launches)
+            del loss
+        model, update, loss_k, grads_k, launches = steps["kernels"]
+        _, _, loss_p, grads_p, plain_launches = steps["plain"]
+        del steps
+        worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+        grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        del grads_p, grads_k
+        update(1)
+
+        times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+        losses = [loss_k]
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            model.zero_grad(set_to_none=True)
             loss = lm_loss(model(inputs), targets)
+            ev[1].record()
             loss.backward()
+            ev[2].record()
+            update(it + 2)
+            ev[3].record()
             torch.cuda.synchronize()
-            launches = count()
-        steps[kind] = (model, update, float(loss.detach()),
-                       {n: p.grad for n, p in model.named_parameters()}, launches)
-    model, update, loss_k, grads_k, launches = steps["kernels"]
-    _, _, loss_p, grads_p, plain_launches = steps["plain"]
-    del steps
-    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
-    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    del grads_p
-    update(1)
-
-    times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
-    losses = [loss_k]
-    reset()
-    torch.cuda.reset_peak_memory_stats()
-    for it in range(TRAIN_WARMUP + TRAIN_TIMED):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        model.zero_grad(set_to_none=True)
-        loss = lm_loss(model(inputs), targets)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        update(it + 2)
-        ev[3].record()
-        torch.cuda.synchronize()
-        losses.append(float(loss.detach()))
-        if it >= TRAIN_WARMUP:
-            for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
-                times[k] += a.elapsed_time(b) / TRAIN_TIMED
-    n_steps = TRAIN_WARMUP + TRAIN_TIMED
-    per_step = tuple(c / n_steps for c in count())
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    total_ms = sum(times.values())
-    n_blocks = LM_TRAIN["num_blocks"]
-    expect = (n_blocks, n_blocks)
-    ok = (all(np.isfinite(losses)) and grads_finite and launches == expect
-          and per_step == expect and plain_launches == (0, 0) and worst_rel <= TOL_REL
-          and loss_rel <= TOL_REL and losses[-1] < losses[0])
-    emit({"phase": "lm_train_path", "model": {**LM_TRAIN, "slstm_at": []},
-          "params": model.num_params(), "batch": BATCH, "context": LM_CONTEXT, "tol": TOL_REL,
-          "launches_mlstm_chunkwise_fwd": launches[0],
-          "launches_mlstm_chunkwise_bwd": launches[1], "launches_per_timed_step": per_step,
-          "expected_launches": expect, "loss": loss_k, "loss_plain": loss_p,
-          "loss_relerr": loss_rel, "grad_maxrelerr": worst_rel, "grad_worst": worst_name,
-          "grads_vanishing": vanishing, "grad_max": gmax, "losses": losses, "ms": times,
-          "total_ms": total_ms, "tokens_per_s": BATCH * LM_CONTEXT / total_ms * 1e3,
-          "peak_memory_gib": peak_gib, "ok": ok})
+            losses.append(float(loss.detach()))
+            if it >= TRAIN_WARMUP:
+                for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                    times[k] += a.elapsed_time(b) / TRAIN_TIMED
+        n_steps = TRAIN_WARMUP + TRAIN_TIMED
+        per_step = tuple(c / n_steps for c in count())
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        total_ms = sum(times.values())
+        n_s = len(cfg["slstm_at"])
+        n_m = cfg["num_blocks"] - n_s
+        expect = (n_m, n_m, n_s, n_s)
+        good = (all(np.isfinite(losses)) and grads_finite and launches == expect
+                and per_step == expect and plain_launches == (0, 0, 0, 0)
+                and worst_rel <= TOL_REL and loss_rel <= TOL_REL and losses[-1] < losses[0])
+        ok = ok and good
+        total_launches = [a + b for a, b in zip(total_launches, launches)]
+        per_model[label] = {
+            "model": {**cfg, "slstm_at": list(cfg["slstm_at"])}, "params": model.num_params(),
+            "context": S, "launches": dict(zip(names, launches)),
+            "launches_per_timed_step": per_step, "expected_launches": expect, "loss": loss_k,
+            "loss_plain": loss_p, "loss_relerr": loss_rel, "grad_maxrelerr": worst_rel,
+            "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+            "losses": losses, "ms": times, "total_ms": total_ms,
+            "tokens_per_s": BATCH * S / total_ms * 1e3, "peak_memory_gib": peak_gib, "ok": good}
+        del model, update
+    emit({"phase": "lm_train_path", "batch": BATCH, "tol": TOL_REL, "models": per_model,
+          "launches": dict(zip(names, total_launches)), "ok": ok})
     if not ok:
         raise PhaseError("language-model train path check failed")
-    return launches
+    return dict(zip(names, total_launches))
 
 
 def build_cls_model(train: bool):
@@ -1437,7 +1521,7 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k3, k2, k1, k5, k4, k7, k6, k8 = phase_kernel_parity()
+        k3, k2, k1, k5, k5b, k4, k7, k6, k8 = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
         phase = "train_path"
@@ -1466,8 +1550,7 @@ def main() -> int:
                **by_path,
                "kth_path": {"rowwise_kth_value": kth_launches},
                "conv_path": conv_launches,
-               "lm_train_path": dict(zip(("mlstm_chunkwise_fwd", "mlstm_chunkwise_bwd"),
-                                         lm_train_launches)),
+               "lm_train_path": lm_train_launches,
                "scales_path": scales_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None):
@@ -1491,6 +1574,8 @@ def main() -> int:
         entry("mlstm_chunkwise_fwd", "mlstm_fwd.cu", "mlstm_pallas.py:198 (_kernel)",
               "lm_path", k1),
         entry("slstm_scan_fwd", "slstm.cu", "slstm_pallas.py:41 (_kernel)", "lm_path", k5),
+        entry("slstm_scan_bwd", "slstm.cu", "slstm_pallas.py:153 (_bwd, jax.vjp of slstm_scan)",
+              "lm_train_path", k5b),
         entry("vil_cell_fwd", "vil_layer.cu", "mlstm_pallas.py:532 (_kernel_vil_fused)",
               "cls_train", k4),
         entry("vil_block_fwd", "vil_layer.cu", "mlstm_pallas.py:799 (_kernel_vil_block)",

@@ -12,13 +12,15 @@ import pytest
 import torch
 
 from xlstm_yolo_torch.kernels.mlstm_bwd import (
-    chunk_carry_states, mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
+    chunk_carry_states, mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain, mlstm_chunkwise_bwd_ref)
 from xlstm_yolo_torch.kernels.mlstm_fwd import _carry_states
 from xlstm_yolo_torch.kernels.mlstm_fwd import _launch as mlstm_fwd_launch
 from xlstm_yolo_torch.kernels.mlstm_fwd import (
     mlstm_chunkwise_bwd_heads, mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
 from xlstm_yolo_torch.kernels.mlstm_native import mlstm_recurrent
-from xlstm_yolo_torch.kernels.slstm import slstm_scan, slstm_scan_fwd
+from xlstm_yolo_torch.kernels.slstm import _launch as slstm_launch
+from xlstm_yolo_torch.kernels.slstm import (
+    slstm_scan, slstm_scan_bwd, slstm_scan_bwd_plain, slstm_scan_fwd, slstm_scan_states)
 from xlstm_yolo_torch.kernels.topk import (
     NEG_INF, rowwise_kth_value, rowwise_kth_value_plain)
 from xlstm_yolo_torch.kernels.vil_block import (
@@ -175,15 +177,19 @@ def test_mlstm_fwd_kernel_matches_plain(cuda_device, S, DH, igate_act):
 
 
 def test_mlstm_fwd_kernel_refuses(cuda_device):
-    """No fallback on the card: gradients at a head dim the backward kernel
-    does not take, another head dim and another dtype each raise."""
+    """No fallback on the card: gradients at head dims 128 and 256 take the
+    kernels' route (one K1 launch, one K2 launch in backward()); another head
+    dim and another dtype each raise."""
     args = _mlstm_args(1, 2, 64, 64, cuda_device, seed=0)
     for DH in (128, 256):
         wide = _mlstm_args(1, 2, 64, DH, cuda_device, seed=0)
-        before = mlstm_chunkwise_fwd.launches
-        with pytest.raises(NotImplementedError):
-            mlstm_chunkwise_fwd(wide[0].clone().requires_grad_(), *wide[1:])
-        assert mlstm_chunkwise_fwd.launches == before
+        before = (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches)
+        q = wide[0].clone().requires_grad_()
+        mlstm_chunkwise_fwd(q, *wide[1:]).sum().backward()
+        torch.cuda.synchronize()
+        assert (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert bool(torch.isfinite(q.grad).all())
     with pytest.raises(ValueError, match="head dim"):
         mlstm_chunkwise_fwd(*_mlstm_args(1, 2, 64, 32, cuda_device, seed=0))
     with pytest.raises(TypeError):
@@ -236,50 +242,83 @@ def test_mlstm_fwd_kernel_under_grad_runs_the_backward_kernel(cuda_device, S, ig
         assert _rel(leaf.grad.cpu(), w) <= TOL_REL, name
 
 
-def test_xlstm_lm_train_step_on_card(cuda_device):
-    """One train step of an mLSTM-only language model (cell head dim 64):
-    K1 and K2 once per block, the loss and every gradient within tolerance
-    of the same step with the plain forward (autograd) forced in; a model
-    with an sLSTM block raises under grad."""
+def _lm_train_step(cfg, tokens, plain: bool, recurrent_std: float = 0.0):
+    """One train step of ``xLSTMLMModel(**cfg)`` on the card with seeded gate
+    kernels (and sLSTM recurrent kernels at ``recurrent_std``), with the
+    kernels or with the plain versions forced in -> (loss, gradients,
+    launches of K1, K2, K5, the K5 backward)."""
     import xlstm_yolo_torch.nn.vil as vil_mod
+    import xlstm_yolo_torch.nn.xlstm as lm_mod
     from xlstm_yolo_torch.nn.xlstm import xLSTMLMModel
     from xlstm_yolo_torch.utils.loss import lm_loss
     from xlstm_yolo_torch.utils.train_utils import StepUpdate
 
+    model = xLSTMLMModel(**cfg, device=tokens.device).train()
+    gg = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "gate.weight" in name:
+                p.copy_((torch.randn(p.shape, generator=gg) * 0.05).to(p.device))
+            elif "recurrent_kernel" in name:
+                p.copy_((torch.randn(p.shape, generator=gg) * recurrent_std).to(p.device))
+    update = StepUpdate(model)
+    counters = (mlstm_chunkwise_fwd, mlstm_chunkwise_bwd, slstm_scan_fwd, slstm_scan_bwd)
+    before = [c.launches for c in counters]
+    if plain:
+        vil_mod.mlstm_chunkwise_fwd, lm_mod.slstm_scan_fwd = mlstm_chunkwise_fwd_plain, slstm_scan
+    try:
+        loss = lm_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        loss.backward()
+    finally:
+        vil_mod.mlstm_chunkwise_fwd, lm_mod.slstm_scan_fwd = mlstm_chunkwise_fwd, slstm_scan_fwd
+    torch.cuda.synchronize()
+    counts = tuple(c.launches - b for c, b in zip(counters, before))
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    update(1)
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    return float(loss.detach()), grads, counts
+
+
+def test_xlstm_lm_train_step_on_card(cuda_device):
+    """One train step of an mLSTM-only language model (cell head dim 64):
+    K1 and K2 once per block, the loss and every gradient within tolerance
+    of the same step with the plain forward (autograd) forced in; a model
+    with an sLSTM block now trains too: K5 and its reverse-time kernel once
+    for the sLSTM block."""
     g = torch.Generator().manual_seed(3)
     tokens = torch.randint(0, 500, (2, 101), generator=g).to(cuda_device)
-    results = {}
-    for kind in ("kernels", "plain"):
-        model = xLSTMLMModel(500, embedding_dim=128, num_blocks=2, device=cuda_device).train()
-        gg = torch.Generator().manual_seed(4)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if "gate.weight" in name:
-                    p.copy_((torch.randn(p.shape, generator=gg) * 0.05).to(p.device))
-        update = StepUpdate(model)
-        k1, k2 = mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches
-        if kind == "plain":
-            vil_mod.mlstm_chunkwise_fwd = mlstm_chunkwise_fwd_plain
-        try:
-            loss = lm_loss(model(tokens[:, :-1]), tokens[:, 1:])
-            loss.backward()
-        finally:
-            vil_mod.mlstm_chunkwise_fwd = mlstm_chunkwise_fwd
-        torch.cuda.synchronize()
-        counts = (mlstm_chunkwise_fwd.launches - k1, mlstm_chunkwise_bwd.launches - k2)
-        assert counts == ((2, 2) if kind == "kernels" else (0, 0))
-        results[kind] = (float(loss.detach()), {n: p.grad.clone() for n, p in
-                                                model.named_parameters()})
-        update(1)
-        assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
-    (lk, gk), (lp, gp) = results["kernels"], results["plain"]
+    for slstm_at, expect in (((), (2, 2, 0, 0)), ((1,), (1, 1, 1, 1))):
+        cfg = dict(vocab_size=500, embedding_dim=128, num_blocks=2, slstm_at=slstm_at)
+        lk, gk, counts = _lm_train_step(cfg, tokens, plain=False, recurrent_std=0.05)
+        lp, gp, plain_counts = _lm_train_step(cfg, tokens, plain=True, recurrent_std=0.05)
+        assert counts == expect and plain_counts == (0, 0, 0, 0)
+        assert abs(lk - lp) <= TOL_REL * abs(lp)
+        for n in gp:
+            assert _rel(gk[n], gp[n]) <= TOL_REL, n
+
+
+@pytest.mark.parametrize("cfg,S,expect", [
+    (dict(vocab_size=50304, embedding_dim=128, num_blocks=7, slstm_at=(1,), num_heads=4), 256,
+     (6, 6, 1, 1)),
+    (dict(vocab_size=50304, embedding_dim=512, num_blocks=8, slstm_at=(1,), num_heads=4), 256,
+     (7, 7, 1, 1)),
+], ids=["readme_dh64_slstm_dh32", "wide_dh256_slstm_dh128"])
+def test_lm_train_step_readme_and_wide_on_card(cuda_device, cfg, S, expect):
+    """A train step of the README model and of the wide model (cell head dim
+    256, sLSTM head dim 128) at batch 2: K1 and K2 once per mLSTM block, K5
+    and the reverse-time kernel once, the loss and every gradient within
+    tolerance of the step with the plain versions forced in."""
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg["vocab_size"], (2, S + 1), generator=g).to(cuda_device)
+    std = 0.5 * (cfg["embedding_dim"] // cfg["num_heads"]) ** -0.5
+    lk, gk, counts = _lm_train_step(cfg, tokens, plain=False, recurrent_std=std)
+    lp, gp, plain_counts = _lm_train_step(cfg, tokens, plain=True, recurrent_std=std)
+    assert counts == expect and plain_counts == (0, 0, 0, 0)
     assert abs(lk - lp) <= TOL_REL * abs(lp)
-    for n in gp:
-        assert _rel(gk[n], gp[n]) <= TOL_REL, n
-    mixed = xLSTMLMModel(500, embedding_dim=128, num_blocks=2, slstm_at=(1,),
-                         device=cuda_device).train()
-    with pytest.raises(NotImplementedError):
-        mixed(tokens[:, :-1])
+    gmax = max(g_.abs().max().item() for g_ in gp.values())
+    for n in gp:  # a gradient that vanishes up to rounding is held to the largest one
+        scale = max(gp[n].abs().max().item(), 1e-6 * gmax)
+        assert (gk[n] - gp[n]).abs().max().item() <= TOL_REL * scale, n
 
 
 def _slstm_args(B, S, NH, DH, device, seed):
@@ -327,12 +366,19 @@ def test_slstm_kernel_batches_match_plain(cuda_device, DH, B):
 
 
 def test_slstm_kernel_refuses_and_state_carry(cuda_device):
-    """Gradients (of an input or of a carried state) and another head dim
-    raise; an explicit state carry launches the kernel, never the plain
-    scan."""
+    """Gradients of an input take the kernels' route (one forward launch,
+    one reverse-time launch in backward()); gradients of a carried state or
+    through the returned last state, and another head dim, raise; an
+    explicit state carry launches the kernel, never the plain scan."""
     wx, r, b = _slstm_args(1, 8, 2, 32, cuda_device, seed=1)
+    before = (slstm_scan_fwd.launches, slstm_scan_bwd.launches)
+    rg = r.clone().requires_grad_()
+    slstm_scan_fwd(wx, rg, b).sum().backward()
+    torch.cuda.synchronize()
+    assert (slstm_scan_fwd.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(rg.grad).all())
     with pytest.raises(NotImplementedError):
-        slstm_scan_fwd(wx, r.clone().requires_grad_(), b)
+        slstm_scan_fwd(wx, r.clone().requires_grad_(), b, return_last_state=True)
     with pytest.raises(ValueError, match="head dim"):
         slstm_scan_fwd(*_slstm_args(1, 8, 2, 16, cuda_device, seed=1))
     before = slstm_scan_fwd.launches
@@ -343,6 +389,87 @@ def test_slstm_kernel_refuses_and_state_carry(cuda_device):
         slstm_scan_fwd(wx, r, b, initial_state=tuple(s.clone().requires_grad_() for s in last))
     with pytest.raises(ValueError, match="initial_state"):
         slstm_scan_fwd(wx, r, b, initial_state=tuple(s[:, :1] for s in last))
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("DH", [32, 64, 128])
+def test_slstm_bwd_kernel_matches_plain(cuda_device, DH, B):
+    """The reverse-time kernel over three heads at a ragged S, from the zero
+    state and from a carried-in one: the forward's workspace holds the plain
+    scan's states, and (dwx, dr, db) match ``slstm_scan_bwd_plain`` on the
+    same inputs."""
+    wx, r, b = _slstm_args(B, 37, 3, DH, cuda_device, seed=B + DH + 7)
+    dy = torch.randn(B, 37, 3, DH, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(B + DH))
+    _, mid = slstm_scan(wx[:, :5], r, b, return_last_state=True)
+    for state in (None, mid):
+        packed = None if state is None else torch.stack(state).contiguous()
+        before = (slstm_scan_fwd.launches, slstm_scan_bwd.launches)
+        y, _, saved = slstm_launch(wx, r, b, packed, return_last_state=False, save=True)
+        got = slstm_scan_bwd(r, y, saved, dy, packed)
+        torch.cuda.synchronize()
+        assert (slstm_scan_fwd.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+        want_y, states = slstm_scan_states(wx, r, b, initial_state=state)
+        assert _rel(y, want_y) <= TOL_REL
+        for i, ref in enumerate(states):
+            assert _rel(saved[:, :, :, 4 + i], ref) <= TOL_REL, i
+        want = slstm_scan_bwd_plain(wx, r, b, want_y, states, dy, initial_state=state)
+        for name, g_, w in zip(("dwx", "dr", "db"), got, want):
+            assert g_.shape == w.shape and bool(torch.isfinite(g_).all()), name
+            assert _rel(g_, w) <= TOL_REL, name
+
+
+@pytest.mark.parametrize("DH", [32, 128])
+def test_slstm_function_grads_match_autograd(cuda_device, DH):
+    """``slstm_scan_fwd`` under grad (``_SlstmFunction``: K5 with its
+    workspace, then the reverse-time kernel) against autograd of the plain
+    scan, from the zero state and from a carried-in constant state."""
+    wx, r, b = _slstm_args(3, 29, 2, DH, cuda_device, seed=DH + 3)
+    dy = torch.randn(3, 29, 2, DH, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(DH))
+    _, state = slstm_scan(wx[:, :4], r, b, return_last_state=True)
+    for init in (None, state):
+        grads = []
+        for fn in (slstm_scan_fwd, slstm_scan):
+            leaves = [t.clone().requires_grad_() for t in (wx, r, b)]
+            (fn(*leaves, initial_state=init) * dy).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for name, g_, w in zip(("wx", "r", "b"), *grads):
+            assert _rel(g_, w) <= TOL_REL, name
+
+
+@pytest.mark.parametrize("S,DH,igate_act", [
+    (256, 128, "exp"), (256, 256, "exp"), (200, 128, "sigmoid"), (77, 256, "exp"),
+    (1024, 256, "exp"),
+], ids=["dh128", "dh256", "ragged_sigmoid_dh128", "ragged_dh256", "wide_S1024_dh256"])
+def test_mlstm_bwd_kernel_wide_heads_match_reference(cuda_device, S, DH, igate_act):
+    """K2 at head dims 128 and 256 on the carry states K1 leaves in its
+    workspace, against ``mlstm_chunkwise_bwd_ref`` (whole chunks) or its
+    zero-padded plain version (ragged S); then the same through autograd
+    (``mlstm_chunkwise_fwd`` under grad)."""
+    g = torch.Generator().manual_seed(S + DH)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to(cuda_device)
+    q = mk(2, 4, S, DH)
+    k, v, i, f, dh = q + 0.3 * mk(2, 4, S, DH), mk(2, 4, S, DH), mk(2, 4, S) - 3.0, \
+        mk(2, 4, S) + 3.0, mk(2, 4, S, DH)
+    _, ws, off = mlstm_fwd_launch(q, k, v, i, f, igate_act, 1e-6, states=True)
+    carry = _carry_states(ws, off, 8, S, DH)
+    before = mlstm_chunkwise_bwd.launches
+    got = mlstm_chunkwise_bwd_heads(q, k, v, i, f, dh, carry=carry, igate_act=igate_act)
+    torch.cuda.synchronize()
+    assert mlstm_chunkwise_bwd.launches == before + 1
+    if S % 64 == 0:
+        want = mlstm_chunkwise_bwd_ref(q, k, v, i, f, dh, chunk_size=64, igate_act=igate_act)
+    else:
+        want = mlstm_chunkwise_bwd_heads(*(t.cpu() for t in (q, k, v, i, f, dh)),
+                                         igate_act=igate_act)
+    for name, g_, w in zip("qkvif", got, want):
+        assert bool(torch.isfinite(g_).all()), name
+        assert _rel(g_, w.to(cuda_device)) <= TOL_REL, name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, i, f)]
+    (mlstm_chunkwise_fwd(*leaves, igate_act=igate_act) * dh).sum().backward()
+    for name, leaf, w in zip("qkvif", leaves, want):
+        assert _rel(leaf.grad, w.to(cuda_device)) <= TOL_REL, name
 
 
 @pytest.mark.parametrize("DH", [32, 64, 128])

@@ -27,6 +27,7 @@ from xlstm_yolo_tpu.kernels import mlstm_native as J
 from xlstm_yolo_tpu.kernels.mlstm_bwd import mlstm_chunkwise_bwd_ref as jax_bwd_ref
 from xlstm_yolo_tpu.kernels.mlstm_pallas import _mlstm_pallas_fwd_impl, mlstm_chunkwise_pallas
 from xlstm_yolo_torch.kernels import mlstm_native as T
+from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
 from xlstm_yolo_torch.kernels.mlstm_fwd import (
     mlstm_chunkwise_bwd_heads, mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
 
@@ -143,20 +144,18 @@ def test_mlstm_chunkwise_fwd_on_cpu_is_the_plain_version():
 
 def test_mlstm_chunkwise_fwd_off_cpu_refuses():
     """Off the CPU nothing falls back to the plain version: a call that
-    needs gradients at a head dim the backward kernel does not take, a head
-    dim the kernel does not take, an unknown gate activation and a device
-    that is no CUDA device (with and without gradients at head dim 64, where
-    the backward kernel is bound) each raise, without touching a card."""
+    needs gradients takes the kernels' route at every head dim the kernels
+    take (64, 128, 256) and so refuses a device that is no CUDA device, with
+    no launch counted; a head dim the kernel does not take, an unknown gate
+    activation and a device that is no CUDA device without gradients each
+    raise, without touching a card."""
     meta = lambda DH: tuple(torch.from_numpy(a).to("meta") for a in _inputs(8, S=16, DH=DH))
-    before = mlstm_chunkwise_fwd.launches
-    for DH in (128, 256):
+    before = (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches)
+    for DH in (64, 128, 256):
         args = meta(DH)
-        with pytest.raises(NotImplementedError, match="head dim 64"):
+        with pytest.raises(ValueError, match="unsupported device"):
             mlstm_chunkwise_fwd(args[0].requires_grad_(), *args[1:])
-    args = meta(64)
-    with pytest.raises(ValueError, match="unsupported device"):
-        mlstm_chunkwise_fwd(args[0].requires_grad_(), *args[1:])
-    assert mlstm_chunkwise_fwd.launches == before
+    assert (mlstm_chunkwise_fwd.launches, mlstm_chunkwise_bwd.launches) == before
     with pytest.raises(ValueError, match="head dim"):
         mlstm_chunkwise_fwd(*meta(32))
     with pytest.raises(ValueError, match="igate_act"):

@@ -44,13 +44,28 @@ def _cell_inputs(seed, B=2, NH=2, S=32, DH=8):
     return q, k, v, i, f, dh
 
 
-@pytest.mark.parametrize("igate_act", ["exp", "sigmoid"])
-def test_mlstm_chunkwise_bwd_ref_matches_jax(igate_act):
-    a = _cell_inputs(0)
+@pytest.mark.parametrize("igate_act,DH", [("exp", 8), ("sigmoid", 8), ("exp", 128)],
+                         ids=["exp", "sigmoid", "exp-dh128"])
+def test_mlstm_chunkwise_bwd_ref_matches_jax(igate_act, DH):
+    """The reference, and the kernel's plain version on the natural
+    (B, S, NH*DH) layout, at a small head dim and at the language model's
+    head dim 128 (the CUDA kernel takes 64, 128 and 256)."""
+    a = _cell_inputs(0, DH=DH)
     want = jax_bwd_ref(*map(jnp.asarray, a), chunk_size=8, igate_act=igate_act)
     got = T.mlstm_chunkwise_bwd_ref(*map(torch.from_numpy, a), chunk_size=8,
                                     igate_act=igate_act)
     for name, g, w in zip("qkvif", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)
+    B, NH, S, _ = a[0].shape
+    nat = lambda t: torch.from_numpy(t).transpose(1, 2).reshape(B, S, NH * DH)
+    q, k, v, i, f, dh = a
+    got = T.mlstm_chunkwise_bwd_plain(nat(q), nat(k), nat(v), torch.from_numpy(i),
+                                      torch.from_numpy(f), nat(dh), NH, chunk_size=8,
+                                      igate_act=igate_act)
+    for name, g, w in zip("qkv", got[:3], want[:3]):
+        w = np.asarray(w).transpose(0, 2, 1, 3).reshape(B, S, NH * DH)
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL)
+    for name, g, w in zip("if", got[3:], want[3:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)
 
 

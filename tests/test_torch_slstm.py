@@ -4,13 +4,17 @@ Same seeded numpy inputs through ``xlstm_yolo_tpu.kernels.slstm`` (and the
 fused Pallas kernel in interpret mode) and ``xlstm_yolo_torch.kernels.slstm``
 on the CPU, where ``slstm_scan_fwd`` takes the kernel's plain version.
 Tolerance 1e-5 of each output's max: the same fp32 recurrence, differing in
-summation order only. The CUDA kernel itself is checked on the card in
+summation order only. The reverse-time kernel's plain version
+(``slstm_scan_bwd_plain``, the stabilizer held constant) is held to
+``jax.vjp`` of the JAX scan, the JAX entry's backward, at the same
+tolerance. The CUDA kernels themselves are checked on the card in
 ``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from xlstm_yolo_tpu.kernels import slstm as J
@@ -118,27 +122,71 @@ def test_slstm_scan_fwd_on_cpu_is_differentiable():
 
 def test_slstm_scan_fwd_off_cpu_refuses():
     """Off the CPU nothing falls back to the plain scan: a call that needs
-    gradients, a head dim the kernel is not built for, and a device that is
-    no CUDA device each raise, without touching a card."""
+    gradients takes the kernels' route (the autograd Function) and so
+    refuses a device that is no CUDA device, as a call without gradients
+    does; a head dim the kernel is not built for raises; no launch is
+    counted. Nothing touches a card."""
     meta = lambda DH: tuple(torch.from_numpy(a).to("meta") for a in _inputs(7, DH=DH))
     wx, r, b = meta(32)
-    with pytest.raises(NotImplementedError):
+    launches = lambda: (T.slstm_scan_fwd.launches, T.slstm_scan_bwd.launches)
+    before = launches()
+    with pytest.raises(ValueError, match="unsupported device"):
         T.slstm_scan_fwd(wx, r.requires_grad_(), b)
     with pytest.raises(ValueError, match="head dim"):
         T.slstm_scan_fwd(*meta(8))
     with pytest.raises(ValueError, match="unsupported device"):
         T.slstm_scan_fwd(*meta(32))
+    assert launches() == before
 
 
 def test_slstm_scan_fwd_off_cpu_state_carry_does_not_fall_back():
     """An explicit state carry off the CPU goes the kernel's way too: it
-    refuses gradients of the carried state and a device that is no CUDA
-    device, instead of running the plain scan there."""
+    refuses gradients of the carried state (and of the returned last
+    state) and a device that is no CUDA device, instead of running the
+    plain scan there."""
     wx, r, b = (torch.from_numpy(a).to("meta") for a in _inputs(8, DH=32))
     state = tuple(torch.zeros((2, 3, 32), device="meta") for _ in range(4))
     with pytest.raises(NotImplementedError):
         T.slstm_scan_fwd(wx, r, b, initial_state=tuple(s.requires_grad_() for s in state))
+    with pytest.raises(NotImplementedError):
+        T.slstm_scan_fwd(wx.requires_grad_(), r, b, return_last_state=True)
+    wx = wx.detach()
     with pytest.raises(ValueError, match="unsupported device"):
         T.slstm_scan_fwd(wx, r, b, initial_state=tuple(s.detach() for s in state))
     with pytest.raises(ValueError, match="unsupported device"):
         T.slstm_scan_fwd(wx, r, b, return_last_state=True)
+
+
+@pytest.mark.parametrize("DH,S,carried", [(8, 1, False), (8, 13, False), (32, 1, False),
+                                          (32, 13, False), (8, 13, True)],
+                         ids=["dh8_S1", "dh8_ragged", "dh32_S1", "dh32_ragged", "dh8_carried"])
+def test_slstm_scan_bwd_plain_matches_jax_vjp_and_autograd(DH, S, carried):
+    """The reverse recurrence (stabilizer held constant) on the plain
+    forward's states gives ``jax.vjp`` of the JAX scan (the JAX entry's
+    backward) and autograd of the port's scan, for a recurrent kernel that
+    matters, from the zero state and from a carried-in one."""
+    B, NH = 2, 3
+    wx, r, b = _inputs(10 + DH + S, B=B, S=S, NH=NH, DH=DH)
+    rng = np.random.default_rng(DH + S)
+    r = (rng.normal(size=r.shape) * 0.5 * DH ** -0.5).astype(np.float32)
+    dy = rng.normal(size=(B, S, NH, DH)).astype(np.float32)
+    init = None
+    if carried:
+        y0, c0, n0, m0 = (rng.normal(size=(B, NH, DH)).astype(np.float32) for _ in range(4))
+        init = (y0, c0, np.abs(n0) + 0.5, m0)
+
+    jinit = None if init is None else tuple(map(jnp.asarray, init))
+    _, vjp = jax.vjp(lambda *a: J.slstm_scan(*a, initial_state=jinit), *map(jnp.asarray, (wx, r, b)))
+    want = vjp(jnp.asarray(dy))
+
+    tinit = None if init is None else tuple(map(torch.from_numpy, init))
+    targs = tuple(torch.from_numpy(a).requires_grad_() for a in (wx, r, b))
+    (T.slstm_scan(*targs, initial_state=tinit) * torch.from_numpy(dy)).sum().backward()
+    with torch.no_grad():
+        y, states = T.slstm_scan_states(*targs, initial_state=tinit)
+        got = T.slstm_scan_bwd_plain(*targs, y, states, torch.from_numpy(dy), initial_state=tinit)
+    assert_close(y.numpy(), J.slstm_scan(*map(jnp.asarray, (wx, r, b)), initial_state=jinit))
+    for name, g, w, a in zip(("dwx", "dr", "db"), got, want, targs):
+        assert tuple(g.shape) == w.shape, name
+        assert_close(g.numpy(), w)
+        assert_close(g.numpy(), a.grad.numpy())

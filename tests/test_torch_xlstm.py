@@ -379,21 +379,25 @@ def test_lm_loss_matches_optax():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
-@pytest.mark.parametrize("S", [17, 14])
-def test_mlstm_lm_train_step_matches_jax(S):
-    """One train step of a small mLSTM-only language model (the class
-    default ``slstm_at=()``): next-token loss and every gradient against
-    ``jax.value_and_grad`` (1e-4 of each tensor's max), then the parameters
-    and their EMA after ``StepUpdate`` against the JAX package's SGD step."""
+def _train_step_matches_jax(cfg, S, seed, recurrent_std=0.0):
+    """One train step of ``xLSTMLMModel(**cfg)``: next-token loss and every
+    gradient against ``jax.value_and_grad`` (loss rtol 1e-5, gradients 1e-4
+    of each tensor's max), then the parameters and their EMA after
+    ``StepUpdate`` against the JAX package's SGD step. Every JAX leaf is
+    perturbed with seeded noise; the sLSTM recurrent kernels (zero at init)
+    get ``recurrent_std`` more, so the recurrence's gradient matters."""
     import optax  # noqa: F401  (build_flat_step's optimizer)
 
     from xlstm_yolo_tpu.utils import train_utils as JTU
 
-    cfg = dict(vocab_size=50, embedding_dim=32, num_blocks=2, num_heads=4, chunk_size=8)
-    tokens = np.random.default_rng(21).integers(0, 50, (2, S))
+    tokens = np.random.default_rng(seed).integers(0, cfg["vocab_size"], (2, S))
     x, y = tokens[:, :-1], tokens[:, 1:]
     jm = JX.xLSTMLMModel(**cfg)
-    v = jax_init(jm, x, 21)
+    v = jax_init(jm, x, seed)
+    rng = np.random.default_rng(seed + 1)
+    v = jax.tree_util.tree_map_with_path(
+        lambda path, p: p + recurrent_std * jnp.asarray(rng.normal(size=p.shape), p.dtype)
+        if "recurrent_kernel" in jax.tree_util.keystr(path) else p, v)
 
     def loss_fn(params):
         import optax as ox
@@ -424,3 +428,28 @@ def test_mlstm_lm_train_step_matches_jax(S):
                                    err_msg=n)
         np.testing.assert_allclose(update.ema[i].numpy(), want_e[n], rtol=1e-5, atol=1e-6,
                                    err_msg=n)
+
+
+@pytest.mark.parametrize("S", [17, 14])
+def test_mlstm_lm_train_step_matches_jax(S):
+    """One train step of a small mLSTM-only language model (the class
+    default ``slstm_at=()``), as ``_train_step_matches_jax`` checks it."""
+    _train_step_matches_jax(dict(vocab_size=50, embedding_dim=32, num_blocks=2, num_heads=4,
+                                 chunk_size=8), S, seed=21)
+
+
+def test_slstm_lm_train_step_matches_jax():
+    """One train step of a small language model with an sLSTM block
+    (``slstm_at=(1,)``, sLSTM head dim 8), its recurrent kernel drawn well
+    away from zero: on the CPU the sLSTM scan is differentiated by autograd,
+    as the JAX entry's backward takes ``jax.vjp`` of its scan."""
+    _train_step_matches_jax(dict(vocab_size=50, embedding_dim=32, num_blocks=2, slstm_at=(1,),
+                                 num_heads=4, chunk_size=8), 17, seed=22, recurrent_std=0.2)
+
+
+def test_lm_train_step_at_head_dim_128_matches_jax():
+    """One train step of an mLSTM-only language model whose cell runs at
+    head dim 128 (embedding 256, inner 512 over 4 heads), the width at
+    which the chunkwise backward's wide path runs on the card."""
+    _train_step_matches_jax(dict(vocab_size=50, embedding_dim=256, num_blocks=2, num_heads=4,
+                                 chunk_size=8), 17, seed=23)

@@ -6,9 +6,11 @@ Traces, with ``torch.profiler`` (CPU and CUDA activities), the models that
 ``chip_smoke.py`` drives in its ``lm_path`` phase, on the same tokens
 (``chip_smoke.lm_inputs``): a few forwards of the README model at its
 context, a few greedy ``generate`` steps from the prompt, and a few forwards
-of the wide model; then the train step that ``lm_train_path`` drives (the
-mLSTM-only model at the README widths on ``chip_smoke.lm_train_inputs``:
-forward, ``lm_loss``, backward, ``StepUpdate``). For each window it prints one JSON line: the wall time
+of the wide model; then the train steps that ``lm_train_path`` drives (its
+three models, ``chip_smoke.LM_TRAIN_MODELS``: the mLSTM-only one at the
+README widths, the README model with its sLSTM block, the wide model at S
+1024, on ``chip_smoke.lm_train_inputs``: forward, ``lm_loss``, backward,
+``StepUpdate``). For each window it prints one JSON line: the wall time
 per call, the device-busy time per call (the sum of the CUDA kernels' own
 times), the idle share (1 - busy / wall), the number of kernels per call,
 and the kernels that take most of the device time, by name. The last line
@@ -72,16 +74,18 @@ def main() -> int:
                        lambda: generate(model, tokens[:, :cs.LM_PROMPT], max_new_tokens=8), calls=2)
         profile_window("wide_forward_S1024", lambda: wide(wide_tokens), calls=3)
     del model, wide
-    trained = cs.build_lm_model(cs.LM_TRAIN, "cuda").train()
-    update = StepUpdate(trained)
-    inputs, targets = cs.lm_train_inputs()
+    for label, cfg, S in cs.LM_TRAIN_MODELS:
+        trained = cs.build_lm_model(cfg, "cuda").train()
+        update = StepUpdate(trained)
+        inputs, targets = cs.lm_train_inputs(cfg["vocab_size"], S)
 
-    def train_step():
-        trained.zero_grad(set_to_none=True)
-        lm_loss(trained(inputs), targets).backward()
-        update(1)
+        def train_step():
+            trained.zero_grad(set_to_none=True)
+            lm_loss(trained(inputs), targets).backward()
+            update(1)
 
-    profile_window("mlstm_only_train_step_S256", train_step, calls=3)
+        profile_window(f"{label}_train_step_S{S}", train_step, calls=3)
+        del trained, update
     print(smi_line, flush=True)
     return 0
 

@@ -46,11 +46,29 @@
 // Gate math, stabilizers, exp/log, normalizer and scans stay fp32 on the
 // CUDA cores.
 //
-// The chunk is fixed at 64 and the head dim is a template parameter of the
-// kernels, instantiated at 64 (one tile product per head). A sequence that
-// is not a chunk multiple is masked in its last chunk exactly as the forward
-// masks it: missing steps load zeros with an input-gate log of -1e30 and a
-// forget-gate log of 0; nothing is written for them.
+// The chunk is fixed at 64. At head dim 64 (the ViL family's and the small
+// language model's) A and C are the kernels above, one tile product per
+// head. Head dims 128 and 256 (the chunkwise forward K1 takes both) run
+// the same three stages in `bwd_wide_local` and `bwd_wide_carry`: one CTA
+// per (chunk, head row) still, walking the head in 64-wide slices. A
+// chunk's q, k, v, dh and carried C at DH 256 are 4 x 64 KB and 256 KB, more
+// than a CTA's 227 KB of shared memory, so the CTA stages two 64 x 64
+// operand tiles at a time (a q or k slice c, a v or dh value tile r, the
+// carried C's block C[c, r]) and holds the chunk's own CS x CS matrix (E,
+// then dqk) throughout: five tiles, 92 KB at every head dim, two CTAs an
+// SM. Every contraction over a head dimension becomes a sum of 64-deep tile
+// products over its slices, accumulated in registers (q k^T and q n over
+// c; q C[:, r] over c for the recomputed h; dA v^T over r; dA C[c, :]^T
+// over r; k dC[:, r] over c and v dC[c, :]^T over r in C). Row scalings by
+// the normalizer (dA = dh / normalizer) are folded into the products'
+// k-scale or applied to their outputs, so dA is never materialized. The
+// chunks of the language model (512 chunk-heads at batch 8, S 1024) fill
+// the card without a cluster: no product waits on a peer. B is unchanged;
+// it is elementwise at any DH.
+// A sequence that is not a chunk multiple is masked in its last chunk
+// exactly as the forward masks it: missing steps load zeros with an
+// input-gate log of -1e30 and a forget-gate log of 0; nothing is written
+// for them.
 
 #include <cuda_runtime.h>
 
@@ -416,28 +434,45 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
 }
 
 // B. Reverse scan over chunks: dC_attn_j is replaced in place by the carry
-// dC_j (the gradient with respect to the state chunk j leaves behind).
+// dC_j (the gradient with respect to the state chunk j leaves behind). The
+// walk is elementwise and its bytes stream from device memory once; a thread
+// keeps the next PF chunks' entries (and their decay scalars) in flight in
+// registers, so the loads are not serialized behind each chunk's update.
 template <int DH>
 __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
+  constexpr int PF = 4;  // chunks in flight
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int idx = blockIdx.y * NT + tid;  // entry of C
   const bool own_n = blockIdx.y == 0 && tid < DH;
   const long row = (long)bh * p.NS;
+  // chunk j's entry, its dn_attn entry (own_n) and its decay of the carried state
+  float v[PF], w[PF], dold[PF];
+  auto fetch = [&](int k, int j) {
+    if (j < 0) return;
+    const long base = row + j;
+    v[k] = p.dcs[base * DH * DH + idx];
+    w[k] = own_n ? p.dns[base * DH + tid] : 0.f;
+    float ld_new;
+    chunk_decays(p, base, &dold[k], &ld_new);
+  };
+#pragma unroll
+  for (int k = 0; k < PF; ++k) fetch(k, p.NS - 1 - k);
   float c = 0.f, nn = 0.f;
   for (int j = p.NS - 1; j >= 0; --j) {
+    const float dca = v[0], dna = w[0], d = expf(dold[0]);
+#pragma unroll
+    for (int k = 0; k + 1 < PF; ++k) {
+      v[k] = v[k + 1];
+      w[k] = w[k + 1];
+      dold[k] = dold[k + 1];
+    }
+    fetch(PF - 1, j - PF);
     const long base = row + j;
-    float ld_old, ld_new;
-    chunk_decays(p, base, &ld_old, &ld_new);
-    const float dold = expf(ld_old);
-    float* cp = p.dcs + base * DH * DH + idx;
-    const float dca = *cp;
-    *cp = c;
-    c = dca + c * dold;
+    p.dcs[base * DH * DH + idx] = c;
+    c = dca + c * d;
     if (own_n) {
-      float* np_ = p.dns + base * DH + tid;
-      const float dna = *np_;
-      *np_ = nn;
-      nn = dna + nn * dold;
+      p.dns[base * DH + tid] = nn;
+      nn = dna + nn * d;
     }
   }
 }
@@ -549,6 +584,413 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   }
 }
 
+// ---- head dims 128 and 256: the head in 64-wide slices ------------------------
+
+// Writes a 64 x 64 accumulator tile to global memory at row stride ld.
+__device__ __forceinline__ void store_global(const Acc& a, float* dst, long ld) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh;
+      *reinterpret_cast<float2*>(dst + Acc::row(r) * ld + Acc::col(jj, r)) =
+          make_float2(a.c[jj][r], a.c[jj][r + 1]);
+    }
+}
+
+// Slices and blocks of one (chunk, head row) at head dim DH = ND * 64.
+template <int ND>
+struct Slices {
+  static constexpr int DH = ND * 64;
+  const Params& p;
+  long hoff;  // element (s0, head column 0) of the (B, S, INNER) arrays
+  int nrows;  // valid rows of the chunk
+
+  // the 64 columns 64c .. of the head block of a (B, S, INNER) array
+  __device__ void slice(float* dst, const float* src, int c) const {
+    tile::load_async<CS, 64>(dst, LDS, src + hoff + c * 64, p.INNER, nrows, 64);
+  }
+  // block (c, r) of a DH x DH matrix at `m`
+  __device__ static void block(float* dst, const float* m, int c, int r) {
+    tile::load_async<64, 64>(dst, LDS, m + (long)c * 64 * DH + r * 64, DH, 64, 64);
+  }
+};
+
+// Waits for every copy issued, then for every thread.
+__device__ __forceinline__ void ready() {
+  tile::cp_async_commit();
+  tile::cp_async_wait_all();
+  __syncthreads();
+}
+
+constexpr size_t kWideLocalSmem = sizeof(float) * (5 * TF + 20 * CS);
+
+// A at DH = 64 ND: the same gradients as bwd_chunk_local.
+template <int ND>
+__global__ void __launch_bounds__(NT, 2) bwd_wide_local(Params p) {
+  constexpr int DH = ND * 64;
+  const float QS = 1.f / sqrtf((float)DH);
+  extern __shared__ __align__(16) float sm[];
+  float* Qt = sm;                // q slice c (unscaled)
+  float* Kt = Qt + TF;           // k slice c, or the value tile v_r
+  float* Dt = Kt + TF;           // the value tile dh_r
+  float* Ct = Dt + TF;           // block C[c, r] of the carried-in C
+  float* E = Ct + TF;            // row t col s: (q_t . k_s / sqrt(DH)) D_ts; later dqk = de D
+  float* nv = E + TF;            // CS: slice c of the carried-in n
+  float* bcs = nv + CS;          // CS cumsum of log f
+  float* li = bcs + CS;          // CS log input gate
+  float* cm = li + CS;           // CS running max of li - b
+  float* stab = cm + CS;         // CS stabilizer
+  float* av = stab + CS;         // CS inter-chunk scale a_t
+  float* nrm = av + CS;          // CS normalizer
+  float* invn = nrm + CS;        // CS 1 / normalizer
+  float* ascl = invn + CS;       // CS a_t / sqrt(DH) / normalizer
+  float* row = ascl + CS;        // CS unnormalized row sum
+  float* qnv = row + CS;         // CS q . n
+  float* dR = qnv + CS;          // CS
+  float* dbv = dR + CS;          // CS d b, in-chunk part
+  float* dli = dbv + CS;         // CS d log i, in-chunk part
+  float* rpart = dli + CS;       // 2 x CS row partials of the two column halves
+  float* cpart = rpart + 2 * CS; // 4 x CS column partials of the four row quarters
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
+  const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const Slices<ND> sl{p, ((long)b * p.S + s0) * p.INNER + (long)n * DH, nrows};
+  const float* cprev = p.cprev + base * DH * DH;
+  auto decay = [&](int t, int s) { return expf(li[s] - bcs[s] + bcs[t] - stab[t]); };
+  auto load_n = [&](int c) {
+    if (tid < 64) nv[tid] = p.nprev[base * DH + c * 64 + tid];
+  };
+
+  load_gates(p, bh, s0, bcs, li);
+  const float m_prev = p.mprev[base];
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(bcs);
+  __syncthreads();
+  if (tid < CS) cm[tid] = li[tid] - bcs[tid];
+  __syncthreads();
+  if (tid < 32) warp_scan64<true>(cm);
+  __syncthreads();
+  if (tid < CS) {
+    const float inter_log = m_prev + bcs[tid];
+    const float st = fmaxf(bcs[tid] + cm[tid], inter_log);
+    stab[tid] = st;
+    av[tid] = expf(inter_log - st);
+  }
+
+  // q k^T (causal) and q . n, summed over the slices
+  {
+    Acc s;
+    s.zero();
+    float qn = 0.f;  // thread (row tid / 4, quarter tid % 4)'s share of q_t . n
+    const int t = tid >> 2, part = 16 * (tid & 3);
+    for (int c = 0; c < ND; ++c) {
+      __syncthreads();
+      sl.slice(Qt, p.q, c);
+      sl.slice(Kt, p.k, c);
+      load_n(c);
+      ready();
+      tile::mma<false, true, tile::OUT_LOWER>(s, Qt, LDS, Kt, LDS, 64);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) qn += Qt[t * LDS + part + i] * nv[part + i];
+    }
+    qn = tile::quad_sum(qn);
+    if ((tid & 3) == 0) qnv[t] = qn;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int tt = Acc::row(r), c = Acc::col(jj, r);
+        E[tt * LDS + c] = c <= tt ? s.c[jj][r] * QS * decay(tt, c) : 0.f;
+      }
+  }
+  __syncthreads();
+
+  // normalizer
+  for (int t = warp; t < CS; t += NW) {
+    const float es = warp_sum(E[t * LDS + lane] + E[t * LDS + lane + 32]);
+    if (lane == 0) {
+      const float r = es + av[t] * QS * qnv[t];
+      const float nr = fmaxf(fabsf(r), expf(-stab[t])) + p.eps;
+      row[t] = r;
+      nrm[t] = nr;
+      invn[t] = 1.f / nr;
+      ascl[t] = av[t] * QS / nr;
+    }
+  }
+
+  // h (recomputed) value tile by value tile, then dN_t = -sum_e dh h / normalizer
+  {
+    float pr[2] = {0.f, 0.f};
+    for (int r = 0; r < ND; ++r) {
+      Acc inter;
+      inter.zero();
+      for (int c = 0; c < ND; ++c) {
+        __syncthreads();
+        sl.slice(Qt, p.q, c);
+        Slices<ND>::block(Ct, cprev, c, r);
+        if (c == 0) {
+          sl.slice(Kt, p.v, r);
+          sl.slice(Dt, p.dh, r);
+        }
+        ready();
+        tile::mma<false, false>(inter, Qt, LDS, Ct, LDS, 64);
+      }
+      Acc intra;
+      intra.zero();
+      tile::mma<false, false, tile::K_LE_M>(intra, E, LDS, Kt, LDS, CS);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int t = Acc::row(rr), e = Acc::col(jj, rr);
+          const float h = (intra.c[jj][rr] + av[t] * QS * inter.c[jj][rr]) / nrm[t];
+          pr[rr >> 1] += Dt[t * LDS + e] * h;
+        }
+    }
+    put_row_sums(pr, rpart);
+  }
+  __syncthreads();
+  if (tid < CS) {
+    const float dN = -(rpart[tid] + rpart[CS + tid]) / nrm[tid];
+    const float r = row[tid];
+    dR[tid] = fabsf(r) > expf(-stab[tid]) ? (r > 0.f ? dN : (r < 0.f ? -dN : 0.f)) : 0.f;
+  }
+
+  // dv (in-chunk part) = E^T dA; de = dA v^T summed over the value tiles
+  Acc de;
+  de.zero();
+  for (int r = 0; r < ND; ++r) {
+    __syncthreads();
+    sl.slice(Kt, p.v, r);
+    sl.slice(Dt, p.dh, r);
+    ready();
+    tile::mma<false, true, tile::OUT_LOWER>(de, Dt, LDS, Kt, LDS, 64);
+    Acc a;
+    a.zero();
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, Dt, LDS, CS, invn);
+    put_rows<false>(a, p.dv, p, b, s0, n * DH + r * 64, 1.f);
+  }
+  __syncthreads();  // E is overwritten below
+
+  // de = dA v^T + dR (causal); G = de E gives the gate sums; E <- dqk = de D
+  {
+    float rs[2] = {0.f, 0.f};
+    float cs[4][2];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      cs[jj][0] = 0.f;
+      cs[jj][1] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), s = Acc::col(jj, r);
+        float g = 0.f, dqk = 0.f;
+        if (s <= t) {
+          const float d = de.c[jj][r] * invn[t] + dR[t];
+          g = d * E[t * LDS + s];
+          dqk = d * decay(t, s);
+        }
+        E[t * LDS + s] = dqk;
+        rs[r >> 1] += g;
+        cs[jj][r & 1] += g;
+      }
+    }
+    put_row_sums(rs, rpart);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        float c = cs[jj][par];
+        c += __shfl_xor_sync(0xffffffffu, c, 4);
+        c += __shfl_xor_sync(0xffffffffu, c, 8);
+        c += __shfl_xor_sync(0xffffffffu, c, 16);
+        if (lane < 4) cpart[(warp & 3) * CS + Acc::col(jj, par)] = c;
+      }
+  }
+  __syncthreads();
+  if (tid < CS) {  // db[t] = rowsum G - colsum G, dlogi[s] = colsum G
+    const float colsum = cpart[tid] + cpart[CS + tid] + cpart[2 * CS + tid] + cpart[3 * CS + tid];
+    dli[tid] = colsum;
+    dbv[tid] = rpart[tid] + rpart[CS + tid] - colsum;
+  }
+
+  // per key slice c: dk (in-chunk part) = dqk^T q_c / sqrt(DH); dn_attn;
+  // dq_c = (dqk k_c + (dA C[c, :]^T + dR n_c) a_t) / sqrt(DH); dC_attn[c, r]
+  // = sum_t a_t q_c dA_r^T / sqrt(DH); inter d b_t = a_t sum_d dqt q / sqrt(DH)
+  {
+    float pq[2] = {0.f, 0.f};
+    for (int c = 0; c < ND; ++c) {
+      __syncthreads();
+      sl.slice(Qt, p.q, c);
+      sl.slice(Kt, p.k, c);
+      load_n(c);
+      ready();
+      {
+        Acc a;
+        a.zero();
+        tile::mma<true, false, tile::K_GE_M>(a, E, LDS, Qt, LDS, CS);
+        put_rows<false>(a, p.dk, p, b, s0, n * DH + c * 64, QS);
+      }
+      if (tid < 64) {
+        float acc = 0.f;
+        for (int t = 0; t < CS; ++t) acc += dR[t] * (av[t] * QS) * Qt[t * LDS + tid];
+        p.dns[base * DH + c * 64 + tid] = acc;
+      }
+      Acc dq, dt;
+      dq.zero();
+      dt.zero();
+      tile::mma<false, false, tile::K_LE_M>(dq, E, LDS, Kt, LDS, CS);
+      for (int r = 0; r < ND; ++r) {
+        __syncthreads();
+        sl.slice(Dt, p.dh, r);
+        Slices<ND>::block(Ct, cprev, c, r);
+        ready();
+        tile::mma<false, true>(dt, Dt, LDS, Ct, LDS, 64);
+        Acc a;
+        a.zero();
+        tile::mma<true, false>(a, Qt, LDS, Dt, LDS, CS, ascl);
+        store_global(a, p.dcs + base * DH * DH + (long)c * 64 * DH + r * 64, DH);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int t = Acc::row(r), d = Acc::col(jj, r);
+          const float dqt = dt.c[jj][r] * invn[t] + dR[t] * nv[d];
+          pq[r >> 1] += dqt * Qt[t * LDS + d];
+          dq.c[jj][r] += dqt * av[t];
+        }
+      put_rows<false>(dq, p.dq, p, b, s0, n * DH + c * 64, QS);
+    }
+    put_row_sums(pq, rpart);
+  }
+  __syncthreads();
+  if (tid < CS) {
+    const int sg = s0 + tid;
+    if (sg < p.S) {
+      p.df[(long)bh * p.S + sg] = dbv[tid] + av[tid] * QS * (rpart[tid] + rpart[CS + tid]);
+      p.di[(long)bh * p.S + sg] = dli[tid];
+    }
+  }
+}
+
+// C at DH = 64 ND: the same terms as bwd_chunk_carry.
+template <int ND>
+__global__ void __launch_bounds__(NT, 2) bwd_wide_carry(Params p) {
+  constexpr int DH = ND * 64;
+  extern __shared__ __align__(16) float sm[];
+  float* Kt = sm;                // k slice c
+  float* Vt = Kt + TF;           // value tile v_r
+  float* Dc = Vt + TF;           // block dC[c, r] of the carry dC_j
+  __shared__ float bcs[CS], li[CS], gw[CS], dks[64], db[CS], rev[CS], rpart[2 * CS], red[NW];
+  __shared__ float gsum[2];
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
+  const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const Slices<ND> sl{p, ((long)b * p.S + s0) * p.INNER + (long)n * DH, nrows};
+  float ld_old, ld_new;
+  chunk_decays(p, base, &ld_old, &ld_new);
+  const float d_new = expf(ld_new), d_old = expf(ld_old);
+  const float btot = p.btot[base], mloc = p.mloc[base];
+  const float* dcn = p.dcs + base * DH * DH;
+  const float* cpv = p.cprev + base * DH * DH;
+
+  load_gates(p, bh, s0, bcs, li);
+  float acc = 0.f;  // sum dC_j * C_prev + dn_j * n_prev
+  for (int i = tid; i < DH * DH; i += NT) acc += dcn[i] * cpv[i];
+  for (int i = tid; i < DH; i += NT) acc += p.dns[base * DH + i] * p.nprev[base * DH + i];
+  acc = warp_sum(acc);
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(bcs);
+  __syncthreads();
+  if (tid < CS) gw[tid] = expf(li[tid] + (btot - bcs[tid]) - mloc);
+
+  // dv[:, r] += gw_s d_new sum_c k_c dC[c, r]
+  for (int r = 0; r < ND; ++r) {
+    Acc a;
+    a.zero();
+    for (int c = 0; c < ND; ++c) {
+      __syncthreads();
+      sl.slice(Kt, p.k, c);
+      Slices<ND>::block(Dc, dcn, c, r);
+      ready();
+      tile::mma<false, false>(a, Kt, LDS, Dc, LDS, 64);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) a.c[jj][rr] *= gw[Acc::row(rr)];
+    put_rows<true>(a, p.dv, p, b, s0, n * DH + r * 64, d_new);
+  }
+  // dk_state[:, c] = d_new sum_r v_r dC[c, r]^T + dksum_c; dk[:, c] += dk_state gw;
+  // dgw = sum_d dk_state k
+  {
+    float pr[2] = {0.f, 0.f};
+    for (int c = 0; c < ND; ++c) {
+      __syncthreads();
+      sl.slice(Kt, p.k, c);
+      if (tid < 64) dks[tid] = p.dns[base * DH + c * 64 + tid] * d_new;
+      Acc a;
+      a.zero();
+      for (int r = 0; r < ND; ++r) {
+        if (r > 0) __syncthreads();
+        sl.slice(Vt, p.v, r);
+        Slices<ND>::block(Dc, dcn, c, r);
+        ready();
+        tile::mma<false, true>(a, Vt, LDS, Dc, LDS, 64);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int s = Acc::row(rr), d = Acc::col(jj, rr);
+          const float st = a.c[jj][rr] * d_new + dks[d];
+          pr[rr >> 1] += st * Kt[s * LDS + d];
+          a.c[jj][rr] = st * gw[s];
+        }
+      put_rows<true>(a, p.dk, p, b, s0, n * DH + c * 64, 1.f);
+    }
+    put_row_sums(pr, rpart);
+  }
+  __syncthreads();
+
+  // gate terms; d btot folds into the chunk's last slot of d b
+  float gi = 0.f;
+  if (tid < CS) {
+    const int sg = s0 + tid;
+    gi = (rpart[tid] + rpart[CS + tid]) * gw[tid];
+    const float dbp = sg < p.S ? p.df[(long)bh * p.S + sg] : 0.f;
+    db[tid] = dbp - gi;
+  }
+  const float gs = warp_sum(gi);  // warps 0 and 1 hold the chunk's gi
+  if (lane == 0 && warp < 2) gsum[warp] = gs;
+  __syncthreads();
+  if (tid == 0) {
+    float dbt = 0.f;
+    for (int w = 0; w < NW; ++w) dbt += red[w];
+    db[CS - 1] += dbt * d_old + gsum[0] + gsum[1];
+  }
+  __syncthreads();
+  // reverse inclusive cumsum: dlogf_t = sum_{s >= t} db_s
+  if (tid < CS) rev[tid] = db[CS - 1 - tid];
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(rev);
+  __syncthreads();
+  if (tid < CS) {
+    const int sg = s0 + tid;
+    if (sg < p.S) {
+      const long o = (long)bh * p.S + sg;
+      const float dlogf = rev[CS - 1 - tid];
+      const float dli = p.di[o] + gi;
+      p.df[o] = dlogf * sigmoid(-p.fg[o]);
+      p.di[o] = p.igate_exp ? dli : dli * sigmoid(-p.ig[o]);
+    }
+  }
+}
+
 template <int DH>
 constexpr size_t local_smem() {
   return sizeof(float) * (6 * TF + DH + 16 * CS);
@@ -565,48 +1007,60 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The three launches at head dim DH.
-template <int DH>
+// The three launches at head dim DH = 64 ND.
+template <int ND>
 int launch(Params& p, float* ws, cudaStream_t st) {
+  constexpr int DH = ND * 64;
   const long rows = (long)p.B * p.NH;
   p.dcs = ws;
   p.dns = ws + rows * p.NS * DH * DH;
   cudaError_t err;
-  if ((err = allow_smem(bwd_chunk_local<DH>, local_smem<DH>())) != cudaSuccess) return err;
-  if ((err = allow_smem(bwd_chunk_carry<DH>, kCarrySmem)) != cudaSuccess) return err;
-  bwd_chunk_local<DH><<<dim3(p.NS, rows), NT, local_smem<DH>(), st>>>(p);
+  if constexpr (ND == 1) {
+    if ((err = allow_smem(bwd_chunk_local<DH>, local_smem<DH>())) != cudaSuccess) return err;
+    if ((err = allow_smem(bwd_chunk_carry<DH>, kCarrySmem)) != cudaSuccess) return err;
+    bwd_chunk_local<DH><<<dim3(p.NS, rows), NT, local_smem<DH>(), st>>>(p);
+  } else {
+    if ((err = allow_smem(bwd_wide_local<ND>, kWideLocalSmem)) != cudaSuccess) return err;
+    if ((err = allow_smem(bwd_wide_carry<ND>, kCarrySmem)) != cudaSuccess) return err;
+    bwd_wide_local<ND><<<dim3(p.NS, rows), NT, kWideLocalSmem, st>>>(p);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   bwd_state_scan<DH><<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_chunk_carry<DH><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
+  if constexpr (ND == 1) bwd_chunk_carry<DH><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
+  else bwd_wide_carry<ND><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return 0;
 }
 
-constexpr int kDH = 64;  // the head dim instantiated
+bool head_dim_ok(int DH) { return DH == 64 || DH == 128 || DH == 256; }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the wrapper must allocate for one call (the dC / dn
-// carries of every chunk).
-long mlstm_bwd_workspace_floats(int B, int S, int NH) {
+// Floats of scratch the wrapper must allocate for one call at head dim DH
+// (the dC / dn carries of every chunk).
+long mlstm_bwd_workspace_floats(int B, int S, int NH, int DH) {
   const long NS = (S + CS - 1) / CS;
-  return (long)B * NH * NS * (kDH * kDH + kDH);
+  return (long)B * NH * NS * ((long)DH * DH + DH);
 }
 
 const char* mlstm_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns 0 on success, else the CUDA error code of the first failed step.
+// Head dim INNER / NH: 64, 128 or 256. Returns 0 on success, else the CUDA
+// error code of the first failed step (cudaErrorInvalidValue for an
+// unsupported shape).
 int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* dh,
                   const float* ig, const float* fg, const float* cprev, const float* nprev,
                   const float* mprev, const float* btot, const float* mloc, float* dq,
                   float* dk, float* dv, float* di, float* df, float* ws, int B, int S,
                   int INNER, int NH, int igate_exp, float eps, void* stream) {
-  if (INNER != NH * kDH || B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || S <= 0 || NH <= 0 || INNER % NH != 0 || !head_dim_ok(INNER / NH) ||
+      (long)B * NH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v; p.dh = dh; p.ig = ig; p.fg = fg;
   p.cprev = cprev; p.nprev = nprev; p.mprev = mprev; p.btot = btot; p.mloc = mloc;
@@ -614,7 +1068,12 @@ int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* d
   p.B = B; p.S = S; p.INNER = INNER; p.NH = NH;
   p.NS = (S + CS - 1) / CS;
   p.igate_exp = igate_exp; p.eps = eps;
-  return launch<kDH>(p, ws, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (INNER / NH) {
+    case 64: return launch<1>(p, ws, st);
+    case 128: return launch<2>(p, ws, st);
+    default: return launch<4>(p, ws, st);
+  }
 }
 
 }  // extern "C"

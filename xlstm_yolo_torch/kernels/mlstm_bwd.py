@@ -14,7 +14,8 @@ gradients, and the gate gradients equal them wherever the normalizer's
 
 ``mlstm_chunkwise_bwd`` is the entry the ViL layer's backward calls, on q, k,
 v and dh in the layer's natural (B, S, INNER) layout: CPU tensors take the
-plain version, CUDA tensors launch the kernel (head dim and chunk 64) or
+plain version, CUDA tensors launch the kernel (chunk 64, head dim 64, 128 or
+256; the ViL family runs it at 64, the language model at all three) or
 raise. The kernel reads the per-chunk carry-in states that a forward kernel
 leaves in its workspace (the ViL family's, or the chunkwise forward's, which
 calls this entry through ``kernels.mlstm_fwd.mlstm_chunkwise_bwd_heads``),
@@ -35,15 +36,16 @@ from .mlstm_native import _log_igate
 
 # Shared by the launchers of this kernel and of the ViL layer, cell and block
 # kernels (kernels/vil_cell.py), whose forward leaves the carry states:
-KERNEL_DH = 64  # head dim those CUDA kernels are written for
+KERNEL_DH = 64  # head dim the ViL kernels are written for
 KERNEL_CS = 64  # their chunk length (CS in csrc/vil_layer.cu and
                 # csrc/mlstm_bwd.cu): the carry states are per chunk of it
+KERNEL_BWD_DHS = (64, 128, 256)  # head dims this module's CUDA kernel takes
 NEG = -1e30  # log input gate of a masked step
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = CudaLibrary("mlstm_bwd.cu", {
     "mlstm_bwd_f32": (_I, [_P] * 17 + [_I] * 5 + [_F, _P]),
-    "mlstm_bwd_workspace_floats": (ctypes.c_long, [_I] * 3),
+    "mlstm_bwd_workspace_floats": (ctypes.c_long, [_I] * 4),
     "mlstm_bwd_error_string": (ctypes.c_char_p, [_I]),
 })
 
@@ -258,9 +260,10 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
     """Chunkwise mLSTM backward on the ViL layer's layouts (see
     ``mlstm_chunkwise_bwd_plain``). CPU tensors take the plain version
     (``carry`` unused, ``chunk_size`` read); CUDA tensors launch the
-    hand-written kernel (fp32, head dim and chunk 64) or raise, reading
-    ``carry``, the forward's states at chunk ``KERNEL_CS``. Each kernel
-    launch adds one to ``mlstm_chunkwise_bwd.launches``."""
+    hand-written kernel (fp32, chunk 64, head dim in ``KERNEL_BWD_DHS``, B *
+    NH at most 65535) or raise, reading ``carry``, the forward's states at
+    chunk ``KERNEL_CS``. Each kernel launch adds one to
+    ``mlstm_chunkwise_bwd.launches``."""
     if q.device.type == "cpu":
         return mlstm_chunkwise_bwd_plain(q, k, v, i_preact, f_preact, dh, num_heads,
                                          chunk_size=chunk_size, igate_act=igate_act, eps=eps)
@@ -270,9 +273,12 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
         raise ValueError(f"unknown igate_act {igate_act!r}")
     B, S, INNER = q.shape
     nh = num_heads
-    if INNER != nh * KERNEL_DH:
-        raise ValueError(f"mlstm_chunkwise_bwd: the CUDA kernel needs head dim {KERNEL_DH}, "
-                         f"got INNER={INNER} over {nh} heads")
+    dh_ = INNER // nh
+    if INNER != nh * dh_ or dh_ not in KERNEL_BWD_DHS:
+        raise ValueError(f"mlstm_chunkwise_bwd: the CUDA kernel needs head dim in "
+                         f"{KERNEL_BWD_DHS}, got INNER={INNER} over {nh} heads")
+    if B * nh > 65535:
+        raise ValueError(f"mlstm_chunkwise_bwd: B * NH = {B * nh} exceeds 65535")
     if carry is None:
         raise ValueError("mlstm_chunkwise_bwd: the CUDA kernel needs the forward's carry "
                          "states (the layer kernel's workspace, or chunk_carry_states)")
@@ -282,13 +288,13 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
     chk = lambda name, x, shape: check_tensor("mlstm_chunkwise_bwd", name, x, shape, dev)
     t = [chk(n_, x, (B, S, INNER)) for n_, x in (("q", q), ("k", k), ("v", v), ("dh", dh))]
     t += [chk("i_preact", i_preact, (B, nh, S)), chk("f_preact", f_preact, (B, nh, S)),
-          chk("carry.c", carry.c, (rows, NS, KERNEL_DH, KERNEL_DH)),
-          chk("carry.n", carry.n, (rows, NS, KERNEL_DH))]
+          chk("carry.c", carry.c, (rows, NS, dh_, dh_)),
+          chk("carry.n", carry.n, (rows, NS, dh_))]
     t += [chk(f"carry.{n_}", getattr(carry, n_), (rows, NS)) for n_ in ("m", "btot", "mloc")]
     lib = _LIB.load()
     outs = [torch.empty((B, S, INNER), device=dev) for _ in range(3)]
     outs += [torch.empty((B, nh, S), device=dev) for _ in range(2)]
-    ws = torch.empty(lib.mlstm_bwd_workspace_floats(B, S, nh), device=dev)
+    ws = torch.empty(lib.mlstm_bwd_workspace_floats(B, S, nh, dh_), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.mlstm_bwd_f32(*(x.data_ptr() for x in t), *(o.data_ptr() for o in outs),

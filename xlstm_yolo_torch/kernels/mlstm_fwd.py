@@ -15,9 +15,9 @@ zero-pads at the end: the recurrence is causal, so the padded steps change no
 real position either way.
 
 Under autograd on the card the forward kernel is paired with the chunkwise
-backward kernel (``kernels/mlstm_bwd.py``) at head dim 64, as the JAX entry's
-``_bwd`` pairs them for square heads; on the CPU autograd differentiates the
-plain version. Only then does the kernel write the state carried into every
+backward kernel (``kernels/mlstm_bwd.py``) at every head dim it takes, as
+the JAX entry's ``_bwd`` pairs them for square heads; on the CPU autograd
+differentiates the plain version. Only then does the kernel write the state carried into every
 chunk to a workspace, which the backward reads; without gradients the
 states stay on chip and the call allocates nothing but h.
 """
@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import CudaLibrary, check_tensor
-from .mlstm_bwd import KERNEL_DH, CarryStates, _heads, _natural, mlstm_chunkwise_bwd
+from .mlstm_bwd import CarryStates, _heads, _natural, mlstm_chunkwise_bwd
 from .mlstm_native import mlstm_chunkwise
 
 KERNEL_DHS = (64, 128, 256)  # head dims the CUDA kernel takes
@@ -150,13 +150,11 @@ def mlstm_chunkwise_fwd(q, k, v, i_preact, f_preact, chunk_size: int = 64,
     chunks of ``KERNEL_CS``, and the result does not depend on the chunk
     length beyond rounding.
 
-    Gradients on the card: at head dim ``KERNEL_DH`` (64) the call goes
-    through an autograd Function whose backward is the chunkwise backward
-    kernel (``kernels.mlstm_bwd.mlstm_chunkwise_bwd``, frozen-stabilizer gate
-    gradients, as on the TPU), reading the carry states the forward kernel
-    left in its workspace. That kernel has no variant for head dims 128 and
-    256 yet: there a call that needs gradients raises
-    ``NotImplementedError`` rather than return a tensor cut from the graph."""
+    Gradients on the card: a call that needs them goes through an autograd
+    Function whose backward is the chunkwise backward kernel
+    (``kernels.mlstm_bwd.mlstm_chunkwise_bwd``, frozen-stabilizer gate
+    gradients, as on the TPU) at the same head dim, reading the carry states
+    the forward kernel left in its workspace."""
     if igate_act not in ("exp", "sigmoid"):
         raise ValueError(f"unknown igate_act {igate_act!r}")
     args = (q, k, v, i_preact, f_preact)
@@ -170,10 +168,6 @@ def mlstm_chunkwise_fwd(q, k, v, i_preact, f_preact, chunk_size: int = 64,
     if B * NH > MAX_ROWS:
         raise ValueError(f"mlstm_chunkwise_fwd: B * NH = {B * NH} exceeds {MAX_ROWS}")
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
-    if needs_grad and DH != KERNEL_DH:
-        raise NotImplementedError(f"mlstm_chunkwise_fwd: the chunkwise backward kernel takes "
-                                  f"head dim {KERNEL_DH} only, got {DH}; call it under "
-                                  f"torch.no_grad() or on CPU tensors")
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise_fwd: unsupported device {q.device}")
     if needs_grad:

@@ -16,15 +16,14 @@ The two recurrences run through the port's kernels: every mLSTM block calls
 every sLSTM block ``kernels.slstm.slstm_scan_fwd`` — hand-written CUDA on the
 GPU, their plain versions on the CPU. The dense projections, the 4x4
 headwise projections, the causal conv, the FFN and the LM head are torch
-ops. The model serves (forward and ``generate``) with either kind of block.
-It trains on the GPU when every block is an mLSTM block (``slstm_at=()``,
-the class default) with cell head dim 64: the chunkwise forward kernel then
-has the chunkwise backward kernel bound as its backward. One train step is
-forward -> ``utils.loss.lm_loss`` -> ``backward()`` ->
-``utils.train_utils.StepUpdate``; the JAX package has no trainer for the
-language model, and the port adds none. The sLSTM kernel has no backward
-bound to it (the JAX package differentiates its plain form there), so on the
-GPU a model with an sLSTM block raises under grad.
+ops. The model serves (forward and ``generate``) and trains with either
+kind of block, at every cell head dim the chunkwise kernels take (64, 128,
+256) and every sLSTM head dim the sLSTM kernels take (32, 64, 128). Under
+autograd on the GPU the chunkwise forward kernel has the chunkwise backward
+kernel bound as its backward, and the sLSTM kernel the reverse-time sLSTM
+kernel. One train step is forward -> ``utils.loss.lm_loss`` ->
+``backward()`` -> ``utils.train_utils.StepUpdate``; the JAX package has no
+trainer for the language model, and the port adds none.
 """
 from __future__ import annotations
 
