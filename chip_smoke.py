@@ -60,6 +60,20 @@ chunkwise backward kernel at head dim 256, the sLSTM one at 128); loss and
 every gradient against the same step with the plain versions forced in,
 then timed by stage.
 
+ViL-YOLO-n in bf16, the JAX package's default arithmetic (bf16 operands,
+fp32 accumulation; the layer kernel and the chunkwise backward in their
+bf16 entries):
+
+* bf16 serving (``main_path_bf16``) — the inference path through
+  ``Predictor(dtype="bfloat16")`` (parameters cast to bf16 as the JAX
+  ``bench.py`` casts them, bf16 letterbox and forward), checked against
+  the same bf16 model with the plain versions forced in, timed by stage;
+* the AMP training loop (``train_loop_amp``) — the first AMP step (bf16
+  activations, fp32 parameters and gradients) against the plain-forced AMP
+  step, then ``TrainStep.fit_steps`` over 4 steps with warm-up and
+  accumulation 2, stage times, peak memory, and a checkpoint saved and
+  loaded back exactly.
+
 ViL-YOLO above scale n (``vil_yolo{s,m,l,x}``, ViL widths up to DIM 640,
 INNER 1280, 20 heads): one inference forward of each at batch 2 and 640
 px, and one train step of ``vil_yolox``, each against the same model with
@@ -85,15 +99,19 @@ from unittest import mock
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA
-# cores, TF32 on the tensor cores and HBM3 bandwidth. ``bound_ms`` holds the
+# cores, TF32 and bf16 on the tensor cores and HBM3 bandwidth. ``bound_ms`` holds the
 # kernels' multiply-adds to the fp32 CUDA-core rate (one yardstick for every
 # version of a kernel); ``bound_tc_ms`` to the tensor cores at the three TF32
 # passes the 3xTF32 tile product makes of each (csrc/tile_mma.cuh).
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 TOL_REL = 1e-3
+TOL_BF16_GRAD = 3e-3  # the bf16 chunkwise backward against its plain version (relative L2)
+BF16_MAX_EXCESS = 5e-3  # a bf16 entry's largest error beyond its rounding, of the max
+BF16_METRIC = "relative L2 (bf16 outputs both rounded); max_abs_err beyond the bf16 rounding"
 BATCH, SRC_HW, IMGSZ = 8, (540, 810), 640
 # ViL-YOLO-n stages at 640 px: (name, S, DIM, INNER, NH)
 STAGES = [("P3", 6400, 64, 128, 2), ("P4", 1600, 128, 256, 4), ("P5", 400, 256, 512, 8)]
@@ -132,6 +150,7 @@ CLS_CASE = ("cls_S196", 196, 192, 384, 6, CLS_BATCH)
 # same widths at S 1600)
 X_P5_CASE = ("xP5_S400", 400, 640, 1280, 20, BATCH)
 LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE, X_P5_CASE]
+BF16_CASES = [(*stage, BATCH) for stage in STAGES]  # the bf16 entries: ViL-YOLO-n's stages
 FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH), X_P5_CASE]
 # the flagship YAML's scales above n: (YAML, ViL layers per forward)
 SCALES = [("vil_yolos.yaml", 3), ("vil_yolom.yaml", 3), ("vil_yolol.yaml", 6),
@@ -273,6 +292,51 @@ def compare(got, want):
     return abs_err, abs_err / want.abs().max().item(), bool(torch.isfinite(got).all())
 
 
+def bf16_ulp(t):
+    """One bf16 unit in the last place at each |t|: 2^(e - 8) for |t| in
+    [2^(e-1), 2^e) (8 significant bits)."""
+    import torch
+
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def compare_bf16(got, want):
+    """``compare`` for the bf16 entries: (max abs error beyond the bf16
+    output's own rounding, relative L2 error, ok). A bf16 output is held to
+    its plain version's fp32 value before that rounding: the relative L2
+    error of the two rounded to bf16, and the largest error beyond half a
+    bf16 ulp, which must stay within BF16_MAX_EXCESS of the max. The max
+    alone is no gate here: two bf16 pipelines that sum in other orders
+    round some intermediates the other way, and the plain version against
+    itself on inputs one fp32 ulp apart is 3.0e-3 of the max beyond
+    rounding at P3 (measured on an NVIDIA H100 80GB HBM3 at 700.00 W).
+    fp32 outputs: the relative L2 error and the max error within
+    BF16_MAX_EXCESS."""
+    import torch
+
+    g, w = got.float(), want.float()
+    finite = bool(torch.isfinite(got).all())
+    if got.dtype == torch.bfloat16:
+        rel_l2 = ((g - w.bfloat16().float()).norm() / w.norm()).item()
+        excess = ((g - w).abs() - 0.5 * bf16_ulp(torch.maximum(g.abs(), w.abs()))).clamp(min=0)
+    else:
+        rel_l2 = ((g - w).norm() / w.norm()).item()
+        excess = (g - w).abs()
+    abs_err = excess.max().item()
+    return abs_err, rel_l2, finite and abs_err <= BF16_MAX_EXCESS * w.abs().max().item()
+
+
+def grad_dist(grads_a, grads_b):
+    """Relative L2 distance of two gradients of a model, each taken as one
+    vector (the parameters in ``grads_b``'s order)."""
+    import torch
+
+    a = torch.cat([grads_a[n].float().flatten() for n in grads_b])
+    b = torch.cat([g.float().flatten() for g in grads_b.values()])
+    return ((a - b).norm() / b.norm()).item()
+
+
 def grad_errors(grads_k, grads_p):
     """(worst relative error, its name, count of vanishing tensors, the
     largest gradient) of the kernels' gradients against the plain-forced
@@ -309,6 +373,43 @@ def bwd_bound(B, S, INNER, NH):
     macs = B * NH * ns * (3 * CS * (CS + 1) * dh + 5 * CS * dh * dh)
     return roofline(2 * macs, 4 * (7 * B * S * INNER + 4 * B * NH * S
                                    + B * NH * ns * (dh * dh + dh + 3)))
+
+
+def bf16_vil_bound(B, S, DIM, INNER, NH, n_weight_floats):
+    """Least time for one call of the bf16 layer kernel: its multiply-adds
+    (``vil_bound``'s count for the layer) over the 989 TFLOP/s bf16
+    tensor-core peak, against the bytes of x, conv_act and out at 2 bytes
+    an activation and of the fp32 weights; ``tc_ms`` is the operations'
+    time alone."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
+
+    dh = INNER // NH
+    macs = (3 * INNER * dh + 6 * INNER * NH + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh)
+            + 3 * INNER * DIM)
+    return bf16_bound(2 * B * S * macs, 2 * B * S * (2 * DIM + INNER) + 4 * n_weight_floats)
+
+
+def bf16_bwd_bound(B, S, INNER, NH):
+    """Least time for one call of the bf16 chunkwise backward: ``bwd_bound``'s
+    multiply-adds over the bf16 tensor-core peak, against its bytes with
+    q, k, v, dq, dk, dv at 2 bytes and dh, the gates and the states at 4."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS as CS
+
+    dh = INNER // NH
+    ns = -(-S // CS)
+    macs = B * NH * ns * (3 * CS * (CS + 1) * dh + 5 * CS * dh * dh)
+    return bf16_bound(2 * macs, 2 * 6 * B * S * INNER + 4 * (B * S * INNER + 4 * B * NH * S
+                                                           + B * NH * ns * (dh * dh + dh + 3)))
+
+
+def bf16_bound(flops, nbytes):
+    """The ``Bound`` of bf16 tensor-core work: ``ms`` the larger of the
+    operations at PEAK_BF16_FLOPS and the bytes at PEAK_BYTES_PER_S,
+    ``tc_ms`` the operations alone."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return Bound(*((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")),
+                 t_ops, "operations")
 
 
 class Bound(NamedTuple):
@@ -381,7 +482,8 @@ def slstm_bound(B, NH, S, DH):
 
 
 def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
-                  batch_of=lambda case: BATCH, cross=None):
+                  batch_of=lambda case: BATCH, cross=None, cmp=None, tol=TOL_REL,
+                  metric="max relative error"):
     """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) on
     ``make_case(B, case)`` for every case, at the main path's batch
     ``batch_of(case)`` (the arguments that are then timed) and at batch 2;
@@ -391,7 +493,11 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
     kernel's outputs are held to in the same way; its time at the timed
     batch is printed as ``cross_ms`` and used nowhere else.
     Emits one line per case (with ``extra(case, ms)`` merged in) and returns
-    the totals over the cases for the kernels line."""
+    the totals over the cases for the kernels line. ``cmp`` (default
+    ``compare``) measures one output against its reference -> (abs error,
+    relative error, ok), ``tol`` bounds the relative error, ``metric``
+    names it in the printed lines."""
+    cmp = compare if cmp is None else cmp
     worst_rel, worst_abs = 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_tc_ms": 0.0}
     bound_by, bound_tc_by, ms_by_case = set(), set(), {}
@@ -400,13 +506,13 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         for B in (batch_of(case), 2):
             args = make_case(B, case)
             got = run(args, case)
-            per = [compare(g, w) for g, w in zip(got, plain(args, case))]
+            per = [cmp(g, w) for g, w in zip(got, plain(args, case))]
             if cross is not None:
                 per += [compare(g, w) for g, w in zip(got, cross(args, case))]
             errs[B] = (max(e[0] for e in per), max(e[1] for e in per), all(e[2] for e in per))
             if B == batch_of(case):
                 timed = args
-        ok = all(fin and rel <= TOL_REL for _, rel, fin in errs.values())
+        ok = all(fin and rel <= tol for _, rel, fin in errs.values())
         abs_err = max(e[0] for e in errs.values())
         rel = max(e[1] for e in errs.values())
         ms = cuda_time_ms(lambda: run(timed, case), iters=20)
@@ -416,7 +522,8 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0], **cross_ms,
               "shape": [batch_of(case), *case[1:5]],
               "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
-              "max_abs_err": abs_err, "maxrelerr": rel, "tol": TOL_REL, "ok": ok,
+              "max_abs_err": abs_err, "maxrelerr": rel, "relerr_metric": metric, "tol": tol,
+              "ok": ok,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd.ms, "bound_by": bnd.by,
               "bound_tc_ms": bnd.tc_ms, "bound_tc_by": bnd.tc_by,
               **(extra(case, ms) if extra else {})})
@@ -515,10 +622,14 @@ def phase_kernel_parity():
     each other; K6
     (vil_layer_conv_fwd vs vil_layer_conv_plain, and vs the library conv
     feeding K3) at the grids of K3's cases; K8
-    (``kth_parity``)."""
+    (``kth_parity``). The bf16 entries of K3 and K2 at the ViL-YOLO-n stages
+    against their plain bf16 versions (``compare_bf16``: relative L2 within
+    TOL_REL forward and TOL_BF16_GRAD gradients, the max beyond rounding
+    within BF16_MAX_EXCESS)."""
     import torch
 
-    from xlstm_yolo_torch.kernels.mlstm_bwd import (mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain,
+    from xlstm_yolo_torch.kernels.mlstm_bwd import (KERNEL_CS, mlstm_chunkwise_bwd,
+                                                    mlstm_chunkwise_bwd_plain,
                                                     mlstm_chunkwise_bwd_ref)
     from xlstm_yolo_torch.kernels.mlstm_fwd import (_carry_states, mlstm_chunkwise_bwd_heads,
                                                     mlstm_chunkwise_fwd, mlstm_chunkwise_fwd_plain)
@@ -712,7 +823,40 @@ def phase_kernel_parity():
         batch_of=timed_batch, cross=conv_then_layer,
         extra=lambda case, ms: {"grid": list(grid(case))})
     k8 = kth_parity(dev)
-    return k3, k2, k1, k5, k5b, k4, k7, k6, k8
+
+    # the bf16 entries at the ViL-YOLO-n stages (batch 8 timed, and 2): each
+    # against its plain bf16 version at the kernel's chunk (the rounding of E
+    # and of the carried C depends on the chunking), bf16 outputs held before
+    # their rounding (compare_bf16); beside each, the fp32 kernel's time
+    def bf16_layer_case(B, case):
+        a = layer_args(B, *case[1:5], seed=case[1] + B + 20, device=dev)
+        return [a[0].bfloat16(), a[1].bfloat16(), *a[2:]]
+
+    fp32_ms = lambda k: (lambda case, ms: {"fp32_ms": k["ms_by_case"][case[0]],
+                                           "bf16_speedup": k["ms_by_case"][case[0]] / ms})
+    k3b = kernel_parity(
+        "vil_layer_fwd_bf16", BF16_CASES, bf16_layer_case,
+        lambda args, case: (vil_layer_fwd(*args, case[4]),),
+        lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=KERNEL_CS, keep_fp32=True),),
+        lambda args, case: bf16_vil_bound(case[5], *case[1:5], sum(a.numel() for a in args[2:])),
+        batch_of=timed_batch, cmp=compare_bf16, extra=fp32_ms(k3), metric=BF16_METRIC)
+
+    def bf16_bwd_case(B, case):
+        _, S, DIM, INNER, NH, _ = case
+        a = bf16_layer_case(B, case)
+        _, (_, q, k, v, ig, fg), carry = _launch(a, Cfg(NH), True)
+        dh = torch.from_numpy(np.random.default_rng(S + B + 21).normal(
+            size=(B, S, INNER)).astype(np.float32)).to(dev)
+        return (q, k, v, ig, fg, dh), carry
+
+    k2b = kernel_parity(
+        "mlstm_chunkwise_bwd_bf16", BF16_CASES, bf16_bwd_case,
+        lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1]),
+        lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4], keep_fp32=True),
+        lambda args, case: bf16_bwd_bound(case[5], case[1], case[3], case[4]),
+        batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD, extra=fp32_ms(k2),
+        metric=BF16_METRIC)
+    return k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b
 
 
 def build_main_model(device, train: bool = False, cfg: str = "vil_yolon.yaml"):
@@ -846,7 +990,7 @@ def phase_train_path():
     steps = {}
     for kind in ("kernels", "plain"):
         model = build_main_model("cuda", train=True)
-        step = TrainStep(model)
+        step = TrainStep(model, amp=False)
         ctx = plain_vil_kernels() if kind == "plain" else nullcontext()
         with ctx:
             vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
@@ -903,6 +1047,275 @@ def phase_train_path():
     return launches
 
 
+def phase_main_path_bf16():
+    """bf16 serving at the ``main_path`` boundary: ``Predictor(dtype=
+    "bfloat16")`` (parameters cast to bf16 after the conv+BN fold, BatchNorm
+    statistics fp32; bf16 letterbox and forward; decode and NMS fp32) on
+    the same frames. Its candidates are held against the same bf16 model
+    with the plain versions forced in, as ``main_path`` holds the fp32 ones:
+    boxes within TOL_REL of their max, scores within TOL_REL; the same
+    model's fp32-vs-bf16 gap (both plain-forced) is printed beside. One
+    bf16 layer launch per ViL layer, no fp32 one; timed by stage as
+    ``main_path``."""
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.nn.heads import decode_detections
+
+    model = build_main_model("cuda")
+    frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
+    raw = torch.from_numpy(frames).cuda()
+    with plain_vil_kernels(), torch.inference_mode():
+        ref32 = model.predictions(Predictor(model, imgsz=IMGSZ).preprocess(raw)[0])
+    pred = Predictor(model, imgsz=IMGSZ, dtype="bfloat16")
+
+    vil_layer_fwd.launches = vil_layer_fwd.launches_bf16 = 0
+    dets, valid, cands, meta = pred(raw)
+    torch.cuda.synchronize()
+    launches = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+    with plain_vil_kernels(), torch.inference_mode():
+        ref = model.predictions(pred.preprocess(raw)[0])
+    torch.cuda.synchronize()
+
+    box = lambda a, b: ((a[..., :4] - b[..., :4]).abs().max() / b[..., :4].abs().max()).item()
+    score = lambda a, b: (a[..., 4:] - b[..., 4:]).abs().max().item()
+    box_rel, score_abs = box(cands, ref), score(cands, ref)
+    box_gap, score_gap = box(ref32, ref), score(ref32, ref)
+    n_cand = sum((IMGSZ // s) ** 2 for s in model.strides)
+    shapes_ok = (tuple(cands.shape) == (BATCH, n_cand, 4 + model.nc)
+                 and tuple(dets.shape) == (BATCH, 300, 6) and tuple(valid.shape) == (BATCH, 300))
+    finite = bool(torch.isfinite(cands).all() and torch.isfinite(dets).all())
+    n_valid = int(valid.sum())
+    bf16_params = {p.dtype for p in model.parameters()} == {torch.bfloat16}
+
+    with torch.inference_mode():
+        times = {"letterbox": 0.0, "forward": 0.0, "decode_nms": 0.0}
+        iters = 10
+        for it in range(iters + 2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x, _ = pred.preprocess(raw)
+            ev[1].record()
+            raw_maps = model(x.permute(0, 3, 1, 2))
+            ev[2].record()
+            c = decode_detections(raw_maps, model.strides, model.nc, model.reg_max)
+            pred.postprocess(c)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if it >= 2:  # warm-up
+                for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                    times[k] += a.elapsed_time(b) / iters
+    total_ms = sum(times.values())
+    ok = (shapes_ok and finite and bf16_params and launches == (0, len(STAGES)) and n_valid > 0
+          and box_rel <= TOL_REL and score_abs <= TOL_REL)
+    emit({"phase": "main_path_bf16", "model": "vil_yolon.yaml", "batch": BATCH,
+          "src_hw": list(SRC_HW), "imgsz": IMGSZ, "params_dtype": "bfloat16",
+          "launches_vil_layer_fwd": launches[0], "launches_vil_layer_fwd_bf16": launches[1],
+          "expected_launches": [0, len(STAGES)], "shapes_ok": shapes_ok, "finite": finite,
+          "cands_box_maxrelerr": box_rel, "cands_box_fp32_gap": box_gap,
+          "cands_score_max_abs_err": score_abs, "cands_score_fp32_gap": score_gap,
+          "valid_dets": n_valid, "ms": times, "total_ms": total_ms,
+          "img_per_s": BATCH / total_ms * 1e3, "ok": ok})
+    if not ok:
+        raise PhaseError("bf16 main path check failed")
+    return launches[1]
+
+
+def phase_train_loop_amp():
+    """The AMP training loop. (a) The first AMP step (``TrainStep(amp=True)``:
+    bf16 activations, fp32 parameters and gradients; forward, loss,
+    backward) against the same step with the plain versions forced in, and
+    the plain-forced fp32 step beside them: the loss within 1e-2 relative,
+    and the model's gradient (one vector) no further from the plain-forced
+    AMP gradient than 1.5 times the distance between that and the fp32
+    gradient. A bf16 step's gradient is dominated by its rounding here:
+    behind each train-mode BatchNorm, the weight gradient is the small part
+    of a large one that the normalization leaves, so an intermediate that
+    rounds the other way moves it by a share, and the kernels' rounding
+    flips move the whole gradient about as far as bf16 itself does (the
+    JAX package's bf16 step against its fp32 one likewise,
+    ``tests/test_torch_amp.py``). The kernels are held at their own
+    boundary instead: each ViL layer function of that step, on the inputs
+    and output gradient the step gave it, against its plain version
+    (``bf16_layer_grads``). One bf16 layer and one bf16 backward launch per
+    ViL layer, no fp32 one. (b) ``fit_steps`` over two
+    epochs of two batches (4 steps; warm-up over the first 2, the
+    accumulation of 2 steps into each update), then stage times over
+    TRAIN_TIMED steps, peak memory and launches. (c) A checkpoint of the
+    loop saved and loaded back: weights, buffers, EMA, optimizer state and
+    n_updates exactly."""
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.utils.checkpoint import (load_checkpoint, load_optimizer_state,
+                                                   save_checkpoint)
+
+    counters = lambda: (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
+                        mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
+
+    def reset():
+        vil_layer_fwd.launches = vil_layer_fwd.launches_bf16 = 0
+        mlstm_chunkwise_bwd.launches = mlstm_chunkwise_bwd.launches_bf16 = 0
+
+    batch = train_batch("cuda")
+    first, calls = {}, []
+    for kind in ("kernels", "plain", "plain_fp32"):
+        model = build_main_model("cuda", train=True)
+        step = TrainStep(model, amp=kind != "plain_fp32", accumulate=2)
+        record = recording_vil_layers(calls) if kind == "kernels" else nullcontext()
+        with plain_vil_kernels() if kind != "kernels" else nullcontext(), record:
+            reset()
+            total, aux = step.forward_loss(batch)
+            step.backward(total)
+            torch.cuda.synchronize()
+            launches = counters()
+        first[kind] = (float(total.detach()), {n: p.grad for n, p in model.named_parameters()},
+                       launches, {k: float(v.detach()) for k, v in aux.items()})
+        del step, model, total
+    loss_k, grads_k, launches, aux = first["kernels"]
+    loss_p, grads_p, plain_launches, _ = first["plain"]
+    loss_32, grads_32, _, _ = first["plain_fp32"]
+    del first
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    dist, gap = grad_dist(grads_k, grads_p), grad_dist(grads_32, grads_p)
+    grads_fp32 = all(g.dtype == torch.float32 for g in grads_k.values())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_k, grads_p, grads_32
+    layers = [bf16_layer_grads(**c) for c in calls]
+    del calls
+    n = len(STAGES)
+    first_ok = (finite and grads_fp32 and launches == (0, n, 0, n)
+                and plain_launches == (0, 0, 0, 0) and loss_rel <= 1e-2 and dist <= 1.5 * gap
+                and len(layers) == n and all(lay["ok"] for lay in layers))
+
+    model = build_main_model("cuda", train=True)
+    step = TrainStep(model, amp=True, accumulate=2)
+    batch2 = {**batch, "img": torch.flip(batch["img"], dims=(2,))}
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    log = step.fit_steps([batch, batch2], epochs=2)
+    torch.cuda.synchronize()
+    loop_launches = counters()
+    loop_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+    for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _ = step.forward_loss(batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        step.apply_update(log[-1]["lr"])
+        ev[3].record()
+        torch.cuda.synchronize()
+        if it >= TRAIN_WARMUP:
+            for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                times[k] += a.elapsed_time(b) / TRAIN_TIMED
+    total_ms = sum(times.values())
+    loop_ok = (len(log) == 4 and all(np.isfinite(r["loss"]) for r in log)
+               and [r["lr"] for r in log][:1] == [0.0] and log[1]["lr"] > 0.0
+               and loop_launches == (0, 4 * n, 0, 4 * n) and step.n_updates == 4 + TRAIN_WARMUP
+               + TRAIN_TIMED and step.update.mini_step == 0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(f"{tmp}/last.pt", step, epoch=1)
+        loaded, meta = load_checkpoint(path, use_ema=False, device=batch["img"].device)
+        same_weights = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                              loaded.state_dict().values()))
+        resumed = TrainStep(loaded, amp=True, accumulate=2)
+        restored = load_optimizer_state(path, resumed)
+        same_state = all(torch.equal(a, b) for k in ("trace", "mu", "nu", "acc", "ema")
+                         for a, b in zip(getattr(step.update, k), getattr(resumed.update, k)))
+        ckpt_ok = (same_weights and restored and same_state and meta["epoch"] == 1
+                   and resumed.n_updates == step.n_updates)
+    ok = first_ok and loop_ok and ckpt_ok
+    emit({"phase": "train_loop_amp", "model": "vil_yolon.yaml", "batch": BATCH, "imgsz": IMGSZ,
+          "optimizer": step.update.name, "accumulate": 2,
+          "first_step": {"launches": dict(zip(("vil_layer_fwd", "vil_layer_fwd_bf16",
+                                               "mlstm_chunkwise_bwd", "mlstm_chunkwise_bwd_bf16"),
+                                              launches)),
+                         "loss": loss_k, "loss_plain": loss_p, "loss_plain_fp32": loss_32,
+                         "loss_relerr": loss_rel, "loss_terms": aux, "grad_dist": dist,
+                         "grad_dist_fp32_gap": gap, "grad_worst_tensor_relerr": worst_rel,
+                         "grad_worst": worst_name, "grads_vanishing": vanishing,
+                         "grads_fp32": grads_fp32, "vil_layers": layers, "ok": first_ok},
+          "fit_steps": {"steps": log, "launches": list(loop_launches), "peak_memory_gib":
+                        loop_peak_gib, "ok": loop_ok},
+          "ms": times, "total_ms": total_ms, "img_per_s": BATCH / total_ms * 1e3,
+          "checkpoint": {"same_weights": same_weights, "same_optimizer_state": same_state,
+                         "ok": ckpt_ok}, "ok": ok})
+    if not ok:
+        raise PhaseError("AMP train loop check failed")
+    return {"vil_layer_fwd_bf16": launches[1] + loop_launches[1],
+            "mlstm_chunkwise_bwd_bf16": launches[3] + loop_launches[3]}
+
+
+@contextmanager
+def recording_vil_layers(calls):
+    """Each ViL layer function call of the model, with its arguments and
+    (in the backward) its output gradient, appended to ``calls``."""
+    import torch
+
+    import xlstm_yolo_torch.nn.vil as vil_mod
+
+    real = vil_mod.vil_layer_fwd
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        rec = {"args": [a.detach().clone() if torch.is_tensor(a) else a for a in args], "kw": kw}
+        out.register_hook(lambda g: rec.__setitem__("gout", g.detach().clone()))
+        calls.append(rec)
+        return out
+
+    with mock.patch.object(vil_mod, "vil_layer_fwd", recording):
+        yield
+
+
+def bf16_layer_grads(args, kw, gout):
+    """One recorded bf16 ViL layer call again, through the kernels (K3 and
+    K2 in bf16 under the hand backward) and through the plain versions at
+    the kernel's chunk: every gradient within TOL_BF16_GRAD (relative L2,
+    those of x and conv_act bf16, both rounded) and its largest error beyond
+    the bf16 rounding within 1e-2 of the max, or within twice the plain
+    version's own distance to itself on fp32 weights one ulp apart where
+    that is larger (the gate biases' gradients are sums over B x S tokens
+    that cancel)."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
+    from xlstm_yolo_torch.kernels.vil_cell import Cfg
+    from xlstm_yolo_torch.kernels.vil_layer import _layer_plain, vil_layer_bwd_ref, vil_layer_fwd
+
+    tensors, nh = args[:20], args[20]
+    leaves = [t.clone().requires_grad_() for t in tensors]
+    vil_layer_fwd(*leaves, nh, **kw).backward(gout)
+    cfg = Cfg(nh, KERNEL_CS, kw.get("igate_act", "exp"), kw.get("eps", 1e-6),
+              kw.get("norm_eps", 1e-3), kw.get("rms_eps", 1e-6))
+    plain = lambda a: vil_layer_bwd_ref(a, _layer_plain(a, cfg)[1], gout, nh, chunk_size=KERNEL_CS,
+                                        igate_act=cfg.igate_act, eps=cfg.eps,
+                                        norm_eps=cfg.norm_eps, rms_eps=cfg.rms_eps)
+    want = plain(tensors)
+    nudged = [torch.nextafter(t, torch.full_like(t, float("inf"))) if t.dtype == torch.float32
+              else t for t in tensors]
+    floor = plain(nudged)
+    worst_l2, worst_max, ok = 0.0, 0.0, True
+    for leaf, w, wf in zip(leaves, want, floor):
+        scale = w.abs().max().item()
+        excess, l2, _ = compare_bf16(leaf.grad, w)
+        f_excess, f_l2, _ = compare_bf16(wf.to(leaf.grad.dtype), w)
+        excess, f_max = excess / scale, f_excess / scale
+        ok = ok and l2 <= max(TOL_BF16_GRAD, 2 * f_l2) and excess <= max(1e-2, 2 * f_max)
+        worst_l2, worst_max = max(worst_l2, l2), max(worst_max, excess)
+    return {"shape": list(tensors[1].shape), "grad_rel_l2": worst_l2,
+            "grad_max_beyond_rounding": worst_max, "ok": ok}
+
+
 def phase_kth_path():
     """The kth-value entry on the candidate metric the assigner really sees:
     one train-mode forward and loss of ViL-YOLO-n on the train batch, with
@@ -916,7 +1329,7 @@ def phase_kth_path():
     from xlstm_yolo_torch.engine.trainer import TrainStep
     from xlstm_yolo_torch.kernels.topk import rowwise_kth_value, rowwise_kth_value_plain
 
-    step = TrainStep(build_main_model("cuda", train=True))
+    step = TrainStep(build_main_model("cuda", train=True), amp=False)
     seen = []
     chain = tal_mod.topk_positive_mask
 
@@ -1265,11 +1678,52 @@ def phase_lm_train_path():
             "losses": losses, "ms": times, "total_ms": total_ms,
             "tokens_per_s": BATCH * S / total_ms * 1e3, "peak_memory_gib": peak_gib, "ok": good}
         del model, update
+    carried = carried_slstm_state_case()
+    ok = ok and carried["ok"]
+    for name in ("slstm_scan_fwd", "slstm_scan_bwd"):
+        total_launches[names.index(name)] += carried["launches"][name]
     emit({"phase": "lm_train_path", "batch": BATCH, "tol": TOL_REL, "models": per_model,
-          "launches": dict(zip(names, total_launches)), "ok": ok})
+          "carried_state": carried, "launches": dict(zip(names, total_launches)), "ok": ok})
     if not ok:
         raise PhaseError("language-model train path check failed")
     return dict(zip(names, total_launches))
+
+
+def carried_slstm_state_case():
+    """The sLSTM state carried across calls, both ways, at the README model's
+    sLSTM shape (batch BATCH, S LM_CONTEXT, 4 heads of 32): the second half
+    of a sequence from the state the first half returned, that state
+    requiring grad, the returned last state in the loss (a seeded cotangent
+    on each of y, c, n, m). One K5 launch and one reverse-time launch; the
+    gradients of wx, r, b and of the carried-in state against the plain
+    reverse recurrence (``slstm_scan_bwd_plain`` on the plain scan's
+    states), each within TOL_REL of its max."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.slstm import (slstm_scan, slstm_scan_bwd, slstm_scan_bwd_plain,
+                                                slstm_scan_fwd, slstm_scan_states)
+
+    NH, DH, S = LM_README["num_heads"], LM_README["embedding_dim"] // LM_README["num_heads"], \
+        LM_CONTEXT
+    rng = np.random.default_rng(12)
+    mk = lambda *s_: torch.from_numpy(rng.normal(size=s_).astype(np.float32)).cuda()
+    wx, r, b = mk(BATCH, 2 * S, NH, 4, DH), mk(NH, DH, 4, DH) * DH ** -0.5, mk(NH, 4, DH)
+    state = slstm_scan(wx[:, :S], r, b, return_last_state=True)[1]
+    wx = wx[:, S:].contiguous()
+    dy, dlast = mk(BATCH, S, NH, DH), mk(4, BATCH, NH, DH)
+    leaves = [t.clone().requires_grad_() for t in (wx, r, b, *state)]
+    slstm_scan_fwd.launches = slstm_scan_bwd.launches = 0
+    y, last = slstm_scan_fwd(*leaves[:3], initial_state=tuple(leaves[3:]), return_last_state=True)
+    ((y * dy).sum() + sum((s_ * d).sum() for s_, d in zip(last, dlast))).backward()
+    torch.cuda.synchronize()
+    launches = {"slstm_scan_fwd": slstm_scan_fwd.launches, "slstm_scan_bwd": slstm_scan_bwd.launches}
+    ys, states = slstm_scan_states(wx, r, b, initial_state=state)
+    want = slstm_scan_bwd_plain(wx, r, b, ys, states, dy, initial_state=state,
+                                dlast=tuple(dlast), with_state=True)
+    rels = {n: compare(leaf.grad, w)[1] for n, leaf, w in
+            zip(("wx", "r", "b", "y0", "c0", "n0", "m0"), leaves, (*want[:3], *want[3]))}
+    ok = launches == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 1} and max(rels.values()) <= TOL_REL
+    return {"shape": [BATCH, S, NH, DH], "launches": launches, "maxrelerr": rels, "ok": ok}
 
 
 def build_cls_model(train: bool):
@@ -1479,7 +1933,7 @@ def phase_scales_path():
     steps = {}
     for kind in ("kernels", "plain"):
         model = build_main_model("cuda", train=True, cfg=cfg)
-        step = TrainStep(model)
+        step = TrainStep(model, amp=False)
         with plain_vil_kernels() if kind == "plain" else nullcontext():
             vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
             total, _ = step.forward_loss(batch)
@@ -1521,11 +1975,15 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k3, k2, k1, k5, k5b, k4, k7, k6, k8 = phase_kernel_parity()
+        k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
+        phase = "main_path_bf16"
+        bf16_launches = phase_main_path_bf16()
         phase = "train_path"
         train_launches = phase_train_path()
+        phase = "train_loop_amp"
+        amp_launches = phase_train_loop_amp()
         phase = "lm_path"
         lm_launches = phase_lm_path()
         phase = "cls_path"
@@ -1545,7 +2003,9 @@ def main() -> int:
 
     # every path's counts, read just after it ran from counters set to 0 just before
     by_path = {"main_path": {"vil_layer_fwd": launches},
+               "main_path_bf16": {"vil_layer_fwd_bf16": bf16_launches},
                "train_path": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), train_launches)),
+               "train_loop_amp": amp_launches,
                "lm_path": dict(zip(("mlstm_chunkwise_fwd", "slstm_scan_fwd"), lm_launches)),
                **by_path,
                "kth_path": {"rowwise_kth_value": kth_launches},
@@ -1583,7 +2043,12 @@ def main() -> int:
         entry("vil_layer_conv_fwd", "vil_layer.cu", "mlstm_pallas.py:1659 (_kernel_vil_conv)",
               "conv_path", k6),
         entry("rowwise_kth_value", "topk.cu", "topk_pallas.py:26 (_kth_kernel)", "kth_path", k8,
-              library_ms=k8["library_ms"])]})
+              library_ms=k8["library_ms"]),
+        entry("vil_layer_fwd_bf16", "vil_layer.cu",
+              "mlstm_pallas.py:1142 (_kernel_vil_layer, mxu_dtype=bfloat16)", "main_path_bf16",
+              k3b),
+        entry("mlstm_chunkwise_bwd_bf16", "mlstm_bwd.cu",
+              "mlstm_pallas_bwd.py:255 (_kernel, mxu_dtype=bfloat16)", "train_loop_amp", k2b)]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

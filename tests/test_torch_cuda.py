@@ -367,9 +367,10 @@ def test_slstm_kernel_batches_match_plain(cuda_device, DH, B):
 
 def test_slstm_kernel_refuses_and_state_carry(cuda_device):
     """Gradients of an input take the kernels' route (one forward launch,
-    one reverse-time launch in backward()); gradients of a carried state or
-    through the returned last state, and another head dim, raise; an
-    explicit state carry launches the kernel, never the plain scan."""
+    one reverse-time launch in backward()), and so do gradients of a
+    carried state and through the returned last state; another head dim
+    and a misshapen state raise; an explicit state carry launches the
+    kernel, never the plain scan."""
     wx, r, b = _slstm_args(1, 8, 2, 32, cuda_device, seed=1)
     before = (slstm_scan_fwd.launches, slstm_scan_bwd.launches)
     rg = r.clone().requires_grad_()
@@ -377,18 +378,50 @@ def test_slstm_kernel_refuses_and_state_carry(cuda_device):
     torch.cuda.synchronize()
     assert (slstm_scan_fwd.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
     assert bool(torch.isfinite(rg.grad).all())
-    with pytest.raises(NotImplementedError):
-        slstm_scan_fwd(wx, r.clone().requires_grad_(), b, return_last_state=True)
     with pytest.raises(ValueError, match="head dim"):
         slstm_scan_fwd(*_slstm_args(1, 8, 2, 16, cuda_device, seed=1))
     before = slstm_scan_fwd.launches
     y, last = slstm_scan_fwd(wx, r, b, return_last_state=True)
     assert slstm_scan_fwd.launches == before + 1 and len(last) == 4
     assert _rel(slstm_scan_fwd(wx, r, b), y) <= TOL_REL
-    with pytest.raises(NotImplementedError):
-        slstm_scan_fwd(wx, r, b, initial_state=tuple(s.clone().requires_grad_() for s in last))
+    before = (slstm_scan_fwd.launches, slstm_scan_bwd.launches)
+    init = tuple(s.clone().requires_grad_() for s in last)
+    y2, last2 = slstm_scan_fwd(wx, r.clone().requires_grad_(), b, initial_state=init,
+                               return_last_state=True)
+    (y2.sum() + sum(s.sum() for s in last2[:3])).backward()
+    torch.cuda.synchronize()
+    assert (slstm_scan_fwd.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert all(bool(torch.isfinite(s.grad).all()) for s in init)
     with pytest.raises(ValueError, match="initial_state"):
         slstm_scan_fwd(wx, r, b, initial_state=tuple(s[:, :1] for s in last))
+
+
+@pytest.mark.parametrize("DH", [32, 64, 128])
+def test_slstm_carried_state_grads_match_plain_reverse(cuda_device, DH):
+    """The carried sLSTM state both ways on the card: gradients of the
+    inputs and of a grad-requiring initial_state, for cotangents on y and on
+    every part of the returned last state (y, c, n, m), through K5 and the
+    reverse-time kernel, against ``slstm_scan_bwd_plain`` (the plain
+    reverse recurrence) on the same inputs: TOL_REL of each tensor's max."""
+    wx, r, b = _slstm_args(2, 23, 2, DH, cuda_device, seed=DH + 11)
+    _, state = slstm_scan(wx[:, :6], r, b, return_last_state=True)
+    g = torch.Generator(cuda_device).manual_seed(DH)
+    dy = torch.randn(2, 23, 2, DH, device=cuda_device, generator=g)
+    dlast = torch.randn(4, 2, 2, DH, device=cuda_device, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (wx, r, b, *state)]
+    before = slstm_scan_bwd.launches
+    y, last = slstm_scan_fwd(*leaves[:3], initial_state=tuple(leaves[3:]),
+                             return_last_state=True)
+    ((y * dy).sum() + sum((s * d).sum() for s, d in zip(last, dlast))).backward()
+    torch.cuda.synchronize()
+    assert slstm_scan_bwd.launches == before + 1
+    want_y, states = slstm_scan_states(wx, r, b, initial_state=state)
+    dwx, dr, db, dstate = slstm_scan_bwd_plain(wx, r, b, want_y, states, dy,
+                                               initial_state=state, dlast=tuple(dlast),
+                                               with_state=True)
+    for name, leaf, w in zip(("wx", "r", "b", "y0", "c0", "n0", "m0"), leaves,
+                             (dwx, dr, db, *dstate)):
+        assert _rel(leaf.grad, w) <= TOL_REL, name
 
 
 @pytest.mark.parametrize("B", [1, 3, 8, 11])
@@ -903,3 +936,176 @@ def test_vil_kernels_at_scale_x_width_match_plain(cuda_device, which, H, W):
     for n, (g_, w) in enumerate(zip(out, want)):
         assert g_.shape == w.shape and bool(torch.isfinite(g_).all()), n
         assert _rel(g_, w) <= TOL_REL, n
+
+
+# ---- bf16: the TPU kernels' default arithmetic (bf16 operands, fp32 accumulation)
+
+# bf16 outputs against the plain version's fp32 values: relative L2 of the two
+# rounded to bf16 (1e-3 forward, 3e-3 gradients) and the largest error beyond
+# the bf16 rounding (5e-3 of the max for a kernel's own outputs, 1e-2 for the
+# layer's gradients, which pass through more bf16 sums). A max alone is no
+# gate: two bf16 pipelines that sum in other orders round some intermediates
+# the other way; the plain layer against itself on inputs one fp32 ulp apart
+# is 3.0e-3 of the max beyond rounding at P3 (NVIDIA H100 80GB HBM3, 700 W).
+TOL_BF16_FWD, TOL_BF16_GRAD = 1e-3, 3e-3
+MAX_EXCESS, MAX_EXCESS_GRAD = 5e-3, 1e-2
+
+
+def _bf16_ulp(t):
+    """One bf16 unit in the last place at each |t|: 2^(e - 8) for |t| in
+    [2^(e-1), 2^e) (8 significant bits)."""
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _rel_bf16(got, want32):
+    """(relative L2 error, largest error beyond half a bf16 ulp over the max)
+    of a bf16 output against the plain version's fp32 value before that
+    rounding; an fp32 output against it plainly."""
+    g, w = got.float(), want32.float()
+    if got.dtype != torch.bfloat16:
+        return ((g - w).norm() / w.norm()).item(), _rel(g, w)
+    excess = ((g - w).abs() - 0.5 * _bf16_ulp(torch.maximum(g.abs(), w.abs()))).clamp(min=0)
+    return (((g - w.bfloat16().float()).norm() / w.norm()).item(),
+            (excess.max() / w.abs().max()).item())
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["AB", "AtB", "ABt", "AtBt"])
+@pytest.mark.parametrize("K", [64, 192])
+def test_tile_product_bf16_is_exact_on_rounded_operands(cuda_device, K, ta, tb):
+    """The bf16 tile product (csrc/tile_mma.cuh, m16n8k16 with bf16
+    operands rounded at the fragment load, fp32 accumulators) against an
+    fp64 product of the same bf16-rounded operands: 1e-5 of the output's
+    max (the products are exact, the fp32 sums round), which also shows the
+    k16 fragment layout right: a wrong pairing of k indices is off by O(1)."""
+    lib = _tile_lib_bf16()
+    g = torch.Generator(cuda_device).manual_seed(K + 2 * ta + tb + 100)
+    a = torch.randn((K, 64) if ta else (64, K), device=cuda_device, generator=g)
+    b = torch.randn((64, K) if tb else (K, 64), device=cuda_device, generator=g)
+    c = torch.empty(64, 64, device=cuda_device)
+    err = lib.tile_mma_test_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(), K, int(ta), int(tb),
+                                 torch.cuda.current_stream(cuda_device).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0, lib.tile_mma_error_string(err)
+    r = lambda t: t.bfloat16().double()
+    want = (r(a).t() if ta else r(a)) @ (r(b).t() if tb else r(b))
+    assert ((c.double() - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def _tile_lib_bf16():
+    import ctypes
+
+    from xlstm_yolo_torch.kernels._build import CudaLibrary
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return CudaLibrary("tile_mma_test.cu", {
+        "tile_mma_test_bf16": (I, [P, P, P, I, I, I, P]),
+        "tile_mma_error_string": (ctypes.c_char_p, [I])}).load()
+
+
+def _nudged(t):
+    """fp32 values one ulp up (bf16 ones as they are): the plain version on
+    these gives its own rounding noise."""
+    if t.dtype != torch.float32:
+        return t
+    return torch.nextafter(t, torch.full_like(t, float("inf")))
+
+
+def _bf16_layer_args(B, S, DIM, NH, device, seed):
+    args = _layer_args(B, S, DIM, NH, device, seed)
+    return [args[0].bfloat16(), args[1].bfloat16(), *args[2:]]
+
+
+@pytest.mark.parametrize("S,DIM,NH", [(6400, 64, 2), (1600, 128, 4), (400, 256, 8), (77, 64, 2)],
+                         ids=["P3", "P4", "P5", "short"])
+def test_vil_layer_bf16_kernel_matches_plain(cuda_device, S, DIM, NH):
+    """K3 in bf16 (vil_layer_fwd_bf16) at the ViL-YOLO-n stages and an S
+    shorter than a chunk against its plain bf16 version (the same rounding
+    points, at the kernel's chunk 64): ``_rel_bf16`` within TOL_BF16_FWD and
+    MAX_EXCESS. A bf16 call launches the bf16 kernel and never the fp32
+    one."""
+    args = _bf16_layer_args(2, S, DIM, NH, cuda_device, seed=S + 5)
+    before = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+    got = vil_layer_fwd(*args, NH)
+    want = vil_layer_ref(*args, NH, chunk_size=64, keep_fp32=True)
+    torch.cuda.synchronize()
+    assert (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    rel_l2, excess = _rel_bf16(got, want)
+    assert rel_l2 <= TOL_BF16_FWD and excess <= MAX_EXCESS, (rel_l2, excess)
+
+
+@pytest.mark.parametrize("S,DIM,NH", [(1600, 128, 4), (200, 64, 2)], ids=["P4", "ragged"])
+def test_vil_layer_bf16_grads_match_plain(cuda_device, S, DIM, NH):
+    """The bf16 layer under grad: K3 in bf16 (saving q, k, v, h in bf16),
+    then K2 in bf16 inside the hand backward, against the plain bf16
+    forward and backward on the same arguments (the plain K2 recomputes
+    the same state from the bf16 k and v, the kernel reads the forward's):
+    every gradient within ``_rel_bf16``'s TOL_BF16_GRAD and MAX_EXCESS_GRAD,
+    or within twice the plain version's own distance to itself on weights
+    one fp32 ulp apart where that is larger (the gate biases' gradients are
+    sums of 2 x S terms that cancel, and vary with the last bit of any
+    weight); those of x and conv_act in bf16. Only the bf16 kernels
+    launch."""
+    args = _bf16_layer_args(2, S, DIM, NH, cuda_device, seed=S + 9)
+    leaves = [a.clone().requires_grad_() for a in args]
+    gout = torch.randn(2, S, DIM, device=cuda_device).bfloat16()
+    counts = lambda: (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
+                      mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
+    before = counts()
+    out = vil_layer_fwd(*leaves, NH)
+    (out.float() * gout.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    _, acts = _layer_plain(args, Cfg(NH, 64))
+    want = vil_layer_bwd_ref(args, acts, gout, NH, chunk_size=64)
+    nudged = [_nudged(a) for a in args]
+    _, acts_n = _layer_plain(nudged, Cfg(NH, 64))
+    noise = vil_layer_bwd_ref(nudged, acts_n, gout, NH, chunk_size=64)
+    assert leaves[0].grad.dtype == leaves[1].grad.dtype == torch.bfloat16
+    for i, (leaf, w, wn) in enumerate(zip(leaves, want, noise)):
+        rel_l2, excess = _rel_bf16(leaf.grad, w)
+        floor_l2, floor_max = _rel_bf16(wn.to(leaf.grad.dtype), w)
+        assert rel_l2 <= max(TOL_BF16_GRAD, 2 * floor_l2), (i, rel_l2, floor_l2)
+        assert excess <= max(MAX_EXCESS_GRAD, 2 * floor_max), (i, excess, floor_max)
+
+
+@pytest.mark.parametrize("S", [256, 400])
+def test_mlstm_bwd_bf16_kernel_matches_plain(cuda_device, S):
+    """K2 in bf16 (mlstm_bwd_bf16) on bf16 q/k/v and the carry states the
+    bf16 layer kernel leaves, against its plain bf16 version: dq/dk/dv come
+    back bf16, each gradient within ``_rel_bf16``'s TOL_BF16_GRAD and
+    MAX_EXCESS; the fp32 entry does not launch."""
+    from xlstm_yolo_torch.kernels.vil_layer import _launch
+
+    NH = 2
+    args = _bf16_layer_args(2, S, 64, NH, cuda_device, seed=S + 13)
+    _, (_, q, k, v, ig, fg), carry = _launch(args, Cfg(NH), True)
+    dh = torch.randn(2, S, NH * 64, device=cuda_device)
+    before = (mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
+    got = mlstm_chunkwise_bwd(q, k, v, ig, fg, dh, NH, carry=carry)
+    want = mlstm_chunkwise_bwd_plain(q, k, v, ig, fg, dh, NH, keep_fp32=True)
+    torch.cuda.synchronize()
+    assert (mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16) == \
+        (before[0], before[1] + 1)
+    assert [g.dtype for g in got[:3]] == [torch.bfloat16] * 3
+    for name, g_, w in zip(("dq", "dk", "dv", "di", "df"), got, want):
+        assert bool(torch.isfinite(g_).all()), name
+        rel_l2, excess = _rel_bf16(g_, w)
+        assert rel_l2 <= TOL_BF16_GRAD and excess <= MAX_EXCESS, (name, rel_l2, excess)
+
+
+def test_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
+    """No quiet upcast: the cell and block functions have no bf16 kernel yet
+    and raise on bf16 activations on the card; K2 in bf16 takes head dim 64
+    only."""
+    args = _bf16_layer_args(1, 64, 64, 2, cuda_device, seed=3)
+    conv_act = args[1]
+    with pytest.raises(TypeError, match="no CUDA kernel"):
+        vil_cell_fwd(conv_act, conv_act, *args[5:15], 2)
+    q = torch.zeros(1, 64, 128, device=cuda_device, dtype=torch.bfloat16)
+    g = torch.zeros(1, 1, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        mlstm_chunkwise_bwd(q, q, q, g, g, q.float(), 1, carry=None)

@@ -159,7 +159,7 @@ def test_train_steps_match_jax(pair):
 
     state = (v["params"], v["batch_stats"], opt_init(v["params"]), v["params"], jnp.int32(0))
     model = load_jax_variables(TaskModel(jm.cfg_name, device="cpu"), flatten_variables(v))
-    step = TrainStep(model)
+    step = TrainStep(model, amp=False)
     tbatch = {"img": torch.from_numpy(imgs), "cls_boxes": torch.from_numpy(cb),
               "mask": torch.from_numpy(mask)}
     with mock.patch.object(vil_mod, "vil_layer_fwd", vil_layer_ref):

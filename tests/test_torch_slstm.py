@@ -140,15 +140,15 @@ def test_slstm_scan_fwd_off_cpu_refuses():
 
 
 def test_slstm_scan_fwd_off_cpu_state_carry_does_not_fall_back():
-    """An explicit state carry off the CPU goes the kernel's way too: it
-    refuses gradients of the carried state (and of the returned last
-    state) and a device that is no CUDA device, instead of running the
-    plain scan there."""
+    """An explicit state carry off the CPU goes the kernel's way too, with
+    or without gradients of the carried state or through the returned last
+    state (the reverse-time kernel takes both): a device that is no CUDA
+    device is refused, instead of running the plain scan there."""
     wx, r, b = (torch.from_numpy(a).to("meta") for a in _inputs(8, DH=32))
     state = tuple(torch.zeros((2, 3, 32), device="meta") for _ in range(4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unsupported device"):
         T.slstm_scan_fwd(wx, r, b, initial_state=tuple(s.requires_grad_() for s in state))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unsupported device"):
         T.slstm_scan_fwd(wx.requires_grad_(), r, b, return_last_state=True)
     wx = wx.detach()
     with pytest.raises(ValueError, match="unsupported device"):

@@ -211,7 +211,7 @@ def hand_step(vil):
 
     (_, upd), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
     model = load_jax_variables(TaskModel("vil_yolon.yaml", device="cpu"), flatten_variables(v))
-    step = TrainStep(model)
+    step = TrainStep(model, amp=False)
     total, _ = step.forward_loss({"img": torch.from_numpy(imgs), "cls_boxes": torch.from_numpy(cb),
                                   "mask": torch.from_numpy(mask)})
     step.backward(total)

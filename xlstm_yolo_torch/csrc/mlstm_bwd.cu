@@ -69,7 +69,22 @@
 // exactly as the forward masks it: missing steps load zeros with an
 // input-gate log of -1e30 and a forget-gate log of 0; nothing is written
 // for them.
+//
+// K2 in bf16 (mlstm_bwd_bf16, head dim 64): the TPU kernel's default
+// arithmetic, `mxu_dtype="bfloat16"`, on the bf16 q, k, v the bf16 ViL
+// layer saves (dh, the gates and the carry states fp32, as the JAX backward
+// takes them). Stages A and C with BF set: every product takes the bf16
+// tile product (tile_mma.cuh: operands rounded at the fragment load, fp32
+// accumulators), with its operands rounded where `_chunk_grads` casts them:
+// q and k, E, q_inter (q scaled by its row's inter-chunk factor in the
+// fragment load, in both variants), the carried C, dA = dh / normalizer,
+// dqk, and in C the carry dC d_new (scaled in shared memory first, in both
+// variants) and the gate-weighted k (in the fragment load). dq, dk, dv are
+// written in bf16 once complete, as the JAX kernel returns them: dq in A,
+// dk and dv in C from fp32 partials A leaves in the workspace. di and df
+// stay fp32. The stabilizer stays frozen, as in the fp32 kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -80,6 +95,7 @@ namespace {
 
 using tile::Acc;
 using tile::LDS;
+using bf16 = __nv_bfloat16;
 
 constexpr int CS = 64;             // chunk length
 constexpr int NT = tile::THREADS;  // threads per CTA
@@ -108,7 +124,26 @@ struct Params {
   float* dns;          // (B*NH, NS, DH)
   int B, S, INNER, NH, NS, igate_exp;
   float eps;
+  // the bf16 entry: q, k, v in and dq, dk, dv out in bf16 (dk and dv then
+  // point at fp32 partials in the workspace)
+  const bf16* q16;
+  const bf16* k16;
+  const bf16* v16;
+  bf16* dq16;
+  bf16* dk16;
+  bf16* dv16;
 };
+
+// A 64-row tile of a (B, S, INNER) activation at element offset `off` into
+// shared memory: cp.async from fp32, or widened from bf16 when BF.
+template <bool BF>
+__device__ __forceinline__ void load_act(float* dst, const float* src, const bf16* src16, long off,
+                                         int ld, int nrows) {
+  if (BF)
+    tile::load_bf16<CS, 64>(dst, LDS, src16 + off, ld, nrows, 64);
+  else
+    tile::load_async<CS, 64>(dst, LDS, src + off, ld, nrows, 64);
+}
 
 __device__ __forceinline__ float logsigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -197,8 +232,31 @@ __device__ __forceinline__ void put_rows(const Acc& a, float* dst, const Params&
     }
 }
 
+// Writes acc * scale (+ the fp32 partial at `part`, where given) in bf16 to
+// rows s0 + row < S of the (B, S, INNER) array dst at head column hcol.
+__device__ __forceinline__ void put_rows_bf16(const Acc& a, bf16* dst, const float* part,
+                                              const Params& p, int b, int s0, int hcol,
+                                              float scale) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh, t = Acc::row(r);
+      if (s0 + t < p.S) {
+        const long o = ((long)b * p.S + s0 + t) * p.INNER + hcol + Acc::col(j, r);
+        float2 v = make_float2(a.c[j][r] * scale, a.c[j][r + 1] * scale);
+        if (part) {
+          const float2 w = *reinterpret_cast<const float2*>(part + o);
+          v.x += w.x;
+          v.y += w.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dst + o) = __floats2bfloat162_rn(v.x, v.y);
+      }
+    }
+}
+
 // A. Per chunk: forward recompute and the carry-independent gradients.
-template <int DH>
+template <int DH, bool BF = false>
 __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   static_assert(DH == tile::T, "one 64 x 64 tile product per head");
   constexpr float QS = 0.125f;   // 1 / sqrt(DH)
@@ -212,7 +270,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   float* nv = E + TF;            // DH carried-in n
   float* bcs = nv + DH;          // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
-  float* cm = li + CS;           // CS running max of li - b
+  float* cm = li + CS;           // CS running max of li - b; then aq
   float* stab = cm + CS;         // CS stabilizer
   float* av = stab + CS;         // CS inter-chunk scale a_t
   float* nrm = av + CS;          // CS normalizer
@@ -230,9 +288,10 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   // the decay D_ts of a causal entry (s <= t)
   auto decay = [&](int t, int s) { return expf(li[s] - bcs[s] + bcs[t] - stab[t]); };
 
-  tile::load_async<CS, DH>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  float* aq = cm;                // CS a_t / sqrt(DH), the row scale of q_inter
+  load_act<BF>(qs, p.q, p.q16, hoff, p.INNER, nrows);
+  load_act<BF>(ks, p.k, p.k16, hoff, p.INNER, nrows);
+  load_act<BF>(vs, p.v, p.v16, hoff, p.INNER, nrows);
   tile::load_async<CS, DH>(dA, LDS, p.dh + hoff, p.INNER, nrows, DH);
   tile::load_async<DH, DH>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
@@ -254,12 +313,13 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     av[tid] = expf(inter_log - st);
   }
   __syncthreads();
+  if (tid < CS) aq[tid] = av[tid] * QS;  // cm is not read again
 
   // E = (q k^T / sqrt(DH)) D, causal
   {
     Acc s;
     s.zero();
-    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER, BF>(s, qs, LDS, ks, LDS, DH);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -288,15 +348,15 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     Acc intra, inter;
     intra.zero();
     inter.zero();
-    tile::mma<false, false, tile::K_LE_M>(intra, E, LDS, vs, LDS, CS);
-    tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH);
+    tile::mma<false, false, tile::K_LE_M, BF>(intra, E, LDS, vs, LDS, CS);
+    tile::mma<false, false, tile::FULL, BF>(inter, qs, LDS, Cs, LDS, DH, nullptr, aq);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int t = Acc::row(r), e = Acc::col(jj, r);
-        const float h = (intra.c[jj][r] + av[t] * QS * inter.c[jj][r]) / nrm[t];
+        const float h = (intra.c[jj][r] + inter.c[jj][r]) / nrm[t];
         pr[r >> 1] += dA[t * LDS + e] * h;
       }
     put_row_sums(pr, rpart);
@@ -317,7 +377,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, dA, LDS, CS);
+    tile::mma<true, false, tile::K_GE_M, BF>(a, E, LDS, dA, LDS, CS);
     put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f);
   }
   __syncthreads();  // E is overwritten below
@@ -326,7 +386,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc d;
     d.zero();
-    tile::mma<false, true, tile::OUT_LOWER>(d, dA, LDS, vs, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER, BF>(d, dA, LDS, vs, LDS, DH);
     float rs[2] = {0.f, 0.f};
     float cs[4][2];
 #pragma unroll
@@ -372,8 +432,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     Acc a, c;
     a.zero();
     c.zero();
-    tile::mma<false, false, tile::K_LE_M>(a, E, LDS, ks, LDS, CS);
-    tile::mma<false, true>(c, dA, LDS, Cs, LDS, DH);
+    tile::mma<false, false, tile::K_LE_M, BF>(a, E, LDS, ks, LDS, CS);
+    tile::mma<false, true, tile::FULL, BF>(c, dA, LDS, Cs, LDS, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -385,7 +445,10 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
         a.c[jj][r] += dqt * av[t];
       }
     put_row_sums(pr, rpart);
-    put_rows<false>(a, p.dq, p, b, s0, n * DH, QS);
+    if (BF)
+      put_rows_bf16(a, p.dq16, nullptr, p, b, s0, n * DH, QS);
+    else
+      put_rows<false>(a, p.dq, p, b, s0, n * DH, QS);
   }
   __syncthreads();
   if (tid < CS) dbv[tid] += av[tid] * QS * (rpart[tid] + rpart[CS + tid]);
@@ -394,7 +457,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, qs, LDS, CS);
+    tile::mma<true, false, tile::K_GE_M, BF>(a, E, LDS, qs, LDS, CS);
     put_rows<false>(a, p.dk, p, b, s0, n * DH, QS);
   }
   __syncthreads();  // q is rescaled below
@@ -408,7 +471,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false>(a, qs, LDS, dA, LDS, CS);
+    tile::mma<true, false, tile::FULL, BF>(a, qs, LDS, dA, LDS, CS);
     float* dco = p.dcs + base * DH * DH;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -477,8 +540,10 @@ __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
   }
 }
 
-// C. Per chunk: the terms that need the reverse carry, then d log f.
-template <int DH>
+// C. Per chunk: the terms that need the reverse carry, then d log f. The
+// carry's products read dC d_new (scaled in shared memory) and, for dv,
+// the gate-weighted k (scaled in the fragment load).
+template <int DH, bool BF = false>
 __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* ks = sm;                // CS x DH
@@ -496,8 +561,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   const float d_new = expf(ld_new), d_old = expf(ld_old);
   const float btot = p.btot[base], mloc = p.mloc[base];
 
-  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  load_act<BF>(ks, p.k, p.k16, hoff, p.INNER, nrows);
+  load_act<BF>(vs, p.v, p.v16, hoff, p.INNER, nrows);
   tile::load_async<DH, DH>(dC, LDS, p.dcs + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
@@ -517,36 +582,39 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   if (tid < 32) warp_scan64<false>(bcs);
   __syncthreads();
   if (tid < CS) gw[tid] = expf(li[tid] + (btot - bcs[tid]) - mloc);
+  for (int i = tid; i < DH * DH; i += NT) dC[(i / DH) * LDS + i % DH] *= d_new;
   __syncthreads();
 
-  // dv += gw_s d_new (k dC)
+  // dv += (gw k) (d_new dC)
   {
     Acc a;
     a.zero();
-    tile::mma<false, false>(a, ks, LDS, dC, LDS, DH);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a.c[jj][r] *= gw[Acc::row(r)];
-    put_rows<true>(a, p.dv, p, b, s0, n * DH, d_new);
+    tile::mma<false, false, tile::FULL, BF>(a, ks, LDS, dC, LDS, DH, nullptr, gw);
+    if (BF)
+      put_rows_bf16(a, p.dv16, p.dv, p, b, s0, n * DH, 1.f);
+    else
+      put_rows<true>(a, p.dv, p, b, s0, n * DH, 1.f);
   }
-  // dk_state = d_new (v dC^T) + dksum; dk += dk_state gw; dgw = sum_d dk_state k
+  // dk_state = v (d_new dC)^T + dksum; dk += dk_state gw; dgw = sum_d dk_state k
   {
     Acc a;
     a.zero();
-    tile::mma<false, true>(a, vs, LDS, dC, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(a, vs, LDS, dC, LDS, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int s = Acc::row(r), d = Acc::col(jj, r);
-        const float st = a.c[jj][r] * d_new + dks[d];
+        const float st = a.c[jj][r] + dks[d];
         pr[r >> 1] += st * ks[s * LDS + d];
         a.c[jj][r] = st * gw[s];
       }
     put_row_sums(pr, rpart);
-    put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f);
+    if (BF)
+      put_rows_bf16(a, p.dk16, p.dk, p, b, s0, n * DH, 1.f);
+    else
+      put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f);
   }
   __syncthreads();
 
@@ -639,7 +707,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_wide_local(Params p) {
   float* nv = E + TF;            // CS: slice c of the carried-in n
   float* bcs = nv + CS;          // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
-  float* cm = li + CS;           // CS running max of li - b
+  float* cm = li + CS;           // CS running max of li - b; then aq
   float* stab = cm + CS;         // CS stabilizer
   float* av = stab + CS;         // CS inter-chunk scale a_t
   float* nrm = av + CS;          // CS normalizer
@@ -1033,6 +1101,26 @@ int launch(Params& p, float* ws, cudaStream_t st) {
   return 0;
 }
 
+// The three launches of the bf16 entry (head dim 64); ws holds the dC / dn
+// carries, then the fp32 partials of dk and dv (B, S, INNER) each.
+int launch_bf16(Params& p, float* ws, cudaStream_t st) {
+  constexpr int DH = 64;
+  const long rows = (long)p.B * p.NH, tok = (long)p.B * p.S * p.INNER;
+  p.dcs = ws;
+  p.dns = ws + rows * p.NS * DH * DH;
+  p.dk = p.dns + rows * p.NS * DH;
+  p.dv = p.dk + tok;
+  cudaError_t err;
+  if ((err = allow_smem(bwd_chunk_local<DH, true>, local_smem<DH>())) != cudaSuccess) return err;
+  if ((err = allow_smem(bwd_chunk_carry<DH, true>, kCarrySmem)) != cudaSuccess) return err;
+  bwd_chunk_local<DH, true><<<dim3(p.NS, rows), NT, local_smem<DH>(), st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_state_scan<DH><<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_chunk_carry<DH, true><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
+  return cudaGetLastError();
+}
+
 bool head_dim_ok(int DH) { return DH == 64 || DH == 128 || DH == 256; }
 
 }  // namespace
@@ -1050,6 +1138,26 @@ const char* mlstm_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// bf16 q, k, v and dq, dk, dv; dh, the gates, the carry states, di and df
+// fp32; head dim 64 only. ws: mlstm_bwd_workspace_floats(B, S, NH, 64) +
+// 2 B S INNER floats. Returns 0 on success, else the CUDA error code.
+int mlstm_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* dh,
+                   const float* ig, const float* fg, const float* cprev, const float* nprev,
+                   const float* mprev, const float* btot, const float* mloc, bf16* dq, bf16* dk,
+                   bf16* dv, float* di, float* df, float* ws, int B, int S, int INNER, int NH,
+                   int igate_exp, float eps, void* stream) {
+  if (B <= 0 || S <= 0 || NH <= 0 || INNER != NH * 64 || (long)B * NH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.q16 = q; p.k16 = k; p.v16 = v; p.dh = dh; p.ig = ig; p.fg = fg;
+  p.cprev = cprev; p.nprev = nprev; p.mprev = mprev; p.btot = btot; p.mloc = mloc;
+  p.dq16 = dq; p.dk16 = dk; p.dv16 = dv; p.di = di; p.df = df;
+  p.B = B; p.S = S; p.INNER = INNER; p.NH = NH;
+  p.NS = (S + CS - 1) / CS;
+  p.igate_exp = igate_exp; p.eps = eps;
+  return launch_bf16(p, ws, static_cast<cudaStream_t>(stream));
+}
+
 // Head dim INNER / NH: 64, 128 or 256. Returns 0 on success, else the CUDA
 // error code of the first failed step (cudaErrorInvalidValue for an
 // unsupported shape).
@@ -1061,7 +1169,7 @@ int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* d
   if (B <= 0 || S <= 0 || NH <= 0 || INNER % NH != 0 || !head_dim_ok(INNER / NH) ||
       (long)B * NH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  Params p = {};
   p.q = q; p.k = k; p.v = v; p.dh = dh; p.ig = ig; p.fg = fg;
   p.cprev = cprev; p.nprev = nprev; p.mprev = mprev; p.btot = btot; p.mloc = mloc;
   p.dq = dq; p.dk = dk; p.dv = dv; p.di = di; p.df = df;

@@ -67,6 +67,19 @@
 // (B, S, NH, 4, DH); dr = sum y_{t-1}^T draw and db = sum draw are left to
 // the wrapper (one einsum, one sum), as the JAX package leaves them to XLA.
 //
+// A carried state, both ways (the JAX entry takes these cases to its plain
+// scan; here the kernel takes them). The gradient of the returned last
+// state (dy, dc, dn, dm), `dlast`, seeds the walk: dy joins step S-1's,
+// (dc, dn) start the carries. The function depends on a stabilized state
+// (c, n, m) only through c e^m and n e^m, so the frozen walk is exact for
+// every cotangent except the part of dm that is not dc c + dn n: that part,
+// delta = dm - dc c - dn n, follows the stabilizer's max chain back, step
+// by step: where the input gate won the max (i_raw >= logsigmoid(f_raw) +
+// m_{t-1}) it joins d i_raw and stops, else it joins d logsigmoid(f_raw)
+// and goes on to m_{t-1}. At t = 0 the kernel writes `dstate`, the gradient
+// of the initial (c, n, m): the carries and dc c0 + dn n0 + what is left of
+// delta (dy of the initial y, R draw_0, is the wrapper's einsum).
+//
 // What bounds the backward: like the forward, the chain, S steps in order,
 // each a product of depth 4 DH (R's rows against the four gates' draw), a
 // reduction, the pointwise update and one block barrier. Its bytes (the
@@ -348,6 +361,8 @@ struct BwdArgs {
   const float* state_in;  // (4, B, NH, DH) or null: the state before step 0
   float* dwx;             // (B, S, NH, 4, DH)
   int B, S, NH;
+  const float* dlast;     // (4, B, NH, DH) or null: the last state's (dy, dc, dn, dm)
+  float* dstate;          // (3, B, NH, DH) or null: out, the initial state's (dc, dn, dm)
 };
 
 // Steps of the workspace and dy staged ahead of the walk: a step is 8 DH floats.
@@ -385,8 +400,8 @@ __global__ void __launch_bounds__(4 * DH / NC, 1) slstm_bwd_walk(BwdArgs a) {
   }
   // the state before step 0
   float c0 = 0.f, n0 = 0.f, m0 = NEG_INIT;
+  const size_t plane = (size_t)a.B * NH * DH, sidx = ((size_t)b * NH + h) * DH + d;
   if (a.state_in) {
-    const size_t plane = (size_t)a.B * NH * DH, sidx = ((size_t)b * NH + h) * DH + d;
     c0 = a.state_in[plane + sidx];
     n0 = a.state_in[2 * plane + sidx];
     m0 = a.state_in[3 * plane + sidx];
@@ -428,7 +443,15 @@ __global__ void __launch_bounds__(4 * DH / NC, 1) slstm_bwd_walk(BwdArgs a) {
   if (NC > 1) tile::cluster_sync();  // the peers' barriers are set; drs and the ring are set
   else __syncthreads();
 
-  float dc = 0.f, dn = 0.f;  // the carries into step t, channel d (alike in the channel's lanes)
+  // the carries into step t, channel d (alike in the channel's lanes), and
+  // the part of the last state's dm that follows the stabilizer's max chain
+  float dc = 0.f, dn = 0.f, dyl = 0.f, dml = 0.f, delta = 0.f;
+  if (a.dlast) {
+    dyl = a.dlast[sidx];
+    dc = a.dlast[plane + sidx];
+    dn = a.dlast[2 * plane + sidx];
+    dml = a.dlast[3 * plane + sidx];
+  }
   float* out = a.dwx + chain * 4 * DH + q * DH + d;
   for (int it = 0; it < S; ++it) {
     const int t = S - 1 - it, par = it & 1;
@@ -472,7 +495,9 @@ __global__ void __launch_bounds__(4 * DH / NC, 1) slstm_bwd_walk(BwdArgs a) {
       mp = pv[6 * DH + d];
     }
     const float ig = __expf(ii - m), fg = __expf((mp + lsf) - m);  // as the forward's cell()
-    const float dyt = sv[7 * DH + d] + dyr;
+    if (it == 0 && a.dlast) delta = dml - dc * c - dn * n;
+    const bool ibranch = ii >= mp + lsf;  // the input gate won the stabilizer's max
+    const float dyt = sv[7 * DH + d] + dyr + (it == 0 ? dyl : 0.f);
     const float inv_n = 1.f / n, hn = c * inv_n;
     const float dct = dc + dyt * so * inv_n;
     const float dnt = dn - dyt * so * hn * inv_n;
@@ -481,14 +506,21 @@ __global__ void __launch_bounds__(4 * DH / NC, 1) slstm_bwd_walk(BwdArgs a) {
     dc = dct * fg;
     dn = dnt * fg;
     float g;
-    if (q == 0) g = dig * ig;
-    else if (q == 1) g = dfg * fg * -expm1f(lsf);  // d logsigmoid(f) / df = 1 - sigmoid(f)
+    if (q == 0) g = dig * ig + (ibranch ? delta : 0.f);
+    else if (q == 1)  // d logsigmoid(f) / df = 1 - sigmoid(f)
+      g = (dfg * fg + (ibranch ? 0.f : delta)) * -expm1f(lsf);
     else if (q == 2) g = dct * ig * (1.f - tz * tz);
     else g = dyt * hn * so * (1.f - so);
+    if (ibranch) delta = 0.f;
     drs[par][qq][d] = g;
     out[(size_t)t * NH * 4 * DH] = g;
     tile::cp_async_wait<RB - 3>();  // the next iteration's two steps are in
     __syncthreads();                  // drs[par] holds this step's draw
+  }
+  if (a.dstate && qq == 0 && rank == 0) {  // the initial state's gradient
+    a.dstate[sidx] = dc;
+    a.dstate[plane + sidx] = dn;
+    a.dstate[2 * plane + sidx] = dc * c0 + dn * n0 + delta;
   }
   if (NC > 1) tile::cluster_sync();  // no CTA leaves while a peer's st.async may target it
 }
@@ -540,14 +572,17 @@ int slstm_fwd_f32(const float* wx, const float* r, const float* bias, const floa
 
 // The reverse walk: r (NH, DH, 4, DH), saved (B, S, NH, 7, DH) as
 // slstm_fwd_f32 wrote it, dy (B, S, NH, DH), state_in the packed state the
-// forward started from or null -> dwx (B, S, NH, 4, DH), the gate preacts'
-// gradient; all contiguous fp32, DH 32, 64 or 128. Returns 0 on success,
-// else the CUDA error code.
+// forward started from or null, dlast the packed (4, B, NH, DH) gradient of
+// the returned last state (y, c, n, m) or null -> dwx (B, S, NH, 4, DH),
+// the gate preacts' gradient, and, when dstate is not null, the gradient
+// of the initial (c, n, m) into dstate (3, B, NH, DH); all contiguous fp32,
+// DH 32, 64 or 128. Returns 0 on success, else the CUDA error code.
 int slstm_bwd_f32(const float* r, const float* saved, const float* dy, const float* state_in,
-                  float* dwx, int B, int S, int NH, int DH, void* stream) {
+                  const float* dlast, float* dwx, float* dstate, int B, int S, int NH, int DH,
+                  void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || NH <= 0 || NH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{r, saved, dy, state_in, dwx, B, S, NH};
+  const BwdArgs a{r, saved, dy, state_in, dwx, B, S, NH, dlast, dstate};
   return static_cast<int>(launch_bwd(a, DH, static_cast<cudaStream_t>(stream)));
 }
 

@@ -3,7 +3,10 @@
 // operand staged into a shared tile by cp.async as the kernels stage theirs.
 // op(A) is A (64, K) row-major, or, when ta, the transpose of A (K, 64);
 // op(B) is B (K, 64), or, when tb, the transpose of B (64, K). K is a
-// multiple of 8; a last slice shorter than 64 lands zero-padded.
+// multiple of 8 (of 16 for the bf16 entry); a last slice shorter than 64
+// lands zero-padded. tile_mma_test_f32 runs the 3xTF32 product,
+// tile_mma_test_bf16 the bf16-operand one (operands rounded at the
+// fragment load, fp32 accumulation).
 
 #include <cuda_runtime.h>
 
@@ -11,7 +14,7 @@
 
 namespace {
 
-template <bool TA, bool TB>
+template <bool TA, bool TB, bool BF>
 __global__ void __launch_bounds__(tile::THREADS) tile_mma_test(const float* A, const float* B,
                                                                float* C, int K) {
   extern __shared__ __align__(16) float sm[];
@@ -34,10 +37,25 @@ __global__ void __launch_bounds__(tile::THREADS) tile_mma_test(const float* A, c
     tile::cp_async_commit();
     tile::cp_async_wait_all();
     __syncthreads();
-    tile::mma<TA, TB>(acc, as, tile::LDS, bs, tile::LDS, (kk + 7) / 8 * 8);
+    constexpr int KQ = BF ? 16 : 8;
+    tile::mma<TA, TB, tile::FULL, BF>(acc, as, tile::LDS, bs, tile::LDS, (kk + KQ - 1) / KQ * KQ);
     __syncthreads();
   }
   tile::store(acc, C, tile::T);
+}
+
+template <bool BF>
+int run_test(const float* A, const float* B, float* C, int K, int ta, int tb, void* stream) {
+  if (K <= 0 || K % (BF ? 16 : 8) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * 2 * tile::FLOATS;
+  auto kernel = ta ? (tb ? tile_mma_test<true, true, BF> : tile_mma_test<true, false, BF>)
+                   : (tb ? tile_mma_test<false, true, BF> : tile_mma_test<false, false, BF>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, tile::THREADS, smem, st>>>(A, B, C, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -51,16 +69,12 @@ const char* tile_mma_error_string(int code) {
 // Returns 0 on success, else the CUDA error code of the launch.
 int tile_mma_test_f32(const float* A, const float* B, float* C, int K, int ta, int tb,
                       void* stream) {
-  if (K <= 0 || K % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * 2 * tile::FLOATS;
-  auto kernel = ta ? (tb ? tile_mma_test<true, true> : tile_mma_test<true, false>)
-                   : (tb ? tile_mma_test<false, true> : tile_mma_test<false, false>);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<1, tile::THREADS, smem, st>>>(A, B, C, K);
-  return cudaGetLastError();
+  return run_test<false>(A, B, C, K, ta, tb, stream);
+}
+
+int tile_mma_test_bf16(const float* A, const float* B, float* C, int K, int ta, int tb,
+                       void* stream) {
+  return run_test<true>(A, B, C, K, ta, tb, stream);
 }
 
 }  // extern "C"

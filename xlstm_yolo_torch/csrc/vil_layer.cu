@@ -70,11 +70,35 @@
 // Gate math, stabilizers, exp/log, norms and scans stay fp32 on the CUDA
 // cores.
 //
+// K3 in bf16 (vil_layer_fwd_bf16): the TPU kernel's default arithmetic,
+// `mxu_dtype="bfloat16"`, with x and conv_act in bf16 as the JAX layer
+// streams them under AMP or bf16 serving. The same six stages, each a
+// template instance with BF set: every product takes the bf16 tile product
+// (tile_mma.cuh: operands rounded to bf16 at the fragment load, one m16n8k16
+// pass, fp32 accumulators), and the operands are rounded where the JAX
+// kernel casts them: the normalized x (so the head first gathers each row's
+// 1/rms, then scales x by it and by rms_scale in the fragment load), the
+// gate-weighted k of the chunk summary (k is scaled before the product, in
+// both variants), q_inter (q scaled by its row's inter-chunk factor in the
+// fragment load, in both variants), E, the carried C, y. The weights arrive
+// fp32 and are rounded at use, the biases of proj_up and of q/k/v and
+// rms_scale to bf16 values as the JAX layer casts them; the gate biases,
+// outnorm, skip and proj_down's bias stay fp32. x and conv_act are widened
+// as they are staged (plain loads: cp.async cannot convert), out is
+// written in bf16. Under grad it also writes q, k, v (unscaled) and h in
+// bf16, the dtype the JAX forward saves them in, for the backward, and a
+// second set of carried (C, n) states for it, from chunk summaries of the
+// bf16 k and v taken in fp32 (3xTF32): the forward's own state accumulates
+// bf16-operand summaries of fp32 k and v (the JAX kernel's kvs and ksums),
+// while the JAX backward replays the state from the bf16 k and v it saved,
+// in fp32 (its phase 1), so that is the state the backward reads.
+//
 // Head dim and chunk size are fixed at 64. A sequence that is not a
 // multiple of 64 is handled by masking the last chunk: missing positions
 // load as zeros with an input-gate log of -1e30, so they add nothing to any
 // valid position.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -85,6 +109,8 @@ namespace {
 
 using tile::Acc;
 using tile::LDS;
+using tile::round_bf16;
+using bf16 = __nv_bfloat16;
 
 constexpr int DH = 64;               // head dim
 constexpr int CS = 64;               // chunk length
@@ -147,7 +173,23 @@ struct Params {
   float* mprev;       // (B*NH, NS)
   int B, S, DIM, INNER, NH, NS, igate_exp;
   float eps, norm_eps, rms_eps;
+  // the bf16 layer (K3 with BF): x and conv_act in, out, and, under grad,
+  // the saved (4, B, S, INNER) q, k, v, h for the backward (else null)
+  const bf16* x16;
+  const bf16* conv16;
+  bf16* out16;
+  bf16* sv;
+  float* kv32;     // with sv: the backward's chunk summaries (B*NH, NS, DH, DH)
+  float* cprev32;  // the carried C it reads (B*NH, NS, DH, DH)
+  float* ksum32;   // and the same for n: (B*NH, NS, DH) each
+  float* nprev32;
 };
+
+// x, or its bf16 value when BF (the JAX layer casts its weights so).
+template <bool BF>
+__device__ __forceinline__ float wround(float x) {
+  return BF ? round_bf16(x) : x;
+}
 
 __device__ __forceinline__ float logsigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -177,7 +219,10 @@ __device__ void warp_scan64(float* a) {
   a[2 * l + 1] = MAX ? fmaxf(excl, fmaxf(a0, a1)) : excl + a0 + a1;
 }
 
-// 1. Head: RMSNorm and proj_up for 64 tokens x 64 output columns.
+// 1. Head: RMSNorm and proj_up for 64 tokens x 64 output columns. BF: x in
+// bf16; each row's 1/rms comes first, and x times 1/rms times rms_scale is
+// rounded at the fragment load, where the JAX kernel rounds xn.
+template <bool BF>
 __global__ void __launch_bounds__(NT) vil_head(Params p) {
   extern __shared__ __align__(16) float sm[];  // per stage: x rows, then proj_up's rows
   __shared__ float ns[2][KS];                  // rms_scale's slice per stage
@@ -187,14 +232,31 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
   const int c0 = blockIdx.y * tile::T;  // first output column, of 2*INNER
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const float* xsrc = p.x + tok0 * DIM;
+  const bf16* xsrc16 = p.x16 + tok0 * DIM;
   const float* wsrc = p.wu + (long)c0 * DIM;
   const int nk = (DIM + KS - 1) / KS;
 
+  if (BF) {  // 1/rms of each row first: the product reads the normalized x
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int r = warp; r < TOK; r += NW) {
+      float ss = 0.f;
+      if (r < nrows)
+        for (int c = lane; c < DIM; c += 32) {
+          const float v = __bfloat162float(xsrc16[(long)r * DIM + c]);
+          ss += v * v;
+        }
+      ss = warp_sum(ss);
+      if (lane == 0) rinv[r] = rsqrtf(ss / DIM + p.rms_eps);
+    }
+  }
   auto stage = [&](int buf, int k0) {
     float* xb = sm + buf * 2 * TF;
-    tile::load_async<TOK, KS>(xb, LDS, xsrc + k0, DIM, nrows, DIM - k0);
+    if (BF)
+      tile::load_bf16<TOK, KS>(xb, LDS, xsrc16 + k0, DIM, nrows, DIM - k0);
+    else
+      tile::load_async<TOK, KS>(xb, LDS, xsrc + k0, DIM, nrows, DIM - k0);
     tile::load_async<TOK, KS>(xb + TF, LDS, wsrc + k0, DIM, TOK, DIM - k0);
-    if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? p.nrm[k0 + tid] : 0.f;
+    if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? wround<BF>(p.nrm[k0 + tid]) : 0.f;
     tile::cp_async_commit();
   };
 
@@ -212,15 +274,20 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
     }
     __syncthreads();
     const float* xb = sm + buf * 2 * TF;
-    const float* xr = xb + (tid >> 2) * LDS + (KS / 4) * (tid & 3);
+    if (!BF) {
+      const float* xr = xb + (tid >> 2) * LDS + (KS / 4) * (tid & 3);
 #pragma unroll
-    for (int c = 0; c < KS / 4; ++c) ss += xr[c] * xr[c];
-    tile::mma<false, true>(acc, xb, LDS, xb + TF, LDS, KS, ns[buf]);
+      for (int c = 0; c < KS / 4; ++c) ss += xr[c] * xr[c];
+    }
+    tile::mma<false, true, tile::FULL, BF>(acc, xb, LDS, xb + TF, LDS, KS, ns[buf],
+                                           BF ? rinv : nullptr);
     __syncthreads();
   }
-  ss = tile::quad_sum(ss);
-  if ((tid & 3) == 0) rinv[tid >> 2] = rsqrtf(ss / DIM + p.rms_eps);
-  __syncthreads();
+  if (!BF) {
+    ss = tile::quad_sum(ss);
+    if ((tid & 3) == 0) rinv[tid >> 2] = rsqrtf(ss / DIM + p.rms_eps);
+    __syncthreads();
+  }
 
   const bool xm_half = c0 < INNER;
   float* dst = xm_half ? p.xmw + c0 : p.z + (c0 - INNER);
@@ -229,10 +296,11 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
+      const float sc = BF ? 1.f : rinv[row];  // BF: x was normalized before the product
       if (tok0 + row < ntok)
         *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) =
-            make_float2(acc.c[j][r] * rinv[row] + p.bu[c0 + col],
-                        acc.c[j][r + 1] * rinv[row] + p.bu[c0 + col + 1]);
+            make_float2(acc.c[j][r] * sc + wround<BF>(p.bu[c0 + col]),
+                        acc.c[j][r + 1] * sc + wround<BF>(p.bu[c0 + col + 1]));
     }
 }
 
@@ -289,24 +357,33 @@ __device__ void load_gate_rows(const Params& p, float* dst, int r0, int coff) {
 }
 
 // Adds the bias to a headwise product, keeps it in the shared tile and
-// writes the token rows that exist to the workspace.
+// writes the token rows that exist to the workspace, and in bf16 to `sv`
+// where given (the backward's copy).
+template <bool BF>
 __device__ __forceinline__ void put_headwise(const Acc& a, const float* bias, float* tile_,
-                                             float* dst, long tok0, long ntok, int INNER) {
+                                             float* dst, bf16* sv, long tok0, long ntok,
+                                             int INNER) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
-      const float2 v = make_float2(a.c[j][r] + bias[col], a.c[j][r + 1] + bias[col + 1]);
+      const float2 v = make_float2(a.c[j][r] + wround<BF>(bias[col]),
+                                   a.c[j][r + 1] + wround<BF>(bias[col + 1]));
       *reinterpret_cast<float2*>(tile_ + row * LDS + col) = v;
-      if (tok0 + row < ntok) *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) = v;
+      if (tok0 + row < ntok) {
+        *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) = v;
+        if (sv != nullptr)
+          *reinterpret_cast<__nv_bfloat162*>(sv + (tok0 + row) * INNER + col) =
+              __floats2bfloat162_rn(v.x, v.y);
+      }
     }
 }
 
 // 2. Cell prologue for 64 tokens and head n: headwise q/k/v and the head's
 // partial gate dots. CONV (K6) computes conv_act from the workspace's
-// x_mlstm first; the others stream it in.
-template <bool CONV>
+// x_mlstm first; the others stream it in (BF: in bf16).
+template <bool CONV, bool BF>
 __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* t0 = sm;           // conv_act, then q
@@ -319,7 +396,10 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const long hoff = tok0 * INNER + (long)n * DH;
   const long woff = (long)n * DH * DH;
-  if (!CONV) tile::load_async<TOK, DH>(t0, LDS, p.conv + hoff, INNER, nrows, DH);
+  if (BF)
+    tile::load_bf16<TOK, DH>(t0, LDS, p.conv16 + hoff, INNER, nrows, DH);
+  else if (!CONV)
+    tile::load_async<TOK, DH>(t0, LDS, p.conv + hoff, INNER, nrows, DH);
   tile::load_async<TOK, DH>(t1, LDS, p.xm + hoff, INNER, nrows, DH);
   tile::load_async<DH, DH>(t2, LDS, p.wq + woff, DH, DH, DH);
   tile::load_async<DH, DH>(t3, LDS, p.wk + woff, DH, DH, DH);
@@ -334,13 +414,17 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
     aq.zero();
     ak.zero();
     av.zero();
-    tile::mma<false, true>(aq, t0, LDS, t2, LDS, DH);
-    tile::mma<false, true>(ak, t0, LDS, t3, LDS, DH);
-    tile::mma<false, true>(av, t1, LDS, t4, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(aq, t0, LDS, t2, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(ak, t0, LDS, t3, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(av, t1, LDS, t4, LDS, DH);
     __syncthreads();
-    put_headwise(aq, p.bq + n * DH, t0, p.q + n * DH, tok0, ntok, INNER);
-    put_headwise(ak, p.bk + n * DH, t1, p.k + n * DH, tok0, ntok, INNER);
-    put_headwise(av, p.bv + n * DH, t2, p.v + n * DH, tok0, ntok, INNER);
+    const long plane = (long)p.B * p.S * INNER;  // one array of the saved copy
+    bf16* sv = p.sv ? p.sv + n * DH : nullptr;
+    put_headwise<BF>(aq, p.bq + n * DH, t0, p.q + n * DH, sv, tok0, ntok, INNER);
+    put_headwise<BF>(ak, p.bk + n * DH, t1, p.k + n * DH, sv ? sv + plane : sv, tok0, ntok,
+                     INNER);
+    put_headwise<BF>(av, p.bv + n * DH, t2, p.v + n * DH, sv ? sv + 2 * plane : sv, tok0, ntok,
+                     INNER);
   }
 
   // this head's share of every gate pre-activation: cat(q, k, v)[:, head n]
@@ -354,14 +438,14 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
     __syncthreads();
     Acc ag;
     ag.zero();
-    tile::mma<false, true>(ag, t0, LDS, t3, LDS, DH);
-    tile::mma<false, true>(ag, t1, LDS, t4, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(ag, t0, LDS, t3, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(ag, t1, LDS, t4, LDS, DH);
     __syncthreads();
     load_gate_rows(p, t3, r0, 2 * INNER + n * DH);
     tile::cp_async_commit();
     tile::cp_async_wait_all();
     __syncthreads();
-    tile::mma<false, true>(ag, t2, LDS, t3, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(ag, t2, LDS, t3, LDS, DH);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -417,7 +501,12 @@ __device__ __forceinline__ void load_gates(const Params& p, int bh, int s0, floa
   }
 }
 
-// 3. Per-chunk state summaries.
+// 3. Per-chunk state summaries: (g k)^T v and the sums of g k, the gate
+// weights g applied to k in the product's fragment load (BF: before the bf16
+// rounding, the JAX kernel's kg). BF under grad (kv32) also writes the
+// summaries the backward's state is built from, as the JAX backward's phase
+// 1 computes them: from the bf16 k and v it saved, in fp32 (3xTF32).
+template <bool BF>
 __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   __shared__ __align__(16) float ks[TF];
   __shared__ __align__(16) float vs[TF];
@@ -448,22 +537,12 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   const float mloc = s_mloc;
   if (tid < CS) gw[tid] = expf(gw[tid] - mloc);
   __syncthreads();
-  for (int i = tid; i < CS * DH; i += NT) vs[(i / DH) * LDS + i % DH] *= gw[i / DH];
-  __syncthreads();
 
   const long base = (long)bh * p.NS + j;
   Acc acc;
   acc.zero();
-  tile::mma<true, false>(acc, ks, LDS, vs, LDS, CS);  // k^T (g v): [d][e]
-  float* kvo = p.kv + base * DH * DH;
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = 2 * hh;
-      *reinterpret_cast<float2*>(kvo + Acc::row(r) * DH + Acc::col(jj, r)) =
-          make_float2(acc.c[jj][r], acc.c[jj][r + 1]);
-    }
+  tile::mma<true, false, tile::FULL, BF>(acc, ks, LDS, vs, LDS, CS, gw);  // (g k)^T v: [d][e]
+  tile::store(acc, p.kv + base * DH * DH, DH);
   if (tid < DH) {
     float s_ = 0.f;
     for (int s = 0; s < CS; ++s) s_ += ks[s * LDS + tid] * gw[s];
@@ -472,6 +551,23 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   if (tid == 0) {
     p.btot[base] = btot;
     p.mloc[base] = mloc;
+  }
+  if (BF && p.kv32) {  // the backward's state: the bf16 k and v, fp32 summaries
+    __syncthreads();
+    for (int i = tid; i < CS * DH; i += NT) {
+      const int o = (i / DH) * LDS + i % DH;
+      ks[o] = round_bf16(ks[o]);
+      vs[o] = round_bf16(vs[o]);
+    }
+    __syncthreads();
+    acc.zero();
+    tile::mma<true, false>(acc, ks, LDS, vs, LDS, CS, gw);
+    tile::store(acc, p.kv32 + base * DH * DH, DH);
+    if (tid < DH) {
+      float s_ = 0.f;
+      for (int s = 0; s < CS; ++s) s_ += ks[s * LDS + tid] * gw[s];
+      p.ksum32[base * DH + tid] = s_;
+    }
   }
 }
 
@@ -509,7 +605,10 @@ __global__ void __launch_bounds__(NT) vil_state_scan(Params p) {
   }
 }
 
-// 5. Per-chunk outputs h = (intra + inter) / normalizer.
+// 5. Per-chunk outputs h = (intra + inter) / normalizer. q_inter (row t of
+// q times av[t], its inter-chunk scale over sqrt(DH)) is formed in the
+// fragment load of the q C product.
+template <bool BF>
 __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                // q, unscaled
@@ -521,7 +620,7 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   float* li = bcs + CS;          // CS log input gate
   float* cm = li + CS;           // CS running max of li - b
   float* stab = cm + CS;         // CS stabilizer
-  float* av = stab + CS;         // CS inter-chunk scale
+  float* av = stab + CS;         // CS inter-chunk scale over sqrt(DH)
   float* den = av + CS;          // CS normalizer
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
@@ -551,14 +650,14 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
     const float inter_log = m_prev + bcs[tid];
     const float st = fmaxf(bcs[tid] + cm[tid], inter_log);
     stab[tid] = st;
-    av[tid] = expf(inter_log - st);
+    av[tid] = expf(inter_log - st) * QS;
   }
   __syncthreads();
 
   {
     Acc s;
     s.zero();
-    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER, BF>(s, qs, LDS, ks, LDS, DH);
     __syncthreads();  // every warp is done with k: E takes its place
     float* E = ks;
 #pragma unroll
@@ -574,8 +673,8 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
 
   for (int t = warp; t < CS; t += NW) {
     const float es = warp_sum(E[t * LDS + lane] + E[t * LDS + lane + 32]);
-    const float qn = QS * warp_sum(qs[t * LDS + lane] * nv[lane] +
-                                   qs[t * LDS + lane + 32] * nv[lane + 32]);
+    const float qn = warp_sum(qs[t * LDS + lane] * nv[lane] +
+                              qs[t * LDS + lane + 32] * nv[lane + 32]);
     if (lane == 0) den[t] = fmaxf(fabsf(es + av[t] * qn), expf(-stab[t])) + p.eps;
   }
   __syncthreads();
@@ -583,23 +682,27 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   Acc hv, inter;
   hv.zero();
   inter.zero();
-  tile::mma<false, false, tile::K_LE_M>(hv, E, LDS, vs, LDS, CS);
-  tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH);
+  tile::mma<false, false, tile::K_LE_M, BF>(hv, E, LDS, vs, LDS, CS);
+  tile::mma<false, false, tile::FULL, BF>(inter, qs, LDS, Cs, LDS, DH, nullptr, av);
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int t = Acc::row(r);
-      hv.c[jj][r] = (hv.c[jj][r] + av[t] * QS * inter.c[jj][r]) / den[t];
+      hv.c[jj][r] = (hv.c[jj][r] + inter.c[jj][r]) / den[t];
     }
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, t = Acc::row(r);
-      if (s0 + t < p.S)
-        *reinterpret_cast<float2*>(p.h + ((long)b * p.S + s0 + t) * p.INNER + n * DH +
-                                   Acc::col(jj, r)) = make_float2(hv.c[jj][r], hv.c[jj][r + 1]);
+      if (s0 + t < p.S) {
+        const long o = ((long)b * p.S + s0 + t) * p.INNER + n * DH + Acc::col(jj, r);
+        *reinterpret_cast<float2*>(p.h + o) = make_float2(hv.c[jj][r], hv.c[jj][r + 1]);
+        if (p.sv)  // the backward's bf16 h, the fourth array of the saved copy
+          *reinterpret_cast<__nv_bfloat162*>(p.sv + 3L * p.B * p.S * p.INNER + o) =
+              __floats2bfloat162_rn(hv.c[jj][r], hv.c[jj][r + 1]);
+      }
     }
   if (p.y == nullptr) return;  // the cell: no tail
 
@@ -620,14 +723,17 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
     for (int half = 0; half < 2; ++half) {
       const int cl = lane + 32 * half, c = n * DH + cl;
       const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
-      p.y[row + cl] = (hn + p.skip[c] * p.conv[row + cl]) * silu(p.zr[row + cl]);
+      const float cv = BF ? __bfloat162float(p.conv16[row + cl]) : p.conv[row + cl];
+      p.y[row + cl] = (hn + p.skip[c] * cv) * silu(p.zr[row + cl]);
     }
   }
 }
 
 // 6. Epilogue for 64 tokens x 64 columns of DIM: y (the chunk outputs'
 // tail product) times proj_down's slice, the K loop over heads in
-// double-buffered 64-channel slices; then bias and residual.
+// double-buffered 64-channel slices; then bias and residual (BF: the
+// residual read and out written in bf16).
+template <bool BF>
 __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
   // per stage: y (64 tokens x one head's channels), then proj_down's rows
   // c0 .. c0+63 at the same channels
@@ -658,7 +764,7 @@ __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
     }
     __syncthreads();
     const float* yb = sm + buf * 2 * TF;
-    tile::mma<false, true>(acc, yb, LDS, yb + TF, LDS, DH);
+    tile::mma<false, true, tile::FULL, BF>(acc, yb, LDS, yb + TF, LDS, DH);
     __syncthreads();
   }
 #pragma unroll
@@ -667,7 +773,13 @@ __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
     for (int r = 0; r < 4; ++r) {
       const int t = Acc::row(r), c = c0 + Acc::col(j, r);
       const long tk = tok0 + t;
-      if (tk < ntok && c < DIM) p.out[tk * DIM + c] = acc.c[j][r] + p.bd[c] + p.xres[tk * DIM + c];
+      if (tk < ntok && c < DIM) {
+        if (BF)
+          p.out16[tk * DIM + c] =
+              __float2bfloat16_rn(acc.c[j][r] + p.bd[c] + __bfloat162float(p.x16[tk * DIM + c]));
+        else
+          p.out[tk * DIM + c] = acc.c[j][r] + p.bd[c] + p.xres[tk * DIM + c];
+      }
     }
 }
 
@@ -711,14 +823,54 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// The six stages of one arithmetic (BF: the bf16 layer).
+template <bool BF>
+cudaError_t launch_stages(Params& p, int kind, cudaStream_t st) {
+  const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
+  const bool has_head = kind == LAYER || kind == CONV;
+  cudaError_t err;
+  const auto prologue =
+      kind == CONV ? vil_cell_prologue<true, false> : vil_cell_prologue<false, BF>;
+  if ((err = allow_smem(vil_head<BF>, kHeadSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(prologue, kPrologueSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil_chunk_output<BF>, kOutputSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil_epilogue<BF>, kEpilogueSmem)) != cudaSuccess) return err;
+
+  const unsigned tok_tiles = (unsigned)((tok + TOK - 1) / TOK);
+  if (has_head) {
+    vil_head<BF><<<dim3(tok_tiles, 2 * p.INNER / tile::T), NT, kHeadSmem, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  prologue<<<dim3(tok_tiles, p.NH), NT, kPrologueSmem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil_chunk_summary<BF><<<dim3(p.NS, rows), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (BF && p.kv32) {  // the same scan over the fp32 summaries, into cprev32
+    Params p2 = p;
+    p2.kv = p.kv32;
+    p2.cprev = p.cprev32;
+    p2.ksum = p.ksum32;
+    p2.nprev = p.nprev32;
+    vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  vil_chunk_output<BF><<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (kind == CELL) return cudaSuccess;
+  vil_epilogue<BF><<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogueSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
 // Points p at the workspace and launches the stages of `kind` on the stream;
-// p holds the inputs, the sizes and (for the cell) h already. Returns 0 or
-// the CUDA error code of the first failed step.
-int run(Params& p, float* ws, int kind, void* stream) {
+// p holds the inputs, the sizes and (for the cell) h already. `bf`: the
+// bf16 layer (kind LAYER only). Returns 0 or the CUDA error code of the
+// first failed step.
+int run(Params& p, float* ws, int kind, void* stream, bool bf = false) {
   if (p.INNER != p.NH * DH || p.B <= 0 || p.S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.NS = (p.S + CS - 1) / CS;
-  const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
   long off[kNumWs + 1];
   workspace_layout(kind, p.B, p.S, p.INNER, p.NH, off);
   p.q = ws + off[WQ]; p.k = ws + off[WK]; p.v = ws + off[WV]; p.z = ws + off[WZ];
@@ -742,30 +894,9 @@ int run(Params& p, float* ws, int kind, void* stream) {
     p.conv = p.convw;
   }
 
-  cudaError_t err;
-  const auto prologue = kind == CONV ? vil_cell_prologue<true> : vil_cell_prologue<false>;
-  if ((err = allow_smem(vil_head, kHeadSmem)) != cudaSuccess) return err;
-  if ((err = allow_smem(prologue, kPrologueSmem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil_chunk_output, kOutputSmem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil_epilogue, kEpilogueSmem)) != cudaSuccess) return err;
-
-  const unsigned tok_tiles = (unsigned)((tok + TOK - 1) / TOK);
-  if (has_head) {
-    vil_head<<<dim3(tok_tiles, 2 * p.INNER / tile::T), NT, kHeadSmem, st>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  prologue<<<dim3(tok_tiles, p.NH), NT, kPrologueSmem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_chunk_summary<<<dim3(p.NS, rows), NT, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_chunk_output<<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (kind == CELL) return 0;
-  vil_epilogue<<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogueSmem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return 0;
+  if (bf && kind != LAYER) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bf ? launch_stages<true>(p, kind, st)
+                             : launch_stages<false>(p, kind, st));
 }
 
 // The cell's arguments, shared by the four entries.
@@ -823,6 +954,37 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
   set_tail(p, nsc, nbi, skip, wd, bd, out, DIM, norm_eps);
   p.x = x; p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
   return run(p, ws, LAYER, stream);
+}
+
+// K3 in bf16: x and conv_act (B, S, DIM) / (B, S, INNER) in bf16, the
+// weights fp32 (rounded to bf16 at use), out (B, S, DIM) in bf16. sv, when
+// not null, receives (4, B, S, INNER) bf16: q, k, v (unscaled) and h, the
+// backward's activations; then states32 (fp32: 2 B*NH*NS*64*64 + 2
+// B*NH*NS*64 floats) receives the backward's chunk summaries and carried C,
+// then its k sums and carried n (null when sv is). The workspace is the
+// fp32 layer's.
+int vil_layer_fwd_bf16(const bf16* x, const bf16* conv, const float* nrm, const float* wu,
+                       const float* bu, const float* wq, const float* wk, const float* wv,
+                       const float* bq, const float* bk, const float* bv, const float* wgi,
+                       const float* bgi, const float* wgf, const float* bgf, const float* nsc,
+                       const float* nbi, const float* skip, const float* wd, const float* bd,
+                       bf16* out, float* ws, bf16* sv, float* states32, int B, int S, int DIM,
+                       int INNER, int NH, int igate_exp, float eps, float norm_eps,
+                       float rms_eps, void* stream) {
+  Params p = {};
+  set_cell(p, nullptr, wq, wk, wv, bq, bk, bv, wgi, bgi, wgf, bgf, B, S, INNER, NH, igate_exp,
+           eps);
+  set_tail(p, nsc, nbi, skip, wd, bd, nullptr, DIM, norm_eps);
+  p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
+  p.x16 = x; p.conv16 = conv; p.out16 = out; p.sv = sv;
+  if (states32) {
+    const long rows_ns = (long)B * NH * ((S + CS - 1) / CS);
+    p.kv32 = states32;
+    p.cprev32 = p.kv32 + rows_ns * DH * DH;
+    p.ksum32 = p.cprev32 + rows_ns * DH * DH;
+    p.nprev32 = p.ksum32 + rows_ns * DH;
+  }
+  return run(p, ws, LAYER, stream, true);
 }
 
 // K6: the layer from x alone, the depthwise conv on the (H, W) token grid

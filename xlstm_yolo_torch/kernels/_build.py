@@ -57,13 +57,16 @@ def build_library(source: str, extra_flags: tuple = ()) -> Path:
     return out
 
 
-def check_tensor(where: str, name: str, t, shape, device):
-    """A kernel argument as the C interface needs it: float32, on
-    ``device``, of ``shape``; returned contiguous. Raises otherwise."""
+def check_tensor(where: str, name: str, t, shape, device, dtype=None):
+    """A kernel argument as the C interface needs it: of ``dtype`` (float32
+    unless the entry takes another, as the bf16 entries take their
+    activations in bfloat16), on ``device``, of ``shape``; returned
+    contiguous. Raises otherwise: a kernel never converts its arguments."""
     import torch
 
-    if t.dtype != torch.float32:
-        raise TypeError(f"{where}: {name} must be float32, got {t.dtype}")
+    dtype = torch.float32 if dtype is None else dtype
+    if t.dtype != dtype:
+        raise TypeError(f"{where}: {name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{where}: {name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):

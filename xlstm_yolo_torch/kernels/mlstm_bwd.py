@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import CudaLibrary, check_tensor
-from .mlstm_native import _log_igate
+from .mlstm_native import _log_igate, mm_round
 
 # Shared by the launchers of this kernel and of the ViL layer, cell and block
 # kernels (kernels/vil_cell.py), whose forward leaves the carry states:
@@ -45,6 +45,7 @@ NEG = -1e30  # log input gate of a masked step
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = CudaLibrary("mlstm_bwd.cu", {
     "mlstm_bwd_f32": (_I, [_P] * 17 + [_I] * 5 + [_F, _P]),
+    "mlstm_bwd_bf16": (_I, [_P] * 17 + [_I] * 5 + [_F, _P]),
     "mlstm_bwd_workspace_floats": (ctypes.c_long, [_I] * 4),
     "mlstm_bwd_error_string": (ctypes.c_char_p, [_I]),
 })
@@ -63,10 +64,13 @@ class CarryStates(NamedTuple):
 
 
 def mlstm_chunkwise_bwd_ref(q, k, v, i_preact, f_preact, dh, chunk_size: int = 64,
-                            igate_act: str = "exp", eps: float = 1e-6):
+                            igate_act: str = "exp", eps: float = 1e-6, mm_dtype=None):
     """Frozen-stabilizer gradients of ``mlstm_chunkwise``. q/k (B, NH, S,
     DH), v and dh (B, NH, S, DV), gates (B, NH, S), S a multiple of
-    ``chunk_size``; returns (dq, dk, dv, di_preact, df_preact) in fp32."""
+    ``chunk_size``; returns (dq, dk, dv, di_preact, df_preact) in fp32.
+    ``mm_dtype`` (``mlstm_native.mm_round``): the operand type of every
+    product, rounded where the TPU kernel's ``_chunk_grads`` casts (the
+    carry states are replayed unrounded, as its phase 1 computes them)."""
     B, NH, S, DH = q.shape
     DV = v.shape[-1]
     CS = chunk_size
@@ -81,6 +85,7 @@ def mlstm_chunkwise_bwd_ref(q, k, v, i_preact, f_preact, dh, chunk_size: int = 6
     logi = _log_igate(ip, igate_act)
     dhc = dh.to(f32).reshape(B, NH, NS, CS, DV)
 
+    R = lambda t: mm_round(t, mm_dtype)
     # forward replay (identical to mlstm_chunkwise)
     b = torch.cumsum(logf, dim=-1)
     gw, btot, m_loc = _chunk_weights(logf, logi)
@@ -96,14 +101,14 @@ def mlstm_chunkwise_bwd_ref(q, k, v, i_preact, f_preact, dh, chunk_size: int = 6
     inter_decay_log = m_prev[..., None] + b
     stab = torch.maximum(d_max, inter_decay_log)
     d = torch.exp(log_d - stab[..., None])
-    e = torch.einsum("bncsd,bnctd->bncst", qc, kc) * d
+    e = torch.einsum("bncsd,bnctd->bncst", R(qc), R(kc)) * d
     a = torch.exp(inter_decay_log - stab)
     q_inter = qc * a[..., None]
     row = e.sum(dim=-1) + torch.einsum("bncsd,bncd->bncs", q_inter, n_prev)
     floor = torch.exp(-stab)
     normalizer = torch.maximum(row.abs(), floor)[..., None] + eps
-    h = (torch.einsum("bncst,bnctd->bncsd", e, vc)
-         + torch.einsum("bncsd,bncde->bncse", q_inter, c_prev)) / normalizer
+    h = (torch.einsum("bncst,bnctd->bncsd", R(e), R(vc))
+         + torch.einsum("bncsd,bncde->bncse", R(q_inter), R(c_prev))) / normalizer
 
     # backward
     dA = dhc / normalizer
@@ -111,21 +116,22 @@ def mlstm_chunkwise_bwd_ref(q, k, v, i_preact, f_preact, dh, chunk_size: int = 6
     dR = torch.where(row.abs() > floor, torch.sign(row) * dN, torch.zeros_like(dN))
 
     # intra attention
-    de = torch.einsum("bncsd,bnctd->bncst", dA, vc) + dR[..., None]
+    de = torch.einsum("bncsd,bnctd->bncst", R(dA), R(vc)) + dR[..., None]
     de = torch.where(causal, de, torch.zeros_like(de))
     dqk = de * d
-    dqc = torch.einsum("bncst,bnctd->bncsd", dqk, kc)
-    dkc = torch.einsum("bncst,bncsd->bnctd", dqk, qc)
-    dvc = torch.einsum("bncst,bncsd->bnctd", e, dA)
+    dqc = torch.einsum("bncst,bnctd->bncsd", R(dqk), R(kc))
+    dkc = torch.einsum("bncst,bncsd->bnctd", R(dqk), R(qc))
+    dvc = torch.einsum("bncst,bncsd->bnctd", R(e), R(dA))
     G = de * e
     dlogi = G.sum(dim=-2)
     db = G.sum(dim=-1) - dlogi
 
     # inter attention
-    dqt = torch.einsum("bncse,bncde->bncsd", dA, c_prev) + dR[..., None] * n_prev[..., None, :]
+    dqt = (torch.einsum("bncse,bncde->bncsd", R(dA), R(c_prev))
+           + dR[..., None] * n_prev[..., None, :])
     dqc = dqc + dqt * a[..., None]
     db = db + (dqt * q_inter).sum(dim=-1)
-    dc_attn = torch.einsum("bncsd,bncse->bncde", q_inter, dA)
+    dc_attn = torch.einsum("bncsd,bncse->bncde", R(q_inter), R(dA))
     dn_attn = torch.einsum("bncs,bncsd->bncd", dR, q_inter)
 
     # reverse state scan: the gradient w.r.t. the state chunk j leaves behind
@@ -141,8 +147,8 @@ def mlstm_chunkwise_bwd_ref(q, k, v, i_preact, f_preact, dh, chunk_size: int = 6
     # kv / ksum path: c_new = d_old * c_prev + d_new * kv_j
     dkv = dcn * d_new[..., None, None]
     dksum = dnn * d_new[..., None]
-    dvc = dvc + torch.einsum("bncsd,bncde->bncse", kc * gw[..., None], dkv)
-    dk_state = torch.einsum("bncde,bncse->bncsd", dkv, vc) + dksum[..., None, :]
+    dvc = dvc + torch.einsum("bncsd,bncde->bncse", R(kc * gw[..., None]), R(dkv))
+    dk_state = torch.einsum("bncde,bncse->bncsd", R(dkv), R(vc)) + dksum[..., None, :]
     dkc = dkc + dk_state * gw[..., None]
     gi = (dk_state * kc).sum(dim=-1) * gw
     dlogi = dlogi + gi
@@ -236,12 +242,17 @@ def _natural(t):  # (B, NH, S, DH) -> (B, S, INNER)
 
 def mlstm_chunkwise_bwd_plain(q, k, v, i_preact, f_preact, dh, num_heads: int,
                               chunk_size: int = KERNEL_CS, igate_act: str = "exp",
-                              eps: float = 1e-6):
+                              eps: float = 1e-6, keep_fp32: bool = False):
     """The kernel's plain version, on its layouts: q/k/v/dh (B, S, INNER)
     natural (q unscaled), gates (B, NH, S) -> (dq, dk, dv (B, S, INNER), di,
     df (B, NH, S)). The sequence is zero-padded to a chunk multiple at the
     end; the recurrence is causal and padded steps carry no output
-    gradient, so they change no gradient of a real step."""
+    gradient, so they change no gradient of a real step. bf16 q/k/v (the
+    ViL layer's saved activations under AMP) take bf16 operands in every
+    product (``mlstm_chunkwise_bwd_ref``'s ``mm_dtype``) and give dq/dk/dv
+    in bf16, as the TPU kernel at ``mxu_dtype="bfloat16"`` does (fp32
+    before that rounding with ``keep_fp32``); the gate gradients stay
+    fp32."""
     S = q.shape[1]
     cs = min(chunk_size, S)
     pad = (-S) % cs
@@ -249,9 +260,10 @@ def mlstm_chunkwise_bwd_plain(q, k, v, i_preact, f_preact, dh, num_heads: int,
                        for t in (q, k, v, dh))
     ip, fp = F.pad(i_preact.float(), (0, pad)), F.pad(f_preact.float(), (0, pad))
     dq, dk, dv, di, df = mlstm_chunkwise_bwd_ref(qh, kh, vh, ip, fp, dhh, chunk_size=cs,
-                                                 igate_act=igate_act, eps=eps)
-    return (_natural(dq[:, :, :S]), _natural(dk[:, :, :S]), _natural(dv[:, :, :S]),
-            di[..., :S], df[..., :S])
+                                                 igate_act=igate_act, eps=eps,
+                                                 mm_dtype=q.dtype)
+    nat = lambda t: _natural(t[:, :, :S]).to(torch.float32 if keep_fp32 else q.dtype)
+    return nat(dq), nat(dk), nat(dv), di[..., :S], df[..., :S]
 
 
 def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
@@ -263,7 +275,11 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
     hand-written kernel (fp32, chunk 64, head dim in ``KERNEL_BWD_DHS``, B *
     NH at most 65535) or raise, reading ``carry``, the forward's states at
     chunk ``KERNEL_CS``. Each kernel launch adds one to
-    ``mlstm_chunkwise_bwd.launches``."""
+    ``mlstm_chunkwise_bwd.launches``. bf16 q/k/v (head dim 64, the ViL
+    layer's saved activations under AMP) launch the bf16 entry instead:
+    bf16 operands in every product, dh and the gates fp32, dq/dk/dv bf16;
+    each of its launches adds one to ``mlstm_chunkwise_bwd.launches_bf16``
+    and never to ``launches``."""
     if q.device.type == "cpu":
         return mlstm_chunkwise_bwd_plain(q, k, v, i_preact, f_preact, dh, num_heads,
                                          chunk_size=chunk_size, igate_act=igate_act, eps=eps)
@@ -277,6 +293,10 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
     if INNER != nh * dh_ or dh_ not in KERNEL_BWD_DHS:
         raise ValueError(f"mlstm_chunkwise_bwd: the CUDA kernel needs head dim in "
                          f"{KERNEL_BWD_DHS}, got INNER={INNER} over {nh} heads")
+    bf = q.dtype == torch.bfloat16
+    if bf and dh_ != KERNEL_DH:
+        raise ValueError(f"mlstm_chunkwise_bwd: the bf16 CUDA kernel needs head dim "
+                         f"{KERNEL_DH}, got {dh_}")
     if B * nh > 65535:
         raise ValueError(f"mlstm_chunkwise_bwd: B * NH = {B * nh} exceeds 65535")
     if carry is None:
@@ -285,26 +305,34 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
     dev = q.device
     NS = -(-S // KERNEL_CS)
     rows = B * nh
-    chk = lambda name, x, shape: check_tensor("mlstm_chunkwise_bwd", name, x, shape, dev)
-    t = [chk(n_, x, (B, S, INNER)) for n_, x in (("q", q), ("k", k), ("v", v), ("dh", dh))]
-    t += [chk("i_preact", i_preact, (B, nh, S)), chk("f_preact", f_preact, (B, nh, S)),
+    chk = lambda name, x, shape, dt=None: check_tensor("mlstm_chunkwise_bwd", name, x, shape,
+                                                       dev, dt)
+    t = [chk(n_, x, (B, S, INNER), q.dtype) for n_, x in (("q", q), ("k", k), ("v", v))]
+    t += [chk("dh", dh, (B, S, INNER)), chk("i_preact", i_preact, (B, nh, S)),
+          chk("f_preact", f_preact, (B, nh, S)),
           chk("carry.c", carry.c, (rows, NS, dh_, dh_)),
           chk("carry.n", carry.n, (rows, NS, dh_))]
     t += [chk(f"carry.{n_}", getattr(carry, n_), (rows, NS)) for n_ in ("m", "btot", "mloc")]
     lib = _LIB.load()
-    outs = [torch.empty((B, S, INNER), device=dev) for _ in range(3)]
+    outs = [torch.empty((B, S, INNER), device=dev, dtype=q.dtype) for _ in range(3)]
     outs += [torch.empty((B, nh, S), device=dev) for _ in range(2)]
-    ws = torch.empty(lib.mlstm_bwd_workspace_floats(B, S, nh, dh_), device=dev)
+    # the bf16 entry keeps fp32 dk and dv between its stages after the carries
+    n_ws = lib.mlstm_bwd_workspace_floats(B, S, nh, dh_) + (2 * B * S * INNER if bf else 0)
+    ws = torch.empty(n_ws, device=dev)
+    entry = lib.mlstm_bwd_bf16 if bf else lib.mlstm_bwd_f32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mlstm_bwd_f32(*(x.data_ptr() for x in t), *(o.data_ptr() for o in outs),
-                                ws.data_ptr(), B, S, INNER, nh, int(igate_act == "exp"), eps,
-                                stream)
+        err = entry(*(x.data_ptr() for x in t), *(o.data_ptr() for o in outs), ws.data_ptr(),
+                    B, S, INNER, nh, int(igate_act == "exp"), eps, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_chunkwise_bwd: CUDA error {err}: "
                            f"{lib.mlstm_bwd_error_string(err).decode()}")
-    mlstm_chunkwise_bwd.launches += 1
+    if bf:
+        mlstm_chunkwise_bwd.launches_bf16 += 1
+    else:
+        mlstm_chunkwise_bwd.launches += 1
     return tuple(outs)
 
 
 mlstm_chunkwise_bwd.launches = 0
+mlstm_chunkwise_bwd.launches_bf16 = 0

@@ -13,6 +13,11 @@ with log f̃ = logsigmoid(f_preact), and log ĩ = i_preact (``"exp"``) or
 logsigmoid(i_preact) (``"sigmoid"``). ``mlstm_chunkwise`` is the oracle the
 kernels' plain versions are built on; ``mlstm_recurrent`` is a second oracle
 that takes any sequence length.
+
+``mm_dtype=torch.bfloat16`` gives the arithmetic of the TPU kernels at their
+default ``mxu_dtype="bfloat16"``: each matrix product reads its operands
+rounded to bf16 and accumulates in fp32 (``mm_round``); gate math, the
+stabilizer, the carried state and every sum that is no product stay fp32.
 """
 from __future__ import annotations
 
@@ -20,6 +25,31 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def mm_round(t: torch.Tensor, mm_dtype=None) -> torch.Tensor:
+    """A product's operand as the tensor cores read it with ``mm_dtype``
+    operands: rounded to ``mm_dtype`` and held in fp32. The product of two
+    bf16 values is exact in fp32, so an fp32 product of such operands is the
+    bf16-operand product with fp32 accumulation (``preferred_element_type=
+    float32`` in the JAX kernels). The identity (in fp32) for None or
+    float32."""
+    if mm_dtype is None or mm_dtype == torch.float32:
+        return t.float()
+    return t.to(mm_dtype).float()
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor, mm_dtype=None) -> torch.Tensor:
+    """a @ b (2-D, or batched 3-D) with ``mm_dtype`` operands and fp32
+    accumulation and result (the JAX backward's ``preferred_element_type=
+    float32`` products). bf16 on the card: the library GEMM that reads bf16
+    and writes fp32 (``torch.mm`` / ``torch.bmm`` with ``out_dtype``);
+    elsewhere, and for fp32, an fp32 product of the rounded operands
+    (``mm_round``): the same arithmetic."""
+    if a.is_cuda and mm_dtype == torch.bfloat16:
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a.to(mm_dtype), b.to(mm_dtype), out_dtype=torch.float32)
+    return mm_round(a, mm_dtype) @ mm_round(b, mm_dtype)
 
 
 def _log_igate(i_preact: torch.Tensor, igate_act: str) -> torch.Tensor:
@@ -80,12 +110,19 @@ def mlstm_chunkwise(
     igate_act: str = "exp",
     eps: float = 1e-6,
     return_last_state: bool = False,
+    mm_dtype=None,
 ):
     """Chunked-parallel mLSTM. q/k (B, NH, S, DQK), v (B, NH, S, DV), gate
     preacts (B, NH, S) -> h (B, NH, S, DV) in fp32. S must be a multiple of
     ``chunk_size``. Per-chunk summaries are computed batched, the (C, n, m)
     inter-chunk state is carried by a loop over chunks, and the intra- and
-    inter-chunk contributions are combined vectorized."""
+    inter-chunk contributions are combined vectorized. ``mm_dtype``: the
+    operand type of the products (``mm_round``), rounded where the TPU
+    kernel's ``_chunk_math`` casts: q and k of q k^T, the decayed E and v,
+    q_inter and the carried C. The chunk summaries k^T (g v) that carry the
+    state stay fp32 products: the backward replays the state in fp32 (the
+    TPU kernel's phase 1), so the state the forward leaves for it is the
+    fp32 one."""
     B, NH, S, DH = q.shape
     DV = v.shape[-1]
     CS = chunk_size
@@ -107,7 +144,8 @@ def mlstm_chunkwise(
     g_acc = logi + (btot[..., None] - b)
     m_loc = g_acc.amax(dim=-1)  # (B, NH, NS)
     gw = torch.exp(g_acc - m_loc[..., None])
-    kv = torch.einsum("bncsd,bncse->bncde", kc * gw[..., None], vc)
+    R = lambda t: mm_round(t, mm_dtype)
+    kv = torch.einsum("bncsd,bncse->bncde", R(kc * gw[..., None]), R(vc))
     ksum = (kc * gw[..., None]).sum(dim=-2)  # (B, NH, NS, DH)
 
     c_st = q.new_zeros((B, NH, DH, DV), dtype=f32)
@@ -141,15 +179,15 @@ def mlstm_chunkwise(
     stab = torch.maximum(d_max, inter_decay_log)
 
     d = torch.exp(log_d - stab[..., None])
-    e = torch.einsum("bncsd,bnctd->bncst", qc, kc) * d
+    e = torch.einsum("bncsd,bnctd->bncst", R(qc), R(kc)) * d
 
     q_inter = qc * torch.exp(inter_decay_log - stab)[..., None]
-    inter_num = torch.einsum("bncsd,bncde->bncse", q_inter, c_prev)
+    inter_num = torch.einsum("bncsd,bncde->bncse", R(q_inter), R(c_prev))
     inter_norm = torch.einsum("bncsd,bncd->bncs", q_inter, n_prev)
 
     normalizer = torch.maximum((e.sum(dim=-1) + inter_norm).abs(),
                                torch.exp(-stab))[..., None] + eps
-    intra_num = torch.einsum("bncst,bnctd->bncsd", e, vc)
+    intra_num = torch.einsum("bncst,bnctd->bncsd", R(e), R(vc))
     h = ((intra_num + inter_num) / normalizer).reshape(B, NH, S, DV)
     if return_last_state:
         return h, (c_st, n_st, m_st)

@@ -30,7 +30,11 @@ workspace, and ``_SlstmFunction.backward`` runs the reverse-time kernel on
 it (``slstm_scan_bwd``). Its plain version, ``slstm_scan_bwd_plain``, is the
 same reverse recurrence in torch. Both hold the stabilizer m constant: y is
 invariant to rescaling every state by exp(m), so these are autograd's
-gradients up to rounding.
+gradients up to rounding. A carried state takes part both ways: the
+gradient of a returned last state seeds the walk, and the walk ends in the
+gradient of the initial state; the part of the last m's gradient that the
+frozen walk cannot see follows the stabilizer's max chain back
+(``slstm_scan_bwd_plain``).
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ SAVED = 7  # per step and channel, what the forward writes under autograd:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = CudaLibrary("slstm.cu", {
     "slstm_fwd_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "slstm_bwd_f32": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    "slstm_bwd_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
     "slstm_error_string": (ctypes.c_char_p, [_I]),
 })
 
@@ -110,7 +114,8 @@ def slstm_scan(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     return (y, (y[:, -1], *(s[:, -1] for s in states))) if return_last_state else y
 
 
-def slstm_scan_bwd_plain(wx, r, b, y, states, dy, initial_state: tuple | None = None):
+def slstm_scan_bwd_plain(wx, r, b, y, states, dy, initial_state: tuple | None = None,
+                         dlast: tuple | None = None, with_state: bool = False):
     """The reverse-time kernel's plain version: the gradients (dwx, dr, db)
     of ``slstm_scan`` for the output gradient dy (B, S, NH, DH), from the
     forward's y and per-step states (c, n, m), each (B, S, NH, DH), and the
@@ -120,7 +125,17 @@ def slstm_scan_bwd_plain(wx, r, b, y, states, dy, initial_state: tuple | None = 
     d(o_raw), dc_t and dn_t, then d(i_raw), d(f_raw) (through logsigmoid)
     and d(z_raw), and the carries dc, dn scaled by the forget gate. dr[h] =
     sum over b, t of y_{t-1}^T draw_t and db = sum of draw. dwx (B, S, NH, 4,
-    DH) is draw itself."""
+    DH) is draw itself.
+
+    ``dlast``: the gradient (dy, dc, dn, dm) of the last state that
+    ``return_last_state`` returns, or None. dy joins dy_{S-1} and (dc, dn)
+    seed the carries. A stabilized state enters the function only through
+    c e^m and n e^m, so the frozen walk is exact except for delta = dm - dc c
+    - dn n, which follows the max chain m_t = max(i_raw, logsigmoid(f_raw) +
+    m_{t-1}) back: into d(i_raw) where the input gate won, else into
+    d(logsigmoid(f_raw)) and on to m_{t-1}. ``with_state``: also return the
+    gradient of ``initial_state`` (dy0 = R draw_0, the carries dc0, dn0 and
+    dm0 = dc0 c0 + dn0 n0 + what is left of delta) as a fourth element."""
     B, S, NH, _, DH = wx.shape
     f32 = lambda t: t.float()
     wx, r, b, y, dy = map(f32, (wx, r, b, y, dy))
@@ -133,8 +148,13 @@ def slstm_scan_bwd_plain(wx, r, b, y, states, dy, initial_state: tuple | None = 
     iraw, fraw, zraw, oraw = raw.unbind(dim=3)
     lsf, tz, so = F.logsigmoid(fraw), torch.tanh(zraw), torch.sigmoid(oraw)
     ig, fg = torch.exp(iraw - m), torch.exp(lsf + m_prev - m)
+    ibranch = iraw >= lsf + m_prev  # the input gate won the stabilizer's max
     sig_nf = torch.sigmoid(-fraw)
-    dc = dn = dyr = torch.zeros((B, NH, DH), dtype=torch.float32, device=wx.device)
+    dc = dn = dyr = delta = torch.zeros((B, NH, DH), dtype=torch.float32, device=wx.device)
+    if dlast is not None:
+        dyl, dc, dn, dml = map(f32, dlast)
+        dy = torch.cat([dy[:, :-1], (dy[:, -1] + dyl)[:, None]], dim=1)
+        delta = dml - dc * c[:, -1] - dn * n[:, -1]
     draws = [None] * S
     for t in range(S - 1, -1, -1):
         dyt = dy[:, t] + dyr
@@ -144,13 +164,19 @@ def slstm_scan_bwd_plain(wx, r, b, y, states, dy, initial_state: tuple | None = 
         dfg = dct * c_prev[:, t] + dnt * n_prev[:, t]
         dig = dct * tz[:, t] + dnt
         dc, dn = dct * fg[:, t], dnt * fg[:, t]
-        draw = torch.stack([dig * ig[:, t], dfg * fg[:, t] * sig_nf[:, t],
+        wins = ibranch[:, t]
+        dmi, dmf = torch.where(wins, delta, 0.0), torch.where(wins, 0.0, delta)
+        delta = dmf
+        draw = torch.stack([dig * ig[:, t] + dmi, (dfg * fg[:, t] + dmf) * sig_nf[:, t],
                             dct * ig[:, t] * (1 - tz[:, t] ** 2),
                             dyt * hn * so[:, t] * (1 - so[:, t])], dim=2)  # (B, NH, 4, DH)
         draws[t] = draw
         dyr = torch.einsum("bnge,ndge->bnd", draw, r)
     draw = torch.stack(draws, dim=1)
-    return draw, torch.einsum("bsnd,bsnge->ndge", y_prev, draw), draw.sum(dim=(0, 1))
+    out = (draw, torch.einsum("bsnd,bsnge->ndge", y_prev, draw), draw.sum(dim=(0, 1)))
+    if not with_state:
+        return out
+    return (*out, (dyr, dc, dn, dc * c0 + dn * n0 + delta))
 
 
 def _launch(wx, r, b, state_in, return_last_state: bool, save: bool = False):
@@ -177,35 +203,43 @@ def _launch(wx, r, b, state_in, return_last_state: bool, save: bool = False):
     return y, None if state_out is None else tuple(state_out.unbind(0)), saved
 
 
-def slstm_scan_bwd(r, y, saved, dy, state_in=None):
+def slstm_scan_bwd(r, y, saved, dy, state_in=None, dlast=None, with_state: bool = False):
     """The reverse-time kernel and the two sums around it, on CUDA tensors:
     r (NH, DH, 4, DH), the forward's y (B, S, NH, DH) and ``saved`` (B, S,
-    NH, SAVED, DH) as the forward kernel wrote them, the output gradient dy
+    NH, SAVED, DH) as the forward kernel wrote it, the output gradient dy
     and the packed carried-in state (4, B, NH, DH) or None -> (dwx, dr,
-    db). One launch runs the reverse loop of every (batch row, head) chain
-    and writes dwx; dr and db are one einsum and one sum over B and S, as
-    the JAX package leaves them to XLA. Each launch adds one to
-    ``slstm_scan_bwd.launches``."""
+    db). ``dlast``: the packed (4, B, NH, DH) gradient of the returned last
+    state (y, c, n, m), or None. ``with_state``: a fourth element, the
+    gradient of the initial (y, c, n, m) (the kernel writes that of c, n and
+    m; that of y, R draw_0, is one einsum here). One launch runs the reverse
+    loop of every (batch row, head) chain and writes dwx; dr and db are one
+    einsum and one sum over B and S, as the JAX package leaves them to XLA.
+    Each launch adds one to ``slstm_scan_bwd.launches``."""
     B, S, NH, DH = y.shape
     dev = y.device
     chk = lambda name, t, shape: check_tensor("slstm_scan_bwd", name, t, shape, dev)
     r = chk("r", r, (NH, DH, 4, DH))
     saved = chk("saved", saved, (B, S, NH, SAVED, DH))
     dy = chk("dy", dy, (B, S, NH, DH))
+    dlast = None if dlast is None else chk("dlast", dlast, (4, B, NH, DH))
     lib = _LIB.load()
     dwx = torch.empty((B, S, NH, 4, DH), device=dev, dtype=torch.float32)
+    dstate = torch.empty((3, B, NH, DH), device=dev, dtype=torch.float32) if with_state else None
+    ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.slstm_bwd_f32(r.data_ptr(), saved.data_ptr(), dy.data_ptr(),
-                                None if state_in is None else state_in.data_ptr(),
-                                dwx.data_ptr(), B, S, NH, DH, stream)
+        err = lib.slstm_bwd_f32(r.data_ptr(), saved.data_ptr(), dy.data_ptr(), ptr(state_in),
+                                ptr(dlast), dwx.data_ptr(), ptr(dstate), B, S, NH, DH, stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan_bwd: CUDA error {err}: "
                            f"{lib.slstm_error_string(err).decode()}")
     slstm_scan_bwd.launches += 1
     y0 = torch.zeros_like(y[:, :1]) if state_in is None else state_in[0][:, None]
     y_prev = torch.cat([y0, y[:, :-1]], dim=1)
-    return dwx, torch.einsum("bsnd,bsnge->ndge", y_prev, dwx), dwx.sum(dim=(0, 1))
+    out = (dwx, torch.einsum("bsnd,bsnge->ndge", y_prev, dwx), dwx.sum(dim=(0, 1)))
+    if not with_state:
+        return out
+    return (*out, (torch.einsum("bnge,ndge->bnd", dwx[:, 0], r), *dstate.unbind(0)))
 
 
 slstm_scan_bwd.launches = 0
@@ -215,19 +249,28 @@ class _SlstmFunction(torch.autograd.Function):
     """The forward kernel with the reverse-time kernel as its backward (the
     JAX entry's ``_bwd``, ``jax.vjp`` of the plain scan): the forward writes
     every step's gate values and states to a workspace, the backward reads
-    them, so nothing is recomputed by a plain version. A carried-in state is
-    a constant here (``slstm_scan_fwd`` refuses one that needs gradients)."""
+    them, so nothing is recomputed by a plain version. ``state`` is the
+    carried-in (y, c, n, m), or nothing; with ``return_last`` the outputs
+    are y and the last (y, c, n, m). Gradients reach the carried-in state
+    and leave the returned one through the same kernel."""
 
     @staticmethod
-    def forward(ctx, wx, r, b, state_in):
-        y, _, saved = _launch(wx, r, b, state_in, return_last_state=False, save=True)
+    def forward(ctx, wx, r, b, return_last, *state):
+        state_in = torch.stack(state) if state else None
+        y, last, saved = _launch(wx, r, b, state_in, return_last_state=return_last, save=True)
         ctx.save_for_backward(r, y, saved, state_in)
-        return y
+        ctx.n_state = len(state)
+        return (y, *last) if return_last else y
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, *dlast):
         r, y, saved, state_in = ctx.saved_tensors
-        return (*slstm_scan_bwd(r, y, saved, dy, state_in), None)
+        dlast = (torch.stack([torch.zeros_like(y[:, 0]) if g is None else g for g in dlast])
+                 if dlast and any(g is not None for g in dlast) else None)
+        dy = torch.zeros_like(y) if dy is None else dy
+        grads = slstm_scan_bwd(r, y, saved, dy, state_in, dlast, with_state=ctx.n_state > 0)
+        dstate = grads[3] if ctx.n_state else ()
+        return (*grads[:3], None, *dstate)
 
 
 def slstm_scan_fwd(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
@@ -240,24 +283,14 @@ def slstm_scan_fwd(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     writes the last state after the last) or raise; each launch adds one to
     ``slstm_scan_fwd.launches``.
 
-    Gradients on the card: a call that needs them goes through
-    ``_SlstmFunction``, whose backward is the reverse-time kernel
-    (``slstm_scan_bwd``). A carried ``initial_state`` enters as a constant;
-    one that itself requires grad, and ``return_last_state`` under grad,
-    raise ``NotImplementedError`` rather than return a tensor cut from the
-    graph (the JAX entry takes neither to its kernel either)."""
+    Gradients on the card: a call that needs them (of the inputs, or of a
+    carried ``initial_state``) goes through ``_SlstmFunction``, whose
+    backward is the reverse-time kernel (``slstm_scan_bwd``): it takes the
+    gradient of the returned last state too, and gives that of the
+    carried-in one."""
     if wx.device.type == "cpu":
         return slstm_scan(wx, r, b, initial_state=initial_state,
                           return_last_state=return_last_state)
-    grad = torch.is_grad_enabled()
-    if grad and any(s.requires_grad for s in initial_state or ()):
-        raise NotImplementedError("slstm_scan_fwd: the gradient of a carried initial_state is "
-                                  "not bound to the CUDA kernels; detach it, or use CPU tensors")
-    needs_grad = grad and any(t.requires_grad for t in (wx, r, b))
-    if needs_grad and return_last_state:
-        raise NotImplementedError("slstm_scan_fwd: the gradient through the returned last state "
-                                  "is not bound to the CUDA kernels; call it without "
-                                  "return_last_state, or on CPU tensors")
     B, S, NH, _, DH = wx.shape
     if DH not in KERNEL_DHS:
         raise ValueError(f"slstm_scan_fwd: the CUDA kernel needs head dim in {KERNEL_DHS}, "
@@ -270,13 +303,14 @@ def slstm_scan_fwd(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     wx = check_tensor("slstm_scan_fwd", "wx", wx, (B, S, NH, 4, DH), dev)
     r = check_tensor("slstm_scan_fwd", "r", r, (NH, DH, 4, DH), dev)
     b = check_tensor("slstm_scan_fwd", "b", b, (NH, 4, DH), dev)
+    state = () if initial_state is None else tuple(
+        check_tensor("slstm_scan_fwd", f"initial_state[{i}]", s, (B, NH, DH), dev)
+        for i, s in enumerate(initial_state))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (wx, r, b, *state)):
+        out = _SlstmFunction.apply(wx, r, b, return_last_state, *state)
+        return (out[0], tuple(out[1:])) if return_last_state else out
     # the kernels take (y, c, n, m) packed as (4, B, NH, DH)
-    state_in = None if initial_state is None else check_tensor(
-        "slstm_scan_fwd", "initial_state", torch.stack([s.detach() for s in initial_state]),
-        (4, B, NH, DH), dev)
-    if needs_grad:
-        return _SlstmFunction.apply(wx, r, b, state_in)
-    y, last, _ = _launch(wx, r, b, state_in, return_last_state)
+    y, last, _ = _launch(wx, r, b, torch.stack(state) if state else None, return_last_state)
     return (y, last) if return_last_state else y
 
 

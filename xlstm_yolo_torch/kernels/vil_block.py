@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_tensor
+from .mlstm_native import mm_f32, mm_round
 from .vil_cell import (BLOCK, Cfg, Member, Workspace, _cell_plain, call_member, cell_bwd,
                        cell_kernel_args, check_call, run_kernel)
 
@@ -35,41 +36,54 @@ N_CELL = 10  # the cell's weights and biases among a call's arguments
 
 def tail_plain(h, conv_act, z, x_res, nscale, nbias, skip, wd, bd, cfg: Cfg):
     """The layer's tail on the cell output h (B, S, INNER): per-head
-    outnorm, learnable skip, SiLU(z) gate, proj_down, residual."""
+    outnorm, learnable skip, SiLU(z) gate, proj_down, residual; fp32. With
+    bf16 ``conv_act`` the product with proj_down reads bf16-rounded
+    operands (the TPU kernel's arithmetic); the rest stays fp32."""
     B, S, INNER = h.shape
     nh = cfg.num_heads
-    h4 = h.reshape(B, S, nh, INNER // nh)
+    cd = conv_act.dtype
+    R = lambda t: mm_round(t, cd)
+    h4 = h.float().reshape(B, S, nh, INNER // nh)
     mu = h4.mean(-1, keepdim=True)
     var = h4.var(-1, keepdim=True, unbiased=False)
-    hn = ((h4 - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, INNER) * nscale + nbias
-    y = (hn + skip * conv_act) * F.silu(z)
-    return y @ wd + bd + x_res.float()
+    hn = (((h4 - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, INNER) * nscale.float()
+          + nbias.float())
+    y = (hn + skip.float() * conv_act.float()) * F.silu(z.float())
+    return R(y) @ R(wd) + bd.float() + x_res.float()
 
 
 def tail_bwd(h, conv_act, z, nsc, nbi, skip, wd, g, cfg: Cfg):
     """The tail's backward: h the cell output, g (B, S, DIM) the output
     gradient (which is also the residual's). Returns (dh, dconv, dz, dnsc,
-    dnbi, dskip, dwd, dbd); dconv is the skip path's share only."""
+    dnbi, dskip, dwd, dbd), fp32; dconv is the skip path's share only. In
+    bf16 (``conv_act``'s dtype) the two products with proj_down read bf16
+    operands, and the outnorm's output and input gradient are rounded to
+    bf16 where the JAX ``_vil_layer_bwd`` casts them."""
     B, S, INNER = h.shape
     nh = cfg.num_heads
     dh_ = INNER // nh
-    h4 = h.reshape(B, S, nh, dh_)
+    cd = conv_act.dtype
+    R = lambda t: mm_round(t, cd)
+    h4 = h.float().reshape(B, S, nh, dh_)
     mu = h4.mean(-1, keepdim=True)
     denom = torch.rsqrt(h4.var(-1, keepdim=True, unbiased=False) + cfg.norm_eps)
     hnorm = (h4 - mu) * denom
-    hn = (hnorm * nsc.reshape(nh, dh_) + nbi.reshape(nh, dh_)).reshape(B, S, INNER)
+    hn = R((hnorm * nsc.reshape(nh, dh_) + nbi.reshape(nh, dh_)).reshape(B, S, INNER))
+    z, conv_act = z.float(), conv_act.float()
     sig_z = torch.sigmoid(z)
     sg = z * sig_z
     ypre = hn + skip * conv_act
     dbd = g.sum((0, 1))
-    dwd = torch.einsum("bsi,bsd->id", ypre * sg, g)
-    dy = g @ wd.t()
+    DIM = g.shape[-1]
+    g2 = g.reshape(-1, DIM)
+    dwd = mm_f32((ypre * sg).reshape(-1, INNER).t(), g2, cd)
+    dy = mm_f32(g2, wd.t(), cd).reshape(B, S, INNER)
     dz = dy * ypre * (sig_z * (1.0 + z * (1.0 - sig_z)))
     dypre = dy * sg
     dskip = (dypre * conv_act).sum((0, 1))
 
     # outnorm backward over dh
-    dhn4 = dypre.reshape(B, S, nh, dh_)
+    dhn4 = R(dypre).reshape(B, S, nh, dh_)
     dnsc = (dhn4 * hnorm).sum((0, 1)).reshape(INNER)
     dnbi = dhn4.sum((0, 1)).reshape(INNER)
     dhnorm = dhn4 * nsc.reshape(nh, dh_)
@@ -79,10 +93,13 @@ def tail_bwd(h, conv_act, z, nsc, nbi, skip, wd, g, cfg: Cfg):
 
 
 def _block_plain(args, cfg: Cfg):
-    """Plain forward -> (out, (h, q, k, v, i_pre, f_pre))."""
+    """Plain forward -> (out, (h, q, k, v, i_pre, f_pre)): out in x_res's
+    dtype; h and q/k/v saved in conv_act's (bf16 under AMP, as the JAX
+    forward saves them; the tail reads the fp32 h)."""
     conv_act, x_mlstm, z, x_res = args[:4]
     h, cell_acts = _cell_plain(conv_act, x_mlstm, *args[4:4 + N_CELL], cfg)
-    return tail_plain(h, conv_act, z, x_res, *args[4 + N_CELL:], cfg), (h, *cell_acts)
+    out = tail_plain(h, conv_act, z, x_res, *args[4 + N_CELL:], cfg)
+    return out.to(x_res.dtype), (h.to(conv_act.dtype), *cell_acts)
 
 
 def vil_block_plain(conv_act, x_mlstm, z, x_res, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
@@ -118,7 +135,7 @@ def tail_kernel_args(where: str, conv_act, nscale, nbias, skip, wd, bd, dim: int
             chk("skip", skip, (INNER,)), chk("wd^T", wd.t(), (dim, INNER)), chk("bd", bd, (dim,))]
 
 
-def _launch(args, cfg: Cfg):
+def _launch(args, cfg: Cfg, save: bool = True):
     """Launch the block kernel on CUDA tensors -> (out, acts, carry); the
     saved activations and the carry states are views of its workspace."""
     conv_act, x_mlstm, z, x_res = args[:4]

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from ._build import CudaLibrary, check_tensor
 from .mlstm_bwd import (KERNEL_CS, KERNEL_DH, CarryStates, _natural,
                         mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
-from .mlstm_native import mlstm_chunkwise
+from .mlstm_native import mlstm_chunkwise, mm_f32, mm_round
 
 N_WS = 18  # arrays in the kernels' workspace (vil_workspace_layout)
 LAYER, CELL, BLOCK, CONV = 0, 1, 2, 3  # the family's members, as csrc/vil_layer.cu numbers them
@@ -53,6 +53,7 @@ LAYER, CELL, BLOCK, CONV = 0, 1, 2, 3  # the family's members, as csrc/vil_layer
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = CudaLibrary("vil_layer.cu", {
     "vil_layer_fwd_f32": (_I, [_P] * 22 + [_I] * 6 + [_F] * 3 + [_P]),
+    "vil_layer_fwd_bf16": (_I, [_P] * 24 + [_I] * 6 + [_F] * 3 + [_P]),
     "vil_cell_fwd_f32": (_I, [_P] * 14 + [_I] * 5 + [_F] + [_P]),
     "vil_block_fwd_f32": (_I, [_P] * 21 + [_I] * 6 + [_F] * 2 + [_P]),
     "vil_layer_conv_fwd_f32": (_I, [_P] * 23 + [_I] * 8 + [_F] * 3 + [_P]),
@@ -77,21 +78,30 @@ def _cell_plain(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf, c
     """Plain forward -> (h, (q, k, v, i_pre, f_pre)): the cell output before
     the outnorm and unscaled q/k/v in (B, S, INNER), gate preacts (B, NH, S).
     A sequence that is not a chunk multiple is zero-padded at the end; the
-    recurrence is causal, so the padded steps change no real position."""
+    recurrence is causal, so the padded steps change no real position.
+
+    The arithmetic follows ``conv_act``'s dtype. fp32: fp32 throughout.
+    bf16 (the TPU kernels at their default ``mxu_dtype="bfloat16"``, as the
+    JAX layer casts its weights to the activations' dtype): every product
+    reads bf16-rounded operands (``mm_round``) and accumulates in fp32, the
+    headwise biases are bf16 values, the gate biases fp32; q/k/v, gates
+    and h stay fp32 inside, and the saved q/k/v come back in bf16, as the
+    JAX forward saves them."""
     B, S, INNER = conv_act.shape
     nh = cfg.num_heads
     dh = INNER // nh
-    f32 = torch.float32
+    cd = conv_act.dtype
+    R = lambda t: mm_round(t, cd)
 
-    def headwise(t, w, b):  # (B, S, INNER) -> (B, NH, S, DH)
-        y = torch.einsum("bsnd,nod->bnso", t.to(f32).reshape(B, S, nh, dh), w)
-        return y + b.reshape(1, nh, 1, dh)
+    def headwise(t, w, b):  # (B, S, INNER) -> (B, NH, S, DH), fp32
+        y = torch.einsum("bsnd,nod->bnso", R(t).reshape(B, S, nh, dh), R(w))
+        return y + R(b).reshape(1, nh, 1, dh)
 
     q, k, v = headwise(conv_act, wq, bq), headwise(conv_act, wk, bk), headwise(x_mlstm, wv, bv)
 
     def gate(w, b):  # split dots over cat(q, k, v) -> (B, NH, S)
-        y = (_natural(q) @ w[:INNER] + _natural(k) @ w[INNER:2 * INNER]
-             + _natural(v) @ w[2 * INNER:] + b)
+        y = (R(_natural(q)) @ R(w[:INNER]) + R(_natural(k)) @ R(w[INNER:2 * INNER])
+             + R(_natural(v)) @ R(w[2 * INNER:]) + b.float())
         return y.transpose(1, 2)
 
     i_pre, f_pre = gate(wgi, bgi), gate(wgf, bgf)
@@ -102,8 +112,9 @@ def _cell_plain(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf, c
         qp, kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         ip, fp = F.pad(i_pre, (0, pad)), F.pad(f_pre, (0, pad))
     h = mlstm_chunkwise(qp, kp, vp, ip, fp, chunk_size=cs, igate_act=cfg.igate_act,
-                        eps=cfg.eps)[:, :, :S]
-    return _natural(h), (_natural(q), _natural(k), _natural(v), i_pre, f_pre)
+                        eps=cfg.eps, mm_dtype=cd)[:, :, :S]
+    saved = tuple(_natural(t).to(cd) for t in (q, k, v))
+    return _natural(h), (*saved, i_pre, f_pre)
 
 
 def vil_cell_plain(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
@@ -122,44 +133,58 @@ def cell_bwd(args, acts, dh, cfg: Cfg, mlstm_bwd):
     ``args`` the 12 cell arguments, ``acts``
     = (q, k, v, i_pre, f_pre) as the forward keeps them, ``dh`` (B, S,
     INNER) the gradient of h. The gate preacts are linear in q/k/v, and
-    q/k/v in conv_act and x_mlstm. Returns the 12 gradients, in order."""
+    q/k/v in conv_act and x_mlstm. Returns the 12 gradients, in order, fp32.
+
+    In bf16 (``conv_act``'s dtype) every product takes bf16-rounded operands
+    and accumulates in fp32, and the sums the JAX ``_vil_layer_bwd`` forms
+    in bf16 are rounded there: each gate term of dq/dk/dv, and dq/dk/dv
+    themselves (the chunkwise backward returns them in bf16)."""
     conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf = args
     q, k, v, ip, fp = acts
     B, S, INNER = conv_act.shape
     nh = cfg.num_heads
     dh_ = INNER // nh
+    cd = conv_act.dtype
+    R = lambda t: mm_round(t, cd)
     dq_c, dk_c, dv_c, di, df = mlstm_bwd(q, k, v, ip, fp, dh, nh, chunk_size=cfg.chunk_size,
                                          igate_act=cfg.igate_act, eps=cfg.eps)
+    dic, dfc = R(di), R(df)
 
     def gate_grad(w_i, w_f):  # (INNER, NH) slices -> (B, S, INNER)
-        return torch.einsum("ih,bhs->bsi", w_i, di) + torch.einsum("ih,bhs->bsi", w_f, df)
+        return R(R(torch.einsum("ih,bhs->bsi", R(w_i), dic))
+                 + R(torch.einsum("ih,bhs->bsi", R(w_f), dfc)))
 
-    dq = dq_c + gate_grad(wgi[:INNER], wgf[:INNER])
-    dk = dk_c + gate_grad(wgi[INNER:2 * INNER], wgf[INNER:2 * INNER])
-    dv = dv_c + gate_grad(wgi[2 * INNER:], wgf[2 * INNER:])
-    dwgi = torch.cat([torch.einsum("bsi,bhs->ih", t, di) for t in (q, k, v)])
-    dwgf = torch.cat([torch.einsum("bsi,bhs->ih", t, df) for t in (q, k, v)])
+    dq = R(R(dq_c) + gate_grad(wgi[:INNER], wgf[:INNER]))
+    dk = R(R(dk_c) + gate_grad(wgi[INNER:2 * INNER], wgf[INNER:2 * INNER]))
+    dv = R(R(dv_c) + gate_grad(wgi[2 * INNER:], wgf[2 * INNER:]))
+    dwgi = torch.cat([torch.einsum("bsi,bhs->ih", R(t), dic) for t in (q, k, v)])
+    dwgf = torch.cat([torch.einsum("bsi,bhs->ih", R(t), dfc) for t in (q, k, v)])
     dbgi, dbgf = di.sum((0, 2)), df.sum((0, 2))
 
-    heads = lambda t: t.reshape(B, S, nh, dh_)
-    ca, xm = heads(conv_act.float()), heads(x_mlstm.float())
-    dwq = torch.einsum("bsno,bsnd->nod", heads(dq), ca)
-    dwk = torch.einsum("bsno,bsnd->nod", heads(dk), ca)
-    dwv = torch.einsum("bsno,bsnd->nod", heads(dv), xm)
+    # the headwise products as one batched GEMM over heads: (NH, B*S, DH)
+    heads = lambda t: t.reshape(B * S, nh, dh_).transpose(0, 1)
+    back = lambda t: t.transpose(0, 1).reshape(B, S, INNER)
+    ca, xm = heads(conv_act), heads(x_mlstm)
+    dwq = mm_f32(heads(dq).transpose(1, 2), ca, cd)
+    dwk = mm_f32(heads(dk).transpose(1, 2), ca, cd)
+    dwv = mm_f32(heads(dv).transpose(1, 2), xm, cd)
     dbq, dbk, dbv = dq.sum((0, 1)), dk.sum((0, 1)), dv.sum((0, 1))
-    dconv = (torch.einsum("bsno,nod->bsnd", heads(dq), wq)
-             + torch.einsum("bsno,nod->bsnd", heads(dk), wk)).reshape(B, S, INNER)
-    dxm = torch.einsum("bsno,nod->bsnd", heads(dv), wv).reshape(B, S, INNER)
+    dconv = back(mm_f32(heads(dq), wq, cd) + mm_f32(heads(dk), wk, cd))
+    dxm = R(back(mm_f32(heads(dv), wv, cd)))
     return dconv, dxm, dwq, dbq, dwk, dbk, dwv, dbv, dwgi, dbgi, dwgf, dbgf
 
 
-def check_call(where: str, conv_act, cfg: Cfg):
+def check_call(where: str, conv_act, cfg: Cfg, dtypes=(torch.float32,)):
     """What every kernel of the family refuses before it builds or launches:
-    an unknown gate activation, a head dim other than ``KERNEL_DH``. Any
-    width runs: each stage's shared memory is fixed by its tiles. Returns
-    the library."""
+    an unknown gate activation, a head dim other than ``KERNEL_DH``,
+    activations of a dtype it has no entry for (``dtypes``: the layer has
+    fp32 and bf16 entries, the others fp32 only). Any width runs: each
+    stage's shared memory is fixed by its tiles. Returns the library."""
     if cfg.igate_act not in ("exp", "sigmoid"):
         raise ValueError(f"unknown igate_act {cfg.igate_act!r}")
+    if conv_act.dtype not in dtypes:
+        raise TypeError(f"{where}: no CUDA kernel for {conv_act.dtype} activations "
+                        f"(it has {', '.join(map(str, dtypes))})")
     INNER = conv_act.shape[-1]
     if INNER != cfg.num_heads * KERNEL_DH:
         raise ValueError(f"{where}: the CUDA kernel needs head dim {KERNEL_DH}, "
@@ -218,15 +243,17 @@ class Workspace:
 
 
 def run_kernel(where: str, lib, entry: str, tensors, sizes, floats, device):
-    """Call the C entry on the current stream; raise on a CUDA error."""
+    """Call the C entry on the current stream (a None tensor passes a null
+    pointer); raise on a CUDA error."""
     stream = torch.cuda.current_stream(device).cuda_stream
+    ptrs = (None if t is None else t.data_ptr() for t in tensors)
     with torch.cuda.device(device):
-        err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *sizes, *floats, stream)
+        err = getattr(lib, entry)(*ptrs, *sizes, *floats, stream)
     if err != 0:
         raise RuntimeError(f"{where}: CUDA error {err}: {lib.vil_error_string(err).decode()}")
 
 
-def _launch(args, cfg: Cfg):
+def _launch(args, cfg: Cfg, save: bool = True):
     """Launch the cell kernel on CUDA tensors -> (h, acts, carry): h is a
     tensor of its own; the saved activations and the per-chunk carry states
     are views of the kernel's workspace, which is freed with them."""
@@ -247,8 +274,9 @@ def _launch(args, cfg: Cfg):
 
 class Member(NamedTuple):
     """One function of the family for ``call_member``: ``plain(args, cfg)
-    -> (out, acts)``, ``launch(args, cfg) -> (out, acts, carry)`` and
-    ``bwd(args, acts, gout, cfg, mlstm_bwd) -> grads``."""
+    -> (out, acts)``, ``launch(args, cfg, save) -> (out, acts, carry)``
+    (``save``: the backward will read ``acts``) and ``bwd(args, acts, gout,
+    cfg, mlstm_bwd) -> grads``."""
     name: str
     plain: Callable
     launch: Callable
@@ -272,7 +300,7 @@ class _MemberFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, member, cfg, *args):
         if _on_card(args[0]):
-            out, acts, carry = member.launch(args, cfg)
+            out, acts, carry = member.launch(args, cfg, True)
         else:
             (out, acts), carry = member.plain(args, cfg), ()
         ctx.save_for_backward(*args, *acts, *carry)
@@ -287,7 +315,7 @@ class _MemberFunction(torch.autograd.Function):
         mlstm_bwd = (functools.partial(mlstm_chunkwise_bwd, carry=CarryStates(*carry)) if carry
                      else mlstm_chunkwise_bwd_plain)
         grads = ctx.member.bwd(args, acts, gout.contiguous().float(), ctx.cfg, mlstm_bwd)
-        return (None, None, *grads)
+        return (None, None, *(g.to(a.dtype) for g, a in zip(grads, args)))
 
 
 def call_member(member: Member, cfg: Cfg, args):
@@ -300,7 +328,7 @@ def call_member(member: Member, cfg: Cfg, args):
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _MemberFunction.apply(member, cfg, *args)
     if _on_card(args[0]):
-        return member.launch(args, cfg)[0]
+        return member.launch(args, cfg, False)[0]
     return member.plain(args, cfg)[0]
 
 

@@ -114,7 +114,7 @@ def conv_layer_bwd(args, acts, gout, cfg: Cfg, mlstm_bwd):
     return (dx, dnrm, dwu, dbu, dwc, dpre.sum((0, 1)), *rest)
 
 
-def _launch(args, cfg: Cfg):
+def _launch(args, cfg: Cfg, save: bool = True):
     """Launch the conv-fused kernels on CUDA tensors -> (out, acts, carry):
     the saved activations and the per-chunk carry states are views of the
     kernels' workspace, in the layouts ``_conv_plain`` and

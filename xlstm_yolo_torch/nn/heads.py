@@ -17,13 +17,13 @@ import torch
 import torch.nn as nn
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
-from .modules import ConvBN, lecun_normal_
+from .modules import ConvBN, conv_in_dtype, lecun_normal_
 
 
 class Detect(nn.Module):
     """Decoupled detect head (legacy v8 form: two 3x3 ConvBNs then a 1x1
     conv in each of the box and class branches). Returns a list of
-    (box_map, cls_map) pairs."""
+    (box_map, cls_map) pairs, in the input's dtype."""
 
     def __init__(self, nc: int = 80, ch: tuple = (), reg_max: int = 16,
                  strides: tuple = (8, 16, 32)):
@@ -54,10 +54,11 @@ class Detect(nn.Module):
         for i, x in enumerate(feats):
             b = x
             c = x
-            for j in range(3):
+            for j in range(2):
                 b = getattr(self, f"cv2_{i}_{j}")(b)
                 c = getattr(self, f"cv3_{i}_{j}")(c)
-            outs.append((b, c))
+            outs.append((conv_in_dtype(getattr(self, f"cv2_{i}_2"), b),
+                         conv_in_dtype(getattr(self, f"cv3_{i}_2"), c)))
         return outs
 
 
@@ -77,7 +78,8 @@ def split_maps(raw_maps: Sequence, reg_max: int = 16):
 def decode_detections(raw_maps: Sequence, strides: Sequence[float], nc: int,
                       reg_max: int = 16) -> torch.Tensor:
     """Raw per-scale maps -> (B, N, 4 + nc): xywh pixel boxes + sigmoid
-    scores (DFL integral decode around the anchor grid, times stride)."""
+    scores (DFL integral decode around the anchor grid, times stride),
+    fp32 whatever the maps' dtype (the class sigmoid in fp32, as JAX)."""
     feat_shapes = [tuple(bm.shape[2:4]) for bm, _ in raw_maps]
     ref = raw_maps[0][0]
     anchors, stride_t = make_anchors(feat_shapes, strides, device=ref.device)

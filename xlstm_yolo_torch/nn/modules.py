@@ -5,6 +5,12 @@ YOLOv8 graphs use: ConvBN, Bottleneck, C2f, SPPF, Concat and Upsample.
 Submodule names follow the JAX parameter tree (``conv``/``bn``, ``cv1``,
 ``m0``...), so ``utils.jax_weights`` maps one onto the other by path.
 Unlike flax, a torch module is built knowing its input channels ``c1``.
+
+Every block computes in its input's dtype, as the JAX blocks do (flax's
+``dtype=x.dtype``): fp32 parameters are cast at use (``conv_in_dtype``,
+``linear_in_dtype``), so under bf16 AMP the gradients reach them in fp32
+through the cast. BatchNorm computes in fp32 and returns the input dtype;
+its running statistics stay fp32.
 """
 from __future__ import annotations
 
@@ -45,12 +51,38 @@ def init_tree(model: nn.Module, seed: int) -> torch.Generator:
     return g
 
 
+def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` applied in x's dtype, as flax's ``nn.Conv(dtype=x.dtype)``:
+    the weight cast to it, the bias (where there is one) added after the
+    convolution, in that dtype."""
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding, conv.dilation,
+                 conv.groups)
+    return y if conv.bias is None else y + conv.bias.to(x.dtype).reshape(1, -1, 1, 1)
+
+
+def linear_in_dtype(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+    """``F.linear`` in x's dtype, as flax's ``nn.Dense(dtype=x.dtype)``: the
+    weight (out, in) cast to it, the bias added after the product."""
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Eval-mode BatchNorm in fp32 on the running statistics, returned in
+    x's dtype (the JAX ``ConvBN``'s ``dtype=float32`` BatchNorm)."""
+    y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight.float(),
+                     bn.bias.float(), False, 0.0, bn.eps)
+    return y.to(x.dtype)
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Train-mode BatchNorm with flax semantics: normalize with the batch's
     biased variance, and update the running statistics with that same
     biased variance (torch's own update uses the unbiased one) at the
-    module's momentum. ``num_batches_tracked`` is not used."""
-    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    module's momentum. ``num_batches_tracked`` is not used. Computed in fp32
+    and returned in x's dtype; the statistics update in fp32."""
+    dt, x = x.dtype, x.float()
+    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps).to(dt)
     with torch.no_grad():
         var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
         bn.running_mean.lerp_(mean, bn.momentum)
@@ -75,8 +107,9 @@ class ConvBN(nn.Module):
             self.bn.reset_parameters()
 
     def forward(self, x):
-        x = self.conv(x)
-        x = batch_norm_train(x, self.bn) if self.training else self.bn(x)
+        x = conv_in_dtype(self.conv, x)
+        if isinstance(self.bn, nn.BatchNorm2d):  # an Identity after fuse_conv_bn
+            x = batch_norm_train(x, self.bn) if self.training else batch_norm_eval(x, self.bn)
         return F.silu(x) if self.act else x
 
 

@@ -48,7 +48,7 @@ from ..kernels.vil_cell import vil_cell_fwd
 from ..kernels.vil_conv import vil_layer_conv_fwd
 from ..kernels.vil_layer import vil_layer_fwd
 from ..utils import resolve_device
-from .modules import init_tree, lecun_normal_
+from .modules import conv_in_dtype, init_tree, lecun_normal_, linear_in_dtype
 
 
 class RMSNorm(nn.Module):
@@ -154,9 +154,10 @@ class LinearHeadwiseExpand(nn.Module):
 
     def forward(self, x):
         nh, dh = self.weight.shape[:2]
-        y = torch.einsum("...nd,nod->...no", x.reshape(*x.shape[:-1], nh, dh), self.weight)
+        y = torch.einsum("...nd,nod->...no", x.reshape(*x.shape[:-1], nh, dh),
+                         self.weight.to(x.dtype))
         y = y.reshape(x.shape)
-        return y if self.bias is None else y + self.bias
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
     def init_params(self, g: torch.Generator) -> None:
         dh = self.weight.shape[-1]
@@ -182,7 +183,7 @@ class SequenceConv2d(nn.Module):
         b, s, d = x.shape
         h, w = seqlens if seqlens is not None else (int(round(math.sqrt(s))),) * 2
         img = x.transpose(1, 2).reshape(b, d, h, w)  # token h*w + w -> (h, w)
-        return self.conv(img).reshape(b, d, s).transpose(1, 2)
+        return conv_in_dtype(self.conv, img).reshape(b, d, s).transpose(1, 2)
 
 
 class DropPath(nn.Module):
@@ -326,7 +327,8 @@ class ViLLayer(nn.Module):
             return self._forward_drop_path(x, seqlens, backward, generator)
         xs = x.flip(1) if backward else x
         inner = self.inner
-        xm = F.linear(self.norm(xs), self.proj_up.weight[:inner], self.proj_up.bias[:inner])
+        xm = linear_in_dtype(self.norm(xs), self.proj_up.weight[:inner],
+                             self.proj_up.bias[:inner])
         conv_act = F.silu(self.conv(xm, seqlens))
         cell = self.mlstm_cell
         nscale, nbias = cell.outnorm.affine()
@@ -368,11 +370,13 @@ class ViLLayer(nn.Module):
         ``DropPath``, so the cell function stands where the layer function
         stood and the tail runs as torch ops."""
         y = self.norm(x)
-        x_mlstm, z = self.proj_up(y.flip(1) if backward else y).split(self.inner, dim=-1)
+        x_mlstm, z = linear_in_dtype(y.flip(1) if backward else y, self.proj_up.weight,
+                                     self.proj_up.bias).split(self.inner, dim=-1)
         conv_act = F.silu(self.conv(x_mlstm, seqlens))
         h = self.mlstm_cell.forward_cell(conv_act, x_mlstm, self.q_proj, self.k_proj,
                                          self.v_proj)
-        out = self.proj_down((h + self.learnable_skip * conv_act) * F.silu(z))
+        h = h + self.learnable_skip.to(h.dtype) * conv_act
+        out = linear_in_dtype(h * F.silu(z), self.proj_down.weight, self.proj_down.bias)
         return x + self.drop_path(out.flip(1) if backward else out, generator)
 
 

@@ -41,8 +41,17 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
 
 
 def dfl_decode(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
-    """(..., 4*reg_max) logits -> (..., 4) expected distances: a softmax over
-    each side's reg_max bins, dotted with the bin indices."""
+    """(..., 4*reg_max) logits -> (..., 4) fp32 expected distances: a softmax
+    over each side's reg_max bins, dotted with the bin indices. bf16 logits
+    take the JAX bf16 path: exp(x - the row's max over all 4*reg_max
+    logits) rounded to bf16, then the numerator and denominator sums in
+    fp32 (the bf16-operand dots with fp32 accumulation of
+    ``ops/anchors.py:dfl_decode``)."""
+    if pred_dist.dtype == torch.bfloat16:
+        x = pred_dist.float()
+        e = torch.exp(x - x.amax(-1, keepdim=True)).bfloat16().float().unflatten(-1, (4, reg_max))
+        bins = torch.arange(reg_max, dtype=e.dtype, device=e.device)
+        return (e * bins).sum(-1) / e.sum(-1)
     x = pred_dist.float().unflatten(-1, (4, reg_max)).softmax(-1)
     bins = torch.arange(reg_max, dtype=x.dtype, device=x.device)
     return (x * bins).sum(-1)

@@ -41,17 +41,27 @@ def df_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int = 16) ->
     """Distribution focal loss: raw logits (..., 4*reg_max) and continuous
     targets (..., 4) in [0, reg_max - 1) -> (...), the mean over the four
     sides of the cross-entropy against the two bins around the target,
-    weighted by the hat function max(0, 1 - |bin - t|)."""
+    weighted by the hat function max(0, 1 - |bin - t|). fp32 inside; bf16
+    logits take the JAX bf16 path (``utils/loss.py:df_loss``): with c the
+    row's max over all 4*reg_max logits, exp(x - c) and w (x - c) are
+    rounded to bf16 before their per-side sums, which accumulate in fp32."""
+    bins = torch.arange(reg_max, dtype=torch.float32, device=pred_dist.device)
+    w = (1.0 - (bins - target.float()[..., None]).abs()).clamp(min=0.0)
+    if pred_dist.dtype == torch.bfloat16:
+        x = pred_dist.float()
+        xc = (x - x.amax(-1, keepdim=True)).unflatten(-1, (4, reg_max))
+        lse = torch.exp(xc).bfloat16().float().sum(-1).log()
+        return (lse - (w * xc).bfloat16().float().sum(-1)).mean(-1)
     logp = pred_dist.float().unflatten(-1, (4, reg_max)).log_softmax(-1)
-    bins = torch.arange(reg_max, dtype=logp.dtype, device=logp.device)
-    w = (1.0 - (bins - target[..., None]).abs()).clamp(min=0.0)
     return -(w * logp).sum(-1).mean(-1)
 
 
 def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch.Tensor,
                    strides: Sequence[float], reg_max: int = 16) -> DetectionLossOut:
     """v8 detection loss over the Detect head's per-scale (box, cls) maps
-    (NCHW): BCE cls + CIoU box + DFL, TAL-assigned in pixel units."""
+    (NCHW): BCE cls + CIoU box + DFL, TAL-assigned in pixel units. The
+    maps may be bf16 (the AMP step); the loss and the assigner compute in
+    fp32, the DFL decode and loss take their bf16 paths."""
     b = raw_maps[0][0].shape[0]
     feat_shapes = [tuple(bm.shape[2:4]) for bm, _ in raw_maps]
     dev = raw_maps[0][0].device
