@@ -74,6 +74,15 @@ bf16 entries):
   accumulation 2, stage times, peak memory, and a checkpoint saved and
   loaded back exactly.
 
+The user's surface (``fit_path``): ``make_synthetic_dataset`` writes a
+YOLO-format set of PNGs (64 train, 16 val, 640 x 480), then
+``xlstm_yolo_torch.YOLO("vil_yolon.yaml")`` trains on it for 2 epochs at
+batch 8 and 640 px with the defaults (bf16 AMP, mosaic, HSV, flip,
+``optimizer: auto``, accumulation 8), validating the EMA weights after each
+epoch; ``YOLO(last.pt)`` validates again and predicts the val directory.
+Then a model whose detections are not degenerate is validated on its own
+jittered detections with the kernels and with the plain versions forced in.
+
 ViL-YOLO above scale n (``vil_yolo{s,m,l,x}``, ViL widths up to DIM 640,
 INNER 1280, 20 heads): one inference forward of each at batch 2 and 640
 px, and one train step of ``vil_yolox``, each against the same model with
@@ -87,12 +96,14 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
+from pathlib import Path
 from typing import NamedTuple
 from unittest import mock
 
@@ -118,6 +129,12 @@ STAGES = [("P3", 6400, 64, 128, 2), ("P4", 1600, 128, 256, 4), ("P5", 400, 256, 
 CHUNK = 128  # the YAML's chunk size, read by the plain version only
 N_LABELS = 32  # padded label slots of a train batch, as the JAX bench_train.py
 TRAIN_TIMED, TRAIN_WARMUP = 3, 1
+# fit_path: a YOLO-format set of PNGs written by the phase (train, val images of W x H)
+FIT_IMAGES, FIT_WH, FIT_EPOCHS = (64, 16), (640, 480), 2
+FIT_CSV = ["epoch", "train/box", "train/cls", "train/dfl", "train/loss", "metrics/precision",
+           "metrics/recall", "metrics/mAP50", "metrics/mAP50-95", "metrics/fitness",
+           "metrics/images", "metrics/img_s", "lr", "img_s"]  # the JAX trainer's columns
+FIT_METRICS = ("precision", "recall", "mAP50", "mAP50-95", "fitness")
 # xLSTM language model: the NX-AI xlstm README example, and the widest model
 # whose sLSTM head dim (128) the sLSTM kernel still takes
 LM_README = dict(vocab_size=50304, embedding_dim=128, num_blocks=7, slstm_at=(1,), num_heads=4)
@@ -253,6 +270,15 @@ def conv_bound(B, S, DIM, INNER, NH, n_weight_floats):
     return roofline(2 * B * S * macs, 4 * (2 * B * S * DIM + n_weight_floats))
 
 
+def importable(module: str):
+    """True if ``module`` imports, else the error it raised."""
+    try:
+        importlib.import_module(module)
+    except Exception as e:  # a missing package, or one whose libraries fail to load
+        return f"{type(e).__name__}: {e}"
+    return True
+
+
 def phase_device():
     import torch
 
@@ -265,9 +291,11 @@ def phase_device():
                          timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not available"
     name = torch.cuda.get_device_name(0)
+    # the port decodes PNG and BMP itself; JPEG needs one of these two
+    found = {m: importable(m) for m in ("cv2", "PIL")}
     emit({"phase": "device", "nvidia_smi": smi_line, "name": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "importable": found})
     return smi_line, name
 
 
@@ -1256,6 +1284,253 @@ def phase_train_loop_amp():
             "mlstm_chunkwise_bwd_bf16": launches[3] + loop_launches[3]}
 
 
+def shaped_detector(device, nc: int = 3, seed: int = 1):
+    """ViL-YOLO-n with ``nc`` classes whose detections are not degenerate, as
+    ``tests/test_torch_val.py`` shapes its model: seeded noise on every
+    parameter (0.05) and BatchNorm variances in [0.5, 1.5], so that every
+    weight and statistic matters; class biases ~ N(-10, 1) and class
+    weights ~ N(0, 3) (most anchors background, a few percent of the
+    (anchor, class) scores above 0.05); DFL biases that decay over the 16
+    bins (boxes of a few strides)."""
+    import torch
+
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    model = TaskModel("vil_yolon.yaml", nc=nc, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+        det = getattr(model, f"l{model.parsed.head_index}")
+        for i in range(det.nl):
+            cls, box = getattr(det, f"cv3_{i}_2"), getattr(det, f"cv2_{i}_2")
+            cls.bias.copy_(torch.randn(cls.bias.shape, generator=g) - 10.0)
+            cls.weight.copy_(torch.randn(cls.weight.shape, generator=g) * 3.0)
+            box.bias.copy_(torch.arange(16.0).repeat(4) * -0.9
+                           + torch.randn(box.bias.shape, generator=g) * 0.4)
+            box.weight.copy_(torch.randn(box.weight.shape, generator=g) * 0.02)
+    return model.to(device).eval()
+
+
+def write_own_labels(model, data, imgsz: int = IMGSZ, seed: int = 3) -> int:
+    """The model's own detections on ``data``'s val images (multi-label,
+    conf 0.05, up to 300 an image, as many as validation keeps), jittered so that their IoU with the
+    detections varies, written as the val labels; returns the count."""
+    import torch
+
+    from xlstm_yolo_torch.data.dataset import build_dataloader
+    from xlstm_yolo_torch.ops.nms import non_max_suppression
+
+    loader, _ = build_dataloader(data, "val", batch=BATCH, imgsz=imgsz, augment=False)
+    loader.ds.uint8_images = True
+    rng = np.random.default_rng(seed)
+    n = 0
+    for batch in loader:
+        with torch.inference_mode():
+            x = torch.from_numpy(batch["img"]).cuda().float() / 255.0
+            dets, valid = non_max_suppression(model.predictions(x), conf_thres=0.05,
+                                              iou_thres=0.7, max_det=300, multi_label=True)
+        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+        for bi, idx in enumerate(batch["im_idx"]):
+            (h0, w0), f = batch["ori_shape"][bi], loader.ds.files[int(idx)]
+            r = imgsz / max(h0, w0)  # the loader's long-side resize; the letterbox pads
+            pad = ((imgsz - w0 * r) / 2, (imgsz - h0 * r) / 2)
+            lines = []
+            for x1, y1, x2, y2, _, c in dets[bi][valid[bi]]:
+                wh = np.array([x2 - x1, y2 - y1] * 2)
+                box = np.array([x1, y1, x2, y2]) + wh * rng.uniform(-0.08, 0.08, 4) * [-1, -1, 1, 1]
+                box += rng.uniform(-3, 3, 4)
+                # back to the image's own pixels, inside it
+                box = (box - [pad[0], pad[1], pad[0], pad[1]]) / r
+                box = np.clip(box, 0, [w0, h0, w0, h0])
+                if box[2] - box[0] >= 2 and box[3] - box[1] >= 2:
+                    lines.append(f"{int(c)} {(box[0] + box[2]) / 2 / w0:.6f} "
+                                 f"{(box[1] + box[3]) / 2 / h0:.6f} {(box[2] - box[0]) / w0:.6f} "
+                                 f"{(box[3] - box[1]) / h0:.6f}")
+            lines = lines or ["1 0.5 0.5 0.25 0.25"]  # an unmatched object: false negatives too
+            n += len(lines)
+            lbl = f.replace("/images/", "/labels/").rsplit(".", 1)[0] + ".txt"
+            with open(lbl, "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+    for cache in Path(loader.ds.files[0]).parent.glob("labels_*.cache.npz"):
+        cache.unlink()
+    return n
+
+
+def phase_fit_path(smi_line):
+    """The user's surface: train and validate ViL-YOLO-n on a YOLO-format
+    dataset on disk, then predict. (a) ``make_synthetic_dataset`` writes
+    FIT_IMAGES PNGs of FIT_WH (1-3 objects of 3 classes each);
+    ``YOLO("vil_yolon.yaml").train(data, epochs=2, batch=8, imgsz=640)`` at
+    the defaults (bf16 AMP, mosaic, HSV, flip, ``optimizer: auto``, ``nbs``
+    64 so accumulation 8) but ``close_mosaic=1``: the default 10 would turn
+    mosaic off from the first of 2 epochs, so the first epoch runs mosaic
+    and the second closes it. Gates: the CSV's two rows with the JAX
+    trainer's columns; ``best.pt`` and ``last.pt``; ``YOLO(last.pt).val``
+    gives the last epoch's metrics again within 1e-6; ``.predict`` of the
+    val directory gives 16 ``Results`` with boxes inside each image's
+    frame; per train step 3 launches each of the bf16 layer and backward
+    kernels and none of the fp32 ones, per validation batch 3 of the fp32
+    layer kernel and none else (counters read around each step and batch).
+    Timed: the epochs' img/s, each step on the card (CUDA events at the
+    step's callbacks), the host's seconds to read, augment, collate and
+    pin each batch (the loader's own clock, in its thread), validation
+    img/s; then the trained step's stages (3 steps after 1 warm-up). (b) A
+    validation that is not degenerate: ``shaped_detector`` on the val
+    images with the model's own jittered detections as labels, through
+    ``Validator`` with the kernels and with the plain versions forced in
+    (320 label slots an image, so that every label counts): mAP50 and
+    mAP50-95 within 1e-3 of each other, mAP50-95 in [0.2, 0.95].
+    Only (a)'s launches count for the path."""
+    import csv
+    import shutil
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+    from xlstm_yolo_torch.engine.validator import Validator
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+
+    names = ("vil_layer_fwd", "vil_layer_fwd_bf16", "mlstm_chunkwise_bwd",
+             "mlstm_chunkwise_bwd_bf16")
+    counters = lambda: np.array([vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
+                                 mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16])
+    n = len(STAGES)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = make_synthetic_dataset(f"{tmp}/ds", n_train=FIT_IMAGES[0], n_val=FIT_IMAGES[1],
+                                      width=FIT_WH[0], height=FIT_WH[1], seed=0)
+        write_s = time.perf_counter() - t0
+        model = YOLO("vil_yolon.yaml")
+        steps, val_batches, host_s, events = [], [], [], []
+        mark = {}
+
+        def start(kind):
+            def fn(_):
+                mark[kind] = counters()
+                if kind == "train":
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                    events.append(ev)
+            return fn
+
+        def end(kind, out):
+            def fn(obj):
+                out.append(counters() - mark[kind])
+                if kind == "train":
+                    events[-1][1].record()
+            return fn
+
+        model.add_callback("on_train_batch_start", start("train"))
+        model.add_callback("on_train_batch_end", end("train", steps))
+        model.add_callback("on_val_batch_start", start("val"))
+        model.add_callback("on_val_batch_end", end("val", val_batches))
+        model.add_callback("on_train_epoch_end",
+                           lambda tr: host_s.append(list(tr.loader.batch_seconds)))
+        vil_layer_fwd.launches = vil_layer_fwd.launches_bf16 = 0
+        mlstm_chunkwise_bwd.launches = mlstm_chunkwise_bwd.launches_bf16 = 0
+        t0 = time.perf_counter()
+        model.train(data=data, epochs=FIT_EPOCHS, batch=BATCH, imgsz=IMGSZ, seed=0,
+                    close_mosaic=1, project=f"{tmp}/runs", name="fit")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        trainer = model.trainer
+        run = Path(trainer.save_dir)
+        with open(run / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        last_val = {k: float(rows[-1][f"metrics/{k}"]) for k in FIT_METRICS}
+        reloaded = YOLO(run / "last.pt")
+        again = reloaded.val(data=data, imgsz=IMGSZ, batch=16)
+        results = reloaded.predict(Path(data).parent / "images" / "val", imgsz=IMGSZ, conf=0.001)
+        torch.cuda.synchronize()
+        fit_launches = dict(zip(names, counters().tolist()))
+
+        inside = all(len(r.boxes) == 0 or (
+            (r.boxes.xyxy >= 0).all() and (r.boxes.xyxy[:, [0, 2]] <= r.orig_shape[1]).all()
+            and (r.boxes.xyxy[:, [1, 3]] <= r.orig_shape[0]).all()) for r in results)
+        n_boxes = sum(len(r) for r in results)
+        frames = {tuple(r.orig_shape) for r in results}
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        host_ms = [1e3 * s for epoch in host_s for s in epoch]
+        per_step = {tuple(c.tolist()) for c in steps}
+        per_val = {tuple(c.tolist()) for c in val_batches}
+        reval_err = max(abs(again[k] - last_val[k]) for k in FIT_METRICS)
+
+        # the trained step's stages, on one batch of the loader
+        step = trainer.step
+        batch = trainer._to_device(next(iter(trainer.loader)))
+        times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+        for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            total, _ = step.forward_loss(batch)
+            ev[1].record()
+            step.backward(total)
+            ev[2].record()
+            step.apply_update(float(rows[-1]["lr"]))
+            ev[3].record()
+            torch.cuda.synchronize()
+            if it >= TRAIN_WARMUP:
+                for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                    times[k] += a.elapsed_time(b) / TRAIN_TIMED
+
+        fit_ok = (len(rows) == FIT_EPOCHS and list(rows[0]) == FIT_CSV
+                  and (run / "best.pt").exists() and (run / "last.pt").exists()
+                  and all(np.isfinite(float(r["train/loss"])) for r in rows)
+                  and reval_err <= 1e-6 and len(results) == FIT_IMAGES[1] and inside
+                  and n_boxes > 0 and frames == {FIT_WH[::-1]}
+                  and len(steps) == FIT_EPOCHS * (FIT_IMAGES[0] // BATCH)
+                  # one validation batch (16 images) an epoch; the reload's own
+                  # validator runs without these callbacks
+                  and per_step == {(0, n, 0, n)} and len(val_batches) == FIT_EPOCHS
+                  and per_val == {(n, 0, 0, 0)} and trainer.step.update.accumulate == 64 // BATCH)
+
+        # (b) a validation that is not degenerate, with the kernels and plain
+        shutil.copytree(Path(data).parent / "images" / "val", f"{tmp}/own/images/val")
+        (Path(tmp) / "own" / "labels" / "val").mkdir(parents=True)
+        own = {"path": f"{tmp}/own", "val": "images/val", "names": {0: "a", 1: "b", 2: "c"}}
+        shaped = shaped_detector("cuda")
+        n_labels = write_own_labels(shaped, own)
+        maps = {}
+        for kind in ("kernels", "plain"):
+            with plain_vil_kernels() if kind == "plain" else nullcontext():
+                maps[kind] = Validator(shaped, imgsz=IMGSZ, batch=BATCH, max_labels=320)(own)
+        map_err = max(abs(maps["kernels"][k] - maps["plain"][k]) for k in ("mAP50", "mAP50-95"))
+        own_ok = map_err <= 1e-3 and 0.2 <= maps["kernels"]["mAP50-95"] <= 0.95
+    ok = fit_ok and own_ok
+    emit({"phase": "fit_path", "model": "vil_yolon.yaml", "card": smi_line,
+          "dataset": {"train": FIT_IMAGES[0], "val": FIT_IMAGES[1], "wh": list(FIT_WH),
+                      "format": "png", "write_s": write_s},
+          "epochs": FIT_EPOCHS, "batch": BATCH, "imgsz": IMGSZ, "close_mosaic": 1,
+          "optimizer": trainer.step.update.name, "accumulate": trainer.step.update.accumulate,
+          "amp": trainer.step.amp, "csv": rows, "train_s": train_s,
+          "epoch_img_s": [float(r["img_s"]) for r in rows],
+          "val_img_s": [float(r["metrics/img_s"]) for r in rows],
+          "step_ms": {"mean": float(np.mean(step_ms)), "median": float(np.median(step_ms)),
+                      "n": len(step_ms)},
+          "host_batch_ms": {"mean": float(np.mean(host_ms)), "median": float(np.median(host_ms)),
+                            "n": len(host_ms)},
+          "stage_ms": times, "stage_total_ms": sum(times.values()),
+          "launches": fit_launches, "launches_per_step": sorted(per_step),
+          "launches_per_val_batch": sorted(per_val), "val_batches": len(val_batches),
+          "reval": again, "reval_max_err": reval_err, "predict": {
+              "images": len(results), "boxes": n_boxes, "inside": inside,
+              "frames": sorted(frames)},
+          "own_labels": {"labels": n_labels, "kernels": maps["kernels"], "plain": maps["plain"],
+                         "map_max_err": map_err, "ok": own_ok},
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError("fit path check failed")
+    return {k: v for k, v in fit_launches.items() if v}
+
+
 @contextmanager
 def recording_vil_layers(calls):
     """Each ViL layer function call of the model, with its arguments and
@@ -1984,6 +2259,8 @@ def main() -> int:
         train_launches = phase_train_path()
         phase = "train_loop_amp"
         amp_launches = phase_train_loop_amp()
+        phase = "fit_path"
+        fit_launches = phase_fit_path(smi_line)
         phase = "lm_path"
         lm_launches = phase_lm_path()
         phase = "cls_path"
@@ -2006,6 +2283,7 @@ def main() -> int:
                "main_path_bf16": {"vil_layer_fwd_bf16": bf16_launches},
                "train_path": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), train_launches)),
                "train_loop_amp": amp_launches,
+               "fit_path": fit_launches,
                "lm_path": dict(zip(("mlstm_chunkwise_fwd", "slstm_scan_fwd"), lm_launches)),
                **by_path,
                "kth_path": {"rowwise_kth_value": kth_launches},

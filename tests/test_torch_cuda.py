@@ -7,6 +7,8 @@ Tolerance: relative error (max |kernel - plain| / max |plain|) 1e-3, fp32
 with other summation orders and chunk lengths than the plain version; each
 gradient is held to its own max.
 """
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -1109,3 +1111,77 @@ def test_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
     g = torch.zeros(1, 1, 64, device=cuda_device)
     with pytest.raises(ValueError, match="bf16"):
         mlstm_chunkwise_bwd(q, q, q, g, g, q.float(), 1, carry=None)
+
+
+def _plain_vil():
+    """The ViL layer, cell and block functions with their plain versions
+    forced in on the card (``chip_smoke.plain_vil_kernels``)."""
+    from unittest import mock
+
+    import xlstm_yolo_torch.kernels.vil_cell as vc
+
+    return mock.patch.object(vc, "_on_card", lambda t: False)
+
+
+def test_trainer_epoch_on_card_matches_plain(cuda_device, tmp_path):
+    """One epoch of ``Trainer.train`` (vil_yolon, 16 PNGs of 320 x 240 at
+    320 px, batch 8, the defaults: bf16 AMP, mosaic, HSV, flip), then its
+    validation: 3 bf16 layer and 3 bf16 backward launches a step, 3 fp32
+    layer launches a validation batch; the CSV's losses within 1e-2
+    (relative; no optimizer step is taken in 2 steps at accumulation 8, so
+    both steps see the initial weights through bf16 pipelines that round
+    in other orders) and its metrics within 1e-3 of the same run with the
+    plain versions forced in."""
+    import csv
+
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+    from xlstm_yolo_torch.engine.trainer import Trainer
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    data = make_synthetic_dataset(tmp_path / "ds", n_train=16, n_val=8, width=320, height=240)
+    rows = {}
+    for kind in ("kernels", "plain"):
+        before = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
+                  mlstm_chunkwise_bwd.launches_bf16)
+        tr = Trainer(TaskModel("vil_yolon.yaml", nc=3, device="cuda"),
+                     overrides={"data": data, "epochs": 1, "batch": 8, "imgsz": 320,
+                                "close_mosaic": 0, "project": str(tmp_path), "name": kind})
+        with _plain_vil() if kind == "plain" else nullcontext():
+            tr.train()
+        torch.cuda.synchronize()
+        launches = (vil_layer_fwd.launches - before[0], vil_layer_fwd.launches_bf16 - before[1],
+                    mlstm_chunkwise_bwd.launches_bf16 - before[2])
+        assert launches == ((3, 6, 6) if kind == "kernels" else (0, 0, 0)), (kind, launches)
+        with open(tmp_path / kind / "results.csv") as f:
+            rows[kind] = list(csv.DictReader(f))[0]
+    got, want = rows["kernels"], rows["plain"]
+    for k in want:
+        if k.startswith("train/"):
+            assert abs(float(got[k]) - float(want[k])) <= 1e-2 * abs(float(want[k])), k
+        elif k.startswith("metrics/") and not k.endswith("img_s"):
+            assert abs(float(got[k]) - float(want[k])) <= 1e-3, k
+
+
+def test_validator_on_card_matches_plain(cuda_device, tmp_path):
+    """``Validator`` at 320 px with the kernels and with the plain versions
+    forced in, on a model whose detections are not degenerate
+    (``chip_smoke.shaped_detector``) over 16 PNGs labelled with its own
+    jittered detections (320 label slots an image): mAP50 and mAP50-95 within 1e-3, mAP50-95 in
+    [0.2, 0.95]; 3 fp32 layer launches a batch of 8."""
+    from chip_smoke import shaped_detector, write_own_labels
+
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+    from xlstm_yolo_torch.engine.validator import Validator
+
+    data = make_synthetic_dataset(tmp_path / "ds", n_train=1, n_val=16, width=320, height=240)
+    model = shaped_detector("cuda")
+    write_own_labels(model, data, imgsz=320)
+    out = {}
+    for kind in ("kernels", "plain"):
+        before = vil_layer_fwd.launches
+        with _plain_vil() if kind == "plain" else nullcontext():
+            out[kind] = Validator(model, imgsz=320, batch=8, max_labels=320)(data)
+        assert vil_layer_fwd.launches - before == (6 if kind == "kernels" else 0)
+    for k in ("mAP50", "mAP50-95"):
+        assert abs(out["kernels"][k] - out["plain"][k]) <= 1e-3, (k, out)
+    assert 0.2 <= out["kernels"]["mAP50-95"] <= 0.95, out

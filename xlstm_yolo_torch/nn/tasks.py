@@ -38,6 +38,7 @@ class TaskModel(GraphModel):
         super().__init__(parsed)
         self.yaml, self.scale, self.ch = yaml_dict, scale, ch
         self.nc = parsed.nc
+        self.names = {i: f"{i}" for i in range(self.nc)}
         self.task = parsed.task
         self.reg_max = 16
         self.init_weights(seed)

@@ -6,9 +6,9 @@ directory (msgpack state and a YAML sidecar) so that loading unpickles
 nothing; here one ``.pt`` file holds plain containers of tensors, numbers
 and strings, and is read with ``torch.load(weights_only=True)``, which
 refuses anything else. It holds the model's YAML graph, scale and class
-count, its parameters and buffers (the BatchNorm statistics), the EMA
-parameters, the optimizer state (``StepUpdate.state_dict``), ``n_updates``,
-the epoch and the best fitness.
+count and class names, its parameters and buffers (the BatchNorm
+statistics), the EMA parameters, the optimizer state
+(``StepUpdate.state_dict``), ``n_updates``, the epoch and the best fitness.
 """
 from __future__ import annotations
 
@@ -22,19 +22,26 @@ VERSION = "0.1.0"
 
 def save_checkpoint(path: str | Path, step, epoch: int = -1, best_fitness: float = 0.0) -> Path:
     """Write ``step`` (an ``engine.trainer.TrainStep``: its model, update and
-    ``n_updates``) at ``epoch`` to ``path``; returns the path."""
-    model, update = step.model, step.update
+    ``n_updates``; or a bare ``TaskModel``, whose parameters then stand for
+    the EMA and which has no optimizer state) at ``epoch`` to ``path``;
+    returns the path."""
+    model = step if isinstance(step, torch.nn.Module) else step.model
     ckpt = {
         "yaml": {k: v for k, v in model.yaml.items() if k != "yaml_file"},
         "scale": model.scale, "nc": model.nc,
+        "names": {int(k): str(v) for k, v in getattr(model, "names", {}).items()},
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "ema": {n: e.detach().cpu() for n, e in zip(update.names, update.ema)},
-        "optimizer": {k: ([t.detach().cpu() for t in v] if isinstance(v, list) else v)
-                      for k, v in update.state_dict().items()},
-        "n_updates": int(step.n_updates), "epoch": int(epoch),
-        "best_fitness": float(best_fitness),
+        "n_updates": 0, "epoch": int(epoch), "best_fitness": float(best_fitness),
         "date": datetime.datetime.now().isoformat(), "version": VERSION,
     }
+    if step is model:
+        ckpt["ema"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    else:
+        update = step.update
+        ckpt["ema"] = {n: e.detach().cpu() for n, e in zip(update.names, update.ema)}
+        ckpt["optimizer"] = {k: ([t.detach().cpu() for t in v] if isinstance(v, list) else v)
+                             for k, v in update.state_dict().items()}
+        ckpt["n_updates"] = int(step.n_updates)
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
     tmp = p.with_suffix(p.suffix + ".tmp")
@@ -60,6 +67,8 @@ def load_checkpoint(path: str | Path, use_ema: bool = True, device: str | torch.
     if use_ema:
         state.update(ckpt["ema"])
     model.load_state_dict(state)
+    if ckpt.get("names"):
+        model.names = dict(ckpt["names"])
     meta = {k: ckpt[k] for k in ("epoch", "best_fitness", "n_updates", "date", "version")}
     return model.to(device), meta
 
