@@ -62,7 +62,8 @@ then timed by stage.
 
 ViL-YOLO-n in bf16, the JAX package's default arithmetic (bf16 operands,
 fp32 accumulation; the layer kernel and the chunkwise backward in their
-bf16 entries):
+bf16 entries, whose ``kernel_parity`` lines also give each stage's device
+time and the time at the JAX bf16 train bench's batch, 128):
 
 * bf16 serving (``main_path_bf16``) — the inference path through
   ``Predictor(dtype="bfloat16")`` (parameters cast to bf16 as the JAX
@@ -168,6 +169,7 @@ CLS_CASE = ("cls_S196", 196, 192, 384, 6, CLS_BATCH)
 X_P5_CASE = ("xP5_S400", 400, 640, 1280, 20, BATCH)
 LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE, X_P5_CASE]
 BF16_CASES = [(*stage, BATCH) for stage in STAGES]  # the bf16 entries: ViL-YOLO-n's stages
+BF16_BIG_BATCH = 128  # the JAX bf16 train bench's batch (bench_train.py): the bf16 entries' second time
 FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH), X_P5_CASE]
 # the flagship YAML's scales above n: (YAML, ViL layers per forward)
 SCALES = [("vil_yolos.yaml", 3), ("vil_yolom.yaml", 3), ("vil_yolol.yaml", 6),
@@ -204,6 +206,27 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def stage_device_ms(fn, iters: int = 10) -> dict:
+    """Device time per call of every kernel ``fn`` launches, by its name
+    (parameter list dropped), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+        if us:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out
 
 
 def gate_std(inner: int) -> float:
@@ -653,7 +676,8 @@ def phase_kernel_parity():
     (``kth_parity``). The bf16 entries of K3 and K2 at the ViL-YOLO-n stages
     against their plain bf16 versions (``compare_bf16``: relative L2 within
     TOL_REL forward and TOL_BF16_GRAD gradients, the max beyond rounding
-    within BF16_MAX_EXCESS)."""
+    within BF16_MAX_EXCESS), each also timed at BF16_BIG_BATCH, with the
+    device time of each stage at both batches (``bf16_extra``)."""
     import torch
 
     from xlstm_yolo_torch.kernels.mlstm_bwd import (KERNEL_CS, mlstm_chunkwise_bwd,
@@ -860,14 +884,35 @@ def phase_kernel_parity():
         a = layer_args(B, *case[1:5], seed=case[1] + B + 20, device=dev)
         return [a[0].bfloat16(), a[1].bfloat16(), *a[2:]]
 
-    fp32_ms = lambda k: (lambda case, ms: {"fp32_ms": k["ms_by_case"][case[0]],
-                                           "bf16_speedup": k["ms_by_case"][case[0]] / ms})
+    def bf16_extra(k, make_case, run, bound):
+        """Beside each bf16 case: the fp32 kernel's time and the speedup over
+        it, each stage's device time at the timed batch, and the kernel's
+        time, bound and stages at BF16_BIG_BATCH (timed only: the parity
+        checks run at the timed batch and at 2)."""
+        def extra(case, ms):
+            args = make_case(BATCH, case)
+            stages = stage_device_ms(lambda: run(args, case))
+            big = make_case(BF16_BIG_BATCH, case)
+            big_case = (*case[:5], BF16_BIG_BATCH)
+            big_ms = cuda_time_ms(lambda: run(big, big_case), iters=10)
+            out = {"fp32_ms": k["ms_by_case"][case[0]], "bf16_speedup": k["ms_by_case"][case[0]] / ms,
+                   "stage_device_ms": stages,
+                   f"ms_b{BF16_BIG_BATCH}": big_ms,
+                   f"bound_ms_b{BF16_BIG_BATCH}": bound(big, big_case).ms,
+                   f"stage_device_ms_b{BF16_BIG_BATCH}": stage_device_ms(lambda: run(big, big_case))}
+            del big
+            torch.cuda.empty_cache()
+            return out
+        return extra
+
+    run_k3b = lambda args, case: (vil_layer_fwd(*args, case[4]),)
+    bound_k3b = lambda args, case: bf16_vil_bound(case[5], *case[1:5],
+                                                  sum(a.numel() for a in args[2:]))
     k3b = kernel_parity(
-        "vil_layer_fwd_bf16", BF16_CASES, bf16_layer_case,
-        lambda args, case: (vil_layer_fwd(*args, case[4]),),
+        "vil_layer_fwd_bf16", BF16_CASES, bf16_layer_case, run_k3b,
         lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=KERNEL_CS, keep_fp32=True),),
-        lambda args, case: bf16_vil_bound(case[5], *case[1:5], sum(a.numel() for a in args[2:])),
-        batch_of=timed_batch, cmp=compare_bf16, extra=fp32_ms(k3), metric=BF16_METRIC)
+        bound_k3b, batch_of=timed_batch, cmp=compare_bf16,
+        extra=bf16_extra(k3, bf16_layer_case, run_k3b, bound_k3b), metric=BF16_METRIC)
 
     def bf16_bwd_case(B, case):
         _, S, DIM, INNER, NH, _ = case
@@ -877,13 +922,13 @@ def phase_kernel_parity():
             size=(B, S, INNER)).astype(np.float32)).to(dev)
         return (q, k, v, ig, fg, dh), carry
 
+    run_k2b = lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1])
+    bound_k2b = lambda args, case: bf16_bwd_bound(case[5], case[1], case[3], case[4])
     k2b = kernel_parity(
-        "mlstm_chunkwise_bwd_bf16", BF16_CASES, bf16_bwd_case,
-        lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1]),
+        "mlstm_chunkwise_bwd_bf16", BF16_CASES, bf16_bwd_case, run_k2b,
         lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4], keep_fp32=True),
-        lambda args, case: bf16_bwd_bound(case[5], case[1], case[3], case[4]),
-        batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD, extra=fp32_ms(k2),
-        metric=BF16_METRIC)
+        bound_k2b, batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD,
+        extra=bf16_extra(k2, bf16_bwd_case, run_k2b, bound_k2b), metric=BF16_METRIC)
     return k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b
 
 
@@ -2291,7 +2336,7 @@ def main() -> int:
                "lm_train_path": lm_train_launches,
                "scales_path": scales_launches}
 
-    def entry(name, source, replaces, path, k, library_ms=None):
+    def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran
         this kernel; ``launches_by_path`` has every path that launched it."""
         on_paths = {p: counts[name] for p, counts in by_path.items() if counts.get(name)}
@@ -2302,7 +2347,10 @@ def main() -> int:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "bound_tc_ms": k["bound_tc_ms"], "bound_tc_by": k["bound_tc_by"],
                 "library_ms": library_ms, **({"ms_by_case": k["ms_by_case"]}
-                                             if "ms_by_case" in k else {})}
+                                             if "ms_by_case" in k else {}),
+                **({"bf16_speedup_by_case": {c: fp32["ms_by_case"][c] / ms
+                                             for c, ms in k["ms_by_case"].items()}}
+                   if fp32 else {})}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",
@@ -2324,9 +2372,10 @@ def main() -> int:
               library_ms=k8["library_ms"]),
         entry("vil_layer_fwd_bf16", "vil_layer.cu",
               "mlstm_pallas.py:1142 (_kernel_vil_layer, mxu_dtype=bfloat16)", "main_path_bf16",
-              k3b),
+              k3b, fp32=k3),
         entry("mlstm_chunkwise_bwd_bf16", "mlstm_bwd.cu",
-              "mlstm_pallas_bwd.py:255 (_kernel, mxu_dtype=bfloat16)", "train_loop_amp", k2b)]})
+              "mlstm_pallas_bwd.py:255 (_kernel, mxu_dtype=bfloat16)", "train_loop_amp", k2b,
+              fp32=k2)]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -972,26 +972,63 @@ def _rel_bf16(got, want32):
             (excess.max() / w.abs().max()).item())
 
 
+# the bf16 tile layer's causal modes (tile::Causal; the triangular k ranges are
+# single-tile modes, at K 64)
+TILE_MODES = {"full": 0, "out_lower": 1, "k_le_m": 2, "k_ge_m": 3}
+
+
+def _tile16_reference(a, b, K, ta, tb, sa, mode, nlim):
+    """fp64 product of the operands as the bf16 tile layer reads them (op(A)
+    scaled by row, then rounded to bf16; op(B) rounded), with the tile
+    layer's causal skips applied at its 16 x 8 fragment granularity."""
+    opa = (a.t() if ta else a).float()
+    if sa is not None:
+        opa = opa * sa[:, None]
+    opa = opa.bfloat16().double()
+    opb = (b.t() if tb else b).bfloat16().double()
+    m = torch.arange(64, device=a.device)
+    m0 = (m // 16) * 16  # the first row of the warp that owns row m
+    if mode == "k_le_m":  # the k loop runs to the warp's last row
+        opa = opa * (torch.arange(K, device=a.device)[None, :] < (m0 + 16)[:, None])
+    if mode == "k_ge_m":  # and from its first
+        opa = opa * (torch.arange(K, device=a.device)[None, :] >= m0[:, None])
+    want = opa @ opb
+    nb = (m // 8) * 8  # the first column of the 8-column fragment of column n
+    keep = nb[None, :] < nlim
+    if mode == "out_lower":  # fragments wholly above the warp's rows are skipped
+        keep = keep & (nb[None, :] <= (m0 + 15)[:, None])
+    return want * keep
+
+
+@pytest.mark.parametrize("K,mode,nlim", [
+    (64, "full", 64), (192, "full", 64), (64, "full", 24), (192, "full", 24),
+    (64, "out_lower", 64), (192, "out_lower", 64), (64, "k_le_m", 64), (64, "k_ge_m", 64),
+], ids=lambda v: str(v))
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "prescaled"])
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)],
                          ids=["AB", "AtB", "ABt", "AtBt"])
-@pytest.mark.parametrize("K", [64, 192])
-def test_tile_product_bf16_is_exact_on_rounded_operands(cuda_device, K, ta, tb):
-    """The bf16 tile product (csrc/tile_mma.cuh, m16n8k16 with bf16
-    operands rounded at the fragment load, fp32 accumulators) against an
-    fp64 product of the same bf16-rounded operands: 1e-5 of the output's
-    max (the products are exact, the fp32 sums round), which also shows the
-    k16 fragment layout right: a wrong pairing of k indices is off by O(1)."""
+def test_tile_product_bf16_is_exact_on_rounded_operands(cuda_device, K, ta, tb, scaled, mode,
+                                                         nlim):
+    """The bf16 tile layer (csrc/tile_bf16.cuh: bf16 tiles in shared memory,
+    ldmatrix, .trans for a k-major tile, m16n8k16 with fp32 accumulators)
+    against an fp64 product of the same bf16 operands, in each transpose
+    mode, with op(A) scaled by row before its rounding (the kernels'
+    pre-scaled operands) or not, in each causal mode and with a column
+    limit: 1e-5 of the output's max (the products are exact, the fp32 sums
+    round), which also shows the fragment layouts right: a wrong pairing of
+    k indices or a wrong transpose is off by O(1)."""
     lib = _tile_lib_bf16()
     g = torch.Generator(cuda_device).manual_seed(K + 2 * ta + tb + 100)
     a = torch.randn((K, 64) if ta else (64, K), device=cuda_device, generator=g)
     b = torch.randn((64, K) if tb else (K, 64), device=cuda_device, generator=g)
+    sa = torch.rand(64, device=cuda_device, generator=g) * 3 + 0.1 if scaled else None
     c = torch.empty(64, 64, device=cuda_device)
     err = lib.tile_mma_test_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(), K, int(ta), int(tb),
+                                 None if sa is None else sa.data_ptr(), TILE_MODES[mode], nlim,
                                  torch.cuda.current_stream(cuda_device).cuda_stream)
     torch.cuda.synchronize()
     assert err == 0, lib.tile_mma_error_string(err)
-    r = lambda t: t.bfloat16().double()
-    want = (r(a).t() if ta else r(a)) @ (r(b).t() if tb else r(b))
+    want = _tile16_reference(a, b, K, ta, tb, sa, mode, nlim)
     assert ((c.double() - want).abs().max() / want.abs().max()).item() <= 1e-5
 
 
@@ -1002,16 +1039,16 @@ def _tile_lib_bf16():
 
     P, I = ctypes.c_void_p, ctypes.c_int
     return CudaLibrary("tile_mma_test.cu", {
-        "tile_mma_test_bf16": (I, [P, P, P, I, I, I, P]),
+        "tile_mma_test_bf16": (I, [P, P, P, I, I, I, P, I, I, P]),
         "tile_mma_error_string": (ctypes.c_char_p, [I])}).load()
 
 
-def _nudged(t):
-    """fp32 values one ulp up (bf16 ones as they are): the plain version on
-    these gives its own rounding noise."""
+def _nudged(t, toward=float("inf")):
+    """fp32 values one ulp up (or toward ``toward``; bf16 ones as they are):
+    the plain version on these gives its own rounding noise."""
     if t.dtype != torch.float32:
         return t
-    return torch.nextafter(t, torch.full_like(t, float("inf")))
+    return torch.nextafter(t, torch.full_like(t, toward))
 
 
 def _bf16_layer_args(B, S, DIM, NH, device, seed):
@@ -1050,10 +1087,20 @@ def test_vil_layer_bf16_grads_match_plain(cuda_device, S, DIM, NH):
     one fp32 ulp apart where that is larger (the gate biases' gradients are
     sums of 2 x S terms that cancel, and vary with the last bit of any
     weight); those of x and conv_act in bf16. Only the bf16 kernels
-    launch."""
-    args = _bf16_layer_args(2, S, DIM, NH, cuda_device, seed=S + 9)
+    launch. The output gradient comes from a generator of its own, seeded
+    as the arguments are, so the draw does not depend on the tests before
+    it (tools/bf16_grad_spread.py measures the spread over draws)."""
+    _check_bf16_layer_grads(cuda_device, S, DIM, NH, seed=S + 9)
+
+
+def _check_bf16_layer_grads(device, S, DIM, NH, seed, nudges=(float("inf"),)):
+    """``test_vil_layer_bf16_grads_match_plain``'s check; the noise floor is
+    the plain version's largest distance to itself over ``nudges`` (the
+    directions of the one-ulp nudge)."""
+    args = _bf16_layer_args(2, S, DIM, NH, device, seed=seed)
     leaves = [a.clone().requires_grad_() for a in args]
-    gout = torch.randn(2, S, DIM, device=cuda_device).bfloat16()
+    g = torch.Generator(device).manual_seed(seed)
+    gout = torch.randn(2, S, DIM, device=device, generator=g).bfloat16()
     counts = lambda: (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
                       mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
     before = counts()
@@ -1063,13 +1110,16 @@ def test_vil_layer_bf16_grads_match_plain(cuda_device, S, DIM, NH):
     assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
     _, acts = _layer_plain(args, Cfg(NH, 64))
     want = vil_layer_bwd_ref(args, acts, gout, NH, chunk_size=64)
-    nudged = [_nudged(a) for a in args]
-    _, acts_n = _layer_plain(nudged, Cfg(NH, 64))
-    noise = vil_layer_bwd_ref(nudged, acts_n, gout, NH, chunk_size=64)
+    noises = []
+    for toward in nudges:
+        nudged = [_nudged(a, toward) for a in args]
+        _, acts_n = _layer_plain(nudged, Cfg(NH, 64))
+        noises.append(vil_layer_bwd_ref(nudged, acts_n, gout, NH, chunk_size=64))
     assert leaves[0].grad.dtype == leaves[1].grad.dtype == torch.bfloat16
-    for i, (leaf, w, wn) in enumerate(zip(leaves, want, noise)):
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
         rel_l2, excess = _rel_bf16(leaf.grad, w)
-        floor_l2, floor_max = _rel_bf16(wn.to(leaf.grad.dtype), w)
+        floors = [_rel_bf16(noise[i].to(leaf.grad.dtype), w) for noise in noises]
+        floor_l2, floor_max = max(f[0] for f in floors), max(f[1] for f in floors)
         assert rel_l2 <= max(TOL_BF16_GRAD, 2 * floor_l2), (i, rel_l2, floor_l2)
         assert excess <= max(MAX_EXCESS_GRAD, 2 * floor_max), (i, excess, floor_max)
 
@@ -1097,6 +1147,47 @@ def test_mlstm_bwd_bf16_kernel_matches_plain(cuda_device, S):
         assert bool(torch.isfinite(g_).all()), name
         rel_l2, excess = _rel_bf16(g_, w)
         assert rel_l2 <= TOL_BF16_GRAD and excess <= MAX_EXCESS, (name, rel_l2, excess)
+
+
+@pytest.mark.parametrize("H,W", WIDE_SHAPES, ids=["x_P5", "x_ragged"])
+@pytest.mark.parametrize("which", ["layer", "bwd", "grads"])
+def test_bf16_kernels_at_scale_x_width_match_plain(cuda_device, which, H, W):
+    """K3 and K2 in bf16 at the widest ViL stage of the flagship YAML (DIM
+    640, INNER 1280, 20 heads): the forward, K2 on what the forward saves,
+    and the layer's gradients, each held as at ViL-YOLO-n's widths. Every
+    stage's shared memory is fixed by its tiles, so the width changes only
+    the grids and the K loops. At these widths one nudge's noise floor
+    scatters as much as the kernels' own distance (x's gradient over 10
+    draws at x_ragged, tools/bf16_grad_spread.py: 0.022-0.062 against
+    0.018-0.054): the gradients' floor is the larger of the nudges up and
+    down."""
+    S, DIM, NH = H * W, 640, 20
+    if which == "grads":
+        _check_bf16_layer_grads(cuda_device, S, DIM, NH, seed=S + 9,
+                                nudges=(float("inf"), float("-inf")))
+        return
+    args = _bf16_layer_args(2, S, DIM, NH, cuda_device, seed=S + 5)
+    if which == "layer":
+        before = vil_layer_fwd.launches_bf16
+        got = (vil_layer_fwd(*args, NH),)
+        want = (vil_layer_ref(*args, NH, chunk_size=64, keep_fp32=True),)
+        fwd, tol, tol_max = vil_layer_fwd, TOL_BF16_FWD, MAX_EXCESS
+    else:
+        from xlstm_yolo_torch.kernels.vil_layer import _launch
+
+        _, (_, q, k, v, ig, fg), carry = _launch(args, Cfg(NH), True)
+        dh = torch.randn(2, S, NH * 64, device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(S))
+        before = mlstm_chunkwise_bwd.launches_bf16
+        got = mlstm_chunkwise_bwd(q, k, v, ig, fg, dh, NH, carry=carry)
+        want = mlstm_chunkwise_bwd_plain(q, k, v, ig, fg, dh, NH, keep_fp32=True)
+        fwd, tol, tol_max = mlstm_chunkwise_bwd, TOL_BF16_GRAD, MAX_EXCESS
+    torch.cuda.synchronize()
+    assert fwd.launches_bf16 == before + 1
+    for n, (g_, w) in enumerate(zip(got, want)):
+        assert g_.shape == w.shape and bool(torch.isfinite(g_).all()), n
+        rel_l2, excess = _rel_bf16(g_, w)
+        assert rel_l2 <= tol and excess <= tol_max, (n, rel_l2, excess)
 
 
 def test_bf16_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -70,25 +70,35 @@
 // input-gate log of -1e30 and a forget-gate log of 0; nothing is written
 // for them.
 //
-// K2 in bf16 (mlstm_bwd_bf16, head dim 64): the TPU kernel's default
-// arithmetic, `mxu_dtype="bfloat16"`, on the bf16 q, k, v the bf16 ViL
-// layer saves (dh, the gates and the carry states fp32, as the JAX backward
-// takes them). Stages A and C with BF set: every product takes the bf16
-// tile product (tile_mma.cuh: operands rounded at the fragment load, fp32
-// accumulators), with its operands rounded where `_chunk_grads` casts them:
-// q and k, E, q_inter (q scaled by its row's inter-chunk factor in the
-// fragment load, in both variants), the carried C, dA = dh / normalizer,
-// dqk, and in C the carry dC d_new (scaled in shared memory first, in both
-// variants) and the gate-weighted k (in the fragment load). dq, dk, dv are
-// written in bf16 once complete, as the JAX kernel returns them: dq in A,
-// dk and dv in C from fp32 partials A leaves in the workspace. di and df
-// stay fp32. The stabilizer stays frozen, as in the fp32 kernel.
+// K2 in bf16 (mlstm_bwd_bf16, head dim 64; bwd16_local, the reverse scan
+// above, bwd16_carry): the TPU kernel's default arithmetic,
+// `mxu_dtype="bfloat16"`, on the bf16 q, k, v the bf16 ViL layer saves (dh,
+// the gates and the carry states fp32, as the JAX backward takes them).
+// What bounds it on this card: its products are bf16 (989 TFLOP/s), so the
+// bytes of q, k, v, dh, the carry states and the gradients bound it; a
+// design that widens q, k, v into fp32 tiles and reads every operand value
+// with a 4-byte load and a rounding at each product spends its time there.
+// What the design does about it: every product reads bf16 tiles through
+// ldmatrix into m16n8k16 (tile_bf16.cuh), q, k, v copied in as they are by
+// 16-byte cp.async, the fp32 tiles (dh; the carried C, and in C the carry
+// dC and C_prev) by cp.async as well, and every other operand written to
+// shared memory once as the bf16 value `_chunk_grads` rounds: the carried
+// C, E, q_inter (q a / sqrt(DH)), dA = dh / normalizer, dqk, and in C the
+// carry dC d_new and the gate-weighted k, each rounded once after its
+// scale. E stays fp32 in the registers of its product for the gate sums and
+// the normalizer, which read it unrounded. Stage A holds seven bf16 tiles
+// and dh in fp32, 85 KB (two CTAs an SM), C four bf16 tiles and two fp32
+// ones, into which A's fp32 partials of dk and dv are copied during C's
+// products (72 KB, three CTAs an SM). dq, dk, dv are written in bf16 once
+// complete, as the JAX kernel returns them: dq in A, dk and dv in C. di and
+// df stay fp32. The stabilizer stays frozen, as in the fp32 kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 
+#include "tile_bf16.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -133,17 +143,6 @@ struct Params {
   bf16* dk16;
   bf16* dv16;
 };
-
-// A 64-row tile of a (B, S, INNER) activation at element offset `off` into
-// shared memory: cp.async from fp32, or widened from bf16 when BF.
-template <bool BF>
-__device__ __forceinline__ void load_act(float* dst, const float* src, const bf16* src16, long off,
-                                         int ld, int nrows) {
-  if (BF)
-    tile::load_bf16<CS, 64>(dst, LDS, src16 + off, ld, nrows, 64);
-  else
-    tile::load_async<CS, 64>(dst, LDS, src + off, ld, nrows, 64);
-}
 
 __device__ __forceinline__ float logsigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -232,31 +231,42 @@ __device__ __forceinline__ void put_rows(const Acc& a, float* dst, const Params&
     }
 }
 
-// Writes acc * scale (+ the fp32 partial at `part`, where given) in bf16 to
-// rows s0 + row < S of the (B, S, INNER) array dst at head column hcol.
-__device__ __forceinline__ void put_rows_bf16(const Acc& a, bf16* dst, const float* part,
-                                              const Params& p, int b, int s0, int hcol,
-                                              float scale) {
+// Writes acc * scale in bf16 to rows s0 + row < S of the (B, S, INNER)
+// array dst at head column hcol.
+__device__ __forceinline__ void put_rows_bf16(const Acc& a, bf16* dst, const Params& p, int b,
+                                              int s0, int hcol, float scale) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, t = Acc::row(r);
+      if (s0 + t < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(dst + ((long)b * p.S + s0 + t) * p.INNER + hcol +
+                                           Acc::col(j, r)) =
+            __floats2bfloat162_rn(a.c[j][r] * scale, a.c[j][r + 1] * scale);
+    }
+}
+
+// Writes acc + the fp32 partial in the shared tile `part` (row stride LDS)
+// in bf16 to rows s0 + row < S of the (B, S, INNER) array dst at head
+// column hcol.
+__device__ __forceinline__ void put_tile_rows_bf16(const Acc& a, bf16* dst, const float* part,
+                                                   const Params& p, int b, int s0, int hcol) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh, t = Acc::row(r), c = Acc::col(j, r);
       if (s0 + t < p.S) {
-        const long o = ((long)b * p.S + s0 + t) * p.INNER + hcol + Acc::col(j, r);
-        float2 v = make_float2(a.c[j][r] * scale, a.c[j][r + 1] * scale);
-        if (part) {
-          const float2 w = *reinterpret_cast<const float2*>(part + o);
-          v.x += w.x;
-          v.y += w.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(dst + o) = __floats2bfloat162_rn(v.x, v.y);
+        const float2 w = *reinterpret_cast<const float2*>(part + t * LDS + c);
+        *reinterpret_cast<__nv_bfloat162*>(dst + ((long)b * p.S + s0 + t) * p.INNER + hcol + c) =
+            __floats2bfloat162_rn(a.c[j][r] + w.x, a.c[j][r + 1] + w.y);
       }
     }
 }
 
 // A. Per chunk: forward recompute and the carry-independent gradients.
-template <int DH, bool BF = false>
+template <int DH>
 __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   static_assert(DH == tile::T, "one 64 x 64 tile product per head");
   constexpr float QS = 0.125f;   // 1 / sqrt(DH)
@@ -289,9 +299,9 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   auto decay = [&](int t, int s) { return expf(li[s] - bcs[s] + bcs[t] - stab[t]); };
 
   float* aq = cm;                // CS a_t / sqrt(DH), the row scale of q_inter
-  load_act<BF>(qs, p.q, p.q16, hoff, p.INNER, nrows);
-  load_act<BF>(ks, p.k, p.k16, hoff, p.INNER, nrows);
-  load_act<BF>(vs, p.v, p.v16, hoff, p.INNER, nrows);
+  tile::load_async<CS, DH>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
   tile::load_async<CS, DH>(dA, LDS, p.dh + hoff, p.INNER, nrows, DH);
   tile::load_async<DH, DH>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
@@ -319,7 +329,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc s;
     s.zero();
-    tile::mma<false, true, tile::OUT_LOWER, BF>(s, qs, LDS, ks, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -348,8 +358,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     Acc intra, inter;
     intra.zero();
     inter.zero();
-    tile::mma<false, false, tile::K_LE_M, BF>(intra, E, LDS, vs, LDS, CS);
-    tile::mma<false, false, tile::FULL, BF>(inter, qs, LDS, Cs, LDS, DH, nullptr, aq);
+    tile::mma<false, false, tile::K_LE_M>(intra, E, LDS, vs, LDS, CS);
+    tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH, nullptr, aq);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -377,7 +387,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::K_GE_M, BF>(a, E, LDS, dA, LDS, CS);
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, dA, LDS, CS);
     put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f);
   }
   __syncthreads();  // E is overwritten below
@@ -386,7 +396,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc d;
     d.zero();
-    tile::mma<false, true, tile::OUT_LOWER, BF>(d, dA, LDS, vs, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER>(d, dA, LDS, vs, LDS, DH);
     float rs[2] = {0.f, 0.f};
     float cs[4][2];
 #pragma unroll
@@ -432,8 +442,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     Acc a, c;
     a.zero();
     c.zero();
-    tile::mma<false, false, tile::K_LE_M, BF>(a, E, LDS, ks, LDS, CS);
-    tile::mma<false, true, tile::FULL, BF>(c, dA, LDS, Cs, LDS, DH);
+    tile::mma<false, false, tile::K_LE_M>(a, E, LDS, ks, LDS, CS);
+    tile::mma<false, true>(c, dA, LDS, Cs, LDS, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -445,10 +455,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
         a.c[jj][r] += dqt * av[t];
       }
     put_row_sums(pr, rpart);
-    if (BF)
-      put_rows_bf16(a, p.dq16, nullptr, p, b, s0, n * DH, QS);
-    else
-      put_rows<false>(a, p.dq, p, b, s0, n * DH, QS);
+    put_rows<false>(a, p.dq, p, b, s0, n * DH, QS);
   }
   __syncthreads();
   if (tid < CS) dbv[tid] += av[tid] * QS * (rpart[tid] + rpart[CS + tid]);
@@ -457,7 +464,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::K_GE_M, BF>(a, E, LDS, qs, LDS, CS);
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, qs, LDS, CS);
     put_rows<false>(a, p.dk, p, b, s0, n * DH, QS);
   }
   __syncthreads();  // q is rescaled below
@@ -471,7 +478,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::FULL, BF>(a, qs, LDS, dA, LDS, CS);
+    tile::mma<true, false>(a, qs, LDS, dA, LDS, CS);
     float* dco = p.dcs + base * DH * DH;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -543,7 +550,7 @@ __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
 // C. Per chunk: the terms that need the reverse carry, then d log f. The
 // carry's products read dC d_new (scaled in shared memory) and, for dv,
 // the gate-weighted k (scaled in the fragment load).
-template <int DH, bool BF = false>
+template <int DH>
 __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* ks = sm;                // CS x DH
@@ -561,8 +568,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   const float d_new = expf(ld_new), d_old = expf(ld_old);
   const float btot = p.btot[base], mloc = p.mloc[base];
 
-  load_act<BF>(ks, p.k, p.k16, hoff, p.INNER, nrows);
-  load_act<BF>(vs, p.v, p.v16, hoff, p.INNER, nrows);
+  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
   tile::load_async<DH, DH>(dC, LDS, p.dcs + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
@@ -589,17 +596,14 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<false, false, tile::FULL, BF>(a, ks, LDS, dC, LDS, DH, nullptr, gw);
-    if (BF)
-      put_rows_bf16(a, p.dv16, p.dv, p, b, s0, n * DH, 1.f);
-    else
-      put_rows<true>(a, p.dv, p, b, s0, n * DH, 1.f);
+    tile::mma<false, false>(a, ks, LDS, dC, LDS, DH, nullptr, gw);
+    put_rows<true>(a, p.dv, p, b, s0, n * DH, 1.f);
   }
   // dk_state = v (d_new dC)^T + dksum; dk += dk_state gw; dgw = sum_d dk_state k
   {
     Acc a;
     a.zero();
-    tile::mma<false, true, tile::FULL, BF>(a, vs, LDS, dC, LDS, DH);
+    tile::mma<false, true>(a, vs, LDS, dC, LDS, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -611,10 +615,393 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
         a.c[jj][r] = st * gw[s];
       }
     put_row_sums(pr, rpart);
-    if (BF)
-      put_rows_bf16(a, p.dk16, p.dk, p, b, s0, n * DH, 1.f);
-    else
-      put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f);
+    put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f);
+  }
+  __syncthreads();
+
+  // gate terms; d btot folds into the chunk's last slot of d b
+  float gi = 0.f;
+  if (tid < CS) {
+    const int sg = s0 + tid;
+    gi = (rpart[tid] + rpart[CS + tid]) * gw[tid];
+    const float dbp = sg < p.S ? p.df[(long)bh * p.S + sg] : 0.f;
+    db[tid] = dbp - gi;
+  }
+  const float gs = warp_sum(gi);  // warps 0 and 1 hold the chunk's gi
+  if (lane == 0 && warp < 2) gsum[warp] = gs;
+  __syncthreads();
+  if (tid == 0) {
+    float dbt = 0.f;
+    for (int w = 0; w < NW; ++w) dbt += red[w];
+    db[CS - 1] += dbt * d_old + gsum[0] + gsum[1];
+  }
+  __syncthreads();
+  // reverse inclusive cumsum: dlogf_t = sum_{s >= t} db_s
+  if (tid < CS) rev[tid] = db[CS - 1 - tid];
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(rev);
+  __syncthreads();
+  if (tid < CS) {
+    const int sg = s0 + tid;
+    if (sg < p.S) {
+      const long o = (long)bh * p.S + sg;
+      const float dlogf = rev[CS - 1 - tid];
+      const float dli = p.di[o] + gi;
+      p.df[o] = dlogf * sigmoid(-p.fg[o]);
+      p.di[o] = p.igate_exp ? dli : dli * sigmoid(-p.ig[o]);
+    }
+  }
+}
+
+// ---- K2 in bf16: the bwd16_* stages ---------------------------------------------------
+
+constexpr int HT = tile::HALVES;  // bf16 elements of one 64 x 64 shared tile
+using tile::LDH;
+
+// A in bf16. q, k, v copied in as they are; dh fp32 (dN reads it unrounded);
+// the carried C rounded to bf16 as it is staged (here only ever a bf16
+// operand); E kept fp32 in the accumulators of its product (the gate sums G
+// and the normalizer read it unrounded) and written once rounded as the
+// products' operand; q_inter, dA and dqk rounded once after their scales.
+__global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
+  constexpr int DH = 64;
+  constexpr float QS = 0.125f;   // 1 / sqrt(DH)
+  extern __shared__ __align__(16) float smf[];
+  float* dh = smf;                                // dh (fp32)
+  bf16* qs = reinterpret_cast<bf16*>(dh + TF);    // q
+  bf16* ks = qs + HT;
+  bf16* vs = ks + HT;
+  bf16* Cs = vs + HT;                             // R(C) carried in, [d][e]
+  bf16* E = Cs + HT;                              // R(E), then R(dqk)
+  bf16* dA = E + HT;                              // R(dh / normalizer)
+  bf16* qi = dA + HT;                             // R(q_inter) = R(q a / sqrt(DH))
+  float* nv = reinterpret_cast<float*>(qi + HT);  // DH carried-in n
+  float* bcs = nv + DH;          // CS cumsum of log f
+  float* li = bcs + CS;          // CS log input gate
+  float* cm = li + CS;           // CS running max of li - b
+  float* stab = cm + CS;         // CS stabilizer
+  float* av = stab + CS;         // CS inter-chunk scale a_t
+  float* aq = av + CS;           // CS a_t / sqrt(DH)
+  float* qn = aq + CS;           // CS q . n / sqrt(DH)
+  float* nrm = qn + CS;          // CS normalizer
+  float* row = nrm + CS;         // CS unnormalized row sum (its sign and size)
+  float* dR = row + CS;          // CS
+  float* rpart = dR + CS;        // 2 x CS row partials of the two column halves
+  float* cpart = rpart + 2 * CS; // 4 x CS column partials of the four row quarters
+  float* dbv = cpart + 4 * CS;   // CS d b, in-chunk part
+  float* dli = dbv + CS;         // CS d log i, in-chunk part
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
+  const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
+  auto decay = [&](int t, int s) { return expf(li[s] - bcs[s] + bcs[t] - stab[t]); };
+  auto row_sums = [&](float (&pr)[2]) {  // the warp's row sums into rpart[column half][row]
+    const float r0 = tile::quad_sum(pr[0]), r1 = tile::quad_sum(pr[1]);
+    if ((tid & 3) == 0) {
+      rpart[(tid >> 7) * CS + Acc::row(0)] = r0;
+      rpart[(tid >> 7) * CS + Acc::row(2)] = r1;
+    }
+  };
+
+  tile::load16(qs, p.q16 + hoff, p.INNER, nrows, DH);
+  tile::load16(ks, p.k16 + hoff, p.INNER, nrows, DH);
+  tile::load16(vs, p.v16 + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(dh, LDS, p.dh + hoff, p.INNER, nrows, DH);
+  float* c32 = reinterpret_cast<float*>(E);  // C (fp32) lands over E and dA, free until E
+  tile::load_async<DH, DH>(c32, LDS, p.cprev + base * DH * DH, DH, DH, DH);
+  tile::cp_async_commit();
+  load_gates(p, bh, s0, bcs, li);
+  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  const float m_prev = p.mprev[base];
+  tile::cp_async_wait_all();
+  __syncthreads();
+  for (int e = tid; e < DH * DH / 2; e += NT) {
+    const int d = e / (DH / 2), c = 2 * (e % (DH / 2));
+    *reinterpret_cast<__nv_bfloat162*>(Cs + d * LDH + c) =
+        __floats2bfloat162_rn(c32[d * LDS + c], c32[d * LDS + c + 1]);
+  }
+  if (tid < 32) warp_scan64<false>(bcs);
+  __syncthreads();
+  if (tid < CS) cm[tid] = li[tid] - bcs[tid];
+  __syncthreads();
+  if (tid < 32) warp_scan64<true>(cm);
+  __syncthreads();
+  if (tid < CS) {
+    const float inter_log = m_prev + bcs[tid];
+    const float st = fmaxf(bcs[tid] + cm[tid], inter_log);
+    stab[tid] = st;
+    av[tid] = expf(inter_log - st);
+    aq[tid] = av[tid] * QS;
+  }
+  __syncthreads();
+  {  // R(q_inter) and q . n: thread (row tid / 4, quarter tid % 4)
+    const int t = tid >> 2, c0 = 16 * (tid & 3);
+    const float a = aq[t];
+    float s_ = 0.f;
+#pragma unroll
+    for (int c = c0; c < c0 + 16; c += 2) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qs + t * LDH + c));
+      *reinterpret_cast<__nv_bfloat162*>(qi + t * LDH + c) = __floats2bfloat162_rn(x.x * a, x.y * a);
+      s_ += x.x * nv[c] + x.y * nv[c + 1];
+    }
+    s_ = tile::quad_sum(s_);
+    if ((tid & 3) == 0) qn[t] = QS * s_;
+  }
+
+  // E = (q k^T / sqrt(DH)) D, causal: fp32 in Ef, R(E) in the tile
+  Acc Ef;
+  Ef.zero();
+  tile::mma16<false, true, tile::OUT_LOWER>(Ef, qs, ks);
+  {
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), c = Acc::col(jj, r);
+        const float e = c <= t ? Ef.c[jj][r] * QS * decay(t, c) : 0.f;
+        Ef.c[jj][r] = e;
+        pr[r >> 1] += e;
+      }
+    row_sums(pr);
+    tile::store16(Ef, E);
+  }
+  __syncthreads();
+  if (tid < CS) {  // normalizer
+    const float r = rpart[tid] + rpart[CS + tid] + av[tid] * qn[tid];
+    row[tid] = r;
+    nrm[tid] = fmaxf(fabsf(r), expf(-stab[tid])) + p.eps;
+  }
+  __syncthreads();
+
+  // h (recomputed), then dN_t = -sum_e dh h / normalizer
+  {
+    Acc intra, inter;
+    intra.zero();
+    inter.zero();
+    tile::mma16<false, false, tile::K_LE_M>(intra, E, vs);
+    tile::mma16<false, false>(inter, qi, Cs);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), e = Acc::col(jj, r);
+        pr[r >> 1] += dh[t * LDS + e] * ((intra.c[jj][r] + inter.c[jj][r]) / nrm[t]);
+      }
+    row_sums(pr);
+  }
+  __syncthreads();
+  if (tid < CS) {
+    const float dN = -(rpart[tid] + rpart[CS + tid]) / nrm[tid];
+    const float r = row[tid];
+    dR[tid] = fabsf(r) > expf(-stab[tid]) ? (r > 0.f ? dN : (r < 0.f ? -dN : 0.f)) : 0.f;
+  }
+  for (int e = tid; e < CS * DH / 2; e += NT) {
+    const int t = e / (DH / 2), c = 2 * (e % (DH / 2));
+    *reinterpret_cast<__nv_bfloat162*>(dA + t * LDH + c) =
+        __floats2bfloat162_rn(dh[t * LDS + c] / nrm[t], dh[t * LDS + c + 1] / nrm[t]);
+  }
+  __syncthreads();
+
+  // dv (in-chunk part) = R(E)^T R(dA)
+  {
+    Acc a;
+    a.zero();
+    tile::mma16<true, false, tile::K_GE_M>(a, E, dA);
+    put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f);
+  }
+  // de = R(dA) R(v)^T + dR (causal); G = de E gives the gate sums; E <- R(dqk), dqk = de D
+  {
+    Acc d;
+    d.zero();
+    tile::mma16<false, true, tile::OUT_LOWER>(d, dA, vs);
+    __syncthreads();  // every warp is done with R(E): R(dqk) takes its place
+    float rs[2] = {0.f, 0.f};
+    float cs[4][2];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      cs[jj][0] = 0.f;
+      cs[jj][1] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), s = Acc::col(jj, r);
+        float g = 0.f, dqk = 0.f;
+        if (s <= t) {
+          const float de = d.c[jj][r] + dR[t];
+          g = de * Ef.c[jj][r];
+          dqk = de * decay(t, s);
+        }
+        d.c[jj][r] = dqk;
+        rs[r >> 1] += g;
+        cs[jj][r & 1] += g;
+      }
+    }
+    tile::store16(d, E);
+    row_sums(rs);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        float c = cs[jj][par];
+        c += __shfl_xor_sync(0xffffffffu, c, 4);
+        c += __shfl_xor_sync(0xffffffffu, c, 8);
+        c += __shfl_xor_sync(0xffffffffu, c, 16);
+        if (lane < 4) cpart[(warp & 3) * CS + Acc::col(jj, par)] = c;
+      }
+  }
+  __syncthreads();
+  if (tid < CS) {  // db[t] = rowsum G - colsum G, dlogi[s] = colsum G
+    const float colsum = cpart[tid] + cpart[CS + tid] + cpart[2 * CS + tid] + cpart[3 * CS + tid];
+    dli[tid] = colsum;
+    dbv[tid] = rpart[tid] + rpart[CS + tid] - colsum;
+  }
+  __syncthreads();
+
+  // dq = (R(dqk) R(k) + (R(dA) R(C)^T + dR n) a_t) / sqrt(DH); inter d b_t = a_t sum_d dqt q / sqrt(DH)
+  {
+    Acc a, c;
+    a.zero();
+    c.zero();
+    tile::mma16<false, false, tile::K_LE_M>(a, E, ks);
+    tile::mma16<false, true>(c, dA, Cs);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), d = Acc::col(jj, r);
+        const float dqt = c.c[jj][r] + dR[t] * nv[d];
+        pr[r >> 1] += dqt * __bfloat162float(qs[t * LDH + d]);
+        a.c[jj][r] += dqt * av[t];
+      }
+    row_sums(pr);
+    put_rows_bf16(a, p.dq16, p, b, s0, n * DH, QS);
+  }
+  // dk (in-chunk part) = R(dqk)^T R(q) / sqrt(DH)
+  {
+    Acc a;
+    a.zero();
+    tile::mma16<true, false, tile::K_GE_M>(a, E, qs);
+    put_rows<false>(a, p.dk, p, b, s0, n * DH, QS);
+  }
+  // dC_attn = R(q_inter)^T R(dA); dn_attn[d] = sum_t dR_t q_inter_td
+  {
+    Acc a;
+    a.zero();
+    tile::mma16<true, false>(a, qi, dA);
+    float* dco = p.dcs + base * DH * DH;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * hh;
+        *reinterpret_cast<float2*>(dco + Acc::row(r) * DH + Acc::col(jj, r)) =
+            make_float2(a.c[jj][r], a.c[jj][r + 1]);
+      }
+    if (tid < DH) {
+      float acc = 0.f;
+      for (int t = 0; t < CS; ++t) acc += dR[t] * (__bfloat162float(qs[t * LDH + tid]) * aq[t]);
+      p.dns[base * DH + tid] = acc;
+    }
+  }
+  __syncthreads();
+  if (tid < CS) {
+    const int sg = s0 + tid;
+    if (sg < p.S) {
+      p.df[(long)bh * p.S + sg] = dbv[tid] + aq[tid] * (rpart[tid] + rpart[CS + tid]);
+      p.di[(long)bh * p.S + sg] = dli[tid];
+    }
+  }
+}
+
+// C in bf16: the carry's products read R(dC d_new) and R(g k), each rounded
+// once after its scale; dC_j and C_prev are staged in fp32 (their dot is d
+// btot), and A's fp32 partials of dk and dv land in their place during the
+// products; dk and dv are completed and written in bf16.
+__global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
+  constexpr int DH = 64;
+  extern __shared__ __align__(16) bf16 sh[];
+  bf16* ks = sh;                 // k
+  bf16* vs = ks + HT;            // v
+  bf16* dC = vs + HT;            // R(d_new dC_j), [d][e]
+  bf16* kg = dC + HT;            // R(g k)
+  float* dc32 = reinterpret_cast<float*>(kg + HT);  // dC_j (fp32), then A's dv partial
+  float* cp32 = dc32 + TF;                          // C_prev (fp32), then A's dk partial
+  __shared__ float bcs[CS], li[CS], gw[CS], dks[DH], db[CS], rev[CS], rpart[2 * CS], red[NW];
+  __shared__ float gsum[2];
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
+  const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
+  float ld_old, ld_new;
+  chunk_decays(p, base, &ld_old, &ld_new);
+  const float d_new = expf(ld_new), d_old = expf(ld_old);
+  const float btot = p.btot[base], mloc = p.mloc[base];
+
+  tile::load16(ks, p.k16 + hoff, p.INNER, nrows, DH);
+  tile::load16(vs, p.v16 + hoff, p.INNER, nrows, DH);
+  tile::load_async<DH, DH>(dc32, LDS, p.dcs + base * DH * DH, DH, DH, DH);
+  tile::load_async<DH, DH>(cp32, LDS, p.cprev + base * DH * DH, DH, DH, DH);
+  tile::cp_async_commit();
+  load_gates(p, bh, s0, bcs, li);
+  float acc = 0.f;  // sum dC_j * C_prev (+ dn_j * n_prev)
+  if (tid < DH) {
+    const float g = p.dns[base * DH + tid];
+    dks[tid] = g * d_new;
+    acc += g * p.nprev[base * DH + tid];
+  }
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(bcs);
+  __syncthreads();
+  if (tid < CS) gw[tid] = expf(li[tid] + (btot - bcs[tid]) - mloc);
+  tile::cp_async_wait_all();
+  __syncthreads();
+  for (int e = tid; e < DH * DH / 2; e += NT) {  // R(d_new dC_j), R(g k) and the dC_j . C_prev sum
+    const int d = e / (DH / 2), c = 2 * (e % (DH / 2));
+    const float g0 = dc32[d * LDS + c], g1 = dc32[d * LDS + c + 1];
+    acc += g0 * cp32[d * LDS + c] + g1 * cp32[d * LDS + c + 1];
+    *reinterpret_cast<__nv_bfloat162*>(dC + d * LDH + c) =
+        __floats2bfloat162_rn(g0 * d_new, g1 * d_new);
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ks + d * LDH + c));
+    *reinterpret_cast<__nv_bfloat162*>(kg + d * LDH + c) =
+        __floats2bfloat162_rn(x.x * gw[d], x.y * gw[d]);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  tile::load_async<CS, DH>(dc32, LDS, p.dv + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, DH>(cp32, LDS, p.dk + hoff, p.INNER, nrows, DH);
+  tile::cp_async_commit();
+
+  // dv += R(g k) R(d_new dC)
+  {
+    Acc a;
+    a.zero();
+    tile::mma16<false, false>(a, kg, dC);
+    tile::cp_async_wait_all();
+    __syncthreads();
+    put_tile_rows_bf16(a, p.dv16, dc32, p, b, s0, n * DH);
+  }
+  // dk_state = R(v) R(d_new dC)^T + dksum; dk += dk_state g; dg = sum_d dk_state k
+  {
+    Acc a;
+    a.zero();
+    tile::mma16<false, true>(a, vs, dC);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int s = Acc::row(r), d = Acc::col(jj, r);
+        const float st = a.c[jj][r] + dks[d];
+        pr[r >> 1] += st * __bfloat162float(ks[s * LDH + d]);
+        a.c[jj][r] = st * gw[s];
+      }
+    put_row_sums(pr, rpart);
+    put_tile_rows_bf16(a, p.dk16, cp32, p, b, s0, n * DH);
   }
   __syncthreads();
 
@@ -1101,6 +1488,9 @@ int launch(Params& p, float* ws, cudaStream_t st) {
   return 0;
 }
 
+constexpr size_t kLocal16Smem = sizeof(float) * (TF + 64 + 20 * CS) + sizeof(bf16) * 7 * HT;
+constexpr size_t kCarry16Smem = sizeof(bf16) * 4 * HT + sizeof(float) * 2 * TF;
+
 // The three launches of the bf16 entry (head dim 64); ws holds the dC / dn
 // carries, then the fp32 partials of dk and dv (B, S, INNER) each.
 int launch_bf16(Params& p, float* ws, cudaStream_t st) {
@@ -1111,13 +1501,13 @@ int launch_bf16(Params& p, float* ws, cudaStream_t st) {
   p.dk = p.dns + rows * p.NS * DH;
   p.dv = p.dk + tok;
   cudaError_t err;
-  if ((err = allow_smem(bwd_chunk_local<DH, true>, local_smem<DH>())) != cudaSuccess) return err;
-  if ((err = allow_smem(bwd_chunk_carry<DH, true>, kCarrySmem)) != cudaSuccess) return err;
-  bwd_chunk_local<DH, true><<<dim3(p.NS, rows), NT, local_smem<DH>(), st>>>(p);
+  if ((err = allow_smem(bwd16_local, kLocal16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(bwd16_carry, kCarry16Smem)) != cudaSuccess) return err;
+  bwd16_local<<<dim3(p.NS, rows), NT, kLocal16Smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   bwd_state_scan<DH><<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_chunk_carry<DH, true><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
+  bwd16_carry<<<dim3(p.NS, rows), NT, kCarry16Smem, st>>>(p);
   return cudaGetLastError();
 }
 

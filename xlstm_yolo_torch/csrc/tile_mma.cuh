@@ -33,22 +33,10 @@
 // between them, and TF32 wgmma wants both operands K-major in shared memory
 // and a warpgroup pipeline that does not pay at this size.
 //
-// The bf16 variant (template argument BF of `mma`): the arithmetic of the
-// TPU kernels at their default `mxu_dtype="bfloat16"`, whose `dot32` casts
-// both operands to bf16 and accumulates in fp32. One
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` per 16-deep step
-// and 8 output columns replaces the three TF32 passes of two 8-deep steps.
-// The tiles stay fp32 in shared memory; each operand is rounded to nearest
-// even with `cvt.rn.bf16x2.f32` as its fragment is loaded, after any
-// `kscale` / `mscale`, which is where the JAX kernels round (they cast the
-// already-scaled q_inter and gate-weighted k). The k16 fragment layout is
-// not the k8 one: a thread holds the k pairs (2t, 2t+1) and (2t+8, 2t+9),
-// packed low index in the low half. Accumulators stay fp32, in the same
-// fragment layout as the TF32 path (`Acc`).
+// The bf16 kernels' product is tile_bf16.cuh's, on bf16 tiles.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,54 +86,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x rounded to bf16 (nearest even) and back: the value a bf16 operand holds.
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Two fp32 values as one bf16x2 register, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One bf16 k step (k0 .. k0+15) of acc += op(A) op(B) for the warp's 16 x 32
-// part (rows m0.., columns n0..) of the 64 x 64 tile; lane = (g, t).
-template <bool TA, bool TB, int MODE>
-__device__ __forceinline__ void mma_k16_bf16(Acc& acc, const float* A, int lda, const float* B,
-                                             int ldb, int k0, int m0, int n0, int g, int t,
-                                             const float* kscale, const float* mscale) {
-  auto a_at = [&](int m, int k) {
-    float v = TA ? A[k * lda + m] : A[m * lda + k];
-    if (mscale != nullptr) v *= mscale[m];
-    if (kscale != nullptr) v *= kscale[k];
-    return v;
-  };
-  const int ka = k0 + 2 * t, kb = ka + 8;
-  uint32_t af[4];
-  af[0] = pack_bf16(a_at(m0 + g, ka), a_at(m0 + g, ka + 1));
-  af[1] = pack_bf16(a_at(m0 + g + 8, ka), a_at(m0 + g + 8, ka + 1));
-  af[2] = pack_bf16(a_at(m0 + g, kb), a_at(m0 + g, kb + 1));
-  af[3] = pack_bf16(a_at(m0 + g + 8, kb), a_at(m0 + g + 8, kb + 1));
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (MODE == OUT_LOWER && n0 + 8 * j > m0 + 15) continue;  // warp-uniform
-    const int n = n0 + 8 * j + g;
-    auto b_at = [&](int k) { return TB ? B[n * ldb + k] : B[k * ldb + n]; };
-    mma_bf16(acc.c[j], af, pack_bf16(b_at(ka), b_at(ka + 1)), pack_bf16(b_at(kb), b_at(kb + 1)));
-  }
 }
 
 // One k step (k0 .. k0+7) of acc += op(A) op(B) for the warp's 16 x 32 part
@@ -198,13 +138,12 @@ __device__ __forceinline__ void mma_k8(Acc& acc, const float* A, int lda, const 
   }
 }
 
-// acc += op(A) op(B) over k in [0, K), K a multiple of 8 (of 16 when BF),
-// for the warp's 16 x 32 part of the 64 x 64 tile. `kscale`, where given,
+// acc += op(A) op(B) over k in [0, K), K a multiple of 8, for the warp's
+// 16 x 32 part of the 64 x 64 tile, in 3xTF32. `kscale`, where given,
 // multiplies column k of op(A) and `mscale` its row m (shared or global
-// arrays of K and 64 floats). BF: bf16 operands (rounded after the scales),
-// else 3xTF32. Every warp of the CTA (or of its group) calls it; nothing
-// here synchronizes.
-template <bool TA, bool TB, int MODE = FULL, bool BF = false>
+// arrays of K and 64 floats). Every warp of the CTA (or of its group) calls
+// it; nothing here synchronizes.
+template <bool TA, bool TB, int MODE = FULL>
 __device__ __forceinline__ void mma(Acc& acc, const float* A, int lda, const float* B, int ldb,
                                     int K, const float* kscale = nullptr,
                                     const float* mscale = nullptr) {
@@ -214,15 +153,9 @@ __device__ __forceinline__ void mma(Acc& acc, const float* A, int lda, const flo
   int kbeg = 0, kend = K;
   if (MODE == K_LE_M) kend = K < m0 + 16 ? K : m0 + 16;
   if (MODE == K_GE_M) kbeg = m0;
-  if (BF) {
 #pragma unroll 2
-    for (int k0 = kbeg; k0 < kend; k0 += 16)
-      mma_k16_bf16<TA, TB, MODE>(acc, A, lda, B, ldb, k0, m0, n0, g, t, kscale, mscale);
-  } else {
-#pragma unroll 2
-    for (int k0 = kbeg; k0 < kend; k0 += 8)
-      mma_k8<TA, TB, MODE>(acc, A, lda, B, ldb, k0, m0, n0, g, t, kscale, mscale);
-  }
+  for (int k0 = kbeg; k0 < kend; k0 += 8)
+    mma_k8<TA, TB, MODE>(acc, A, lda, B, ldb, k0, m0, n0, g, t, kscale, mscale);
 }
 
 // Two independent full products over the same K in one k loop, so that
@@ -261,24 +194,9 @@ __device__ __forceinline__ void store(const Acc& acc, float* C, int ldc) {
     }
 }
 
-// ---- bf16 activations ----------------------------------------------------------
-
-// Copies a ROWS x COLS block of a row-major bf16 global matrix (row stride
-// `ld` elements) into an fp32 shared tile at row stride `ldd`, widening each
-// value exactly; rows >= nrows and columns >= ncols land as zeros. Plain
-// loads (cp.async cannot convert): the caller synchronizes before use.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_bf16(float* dst, int ldd, const __nv_bfloat16* src, long ld,
-                                          int nrows, int ncols) {
-  for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
-    const int r = i / COLS, c = i % COLS;
-    dst[r * ldd + c] = r < nrows && c < ncols ? __bfloat162float(src[r * ld + c]) : 0.f;
-  }
-}
-
 // ---- asynchronous copies into shared memory --------------------------------
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(src_bytes));

@@ -1,6 +1,6 @@
-// The ViL layer family, forward, for NVIDIA Hopper, fp32, plain C interface:
-// the layer-fused (K3), cell-fused (K4), block-fused (K7) and conv-fused (K6)
-// functions.
+// The ViL layer family, forward, for NVIDIA Hopper, plain C interface: the
+// layer-fused (K3, fp32 and bf16), cell-fused (K4), block-fused (K7) and
+// conv-fused (K6) functions.
 //
 // K3 replaces the TPU kernel `_kernel_vil_layer` in
 // xlstm_yolo_tpu/kernels/mlstm_pallas.py (entered through
@@ -70,28 +70,38 @@
 // Gate math, stabilizers, exp/log, norms and scans stay fp32 on the CUDA
 // cores.
 //
-// K3 in bf16 (vil_layer_fwd_bf16): the TPU kernel's default arithmetic,
-// `mxu_dtype="bfloat16"`, with x and conv_act in bf16 as the JAX layer
-// streams them under AMP or bf16 serving. The same six stages, each a
-// template instance with BF set: every product takes the bf16 tile product
-// (tile_mma.cuh: operands rounded to bf16 at the fragment load, one m16n8k16
-// pass, fp32 accumulators), and the operands are rounded where the JAX
-// kernel casts them: the normalized x (so the head first gathers each row's
-// 1/rms, then scales x by it and by rms_scale in the fragment load), the
-// gate-weighted k of the chunk summary (k is scaled before the product, in
-// both variants), q_inter (q scaled by its row's inter-chunk factor in the
-// fragment load, in both variants), E, the carried C, y. The weights arrive
-// fp32 and are rounded at use, the biases of proj_up and of q/k/v and
-// rms_scale to bf16 values as the JAX layer casts them; the gate biases,
-// outnorm, skip and proj_down's bias stay fp32. x and conv_act are widened
-// as they are staged (plain loads: cp.async cannot convert), out is
-// written in bf16. Under grad it also writes q, k, v (unscaled) and h in
-// bf16, the dtype the JAX forward saves them in, for the backward, and a
-// second set of carried (C, n) states for it, from chunk summaries of the
-// bf16 k and v taken in fp32 (3xTF32): the forward's own state accumulates
-// bf16-operand summaries of fp32 k and v (the JAX kernel's kvs and ksums),
-// while the JAX backward replays the state from the bf16 k and v it saved,
-// in fp32 (its phase 1), so that is the state the backward reads.
+// K3 in bf16 (vil_layer_fwd_bf16, the vil16_* stages): the TPU kernel's
+// default arithmetic, `mxu_dtype="bfloat16"`, with x and conv_act in bf16
+// as the JAX layer streams them under AMP or bf16 serving. What bounds it
+// on this card: its products are bf16 (989 TFLOP/s), so at ViL-YOLO-n's
+// widths the bytes of x, conv_act and out (2 bytes each) bound it, and a
+// design that moves each intermediate through device memory in fp32 spends
+// most of its time there and in the latency of each stage's loads.
+// What the design does about it: every product reads bf16 tiles through
+// ldmatrix into m16n8k16 (tile_bf16.cuh), each operand written to shared
+// memory once as the bf16 value the JAX kernel rounds: the normalized x
+// (x (1/rms) rms_scale, scaled in place after it lands), the gate-weighted
+// k (k g), q_inter (q a / sqrt(DH)), E, the carried C, y; activations and
+// the weights (rounded once per call by vil16_prep) are copied in as they
+// are by 16-byte cp.async. An intermediate goes through device memory in
+// bf16 wherever the JAX kernel consumes it only as a bf16 operand: x_mlstm
+// (the v product and the gate dots), v, k's copy for q k^T, the carried C
+// of the forward's state, y; q and k stay fp32 as well (q_inter and q . n,
+// and g k and the k sums, scale them before any rounding), z fp32 (SiLU).
+// The two state scans (the forward's, and under grad the backward's) run
+// in one launch with four chunks' loads in flight; the gate dots skip the
+// gate columns past 2*NH. The weights arrive fp32 and are rounded once;
+// the biases of proj_up and of q/k/v and rms_scale are rounded to bf16
+// values as the JAX layer casts them; the gate biases, outnorm, skip and
+// proj_down's bias stay fp32. Under grad it also writes q, k, v (unscaled)
+// and h in bf16, the dtype the JAX forward saves them in, for the
+// backward, and a second set of carried (C, n) states for it, from chunk
+// summaries of the bf16 k and v taken in fp32 (3xTF32: g k is no bf16
+// value): the forward's own state accumulates bf16-operand summaries of
+// fp32 k and v (the JAX kernel's kvs and ksums), while the JAX backward
+// replays the state from the bf16 k and v it saved, in fp32 (its phase 1),
+// so that is the state the backward reads. Shared memory per stage is fixed
+// by its tiles (at most 74 KB), so every width runs.
 //
 // Head dim and chunk size are fixed at 64. A sequence that is not a
 // multiple of 64 is handled by masking the last chunk: missing positions
@@ -103,6 +113,7 @@
 
 #include <math.h>
 
+#include "tile_bf16.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -173,23 +184,29 @@ struct Params {
   float* mprev;       // (B*NH, NS)
   int B, S, DIM, INNER, NH, NS, igate_exp;
   float eps, norm_eps, rms_eps;
-  // the bf16 layer (K3 with BF): x and conv_act in, out, and, under grad,
-  // the saved (4, B, S, INNER) q, k, v, h for the backward (else null)
-  const bf16* x16;
-  const bf16* conv16;
-  bf16* out16;
-  bf16* sv;
-  float* kv32;     // with sv: the backward's chunk summaries (B*NH, NS, DH, DH)
-  float* cprev32;  // the carried C it reads (B*NH, NS, DH, DH)
-  float* ksum32;   // and the same for n: (B*NH, NS, DH) each
+  // the bf16 layer (K3 in bf16, the vil16_* stages)
+  const bf16* x16;    // (B, S, DIM) layer input
+  const bf16* conv16; // (B, S, INNER) activated conv branch
+  bf16* out16;        // (B, S, DIM)
+  bf16* sv;           // under grad: (4, B, S, INNER) q, k, v, h in bf16 for the backward
+  bf16* wu16;         // the products' weights rounded once (vil16_prep): proj_up (2*INNER, DIM),
+  bf16* wq16;         // the headwise (NH, DH, DH) each,
+  bf16* wk16;
+  bf16* wv16;
+  bf16* wg16;         // the stacked gate rows (2*NH, 3*INNER), input gate's first,
+  bf16* wd16;         // proj_down (DIM, INNER)
+  bf16* xm16;         // (B, S, INNER) x_mlstm, only ever a bf16 operand
+  bf16* q16;          // (B, S, INNER) q, k, v, h in bf16: under grad the backward's saved
+  bf16* k16;          // activations (the planes of sv), else null
+  bf16* v16;
+  bf16* h16;
+  bf16* y16;          // (B, S, INNER) the tail's A operand
+  bf16* c16;          // (B*NH, NS, DH, DH) the carried C, only ever a bf16 operand here
+  float* kv32;        // under grad: the backward's chunk summaries (B*NH, NS, DH, DH)
+  float* cprev32;     // the carried C it reads (B*NH, NS, DH, DH)
+  float* ksum32;      // and the same for n: (B*NH, NS, DH) each
   float* nprev32;
 };
-
-// x, or its bf16 value when BF (the JAX layer casts its weights so).
-template <bool BF>
-__device__ __forceinline__ float wround(float x) {
-  return BF ? round_bf16(x) : x;
-}
 
 __device__ __forceinline__ float logsigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -219,10 +236,7 @@ __device__ void warp_scan64(float* a) {
   a[2 * l + 1] = MAX ? fmaxf(excl, fmaxf(a0, a1)) : excl + a0 + a1;
 }
 
-// 1. Head: RMSNorm and proj_up for 64 tokens x 64 output columns. BF: x in
-// bf16; each row's 1/rms comes first, and x times 1/rms times rms_scale is
-// rounded at the fragment load, where the JAX kernel rounds xn.
-template <bool BF>
+// 1. Head: RMSNorm and proj_up for 64 tokens x 64 output columns.
 __global__ void __launch_bounds__(NT) vil_head(Params p) {
   extern __shared__ __align__(16) float sm[];  // per stage: x rows, then proj_up's rows
   __shared__ float ns[2][KS];                  // rms_scale's slice per stage
@@ -232,31 +246,14 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
   const int c0 = blockIdx.y * tile::T;  // first output column, of 2*INNER
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const float* xsrc = p.x + tok0 * DIM;
-  const bf16* xsrc16 = p.x16 + tok0 * DIM;
   const float* wsrc = p.wu + (long)c0 * DIM;
   const int nk = (DIM + KS - 1) / KS;
 
-  if (BF) {  // 1/rms of each row first: the product reads the normalized x
-    const int lane = tid & 31, warp = tid >> 5;
-    for (int r = warp; r < TOK; r += NW) {
-      float ss = 0.f;
-      if (r < nrows)
-        for (int c = lane; c < DIM; c += 32) {
-          const float v = __bfloat162float(xsrc16[(long)r * DIM + c]);
-          ss += v * v;
-        }
-      ss = warp_sum(ss);
-      if (lane == 0) rinv[r] = rsqrtf(ss / DIM + p.rms_eps);
-    }
-  }
   auto stage = [&](int buf, int k0) {
     float* xb = sm + buf * 2 * TF;
-    if (BF)
-      tile::load_bf16<TOK, KS>(xb, LDS, xsrc16 + k0, DIM, nrows, DIM - k0);
-    else
-      tile::load_async<TOK, KS>(xb, LDS, xsrc + k0, DIM, nrows, DIM - k0);
+    tile::load_async<TOK, KS>(xb, LDS, xsrc + k0, DIM, nrows, DIM - k0);
     tile::load_async<TOK, KS>(xb + TF, LDS, wsrc + k0, DIM, TOK, DIM - k0);
-    if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? wround<BF>(p.nrm[k0 + tid]) : 0.f;
+    if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? p.nrm[k0 + tid] : 0.f;
     tile::cp_async_commit();
   };
 
@@ -274,20 +271,15 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
     }
     __syncthreads();
     const float* xb = sm + buf * 2 * TF;
-    if (!BF) {
-      const float* xr = xb + (tid >> 2) * LDS + (KS / 4) * (tid & 3);
+    const float* xr = xb + (tid >> 2) * LDS + (KS / 4) * (tid & 3);
 #pragma unroll
-      for (int c = 0; c < KS / 4; ++c) ss += xr[c] * xr[c];
-    }
-    tile::mma<false, true, tile::FULL, BF>(acc, xb, LDS, xb + TF, LDS, KS, ns[buf],
-                                           BF ? rinv : nullptr);
+    for (int c = 0; c < KS / 4; ++c) ss += xr[c] * xr[c];
+    tile::mma<false, true>(acc, xb, LDS, xb + TF, LDS, KS, ns[buf]);
     __syncthreads();
   }
-  if (!BF) {
-    ss = tile::quad_sum(ss);
-    if ((tid & 3) == 0) rinv[tid >> 2] = rsqrtf(ss / DIM + p.rms_eps);
-    __syncthreads();
-  }
+  ss = tile::quad_sum(ss);
+  if ((tid & 3) == 0) rinv[tid >> 2] = rsqrtf(ss / DIM + p.rms_eps);
+  __syncthreads();
 
   const bool xm_half = c0 < INNER;
   float* dst = xm_half ? p.xmw + c0 : p.z + (c0 - INNER);
@@ -296,11 +288,10 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
-      const float sc = BF ? 1.f : rinv[row];  // BF: x was normalized before the product
+      const float sc = rinv[row];
       if (tok0 + row < ntok)
         *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) =
-            make_float2(acc.c[j][r] * sc + wround<BF>(p.bu[c0 + col]),
-                        acc.c[j][r + 1] * sc + wround<BF>(p.bu[c0 + col + 1]));
+            make_float2(acc.c[j][r] * sc + p.bu[c0 + col], acc.c[j][r + 1] * sc + p.bu[c0 + col + 1]);
     }
 }
 
@@ -357,33 +348,24 @@ __device__ void load_gate_rows(const Params& p, float* dst, int r0, int coff) {
 }
 
 // Adds the bias to a headwise product, keeps it in the shared tile and
-// writes the token rows that exist to the workspace, and in bf16 to `sv`
-// where given (the backward's copy).
-template <bool BF>
+// writes the token rows that exist to the workspace.
 __device__ __forceinline__ void put_headwise(const Acc& a, const float* bias, float* tile_,
-                                             float* dst, bf16* sv, long tok0, long ntok,
-                                             int INNER) {
+                                             float* dst, long tok0, long ntok, int INNER) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
-      const float2 v = make_float2(a.c[j][r] + wround<BF>(bias[col]),
-                                   a.c[j][r + 1] + wround<BF>(bias[col + 1]));
+      const float2 v = make_float2(a.c[j][r] + bias[col], a.c[j][r + 1] + bias[col + 1]);
       *reinterpret_cast<float2*>(tile_ + row * LDS + col) = v;
-      if (tok0 + row < ntok) {
-        *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) = v;
-        if (sv != nullptr)
-          *reinterpret_cast<__nv_bfloat162*>(sv + (tok0 + row) * INNER + col) =
-              __floats2bfloat162_rn(v.x, v.y);
-      }
+      if (tok0 + row < ntok) *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) = v;
     }
 }
 
 // 2. Cell prologue for 64 tokens and head n: headwise q/k/v and the head's
 // partial gate dots. CONV (K6) computes conv_act from the workspace's
-// x_mlstm first; the others stream it in (BF: in bf16).
-template <bool CONV, bool BF>
+// x_mlstm first; the others stream it in.
+template <bool CONV>
 __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* t0 = sm;           // conv_act, then q
@@ -396,9 +378,7 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const long hoff = tok0 * INNER + (long)n * DH;
   const long woff = (long)n * DH * DH;
-  if (BF)
-    tile::load_bf16<TOK, DH>(t0, LDS, p.conv16 + hoff, INNER, nrows, DH);
-  else if (!CONV)
+  if (!CONV)
     tile::load_async<TOK, DH>(t0, LDS, p.conv + hoff, INNER, nrows, DH);
   tile::load_async<TOK, DH>(t1, LDS, p.xm + hoff, INNER, nrows, DH);
   tile::load_async<DH, DH>(t2, LDS, p.wq + woff, DH, DH, DH);
@@ -414,17 +394,13 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
     aq.zero();
     ak.zero();
     av.zero();
-    tile::mma<false, true, tile::FULL, BF>(aq, t0, LDS, t2, LDS, DH);
-    tile::mma<false, true, tile::FULL, BF>(ak, t0, LDS, t3, LDS, DH);
-    tile::mma<false, true, tile::FULL, BF>(av, t1, LDS, t4, LDS, DH);
+    tile::mma<false, true>(aq, t0, LDS, t2, LDS, DH);
+    tile::mma<false, true>(ak, t0, LDS, t3, LDS, DH);
+    tile::mma<false, true>(av, t1, LDS, t4, LDS, DH);
     __syncthreads();
-    const long plane = (long)p.B * p.S * INNER;  // one array of the saved copy
-    bf16* sv = p.sv ? p.sv + n * DH : nullptr;
-    put_headwise<BF>(aq, p.bq + n * DH, t0, p.q + n * DH, sv, tok0, ntok, INNER);
-    put_headwise<BF>(ak, p.bk + n * DH, t1, p.k + n * DH, sv ? sv + plane : sv, tok0, ntok,
-                     INNER);
-    put_headwise<BF>(av, p.bv + n * DH, t2, p.v + n * DH, sv ? sv + 2 * plane : sv, tok0, ntok,
-                     INNER);
+    put_headwise(aq, p.bq + n * DH, t0, p.q + n * DH, tok0, ntok, INNER);
+    put_headwise(ak, p.bk + n * DH, t1, p.k + n * DH, tok0, ntok, INNER);
+    put_headwise(av, p.bv + n * DH, t2, p.v + n * DH, tok0, ntok, INNER);
   }
 
   // this head's share of every gate pre-activation: cat(q, k, v)[:, head n]
@@ -438,14 +414,14 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
     __syncthreads();
     Acc ag;
     ag.zero();
-    tile::mma<false, true, tile::FULL, BF>(ag, t0, LDS, t3, LDS, DH);
-    tile::mma<false, true, tile::FULL, BF>(ag, t1, LDS, t4, LDS, DH);
+    tile::mma<false, true>(ag, t0, LDS, t3, LDS, DH);
+    tile::mma<false, true>(ag, t1, LDS, t4, LDS, DH);
     __syncthreads();
     load_gate_rows(p, t3, r0, 2 * INNER + n * DH);
     tile::cp_async_commit();
     tile::cp_async_wait_all();
     __syncthreads();
-    tile::mma<false, true, tile::FULL, BF>(ag, t2, LDS, t3, LDS, DH);
+    tile::mma<false, true>(ag, t2, LDS, t3, LDS, DH);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -502,11 +478,7 @@ __device__ __forceinline__ void load_gates(const Params& p, int bh, int s0, floa
 }
 
 // 3. Per-chunk state summaries: (g k)^T v and the sums of g k, the gate
-// weights g applied to k in the product's fragment load (BF: before the bf16
-// rounding, the JAX kernel's kg). BF under grad (kv32) also writes the
-// summaries the backward's state is built from, as the JAX backward's phase
-// 1 computes them: from the bf16 k and v it saved, in fp32 (3xTF32).
-template <bool BF>
+// weights g applied to k in the product's fragment load.
 __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   __shared__ __align__(16) float ks[TF];
   __shared__ __align__(16) float vs[TF];
@@ -541,7 +513,7 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   const long base = (long)bh * p.NS + j;
   Acc acc;
   acc.zero();
-  tile::mma<true, false, tile::FULL, BF>(acc, ks, LDS, vs, LDS, CS, gw);  // (g k)^T v: [d][e]
+  tile::mma<true, false>(acc, ks, LDS, vs, LDS, CS, gw);  // (g k)^T v: [d][e]
   tile::store(acc, p.kv + base * DH * DH, DH);
   if (tid < DH) {
     float s_ = 0.f;
@@ -551,23 +523,6 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   if (tid == 0) {
     p.btot[base] = btot;
     p.mloc[base] = mloc;
-  }
-  if (BF && p.kv32) {  // the backward's state: the bf16 k and v, fp32 summaries
-    __syncthreads();
-    for (int i = tid; i < CS * DH; i += NT) {
-      const int o = (i / DH) * LDS + i % DH;
-      ks[o] = round_bf16(ks[o]);
-      vs[o] = round_bf16(vs[o]);
-    }
-    __syncthreads();
-    acc.zero();
-    tile::mma<true, false>(acc, ks, LDS, vs, LDS, CS, gw);
-    tile::store(acc, p.kv32 + base * DH * DH, DH);
-    if (tid < DH) {
-      float s_ = 0.f;
-      for (int s = 0; s < CS; ++s) s_ += ks[s * LDS + tid] * gw[s];
-      p.ksum32[base * DH + tid] = s_;
-    }
   }
 }
 
@@ -608,7 +563,6 @@ __global__ void __launch_bounds__(NT) vil_state_scan(Params p) {
 // 5. Per-chunk outputs h = (intra + inter) / normalizer. q_inter (row t of
 // q times av[t], its inter-chunk scale over sqrt(DH)) is formed in the
 // fragment load of the q C product.
-template <bool BF>
 __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                // q, unscaled
@@ -657,7 +611,7 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   {
     Acc s;
     s.zero();
-    tile::mma<false, true, tile::OUT_LOWER, BF>(s, qs, LDS, ks, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
     __syncthreads();  // every warp is done with k: E takes its place
     float* E = ks;
 #pragma unroll
@@ -682,8 +636,8 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   Acc hv, inter;
   hv.zero();
   inter.zero();
-  tile::mma<false, false, tile::K_LE_M, BF>(hv, E, LDS, vs, LDS, CS);
-  tile::mma<false, false, tile::FULL, BF>(inter, qs, LDS, Cs, LDS, DH, nullptr, av);
+  tile::mma<false, false, tile::K_LE_M>(hv, E, LDS, vs, LDS, CS);
+  tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH, nullptr, av);
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -699,9 +653,6 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
       if (s0 + t < p.S) {
         const long o = ((long)b * p.S + s0 + t) * p.INNER + n * DH + Acc::col(jj, r);
         *reinterpret_cast<float2*>(p.h + o) = make_float2(hv.c[jj][r], hv.c[jj][r + 1]);
-        if (p.sv)  // the backward's bf16 h, the fourth array of the saved copy
-          *reinterpret_cast<__nv_bfloat162*>(p.sv + 3L * p.B * p.S * p.INNER + o) =
-              __floats2bfloat162_rn(hv.c[jj][r], hv.c[jj][r + 1]);
       }
     }
   if (p.y == nullptr) return;  // the cell: no tail
@@ -723,17 +674,14 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
     for (int half = 0; half < 2; ++half) {
       const int cl = lane + 32 * half, c = n * DH + cl;
       const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
-      const float cv = BF ? __bfloat162float(p.conv16[row + cl]) : p.conv[row + cl];
-      p.y[row + cl] = (hn + p.skip[c] * cv) * silu(p.zr[row + cl]);
+      p.y[row + cl] = (hn + p.skip[c] * p.conv[row + cl]) * silu(p.zr[row + cl]);
     }
   }
 }
 
 // 6. Epilogue for 64 tokens x 64 columns of DIM: y (the chunk outputs'
 // tail product) times proj_down's slice, the K loop over heads in
-// double-buffered 64-channel slices; then bias and residual (BF: the
-// residual read and out written in bf16).
-template <bool BF>
+// double-buffered 64-channel slices; then bias and residual.
 __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
   // per stage: y (64 tokens x one head's channels), then proj_down's rows
   // c0 .. c0+63 at the same channels
@@ -764,7 +712,7 @@ __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
     }
     __syncthreads();
     const float* yb = sm + buf * 2 * TF;
-    tile::mma<false, true, tile::FULL, BF>(acc, yb, LDS, yb + TF, LDS, DH);
+    tile::mma<false, true>(acc, yb, LDS, yb + TF, LDS, DH);
     __syncthreads();
   }
 #pragma unroll
@@ -773,40 +721,722 @@ __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
     for (int r = 0; r < 4; ++r) {
       const int t = Acc::row(r), c = c0 + Acc::col(j, r);
       const long tk = tok0 + t;
-      if (tk < ntok && c < DIM) {
-        if (BF)
-          p.out16[tk * DIM + c] =
-              __float2bfloat16_rn(acc.c[j][r] + p.bd[c] + __bfloat162float(p.x16[tk * DIM + c]));
+      if (tk < ntok && c < DIM) p.out[tk * DIM + c] = acc.c[j][r] + p.bd[c] + p.xres[tk * DIM + c];
+    }
+}
+
+// ---- K3 in bf16: the vil16_* stages -------------------------------------------------
+
+constexpr int HT = tile::HALVES;  // bf16 elements of one 64 x 64 shared tile
+using tile::LDH;
+
+// 0. The products' weights, rounded to bf16 once per call (the JAX layer
+// casts its weights to the activations' dtype), four values a thread-step
+// (every weight's size is a multiple of 4; the copies are 16-byte ones where
+// the weight is 16-byte aligned).
+__device__ __forceinline__ void round4(bf16* dst, const float* src, long n, long i0,
+                                       long stride) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (long i = 4 * i0; i < n; i += 4 * stride) {
+      const float4 v = *reinterpret_cast<const float4*>(src + i);
+      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + i);
+      d[0] = __floats2bfloat162_rn(v.x, v.y);
+      d[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+  } else {
+    for (long i = i0; i < n; i += stride) dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
+__global__ void __launch_bounds__(NT) vil16_prep(Params p) {
+  const long stride = (long)gridDim.x * NT, i0 = (long)blockIdx.x * NT + threadIdx.x;
+  const long nw = (long)p.NH * DH * DH, ng = 3L * p.INNER * p.NH;
+  round4(p.wu16, p.wu, 2L * p.INNER * p.DIM, i0, stride);
+  round4(p.wq16, p.wq, nw, i0, stride);
+  round4(p.wk16, p.wk, nw, i0, stride);
+  round4(p.wv16, p.wv, nw, i0, stride);
+  round4(p.wg16, p.wgi, ng, i0, stride);
+  round4(p.wg16 + ng, p.wgf, ng, i0, stride);
+  round4(p.wd16, p.wd, (long)p.DIM * p.INNER, i0, stride);
+}
+
+// 1. Head for 64 tokens x HG tiles of 64 output columns of proj_up: x's
+// slices and proj_up's copied in as they are, double-buffered; each row's
+// 1/rms is summed from global memory while the first slice lands; then each
+// x slice is scaled in place, once for all HG column tiles, to xn = x
+// (1/rms) rms_scale, rounded once (the JAX kernel's bf16 xn), and
+// multiplied. x_mlstm is written in bf16 (it is only ever a bf16 operand),
+// z in fp32 (it goes into SiLU).
+constexpr int HG = 4;  // column tiles per head CTA
+__global__ void __launch_bounds__(NT, 2) vil16_head(Params p) {
+  extern __shared__ __align__(16) bf16 sh[];  // per stage: x slice, then HG tiles of proj_up's rows
+  __shared__ float ns[2][KS];                 // rms_scale's slice per stage, bf16 values
+  __shared__ float rinv[TOK];
+  const int DIM = p.DIM, INNER = p.INNER, tid = threadIdx.x;
+  const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
+  const int ct0 = blockIdx.y * HG;  // first column tile, of 2*INNER / 64
+  const int ng = 2 * p.NH - ct0 < HG ? 2 * p.NH - ct0 : HG;
+  const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
+  const bf16* xsrc = p.x16 + tok0 * DIM;
+  const bf16* wsrc = p.wu16 + (long)ct0 * tile::T * DIM;
+  const int nk = (DIM + KS - 1) / KS;
+  auto stage = [&](int buf, int k0) {
+    bf16* xb = sh + buf * (HG + 1) * HT;
+    tile::load16(xb, xsrc + k0, DIM, nrows, DIM - k0);
+    for (int g = 0; g < ng; ++g)
+      tile::load16(xb + (g + 1) * HT, wsrc + (long)g * tile::T * DIM + k0, DIM, TOK, DIM - k0);
+    if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? round_bf16(p.nrm[k0 + tid]) : 0.f;
+    tile::cp_async_commit();
+  };
+  stage(0, 0);
+  {  // thread (row tid / 4, quarter tid % 4) sums its quarter of the row's squares
+    const int r = tid >> 2, qq = tid & 3;
+    float ss = 0.f;
+    if (r < nrows) {
+      const bf16* xr = xsrc + (long)r * DIM;
+      if ((DIM & 7) == 0 && (reinterpret_cast<uintptr_t>(p.x16) & 15) == 0) {
+        for (int c = 8 * qq; c < DIM; c += 32) {
+          const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            ss += f.x * f.x + f.y * f.y;
+          }
+        }
+      } else {
+        for (int c = qq; c < DIM; c += 4) {
+          const float v = __bfloat162float(xr[c]);
+          ss += v * v;
+        }
+      }
+    }
+    ss = tile::quad_sum(ss);
+    if (qq == 0) rinv[r] = rsqrtf(ss / DIM + p.rms_eps);
+  }
+
+  Acc acc[HG];
+#pragma unroll
+  for (int g = 0; g < HG; ++g) acc[g].zero();
+  for (int i = 0; i < nk; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < nk) {
+      stage(buf ^ 1, (i + 1) * KS);
+      tile::cp_async_wait_one();
+    } else {
+      tile::cp_async_wait_all();
+    }
+    __syncthreads();
+    bf16* xb = sh + buf * (HG + 1) * HT;
+    for (int e = tid; e < TOK * KS / 2; e += NT) {
+      const int r = e / (KS / 2), c = 2 * (e % (KS / 2));
+      __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(xb + r * LDH + c);
+      const float2 f = __bfloat1622float2(*x2);
+      *x2 = __floats2bfloat162_rn(f.x * rinv[r] * ns[buf][c], f.y * rinv[r] * ns[buf][c + 1]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < HG; ++g)
+      if (g < ng) tile::mma16<false, true>(acc[g], xb, xb + (g + 1) * HT);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int g = 0; g < HG; ++g) {
+    if (g >= ng) break;
+    const int c0 = (ct0 + g) * tile::T;  // first output column, of 2*INNER
+    const bool xm_half = c0 < INNER;
+    const int col0 = xm_half ? c0 : c0 - INNER;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
+        if (tok0 + row >= ntok) continue;
+        const float v0 = acc[g].c[j][r] + round_bf16(p.bu[c0 + col]);
+        const float v1 = acc[g].c[j][r + 1] + round_bf16(p.bu[c0 + col + 1]);
+        const long o = (tok0 + row) * INNER + col0 + col;
+        if (xm_half)
+          *reinterpret_cast<__nv_bfloat162*>(p.xm16 + o) = __floats2bfloat162_rn(v0, v1);
         else
-          p.out[tk * DIM + c] = acc.c[j][r] + p.bd[c] + p.xres[tk * DIM + c];
+          *reinterpret_cast<float2*>(p.z + o) = make_float2(v0, v1);
+      }
+  }
+}
+
+// Adds the bias (a bf16 value, as the JAX layer casts it) to a headwise
+// product and puts its bf16 value in the tile t16.
+__device__ __forceinline__ void put16(const Acc& a, const float* bias, bf16* t16) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
+      *reinterpret_cast<__nv_bfloat162*>(t16 + row * LDH + col) = __floats2bfloat162_rn(
+          a.c[j][r] + round_bf16(bias[col]), a.c[j][r + 1] + round_bf16(bias[col + 1]));
+    }
+}
+
+// Writes the first nrows rows of a bf16 tile to a row-major global matrix
+// (row stride ld elements, 16-byte aligned rows) with 16-byte stores.
+__device__ __forceinline__ void store16_rows(bf16* dst, long ld, const bf16* t16, int nrows) {
+  for (int i = threadIdx.x; i < nrows * (tile::T / 8); i += NT) {
+    const int r = i >> 3, c = 8 * (i & 7);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(t16 + r * LDH + c);
+  }
+}
+
+// 2. Cell prologue for 64 tokens and head n: headwise q/k/v, then the
+// head's partial gate dots from the bf16 q, k, v (the JAX kernel casts them
+// for the gate dots) against the first 64 gate rows, all of it copied in by
+// one cp.async group; the products skip the gate columns past 2*NH. Under
+// grad it writes q, k, v in bf16 for the backward; the later stages
+// recompute them (headwise16).
+__global__ void __launch_bounds__(NT, 3) vil16_prologue(Params p) {
+  extern __shared__ __align__(16) bf16 sh[];
+  bf16* t0 = sh;        // conv_act
+  bf16* t1 = t0 + HT;   // x_mlstm
+  bf16* t2 = t1 + HT;   // wq, then R(q)
+  bf16* t3 = t2 + HT;   // wk, then R(k)
+  bf16* t4 = t3 + HT;   // wv, then R(v)
+  bf16* gq = t4 + HT;   // the gate rows' q, k and v columns of head n
+  bf16* gk = gq + HT;
+  bf16* gv = gk + HT;
+  const int n = blockIdx.y, INNER = p.INNER, NH = p.NH;
+  const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
+  const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
+  const long hoff = tok0 * INNER + (long)n * DH;
+  const long woff = (long)n * DH * DH, gld = 3L * INNER;
+  auto load_gate_rows = [&](int r0) {
+    const bf16* g = p.wg16 + (long)r0 * gld + n * DH;
+    tile::load16(gq, g, gld, 2 * NH - r0, DH);
+    tile::load16(gk, g + INNER, gld, 2 * NH - r0, DH);
+    tile::load16(gv, g + 2 * INNER, gld, 2 * NH - r0, DH);
+  };
+  tile::load16(t0, p.conv16 + hoff, INNER, nrows, DH);
+  tile::load16(t1, p.xm16 + hoff, INNER, nrows, DH);
+  tile::load16(t2, p.wq16 + woff, DH, DH, DH);
+  tile::load16(t3, p.wk16 + woff, DH, DH, DH);
+  tile::load16(t4, p.wv16 + woff, DH, DH, DH);
+  load_gate_rows(0);
+  tile::cp_async_commit();
+  tile::cp_async_wait_all();
+  __syncthreads();
+  {  // one product at a time, each rounded into the tile its weight leaves
+    const long c = (long)n * DH;
+    Acc a;
+    a.zero();
+    tile::mma16<false, true>(a, t0, t2);
+    __syncthreads();
+    put16(a, p.bq + c, t2);
+    a.zero();
+    tile::mma16<false, true>(a, t0, t3);
+    __syncthreads();
+    put16(a, p.bk + c, t3);
+    a.zero();
+    tile::mma16<false, true>(a, t1, t4);
+    __syncthreads();
+    put16(a, p.bv + c, t4);
+  }
+  __syncthreads();
+  if (p.q16 != nullptr) {  // the backward's saved q, k, v
+    store16_rows(p.q16 + hoff, INNER, t2, nrows);
+    store16_rows(p.k16 + hoff, INNER, t3, nrows);
+    store16_rows(p.v16 + hoff, INNER, t4, nrows);
+  }
+
+  const long stride = (long)p.B * NH * p.S;  // one source head's partials
+  long gpos[2];  // the thread's two rows' offset b*NH*S + s in a gate row's partials, or -1
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long tk = tok0 + Acc::row(2 * hh);
+    gpos[hh] = tk < ntok ? (tk / p.S) * NH * p.S + tk % p.S : -1;
+  }
+  for (int r0 = 0; r0 < 2 * NH; r0 += tile::T) {
+    if (r0 > 0) {
+      __syncthreads();
+      load_gate_rows(r0);
+      tile::cp_async_commit();
+      tile::cp_async_wait_all();
+      __syncthreads();
+    }
+    const int nlim = 2 * NH - r0 < tile::T ? 2 * NH - r0 : tile::T;
+    Acc ag;
+    ag.zero();
+    tile::mma16<false, true>(ag, t2, gq, DH, nlim);
+    tile::mma16<false, true>(ag, t3, gk, DH, nlim);
+    tile::mma16<false, true>(ag, t4, gv, DH, nlim);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int hc = r0 + Acc::col(j, r);
+        const long g = gpos[r >> 1];
+        if (hc < 2 * NH && g >= 0) {
+          const int which = hc >= NH, hh = hc - which * NH;
+          p.gp[((long)which * NH + n) * stride + (long)hh * p.S + g] = ag.c[j][r];
+        }
+      }
+  }
+}
+
+// The headwise products of 64 rows of head n, recomputed wherever a stage
+// needs q, k or v: acc = R(src) R(w)^T + R(bias), in fp32, from the bf16
+// tiles of the activation (conv_act or x_mlstm) and of the head's weight.
+// The same tiles through the same product give the same fp32 values bit for
+// bit in every stage, so no stage reads q, k or v back from device memory.
+__device__ __forceinline__ void headwise16(Acc& acc, const bf16* src, const bf16* w,
+                                           const float* bias) {
+  acc.zero();
+  tile::mma16<false, true>(acc, src, w);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc.c[j][r] += round_bf16(bias[Acc::col(j, r)]);
+}
+
+// Column sums of a 64 x 64 accumulator tile, each row r weighted by w[r],
+// per row quarter (a warp's 16 rows) into cpart[quarter][column] (4 x 64
+// floats); the caller sums the four quarters in order after a barrier (no
+// atomics).
+__device__ __forceinline__ void weighted_col_sums(const Acc& a, const float* w, float* cpart) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+      float c = a.c[j][par] * w[Acc::row(par)] + a.c[j][par + 2] * w[Acc::row(par + 2)];
+      c += __shfl_xor_sync(0xffffffffu, c, 4);
+      c += __shfl_xor_sync(0xffffffffu, c, 8);
+      c += __shfl_xor_sync(0xffffffffu, c, 16);
+      if (lane < 4) cpart[(warp & 3) * tile::T + Acc::col(j, par)] = c;
+    }
+}
+
+// 3. Per-chunk state summaries: R(g k)^T R(v) (g k rounded once after its
+// scale, the JAX kernel's kg) and the fp32 sums of g k, with k and v
+// recomputed from the bf16 conv_act and x_mlstm. Under grad (kv32) also the
+// summaries the backward's state is built from, as the JAX backward's phase
+// 1 computes them: from the bf16 k and v it saved, in fp32.
+__global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
+  extern __shared__ __align__(16) bf16 sh[];
+  bf16* t0 = sh;                                   // conv_act, then R(g k)
+  bf16* t1 = t0 + HT;                              // x_mlstm, then R(v)
+  bf16* t2 = t1 + HT;                              // wk, then under grad hi
+  bf16* t3 = t2 + HT;                              // wv, then mid
+  bf16* t4 = t3 + HT;                              // lo
+  __shared__ float bcs[CS], li[CS], gw[CS], cpart[8 * DH];
+  __shared__ float s_mloc;
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, s0 = j * CS;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
+  const long woff = (long)n * DH * DH;
+
+  tile::load16(t0, p.conv16 + hoff, p.INNER, nrows, DH);
+  tile::load16(t1, p.xm16 + hoff, p.INNER, nrows, DH);
+  tile::load16(t2, p.wk16 + woff, DH, DH, DH);
+  tile::load16(t3, p.wv16 + woff, DH, DH, DH);
+  tile::cp_async_commit();
+  sum_gates(p, bh, n, s0, bcs, li);
+  tile::cp_async_wait_all();
+  __syncthreads();
+  Acc ak, av;
+  headwise16(ak, t0, t2, p.bk + n * DH);
+  headwise16(av, t1, t3, p.bv + n * DH);
+  if (tid < 32) warp_scan64<false>(bcs);  // b = inclusive cumsum of log f
+  __syncthreads();
+  const float btot = bcs[CS - 1];
+  if (tid < CS) gw[tid] = li[tid] + (btot - bcs[tid]);
+  __syncthreads();
+  if (tid < 32) {
+    float m = fmaxf(gw[tid], gw[tid + 32]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (tid == 0) s_mloc = m;
+  }
+  __syncthreads();
+  const float mloc = s_mloc;
+  if (tid < CS) gw[tid] = expf(gw[tid] - mloc);
+  __syncthreads();  // gw is read below; every warp is done with t0 .. t3
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh, s = Acc::row(r), d = Acc::col(jj, r);
+      *reinterpret_cast<__nv_bfloat162*>(t0 + s * LDH + d) =
+          __floats2bfloat162_rn(ak.c[jj][r] * gw[s], ak.c[jj][r + 1] * gw[s]);
+      *reinterpret_cast<__nv_bfloat162*>(t1 + s * LDH + d) =
+          __floats2bfloat162_rn(av.c[jj][r], av.c[jj][r + 1]);
+    }
+  weighted_col_sums(ak, gw, cpart);  // the k sums
+  const bool grad = p.kv32 != nullptr;
+  if (grad) {
+    // The backward's summaries: g R(k), an fp32 value, is split exactly
+    // into three bf16 values (hi + mid + lo: 24 significant bits in three
+    // of 8), so three bf16 products with R(v) sum to its fp32 product.
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * hh, s = Acc::row(r), o = s * LDH + Acc::col(jj, r);
+        ak.c[jj][r] = round_bf16(ak.c[jj][r]);
+        ak.c[jj][r + 1] = round_bf16(ak.c[jj][r + 1]);
+        const float x0 = ak.c[jj][r] * gw[s], x1 = ak.c[jj][r + 1] * gw[s];
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h);
+        const __nv_bfloat162 m = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+        const float2 mf = __bfloat1622float2(m);
+        *reinterpret_cast<__nv_bfloat162*>(t2 + o) = h;
+        *reinterpret_cast<__nv_bfloat162*>(t3 + o) = m;
+        *reinterpret_cast<__nv_bfloat162*>(t4 + o) =
+            __floats2bfloat162_rn(x0 - hf.x - mf.x, x1 - hf.y - mf.y);
+      }
+    weighted_col_sums(ak, gw, cpart + 4 * DH);  // the backward's k sums, of R(k)
+  }
+  __syncthreads();
+
+  const long base = (long)bh * p.NS + j;
+  if (tid < DH) {
+    const float* c = cpart + tid;
+    p.ksum[base * DH + tid] = c[0] + c[DH] + c[2 * DH] + c[3 * DH];
+    if (grad) p.ksum32[base * DH + tid] = c[4 * DH] + c[5 * DH] + c[6 * DH] + c[7 * DH];
+  }
+  if (tid == 0) {
+    p.btot[base] = btot;
+    p.mloc[base] = mloc;
+  }
+  Acc acc;
+  acc.zero();
+  tile::mma16<true, false>(acc, t0, t1);  // R(g k)^T R(v): [d][e]
+  tile::store(acc, p.kv + base * DH * DH, DH);
+  if (!grad) return;
+  acc.zero();
+  tile::mma16<true, false>(acc, t4, t1);  // lo, mid, hi
+  tile::mma16<true, false>(acc, t3, t1);
+  tile::mma16<true, false>(acc, t2, t1);
+  tile::store(acc, p.kv32 + base * DH * DH, DH);
+}
+
+// 4. Both state scans in one launch (blockIdx.z). Set 0 carries the
+// forward's state over the bf16-operand summaries and writes the carried C
+// in bf16 (the chunk outputs read it only as a bf16 operand), with n and m;
+// set 1 (under grad) carries the backward's over the fp32 summaries, C and
+// n in fp32. A thread owns two neighbouring entries and keeps the next PF
+// chunks' entries in flight.
+__global__ void __launch_bounds__(NT) vil16_state_scan(Params p) {
+  constexpr int PF = 4;
+  const bool bwd = blockIdx.z == 1;
+  const float* kv = bwd ? p.kv32 : p.kv;
+  const float* ksum = bwd ? p.ksum32 : p.ksum;
+  float* nprev = bwd ? p.nprev32 : p.nprev;
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const int idx = 2 * (blockIdx.y * NT + tid);  // entries idx, idx + 1 of C
+  const bool own_n = blockIdx.y == 0 && tid < DH / 2;  // and of n
+  const bool own_m = !bwd && blockIdx.y == 0 && tid == 0;
+  const long row = (long)bh * p.NS;
+  float2 v[PF], w[PF];
+  float bt[PF], ml[PF];
+  auto fetch = [&](int k, int j) {
+    if (j >= p.NS) return;
+    const long base = row + j;
+    v[k] = *reinterpret_cast<const float2*>(kv + base * DH * DH + idx);
+    w[k] = own_n ? *reinterpret_cast<const float2*>(ksum + base * DH + idx) : make_float2(0.f, 0.f);
+    bt[k] = p.btot[base];
+    ml[k] = p.mloc[base];
+  };
+#pragma unroll
+  for (int k = 0; k < PF; ++k) fetch(k, k);
+  float2 c = make_float2(0.f, 0.f), nn = make_float2(0.f, 0.f);
+  float m = 0.f;
+  for (int j = 0; j < p.NS; ++j) {
+    const float2 kvv = v[0], ks = w[0];
+    const float b_ = bt[0], l_ = ml[0];
+#pragma unroll
+    for (int k = 0; k + 1 < PF; ++k) {
+      v[k] = v[k + 1];
+      w[k] = w[k + 1];
+      bt[k] = bt[k + 1];
+      ml[k] = ml[k + 1];
+    }
+    fetch(PF - 1, j + PF);
+    const long base = row + j;
+    if (bwd)
+      *reinterpret_cast<float2*>(p.cprev32 + base * DH * DH + idx) = c;
+    else
+      *reinterpret_cast<__nv_bfloat162*>(p.c16 + base * DH * DH + idx) =
+          __floats2bfloat162_rn(c.x, c.y);
+    if (own_n) *reinterpret_cast<float2*>(nprev + base * DH + idx) = nn;
+    if (own_m) p.mprev[base] = m;
+    const float mn = fmaxf(b_ + m, l_);
+    const float dold = expf(b_ + m - mn), dnew = expf(l_ - mn);
+    c = make_float2(c.x * dold + kvv.x * dnew, c.y * dold + kvv.y * dnew);
+    nn = make_float2(nn.x * dold + ks.x * dnew, nn.y * dold + ks.y * dnew);
+    m = mn;
+  }
+}
+
+// 5. Per-chunk outputs h = (R(E) R(v) + R(q_inter) R(C)) / normalizer, then
+// the tail's elementwise part y = (outnorm(h) + skip conv_act) silu(z), in
+// bf16 (only ever the epilogue's operand). q, k, v are recomputed from the
+// bf16 conv_act and x_mlstm; from q's fp32 accumulators come, in one pass,
+// R(q) for q k^T, R(q_inter) = R(q a / sqrt(DH)) (rounded once after its
+// scale) and q . n; E's row sums come from its fp32 accumulators before E
+// is rounded.
+__global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
+  extern __shared__ __align__(16) bf16 sh[];
+  bf16* cv = sh;              // conv_act (the tail's skip reads it too)
+  bf16* k16 = cv + HT;        // x_mlstm, then R(q_inter)
+  bf16* q16 = k16 + HT;       // wq, then R(q)
+  bf16* qi = q16 + HT;        // wk, then R(k)
+  bf16* v16 = qi + HT;        // wv, then R(v)
+  bf16* C16 = v16 + HT;       // R(C) carried in, [d][e]
+  bf16* E16 = C16 + HT;       // R(E): decayed q k^T / sqrt(DH)
+  float* zs = reinterpret_cast<float*>(q16);      // z (fp32) for the tail, over two tiles
+  float* hs = reinterpret_cast<float*>(C16);      // h (fp32) for the tail, over two tiles
+  float* nv = reinterpret_cast<float*>(E16 + HT); // DH carried-in n
+  float* bcs = nv + DH;                           // CS cumsum of log f
+  float* li = bcs + CS;                           // CS log input gate
+  float* cm = li + CS;                            // CS running max of li - b
+  float* stab = cm + CS;                          // CS stabilizer
+  float* av = stab + CS;                          // CS inter-chunk scale over sqrt(DH)
+  float* den = av + CS;                           // CS normalizer
+  float* qpart = den + CS;                        // 2 x CS q . n of the two column halves
+  float* rpart = qpart + 2 * CS;                  // 2 x CS row sums of E's column halves
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
+  const long base = (long)bh * p.NS + j;
+  const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
+  const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
+  const long woff = (long)n * DH * DH;
+  // the warp's row sums of a per-thread quantity into part[column half][row]
+  auto row_sums = [&](float (&pr)[2], float* part) {
+    const float r0 = tile::quad_sum(pr[0]), r1 = tile::quad_sum(pr[1]);
+    if ((tid & 3) == 0) {
+      part[(tid >> 7) * CS + Acc::row(0)] = r0;
+      part[(tid >> 7) * CS + Acc::row(2)] = r1;
+    }
+  };
+
+  tile::load16(cv, p.conv16 + hoff, p.INNER, nrows, DH);
+  tile::load16(k16, p.xm16 + hoff, p.INNER, nrows, DH);
+  tile::load16(q16, p.wq16 + woff, DH, DH, DH);
+  tile::load16(qi, p.wk16 + woff, DH, DH, DH);
+  tile::load16(v16, p.wv16 + woff, DH, DH, DH);
+  tile::load16(C16, p.c16 + base * DH * DH, DH, DH, DH);
+  tile::cp_async_commit();
+  load_gates(p, bh, s0, bcs, li);
+  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  const float m_prev = p.mprev[base];
+  __syncthreads();
+  if (tid < 32) warp_scan64<false>(bcs);
+  __syncthreads();
+  if (tid < CS) cm[tid] = li[tid] - bcs[tid];
+  __syncthreads();
+  if (tid < 32) warp_scan64<true>(cm);
+  __syncthreads();
+  if (tid < CS) {
+    const float inter_log = m_prev + bcs[tid];
+    const float st = fmaxf(bcs[tid] + cm[tid], inter_log);
+    stab[tid] = st;
+    av[tid] = expf(inter_log - st) * QS;
+  }
+  tile::cp_async_wait_all();
+  __syncthreads();
+  // one headwise product at a time, each rounded into the tile its weight
+  // leaves (k, then v over x_mlstm's weight, then q and q_inter)
+  auto put = [&](const Acc& a, bf16* dst, const float* rs) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * hh, t = Acc::row(r), c = Acc::col(jj, r);
+        const float sc = rs ? rs[t] : 1.f;
+        *reinterpret_cast<__nv_bfloat162*>(dst + t * LDH + c) =
+            __floats2bfloat162_rn(a.c[jj][r] * sc, a.c[jj][r + 1] * sc);
+      }
+  };
+  {
+    Acc a;
+    headwise16(a, cv, qi, p.bk + n * DH);
+    __syncthreads();
+    put(a, qi, nullptr);  // R(k), for now in wk's tile
+    headwise16(a, k16, v16, p.bv + n * DH);
+    __syncthreads();
+    put(a, v16, nullptr);
+    headwise16(a, cv, q16, p.bq + n * DH);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pr[r >> 1] += a.c[jj][r] * nv[Acc::col(jj, r)];
+    row_sums(pr, qpart);
+    __syncthreads();  // every warp is done with x_mlstm and wq
+    put(a, q16, nullptr);
+    put(a, k16, av);  // R(q_inter) over x_mlstm's tile
+  }
+  __syncthreads();
+  bf16* kk = qi;  // R(k)
+  qi = k16;       // R(q_inter)
+
+  {
+    Acc s;
+    s.zero();
+    tile::mma16<false, true, tile::OUT_LOWER>(s, q16, kk);
+    float pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = Acc::row(r), c = Acc::col(jj, r);
+        const float e = c <= t ? s.c[jj][r] * QS * expf(li[c] - bcs[c] + bcs[t] - stab[t]) : 0.f;
+        s.c[jj][r] = e;
+        pr[r >> 1] += e;
+      }
+    row_sums(pr, rpart);
+    tile::store16(s, E16);
+  }
+  __syncthreads();  // every warp is done with R(q) and R(k): z lands over them
+  tile::load_async<CS, DH>(zs, LDS, p.z + hoff, p.INNER, nrows, DH);
+  tile::cp_async_commit();
+  if (tid < CS)
+    den[tid] = fmaxf(fabsf(rpart[tid] + rpart[CS + tid] +
+                           av[tid] * (qpart[tid] + qpart[CS + tid])),
+                     expf(-stab[tid])) +
+               p.eps;
+  __syncthreads();
+
+  Acc hv, inter;
+  hv.zero();
+  inter.zero();
+  tile::mma16<false, false, tile::K_LE_M>(hv, E16, v16);
+  tile::mma16<false, false>(inter, qi, C16);
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) hv.c[jj][r] = (hv.c[jj][r] + inter.c[jj][r]) / den[Acc::row(r)];
+  if (p.h16 != nullptr) {  // the backward's bf16 h
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * hh, t = Acc::row(r);
+        if (s0 + t < p.S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              p.h16 + ((long)b * p.S + s0 + t) * p.INNER + n * DH + Acc::col(jj, r)) =
+              __floats2bfloat162_rn(hv.c[jj][r], hv.c[jj][r + 1]);
+      }
+  }
+
+  // the tail's elementwise part for this head, once per token
+  __syncthreads();  // every warp is done with R(C) and R(E): h takes their place
+  tile::store(hv, hs, LDS);
+  tile::cp_async_wait_all();
+  __syncthreads();
+  for (int t = warp; t < CS; t += NW) {
+    if (s0 + t >= p.S) break;  // warp-uniform
+    const float* hr = hs + t * LDS;
+    const float a0 = hr[lane], a1 = hr[lane + 32];
+    const float mu = warp_sum(a0 + a1) / DH;
+    const float d0 = a0 - mu, d1 = a1 - mu;
+    const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + p.norm_eps);
+    const long row = ((long)b * p.S + s0 + t) * p.INNER + n * DH;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int cl = lane + 32 * half, c = n * DH + cl;
+      const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
+      const float cvv = __bfloat162float(cv[t * LDH + cl]);
+      p.y16[row + cl] = __float2bfloat16_rn((hn + p.skip[c] * cvv) * silu(zs[t * LDS + cl]));
+    }
+  }
+}
+
+// 6. Epilogue for 64 tokens x 64 columns of DIM: R(y) times proj_down's
+// slice over the heads in double-buffered 64-channel slices, then bias and
+// the bf16 residual (copied in with the first slice); out in bf16.
+__global__ void __launch_bounds__(NT, 3) vil16_epilogue(Params p) {
+  extern __shared__ __align__(16) bf16 sh[];  // per stage: y, then proj_down's rows; x
+  bf16* xs = sh + 4 * HT;
+  const int DIM = p.DIM, INNER = p.INNER;
+  const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
+  const int c0 = blockIdx.y * tile::T;
+  const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
+  const int ncols = DIM - c0 < tile::T ? DIM - c0 : tile::T;
+  auto stage = [&](int buf, int n) {
+    bf16* yb = sh + buf * 2 * HT;
+    tile::load16(yb, p.y16 + tok0 * INNER + n * DH, INNER, nrows, DH);
+    tile::load16(yb + HT, p.wd16 + (long)c0 * INNER + n * DH, INNER, ncols, DH);
+    tile::cp_async_commit();
+  };
+
+  Acc acc;
+  acc.zero();
+  tile::load16(xs, p.x16 + tok0 * DIM + c0, DIM, nrows, ncols);
+  stage(0, 0);
+  for (int n = 0; n < p.NH; ++n) {
+    const int buf = n & 1;
+    if (n + 1 < p.NH) {
+      stage(buf ^ 1, n + 1);
+      tile::cp_async_wait_one();
+    } else {
+      tile::cp_async_wait_all();
+    }
+    __syncthreads();
+    const bf16* yb = sh + buf * 2 * HT;
+    tile::mma16<false, true>(acc, yb, yb + HT);
+    __syncthreads();
+  }
+  const bool pairs = (DIM & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 2 * hh, t = Acc::row(r), c = c0 + Acc::col(j, r);
+      const long tk = tok0 + t;
+      if (tk >= ntok || c >= DIM) continue;
+      const long o = tk * DIM + c;
+      const bf16* xr = xs + t * LDH + (c - c0);
+      const float v0 = acc.c[j][r] + p.bd[c] + __bfloat162float(xr[0]);
+      if (pairs) {  // c is even and DIM too: c + 1 < DIM
+        const float v1 = acc.c[j][r + 1] + p.bd[c + 1] + __bfloat162float(xr[1]);
+        *reinterpret_cast<__nv_bfloat162*>(p.out16 + o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        p.out16[o] = __float2bfloat16_rn(v0);
+        if (c + 1 < DIM)
+          p.out16[o + 1] =
+              __float2bfloat16_rn(acc.c[j][r + 1] + p.bd[c + 1] + __bfloat162float(xr[1]));
       }
     }
 }
 
 // Which function of the family a call computes.
-enum Kind { LAYER = 0, CELL = 1, BLOCK = 2, CONV = 3 };
+enum Kind { LAYER = 0, CELL = 1, BLOCK = 2, CONV = 3, LAYER_BF16 = 4 };
 
 // The workspace's arrays, in this order, with their sizes in floats; the
 // backward reads q/k/v/h, the gates and the carried-in states from it. z
-// and x_mlstm exist for the layer and the conv-fused layer only (the others
-// stream them in or have none), the cell writes h to its output instead,
-// conv_act exists for the conv-fused layer only, every member has the
-// gate partials, and every member with the tail its A operand y.
+// and x_mlstm exist for the layers only (the others stream them in or have
+// none), the cell writes h to its output instead, conv_act exists for the
+// conv-fused layer only, every member has the gate partials, and every
+// member with the tail its A operand y. The bf16 layer has no q, k, v or h
+// (its stages recompute q, k, v; under grad the four go to the saved copy),
+// and its x_mlstm, y and carried C are bf16, half their slots.
 enum WsArray { WQ, WK, WV, WZ, WH, WIG, WFG, WKV, WCPREV, WKSUM, WNPREV, WBTOT, WMLOC, WMPREV,
                WXM, WCONV, WGP, WY, kNumWs };
 
 void workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
   const long NS = (S + CS - 1) / CS;
   const long tok = (long)B * S, rows = (long)B * NH;
-  const bool has_head = kind == LAYER || kind == CONV;
-  const long size[kNumWs] = {tok * INNER, tok * INNER, tok * INNER,
-                             has_head ? tok * INNER : 0, kind == CELL ? 0 : tok * INNER,
-                             rows * S, rows * S, rows * NS * DH * DH, rows * NS * DH * DH,
+  const bool bf = kind == LAYER_BF16;
+  const bool has_head = kind == LAYER || kind == CONV || bf;
+  const long act = bf ? 0 : tok * INNER;          // q, k, v (and h)
+  const long half = bf ? 2 : 1;                   // bf16 arrays take half a slot
+  const long size[kNumWs] = {act, act, act, has_head ? tok * INNER : 0, kind == CELL ? 0 : act,
+                             rows * S, rows * S, rows * NS * DH * DH, rows * NS * DH * DH / half,
                              rows * NS * DH, rows * NS * DH, rows * NS, rows * NS, rows * NS,
-                             has_head ? tok * INNER : 0, kind == CONV ? tok * INNER : 0,
-                             2 * NH * rows * S, kind == CELL ? 0 : tok * INNER};
-  off[0] = 0;
-  for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + size[i];
+                             has_head ? tok * INNER / half : 0,
+                             kind == CONV ? tok * INNER : 0, 2 * NH * rows * S,
+                             kind == CELL ? 0 : tok * INNER / half};
+  off[0] = 0;  // the bf16 layer's arrays start 16-byte aligned, for its 16-byte copies
+  for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + (bf ? (size[i] + 3) / 4 * 4 : size[i]);
 }
 
 constexpr size_t kHeadSmem = sizeof(float) * 4 * TF;
@@ -823,56 +1453,84 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The six stages of one arithmetic (BF: the bf16 layer).
-template <bool BF>
+// The six stages of the fp32 family.
 cudaError_t launch_stages(Params& p, int kind, cudaStream_t st) {
   const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
   const bool has_head = kind == LAYER || kind == CONV;
   cudaError_t err;
-  const auto prologue =
-      kind == CONV ? vil_cell_prologue<true, false> : vil_cell_prologue<false, BF>;
-  if ((err = allow_smem(vil_head<BF>, kHeadSmem)) != cudaSuccess) return err;
+  const auto prologue = kind == CONV ? vil_cell_prologue<true> : vil_cell_prologue<false>;
+  if ((err = allow_smem(vil_head, kHeadSmem)) != cudaSuccess) return err;
   if ((err = allow_smem(prologue, kPrologueSmem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil_chunk_output<BF>, kOutputSmem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil_epilogue<BF>, kEpilogueSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil_chunk_output, kOutputSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil_epilogue, kEpilogueSmem)) != cudaSuccess) return err;
 
   const unsigned tok_tiles = (unsigned)((tok + TOK - 1) / TOK);
   if (has_head) {
-    vil_head<BF><<<dim3(tok_tiles, 2 * p.INNER / tile::T), NT, kHeadSmem, st>>>(p);
+    vil_head<<<dim3(tok_tiles, 2 * p.INNER / tile::T), NT, kHeadSmem, st>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   prologue<<<dim3(tok_tiles, p.NH), NT, kPrologueSmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_chunk_summary<BF><<<dim3(p.NS, rows), NT, 0, st>>>(p);
+  vil_chunk_summary<<<dim3(p.NS, rows), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (BF && p.kv32) {  // the same scan over the fp32 summaries, into cprev32
-    Params p2 = p;
-    p2.kv = p.kv32;
-    p2.cprev = p.cprev32;
-    p2.ksum = p.ksum32;
-    p2.nprev = p.nprev32;
-    vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  vil_chunk_output<BF><<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
+  vil_chunk_output<<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (kind == CELL) return cudaSuccess;
-  vil_epilogue<BF><<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogueSmem, st>>>(p);
+  vil_epilogue<<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogueSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
+constexpr size_t kHead16Smem = sizeof(bf16) * 2 * (HG + 1) * HT;
+constexpr size_t kPrologue16Smem = sizeof(bf16) * 8 * HT;
+constexpr size_t kSummary16Smem = sizeof(bf16) * 5 * HT;
+constexpr size_t kOutput16Smem = sizeof(bf16) * 7 * HT + sizeof(float) * (DH + 10 * CS);
+constexpr size_t kEpilogue16Smem = sizeof(bf16) * 5 * HT;
+
+// The seven launches of the bf16 layer.
+cudaError_t launch16(Params& p, cudaStream_t st) {
+  const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
+  cudaError_t err;
+  if ((err = allow_smem(vil16_head, kHead16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_prologue, kPrologue16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_chunk_summary, kSummary16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_chunk_output, kOutput16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_epilogue, kEpilogue16Smem)) != cudaSuccess) return err;
+
+  const long nw = 2L * p.INNER * p.DIM;  // the largest weight
+  vil16_prep<<<(unsigned)((nw + 4 * NT - 1) / (4 * NT)), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const unsigned tok_tiles = (unsigned)((tok + TOK - 1) / TOK);
+  vil16_head<<<dim3(tok_tiles, (2 * p.NH + HG - 1) / HG), NT, kHead16Smem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil16_prologue<<<dim3(tok_tiles, p.NH), NT, kPrologue16Smem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil16_chunk_summary<<<dim3(p.NS, rows), NT, kSummary16Smem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil16_state_scan<<<dim3(rows, DH * DH / (2 * NT), p.kv32 ? 2 : 1), NT, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil16_chunk_output<<<dim3(p.NS, rows), NT, kOutput16Smem, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  vil16_epilogue<<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogue16Smem, st>>>(
+      p);
   return cudaGetLastError();
 }
 
 // Points p at the workspace and launches the stages of `kind` on the stream;
 // p holds the inputs, the sizes and (for the cell) h already. `bf`: the
-// bf16 layer (kind LAYER only). Returns 0 or the CUDA error code of the
-// first failed step.
+// bf16 layer (kind LAYER only), whose bf16 arrays share the fp32 layout's
+// slots: x_mlstm, y and the carried C each take the first half of their
+// fp32 array (q, k, v and h have no slot: the stages recompute q, k, v,
+// and under grad the four go to the saved copy). Returns 0 or the CUDA
+// error code of the first failed step.
 int run(Params& p, float* ws, int kind, void* stream, bool bf = false) {
   if (p.INNER != p.NH * DH || p.B <= 0 || p.S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf && kind != LAYER) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.NS = (p.S + CS - 1) / CS;
   long off[kNumWs + 1];
-  workspace_layout(kind, p.B, p.S, p.INNER, p.NH, off);
+  workspace_layout(bf ? LAYER_BF16 : kind, p.B, p.S, p.INNER, p.NH, off);
   p.q = ws + off[WQ]; p.k = ws + off[WK]; p.v = ws + off[WV]; p.z = ws + off[WZ];
   if (kind != CELL) p.h = ws + off[WH];
   p.ig = ws + off[WIG]; p.fg = ws + off[WFG]; p.kv = ws + off[WKV];
@@ -880,6 +1538,18 @@ int run(Params& p, float* ws, int kind, void* stream, bool bf = false) {
   p.btot = ws + off[WBTOT]; p.mloc = ws + off[WMLOC]; p.mprev = ws + off[WMPREV];
   p.gp = ws + off[WGP];
   p.y = kind == CELL ? nullptr : ws + off[WY];
+  if (bf) {
+    const long plane = (long)p.B * p.S * p.INNER;  // one array of the saved copy
+    auto half = [&](int i) { return reinterpret_cast<bf16*>(ws + off[i]); };
+    p.xm16 = half(WXM);
+    p.y16 = half(WY);
+    p.c16 = half(WCPREV);
+    p.q16 = p.sv;
+    p.k16 = p.sv ? p.sv + plane : nullptr;
+    p.v16 = p.sv ? p.sv + 2 * plane : nullptr;
+    p.h16 = p.sv ? p.sv + 3 * plane : nullptr;
+    return static_cast<int>(launch16(p, st));
+  }
   const bool has_head = kind == LAYER || kind == CONV;
   if (has_head) {
     p.zr = p.z;
@@ -893,10 +1563,7 @@ int run(Params& p, float* ws, int kind, void* stream, bool bf = false) {
     p.convw = ws + off[WCONV];
     p.conv = p.convw;
   }
-
-  if (bf && kind != LAYER) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(bf ? launch_stages<true>(p, kind, st)
-                             : launch_stages<false>(p, kind, st));
+  return static_cast<int>(launch_stages(p, kind, st));
 }
 
 // The cell's arguments, shared by the four entries.
@@ -926,8 +1593,8 @@ extern "C" {
 // ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev, xm, conv, gp, y into
 // off[0..17] and its total size into off[18]; the wrapper allocates off[18]
 // floats. `kind`: 0 the layer, 1 the cell (no z, no h, no y), 2 the block
-// (no z), 3 the conv-fused layer (the only one with conv); z and xm exist
-// for 0 and 3.
+// (no z), 3 the conv-fused layer (the only one with conv), 4 the bf16 layer
+// (no q, k, v, h; xm, y and cprev in bf16); z and xm exist for 0, 3 and 4.
 void vil_workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
   workspace_layout(kind, B, S, INNER, NH, off);
 }
@@ -956,20 +1623,25 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
   return run(p, ws, LAYER, stream);
 }
 
+// The bf16 elements of the weight buffer of vil_layer_fwd_bf16.
+long vil16_weight_halves(int DIM, int INNER, int NH) {
+  return 3L * INNER * DIM + 3L * NH * DH * DH + 6L * NH * INNER;
+}
+
 // K3 in bf16: x and conv_act (B, S, DIM) / (B, S, INNER) in bf16, the
-// weights fp32 (rounded to bf16 at use), out (B, S, DIM) in bf16. sv, when
-// not null, receives (4, B, S, INNER) bf16: q, k, v (unscaled) and h, the
-// backward's activations; then states32 (fp32: 2 B*NH*NS*64*64 + 2
-// B*NH*NS*64 floats) receives the backward's chunk summaries and carried C,
-// then its k sums and carried n (null when sv is). The workspace is the
-// fp32 layer's.
+// weights fp32 (rounded to bf16 once, into w16: vil16_weight_halves(DIM,
+// INNER, NH) bf16 values), out (B, S, DIM) in bf16. sv, when not null,
+// receives (4, B, S, INNER) bf16: q, k, v (unscaled) and h, the backward's
+// activations; then states32 (fp32: 2 B*NH*NS*64*64 + 2 B*NH*NS*64 floats)
+// receives the backward's chunk summaries and carried C, then its k sums
+// and carried n (null when sv is). The workspace is the fp32 layer's.
 int vil_layer_fwd_bf16(const bf16* x, const bf16* conv, const float* nrm, const float* wu,
                        const float* bu, const float* wq, const float* wk, const float* wv,
                        const float* bq, const float* bk, const float* bv, const float* wgi,
                        const float* bgi, const float* wgf, const float* bgf, const float* nsc,
                        const float* nbi, const float* skip, const float* wd, const float* bd,
-                       bf16* out, float* ws, bf16* sv, float* states32, int B, int S, int DIM,
-                       int INNER, int NH, int igate_exp, float eps, float norm_eps,
+                       bf16* out, float* ws, bf16* w16, bf16* sv, float* states32, int B, int S,
+                       int DIM, int INNER, int NH, int igate_exp, float eps, float norm_eps,
                        float rms_eps, void* stream) {
   Params p = {};
   set_cell(p, nullptr, wq, wk, wv, bq, bk, bv, wgi, bgi, wgf, bgf, B, S, INNER, NH, igate_exp,
@@ -977,6 +1649,12 @@ int vil_layer_fwd_bf16(const bf16* x, const bf16* conv, const float* nrm, const 
   set_tail(p, nsc, nbi, skip, wd, bd, nullptr, DIM, norm_eps);
   p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
   p.x16 = x; p.conv16 = conv; p.out16 = out; p.sv = sv;
+  p.wu16 = w16;
+  p.wq16 = p.wu16 + 2L * INNER * DIM;
+  p.wk16 = p.wq16 + (long)NH * DH * DH;
+  p.wv16 = p.wk16 + (long)NH * DH * DH;
+  p.wg16 = p.wv16 + (long)NH * DH * DH;
+  p.wd16 = p.wg16 + 6L * NH * INNER;
   if (states32) {
     const long rows_ns = (long)B * NH * ((S + CS - 1) / CS);
     p.kv32 = states32;

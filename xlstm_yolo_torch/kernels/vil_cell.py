@@ -48,12 +48,14 @@ from .mlstm_bwd import (KERNEL_CS, KERNEL_DH, CarryStates, _natural,
 from .mlstm_native import mlstm_chunkwise, mm_f32, mm_round
 
 N_WS = 18  # arrays in the kernels' workspace (vil_workspace_layout)
-LAYER, CELL, BLOCK, CONV = 0, 1, 2, 3  # the family's members, as csrc/vil_layer.cu numbers them
+# the family's members, as csrc/vil_layer.cu numbers them, and the layer's bf16 entry's workspace
+LAYER, CELL, BLOCK, CONV, LAYER_BF16 = 0, 1, 2, 3, 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = CudaLibrary("vil_layer.cu", {
     "vil_layer_fwd_f32": (_I, [_P] * 22 + [_I] * 6 + [_F] * 3 + [_P]),
-    "vil_layer_fwd_bf16": (_I, [_P] * 24 + [_I] * 6 + [_F] * 3 + [_P]),
+    "vil_layer_fwd_bf16": (_I, [_P] * 25 + [_I] * 6 + [_F] * 3 + [_P]),
+    "vil16_weight_halves": (ctypes.c_long, [_I] * 3),
     "vil_cell_fwd_f32": (_I, [_P] * 14 + [_I] * 5 + [_F] + [_P]),
     "vil_block_fwd_f32": (_I, [_P] * 21 + [_I] * 6 + [_F] * 2 + [_P]),
     "vil_layer_conv_fwd_f32": (_I, [_P] * 23 + [_I] * 8 + [_F] * 3 + [_P]),
@@ -225,12 +227,21 @@ class Workspace:
         ns, dh, tok = -(-S // KERNEL_CS), KERNEL_DH, (B, S, INNER)
         # workspace order: q, k, v, z, h, ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev,
         # xm, conv, gp, y
-        acts = (self.view(0, *tok), self.view(1, *tok), self.view(2, *tok),
-                self.view(5, B, nh, S), self.view(6, B, nh, S))
+        acts = (self.view(0, *tok), self.view(1, *tok), self.view(2, *tok), *self.gate_preacts())
         carry = CarryStates(self.view(8, B * nh, ns, dh, dh), self.view(10, B * nh, ns, dh),
-                            self.view(13, B * nh, ns), self.view(11, B * nh, ns),
-                            self.view(12, B * nh, ns))
+                            *self.carry_scalars())
         return acts, carry
+
+    def gate_preacts(self):
+        """(i_pre, f_pre), (B, NH, S) each."""
+        B, S, _, nh = self.shape
+        return self.view(5, B, nh, S), self.view(6, B, nh, S)
+
+    def carry_scalars(self):
+        """(m, btot, mloc) of the carry states, (B*NH, NS) each."""
+        B, S, _, nh = self.shape
+        ns = -(-S // KERNEL_CS)
+        return self.view(13, B * nh, ns), self.view(11, B * nh, ns), self.view(12, B * nh, ns)
 
     def h(self):
         B, S, INNER, _ = self.shape

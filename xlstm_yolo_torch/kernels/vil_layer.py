@@ -35,11 +35,11 @@ from __future__ import annotations
 import torch
 
 from ._build import check_tensor
-from .mlstm_bwd import KERNEL_DH, mlstm_chunkwise_bwd_plain
+from .mlstm_bwd import KERNEL_CS, KERNEL_DH, CarryStates, mlstm_chunkwise_bwd_plain
 from .mlstm_native import mm_f32, mm_round
 from .vil_block import N_CELL, _block_plain, block_bwd, tail_kernel_args, tail_plain
-from .vil_cell import (LAYER, Cfg, Member, Workspace, _cell_plain, call_member, cell_kernel_args,
-                       check_call, run_kernel)
+from .vil_cell import (LAYER, LAYER_BF16, Cfg, Member, Workspace, _cell_plain, call_member,
+                       cell_kernel_args, check_call, run_kernel)
 
 
 def _norm(x, rms_scale, rms_eps):
@@ -167,7 +167,8 @@ def _launch(args, cfg: Cfg, save: bool = True):
     backward replays; the forward's own state sums bf16-operand summaries
     of the fp32 ones); the weights go in as
     fp32 (bf16 parameters, as serving casts them, are widened: the kernel
-    rounds each one to bf16 where the TPU kernel's arithmetic does)."""
+    rounds each one to bf16 where the TPU kernel's arithmetic does, the
+    products' weights once per call into a bf16 buffer of its own)."""
     x, conv_act, rms_scale, wu, bu = args[:5]
     B, S, DIM = x.shape
     INNER = conv_act.shape[-1]
@@ -182,30 +183,34 @@ def _launch(args, cfg: Cfg, save: bool = True):
          *cell_kernel_args("vil_layer_fwd", conv_act, *w[3:3 + N_CELL], nh),
          *tail_kernel_args("vil_layer_fwd", conv_act, *w[3 + N_CELL:], DIM)]
     out = torch.empty((B, S, DIM), device=dev, dtype=ad)
-    ws = Workspace(lib, LAYER, B, S, INNER, nh, dev)
     sizes = (B, S, DIM, INNER, nh, int(cfg.igate_act == "exp"))
     floats = (cfg.eps, cfg.norm_eps, cfg.rms_eps)
-    cell_acts, carry = ws.cell_acts()
     if not bf:
+        ws = Workspace(lib, LAYER, B, S, INNER, nh, dev)
+        cell_acts, carry = ws.cell_acts()
         run_kernel("vil_layer_fwd", lib, "vil_layer_fwd_f32", [*t, out, ws.buf], sizes, floats,
                    dev)
         vil_layer_fwd.launches += 1
         return out, (ws.h(), *cell_acts), carry
+    ws = Workspace(lib, LAYER_BF16, B, S, INNER, nh, dev)
     saved = states32 = None
+    rows, ns = B * nh, -(-S // KERNEL_CS)
     if save:  # the backward's bf16 activations and its fp32-summary carried C
         saved = torch.empty((4, B, S, INNER), device=dev, dtype=ad)
-        rows_ns = carry.c.shape[0] * carry.c.shape[1]
-        states32 = torch.empty(2 * rows_ns * (KERNEL_DH + 1) * KERNEL_DH, device=dev,
+        states32 = torch.empty(2 * rows * ns * (KERNEL_DH + 1) * KERNEL_DH, device=dev,
                                dtype=torch.float32)
-    run_kernel("vil_layer_fwd", lib, "vil_layer_fwd_bf16", [*t, out, ws.buf, saved, states32],
-               sizes, floats, dev)
+    w16 = torch.empty(lib.vil16_weight_halves(DIM, INNER, nh), device=dev, dtype=ad)
+    run_kernel("vil_layer_fwd", lib, "vil_layer_fwd_bf16",
+               [*t, out, ws.buf, w16, saved, states32], sizes, floats, dev)
     vil_layer_fwd.launches_bf16 += 1
     if not save:
-        return out, None, carry
-    c_sz, n_sz = carry.c.numel(), carry.n.numel()
-    return out, (saved[3], *saved[:3], *cell_acts[3:]), carry._replace(
-        c=states32[c_sz:2 * c_sz].view(carry.c.shape),
-        n=states32[2 * c_sz + n_sz:2 * c_sz + 2 * n_sz].view(carry.n.shape))
+        return out, None, None
+    # the carried C and n the backward reads: states32's second and fourth arrays
+    c_sz, n_sz = rows * ns * KERNEL_DH * KERNEL_DH, rows * ns * KERNEL_DH
+    carry = CarryStates(states32[c_sz:2 * c_sz].view(rows, ns, KERNEL_DH, KERNEL_DH),
+                        states32[2 * c_sz + n_sz:].view(rows, ns, KERNEL_DH),
+                        *ws.carry_scalars())
+    return out, (saved[3], *saved[:3], *ws.gate_preacts()), carry
 
 
 _LAYER = Member("vil_layer_fwd", _layer_plain, _launch, layer_bwd)
