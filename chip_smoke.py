@@ -210,22 +210,28 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def stage_device_ms(fn, iters: int = 10) -> dict:
     """Device time per call of every kernel ``fn`` launches, by its name
-    (parameter list dropped), from torch.profiler."""
+    (parameter list dropped), from torch.profiler: each kernel's largest
+    reading over three sessions, since a session now and then loses events
+    and reads low."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
-        if us:
-            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-            out[name] = out.get(name, 0.0) + us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+            if us:
+                name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+                per[name] = per.get(name, 0.0) + us / iters / 1e3
+        for name, t in per.items():
+            out[name] = max(out.get(name, 0.0), t)
     return out
 
 
@@ -534,7 +540,7 @@ def slstm_bound(B, NH, S, DH):
 
 def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
                   batch_of=lambda case: BATCH, cross=None, cmp=None, tol=TOL_REL,
-                  metric="max relative error"):
+                  metric="max relative error", emit_line=None):
     """``run`` (the kernel's wrapper) vs ``plain`` (its plain version) on
     ``make_case(B, case)`` for every case, at the main path's batch
     ``batch_of(case)`` (the arguments that are then timed) and at batch 2;
@@ -547,8 +553,10 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
     the totals over the cases for the kernels line. ``cmp`` (default
     ``compare``) measures one output against its reference -> (abs error,
     relative error, ok), ``tol`` bounds the relative error, ``metric``
-    names it in the printed lines."""
+    names it in the printed lines. ``emit_line`` (default ``emit``) takes
+    each case's line, so that a caller can add to it before it is printed."""
     cmp = compare if cmp is None else cmp
+    emit_line = emit if emit_line is None else emit_line
     worst_rel, worst_abs = 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_tc_ms": 0.0}
     bound_by, bound_tc_by, ms_by_case = set(), set(), {}
@@ -570,17 +578,19 @@ def kernel_parity(kernel, cases, make_case, run, plain, bound, extra=None,
         plain_ms = cuda_time_ms(lambda: plain(timed, case), iters=5)
         bnd = bound(timed, case)
         cross_ms = {"cross_ms": cuda_time_ms(lambda: cross(timed, case), iters=10)} if cross else {}
-        emit({"phase": "kernel_parity", "kernel": kernel, "case": case[0], **cross_ms,
-              "shape": [batch_of(case), *case[1:5]],
-              "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
-              "max_abs_err": abs_err, "maxrelerr": rel, "relerr_metric": metric, "tol": tol,
-              "ok": ok,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd.ms, "bound_by": bnd.by,
-              "bound_tc_ms": bnd.tc_ms, "bound_tc_by": bnd.tc_by,
-              **(extra(case, ms) if extra else {})})
+        line = {"phase": "kernel_parity", "kernel": kernel, "case": case[0], **cross_ms,
+                "shape": [batch_of(case), *case[1:5]],
+                "maxrelerr_by_batch": {str(b): e[1] for b, e in errs.items()},
+                "max_abs_err": abs_err, "maxrelerr": rel, "relerr_metric": metric, "tol": tol,
+                "ok": ok,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd.ms, "bound_by": bnd.by,
+                "bound_tc_ms": bnd.tc_ms, "bound_tc_by": bnd.tc_by,
+                **(extra(case, ms) if extra else {})}
         if not ok:
+            emit(line)
             raise PhaseError(f"{kernel} disagrees with its plain version at {case[0]}: "
                              f"maxrelerr {rel}")
+        emit_line(line)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
@@ -626,6 +636,7 @@ def kth_parity(device):
 
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_tc_ms": 0.0, "library_ms": 0.0}
     worst_abs = 0.0
+    lines = []
     for name, R, N, k, ties in K8_CASES:
         x = kth_rows(R, N, ties, seed=R + N, device=device)
         got, want = rowwise_kth_value(x, k), rowwise_kth_value_plain(x, k)
@@ -638,19 +649,27 @@ def kth_parity(device):
         plain_ms = cuda_time_ms(lambda: rowwise_kth_value_plain(x, k), iters=5)
         library_ms = cuda_time_ms(lambda: torch.topk(x, k).values[:, -1:], iters=20)
         bound = roofline(R * N, 4 * (R * N + R), products=False)
-        bound_ms, by = bound.ms, bound.by
-        emit({"phase": "kernel_parity", "kernel": "rowwise_kth_value", "case": name,
-              "shape": [R, N], "k": k, "exact": exact, "max_abs_err": abs_err,
-              "rows_below_k_distinct": below_k, "tol": 0.0, "ok": ok, "ms": ms,
-              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": by, "gb_per_s": 4 * R * N / ms / 1e6})
+        lines.append({"phase": "kernel_parity", "kernel": "rowwise_kth_value", "case": name,
+                      "shape": [R, N], "k": k, "exact": exact, "max_abs_err": abs_err,
+                      "rows_below_k_distinct": below_k, "tol": 0.0, "ok": ok, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound.ms,
+                      "bound_by": bound.by, "gb_per_s": 4 * R * N / ms / 1e6})
         if not ok:
+            emit(lines[-1])
             raise PhaseError(f"rowwise_kth_value differs from its plain version at {name}: "
                              f"max abs err {abs_err}")
         worst_abs = max(worst_abs, abs_err)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound.ms),
                          ("bound_tc_ms", bound.tc_ms), ("library_ms", library_ms)):
             totals[key] += val
+    # the kernel's own device time, by the profiler, after every event time above
+    # (a profiler session slows the host's launches after it)
+    for line, (name, R, N, k, ties) in zip(lines, K8_CASES):
+        x = kth_rows(R, N, ties, seed=R + N, device=device)
+        dev_ms = sum(t for n, t in stage_device_ms(lambda: rowwise_kth_value(x, k)).items()
+                     if "kth_value" in n)
+        emit({**line, "device_ms": dev_ms,
+              "bound_share": line["bound_ms"] / dev_ms if dev_ms else None})
     return {"maxrelerr": 0.0, "max_abs_err": worst_abs, **totals, "bound_by": "bytes",
             "bound_tc_by": "bytes"}
 
@@ -665,7 +684,10 @@ def phase_kernel_parity():
     seeded arguments at the language model's shapes (and K5 at head dim 64);
     K2 also at the language model's head dims 128 and 256 on K1's workspace
     (vs mlstm_chunkwise_bwd_ref), and the sLSTM backward (slstm_scan_bwd vs
-    slstm_scan_bwd_plain) on K5's workspace at K5's shapes;
+    slstm_scan_bwd_plain) on K5's workspace at K5's shapes, with its reverse
+    kernel's device time (profiler; it and K8's are taken after the event
+    times of the host-paced cases, since a profiler session slows the host's
+    launches after it);
     K4 (vil_cell_fwd vs vil_cell_plain) and K7 (vil_block_fwd vs
     vil_block_plain) on arguments
     cut from seeded layer arguments at the classifier's shape, at
@@ -774,13 +796,17 @@ def phase_kernel_parity():
         y, _, saved = slstm_launch(wx, r, b, None, return_last_state=False, save=True)
         return wx, r, b, y, saved, seeded(case[2] + B + 9)(*y.shape)
 
+    # the sLSTM backward's and K8's device times come from torch.profiler, after
+    # which the host launches more slowly: their lines are printed once every
+    # host-paced case of this phase is timed (K8's by kth_parity)
+    k5b_lines = []
     k5b = kernel_parity(
         "slstm_scan_bwd", K5_CASES, scan_bwd_case,
         lambda args, case: slstm_scan_bwd(args[1], args[3], args[4], args[5]),
         lambda args, case: slstm_scan_bwd_plain(*args[:4], args[4][:, :, :, 4:SAVED].unbind(3),
                                                 args[5]),
         lambda args, case: slstm_bwd_bound(BATCH, *case[1:]),
-        extra=lambda case, ms: {"us_per_step": ms * 1e3 / case[2]})
+        extra=lambda case, ms: {"us_per_step": ms * 1e3 / case[2]}, emit_line=k5b_lines.append)
     for case in K5_CASES:  # the state carried through the kernel: two halves are the full scan
         wx, r, b = scan_case(2, case)
         half = case[2] // 2
@@ -875,11 +901,14 @@ def phase_kernel_parity():
         batch_of=timed_batch, cross=conv_then_layer,
         extra=lambda case, ms: {"grid": list(grid(case))})
     k8 = kth_parity(dev)
+    for line, case in zip(k5b_lines, K5_CASES):  # the reverse kernel's own device time
+        args = scan_bwd_case(BATCH, case)
+        stages = stage_device_ms(lambda: slstm_scan_bwd(args[1], args[3], args[4], args[5]))
+        dev_ms = sum(t for n, t in stages.items() if "slstm_bwd" in n)
+        emit({**line, "device_ms": dev_ms, "device_us_per_step": dev_ms * 1e3 / case[2],
+              "stage_device_ms": stages})
 
-    # the bf16 entries at the ViL-YOLO-n stages (batch 8 timed, and 2): each
-    # against its plain bf16 version at the kernel's chunk (the rounding of E
-    # and of the carried C depends on the chunking), bf16 outputs held before
-    # their rounding (compare_bf16); beside each, the fp32 kernel's time
+
     def bf16_layer_case(B, case):
         a = layer_args(B, *case[1:5], seed=case[1] + B + 20, device=dev)
         return [a[0].bfloat16(), a[1].bfloat16(), *a[2:]]

@@ -454,6 +454,40 @@ def test_slstm_bwd_kernel_matches_plain(cuda_device, DH, B):
             assert _rel(g_, w) <= TOL_REL, name
 
 
+@pytest.mark.parametrize("DH,B,S", [
+    (32, 2, 1), (64, 2, 1), (128, 2, 1), (32, 3, 3), (64, 3, 5), (128, 2, 3), (32, 2, 13),
+    (64, 2, 21), (128, 3, 13), (128, 64, 40)],
+    ids=["dh32_S1", "dh64_S1", "dh128_S1", "dh32_S3", "dh64_S5", "dh128_S3", "dh32_S13",
+         "dh64_S21", "dh128_S13", "dh128_B64_waves"])
+def test_slstm_bwd_kernel_ring_edges_and_carried_state(cuda_device, DH, B, S):
+    """The reverse-time kernel where its rings are longer than S (one step,
+    fewer steps than the staged and the coefficient rings, S no multiple of
+    either) and at B 64, DH 128 (512 CTAs of two-CTA clusters: several
+    waves), from the zero state and from a carried-in one with the gradient
+    of the returned last state and of the initial one, against
+    ``slstm_scan_bwd_plain``."""
+    wx, r, b = _slstm_args(B, S, 2, DH, cuda_device, seed=B + S + DH)
+    g = torch.Generator(cuda_device).manual_seed(S + DH)
+    dy = torch.randn(B, S, 2, DH, device=cuda_device, generator=g)
+    dlast = torch.randn(4, B, 2, DH, device=cuda_device, generator=g)
+    _, mid = slstm_scan(wx[:, :2], r, b, return_last_state=True)
+    for state, dl in ((None, None), (mid, dlast)):
+        packed = None if state is None else torch.stack(state).contiguous()
+        y, _, saved = slstm_launch(wx, r, b, packed, return_last_state=False, save=True)
+        before = slstm_scan_bwd.launches
+        got = slstm_scan_bwd(r, y, saved, dy, packed, dl, with_state=True)
+        torch.cuda.synchronize()
+        assert slstm_scan_bwd.launches == before + 1
+        want_y, states = slstm_scan_states(wx, r, b, initial_state=state)
+        want = slstm_scan_bwd_plain(wx, r, b, want_y, states, dy, initial_state=state,
+                                    dlast=None if dl is None else tuple(dl), with_state=True)
+        for name, g_, w in zip(("dwx", "dr", "db", "y0", "c0", "n0", "m0"),
+                               (*got[:3], *got[3]), (*want[:3], *want[3])):
+            assert g_.shape == w.shape and bool(torch.isfinite(g_).all()), name
+            # one step from the zero state: y_{-1} = 0, so dr is exactly 0
+            assert _rel(g_, w) <= TOL_REL if w.abs().max() > 0 else not g_.any(), name
+
+
 @pytest.mark.parametrize("DH", [32, 128])
 def test_slstm_function_grads_match_autograd(cuda_device, DH):
     """``slstm_scan_fwd`` under grad (``_SlstmFunction``: K5 with its
@@ -727,7 +761,7 @@ def _kth_rows(R, N, seed, device):
     x = rng.standard_normal((R, N)).astype(np.float32)
     x[::2] = np.where(rng.random((len(x[::2]), N)) < 0.97, 0.0, np.abs(x[::2]))
     top = np.argsort(-x[:2], axis=1)
-    for r in range(2):
+    for r in range(min(2, R)):
         x[r, top[r, 1:4]] = x[r, top[r, 0]]  # the four largest tie
         x[r, top[r, 6]] = x[r, top[r, 5]]
     x[-1] = rng.integers(0, 4, N).astype(np.float32)
@@ -750,6 +784,38 @@ def test_rowwise_kth_value_kernel_is_exact(cuda_device, R, N, k):
     assert torch.equal(got, want)
     if k > 4:
         assert float(got[-1]) == float(np.float32(NEG_INF))
+
+
+@pytest.mark.parametrize("R,N,k,rows", [
+    (1, 8400, 3, "assigner"), (1000, 8400, 10, "assigner"), (300, 300, 16, "assigner"),
+    (256, 8401, 10, "assigner"), (256, 8400, 10, "unaligned"), (1000, 8401, 3, "unaligned"),
+    (256, 8400, 10, "zeros"), (3, 8400, 1, "zeros"), (256, 8400, 10, "bf16"),
+    (1, 300, 16, "bf16")])
+def test_rowwise_kth_value_kernel_new_shapes(cuda_device, R, N, k, rows):
+    """K8 on one row and on 1000, on both sides of the R that picks its CTA
+    size (512 threads up to 512 rows, 128 above), at N 300 and a ragged N
+    8401, on rows that start one element past a 16-byte boundary (a view of
+    one flat buffer), on all-zero rows (one distinct value: -1e30 unless k
+    is 1) and on bf16 input: equal to the suppress chain bit for bit."""
+    x = _kth_rows(R, N, seed=R + N + k, device=cuda_device)
+    if rows == "unaligned":
+        flat = torch.zeros(R * N + 1, device=cuda_device)
+        flat[1:] = x.flatten()
+        x = flat[1:].view(R, N)
+        assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    elif rows == "zeros":
+        x = torch.zeros_like(x)
+    elif rows == "bf16":
+        x = x.bfloat16()
+    before = rowwise_kth_value.launches
+    got = rowwise_kth_value(x, k)
+    want = rowwise_kth_value_plain(x, k)
+    torch.cuda.synchronize()
+    assert rowwise_kth_value.launches == before + 1
+    assert got.shape == (R, 1) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    if rows == "zeros":
+        assert float(got.max()) == (0.0 if k == 1 else float(np.float32(NEG_INF)))
 
 
 def test_rowwise_kth_value_kernel_casts_and_refuses(cuda_device):

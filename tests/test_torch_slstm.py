@@ -190,3 +190,94 @@ def test_slstm_scan_bwd_plain_matches_jax_vjp_and_autograd(DH, S, carried):
         assert tuple(g.shape) == w.shape, name
         assert_close(g.numpy(), w)
         assert_close(g.numpy(), a.grad.numpy())
+
+
+def _saved(wx, r, b, y, states, init):
+    """The forward kernel's workspace (B, S, NH, SAVED, DH) from the plain
+    scan: the gate values each step used and its (c, n, m)."""
+    y0 = torch.zeros_like(y[:, 0]) if init is None else init[0]
+    y_prev = torch.cat([y0[:, None], y[:, :-1]], dim=1)
+    i, f, z, o = (wx + torch.einsum("bsnd,ndge->bsnge", y_prev, r) + b).unbind(3)
+    return torch.stack([i, torch.nn.functional.logsigmoid(f), torch.tanh(z), torch.sigmoid(o),
+                        *states], dim=3)
+
+
+@pytest.mark.parametrize("DH,S,carried,with_dlast", [
+    (8, 1, False, False), (8, 13, False, False), (32, 1, False, False), (32, 13, False, False),
+    (8, 13, True, False), (8, 13, True, True), (32, 1, True, True), (32, 13, False, True)],
+    ids=["dh8_S1", "dh8_ragged", "dh32_S1", "dh32_ragged", "dh8_carried", "dh8_carried_dlast",
+         "dh32_S1_carried_dlast", "dh32_dlast"])
+def test_slstm_bwd_coefficient_form_matches_jax_vjp_plain_and_autograd(DH, S, carried,
+                                                                       with_dlast):
+    """The reverse recurrence in the kernel's coefficient form
+    (``slstm_bwd_coefficients`` on the forward's workspace, then
+    ``slstm_bwd_walk_plain``; and ``slstm_scan_bwd`` on CPU tensors, which
+    adds dr from views of y and dwx and db from the chains' sums) against
+    ``slstm_scan_bwd_plain``, ``jax.vjp`` of the JAX scan and autograd of the
+    port's scan: from the zero state and a carried-in one, and with the
+    gradient of the returned last state, whose dm is no dc c + dn n, so the
+    part that follows the stabilizer's max chain (delta) is exercised."""
+    B, NH = 2, 3
+    wx, r, b = _inputs(20 + DH + S, B=B, S=S, NH=NH, DH=DH)
+    rng = np.random.default_rng(DH + S + 1)
+    r = (rng.normal(size=r.shape) * 0.5 * DH ** -0.5).astype(np.float32)
+    dy = rng.normal(size=(B, S, NH, DH)).astype(np.float32)
+    init = None
+    if carried:
+        y0, c0, n0, m0 = (rng.normal(size=(B, NH, DH)).astype(np.float32) for _ in range(4))
+        init = (y0, c0, np.abs(n0) + 0.5, m0)
+    dlast = rng.normal(size=(4, B, NH, DH)).astype(np.float32) if with_dlast else \
+        np.zeros((4, B, NH, DH), np.float32)
+
+    primals = tuple(map(jnp.asarray, (wx, r, b) + (init or ())))
+    f = lambda wx_, r_, b_, *s_: J.slstm_scan(wx_, r_, b_, initial_state=s_ or None,
+                                               return_last_state=True)
+    _, vjp = jax.vjp(f, *primals)
+    want = vjp((jnp.asarray(dy), tuple(map(jnp.asarray, dlast))))
+
+    t = torch.from_numpy
+    before = T.slstm_scan_bwd.launches
+    tinit = None if init is None else tuple(map(t, init))
+    leaves = [t(a).requires_grad_() for a in (wx, r, b) + (init or ())]
+    y_, last = T.slstm_scan(*leaves[:3], initial_state=tuple(leaves[3:]) or None,
+                            return_last_state=True)
+    ((y_ * t(dy)).sum() + sum((s * d).sum() for s, d in zip(last, t(dlast)))).backward()
+    with torch.no_grad():
+        y, states = T.slstm_scan_states(t(wx), t(r), t(b), initial_state=tinit)
+        saved = _saved(t(wx), t(r), t(b), y, states, tinit)
+        packed = None if tinit is None else torch.stack(tinit)
+        tdlast = t(dlast) if with_dlast else None
+        got = T.slstm_scan_bwd(t(r), y, saved, t(dy), packed, tdlast, with_state=carried)
+        plain = T.slstm_scan_bwd_plain(t(wx), t(r), t(b), y, states, t(dy), initial_state=tinit,
+                                       dlast=None if tdlast is None else tuple(tdlast),
+                                       with_state=carried)
+        coef = T.slstm_bwd_coefficients(saved, packed)
+        draw, _ = T.slstm_bwd_walk_plain(coef, t(r), t(dy), tdlast,
+                                         (states[0][:, -1], states[1][:, -1]))
+    assert T.slstm_scan_bwd.launches == before  # CPU tensors launch nothing
+    assert_close(draw.numpy(), got[0].numpy(), tol=1e-6)
+    names = ("wx", "r", "b", "y0", "c0", "n0", "m0")
+    for name, g, p, w, leaf in zip(names, (*got[:3], *(got[3] if carried else ())),
+                                   (*plain[:3], *(plain[3] if carried else ())), want, leaves):
+        assert tuple(g.shape) == w.shape, name
+        assert_close(g.numpy(), w)
+        assert_close(g.numpy(), p.numpy())
+        assert_close(g.numpy(), leaf.grad.numpy())
+
+
+@pytest.mark.parametrize("B,S,carried", [(3, 13, False), (2, 13, True), (2, 300, False),
+                                         (3, 200, True), (1, 1, False)],
+                         ids=["short", "short_carried", "long", "long_carried", "one"])
+def test_slstm_dr_from_views_matches_einsum(B, S, carried):
+    """dr from views of y and dwx (a product a head over the flat (b, t)
+    rows, the batch rows' boundaries taken back) equals the einsum over
+    y_{t-1}, the previous row made with a copy, as the plain version takes
+    it."""
+    NH, DH = 2, 8
+    rng = np.random.default_rng(B * S)
+    y = torch.from_numpy(rng.normal(size=(B, S, NH, DH)).astype(np.float32))
+    dwx = torch.from_numpy(rng.normal(size=(B, S, NH, 4, DH)).astype(np.float32))
+    y0 = torch.from_numpy(rng.normal(size=(B, NH, DH)).astype(np.float32)) if carried else None
+    y_prev = torch.cat([torch.zeros_like(y[:, :1]) if y0 is None else y0[:, None], y[:, :-1]], 1)
+    want = torch.einsum("bsnd,bsnge->ndge", y_prev.double(), dwx.double())
+    assert_close(T._dr(y, dwx, y0).numpy(), want.numpy())

@@ -9,7 +9,10 @@ kth value), ties outside it, N no multiple of 128 (the TPU's lane width) or
 of 4, rows with fewer than k distinct values (-1e30), rows of the assigner's
 kind (mostly zeros, no negatives). The assigner's top-k membership, which
 takes its threshold from the same chain, is held against the JAX one. The
-kernel on the card is checked in ``test_torch_cuda.py``.
+CUDA kernel's two-level algorithm (``two_level_kth``: parts of a row, each
+keeping its k largest distinct values under a running threshold, merged by
+the suppress chain) is held to both, exactly. The kernel on the card is
+checked in ``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -121,3 +124,51 @@ def test_topk_positive_mask_matches_jax_with_ties(k):
     got = topk_positive_mask(torch.from_numpy(x), k).numpy()
     np.testing.assert_array_equal(got, np.asarray(jax_topk_mask(jnp.asarray(x), k)))
     assert got[0, 3].sum() == 0 and got[1, 4].sum() == 400
+
+
+def two_level_kth(x, k, parts):
+    """The CUDA kernel's algorithm in numpy, for x (R, N) -> (R, 1). Each of
+    ``parts`` parts of a row (a thread's share) keeps its k largest distinct
+    values, sorted, with the kth as a running threshold (-1e30 until it has
+    k): a value at or below it is dropped by one comparison, a survivor goes
+    in unless it is there already. The parts' lists are then merged by the
+    suppress chain: round i takes the largest listed value below round
+    i-1's. Returns the result and, per row, how many parts had no survivor."""
+    out, idle = [], []
+    for row in x.astype(np.float32):
+        lists, quiet = [], 0
+        for part in np.array_split(row, parts):
+            lst, thr = [], np.float32(NEG_INF)
+            for v in part:
+                if v > thr and v not in lst:
+                    lst = sorted(lst + [v], reverse=True)[:k]
+                    thr = lst[-1] if len(lst) == k else thr
+            lists += lst
+            quiet += not lst
+        cand, prev = np.asarray(lists, np.float32), np.float32(np.inf)
+        for _ in range(k):
+            below = cand[cand < prev]
+            prev = below.max() if len(below) else np.float32(NEG_INF)
+        out.append(prev)
+        idle.append(quiet)
+    return np.asarray(out, np.float32)[:, None], idle
+
+
+@pytest.mark.parametrize("R,N,k,parts", [(7, 300, 10, 4), (5, 130, 1, 3), (6, 257, 16, 8),
+                                         (4, 96, 16, 3)])
+def test_two_level_kth_matches_jax_kernel_and_chain(R, N, k, parts):
+    """Exact equality with the interpret-mode JAX kernel and the plain chain:
+    ties inside the top k and across the parts' boundaries (row 1's largest
+    value starts every part, row 3 ties the values on both sides of every
+    boundary), a part with no survivors (row 0's last part all -1e30), rows
+    of the assigner's kind, and a row with fewer than k distinct values."""
+    x = rows(R, N, seed=R + N + k, k=k)
+    starts = np.cumsum([0] + [len(p) for p in np.array_split(np.arange(N), parts)])[:-1]
+    x[1, starts] = x[1].max()
+    x[3, starts[1:] - 1] = x[3, starts[1:]] = np.float32(0.75)
+    x[0, starts[-1]:] = np.float32(NEG_INF)
+    got, idle = two_level_kth(x, k, parts)
+    assert got.shape == (R, 1) and idle[0] >= 1
+    np.testing.assert_array_equal(got, np.asarray(jax_kth(jnp.asarray(x), k, interpret=True)))
+    np.testing.assert_array_equal(got, rowwise_kth_value_plain(torch.from_numpy(x), k).numpy())
+    np.testing.assert_array_equal(got, distinct_kth(np.where(x <= NEG_INF, NEG_INF, x), k))

@@ -5,7 +5,8 @@
 # times) runs in that root, in a process of its own, and then this
 # checkout's tools/wrapper_times.py (K1 and K5 through their public wrappers
 # at shapes the smoke run does not time, K2 at head dims 128 and 256, the
-# sLSTM backward, and the bf16 entries of K3 and K2 at ViL-YOLO-n's stages at
+# sLSTM backward, the kth value beside torch.topk, and the bf16 entries of K3
+# and K2 at ViL-YOLO-n's stages at
 # batch 8 and 128 with the device time of each kernel they launch, by name,
 # so that the two checkouts compare stage by stage) on that root's package;
 # the output of both goes to $AB_OUT/ab_<turn>_<root's last name>.txt (AB_OUT

@@ -1,7 +1,10 @@
 """Summarizes the turns of ``tools/ab_kernels.sh``: for every kernel case,
 the time of each turn and the mean of the parent's and of the change's
-turns with their ratio; for the bf16 entries of the ViL layer and the
-chunkwise backward also each stage's device time, per turn. Reads the files
+turns with their ratio, and the same of the device time where a line has
+one (the wrappers' lines of ``tools/wrapper_times.py``, the sLSTM
+backward's and K8's ``kernel_parity`` lines); for the bf16 entries of the
+ViL layer and the chunkwise backward also each stage's device time, per
+turn. Reads the files
 the script wrote (``$AB_OUT/ab_<turn>_<name>.txt``); the turns whose
 directory name is ``parent`` are the parent's, the others the change's.
 
@@ -36,7 +39,10 @@ def main() -> None:
                 continue
             d = json.loads(line)
             if d.get("phase") == "kernel_parity" and "ms" in d:
-                ms[f"{d['kernel']} {d['case']} parity"][side].append(d["ms"])
+                case = f"{d['kernel']} {d['case']} parity"
+                ms[case][side].append(d["ms"])
+                if "device_ms" in d:
+                    dev[case][side].append(d["device_ms"])
             elif "stage_device_ms" in d and "case" in d:
                 case = f"{d['kernel']} {d['case']} B{d['shape'][0]}"
                 for name, t in d["stage_device_ms"].items():

@@ -12,8 +12,10 @@ batch 64. Where the checkout has them, also the backward kernels the
 language model's train step runs: the chunkwise backward (K2,
 ``mlstm_chunkwise_bwd_heads`` on K1's workspace) at head dims 256 and 128,
 with each of its three stages' device time, and the sLSTM backward
-(``slstm_scan_bwd``: the reverse-time kernel, then the dr einsum and the db
-sum) at K5's shapes. Then the bf16 entries of the ViL layer (K3 bf16,
+(``slstm_scan_bwd``: the reverse-time kernel, then the dr product and the db
+sum) at K5's shapes. Then the kth value (K8, ``rowwise_kth_value``) at
+``chip_smoke.py``'s cases, with ``torch.topk``'s time beside it and the
+share of its bytes bound. Then the bf16 entries of the ViL layer (K3 bf16,
 ``vil_layer_fwd`` on bf16 activations, under grad as the AMP step runs it)
 and of the chunkwise backward (K2 bf16, on what that forward saves) at
 ViL-YOLO-n's P3 / P4 / P5 at batch 8 and at batch 128, each with the device
@@ -22,7 +24,8 @@ that a parent and a change compare stage by stage whatever their stages
 are called. Prints the card's name and power limit, then one JSON line per
 shape: ``ms``, the wrapper call's time by CUDA events over 20 calls after 2
 (host work included where it outlasts the kernel), ``device_ms``, the time
-of the kernel's own launches per call from torch.profiler, and microseconds
+of the kernel's own launches per call from torch.profiler (the largest of
+three sessions: a session now and then loses events), and microseconds
 per step of each. ``--only bf16`` times the bf16 entries alone. Imports
 nothing of JAX.
 """
@@ -58,19 +61,23 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
 
 def device_ms(fn, name, iters: int = 10) -> float:
     """Device time per call of the kernels whose name holds ``name`` (or
-    any of the names in a tuple)."""
+    any of the names in a tuple): the largest of three profiler sessions,
+    since a session now and then loses events and reads low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
-             for e in prof.key_averages()
-             if any(n in e.key for n in ((name,) if isinstance(name, str) else name)))
-    return us / iters / 1e3
+    names = (name,) if isinstance(name, str) else name
+    best = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                 for e in prof.key_averages() if any(n in e.key for n in names))
+        best = max(best, us / iters / 1e3)
+    return best
 
 
 def stage_device_ms(fn, iters: int = 10) -> dict:
@@ -128,6 +135,7 @@ def main() -> None:
             run = lambda: slstm_scan_fwd(wx, r, b)
             report("slstm_scan_fwd", (B, NH, S, DH), cuda_time_ms(run), device_ms(run, "slstm"))
         backward_kernels(mk, report)
+        kth_kernel()
     bf16_kernels(report)
 
 
@@ -160,6 +168,28 @@ def backward_kernels(mk, report) -> None:
         dy = mk(B, S, NH, DH)
         run = lambda: slstm_scan_bwd(r, y, saved, dy)
         report("slstm_scan_bwd", (B, NH, S, DH), cuda_time_ms(run), device_ms(run, "slstm_bwd"))
+
+
+def kth_kernel() -> None:
+    """K8 at chip_smoke.py's cases (its rows, seeds and k): the wrapper's
+    event ms, the kernel's device ms, torch.topk's (another function where
+    values tie; a yardstick) and the device time's share of the bytes
+    bound (x read once, the result written once, at 3.35 TB/s)."""
+    from chip_smoke import K8_CASES, kth_rows
+
+    from xlstm_yolo_torch.kernels.topk import rowwise_kth_value
+
+    for name, R, N, k, ties in K8_CASES:
+        x = kth_rows(R, N, ties, seed=R + N, device=torch.device("cuda"))
+        run = lambda: rowwise_kth_value(x, k)
+        lib = lambda: torch.topk(x, k).values[:, -1:]
+        dev = device_ms(run, "kth_value")
+        bound_ms = 4 * (R * N + R) / 3.35e12 * 1e3
+        print(json.dumps({"kernel": "rowwise_kth_value", "case": name, "shape": [R, N, k],
+                          "ms": cuda_time_ms(run), "device_ms": dev,
+                          "library_ms": cuda_time_ms(lib), "library_device_ms": device_ms(lib, ""),
+                          "bound_ms": bound_ms, "bound_share": bound_ms / dev if dev else None}),
+              flush=True)
 
 
 def bf16_kernels(report) -> None:

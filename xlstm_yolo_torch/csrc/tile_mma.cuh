@@ -323,6 +323,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
+// One arrival (release: this thread's earlier shared-memory accesses are
+// ordered before it).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to this CTA's shared memory, counted down on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A barrier among `count` threads (whole warps) of the CTA, on hardware
+// barrier `id` (0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Stores v at shared::cluster address `dst`, counting 4 bytes down on the
 // mbarrier at shared::cluster address `bar` (of the same CTA as dst).
 __device__ __forceinline__ void st_async(uint32_t dst, float v, uint32_t bar) {

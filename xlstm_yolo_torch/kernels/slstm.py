@@ -27,18 +27,23 @@ plain scan, one compiled reverse loop on the device. Here the reverse loop
 is a second hand-written kernel in ``csrc/slstm.cu``: under autograd the
 forward kernel also writes every step's gate values and (c, n, m) to a
 workspace, and ``_SlstmFunction.backward`` runs the reverse-time kernel on
-it (``slstm_scan_bwd``). Its plain version, ``slstm_scan_bwd_plain``, is the
-same reverse recurrence in torch. Both hold the stabilizer m constant: y is
+it (``slstm_scan_bwd``). Both hold the stabilizer m constant: y is
 invariant to rescaling every state by exp(m), so these are autograd's
-gradients up to rounding. A carried state takes part both ways: the
-gradient of a returned last state seeds the walk, and the walk ends in the
-gradient of the initial state; the part of the last m's gradient that the
-frozen walk cannot see follows the stabilizer's max chain back
-(``slstm_scan_bwd_plain``).
+gradients up to rounding. ``slstm_scan_bwd_plain`` is the reverse
+recurrence as the JAX package's vjp runs it; ``slstm_bwd_coefficients`` and
+``slstm_bwd_walk_plain`` are the same recurrence in the kernel's
+coefficient form (every factor that does not depend on the carried
+gradient computed from the workspace alone, so the walk is multiply-adds),
+and ``slstm_scan_bwd`` takes them for CPU tensors. A carried state takes
+part both ways: the gradient of a returned last state seeds the walk, and
+the walk ends in the gradient of the initial state; the part of the last
+m's gradient that the frozen walk cannot see follows the stabilizer's max
+chain back (``slstm_scan_bwd_plain``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +60,7 @@ SAVED = 7  # per step and channel, what the forward writes under autograd:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = CudaLibrary("slstm.cu", {
     "slstm_fwd_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "slstm_bwd_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "slstm_bwd_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "slstm_error_string": (ctypes.c_char_p, [_I]),
 })
 
@@ -203,43 +208,166 @@ def _launch(wx, r, b, state_in, return_last_state: bool, save: bool = False):
     return y, None if state_out is None else tuple(state_out.unbind(0)), saved
 
 
-def slstm_scan_bwd(r, y, saved, dy, state_in=None, dlast=None, with_state: bool = False):
-    """The reverse-time kernel and the two sums around it, on CUDA tensors:
-    r (NH, DH, 4, DH), the forward's y (B, S, NH, DH) and ``saved`` (B, S,
-    NH, SAVED, DH) as the forward kernel wrote it, the output gradient dy
-    and the packed carried-in state (4, B, NH, DH) or None -> (dwx, dr,
-    db). ``dlast``: the packed (4, B, NH, DH) gradient of the returned last
-    state (y, c, n, m), or None. ``with_state``: a fourth element, the
-    gradient of the initial (y, c, n, m) (the kernel writes that of c, n and
-    m; that of y, R draw_0, is one einsum here). One launch runs the reverse
-    loop of every (batch row, head) chain and writes dwx; dr and db are one
-    einsum and one sum over B and S, as the JAX package leaves them to XLA.
-    Each launch adds one to ``slstm_scan_bwd.launches``."""
+class BwdCoefficients(NamedTuple):
+    """Per-step factors of the reverse recurrence that do not depend on the
+    carried gradient, each (B, S, NH, DH) or, by gate (i, f, z, o), (B, S,
+    NH, 4, DH). With dyt = dy_t + R draw_{t+1}, dct = dc + a dyt and dnt = dn
+    - bn dyt, gate q's gradient is alpha_q dct + beta_q dnt + gamma_q dyt +
+    dgate_q delta; then dc, dn = fg dct, fg dnt and delta = keep delta."""
+    a: torch.Tensor       # so / n
+    bn: torch.Tensor      # so c / n^2
+    fg: torch.Tensor      # exp(logsigmoid(f) + m_{t-1} - m), as the forward computed it
+    keep: torch.Tensor    # 0 where the input gate won the stabilizer's max, else 1
+    alpha: torch.Tensor   # (tz ig, c_{t-1} fg sigmoid(-f), ig (1 - tz^2), 0)
+    beta: torch.Tensor    # (ig, n_{t-1} fg sigmoid(-f), 0, 0)
+    gamma: torch.Tensor   # (0, 0, 0, (c / n) so (1 - so))
+    dgate: torch.Tensor   # (1 - keep, keep sigmoid(-f), 0, 0): where delta joins
+
+
+def slstm_bwd_coefficients(saved: torch.Tensor, state_in: torch.Tensor | None = None
+                           ) -> BwdCoefficients:
+    """What the reverse-time kernel's producer warps compute ahead of the
+    walk, from the forward's workspace ``saved`` (B, S, NH, SAVED, DH) and the
+    packed carried-in state (4, B, NH, DH) or None (zeros, m = NEG_INIT)
+    alone: ig and fg from the same operands as the forward's gate math, the
+    input-gate branch of the stabilizer, and each gate's triple (alpha,
+    beta, gamma) with delta's factor."""
+    i, lsf, tz, so, c, n, m = saved.float().unbind(3)
+    B, S, NH, DH = c.shape
+    if state_in is None:
+        zeros = torch.zeros((B, 1, NH, DH), dtype=c.dtype, device=c.device)
+        c0, n0, m0 = zeros, zeros, torch.full_like(zeros, NEG_INIT)
+    else:
+        c0, n0, m0 = (x[:, None].float() for x in state_in[1:])
+    prev = lambda first, seq: torch.cat([first, seq[:, :-1]], dim=1)
+    c_prev, n_prev, m_prev = prev(c0, c), prev(n0, n), prev(m0, m)
+    ig, fg = torch.exp(i - m), torch.exp((m_prev + lsf) - m)
+    ibranch = (i >= m_prev + lsf).float()
+    hn = c / n
+    sig_nf = -torch.expm1(lsf)  # sigmoid(-f) = 1 - exp(logsigmoid(f))
+    zero = torch.zeros_like(c)
+    gates = lambda *g: torch.stack(g, dim=3)
+    return BwdCoefficients(
+        a=so / n, bn=so * hn / n, fg=fg, keep=1 - ibranch,
+        alpha=gates(tz * ig, c_prev * fg * sig_nf, ig * (1 - tz * tz), zero),
+        beta=gates(ig, n_prev * fg * sig_nf, zero, zero),
+        gamma=gates(zero, zero, zero, hn * so * (1 - so)),
+        dgate=gates(ibranch, (1 - ibranch) * sig_nf, zero, zero))
+
+
+def slstm_bwd_walk_plain(k: BwdCoefficients, r: torch.Tensor, dy: torch.Tensor,
+                         dlast: torch.Tensor | None = None, last_cn: tuple | None = None):
+    """The reverse recurrence in coefficient form, the chain the kernel's
+    consumer threads run: only (dc, dn, delta) and R draw_{t+1} are carried,
+    every step is multiply-adds. ``dlast``: the packed (4, B, NH, DH)
+    gradient of the returned last state (dy, dc, dn, dm), with ``last_cn``
+    the last (c, n) for delta = dm - dc c - dn n. Returns draw (B, S, NH, 4,
+    DH) and the gradient of the initial (y, c, n) with what is left of
+    delta, each (B, NH, DH)."""
+    B, S, NH, DH = dy.shape
+    r, dy = r.float(), dy.float()
+    dc = dn = dyr = delta = torch.zeros((B, NH, DH), dtype=torch.float32, device=dy.device)
+    if dlast is not None:
+        dyl, dc, dn, dml = dlast.float().unbind(0)
+        dy = torch.cat([dy[:, :-1], (dy[:, -1] + dyl)[:, None]], dim=1)
+        delta = dml - dc * last_cn[0] - dn * last_cn[1]
+    draws = [None] * S
+    ex = lambda x: x[:, :, None]  # (B, NH, DH) -> by gate
+    for t in range(S - 1, -1, -1):
+        dyt = dy[:, t] + dyr
+        dct, dnt = dc + k.a[:, t] * dyt, dn - k.bn[:, t] * dyt
+        draw = (k.alpha[:, t] * ex(dct) + k.beta[:, t] * ex(dnt) + k.gamma[:, t] * ex(dyt)
+                + k.dgate[:, t] * ex(delta))
+        dc, dn, delta = k.fg[:, t] * dct, k.fg[:, t] * dnt, k.keep[:, t] * delta
+        draws[t] = draw
+        dyr = torch.einsum("bnge,ndge->bnd", draw, r)
+    return torch.stack(draws, dim=1), (dyr, dc, dn, delta)
+
+
+def _dr(y: torch.Tensor, dwx: torch.Tensor, y0: torch.Tensor | None) -> torch.Tensor:
+    """dr[h] = sum over b, t of y_{t-1}^T dwx_t, from views without a copy of
+    y: a product per head pairs every flat (b, t) row of dwx with the row of
+    y before it (one product a head: the library splits its long B S axis,
+    which it does not for a batched product, 2-4x slower on the card at S
+    1024, B 8); one batched product over the B first steps takes back the
+    pairs that cross from one batch row to the next, another adds the
+    carried-in y0 (none: zeros)."""
     B, S, NH, DH = y.shape
-    dev = y.device
-    chk = lambda name, t, shape: check_tensor("slstm_scan_bwd", name, t, shape, dev)
-    r = chk("r", r, (NH, DH, 4, DH))
-    saved = chk("saved", saved, (B, S, NH, SAVED, DH))
-    dy = chk("dy", dy, (B, S, NH, DH))
-    dlast = None if dlast is None else chk("dlast", dlast, (4, B, NH, DH))
+    yf, gf = y.reshape(B * S, NH, DH), dwx.reshape(B * S, NH, 4 * DH)
+    dr = torch.empty((NH, DH, 4 * DH), dtype=dwx.dtype, device=dwx.device)
+    for h in range(NH):
+        torch.mm(yf[:-1, h].t(), gf[1:, h], out=dr[h])
+    g0 = gf.view(B, S, NH, 4 * DH)[:, 0]
+    if B > 1:
+        dr.baddbmm_(y[:-1, -1].permute(1, 2, 0), g0[1:].permute(1, 0, 2), alpha=-1.0)
+    if y0 is not None:
+        dr.baddbmm_(y0.permute(1, 2, 0), g0.permute(1, 0, 2))
+    return dr.view(NH, DH, 4, DH)
+
+
+def _bwd_launch(r, saved, dy, state_in, dlast, with_state: bool):
+    """The reverse-time kernel on checked CUDA tensors -> dwx (B, S, NH, 4,
+    DH), the per-chain sums of dwx over t (B, NH, 4, DH) and, with
+    ``with_state``, the initial state's (dy, dc, dn, dm) packed (4, B, NH,
+    DH)."""
+    B, S, NH, _, DH = saved.shape
+    dev = saved.device
     lib = _LIB.load()
     dwx = torch.empty((B, S, NH, 4, DH), device=dev, dtype=torch.float32)
-    dstate = torch.empty((3, B, NH, DH), device=dev, dtype=torch.float32) if with_state else None
+    dbp = torch.empty((B, NH, 4, DH), device=dev, dtype=torch.float32)
+    dstate = torch.empty((4, B, NH, DH), device=dev, dtype=torch.float32) if with_state else None
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.slstm_bwd_f32(r.data_ptr(), saved.data_ptr(), dy.data_ptr(), ptr(state_in),
-                                ptr(dlast), dwx.data_ptr(), ptr(dstate), B, S, NH, DH, stream)
+                                ptr(dlast), dwx.data_ptr(), dbp.data_ptr(), ptr(dstate),
+                                B, S, NH, DH, stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan_bwd: CUDA error {err}: "
                            f"{lib.slstm_error_string(err).decode()}")
     slstm_scan_bwd.launches += 1
-    y0 = torch.zeros_like(y[:, :1]) if state_in is None else state_in[0][:, None]
-    y_prev = torch.cat([y0, y[:, :-1]], dim=1)
-    out = (dwx, torch.einsum("bsnd,bsnge->ndge", y_prev, dwx), dwx.sum(dim=(0, 1)))
-    if not with_state:
-        return out
-    return (*out, (torch.einsum("bnge,ndge->bnd", dwx[:, 0], r), *dstate.unbind(0)))
+    return dwx, dbp, dstate
+
+
+def slstm_scan_bwd(r, y, saved, dy, state_in=None, dlast=None, with_state: bool = False):
+    """The gradients (dwx, dr, db) of the scan from r (NH, DH, 4, DH), the
+    forward's y (B, S, NH, DH) and ``saved`` (B, S, NH, SAVED, DH) as the
+    forward kernel wrote it, the output gradient dy and the packed carried-in
+    state (4, B, NH, DH) or None. ``dlast``: the packed (4, B, NH, DH)
+    gradient of the returned last state (y, c, n, m), or None.
+    ``with_state``: a fourth element, the gradient of the initial (y, c, n,
+    m). CUDA tensors: one launch of the reverse-time kernel walks every
+    (batch row, head) chain, writes dwx, each chain's sum of dwx over t and
+    the initial state's gradient; dr is products over views of y and dwx
+    (``_dr``) and db the sum of the chains' sums over B, as the JAX package
+    leaves dr and db to XLA. Each launch adds one to
+    ``slstm_scan_bwd.launches``. CPU tensors take the same recurrence in
+    plain torch (``slstm_bwd_coefficients``, ``slstm_bwd_walk_plain``)."""
+    B, S, NH, DH = y.shape
+    dev = y.device
+    y0 = None if state_in is None else state_in[0]
+    if dev.type == "cpu":
+        coef = slstm_bwd_coefficients(saved, state_in)
+        last_cn = None if dlast is None else (saved[:, -1, :, 4].float(), saved[:, -1, :, 5].float())
+        dwx, (dy0, dc0, dn0, delta) = slstm_bwd_walk_plain(coef, r, dy, dlast, last_cn)
+        dbp = dwx.sum(dim=1)
+        c0, n0 = (0.0, 0.0) if state_in is None else state_in[1:3].float()
+        dstate = torch.stack([dy0, dc0, dn0, dc0 * c0 + dn0 * n0 + delta])
+    else:
+        if DH not in KERNEL_DHS:
+            raise ValueError(f"slstm_scan_bwd: the CUDA kernel needs head dim in {KERNEL_DHS}, "
+                             f"got {DH}")
+        chk = lambda name, t, shape: check_tensor("slstm_scan_bwd", name, t, shape, dev)
+        r = chk("r", r, (NH, DH, 4, DH))
+        saved = chk("saved", saved, (B, S, NH, SAVED, DH))
+        dy = chk("dy", dy, (B, S, NH, DH))
+        # the kernel stages rows of saved and dy with bulk copies, from 16-byte boundaries
+        saved, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (saved, dy))
+        state_in = None if state_in is None else chk("state_in", state_in, (4, B, NH, DH))
+        dlast = None if dlast is None else chk("dlast", dlast, (4, B, NH, DH))
+        dwx, dbp, dstate = _bwd_launch(r, saved, dy, state_in, dlast, with_state)
+    out = (dwx, _dr(y.float(), dwx, y0), dbp.sum(dim=0))
+    return (*out, tuple(dstate.unbind(0))) if with_state else out
 
 
 slstm_scan_bwd.launches = 0
