@@ -83,6 +83,10 @@ batch 8 and 640 px with the defaults (bf16 AMP, mosaic, HSV, flip,
 epoch; ``YOLO(last.pt)`` validates again and predicts the val directory.
 Then a model whose detections are not degenerate is validated on its own
 jittered detections with the kernels and with the plain versions forced in.
+``fit_path_devaug`` trains the same way with ``device_augment=True`` (the
+host only decodes and letterboxes; mosaic, affine, HSV and flip run on the
+card, checked against the CPU on the same draws), then one epoch with
+``multi_scale=True`` as well (each batch rescaled to one of 320-960 px).
 
 ViL-YOLO above scale n (``vil_yolo{s,m,l,x}``, ViL widths up to DIM 640,
 INNER 1280, 20 heads): one inference forward of each at batch 2 and 640
@@ -169,6 +173,9 @@ CLS_CASE = ("cls_S196", 196, 192, 384, 6, CLS_BATCH)
 X_P5_CASE = ("xP5_S400", 400, 640, 1280, 20, BATCH)
 LAYER_CASES = [(*stage, BATCH) for stage in STAGES] + [CLS_CASE, X_P5_CASE]
 BF16_CASES = [(*stage, BATCH) for stage in STAGES]  # the bf16 entries: ViL-YOLO-n's stages
+# and the sequence lengths multi_scale adds at its extremes: P3 at 960 px, P5 at 320 px
+BF16_MS_CASES = [("P3_960px", 14400, 64, 128, 2, BATCH),
+                 ("P5_320px", 100, 256, 512, 8, BATCH)]
 BF16_BIG_BATCH = 128  # the JAX bf16 train bench's batch (bench_train.py): the bf16 entries' second time
 FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH), X_P5_CASE]
 # the flagship YAML's scales above n: (YAML, ViL layers per forward)
@@ -699,7 +706,9 @@ def phase_kernel_parity():
     against their plain bf16 versions (``compare_bf16``: relative L2 within
     TOL_REL forward and TOL_BF16_GRAD gradients, the max beyond rounding
     within BF16_MAX_EXCESS), each also timed at BF16_BIG_BATCH, with the
-    device time of each stage at both batches (``bf16_extra``)."""
+    device time of each stage at both batches (``bf16_extra``); the same at
+    BF16_MS_CASES, the sequence lengths of ``multi_scale``'s extremes
+    (their lines only: the kernels line sums the P3-P5 cases)."""
     import torch
 
     from xlstm_yolo_torch.kernels.mlstm_bwd import (KERNEL_CS, mlstm_chunkwise_bwd,
@@ -924,7 +933,8 @@ def phase_kernel_parity():
             big = make_case(BF16_BIG_BATCH, case)
             big_case = (*case[:5], BF16_BIG_BATCH)
             big_ms = cuda_time_ms(lambda: run(big, big_case), iters=10)
-            out = {"fp32_ms": k["ms_by_case"][case[0]], "bf16_speedup": k["ms_by_case"][case[0]] / ms,
+            fp32_ms = k["ms_by_case"].get(case[0])  # None at a case the fp32 kernel is not timed at
+            out = {"fp32_ms": fp32_ms, "bf16_speedup": fp32_ms / ms if fp32_ms else None,
                    "stage_device_ms": stages,
                    f"ms_b{BF16_BIG_BATCH}": big_ms,
                    f"bound_ms_b{BF16_BIG_BATCH}": bound(big, big_case).ms,
@@ -937,11 +947,13 @@ def phase_kernel_parity():
     run_k3b = lambda args, case: (vil_layer_fwd(*args, case[4]),)
     bound_k3b = lambda args, case: bf16_vil_bound(case[5], *case[1:5],
                                                   sum(a.numel() for a in args[2:]))
-    k3b = kernel_parity(
-        "vil_layer_fwd_bf16", BF16_CASES, bf16_layer_case, run_k3b,
-        lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=KERNEL_CS, keep_fp32=True),),
-        bound_k3b, batch_of=timed_batch, cmp=compare_bf16,
+    plain_k3b = lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=KERNEL_CS,
+                                                  keep_fp32=True),)
+    k3b, _ = (kernel_parity(
+        "vil_layer_fwd_bf16", cases, bf16_layer_case, run_k3b, plain_k3b, bound_k3b,
+        batch_of=timed_batch, cmp=compare_bf16,
         extra=bf16_extra(k3, bf16_layer_case, run_k3b, bound_k3b), metric=BF16_METRIC)
+        for cases in (BF16_CASES, BF16_MS_CASES))
 
     def bf16_bwd_case(B, case):
         _, S, DIM, INNER, NH, _ = case
@@ -953,11 +965,12 @@ def phase_kernel_parity():
 
     run_k2b = lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1])
     bound_k2b = lambda args, case: bf16_bwd_bound(case[5], case[1], case[3], case[4])
-    k2b = kernel_parity(
-        "mlstm_chunkwise_bwd_bf16", BF16_CASES, bf16_bwd_case, run_k2b,
-        lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4], keep_fp32=True),
-        bound_k2b, batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD,
+    plain_k2b = lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4], keep_fp32=True)
+    k2b, _ = (kernel_parity(
+        "mlstm_chunkwise_bwd_bf16", cases, bf16_bwd_case, run_k2b, plain_k2b, bound_k2b,
+        batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD,
         extra=bf16_extra(k2, bf16_bwd_case, run_k2b, bound_k2b), metric=BF16_METRIC)
+        for cases in (BF16_CASES, BF16_MS_CASES))
     return k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b
 
 
@@ -1468,13 +1481,7 @@ def phase_fit_path(smi_line):
     from xlstm_yolo_torch import YOLO
     from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
     from xlstm_yolo_torch.engine.validator import Validator
-    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
-    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
 
-    names = ("vil_layer_fwd", "vil_layer_fwd_bf16", "mlstm_chunkwise_bwd",
-             "mlstm_chunkwise_bwd_bf16")
-    counters = lambda: np.array([vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
-                                 mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16])
     n = len(STAGES)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1488,7 +1495,7 @@ def phase_fit_path(smi_line):
 
         def start(kind):
             def fn(_):
-                mark[kind] = counters()
+                mark[kind] = kernel_counters()
                 if kind == "train":
                     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                     ev[0].record()
@@ -1497,7 +1504,7 @@ def phase_fit_path(smi_line):
 
         def end(kind, out):
             def fn(obj):
-                out.append(counters() - mark[kind])
+                out.append(kernel_counters() - mark[kind])
                 if kind == "train":
                     events[-1][1].record()
             return fn
@@ -1508,8 +1515,7 @@ def phase_fit_path(smi_line):
         model.add_callback("on_val_batch_end", end("val", val_batches))
         model.add_callback("on_train_epoch_end",
                            lambda tr: host_s.append(list(tr.loader.batch_seconds)))
-        vil_layer_fwd.launches = vil_layer_fwd.launches_bf16 = 0
-        mlstm_chunkwise_bwd.launches = mlstm_chunkwise_bwd.launches_bf16 = 0
+        zero_kernel_counters()
         t0 = time.perf_counter()
         model.train(data=data, epochs=FIT_EPOCHS, batch=BATCH, imgsz=IMGSZ, seed=0,
                     close_mosaic=1, project=f"{tmp}/runs", name="fit")
@@ -1524,7 +1530,7 @@ def phase_fit_path(smi_line):
         again = reloaded.val(data=data, imgsz=IMGSZ, batch=16)
         results = reloaded.predict(Path(data).parent / "images" / "val", imgsz=IMGSZ, conf=0.001)
         torch.cuda.synchronize()
-        fit_launches = dict(zip(names, counters().tolist()))
+        fit_launches = dict(zip(COUNTED, kernel_counters().tolist()))
 
         inside = all(len(r.boxes) == 0 or (
             (r.boxes.xyxy >= 0).all() and (r.boxes.xyxy[:, [0, 2]] <= r.orig_shape[1]).all()
@@ -1602,7 +1608,208 @@ def phase_fit_path(smi_line):
           "phase_s": time.perf_counter() - t_phase, "ok": ok})
     if not ok:
         raise PhaseError("fit path check failed")
-    return {k: v for k, v in fit_launches.items() if v}
+    summary = {"epoch_img_s": [float(r["img_s"]) for r in rows],
+               "host_batch_ms_mean": float(np.mean(host_ms)),
+               "step_ms_mean": float(np.mean(step_ms)), "stage_ms": times}
+    return {k: v for k, v in fit_launches.items() if v}, summary
+
+
+COUNTED = ("vil_layer_fwd", "vil_layer_fwd_bf16", "mlstm_chunkwise_bwd",
+           "mlstm_chunkwise_bwd_bf16")
+
+
+def kernel_counters():
+    """The launch counts of ``COUNTED``: the ViL layer kernel and the
+    chunkwise backward, fp32 and bf16."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+
+    return np.array([vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
+                     mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16])
+
+
+def zero_kernel_counters():
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+
+    vil_layer_fwd.launches = vil_layer_fwd.launches_bf16 = 0
+    mlstm_chunkwise_bwd.launches = mlstm_chunkwise_bwd.launches_bf16 = 0
+
+
+@contextmanager
+def recording_steps(record):
+    """Each ``TrainStep`` call of the run: its image size, its kernel
+    launches, CUDA events around the call and its loss (a tensor on the card,
+    read after the run)."""
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    call = TrainStep.__call__
+
+    def recorded(self, batch, lr=None):
+        before = kernel_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = call(self, batch, lr)
+        ev[1].record()
+        record.append((int(batch["img"].shape[1]), kernel_counters() - before, ev, out[0]))
+        return out
+
+    with mock.patch.object(TrainStep, "__call__", recorded):
+        yield
+
+
+def phase_fit_path_devaug(smi_line, fit):
+    """``fit_path`` with the augmentation on the card (``device_augment``)
+    on the same PNG set, and ``multi_scale`` with it. (a)
+    ``YOLO("vil_yolon.yaml").train(data, epochs=2, batch=8, imgsz=640,
+    close_mosaic=1, device_augment=True)`` at ``fit_path``'s defaults: the
+    host only decodes and letterboxes (in file order, the last partial
+    batch kept), each step mosaics, warps, jitters and flips its batch on
+    the card. Gates: the CSV's rows with finite losses; per step 3 launches
+    each of the bf16 layer and backward kernels and none of the fp32 ones
+    (counted around each step call);
+    one step's augmented batch on the card equal to ``device_augment.apply``
+    on the CPU given the same draws (images within 0.1 of 255, boxes within
+    1e-3 px where the mask is set, masks equal: the CPU test's tolerances).
+    Printed beside ``fit``, ``fit_path``'s numbers from this call: the
+    epochs' img/s, the host's ms a batch (the loader's own clock), the
+    step's ms on the card (CUDA events at its callbacks), the trained step's
+    stages, and the augmentation's own device ms a step (CUDA events) and
+    its kernel launches a step (torch.profiler, taken last). (b) One epoch
+    with ``multi_scale=True`` as well (no validation): at least two sizes
+    used, each a multiple of 32, finite losses, 3 + 3 bf16 launches a step
+    at every size; each size's step ms (CUDA events around the step call)."""
+    import csv
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.data import device_augment as DA
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+
+    n = len(STAGES)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_dataset(f"{tmp}/ds", n_train=FIT_IMAGES[0], n_val=FIT_IMAGES[1],
+                                      width=FIT_WH[0], height=FIT_WH[1], seed=0)
+        # (a) two epochs, the mosaic closed for the second
+        model, steps, host_s, events = YOLO("vil_yolon.yaml"), [], [], []
+
+        def start(_):
+            events.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+            events[-1][0].record()
+
+        model.add_callback("on_train_batch_start", start)
+        model.add_callback("on_train_batch_end", lambda _: events[-1][1].record())
+        model.add_callback("on_train_epoch_end",
+                           lambda tr: host_s.append(list(tr.loader.batch_seconds)))
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        with recording_steps(steps):
+            model.train(data=data, epochs=FIT_EPOCHS, batch=BATCH, imgsz=IMGSZ, seed=0,
+                        close_mosaic=1, device_augment=True, project=f"{tmp}/runs", name="devaug")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches_a = kernel_counters()
+        trainer = model.trainer
+        with open(Path(trainer.save_dir) / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        host_ms = [1e3 * t for epoch in host_s for t in epoch]
+        per_step = {tuple(c.tolist()) for _, c, _, _ in steps}
+
+        # the trained step's stages on one batch of the loader, the augmentation apart
+        step = trainer.step
+        batch = trainer._to_device(next(iter(trainer.loader)))
+        normed = {**batch, "img": batch["img"].float() / 255.0}
+        names = ("augment", "forward_loss", "backward", "update_ema")
+        times = dict.fromkeys(names, 0.0)
+        for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            step.augment_batch(normed)
+            ev[1].record()
+            total, _ = step.forward_loss(batch)  # the augmentation again, inside
+            ev[2].record()
+            step.backward(total)
+            ev[3].record()
+            step.apply_update(float(rows[-1]["lr"]))
+            ev[4].record()
+            torch.cuda.synchronize()
+            if it >= TRAIN_WARMUP:
+                for k, (a, b) in zip(names, zip(ev[:4], ev[1:])):
+                    times[k] += a.elapsed_time(b) / TRAIN_TIMED
+
+        # one step's augmented batch on the card against the CPU, the same draws
+        B, S = normed["img"].shape[:2]
+        d = step.augment_draws(B, S, normed["img"].device)
+        args = (normed["img"] * 255.0, normed["cls_boxes"], normed["mask"])
+        card = DA.apply(*args, d, step.augment)
+        cpu = DA.apply(*(t.cpu() for t in args), d.to("cpu"), step.augment)
+        card = [t.cpu() for t in card]
+        img_err = float((card[0] - cpu[0]).abs().max())
+        mask_eq = bool(torch.equal(card[2], cpu[2]))
+        box_err = float((card[1] - cpu[1])[cpu[2]].abs().max()) if cpu[2].any() else 0.0
+        aug_ok = img_err <= 0.1 and box_err <= 1e-3 and mask_eq
+        fit_ok = (len(rows) == FIT_EPOCHS and all(np.isfinite(float(r["train/loss"])) for r in rows)
+                  and len(steps) == FIT_EPOCHS * -(-FIT_IMAGES[0] // BATCH)
+                  and per_step == {(0, n, 0, n)}
+                  and all(np.isfinite(float(loss)) for *_, loss in steps))
+
+        # (b) one epoch at a size drawn a batch
+        ms_steps = []
+        zero_kernel_counters()
+        with recording_steps(ms_steps):
+            YOLO("vil_yolon.yaml").train(data=data, epochs=1, batch=BATCH, imgsz=IMGSZ, seed=0,
+                                         multi_scale=True, device_augment=True, val=False,
+                                         project=f"{tmp}/runs", name="ms")
+        torch.cuda.synchronize()
+        launches_b = kernel_counters()
+        by_size = {}
+        for size, c, (a, b), loss in ms_steps:
+            by_size.setdefault(size, []).append((a.elapsed_time(b), tuple(c.tolist()),
+                                                 float(loss)))
+        ms_ok = (len(by_size) >= 2 and all(sz % 32 == 0 for sz in by_size)
+                 and all(np.isfinite(loss) and c == (0, n, 0, n)
+                         for v in by_size.values() for _, c, loss in v))
+
+        # the augmentation's kernels a step, by the profiler (last: a profiler
+        # session slows the host's launches after it)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step.augment_batch(normed)
+            torch.cuda.synchronize()
+        aug_kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.key.startswith(("Memcpy", "Memset")))
+    ok = fit_ok and aug_ok and ms_ok
+    launches = dict(zip(COUNTED, (launches_a + launches_b).tolist()))
+    emit({"phase": "fit_path_devaug", "model": "vil_yolon.yaml", "card": smi_line,
+          "epochs": FIT_EPOCHS, "batch": BATCH, "imgsz": IMGSZ, "close_mosaic": 1,
+          "device_augment": True, "csv": rows, "train_s": train_s,
+          "epoch_img_s": [float(r["img_s"]) for r in rows],
+          "val_img_s": [float(r["metrics/img_s"]) for r in rows],
+          "step_ms": {"mean": float(np.mean(step_ms)), "median": float(np.median(step_ms)),
+                      "n": len(step_ms)},
+          "host_batch_ms": {"mean": float(np.mean(host_ms)), "median": float(np.median(host_ms)),
+                            "n": len(host_ms)},
+          "stage_ms": times, "stage_total_ms": sum(times.values()) - times["augment"],
+          "augment_ms": times["augment"], "augment_kernels_per_step": aug_kernels,
+          "launches_per_step": sorted(per_step),
+          "augment_card_vs_cpu": {"img_max_abs": img_err, "box_max_abs": box_err,
+                                  "masks_equal": mask_eq, "ok": aug_ok},
+          "multi_scale": {"sizes": sorted(by_size), "ok": ms_ok, "by_size": {
+              str(sz): {"steps": len(v), "step_ms_mean": float(np.mean([t for t, _, _ in v])),
+                        "launches_per_step": sorted({c for _, c, _ in v}),
+                        "losses": [loss for _, _, loss in v]}
+              for sz, v in sorted(by_size.items())}},
+          "fit_path_same_call": fit, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError("fit path with device augmentation check failed")
+    return {k: v for k, v in launches.items() if v}
 
 
 @contextmanager
@@ -2334,7 +2541,9 @@ def main() -> int:
         phase = "train_loop_amp"
         amp_launches = phase_train_loop_amp()
         phase = "fit_path"
-        fit_launches = phase_fit_path(smi_line)
+        fit_launches, fit_summary = phase_fit_path(smi_line)
+        phase = "fit_path_devaug"
+        devaug_launches = phase_fit_path_devaug(smi_line, fit_summary)
         phase = "lm_path"
         lm_launches = phase_lm_path()
         phase = "cls_path"
@@ -2358,6 +2567,7 @@ def main() -> int:
                "train_path": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), train_launches)),
                "train_loop_amp": amp_launches,
                "fit_path": fit_launches,
+               "fit_path_devaug": devaug_launches,
                "lm_path": dict(zip(("mlstm_chunkwise_fwd", "slstm_scan_fwd"), lm_launches)),
                **by_path,
                "kth_path": {"rowwise_kth_value": kth_launches},

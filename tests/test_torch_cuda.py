@@ -1342,3 +1342,86 @@ def test_validator_on_card_matches_plain(cuda_device, tmp_path):
     for k in ("mAP50", "mAP50-95"):
         assert abs(out["kernels"][k] - out["plain"][k]) <= 1e-3, (k, out)
     assert 0.2 <= out["kernels"]["mAP50-95"] <= 0.95, out
+
+
+def _aug_batch(B, S, M, seed, device="cpu"):
+    """Seeded uint8 images and 1 to 3 boxes an image of 20 px to S/3 a side."""
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8))
+    cb = torch.zeros(B, M, 5)
+    mask = torch.zeros(B, M, dtype=torch.bool)
+    for b in range(B):
+        for j in range(int(rng.integers(1, 4))):
+            x1, y1 = rng.uniform(0, S * 2 / 3, 2)
+            w, h = rng.uniform(20, S / 3, 2)
+            cb[b, j] = torch.tensor([j, x1, y1, x1 + w, y1 + h])
+            mask[b, j] = True
+    return {"img": imgs.to(device), "cls_boxes": cb.to(device), "mask": mask.to(device)}
+
+
+@pytest.mark.parametrize("mosaic,mosaic_p", [(1.0, 1.0), (0.5, 0.5), (0.5, 0.0), (0.0, 0.0)],
+                         ids=["mosaic", "half", "closed", "no_mosaic"])
+def test_device_augment_on_card_matches_cpu(cuda_device, mosaic, mosaic_p):
+    """``device_augment.apply`` at batch 8 and 640 px on the card against
+    the CPU, given the same draws (made on the card): images within 0.1 of
+    255, boxes within 1e-3 px where the mask is set, masks equal (the CPU
+    parity test's tolerances)."""
+    from xlstm_yolo_torch.data import device_augment as DA
+
+    b = _aug_batch(8, 640, 32, seed=3)
+    hyp = DA.aug_hyp({"mosaic": mosaic, "degrees": 10.0, "shear": 5.0, "translate": 0.2})
+    d = DA.draw(8, 640, hyp, mosaic_p, DA.step_generator(0, 1, cuda_device))
+    assert d.fwd.device.type == d.mosaic.device.type == cuda_device.type
+    card = DA.apply(b["img"].to(cuda_device), b["cls_boxes"].to(cuda_device),
+                    b["mask"].to(cuda_device), d, hyp)
+    cpu = DA.apply(b["img"], b["cls_boxes"], b["mask"], d.to("cpu"), hyp)
+    img, cb, mk = (t.cpu() for t in card)
+    assert img.shape == (8, 640, 640, 3) and torch.isfinite(img).all()
+    assert torch.equal(mk, cpu[2]) and mk.any()
+    assert (img - cpu[0]).abs().max().item() <= 0.1
+    assert (cb - cpu[1])[mk].abs().max().item() <= 1e-3
+
+
+def _step_launches():
+    return (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16, mlstm_chunkwise_bwd.launches,
+            mlstm_chunkwise_bwd.launches_bf16)
+
+
+def test_train_step_with_device_augment_launches_as_without(cuda_device):
+    """An AMP ``TrainStep`` of vil_yolon (batch 2, 320 px) launches 3 bf16
+    layer and 3 bf16 backward kernels a step and no fp32 one, with the
+    augmentation on the card and without it."""
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    batch = _aug_batch(2, 320, 16, seed=4, device=cuda_device)
+    for augment in (None, {"mosaic": 1.0}):
+        step = TrainStep(TaskModel("vil_yolon.yaml", device=cuda_device), augment=augment)
+        before = _step_launches()
+        loss, _ = step(batch)
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert tuple(a - b for a, b in zip(_step_launches(), before)) == (0, 3, 0, 3), augment
+
+
+@pytest.mark.parametrize("size", [320, 960])
+def test_multi_scale_step_on_card(cuda_device, size):
+    """A 640 px batch rescaled on the card to the extremes of
+    ``multi_scale``'s bucket, then an AMP step with the augmentation: the
+    images and boxes at the new size, a finite loss, 3 + 3 bf16 launches
+    (the ViL stages at S 14400 / 3600 / 900 at 960 px, 1600 / 400 / 100 at
+    320)."""
+    from xlstm_yolo_torch.engine.trainer import TrainStep, ms_rescale
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    batch = _aug_batch(2, 640, 16, seed=5, device=cuda_device)
+    scaled = ms_rescale(batch, size, 640)
+    assert scaled["img"].shape == (2, size, size, 3) and scaled["img"].dtype == torch.float32
+    torch.testing.assert_close(scaled["cls_boxes"][..., 1:],
+                               batch["cls_boxes"][..., 1:] * size / 640)
+    step = TrainStep(TaskModel("vil_yolon.yaml", device=cuda_device), augment={"mosaic": 1.0})
+    before = _step_launches()
+    loss, _ = step(scaled)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert tuple(a - b for a, b in zip(_step_launches(), before)) == (0, 3, 0, 3)

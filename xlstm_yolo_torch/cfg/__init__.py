@@ -5,9 +5,9 @@ Port of ``get_cfg``, ``check_cfg``, ``check_dict_alignment``, ``yaml_load``,
 ``model_yaml_path`` and ``load_model_yaml`` in
 ``xlstm_yolo_tpu/cfg/__init__.py``: defaults, then overrides, typed
 validation and did-you-mean errors for mistyped keys. The keys of the JAX
-package's device mesh, its on-device augmentation and multi-scale training
-are accepted at their defaults and refused otherwise (``UNSUPPORTED``); the
-``dtype`` key picks the train step's arithmetic (``amp_of``).
+package's device mesh are accepted at their defaults and refused otherwise
+(``UNSUPPORTED``); the ``dtype`` key picks the train step's arithmetic
+(``amp_of``).
 """
 from __future__ import annotations
 
@@ -37,10 +37,8 @@ CFG_BOOL_KEYS = {"save", "exist_ok", "verbose", "deterministic", "single_cls", "
                  "show_conf", "visualize", "augment", "agnostic_nms", "retina_masks",
                  "show_boxes", "keras", "optimize", "int8", "dynamic", "simplify", "nms",
                  "profile", "multi_scale", "stream_buffer", "device_augment"}
-# keys of the JAX package that the port refuses away from their defaults: one
-# card, host augmentation, one train size
-UNSUPPORTED = ("mesh_dp", "mesh_tp", "mesh_sp", "mesh_pp", "mesh_ep", "pp_microbatches",
-               "device_augment", "multi_scale")
+# keys of the JAX package that the port refuses away from their defaults: one card
+UNSUPPORTED = ("mesh_dp", "mesh_tp", "mesh_sp", "mesh_pp", "mesh_ep", "pp_microbatches")
 DTYPES = ("bfloat16", "float32")
 
 
@@ -120,9 +118,8 @@ def check_cfg(cfg: dict, hard: bool = True) -> dict:
                     _type_err(k, v, "bool", hard)
     for k in UNSUPPORTED:
         if k in cfg and cfg[k] != DEFAULT_CFG_DICT[k]:
-            raise ValueError(f"'{k}={cfg[k]}' is not supported by the PyTorch port (one card, "
-                             f"host augmentation, one train size); leave it at "
-                             f"{DEFAULT_CFG_DICT[k]!r}")
+            raise ValueError(f"'{k}={cfg[k]}' is not supported by the PyTorch port (one "
+                             f"card); leave it at {DEFAULT_CFG_DICT[k]!r}")
     if cfg.get("dtype") not in (None, *DTYPES):
         raise ValueError(f"'dtype={cfg['dtype']}' must be one of {DTYPES}")
     return cfg

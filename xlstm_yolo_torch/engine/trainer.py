@@ -1,13 +1,15 @@
 """Detection training: one step, and the loop of steps around it.
 
 Port of the ``train_step`` that ``Trainer._build_step`` builds in
-``xlstm_yolo_tpu/engine/trainer.py``, without mesh or device augmentation,
-and of the learning-rate part of ``Trainer.train``'s loop. A step: uint8
-images are normalized on the device in fp32, then (AMP, the JAX ``dtype:
-bfloat16`` default) cast to bf16; the train-mode forward computes in the
-activations' dtype (each module casts its fp32 weights at use, norms and
-BatchNorm compute in fp32, the ViL layers run their bf16 kernels on the
-card), the v8 loss in fp32; the backward brings fp32 gradients to the fp32
+``xlstm_yolo_tpu/engine/trainer.py``, without mesh, and of the
+learning-rate part of ``Trainer.train``'s loop. A step: uint8 images are
+normalized on the device in fp32; with ``augment`` (the ``device_augment``
+key) the batch is augmented there in fp32 (``data.device_augment``: mosaic,
+affine, HSV, flip, drawn from a generator seeded by the seed and the update
+count); then (AMP, the JAX ``dtype: bfloat16`` default) cast to bf16; the
+train-mode forward computes in the activations' dtype (each module casts
+its fp32 weights at use, norms and BatchNorm compute in fp32, the ViL layers
+run their bf16 kernels on the card), the v8 loss in fp32; the backward brings fp32 gradients to the fp32
 parameters; then the step update (``utils.train_utils.StepUpdate``: clip,
 decay, the optimizer, accumulation, EMA) at the step's learning rate. The
 stages are also callable one by one, for timing.
@@ -17,8 +19,11 @@ on the device: the per-epoch ``lr_schedule`` with the trainer's linear
 warm-up over the first steps.
 
 ``Trainer`` is the port of the JAX ``Trainer`` (``train``, without the
-device mesh, device augmentation, multi-scale, profiling and preemption):
-the dataset's loader (uint8 batches, pinned for the copy to the card), the
+device mesh, profiling and preemption): the dataset's loader (uint8
+batches, pinned for the copy to the card; letterbox only, in file order and
+keeping the last partial batch, under ``device_augment``), ``multi_scale``
+(each batch rescaled on the device to a size drawn on the host from five
+stride-aligned sizes, ``multi_scale_sizes`` and ``ms_rescale``), the
 model rebuilt to the dataset's class count with the weights of matching
 name and shape carried over, accumulation to a nominal batch of ``nbs``,
 the schedule and warm-up of ``fit_steps``, ``close_mosaic``, validation of
@@ -36,9 +41,12 @@ import math
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..cfg import amp_of, get_cfg
+from ..data import device_augment as DA
+from ..ops.letterbox import resize_bilinear
 from ..utils import resolve_device
 from ..utils.callbacks import default_callbacks
 from ..utils.checkpoint import load_checkpoint, load_optimizer_state, save_checkpoint
@@ -55,27 +63,53 @@ class TrainStep:
     from the model's class count and ``iterations`` as the JAX trainer
     resolves it; ``lr`` and ``momentum`` are then its),
     its state, the accumulation and the EMA live in ``self.update``;
-    ``n_updates`` counts the calls to the update."""
+    ``n_updates`` counts the calls to the update. ``augment`` (hyp keys,
+    ``device_augment.aug_hyp``; None: off) augments every batch on its
+    device before the forward, from draws seeded by (``seed``,
+    ``n_updates``); whether the mosaic canvas is used is fixed here by
+    ``augment["mosaic"]`` > 0, and ``mosaic_p``, the chance an image takes
+    it, starts at that value (``close_mosaic`` zeros it)."""
 
     def __init__(self, model, lr: float = 0.01, momentum: float = 0.937,
                  weight_decay: float = 5e-4, optimizer: str = "auto", iterations: float = 1e5,
-                 accumulate: int = 1, amp: bool = True):
+                 accumulate: int = 1, amp: bool = True, augment: dict | None = None,
+                 seed: int = 0):
         self.model = model.train()
         self.amp = amp
         self.update = StepUpdate(model, lr=lr, momentum=momentum, weight_decay=weight_decay,
                                  name=optimizer, nc=getattr(model, "nc", 80),
                                  iterations=iterations, accumulate=accumulate)
         self.n_updates = 0
+        self.augment = None if augment is None else DA.aug_hyp(augment)
+        self.mosaic_p = None if augment is None else self.augment["mosaic"]
+        self.seed = int(seed)
+
+    def augment_draws(self, B: int, S: int, device) -> DA.Draws:
+        """This step's random choices for B images of (S, S), on ``device``."""
+        g = DA.step_generator(self.seed, self.n_updates, device)
+        return DA.draw(B, S, self.augment, self.mosaic_p, g)
+
+    def augment_batch(self, batch: dict) -> dict:
+        """The batch (images fp32 in [0, 1]) augmented on its device, as the
+        JAX step augments it: on the images times 255, the result over 255."""
+        img = batch["img"]
+        d = self.augment_draws(img.shape[0], img.shape[1], img.device)
+        out, cb, mk = DA.apply(img * 255.0, batch["cls_boxes"], batch["mask"], d, self.augment)
+        return {**batch, "img": out / 255.0, "cls_boxes": cb, "mask": mk}
 
     def forward_loss(self, batch: dict):
-        """Normalize uint8 images (/255, fp32), cast them to bf16 under AMP,
-        then forward + loss."""
+        """Normalize uint8 images (/255, fp32), augment the batch when
+        ``augment`` is set, cast the images to bf16 under AMP, then forward +
+        loss."""
         img = batch["img"]
         if img.dtype == torch.uint8:
             img = img.float() / 255.0
+        batch = {**batch, "img": img}
+        if self.augment is not None:
+            batch = self.augment_batch(batch)
         if self.amp:
-            img = img.to(torch.bfloat16)
-        return self.model.loss({**batch, "img": img})
+            batch["img"] = batch["img"].to(torch.bfloat16)
+        return self.model.loss(batch)
 
     def backward(self, total: torch.Tensor) -> None:
         for p in self.update.params:
@@ -118,6 +152,29 @@ class TrainStep:
 
 
 BATCH_KEYS = ("img", "cls_boxes", "mask")
+
+
+def multi_scale_sizes(imgsz: int, multi_scale: bool, strides) -> list:
+    """The sizes a ``multi_scale`` run draws from, as the JAX trainer's
+    bucket: (0.5, 0.75, 1, 1.25, 1.5) times ``imgsz``, rounded to the
+    largest stride (at least 32); none when off."""
+    if not multi_scale:
+        return []
+    ms, gs = 0.5, max(32, int(max(strides)))
+    return sorted({max(gs, int(round(imgsz * f / gs)) * gs)
+                   for f in (1 - ms, 1 - ms / 2, 1.0, 1 + ms / 2, 1 + ms)})
+
+
+def ms_rescale(batch: dict, sz: int, imgsz: int) -> dict:
+    """A batch of ``imgsz`` images rescaled on its device to ``sz``: uint8
+    images to fp32 / 255 first, resized as ``jax.image.resize`` bilinear;
+    the boxes scaled by sz / imgsz."""
+    img = batch["img"]
+    if img.dtype == torch.uint8:
+        img = img.float() / 255.0
+    cb = batch["cls_boxes"]
+    return {**batch, "img": resize_bilinear(img, sz, sz),
+            "cls_boxes": torch.cat([cb[..., :1], cb[..., 1:] * (sz / imgsz)], -1)}
 
 
 class Trainer:
@@ -186,10 +243,13 @@ class Trainer:
         self.save_dir.mkdir(parents=True, exist_ok=True)
         self.run_callbacks("on_pretrain_routine_start")
         imgsz, batch, epochs = int(args.imgsz), int(args.batch), int(args.epochs)
+        dev_aug = bool(args.device_augment)
+        # with the augmentation on the device the host path is letterbox-only
         self.loader, self.data = build_dataloader(
-            args.data, "train", batch=batch, imgsz=imgsz, hyp=dict(vars(args)),
-            max_labels=int(args.max_labels), seed=int(args.seed), fraction=float(args.fraction),
-            single_cls=bool(args.single_cls), cache=args.cache, workers=int(args.workers or 0))
+            args.data, "train", batch=batch, imgsz=imgsz, augment=False if dev_aug else None,
+            hyp=dict(vars(args)), max_labels=int(args.max_labels), seed=int(args.seed),
+            fraction=float(args.fraction), single_cls=bool(args.single_cls), cache=args.cache,
+            workers=int(args.workers or 0))
         self.loader.ds.uint8_images = True  # normalized on the device
         self.loader.pin = self.device.type == "cuda"
         resume = None
@@ -207,11 +267,18 @@ class Trainer:
         self.iterations = math.ceil(nb / accumulate) * epochs
         self.step = TrainStep(self.model, lr=args.lr0, momentum=args.momentum,
                               weight_decay=args.weight_decay, optimizer=args.optimizer,
-                              iterations=self.iterations, accumulate=accumulate, amp=amp_of(args))
+                              iterations=self.iterations, accumulate=accumulate, amp=amp_of(args),
+                              augment=vars(args) if dev_aug else None, seed=int(args.seed))
+        # multi-scale: one size a batch, drawn on the host from a fixed bucket
+        ms_sizes = multi_scale_sizes(imgsz, args.multi_scale, self.model.strides)
+        ms_rng = np.random.default_rng(int(args.seed) + 4242)
+        self._ms_sizes_used = set()
         if resume is not None:
             if not load_optimizer_state(resume, self.step):
                 raise ValueError(f"{resume} holds no optimizer state to resume from")
             self.loader.epoch = self.start_epoch
+            for _ in range(self.start_epoch * nb if ms_sizes else 0):  # the sizes drawn so far
+                ms_rng.choice(ms_sizes)
             print(f"resuming from {resume} at epoch {self.start_epoch}")
         self.lr0 = self.step.update.lr
         sched = lr_schedule(self.lr0, args.lrf, epochs, cos_lr=bool(args.cos_lr))
@@ -219,7 +286,9 @@ class Trainer:
         stopper = EarlyStopping(patience=int(args.patience))
         print(f"training {self.model.task} model: {epochs} epochs x {nb} batches (batch {batch}, "
               f"imgsz {imgsz}, optimizer {self.step.update.name}, lr0 {self.lr0}, accumulate "
-              f"{accumulate}, {'bf16 AMP' if self.step.amp else 'fp32'}, {self.device})")
+              f"{accumulate}, {'bf16 AMP' if self.step.amp else 'fp32'}, {self.device}"
+              + (", device augmentation" if dev_aug else "")
+              + (f", multi-scale {ms_sizes}" if ms_sizes else "") + ")")
         self.run_callbacks("on_pretrain_routine_end")
         self.run_callbacks("on_train_start")
 
@@ -231,12 +300,20 @@ class Trainer:
             self.run_callbacks("on_train_epoch_start")
             if args.close_mosaic and epoch >= max(epochs - int(args.close_mosaic), 0):
                 self.loader.ds.hyp["mosaic"] = 0.0
+                if dev_aug:  # the step keeps its 2S canvas; no image takes the mosaic
+                    self.step.mosaic_p = 0.0
             terms = []
             t0 = time.time()
             for batch_data in self.loader:
                 self.run_callbacks("on_train_batch_start")
                 lr = warmup_lr(step, epoch, warmup, sched(epoch), args.warmup_bias_lr)
-                total, aux = self.step(self._to_device(batch_data), lr)
+                db = self._to_device(batch_data)
+                if ms_sizes:
+                    sz = int(ms_rng.choice(ms_sizes))
+                    self._ms_sizes_used.add(sz)
+                    if sz != imgsz:
+                        db = ms_rescale(db, sz, imgsz)
+                total, aux = self.step(db, lr)
                 terms.append(torch.stack([aux["box"], aux["cls"], aux["dfl"], total]))
                 step += 1
                 self.run_callbacks("optimizer_step")
