@@ -29,8 +29,8 @@ The xLSTM language model, through ``xlstm_yolo_torch.nn.xlstm``:
 The standalone ViL classifier, through ``xlstm_yolo_torch.nn.vil_extra``:
 
 * ``VisionLSTM2`` at its published width (dim 192, depth 12, patch 16, 224
-  px, 1000 classes; head dim 64, stochastic depth 0.05 decayed over the
-  depth), batch 64 of seeded images: one eval forward, and one train step
+  px, 1000 classes; head dim 64 here, stochastic depth 0.05 decayed over
+  the depth), batch 64 of seeded images: one eval forward, and one train step
   (train-mode forward with a seeded generator -> cross-entropy -> backward
   -> clip, decay, nesterov SGD, EMA); logits, loss and every gradient are
   checked against the same model with the plain versions forced in (the
@@ -93,6 +93,17 @@ INNER 1280, 20 heads): one inference forward of each at batch 2 and 640
 px, and one train step of ``vil_yolox``, each against the same model with
 the plain versions forced in.
 
+ViL models at the JAX package's own default head dims
+(``vil_headdim_path``), the ViL kernels instantiated at head dims 4 to 32:
+ViL-YOLO-n with ``qkv_block_size`` left out of its YAML rows (head dim 16:
+fp32 inference, bf16 serving, an AMP step and an fp32 step),
+``VisionLSTM2`` at its class default (head dim 4, 96 heads: eval, a
+stochastic-depth step, the block-fused entry) and a YAML graph of the
+fork's blocks from a ``VisionLSTM`` row; each against its plain-forced
+twin. ``kernel_parity`` holds every kernel of the family at head dim 4 at
+the classifier's shape and at 16 at P3 and P5, with bounds that count the
+decay matrix.
+
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -125,6 +136,7 @@ PEAK_BF16_FLOPS = 989e12
 TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 TOL_REL = 1e-3
+GATE_OPS = 4  # operations an entry of the chunkwise decay matrix (gate_matrix_ops)
 TOL_BF16_GRAD = 3e-3  # the bf16 chunkwise backward against its plain version (relative L2)
 BF16_MAX_EXCESS = 5e-3  # a bf16 entry's largest error beyond its rounding, of the max
 BF16_METRIC = "relative L2 (bf16 outputs both rounded); max_abs_err beyond the bf16 rounding"
@@ -158,11 +170,26 @@ K5_CASES = [("readme_S256_DH32", 4, 256, 32), ("wide_S1024_DH128", 4, 1024, 128)
 # the chunkwise backward at the language model's wide head dims, on K1's workspace
 K2_LM_CASES = [("wide_S1024_DH256", 4, 1024, 256), ("S1024_DH128", 4, 1024, 128)]
 # the ViL classifier: VisionLSTM2's defaults (NX-AI vision-lstm's vil2-tiny
-# widths) with the head dim the ViL kernels take and stochastic depth on
+# widths) at head dim 64 and stochastic depth on (cls_path); the same at the
+# class's own default head dim, 4: 96 heads (vil_headdim_path)
 CLS = dict(dim=192, depth=12, patch_size=16, output_shape=(1000,), mode="classifier",
            pooling="bilateral_flatten", qkv_block_size=64, chunk_size=64, bidirectional=False,
            drop_path_rate=0.05, drop_path_decay=True)
+CLS_DEFAULT_DH = {**CLS, "qkv_block_size": 4}
 CLS_BATCH, CLS_HW = 64, 224
+# vil_headdim_path's YAML graph from the fork's blocks at the classifier's
+# widths: the ViL backbone as one row (head dim 16, its block default), the
+# partial after block 5 picked from its outputs, merged 2 x 2 in token space,
+# back to a map, normed
+GRAPH_YAML = {"nc": 1000, "backbone": [
+    [-1, 1, "VisionLSTM", [3, 192, {"depth": 12, "resolution": [224, 224], "patch_size": 16,
+                                    "output_indices": [5]}]],  # 0: [(B,192,14,14)] * 2
+    [-1, 1, "FeatureSplitIndex", [0]],                             # 1: (B, 192, 14, 14)
+    [-1, 1, "ImageToSequence", []],                                # 2: (B, 196, 192)
+    [-1, 1, "PatchMerging", []],                                   # 3: (B, 49, 384)
+    [-1, 1, "SequenceToImage", [[7, 7]]],                          # 4: (B, 384, 7, 7)
+    [-1, 1, "ViLLayerNormBlock", [384]],                           # 5
+]}
 # kernel cases at the ViL shapes: (name, S, DIM, INNER, NH, timed batch). The
 # layer kernel and the chunkwise backward run at every ViL-YOLO-n stage, at the
 # classifier's shape and at scale x's P5, the cell and block kernels at the
@@ -177,6 +204,11 @@ BF16_CASES = [(*stage, BATCH) for stage in STAGES]  # the bf16 entries: ViL-YOLO
 BF16_MS_CASES = [("P3_960px", 14400, 64, 128, 2, BATCH),
                  ("P5_320px", 100, 256, 512, 8, BATCH)]
 BF16_BIG_BATCH = 128  # the JAX bf16 train bench's batch (bench_train.py): the bf16 entries' second time
+# the ViL kernels at the JAX blocks' default head dims (vil_headdim_path): 4
+# at the classifier's shape (96 heads), 16 at ViL-YOLO-n's P3 and P5
+SMALL_DH_CASES = [("cls_DH4_S196", 196, 192, 384, 96, CLS_BATCH),
+                  ("P3_DH16_S6400", 6400, 64, 128, 8, BATCH),
+                  ("P5_DH16_S400", 400, 256, 512, 32, BATCH)]
 FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH), X_P5_CASE]
 # the flagship YAML's scales above n: (YAML, ViL layers per forward)
 SCALES = [("vil_yolos.yaml", 3), ("vil_yolom.yaml", 3), ("vil_yolol.yaml", 6),
@@ -193,6 +225,35 @@ K8_CASES = [("tal_b8_R256", BATCH * N_LABELS, 8400, TAL_K, False),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class Variant(NamedTuple):
+    """A model YAML changed in memory: its dict, scale and printed label."""
+    yaml: dict
+    scale: str
+    label: str
+
+
+def model_label(cfg) -> str:
+    return cfg.label if isinstance(cfg, Variant) else cfg
+
+
+def yolo_default_headdim() -> Variant:
+    """ViL-YOLO-n with ``qkv_block_size`` left out of its three ViL rows, as
+    a user's YAML that does not set it: they take ViLBlockPairBlock's
+    default head dim, 16 (P3 8 heads, P4 16, P5 32)."""
+    import copy
+
+    from xlstm_yolo_torch.cfg import load_model_yaml
+
+    cfg, scale = load_model_yaml("vil_yolon.yaml")
+    cfg = copy.deepcopy(cfg)
+    for row in cfg["backbone"] + cfg.get("head", []):
+        if row[2] == "ViLBlockPairBlock":
+            for a in row[3]:
+                if isinstance(a, dict):
+                    a.pop("qkv_block_size", None)
+    return Variant(cfg, scale, "vil_yolon.yaml without qkv_block_size (head dim 16)")
 
 
 class PhaseError(RuntimeError):
@@ -269,7 +330,22 @@ def layer_args(B, S, DIM, INNER, NH, seed, device):
             mk(INNER, DIM) * INNER ** -0.5, mk(DIM) * 0.1]
 
 
-def vil_bound(kind, B, S, DIM, INNER, NH, n_weight_floats):
+def gate_matrix_ops(B, S, NH, passes: int = 1) -> float:
+    """Operations of the per-head decay matrix of the chunkwise mLSTM: the
+    causal half of a KERNEL_CS x KERNEL_CS matrix per chunk and head,
+    GATE_OPS an entry (the log-decay sum, its exp, the product with q k^T
+    and the mask), ``passes`` times (the backward builds it twice: E and
+    dqk). Elementwise, so it counts at the fp32 CUDA-core rate in both
+    bounds. At head dim 64 it is a few percent of the products and the
+    bounds of the head-dim-64 cases leave it out; at 4 and 8 it is as much
+    as the products, and the cases at those head dims count it
+    (``gate_matrix``)."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
+
+    return passes * B * S * NH * (KERNEL_CS + 1) / 2 * GATE_OPS
+
+
+def vil_bound(kind, B, S, DIM, INNER, NH, n_weight_floats, gate_matrix: bool = False):
     """Least time for one call of the ViL family's ``kind`` ("cell", "block"
     or "layer"): the larger of its FLOPs over the fp32 peak and the bytes of
     its inputs, output and weights over the HBM rate. FLOPs count the work
@@ -279,7 +355,8 @@ def vil_bound(kind, B, S, DIM, INNER, NH, n_weight_floats):
     chunk-summary k v^T products; it reads conv_act and x_mlstm and writes
     h. The block adds proj_down and reads z and the residual too, writing
     (B, S, DIM). The layer adds proj_up (both halves) and reads only x and
-    conv_act. Elementwise work (norms, exp, gating) is left out."""
+    conv_act. Elementwise work (norms, exp, gating) is left out, but for
+    the decay matrix with ``gate_matrix`` (``gate_matrix_ops``)."""
     from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
 
     dh = INNER // NH
@@ -291,10 +368,11 @@ def vil_bound(kind, B, S, DIM, INNER, NH, n_weight_floats):
     if kind == "layer":
         macs += 2 * INNER * DIM
         floats = 2 * DIM + INNER
-    return roofline(2 * B * S * macs, 4 * (B * S * floats + n_weight_floats))
+    return roofline(2 * B * S * macs, 4 * (B * S * floats + n_weight_floats),
+                    elem_flops=gate_matrix_ops(B, S, NH) if gate_matrix else 0.0)
 
 
-def conv_bound(B, S, DIM, INNER, NH, n_weight_floats):
+def conv_bound(B, S, DIM, INNER, NH, n_weight_floats, gate_matrix: bool = False):
     """Least time for one conv-fused layer call: the layer's operations
     (``vil_bound``) plus the nine multiply-adds per token and channel of the
     depthwise conv, against the bytes of x, out and the weights only."""
@@ -303,7 +381,8 @@ def conv_bound(B, S, DIM, INNER, NH, n_weight_floats):
     dh = INNER // NH
     macs = (3 * INNER * dh + 6 * INNER * NH + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh)
             + 3 * INNER * DIM + 9 * INNER)
-    return roofline(2 * B * S * macs, 4 * (2 * B * S * DIM + n_weight_floats))
+    return roofline(2 * B * S * macs, 4 * (2 * B * S * DIM + n_weight_floats),
+                    elem_flops=gate_matrix_ops(B, S, NH) if gate_matrix else 0.0)
 
 
 def importable(module: str):
@@ -421,7 +500,7 @@ def grad_errors(grads_k, grads_p):
     return worst_rel, worst_name, vanishing, gmax
 
 
-def bwd_bound(B, S, INNER, NH):
+def bwd_bound(B, S, INNER, NH, gate_matrix: bool = False):
     """Least time for one chunkwise-backward call. FLOPs count the
     multiply-adds the CUDA function does per chunk and head of the
     (padded) sequence: six products over the causal half of the chunk
@@ -429,17 +508,19 @@ def bwd_bound(B, S, INNER, NH):
     DH x DH products per token (q C, dA C^T, the dC_attn sum, and the
     carry's dv and dk terms: 5 CS DH^2), times 2 FLOPs; bytes count q, k,
     v, dh, the gates and the carry states read once and dq, dk, dv, di, df
-    written once. Elementwise work (exp, norms, scans) is left out."""
+    written once. Elementwise work (exp, norms, scans) is left out, but for
+    the decay matrix, built twice, with ``gate_matrix``."""
     from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS as CS
 
     dh = INNER // NH
     ns = -(-S // CS)
     macs = B * NH * ns * (3 * CS * (CS + 1) * dh + 5 * CS * dh * dh)
     return roofline(2 * macs, 4 * (7 * B * S * INNER + 4 * B * NH * S
-                                   + B * NH * ns * (dh * dh + dh + 3)))
+                                   + B * NH * ns * (dh * dh + dh + 3)),
+                    elem_flops=gate_matrix_ops(B, ns * CS, NH, 2) if gate_matrix else 0.0)
 
 
-def bf16_vil_bound(B, S, DIM, INNER, NH, n_weight_floats):
+def bf16_vil_bound(B, S, DIM, INNER, NH, n_weight_floats, gate_matrix: bool = False):
     """Least time for one call of the bf16 layer kernel: its multiply-adds
     (``vil_bound``'s count for the layer) over the 989 TFLOP/s bf16
     tensor-core peak, against the bytes of x, conv_act and out at 2 bytes
@@ -450,10 +531,11 @@ def bf16_vil_bound(B, S, DIM, INNER, NH, n_weight_floats):
     dh = INNER // NH
     macs = (3 * INNER * dh + 6 * INNER * NH + NH * ((KERNEL_CS + 1) * dh + 2 * dh * dh)
             + 3 * INNER * DIM)
-    return bf16_bound(2 * B * S * macs, 2 * B * S * (2 * DIM + INNER) + 4 * n_weight_floats)
+    return bf16_bound(2 * B * S * macs, 2 * B * S * (2 * DIM + INNER) + 4 * n_weight_floats,
+                      gate_matrix_ops(B, S, NH) if gate_matrix else 0.0)
 
 
-def bf16_bwd_bound(B, S, INNER, NH):
+def bf16_bwd_bound(B, S, INNER, NH, gate_matrix: bool = False):
     """Least time for one call of the bf16 chunkwise backward: ``bwd_bound``'s
     multiply-adds over the bf16 tensor-core peak, against its bytes with
     q, k, v, dq, dk, dv at 2 bytes and dh, the gates and the states at 4."""
@@ -463,15 +545,17 @@ def bf16_bwd_bound(B, S, INNER, NH):
     ns = -(-S // CS)
     macs = B * NH * ns * (3 * CS * (CS + 1) * dh + 5 * CS * dh * dh)
     return bf16_bound(2 * macs, 2 * 6 * B * S * INNER + 4 * (B * S * INNER + 4 * B * NH * S
-                                                           + B * NH * ns * (dh * dh + dh + 3)))
+                                                           + B * NH * ns * (dh * dh + dh + 3)),
+                      gate_matrix_ops(B, ns * CS, NH, 2) if gate_matrix else 0.0)
 
 
-def bf16_bound(flops, nbytes):
+def bf16_bound(flops, nbytes, elem_flops: float = 0.0):
     """The ``Bound`` of bf16 tensor-core work: ``ms`` the larger of the
-    operations at PEAK_BF16_FLOPS and the bytes at PEAK_BYTES_PER_S,
-    ``tc_ms`` the operations alone."""
+    operations at PEAK_BF16_FLOPS (``elem_flops``, elementwise, at
+    PEAK_FP32_FLOPS) and the bytes at PEAK_BYTES_PER_S, ``tc_ms`` the
+    operations alone."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + elem_flops / PEAK_FP32_FLOPS) * 1e3
     return Bound(*((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")),
                  t_ops, "operations")
 
@@ -488,13 +572,15 @@ class Bound(NamedTuple):
     tc_by: str
 
 
-def roofline(flops, nbytes, products: bool = True) -> Bound:
+def roofline(flops, nbytes, products: bool = True, elem_flops: float = 0.0) -> Bound:
     """The ``Bound`` of ``flops`` operations (multiply-adds count two;
-    ``products``: they are matrix products the tensor cores can take) and
-    ``nbytes`` bytes moved."""
+    ``products``: they are matrix products the tensor cores can take),
+    ``elem_flops`` elementwise ones (the fp32 CUDA cores' in both bounds)
+    and ``nbytes`` bytes moved."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_tc = flops * TF32_PASSES / PEAK_TF32_FLOPS * 1e3 if products else t_ops
+    t_elem = elem_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3 + t_elem
+    t_tc = (flops * TF32_PASSES / PEAK_TF32_FLOPS * 1e3 + t_elem) if products else t_ops
     side = lambda t: (t, "operations") if t >= t_bytes else (t_bytes, "bytes")
     return Bound(*side(t_ops), *side(t_tc))
 
@@ -971,11 +1057,78 @@ def phase_kernel_parity():
         batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD,
         extra=bf16_extra(k2, bf16_bwd_case, run_k2b, bound_k2b), metric=BF16_METRIC)
         for cases in (BF16_CASES, BF16_MS_CASES))
-    return k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b
+
+    # the JAX blocks' default head dims (SMALL_DH_CASES): each kernel of the
+    # family, fp32 and bf16, against its plain version, with bounds that count
+    # the decay matrix; their lines only (the kernels line sums the cases
+    # above and lists these times by case)
+    def dh_extra(make_case, run):
+        """Beside each case: its head dim, and the device time of every
+        kernel the call launches at the timed batch (torch.profiler)."""
+        def extra(case, ms):
+            args = make_case(case[5], case)
+            stages = stage_device_ms(lambda: run(args, case))
+            return {"head_dim": case[3] // case[4], "bound_counts_gate_matrix": True,
+                    "device_ms": sum(stages.values()), "stage_device_ms": stages}
+        return extra
+
+    nw = lambda args, first: sum(a.numel() for a in args[first:])
+    small_layer_case = lambda B, case: layer_args(B, *case[1:5], seed=case[1] + B + 30, device=dev)
+    run_k3 = lambda args, case: (vil_layer_fwd(*args, case[4], chunk_size=CHUNK),)
+    run_k2 = lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1])
+    small_cell_case = lambda B, case: cell_of(block_case(B, case))
+    run_k4 = lambda args, case: (vil_cell_fwd(*args, case[4], chunk_size=CHUNK),)
+    run_k7 = lambda args, case: (vil_block_fwd(*args, case[4], chunk_size=CHUNK),)
+    run_k6 = lambda args, case: (vil_layer_conv_fwd(*args, case[4], grid(case), chunk_size=CHUNK),)
+    small = {
+        "vil_layer_fwd": kernel_parity(
+            "vil_layer_fwd", SMALL_DH_CASES, small_layer_case, run_k3,
+            lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=CHUNK),),
+            lambda args, case: vil_bound("layer", case[5], *case[1:5], nw(args, 2),
+                                         gate_matrix=True),
+            batch_of=timed_batch, extra=dh_extra(small_layer_case, run_k3)),
+        "mlstm_chunkwise_bwd": kernel_parity(
+            "mlstm_chunkwise_bwd", SMALL_DH_CASES, bwd_case, run_k2,
+            lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4]),
+            lambda args, case: bwd_bound(case[5], case[1], case[3], case[4], gate_matrix=True),
+            batch_of=timed_batch, extra=dh_extra(bwd_case, run_k2)),
+        "vil_cell_fwd": kernel_parity(
+            "vil_cell_fwd", SMALL_DH_CASES, small_cell_case, run_k4,
+            lambda args, case: (vil_cell_plain(*args, case[4], chunk_size=CHUNK),),
+            lambda args, case: vil_bound("cell", case[5], *case[1:5], nw(args, 2),
+                                         gate_matrix=True),
+            batch_of=timed_batch, extra=dh_extra(small_cell_case, run_k4)),
+        "vil_block_fwd": kernel_parity(
+            "vil_block_fwd", SMALL_DH_CASES, block_case, run_k7,
+            lambda args, case: (vil_block_plain(*args, case[4], chunk_size=CHUNK),),
+            lambda args, case: vil_bound("block", case[5], *case[1:5], nw(args, 4),
+                                         gate_matrix=True),
+            batch_of=timed_batch, extra=dh_extra(block_case, run_k7)),
+        "vil_layer_conv_fwd": kernel_parity(
+            "vil_layer_conv_fwd", SMALL_DH_CASES, conv_case, run_k6,
+            lambda args, case: (vil_layer_conv_plain(*args, case[4], grid(case),
+                                                     chunk_size=CHUNK),),
+            lambda args, case: conv_bound(case[5], *case[1:5], nw(args, 1), gate_matrix=True),
+            batch_of=timed_batch,
+            extra=lambda case, ms: {**dh_extra(conv_case, run_k6)(case, ms),
+                                    "grid": list(grid(case))}),
+        "vil_layer_fwd_bf16": kernel_parity(
+            "vil_layer_fwd_bf16", SMALL_DH_CASES, bf16_layer_case, run_k3b, plain_k3b,
+            lambda args, case: bf16_vil_bound(case[5], *case[1:5], nw(args, 2), gate_matrix=True),
+            batch_of=timed_batch, cmp=compare_bf16, extra=dh_extra(bf16_layer_case, run_k3b),
+            metric=BF16_METRIC),
+        "mlstm_chunkwise_bwd_bf16": kernel_parity(
+            "mlstm_chunkwise_bwd_bf16", SMALL_DH_CASES, bf16_bwd_case, run_k2b, plain_k2b,
+            lambda args, case: bf16_bwd_bound(case[5], case[1], case[3], case[4],
+                                              gate_matrix=True),
+            batch_of=timed_batch, cmp=compare_bf16, tol=TOL_BF16_GRAD,
+            extra=dh_extra(bf16_bwd_case, run_k2b), metric=BF16_METRIC)}
+    return k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b, small
 
 
-def build_main_model(device, train: bool = False, cfg: str = "vil_yolon.yaml"):
-    """ViL-YOLO (scale n unless ``cfg`` names another) on ``device``: seeded
+def build_main_model(device, train: bool = False, cfg="vil_yolon.yaml"):
+    """ViL-YOLO (scale n unless ``cfg`` names another, or a ``Variant`` of
+    it) on ``device``: seeded
     init with the JAX scheme, then seeded gate kernels (zero at init;
     ``gate_std``), so the mLSTM gates vary along the sequence. For
     inference, zero class biases (detections clear the confidence
@@ -987,7 +1140,8 @@ def build_main_model(device, train: bool = False, cfg: str = "vil_yolon.yaml"):
     from xlstm_yolo_torch.nn.tasks import TaskModel
     from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
 
-    model = TaskModel(cfg, device=device, seed=0)
+    model = (TaskModel(cfg.yaml, scale=cfg.scale, device=device, seed=0)
+             if isinstance(cfg, Variant) else TaskModel(cfg, device=device, seed=0))
     g = torch.Generator(device="cpu").manual_seed(1)
     with torch.no_grad():
         for m in model.modules():
@@ -1003,7 +1157,9 @@ def build_main_model(device, train: bool = False, cfg: str = "vil_yolon.yaml"):
     return fuse_conv_bn(model)
 
 
-def phase_main_path():
+def phase_main_path(cfg="vil_yolon.yaml", name: str = "main_path"):
+    """``Predictor`` inference against the plain-forced model (``cfg`` as
+    ``build_main_model`` takes it; ``name`` heads the printed line)."""
     import torch
 
     import xlstm_yolo_torch.nn.vil as vil_mod
@@ -1011,7 +1167,7 @@ def phase_main_path():
     from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd, vil_layer_ref
     from xlstm_yolo_torch.nn.heads import decode_detections
 
-    model = build_main_model("cuda")
+    model = build_main_model("cuda", cfg=cfg)
     pred = Predictor(model, imgsz=IMGSZ)
     frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
     raw = torch.from_numpy(frames).cuda()
@@ -1053,14 +1209,14 @@ def phase_main_path():
     total_ms = sum(times.values())
     ok = shapes_ok and finite and launches == len(STAGES) and box_rel <= TOL_REL \
         and score_abs <= TOL_REL and n_valid > 0
-    emit({"phase": "main_path", "model": "vil_yolon.yaml", "params_after_fuse": model.num_params(),
+    emit({"phase": name, "model": model_label(cfg), "params_after_fuse": model.num_params(),
           "batch": BATCH, "src_hw": list(SRC_HW), "imgsz": IMGSZ, "launches": launches,
           "expected_launches": len(STAGES), "shapes_ok": shapes_ok, "finite": finite,
           "cands_box_maxrelerr": box_rel, "cands_score_max_abs_err": score_abs,
           "valid_dets": n_valid, "ms": times, "total_ms": total_ms,
           "img_per_s": BATCH / total_ms * 1e3, "ok": ok})
     if not ok:
-        raise PhaseError("main path check failed")
+        raise PhaseError(f"{name} check failed")
     return launches
 
 
@@ -1090,7 +1246,7 @@ def train_batch(device, batch: int = BATCH):
             "mask": torch.from_numpy(mask).to(device)}
 
 
-def phase_train_path():
+def phase_train_path(cfg="vil_yolon.yaml", name: str = "train_path"):
     """One TrainStep with the kernels against the same step with the plain
     versions forced in (loss, and every parameter gradient within TOL_REL of
     that tensor's max), then TRAIN_TIMED steps after TRAIN_WARMUP timed by
@@ -1104,7 +1260,7 @@ def phase_train_path():
     batch = train_batch("cuda")
     steps = {}
     for kind in ("kernels", "plain"):
-        model = build_main_model("cuda", train=True)
+        model = build_main_model("cuda", train=True, cfg=cfg)
         step = TrainStep(model, amp=False)
         ctx = plain_vil_kernels() if kind == "plain" else nullcontext()
         with ctx:
@@ -1149,7 +1305,7 @@ def phase_train_path():
     expect = (len(STAGES), len(STAGES))
     ok = (finite and launches == expect and per_step == expect and plain_launches == (0, 0)
           and worst_rel <= TOL_REL and loss_rel <= TOL_REL)
-    emit({"phase": "train_path", "model": "vil_yolon.yaml", "batch": BATCH, "imgsz": IMGSZ,
+    emit({"phase": name, "model": model_label(cfg), "batch": BATCH, "imgsz": IMGSZ,
           "labels": N_LABELS, "launches_vil_layer_fwd": launches[0],
           "launches_mlstm_chunkwise_bwd": launches[1], "launches_per_timed_step": per_step,
           "expected_launches": expect, "loss": loss_k, "loss_plain": loss_p,
@@ -1158,11 +1314,11 @@ def phase_train_path():
           "losses": losses, "finite": finite, "ms": times, "total_ms": total_ms,
           "img_per_s": BATCH / total_ms * 1e3, "ok": ok})
     if not ok:
-        raise PhaseError("train path check failed")
+        raise PhaseError(f"{name} check failed")
     return launches
 
 
-def phase_main_path_bf16():
+def phase_main_path_bf16(cfg="vil_yolon.yaml", name: str = "main_path_bf16"):
     """bf16 serving at the ``main_path`` boundary: ``Predictor(dtype=
     "bfloat16")`` (parameters cast to bf16 after the conv+BN fold, BatchNorm
     statistics fp32; bf16 letterbox and forward; decode and NMS fp32) on
@@ -1178,7 +1334,7 @@ def phase_main_path_bf16():
     from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
     from xlstm_yolo_torch.nn.heads import decode_detections
 
-    model = build_main_model("cuda")
+    model = build_main_model("cuda", cfg=cfg)
     frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
     raw = torch.from_numpy(frames).cuda()
     with plain_vil_kernels(), torch.inference_mode():
@@ -1224,7 +1380,7 @@ def phase_main_path_bf16():
     total_ms = sum(times.values())
     ok = (shapes_ok and finite and bf16_params and launches == (0, len(STAGES)) and n_valid > 0
           and box_rel <= TOL_REL and score_abs <= TOL_REL)
-    emit({"phase": "main_path_bf16", "model": "vil_yolon.yaml", "batch": BATCH,
+    emit({"phase": name, "model": model_label(cfg), "batch": BATCH,
           "src_hw": list(SRC_HW), "imgsz": IMGSZ, "params_dtype": "bfloat16",
           "launches_vil_layer_fwd": launches[0], "launches_vil_layer_fwd_bf16": launches[1],
           "expected_launches": [0, len(STAGES)], "shapes_ok": shapes_ok, "finite": finite,
@@ -1233,11 +1389,12 @@ def phase_main_path_bf16():
           "valid_dets": n_valid, "ms": times, "total_ms": total_ms,
           "img_per_s": BATCH / total_ms * 1e3, "ok": ok})
     if not ok:
-        raise PhaseError("bf16 main path check failed")
+        raise PhaseError(f"{name} check failed")
     return launches[1]
 
 
-def phase_train_loop_amp():
+def phase_train_loop_amp(cfg="vil_yolon.yaml", name: str = "train_loop_amp",
+                         loop: bool = True):
     """The AMP training loop. (a) The first AMP step (``TrainStep(amp=True)``:
     bf16 activations, fp32 parameters and gradients; forward, loss,
     backward) against the same step with the plain versions forced in, and
@@ -1259,7 +1416,8 @@ def phase_train_loop_amp():
     accumulation of 2 steps into each update), then stage times over
     TRAIN_TIMED steps, peak memory and launches. (c) A checkpoint of the
     loop saved and loaded back: weights, buffers, EMA, optimizer state and
-    n_updates exactly."""
+    n_updates exactly. ``loop=False``: (a) alone (``cfg`` and ``name`` as
+    ``phase_main_path`` takes them)."""
     import tempfile
 
     import torch
@@ -1280,7 +1438,7 @@ def phase_train_loop_amp():
     batch = train_batch("cuda")
     first, calls = {}, []
     for kind in ("kernels", "plain", "plain_fp32"):
-        model = build_main_model("cuda", train=True)
+        model = build_main_model("cuda", train=True, cfg=cfg)
         step = TrainStep(model, amp=kind != "plain_fp32", accumulate=2)
         record = recording_vil_layers(calls) if kind == "kernels" else nullcontext()
         with plain_vil_kernels() if kind != "kernels" else nullcontext(), record:
@@ -1308,8 +1466,22 @@ def phase_train_loop_amp():
     first_ok = (finite and grads_fp32 and launches == (0, n, 0, n)
                 and plain_launches == (0, 0, 0, 0) and loss_rel <= 1e-2 and dist <= 1.5 * gap
                 and len(layers) == n and all(lay["ok"] for lay in layers))
+    first_step = {"launches": dict(zip(("vil_layer_fwd", "vil_layer_fwd_bf16",
+                                        "mlstm_chunkwise_bwd", "mlstm_chunkwise_bwd_bf16"),
+                                       launches)),
+                  "loss": loss_k, "loss_plain": loss_p, "loss_plain_fp32": loss_32,
+                  "loss_relerr": loss_rel, "loss_terms": aux, "grad_dist": dist,
+                  "grad_dist_fp32_gap": gap, "grad_worst_tensor_relerr": worst_rel,
+                  "grad_worst": worst_name, "grads_vanishing": vanishing,
+                  "grads_fp32": grads_fp32, "vil_layers": layers, "ok": first_ok}
+    if not loop:
+        emit({"phase": name, "model": model_label(cfg), "batch": BATCH, "imgsz": IMGSZ,
+              "first_step": first_step, "ok": first_ok})
+        if not first_ok:
+            raise PhaseError(f"{name} check failed")
+        return {"vil_layer_fwd_bf16": launches[1], "mlstm_chunkwise_bwd_bf16": launches[3]}
 
-    model = build_main_model("cuda", train=True)
+    model = build_main_model("cuda", train=True, cfg=cfg)
     step = TrainStep(model, amp=True, accumulate=2)
     batch2 = {**batch, "img": torch.flip(batch["img"], dims=(2,))}
     reset()
@@ -1350,23 +1522,15 @@ def phase_train_loop_amp():
         ckpt_ok = (same_weights and restored and same_state and meta["epoch"] == 1
                    and resumed.n_updates == step.n_updates)
     ok = first_ok and loop_ok and ckpt_ok
-    emit({"phase": "train_loop_amp", "model": "vil_yolon.yaml", "batch": BATCH, "imgsz": IMGSZ,
-          "optimizer": step.update.name, "accumulate": 2,
-          "first_step": {"launches": dict(zip(("vil_layer_fwd", "vil_layer_fwd_bf16",
-                                               "mlstm_chunkwise_bwd", "mlstm_chunkwise_bwd_bf16"),
-                                              launches)),
-                         "loss": loss_k, "loss_plain": loss_p, "loss_plain_fp32": loss_32,
-                         "loss_relerr": loss_rel, "loss_terms": aux, "grad_dist": dist,
-                         "grad_dist_fp32_gap": gap, "grad_worst_tensor_relerr": worst_rel,
-                         "grad_worst": worst_name, "grads_vanishing": vanishing,
-                         "grads_fp32": grads_fp32, "vil_layers": layers, "ok": first_ok},
+    emit({"phase": name, "model": model_label(cfg), "batch": BATCH, "imgsz": IMGSZ,
+          "optimizer": step.update.name, "accumulate": 2, "first_step": first_step,
           "fit_steps": {"steps": log, "launches": list(loop_launches), "peak_memory_gib":
                         loop_peak_gib, "ok": loop_ok},
           "ms": times, "total_ms": total_ms, "img_per_s": BATCH / total_ms * 1e3,
           "checkpoint": {"same_weights": same_weights, "same_optimizer_state": same_state,
                          "ok": ckpt_ok}, "ok": ok})
     if not ok:
-        raise PhaseError("AMP train loop check failed")
+        raise PhaseError(f"{name} check failed")
     return {"vil_layer_fwd_bf16": launches[1] + loop_launches[1],
             "mlstm_chunkwise_bwd_bf16": launches[3] + loop_launches[3]}
 
@@ -2282,16 +2446,16 @@ def carried_slstm_state_case():
     return {"shape": [BATCH, S, NH, DH], "launches": launches, "maxrelerr": rels, "ok": ok}
 
 
-def build_cls_model(train: bool):
-    """The ViL classifier on the card: seeded init with the JAX scheme, then
-    seeded gate kernels (zero at init), so the mLSTM gates vary along the
-    sequence."""
+def build_cls_model(train: bool, cfg: dict = CLS):
+    """The ViL classifier (``cfg``'s widths) on the card: seeded init with
+    the JAX scheme, then seeded gate kernels (zero at init), so the mLSTM
+    gates vary along the sequence."""
     import torch
 
     from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
     from xlstm_yolo_torch.nn.vil_extra import VisionLSTM2
 
-    model = VisionLSTM2(**CLS, resolution=(CLS_HW, CLS_HW), device="cuda", seed=0)
+    model = VisionLSTM2(**cfg, resolution=(CLS_HW, CLS_HW), device="cuda", seed=0)
     g = torch.Generator(device="cpu").manual_seed(1)
     with torch.no_grad():
         for m in model.modules():
@@ -2312,8 +2476,8 @@ def cls_inputs():
     return x.cuda(), labels.cuda()
 
 
-def phase_cls_path():
-    """The ViL classifier at batch CLS_BATCH. (a) One eval forward against
+def phase_cls_path(cfg: dict = CLS, name: str = "cls_path"):
+    """The ViL classifier (``cfg``) at batch CLS_BATCH. (a) One eval forward against
     the plain-forced model, then timed. (b) One stochastic-depth train step
     (forward with a seeded generator, cross-entropy, backward) against the
     plain-forced step under the same masks, then TRAIN_TIMED steps after
@@ -2337,10 +2501,10 @@ def phase_cls_path():
 
     count = lambda: tuple(c.launches for c in counters)
     x, labels = cls_inputs()
-    depth = CLS["depth"]
+    depth = cfg["depth"]
 
     # (a) eval forward
-    model = build_cls_model(train=False)
+    model = build_cls_model(train=False, cfg=cfg)
     reset()
     with torch.no_grad():
         logits = model(x)
@@ -2373,7 +2537,7 @@ def phase_cls_path():
     # (b) one train step, kernels against plain-forced under the same masks
     steps = {}
     for kind in ("kernels", "plain"):
-        model = build_cls_model(train=True)
+        model = build_cls_model(train=True, cfg=cfg)
         update = StepUpdate(model)
         gen = torch.Generator(device="cuda").manual_seed(5)
         with plain_vil_kernels() if kind == "plain" else nullcontext():
@@ -2422,7 +2586,7 @@ def phase_cls_path():
                 and per_step == expect and plain_launches == (0, 0, 0, 0)
                 and worst_rel <= TOL_REL and loss_rel <= TOL_REL)
     ok = eval_ok and block_ok and train_ok
-    emit({"phase": "cls_path", "model": {**CLS, "resolution": CLS_HW}, "params": model.num_params(),
+    emit({"phase": name, "model": {**cfg, "resolution": CLS_HW}, "params": model.num_params(),
           "batch": CLS_BATCH, "tol": TOL_REL,
           "eval": {"launches_vil_layer_fwd": eval_launches[0], "expected_launches": depth,
                    "logits_maxrelerr": eval_rel, "ms": eval_ms,
@@ -2439,10 +2603,82 @@ def phase_cls_path():
                     "peak_memory_gib": peak_gib, "ok": train_ok},
           "ok": ok})
     if not ok:
-        raise PhaseError("classifier path check failed")
+        raise PhaseError(f"{name} check failed")
     names = ("vil_layer_fwd", "vil_cell_fwd", "mlstm_chunkwise_bwd", "vil_block_fwd")
-    return {"cls_eval": dict(zip(names, eval_launches)), "cls_train": dict(zip(names, launches)),
-            "cls_block_entry": {"vil_block_fwd": block_launches}}
+    key = "cls" if name == "cls_path" else name
+    return {f"{key}_eval": dict(zip(names, eval_launches)),
+            f"{key}_train": dict(zip(names, launches)),
+            f"{key}_block_entry": {"vil_block_fwd": block_launches}}
+
+
+def phase_yaml_graph(name: str):
+    """GRAPH_YAML compiled by the port's graph compiler, seeded (gate kernels
+    too, as ``build_cls_model``), one eval forward at batch CLS_BATCH of the
+    classifier's images against the plain-forced graph: within TOL_REL of
+    its max, one K3 launch per ViL layer of the backbone; then timed."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.nn.graph import GraphModel, parse_model
+    from xlstm_yolo_torch.nn.modules import init_tree
+    from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
+
+    model = GraphModel(parse_model(GRAPH_YAML, ch=3))
+    init_tree(model, 0)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MatrixLSTMCell):
+                for lin in (m.igate, m.fgate):
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    model = model.eval().cuda()
+    x = cls_inputs()[0].permute(0, 3, 1, 2).contiguous()
+    depth = GRAPH_YAML["backbone"][0][3][2]["depth"]
+    heads = model.l0.backbone.block0.fwd.layer.num_heads
+    with torch.no_grad():
+        vil_layer_fwd.launches = 0
+        out = model(x)
+        torch.cuda.synchronize()
+        launches = vil_layer_fwd.launches
+        with plain_vil_kernels():
+            ref = model(x)
+        ms = cuda_time_ms(lambda: model(x), iters=5)
+    rel = compare(out, ref)[1]
+    ok = (tuple(out.shape) == (CLS_BATCH, 384, 7, 7) and bool(torch.isfinite(out).all())
+          and rel <= TOL_REL and launches == depth)
+    emit({"phase": name, "graph": [row[2] for row in GRAPH_YAML["backbone"]],
+          "batch": CLS_BATCH, "head_dim": 384 // heads, "heads": heads, "out_shape": list(out.shape),
+          "launches_vil_layer_fwd": launches, "expected_launches": depth, "maxrelerr": rel,
+          "tol": TOL_REL, "ms": ms, "img_per_s": CLS_BATCH / ms * 1e3, "ok": ok})
+    if not ok:
+        raise PhaseError(f"{name} check failed")
+    return launches
+
+
+def phase_vil_headdim_path():
+    """ViL models at the JAX blocks' own default head dims. ViL-YOLO-n at
+    head dim 16 (``yolo_default_headdim``): fp32 inference through
+    ``Predictor`` (``main_path``'s checks), bf16 serving
+    (``main_path_bf16``'s), one AMP step (``train_loop_amp``'s first step)
+    and one fp32 step (``train_path``'s): K3 fp32 and bf16, K2 fp32 and
+    bf16 at head dim 16. ``VisionLSTM2`` at its class default, head dim 4
+    (96 heads), at ``cls_path``'s widths: eval, a stochastic-depth step (K4
+    and K2 at head dim 4) and the block-fused entry (K7). GRAPH_YAML, the
+    fork's blocks from the ``VisionLSTM`` row (``phase_yaml_graph``). Each
+    against its plain-forced twin and timed, as the phase it reuses does.
+    Returns each sub-path's launch counts."""
+    yolo = yolo_default_headdim()
+    pre = "vil_headdim_path"
+    counts = {f"{pre}.yolo_fp32": {"vil_layer_fwd": phase_main_path(yolo, f"{pre}.yolo_fp32")},
+              f"{pre}.yolo_bf16": {"vil_layer_fwd_bf16": phase_main_path_bf16(
+                  yolo, f"{pre}.yolo_bf16")},
+              f"{pre}.yolo_amp_step": phase_train_loop_amp(yolo, f"{pre}.yolo_amp_step",
+                                                           loop=False),
+              f"{pre}.yolo_fp32_step": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"),
+                                                phase_train_path(yolo, f"{pre}.yolo_fp32_step")))}
+    counts.update(phase_cls_path(CLS_DEFAULT_DH, f"{pre}.cls_dh4"))
+    counts[f"{pre}.yaml_graph"] = {"vil_layer_fwd": phase_yaml_graph(f"{pre}.yaml_graph")}
+    return counts
 
 
 def phase_scales_path():
@@ -2531,7 +2767,7 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel_parity"
-        k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b = phase_kernel_parity()
+        k3, k2, k1, k5, k5b, k4, k7, k6, k8, k3b, k2b, small_dh = phase_kernel_parity()
         phase = "main_path"
         launches = phase_main_path()
         phase = "main_path_bf16"
@@ -2556,6 +2792,8 @@ def main() -> int:
         lm_train_launches = phase_lm_train_path()
         phase = "scales_path"
         scales_launches = phase_scales_path()
+        phase = "vil_headdim_path"
+        headdim_launches = phase_vil_headdim_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -2573,7 +2811,8 @@ def main() -> int:
                "kth_path": {"rowwise_kth_value": kth_launches},
                "conv_path": conv_launches,
                "lm_train_path": lm_train_launches,
-               "scales_path": scales_launches}
+               "scales_path": scales_launches,
+               **headdim_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran
@@ -2589,7 +2828,9 @@ def main() -> int:
                                              if "ms_by_case" in k else {}),
                 **({"bf16_speedup_by_case": {c: fp32["ms_by_case"][c] / ms
                                              for c, ms in k["ms_by_case"].items()}}
-                   if fp32 else {})}
+                   if fp32 else {}),
+                **({"small_head_dim_ms_by_case": small_dh[name]["ms_by_case"]}
+                   if name in small_dh else {})}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",

@@ -87,7 +87,7 @@ def test_vil_layer_kernel_rejects_bad_input(cuda_device):
     args = _layer_args(1, 64, 64, 2, cuda_device, seed=0)
     with pytest.raises(TypeError):
         vil_layer_fwd(args[0].double(), *args[1:], 2)
-    with pytest.raises(ValueError):  # head dim 32: not what the kernel is written for
+    with pytest.raises(ValueError):  # 4 heads over weights made for 2
         vil_layer_fwd(*args, 4)
 
 
@@ -591,13 +591,13 @@ def test_xlstm_lm_forward_launches_kernels(cuda_device):
     assert out.shape == (2, 23) and bool((out[:, :20] == tokens[:, :20]).all())
 
 
-def _block_args(B, S, DIM, NH, device, seed):
+def _block_args(B, S, DIM, NH, device, seed, DH=64):
     """The block function's 19 arguments, cut from seeded layer arguments:
     conv_act, x_mlstm, z, x_res, then the cell's and the tail's."""
-    a = _layer_args(B, S, DIM, NH, device, seed)
+    a = _layer_args(B, S, DIM, NH, device, seed, DH)
     rng = np.random.default_rng(seed + 1)
     mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
-    return [a[1], mk(B, S, NH * 64), mk(B, S, NH * 64), a[0], *a[5:]]
+    return [a[1], mk(B, S, NH * DH), mk(B, S, NH * DH), a[0], *a[5:]]
 
 
 FAMILY = {"cell": (vil_cell_fwd, vil_cell_plain, 12), "block": (vil_block_fwd, vil_block_plain, 19)}
@@ -606,8 +606,8 @@ FAMILY_SHAPES = [(196, 192, 6, "exp"), (6400, 64, 2, "exp"), (77, 64, 2, "sigmoi
 FAMILY_IDS = ["classifier_ragged", "P3", "short_sigmoid", "one_chunk"]
 
 
-def _family_args(which, B, S, DIM, NH, device, seed):
-    args = _block_args(B, S, DIM, NH, device, seed)
+def _family_args(which, B, S, DIM, NH, device, seed, DH=64):
+    args = _block_args(B, S, DIM, NH, device, seed, DH)
     return args if which == "block" else [args[0], args[1], *args[4:14]]
 
 
@@ -634,7 +634,7 @@ def test_vil_cell_and_block_kernels_reject_bad_input(cuda_device, which):
     args = _family_args(which, 1, 64, 64, 2, cuda_device, seed=0)
     with pytest.raises(TypeError):
         fwd(args[0].double(), *args[1:], 2)
-    with pytest.raises(ValueError):  # head dim 32: not what the kernel is written for
+    with pytest.raises(ValueError):  # 4 heads over weights made for 2
         fwd(*args, 4)
     with pytest.raises(ValueError):  # an argument left on the CPU
         fwd(args[0], args[1].cpu(), *args[2:], 2)
@@ -833,13 +833,13 @@ def test_rowwise_kth_value_kernel_casts_and_refuses(cuda_device):
         rowwise_kth_value(x[0], 3)
 
 
-def _conv_args(B, H, W, DIM, NH, device, seed):
+def _conv_args(B, H, W, DIM, NH, device, seed, DH=64):
     """The conv-fused layer's 21 arguments from seeded layer arguments: x,
     the norm and proj_up, a seeded depthwise kernel and bias, the rest."""
-    a = _layer_args(B, H * W, DIM, NH, device, seed)
+    a = _layer_args(B, H * W, DIM, NH, device, seed, DH)
     rng = np.random.default_rng(seed + 5)
     mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
-    return [a[0], *a[2:5], mk(NH * 64, 1, 3, 3) * 0.3, mk(NH * 64) * 0.1, *a[5:]]
+    return [a[0], *a[2:5], mk(NH * DH, 1, 3, 3) * 0.3, mk(NH * DH) * 0.1, *a[5:]]
 
 
 @pytest.mark.parametrize("H,W,DIM,NH,igate_act", [
@@ -872,7 +872,7 @@ def test_vil_conv_kernel_rejects_bad_input(cuda_device):
     args = _conv_args(1, 8, 8, 64, 2, cuda_device, seed=0)
     with pytest.raises(TypeError):
         vil_layer_conv_fwd(args[0].double(), *args[1:], 2, (8, 8))
-    with pytest.raises(ValueError):  # head dim 32: not what the kernel is written for
+    with pytest.raises(ValueError):  # 4 heads over weights made for 2
         vil_layer_conv_fwd(*args, 4, (8, 8))
     with pytest.raises(ValueError):  # no grid of 64 tokens
         vil_layer_conv_fwd(*args, 2, (8, 9))
@@ -1117,8 +1117,8 @@ def _nudged(t, toward=float("inf")):
     return torch.nextafter(t, torch.full_like(t, toward))
 
 
-def _bf16_layer_args(B, S, DIM, NH, device, seed):
-    args = _layer_args(B, S, DIM, NH, device, seed)
+def _bf16_layer_args(B, S, DIM, NH, device, seed, DH=64):
+    args = _layer_args(B, S, DIM, NH, device, seed, DH)
     return [args[0].bfloat16(), args[1].bfloat16(), *args[2:]]
 
 
@@ -1159,14 +1159,14 @@ def test_vil_layer_bf16_grads_match_plain(cuda_device, S, DIM, NH):
     _check_bf16_layer_grads(cuda_device, S, DIM, NH, seed=S + 9)
 
 
-def _check_bf16_layer_grads(device, S, DIM, NH, seed, nudges=(float("inf"),)):
+def _check_bf16_layer_grads(device, S, DIM, NH, seed, nudges=(float("inf"),), DH=64, B=2):
     """``test_vil_layer_bf16_grads_match_plain``'s check; the noise floor is
     the plain version's largest distance to itself over ``nudges`` (the
     directions of the one-ulp nudge)."""
-    args = _bf16_layer_args(2, S, DIM, NH, device, seed=seed)
+    args = _bf16_layer_args(B, S, DIM, NH, device, seed=seed, DH=DH)
     leaves = [a.clone().requires_grad_() for a in args]
     g = torch.Generator(device).manual_seed(seed)
-    gout = torch.randn(2, S, DIM, device=device, generator=g).bfloat16()
+    gout = torch.randn(B, S, DIM, device=device, generator=g).bfloat16()
     counts = lambda: (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16,
                       mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
     before = counts()
@@ -1425,3 +1425,183 @@ def test_multi_scale_step_on_card(cuda_device, size):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert tuple(a - b for a, b in zip(_step_launches(), before)) == (0, 3, 0, 3)
+
+
+# ---- head dims below 64: the JAX package's ViL block defaults (16, and 4 in
+# VisionLSTM2) and the two between. INNER 96 over 96 / DH heads: one whole
+# 64-channel head group and a partial one, proj_up's 192 columns in three
+# tiles; DIM 48 (rows not 64 wide). S 77 (ragged, B 2) and 64 (one full
+# chunk, B 1); the conv-fused layer on a 7 x 11 and an 8 x 8 grid.
+
+SMALL_DHS = [4, 8, 16, 32]
+SMALL_S = [(77, 2, (7, 11)), (64, 1, (8, 8))]
+SMALL_S_IDS = ["ragged", "one_chunk"]
+
+
+def _small(which, B, S, grid, DH, device, seed):
+    """(kernel, plain, arguments, trailing arguments) of one family member at
+    head dim DH, INNER 96."""
+    NH = 96 // DH
+    if which == "layer":
+        return vil_layer_fwd, vil_layer_ref, _layer_args(B, S, 48, NH, device, seed, DH), (NH,)
+    if which == "conv":
+        return (vil_layer_conv_fwd, vil_layer_conv_plain,
+                _conv_args(B, *grid, 48, NH, device, seed, DH), (NH, grid))
+    fwd, plain, _ = FAMILY[which]
+    return fwd, plain, _family_args(which, B, S, 48, NH, device, seed, DH), (NH,)
+
+
+@pytest.mark.parametrize("S,B,grid", SMALL_S, ids=SMALL_S_IDS)
+@pytest.mark.parametrize("DH", SMALL_DHS)
+@pytest.mark.parametrize("which", ["layer", "cell", "block", "conv"])
+def test_vil_family_small_head_dims_match_plain(cuda_device, which, DH, S, B, grid):
+    """K3, K4, K7 and K6 in fp32 at head dims 4 to 32 (the stages'
+    instantiations at DH, the heads of a 64-channel group packed in the
+    prologue) against their plain versions: one launch each, within
+    TOL_REL."""
+    fwd, plain, args, extra = _small(which, B, S, grid, DH, cuda_device, seed=DH + S)
+    before = fwd.launches
+    got = fwd(*args, *extra, chunk_size=64)
+    want = plain(*args, *extra, chunk_size=64)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL_REL
+
+
+@pytest.mark.parametrize("S,B,grid", SMALL_S, ids=SMALL_S_IDS)
+@pytest.mark.parametrize("DH", SMALL_DHS)
+@pytest.mark.parametrize("which", ["layer", "cell", "block", "conv"])
+def test_vil_family_small_head_dims_grads_match_plain(cuda_device, which, DH, S, B, grid):
+    """Under grad at head dims 4 to 32: one forward launch, and one launch
+    of K2 in fp32 at the same head dim in backward(); every gradient within
+    TOL_REL of the plain backward on the plain forward's activations."""
+    from xlstm_yolo_torch.kernels.vil_layer import layer_bwd
+
+    fwd, _, args, extra = _small(which, B, S, grid, DH, cuda_device, seed=DH + S + 1)
+    NH = extra[0]
+    leaves = [a.clone().requires_grad_() for a in args]
+    f0, b0 = fwd.launches, mlstm_chunkwise_bwd.launches
+    out = fwd(*leaves, *extra, chunk_size=64)
+    gout = torch.randn(out.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(DH + S))
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
+    plain_fwd, bwd = {"layer": (_layer_plain, layer_bwd), "cell": (_cell_plain, None),
+                      "block": (_block_plain, block_bwd), "conv": (_conv_plain, conv_layer_bwd)}[which]
+    cfg = Cfg(NH, 64, seqlens=grid if which == "conv" else None)
+    if which == "cell":
+        _, acts = _cell_plain(*args, cfg)
+        want = cell_bwd(args, acts, gout, cfg, mlstm_chunkwise_bwd_plain)
+    else:
+        _, acts = plain_fwd(args, cfg)
+        want = bwd(args, acts, gout, cfg, mlstm_chunkwise_bwd_plain)
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        assert _rel(leaf.grad, w) <= TOL_REL, i
+
+
+@pytest.mark.parametrize("S,B", [(77, 2), (64, 1), (200, 2)], ids=["ragged", "one_chunk", "P5_like"])
+@pytest.mark.parametrize("DH", SMALL_DHS)
+def test_mlstm_bwd_small_head_dims_match_plain(cuda_device, DH, S, B):
+    """K2 in fp32 at head dims 4 to 32 on the carry states of phase 1
+    (``chunk_carry_states``): one launch, every gradient within TOL_REL."""
+    NH = 96 // DH
+    g = torch.Generator().manual_seed(DH + S)
+    mk = lambda *s: torch.randn(*s, generator=g).to(cuda_device)
+    q = mk(B, S, 96)
+    k, v = q + 0.3 * mk(B, S, 96), mk(B, S, 96)
+    i, f, dh = mk(B, NH, S) - 3.0, mk(B, NH, S) + 3.0, mk(B, S, 96)
+    heads = lambda t: t.reshape(B, S, NH, DH).transpose(1, 2)
+    carry = chunk_carry_states(heads(k), heads(v), i, f, 64)
+    before = mlstm_chunkwise_bwd.launches
+    got = mlstm_chunkwise_bwd(q, k, v, i, f, dh, NH, carry=carry)
+    want = mlstm_chunkwise_bwd_plain(q, k, v, i, f, dh, NH)
+    torch.cuda.synchronize()
+    assert mlstm_chunkwise_bwd.launches == before + 1
+    for name, g_, w in zip("qkvif", got, want):
+        assert bool(torch.isfinite(g_).all()), name
+        assert _rel(g_, w) <= TOL_REL, name
+
+
+@pytest.mark.parametrize("S,B", [(77, 2), (64, 1)], ids=SMALL_S_IDS)
+@pytest.mark.parametrize("DH", SMALL_DHS)
+def test_vil_layer_bf16_small_head_dims_match_plain(cuda_device, DH, S, B):
+    """K3 in bf16 at head dims 4 to 32 against its plain bf16 version, as
+    ``test_vil_layer_bf16_kernel_matches_plain`` holds it at 64."""
+    NH = 96 // DH
+    args = _bf16_layer_args(B, S, 48, NH, cuda_device, seed=DH + S + 5, DH=DH)
+    before = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+    got = vil_layer_fwd(*args, NH)
+    want = vil_layer_ref(*args, NH, chunk_size=64, keep_fp32=True)
+    torch.cuda.synchronize()
+    assert (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    rel_l2, excess = _rel_bf16(got, want)
+    assert rel_l2 <= TOL_BF16_FWD and excess <= MAX_EXCESS, (rel_l2, excess)
+
+
+@pytest.mark.parametrize("S,B", [(77, 2), (64, 1)], ids=SMALL_S_IDS)
+@pytest.mark.parametrize("DH", SMALL_DHS)
+def test_vil_layer_bf16_small_head_dims_grads_match_plain(cuda_device, DH, S, B):
+    """The bf16 layer under grad at head dims 4 to 32: K3 and K2 in bf16 at
+    that head dim, every gradient held as
+    ``test_vil_layer_bf16_grads_match_plain`` holds it at 64."""
+    _check_bf16_layer_grads(cuda_device, S, 48, 96 // DH, seed=DH + S + 9, DH=DH, B=B)
+
+
+@pytest.mark.parametrize("S,B", [(77, 2), (64, 1)], ids=SMALL_S_IDS)
+@pytest.mark.parametrize("DH", SMALL_DHS)
+def test_mlstm_bwd_bf16_small_head_dims_match_plain(cuda_device, DH, S, B):
+    """K2 in bf16 at head dims 4 to 32 on the bf16 layer kernel's saved
+    activations and carry states, as ``test_mlstm_bwd_bf16_kernel_matches_plain``
+    holds it at 64."""
+    from xlstm_yolo_torch.kernels.vil_layer import _launch
+
+    NH = 96 // DH
+    args = _bf16_layer_args(B, S, 48, NH, cuda_device, seed=DH + S + 13, DH=DH)
+    _, (_, q, k, v, ig, fg), carry = _launch(args, Cfg(NH), True)
+    dh = torch.randn(B, S, 96, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(DH + S))
+    before = (mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
+    got = mlstm_chunkwise_bwd(q, k, v, ig, fg, dh, NH, carry=carry)
+    want = mlstm_chunkwise_bwd_plain(q, k, v, ig, fg, dh, NH, keep_fp32=True)
+    torch.cuda.synchronize()
+    assert (mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16) == \
+        (before[0], before[1] + 1)
+    for name, g_, w in zip(("dq", "dk", "dv", "di", "df"), got, want):
+        assert bool(torch.isfinite(g_).all()), name
+        rel_l2, excess = _rel_bf16(g_, w)
+        assert rel_l2 <= TOL_BF16_GRAD and excess <= MAX_EXCESS, (name, rel_l2, excess)
+
+
+@pytest.mark.parametrize("DH", [12, 128])
+def test_vil_kernels_refuse_other_head_dims(cuda_device, DH):
+    """Head dim 12 (no instantiation) and 128 (K2 fp32 takes it for the
+    language model, the ViL family does not) raise a clear ValueError on the
+    card, with arguments made consistently at that head dim; nothing falls
+    back to the plain version. K2 refuses 12 in fp32 and both in bf16."""
+    NH = 2
+    launches = lambda: (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16, vil_cell_fwd.launches,
+                        vil_block_fwd.launches, vil_layer_conv_fwd.launches)
+    before = launches()
+    layer = _layer_args(1, 64, 48, NH, cuda_device, seed=DH, DH=DH)
+    with pytest.raises(ValueError, match="head dim"):
+        vil_layer_fwd(*layer, NH)
+    with pytest.raises(ValueError, match="head dim"):
+        vil_layer_fwd(*_bf16_layer_args(1, 64, 48, NH, cuda_device, seed=DH, DH=DH), NH)
+    for which in ("cell", "block"):
+        with pytest.raises(ValueError, match="head dim"):
+            FAMILY[which][0](*_family_args(which, 1, 64, 48, NH, cuda_device, DH, DH), NH)
+    with pytest.raises(ValueError, match="head dim"):
+        vil_layer_conv_fwd(*_conv_args(1, 8, 8, 48, NH, cuda_device, DH, DH), NH, (8, 8))
+    assert launches() == before
+    INNER = NH * DH
+    t = torch.zeros(1, 64, INNER, device=cuda_device, dtype=torch.bfloat16)
+    gate = torch.zeros(1, NH, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        mlstm_chunkwise_bwd(t, t, t, gate, gate, t.float(), NH, carry=None)
+    if DH == 12:
+        with pytest.raises(ValueError, match="head dim"):
+            mlstm_chunkwise_bwd(t.float(), t.float(), t.float(), gate, gate, t.float(), NH,
+                                carry=None)

@@ -331,11 +331,17 @@ def test_vision_lstm_backbone_matches_jax():
 
 
 def test_pos_embed_at_another_grid_raises():
+    """The module resizes its embedding to another grid as the JAX module
+    does (``jax.image.resize``, bicubic); the classifier at another grid
+    raises, as the JAX model, whose embedding takes its shape from the
+    input, refuses weights of another grid."""
     pe = TV.VitPosEmbed2d(8, (4, 4))
-    assert pe(torch.zeros(1, 4, 4, 8)).shape == (1, 4, 4, 8)
-    with pytest.raises(NotImplementedError):
-        pe(torch.zeros(1, 2, 6, 8))
-    with pytest.raises(NotImplementedError):  # through the model: 64 px on a 32 px model
+    with torch.no_grad():
+        pe.embed.normal_(generator=torch.Generator().manual_seed(0))
+    assert torch.equal(pe(torch.zeros(1, 4, 4, 8)), pe.embed)
+    want = jax.image.resize(jnp.asarray(pe.embed.detach().numpy()), (1, 2, 6, 8), "bicubic")
+    close(pe(torch.zeros(1, 2, 6, 8)).detach().numpy(), want, rel=1e-5)
+    with pytest.raises(ValueError, match="token grid"):  # 64 px on a 32 px model
         VisionLSTM2(**SMALL, resolution=(32, 32), device="cpu")(torch.zeros(1, 64, 64, 3))
 
 

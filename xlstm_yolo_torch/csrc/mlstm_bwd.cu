@@ -83,11 +83,14 @@
 // 16-byte cp.async, the fp32 tiles (dh; the carried C, and in C the carry
 // dC and C_prev) by cp.async as well, and every other operand written to
 // shared memory once as the bf16 value `_chunk_grads` rounds: the carried
-// C, E, q_inter (q a / sqrt(DH)), dA = dh / normalizer, dqk, and in C the
-// carry dC d_new and the gate-weighted k, each rounded once after its
-// scale. E stays fp32 in the registers of its product for the gate sums and
-// the normalizer, which read it unrounded. Stage A holds seven bf16 tiles
-// and dh in fp32, 85 KB (two CTAs an SM), C four bf16 tiles and two fp32
+// C, E, q / sqrt(DH) (q k^T's and dk's operand, rounded after its scale as
+// the JAX kernel rounds its pre-scaled q: at head dims 8 and 32 the scale is
+// no power of two, and rounding q first would be another arithmetic),
+// q_inter (q a / sqrt(DH)), dA = dh / normalizer, dqk, and in C the carry dC
+// d_new and the gate-weighted k, each rounded once after its scale. E stays
+// fp32 in the registers of its product for the gate sums and the
+// normalizer, which read it unrounded. Stage A holds eight bf16 tiles and dh
+// in fp32, 94 KB (two CTAs an SM), C four bf16 tiles and two fp32
 // ones, into which A's fp32 partials of dk and dv are copied during C's
 // products (72 KB, three CTAs an SM). dq, dk, dv are written in bf16 once
 // complete, as the JAX kernel returns them: dq in A, dk and dv in C. di and
@@ -105,6 +108,10 @@ namespace {
 
 using tile::Acc;
 using tile::LDS;
+using tile::kp16;
+using tile::kp32;
+using tile::qscale;
+using tile::store_block;
 using bf16 = __nv_bfloat16;
 
 constexpr int CS = 64;             // chunk length
@@ -207,17 +214,18 @@ __device__ __forceinline__ void put_row_sums(float (&pr)[2], float* part) {
   }
 }
 
-// Writes acc * scale to rows s0 + row < S of the (B, S, INNER) array dst at
-// head column offset hcol, adding what is there when ADD.
+// Writes acc * scale to rows s0 + row < S and the first ncol columns of the
+// (B, S, INNER) array dst at head column offset hcol, adding what is there
+// when ADD.
 template <bool ADD>
 __device__ __forceinline__ void put_rows(const Acc& a, float* dst, const Params& p, int b,
-                                         int s0, int hcol, float scale) {
+                                         int s0, int hcol, float scale, int ncol = tile::T) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, t = Acc::row(r);
-      if (s0 + t < p.S) {
+      if (s0 + t < p.S && Acc::col(j, r) < ncol) {
         float2* o = reinterpret_cast<float2*>(dst + ((long)b * p.S + s0 + t) * p.INNER + hcol +
                                               Acc::col(j, r));
         float2 v = make_float2(a.c[j][r] * scale, a.c[j][r + 1] * scale);
@@ -231,16 +239,16 @@ __device__ __forceinline__ void put_rows(const Acc& a, float* dst, const Params&
     }
 }
 
-// Writes acc * scale in bf16 to rows s0 + row < S of the (B, S, INNER)
-// array dst at head column hcol.
+// Writes acc * scale in bf16 to rows s0 + row < S and the first ncol
+// columns of the (B, S, INNER) array dst at head column hcol.
 __device__ __forceinline__ void put_rows_bf16(const Acc& a, bf16* dst, const Params& p, int b,
-                                              int s0, int hcol, float scale) {
+                                              int s0, int hcol, float scale, int ncol) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, t = Acc::row(r);
-      if (s0 + t < p.S)
+      if (s0 + t < p.S && Acc::col(j, r) < ncol)
         *reinterpret_cast<__nv_bfloat162*>(dst + ((long)b * p.S + s0 + t) * p.INNER + hcol +
                                            Acc::col(j, r)) =
             __floats2bfloat162_rn(a.c[j][r] * scale, a.c[j][r + 1] * scale);
@@ -248,16 +256,17 @@ __device__ __forceinline__ void put_rows_bf16(const Acc& a, bf16* dst, const Par
 }
 
 // Writes acc + the fp32 partial in the shared tile `part` (row stride LDS)
-// in bf16 to rows s0 + row < S of the (B, S, INNER) array dst at head
-// column hcol.
+// in bf16 to rows s0 + row < S and the first ncol columns of the (B, S,
+// INNER) array dst at head column hcol.
 __device__ __forceinline__ void put_tile_rows_bf16(const Acc& a, bf16* dst, const float* part,
-                                                   const Params& p, int b, int s0, int hcol) {
+                                                   const Params& p, int b, int s0, int hcol,
+                                                   int ncol) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, t = Acc::row(r), c = Acc::col(j, r);
-      if (s0 + t < p.S) {
+      if (s0 + t < p.S && c < ncol) {
         const float2 w = *reinterpret_cast<const float2*>(part + t * LDS + c);
         *reinterpret_cast<__nv_bfloat162*>(dst + ((long)b * p.S + s0 + t) * p.INNER + hcol + c) =
             __floats2bfloat162_rn(a.c[j][r] + w.x, a.c[j][r + 1] + w.y);
@@ -265,11 +274,16 @@ __device__ __forceinline__ void put_tile_rows_bf16(const Acc& a, bf16* dst, cons
     }
 }
 
-// A. Per chunk: forward recompute and the carry-independent gradients.
+// A. Per chunk: forward recompute and the carry-independent gradients. One
+// head per CTA at every head dim up to 64: below 64 its q, k, v, dh land in
+// 64-wide tiles zero-padded in shared memory (C to the MMA's k), the
+// contractions over the head dim run to kp32<DH>() and the products' outputs
+// over it stop at DH columns (rows for dC_attn).
 template <int DH>
 __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
-  static_assert(DH == tile::T, "one 64 x 64 tile product per head");
-  constexpr float QS = 0.125f;   // 1 / sqrt(DH)
+  static_assert(DH <= tile::T, "one head in one 64 x 64 tile");
+  constexpr float QS = qscale<DH>();
+  constexpr int KP = kp32<DH>();
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                // q (unscaled); at the end q a_t / sqrt(DH)
   float* ks = qs + TF;
@@ -277,8 +291,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   float* dA = vs + TF;           // dh, then dh / normalizer
   float* Cs = dA + TF;           // carried-in C [d][e]
   float* E = Cs + TF;            // row t col s: (q_t . k_s / sqrt(DH)) D_ts; later dqk = de D
-  float* nv = E + TF;            // DH carried-in n
-  float* bcs = nv + DH;          // CS cumsum of log f
+  float* nv = E + TF;            // 64 carried-in n, zeros past DH
+  float* bcs = nv + tile::T;     // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
   float* cm = li + CS;           // CS running max of li - b; then aq
   float* stab = cm + CS;         // CS stabilizer
@@ -299,14 +313,14 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   auto decay = [&](int t, int s) { return expf(li[s] - bcs[s] + bcs[t] - stab[t]); };
 
   float* aq = cm;                // CS a_t / sqrt(DH), the row scale of q_inter
-  tile::load_async<CS, DH>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(dA, LDS, p.dh + hoff, p.INNER, nrows, DH);
-  tile::load_async<DH, DH>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
+  tile::load_async<CS, tile::T>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(dA, LDS, p.dh + hoff, p.INNER, nrows, DH);
+  tile::load_async<KP, KP>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
-  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  if (tid < tile::T) nv[tid] = tid < DH ? p.nprev[base * DH + tid] : 0.f;
   const float m_prev = p.mprev[base];
   tile::cp_async_wait_all();
   __syncthreads();
@@ -329,7 +343,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc s;
     s.zero();
-    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, KP);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -358,8 +372,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     Acc intra, inter;
     intra.zero();
     inter.zero();
-    tile::mma<false, false, tile::K_LE_M>(intra, E, LDS, vs, LDS, CS);
-    tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH, nullptr, aq);
+    tile::mma<false, false, tile::K_LE_M>(intra, E, LDS, vs, LDS, CS, nullptr, nullptr, DH);
+    tile::mma<false, false>(inter, qs, LDS, Cs, LDS, KP, nullptr, aq, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -387,8 +401,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, dA, LDS, CS);
-    put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f);
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, dA, LDS, CS, nullptr, nullptr, DH);
+    put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f, DH);
   }
   __syncthreads();  // E is overwritten below
 
@@ -396,7 +410,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc d;
     d.zero();
-    tile::mma<false, true, tile::OUT_LOWER>(d, dA, LDS, vs, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER>(d, dA, LDS, vs, LDS, KP);
     float rs[2] = {0.f, 0.f};
     float cs[4][2];
 #pragma unroll
@@ -442,8 +456,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
     Acc a, c;
     a.zero();
     c.zero();
-    tile::mma<false, false, tile::K_LE_M>(a, E, LDS, ks, LDS, CS);
-    tile::mma<false, true>(c, dA, LDS, Cs, LDS, DH);
+    tile::mma<false, false, tile::K_LE_M>(a, E, LDS, ks, LDS, CS, nullptr, nullptr, DH);
+    tile::mma<false, true>(c, dA, LDS, Cs, LDS, KP, nullptr, nullptr, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -455,7 +469,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
         a.c[jj][r] += dqt * av[t];
       }
     put_row_sums(pr, rpart);
-    put_rows<false>(a, p.dq, p, b, s0, n * DH, QS);
+    put_rows<false>(a, p.dq, p, b, s0, n * DH, QS, DH);
   }
   __syncthreads();
   if (tid < CS) dbv[tid] += av[tid] * QS * (rpart[tid] + rpart[CS + tid]);
@@ -464,8 +478,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, qs, LDS, CS);
-    put_rows<false>(a, p.dk, p, b, s0, n * DH, QS);
+    tile::mma<true, false, tile::K_GE_M>(a, E, LDS, qs, LDS, CS, nullptr, nullptr, DH);
+    put_rows<false>(a, p.dk, p, b, s0, n * DH, QS, DH);
   }
   __syncthreads();  // q is rescaled below
   for (int i = tid; i < CS * DH; i += NT) {
@@ -478,16 +492,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<true, false>(a, qs, LDS, dA, LDS, CS);
-    float* dco = p.dcs + base * DH * DH;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = 2 * hh;
-        *reinterpret_cast<float2*>(dco + Acc::row(r) * DH + Acc::col(jj, r)) =
-            make_float2(a.c[jj][r], a.c[jj][r + 1]);
-      }
+    tile::mma<true, false>(a, qs, LDS, dA, LDS, CS, nullptr, nullptr, DH, DH);
+    store_block<DH>(a, p.dcs + base * DH * DH);
     if (tid < DH) {
       float acc = 0.f;
       for (int t = 0; t < CS; ++t) acc += dR[t] * qs[t * LDS + tid];
@@ -513,6 +519,7 @@ __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
   constexpr int PF = 4;  // chunks in flight
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int idx = blockIdx.y * NT + tid;  // entry of C
+  if (idx >= DH * DH) return;             // below DH 16 one CTA covers C with threads to spare
   const bool own_n = blockIdx.y == 0 && tid < DH;
   const long row = (long)bh * p.NS;
   // chunk j's entry, its dn_attn entry (own_n) and its decay of the carried state
@@ -549,14 +556,16 @@ __global__ void __launch_bounds__(NT) bwd_state_scan(Params p) {
 
 // C. Per chunk: the terms that need the reverse carry, then d log f. The
 // carry's products read dC d_new (scaled in shared memory) and, for dv,
-// the gate-weighted k (scaled in the fragment load).
+// the gate-weighted k (scaled in the fragment load). Below DH 64 the tiles
+// are zero-padded as in A.
 template <int DH>
 __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
+  constexpr int KP = kp32<DH>();
   extern __shared__ __align__(16) float sm[];
   float* ks = sm;                // CS x DH
   float* vs = ks + TF;           // CS x DH
   float* dC = vs + TF;           // DH x DH, the carry dC_j
-  __shared__ float bcs[CS], li[CS], gw[CS], dks[DH], db[CS], rev[CS], rpart[2 * CS], red[NW];
+  __shared__ float bcs[CS], li[CS], gw[CS], dks[tile::T], db[CS], rev[CS], rpart[2 * CS], red[NW];
   __shared__ float gsum[2];
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
@@ -568,15 +577,16 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   const float d_new = expf(ld_new), d_old = expf(ld_old);
   const float btot = p.btot[base], mloc = p.mloc[base];
 
-  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
-  tile::load_async<DH, DH>(dC, LDS, p.dcs + base * DH * DH, DH, DH, DH);
+  tile::load_async<CS, tile::T>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  tile::load_async<KP, KP>(dC, LDS, p.dcs + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
   const float* dcn = p.dcs + base * DH * DH;
   const float* cpv = p.cprev + base * DH * DH;
   float acc = 0.f;  // sum dC_j * C_prev (+ dn_j * n_prev)
   for (int i = tid; i < DH * DH; i += NT) acc += dcn[i] * cpv[i];
+  if (tid < tile::T) dks[tid] = 0.f;
   if (tid < DH) {
     const float g = p.dns[base * DH + tid];
     dks[tid] = g * d_new;
@@ -596,14 +606,14 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma<false, false>(a, ks, LDS, dC, LDS, DH, nullptr, gw);
-    put_rows<true>(a, p.dv, p, b, s0, n * DH, 1.f);
+    tile::mma<false, false>(a, ks, LDS, dC, LDS, KP, nullptr, gw, DH);
+    put_rows<true>(a, p.dv, p, b, s0, n * DH, 1.f, DH);
   }
   // dk_state = v (d_new dC)^T + dksum; dk += dk_state gw; dgw = sum_d dk_state k
   {
     Acc a;
     a.zero();
-    tile::mma<false, true>(a, vs, LDS, dC, LDS, DH);
+    tile::mma<false, true>(a, vs, LDS, dC, LDS, KP, nullptr, nullptr, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -615,7 +625,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_chunk_carry(Params p) {
         a.c[jj][r] = st * gw[s];
       }
     put_row_sums(pr, rpart);
-    put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f);
+    put_rows<true>(a, p.dk, p, b, s0, n * DH, 1.f, DH);
   }
   __syncthreads();
 
@@ -663,9 +673,12 @@ using tile::LDH;
 // operand); E kept fp32 in the accumulators of its product (the gate sums G
 // and the normalizer read it unrounded) and written once rounded as the
 // products' operand; q_inter, dA and dqk rounded once after their scales.
+// Below DH 64 the head's tiles are zero-padded (to k 16 where a product
+// contracts over the head dim) and the outputs over it stop at DH.
+template <int DH>
 __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
-  constexpr int DH = 64;
-  constexpr float QS = 0.125f;   // 1 / sqrt(DH)
+  constexpr float QS = qscale<DH>();
+  constexpr int KP = kp16<DH>();
   extern __shared__ __align__(16) float smf[];
   float* dh = smf;                                // dh (fp32)
   bf16* qs = reinterpret_cast<bf16*>(dh + TF);    // q
@@ -675,8 +688,9 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
   bf16* E = Cs + HT;                              // R(E), then R(dqk)
   bf16* dA = E + HT;                              // R(dh / normalizer)
   bf16* qi = dA + HT;                             // R(q_inter) = R(q a / sqrt(DH))
-  float* nv = reinterpret_cast<float*>(qi + HT);  // DH carried-in n
-  float* bcs = nv + DH;          // CS cumsum of log f
+  bf16* qk = qi + HT;                             // R(q / sqrt(DH)), q k^T's and dk's operand
+  float* nv = reinterpret_cast<float*>(qk + HT);  // 64 carried-in n, zeros past DH
+  float* bcs = nv + tile::T;     // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
   float* cm = li + CS;           // CS running max of li - b
   float* stab = cm + CS;         // CS stabilizer
@@ -707,19 +721,20 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
   tile::load16(qs, p.q16 + hoff, p.INNER, nrows, DH);
   tile::load16(ks, p.k16 + hoff, p.INNER, nrows, DH);
   tile::load16(vs, p.v16 + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(dh, LDS, p.dh + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(dh, LDS, p.dh + hoff, p.INNER, nrows, DH);
   float* c32 = reinterpret_cast<float*>(E);  // C (fp32) lands over E and dA, free until E
   tile::load_async<DH, DH>(c32, LDS, p.cprev + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
-  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  if (tid < tile::T) nv[tid] = tid < DH ? p.nprev[base * DH + tid] : 0.f;
   const float m_prev = p.mprev[base];
   tile::cp_async_wait_all();
   __syncthreads();
-  for (int e = tid; e < DH * DH / 2; e += NT) {
-    const int d = e / (DH / 2), c = 2 * (e % (DH / 2));
-    *reinterpret_cast<__nv_bfloat162*>(Cs + d * LDH + c) =
-        __floats2bfloat162_rn(c32[d * LDS + c], c32[d * LDS + c + 1]);
+  for (int e = tid; e < KP * KP / 2; e += NT) {  // R(C), zero-padded to KP x KP
+    const int d = e / (KP / 2), c = 2 * (e % (KP / 2));
+    const bool ok = d < DH && c < DH;
+    *reinterpret_cast<__nv_bfloat162*>(Cs + d * LDH + c) = __floats2bfloat162_rn(
+        ok ? c32[d * LDS + c] : 0.f, ok ? c32[d * LDS + c + 1] : 0.f);
   }
   if (tid < 32) warp_scan64<false>(bcs);
   __syncthreads();
@@ -735,7 +750,7 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
     aq[tid] = av[tid] * QS;
   }
   __syncthreads();
-  {  // R(q_inter) and q . n: thread (row tid / 4, quarter tid % 4)
+  {  // R(q_inter), R(q / sqrt(DH)) and q . n: thread (row tid / 4, quarter tid % 4)
     const int t = tid >> 2, c0 = 16 * (tid & 3);
     const float a = aq[t];
     float s_ = 0.f;
@@ -743,16 +758,18 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
     for (int c = c0; c < c0 + 16; c += 2) {
       const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qs + t * LDH + c));
       *reinterpret_cast<__nv_bfloat162*>(qi + t * LDH + c) = __floats2bfloat162_rn(x.x * a, x.y * a);
+      *reinterpret_cast<__nv_bfloat162*>(qk + t * LDH + c) = __floats2bfloat162_rn(x.x * QS, x.y * QS);
       s_ += x.x * nv[c] + x.y * nv[c + 1];
     }
     s_ = tile::quad_sum(s_);
     if ((tid & 3) == 0) qn[t] = QS * s_;
   }
 
-  // E = (q k^T / sqrt(DH)) D, causal: fp32 in Ef, R(E) in the tile
+  // E = R(q / sqrt(DH)) R(k)^T D, causal: fp32 in Ef, R(E) in the tile
+  __syncthreads();  // R(q / sqrt(DH)) is in qk
   Acc Ef;
   Ef.zero();
-  tile::mma16<false, true, tile::OUT_LOWER>(Ef, qs, ks);
+  tile::mma16<false, true, tile::OUT_LOWER>(Ef, qk, ks, KP);
   {
     float pr[2] = {0.f, 0.f};
 #pragma unroll
@@ -760,7 +777,7 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int t = Acc::row(r), c = Acc::col(jj, r);
-        const float e = c <= t ? Ef.c[jj][r] * QS * decay(t, c) : 0.f;
+        const float e = c <= t ? Ef.c[jj][r] * decay(t, c) : 0.f;
         Ef.c[jj][r] = e;
         pr[r >> 1] += e;
       }
@@ -780,8 +797,8 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
     Acc intra, inter;
     intra.zero();
     inter.zero();
-    tile::mma16<false, false, tile::K_LE_M>(intra, E, vs);
-    tile::mma16<false, false>(inter, qi, Cs);
+    tile::mma16<false, false, tile::K_LE_M>(intra, E, vs, CS, DH);
+    tile::mma16<false, false>(inter, qi, Cs, KP, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -798,8 +815,8 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
     const float r = row[tid];
     dR[tid] = fabsf(r) > expf(-stab[tid]) ? (r > 0.f ? dN : (r < 0.f ? -dN : 0.f)) : 0.f;
   }
-  for (int e = tid; e < CS * DH / 2; e += NT) {
-    const int t = e / (DH / 2), c = 2 * (e % (DH / 2));
+  for (int e = tid; e < CS * KP / 2; e += NT) {  // zeros past DH (dh is zero there)
+    const int t = e / (KP / 2), c = 2 * (e % (KP / 2));
     *reinterpret_cast<__nv_bfloat162*>(dA + t * LDH + c) =
         __floats2bfloat162_rn(dh[t * LDS + c] / nrm[t], dh[t * LDS + c + 1] / nrm[t]);
   }
@@ -809,14 +826,14 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma16<true, false, tile::K_GE_M>(a, E, dA);
-    put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f);
+    tile::mma16<true, false, tile::K_GE_M>(a, E, dA, CS, DH);
+    put_rows<false>(a, p.dv, p, b, s0, n * DH, 1.f, DH);
   }
   // de = R(dA) R(v)^T + dR (causal); G = de E gives the gate sums; E <- R(dqk), dqk = de D
   {
     Acc d;
     d.zero();
-    tile::mma16<false, true, tile::OUT_LOWER>(d, dA, vs);
+    tile::mma16<false, true, tile::OUT_LOWER>(d, dA, vs, KP);
     __syncthreads();  // every warp is done with R(E): R(dqk) takes its place
     float rs[2] = {0.f, 0.f};
     float cs[4][2];
@@ -864,8 +881,8 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
     Acc a, c;
     a.zero();
     c.zero();
-    tile::mma16<false, false, tile::K_LE_M>(a, E, ks);
-    tile::mma16<false, true>(c, dA, Cs);
+    tile::mma16<false, false, tile::K_LE_M>(a, E, ks, CS, DH);
+    tile::mma16<false, true>(c, dA, Cs, KP, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -877,29 +894,21 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
         a.c[jj][r] += dqt * av[t];
       }
     row_sums(pr);
-    put_rows_bf16(a, p.dq16, p, b, s0, n * DH, QS);
+    put_rows_bf16(a, p.dq16, p, b, s0, n * DH, QS, DH);
   }
-  // dk (in-chunk part) = R(dqk)^T R(q) / sqrt(DH)
+  // dk (in-chunk part) = R(dqk)^T R(q / sqrt(DH))
   {
     Acc a;
     a.zero();
-    tile::mma16<true, false, tile::K_GE_M>(a, E, qs);
-    put_rows<false>(a, p.dk, p, b, s0, n * DH, QS);
+    tile::mma16<true, false, tile::K_GE_M>(a, E, qk, CS, DH);
+    put_rows<false>(a, p.dk, p, b, s0, n * DH, 1.f, DH);
   }
   // dC_attn = R(q_inter)^T R(dA); dn_attn[d] = sum_t dR_t q_inter_td
   {
     Acc a;
     a.zero();
-    tile::mma16<true, false>(a, qi, dA);
-    float* dco = p.dcs + base * DH * DH;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = 2 * hh;
-        *reinterpret_cast<float2*>(dco + Acc::row(r) * DH + Acc::col(jj, r)) =
-            make_float2(a.c[jj][r], a.c[jj][r + 1]);
-      }
+    tile::mma16<true, false>(a, qi, dA, CS, DH, DH);
+    store_block<DH>(a, p.dcs + base * DH * DH);
     if (tid < DH) {
       float acc = 0.f;
       for (int t = 0; t < CS; ++t) acc += dR[t] * (__bfloat162float(qs[t * LDH + tid]) * aq[t]);
@@ -919,9 +928,11 @@ __global__ void __launch_bounds__(NT, 2) bwd16_local(Params p) {
 // C in bf16: the carry's products read R(dC d_new) and R(g k), each rounded
 // once after its scale; dC_j and C_prev are staged in fp32 (their dot is d
 // btot), and A's fp32 partials of dk and dv land in their place during the
-// products; dk and dv are completed and written in bf16.
+// products; dk and dv are completed and written in bf16. Below DH 64 the
+// tiles are zero-padded as in A.
+template <int DH>
 __global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
-  constexpr int DH = 64;
+  constexpr int KP = kp16<DH>();
   extern __shared__ __align__(16) bf16 sh[];
   bf16* ks = sh;                 // k
   bf16* vs = ks + HT;            // v
@@ -929,7 +940,7 @@ __global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
   bf16* kg = dC + HT;            // R(g k)
   float* dc32 = reinterpret_cast<float*>(kg + HT);  // dC_j (fp32), then A's dv partial
   float* cp32 = dc32 + TF;                          // C_prev (fp32), then A's dk partial
-  __shared__ float bcs[CS], li[CS], gw[CS], dks[DH], db[CS], rev[CS], rpart[2 * CS], red[NW];
+  __shared__ float bcs[CS], li[CS], gw[CS], dks[tile::T], db[CS], rev[CS], rpart[2 * CS], red[NW];
   __shared__ float gsum[2];
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s0 = j * CS;
@@ -941,6 +952,7 @@ __global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
   const float d_new = expf(ld_new), d_old = expf(ld_old);
   const float btot = p.btot[base], mloc = p.mloc[base];
 
+  if (tid < tile::T) dks[tid] = 0.f;
   tile::load16(ks, p.k16 + hoff, p.INNER, nrows, DH);
   tile::load16(vs, p.v16 + hoff, p.INNER, nrows, DH);
   tile::load_async<DH, DH>(dc32, LDS, p.dcs + base * DH * DH, DH, DH, DH);
@@ -959,15 +971,19 @@ __global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
   if (tid < CS) gw[tid] = expf(li[tid] + (btot - bcs[tid]) - mloc);
   tile::cp_async_wait_all();
   __syncthreads();
-  for (int e = tid; e < DH * DH / 2; e += NT) {  // R(d_new dC_j), R(g k) and the dC_j . C_prev sum
-    const int d = e / (DH / 2), c = 2 * (e % (DH / 2));
-    const float g0 = dc32[d * LDS + c], g1 = dc32[d * LDS + c + 1];
-    acc += g0 * cp32[d * LDS + c] + g1 * cp32[d * LDS + c + 1];
+  for (int e = tid; e < KP * KP / 2; e += NT) {  // R(d_new dC_j) (zero-padded) and the dC_j . C_prev sum
+    const int d = e / (KP / 2), c = 2 * (e % (KP / 2));
+    const bool ok = d < DH && c < DH;
+    const float g0 = ok ? dc32[d * LDS + c] : 0.f, g1 = ok ? dc32[d * LDS + c + 1] : 0.f;
+    if (ok) acc += g0 * cp32[d * LDS + c] + g1 * cp32[d * LDS + c + 1];
     *reinterpret_cast<__nv_bfloat162*>(dC + d * LDH + c) =
         __floats2bfloat162_rn(g0 * d_new, g1 * d_new);
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ks + d * LDH + c));
-    *reinterpret_cast<__nv_bfloat162*>(kg + d * LDH + c) =
-        __floats2bfloat162_rn(x.x * gw[d], x.y * gw[d]);
+  }
+  for (int e = tid; e < CS * KP / 2; e += NT) {  // R(g k), zeros past DH (k is zero there)
+    const int s = e / (KP / 2), c = 2 * (e % (KP / 2));
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ks + s * LDH + c));
+    *reinterpret_cast<__nv_bfloat162*>(kg + s * LDH + c) =
+        __floats2bfloat162_rn(x.x * gw[s], x.y * gw[s]);
   }
   acc = warp_sum(acc);
   if (lane == 0) red[warp] = acc;
@@ -980,16 +996,16 @@ __global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
   {
     Acc a;
     a.zero();
-    tile::mma16<false, false>(a, kg, dC);
+    tile::mma16<false, false>(a, kg, dC, KP, DH);
     tile::cp_async_wait_all();
     __syncthreads();
-    put_tile_rows_bf16(a, p.dv16, dc32, p, b, s0, n * DH);
+    put_tile_rows_bf16(a, p.dv16, dc32, p, b, s0, n * DH, DH);
   }
   // dk_state = R(v) R(d_new dC)^T + dksum; dk += dk_state g; dg = sum_d dk_state k
   {
     Acc a;
     a.zero();
-    tile::mma16<false, true>(a, vs, dC);
+    tile::mma16<false, true>(a, vs, dC, KP, DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -1001,7 +1017,7 @@ __global__ void __launch_bounds__(NT, 3) bwd16_carry(Params p) {
         a.c[jj][r] = st * gw[s];
       }
     put_row_sums(pr, rpart);
-    put_tile_rows_bf16(a, p.dk16, cp32, p, b, s0, n * DH);
+    put_tile_rows_bf16(a, p.dk16, cp32, p, b, s0, n * DH, DH);
   }
   __syncthreads();
 
@@ -1446,10 +1462,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_wide_carry(Params p) {
   }
 }
 
-template <int DH>
-constexpr size_t local_smem() {
-  return sizeof(float) * (6 * TF + DH + 16 * CS);
-}
+constexpr size_t kLocalSmem = sizeof(float) * (6 * TF + tile::T + 16 * CS);
 
 constexpr size_t kCarrySmem = sizeof(float) * 3 * TF;
 
@@ -1462,56 +1475,63 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The three launches at head dim DH = 64 ND.
-template <int ND>
+// CTAs of the reverse scan per head row: NT entries of the DH x DH carry each
+template <int DH>
+constexpr unsigned scan_ctas() { return (DH * DH + NT - 1) / NT; }
+
+// The three launches at head dim DH: one head per CTA up to 64, the head in
+// 64-wide slices at 128 and 256.
+template <int DH>
 int launch(Params& p, float* ws, cudaStream_t st) {
-  constexpr int DH = ND * 64;
+  constexpr int ND = DH / 64;
   const long rows = (long)p.B * p.NH;
   p.dcs = ws;
   p.dns = ws + rows * p.NS * DH * DH;
   cudaError_t err;
-  if constexpr (ND == 1) {
-    if ((err = allow_smem(bwd_chunk_local<DH>, local_smem<DH>())) != cudaSuccess) return err;
+  if constexpr (DH <= 64) {
+    if ((err = allow_smem(bwd_chunk_local<DH>, kLocalSmem)) != cudaSuccess) return err;
     if ((err = allow_smem(bwd_chunk_carry<DH>, kCarrySmem)) != cudaSuccess) return err;
-    bwd_chunk_local<DH><<<dim3(p.NS, rows), NT, local_smem<DH>(), st>>>(p);
+    bwd_chunk_local<DH><<<dim3(p.NS, rows), NT, kLocalSmem, st>>>(p);
   } else {
     if ((err = allow_smem(bwd_wide_local<ND>, kWideLocalSmem)) != cudaSuccess) return err;
     if ((err = allow_smem(bwd_wide_carry<ND>, kCarrySmem)) != cudaSuccess) return err;
     bwd_wide_local<ND><<<dim3(p.NS, rows), NT, kWideLocalSmem, st>>>(p);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_state_scan<DH><<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  bwd_state_scan<DH><<<dim3(rows, scan_ctas<DH>()), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (ND == 1) bwd_chunk_carry<DH><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
+  if constexpr (DH <= 64) bwd_chunk_carry<DH><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
   else bwd_wide_carry<ND><<<dim3(p.NS, rows), NT, kCarrySmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return 0;
 }
 
-constexpr size_t kLocal16Smem = sizeof(float) * (TF + 64 + 20 * CS) + sizeof(bf16) * 7 * HT;
+constexpr size_t kLocal16Smem = sizeof(float) * (TF + tile::T + 20 * CS) + sizeof(bf16) * 8 * HT;
 constexpr size_t kCarry16Smem = sizeof(bf16) * 4 * HT + sizeof(float) * 2 * TF;
 
-// The three launches of the bf16 entry (head dim 64); ws holds the dC / dn
-// carries, then the fp32 partials of dk and dv (B, S, INNER) each.
+// The three launches of the bf16 entry at head dim DH (4 to 64); ws holds
+// the dC / dn carries, then the fp32 partials of dk and dv (B, S, INNER)
+// each.
+template <int DH>
 int launch_bf16(Params& p, float* ws, cudaStream_t st) {
-  constexpr int DH = 64;
   const long rows = (long)p.B * p.NH, tok = (long)p.B * p.S * p.INNER;
   p.dcs = ws;
   p.dns = ws + rows * p.NS * DH * DH;
   p.dk = p.dns + rows * p.NS * DH;
   p.dv = p.dk + tok;
   cudaError_t err;
-  if ((err = allow_smem(bwd16_local, kLocal16Smem)) != cudaSuccess) return err;
-  if ((err = allow_smem(bwd16_carry, kCarry16Smem)) != cudaSuccess) return err;
-  bwd16_local<<<dim3(p.NS, rows), NT, kLocal16Smem, st>>>(p);
+  if ((err = allow_smem(bwd16_local<DH>, kLocal16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(bwd16_carry<DH>, kCarry16Smem)) != cudaSuccess) return err;
+  bwd16_local<DH><<<dim3(p.NS, rows), NT, kLocal16Smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_state_scan<DH><<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  bwd_state_scan<DH><<<dim3(rows, scan_ctas<DH>()), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd16_carry<<<dim3(p.NS, rows), NT, kCarry16Smem, st>>>(p);
+  bwd16_carry<DH><<<dim3(p.NS, rows), NT, kCarry16Smem, st>>>(p);
   return cudaGetLastError();
 }
 
-bool head_dim_ok(int DH) { return DH == 64 || DH == 128 || DH == 256; }
+bool small_head_dim(int DH) { return DH == 4 || DH == 8 || DH == 16 || DH == 32 || DH == 64; }
+bool head_dim_ok(int DH) { return small_head_dim(DH) || DH == 128 || DH == 256; }
 
 }  // namespace
 
@@ -1529,14 +1549,16 @@ const char* mlstm_bwd_error_string(int code) {
 }
 
 // bf16 q, k, v and dq, dk, dv; dh, the gates, the carry states, di and df
-// fp32; head dim 64 only. ws: mlstm_bwd_workspace_floats(B, S, NH, 64) +
-// 2 B S INNER floats. Returns 0 on success, else the CUDA error code.
+// fp32; head dim INNER / NH: 4, 8, 16, 32 or 64. ws:
+// mlstm_bwd_workspace_floats(B, S, NH, DH) + 2 B S INNER floats. Returns 0
+// on success, else the CUDA error code.
 int mlstm_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* dh,
                    const float* ig, const float* fg, const float* cprev, const float* nprev,
                    const float* mprev, const float* btot, const float* mloc, bf16* dq, bf16* dk,
                    bf16* dv, float* di, float* df, float* ws, int B, int S, int INNER, int NH,
                    int igate_exp, float eps, void* stream) {
-  if (B <= 0 || S <= 0 || NH <= 0 || INNER != NH * 64 || (long)B * NH > 65535)
+  if (B <= 0 || S <= 0 || NH <= 0 || INNER % NH != 0 || !small_head_dim(INNER / NH) ||
+      (long)B * NH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
   p.q16 = q; p.k16 = k; p.v16 = v; p.dh = dh; p.ig = ig; p.fg = fg;
@@ -1545,10 +1567,17 @@ int mlstm_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* dh,
   p.B = B; p.S = S; p.INNER = INNER; p.NH = NH;
   p.NS = (S + CS - 1) / CS;
   p.igate_exp = igate_exp; p.eps = eps;
-  return launch_bf16(p, ws, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (INNER / NH) {
+    case 4: return launch_bf16<4>(p, ws, st);
+    case 8: return launch_bf16<8>(p, ws, st);
+    case 16: return launch_bf16<16>(p, ws, st);
+    case 32: return launch_bf16<32>(p, ws, st);
+    default: return launch_bf16<64>(p, ws, st);
+  }
 }
 
-// Head dim INNER / NH: 64, 128 or 256. Returns 0 on success, else the CUDA
+// Head dim INNER / NH: 4, 8, 16, 32, 64, 128 or 256. Returns 0 on success, else the CUDA
 // error code of the first failed step (cudaErrorInvalidValue for an
 // unsupported shape).
 int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* dh,
@@ -1568,9 +1597,13 @@ int mlstm_bwd_f32(const float* q, const float* k, const float* v, const float* d
   p.igate_exp = igate_exp; p.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (INNER / NH) {
-    case 64: return launch<1>(p, ws, st);
-    case 128: return launch<2>(p, ws, st);
-    default: return launch<4>(p, ws, st);
+    case 4: return launch<4>(p, ws, st);
+    case 8: return launch<8>(p, ws, st);
+    case 16: return launch<16>(p, ws, st);
+    case 32: return launch<32>(p, ws, st);
+    case 64: return launch<64>(p, ws, st);
+    case 128: return launch<128>(p, ws, st);
+    default: return launch<256>(p, ws, st);
   }
 }
 

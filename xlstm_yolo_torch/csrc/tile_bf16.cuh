@@ -103,14 +103,18 @@ __device__ __forceinline__ void mma16_k16(Acc& acc, const bf16* A, const bf16* B
 // 16 x 32 part of the 64 x 64 tile; A and B are bf16 tiles at row stride
 // LDH. `Causal` as tile::mma: OUT_LOWER leaves the 16 x 8 output fragments
 // above the diagonal at zero, K_LE_M runs k only to the warp's last row,
-// K_GE_M from its first. Output columns >= `nlim` are left at zero (the
-// 8-column blocks that start there are skipped). Every warp of the CTA (or
-// of its group) calls it; nothing here synchronizes.
+// K_GE_M from its first. Output columns >= `nlim` and rows >= `mlim` are
+// left at zero (the 8-column blocks that start there, and the warps whose
+// 16 rows do, are skipped): a small head's product (head dim below 64, its
+// operands zero-padded in shared memory to k 16) computes only its block.
+// Every warp of the CTA (or of its group) calls it; nothing here
+// synchronizes.
 template <bool TA, bool TB, int MODE = FULL>
 __device__ __forceinline__ void mma16(Acc& acc, const bf16* A, const bf16* B, int K = T,
-                                      int nlim = T) {
+                                      int nlim = T, int mlim = T) {
   const int lane = threadIdx.x & 31, w = thread_in_group() >> 5;
   const int m0 = 16 * (w & 3), n0 = 32 * (w >> 2);
+  if (m0 >= mlim || n0 >= nlim) return;  // warp-uniform
   int kbeg = 0, kend = K;
   if (MODE == K_LE_M) kend = K < m0 + 16 ? K : m0 + 16;
   if (MODE == K_GE_M) kbeg = m0;

@@ -93,7 +93,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 template <bool TA, bool TB, int MODE>
 __device__ __forceinline__ void mma_k8(Acc& acc, const float* A, int lda, const float* B, int ldb,
                                        int k0, int m0, int n0, int g, int t,
-                                       const float* kscale, const float* mscale) {
+                                       const float* kscale, const float* mscale, int nlim = T) {
   float af[4];
   if (TA) {
     af[0] = A[(k0 + t) * lda + m0 + g];
@@ -125,7 +125,7 @@ __device__ __forceinline__ void mma_k8(Acc& acc, const float* A, int lda, const 
   for (int i = 0; i < 4; ++i) split(af[i], ah[i], al[i]);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    if (MODE == OUT_LOWER && n0 + 8 * j > m0 + 15) continue;  // warp-uniform
+    if ((MODE == OUT_LOWER && n0 + 8 * j > m0 + 15) || n0 + 8 * j >= nlim) continue;  // warp-uniform
     const int n = n0 + 8 * j + g;
     const float b0f = TB ? B[n * ldb + k0 + t] : B[(k0 + t) * ldb + n];
     const float b1f = TB ? B[n * ldb + k0 + t + 4] : B[(k0 + t + 4) * ldb + n];
@@ -141,21 +141,26 @@ __device__ __forceinline__ void mma_k8(Acc& acc, const float* A, int lda, const 
 // acc += op(A) op(B) over k in [0, K), K a multiple of 8, for the warp's
 // 16 x 32 part of the 64 x 64 tile, in 3xTF32. `kscale`, where given,
 // multiplies column k of op(A) and `mscale` its row m (shared or global
-// arrays of K and 64 floats). Every warp of the CTA (or of its group) calls
-// it; nothing here synchronizes.
+// arrays of K and 64 floats). Output columns >= `nlim` and rows >= `mlim`
+// are left at zero (the 8-column blocks that start there, and the warps
+// whose 16 rows do, are skipped): a product of one small head (head dim
+// below 64, its operands zero-padded in shared memory to the MMA's k)
+// computes only its head's block. Every warp of the CTA (or of its group)
+// calls it; nothing here synchronizes.
 template <bool TA, bool TB, int MODE = FULL>
 __device__ __forceinline__ void mma(Acc& acc, const float* A, int lda, const float* B, int ldb,
                                     int K, const float* kscale = nullptr,
-                                    const float* mscale = nullptr) {
+                                    const float* mscale = nullptr, int nlim = T, int mlim = T) {
   const int lane = threadIdx.x & 31, w = thread_in_group() >> 5;
   const int m0 = 16 * (w & 3), n0 = 32 * (w >> 2);
   const int g = lane >> 2, t = lane & 3;
+  if (m0 >= mlim || n0 >= nlim) return;  // warp-uniform
   int kbeg = 0, kend = K;
   if (MODE == K_LE_M) kend = K < m0 + 16 ? K : m0 + 16;
   if (MODE == K_GE_M) kbeg = m0;
 #pragma unroll 2
   for (int k0 = kbeg; k0 < kend; k0 += 8)
-    mma_k8<TA, TB, MODE>(acc, A, lda, B, ldb, k0, m0, n0, g, t, kscale, mscale);
+    mma_k8<TA, TB, MODE>(acc, A, lda, B, ldb, k0, m0, n0, g, t, kscale, mscale, nlim);
 }
 
 // Two independent full products over the same K in one k loop, so that
@@ -181,6 +186,33 @@ __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
+
+// Writes the top-left N x N block of the accumulators to dst at row stride
+// N: one small head's DH x DH state (a chunk summary, a carry gradient).
+template <int N>
+__device__ __forceinline__ void store_block(const Acc& a, float* dst) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * h, row = Acc::row(r), col = Acc::col(j, r);
+      if (row < N && col < N)
+        *reinterpret_cast<float2*>(dst + row * N + col) = make_float2(a.c[j][r], a.c[j][r + 1]);
+    }
+}
+
+// The head-dim constants of the mLSTM kernels' chunk stages (head dims 4 to
+// 64, a template argument): 1 / sqrt(DH), the scale of q; and the depth of a
+// contraction over the head dim, DH zero-padded in shared memory to the
+// MMA's k (8 for TF32 m16n8k8, 16 for bf16 m16n8k16).
+template <int DH>
+__host__ __device__ constexpr float qscale() {
+  static_assert(DH == 4 || DH == 8 || DH == 16 || DH == 32 || DH == 64, "head dim");
+  return DH == 4 ? 0.5f : DH == 8 ? 0.35355339059327373f : DH == 16 ? 0.25f
+       : DH == 32 ? 0.17677669529663687f : 0.125f;
+}
+template <int DH> __host__ __device__ constexpr int kp32() { return DH < 8 ? 8 : DH; }
+template <int DH> __host__ __device__ constexpr int kp16() { return DH < 16 ? 16 : DH; }
 
 // Writes the accumulators to a 64 x 64 tile at row stride ldc.
 __device__ __forceinline__ void store(const Acc& acc, float* C, int ldc) {

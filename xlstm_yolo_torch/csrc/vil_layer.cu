@@ -50,16 +50,18 @@
 //      rms_scale scales A's columns in the fragment loads and each row's
 //      1/rms (its sum of squares gathered from the same slices) scales the
 //      accumulators; x_mlstm and z go to the workspace. 70 KB.
-//   2. cell prologue (one CTA per 64 tokens x one head): that head's conv_act
-//      (K6: its nine taps and SiLU) and x_mlstm, then q, k, v as three 64 x
-//      64 x 64 products. Each gate pre-activation dots all 3*INNER channels,
-//      so each CTA writes its head's partial dot for all 2*NH gate rows to
-//      the workspace (2, NH_src, B*NH, S). 87 KB, two CTAs per SM.
-//   3. chunk summaries (one CTA per (chunk, batch*head)): sums the NH_src gate
+//   2. cell prologue (one CTA per 64 tokens x one group of 64 channels: one
+//      head at DH 64): the group's conv_act (K6: its nine taps and SiLU) and
+//      x_mlstm, then q, k, v as three 64 x 64 x 64 products. Each gate
+//      pre-activation dots all 3*INNER channels, so each CTA writes its
+//      group's partial dot for all 2*NH gate rows to the workspace (2, NG,
+//      B*NH, S). 87 KB, two CTAs per SM.
+//   3. chunk summaries (one CTA per (chunk, batch*head)): sums the NG gate
 //      partials in a fixed order (deterministic, no atomics) into the i/f
 //      pre-activations, then k^T (g v) and the k sums. 35 KB.
-//   4. state scan (one CTA per (batch*head, 256 state entries)): the only
-//      sequential part, NS steps of an elementwise update of C, n, m.
+//   4. state scan (one CTA per (batch*head, 256 state entries; one for the
+//      whole DH x DH state below DH 16)): the only sequential part, NS
+//      steps of an elementwise update of C, n, m.
 //   5. chunk outputs (one CTA per (chunk, batch*head)): the causal q k^T, the
 //      intra-chunk E v and the carried-in q C, normalized; for the members
 //      with the tail also its elementwise part, once per head and token:
@@ -103,7 +105,25 @@
 // so that is the state the backward reads. Shared memory per stage is fixed
 // by its tiles (at most 74 KB), so every width runs.
 //
-// Head dim and chunk size are fixed at 64. A sequence that is not a
+// Head dims: 64, and the smaller ones the JAX package's ViL blocks default
+// to, 4, 8, 16 and 32 (`DH` is a template parameter of every stage that
+// depends on it; the entries dispatch on INNER / NH). Below 64 the stages
+// split in two kinds:
+//   - the headwise products and the gate dots (the cell prologue) pack the
+//     64 / DH heads of a 64-channel group into one 64-wide tile, the
+//     headwise weights as its block-diagonal (the off-diagonal blocks zero,
+//     as the TPU kernel's `wq_bd`), so those products stay 64 x 64 x 64 and
+//     the gate partials have one source per group of 64 channels, as at 64;
+//   - the per-head chunk products (q k^T, E v, q C, (g k)^T v) contract or
+//     produce only within one head and are never packed: a CTA takes one
+//     head of one chunk, its q, k, v, C land in 64-wide tiles zero-padded
+//     in shared memory, each contraction over the head dim runs to the
+//     MMA's k (8 in TF32, 16 in bf16; DH itself from 8 or 16 up) and each
+//     product's output stops at the head's DH columns (`nlim`, `mlim` of
+//     the tile products). The per-head gate matrix (a CS x CS exp and mask)
+//     is then as much work as the products at DH 4 and 8.
+// Widths: INNER any multiple of DH; a group or a proj_up tile that runs
+// past INNER is masked. The chunk is fixed at 64. A sequence that is not a
 // multiple of 64 is handled by masking the last chunk: missing positions
 // load as zeros with an input-gate log of -1e30, so they add nothing to any
 // valid position.
@@ -120,18 +140,22 @@ namespace {
 
 using tile::Acc;
 using tile::LDS;
+using tile::kp16;
+using tile::kp32;
+using tile::qscale;
 using tile::round_bf16;
+using tile::store_block;
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 64;               // head dim
 constexpr int CS = 64;               // chunk length
 constexpr int TOK = 64;              // tokens per CTA of the head, cell prologue and epilogue
 constexpr int KS = 64;               // the head's slice of DIM per stage
 constexpr int NT = tile::THREADS;    // threads per CTA
 constexpr int NW = NT / 32;          // warps per CTA
 constexpr int TF = tile::FLOATS;     // floats of one 64 x 64 shared tile
-constexpr float QS = 0.125f;         // 1 / sqrt(DH)
 constexpr float NEG = -1e30f;
+constexpr int GW = tile::T;          // channels of a head group (the prologue's and epilogue's tiles)
+
 
 struct Params {
   const float* x;     // (B, S, DIM) layer input, K3 and K6
@@ -144,7 +168,7 @@ struct Params {
   const float* nrm;   // (DIM) rms_scale
   const float* wu;    // (2*INNER, DIM) proj_up's weight, out x in
   const float* bu;    // (2*INNER)
-  const float* wq;    // (NH, DH_out, DH_in)
+  const float* wq;    // (NH, DH_out, DH_in), DH = INNER / NH
   const float* wk;
   const float* wv;
   const float* bq;    // (INNER)
@@ -172,7 +196,7 @@ struct Params {
   int H, W;           // K6 only: the token grid, S = H * W
   float* h;           // (B, S, INNER) cell output before outnorm; K4's output
   float* y;           // (B, S, INNER) (outnorm(h) + skip conv) silu(z); K3, K6, K7
-  float* gp;          // (2, NH_src, B*NH, S) per-source-head partial gate dots
+  float* gp;          // (2, NG, B*NH, S) per-source-group partial gate dots
   float* ig;          // (B*NH, S) gate preacts
   float* fg;
   float* kv;          // (B*NH, NS, DH, DH) chunk summaries
@@ -183,6 +207,7 @@ struct Params {
   float* nprev;       // (B*NH, NS, DH)
   float* mprev;       // (B*NH, NS)
   int B, S, DIM, INNER, NH, NS, igate_exp;
+  int DH, NG;         // head dim INNER / NH; groups of 64 channels, ceil(INNER / 64)
   float eps, norm_eps, rms_eps;
   // the bf16 layer (K3 in bf16, the vil16_* stages)
   const bf16* x16;    // (B, S, DIM) layer input
@@ -245,6 +270,7 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
   const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
   const int c0 = blockIdx.y * tile::T;  // first output column, of 2*INNER
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
+  const int wrows = 2 * INNER - c0 < tile::T ? 2 * INNER - c0 : tile::T;
   const float* xsrc = p.x + tok0 * DIM;
   const float* wsrc = p.wu + (long)c0 * DIM;
   const int nk = (DIM + KS - 1) / KS;
@@ -252,7 +278,7 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
   auto stage = [&](int buf, int k0) {
     float* xb = sm + buf * 2 * TF;
     tile::load_async<TOK, KS>(xb, LDS, xsrc + k0, DIM, nrows, DIM - k0);
-    tile::load_async<TOK, KS>(xb + TF, LDS, wsrc + k0, DIM, TOK, DIM - k0);
+    tile::load_async<TOK, KS>(xb + TF, LDS, wsrc + k0, DIM, wrows, DIM - k0);
     if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? p.nrm[k0 + tid] : 0.f;
     tile::cp_async_commit();
   };
@@ -281,30 +307,32 @@ __global__ void __launch_bounds__(NT) vil_head(Params p) {
   if ((tid & 3) == 0) rinv[tid >> 2] = rsqrtf(ss / DIM + p.rms_eps);
   __syncthreads();
 
-  const bool xm_half = c0 < INNER;
-  float* dst = xm_half ? p.xmw + c0 : p.z + (c0 - INNER);
+  // column pairs (gc, gc + 1) of 2*INNER: INNER is even, so a pair lies in one half
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
+      const int r = 2 * hh, row = Acc::row(r), gc = c0 + Acc::col(j, r);
       const float sc = rinv[row];
-      if (tok0 + row < ntok)
-        *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) =
-            make_float2(acc.c[j][r] * sc + p.bu[c0 + col], acc.c[j][r + 1] * sc + p.bu[c0 + col + 1]);
+      if (tok0 + row < ntok && gc < 2 * INNER) {
+        float* dst = gc < INNER ? p.xmw + gc : p.z + (gc - INNER);
+        *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER) =
+            make_float2(acc.c[j][r] * sc + p.bu[gc], acc.c[j][r + 1] * sc + p.bu[gc + 1]);
+      }
     }
 }
 
-// K6: conv_act of 64 tokens x head n's channels from x_mlstm in the
-// workspace: the nine taps on the (H, W) grid (a tap outside it adds
-// nothing), bias, SiLU; to the workspace and to the shared tile cv.
-__device__ void conv_tile(const Params& p, float* cv, int n, long tok0, long ntok) {
+// K6: conv_act of 64 tokens x the ncols channels c0 .. of a group from
+// x_mlstm in the workspace: the nine taps on the (H, W) grid (a tap outside
+// it adds nothing), bias, SiLU; to the workspace and to the shared tile cv
+// (zeros past ncols).
+__device__ void conv_tile(const Params& p, float* cv, int c0, int ncols, long tok0, long ntok) {
   const int INNER = p.INNER, H = p.H, W = p.W;
-  for (int i = threadIdx.x; i < TOK * DH; i += NT) {
-    const int r = i / DH, cl = i % DH, c = n * DH + cl;
+  for (int i = threadIdx.x; i < TOK * GW; i += NT) {
+    const int r = i / GW, cl = i % GW, c = c0 + cl;
     const long tk = tok0 + r;
     float act = 0.f;
-    if (tk < ntok) {
+    if (tk < ntok && cl < ncols) {
       const long b = tk / p.S;
       const int s = (int)(tk % p.S), row = s / W, col = s % W;
       const float* img = p.xm + b * p.S * INNER + c;
@@ -329,17 +357,19 @@ __device__ void conv_tile(const Params& p, float* cv, int n, long tok0, long nto
 
 // Starts the copy of rows r0 .. r0+63 of the stacked gate kernels (rows
 // 0 .. NH-1 the input gate's, NH .. 2NH-1 the forget gate's, each (3*INNER))
-// at columns coff .. coff+63; rows past 2*NH land as zeros.
-__device__ void load_gate_rows(const Params& p, float* dst, int r0, int coff) {
+// at columns coff .. coff+ncols-1; rows past 2*NH and columns past ncols
+// land as zeros.
+__device__ void load_gate_rows(const Params& p, float* dst, int r0, int coff, int ncols) {
   const long ld = 3L * p.INNER;
   const int NH = p.NH;
   const bool vec = (ld & 3) == 0 && (coff & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(p.wgi) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(p.wgf) & 15) == 0;
-  const int per = vec ? DH / 4 : DH;  // copies per row
+  const int per = vec ? GW / 4 : GW;  // copies per row
   for (int i = threadIdx.x; i < tile::T * per; i += NT) {
     const int r = i / per, c = (vec ? 4 : 1) * (i % per), rr = r0 + r;
     const float* src = rr < NH ? p.wgi + rr * ld : rr < 2 * NH ? p.wgf + (rr - NH) * ld : nullptr;
+    if (c >= ncols) src = nullptr;  // ncols is a multiple of 4
     if (vec)
       tile::cp_async16(dst + r * LDS + c, src ? src + coff + c : p.wgi, src ? 16 : 0);
     else
@@ -347,25 +377,51 @@ __device__ void load_gate_rows(const Params& p, float* dst, int r0, int coff) {
   }
 }
 
-// Adds the bias to a headwise product, keeps it in the shared tile and
-// writes the token rows that exist to the workspace.
+// The headwise weight of group g (heads g*64/DH ..) as one 64 x 64 tile,
+// [out channel][in channel] of the group: at DH 64 the head's weight, copied
+// in by cp.async (the caller commits and waits); below 64 the block-diagonal
+// of the group's heads, zeros elsewhere and past the ncols channels that
+// exist, written directly (the caller's barrier covers it).
+template <int DH>
+__device__ __forceinline__ void load_headwise(float* dst, const float* w, int g, int ncols) {
+  if constexpr (DH == tile::T) {
+    tile::load_async<DH, DH>(dst, LDS, w + (long)g * DH * DH, DH, DH, DH);
+  } else {
+    const float* wg = w + (long)g * GW * DH;  // the group's first head
+    for (int i = threadIdx.x; i < GW * GW; i += NT) {
+      const int r = i / GW, c = i % GW;
+      dst[r * LDS + c] = r / DH == c / DH && r < ncols
+                             ? wg[(long)(r / DH) * DH * DH + (r % DH) * DH + c % DH]
+                             : 0.f;
+    }
+  }
+}
+
+// Adds the bias to a headwise product of a group, keeps it in the shared
+// tile and writes the token rows that exist and the ncols columns that
+// exist to the workspace (the tile's other columns stay zero).
 __device__ __forceinline__ void put_headwise(const Acc& a, const float* bias, float* tile_,
-                                             float* dst, long tok0, long ntok, int INNER) {
+                                             float* dst, long tok0, long ntok, int INNER,
+                                             int ncols) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
-      const float2 v = make_float2(a.c[j][r] + bias[col], a.c[j][r + 1] + bias[col + 1]);
+      const bool ok = col < ncols;  // ncols is even
+      const float2 v = ok ? make_float2(a.c[j][r] + bias[col], a.c[j][r + 1] + bias[col + 1])
+                          : make_float2(0.f, 0.f);
       *reinterpret_cast<float2*>(tile_ + row * LDS + col) = v;
-      if (tok0 + row < ntok) *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) = v;
+      if (ok && tok0 + row < ntok)
+        *reinterpret_cast<float2*>(dst + (tok0 + row) * INNER + col) = v;
     }
 }
 
-// 2. Cell prologue for 64 tokens and head n: headwise q/k/v and the head's
-// partial gate dots. CONV (K6) computes conv_act from the workspace's
-// x_mlstm first; the others stream it in.
-template <bool CONV>
+// 2. Cell prologue for 64 tokens and the 64-channel group g (one head at
+// DH 64, 64 / DH heads below): headwise q/k/v and the group's partial gate
+// dots. CONV (K6) computes conv_act from the workspace's x_mlstm first; the
+// others stream it in.
+template <bool CONV, int DH>
 __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
   extern __shared__ __align__(16) float sm[];
   float* t0 = sm;           // conv_act, then q
@@ -373,19 +429,19 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
   float* t2 = t1 + TF;      // wq, then v
   float* t3 = t2 + TF;      // wk, then gate rows
   float* t4 = t3 + TF;      // wv, then gate rows
-  const int n = blockIdx.y, INNER = p.INNER, NH = p.NH;
+  const int g = blockIdx.y, INNER = p.INNER, NH = p.NH, NG = p.NG;
+  const int c0 = g * GW, ncols = INNER - c0 < GW ? INNER - c0 : GW;
   const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
-  const long hoff = tok0 * INNER + (long)n * DH;
-  const long woff = (long)n * DH * DH;
+  const long hoff = tok0 * INNER + c0;
   if (!CONV)
-    tile::load_async<TOK, DH>(t0, LDS, p.conv + hoff, INNER, nrows, DH);
-  tile::load_async<TOK, DH>(t1, LDS, p.xm + hoff, INNER, nrows, DH);
-  tile::load_async<DH, DH>(t2, LDS, p.wq + woff, DH, DH, DH);
-  tile::load_async<DH, DH>(t3, LDS, p.wk + woff, DH, DH, DH);
-  tile::load_async<DH, DH>(t4, LDS, p.wv + woff, DH, DH, DH);
+    tile::load_async<TOK, GW>(t0, LDS, p.conv + hoff, INNER, nrows, ncols);
+  tile::load_async<TOK, GW>(t1, LDS, p.xm + hoff, INNER, nrows, ncols);
+  load_headwise<DH>(t2, p.wq, g, ncols);
+  load_headwise<DH>(t3, p.wk, g, ncols);
+  load_headwise<DH>(t4, p.wv, g, ncols);
   tile::cp_async_commit();
-  if (CONV) conv_tile(p, t0, n, tok0, ntok);
+  if (CONV) conv_tile(p, t0, c0, ncols, tok0, ntok);
   tile::cp_async_wait_all();
   __syncthreads();
 
@@ -394,34 +450,34 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
     aq.zero();
     ak.zero();
     av.zero();
-    tile::mma<false, true>(aq, t0, LDS, t2, LDS, DH);
-    tile::mma<false, true>(ak, t0, LDS, t3, LDS, DH);
-    tile::mma<false, true>(av, t1, LDS, t4, LDS, DH);
+    tile::mma<false, true>(aq, t0, LDS, t2, LDS, GW);
+    tile::mma<false, true>(ak, t0, LDS, t3, LDS, GW);
+    tile::mma<false, true>(av, t1, LDS, t4, LDS, GW);
     __syncthreads();
-    put_headwise(aq, p.bq + n * DH, t0, p.q + n * DH, tok0, ntok, INNER);
-    put_headwise(ak, p.bk + n * DH, t1, p.k + n * DH, tok0, ntok, INNER);
-    put_headwise(av, p.bv + n * DH, t2, p.v + n * DH, tok0, ntok, INNER);
+    put_headwise(aq, p.bq + c0, t0, p.q + c0, tok0, ntok, INNER, ncols);
+    put_headwise(ak, p.bk + c0, t1, p.k + c0, tok0, ntok, INNER, ncols);
+    put_headwise(av, p.bv + c0, t2, p.v + c0, tok0, ntok, INNER, ncols);
   }
 
-  // this head's share of every gate pre-activation: cat(q, k, v)[:, head n]
+  // this group's share of every gate pre-activation: cat(q, k, v)[:, group g]
   // against the matching columns of all 2*NH gate rows, 64 rows at a time
-  const long stride = (long)p.B * NH * p.S;  // one source head's partials
+  const long stride = (long)p.B * NH * p.S;  // one source group's partials
   for (int r0 = 0; r0 < 2 * NH; r0 += tile::T) {
-    load_gate_rows(p, t3, r0, n * DH);
-    load_gate_rows(p, t4, r0, INNER + n * DH);
+    load_gate_rows(p, t3, r0, c0, ncols);
+    load_gate_rows(p, t4, r0, INNER + c0, ncols);
     tile::cp_async_commit();
     tile::cp_async_wait_all();
     __syncthreads();
     Acc ag;
     ag.zero();
-    tile::mma<false, true>(ag, t0, LDS, t3, LDS, DH);
-    tile::mma<false, true>(ag, t1, LDS, t4, LDS, DH);
+    tile::mma<false, true>(ag, t0, LDS, t3, LDS, GW);
+    tile::mma<false, true>(ag, t1, LDS, t4, LDS, GW);
     __syncthreads();
-    load_gate_rows(p, t3, r0, 2 * INNER + n * DH);
+    load_gate_rows(p, t3, r0, 2 * INNER + c0, ncols);
     tile::cp_async_commit();
     tile::cp_async_wait_all();
     __syncthreads();
-    tile::mma<false, true>(ag, t2, LDS, t3, LDS, DH);
+    tile::mma<false, true>(ag, t2, LDS, t3, LDS, GW);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -431,7 +487,7 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
         if (hc < 2 * NH && tk < ntok) {
           const int which = hc >= NH, hh = hc - which * NH;
           const long b = tk / p.S, s = tk % p.S;
-          p.gp[((long)which * NH + n) * stride + (b * NH + hh) * p.S + s] = ag.c[j][r];
+          p.gp[((long)which * NG + g) * stride + (b * NH + hh) * p.S + s] = ag.c[j][r];
         }
       }
     __syncthreads();
@@ -439,7 +495,7 @@ __global__ void __launch_bounds__(NT, 2) vil_cell_prologue(Params p) {
 }
 
 // The i/f pre-activations of chunk positions s0 .. s0+63 of row bh = b*NH +
-// hh: bias plus the NH source heads' partials, summed in order; written to
+// hh: bias plus the NG source groups' partials, summed in order; written to
 // ig/fg for the later stages and the backward, and returned as gate logs
 // lf (log forget, 0 where masked) and li (log input, NEG where masked).
 __device__ void sum_gates(const Params& p, int bh, int hh, int s0, float* lf, float* li) {
@@ -450,9 +506,9 @@ __device__ void sum_gates(const Params& p, int bh, int hh, int s0, float* lf, fl
     float pre = 0.f;
     if (ok) {
       const long stride = (long)p.B * p.NH * p.S;
-      const float* src = p.gp + (long)which * p.NH * stride + (long)bh * p.S + s;
+      const float* src = p.gp + (long)which * p.NG * stride + (long)bh * p.S + s;
       pre = which ? p.bgf[hh] : p.bgi[hh];
-      for (int n = 0; n < p.NH; ++n) pre += src[n * stride];
+      for (int g = 0; g < p.NG; ++g) pre += src[g * stride];
       (which ? p.fg : p.ig)[(long)bh * p.S + s] = pre;
     }
     if (which)
@@ -478,7 +534,10 @@ __device__ __forceinline__ void load_gates(const Params& p, int bh, int s0, floa
 }
 
 // 3. Per-chunk state summaries: (g k)^T v and the sums of g k, the gate
-// weights g applied to k in the product's fragment load.
+// weights g applied to k in the product's fragment load. Below DH 64 the
+// head's k and v land zero-padded in 64-wide tiles and the product stops at
+// the DH x DH block.
+template <int DH>
 __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   __shared__ __align__(16) float ks[TF];
   __shared__ __align__(16) float vs[TF];
@@ -489,8 +548,8 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
   const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
 
-  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
   tile::cp_async_commit();
   sum_gates(p, bh, n, s0, bcs, li);
   tile::cp_async_wait_all();
@@ -513,8 +572,8 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
   const long base = (long)bh * p.NS + j;
   Acc acc;
   acc.zero();
-  tile::mma<true, false>(acc, ks, LDS, vs, LDS, CS, gw);  // (g k)^T v: [d][e]
-  tile::store(acc, p.kv + base * DH * DH, DH);
+  tile::mma<true, false>(acc, ks, LDS, vs, LDS, CS, gw, nullptr, DH, DH);  // (g k)^T v: [d][e]
+  store_block<DH>(acc, p.kv + base * DH * DH);
   if (tid < DH) {
     float s_ = 0.f;
     for (int s = 0; s < CS; ++s) s_ += ks[s * LDS + tid] * gw[s];
@@ -527,9 +586,11 @@ __global__ void __launch_bounds__(NT) vil_chunk_summary(Params p) {
 }
 
 // 4. Sequential scan over chunks: writes the state carried into each chunk.
+template <int DH>
 __global__ void __launch_bounds__(NT) vil_state_scan(Params p) {
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int idx = blockIdx.y * NT + tid;  // entry of C
+  if (idx >= DH * DH) return;             // below DH 16 one CTA covers C with threads to spare
   const bool own_n = blockIdx.y == 0 && tid < DH;
   const bool own_m = blockIdx.y == 0 && tid == 0;
   const long row = (long)bh * p.NS;
@@ -562,15 +623,20 @@ __global__ void __launch_bounds__(NT) vil_state_scan(Params p) {
 
 // 5. Per-chunk outputs h = (intra + inter) / normalizer. q_inter (row t of
 // q times av[t], its inter-chunk scale over sqrt(DH)) is formed in the
-// fragment load of the q C product.
+// fragment load of the q C product. Below DH 64 q, k, v and C land
+// zero-padded in 64-wide tiles (C to the MMA's k), the contractions over the
+// head dim run to kp32<DH>() and the outputs stop at the head's DH columns.
+template <int DH>
 __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
+  constexpr float QS = qscale<DH>();
+  constexpr int KP = kp32<DH>();
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                // q, unscaled
   float* ks = qs + TF;           // k, then E: decayed q k^T / sqrt(DH) (row t, col s)
   float* vs = ks + TF;
   float* Cs = vs + TF;           // carried-in C [d][e]
-  float* nv = Cs + TF;           // DH carried-in n
-  float* bcs = nv + DH;          // CS cumsum of log f
+  float* nv = Cs + TF;           // 64 carried-in n, zeros past DH
+  float* bcs = nv + tile::T;     // CS cumsum of log f
   float* li = bcs + CS;          // CS log input gate
   float* cm = li + CS;           // CS running max of li - b
   float* stab = cm + CS;         // CS stabilizer
@@ -582,13 +648,13 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   const int nrows = p.S - s0 < CS ? p.S - s0 : CS;
   const long hoff = ((long)b * p.S + s0) * p.INNER + (long)n * DH;
 
-  tile::load_async<CS, DH>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
-  tile::load_async<CS, DH>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
-  tile::load_async<DH, DH>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
+  tile::load_async<CS, tile::T>(qs, LDS, p.q + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(ks, LDS, p.k + hoff, p.INNER, nrows, DH);
+  tile::load_async<CS, tile::T>(vs, LDS, p.v + hoff, p.INNER, nrows, DH);
+  tile::load_async<KP, KP>(Cs, LDS, p.cprev + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
-  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  if (tid < tile::T) nv[tid] = tid < DH ? p.nprev[base * DH + tid] : 0.f;
   const float m_prev = p.mprev[base];
   tile::cp_async_wait_all();
   __syncthreads();
@@ -611,7 +677,7 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   {
     Acc s;
     s.zero();
-    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, DH);
+    tile::mma<false, true, tile::OUT_LOWER>(s, qs, LDS, ks, LDS, KP);
     __syncthreads();  // every warp is done with k: E takes its place
     float* E = ks;
 #pragma unroll
@@ -636,8 +702,8 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   Acc hv, inter;
   hv.zero();
   inter.zero();
-  tile::mma<false, false, tile::K_LE_M>(hv, E, LDS, vs, LDS, CS);
-  tile::mma<false, false>(inter, qs, LDS, Cs, LDS, DH, nullptr, av);
+  tile::mma<false, false, tile::K_LE_M>(hv, E, LDS, vs, LDS, CS, nullptr, nullptr, DH);
+  tile::mma<false, false>(inter, qs, LDS, Cs, LDS, KP, nullptr, av, DH);
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -650,7 +716,7 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, t = Acc::row(r);
-      if (s0 + t < p.S) {
+      if (s0 + t < p.S && Acc::col(jj, r) < DH) {
         const long o = ((long)b * p.S + s0 + t) * p.INNER + n * DH + Acc::col(jj, r);
         *reinterpret_cast<float2*>(p.h + o) = make_float2(hv.c[jj][r], hv.c[jj][r + 1]);
       }
@@ -665,14 +731,15 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   for (int t = warp; t < CS; t += NW) {
     if (s0 + t >= p.S) break;  // warp-uniform
     const float* hr = Cs + t * LDS;
-    const float a0 = hr[lane], a1 = hr[lane + 32];
+    const float a0 = hr[lane], a1 = hr[lane + 32];  // zeros past DH
     const float mu = warp_sum(a0 + a1) / DH;
-    const float d0 = a0 - mu, d1 = a1 - mu;
+    const float d0 = lane < DH ? a0 - mu : 0.f, d1 = lane + 32 < DH ? a1 - mu : 0.f;
     const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + p.norm_eps);
     const long row = ((long)b * p.S + s0 + t) * p.INNER + n * DH;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int cl = lane + 32 * half, c = n * DH + cl;
+      if (cl >= DH) break;
       const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
       p.y[row + cl] = (hn + p.skip[c] * p.conv[row + cl]) * silu(p.zr[row + cl]);
     }
@@ -680,8 +747,8 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
 }
 
 // 6. Epilogue for 64 tokens x 64 columns of DIM: y (the chunk outputs'
-// tail product) times proj_down's slice, the K loop over heads in
-// double-buffered 64-channel slices; then bias and residual.
+// tail product) times proj_down's slice, the K loop over the NG groups of
+// 64 channels in double-buffered slices; then bias and residual.
 __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
   // per stage: y (64 tokens x one head's channels), then proj_down's rows
   // c0 .. c0+63 at the same channels
@@ -691,28 +758,28 @@ __global__ void __launch_bounds__(NT, 3) vil_epilogue(Params p) {
   const int c0 = blockIdx.y * tile::T;
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const int ncols = DIM - c0 < tile::T ? DIM - c0 : tile::T;
-  auto stage = [&](int buf, int n) {
+  auto stage = [&](int buf, int g) {
     float* yb = sm + buf * 2 * TF;
-    tile::load_async<TOK, DH>(yb, LDS, p.y + tok0 * INNER + n * DH, INNER, nrows, DH);
-    tile::load_async<tile::T, DH>(yb + TF, LDS, p.wd + (long)c0 * INNER + n * DH, INNER, ncols,
-                                  DH);
+    const int k0 = g * GW, kc = INNER - k0 < GW ? INNER - k0 : GW;
+    tile::load_async<TOK, GW>(yb, LDS, p.y + tok0 * INNER + k0, INNER, nrows, kc);
+    tile::load_async<tile::T, GW>(yb + TF, LDS, p.wd + (long)c0 * INNER + k0, INNER, ncols, kc);
     tile::cp_async_commit();
   };
 
   Acc acc;
   acc.zero();
   stage(0, 0);
-  for (int n = 0; n < p.NH; ++n) {
-    const int buf = n & 1;
-    if (n + 1 < p.NH) {
-      stage(buf ^ 1, n + 1);
+  for (int g = 0; g < p.NG; ++g) {
+    const int buf = g & 1;
+    if (g + 1 < p.NG) {
+      stage(buf ^ 1, g + 1);
       tile::cp_async_wait_one();
     } else {
       tile::cp_async_wait_all();
     }
     __syncthreads();
     const float* yb = sm + buf * 2 * TF;
-    tile::mma<false, true>(acc, yb, LDS, yb + TF, LDS, DH);
+    tile::mma<false, true>(acc, yb, LDS, yb + TF, LDS, GW);
     __syncthreads();
   }
 #pragma unroll
@@ -750,7 +817,7 @@ __device__ __forceinline__ void round4(bf16* dst, const float* src, long n, long
 
 __global__ void __launch_bounds__(NT) vil16_prep(Params p) {
   const long stride = (long)gridDim.x * NT, i0 = (long)blockIdx.x * NT + threadIdx.x;
-  const long nw = (long)p.NH * DH * DH, ng = 3L * p.INNER * p.NH;
+  const long nw = (long)p.NH * p.DH * p.DH, ng = 3L * p.INNER * p.NH;
   round4(p.wu16, p.wu, 2L * p.INNER * p.DIM, i0, stride);
   round4(p.wq16, p.wq, nw, i0, stride);
   round4(p.wk16, p.wk, nw, i0, stride);
@@ -774,8 +841,9 @@ __global__ void __launch_bounds__(NT, 2) vil16_head(Params p) {
   __shared__ float rinv[TOK];
   const int DIM = p.DIM, INNER = p.INNER, tid = threadIdx.x;
   const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
-  const int ct0 = blockIdx.y * HG;  // first column tile, of 2*INNER / 64
-  const int ng = 2 * p.NH - ct0 < HG ? 2 * p.NH - ct0 : HG;
+  const int ct0 = blockIdx.y * HG;  // first column tile, of ceil(2*INNER / 64)
+  const int ntiles = (2 * INNER + tile::T - 1) / tile::T;
+  const int ng = ntiles - ct0 < HG ? ntiles - ct0 : HG;
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const bf16* xsrc = p.x16 + tok0 * DIM;
   const bf16* wsrc = p.wu16 + (long)ct0 * tile::T * DIM;
@@ -783,8 +851,11 @@ __global__ void __launch_bounds__(NT, 2) vil16_head(Params p) {
   auto stage = [&](int buf, int k0) {
     bf16* xb = sh + buf * (HG + 1) * HT;
     tile::load16(xb, xsrc + k0, DIM, nrows, DIM - k0);
-    for (int g = 0; g < ng; ++g)
-      tile::load16(xb + (g + 1) * HT, wsrc + (long)g * tile::T * DIM + k0, DIM, TOK, DIM - k0);
+    for (int g = 0; g < ng; ++g) {
+      const int left = 2 * INNER - (ct0 + g) * tile::T;  // proj_up's rows in this tile
+      tile::load16(xb + (g + 1) * HT, wsrc + (long)g * tile::T * DIM + k0, DIM,
+                   left < TOK ? left : TOK, DIM - k0);
+    }
     if (tid < KS) ns[buf][tid] = k0 + tid < DIM ? round_bf16(p.nrm[k0 + tid]) : 0.f;
     tile::cp_async_commit();
   };
@@ -845,18 +916,17 @@ __global__ void __launch_bounds__(NT, 2) vil16_head(Params p) {
   for (int g = 0; g < HG; ++g) {
     if (g >= ng) break;
     const int c0 = (ct0 + g) * tile::T;  // first output column, of 2*INNER
-    const bool xm_half = c0 < INNER;
-    const int col0 = xm_half ? c0 : c0 - INNER;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
-        if (tok0 + row >= ntok) continue;
-        const float v0 = acc[g].c[j][r] + round_bf16(p.bu[c0 + col]);
-        const float v1 = acc[g].c[j][r + 1] + round_bf16(p.bu[c0 + col + 1]);
-        const long o = (tok0 + row) * INNER + col0 + col;
-        if (xm_half)
+        // column pair (gc, gc + 1): INNER is even, so a pair lies in one half
+        const int r = 2 * hh, row = Acc::row(r), gc = c0 + Acc::col(j, r);
+        if (tok0 + row >= ntok || gc >= 2 * INNER) continue;
+        const float v0 = acc[g].c[j][r] + round_bf16(p.bu[gc]);
+        const float v1 = acc[g].c[j][r + 1] + round_bf16(p.bu[gc + 1]);
+        const long o = (tok0 + row) * INNER + (gc < INNER ? gc : gc - INNER);
+        if (gc < INNER)
           *reinterpret_cast<__nv_bfloat162*>(p.xm16 + o) = __floats2bfloat162_rn(v0, v1);
         else
           *reinterpret_cast<float2*>(p.z + o) = make_float2(v0, v1);
@@ -865,33 +935,68 @@ __global__ void __launch_bounds__(NT, 2) vil16_head(Params p) {
 }
 
 // Adds the bias (a bf16 value, as the JAX layer casts it) to a headwise
-// product and puts its bf16 value in the tile t16.
-__device__ __forceinline__ void put16(const Acc& a, const float* bias, bf16* t16) {
+// product of a group and puts its bf16 value in the tile t16; columns past
+// ncols (the channels that exist) stay zero.
+__device__ __forceinline__ void put16(const Acc& a, const float* bias, bf16* t16, int ncols) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 2 * hh, row = Acc::row(r), col = Acc::col(j, r);
-      *reinterpret_cast<__nv_bfloat162*>(t16 + row * LDH + col) = __floats2bfloat162_rn(
-          a.c[j][r] + round_bf16(bias[col]), a.c[j][r + 1] + round_bf16(bias[col + 1]));
+      const bool ok = col < ncols;  // ncols is even
+      *reinterpret_cast<__nv_bfloat162*>(t16 + row * LDH + col) =
+          ok ? __floats2bfloat162_rn(a.c[j][r] + round_bf16(bias[col]),
+                                     a.c[j][r + 1] + round_bf16(bias[col + 1]))
+             : __floats2bfloat162_rn(0.f, 0.f);
     }
 }
 
-// Writes the first nrows rows of a bf16 tile to a row-major global matrix
-// (row stride ld elements, 16-byte aligned rows) with 16-byte stores.
-__device__ __forceinline__ void store16_rows(bf16* dst, long ld, const bf16* t16, int nrows) {
-  for (int i = threadIdx.x; i < nrows * (tile::T / 8); i += NT) {
-    const int r = i >> 3, c = 8 * (i & 7);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(t16 + r * LDH + c);
+// Writes the first nrows rows and ncols columns of a bf16 tile to a
+// row-major global matrix (row stride ld elements): 16-byte stores where the
+// rows are 16-byte aligned and whole, else 2-byte ones.
+__device__ __forceinline__ void store16_rows(bf16* dst, long ld, const bf16* t16, int nrows,
+                                             int ncols) {
+  if ((ld & 7) == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0 && ncols == tile::T) {
+    for (int i = threadIdx.x; i < nrows * (tile::T / 8); i += NT) {
+      const int r = i >> 3, c = 8 * (i & 7);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(t16 + r * LDH + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * tile::T; i += NT) {
+      const int r = i >> 6, c = i & 63;
+      if (c < ncols) dst[r * ld + c] = t16[r * LDH + c];
+    }
   }
 }
 
-// 2. Cell prologue for 64 tokens and head n: headwise q/k/v, then the
-// head's partial gate dots from the bf16 q, k, v (the JAX kernel casts them
-// for the gate dots) against the first 64 gate rows, all of it copied in by
-// one cp.async group; the products skip the gate columns past 2*NH. Under
-// grad it writes q, k, v in bf16 for the backward; the later stages
-// recompute them (headwise16).
+// The bf16 headwise weight of group g as one 64 x 64 tile, as
+// load_headwise: the head's weight by cp.async at DH 64 (the caller commits
+// and waits), the block-diagonal of the group's heads below, written
+// directly (the caller's barrier covers it).
+template <int DH>
+__device__ __forceinline__ void load_headwise16(bf16* dst, const bf16* w, int g, int ncols) {
+  if constexpr (DH == tile::T) {
+    tile::load16(dst, w + (long)g * DH * DH, DH, DH, DH);
+  } else {
+    const bf16* wg = w + (long)g * GW * DH;
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int i = threadIdx.x; i < GW * GW; i += NT) {
+      const int r = i / GW, c = i % GW;
+      dst[r * LDH + c] = r / DH == c / DH && r < ncols
+                             ? wg[(long)(r / DH) * DH * DH + (r % DH) * DH + c % DH]
+                             : zero;
+    }
+  }
+}
+
+// 2. Cell prologue for 64 tokens and the 64-channel group g (one head at
+// DH 64, 64 / DH heads below, their weights as the block-diagonal):
+// headwise q/k/v, then the group's partial gate dots from the bf16 q, k, v
+// (the JAX kernel casts them for the gate dots) against the first 64 gate
+// rows, all of it copied in by one cp.async group; the products skip the
+// gate columns past 2*NH. Under grad it writes q, k, v in bf16 for the
+// backward; the later stages recompute them (headwise16).
+template <int DH>
 __global__ void __launch_bounds__(NT, 3) vil16_prologue(Params p) {
   extern __shared__ __align__(16) bf16 sh[];
   bf16* t0 = sh;        // conv_act
@@ -902,50 +1007,50 @@ __global__ void __launch_bounds__(NT, 3) vil16_prologue(Params p) {
   bf16* gq = t4 + HT;   // the gate rows' q, k and v columns of head n
   bf16* gk = gq + HT;
   bf16* gv = gk + HT;
-  const int n = blockIdx.y, INNER = p.INNER, NH = p.NH;
+  const int g = blockIdx.y, INNER = p.INNER, NH = p.NH;
+  const int c0 = g * GW, ncols = INNER - c0 < GW ? INNER - c0 : GW;
   const long ntok = (long)p.B * p.S, tok0 = (long)blockIdx.x * TOK;
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
-  const long hoff = tok0 * INNER + (long)n * DH;
-  const long woff = (long)n * DH * DH, gld = 3L * INNER;
+  const long hoff = tok0 * INNER + c0;
+  const long gld = 3L * INNER;
   auto load_gate_rows = [&](int r0) {
-    const bf16* g = p.wg16 + (long)r0 * gld + n * DH;
-    tile::load16(gq, g, gld, 2 * NH - r0, DH);
-    tile::load16(gk, g + INNER, gld, 2 * NH - r0, DH);
-    tile::load16(gv, g + 2 * INNER, gld, 2 * NH - r0, DH);
+    const bf16* w = p.wg16 + (long)r0 * gld + c0;
+    tile::load16(gq, w, gld, 2 * NH - r0, ncols);
+    tile::load16(gk, w + INNER, gld, 2 * NH - r0, ncols);
+    tile::load16(gv, w + 2 * INNER, gld, 2 * NH - r0, ncols);
   };
-  tile::load16(t0, p.conv16 + hoff, INNER, nrows, DH);
-  tile::load16(t1, p.xm16 + hoff, INNER, nrows, DH);
-  tile::load16(t2, p.wq16 + woff, DH, DH, DH);
-  tile::load16(t3, p.wk16 + woff, DH, DH, DH);
-  tile::load16(t4, p.wv16 + woff, DH, DH, DH);
+  tile::load16(t0, p.conv16 + hoff, INNER, nrows, ncols);
+  tile::load16(t1, p.xm16 + hoff, INNER, nrows, ncols);
+  load_headwise16<DH>(t2, p.wq16, g, ncols);
+  load_headwise16<DH>(t3, p.wk16, g, ncols);
+  load_headwise16<DH>(t4, p.wv16, g, ncols);
   load_gate_rows(0);
   tile::cp_async_commit();
   tile::cp_async_wait_all();
   __syncthreads();
   {  // one product at a time, each rounded into the tile its weight leaves
-    const long c = (long)n * DH;
     Acc a;
     a.zero();
     tile::mma16<false, true>(a, t0, t2);
     __syncthreads();
-    put16(a, p.bq + c, t2);
+    put16(a, p.bq + c0, t2, ncols);
     a.zero();
     tile::mma16<false, true>(a, t0, t3);
     __syncthreads();
-    put16(a, p.bk + c, t3);
+    put16(a, p.bk + c0, t3, ncols);
     a.zero();
     tile::mma16<false, true>(a, t1, t4);
     __syncthreads();
-    put16(a, p.bv + c, t4);
+    put16(a, p.bv + c0, t4, ncols);
   }
   __syncthreads();
   if (p.q16 != nullptr) {  // the backward's saved q, k, v
-    store16_rows(p.q16 + hoff, INNER, t2, nrows);
-    store16_rows(p.k16 + hoff, INNER, t3, nrows);
-    store16_rows(p.v16 + hoff, INNER, t4, nrows);
+    store16_rows(p.q16 + hoff, INNER, t2, nrows, ncols);
+    store16_rows(p.k16 + hoff, INNER, t3, nrows, ncols);
+    store16_rows(p.v16 + hoff, INNER, t4, nrows, ncols);
   }
 
-  const long stride = (long)p.B * NH * p.S;  // one source head's partials
+  const long stride = (long)p.B * NH * p.S;  // one source group's partials
   long gpos[2];  // the thread's two rows' offset b*NH*S + s in a gate row's partials, or -1
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -963,18 +1068,18 @@ __global__ void __launch_bounds__(NT, 3) vil16_prologue(Params p) {
     const int nlim = 2 * NH - r0 < tile::T ? 2 * NH - r0 : tile::T;
     Acc ag;
     ag.zero();
-    tile::mma16<false, true>(ag, t2, gq, DH, nlim);
-    tile::mma16<false, true>(ag, t3, gk, DH, nlim);
-    tile::mma16<false, true>(ag, t4, gv, DH, nlim);
+    tile::mma16<false, true>(ag, t2, gq, GW, nlim);
+    tile::mma16<false, true>(ag, t3, gk, GW, nlim);
+    tile::mma16<false, true>(ag, t4, gv, GW, nlim);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int hc = r0 + Acc::col(j, r);
-        const long g = gpos[r >> 1];
-        if (hc < 2 * NH && g >= 0) {
+        const long gpo = gpos[r >> 1];
+        if (hc < 2 * NH && gpo >= 0) {
           const int which = hc >= NH, hh = hc - which * NH;
-          p.gp[((long)which * NH + n) * stride + (long)hh * p.S + g] = ag.c[j][r];
+          p.gp[((long)which * p.NG + g) * stride + (long)hh * p.S + gpo] = ag.c[j][r];
         }
       }
   }
@@ -985,14 +1090,19 @@ __global__ void __launch_bounds__(NT, 3) vil16_prologue(Params p) {
 // tiles of the activation (conv_act or x_mlstm) and of the head's weight.
 // The same tiles through the same product give the same fp32 values bit for
 // bit in every stage, so no stage reads q, k or v back from device memory.
+// Below DH 64 the tiles hold one head zero-padded (its activation columns
+// and its weight's rows and columns past DH are zero): the contraction runs
+// to kp16<DH>() and the columns past DH stay exactly zero.
+template <int DH>
 __device__ __forceinline__ void headwise16(Acc& acc, const bf16* src, const bf16* w,
                                            const float* bias) {
   acc.zero();
-  tile::mma16<false, true>(acc, src, w);
+  tile::mma16<false, true>(acc, src, w, kp16<DH>(), DH);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc.c[j][r] += round_bf16(bias[Acc::col(j, r)]);
+    for (int r = 0; r < 4; ++r)
+      if (Acc::col(j, r) < DH) acc.c[j][r] += round_bf16(bias[Acc::col(j, r)]);
 }
 
 // Column sums of a 64 x 64 accumulator tile, each row r weighted by w[r],
@@ -1017,7 +1127,9 @@ __device__ __forceinline__ void weighted_col_sums(const Acc& a, const float* w, 
 // scale, the JAX kernel's kg) and the fp32 sums of g k, with k and v
 // recomputed from the bf16 conv_act and x_mlstm. Under grad (kv32) also the
 // summaries the backward's state is built from, as the JAX backward's phase
-// 1 computes them: from the bf16 k and v it saved, in fp32.
+// 1 computes them: from the bf16 k and v it saved, in fp32. Below DH 64 the
+// head's tiles are zero-padded and the products stop at the DH x DH block.
+template <int DH>
 __global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
   extern __shared__ __align__(16) bf16 sh[];
   bf16* t0 = sh;                                   // conv_act, then R(g k)
@@ -1025,7 +1137,7 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
   bf16* t2 = t1 + HT;                              // wk, then under grad hi
   bf16* t3 = t2 + HT;                              // wv, then mid
   bf16* t4 = t3 + HT;                              // lo
-  __shared__ float bcs[CS], li[CS], gw[CS], cpart[8 * DH];
+  __shared__ float bcs[CS], li[CS], gw[CS], cpart[8 * tile::T];  // two sets of weighted_col_sums
   __shared__ float s_mloc;
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.NH, n = bh % p.NH;
   const int tid = threadIdx.x, s0 = j * CS;
@@ -1042,8 +1154,8 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
   tile::cp_async_wait_all();
   __syncthreads();
   Acc ak, av;
-  headwise16(ak, t0, t2, p.bk + n * DH);
-  headwise16(av, t1, t3, p.bv + n * DH);
+  headwise16<DH>(ak, t0, t2, p.bk + n * DH);
+  headwise16<DH>(av, t1, t3, p.bv + n * DH);
   if (tid < 32) warp_scan64<false>(bcs);  // b = inclusive cumsum of log f
   __syncthreads();
   const float btot = bcs[CS - 1];
@@ -1091,15 +1203,16 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
         *reinterpret_cast<__nv_bfloat162*>(t4 + o) =
             __floats2bfloat162_rn(x0 - hf.x - mf.x, x1 - hf.y - mf.y);
       }
-    weighted_col_sums(ak, gw, cpart + 4 * DH);  // the backward's k sums, of R(k)
+    weighted_col_sums(ak, gw, cpart + 4 * tile::T);  // the backward's k sums, of R(k)
   }
   __syncthreads();
 
   const long base = (long)bh * p.NS + j;
   if (tid < DH) {
     const float* c = cpart + tid;
-    p.ksum[base * DH + tid] = c[0] + c[DH] + c[2 * DH] + c[3 * DH];
-    if (grad) p.ksum32[base * DH + tid] = c[4 * DH] + c[5 * DH] + c[6 * DH] + c[7 * DH];
+    constexpr int T = tile::T;  // cpart: [set][row quarter][64 columns]
+    p.ksum[base * DH + tid] = c[0] + c[T] + c[2 * T] + c[3 * T];
+    if (grad) p.ksum32[base * DH + tid] = c[4 * T] + c[5 * T] + c[6 * T] + c[7 * T];
   }
   if (tid == 0) {
     p.btot[base] = btot;
@@ -1107,14 +1220,14 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
   }
   Acc acc;
   acc.zero();
-  tile::mma16<true, false>(acc, t0, t1);  // R(g k)^T R(v): [d][e]
-  tile::store(acc, p.kv + base * DH * DH, DH);
+  tile::mma16<true, false>(acc, t0, t1, CS, DH, DH);  // R(g k)^T R(v): [d][e]
+  store_block<DH>(acc, p.kv + base * DH * DH);
   if (!grad) return;
   acc.zero();
-  tile::mma16<true, false>(acc, t4, t1);  // lo, mid, hi
-  tile::mma16<true, false>(acc, t3, t1);
-  tile::mma16<true, false>(acc, t2, t1);
-  tile::store(acc, p.kv32 + base * DH * DH, DH);
+  tile::mma16<true, false>(acc, t4, t1, CS, DH, DH);  // lo, mid, hi
+  tile::mma16<true, false>(acc, t3, t1, CS, DH, DH);
+  tile::mma16<true, false>(acc, t2, t1, CS, DH, DH);
+  store_block<DH>(acc, p.kv32 + base * DH * DH);
 }
 
 // 4. Both state scans in one launch (blockIdx.z). Set 0 carries the
@@ -1123,6 +1236,7 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_summary(Params p) {
 // set 1 (under grad) carries the backward's over the fp32 summaries, C and
 // n in fp32. A thread owns two neighbouring entries and keeps the next PF
 // chunks' entries in flight.
+template <int DH>
 __global__ void __launch_bounds__(NT) vil16_state_scan(Params p) {
   constexpr int PF = 4;
   const bool bwd = blockIdx.z == 1;
@@ -1131,6 +1245,7 @@ __global__ void __launch_bounds__(NT) vil16_state_scan(Params p) {
   float* nprev = bwd ? p.nprev32 : p.nprev;
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int idx = 2 * (blockIdx.y * NT + tid);  // entries idx, idx + 1 of C
+  if (idx >= DH * DH) return;  // below DH 32 one CTA covers C with threads to spare
   const bool own_n = blockIdx.y == 0 && tid < DH / 2;  // and of n
   const bool own_m = !bwd && blockIdx.y == 0 && tid == 0;
   const long row = (long)bh * p.NS;
@@ -1179,10 +1294,15 @@ __global__ void __launch_bounds__(NT) vil16_state_scan(Params p) {
 // the tail's elementwise part y = (outnorm(h) + skip conv_act) silu(z), in
 // bf16 (only ever the epilogue's operand). q, k, v are recomputed from the
 // bf16 conv_act and x_mlstm; from q's fp32 accumulators come, in one pass,
-// R(q) for q k^T, R(q_inter) = R(q a / sqrt(DH)) (rounded once after its
-// scale) and q . n; E's row sums come from its fp32 accumulators before E
-// is rounded.
+// R(q / sqrt(DH)) for q k^T (the scaled q rounded, as the JAX kernel rounds
+// it), R(q_inter) = R(q a / sqrt(DH)) (rounded once after its scale) and
+// q . n; E's row sums come from its fp32 accumulators before E
+// is rounded. Below DH 64 the head's tiles are zero-padded, the contractions
+// over the head dim run to kp16<DH>() and the outputs stop at DH columns.
+template <int DH>
 __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
+  constexpr float QS = qscale<DH>();
+  constexpr int KP = kp16<DH>();
   extern __shared__ __align__(16) bf16 sh[];
   bf16* cv = sh;              // conv_act (the tail's skip reads it too)
   bf16* k16 = cv + HT;        // x_mlstm, then R(q_inter)
@@ -1193,8 +1313,8 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   bf16* E16 = C16 + HT;       // R(E): decayed q k^T / sqrt(DH)
   float* zs = reinterpret_cast<float*>(q16);      // z (fp32) for the tail, over two tiles
   float* hs = reinterpret_cast<float*>(C16);      // h (fp32) for the tail, over two tiles
-  float* nv = reinterpret_cast<float*>(E16 + HT); // DH carried-in n
-  float* bcs = nv + DH;                           // CS cumsum of log f
+  float* nv = reinterpret_cast<float*>(E16 + HT); // 64 carried-in n, zeros past DH
+  float* bcs = nv + tile::T;                      // CS cumsum of log f
   float* li = bcs + CS;                           // CS log input gate
   float* cm = li + CS;                            // CS running max of li - b
   float* stab = cm + CS;                          // CS stabilizer
@@ -1225,7 +1345,7 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   tile::load16(C16, p.c16 + base * DH * DH, DH, DH, DH);
   tile::cp_async_commit();
   load_gates(p, bh, s0, bcs, li);
-  if (tid < DH) nv[tid] = p.nprev[base * DH + tid];
+  if (tid < tile::T) nv[tid] = tid < DH ? p.nprev[base * DH + tid] : 0.f;
   const float m_prev = p.mprev[base];
   __syncthreads();
   if (tid < 32) warp_scan64<false>(bcs);
@@ -1244,26 +1364,26 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   __syncthreads();
   // one headwise product at a time, each rounded into the tile its weight
   // leaves (k, then v over x_mlstm's weight, then q and q_inter)
-  auto put = [&](const Acc& a, bf16* dst, const float* rs) {
+  auto put = [&](const Acc& a, bf16* dst, const float* rs, float scale = 1.f) {
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = 2 * hh, t = Acc::row(r), c = Acc::col(jj, r);
-        const float sc = rs ? rs[t] : 1.f;
+        const float sc = rs ? rs[t] : scale;
         *reinterpret_cast<__nv_bfloat162*>(dst + t * LDH + c) =
             __floats2bfloat162_rn(a.c[jj][r] * sc, a.c[jj][r + 1] * sc);
       }
   };
   {
     Acc a;
-    headwise16(a, cv, qi, p.bk + n * DH);
+    headwise16<DH>(a, cv, qi, p.bk + n * DH);
     __syncthreads();
     put(a, qi, nullptr);  // R(k), for now in wk's tile
-    headwise16(a, k16, v16, p.bv + n * DH);
+    headwise16<DH>(a, k16, v16, p.bv + n * DH);
     __syncthreads();
     put(a, v16, nullptr);
-    headwise16(a, cv, q16, p.bq + n * DH);
+    headwise16<DH>(a, cv, q16, p.bq + n * DH);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
@@ -1271,7 +1391,7 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
       for (int r = 0; r < 4; ++r) pr[r >> 1] += a.c[jj][r] * nv[Acc::col(jj, r)];
     row_sums(pr, qpart);
     __syncthreads();  // every warp is done with x_mlstm and wq
-    put(a, q16, nullptr);
+    put(a, q16, nullptr, QS);  // R(q / sqrt(DH)): the JAX kernel rounds the scaled q
     put(a, k16, av);  // R(q_inter) over x_mlstm's tile
   }
   __syncthreads();
@@ -1281,14 +1401,14 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   {
     Acc s;
     s.zero();
-    tile::mma16<false, true, tile::OUT_LOWER>(s, q16, kk);
+    tile::mma16<false, true, tile::OUT_LOWER>(s, q16, kk, KP);
     float pr[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int t = Acc::row(r), c = Acc::col(jj, r);
-        const float e = c <= t ? s.c[jj][r] * QS * expf(li[c] - bcs[c] + bcs[t] - stab[t]) : 0.f;
+        const float e = c <= t ? s.c[jj][r] * expf(li[c] - bcs[c] + bcs[t] - stab[t]) : 0.f;
         s.c[jj][r] = e;
         pr[r >> 1] += e;
       }
@@ -1308,8 +1428,8 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   Acc hv, inter;
   hv.zero();
   inter.zero();
-  tile::mma16<false, false, tile::K_LE_M>(hv, E16, v16);
-  tile::mma16<false, false>(inter, qi, C16);
+  tile::mma16<false, false, tile::K_LE_M>(hv, E16, v16, CS, DH);
+  tile::mma16<false, false>(inter, qi, C16, KP, DH);
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -1320,7 +1440,7 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = 2 * hh, t = Acc::row(r);
-        if (s0 + t < p.S)
+        if (s0 + t < p.S && Acc::col(jj, r) < DH)
           *reinterpret_cast<__nv_bfloat162*>(
               p.h16 + ((long)b * p.S + s0 + t) * p.INNER + n * DH + Acc::col(jj, r)) =
               __floats2bfloat162_rn(hv.c[jj][r], hv.c[jj][r + 1]);
@@ -1335,14 +1455,15 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   for (int t = warp; t < CS; t += NW) {
     if (s0 + t >= p.S) break;  // warp-uniform
     const float* hr = hs + t * LDS;
-    const float a0 = hr[lane], a1 = hr[lane + 32];
+    const float a0 = hr[lane], a1 = hr[lane + 32];  // zeros past DH
     const float mu = warp_sum(a0 + a1) / DH;
-    const float d0 = a0 - mu, d1 = a1 - mu;
+    const float d0 = lane < DH ? a0 - mu : 0.f, d1 = lane + 32 < DH ? a1 - mu : 0.f;
     const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + p.norm_eps);
     const long row = ((long)b * p.S + s0 + t) * p.INNER + n * DH;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int cl = lane + 32 * half, c = n * DH + cl;
+      if (cl >= DH) break;
       const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
       const float cvv = __bfloat162float(cv[t * LDH + cl]);
       p.y16[row + cl] = __float2bfloat16_rn((hn + p.skip[c] * cvv) * silu(zs[t * LDS + cl]));
@@ -1361,10 +1482,11 @@ __global__ void __launch_bounds__(NT, 3) vil16_epilogue(Params p) {
   const int c0 = blockIdx.y * tile::T;
   const int nrows = (int)(ntok - tok0 < TOK ? ntok - tok0 : TOK);
   const int ncols = DIM - c0 < tile::T ? DIM - c0 : tile::T;
-  auto stage = [&](int buf, int n) {
+  auto stage = [&](int buf, int g) {
     bf16* yb = sh + buf * 2 * HT;
-    tile::load16(yb, p.y16 + tok0 * INNER + n * DH, INNER, nrows, DH);
-    tile::load16(yb + HT, p.wd16 + (long)c0 * INNER + n * DH, INNER, ncols, DH);
+    const int k0 = g * GW, kc = INNER - k0 < GW ? INNER - k0 : GW;
+    tile::load16(yb, p.y16 + tok0 * INNER + k0, INNER, nrows, kc);
+    tile::load16(yb + HT, p.wd16 + (long)c0 * INNER + k0, INNER, ncols, kc);
     tile::cp_async_commit();
   };
 
@@ -1372,10 +1494,10 @@ __global__ void __launch_bounds__(NT, 3) vil16_epilogue(Params p) {
   acc.zero();
   tile::load16(xs, p.x16 + tok0 * DIM + c0, DIM, nrows, ncols);
   stage(0, 0);
-  for (int n = 0; n < p.NH; ++n) {
-    const int buf = n & 1;
-    if (n + 1 < p.NH) {
-      stage(buf ^ 1, n + 1);
+  for (int g = 0; g < p.NG; ++g) {
+    const int buf = g & 1;
+    if (g + 1 < p.NG) {
+      stage(buf ^ 1, g + 1);
       tile::cp_async_wait_one();
     } else {
       tile::cp_async_wait_all();
@@ -1425,6 +1547,7 @@ enum WsArray { WQ, WK, WV, WZ, WH, WIG, WFG, WKV, WCPREV, WKSUM, WNPREV, WBTOT, 
 void workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
   const long NS = (S + CS - 1) / CS;
   const long tok = (long)B * S, rows = (long)B * NH;
+  const long DH = INNER / NH, NG = (INNER + GW - 1) / GW;
   const bool bf = kind == LAYER_BF16;
   const bool has_head = kind == LAYER || kind == CONV || bf;
   const long act = bf ? 0 : tok * INNER;          // q, k, v (and h)
@@ -1433,15 +1556,18 @@ void workspace_layout(int kind, int B, int S, int INNER, int NH, long* off) {
                              rows * S, rows * S, rows * NS * DH * DH, rows * NS * DH * DH / half,
                              rows * NS * DH, rows * NS * DH, rows * NS, rows * NS, rows * NS,
                              has_head ? tok * INNER / half : 0,
-                             kind == CONV ? tok * INNER : 0, 2 * NH * rows * S,
+                             kind == CONV ? tok * INNER : 0, 2 * NG * rows * S,
                              kind == CELL ? 0 : tok * INNER / half};
-  off[0] = 0;  // the bf16 layer's arrays start 16-byte aligned, for its 16-byte copies
-  for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + (bf ? (size[i] + 3) / 4 * 4 : size[i]);
+  // every array starts 16-byte aligned: the stages' float2 stores and
+  // 16-byte copies need it (the scalars' arrays, B*NH*NS floats each, may
+  // have an odd length)
+  off[0] = 0;
+  for (int i = 0; i < kNumWs; ++i) off[i + 1] = off[i] + (size[i] + 3) / 4 * 4;
 }
 
 constexpr size_t kHeadSmem = sizeof(float) * 4 * TF;
 constexpr size_t kPrologueSmem = sizeof(float) * 5 * TF;
-constexpr size_t kOutputSmem = sizeof(float) * (4 * TF + DH + 6 * CS);
+constexpr size_t kOutputSmem = sizeof(float) * (4 * TF + tile::T + 6 * CS);
 constexpr size_t kEpilogueSmem = sizeof(float) * 4 * TF;  // two stages of two tiles
 
 template <class K>
@@ -1453,29 +1579,35 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// The six stages of the fp32 family.
+// CTAs of the state scans: one per (head row, NT of the DH x DH entries
+// of C, each thread `per` of them)
+template <int DH>
+constexpr unsigned scan_ctas(int per) { return (DH * DH + per * NT - 1) / (per * NT); }
+
+// The six stages of the fp32 family at head dim DH.
+template <int DH>
 cudaError_t launch_stages(Params& p, int kind, cudaStream_t st) {
   const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
   const bool has_head = kind == LAYER || kind == CONV;
   cudaError_t err;
-  const auto prologue = kind == CONV ? vil_cell_prologue<true> : vil_cell_prologue<false>;
+  const auto prologue = kind == CONV ? vil_cell_prologue<true, DH> : vil_cell_prologue<false, DH>;
   if ((err = allow_smem(vil_head, kHeadSmem)) != cudaSuccess) return err;
   if ((err = allow_smem(prologue, kPrologueSmem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil_chunk_output, kOutputSmem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil_chunk_output<DH>, kOutputSmem)) != cudaSuccess) return err;
   if ((err = allow_smem(vil_epilogue, kEpilogueSmem)) != cudaSuccess) return err;
 
   const unsigned tok_tiles = (unsigned)((tok + TOK - 1) / TOK);
   if (has_head) {
-    vil_head<<<dim3(tok_tiles, 2 * p.INNER / tile::T), NT, kHeadSmem, st>>>(p);
+    vil_head<<<dim3(tok_tiles, (2 * p.INNER + tile::T - 1) / tile::T), NT, kHeadSmem, st>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  prologue<<<dim3(tok_tiles, p.NH), NT, kPrologueSmem, st>>>(p);
+  prologue<<<dim3(tok_tiles, p.NG), NT, kPrologueSmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_chunk_summary<<<dim3(p.NS, rows), NT, 0, st>>>(p);
+  vil_chunk_summary<DH><<<dim3(p.NS, rows), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_state_scan<<<dim3(rows, DH * DH / NT), NT, 0, st>>>(p);
+  vil_state_scan<DH><<<dim3(rows, scan_ctas<DH>(1)), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil_chunk_output<<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
+  vil_chunk_output<DH><<<dim3(p.NS, rows), NT, kOutputSmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (kind == CELL) return cudaSuccess;
   vil_epilogue<<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogueSmem, st>>>(p);
@@ -1485,32 +1617,34 @@ cudaError_t launch_stages(Params& p, int kind, cudaStream_t st) {
 constexpr size_t kHead16Smem = sizeof(bf16) * 2 * (HG + 1) * HT;
 constexpr size_t kPrologue16Smem = sizeof(bf16) * 8 * HT;
 constexpr size_t kSummary16Smem = sizeof(bf16) * 5 * HT;
-constexpr size_t kOutput16Smem = sizeof(bf16) * 7 * HT + sizeof(float) * (DH + 10 * CS);
+constexpr size_t kOutput16Smem = sizeof(bf16) * 7 * HT + sizeof(float) * (tile::T + 10 * CS);
 constexpr size_t kEpilogue16Smem = sizeof(bf16) * 5 * HT;
 
-// The seven launches of the bf16 layer.
+// The seven launches of the bf16 layer at head dim DH.
+template <int DH>
 cudaError_t launch16(Params& p, cudaStream_t st) {
   const long tok = (long)p.B * p.S, rows = (long)p.B * p.NH;
   cudaError_t err;
   if ((err = allow_smem(vil16_head, kHead16Smem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil16_prologue, kPrologue16Smem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil16_chunk_summary, kSummary16Smem)) != cudaSuccess) return err;
-  if ((err = allow_smem(vil16_chunk_output, kOutput16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_prologue<DH>, kPrologue16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_chunk_summary<DH>, kSummary16Smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(vil16_chunk_output<DH>, kOutput16Smem)) != cudaSuccess) return err;
   if ((err = allow_smem(vil16_epilogue, kEpilogue16Smem)) != cudaSuccess) return err;
 
   const long nw = 2L * p.INNER * p.DIM;  // the largest weight
   vil16_prep<<<(unsigned)((nw + 4 * NT - 1) / (4 * NT)), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const unsigned tok_tiles = (unsigned)((tok + TOK - 1) / TOK);
-  vil16_head<<<dim3(tok_tiles, (2 * p.NH + HG - 1) / HG), NT, kHead16Smem, st>>>(p);
+  const int ntiles = (2 * p.INNER + tile::T - 1) / tile::T;  // proj_up's column tiles
+  vil16_head<<<dim3(tok_tiles, (ntiles + HG - 1) / HG), NT, kHead16Smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil16_prologue<<<dim3(tok_tiles, p.NH), NT, kPrologue16Smem, st>>>(p);
+  vil16_prologue<DH><<<dim3(tok_tiles, p.NG), NT, kPrologue16Smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil16_chunk_summary<<<dim3(p.NS, rows), NT, kSummary16Smem, st>>>(p);
+  vil16_chunk_summary<DH><<<dim3(p.NS, rows), NT, kSummary16Smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil16_state_scan<<<dim3(rows, DH * DH / (2 * NT), p.kv32 ? 2 : 1), NT, 0, st>>>(p);
+  vil16_state_scan<DH><<<dim3(rows, scan_ctas<DH>(2), p.kv32 ? 2 : 1), NT, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vil16_chunk_output<<<dim3(p.NS, rows), NT, kOutput16Smem, st>>>(p);
+  vil16_chunk_output<DH><<<dim3(p.NS, rows), NT, kOutput16Smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   vil16_epilogue<<<dim3(tok_tiles, (p.DIM + tile::T - 1) / tile::T), NT, kEpilogue16Smem, st>>>(
       p);
@@ -1524,11 +1658,21 @@ cudaError_t launch16(Params& p, cudaStream_t st) {
 // fp32 array (q, k, v and h have no slot: the stages recompute q, k, v,
 // and under grad the four go to the saved copy). Returns 0 or the CUDA
 // error code of the first failed step.
+bool head_dim_ok(int DH) { return DH == 4 || DH == 8 || DH == 16 || DH == 32 || DH == 64; }
+
+template <int DH>
+cudaError_t dispatch(Params& p, int kind, cudaStream_t st, bool bf) {
+  return bf ? launch16<DH>(p, st) : launch_stages<DH>(p, kind, st);
+}
+
 int run(Params& p, float* ws, int kind, void* stream, bool bf = false) {
-  if (p.INNER != p.NH * DH || p.B <= 0 || p.S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.NH <= 0 || p.INNER % p.NH != 0 || !head_dim_ok(p.INNER / p.NH) || p.B <= 0 || p.S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf && kind != LAYER) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.NS = (p.S + CS - 1) / CS;
+  p.DH = p.INNER / p.NH;
+  p.NG = (p.INNER + GW - 1) / GW;
   long off[kNumWs + 1];
   workspace_layout(bf ? LAYER_BF16 : kind, p.B, p.S, p.INNER, p.NH, off);
   p.q = ws + off[WQ]; p.k = ws + off[WK]; p.v = ws + off[WV]; p.z = ws + off[WZ];
@@ -1548,22 +1692,30 @@ int run(Params& p, float* ws, int kind, void* stream, bool bf = false) {
     p.k16 = p.sv ? p.sv + plane : nullptr;
     p.v16 = p.sv ? p.sv + 2 * plane : nullptr;
     p.h16 = p.sv ? p.sv + 3 * plane : nullptr;
-    return static_cast<int>(launch16(p, st));
+  } else {
+    const bool has_head = kind == LAYER || kind == CONV;
+    if (has_head) {
+      p.zr = p.z;
+      p.xres = p.x;
+      p.xmw = ws + off[WXM];
+      p.xm = p.xmw;
+    }
+    if (kind == CONV) {
+      if (p.H <= 0 || p.W <= 0 || (long)p.H * p.W != p.S)
+        return static_cast<int>(cudaErrorInvalidValue);
+      p.convw = ws + off[WCONV];
+      p.conv = p.convw;
+    }
   }
-  const bool has_head = kind == LAYER || kind == CONV;
-  if (has_head) {
-    p.zr = p.z;
-    p.xres = p.x;
-    p.xmw = ws + off[WXM];
-    p.xm = p.xmw;
+  cudaError_t err;
+  switch (p.DH) {
+    case 4: err = dispatch<4>(p, kind, st, bf); break;
+    case 8: err = dispatch<8>(p, kind, st, bf); break;
+    case 16: err = dispatch<16>(p, kind, st, bf); break;
+    case 32: err = dispatch<32>(p, kind, st, bf); break;
+    default: err = dispatch<64>(p, kind, st, bf); break;
   }
-  if (kind == CONV) {
-    if (p.H <= 0 || p.W <= 0 || (long)p.H * p.W != p.S)
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.convw = ws + off[WCONV];
-    p.conv = p.convw;
-  }
-  return static_cast<int>(launch_stages(p, kind, st));
+  return static_cast<int>(err);
 }
 
 // The cell's arguments, shared by the four entries.
@@ -1625,6 +1777,7 @@ int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const
 
 // The bf16 elements of the weight buffer of vil_layer_fwd_bf16.
 long vil16_weight_halves(int DIM, int INNER, int NH) {
+  const long DH = NH > 0 ? INNER / NH : 0;
   return 3L * INNER * DIM + 3L * NH * DH * DH + 6L * NH * INNER;
 }
 
@@ -1632,7 +1785,7 @@ long vil16_weight_halves(int DIM, int INNER, int NH) {
 // weights fp32 (rounded to bf16 once, into w16: vil16_weight_halves(DIM,
 // INNER, NH) bf16 values), out (B, S, DIM) in bf16. sv, when not null,
 // receives (4, B, S, INNER) bf16: q, k, v (unscaled) and h, the backward's
-// activations; then states32 (fp32: 2 B*NH*NS*64*64 + 2 B*NH*NS*64 floats)
+// activations; then states32 (fp32: 2 B*NH*NS*DH*DH + 2 B*NH*NS*DH floats)
 // receives the backward's chunk summaries and carried C, then its k sums
 // and carried n (null when sv is). The workspace is the fp32 layer's.
 int vil_layer_fwd_bf16(const bf16* x, const bf16* conv, const float* nrm, const float* wu,
@@ -1649,6 +1802,7 @@ int vil_layer_fwd_bf16(const bf16* x, const bf16* conv, const float* nrm, const 
   set_tail(p, nsc, nbi, skip, wd, bd, nullptr, DIM, norm_eps);
   p.nrm = nrm; p.wu = wu; p.bu = bu; p.rms_eps = rms_eps;
   p.x16 = x; p.conv16 = conv; p.out16 = out; p.sv = sv;
+  const long DH = NH > 0 ? INNER / NH : 0;
   p.wu16 = w16;
   p.wq16 = p.wu16 + 2L * INNER * DIM;
   p.wk16 = p.wq16 + (long)NH * DH * DH;

@@ -14,9 +14,9 @@ gradients, and the gate gradients equal them wherever the normalizer's
 
 ``mlstm_chunkwise_bwd`` is the entry the ViL layer's backward calls, on q, k,
 v and dh in the layer's natural (B, S, INNER) layout: CPU tensors take the
-plain version, CUDA tensors launch the kernel (chunk 64, head dim 64, 128 or
-256; the ViL family runs it at 64, the language model at all three) or
-raise. The kernel reads the per-chunk carry-in states that a forward kernel
+plain version, CUDA tensors launch the kernel (chunk 64, head dim 4, 8,
+16, 32, 64, 128 or 256; the ViL family runs it at the first five, the
+language model at 64 and up) or raise. The kernel reads the per-chunk carry-in states that a forward kernel
 leaves in its workspace (the ViL family's, or the chunkwise forward's, which
 calls this entry through ``kernels.mlstm_fwd.mlstm_chunkwise_bwd_heads``),
 or that ``chunk_carry_states`` (phase 1 in plain torch, as on the TPU)
@@ -36,10 +36,11 @@ from .mlstm_native import _log_igate, mm_round
 
 # Shared by the launchers of this kernel and of the ViL layer, cell and block
 # kernels (kernels/vil_cell.py), whose forward leaves the carry states:
-KERNEL_DH = 64  # head dim the ViL kernels are written for
+KERNEL_DHS = (4, 8, 16, 32, 64)  # head dims the ViL kernels are instantiated for
+                                 # (the JAX package's ViL blocks default to 4 and 16)
 KERNEL_CS = 64  # their chunk length (CS in csrc/vil_layer.cu and
                 # csrc/mlstm_bwd.cu): the carry states are per chunk of it
-KERNEL_BWD_DHS = (64, 128, 256)  # head dims this module's CUDA kernel takes
+KERNEL_BWD_DHS = KERNEL_DHS + (128, 256)  # head dims this module's fp32 CUDA kernel takes
 NEG = -1e30  # log input gate of a masked step
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -275,8 +276,9 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
     hand-written kernel (fp32, chunk 64, head dim in ``KERNEL_BWD_DHS``, B *
     NH at most 65535) or raise, reading ``carry``, the forward's states at
     chunk ``KERNEL_CS``. Each kernel launch adds one to
-    ``mlstm_chunkwise_bwd.launches``. bf16 q/k/v (head dim 64, the ViL
-    layer's saved activations under AMP) launch the bf16 entry instead:
+    ``mlstm_chunkwise_bwd.launches``. bf16 q/k/v (head dim in
+    ``KERNEL_DHS``, the ViL layer's saved activations under AMP) launch the
+    bf16 entry instead:
     bf16 operands in every product, dh and the gates fp32, dq/dk/dv bf16;
     each of its launches adds one to ``mlstm_chunkwise_bwd.launches_bf16``
     and never to ``launches``."""
@@ -294,9 +296,9 @@ def mlstm_chunkwise_bwd(q, k, v, i_preact, f_preact, dh, num_heads: int,
         raise ValueError(f"mlstm_chunkwise_bwd: the CUDA kernel needs head dim in "
                          f"{KERNEL_BWD_DHS}, got INNER={INNER} over {nh} heads")
     bf = q.dtype == torch.bfloat16
-    if bf and dh_ != KERNEL_DH:
-        raise ValueError(f"mlstm_chunkwise_bwd: the bf16 CUDA kernel needs head dim "
-                         f"{KERNEL_DH}, got {dh_}")
+    if bf and dh_ not in KERNEL_DHS:
+        raise ValueError(f"mlstm_chunkwise_bwd: the bf16 CUDA kernel needs head dim in "
+                         f"{KERNEL_DHS}, got {dh_}")
     if B * nh > 65535:
         raise ValueError(f"mlstm_chunkwise_bwd: B * NH = {B * nh} exceeds 65535")
     if carry is None:

@@ -164,8 +164,8 @@ def vil_block_fwd(conv_act, x_mlstm, z, x_res, wq, bq, wk, bk, wv, bv, wgi, bgi,
                   igate_act: str = "exp", eps: float = 1e-6,
                   norm_eps: float = 1e-3) -> torch.Tensor:
     """ViL block forward -> (B, S, DIM). CPU tensors take the plain
-    versions; CUDA tensors launch the hand-written kernel (fp32, head dim
-    64) or raise. Each kernel launch adds one to ``vil_block_fwd.launches``.
+    versions; CUDA tensors launch the hand-written kernel (fp32, head dim in
+    ``KERNEL_DHS``) or raise. Each kernel launch adds one to ``vil_block_fwd.launches``.
     Gradients and ``chunk_size`` as in ``vil_cell.vil_cell_fwd``."""
     args = (conv_act, x_mlstm, z, x_res, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
             nscale, nbias, skip, wd, bd)

@@ -37,13 +37,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ._build import CudaLibrary, check_tensor
-from .mlstm_bwd import (KERNEL_CS, KERNEL_DH, CarryStates, _natural,
+from .mlstm_bwd import (KERNEL_CS, KERNEL_DHS, CarryStates, _natural,
                         mlstm_chunkwise_bwd, mlstm_chunkwise_bwd_plain)
 from .mlstm_native import mlstm_chunkwise, mm_f32, mm_round
 
@@ -178,19 +179,24 @@ def cell_bwd(args, acts, dh, cfg: Cfg, mlstm_bwd):
 
 def check_call(where: str, conv_act, cfg: Cfg, dtypes=(torch.float32,)):
     """What every kernel of the family refuses before it builds or launches:
-    an unknown gate activation, a head dim other than ``KERNEL_DH``,
-    activations of a dtype it has no entry for (``dtypes``: the layer has
-    fp32 and bf16 entries, the others fp32 only). Any width runs: each
-    stage's shared memory is fixed by its tiles. Returns the library."""
+    an unknown gate activation; a width that is no whole number of heads, or
+    a head dim (INNER / num_heads) outside ``KERNEL_DHS`` = (4, 8, 16, 32,
+    64), the head dims the CUDA stages are instantiated for (the JAX
+    package's blocks default to 16 and 4, the flagship YAML sets 64; any
+    other, 12 or 128 say, has no kernel and raises here, never falls back to
+    the plain version); activations of a dtype it has no entry for
+    (``dtypes``: the layer has fp32 and bf16 entries at every one of those
+    head dims, the others fp32 only). Any width runs: each stage's shared
+    memory is fixed by its 64-wide tiles. Returns the library."""
     if cfg.igate_act not in ("exp", "sigmoid"):
         raise ValueError(f"unknown igate_act {cfg.igate_act!r}")
     if conv_act.dtype not in dtypes:
         raise TypeError(f"{where}: no CUDA kernel for {conv_act.dtype} activations "
                         f"(it has {', '.join(map(str, dtypes))})")
-    INNER = conv_act.shape[-1]
-    if INNER != cfg.num_heads * KERNEL_DH:
-        raise ValueError(f"{where}: the CUDA kernel needs head dim {KERNEL_DH}, "
-                         f"got INNER={INNER} over {cfg.num_heads} heads")
+    INNER, nh = conv_act.shape[-1], cfg.num_heads
+    if nh <= 0 or INNER % nh or INNER // nh not in KERNEL_DHS:
+        raise ValueError(f"{where}: the CUDA kernel needs a head dim in {KERNEL_DHS}, "
+                         f"got INNER={INNER} over {nh} heads")
     return LIB.load()
 
 
@@ -200,7 +206,8 @@ def cell_kernel_args(where: str, conv_act, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf
     headwise weights as (NH, DH_out, DH_in), as they come, then the biases,
     then each gate kernel as (NH, 3*INNER) (the layout of the module's
     ``nn.Linear`` weight, so no copy there) with its bias."""
-    INNER, dh, dev = conv_act.shape[-1], KERNEL_DH, conv_act.device
+    INNER, dev = conv_act.shape[-1], conv_act.device
+    dh = INNER // nh
     chk = lambda name, t, shape: check_tensor(where, name, t, shape, dev)
     return [chk("wq", wq, (nh, dh, dh)), chk("wk", wk, (nh, dh, dh)), chk("wv", wv, (nh, dh, dh)),
             chk("bq", bq, (INNER,)), chk("bk", bk, (INNER,)), chk("bv", bv, (INNER,)),
@@ -219,12 +226,14 @@ class Workspace:
         self.buf = torch.empty(self.off[N_WS], device=device, dtype=torch.float32)
 
     def view(self, i: int, *shape):
-        return self.buf[self.off[i]:self.off[i + 1]].view(*shape)
+        """Array ``i`` as ``shape`` (each array starts 16-byte aligned, so
+        its slot may be longer than the array)."""
+        return self.buf[self.off[i]:self.off[i] + math.prod(shape)].view(*shape)
 
     def cell_acts(self):
         """(q, k, v, i_pre, f_pre) and the carry states."""
         B, S, INNER, nh = self.shape
-        ns, dh, tok = -(-S // KERNEL_CS), KERNEL_DH, (B, S, INNER)
+        ns, dh, tok = -(-S // KERNEL_CS), INNER // nh, (B, S, INNER)
         # workspace order: q, k, v, z, h, ig, fg, kv, cprev, ksum, nprev, btot, mloc, mprev,
         # xm, conv, gp, y
         acts = (self.view(0, *tok), self.view(1, *tok), self.view(2, *tok), *self.gate_preacts())
@@ -353,8 +362,8 @@ def vil_cell_fwd(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
     outnorm, in the natural layout the layer's tail reads (the JAX entry
     returns (B, NH, DH, S), the TPU's lane layout, which the port does not
     carry over). CPU tensors take the plain versions; CUDA tensors launch
-    the hand-written kernel (fp32, head dim 64) or raise. Each kernel launch
-    adds one to ``vil_cell_fwd.launches``.
+    the hand-written kernel (fp32, head dim in ``KERNEL_DHS``) or raise. Each
+    kernel launch adds one to ``vil_cell_fwd.launches``.
 
     When gradients are needed the call goes through an autograd Function
     whose backward is the hand-written one (frozen-stabilizer gate

@@ -153,7 +153,7 @@ def vil_layer_conv_fwd(x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi
                        norm_eps: float = 1e-3, rms_eps: float = 1e-6) -> torch.Tensor:
     """Conv-fused ViL layer forward, ``seqlens`` the (H, W) token grid. CPU
     tensors take the plain versions; CUDA tensors launch the hand-written
-    kernels (fp32, head dim 64) or raise. Each call that launches them adds
+    kernels (fp32, head dim in ``KERNEL_DHS``) or raise. Each call that launches them adds
     one to ``vil_layer_conv_fwd.launches``. Gradients and ``chunk_size`` as
     in ``vil_layer.vil_layer_fwd``."""
     args = (x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,

@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check_tensor
-from .mlstm_bwd import KERNEL_CS, KERNEL_DH, CarryStates, mlstm_chunkwise_bwd_plain
+from .mlstm_bwd import KERNEL_CS, CarryStates, mlstm_chunkwise_bwd_plain
 from .mlstm_native import mm_f32, mm_round
 from .vil_block import N_CELL, _block_plain, block_bwd, tail_kernel_args, tail_plain
 from .vil_cell import (LAYER, LAYER_BF16, Cfg, Member, Workspace, _cell_plain, call_member,
@@ -194,11 +194,10 @@ def _launch(args, cfg: Cfg, save: bool = True):
         return out, (ws.h(), *cell_acts), carry
     ws = Workspace(lib, LAYER_BF16, B, S, INNER, nh, dev)
     saved = states32 = None
-    rows, ns = B * nh, -(-S // KERNEL_CS)
+    rows, ns, dh = B * nh, -(-S // KERNEL_CS), INNER // nh
     if save:  # the backward's bf16 activations and its fp32-summary carried C
         saved = torch.empty((4, B, S, INNER), device=dev, dtype=ad)
-        states32 = torch.empty(2 * rows * ns * (KERNEL_DH + 1) * KERNEL_DH, device=dev,
-                               dtype=torch.float32)
+        states32 = torch.empty(2 * rows * ns * (dh + 1) * dh, device=dev, dtype=torch.float32)
     w16 = torch.empty(lib.vil16_weight_halves(DIM, INNER, nh), device=dev, dtype=ad)
     run_kernel("vil_layer_fwd", lib, "vil_layer_fwd_bf16",
                [*t, out, ws.buf, w16, saved, states32], sizes, floats, dev)
@@ -206,9 +205,9 @@ def _launch(args, cfg: Cfg, save: bool = True):
     if not save:
         return out, None, None
     # the carried C and n the backward reads: states32's second and fourth arrays
-    c_sz, n_sz = rows * ns * KERNEL_DH * KERNEL_DH, rows * ns * KERNEL_DH
-    carry = CarryStates(states32[c_sz:2 * c_sz].view(rows, ns, KERNEL_DH, KERNEL_DH),
-                        states32[2 * c_sz + n_sz:].view(rows, ns, KERNEL_DH),
+    c_sz, n_sz = rows * ns * dh * dh, rows * ns * dh
+    carry = CarryStates(states32[c_sz:2 * c_sz].view(rows, ns, dh, dh),
+                        states32[2 * c_sz + n_sz:].view(rows, ns, dh),
                         *ws.carry_scalars())
     return out, (saved[3], *saved[:3], *ws.gate_preacts()), carry
 
@@ -221,7 +220,7 @@ def vil_layer_fwd(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,
                   chunk_size: int = 64, igate_act: str = "exp", eps: float = 1e-6,
                   norm_eps: float = 1e-3, rms_eps: float = 1e-6) -> torch.Tensor:
     """ViL layer forward. CPU tensors take the plain versions; CUDA tensors
-    launch the hand-written kernel (head dim 64) or raise. The arithmetic
+    launch the hand-written kernel (head dim in ``KERNEL_DHS``) or raise. The arithmetic
     follows the activations: fp32 x and conv_act launch the fp32 kernel
     (each launch adds one to ``vil_layer_fwd.launches``); bf16 ones the
     bf16 kernel, the TPU kernel's default arithmetic (bf16 operands in every

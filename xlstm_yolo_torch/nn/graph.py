@@ -1,12 +1,15 @@
 """YAML model graph -> torch module.
 
 Port of ``parse_model`` and ``GraphModel`` in ``xlstm_yolo_tpu/nn/graph.py``,
-restricted to the layer names the ViL-YOLO and YOLOv8 graphs use. The YAML
-format is the Ultralytics one: ``backbone``/``head`` rows of
+restricted to the layer names the ViL-YOLO and YOLOv8 graphs use and the
+ViL blocks of ``nn/vil_blocks.py`` (registered under their JAX names). The
+YAML format is the Ultralytics one: ``backbone``/``head`` rows of
 ``[from, repeats, module, args]`` plus ``nc`` and ``scales``; channels are
 resolved statically with the same width scaling and depth rounding. Layer
 ``i`` is the submodule ``l{i}``, as in the JAX parameter tree. Channel
-Concat runs on dim 1 (NCHW).
+Concat runs on dim 1 (NCHW). A layer's output may be an NCHW map, a (B, S,
+D) sequence or a list (a ViL backbone's partials); a "custom" block's own
+``parse`` resolves its channels from those of every input it reads.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch.nn as nn
 
 from . import heads as H
 from . import modules as M
-from .vil_blocks import ViLBlockPairBlock
+from .vil_blocks import BLOCKS
 
 # name -> (module class, kind); kind decides channel/argument resolution:
 #   "conv"   args[0] is c2 (width-scaled)
@@ -34,7 +37,7 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "Concat": (M.Concat, "concat"),
     "nn.Upsample": (M.Upsample, "plain"),
     "Detect": (H.Detect, "head"),
-    "ViLBlockPairBlock": (ViLBlockPairBlock, "custom"),
+    **{name: (cls, "custom") for name, cls in BLOCKS.items()},
 }
 
 
@@ -118,7 +121,8 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
             margs = [args[0] if args else nc]
             kwargs["ch"] = tuple(channels[x + 1] for x in fs)
         else:
-            c2, margs, kwargs = cls.parse(args, c1, width=width, max_ch=max_ch, n=n_rep)
+            ch_in = tuple(channels[x + 1] for x in fs)
+            c2, margs, kwargs = cls.parse(args, ch_in, width=width, max_ch=max_ch, n=n_rep)
         if kind not in ("csp", "custom") and n_rep > 1:
             raise ValueError(f"layer {i}: repeats of {name!r} are not ported")
         specs.append(LayerSpec(i=i, f=fs, name=name, c1=c1, c2=c2, args=tuple(margs),

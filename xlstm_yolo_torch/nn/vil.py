@@ -3,7 +3,8 @@
 Port of ``xlstm_yolo_tpu/nn/vil.py``: RMSNorm, LayerNorm, AffineLayerNorm,
 MultiHeadLayerNorm, LinearHeadwiseExpand, SequenceConv2d, DropPath,
 MatrixLSTMCell, ViLLayer, ViLBlock, ViLBlockPair, VitPatchEmbed,
-VitPosEmbed2d and VisionLSTMBackbone.
+VitPosEmbed2d (with its bicubic resize to another grid) and
+VisionLSTMBackbone.
 Sequences are (B, S, D) with tokens in row-major (H, W) order, as the JAX
 NHWC reshape gives them. Submodule and parameter names follow the JAX tree
 (``norm/scale``, ``proj_up``, ``conv/conv``, ``q_proj/weight``,
@@ -23,6 +24,14 @@ function ``kernels.vil_cell.vil_cell_fwd`` (its own kernel on the GPU),
 then outnorm, skip, SiLU(z) gate, proj_down, ``DropPath`` and the residual
 as torch ops. Randomness is explicit: such a forward takes a
 ``torch.Generator`` and never reads the global random state.
+``mlstm_backend`` is the JAX layer's key: ``"auto"`` (the default) and
+``"pallas"`` take the functions above, which run the hand-written kernels
+on the card (``"pallas"`` refuses a CPU tensor, where there is no kernel);
+``"native"`` runs their plain torch versions (``vil_layer_ref``,
+``vil_cell_plain``, ``vil_layer_conv_plain``) on any device, differentiated
+by autograd, because the user asked for them. Head dims 4, 8, 16, 32 and
+64 have kernels; another head dim raises on the card unless the user asks
+for ``"native"``.
 ``ViLLayer.forward_conv_fused`` is a third entry, which no model calls (as
 in the JAX package): the conv-fused function
 ``kernels.vil_conv.vil_layer_conv_fwd`` computes the whole layer, the conv
@@ -44,11 +53,14 @@ import torch.nn.functional as F
 
 from ..kernels.mlstm_fwd import mlstm_chunkwise_fwd
 from ..kernels.vil_block import vil_block_fwd
-from ..kernels.vil_cell import vil_cell_fwd
-from ..kernels.vil_conv import vil_layer_conv_fwd
-from ..kernels.vil_layer import vil_layer_fwd
+from ..kernels.vil_cell import vil_cell_fwd, vil_cell_plain
+from ..kernels.vil_conv import vil_layer_conv_fwd, vil_layer_conv_plain
+from ..kernels.vil_layer import vil_layer_fwd, vil_layer_ref
+from ..ops.letterbox import _resize_tensor
 from ..utils import resolve_device
 from .modules import conv_in_dtype, init_tree, lecun_normal_, linear_in_dtype
+
+BACKENDS = ("auto", "pallas", "native")  # the JAX ViLLayer's mlstm_backend values
 
 
 class RMSNorm(nn.Module):
@@ -89,18 +101,20 @@ class LayerNorm(nn.Module):
 
 class AffineLayerNorm(nn.Module):
     """flax's ``nn.LayerNorm``: eps 1e-6, a plain ``scale`` (one at init,
-    applied as it is) and a ``bias``. Not ``LayerNorm`` above, which is the
-    language model's (``1 + scale``, eps 1e-5, no bias)."""
+    applied as it is) and, unless ``use_bias=False``, a ``bias``. Not
+    ``LayerNorm`` above, which is the language model's (``1 + scale``, eps
+    1e-5, no bias)."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, use_bias: bool = True):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
 
     def init_params(self, g: torch.Generator) -> None:
         nn.init.ones_(self.scale)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         y = F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, self.eps)
@@ -168,12 +182,18 @@ class LinearHeadwiseExpand(nn.Module):
 
 
 class SequenceConv2d(nn.Module):
-    """Depthwise conv over the token grid of a (B, S, D) sequence."""
+    """Conv over the token grid of a (B, S, D) sequence -> (B, S', out):
+    depthwise and stride 1 by default (the ViL layer's); ``out_channels``,
+    ``stride``, ``padding`` and ``groups`` as the JAX module takes them (a
+    square grid when ``seqlens`` is None)."""
 
-    def __init__(self, channels: int, kernel_size: int = 3):
+    def __init__(self, channels: int, kernel_size: int = 3, out_channels: int | None = None,
+                 stride: int = 1, padding: int | None = None, groups: int | None = None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, kernel_size, padding=kernel_size // 2,
-                              groups=channels, bias=True)
+        out = channels if out_channels is None else out_channels
+        self.conv = nn.Conv2d(channels, out, kernel_size, stride,
+                              kernel_size // 2 if padding is None else padding,
+                              groups=channels if groups is None else groups, bias=True)
 
     def init_params(self, g: torch.Generator) -> None:
         lecun_normal_(self.conv.weight, g)
@@ -183,7 +203,8 @@ class SequenceConv2d(nn.Module):
         b, s, d = x.shape
         h, w = seqlens if seqlens is not None else (int(round(math.sqrt(s))),) * 2
         img = x.transpose(1, 2).reshape(b, d, h, w)  # token h*w + w -> (h, w)
-        return conv_in_dtype(self.conv, img).reshape(b, d, s).transpose(1, 2)
+        y = conv_in_dtype(self.conv, img)
+        return y.reshape(b, y.shape[1], -1).transpose(1, 2)
 
 
 class DropPath(nn.Module):
@@ -262,13 +283,14 @@ class MatrixLSTMCell(nn.Module):
                 v_proj.bias, self.igate.weight.t(), self.igate.bias, self.fgate.weight.t(),
                 self.fgate.bias)
 
-    def forward_cell(self, conv_act, x_mlstm, q_proj, k_proj, v_proj):
+    def forward_cell(self, conv_act, x_mlstm, q_proj, k_proj, v_proj, cell_fn=vil_cell_fwd):
         """conv_act, x_mlstm (B, S, D) and the three headwise projections
-        -> (B, S, D): the cell function (projections, gate dots and mLSTM
-        in one kernel call on the GPU), then the per-head outnorm."""
+        -> (B, S, D): the cell function ``cell_fn`` (projections, gate dots
+        and mLSTM in one kernel call on the GPU; ``vil_cell_plain`` where the
+        layer asks for the plain version), then the per-head outnorm."""
         b, s, d = conv_act.shape
-        h = vil_cell_fwd(conv_act, x_mlstm, *self.cell_args(q_proj, k_proj, v_proj),
-                         self.num_heads, chunk_size=self.chunk_size, igate_act=self.igate_act)
+        h = cell_fn(conv_act, x_mlstm, *self.cell_args(q_proj, k_proj, v_proj),
+                    self.num_heads, chunk_size=self.chunk_size, igate_act=self.igate_act)
         h = h.to(conv_act.dtype).reshape(b, s, self.num_heads, -1).transpose(1, 2)
         return self.outnorm(h).transpose(1, 2).reshape(b, s, d)
 
@@ -293,8 +315,12 @@ class ViLLayer(nn.Module):
 
     def __init__(self, dim: int, direction: str = "forward", expansion: int = 2,
                  qkv_block_size: int = 4, conv_kernel_size: int = 3, seqlens=None,
-                 chunk_size: int = 64, igate_act: str = "exp", drop_path: float = 0.0):
+                 chunk_size: int = 64, igate_act: str = "exp", drop_path: float = 0.0,
+                 mlstm_backend: str = "auto"):
         super().__init__()
+        if mlstm_backend not in BACKENDS:
+            raise ValueError(f"ViLLayer: mlstm_backend {mlstm_backend!r} is not one of {BACKENDS}")
+        self.mlstm_backend = mlstm_backend
         inner = expansion * dim
         self.dim, self.inner = dim, inner
         self.num_heads = inner // qkv_block_size
@@ -320,6 +346,17 @@ class ViLLayer(nn.Module):
             nn.init.zeros_(lin.bias)
         nn.init.ones_(self.learnable_skip)
 
+    def _function(self, kernel, plain, x):
+        """The layer function ``mlstm_backend`` asks for: ``plain`` for
+        "native", else ``kernel`` (which launches the CUDA kernel on the card
+        and takes its plain version on the CPU); "pallas" refuses the CPU."""
+        if self.mlstm_backend == "native":
+            return plain
+        if self.mlstm_backend == "pallas" and x.device.type != "cuda":
+            raise ValueError(f"ViLLayer: mlstm_backend 'pallas' runs the CUDA kernels, and the "
+                             f"input is on {x.device}; use 'auto' or 'native' there")
+        return kernel
+
     def forward(self, x, seqlens=None, generator: torch.Generator | None = None):
         seqlens = seqlens if seqlens is not None else self.seqlens
         backward = self.direction == "backward"
@@ -332,7 +369,7 @@ class ViLLayer(nn.Module):
         conv_act = F.silu(self.conv(xm, seqlens))
         cell = self.mlstm_cell
         nscale, nbias = cell.outnorm.affine()
-        out = vil_layer_fwd(
+        out = self._function(vil_layer_fwd, vil_layer_ref, x)(
             xs, conv_act, self.norm.scale, self.proj_up.weight.t(), self.proj_up.bias,
             *cell.cell_args(self.q_proj, self.k_proj, self.v_proj), nscale, nbias,
             self.learnable_skip, self.proj_down.weight.t(), self.proj_down.bias, self.num_heads,
@@ -355,7 +392,7 @@ class ViLLayer(nn.Module):
         xs = x.flip(1) if backward else x
         cell = self.mlstm_cell
         nscale, nbias = cell.outnorm.affine()
-        out = vil_layer_conv_fwd(
+        out = self._function(vil_layer_conv_fwd, vil_layer_conv_plain, x)(
             xs, self.norm.scale, self.proj_up.weight.t(), self.proj_up.bias,
             self.conv.conv.weight, self.conv.conv.bias,
             *cell.cell_args(self.q_proj, self.k_proj, self.v_proj), nscale, nbias,
@@ -374,7 +411,7 @@ class ViLLayer(nn.Module):
                                      self.proj_up.bias).split(self.inner, dim=-1)
         conv_act = F.silu(self.conv(x_mlstm, seqlens))
         h = self.mlstm_cell.forward_cell(conv_act, x_mlstm, self.q_proj, self.k_proj,
-                                         self.v_proj)
+                                         self.v_proj, self._function(vil_cell_fwd, vil_cell_plain, x))
         h = h + self.learnable_skip.to(h.dtype) * conv_act
         out = linear_in_dtype(h * F.silu(z), self.proj_down.weight, self.proj_down.bias)
         return x + self.drop_path(out.flip(1) if backward else out, generator)
@@ -397,10 +434,11 @@ class ViLBlockPair(nn.Module):
 
     def __init__(self, dim: int, qkv_block_size: int = 16, seqlens=None, chunk_size: int = 64,
                  conv_kernel_size: int = 3, igate_act: str = "exp", bidirectional: bool = False,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, mlstm_backend: str = "auto"):
         super().__init__()
         kw = dict(qkv_block_size=qkv_block_size, seqlens=seqlens, chunk_size=chunk_size,
-                  conv_kernel_size=conv_kernel_size, igate_act=igate_act, drop_path=drop_path)
+                  conv_kernel_size=conv_kernel_size, igate_act=igate_act, drop_path=drop_path,
+                  mlstm_backend=mlstm_backend)
         self.fwd = ViLBlock(dim, "forward", **kw)
         self.bwd = ViLBlock(dim, "backward", **kw) if bidirectional else None
 
@@ -432,9 +470,10 @@ class VitPatchEmbed(nn.Module):
 
 class VitPosEmbed2d(nn.Module):
     """Learnable 2-D position embedding ``embed`` (1, h, w, dim), added to a
-    (B, h, w, dim) grid. The JAX module resizes it bicubically (Keys kernel,
-    a = -0.5, antialiased when shrinking) for another grid; torch's bicubic
-    interpolation differs (a = -0.75), so another grid raises here."""
+    (B, h, w, dim) grid. For another grid the embedding is resized as the
+    JAX module resizes it (``jax.image.resize(..., "bicubic")``: Keys
+    a = -0.5, antialiased when shrinking), by two interpolation matrices,
+    one per axis (``ops.letterbox._resize_tensor``)."""
 
     def __init__(self, dim: int, seqlens: tuple = (14, 14)):
         super().__init__()
@@ -444,11 +483,13 @@ class VitPosEmbed2d(nn.Module):
         nn.init.trunc_normal_(self.embed, 0.0, 0.02, -0.04, 0.04, generator=g)
 
     def forward(self, x):
-        if x.shape[1:3] != self.embed.shape[1:3]:
-            raise NotImplementedError(
-                f"VitPosEmbed2d: grid {tuple(x.shape[1:3])} differs from the embedding's "
-                f"{tuple(self.embed.shape[1:3])}; the bicubic resize is not ported")
-        return x + self.embed.to(x.dtype)
+        pe = self.embed
+        (h, w), (gh, gw) = x.shape[1:3], pe.shape[1:3]
+        if (h, w) != (gh, gw):
+            mh = _resize_tensor(gh, h, pe.device, "cubic")
+            mw = _resize_tensor(gw, w, pe.device, "cubic")
+            pe = torch.einsum("yh,bhwd,xw->byxd", mh, pe.float(), mw)
+        return x + pe.to(x.dtype)
 
 
 class VisionLSTMBackbone(nn.Module):
@@ -457,27 +498,31 @@ class VisionLSTMBackbone(nn.Module):
     ``output_indices`` as (B, h, w, dim) maps, the final one appended last.
     ``VisionLSTMBackbone(192, device="cuda")``: the model on ``device`` in
     eval mode, weights drawn from ``seed`` with the JAX package's init
-    scheme. ``forward`` takes NHWC images at ``resolution``."""
+    scheme; ``device=None`` leaves it uninitialized where it was built, for
+    a model that holds it (the graph block ``VisionLSTM``) to initialize and
+    place. ``forward`` takes NHWC images at ``resolution``."""
 
     def __init__(self, dim: int, depth: int = 12, patch_size: int = 16,
                  resolution: tuple = (224, 224), output_indices: tuple = (),
                  qkv_block_size: int = 16, chunk_size: int = 64, igate_act: str = "exp",
-                 bidirectional: bool = False, device: str | torch.device = "cuda",
+                 bidirectional: bool = False, mlstm_backend: str = "auto",
+                 in_channels: int = 3, device: str | torch.device | None = "cuda",
                  seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
         self.depth, self.output_indices = depth, tuple(output_indices)
         seqlens = (resolution[0] // patch_size, resolution[1] // patch_size)
-        self.patch_embed = VitPatchEmbed(dim, patch_size)
+        self.patch_embed = VitPatchEmbed(dim, patch_size, in_channels)
         self.pos_embed = VitPosEmbed2d(dim, seqlens)
         for i in range(depth):
             self.add_module(f"block{i}", ViLBlockPair(
                 dim, qkv_block_size=qkv_block_size, seqlens=seqlens, chunk_size=chunk_size,
-                igate_act=igate_act, bidirectional=bidirectional))
+                igate_act=igate_act, bidirectional=bidirectional, mlstm_backend=mlstm_backend))
         self.norm = AffineLayerNorm(dim)
-        init_tree(self, seed)
-        self.eval()
-        self.to(dev)
+        if device is not None:
+            dev = resolve_device(device)
+            init_tree(self, seed)
+            self.eval()
+            self.to(dev)
 
     def forward(self, x):
         x = self.pos_embed(self.patch_embed(x))

@@ -10,8 +10,9 @@ module (the hierarchical model, the ViT baseline, the fusion blocks) is not
 ported.
 
 ``qkv_block_size`` is the head dim of the ViL layers (``num_heads = 2 * dim
-// qkv_block_size``), as in the JAX class. On the CPU any head dim runs; on
-the GPU the ViL kernels take head dim 64 only.
+// qkv_block_size``), as in the JAX class; its default, 4, gives 96 heads at
+dim 192. On the CPU any head dim runs; on the GPU the ViL kernels take head
+dims 4, 8, 16, 32 and 64 (another raises there).
 
 The JAX package has no trainer for this model: a train step is the model in
 train mode with a generator, ``utils.loss.classification_loss``,
@@ -40,7 +41,7 @@ def drop_path_rates(rate: float, depth: int, decay: bool) -> list[float]:
 
 class VisionLSTM2(nn.Module):
     """ViL classifier or feature extractor on NHWC images at ``resolution``.
-    ``VisionLSTM2(qkv_block_size=64, device="cuda")``: the model on
+    ``VisionLSTM2(device="cuda")``: the model on
     ``device`` in eval mode, weights drawn from ``seed`` with the JAX
     package's init scheme.
 
@@ -83,7 +84,12 @@ class VisionLSTM2(nn.Module):
         self.to(dev)
 
     def forward(self, x, generator: torch.Generator | None = None):
-        x = self.pos_embed(self.patch_embed(x))
+        x = self.patch_embed(x)
+        grid = tuple(self.pos_embed.embed.shape[1:3])
+        if tuple(x.shape[1:3]) != grid:  # the JAX model shapes its embedding by its input
+            raise ValueError(f"VisionLSTM2: a {tuple(x.shape[1:3])} token grid on a model "
+                             f"built for {grid} (its position embedding's shape)")
+        x = self.pos_embed(x)
         b, h, w, d = x.shape
         seq = x.reshape(b, h * w, d)
         for i in range(self.depth):

@@ -40,17 +40,27 @@ def _bilinear_tensor(n_in: int, n_out: int, device: torch.device, dtype: torch.d
     return torch.from_numpy(_bilinear_matrix(n_in, n_out)).to(device, dtype)
 
 
+def _keys_cubic(x):  # jax.image's cubic kernel (Keys, a = -0.5) on |x|
+    w = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, ((1.5 * x - 2.5) * x) * x + 1.0)
+    return np.where(x >= 2.0, 0.0, w)
+
+
+_KERNELS = {"linear": lambda x: np.maximum(0.0, 1.0 - x), "cubic": _keys_cubic}
+
+
 @lru_cache(maxsize=64)
-def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+def _resize_matrix(n_in: int, n_out: int, method: str = "linear") -> np.ndarray:
     """Dense (n_out, n_in) weights of ``jax.image.resize`` with the
-    bilinear method (``compute_weight_mat`` of ``scale_and_translate``):
-    half-pixel centres, the triangle kernel widened by n_in / n_out when
-    shrinking, each row normalized by its sum, and a row whose sample falls
-    outside the input zero. Callers must not write to it."""
+    bilinear (``"linear"``) or bicubic (``"cubic"``) method
+    (``compute_weight_mat`` of ``scale_and_translate``): half-pixel centres,
+    the kernel widened by n_in / n_out when shrinking, each row normalized
+    by its sum, and a row whose sample falls outside the input zero. torch's
+    own bicubic is another kernel (a = -0.75) without that widening. Callers
+    must not write to it."""
     inv_scale = n_in / n_out
     sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
     x = np.abs(sample[:, None] - np.arange(n_in)[None, :]) / max(inv_scale, 1.0)
-    w = np.maximum(0.0, 1.0 - x)
+    w = _KERNELS[method](x)
     total = w.sum(1, keepdims=True)
     w = np.where(np.abs(total) > 1000 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1.0), 0.0)
@@ -59,10 +69,10 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=64)
-def _resize_tensor(n_in: int, n_out: int, device: torch.device):
+def _resize_tensor(n_in: int, n_out: int, device: torch.device, method: str = "linear"):
     """``_resize_matrix`` on ``device``, kept so repeated calls upload
     nothing. Callers must not write to it."""
-    return torch.from_numpy(_resize_matrix(n_in, n_out)).to(device)
+    return torch.from_numpy(_resize_matrix(n_in, n_out, method)).to(device)
 
 
 def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
