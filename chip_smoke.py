@@ -104,6 +104,20 @@ twin. ``kernel_parity`` holds every kernel of the family at head dim 4 at
 the classifier's shape and at 16 at P3 and P5, with bounds that count the
 decay matrix.
 
+The rest of the ViL family (``vil_family_path``, last): ViL-YOLO-n with its
+three ViL rows as ``FusionViLLayerBlock [c, c, {mlp_type: swiglu}]`` (K3
+at head dim 16 under a SwiGLU fusion MLP: fp32 inference, bf16 serving,
+an fp32 step, each against its plain-forced twin) and as
+``VilLayerUpdated [c, c, {num_heads: 4, chunk_size: 80}]`` (the
+xLSTM-7B-style block, plain torch on the card as in JAX: inference against
+the same model on the CPU, a train step, no kernel launch);
+``HierarchicalVisionLSTM`` and ``VisionTransformer`` at their defaults,
+batch 64 at 224 px (eval, and the hierarchical model's read-out backward,
+each against its plain-forced twin or the CPU; the ViT's img/s beside
+``VisionLSTM2``'s); and the layer (fp32, bf16), conv-fused and block-fused
+kernels with the outnorm off against their plain versions, with a
+``ViLBlockPair(use_outnorm=False, proj_bias=False)`` forward and backward.
+
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -210,6 +224,18 @@ SMALL_DH_CASES = [("cls_DH4_S196", 196, 192, 384, 96, CLS_BATCH),
                   ("P3_DH16_S6400", 6400, 64, 128, 8, BATCH),
                   ("P5_DH16_S400", 400, 256, 512, 32, BATCH)]
 FAMILY_CASES = [CLS_CASE, ("P3_S6400", 6400, 64, 128, 2, BATCH), X_P5_CASE]
+# vil_family_path: ViL-YOLO-n's three ViL rows (scale n's widths written out: these
+# blocks take their dim as written) as the fork's other ViL YAML blocks
+FAMILY_ROWS = {"fusion": ("FusionViLLayerBlock", {"mlp_type": "swiglu"}),
+               "large": ("VilLayerUpdated", {"num_heads": 4, "chunk_size": 80})}
+YOLO_N_WIDTHS = (64, 128, 256)
+HIER = dict(dims=(96, 192, 384), depths=(2, 2, 4), patch_size=4, qkv_block_size=16,
+            chunk_size=64)  # HierarchicalVisionLSTM's class defaults
+VIT = dict(dim=192, depth=12, num_heads=3, patch_size=16, num_classes=1000)  # its defaults
+# the layer kernels with the outnorm off: ViL-YOLO-n's P3 at head dim 64 and its P5
+# at 16 (K3 fp32 and bf16); K6 at the first, K7 at the second
+NO_OUTNORM_CASES = [("P3_S6400", 6400, 64, 128, 2, BATCH),
+                    ("P5_DH16_S400", 400, 256, 512, 32, BATCH)]
 # the flagship YAML's scales above n: (YAML, ViL layers per forward)
 SCALES = [("vil_yolos.yaml", 3), ("vil_yolom.yaml", 3), ("vil_yolol.yaml", 6),
           ("vil_yolox.yaml", 6)]
@@ -2016,10 +2042,12 @@ def bf16_layer_grads(args, kw, gout):
     leaves = [t.clone().requires_grad_() for t in tensors]
     vil_layer_fwd(*leaves, nh, **kw).backward(gout)
     cfg = Cfg(nh, KERNEL_CS, kw.get("igate_act", "exp"), kw.get("eps", 1e-6),
-              kw.get("norm_eps", 1e-3), kw.get("rms_eps", 1e-6))
+              kw.get("norm_eps", 1e-3), kw.get("rms_eps", 1e-6),
+              outnorm=kw.get("use_outnorm", True))
     plain = lambda a: vil_layer_bwd_ref(a, _layer_plain(a, cfg)[1], gout, nh, chunk_size=KERNEL_CS,
                                         igate_act=cfg.igate_act, eps=cfg.eps,
-                                        norm_eps=cfg.norm_eps, rms_eps=cfg.rms_eps)
+                                        norm_eps=cfg.norm_eps, rms_eps=cfg.rms_eps,
+                                        use_outnorm=cfg.outnorm)
     want = plain(tensors)
     nudged = [torch.nextafter(t, torch.full_like(t, float("inf"))) if t.dtype == torch.float32
               else t for t in tensors]
@@ -2608,7 +2636,7 @@ def phase_cls_path(cfg: dict = CLS, name: str = "cls_path"):
     key = "cls" if name == "cls_path" else name
     return {f"{key}_eval": dict(zip(names, eval_launches)),
             f"{key}_train": dict(zip(names, launches)),
-            f"{key}_block_entry": {"vil_block_fwd": block_launches}}
+            f"{key}_block_entry": {"vil_block_fwd": block_launches}}, CLS_BATCH / eval_ms * 1e3
 
 
 def phase_yaml_graph(name: str):
@@ -2666,7 +2694,7 @@ def phase_vil_headdim_path():
     and K2 at head dim 4) and the block-fused entry (K7). GRAPH_YAML, the
     fork's blocks from the ``VisionLSTM`` row (``phase_yaml_graph``). Each
     against its plain-forced twin and timed, as the phase it reuses does.
-    Returns each sub-path's launch counts."""
+    Returns each sub-path's launch counts and the classifier's eval img/s."""
     yolo = yolo_default_headdim()
     pre = "vil_headdim_path"
     counts = {f"{pre}.yolo_fp32": {"vil_layer_fwd": phase_main_path(yolo, f"{pre}.yolo_fp32")},
@@ -2676,9 +2704,403 @@ def phase_vil_headdim_path():
                                                            loop=False),
               f"{pre}.yolo_fp32_step": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"),
                                                 phase_train_path(yolo, f"{pre}.yolo_fp32_step")))}
-    counts.update(phase_cls_path(CLS_DEFAULT_DH, f"{pre}.cls_dh4"))
+    cls_counts, cls_img_s = phase_cls_path(CLS_DEFAULT_DH, f"{pre}.cls_dh4")
+    counts.update(cls_counts)
     counts[f"{pre}.yaml_graph"] = {"vil_layer_fwd": phase_yaml_graph(f"{pre}.yaml_graph")}
-    return counts
+    return counts, cls_img_s
+
+
+def yolo_with_rows(kind: str) -> Variant:
+    """ViL-YOLO-n with its three ViLBlockPairBlock rows replaced by
+    ``FAMILY_ROWS[kind]``: ``[c, c, config]`` at c = 64, 128, 256."""
+    import copy
+
+    from xlstm_yolo_torch.cfg import load_model_yaml
+
+    cfg, scale = load_model_yaml("vil_yolon.yaml")
+    cfg = copy.deepcopy(cfg)
+    name, config = FAMILY_ROWS[kind]
+    widths = iter(YOLO_N_WIDTHS)
+    for row in cfg["backbone"]:
+        if row[2] == "ViLBlockPairBlock":
+            c = next(widths)
+            row[2], row[3] = name, [c, c, dict(config)]
+    return Variant(cfg, scale, f"vil_yolon.yaml with {name} [c, c, {config}] rows")
+
+
+def seed_gates(model, std=None):
+    """Seeded gate kernels (zero at init) for every mLSTM cell of ``model``,
+    at ``gate_std`` of the cell's width unless ``std`` is given."""
+    import torch
+
+    from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MatrixLSTMCell):
+                for lin in (m.igate, m.fgate):
+                    sd = gate_std(lin.weight.shape[1] // 3) if std is None else std
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * sd)
+    return model
+
+
+def family_counters():
+    """K1, K3 (fp32, bf16) and K2 (fp32, bf16) launch counts."""
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd
+
+    return {"mlstm_chunkwise_fwd": mlstm_chunkwise_fwd.launches,
+            **dict(zip(COUNTED, kernel_counters().tolist()))}
+
+
+def zero_family_counters():
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd
+
+    mlstm_chunkwise_fwd.launches = 0
+    zero_kernel_counters()
+
+
+def timed_step(step, batch):
+    """Stage ms of TRAIN_TIMED train steps after TRAIN_WARMUP (CUDA events)."""
+    import torch
+
+    times = {"forward_loss": 0.0, "backward": 0.0, "update_ema": 0.0}
+    for it in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _ = step.forward_loss(batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        step.apply_update()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if it >= TRAIN_WARMUP:
+            for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                times[k] += a.elapsed_time(b) / TRAIN_TIMED
+    return times
+
+
+def phase_large_yolo(name: str):
+    """ViL-YOLO-n with ``VilLayerUpdated`` rows (the xLSTM-7B-style vision
+    block; chunk 80 divides 6400, 1600 and 400), plain torch on the card as
+    in JAX: (a) fp32 inference (``predictions``) at batch BATCH, its first
+    image against the same model on the CPU (boxes within TOL_REL of their
+    max, scores within TOL_REL), then timed; (b) one fp32 train step, finite
+    loss and gradients, then timed by stage. No launch of K1, K3 or K2."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    cfg = yolo_with_rows("large")
+    model = build_main_model("cuda", cfg=cfg)
+    cpu = copy.deepcopy(model).cpu()
+    x = torch.from_numpy(np.random.default_rng(7).uniform(
+        0, 1, (BATCH, IMGSZ, IMGSZ, 3)).astype(np.float32)).cuda()
+    zero_family_counters()
+    with torch.inference_mode():
+        got = model.predictions(x)
+        torch.cuda.synchronize()
+        launches = family_counters()
+        want = cpu.predictions(x[:1].cpu())
+        ms = cuda_time_ms(lambda: model.predictions(x), iters=3, warmup=1)
+    del cpu
+    params = model.num_params()
+    g1 = got[:1].cpu()
+    box_rel = ((g1[..., :4] - want[..., :4]).abs().max() / want[..., :4].abs().max()).item()
+    score_abs = (g1[..., 4:] - want[..., 4:]).abs().max().item()
+    fwd_ok = (bool(torch.isfinite(got).all()) and box_rel <= TOL_REL and score_abs <= TOL_REL)
+
+    model = build_main_model("cuda", train=True, cfg=cfg)
+    step = TrainStep(model, amp=False)
+    batch = train_batch("cuda")
+    zero_family_counters()
+    total, _ = step.forward_loss(batch)
+    step.backward(total)
+    torch.cuda.synchronize()
+    train_launches = family_counters()
+    loss = float(total.detach())
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+                       if p.grad is not None)
+    step.apply_update()
+    times = timed_step(step, batch)
+    total_ms = sum(times.values())
+    none = not any(launches.values()) and not any(train_launches.values())
+    ok = fwd_ok and np.isfinite(loss) and grads_finite and none
+    emit({"phase": name, "model": cfg.label, "batch": BATCH, "imgsz": IMGSZ,
+          "params_after_fuse": params,
+          "launches": launches, "train_launches": train_launches, "expected_launches": 0,
+          "vs_cpu_batch1": {"box_maxrelerr": box_rel, "score_max_abs_err": score_abs},
+          "forward_ms": ms, "img_per_s": BATCH / ms * 1e3, "loss": loss,
+          "step_ms": times, "step_total_ms": total_ms,
+          "step_img_per_s": BATCH / total_ms * 1e3, "tol": TOL_REL, "ok": ok})
+    if not ok:
+        raise PhaseError(f"{name} check failed")
+    return {k: v for k, v in {**launches, **train_launches}.items() if v}
+
+
+def phase_hier(name: str):
+    """``HierarchicalVisionLSTM`` at its class defaults (dims 96 / 192 / 384,
+    depths 2 / 2 / 4, patch 4, head dim 16) at CLS_HW px, batch CLS_BATCH
+    of the classifier's images: (a) eval against the plain-forced model,
+    every stage map within TOL_REL of its max, one K3 launch per ViL layer
+    (8), timed; (b) the backward of a seeded linear read-out of the three
+    maps against the plain-forced backward: the read-out and every gradient
+    within TOL_REL, one K3 and one K2 launch per ViL layer."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.nn.vil_extra import HierarchicalVisionLSTM
+
+    model = seed_gates(HierarchicalVisionLSTM(**HIER, resolution=(CLS_HW, CLS_HW), device="cuda"),
+                       std=0.05)
+    n_layers = sum(HIER["depths"])
+    x = cls_inputs()[0]
+    with torch.no_grad():
+        vil_layer_fwd.launches = 0
+        outs = model(x)
+        torch.cuda.synchronize()
+        eval_launches = vil_layer_fwd.launches
+        with plain_vil_kernels():
+            refs = model(x)
+        eval_ms = cuda_time_ms(lambda: model(x), iters=5)
+    map_rel = [compare(o, r)[1] for o, r in zip(outs, refs)]
+    shapes = [list(o.shape) for o in outs]
+    del outs, refs
+    g = torch.Generator(device="cuda").manual_seed(8)
+    readout = [torch.randn(s, device="cuda", generator=g) for s in shapes]
+    runs = {}
+    for kind in ("kernels", "plain"):
+        model.zero_grad(set_to_none=True)
+        with plain_vil_kernels() if kind == "plain" else nullcontext():
+            vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+            loss = sum((o * r).sum() for o, r in zip(model(x), readout))
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches)
+        runs[kind] = (float(loss.detach()), {n: p.grad for n, p in model.named_parameters()},
+                      launches)
+    (loss_k, grads_k, launches), (loss_p, grads_p, plain_launches) = runs["kernels"], runs["plain"]
+    del runs
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        sum((o * r).sum() for o, r in zip(model(x), readout)).backward()
+
+    step_ms = cuda_time_ms(fwd_bwd, iters=3, warmup=1)
+    ok = (shapes == [[CLS_BATCH, CLS_HW // 4 // 2 ** i, CLS_HW // 4 // 2 ** i, d]
+                     for i, d in enumerate(HIER["dims"])]
+          and max(map_rel) <= TOL_REL and eval_launches == n_layers
+          and launches == (n_layers, n_layers) and plain_launches == (0, 0)
+          and worst_rel <= TOL_REL and loss_rel <= TOL_REL
+          and all(bool(torch.isfinite(g_).all()) for g_ in grads_k.values()))
+    emit({"phase": name, "model": {**HIER, "resolution": CLS_HW}, "params": model.num_params(),
+          "batch": CLS_BATCH, "tol": TOL_REL, "maps": shapes, "map_maxrelerr": map_rel,
+          "eval": {"launches_vil_layer_fwd": eval_launches, "expected_launches": n_layers,
+                   "ms": eval_ms, "img_per_s": CLS_BATCH / eval_ms * 1e3},
+          "readout_backward": {"launches": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"),
+                                                    launches)),
+                               "loss_relerr": loss_rel, "grad_maxrelerr": worst_rel,
+                               "grad_worst": worst_name, "grads_vanishing": vanishing,
+                               "grad_max": gmax, "ms": step_ms,
+                               "img_per_s": CLS_BATCH / step_ms * 1e3},
+          "ok": ok})
+    if not ok:
+        raise PhaseError(f"{name} check failed")
+    return {f"{name}_eval": {"vil_layer_fwd": eval_launches},
+            f"{name}_backward": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), launches))}
+
+
+def phase_vit(name: str, vil2_img_s: dict):
+    """``VisionTransformer`` at its defaults (dim 192, depth 12, 3 heads,
+    patch 16) at CLS_HW px: eval at batch CLS_BATCH on the card, its first
+    two rows against the same model on the CPU at batch 2 (within TOL_REL
+    of the max), then timed; its img/s beside the ViL classifier's at the
+    same widths (``vil2_img_s``: ``cls_path`` at head dim 64,
+    ``vil_headdim_path.cls_dh4`` at 4, measured earlier in this run). No
+    ViL kernel runs here."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.nn.vil_extra import VisionTransformer
+
+    model = VisionTransformer(**VIT, resolution=(CLS_HW, CLS_HW), device="cuda")
+    cpu = copy.deepcopy(model).cpu()
+    x = cls_inputs()[0]
+    with torch.no_grad():
+        got = model(x)
+        want = cpu(x[:2].cpu())
+        ms = cuda_time_ms(lambda: model(x), iters=5)
+    rel = compare(got[:2].cpu(), want)[1]
+    ok = (tuple(got.shape) == (CLS_BATCH, VIT["num_classes"]) and bool(torch.isfinite(got).all())
+          and rel <= TOL_REL)
+    emit({"phase": name, "model": {**VIT, "resolution": CLS_HW}, "params": model.num_params(),
+          "batch": CLS_BATCH, "vs_cpu_batch2_maxrelerr": rel, "tol": TOL_REL, "ms": ms,
+          "img_per_s": CLS_BATCH / ms * 1e3,
+          "vision_lstm2_img_per_s": vil2_img_s, "ok": ok})
+    if not ok:
+        raise PhaseError(f"{name} check failed")
+
+
+def no_outnorm_args(kind: str, B: int, case, device):
+    """Seeded arguments of ``kind`` ("layer", "layer_bf16", "conv",
+    "block") at ``case``, the outnorm's affine None."""
+    import torch
+
+    _, S, DIM, INNER, NH, _ = case
+    a = layer_args(B, S, DIM, INNER, NH, seed=S + B + 40, device=device)
+    rng = np.random.default_rng(S + B + 41)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+    if kind == "layer_bf16":
+        a = [a[0].bfloat16(), a[1].bfloat16(), *a[2:]]
+    if kind == "conv":
+        a = [a[0], *a[2:5], mk(INNER, 1, 3, 3) * 0.3, mk(INNER) * 0.1, *a[5:]]
+    if kind == "block":
+        a = [a[1], mk(B, S, INNER), mk(B, S, INNER), a[0], *a[5:]]
+    at = {"layer": 15, "layer_bf16": 15, "conv": 16, "block": 14}[kind]
+    a[at] = a[at + 1] = None
+    return a
+
+
+def no_outnorm_parity():
+    """K3 (fp32 and bf16) at NO_OUTNORM_CASES, K6 at the first and K7 at the
+    second, each with ``use_outnorm=False`` against its plain version
+    (``kernel_parity``: the existing tolerances; bf16 by ``compare_bf16``).
+    Bounds count the decay matrix below head dim 64. Returns the totals by
+    kernel name."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import KERNEL_CS
+    from xlstm_yolo_torch.kernels.vil_block import vil_block_fwd, vil_block_plain
+    from xlstm_yolo_torch.kernels.vil_conv import vil_layer_conv_fwd, vil_layer_conv_plain
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd, vil_layer_ref
+
+    dev = torch.device("cuda")
+    off = dict(use_outnorm=False)
+    nw = lambda args, first: sum(a.numel() for a in args[first:] if a is not None)
+    small = lambda case: case[3] // case[4] < 64
+    grid = lambda case: (int(round(case[1] ** 0.5)),) * 2
+    extra = lambda case, ms: {"use_outnorm": False, "head_dim": case[3] // case[4]}
+    make = lambda kind: (lambda B, case: no_outnorm_args(kind, B, case, dev))
+    timed = lambda case: case[5]
+    out = {"vil_layer_fwd": kernel_parity(
+        "vil_layer_fwd", NO_OUTNORM_CASES, make("layer"),
+        lambda args, case: (vil_layer_fwd(*args, case[4], chunk_size=CHUNK, **off),),
+        lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=CHUNK, **off),),
+        lambda args, case: vil_bound("layer", case[5], *case[1:5], nw(args, 2),
+                                     gate_matrix=small(case)),
+        batch_of=timed, extra=extra)}
+    out["vil_layer_fwd_bf16"] = kernel_parity(
+        "vil_layer_fwd_bf16", NO_OUTNORM_CASES, make("layer_bf16"),
+        lambda args, case: (vil_layer_fwd(*args, case[4], **off),),
+        lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=KERNEL_CS, keep_fp32=True,
+                                          **off),),
+        lambda args, case: bf16_vil_bound(case[5], *case[1:5], nw(args, 2),
+                                          gate_matrix=small(case)),
+        batch_of=timed, cmp=compare_bf16, extra=extra, metric=BF16_METRIC)
+    out["vil_layer_conv_fwd"] = kernel_parity(
+        "vil_layer_conv_fwd", NO_OUTNORM_CASES[:1], make("conv"),
+        lambda args, case: (vil_layer_conv_fwd(*args, case[4], grid(case), chunk_size=CHUNK,
+                                               **off),),
+        lambda args, case: (vil_layer_conv_plain(*args, case[4], grid(case), chunk_size=CHUNK,
+                                                 **off),),
+        lambda args, case: conv_bound(case[5], *case[1:5], nw(args, 1), gate_matrix=small(case)),
+        batch_of=timed, extra=lambda case, ms: {**extra(case, ms), "grid": list(grid(case))})
+    out["vil_block_fwd"] = kernel_parity(
+        "vil_block_fwd", NO_OUTNORM_CASES[1:], make("block"),
+        lambda args, case: (vil_block_fwd(*args, case[4], chunk_size=CHUNK, **off),),
+        lambda args, case: (vil_block_plain(*args, case[4], chunk_size=CHUNK, **off),),
+        lambda args, case: vil_bound("block", case[5], *case[1:5], nw(args, 4),
+                                     gate_matrix=small(case)),
+        batch_of=timed, extra=extra)
+    return out
+
+
+def phase_no_outnorm_pair(name: str):
+    """``ViLBlockPair(use_outnorm=False, proj_bias=False)`` at ViL-YOLO-n's
+    P3 width (dim 64, head dim 64, the 80 x 80 grid), batch BATCH: forward
+    and backward (a seeded output gradient) against its plain-forced twin:
+    the output, the input gradient and every parameter gradient within
+    TOL_REL; one K3 and one K2 launch."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+    from xlstm_yolo_torch.nn.modules import init_tree
+    from xlstm_yolo_torch.nn.vil import ViLBlockPair
+
+    _, S, DIM, INNER, NH = STAGES[0]
+    pair = ViLBlockPair(DIM, qkv_block_size=INNER // NH, seqlens=(80, 80), chunk_size=CHUNK,
+                        use_outnorm=False, proj_bias=False)
+    init_tree(pair, 0)
+    pair = seed_gates(pair).cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(BATCH, S, DIM, device="cuda", generator=g)
+    gout = torch.randn(BATCH, S, DIM, device="cuda", generator=g)
+    runs = {}
+    for kind in ("kernels", "plain"):
+        pair.zero_grad(set_to_none=True)
+        xt = x.clone().requires_grad_()
+        with plain_vil_kernels() if kind == "plain" else nullcontext():
+            vil_layer_fwd.launches = mlstm_chunkwise_bwd.launches = 0
+            out = pair(xt)
+            (out * gout).sum().backward()
+            torch.cuda.synchronize()
+            launches = (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches)
+        runs[kind] = (out.detach(), {"x": xt.grad, **{n: p.grad for n, p in
+                                                      pair.named_parameters()}}, launches)
+    (out_k, grads_k, launches), (out_p, grads_p, plain_launches) = runs["kernels"], runs["plain"]
+    out_rel = compare(out_k, out_p)[1]
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    no_keys = not any(n.endswith("bias") and "proj" in n or "outnorm" in n
+                      for n, _ in pair.named_parameters())
+    ok = (no_keys and launches == (1, 1) and plain_launches == (0, 0) and out_rel <= TOL_REL
+          and worst_rel <= TOL_REL)
+    emit({"phase": name, "shape": [BATCH, S, DIM, INNER, NH], "use_outnorm": False,
+          "proj_bias": False, "params": sorted(n for n, _ in pair.named_parameters()),
+          "launches": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), launches)),
+          "out_maxrelerr": out_rel, "grad_maxrelerr": worst_rel, "grad_worst": worst_name,
+          "grads_vanishing": vanishing, "tol": TOL_REL, "ok": ok})
+    if not ok:
+        raise PhaseError(f"{name} check failed")
+    return dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"), launches))
+
+
+def phase_vil_family_path(vil2_img_s: dict):
+    """The rest of the ViL family. ``fusion_yolo``: ViL-YOLO-n with
+    ``FusionViLLayerBlock [c, c, {mlp_type: swiglu}]`` rows (K3 at head dim
+    16): fp32 inference (``main_path``'s checks, 3 K3 launches), bf16
+    serving (``main_path_bf16``'s), one fp32 train step (``train_path``'s).
+    ``large_yolo``: the same with ``VilLayerUpdated`` rows
+    (``phase_large_yolo``, no kernel). ``hier``, ``vit``: the hierarchical
+    model and the ViT baseline at their defaults (the ViT's img/s beside
+    ``vil2_img_s``, the classifier's). ``no_outnorm``: the
+    kernel cases without the outnorm (``no_outnorm_parity``) and a
+    ViLBlockPair without outnorm or biases (``phase_no_outnorm_pair``).
+    Returns each sub-path's launch counts and the no-outnorm kernel totals."""
+    t0 = time.perf_counter()
+    pre = "vil_family_path"
+    fusion = yolo_with_rows("fusion")
+    counts = {
+        f"{pre}.fusion_yolo_fp32": {"vil_layer_fwd": phase_main_path(
+            fusion, f"{pre}.fusion_yolo_fp32")},
+        f"{pre}.fusion_yolo_bf16": {"vil_layer_fwd_bf16": phase_main_path_bf16(
+            fusion, f"{pre}.fusion_yolo_bf16")},
+        f"{pre}.fusion_yolo_step": dict(zip(("vil_layer_fwd", "mlstm_chunkwise_bwd"),
+                                            phase_train_path(fusion, f"{pre}.fusion_yolo_step"))),
+        f"{pre}.large_yolo": phase_large_yolo(f"{pre}.large_yolo")}
+    counts.update(phase_hier(f"{pre}.hier"))
+    phase_vit(f"{pre}.vit", vil2_img_s)
+    counts[f"{pre}.no_outnorm_pair"] = phase_no_outnorm_pair(f"{pre}.no_outnorm_pair")
+    no_outnorm = no_outnorm_parity()
+    emit({"phase": pre, "seconds": time.perf_counter() - t0, "ok": True})
+    return counts, no_outnorm
 
 
 def phase_scales_path():
@@ -2783,7 +3205,7 @@ def main() -> int:
         phase = "lm_path"
         lm_launches = phase_lm_path()
         phase = "cls_path"
-        by_path = phase_cls_path()
+        by_path, cls_img_s = phase_cls_path()
         phase = "kth_path"
         kth_launches = phase_kth_path()
         phase = "conv_path"
@@ -2793,7 +3215,10 @@ def main() -> int:
         phase = "scales_path"
         scales_launches = phase_scales_path()
         phase = "vil_headdim_path"
-        headdim_launches = phase_vil_headdim_path()
+        headdim_launches, dh4_img_s = phase_vil_headdim_path()
+        phase = "vil_family_path"
+        family_launches, no_outnorm = phase_vil_family_path(
+            {"cls_path": cls_img_s, "vil_headdim_path.cls_dh4": dh4_img_s})
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -2812,7 +3237,8 @@ def main() -> int:
                "conv_path": conv_launches,
                "lm_train_path": lm_train_launches,
                "scales_path": scales_launches,
-               **headdim_launches}
+               **headdim_launches,
+               **family_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran
@@ -2830,7 +3256,9 @@ def main() -> int:
                                              for c, ms in k["ms_by_case"].items()}}
                    if fp32 else {}),
                 **({"small_head_dim_ms_by_case": small_dh[name]["ms_by_case"]}
-                   if name in small_dh else {})}
+                   if name in small_dh else {}),
+                **({"no_outnorm_ms_by_case": no_outnorm[name]["ms_by_case"]}
+                   if name in no_outnorm else {})}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",

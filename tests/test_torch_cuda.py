@@ -1605,3 +1605,126 @@ def test_vil_kernels_refuse_other_head_dims(cuda_device, DH):
         with pytest.raises(ValueError, match="head dim"):
             mlstm_chunkwise_bwd(t.float(), t.float(), t.float(), gate, gate, t.float(), NH,
                                 carry=None)
+
+
+# the outnorm's affine among each member's arguments: (scale, bias) positions
+OUTNORM_AT = {"layer": 15, "layer_bf16": 15, "block": 14, "conv": 16}
+# (S, DIM, NH, head dim, conv grid): ViL-YOLO-n's P3 at head dim 64, its P5 at 16
+NO_OUTNORM_SHAPES = [(6400, 64, 2, 64, (80, 80)), (400, 256, 32, 16, (20, 20))]
+
+
+def _without_outnorm(which, B, S, DIM, NH, DH, grid, device, seed):
+    """(kernel, plain, arguments with the outnorm affine None, trailing
+    arguments) of one member with the tail."""
+    if which == "conv":
+        args = _conv_args(B, *grid, DIM, NH, device, seed, DH)
+        fwd, plain, extra = vil_layer_conv_fwd, vil_layer_conv_plain, (NH, grid)
+    elif which == "block":
+        args = _block_args(B, S, DIM, NH, device, seed, DH)
+        fwd, plain, extra = vil_block_fwd, vil_block_plain, (NH,)
+    else:
+        make = _bf16_layer_args if which == "layer_bf16" else _layer_args
+        args = make(B, S, DIM, NH, device, seed, DH)
+        fwd, plain, extra = vil_layer_fwd, vil_layer_ref, (NH,)
+    at = OUTNORM_AT[which]
+    args[at] = args[at + 1] = None
+    return fwd, plain, args, extra
+
+
+@pytest.mark.parametrize("S,DIM,NH,DH,grid", NO_OUTNORM_SHAPES, ids=["P3_DH64", "P5_DH16"])
+@pytest.mark.parametrize("which", ["layer", "layer_bf16", "block", "conv"])
+def test_vil_kernels_without_outnorm_match_plain(cuda_device, which, S, DIM, NH, DH, grid):
+    """K3 (fp32 and bf16), K7 and K6 with ``use_outnorm=False``: the tail
+    adds h itself, ``(h + skip conv_act) silu(z)``; the outnorm's affine is
+    not read (None, a null pointer). One launch each, within the existing
+    tolerances of its plain version; with the outnorm, the same arguments
+    give another output (the flag is not ignored)."""
+    fwd, plain, args, extra = _without_outnorm(which, 2, S, DIM, NH, DH, grid, cuda_device,
+                                               seed=S + DH)
+    bf = which == "layer_bf16"
+    count = (lambda: fwd.launches_bf16) if bf else (lambda: fwd.launches)
+    before = count()
+    got = fwd(*args, *extra, use_outnorm=False)
+    want = plain(*args, *extra, chunk_size=64, use_outnorm=False,
+                 **({"keep_fp32": True} if bf else {}))
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if bf:
+        rel_l2, excess = _rel_bf16(got, want)
+        assert rel_l2 <= TOL_BF16_FWD and excess <= MAX_EXCESS, (rel_l2, excess)
+    else:
+        assert _rel(got, want) <= TOL_REL
+    at = OUTNORM_AT[which]
+    args[at] = torch.ones(NH * DH, device=cuda_device)
+    args[at + 1] = torch.zeros(NH * DH, device=cuda_device)
+    assert _rel(fwd(*args, *extra).float(), want) > 10 * TOL_REL
+
+
+@pytest.mark.parametrize("S,DIM,NH,DH,grid", NO_OUTNORM_SHAPES, ids=["P3_DH64", "P5_DH16"])
+@pytest.mark.parametrize("which", ["layer", "block", "conv"])
+def test_vil_kernels_without_outnorm_grads_match_plain(cuda_device, which, S, DIM, NH, DH, grid):
+    """Under grad without the outnorm: one forward launch and one K2
+    launch; every gradient within TOL_REL of the plain backward (the tail's
+    without the norm) on the plain forward's activations; None for the
+    affine."""
+    from xlstm_yolo_torch.kernels.vil_layer import layer_bwd
+
+    fwd, _, args, extra = _without_outnorm(which, 2, S, DIM, NH, DH, grid, cuda_device,
+                                           seed=S + DH + 1)
+    leaves = [None if a is None else a.clone().requires_grad_() for a in args]
+    f0, b0 = fwd.launches, mlstm_chunkwise_bwd.launches
+    out = fwd(*leaves, *extra, use_outnorm=False)
+    gout = torch.randn(out.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(S + DH))
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches, mlstm_chunkwise_bwd.launches) == (f0 + 1, b0 + 1)
+    plain_fwd, bwd = {"layer": (_layer_plain, layer_bwd), "block": (_block_plain, block_bwd),
+                      "conv": (_conv_plain, conv_layer_bwd)}[which]
+    cfg = Cfg(NH, 64, seqlens=grid if which == "conv" else None, outnorm=False)
+    _, acts = plain_fwd(args, cfg)
+    want = bwd(args, acts, gout, cfg, mlstm_chunkwise_bwd_plain)
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        if leaf is None:
+            assert w is None, i
+            continue
+        assert _rel(leaf.grad, w) <= TOL_REL, i
+
+
+def test_vil_block_pair_without_outnorm_or_biases_on_card(cuda_device):
+    """``ViLBlockPair(use_outnorm=False, proj_bias=False)`` at ViL-YOLO-n's
+    P3 width (dim 64, head dim 64, an 80 x 80 grid), batch 2: the output and
+    the input and parameter gradients against the same pair with the plain
+    versions forced in; one K3 and one K2 launch."""
+    from xlstm_yolo_torch.nn.modules import init_tree
+    from xlstm_yolo_torch.nn.vil import ViLBlockPair
+
+    pair = ViLBlockPair(64, qkv_block_size=64, seqlens=(80, 80), chunk_size=128,
+                        use_outnorm=False, proj_bias=False)
+    init_tree(pair, 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for lin in (pair.fwd.layer.mlstm_cell.igate, pair.fwd.layer.mlstm_cell.fgate):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    pair = pair.to(cuda_device).train()
+    assert not any(n.endswith("bias") and "proj" in n for n, _ in pair.named_parameters())
+    x = torch.randn(2, 6400, 64, generator=g).to(cuda_device)
+    gout = torch.randn(2, 6400, 64, generator=g).to(cuda_device)
+    runs = []
+    for plain in (False, True):
+        pair.zero_grad()
+        xt = x.clone().requires_grad_()
+        f0, b0 = vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches
+        with _plain_vil() if plain else nullcontext():
+            out = pair(xt)
+            (out * gout).sum().backward()
+        torch.cuda.synchronize()
+        launched = (vil_layer_fwd.launches - f0, mlstm_chunkwise_bwd.launches - b0)
+        assert launched == ((0, 0) if plain else (1, 1))
+        grads = {n: p.grad.clone() for n, p in pair.named_parameters()}
+        runs.append((out.detach(), xt.grad, grads))
+    (out_k, dx_k, g_k), (out_p, dx_p, g_p) = runs
+    assert _rel(out_k, out_p) <= TOL_REL and _rel(dx_k, dx_p) <= TOL_REL
+    for n, w in g_p.items():
+        assert _rel(g_k[n], w) <= TOL_REL, n

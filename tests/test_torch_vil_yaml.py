@@ -90,15 +90,22 @@ def _pair(jmod, tmod, *xs, seed=0, nchw_in=(), nchw_out=False, tol=TOL, jit=Fals
 
 def test_registry_has_the_jax_names():
     """The port's graph compiler takes the ViL block names the JAX package
-    registers, ``VisionLSTM`` included; the ones left for later are refused."""
+    registers, ``VisionLSTM``, ``FusionViLLayerBlock``, ``VilLayerUpdated``
+    and ``mLSTMVisionBlock`` included; the one left for later, ``MoEFFN``,
+    is refused with what it waits on."""
     for name in ("ViLBlockPairBlock", "SequenceToImage", "ImageToSequence", "PermuteBlock",
                  "FeatureSplitIndex", "VitPatchEmbedBlock", "VitPosEmbedBlock",
                  "FlattenPosEmbedBlock", "SequenceConv2dBlock", "PatchMergeBlock", "PatchMerging",
                  "VisionClueMerge", "PatchMerger", "ViLLayerNormBlock", "MultiScaleFusionBlock",
-                 "ViLFusionBlock", "VisionLSTM"):
+                 "ViLFusionBlock", "VisionLSTM", "FusionViLLayerBlock", "VilLayerUpdated",
+                 "mLSTMVisionBlock"):
         assert REGISTRY[name][1] == "custom", name
-    cfg = {"nc": 2, "backbone": [[-1, 1, "FusionViLLayerBlock", [8, {}]]]}
-    with pytest.raises(KeyError, match="not ported"):
+    from xlstm_yolo_tpu.nn.graph import REGISTRY as JAX_REGISTRY
+
+    jax_vil = {n for n, (cls, _) in JAX_REGISTRY.items() if cls.__module__ == JB.__name__}
+    assert len(jax_vil) == 21 and jax_vil - set(REGISTRY) == {"MoEFFN"}
+    cfg = {"nc": 2, "backbone": [[-1, 1, "MoEFFN", [4, 1]]]}
+    with pytest.raises(KeyError, match="not ported: .*parallel/moe.py"):
         parse_model(cfg, ch=8)
 
 

@@ -350,8 +350,12 @@ def test_loader_rules_for_the_language_model():
         name, arr = torch_name(f"params/stack/block1/xlstm/{leaf}", a)
         assert name == f"stack.block1.xlstm.{leaf}"
         np.testing.assert_array_equal(arr, a)
+    # 5-D is a 3-D conv's DHWIO kernel (the video embeds), OIDHW in the port
+    vid = rng.normal(size=(2, 3, 4, 5, 6)).astype(np.float32)
+    np.testing.assert_array_equal(torch_name("params/x/kernel", vid)[1],
+                                  vid.transpose(4, 3, 0, 1, 2))
     with pytest.raises(ValueError, match="kernel rank"):
-        torch_name("params/x/kernel", np.zeros((2, 2, 2, 2, 2), np.float32))
+        torch_name("params/x/kernel", np.zeros((2, 2, 2, 2, 2, 2), np.float32))
     with pytest.raises(ValueError, match="kernel rank"):
         torch_name("params/x/kernel", np.zeros((3,), np.float32))
 

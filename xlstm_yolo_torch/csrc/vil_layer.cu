@@ -65,7 +65,9 @@
 //   5. chunk outputs (one CTA per (chunk, batch*head)): the causal q k^T, the
 //      intra-chunk E v and the carried-in q C, normalized; for the members
 //      with the tail also its elementwise part, once per head and token:
-//      y = (outnorm(h) + skip conv_act) silu(z) to the workspace. 71 KB.
+//      y = (outnorm(h) + skip conv_act) silu(z) to the workspace, or
+//      y = (h + skip conv_act) silu(z) when the caller passes no outnorm
+//      affine (the layer's use_outnorm=False). 71 KB.
 //   6. epilogue (K3, K6, K7; one CTA per 64 tokens x 64 columns of DIM): y
 //      times proj_down as a GEMM over INNER in double-buffered 64-channel
 //      slices; the residual is added at the end. 70 KB.
@@ -178,8 +180,9 @@ struct Params {
   const float* bgi;   // (NH)
   const float* wgf;
   const float* bgf;
-  const float* nsc;   // (INNER) effective outnorm scale
+  const float* nsc;   // (INNER) effective outnorm scale; null: no outnorm
   const float* nbi;   // (INNER)
+  int outnorm;        // the tail normalizes h per head (set_tail: nsc is not null)
   const float* skip;  // (INNER)
   const float* wd;    // (DIM, INNER) proj_down's weight, out x in
   const float* bd;    // (DIM)
@@ -242,6 +245,18 @@ __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// One token's head of h normalized over its DH values, held two a lane
+// (h0 = column lane, h1 = column lane + 32, zeros past DH): (h - mean) /
+// sqrt(var + eps), without the affine. The whole warp calls it.
+template <int DH>
+__device__ __forceinline__ void head_norm(float& h0, float& h1, int lane, float eps) {
+  const float mu = warp_sum(h0 + h1) / DH;
+  const float d0 = lane < DH ? h0 - mu : 0.f, d1 = lane + 32 < DH ? h1 - mu : 0.f;
+  const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + eps);
+  h0 = d0 * inv;
+  h1 = d1 * inv;
 }
 
 // Inclusive scan (sum, or max when MAX) of a[0..63] in place; called by all
@@ -731,16 +746,15 @@ __global__ void __launch_bounds__(NT, 3) vil_chunk_output(Params p) {
   for (int t = warp; t < CS; t += NW) {
     if (s0 + t >= p.S) break;  // warp-uniform
     const float* hr = Cs + t * LDS;
-    const float a0 = hr[lane], a1 = hr[lane + 32];  // zeros past DH
-    const float mu = warp_sum(a0 + a1) / DH;
-    const float d0 = lane < DH ? a0 - mu : 0.f, d1 = lane + 32 < DH ? a1 - mu : 0.f;
-    const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + p.norm_eps);
+    float h0 = hr[lane], h1 = hr[lane + 32];  // zeros past DH
+    if (p.outnorm) head_norm<DH>(h0, h1, lane, p.norm_eps);  // warp-uniform
     const long row = ((long)b * p.S + s0 + t) * p.INNER + n * DH;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int cl = lane + 32 * half, c = n * DH + cl;
       if (cl >= DH) break;
-      const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
+      const float hv = half ? h1 : h0;
+      const float hn = p.outnorm ? hv * p.nsc[c] + p.nbi[c] : hv;
       p.y[row + cl] = (hn + p.skip[c] * p.conv[row + cl]) * silu(p.zr[row + cl]);
     }
   }
@@ -1455,16 +1469,15 @@ __global__ void __launch_bounds__(NT, 3) vil16_chunk_output(Params p) {
   for (int t = warp; t < CS; t += NW) {
     if (s0 + t >= p.S) break;  // warp-uniform
     const float* hr = hs + t * LDS;
-    const float a0 = hr[lane], a1 = hr[lane + 32];  // zeros past DH
-    const float mu = warp_sum(a0 + a1) / DH;
-    const float d0 = lane < DH ? a0 - mu : 0.f, d1 = lane + 32 < DH ? a1 - mu : 0.f;
-    const float inv = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / DH + p.norm_eps);
+    float h0 = hr[lane], h1 = hr[lane + 32];  // zeros past DH
+    if (p.outnorm) head_norm<DH>(h0, h1, lane, p.norm_eps);  // warp-uniform
     const long row = ((long)b * p.S + s0 + t) * p.INNER + n * DH;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int cl = lane + 32 * half, c = n * DH + cl;
       if (cl >= DH) break;
-      const float hn = (half ? d1 : d0) * inv * p.nsc[c] + p.nbi[c];
+      const float hv = half ? h1 : h0;
+      const float hn = p.outnorm ? hv * p.nsc[c] + p.nbi[c] : hv;
       const float cvv = __bfloat162float(cv[t * LDH + cl]);
       p.y16[row + cl] = __float2bfloat16_rn((hn + p.skip[c] * cvv) * silu(zs[t * LDS + cl]));
     }
@@ -1731,10 +1744,11 @@ void set_cell(Params& p, const float* conv, const float* wq, const float* wk, co
 }
 
 // The tail's arguments, shared by the layer and the block.
+// A null nsc turns the outnorm off: y = (h + skip conv_act) silu(z).
 void set_tail(Params& p, const float* nsc, const float* nbi, const float* skip, const float* wd,
               const float* bd, float* out, int DIM, float norm_eps) {
   p.nsc = nsc; p.nbi = nbi; p.skip = skip; p.wd = wd; p.bd = bd; p.out = out;
-  p.DIM = DIM; p.norm_eps = norm_eps;
+  p.DIM = DIM; p.norm_eps = norm_eps; p.outnorm = nsc != nullptr;
 }
 
 }  // namespace
@@ -1758,7 +1772,8 @@ const char* vil_error_string(int code) {
 // Each entry returns 0 on success, else the CUDA error code of the first
 // failed step. Headwise weights arrive as (NH, DH_out, DH_in), gate kernels
 // as (NH, 3*INNER), proj_up's weight as (2*INNER, DIM) and proj_down's as
-// (DIM, INNER) (out x in, as torch's Linear keeps them).
+// (DIM, INNER) (out x in, as torch's Linear keeps them). The members with
+// the tail (K3, K6, K7) take nsc = nbi = null for a layer without outnorm.
 
 // K3: the layer from x and conv_act.
 int vil_layer_fwd_f32(const float* x, const float* conv, const float* nrm, const float* wu,

@@ -1,7 +1,8 @@
 """mLSTM recurrence in plain torch: the chunkwise and the step-by-step form.
 
-Port of ``xlstm_yolo_tpu/kernels/mlstm_native.py`` (``_log_igate``,
-``mlstm_recurrent_step``, ``mlstm_recurrent`` and ``mlstm_chunkwise``).
+Port of ``xlstm_yolo_tpu/kernels/mlstm_native.py`` (``soft_cap``,
+``_log_igate``, ``mlstm_recurrent_step``, ``mlstm_recurrent`` and
+``mlstm_chunkwise``).
 Recurrence per head, head dim DH, log-space max-stabilized:
 
     m_t = max(log f̃_t + m_{t-1}, log ĩ_t)
@@ -50,6 +51,11 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor, mm_dtype=None) -> torch.Tensor:
         mm = torch.bmm if a.dim() == 3 else torch.mm
         return mm(a.to(mm_dtype), b.to(mm_dtype), out_dtype=torch.float32)
     return mm_round(a, mm_dtype) @ mm_round(b, mm_dtype)
+
+
+def soft_cap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """cap * tanh(x / cap); the identity for ``cap`` None."""
+    return x if cap is None else cap * torch.tanh(x / cap)
 
 
 def _log_igate(i_preact: torch.Tensor, igate_act: str) -> torch.Tensor:
@@ -109,14 +115,19 @@ def mlstm_chunkwise(
     chunk_size: int = 64,
     igate_act: str = "exp",
     eps: float = 1e-6,
+    initial_state=None,
     return_last_state: bool = False,
     mm_dtype=None,
 ):
     """Chunked-parallel mLSTM. q/k (B, NH, S, DQK), v (B, NH, S, DV), gate
     preacts (B, NH, S) -> h (B, NH, S, DV) in fp32. S must be a multiple of
-    ``chunk_size``. Per-chunk summaries are computed batched, the (C, n, m)
-    inter-chunk state is carried by a loop over chunks, and the intra- and
-    inter-chunk contributions are combined vectorized. ``mm_dtype``: the
+    ``chunk_size`` (a ValueError otherwise; nothing is padded). Per-chunk
+    summaries are computed batched, the (C, n, m) inter-chunk state is
+    carried by a loop over chunks, and the intra- and inter-chunk
+    contributions are combined vectorized. The state starts at
+    ``initial_state`` = (C (B, NH, DQK, DV), n (B, NH, DQK), m (B, NH)), or
+    at zeros; ``return_last_state`` also returns the state after the last
+    step, fp32. ``mm_dtype``: the
     operand type of the products (``mm_round``), rounded where the TPU
     kernel's ``_chunk_math`` casts: q and k of q k^T, the decayed E and v,
     q_inter and the carried C. The chunk summaries k^T (g v) that carry the
@@ -148,9 +159,12 @@ def mlstm_chunkwise(
     kv = torch.einsum("bncsd,bncse->bncde", R(kc * gw[..., None]), R(vc))
     ksum = (kc * gw[..., None]).sum(dim=-2)  # (B, NH, NS, DH)
 
-    c_st = q.new_zeros((B, NH, DH, DV), dtype=f32)
-    n_st = q.new_zeros((B, NH, DH), dtype=f32)
-    m_st = q.new_zeros((B, NH), dtype=f32)
+    if initial_state is None:
+        c_st = q.new_zeros((B, NH, DH, DV), dtype=f32)
+        n_st = q.new_zeros((B, NH, DH), dtype=f32)
+        m_st = q.new_zeros((B, NH), dtype=f32)
+    else:
+        c_st, n_st, m_st = (t.to(f32) for t in initial_state)
 
     c_prev, n_prev, m_prev = [], [], []
     for j in range(NS):

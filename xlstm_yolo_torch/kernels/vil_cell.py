@@ -67,7 +67,9 @@ LIB = CudaLibrary("vil_layer.cu", {
 
 class Cfg(NamedTuple):
     """The static arguments of a call; the cell reads the first four, the
-    conv-fused layer alone the (H, W) token grid ``seqlens``."""
+    conv-fused layer alone the (H, W) token grid ``seqlens``. ``outnorm``
+    False: the members with the tail skip the per-head outnorm (the layer's
+    ``use_outnorm=False``) and take no outnorm affine (None)."""
     num_heads: int
     chunk_size: int = 64
     igate_act: str = "exp"
@@ -75,6 +77,7 @@ class Cfg(NamedTuple):
     norm_eps: float = 1e-3
     rms_eps: float = 1e-6
     seqlens: tuple | None = None
+    outnorm: bool = True
 
 
 def _cell_plain(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf, cfg: Cfg):
@@ -335,17 +338,18 @@ class _MemberFunction(torch.autograd.Function):
         mlstm_bwd = (functools.partial(mlstm_chunkwise_bwd, carry=CarryStates(*carry)) if carry
                      else mlstm_chunkwise_bwd_plain)
         grads = ctx.member.bwd(args, acts, gout.contiguous().float(), ctx.cfg, mlstm_bwd)
-        return (None, None, *(g.to(a.dtype) for g, a in zip(grads, args)))
+        return (None, None, *(None if a is None else g.to(a.dtype) for g, a in zip(grads, args)))
 
 
 def call_member(member: Member, cfg: Cfg, args):
     """The device dispatch of the family: CPU tensors take the plain
     version, CUDA tensors launch the kernel or raise, any other device is
     refused. When gradients are needed the call goes through the autograd
-    Function with the hand-written backward."""
+    Function with the hand-written backward. An argument a call does not
+    read (the outnorm affine with ``cfg.outnorm`` False) may be None."""
     if args[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"{member.name}: unsupported device {args[0].device}")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
         return _MemberFunction.apply(member, cfg, *args)
     if _on_card(args[0]):
         return member.launch(args, cfg, False)[0]

@@ -83,12 +83,14 @@ def _conv_plain(args, cfg: Cfg):
 def vil_layer_conv_plain(x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf,
                          bgf, nscale, nbias, skip, wd, bd, num_heads: int, seqlens: tuple,
                          chunk_size: int = 64, igate_act: str = "exp", eps: float = 1e-6,
-                         norm_eps: float = 1e-3, rms_eps: float = 1e-6) -> torch.Tensor:
+                         norm_eps: float = 1e-3, rms_eps: float = 1e-6,
+                         use_outnorm: bool = True) -> torch.Tensor:
     """Plain torch conv-fused ViL layer (the JAX ``_vil_conv_composite``),
     fp32; differentiable by autograd (the JAX package's CPU path)."""
     args = (x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
             nscale, nbias, skip, wd, bd)
-    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps, tuple(seqlens))
+    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps, tuple(seqlens),
+              use_outnorm)
     return _conv_plain(args, cfg)[0]
 
 
@@ -133,7 +135,7 @@ def _launch(args, cfg: Cfg, save: bool = True):
          chk("wc", wc, (INNER, 1, 3, 3)).reshape(INNER, 9).t().contiguous(),  # (tap, channel)
          chk("bc", bc, (INNER,)),
          *cell_kernel_args(where, like_conv, *args[N_HEAD:N_HEAD + N_CELL], nh),
-         *tail_kernel_args(where, like_conv, *args[N_HEAD + N_CELL:], DIM)]
+         *tail_kernel_args(where, like_conv, *args[N_HEAD + N_CELL:], DIM, cfg.outnorm)]
     out = torch.empty((B, S, DIM), device=dev, dtype=torch.float32)
     ws = Workspace(lib, CONV, B, S, INNER, nh, dev)
     run_kernel(where, lib, "vil_layer_conv_fwd_f32", [*t, out, ws.buf],
@@ -150,15 +152,17 @@ _CONV = Member("vil_layer_conv_fwd", _conv_plain, _launch, conv_layer_bwd)
 def vil_layer_conv_fwd(x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf,
                        bgf, nscale, nbias, skip, wd, bd, num_heads: int, seqlens: tuple,
                        chunk_size: int = 64, igate_act: str = "exp", eps: float = 1e-6,
-                       norm_eps: float = 1e-3, rms_eps: float = 1e-6) -> torch.Tensor:
+                       norm_eps: float = 1e-3, rms_eps: float = 1e-6,
+                       use_outnorm: bool = True) -> torch.Tensor:
     """Conv-fused ViL layer forward, ``seqlens`` the (H, W) token grid. CPU
     tensors take the plain versions; CUDA tensors launch the hand-written
     kernels (fp32, head dim in ``KERNEL_DHS``) or raise. Each call that launches them adds
-    one to ``vil_layer_conv_fwd.launches``. Gradients and ``chunk_size`` as
-    in ``vil_layer.vil_layer_fwd``."""
+    one to ``vil_layer_conv_fwd.launches``. Gradients, ``chunk_size`` and
+    ``use_outnorm`` as in ``vil_layer.vil_layer_fwd``."""
     args = (x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
             nscale, nbias, skip, wd, bd)
-    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps, tuple(seqlens))
+    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps, tuple(seqlens),
+              use_outnorm)
     return call_member(_CONV, cfg, args)
 
 

@@ -15,7 +15,9 @@ conv branch ``conv_act`` (B, S, INNER) it computes
 
 Arguments keep the JAX entry's layouts: ``wu`` (DIM, 2*INNER), headwise
 ``wq/wk/wv`` (NH, DH_out, DH_in), gate kernels (3*INNER, NH), ``wd`` (INNER,
-DIM), and the EFFECTIVE outnorm scale (``1 + scale``).
+DIM), and the EFFECTIVE outnorm scale (``1 + scale``). ``use_outnorm=False``
+drops the outnorm from the last line (``nscale``, ``nbias`` unread, may be
+None), on the card too: the kernels' tail adds h itself.
 
 The middle line is the cell (``kernels.vil_cell``), the last one the tail
 (``kernels.vil_block``): the layer is the block function behind RMSNorm and
@@ -109,7 +111,7 @@ def vil_layer_ref(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,
                   wgi, bgi, wgf, bgf, nscale, nbias, skip, wd, bd, num_heads: int,
                   chunk_size: int = 64, igate_act: str = "exp", eps: float = 1e-6,
                   norm_eps: float = 1e-3, rms_eps: float = 1e-6,
-                  keep_fp32: bool = False) -> torch.Tensor:
+                  keep_fp32: bool = False, use_outnorm: bool = True) -> torch.Tensor:
     """Plain torch ViL layer (the JAX ``_vil_layer_composite``),
     differentiable by autograd (the JAX package's CPU path). fp32
     activations: fp32; bf16 ``x`` and ``conv_act``: the arithmetic of the
@@ -118,7 +120,7 @@ def vil_layer_ref(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,
     bf16 kernel's output is held to, beyond its own rounding)."""
     args = (x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,
             nscale, nbias, skip, wd, bd)
-    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps)
+    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps, outnorm=use_outnorm)
     if not keep_fp32:
         return _layer_plain(args, cfg)[0]
     *_, x_mlstm, z = _head(x, rms_scale, wu, bu, rms_eps)
@@ -146,12 +148,12 @@ def layer_bwd(args, acts, gout, cfg: Cfg, mlstm_bwd):
 
 def vil_layer_bwd_ref(args, acts, gout, num_heads: int, chunk_size: int = 64,
                       igate_act: str = "exp", eps: float = 1e-6, norm_eps: float = 1e-3,
-                      rms_eps: float = 1e-6):
+                      rms_eps: float = 1e-6, use_outnorm: bool = True):
     """Plain backward of the layer (the JAX ``_vil_layer_bwd``, frozen
     stabilizer): ``args`` the 20 layer arguments, ``acts`` the activations
     the forward keeps (``h, q, k, v, i_pre, f_pre`` as ``_layer_plain``
     returns them), ``gout`` the output gradient. Returns the 20 gradients."""
-    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps)
+    cfg = Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps, outnorm=use_outnorm)
     return layer_bwd(args, acts, gout.float(), cfg, mlstm_chunkwise_bwd_plain)
 
 
@@ -176,12 +178,12 @@ def _launch(args, cfg: Cfg, save: bool = True):
     lib = check_call("vil_layer_fwd", conv_act, cfg, (torch.float32, torch.bfloat16))
     nh, dev, ad = cfg.num_heads, x.device, conv_act.dtype
     chk = lambda name, t, shape, dt=None: check_tensor("vil_layer_fwd", name, t, shape, dev, dt)
-    w = [a.float() for a in args[2:]] if bf else list(args[2:])
+    w = [None if a is None else a.float() for a in args[2:]] if bf else list(args[2:])
     t = [chk("x", x, (B, S, DIM), ad), chk("conv_act", conv_act, (B, S, INNER), ad),
          chk("rms_scale", w[0], (DIM,)), chk("wu^T", w[1].t(), (2 * INNER, DIM)),
          chk("bu", w[2], (2 * INNER,)),
          *cell_kernel_args("vil_layer_fwd", conv_act, *w[3:3 + N_CELL], nh),
-         *tail_kernel_args("vil_layer_fwd", conv_act, *w[3 + N_CELL:], DIM)]
+         *tail_kernel_args("vil_layer_fwd", conv_act, *w[3 + N_CELL:], DIM, cfg.outnorm)]
     out = torch.empty((B, S, DIM), device=dev, dtype=ad)
     sizes = (B, S, DIM, INNER, nh, int(cfg.igate_act == "exp"))
     floats = (cfg.eps, cfg.norm_eps, cfg.rms_eps)
@@ -218,7 +220,8 @@ _LAYER = Member("vil_layer_fwd", _layer_plain, _launch, layer_bwd)
 def vil_layer_fwd(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,
                   wgi, bgi, wgf, bgf, nscale, nbias, skip, wd, bd, num_heads: int,
                   chunk_size: int = 64, igate_act: str = "exp", eps: float = 1e-6,
-                  norm_eps: float = 1e-3, rms_eps: float = 1e-6) -> torch.Tensor:
+                  norm_eps: float = 1e-3, rms_eps: float = 1e-6,
+                  use_outnorm: bool = True) -> torch.Tensor:
     """ViL layer forward. CPU tensors take the plain versions; CUDA tensors
     launch the hand-written kernel (head dim in ``KERNEL_DHS``) or raise. The arithmetic
     follows the activations: fp32 x and conv_act launch the fp32 kernel
@@ -234,11 +237,13 @@ def vil_layer_fwd(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,
     gradients, as on the TPU); on CUDA it runs the chunkwise backward
     kernel on the forward's kept workspace. ``chunk_size`` is read by the
     plain versions only: the kernels walk chunks of ``KERNEL_CS``, and the
-    result does not depend on the chunk length beyond rounding."""
+    result does not depend on the chunk length beyond rounding.
+    ``use_outnorm=False``: no outnorm (``nscale``, ``nbias`` unread), in
+    both kernels' tails and the plain versions."""
     args = (x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv, wgi, bgi,
             wgf, bgf, nscale, nbias, skip, wd, bd)
-    return call_member(_LAYER, Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps),
-                       args)
+    return call_member(_LAYER, Cfg(num_heads, chunk_size, igate_act, eps, norm_eps, rms_eps,
+                                   outnorm=use_outnorm), args)
 
 
 vil_layer_fwd.launches = 0

@@ -41,6 +41,10 @@ REGISTRY: dict[str, tuple[Any, str]] = {
 }
 
 
+# names of the JAX graph the port refuses, with what they wait on
+NOT_PORTED = {"MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py"}
+
+
 def make_divisible(x: float, divisor: int = 8) -> int:
     """Round channels up to a multiple of ``divisor``."""
     return int(math.ceil(x / divisor) * divisor)
@@ -96,7 +100,8 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
         n_rep = max(round(n * depth), 1) if n > 1 else n
         args = [cfg.get(a, a) if isinstance(a, str) and a == "nc" else a for a in args]
         if name not in REGISTRY:
-            raise KeyError(f"module {name!r} (layer {i}) is not ported")
+            why = f": {NOT_PORTED[name]}" if name in NOT_PORTED else ""
+            raise KeyError(f"module {name!r} (layer {i}) is not ported{why}")
         cls, kind = REGISTRY[name]
         c1 = channels[fs[0] + 1]
         kwargs: dict[str, Any] = {}

@@ -40,6 +40,18 @@ def lecun_normal_(w: torch.Tensor, g: torch.Generator) -> torch.Tensor:
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
 
 
+def small_init_(w: torch.Tensor, dim: int, g: torch.Generator) -> None:
+    """The NX-AI small init: normal with std sqrt(2 / (5 dim))."""
+    with torch.no_grad():
+        w.normal_(0.0, math.sqrt(2.0 / (5.0 * dim)), generator=g)
+
+
+def wang_init_(w: torch.Tensor, dim: int, num_blocks: int, g: torch.Generator) -> None:
+    """Normal init for residual-out projections, std 2 / num_blocks / sqrt(dim)."""
+    with torch.no_grad():
+        w.normal_(0.0, 2.0 / max(num_blocks, 1) / math.sqrt(dim), generator=g)
+
+
 def init_tree(model: nn.Module, seed: int) -> torch.Generator:
     """Initialize every submodule that has ``init_params`` from a generator
     seeded with ``seed``; returns the generator, for what the model itself

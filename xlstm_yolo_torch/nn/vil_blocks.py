@@ -6,7 +6,10 @@ SequenceToImage, ImageToSequence, PermuteBlock, FeatureSplitIndex,
 VitPatchEmbedBlock, VitPosEmbedBlock, FlattenPosEmbedBlock,
 SequenceConv2dBlock, PatchMergeBlock, PatchMerging, VisionClueMerge,
 PatchMerger, ViLLayerNormBlock, MultiScaleFusionBlock, ViLFusionBlock (with
-RGBlock and LSBlock) and VisionLSTM (``VisionLSTMBlock``). Layouts: a
+RGBlock and LSBlock), VisionLSTM (``VisionLSTMBlock``), FusionViLLayerBlock,
+and VilLayerUpdated / mLSTMVisionBlock (both ``mLSTMVisionBlockWrap``).
+The JAX package's MoEFFN is the one ViL name left (it waits on the port of
+``parallel/moe.py``). Layouts: a
 sequence is (B, S, D) with tokens in row-major (H, W) order, as in the JAX
 package; an image is NCHW, as every other layer of the port (the JAX blocks
 are NHWC), so SequenceToImage gives (B, D, H, W) and ImageToSequence takes
@@ -530,9 +533,88 @@ class VisionLSTMBlock(nn.Module):
         return [o.permute(0, 3, 1, 2) for o in self.backbone(x.permute(0, 2, 3, 1))]
 
 
-# the graph compiler's names (graph.REGISTRY); the JAX package's other ViL
-# names (FusionViLLayerBlock, VilLayerUpdated, mLSTMVisionBlock, MoEFFN) are
-# not ported
+def _tokens(x, cfg: dict):
+    """An NCHW map -> its (B, H*W, C) tokens and (H, W) grid; a (B, S, D)
+    sequence passes with the config's ``seqlens``."""
+    if x.dim() == 4:
+        return x.flatten(2).transpose(1, 2), tuple(x.shape[2:])
+    return x, _seqlens(cfg)
+
+
+def _untokens(y, x):
+    """The block's output in its input's layout."""
+    return y.transpose(1, 2).reshape(x.shape) if x.dim() == 4 else y
+
+
+def _parse_dim_config(cls, args, ch_in, **kw):
+    """The two JAX adapters' ``parse``: ``[c1, dim, config]`` or ``[dim,
+    config]``; dim as written (no width multiple, no max_channels)."""
+    dim = args[1] if len(args) >= 2 and isinstance(args[1], int) else args[0]
+    config = next((a for a in args if isinstance(a, dict)), {})
+    return dim, [dim], {"config": config}
+
+
+class FusionViLLayerBlock(nn.Module):
+    """``vil_extra.FusionViLLayer`` as a YAML row: ``[c1, dim, {mlp_type,
+    use_mlp, seq_len, chunk_size (64), qkv_block_size (16), seqlens}]`` or
+    ``[dim, config]``. ``dim`` is taken as written and the row's repeats are
+    dropped, as in the JAX graph. An NCHW map gives its grid from its shape
+    and comes back a map. The ``mixer`` MLP's width is the token count,
+    which the JAX block reads from its input at init: here it is the
+    config's ``seq_len``, else the product of its ``seqlens`` (a
+    ValueError without either)."""
+
+    def __init__(self, dim: int, config: dict | None = None):
+        super().__init__()
+        self.cfg = dict(config or {})
+        mlp_type = str(self.cfg.get("mlp_type", "baseline"))
+        seq_len = self.cfg.get("seq_len")
+        if seq_len is None and self.cfg.get("seqlens"):
+            seq_len = math.prod(self.cfg["seqlens"])
+        if seq_len is None and mlp_type == "mixer":
+            raise ValueError("FusionViLLayerBlock: the mixer MLP needs seq_len or seqlens "
+                             "in its config (the token count)")
+        from .vil_extra import FusionViLLayer
+
+        self.fusion = FusionViLLayer(
+            dim, mlp_type=mlp_type, use_mlp=bool(self.cfg.get("use_mlp", True)),
+            seqlens=_seqlens(self.cfg), chunk_size=int(self.cfg.get("chunk_size", 64)),
+            qkv_block_size=int(self.cfg.get("qkv_block_size", 16)),
+            seq_len=int(seq_len or 64))
+
+    parse = classmethod(_parse_dim_config)
+
+    def forward(self, x):
+        seq, seqlens = _tokens(x, self.cfg)
+        return _untokens(self.fusion(seq, seqlens=seqlens), x)
+
+
+class mLSTMVisionBlockWrap(nn.Module):
+    """``vil_extra.mLSTMVisionBlock`` (the xLSTM-7B-style vision block) as a
+    YAML row, registered as ``VilLayerUpdated`` and ``mLSTMVisionBlock``:
+    ``[c1, dim, {num_heads (4), chunk_size (64), seqlens}]`` or ``[dim,
+    config]``; dim as written, repeats dropped, as in the JAX graph. Its
+    layer chunks the sequence by ``min(chunk_size, S)``, which must divide
+    S (at the default 64 a 20 x 20 grid raises, as in JAX)."""
+
+    def __init__(self, dim: int, config: dict | None = None):
+        super().__init__()
+        self.cfg = dict(config or {})
+        from .vil_extra import mLSTMVisionBlock
+
+        self.block = mLSTMVisionBlock(dim, num_heads=int(self.cfg.get("num_heads", 4)),
+                                      chunk_size=int(self.cfg.get("chunk_size", 64)),
+                                      seqlens=_seqlens(self.cfg))
+
+    parse = classmethod(_parse_dim_config)
+
+    def forward(self, x):
+        seq, seqlens = _tokens(x, self.cfg)
+        return _untokens(self.block(seq, seqlens), x)
+
+
+# the graph compiler's names (graph.REGISTRY); the JAX package's MoEFFN is
+# not ported (graph.NOT_PORTED)
 BLOCKS = {
     "ViLBlockPairBlock": ViLBlockPairBlock,
     "SequenceToImage": SequenceToImage,
@@ -551,4 +633,7 @@ BLOCKS = {
     "MultiScaleFusionBlock": MultiScaleFusionBlock,
     "ViLFusionBlock": ViLFusionBlock,
     "VisionLSTM": VisionLSTMBlock,
+    "FusionViLLayerBlock": FusionViLLayerBlock,
+    "VilLayerUpdated": mLSTMVisionBlockWrap,
+    "mLSTMVisionBlock": mLSTMVisionBlockWrap,
 }

@@ -35,25 +35,13 @@ import torch.nn.functional as F
 
 from ..kernels.slstm import powerlaw_blockdependent_bias, slstm_scan_fwd
 from ..utils import resolve_device
-from .modules import init_tree, lecun_normal_
+from .modules import init_tree, lecun_normal_, small_init_, wang_init_
 from .vil import LayerNorm, LinearHeadwiseExpand, MatrixLSTMCell, MultiHeadLayerNorm
 
 
 def _round_up_proj(dim: int, factor: float, multiple: int = 64) -> int:
     """Up-projection width: ``dim * factor`` rounded up to a multiple of 64."""
     return int(math.ceil(dim * factor / multiple) * multiple)
-
-
-def small_init_(w: torch.Tensor, dim: int, g: torch.Generator) -> None:
-    """Normal init with std sqrt(2 / (5 dim))."""
-    with torch.no_grad():
-        w.normal_(0.0, math.sqrt(2.0 / (5.0 * dim)), generator=g)
-
-
-def wang_init_(w: torch.Tensor, dim: int, num_blocks: int, g: torch.Generator) -> None:
-    """Normal init for residual-out projections, std 2 / num_blocks / sqrt(dim)."""
-    with torch.no_grad():
-        w.normal_(0.0, 2.0 / max(num_blocks, 1) / math.sqrt(dim), generator=g)
 
 
 class CausalConv1d(nn.Module):

@@ -5,10 +5,13 @@ Port of ``letterbox_device`` in ``xlstm_yolo_tpu/ops/letterbox.py``: uint8
 (cv2.INTER_LINEAR sampling, no antialias), centered on a 114-gray canvas and
 scaled to [0, 1]. Layout stays NHWC, as at the JAX boundary.
 
-``resize_bilinear`` is ``jax.image.resize(..., "bilinear")`` (the JAX
-trainer's multi-scale rescale) as two dense matrices: the triangle kernel
-of ``jax.image.scale_and_translate``, widened by the shrink factor
-(antialiased) when it shrinks.
+``resize`` is ``jax.image.resize`` with the ``linear`` method (also called
+``bilinear`` and ``trilinear``) or the ``cubic`` one (``bicubic``), on any
+rank: one pass per axis whose size changes, each a dense matrix, the kernel
+of ``jax.image.scale_and_translate`` widened by the shrink factor
+(antialiased) when it shrinks. ``resize_bilinear`` is its NHWC 2-D case,
+the JAX trainer's multi-scale rescale; the position embeddings of
+``nn.vil`` resize through it in 1-D, 2-D and 3-D.
 """
 from __future__ import annotations
 
@@ -75,12 +78,30 @@ def _resize_tensor(n_in: int, n_out: int, device: torch.device, method: str = "l
     return torch.from_numpy(_resize_matrix(n_in, n_out, method)).to(device)
 
 
+_METHODS = {"linear": "linear", "bilinear": "linear", "trilinear": "linear",
+            "cubic": "cubic", "bicubic": "cubic"}  # jax.image.resize's names
+
+
+def resize(t: torch.Tensor, shape: tuple, method: str = "linear") -> torch.Tensor:
+    """fp32 ``t`` -> ``shape``, as ``jax.image.resize(t, shape, method)``
+    for the linear and cubic methods: the axes whose size changes, in
+    order, each by its (n_out, n_in) matrix (``_resize_matrix``); an axis
+    that keeps its size is left as it is, as JAX leaves it."""
+    if method not in _METHODS or len(shape) != t.dim():
+        raise ValueError(f"resize: method {method!r} to {tuple(shape)} from {tuple(t.shape)}")
+    for axis, n_out in enumerate(shape):
+        n_in = t.shape[axis]
+        if n_in != n_out:
+            m = _resize_tensor(n_in, n_out, t.device, _METHODS[method])
+            t = torch.matmul(t.movedim(axis, -1), m.t()).movedim(-1, axis)
+    return t
+
+
 def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """fp32 (B, H, W, C) -> (B, height, width, C), as
     ``jax.image.resize(img, (B, height, width, C), "bilinear")``."""
     b, h, w, c = img.shape
-    x = torch.einsum("Oh,bhwc->bOwc", _resize_tensor(h, height, img.device), img)
-    return torch.einsum("Ow,bhwc->bhOc", _resize_tensor(w, width, img.device), x)
+    return resize(img, (b, height, width, c))
 
 
 def letterbox_device(img: torch.Tensor, imgsz: int = 640, fill: float = 114.0,

@@ -4,10 +4,19 @@ The port's modules carry the JAX tree's names (``l4.pair0.fwd.layer.proj_up``
 for ``params/l4/pair0/fwd/layer/proj_up``), so the mapping is by path with
 the layout conventions converted:
 
+* 3-D conv ``kernel`` (kd, kh, kw, in/groups, out) DHWIO -> ``weight``
+  OIDHW;
 * 2-D conv ``kernel`` (kh, kw, in/groups, out) HWIO -> ``weight`` OIHW;
-* 1-D conv ``kernel`` (k, in/groups, out) -> ``weight`` (out, in/groups, k);
+* 1-D conv ``kernel`` (k, in/groups, out) WIO -> ``weight`` (out, in/groups,
+  k) OIW;
 * dense ``kernel`` (in, out) -> ``weight`` (out, in), the gate kernels
   (3*inner, nh) and ``lm_head`` included;
+* the ``DenseGeneral`` kernels of flax's ``MultiHeadDotProductAttention``
+  (modules ``query``, ``key``, ``value`` and ``out``): ``query``/``key``/
+  ``value`` ``kernel`` (D, NH, hd) -> ``weight`` (NH*hd, D) and ``bias``
+  (NH, hd) -> (NH*hd,); ``out`` ``kernel`` (NH, hd, D) -> ``weight`` (D,
+  NH*hd) (the port's ``nn.Linear`` layouts). A kernel of another rank
+  there raises (a plain Dense of such a name, 2-D, is a dense kernel);
 * an embedding table ``embedding`` (vocab, dim) -> ``weight``, not transposed;
 * BatchNorm ``bn/scale`` -> ``bn.weight``; ``batch_stats`` ``mean``/``var``
   -> ``running_mean``/``running_var``;
@@ -52,9 +61,15 @@ def torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         leaf = stat[leaf]
     elif coll != "params":
         raise KeyError(f"unknown variable collection in {path!r}")
+    elif (mods and mods[-1] in ATTENTION_PARTS and leaf in ("kernel", "bias")
+          and arr.ndim != (2 if leaf == "kernel" else 1)):  # not a plain Dense's
+        arr = _dense_general(mods[-1], leaf, arr, path)
+        leaf = "weight" if leaf == "kernel" else leaf
     elif leaf == "kernel":
         leaf = "weight"
-        if arr.ndim == 4:
+        if arr.ndim == 5:
+            arr = arr.transpose(4, 3, 0, 1, 2)
+        elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)
@@ -67,6 +82,23 @@ def torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     elif leaf == "embedding":
         leaf = "weight"
     return ".".join([*mods, leaf]), np.ascontiguousarray(arr)
+
+
+ATTENTION_PARTS = ("query", "key", "value", "out")  # flax MultiHeadDotProductAttention's
+
+
+def _dense_general(part: str, leaf: str, arr: np.ndarray, path: str) -> np.ndarray:
+    """A ``DenseGeneral`` leaf of flax's attention in the port's
+    ``nn.Linear`` layout (see the module docstring); raises on any other
+    shape."""
+    if leaf == "bias" and part != "out" and arr.ndim == 2:
+        return arr.reshape(-1)
+    if leaf == "kernel" and arr.ndim == 3:
+        if part == "out":  # (NH, hd, D) -> (D, NH*hd)
+            return arr.reshape(-1, arr.shape[-1]).T
+        return arr.reshape(arr.shape[0], -1).T  # (D, NH, hd) -> (NH*hd, D)
+    raise ValueError(f"unexpected {leaf} of shape {arr.shape} for attention's {part!r} "
+                     f"at {path!r}")
 
 
 def port_named(flat: Mapping[str, np.ndarray], collection: str = "params"
