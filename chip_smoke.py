@@ -118,6 +118,15 @@ each against its plain-forced twin or the CPU; the ViT's img/s beside
 kernels with the outnorm off against their plain versions, with a
 ``ViLBlockPair(use_outnorm=False, proj_bias=False)`` forward and backward.
 
+The rest of the detect task (``detect_keys_path``, last): on wide, tall and
+square PNGs, ``YOLO("vil_yolon.yaml").train`` one epoch with ``plots``,
+``profile`` and ``mosaic_n=9`` (the trace's three step spans launch the
+bf16 kernels only; the device's busy and idle ms read from it), rect
+validation with ``save_json`` against the plain-forced run and beside
+square validation's img/s, ``predict(classes=, agnostic_nms=)`` and the
+same after ``fuse()``; K3 and K3 bf16 at the grids of its rect buckets and
+at 28 x 40 and 14 x 20 against their plain versions.
+
 Every phase prints one JSON line; then come the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -468,6 +477,16 @@ def bf16_ulp(t):
 
     _, e = torch.frexp(t.float().abs())
     return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def nudged_weights(args):
+    """Layer arguments with the weights (every one after x and conv_act)
+    one fp32 ulp up: the plain version on them against itself is the bf16
+    pipeline's own noise."""
+    import torch
+
+    return list(args[:2]) + [torch.nextafter(t, torch.full_like(t, float("inf")))
+                             for t in args[2:]]
 
 
 def compare_bf16(got, want):
@@ -1592,16 +1611,17 @@ def shaped_detector(device, nc: int = 3, seed: int = 1):
     return model.to(device).eval()
 
 
-def write_own_labels(model, data, imgsz: int = IMGSZ, seed: int = 3) -> int:
+def write_own_labels(model, data, imgsz: int = IMGSZ, seed: int = 3, rect: bool = False) -> int:
     """The model's own detections on ``data``'s val images (multi-label,
-    conf 0.05, up to 300 an image, as many as validation keeps), jittered so that their IoU with the
+    conf 0.05, up to 300 an image, as many as validation keeps; with
+    ``rect`` at the rect buckets), jittered so that their IoU with the
     detections varies, written as the val labels; returns the count."""
     import torch
 
     from xlstm_yolo_torch.data.dataset import build_dataloader
     from xlstm_yolo_torch.ops.nms import non_max_suppression
 
-    loader, _ = build_dataloader(data, "val", batch=BATCH, imgsz=imgsz, augment=False)
+    loader, _ = build_dataloader(data, "val", batch=BATCH, imgsz=imgsz, augment=False, rect=rect)
     loader.ds.uint8_images = True
     rng = np.random.default_rng(seed)
     n = 0
@@ -1613,8 +1633,10 @@ def write_own_labels(model, data, imgsz: int = IMGSZ, seed: int = 3) -> int:
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
         for bi, idx in enumerate(batch["im_idx"]):
             (h0, w0), f = batch["ori_shape"][bi], loader.ds.files[int(idx)]
-            r = imgsz / max(h0, w0)  # the loader's long-side resize; the letterbox pads
-            pad = ((imgsz - w0 * r) / 2, (imgsz - h0 * r) / 2)
+            # the loader's long-side resize, not scaled up by the letterbox, which pads
+            in_h, in_w = batch["img"].shape[1:3]
+            r = min(imgsz / max(h0, w0), in_h / h0, in_w / w0)
+            pad = ((in_w - w0 * r) / 2, (in_h - h0 * r) / 2)
             lines = []
             for x1, y1, x2, y2, _, c in dets[bi][valid[bi]]:
                 wh = np.array([x2 - x1, y2 - y1] * 2)
@@ -2000,6 +2022,260 @@ def phase_fit_path_devaug(smi_line, fit):
     if not ok:
         raise PhaseError("fit path with device augmentation check failed")
     return {k: v for k, v in launches.items() if v}
+
+
+# detect_keys_path: wide, tall and square PNGs (w, h, train, val), 8 train images each:
+# 3 steps an epoch at batch 8; 8 + 6 + 8 val images: rect buckets of 8, 8 and a partial 6
+KEYS_SETS = [("wide", (640, 360), 8, 8), ("square", (480, 480), 8, 6), ("tall", (360, 640), 8, 8)]
+# K3 at the rect grids of bucket (448, 640), beside those of the phase's own buckets
+# (rect_cases): P4 28 x 40, P5 14 x 20 (name, S, DIM, INNER, NH)
+RECT_GRIDS_448 = [("P4_28x40", 28 * 40, 128, 256, 4), ("P5_14x20", 14 * 20, 256, 512, 8)]
+
+
+def shapes_dataset(root: str) -> dict:
+    """``make_synthetic_dataset`` once for each of KEYS_SETS under ``root``,
+    joined in one dataset dict (its splits lists of directories)."""
+    from xlstm_yolo_torch.data.synthetic import CLASSES, make_synthetic_dataset
+
+    for i, (name, (w, h), n_train, n_val) in enumerate(KEYS_SETS):
+        make_synthetic_dataset(f"{root}/{name}", n_train=n_train, n_val=n_val, width=w, height=h,
+                               seed=i)
+    return {"path": root, "names": dict(enumerate(CLASSES)),
+            "train": [f"{n}/images/train" for n, *_ in KEYS_SETS],
+            "val": [f"{n}/images/val" for n, *_ in KEYS_SETS]}
+
+
+def rect_cases(loader) -> list:
+    """K3's calls at a rect loader's batches: for each batch (its size B,
+    its bucket (h, w)) and each of STAGES at stride 8, 16, 32, the grid (h /
+    s, w / s); the kernel sees only (B, S = h * w / s^2), so grids of one
+    (level, B, S), a bucket and its portrait twin, are one case. [(name, B,
+    S, DIM, INNER, NH, grids)], then RECT_GRIDS_448 at BATCH."""
+    cases = {}
+    for idx, (h, w) in loader.rect_batches():
+        for i, (level, _, DIM, INNER, NH) in enumerate(STAGES):
+            gh, gw = h // (8 << i), w // (8 << i)
+            key = (level, len(idx), gh * gw)
+            cases.setdefault(key, (DIM, INNER, NH, []))[3].append(f"{gh}x{gw}")
+    out = [(f"{level}_{grids[0]}_b{B}", B, S, DIM, INNER, NH, sorted(set(grids)))
+           for (level, B, S), (DIM, INNER, NH, grids) in cases.items()]
+    return out + [(name, BATCH, S, DIM, INNER, NH, [name.split("_")[1]])
+                  for name, S, DIM, INNER, NH in RECT_GRIDS_448]
+
+
+def match_err(xs, ys) -> list:
+    """[px, score]: the largest gap from each box of ``xs`` (per image, (n,
+    6) arrays: xyxy, conf, cls) to its nearest box of ``ys`` in the same
+    image; inf when an image's counts differ."""
+    err = [0.0, 0.0]
+    for a, b in zip(xs, ys, strict=True):
+        if len(a) != len(b):
+            return [float("inf")] * 2
+        if len(a):
+            d = np.abs(a[:, None, :4] - b[None, :, :4]).max(-1)
+            j = d.argmin(1)
+            err = [max(err[0], float(d.min(1).max())),
+                   max(err[1], float(np.abs(a[:, 4] - b[j, 4]).max()))]
+    return err
+
+
+def phase_detect_keys_path(smi_line):
+    """The rest of the detect task, on wide, tall and square PNGs
+    (KEYS_SETS). (a) ``YOLO("vil_yolon.yaml").train(data, epochs=1, batch=8,
+    imgsz=640, plots=True, profile=True, mosaic_n=9)``: the trace holds
+    three ``train_step`` spans, each launching the bf16 layer kernel's and
+    the bf16 backward's stages and none of the fp32 ones (by kernel name);
+    the device's busy and idle ms over those steps, read from the trace;
+    whether the last validation's PNGs were written (the warning when
+    not). (b) ``Validator(rect=True, save_json=True)`` of
+    ``shaped_detector`` on the val images labelled with its own jittered
+    detections at the rect buckets, with the kernels and with the plain
+    versions forced in: 3 fp32 layer launches a batch and none plain, mAP50
+    and mAP50-95 within 1e-3, mAP50-95 in [0.2, 0.95], the same number of
+    JSON records; the bucket shapes; rect and square validation's img/s on
+    the same images, in turns (square, rect, rect, square). (c)
+    ``YOLO(w.pt).predict(val, agnostic_nms=True)``: at least one box in
+    every image, each inside its image; ``classes=[c]`` for the class the
+    head predicts most there: exactly those predictions' class-c boxes,
+    at least one an image on average (the filter acts after NMS); ``fuse()``
+    then the unfiltered predictions again, within 1e-3 px and 1e-4 in score.
+    First, apart, K3 and K3 bf16 at the grids the rect validation gives
+    them (``rect_cases`` of its loader) and at RECT_GRIDS_448, against their
+    plain versions (``rect_ms_by_case``); the path's launches are counted
+    over (a)-(c) from counters set to 0 just before."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import xlstm_yolo_torch.kernels.mlstm_bwd as K2
+    import xlstm_yolo_torch.kernels.vil_layer as K3
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.data.dataset import build_dataloader
+    from xlstm_yolo_torch.engine.trainer import read_step_trace
+    from xlstm_yolo_torch.engine.validator import Validator
+    from xlstm_yolo_torch.utils.checkpoint import save_checkpoint
+    from xlstm_yolo_torch.utils.plotting import have_matplotlib
+
+    n = len(STAGES)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = shapes_dataset(f"{tmp}/ds")
+        # the rect validation's batches: the buckets, and K3's grids and batch sizes there
+        rect_loader = build_dataloader(data, "val", batch=BATCH, imgsz=IMGSZ, rect=True)[0]
+        buckets = [[len(idx), *hw] for idx, hw in rect_loader.rect_batches()]
+        # K3 and K3 bf16 at those grids against their plain versions, not counted; timed
+        # before the path runs, as kernel_parity times the kernels before the other phases
+        rect = {}
+        for case, B, S, DIM, INNER, NH, grids in rect_cases(rect_loader):
+            a = layer_args(B, S, DIM, INNER, NH, seed=S + 31, device="cuda")
+            b16 = [a[0].bfloat16(), a[1].bfloat16(), *a[2:]]
+            nw = sum(t.numel() for t in a[2:])
+            for kind, args, plain, cmp, bound in (
+                    ("vil_layer_fwd", a, lambda: K3.vil_layer_ref(*a, NH, chunk_size=CHUNK),
+                     compare, vil_bound("layer", B, S, DIM, INNER, NH, nw)),
+                    ("vil_layer_fwd_bf16", b16,
+                     lambda: K3.vil_layer_ref(*b16, NH, chunk_size=K2.KERNEL_CS, keep_fp32=True),
+                     compare_bf16, bf16_vil_bound(B, S, DIM, INNER, NH, nw))):
+                with torch.inference_mode():
+                    got_k, want_k = K3.vil_layer_fwd(*args, NH), plain()
+                    err, floor = cmp(got_k, want_k), None
+                    ok = err[1] <= TOL_REL and err[2]
+                    if cmp is compare_bf16:
+                        # the largest error beyond rounding within BF16_MAX_EXCESS of the max
+                        # or twice the plain version's own on weights one ulp apart, as the
+                        # card test holds the bf16 gradients (tools/bf16_fwd_spread.py)
+                        floor = compare_bf16(K3.vil_layer_ref(
+                            *nudged_weights(args), NH, chunk_size=K2.KERNEL_CS,
+                            keep_fp32=True).bfloat16(), want_k)[0]
+                        ok = (err[1] <= TOL_REL and bool(torch.isfinite(got_k).all())
+                              and err[0] <= max(BF16_MAX_EXCESS * want_k.abs().max().item(),
+                                                2 * floor))
+                    rect.setdefault(kind, {})[case] = {
+                        "B": B, "S": S, "grids": grids, "max_abs_err": err[0],
+                        "floor_abs_err": floor, "rel_err": err[1], "ok": bool(ok),
+                        "ms": cuda_time_ms(lambda: K3.vil_layer_fwd(*args, NH), iters=20),
+                        "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
+                        "bound_ms": bound.ms, "bound_by": bound.by}
+            del a, b16, got_k, want_k
+        zero_kernel_counters()
+        # (a) one epoch: 24 images at batch 8, mosaics of nine, the first 3 steps traced
+        model, steps = YOLO("vil_yolon.yaml"), []
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with recording_steps(steps), contextlib.redirect_stdout(out):
+            model.train(data=data, epochs=1, batch=BATCH, imgsz=IMGSZ, seed=0, close_mosaic=0,
+                        plots=True, profile=True, mosaic_n=9, project=f"{tmp}/runs", name="keys")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        log = out.getvalue()
+        print(log, end="")
+        trainer = model.trainer
+        tr = read_step_trace(trainer.trace.path)
+        trace_mb = trainer.trace.path.stat().st_size / 2**20
+        names = [[k["name"] for k in ks] for ks in tr["steps"]]
+        has = lambda ks, keys: any(any(key in k for key in keys) for k in ks)
+        span_ok = tr["spans"] == 3 and all(
+            has(ks, (K3.STAGES_BF16,)) and has(ks, (K2.STAGES_BF16,))
+            and not has(ks, K3.STAGES + K2.STAGES)
+            for ks in names)
+        pngs = sorted(p.name for p in Path(trainer.save_dir).glob("*.png"))
+        warning = next((ln for ln in log.splitlines() if ln.startswith("WARNING: plots")), None)
+        plots_ok = (len(pngs) == 6) if have_matplotlib() else (warning is not None and not pngs)
+        per_step = {tuple(c.tolist()) for _, c, _, _ in steps}
+        train_ok = (span_ok and plots_ok and per_step == {(0, n, 0, n)} and len(steps) == 3
+                    and all(np.isfinite(float(loss)) for *_, loss in steps))
+
+        # (b) rect validation of a detector that is not degenerate, kernels and plain
+        shaped = shaped_detector("cuda")
+        n_labels = write_own_labels(shaped, data, rect=True)
+        val, counts = {}, {}
+        for kind in ("kernels", "plain"):
+            before = kernel_counters()
+            with plain_vil_kernels() if kind == "plain" else nullcontext():
+                val[kind] = Validator(shaped, imgsz=IMGSZ, batch=BATCH, max_labels=320, rect=True,
+                                      save_json=True, save_dir=f"{tmp}/val_{kind}")(data)
+            counts[kind] = (kernel_counters() - before).tolist()
+        img_s = {"square": [], "rect": []}  # in turns: square, rect, rect, square
+        for kind in ("square", "rect", "rect", "square"):
+            img_s[kind].append(Validator(shaped, imgsz=IMGSZ, batch=BATCH, max_labels=320,
+                                         rect=kind == "rect")(data)["img_s"])
+        torch.cuda.synchronize()
+        recs = {k: len(json.loads(Path(val[k]["save_json_path"]).read_text()))
+                for k in ("kernels", "plain")}
+        map_err = max(abs(val["kernels"][k] - val["plain"][k]) for k in ("mAP50", "mAP50-95"))
+        val_ok = (counts["kernels"] == [n * len(buckets), 0, 0, 0]
+                  and counts["plain"] == [0, 0, 0, 0] and map_err <= 1e-3
+                  and recs["kernels"] == recs["plain"] > 0
+                  and 0.2 <= val["kernels"]["mAP50-95"] <= 0.95
+                  and val["kernels"]["images"] == sum(v for *_, v in KEYS_SETS))
+
+        # (c) predict with class-agnostic NMS; then only the class the head predicts most,
+        # which must be exactly that class's boxes of the first; then fused
+        w = YOLO(save_checkpoint(f"{tmp}/w.pt", shaped))
+        files = sorted(Path(f"{tmp}/ds").glob("*/images/val/*.png"))
+        kw = dict(imgsz=IMGSZ, conf=0.001, agnostic_nms=True, verbose=False)
+        before = kernel_counters()
+        res = w.predict(files, **kw)
+        every, shapes = [r.boxes.data for r in res], [r.orig_shape for r in res]
+        pred_counts = (kernel_counters() - before).tolist()
+        by_cls = np.bincount(np.concatenate(every)[:, 5].astype(int), minlength=shaped.nc)
+        top = int(by_cls.argmax())
+        got = w.predict(files, classes=[top], **kw)
+        fused = [r.boxes.data for r in w.fuse().predict(files, **kw)]
+        torch.cuda.synchronize()
+        launches = dict(zip(COUNTED, kernel_counters().tolist()))
+        inside = all(((d[:, :4] >= 0).all() and (d[:, [0, 2]] <= hw[1]).all()
+                      and (d[:, [1, 3]] <= hw[0]).all()) for d, hw in zip(every, shapes))
+        n_top = sum(len(r) for r in got)
+        class_err = match_err([r.boxes.data for r in got], [d[d[:, 5] == top] for d in every])
+        fuse_err = match_err(fused, every)
+        predict_ok = (min(map(len, every)) >= 1 and inside and n_top >= len(files)
+                      and all((r.boxes.cls == top).all() for r in got)
+                      and class_err[0] <= 1e-3 and class_err[1] <= 1e-4
+                      and pred_counts == [n * len(files), 0, 0, 0]
+                      and fuse_err[0] <= 1e-3 and fuse_err[1] <= 1e-4)
+
+    rect_ok = all(c["ok"] for by_case in rect.values() for c in by_case.values())
+    ok = train_ok and val_ok and predict_ok and rect_ok
+    emit({"phase": "detect_keys_path", "model": "vil_yolon.yaml", "card": smi_line,
+          "dataset": {name: {"wh": list(wh), "train": tr_n, "val": va_n}
+                      for name, wh, tr_n, va_n in KEYS_SETS},
+          "train": {"epochs": 1, "batch": BATCH, "imgsz": IMGSZ, "mosaic_n": 9, "train_s": train_s,
+                    "launches_per_step": sorted(per_step),
+                    "step_ms": [a.elapsed_time(b) for _, _, (a, b), _ in steps],
+                    "trace": {"spans": tr["spans"], "mb": trace_mb,
+                              "kernels_per_step": [len(ks) for ks in names],
+                              "bf16_layer_stages_per_step": [sum("vil16_" in k for k in ks)
+                                                             for ks in names],
+                              "bf16_bwd_stages_per_step": [sum("bwd16_" in k for k in ks)
+                                                           for ks in names],
+                              "device_busy_ms_by_step": tr["busy_ms"],
+                              "device_idle_ms_by_step": tr["idle_ms"],
+                              "device_idle_share": sum(tr["idle_ms"]) / max(
+                                  sum(tr["idle_ms"]) + sum(tr["busy_ms"]), 1e-9),
+                              "device_idle_share_after_first": sum(tr["idle_ms"][1:]) / max(
+                                  sum(tr["idle_ms"][1:]) + sum(tr["busy_ms"][1:]), 1e-9),
+                              "ok": span_ok},
+                    "plots_written": bool(pngs), "pngs": pngs, "plots_warning": warning,
+                    "ok": train_ok},
+          "rect_val": {"buckets": buckets, "own_labels": n_labels, "launches": counts,
+                       "kernels": val["kernels"], "plain": val["plain"],
+                       "rect_img_s": img_s["rect"], "square_img_s": img_s["square"],
+                       "json_records": recs, "map_max_err": map_err, "ok": val_ok},
+          "predict": {"images": len(files), "boxes": sum(map(len, every)),
+                      "min_boxes_per_image": min(map(len, every)),
+                      "boxes_by_class": by_cls.tolist(), "inside": inside, "class": top,
+                      "class_boxes": n_top, "class_max_px_err": class_err[0],
+                      "class_max_score_err": class_err[1], "launches": pred_counts,
+                      "fuse_max_px_err": fuse_err[0], "fuse_max_score_err": fuse_err[1],
+                      "ok": predict_ok},
+          "rect_ms_by_case": rect, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError("detect keys path check failed")
+    return {k: v for k, v in launches.items() if v}, rect
 
 
 @contextmanager
@@ -3219,6 +3495,8 @@ def main() -> int:
         phase = "vil_family_path"
         family_launches, no_outnorm = phase_vil_family_path(
             {"cls_path": cls_img_s, "vil_headdim_path.cls_dh4": dh4_img_s})
+        phase = "detect_keys_path"
+        keys_launches, rect = phase_detect_keys_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -3238,7 +3516,8 @@ def main() -> int:
                "lm_train_path": lm_train_launches,
                "scales_path": scales_launches,
                **headdim_launches,
-               **family_launches}
+               **family_launches,
+               "detect_keys_path": keys_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran
@@ -3258,7 +3537,8 @@ def main() -> int:
                 **({"small_head_dim_ms_by_case": small_dh[name]["ms_by_case"]}
                    if name in small_dh else {}),
                 **({"no_outnorm_ms_by_case": no_outnorm[name]["ms_by_case"]}
-                   if name in no_outnorm else {})}
+                   if name in no_outnorm else {}),
+                **({"rect_ms_by_case": rect[name]} if name in rect else {})}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",

@@ -1728,3 +1728,73 @@ def test_vil_block_pair_without_outnorm_or_biases_on_card(cuda_device):
     assert _rel(out_k, out_p) <= TOL_REL and _rel(dx_k, dx_p) <= TOL_REL
     for n, w in g_p.items():
         assert _rel(g_k[n], w) <= TOL_REL, n
+
+
+# ---- rect validation's grids and the trainer's profile (the detect task's keys)
+
+RECT_GRIDS = [(28, 40, 128, 4), (14, 20, 256, 8), (40, 28, 128, 4)]
+
+
+@pytest.mark.parametrize("H,W,DIM,NH", RECT_GRIDS, ids=["P4_28x40", "P5_14x20", "P4_40x28"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_vil_layer_kernels_at_rect_grids_match_plain(cuda_device, dtype, H, W, DIM, NH):
+    """K3 and K3 bf16 at the token counts of rect buckets (bucket (448,
+    640) at P4 and P5, and P4 of its portrait twin): S = H * W, 17.5 and
+    4.4 chunks of 64, against their plain versions with this file's
+    tolerances."""
+    S = H * W
+    if dtype == "fp32":
+        args = _layer_args(2, S, DIM, NH, cuda_device, seed=S + 3)
+        got = vil_layer_fwd(*args, NH, chunk_size=128)
+        assert _rel(got, vil_layer_ref(*args, NH, chunk_size=128)) <= TOL_REL
+    else:
+        args = _bf16_layer_args(2, S, DIM, NH, cuda_device, seed=S + 4)
+        got = vil_layer_fwd(*args, NH)
+        rel_l2, excess = _rel_bf16(got, vil_layer_ref(*args, NH, chunk_size=64, keep_fp32=True))
+        assert rel_l2 <= TOL_BF16_FWD and excess <= MAX_EXCESS, (rel_l2, excess)
+
+
+@pytest.mark.parametrize("hw", [(448, 640), (640, 384)], ids=["wide", "tall"])
+def test_vil_yolo_forward_at_rect_bucket_matches_plain(cuda_device, hw):
+    """ViL-YOLO-n's eval forward at a rect bucket's shape (its ViL stages
+    on H != W grids: P3 56 x 80, P4 28 x 40, P5 14 x 20 for (448, 640)): 3
+    layer launches, candidates within 1e-3 of the plain-forced model's."""
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    model = TaskModel("vil_yolon.yaml", device=cuda_device)
+    x = torch.rand(2, *hw, 3, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.inference_mode():
+        before = vil_layer_fwd.launches
+        got = model.predictions(x)
+        assert vil_layer_fwd.launches == before + 3
+        with _plain_vil():
+            want = model.predictions(x)
+    assert got.shape == want.shape == (2, sum((hw[0] // s) * (hw[1] // s) for s in (8, 16, 32)),
+                                       84)
+    assert _rel(got, want) <= TOL_REL
+
+
+def test_trainer_profile_names_the_bf16_kernels(cuda_device, tmp_path):
+    """``profile=True`` on the card (vil_yolon, 12 PNGs at 320 px, batch 4,
+    ``mosaic_n=9``, AMP): the trace's three ``train_step`` spans each
+    launch stages of the bf16 layer kernel (``vil16_*``) and of the bf16
+    backward (``bwd16_*``), and none of the fp32 ones (``read_step_trace``)."""
+    import xlstm_yolo_torch.kernels.mlstm_bwd as K2
+    import xlstm_yolo_torch.kernels.vil_layer as K3
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+    from xlstm_yolo_torch.engine.trainer import Trainer, read_step_trace
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    data = make_synthetic_dataset(tmp_path / "ds", n_train=12, n_val=1, width=320, height=240)
+    tr = Trainer(TaskModel("vil_yolon.yaml", nc=3, device="cuda"),
+                 overrides={"data": data, "epochs": 1, "batch": 4, "imgsz": 320, "val": False,
+                            "profile": True, "mosaic_n": 9, "close_mosaic": 0,
+                            "project": str(tmp_path), "name": "prof"})
+    tr.train()
+    t = read_step_trace(tr.trace.path)
+    assert t["spans"] == 3 and min(t["busy_ms"]) > 0
+    for ks in t["steps"]:
+        names = [k["name"] for k in ks]
+        assert any(K3.STAGES_BF16 in k for k in names)
+        assert any(K2.STAGES_BF16 in k for k in names)
+        assert not any(f in k for k in names for f in K3.STAGES + K2.STAGES)

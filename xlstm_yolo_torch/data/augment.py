@@ -3,8 +3,9 @@ HSV and flip, and the letterbox of the eval path, in numpy on
 ``data.imgproc``.
 
 Port of ``letterbox``, ``random_hsv``, ``random_flip``,
-``random_perspective``, ``_box_candidates``, ``mosaic4`` and ``mixup`` in
-``xlstm_yolo_tpu/data/augment.py``. Every random number is drawn from the
+``random_perspective``, ``_box_candidates``, ``mosaic4``, ``mixup`` and the
+boxes of ``mosaic3_points`` / ``mosaic9_points`` (``mosaic3``,
+``mosaic9``) in ``xlstm_yolo_tpu/data/augment.py``. Every random number is drawn from the
 ``np.random.Generator`` passed in, in the JAX package's order, so that one
 seed gives the same geometry and gains on both sides. Images are RGB uint8
 (H, W, 3); labels are (n, 5) float32 = (cls, x1, y1, x2, y2) in pixels of
@@ -187,6 +188,70 @@ def mosaic4(images: list, labels_list: list, imgsz: int, rng: np.random.Generato
     np.clip(labels[:, 1:5:2], 0, 2 * s, out=labels[:, 1:5:2])
     np.clip(labels[:, 2:5:2], 0, 2 * s, out=labels[:, 2:5:2])
     return canvas, labels
+
+
+def _mosaic_grid(images: list, labels_list: list, imgsz: int, corner) -> tuple:
+    """Images placed on a 3s x 3s canvas at ``corner(i, nw, nh)`` -> (x1,
+    y1) of tile i (each image resized to fit s x s first), then the centre
+    2s x 2s cropped (the reference's border -s // 2 on the 3s canvas)."""
+    s = imgsz
+    canvas = np.full((s * 3, s * 3, 3), ip.BORDER, np.uint8)
+    out_labels = []
+    for i, (img, labels) in enumerate(zip(images, labels_list)):
+        h, w = img.shape[:2]
+        r = min(s / h, s / w)
+        nh, nw = int(h * r), int(w * r)
+        img = ip.resize(img, (nw, nh))
+        padw, padh = corner(i, nw, nh)
+        x1, y1 = max(padw, 0), max(padh, 0)
+        x2, y2 = min(max(padw + nw, 0), 3 * s), min(max(padh + nh, 0), 3 * s)
+        canvas[y1:y2, x1:x2] = img[y1 - padh:y2 - padh, x1 - padw:x2 - padw]
+        if len(labels):
+            lb = labels.copy()
+            lb[:, 1:5] *= r
+            lb[:, [1, 3]] += padw
+            lb[:, [2, 4]] += padh
+            out_labels.append(lb)
+    off = s // 2
+    canvas = canvas[off:off + 2 * s, off:off + 2 * s]
+    labels = np.concatenate(out_labels, 0) if out_labels else np.zeros((0, 5), np.float32)
+    labels[:, 1:5] -= off
+    np.clip(labels[:, 1:5:2], 0, 2 * s, out=labels[:, 1:5:2])
+    np.clip(labels[:, 2:5:2], 0, 2 * s, out=labels[:, 2:5:2])
+    return canvas, labels
+
+
+def mosaic3(images: list, labels_list: list, imgsz: int):
+    """Three images in a row (the first in the centre, the second right of
+    it, the third left) -> a 2s x 2s canvas and its labels. Draws nothing."""
+    s = imgsz
+    st = {}
+
+    def corner(i, nw, nh):
+        if i == 0:
+            st["h0"], st["w0"] = nh, nw
+        return [(s, s), (s + st["w0"], s), (s - nw, s + st["h0"] - nh)][i]
+
+    return _mosaic_grid(images, labels_list, imgsz, corner)
+
+
+def mosaic9(images: list, labels_list: list, imgsz: int):
+    """Nine images: the first in the centre, eight around it clockwise from
+    the top, each aligned to the tile placed before it -> a 2s x 2s canvas
+    and its labels. Draws nothing."""
+    s = imgsz
+    st = {}
+
+    def corner(i, nw, nh):
+        if i == 0:
+            st["h0"], st["w0"] = nh, nw
+        h0, w0, hp, wp = st["h0"], st["w0"], st.get("hp", 0), st.get("wp", 0)
+        st["hp"], st["wp"] = nh, nw
+        return [(s, s), (s, s - nh), (s + wp, s - nh), (s + w0, s), (s + w0, s + hp),
+                (s + w0 - nw, s + h0), (s + w0 - wp - nw, s + h0), (s - nw, s + h0 - nh),
+                (s - nw, s + h0 - hp - nh)][i]
+
+    return _mosaic_grid(images, labels_list, imgsz, corner)
 
 
 def mixup(img1, labels1, img2, labels2, rng: np.random.Generator | None = None):

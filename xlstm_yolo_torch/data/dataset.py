@@ -5,12 +5,14 @@ Port of the detect part of ``xlstm_yolo_tpu/data/dataset.py``:
 hash-checked ``.npz`` cache, ``YOLODataset`` (``load_image`` with ``cache``
 ``ram`` / ``disk``, ``labels_px``, the detect sample, ``collate``),
 ``Loader`` (the seeded shuffle, the same batch order and per-sample random
-streams as JAX, the threaded prefetch) and ``build_dataloader``. Images are
-read with ``data.imgproc.imread`` and transformed by ``data.augment``. A
-batch:
+streams as JAX, the threaded prefetch) and ``build_dataloader``; the rect
+buckets of eval (``rect_groups``, the image shapes read from the files'
+headers and cached beside the label cache). Images are read with
+``data.imgproc.imread`` and transformed by ``data.augment``. A batch:
 
     img:       (B, imgsz, imgsz, 3) uint8 with ``uint8_images`` (normalized
-               on the device), else float32 in [0, 1]
+               on the device), else float32 in [0, 1]; (B, h, w, 3) at a
+               rect bucket's shape
     cls_boxes: (B, max_labels, 5) = (cls, x1, y1, x2, y2) pixels
     mask:      (B, max_labels) bool
 
@@ -32,7 +34,7 @@ import numpy as np
 import yaml
 
 from . import augment as A
-from .imgproc import IMG_FORMATS, imread, resize
+from .imgproc import IMG_FORMATS, image_shape, imread, resize
 
 
 def check_det_dataset(data: str | dict) -> dict:
@@ -76,13 +78,16 @@ def img2label_path(img_path: str) -> str:
 _CACHE_VERSION = 1
 
 
-def _labels_hash(files: list) -> str:
-    """Hash over the image paths and each label file's size and mtime."""
+def _files_hash(files: list, stat_of=img2label_path) -> str:
+    """Hash over the image paths and the size and mtime of the file
+    ``stat_of`` names for each: its label file by default, the image itself
+    for the shapes read from it (an image replaced in place must not serve
+    stale shapes)."""
     h = hashlib.sha256()
     for f in files:
         h.update(f.encode())
         try:
-            st = os.stat(img2label_path(f))
+            st = os.stat(stat_of(f))
             h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
         except OSError:
             h.update(b"-")
@@ -104,17 +109,39 @@ def _unpack_labels(z) -> list:
             for a, b in zip(offs[:-1], offs[1:])]
 
 
+def rect_groups(shapes: np.ndarray, batch: int, imgsz: int, stride: int = 32,
+                pad: float = 0.5) -> list:
+    """Images (original (h, w) each) grouped into batches by aspect ratio,
+    each with one stride-aligned (h, w) canvas: [(indices, (h, w)), ...],
+    as the JAX ``YOLODataset._set_rectangle`` (the reference's
+    ``set_rectangle`` with val's pad 0.5). The last group may be short."""
+    shapes = np.asarray(shapes, np.float64)
+    ar = shapes[:, 0] / np.maximum(shapes[:, 1], 1)  # h / w
+    order = np.argsort(ar, kind="stable")
+    groups = []
+    for b in range(math.ceil(len(shapes) / batch)):
+        idx = order[b * batch:(b + 1) * batch]
+        mini, maxi = float(ar[idx].min()), float(ar[idx].max())
+        shp = [maxi, 1.0] if maxi < 1 else ([1.0, 1.0 / mini] if mini > 1 else [1.0, 1.0])
+        hw = np.ceil(np.asarray(shp) * imgsz / stride + pad).astype(int) * stride
+        groups.append(([int(i) for i in idx], (int(hw[0]), int(hw[1]))))
+    return groups
+
+
 class YOLODataset:
     """Detection dataset over a YOLO-format tree (``images/`` beside
     ``labels/``, one ``cls cx cy w h`` line per object, normalized).
-    ``augment`` selects the train pipeline (mosaic, perspective, mixup, HSV,
-    flip); without it a sample is letterboxed (no upscale). ``cache``
-    ``"ram"`` (or True) keeps the decoded, resized images in memory;
-    ``"disk"`` saves them as ``.npy`` beside the source."""
+    ``augment`` selects the train pipeline (mosaic of ``mosaic_n`` 3, 4 or
+    9 images, perspective, mixup, HSV, flip); without it a sample is
+    letterboxed (no upscale). ``cache`` ``"ram"`` (or True) keeps the
+    decoded, resized images in memory; ``"disk"`` saves them as ``.npy``
+    beside the source. ``rect`` (eval only) letterboxes each batch to its
+    aspect-ratio bucket (``rect_batches``; ``stride``, ``pad``)."""
 
     def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, hyp=None,
                  max_labels: int = 128, single_cls: bool = False, fraction: float = 1.0,
-                 cache: str | bool = False):
+                 cache: str | bool = False, rect: bool = False, stride: int = 32,
+                 pad: float = 0.5):
         self.imgsz = imgsz
         self.cache = "ram" if cache is True else (cache or "")
         self._im_cache: dict[int, np.ndarray] = {}
@@ -133,6 +160,10 @@ class YOLODataset:
         if self.ni == 0:
             raise FileNotFoundError(f"no images found in {img_path}")
         self.uint8_images = False
+        self.rect = bool(rect) and not augment
+        self.stride, self.pad = int(stride), float(pad)
+        self._img_path = img_path
+        self._shapes = None
 
     @staticmethod
     def _scan(img_path) -> list:
@@ -164,7 +195,7 @@ class YOLODataset:
         """The label scan, once per dataset state: later runs load one
         hash-checked npz."""
         cp = self._cache_path(img_path)
-        want = _labels_hash(self.files)
+        want = _files_hash(self.files)
         if cp is not None and cp.exists():
             try:
                 with np.load(cp, allow_pickle=False) as z:
@@ -180,6 +211,44 @@ class YOLODataset:
             except OSError:
                 pass  # a read-only dataset: scan on every run
         return labels
+
+    def image_shapes(self) -> np.ndarray:
+        """(ni, 2) original (h, w) of every image, from the files' headers,
+        kept in an ``.npz`` beside the label cache that the images' own
+        sizes and mtimes key; an unreadable header counts as square
+        ``imgsz``, as in JAX."""
+        if self._shapes is not None:
+            return self._shapes
+        cp = self._cache_path(self._img_path)
+        sp = cp.with_name(cp.name + ".shapes.npz") if cp is not None else None
+        want = _files_hash(self.files, stat_of=str)
+        if sp is not None and sp.exists():
+            try:
+                with np.load(sp, allow_pickle=False) as z:
+                    if str(z["hash"]) == want and z["shapes"].shape[0] == self.ni:
+                        self._shapes = z["shapes"]
+                        return self._shapes
+            except (OSError, ValueError, KeyError):
+                pass  # a corrupt or stale cache: read the headers again
+        shapes = np.zeros((self.ni, 2), np.int32)
+        for i, f in enumerate(self.files):
+            try:
+                shapes[i] = image_shape(f)
+            except (OSError, ValueError, ImportError):
+                shapes[i] = (self.imgsz, self.imgsz)
+        if sp is not None:
+            try:
+                np.savez(sp, hash=want, shapes=shapes)
+            except OSError:
+                pass  # a read-only dataset
+        self._shapes = shapes
+        return shapes
+
+    def rect_batches(self, batch: int) -> list:
+        """The rect buckets of this dataset at ``batch`` images a batch
+        (``rect_groups``); computed anew for each caller, so loaders of
+        different batch sizes do not disturb each other."""
+        return rect_groups(self.image_shapes(), batch, self.imgsz, self.stride, self.pad)
 
     def _load_label(self, img_file: str) -> dict:
         """{"cls": (n,), "xywhn": (n, 4)} from the image's label file."""
@@ -256,24 +325,27 @@ class YOLODataset:
                             np.float32)
         return {"ori_shape": shapes, "im_idx": np.asarray(idxs, np.int32)}
 
-    def get_sample(self, i: int, rng: np.random.Generator) -> tuple:
-        """Sample ``i`` -> (img, labels): the train pipeline (mosaic of four
-        with perspective, or letterbox with perspective; mixup; HSV; flip)
-        drawing from ``rng``, or the letterbox alone."""
+    def get_sample(self, i: int, rng: np.random.Generator, shape=None) -> tuple:
+        """Sample ``i`` -> (img, labels): the train pipeline (mosaic of
+        ``mosaic_n`` images, 3, 9 or else 4, with perspective, or letterbox
+        with perspective; mixup; HSV; flip) drawing from ``rng``, or the
+        letterbox alone, to ``shape`` (h, w) when given (a rect bucket),
+        else square ``imgsz``."""
         hyp = self.hyp
         g = lambda k, d: float(hyp.get(k, d) if isinstance(hyp, dict) else getattr(hyp, k, d))
         if self.augment and rng.random() < g("mosaic", 1.0):
             n = int(g("mosaic_n", 4))
-            if n != 4:
-                raise ValueError(f"mosaic_n={n}: the port's detect pipeline has the 4-image "
-                                 f"mosaic only")
-            idxs = [i] + [int(rng.integers(self.ni)) for _ in range(n - 1)]
+            idxs = [i] + [int(rng.integers(self.ni)) for _ in range(max(n, 3) - 1)]
             imgs, lbs = [], []
             for j in idxs:
                 im = self.load_image(j)
                 imgs.append(im)
                 lbs.append(self.labels_px(j, im.shape[:2]))
-            img, labels = A.mosaic4(imgs, lbs, self.imgsz, rng)
+            if n in (3, 9):
+                fn = A.mosaic3 if n == 3 else A.mosaic9
+                img, labels = fn(imgs, lbs, self.imgsz)
+            else:
+                img, labels = A.mosaic4(imgs, lbs, self.imgsz, rng)
             border = (-self.imgsz // 2, -self.imgsz // 2)
             img, labels = A.random_perspective(
                 img, labels, degrees=g("degrees", 0.0), translate=g("translate", 0.1),
@@ -288,7 +360,8 @@ class YOLODataset:
         else:
             img = self.load_image(i)
             labels = self.labels_px(i, img.shape[:2])
-            img, labels, _ = A.letterbox(img, self.imgsz, labels, scaleup=self.augment)
+            img, labels, _ = A.letterbox(img, shape or self.imgsz, labels,
+                                         scaleup=self.augment)
             if self.augment:
                 img, labels = A.random_perspective(
                     img, labels, degrees=g("degrees", 0.0), translate=g("translate", 0.1),
@@ -303,11 +376,12 @@ class YOLODataset:
         return img, labels
 
     def collate(self, samples: list, idxs=None) -> dict:
-        """Samples -> a fixed-shape batch: boxes narrower or lower than a
-        pixel dropped, the rest in ``max_labels`` padded slots."""
+        """Samples (of one shape: square ``imgsz`` or a rect bucket's) -> a
+        fixed-shape batch: boxes narrower or lower than a pixel dropped,
+        the rest in ``max_labels`` padded slots."""
         b = len(samples)
-        imgs = np.zeros((b, self.imgsz, self.imgsz, 3),
-                        np.uint8 if self.uint8_images else np.float32)
+        sh, sw = samples[0][0].shape[:2] if samples else (self.imgsz, self.imgsz)
+        imgs = np.zeros((b, sh, sw, 3), np.uint8 if self.uint8_images else np.float32)
         boxes = np.zeros((b, self.max_labels, 5), np.float32)
         mask = np.zeros((b, self.max_labels), bool)
         for bi, (img, labels) in enumerate(samples):
@@ -339,11 +413,16 @@ class Loader:
     so the stream does not depend on the threads' order; with 0 the samples
     draw one after another from the epoch's generator. ``batch_seconds``
     holds the host's seconds to assemble each batch of the last pass (read,
-    augment, collate, pin)."""
+    augment, collate, pin). On a ``rect`` dataset the batches are its
+    buckets at this loader's batch size, in order (a shuffle is refused);
+    with ``drop_last`` the short bucket goes unless it is the only one."""
 
     def __init__(self, dataset: YOLODataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2, workers: int = 0,
                  pin: bool = False):
+        if dataset.rect and shuffle:
+            raise ValueError("shuffle=True on a rect dataset: a rect batch is one aspect-ratio "
+                             "bucket in order; build the dataset with rect=False to shuffle")
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -354,18 +433,32 @@ class Loader:
         self.pin = pin
         self.epoch = 0
         self.batch_seconds: list[float] = []
+        self._rect = None
+
+    def rect_batches(self) -> list:
+        """This loader's rect buckets, [(indices, (h, w)), ...]."""
+        if self._rect is None:
+            groups = self.ds.rect_batches(self.bs)
+            if self.drop_last:
+                groups = [g for g in groups if len(g[0]) == self.bs] or groups
+            self._rect = groups
+        return self._rect
 
     def __len__(self):
+        if self.ds.rect:
+            return len(self.rect_batches())
         n = len(self.ds)
         return n // self.bs if self.drop_last else math.ceil(n / self.bs)
 
     def __iter__(self):
         rng = np.random.default_rng(self.seed + self.epoch)
-        idxs = np.arange(len(self.ds))
-        if self.shuffle:
-            rng.shuffle(idxs)
-        nb = len(self)
-        batches = [idxs[b * self.bs:(b + 1) * self.bs] for b in range(nb)]
+        if self.ds.rect:
+            batches = [(np.asarray(idx), hw) for idx, hw in self.rect_batches()]
+        else:
+            idxs = np.arange(len(self.ds))
+            if self.shuffle:
+                rng.shuffle(idxs)
+            batches = [(idxs[b * self.bs:(b + 1) * self.bs], None) for b in range(len(self))]
         self.batch_seconds = []
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -387,15 +480,16 @@ class Loader:
 
             pool = ThreadPoolExecutor(self.workers, thread_name_prefix="loader")
 
-        def _assemble(batch_idx):
+        def _assemble(batch_idx, shape):
             t0 = time.perf_counter()
             if pool is not None:
                 seeds = rng.integers(0, 2**31 - 1, len(batch_idx))
                 samples = list(pool.map(
-                    lambda a: self.ds.get_sample(int(a[0]), np.random.default_rng(int(a[1]))),
+                    lambda a: self.ds.get_sample(int(a[0]), np.random.default_rng(int(a[1])),
+                                                 shape),
                     zip(batch_idx, seeds)))
             else:
-                samples = [self.ds.get_sample(int(i), rng) for i in batch_idx]
+                samples = [self.ds.get_sample(int(i), rng, shape) for i in batch_idx]
             batch = self.ds.collate(samples, batch_idx)
             batch = _pinned(batch) if self.pin else batch
             self.batch_seconds.append(time.perf_counter() - t0)
@@ -404,8 +498,8 @@ class Loader:
         def producer():
             # an exception reaches the consumer, which re-raises it
             try:
-                for batch_idx in batches:
-                    if stop.is_set() or not _put(_assemble(batch_idx)):
+                for batch_idx, shape in batches:
+                    if stop.is_set() or not _put(_assemble(batch_idx, shape)):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
                 _put(e)
@@ -434,12 +528,15 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
                      imgsz: int = 640, augment: bool | None = None, hyp=None,
                      max_labels: int = 128, seed: int = 0, fraction: float = 1.0,
                      single_cls: bool = False, cache: str | bool = False,
-                     workers: int = 0) -> tuple[Loader, dict]:
+                     workers: int = 0, rect: bool = False, stride: int = 32,
+                     pad: float = 0.5) -> tuple[Loader, dict]:
     """Dataset YAML (or dict) -> (Loader, dataset dict). The train split
     augments and shuffles and drops the last partial batch; the others keep
-    every image in order."""
+    every image in order. ``rect`` (without ``augment``): aspect-ratio
+    buckets aligned to ``stride``, padded by ``pad`` strides."""
     augment = (split == "train") if augment is None else augment
     d = check_det_dataset(data_yaml)
     ds = YOLODataset(d[split], imgsz=imgsz, augment=augment, hyp=hyp, max_labels=max_labels,
-                     single_cls=single_cls, fraction=fraction, cache=cache)
+                     single_cls=single_cls, fraction=fraction, cache=cache, rect=rect,
+                     stride=stride, pad=pad)
     return Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers), d

@@ -7,7 +7,8 @@ neither OpenCV nor Pillow).
   decoded and encoded here, with the standard library's ``zlib``. Every
   other format of ``IMG_FORMATS`` (JPEG above all) goes through ``cv2`` or
   Pillow, imported inside ``imread``; where neither is installed it raises
-  an error that names the format and the packages. Images are RGB uint8
+  an error that names the format and the packages. ``image_shape`` reads
+  (h, w) from a PNG, BMP or JPEG header without decoding. Images are RGB uint8
   (H, W, 3), as ``cv2.imread`` then ``COLOR_BGR2RGB`` gives them: alpha is
   dropped, gray is repeated.
 * ``resize``: ``cv2.resize(..., INTER_LINEAR)`` on uint8, half-pixel centres,
@@ -196,6 +197,68 @@ def imread(path: str | Path) -> np.ndarray:
             f"neither is installed; the port decodes .png and .bmp itself") from None
     with Image.open(p) as im:
         return np.asarray(im.convert("RGB"))
+
+
+# JPEG start-of-frame markers (SOF0-15 but DHT, JPG and DAC), which carry the size
+_JPEG_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF}
+
+
+def _jpeg_shape(f) -> tuple[int, int] | None:
+    """(h, w) from the first SOFn segment of a JPEG stream past its SOI."""
+    while True:
+        b = f.read(1)
+        if not b:
+            return None
+        if b != b"\xff":
+            continue
+        marker = f.read(1)
+        while marker == b"\xff":  # fill bytes
+            marker = f.read(1)
+        if not marker:
+            return None
+        m = marker[0]
+        if m == 0xD8 or m == 0x01 or 0xD0 <= m <= 0xD7:  # no length field
+            continue
+        if m in (0xD9, 0xDA):  # end of image, or the scan before any frame header
+            return None
+        seg = f.read(2)
+        if len(seg) < 2:
+            return None
+        n = struct.unpack(">H", seg)[0]
+        if m in _JPEG_SOF:
+            body = f.read(5)
+            if len(body) < 5:
+                return None
+            h, w = struct.unpack(">HH", body[1:5])
+            return h, w
+        f.seek(n - 2, 1)
+
+
+def image_shape(path: str | Path) -> tuple[int, int]:
+    """An image file's (h, w) from its header, without decoding it: PNG
+    IHDR, BMP info header, JPEG SOFn. Other formats are decoded
+    (``imread``). Raises ValueError on a header it cannot read."""
+    p = Path(path)
+    with open(p, "rb") as f:
+        head = f.read(26)
+        if head[:8] == _PNG_SIG and head[12:16] == b"IHDR":
+            w, h = struct.unpack(">II", head[16:24])
+            return int(h), int(w)
+        if head[:2] == b"BM" and len(head) >= 26:
+            if struct.unpack("<I", head[14:18])[0] == 12:  # BITMAPCOREHEADER
+                w, h = struct.unpack("<HH", head[18:22])
+            else:
+                w, h = struct.unpack("<ii", head[18:26])
+            return abs(int(h)), abs(int(w))
+        if head[:2] == b"\xff\xd8":
+            f.seek(2)
+            shape = _jpeg_shape(f)
+            if shape is None:
+                raise ValueError(f"no JPEG frame header in {p}")
+            return shape
+    if head[:8] == _PNG_SIG or head[:2] == b"BM":
+        raise ValueError(f"truncated image header in {p}")
+    return imread(p).shape[:2]
 
 
 def imwrite(path: str | Path, img: np.ndarray) -> Path:

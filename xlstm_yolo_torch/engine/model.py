@@ -8,8 +8,12 @@ card unless the caller asks for ``"cpu"``). ``train`` runs
 ``engine.trainer.Trainer`` and keeps its final model (the EMA weights and
 the BatchNorm statistics, rebuilt to the dataset's classes); ``val`` runs
 ``engine.validator.Validator``; ``predict`` (and calling the model) runs
-``engine.predictor.Predictor`` and returns ``Results``. Not ported:
-``track``, ``export`` and reference torch ``.pt`` weights.
+``engine.predictor.Predictor`` and returns ``Results`` (with ``stream`` a
+generator of them). ``fuse`` folds the BatchNorms into the convolutions,
+``info`` describes the model, ``load`` reads a checkpoint of the port into
+it, ``reset_weights`` starts it again from its seed, ``embed`` gives an
+image's pooled head maps. Not ported: ``track``, ``export``,
+``benchmark``, ``tune`` and reference torch ``.pt`` weights.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ class Model:
         from ..utils.callbacks import default_callbacks
 
         self.device = resolve_device(device)
+        self.seed = seed
         self.model_path = str(model)
         self.ckpt = None
         if self.model_path.endswith((".yaml", ".yml")):
@@ -62,10 +67,11 @@ class Model:
     def names(self) -> dict:
         return self.model.names
 
-    def predict(self, source=None, **kwargs) -> list:
+    def predict(self, source=None, stream: bool = False, **kwargs):
         """``source`` (an image file, a directory, an RGB ndarray, or a list)
-        -> one ``Results`` per image. ``kwargs`` go to ``Predictor`` (conf,
-        iou, imgsz, max_det, half) and rebuild it when given."""
+        -> one ``Results`` per image, in a list or, with ``stream``, from a
+        generator. ``kwargs`` go to ``Predictor`` (conf, iou, imgsz, max_det,
+        classes, agnostic_nms, verbose, half) and rebuild it when given."""
         from .predictor import Predictor
 
         if source is None:
@@ -75,7 +81,7 @@ class Model:
             if kwargs.get("half") or kwargs.get("dtype") == "bfloat16":
                 model = copy.deepcopy(model)  # the Predictor casts its model's parameters
             self.predictor = Predictor(model, callbacks=self.callbacks, **kwargs)
-        return self.predictor(source)
+        return self.predictor(source, stream=stream)
 
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
@@ -106,6 +112,63 @@ class Model:
         from ..utils.checkpoint import save_checkpoint
 
         return save_checkpoint(path, self.model)
+
+    def fuse(self):
+        """Fold every BatchNorm into its convolution (``nn.fuse.fuse_conv_bn``,
+        exact in eval); returns the model."""
+        from ..nn.fuse import fuse_conv_bn
+
+        fuse_conv_bn(self.model.eval())
+        self.predictor = None
+        return self
+
+    def info(self) -> str:
+        return self.model.info()
+
+    def load(self, weights: str | Path):
+        """The parameters and BatchNorm statistics (the EMA parameters) of a
+        checkpoint ``.pt`` of the port, into this model, whose graph must
+        match it; its class names too. Returns the model."""
+        from ..utils.checkpoint import load_checkpoint
+
+        if not str(weights).endswith(".pt"):
+            raise ValueError(f"load takes a checkpoint .pt of this package, not {weights!r}")
+        loaded, self.ckpt = load_checkpoint(weights, use_ema=True, device="cpu")
+        self.model.load_state_dict(loaded.state_dict())
+        self.model.names = dict(loaded.names)
+        self.predictor = None
+        return self
+
+    def reset_weights(self):
+        """The model rebuilt from its graph with fresh weights from the seed
+        (unfused, BatchNorm statistics reset); returns the model."""
+        from ..nn.tasks import TaskModel
+
+        m = self.model
+        names = dict(m.names)
+        self.model = TaskModel(m.yaml, ch=m.ch, nc=m.nc, scale=m.scale, device=self.device,
+                               seed=self.seed)
+        self.model.names = names
+        self.predictor = None
+        return self
+
+    def embed(self, source=None, imgsz: int = 640) -> list:
+        """One vector an image of ``source``: each of the Detect head's output
+        maps (per scale, the box then the class map) averaged over H and W,
+        concatenated; fp32, the image letterboxed to ``imgsz``."""
+        from ..data.augment import letterbox
+        from .predictor import load_source
+
+        model = self.model.eval()
+        outs = []
+        for _, orig in load_source(source):
+            img, _, _ = letterbox(orig, imgsz)
+            with torch.inference_mode():
+                x = torch.from_numpy(img).to(self.device)[None].float() / 255.0
+                maps = model(x.permute(0, 3, 1, 2))
+                pooled = [t.float().mean((2, 3)).reshape(-1) for pair in maps for t in pair]
+                outs.append(torch.cat(pooled).cpu().numpy())
+        return outs
 
 
 class YOLO(Model):

@@ -13,9 +13,11 @@ Port of ``Predictor`` and ``load_source`` (files, directories and arrays) in
 * any other source (an image file, a directory of images, an RGB (H, W, 3)
   ndarray or PIL image, or a list of these) is read one image at a time,
   letterboxed on the host (``data.augment.letterbox``), run through the
-  same forward, decode and NMS, and its boxes mapped back to the image with
-  the letterbox's gain and padding (``ops.boxes.scale_boxes``) ->
-  ``list[Results]``, as the JAX ``Predictor`` does.
+  same forward, decode and NMS (``agnostic_nms``: across classes), its
+  detections kept to ``classes`` when given (after NMS, as JAX does), and
+  its boxes mapped back to the image with the letterbox's gain and padding
+  (``ops.boxes.scale_boxes``) -> ``list[Results]``, or with ``stream`` a
+  generator of them, as the JAX ``Predictor`` does.
 
 fp32 by default, as the JAX ``Predictor`` (the reference's ``half: False``).
 ``dtype="bfloat16"`` (or ``half=True``) serves in bf16 as the JAX bench
@@ -67,10 +69,17 @@ def load_source(source):
 
 class Predictor:
     def __init__(self, model, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
-                 max_det: int = 300, pre_topk: int = 512, dtype: str = "float32",
-                 half: bool = False, callbacks=None):
+                 max_det: int = 300, classes=None, agnostic_nms: bool = False,
+                 verbose: bool = True, pre_topk: int = 512, dtype: str = "float32",
+                 half: bool = False, callbacks=None, **unported):
+        if unported:
+            raise ValueError(f"Predictor does not take {sorted(unported)}: writing results "
+                             f"(save, save_txt, save_crop) and video or stream options are not "
+                             f"ported")
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
+        self.classes = None if classes is None else [int(c) for c in np.atleast_1d(classes)]
+        self.agnostic, self.verbose = bool(agnostic_nms), verbose
         self.half = half or dtype == "bfloat16"
         self.dtype = torch.bfloat16 if self.half else torch.float32
         self.model = cast_params(model, torch.bfloat16) if self.half else model
@@ -94,20 +103,22 @@ class Predictor:
         """(B, N, 4 + nc) candidates -> (dets (B, max_det, 6), valid)."""
         return non_max_suppression(cands, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det, pre_topk=self.pre_topk,
-                                   fast_sel=True)
+                                   fast_sel=True, class_agnostic=self.agnostic)
 
-    @torch.inference_mode()
-    def __call__(self, source):
+    def __call__(self, source, stream: bool = False):
         """A batch of frames -> (dets, valid, cands, meta), dets boxes xyxy
-        in the letterboxed frame; any other source -> ``list[Results]``
-        (module docstring)."""
+        in the letterboxed frame; any other source -> ``list[Results]``, or
+        with ``stream`` a generator that reads, predicts and yields one
+        image at a time (module docstring)."""
         if isinstance(source, torch.Tensor) or (isinstance(source, np.ndarray)
                                                 and source.ndim == 4):
-            x, meta = self.preprocess(source)
-            cands = self.model.predictions(x)
-            dets, valid = self.postprocess(cands)
+            with torch.inference_mode():
+                x, meta = self.preprocess(source)
+                cands = self.model.predictions(x)
+                dets, valid = self.postprocess(cands)
             return dets, valid, cands, meta
-        return list(self._results(source))
+        gen = self._results(source)
+        return gen if stream else list(gen)
 
     def _results(self, source):
         self.callbacks.run("on_predict_start", self)
@@ -116,20 +127,25 @@ class Predictor:
             self.callbacks.run("on_predict_batch_start", self)
             t0 = time.perf_counter()
             img, _, (r, px, py) = letterbox(orig, self.imgsz)
-            x = torch.from_numpy(img).to(self.device)[None].float() / 255.0
-            t1 = time.perf_counter()
-            dets, valid = self.postprocess(self.model.predictions(x.to(self.dtype)).float())
-            d = dets[0][valid[0]]
+            with torch.inference_mode():
+                x = torch.from_numpy(img).to(self.device)[None].float() / 255.0
+                t1 = time.perf_counter()
+                dets, valid = self.postprocess(self.model.predictions(x.to(self.dtype)).float())
+                d = dets[0][valid[0]]
+                if self.classes is not None:
+                    d = d[torch.isin(d[:, 5].long(), torch.tensor(self.classes, device=d.device))]
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t2 = time.perf_counter()
-            d[:, :4] = scale_boxes(d[:, :4], (self.imgsz, self.imgsz), orig.shape[:2],
-                                   ratio_pad=(r, (px, py)))
+            d = torch.cat([scale_boxes(d[:, :4], (self.imgsz, self.imgsz), orig.shape[:2],
+                                       ratio_pad=(r, (px, py))), d[:, 4:]], 1)
             res = Results(orig, path=path, names=names, boxes=d.cpu().numpy(),
                           speed={"preprocess": (t1 - t0) * 1e3, "inference": (t2 - t1) * 1e3,
                                  "postprocess": (time.perf_counter() - t2) * 1e3})
             self.results = [res]
             self.callbacks.run("on_predict_postprocess_end", self)
+            if self.verbose:
+                print(f"{path}: {res.verbose()} ({res.speed['inference']:.1f}ms inference)")
             self.callbacks.run("on_predict_batch_end", self)
             yield res
         self.callbacks.run("on_predict_end", self)

@@ -19,7 +19,7 @@ on the device: the per-epoch ``lr_schedule`` with the trainer's linear
 warm-up over the first steps.
 
 ``Trainer`` is the port of the JAX ``Trainer`` (``train``, without the
-device mesh, profiling and preemption): the dataset's loader (uint8
+device mesh and preemption): the dataset's loader (uint8
 batches, pinned for the copy to the card; letterbox only, in file order and
 keeping the last partial batch, under ``device_augment``), ``multi_scale``
 (each batch rescaled on the device to a size drawn on the host from five
@@ -31,14 +31,21 @@ the EMA parameters (with the live BatchNorm statistics) after every epoch,
 ``best.pt`` / ``last.pt``, ``resume`` from ``last.pt`` (weights, optimizer
 state, EMA, update count and the loader's epoch, so that a resumed run
 continues as the uninterrupted one would), ``EarlyStopping``, the CSV log
-with the JAX trainer's columns, and the callbacks.
+with the JAX trainer's columns, the loss gains of the ``box`` / ``cls`` /
+``dfl`` keys, ``plots`` (the last epoch's validation writes its confusion
+matrix and curves into the run's directory), ``profile`` (a
+``torch.profiler`` trace of the first three steps, each in one
+``train_step`` span, written to ``<run>/profile/trace.json``), and the
+callbacks.
 """
 from __future__ import annotations
 
 import copy
 import csv
+import json
 import math
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -68,14 +75,16 @@ class TrainStep:
     device before the forward, from draws seeded by (``seed``,
     ``n_updates``); whether the mosaic canvas is used is fixed here by
     ``augment["mosaic"]`` > 0, and ``mosaic_p``, the chance an image takes
-    it, starts at that value (``close_mosaic`` zeros it)."""
+    it, starts at that value (``close_mosaic`` zeros it). ``gains`` (box,
+    cls, dfl) weight the loss's terms (the model's defaults when None)."""
 
     def __init__(self, model, lr: float = 0.01, momentum: float = 0.937,
                  weight_decay: float = 5e-4, optimizer: str = "auto", iterations: float = 1e5,
                  accumulate: int = 1, amp: bool = True, augment: dict | None = None,
-                 seed: int = 0):
+                 seed: int = 0, gains=None):
         self.model = model.train()
         self.amp = amp
+        self.gains = gains
         self.update = StepUpdate(model, lr=lr, momentum=momentum, weight_decay=weight_decay,
                                  name=optimizer, nc=getattr(model, "nc", 80),
                                  iterations=iterations, accumulate=accumulate)
@@ -109,7 +118,7 @@ class TrainStep:
             batch = self.augment_batch(batch)
         if self.amp:
             batch["img"] = batch["img"].to(torch.bfloat16)
-        return self.model.loss(batch)
+        return self.model.loss(batch, self.gains)
 
     def backward(self, total: torch.Tensor) -> None:
         for p in self.update.params:
@@ -175,6 +184,92 @@ def ms_rescale(batch: dict, sz: int, imgsz: int) -> dict:
     cb = batch["cls_boxes"]
     return {**batch, "img": resize_bilinear(img, sz, sz),
             "cls_boxes": torch.cat([cb[..., :1], cb[..., 1:] * (sz / imgsz)], -1)}
+
+
+class StepTrace:
+    """A ``torch.profiler`` trace of the first ``n`` train steps (CPU and,
+    on the card, CUDA activity), each step in one ``train_step`` span,
+    written as a Chrome trace to ``directory/trace.json`` after the n-th
+    step, or when the run ends first. ``n`` 0: off. The session ends with
+    the trace: the steps after it run as in an untraced run
+    (``tools/detect_keys_measure.py`` measures both)."""
+
+    SPAN = "train_step"
+
+    def __init__(self, directory: Path, n: int, device: torch.device):
+        self.dir, self.left, self.device = Path(directory), int(n), device
+        self.prof = self.path = None
+        if self.left > 0:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+
+    def __enter__(self):
+        if self.prof is not None:
+            self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    @contextmanager
+    def step(self):
+        """One step's span; the trace stops after the n-th."""
+        if self.prof is None:
+            yield
+            return
+        with torch.profiler.record_function(self.SPAN):
+            yield
+        self.left -= 1
+        if self.left == 0:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the last step's kernels in the trace
+        prof.__exit__(None, None, None)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.dir / "trace.json"
+        prof.export_chrome_trace(str(self.path))
+        print(f"profile: the first train steps' trace -> {self.path}")
+
+
+def read_step_trace(path) -> dict:
+    """A ``StepTrace`` file: its ``train_step`` spans (the CPU side), the
+    device activities each launched (a launch's runtime call lies inside the
+    span on any thread, the autograd engine's included; its kernel shares the
+    call's correlation id), and the card's busy and idle ms in each step's
+    window, from its span's start to the end of the last kernel it launched
+    (busy: the union of kernel, copy and set intervals in it). A trace
+    without CUDA activity gives empty steps and no busy or idle ms."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name") == StepTrace.SPAN), key=lambda e: e["ts"])
+    device = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    by_corr = {e["args"]["correlation"]: e for e in device if "correlation" in e.get("args", {})}
+    calls = [e for e in events if e.get("cat", "").startswith("cuda_")  # cudaLaunchKernel, ...
+             and e.get("args", {}).get("correlation") in by_corr]
+    steps, busy, idle = [], [], []
+    for sp in spans:
+        t0, t1 = sp["ts"], sp["ts"] + sp["dur"]
+        ks = [by_corr[c["args"]["correlation"]] for c in calls if t0 <= c["ts"] <= t1]
+        steps.append(ks)
+        if not ks:
+            continue
+        hi, b, end = max(k["ts"] + k["dur"] for k in ks), 0.0, t0
+        for e in device:
+            lo_e, hi_e = max(e["ts"], end), min(e["ts"] + e["dur"], hi)
+            if hi_e > lo_e:
+                b += hi_e - lo_e
+                end = hi_e
+        busy.append(b / 1e3)
+        idle.append((hi - t0 - b) / 1e3)
+    return {"spans": len(spans), "steps": steps, "busy_ms": busy, "idle_ms": idle}
 
 
 class Trainer:
@@ -268,7 +363,8 @@ class Trainer:
         self.step = TrainStep(self.model, lr=args.lr0, momentum=args.momentum,
                               weight_decay=args.weight_decay, optimizer=args.optimizer,
                               iterations=self.iterations, accumulate=accumulate, amp=amp_of(args),
-                              augment=vars(args) if dev_aug else None, seed=int(args.seed))
+                              augment=vars(args) if dev_aug else None, seed=int(args.seed),
+                              gains=(float(args.box), float(args.cls), float(args.dfl)))
         # multi-scale: one size a batch, drawn on the host from a fixed bucket
         ms_sizes = multi_scale_sizes(imgsz, args.multi_scale, self.model.strides)
         ms_rng = np.random.default_rng(int(args.seed) + 4242)
@@ -295,56 +391,62 @@ class Trainer:
         step = self.start_epoch * nb
         t_start = time.time()
         means, val_metrics, lr = {"loss": float("nan")}, {}, 0.0
-        for epoch in range(self.start_epoch, epochs):
-            self.epoch = epoch
-            self.run_callbacks("on_train_epoch_start")
-            if args.close_mosaic and epoch >= max(epochs - int(args.close_mosaic), 0):
-                self.loader.ds.hyp["mosaic"] = 0.0
-                if dev_aug:  # the step keeps its 2S canvas; no image takes the mosaic
-                    self.step.mosaic_p = 0.0
-            terms = []
-            t0 = time.time()
-            for batch_data in self.loader:
-                self.run_callbacks("on_train_batch_start")
-                lr = warmup_lr(step, epoch, warmup, sched(epoch), args.warmup_bias_lr)
-                db = self._to_device(batch_data)
-                if ms_sizes:
-                    sz = int(ms_rng.choice(ms_sizes))
-                    self._ms_sizes_used.add(sz)
-                    if sz != imgsz:
-                        db = ms_rescale(db, sz, imgsz)
-                total, aux = self.step(db, lr)
-                terms.append(torch.stack([aux["box"], aux["cls"], aux["dfl"], total]))
-                step += 1
-                self.run_callbacks("optimizer_step")
-                self.run_callbacks("on_before_zero_grad")
-                self.run_callbacks("on_train_batch_end")
-            # the epoch's mean of each term, in the JAX trainer's (sorted) order
-            means = dict(zip(("box", "cls", "dfl", "loss"),
-                             torch.stack(terms).double().cpu().numpy().mean(0).tolist()))
-            imps = nb * batch / (time.time() - t0)
+        self.trace = StepTrace(self.save_dir / "profile", 3 if args.profile else 0, self.device)
+        with self.trace:
+            for epoch in range(self.start_epoch, epochs):
+                self.epoch = epoch
+                self.run_callbacks("on_train_epoch_start")
+                if args.close_mosaic and epoch >= max(epochs - int(args.close_mosaic), 0):
+                    self.loader.ds.hyp["mosaic"] = 0.0
+                    if dev_aug:  # the step keeps its 2S canvas; no image takes the mosaic
+                        self.step.mosaic_p = 0.0
+                terms = []
+                t0 = time.time()
+                for batch_data in self.loader:
+                    self.run_callbacks("on_train_batch_start")
+                    lr = warmup_lr(step, epoch, warmup, sched(epoch), args.warmup_bias_lr)
+                    db = self._to_device(batch_data)
+                    if ms_sizes:
+                        sz = int(ms_rng.choice(ms_sizes))
+                        self._ms_sizes_used.add(sz)
+                        if sz != imgsz:
+                            db = ms_rescale(db, sz, imgsz)
+                    with self.trace.step():
+                        total, aux = self.step(db, lr)
+                    terms.append(torch.stack([aux["box"], aux["cls"], aux["dfl"], total]))
+                    step += 1
+                    self.run_callbacks("optimizer_step")
+                    self.run_callbacks("on_before_zero_grad")
+                    self.run_callbacks("on_train_batch_end")
+                # the epoch's mean of each term, in the JAX trainer's (sorted) order
+                means = dict(zip(("box", "cls", "dfl", "loss"),
+                                 torch.stack(terms).double().cpu().numpy().mean(0).tolist()))
+                imps = nb * batch / (time.time() - t0)
 
-            fitness, val_metrics = None, {}
-            if args.val:
-                val_metrics = Validator(self.ema_model(), data=self.data, imgsz=imgsz,
-                                        max_labels=int(args.max_labels),
-                                        callbacks=self.callbacks)()
-                fitness = val_metrics["fitness"]
-                if fitness >= self.best_fitness:
-                    self.best_fitness = fitness
-                    self._save("best", epoch)
-            self._log_csv({"epoch": epoch, **{f"train/{k}": v for k, v in means.items()},
-                           **{f"metrics/{k}": v for k, v in val_metrics.items()}, "lr": lr,
-                           "img_s": round(imps, 1)})
-            self.run_callbacks("on_train_epoch_end")
-            self.run_callbacks("on_fit_epoch_end")
-            print(f"epoch {epoch + 1}/{epochs}: loss {means['loss']:.3f} (box {means['box']:.3f} "
-                  f"cls {means['cls']:.3f} dfl {means['dfl']:.3f}) {imps:.0f} img/s"
-                  + (f" | fitness {fitness:.4f}" if fitness is not None else ""))
-            self._save("last", epoch)
-            if stopper(epoch, fitness):
-                print(f"early stopping at epoch {epoch} (best {stopper.best_epoch})")
-                break
+                fitness, val_metrics = None, {}
+                if args.val:
+                    # plots on the last epoch only, as the JAX trainer
+                    val_metrics = Validator(self.ema_model(), data=self.data, imgsz=imgsz,
+                                            max_labels=int(args.max_labels),
+                                            callbacks=self.callbacks, save_dir=self.save_dir,
+                                            plots=bool(args.plots) and epoch == epochs - 1)()
+                    fitness = val_metrics["fitness"]
+                    if fitness >= self.best_fitness:
+                        self.best_fitness = fitness
+                        self._save("best", epoch)
+                self._log_csv({"epoch": epoch, **{f"train/{k}": v for k, v in means.items()},
+                               **{f"metrics/{k}": v for k, v in val_metrics.items()}, "lr": lr,
+                               "img_s": round(imps, 1)})
+                self.run_callbacks("on_train_epoch_end")
+                self.run_callbacks("on_fit_epoch_end")
+                print(f"epoch {epoch + 1}/{epochs}: loss {means['loss']:.3f} (box "
+                      f"{means['box']:.3f} cls {means['cls']:.3f} dfl {means['dfl']:.3f}) "
+                      f"{imps:.0f} img/s"
+                      + (f" | fitness {fitness:.4f}" if fitness is not None else ""))
+                self._save("last", epoch)
+                if stopper(epoch, fitness):
+                    print(f"early stopping at epoch {epoch} (best {stopper.best_epoch})")
+                    break
 
         self.model = self.ema_model()
         self.metrics = val_metrics if args.val else {"train_loss": means["loss"]}

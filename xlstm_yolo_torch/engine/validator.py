@@ -3,37 +3,51 @@
 Port of the detect path of ``Validator`` in
 ``xlstm_yolo_tpu/engine/validator.py``: on the device, the eval forward,
 the DFL decode and the fixed-shape multi-label NMS (conf 0.001, IoU 0.7,
-300 detections, a 1,024-candidate pool); on the host, the greedy IoU
-matching at ten thresholds and the 101-point AP (``utils.metrics``). The
-batches ship uint8 and are normalized on the device. fp32 by default, as
-the reference's ``half: False``; ``half=True`` validates a bf16 copy of the
-model (``nn.fuse.cast_params``, as the port's ``Predictor``). Not ported:
-``save_json``, plots and rect batches.
+300 detections, a 1,024-candidate pool; ``exact_nms`` the greedy
+suppression); on the host, the greedy IoU matching at ten thresholds and
+the 101-point AP (``utils.metrics``). The batches ship uint8 and are
+normalized on the device. fp32 by default, as the reference's ``half:
+False``; ``half=True`` validates a bf16 copy of the model
+(``nn.fuse.cast_params``, as the port's ``Predictor``).
+
+``rect`` letterboxes each batch to its aspect-ratio bucket (aligned to the
+model's coarsest stride, padded half a stride) instead of the square
+``imgsz``; ``save_json`` writes COCO-format records of the detections in
+the images' own pixels to ``save_dir/predictions.json``; ``plots`` counts
+the confusion matrix and writes it and the PR / F1 / P / R curves to
+``save_dir`` (matplotlib; without it one warning names the files not
+written).
 """
 from __future__ import annotations
 
 import copy
+import json
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..data.converter import coco80_to_coco91_class
 from ..data.dataset import build_dataloader, check_det_dataset
 from ..nn.fuse import cast_params
 from ..ops.nms import non_max_suppression
 from ..utils import metrics as MET
+from ..utils import plotting as PLT
 from ..utils.callbacks import default_callbacks
 
 
 class Validator:
     """``Validator(model, data=...)()`` -> {precision, recall, mAP50,
-    mAP50-95, fitness, images, img_s}; runs on the model's device."""
+    mAP50-95, fitness, images, img_s} (and ``save_json_path``); runs on the
+    model's device."""
 
     def __init__(self, model, data=None, imgsz: int = 640, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, max_labels: int = 128,
                  batch: int = 16, verbose: bool = False, callbacks=None,
-                 half: bool = False, pre_topk: int = 1024):
+                 half: bool = False, save_json: bool = False, save_dir: str | Path | None = None,
+                 exact_nms: bool = False, pre_topk: int = 1024, plots: bool = False,
+                 rect: bool = False):
         self.callbacks = callbacks if callbacks is not None else default_callbacks()
         self.model = model
         self.half = half
@@ -41,6 +55,9 @@ class Validator:
         self.imgsz, self.conf, self.iou, self.max_det = imgsz, conf, iou, max_det
         self.max_labels, self.batch, self.pre_topk = max_labels, batch, pre_topk
         self.verbose = verbose
+        self.save_json, self.exact_nms, self.plots, self.rect = save_json, exact_nms, plots, rect
+        self.save_dir = Path(save_dir) if save_dir else Path("runs/val")
+        self.cm = None
 
     @torch.inference_mode()
     def __call__(self, data: str | dict | None = None) -> dict:
@@ -48,9 +65,15 @@ class Validator:
         data = data or self.data
         if isinstance(data, (str, Path)):
             data = check_det_dataset(data)
+        # rect buckets align to the coarsest stride, or the FPN's shapes would not meet
+        stride = max(32, int(max(self.model.strides)))
         loader, _ = build_dataloader(data, "val", batch=self.batch, imgsz=self.imgsz,
-                                     augment=False, max_labels=self.max_labels)
+                                     augment=False, max_labels=self.max_labels, rect=self.rect,
+                                     stride=stride)
         loader.ds.uint8_images = True
+        if self.plots:
+            self.cm = MET.ConfusionMatrix(int(self.model.nc), conf=self.conf)
+        jdict, files, class_map = [], loader.ds.files, self._class_map(data)
         model = self.model.eval()
         dtype = torch.bfloat16 if self.half else torch.float32
         if self.half:
@@ -65,13 +88,20 @@ class Validator:
             x = (img.float() / 255.0).to(dtype)
             dets, valid = non_max_suppression(
                 model.predictions(x).float(), conf_thres=self.conf, iou_thres=self.iou,
-                max_det=self.max_det, multi_label=True, pre_topk=self.pre_topk)
+                max_det=self.max_det, multi_label=True, exact=self.exact_nms,
+                pre_topk=self.pre_topk)
             dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
             n_img += len(dets)
             for bi in range(len(dets)):
                 d = dets[bi][valid[bi]]  # (n, 6) xyxy conf cls
+                if self.save_json:
+                    self._pred_to_json(jdict, d, files, int(batch["im_idx"][bi]),
+                                       tuple(np.asarray(batch["ori_shape"][bi])),
+                                       tuple(img.shape[1:3]), class_map, load_sz=self.imgsz)
                 gt = batch["cls_boxes"][bi][batch["mask"][bi]]  # (m, 5) cls xyxy
                 gt_cls = gt[:, 0]
+                if self.cm is not None:
+                    self.cm.process_batch(d if len(d) else None, gt[:, 1:5], gt_cls)
                 if len(d) == 0:
                     if len(gt):
                         stats["target_cls"].append(gt_cls)
@@ -83,16 +113,25 @@ class Validator:
                 stats["target_cls"].append(gt_cls)
             self.callbacks.run("on_val_batch_end", self)
         dt = time.time() - t0
+        json_path = None
+        if self.save_json:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            json_path = self.save_dir / "predictions.json"
+            with open(json_path, "w") as f:
+                json.dump(jdict, f)
+        extra = {} if json_path is None else {"save_json_path": str(json_path)}
         if not stats["tp"]:
+            self._plot_metrics()
             self.callbacks.run("on_val_end", self)
             return {"mAP50": 0.0, "mAP50-95": 0.0, "precision": 0.0, "recall": 0.0,
-                    "fitness": 0.0, "images": n_img, "img_s": round(n_img / dt, 1)}
+                    "fitness": 0.0, "images": n_img, "img_s": round(n_img / dt, 1), **extra}
         r = MET.ap_per_class(np.concatenate(stats["tp"]), np.concatenate(stats["conf"]),
                              np.concatenate(stats["pred_cls"]),
                              np.concatenate(stats["target_cls"]))
+        self._plot_metrics(r)
         out = {"precision": r["mp"], "recall": r["mr"], "mAP50": r["map50"], "mAP50-95": r["map"],
                "fitness": MET.fitness(r["map50"], r["map"]),
-               "images": n_img, "img_s": round(n_img / dt, 1)}
+               "images": n_img, "img_s": round(n_img / dt, 1), **extra}
         if self.verbose:
             names = getattr(self.model, "names", {}) or {}
             for ci, c in enumerate(r["unique_classes"]):
@@ -100,3 +139,71 @@ class Validator:
                       f"R={r['r'][ci]:.3f} AP50={r['ap50'][ci]:.3f} AP={r['ap'][ci].mean():.3f}")
         self.callbacks.run("on_val_end", self)
         return out
+
+    def _plot_metrics(self, r=None) -> None:
+        """With ``plots``: the confusion matrix (counts and normalized) and,
+        given ``ap_per_class``'s result, the PR / F1 / P / R curves, into
+        ``save_dir``; without matplotlib one warning naming those files."""
+        if not self.plots:
+            return
+        curves = r is not None and len(r.get("px", ()))
+        fnames = ["confusion_matrix.png", "confusion_matrix_normalized.png"] * (
+            self.cm is not None) + ["PR_curve.png", "F1_curve.png", "P_curve.png",
+                                   "R_curve.png"] * bool(curves)
+        if not PLT.have_matplotlib():
+            print(f"WARNING: plots=True but matplotlib is not installed; not written to "
+                  f"{self.save_dir}: {', '.join(fnames)}")
+            return
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        names = dict(getattr(self.model, "names", {}) or {})
+        if self.cm is not None:
+            self.cm.plot(self.save_dir, names=names, normalize=False)
+            self.cm.plot(self.save_dir, names=names, normalize=True)
+        if curves:
+            cnames = {i: names.get(int(c), str(int(c))) for i, c in enumerate(r["unique_classes"])}
+            PLT.plot_pr_curve(r["px"], r["prec_values"], r["ap50"], names=cnames,
+                              fname=self.save_dir / "PR_curve.png")
+            for key, ylabel, fn in (("f1_curve", "F1", "F1_curve.png"),
+                                    ("p_curve", "Precision", "P_curve.png"),
+                                    ("r_curve", "Recall", "R_curve.png")):
+                PLT.plot_mc_curve(r["px"], r[key], names=cnames, ylabel=ylabel,
+                                  fname=self.save_dir / fn)
+
+    def _class_map(self, data) -> list:
+        """Class index -> COCO-format category id: the paper's 91 ids when
+        validating COCO itself (``val2017.txt`` / ``test-dev2017.txt``),
+        else 1-based ids."""
+        val = str(data.get("val", "")) if isinstance(data, dict) else ""
+        is_coco = "coco" in val and val.endswith(("val2017.txt", "test-dev2017.txt"))
+        nc = int(getattr(self.model, "nc", 80) or 80)
+        return coco80_to_coco91_class() if is_coco else list(range(1, nc + 1))
+
+    @staticmethod
+    def _pred_to_json(jdict: list, dets, files, img_idx: int, ori_shape, imgsz, class_map,
+                      load_sz: float | None = None) -> None:
+        """COCO-format records of one image's (n, 6) detections, appended
+        to ``jdict``: boxes out of the letterboxed input (square ``imgsz``
+        or a rect bucket's (h, w)) back to the image's own pixels, xywh from
+        the top-left corner; ``image_id`` the file stem (as a number when it
+        is one). The gain is clamped by the load's long-side resize to
+        ``load_sz``: a rect bucket longer than that is padded, not filled."""
+        stem = Path(files[img_idx]).stem if img_idx < len(files) else str(img_idx)
+        image_id = int(stem) if stem.isnumeric() else stem
+        d = np.asarray(dets, dtype=float)
+        if len(d) and ori_shape is not None:
+            h0, w0 = float(ori_shape[0]), float(ori_shape[1])
+            in_h, in_w = ((imgsz, imgsz) if np.isscalar(imgsz) else
+                          (float(imgsz[0]), float(imgsz[1])))
+            r1 = (load_sz or max(in_h, in_w)) / max(h0, w0)
+            gain = min(r1, in_h / h0, in_w / w0)
+            padx, pady = (in_w - w0 * gain) / 2, (in_h - h0 * gain) / 2
+            d = d.copy()
+            d[:, [0, 2]] = np.clip((d[:, [0, 2]] - padx) / gain, 0, w0)
+            d[:, [1, 3]] = np.clip((d[:, [1, 3]] - pady) / gain, 0, h0)
+        for x1, y1, x2, y2, conf, cls in d:
+            ci = int(cls)
+            jdict.append({"image_id": image_id,
+                          "category_id": class_map[ci] if ci < len(class_map) else ci,
+                          "bbox": [round(x1, 3), round(y1, 3), round(x2 - x1, 3),
+                                   round(y2 - y1, 3)],
+                          "score": round(float(conf), 5)})

@@ -42,6 +42,10 @@ KERNEL_CS = 64  # their chunk length (CS in csrc/vil_layer.cu and
                 # csrc/mlstm_bwd.cu): the carry states are per chunk of it
 KERNEL_BWD_DHS = KERNEL_DHS + (128, 256)  # head dims this module's fp32 CUDA kernel takes
 NEG = -1e30  # log input gate of a masked step
+# the names of this kernel's launches, as a profiler trace shows them: the fp32
+# stages, and the prefix of the bf16 ones
+STAGES = ("bwd_chunk_local", "bwd_chunk_carry", "bwd_wide_local", "bwd_wide_carry")
+STAGES_BF16 = "bwd16_"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = CudaLibrary("mlstm_bwd.cu", {

@@ -43,6 +43,12 @@ from .vil_block import N_CELL, _block_plain, block_bwd, tail_kernel_args, tail_p
 from .vil_cell import (LAYER, LAYER_BF16, Cfg, Member, Workspace, _cell_plain, call_member,
                        cell_kernel_args, check_call, run_kernel)
 
+# the names of the forward's launches, as a profiler trace shows them: the fp32
+# stages, and the prefix of the bf16 ones
+STAGES = ("vil_head", "vil_cell_prologue", "vil_chunk_summary", "vil_state_scan",
+          "vil_chunk_output", "vil_epilogue")
+STAGES_BF16 = "vil16_"
+
 
 def _norm(x, rms_scale, rms_eps):
     """RMSNorm -> (xhat, inv, xn), fp32."""

@@ -65,16 +65,26 @@ class TaskModel(GraphModel):
         raw = self(x.permute(0, 3, 1, 2))
         return H.decode_detections(raw, self.strides, self.nc, self.reg_max)
 
-    def loss(self, batch: dict):
+    def loss(self, batch: dict, gains=None):
         """Forward on ``batch["img"]`` (B, H, W, 3) float images plus the v8
         detection loss against ``batch["cls_boxes"]`` (B, n_max, 5) = (cls,
-        x1, y1, x2, y2) pixels and ``batch["mask"]`` (B, n_max). The forward
-        runs in the module's mode: in train mode (``model.train()``, as the
-        trainer sets it) BatchNorm uses the batch statistics and updates its
-        running ones. Returns (total, {"box", "cls", "dfl"})."""
+        x1, y1, x2, y2) pixels and ``batch["mask"]`` (B, n_max), its terms
+        weighted by ``gains`` (box, cls, dfl; the defaults 7.5, 0.5, 1.5 when
+        None). The forward runs in the module's mode: in train mode
+        (``model.train()``, as the trainer sets it) BatchNorm uses the batch
+        statistics and updates its running ones. Returns (total, {"box",
+        "cls", "dfl"})."""
         raw = self(batch["img"].permute(0, 3, 1, 2))
-        lo = detection_loss(raw, batch["cls_boxes"], batch["mask"], self.strides, self.reg_max)
+        kw = {} if gains is None else {"gains": tuple(gains)}
+        lo = detection_loss(raw, batch["cls_boxes"], batch["mask"], self.strides, self.reg_max,
+                            **kw)
         return lo.total, {"box": lo.box, "cls": lo.cls, "dfl": lo.dfl}
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def info(self) -> str:
+        """One line, as the JAX ``TaskModel.info`` gives it: task, layers,
+        strides, classes and parameters."""
+        return (f"{self.task} model: {len(self.parsed.specs)} layers, strides {self.strides}, "
+                f"nc={self.nc}, {self.num_params():,} params")

@@ -57,9 +57,11 @@ def df_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int = 16) ->
 
 
 def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch.Tensor,
-                   strides: Sequence[float], reg_max: int = 16) -> DetectionLossOut:
+                   strides: Sequence[float], reg_max: int = 16,
+                   gains: Sequence[float] = (BOX_GAIN, CLS_GAIN, DFL_GAIN)) -> DetectionLossOut:
     """v8 detection loss over the Detect head's per-scale (box, cls) maps
-    (NCHW): BCE cls + CIoU box + DFL, TAL-assigned in pixel units. The
+    (NCHW): BCE cls + CIoU box + DFL, TAL-assigned in pixel units, weighted
+    by ``gains`` (box, cls, dfl; the ``box`` / ``cls`` / ``dfl`` keys). The
     maps may be bf16 (the AMP step); the loss and the assigner compute in
     fp32, the DFL decode and loss take their bf16 paths."""
     b = raw_maps[0][0].shape[0]
@@ -83,7 +85,7 @@ def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch
     dfl = df_loss(pred_dist_logits, bbox2dist(anchors, target_bboxes_g, reg_max - 1), reg_max)
     loss_dfl = (dfl * weight).sum() / target_scores_sum
 
-    box, cls, dfl_l = loss_box * BOX_GAIN, loss_cls * CLS_GAIN, loss_dfl * DFL_GAIN
+    box, cls, dfl_l = loss_box * gains[0], loss_cls * gains[1], loss_dfl * gains[2]
     return DetectionLossOut(total=(box + cls + dfl_l) * b, box=box, cls=cls, dfl=dfl_l)
 
 

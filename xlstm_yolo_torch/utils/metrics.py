@@ -2,10 +2,12 @@
 confusion matrix and fitness, on the host in numpy.
 
 A copy of ``box_iou_np``, ``match_predictions``, ``compute_ap``,
-``ap_per_class``, ``fitness`` and ``ConfusionMatrix`` (without ``plot`` and
-the oriented-box dispatch) of ``xlstm_yolo_tpu/utils/metrics.py``.
+``ap_per_class``, ``fitness`` and ``ConfusionMatrix`` (without the
+oriented-box dispatch) of ``xlstm_yolo_tpu/utils/metrics.py``.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -193,3 +195,13 @@ class ConfusionMatrix:
         for di in range(len(dets)):
             if di not in matched_det:
                 self.matrix[int(dets[di, 5]), self.nc] += 1
+
+    def plot(self, save_dir=".", names: dict | None = None, normalize: bool = True) -> Path:
+        """Write ``confusion_matrix.png`` (``_normalized`` with
+        ``normalize``) under ``save_dir``; needs matplotlib."""
+        from .plotting import plot_confusion_matrix
+
+        suffix = "_normalized" if normalize else ""
+        return plot_confusion_matrix(self.matrix, names=names, normalize=normalize,
+                                     background=self.task == "detect",
+                                     fname=Path(save_dir) / f"confusion_matrix{suffix}.png")
