@@ -104,7 +104,7 @@ twin. ``kernel_parity`` holds every kernel of the family at head dim 4 at
 the classifier's shape and at 16 at P3 and P5, with bounds that count the
 decay matrix.
 
-The rest of the ViL family (``vil_family_path``, last): ViL-YOLO-n with its
+The rest of the ViL family (``vil_family_path``): ViL-YOLO-n with its
 three ViL rows as ``FusionViLLayerBlock [c, c, {mlp_type: swiglu}]`` (K3
 at head dim 16 under a SwiGLU fusion MLP: fp32 inference, bf16 serving,
 an fp32 step, each against its plain-forced twin) and as
@@ -118,7 +118,7 @@ each against its plain-forced twin or the CPU; the ViT's img/s beside
 kernels with the outnorm off against their plain versions, with a
 ``ViLBlockPair(use_outnorm=False, proj_bias=False)`` forward and backward.
 
-The rest of the detect task (``detect_keys_path``, last): on wide, tall and
+The rest of the detect task (``detect_keys_path``): on wide, tall and
 square PNGs, ``YOLO("vil_yolon.yaml").train`` one epoch with ``plots``,
 ``profile`` and ``mosaic_n=9`` (the trace's three step spans launch the
 bf16 kernels only; the device's busy and idle ms read from it), rect
@@ -127,7 +127,18 @@ square validation's img/s, ``predict(classes=, agnostic_nms=)`` and the
 same after ``fuse()``; K3 and K3 bf16 at the grids of its rect buckets and
 at 28 x 40 and 14 x 20 against their plain versions.
 
-Every phase prints one JSON line; then come the
+xLSTM-7B (``xlstm7b_path``, ``xlstm_yolo_torch.nn.xlstm_large``) at the
+published NX-AI widths (vocab 50304, embedding 4096, 32 blocks, 8 heads,
+6.9 B parameters, fp32) on seeded weights drawn on the card: a forward at 8
+x 512 tokens, a 512-token prefill and one carried-state step against a
+from-scratch 513-token forward (the recurrent form), ``generate_scan``'s
+CUDA-graph decode against eager ``generate`` over 64 greedy tokens; prefill
+tokens/s and ms per decode token beside the bytes bound. Then YOLO11n
+(``yolo11_path``): inference and a train step at batch 8, 640 px, and the
+card against the CPU on the same weights. Neither launches a hand-written
+kernel (the JAX package runs plain XLA there).
+
+Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
 non-zero, printing no result, when there is no GPU or any phase fails.
@@ -1202,9 +1213,11 @@ def build_main_model(device, train: bool = False, cfg="vil_yolon.yaml"):
     return fuse_conv_bn(model)
 
 
-def phase_main_path(cfg="vil_yolon.yaml", name: str = "main_path"):
+def phase_main_path(cfg="vil_yolon.yaml", name: str = "main_path",
+                    expected_launches: int = len(STAGES)):
     """``Predictor`` inference against the plain-forced model (``cfg`` as
-    ``build_main_model`` takes it; ``name`` heads the printed line)."""
+    ``build_main_model`` takes it; ``name`` heads the printed line;
+    ``expected_launches`` of the ViL layer kernel, one per ViL stage)."""
     import torch
 
     import xlstm_yolo_torch.nn.vil as vil_mod
@@ -1252,11 +1265,11 @@ def phase_main_path(cfg="vil_yolon.yaml", name: str = "main_path"):
                 for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
                     times[k] += a.elapsed_time(b) / iters
     total_ms = sum(times.values())
-    ok = shapes_ok and finite and launches == len(STAGES) and box_rel <= TOL_REL \
+    ok = shapes_ok and finite and launches == expected_launches and box_rel <= TOL_REL \
         and score_abs <= TOL_REL and n_valid > 0
     emit({"phase": name, "model": model_label(cfg), "params_after_fuse": model.num_params(),
           "batch": BATCH, "src_hw": list(SRC_HW), "imgsz": IMGSZ, "launches": launches,
-          "expected_launches": len(STAGES), "shapes_ok": shapes_ok, "finite": finite,
+          "expected_launches": expected_launches, "shapes_ok": shapes_ok, "finite": finite,
           "cands_box_maxrelerr": box_rel, "cands_score_max_abs_err": score_abs,
           "valid_dets": n_valid, "ms": times, "total_ms": total_ms,
           "img_per_s": BATCH / total_ms * 1e3, "ok": ok})
@@ -1291,11 +1304,13 @@ def train_batch(device, batch: int = BATCH):
             "mask": torch.from_numpy(mask).to(device)}
 
 
-def phase_train_path(cfg="vil_yolon.yaml", name: str = "train_path"):
+def phase_train_path(cfg="vil_yolon.yaml", name: str = "train_path",
+                     expected_launches: int = len(STAGES)):
     """One TrainStep with the kernels against the same step with the plain
     versions forced in (loss, and every parameter gradient within TOL_REL of
     that tensor's max), then TRAIN_TIMED steps after TRAIN_WARMUP timed by
-    stage with CUDA events."""
+    stage with CUDA events; ``expected_launches`` of the ViL layer kernel
+    and of the chunkwise backward each, per step."""
     import torch
 
     from xlstm_yolo_torch.engine.trainer import TrainStep
@@ -1347,7 +1362,7 @@ def phase_train_path(cfg="vil_yolon.yaml", name: str = "train_path"):
     per_step = (vil_layer_fwd.launches / n_steps, mlstm_chunkwise_bwd.launches / n_steps)
     total_ms = sum(times.values())
     finite = all(np.isfinite(losses)) and grads_finite
-    expect = (len(STAGES), len(STAGES))
+    expect = (expected_launches, expected_launches)
     ok = (finite and launches == expect and per_step == expect and plain_launches == (0, 0)
           and worst_rel <= TOL_REL and loss_rel <= TOL_REL)
     emit({"phase": name, "model": model_label(cfg), "batch": BATCH, "imgsz": IMGSZ,
@@ -3458,7 +3473,205 @@ def phase_scales_path():
             "mlstm_chunkwise_bwd": train_launches[1]}
 
 
+# The NX-AI xLSTM-7B release's config.json (NX-AI/xLSTM-7b on Hugging Face):
+# vocab 50304, embedding 4096, 32 blocks, 8 heads (DQK 256, DV 512), FFN 10944
+XLSTM_7B = dict(vocab_size=50304, embedding_dim=4096, num_blocks=32, num_heads=8,
+                qk_dim_factor=0.5, v_dim_factor=1.0, ffn_proj_factor=2.667, ffn_round_up_to=64,
+                gate_soft_cap=15.0, output_logit_soft_cap=30.0, chunk_size=64, use_bias=False,
+                norm_eps=1e-6)
+XL_BATCH, XL_PROMPT, XL_NEW = 8, 512, 64  # prefill batch x tokens; new tokens of the decode
+YOLO11 = "yolo11n.yaml"
+YOLO11_CPU_BATCH = 2  # the card against the CPU: a forward and a train step at this batch
+
+
+def all_kernel_counts() -> dict:
+    """The launch count of every hand-written kernel's wrapper."""
+    from xlstm_yolo_torch.kernels.mlstm_fwd import mlstm_chunkwise_fwd
+    from xlstm_yolo_torch.kernels.slstm import slstm_scan_bwd, slstm_scan_fwd
+    from xlstm_yolo_torch.kernels.topk import rowwise_kth_value
+    from xlstm_yolo_torch.kernels.vil_block import vil_block_fwd
+    from xlstm_yolo_torch.kernels.vil_cell import vil_cell_fwd
+    from xlstm_yolo_torch.kernels.vil_conv import vil_layer_conv_fwd
+
+    return {**family_counters(), "slstm_scan_fwd": slstm_scan_fwd.launches,
+            "slstm_scan_bwd": slstm_scan_bwd.launches, "vil_cell_fwd": vil_cell_fwd.launches,
+            "vil_block_fwd": vil_block_fwd.launches,
+            "vil_layer_conv_fwd": vil_layer_conv_fwd.launches,
+            "rowwise_kth_value": rowwise_kth_value.launches}
+
+
+def zero_all_kernel_counts() -> None:
+    from xlstm_yolo_torch.kernels.slstm import slstm_scan_bwd, slstm_scan_fwd
+    from xlstm_yolo_torch.kernels.topk import rowwise_kth_value
+    from xlstm_yolo_torch.kernels.vil_block import vil_block_fwd
+    from xlstm_yolo_torch.kernels.vil_cell import vil_cell_fwd
+    from xlstm_yolo_torch.kernels.vil_conv import vil_layer_conv_fwd
+
+    zero_family_counters()
+    for fn in (slstm_scan_fwd, slstm_scan_bwd, vil_cell_fwd, vil_block_fwd, vil_layer_conv_fwd,
+               rowwise_kth_value):
+        fn.launches = 0
+
+
+def decode_bytes_bound_ms(model, batch: int) -> float:
+    """The least time of one decode token at ``batch``: every weight read
+    once but the embedding table (``batch`` rows of it), each block's state
+    read once and written once, the logits written once, over the HBM
+    rate."""
+    D, NH = model.embedding_dim, model.num_heads
+    weights = model.num_params() - model.embedding.weight.numel() + batch * D
+    state = model.num_blocks * batch * NH * (model.qk_head_dim * model.v_head_dim
+                                             + model.qk_head_dim + 1)
+    return 4 * (weights + 2 * state + batch * model.vocab_size) / PEAK_BYTES_PER_S * 1e3
+
+
+def phase_xlstm7b_path():
+    """xLSTM-7B at the published widths on seeded weights drawn on the
+    card: (a) a forward at XL_BATCH x XL_PROMPT tokens (shapes, finite,
+    |logits| <= 30); (b) at batch 1 the prefill of XL_PROMPT tokens and one
+    ``state=`` step against the last position of a from-scratch forward
+    over XL_PROMPT + 1 tokens (the recurrent form; rtol and atol 2e-3, the
+    JAX test's); (c) ``generate_scan`` (CUDA-graph replays) against eager
+    ``generate``, XL_NEW greedy tokens, exactly. Then prefill ms and
+    tokens/s, ms per token of eager ``generate``, of the eager step and of
+    the graph step on static buffers beside the bytes bound, and the peak
+    memory. No hand-written kernel runs here (JAX runs plain XLA)."""
+    import gc
+
+    import torch
+
+    from xlstm_yolo_torch.nn import xlstm_large as XL
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_all_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    model = XL.xLSTMLarge(**XLSTM_7B, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    V = model.vocab_size
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, V, (XL_BATCH, XL_PROMPT))).cuda()
+    nxt = torch.from_numpy(rng.integers(0, V, (1, 1))).cuda()
+
+    def ev_ms(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]), out
+
+    with torch.no_grad():
+        _, logits = ev_ms(lambda: model(toks))  # (a), and the warm-up
+        shapes_ok = tuple(logits.shape) == (XL_BATCH, XL_PROMPT, V)
+        finite = bool(torch.isfinite(logits).all())
+        logit_max = logits.abs().max().item()
+        del logits
+        prefill_ms = [ev_ms(lambda: model(toks))[0] for _ in range(2)]
+
+        one = toks[:1]
+        last, state = XL.prefill(model, one)  # (b)
+        step_logits, _ = model(nxt, state=state, return_last_states=True)
+        t1 = time.perf_counter()
+        full = model(torch.cat([one, nxt], dim=1))[:, -1]
+        torch.cuda.synchronize()
+        recurrent_s = time.perf_counter() - t1
+        step_err = (step_logits[:, 0] - full).abs().max().item()
+        step_ok = bool(torch.allclose(step_logits[:, 0], full, rtol=2e-3, atol=2e-3))
+        del step_logits, full, state
+
+        gen_ms, eager = ev_ms(lambda: XL.generate(model, one, XL_NEW))  # (c)
+        prefill1_ms, (last, state) = ev_ms(lambda: XL.prefill(model, one))
+        graph_tokens = XL.generate_scan(model, one, XL_NEW)
+        tokens_equal = bool(torch.equal(graph_tokens, eager))
+        per_token = {}
+        for kind in ("eager_step", "graph_step"):
+            dec = XL.DecodeGraph(model, 1, XL_NEW, graph=kind == "graph_step")
+            dec.reset(last, state)
+            ms, out = ev_ms(dec.run)
+            per_token[kind] = ms / XL_NEW
+            tokens_equal &= bool(torch.equal(out, eager[:, XL_PROMPT:]))
+            del dec
+        per_token["generate"] = (gen_ms - prefill1_ms) / XL_NEW
+    counts = all_kernel_counts()
+    bound_ms = decode_bytes_bound_ms(model, 1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_params = model.num_params()
+    del model, last, state, eager, graph_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill = float(np.median(prefill_ms))
+    cap_ok = logit_max <= XLSTM_7B["output_logit_soft_cap"] + 1e-4
+    ok = (shapes_ok and finite and cap_ok and step_ok and tokens_equal
+          and not any(counts.values()))
+    emit({"phase": "xlstm7b_path", "config": XLSTM_7B, "params": n_params,
+          "weights_gib": n_params * 4 / 2**30, "build_s": build_s, "shapes_ok": shapes_ok,
+          "finite": finite, "logits_abs_max": logit_max, "softcap_ok": cap_ok,
+          "prefill_step_vs_full_max_abs_err": step_err, "prefill_step_ok": step_ok,
+          "recurrent_forward_s": recurrent_s, "tokens_equal": tokens_equal,
+          "prefill_batch": XL_BATCH, "prefill_tokens": XL_PROMPT, "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": XL_BATCH * XL_PROMPT / prefill * 1e3,
+          "decode_batch": 1, "new_tokens": XL_NEW, "ms_per_token": per_token,
+          "decode_bytes_bound_ms": bound_ms,
+          "graph_over_bound": per_token["graph_step"] / bound_ms, "peak_gib": peak_gib,
+          "launches": counts, "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError("xlstm7b_path check failed")
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_yolo11_path():
+    """YOLO11n (``cfg/models/yolo11.yaml`` at scale n, 80 classes, full
+    depth and width): ``main_path`` and ``train_path`` with no ViL kernel
+    expected, then the card against the same port model on the CPU, with
+    the same weights: a fused eval forward at batch 2, 640 px (candidates),
+    and one unfused fp32 train step (loss and every gradient), both at
+    YOLO11_CPU_BATCH, within TOL_REL of each output's max."""
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    t_phase = time.perf_counter()
+    zero_all_kernel_counts()
+    phase_main_path(cfg=YOLO11, name="yolo11_path.inference", expected_launches=0)
+    phase_train_path(cfg=YOLO11, name="yolo11_path.train", expected_launches=0)
+    shape = (YOLO11_CPU_BATCH, IMGSZ, IMGSZ, 3)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, shape).astype(np.float32))
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            preds[dev] = build_main_model(dev, cfg=YOLO11).predictions(x.to(dev)).cpu()
+    got, ref = preds["cuda"], preds["cpu"]
+    box_rel = ((got[..., :4] - ref[..., :4]).abs().max() / ref[..., :4].abs().max()).item()
+    score_abs = (got[..., 4:] - ref[..., 4:]).abs().max().item()
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        model = build_main_model(dev, train=True, cfg=YOLO11)
+        step = TrainStep(model, amp=False)
+        total, _ = step.forward_loss(train_batch(dev, batch=YOLO11_CPU_BATCH))
+        step.backward(total)
+        steps[dev] = (float(total.detach()),
+                      {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    worst_rel, worst_name, vanishing, gmax = grad_errors(steps["cuda"][1], steps["cpu"][1])
+    loss_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    counts = all_kernel_counts()
+    ok = (box_rel <= TOL_REL and score_abs <= TOL_REL and worst_rel <= TOL_REL
+          and loss_rel <= TOL_REL and not any(counts.values()))
+    emit({"phase": "yolo11_path", "model": YOLO11, "cpu_batch": YOLO11_CPU_BATCH, "imgsz": IMGSZ,
+          "cands_box_maxrelerr_vs_cpu": box_rel, "cands_score_max_abs_err_vs_cpu": score_abs,
+          "loss": steps["cuda"][0], "loss_cpu": steps["cpu"][0],
+          "loss_relerr_vs_cpu": loss_rel, "grad_maxrelerr_vs_cpu": worst_rel,
+          "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+          "launches": counts, "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError("yolo11_path check failed")
+    return {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     phase = "device"
     try:
         smi_line, name = phase_device()
@@ -3497,6 +3710,10 @@ def main() -> int:
             {"cls_path": cls_img_s, "vil_headdim_path.cls_dh4": dh4_img_s})
         phase = "detect_keys_path"
         keys_launches, rect = phase_detect_keys_path(smi_line)
+        phase = "xlstm7b_path"
+        xlstm7b_launches = phase_xlstm7b_path()
+        phase = "yolo11_path"
+        yolo11_launches = phase_yolo11_path()
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -3517,7 +3734,9 @@ def main() -> int:
                "scales_path": scales_launches,
                **headdim_launches,
                **family_launches,
-               "detect_keys_path": keys_launches}
+               "detect_keys_path": keys_launches,
+               "xlstm7b_path": xlstm7b_launches,
+               "yolo11_path": yolo11_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran
@@ -3564,6 +3783,7 @@ def main() -> int:
         entry("mlstm_chunkwise_bwd_bf16", "mlstm_bwd.cu",
               "mlstm_pallas_bwd.py:255 (_kernel, mxu_dtype=bfloat16)", "train_loop_amp", k2b,
               fp32=k2)]})
+    emit({"run_seconds": time.perf_counter() - t_run})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -7,6 +7,7 @@ Tolerance: relative error (max |kernel - plain| / max |plain|) 1e-3, fp32
 with other summation orders and chunk lengths than the plain version; each
 gradient is held to its own max.
 """
+import copy
 from contextlib import nullcontext
 
 import numpy as np
@@ -1798,3 +1799,90 @@ def test_trainer_profile_names_the_bf16_kernels(cuda_device, tmp_path):
         assert any(K3.STAGES_BF16 in k for k in names)
         assert any(K2.STAGES_BF16 in k for k in names)
         assert not any(f in k for k in names for f in K3.STAGES + K2.STAGES)
+
+
+XL_SMALL = dict(vocab_size=64, embedding_dim=128, num_blocks=2, num_heads=2, chunk_size=16)
+
+
+def test_xlstm_large_graph_decode_matches_eager_generate(cuda_device):
+    """``generate_scan``'s CUDA-graph replay gives eager ``generate``'s
+    tokens, and each replayed step's logits are within 1e-5 of the eager
+    step's on the same state (DQK 32, DV 64, a 24-token prompt)."""
+    from xlstm_yolo_torch.nn import xlstm_large as XL
+
+    model = XL.xLSTMLarge(**XL_SMALL, device="cuda", seed=0)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 24))).cuda()
+    want = XL.generate(model, prompt, max_new_tokens=12)
+    assert torch.equal(XL.generate_scan(model, prompt, max_new_tokens=12), want)
+    last, state = XL.prefill(model, prompt)
+    graph, eager = (XL.DecodeGraph(model, 2, 12, graph=g) for g in (True, False))
+    assert graph.graph is not None and eager.graph is None
+    for dec in (graph, eager):
+        dec.reset(last, state)
+    for _ in range(12):
+        graph.step()
+        eager.step()
+        assert (graph.last - eager.last).abs().max().item() <= 1e-5 * eager.last.abs().max().item()
+    torch.testing.assert_close(graph.out, want[:, 24:], rtol=0, atol=0)
+
+
+def test_xlstm_large_graph_sampling_is_seeded(cuda_device):
+    """Sampling inside the graph draws from the generator it was given:
+    the same seed gives the same tokens, another seed others."""
+    from xlstm_yolo_torch.nn import xlstm_large as XL
+
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        pytest.skip("this PyTorch cannot register a generator with a CUDA graph")
+    model = XL.xLSTMLarge(**XL_SMALL, device="cuda", seed=1)
+    prompt = [[1, 2, 3, 4, 5, 6, 7, 8]]
+
+    def sample(seed):
+        return XL.generate_scan(model, prompt, 10, temperature=1.0,
+                                generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    assert torch.equal(sample(3), sample(3))
+    assert not torch.equal(sample(3), sample(4))
+
+
+def _yolo11_block(name):
+    from xlstm_yolo_torch.nn import heads as TH
+    from xlstm_yolo_torch.nn import modules as TM
+
+    return {"C3k": (lambda: TM.C3k(32, 48, n=2), (2, 32, 16, 16)),
+            "C3k2": (lambda: TM.C3k2(32, 64, n=2, c3k=True, e=0.25), (2, 32, 16, 16)),
+            "C3k2_bottleneck": (lambda: TM.C3k2(32, 64, n=2, e=0.25), (2, 32, 16, 16)),
+            "Attention": (lambda: TM.Attention(128, num_heads=2), (2, 128, 20, 20)),
+            "C2PSA": (lambda: TM.C2PSA(256, 256, n=1), (2, 256, 20, 20)),
+            "Detect": (lambda: TH.Detect(nc=80, ch=(64, 128, 256), legacy=False),
+                       [(2, 64, 80, 80), (2, 128, 40, 40), (2, 256, 20, 20)])}[name]
+
+
+@pytest.mark.parametrize("name", ["C3k", "C3k2", "C3k2_bottleneck", "Attention", "C2PSA",
+                                  "Detect"])
+def test_yolo11_blocks_on_card_match_cpu(cuda_device, name):
+    """Each YOLO11 block (plain torch ops, no kernel of the port's) in eval
+    mode on the card against the same module on the CPU, at yolo11n's P5
+    widths and grids, within 1e-4 of the output's max."""
+    from xlstm_yolo_torch.nn.modules import init_tree
+
+    make, shapes = _yolo11_block(name)
+    cpu = make()
+    init_tree(cpu, 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    cpu.eval()
+    card = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(2)
+    xs = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+          for s in (shapes if isinstance(shapes, list) else [shapes])]
+    with torch.no_grad():
+        want = cpu(xs if isinstance(shapes, list) else xs[0])
+        got = card([x.cuda() for x in xs] if isinstance(shapes, list) else xs[0].cuda())
+    pairs = ([t for pair in zip(got, want) for t in zip(*pair)] if isinstance(shapes, list)
+             else [(got, want)])
+    for gt, wt in pairs:
+        assert _rel(gt.cpu(), wt) <= 1e-4

@@ -1,8 +1,8 @@
 """mLSTM recurrence in plain torch: the chunkwise and the step-by-step form.
 
 Port of ``xlstm_yolo_tpu/kernels/mlstm_native.py`` (``soft_cap``,
-``_log_igate``, ``mlstm_recurrent_step``, ``mlstm_recurrent`` and
-``mlstm_chunkwise``).
+``_log_igate``, ``mlstm_parallel``, ``mlstm_recurrent_step``,
+``mlstm_recurrent`` and ``mlstm_chunkwise``).
 Recurrence per head, head dim DH, log-space max-stabilized:
 
     m_t = max(log f̃_t + m_{t-1}, log ĩ_t)
@@ -13,7 +13,8 @@ Recurrence per head, head dim DH, log-space max-stabilized:
 with log f̃ = logsigmoid(f_preact), and log ĩ = i_preact (``"exp"``) or
 logsigmoid(i_preact) (``"sigmoid"``). ``mlstm_chunkwise`` is the oracle the
 kernels' plain versions are built on; ``mlstm_recurrent`` is a second oracle
-that takes any sequence length.
+that takes any sequence length and a carried state, and ``mlstm_parallel``
+the O(S^2) form with a zero initial state.
 
 ``mm_dtype=torch.bfloat16`` gives the arithmetic of the TPU kernels at their
 default ``mxu_dtype="bfloat16"``: each matrix product reads its operands
@@ -86,16 +87,39 @@ def mlstm_recurrent_step(c_state, n_state, m_state, q, k, v, i_preact, f_preact,
     return h_num / denom[..., None], (c_new, n_new, m_new)
 
 
+def mlstm_parallel(q, k, v, i_preact, f_preact, igate_act: str = "exp", eps: float = 1e-6):
+    """O(S^2) stabilized parallel form, zero initial state. q/k (B, NH, S,
+    DQK), v (B, NH, S, DV), gates (B, NH, S) -> h (B, NH, S, DV) fp32."""
+    S, DH = q.shape[-2:]
+    f32 = torch.float32
+    q, k, v = q.to(f32), k.to(f32), v.to(f32)
+    logf = F.logsigmoid(f_preact.to(f32))
+    logi = _log_igate(i_preact.to(f32), igate_act)
+    b = torch.cumsum(logf, dim=-1)  # b_t = sum_{s<=t} log f_s
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    log_d = torch.where(causal, b[..., :, None] - b[..., None, :] + logi[..., None, :],
+                        torch.tensor(float("-inf"), device=q.device))
+    max_log_d = log_d.amax(dim=-1, keepdim=True)  # rowwise stabilizer
+    c = (q @ k.transpose(-1, -2)) / math.sqrt(DH) * torch.exp(log_d - max_log_d)
+    normalizer = torch.maximum(c.sum(dim=-1, keepdim=True).abs(), torch.exp(-max_log_d))
+    return (c / (normalizer + eps)) @ v
+
+
 def mlstm_recurrent(q, k, v, i_preact, f_preact, igate_act: str = "exp", eps: float = 1e-6,
-                    return_last_state: bool = False):
+                    initial_state=None, return_last_state: bool = False):
     """Full-sequence loop of the single-step form (slow reference path), any
     S. q/k (B, NH, S, DH), v (B, NH, S, DV), gates (B, NH, S) -> h
-    (B, NH, S, DV) fp32; the state starts at zero (m = 0)."""
+    (B, NH, S, DV) fp32. The state starts at ``initial_state`` = (C (B, NH,
+    DH, DV), n (B, NH, DH), m (B, NH)), or at zero (m = 0);
+    ``return_last_state`` also returns the state after the last step."""
     B, NH, S, DH = q.shape
     f32 = torch.float32
     q, k, v, i_preact, f_preact = (t.to(f32) for t in (q, k, v, i_preact, f_preact))
-    state = (q.new_zeros((B, NH, DH, v.shape[-1])), q.new_zeros((B, NH, DH)),
-             q.new_zeros((B, NH)))
+    if initial_state is None:
+        state = (q.new_zeros((B, NH, DH, v.shape[-1])), q.new_zeros((B, NH, DH)),
+                 q.new_zeros((B, NH)))
+    else:
+        state = tuple(initial_state)
     hs = []
     for t in range(S):
         h, state = mlstm_recurrent_step(*state, q[:, :, t], k[:, :, t], v[:, :, t],

@@ -1,8 +1,10 @@
 """YAML model graph -> torch module.
 
 Port of ``parse_model`` and ``GraphModel`` in ``xlstm_yolo_tpu/nn/graph.py``,
-restricted to the layer names the ViL-YOLO and YOLOv8 graphs use and the
-ViL blocks of ``nn/vil_blocks.py`` (registered under their JAX names). The
+restricted to the layer names the ViL-YOLO, YOLOv8 and YOLO11 graphs use
+and the ViL blocks of ``nn/vil_blocks.py`` (registered under their JAX
+names). As in JAX, a graph with a ``C3k2`` or ``A2C2f`` row (YOLO11, 12)
+builds its Detect head with ``legacy=False``. The
 YAML format is the Ultralytics one: ``backbone``/``head`` rows of
 ``[from, repeats, module, args]`` plus ``nc`` and ``scales``; channels are
 resolved statically with the same width scaling and depth rounding. Layer
@@ -33,6 +35,8 @@ from .vil_blocks import BLOCKS
 REGISTRY: dict[str, tuple[Any, str]] = {
     "Conv": (M.ConvBN, "conv"),
     "C2f": (M.C2f, "csp"),
+    "C3k2": (M.C3k2, "csp"),
+    "C2PSA": (M.C2PSA, "csp"),
     "SPPF": (M.SPPF, "conv"),
     "Concat": (M.Concat, "concat"),
     "nn.Upsample": (M.Upsample, "plain"),
@@ -94,6 +98,8 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
     channels = [ch]
     head_index = -1
     rows = list(cfg["backbone"]) + list(cfg.get("head", []))
+    # the YOLO11 / 12 graphs switch the Detect class branch to its depthwise form
+    legacy_head = not any(r[2] in ("C3k2", "A2C2f") for r in rows)
     for i, (f, n, name, args) in enumerate(rows):
         fs = tuple(f) if isinstance(f, (list, tuple)) else (f,)
         fs = tuple(x if x >= 0 else i + x for x in fs)
@@ -125,6 +131,8 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
             c2 = 0
             margs = [args[0] if args else nc]
             kwargs["ch"] = tuple(channels[x + 1] for x in fs)
+            if not legacy_head:
+                kwargs["legacy"] = False
         else:
             ch_in = tuple(channels[x + 1] for x in fs)
             c2, margs, kwargs = cls.parse(args, ch_in, width=width, max_ch=max_ch, n=n_rep)

@@ -21,14 +21,17 @@ from .modules import ConvBN, conv_in_dtype, lecun_normal_
 
 
 class Detect(nn.Module):
-    """Decoupled detect head (legacy v8 form: two 3x3 ConvBNs then a 1x1
-    conv in each of the box and class branches). Returns a list of
-    (box_map, cls_map) pairs, in the input's dtype."""
+    """Decoupled detect head. Box branch: two 3x3 ConvBNs, then a 1x1 conv.
+    Class branch, ``legacy`` (the v8 form): two 3x3 ConvBNs, then a 1x1
+    conv; ``legacy=False`` (YOLO11 and 12): a depthwise 3x3 ConvBN and a
+    1x1 ConvBN, twice (``cv3_{i}_{j}_0``, ``cv3_{i}_{j}_1``), then the 1x1
+    conv. Returns a list of (box_map, cls_map) pairs, in the input's
+    dtype."""
 
     def __init__(self, nc: int = 80, ch: tuple = (), reg_max: int = 16,
-                 strides: tuple = (8, 16, 32)):
+                 strides: tuple = (8, 16, 32), legacy: bool = True):
         super().__init__()
-        self.nc, self.reg_max, self.nl = nc, reg_max, len(ch)
+        self.nc, self.reg_max, self.nl, self.legacy = nc, reg_max, len(ch), legacy
         self.strides = strides  # used only for the class-bias init
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
@@ -36,8 +39,13 @@ class Detect(nn.Module):
             setattr(self, f"cv2_{i}_0", ConvBN(c, c2, 3))
             setattr(self, f"cv2_{i}_1", ConvBN(c2, c2, 3))
             setattr(self, f"cv2_{i}_2", nn.Conv2d(c2, 4 * reg_max, 1))
-            setattr(self, f"cv3_{i}_0", ConvBN(c, c3, 3))
-            setattr(self, f"cv3_{i}_1", ConvBN(c3, c3, 3))
+            if legacy:
+                setattr(self, f"cv3_{i}_0", ConvBN(c, c3, 3))
+                setattr(self, f"cv3_{i}_1", ConvBN(c3, c3, 3))
+            else:
+                for j, cin in enumerate((c, c3)):
+                    setattr(self, f"cv3_{i}_{j}_0", ConvBN(cin, cin, 3, g=cin))
+                    setattr(self, f"cv3_{i}_{j}_1", ConvBN(cin, c3, 1))
             setattr(self, f"cv3_{i}_2", nn.Conv2d(c3, nc, 1))
 
     def init_params(self, g: torch.Generator) -> None:
@@ -56,7 +64,10 @@ class Detect(nn.Module):
             c = x
             for j in range(2):
                 b = getattr(self, f"cv2_{i}_{j}")(b)
-                c = getattr(self, f"cv3_{i}_{j}")(c)
+                if self.legacy:
+                    c = getattr(self, f"cv3_{i}_{j}")(c)
+                else:
+                    c = getattr(self, f"cv3_{i}_{j}_1")(getattr(self, f"cv3_{i}_{j}_0")(c))
             outs.append((conv_in_dtype(getattr(self, f"cv2_{i}_2"), b),
                          conv_in_dtype(getattr(self, f"cv3_{i}_2"), c)))
         return outs

@@ -1,7 +1,9 @@
 """Conv blocks of the detection graphs, NCHW.
 
-Port of the blocks of ``xlstm_yolo_tpu/nn/modules.py`` that the ViL-YOLO and
-YOLOv8 graphs use: ConvBN, Bottleneck, C2f, SPPF, Concat and Upsample.
+Port of the blocks of ``xlstm_yolo_tpu/nn/modules.py`` that the ViL-YOLO,
+YOLOv8 and YOLO11 graphs use: ConvBN, Bottleneck, C2f, C3k, C3k2, SPPF,
+Concat, Upsample, and YOLO11's spatial attention (Attention, PSABlock,
+C2PSA).
 Submodule names follow the JAX parameter tree (``conv``/``bn``, ``cv1``,
 ``m0``...), so ``utils.jax_weights`` maps one onto the other by path.
 Unlike flax, a torch module is built knowing its input channels ``c1``.
@@ -159,6 +161,49 @@ class C2f(nn.Module):
         return self.cv2(torch.cat(ys, dim=1))
 
 
+class C3k(nn.Module):
+    """C3 with a ``k`` x ``k`` kernel in both convs of its bottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k: int = 3):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", Bottleneck(c_, c_, shortcut, g, k=(k, k), e=1.0))
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.cv3 = ConvBN(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m{i}")(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+
+
+class C3k2(nn.Module):
+    """YOLO11's C2f: its inner blocks are ``C3k(c, c, 2)`` (``c3k``) or a
+    Bottleneck with e=0.5 (C2f's has 1.0)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBN(c1, 2 * c, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", C3k(c, c, 2, shortcut, g) if c3k
+                    else Bottleneck(c, c, shortcut, g, k=(3, 3), e=0.5))
+        self.cv2 = ConvBN((2 + n) * c, c2, 1, 1)
+
+    def forward(self, x):
+        ys = list(self.cv1(x).chunk(2, dim=1))
+        for i in range(self.n):
+            ys.append(getattr(self, f"m{i}")(ys[-1]))
+        return self.cv2(torch.cat(ys, dim=1))
+
+
 class SPPF(nn.Module):
     """Spatial pyramid pooling, fast: three chained stride-1 max pools."""
 
@@ -197,3 +242,69 @@ class Upsample(nn.Module):
         if self.mode == "nearest":
             return F.interpolate(x, scale_factor=self.scale, mode="nearest")
         raise ValueError(f"Upsample mode {self.mode!r} is not ported")
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over the H x W grid plus a depthwise 3x3
+    positional conv of v. The ``qkv`` channels are (head, [q key_dim, k
+    key_dim, v head_dim]), the JAX package's NHWC reshape and the
+    reference's NCHW view alike; y and the ``pe`` input take v's channels
+    as head * head_dim + d. Scores and softmax in fp32, as the JAX block
+    computes them (plain ops, no kernel)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.qkv = ConvBN(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        kd = self.key_dim
+        qkv = self.qkv(x).view(B, self.num_heads, 2 * kd + self.head_dim, H * W)
+        q, k, v = qkv.split([kd, kd, self.head_dim], dim=2)
+        attn = (q.float().transpose(-2, -1) @ k.float()) / math.sqrt(kd)  # (B, NH, N, N)
+        attn = attn.softmax(dim=-1).to(v.dtype)
+        y = (v @ attn.transpose(-2, -1)).reshape(B, C, H, W)
+        return self.proj(y + self.pe(v.reshape(B, C, H, W)))
+
+
+class PSABlock(nn.Module):
+    """Attention, then a two-conv FFN, each with a residual (``shortcut``)."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4,
+                 shortcut: bool = True):
+        super().__init__()
+        self.attn = Attention(c, num_heads, attn_ratio)
+        self.ffn0 = ConvBN(c, 2 * c, 1)
+        self.ffn1 = ConvBN(2 * c, c, 1, act=False)
+        self.add = shortcut
+
+    def forward(self, x):
+        y = self.attn(x)
+        x = x + y if self.add else y
+        y = self.ffn1(self.ffn0(x))
+        return x + y if self.add else y
+
+
+class C2PSA(nn.Module):
+    """YOLO11's CSP wrapper of ``n`` PSABlocks (``c2 * e`` channels, one
+    head per 64 of them, at least one) on half of ``cv1``'s output."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBN(c1, 2 * c, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", PSABlock(c, attn_ratio=0.5, num_heads=max(1, c // 64)))
+        self.cv2 = ConvBN(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, dim=1)
+        for i in range(self.n):
+            b = getattr(self, f"m{i}")(b)
+        return self.cv2(torch.cat([a, b], dim=1))

@@ -143,14 +143,29 @@ class mLSTMLayer1d(nn.Module):
         return self.proj_down(h)
 
 
-class GatedFeedForward(nn.Module):
-    """Gated FFN: proj_up to (gate, up), gelu(gate) * up, proj_down, with
-    the tanh-approximated gelu (the default of flax's ``nn.gelu``; torch's
-    ``F.gelu`` defaults to the exact form)."""
+# the JAX GatedFeedForward's act_fn table; gelu is the tanh-approximated form
+# (the default of flax's ``nn.gelu``; torch's ``F.gelu`` defaults to the exact one)
+FFN_ACTS = {
+    "gelu": lambda v: F.gelu(v, approximate="tanh"),
+    "relu": F.relu,
+    "swish": F.silu,
+    "sigmoid": torch.sigmoid,
+    "selu": F.selu,
+    "relu^2": lambda v: F.relu(v).square(),
+}
 
-    def __init__(self, embedding_dim: int, proj_factor: float = 1.3, num_blocks: int = 1):
+
+class GatedFeedForward(nn.Module):
+    """Gated FFN: proj_up to (gate, up), act(gate) * up, proj_down, with
+    ``act_fn`` one of ``FFN_ACTS`` (gelu by default; "swish" gives the
+    SwiGLU form)."""
+
+    def __init__(self, embedding_dim: int, proj_factor: float = 1.3, num_blocks: int = 1,
+                 act_fn: str = "gelu"):
         super().__init__()
-        self.embedding_dim, self.num_blocks = embedding_dim, num_blocks
+        if act_fn not in FFN_ACTS:
+            raise ValueError(f"unknown act_fn {act_fn!r}; one of {sorted(FFN_ACTS)}")
+        self.embedding_dim, self.num_blocks, self.act = embedding_dim, num_blocks, FFN_ACTS[act_fn]
         self.up = _round_up_proj(embedding_dim, proj_factor)
         self.proj_up = nn.Linear(embedding_dim, 2 * self.up, bias=False)
         self.proj_down = nn.Linear(self.up, embedding_dim, bias=False)
@@ -161,7 +176,7 @@ class GatedFeedForward(nn.Module):
 
     def forward(self, x):
         gate, up = self.proj_up(x).split(self.up, dim=-1)
-        return self.proj_down(F.gelu(gate, approximate="tanh") * up)
+        return self.proj_down(self.act(gate) * up)
 
 
 class xLSTMBlock(nn.Module):
