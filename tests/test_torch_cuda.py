@@ -1886,3 +1886,73 @@ def test_yolo11_blocks_on_card_match_cpu(cuda_device, name):
              else [(got, want)])
     for gt, wt in pairs:
         assert _rel(gt.cpu(), wt) <= 1e-4
+
+
+def _zoo_block(name):
+    from xlstm_yolo_torch.nn import heads as TH
+    from xlstm_yolo_torch.nn import modules as TM
+
+    cb = [[(2, 16, 40, 40), (2, 32, 40, 40)], [(2, 32, 10, 10)], (2, 32, 20, 20)]
+    return {"ConvTransposeBN": (lambda: TM.ConvTransposeBN(64, 64, 2, 2), (2, 64, 40, 40)),
+            "C3Ghost": (lambda: TM.C3Ghost(32, 64, n=2), (2, 32, 40, 40)),
+            "GhostBottleneck_s2": (lambda: TM.GhostBottleneck(32, 64, 3, 2), (2, 32, 40, 40)),
+            "ADown": (lambda: TM.ADown(64, 128), (2, 64, 41, 41)),
+            "AConv": (lambda: TM.AConv(64, 96), (2, 64, 41, 41)),
+            "RepNCSPELAN4": (lambda: TM.RepNCSPELAN4(64, 128, 64, 32, 2), (2, 64, 40, 40)),
+            "SPPELAN": (lambda: TM.SPPELAN(128, 128, 64), (2, 128, 20, 20)),
+            "CBFuse": (lambda: TM.CBFuse((1, 0)), cb),
+            "C2fCIB_lk": (lambda: TM.C2fCIB(64, 64, n=2, shortcut=True, lk=True),
+                          (2, 64, 20, 20)),
+            "PSA": (lambda: TM.PSA(256, 256), (2, 256, 20, 20)),
+            "A2C2f": (lambda: TM.A2C2f(64, 128, n=2, a2=True, area=4), (2, 64, 40, 40)),
+            "v10Detect": (lambda: TH.v10Detect(nc=80, ch=(64, 128, 256)),
+                          [(2, 64, 80, 80), (2, 128, 40, 40), (2, 256, 20, 20)])}[name]
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+@pytest.mark.parametrize("name", ["ConvTransposeBN", "C3Ghost", "GhostBottleneck_s2", "ADown",
+                                  "AConv", "RepNCSPELAN4", "SPPELAN", "CBFuse", "C2fCIB_lk",
+                                  "PSA", "A2C2f", "v10Detect"])
+def test_detect_zoo_blocks_on_card_match_cpu(cuda_device, name):
+    """Blocks of the rest of the detect zoo (plain torch ops, no kernel of
+    the port's) in eval mode on the card against the same module on the
+    CPU, at the widths and grids of the zoo's small models, within 1e-4 of
+    each output's max; ConvTransposeBN also folded (``fuse_conv_bn``)."""
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+    from xlstm_yolo_torch.nn.modules import init_tree
+
+    make, shapes = _zoo_block(name)
+    cpu = make()
+    init_tree(cpu, 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    cpu.eval()
+    rng = np.random.default_rng(2)
+
+    def build(s):
+        if isinstance(s, list):
+            return [build(t) for t in s]
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32))
+
+    def to_card(x):
+        return [to_card(t) for t in x] if isinstance(x, list) else x.cuda()
+
+    x = build(shapes)
+    for model in ([cpu, fuse_conv_bn(copy.deepcopy(cpu))] if name == "ConvTransposeBN" else [cpu]):
+        card = copy.deepcopy(model).cuda()
+        with torch.no_grad():
+            want, got = _leaves(model(x)), _leaves(card(to_card(x)))
+        assert len(got) == len(want) > 0
+        for gt, wt in zip(got, want):
+            assert _rel(gt.cpu(), wt) <= 1e-4

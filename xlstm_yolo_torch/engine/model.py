@@ -154,9 +154,11 @@ class Model:
 
     def embed(self, source=None, imgsz: int = 640) -> list:
         """One vector an image of ``source``: each of the Detect head's output
-        maps (per scale, the box then the class map) averaged over H and W,
-        concatenated; fp32, the image letterboxed to ``imgsz``."""
+        maps (per scale, the box then the class map; an end-to-end head's
+        one2one maps) averaged over H and W, concatenated; fp32, the image
+        letterboxed to ``imgsz``."""
         from ..data.augment import letterbox
+        from ..nn.heads import det_maps
         from .predictor import load_source
 
         model = self.model.eval()
@@ -165,7 +167,7 @@ class Model:
             img, _, _ = letterbox(orig, imgsz)
             with torch.inference_mode():
                 x = torch.from_numpy(img).to(self.device)[None].float() / 255.0
-                maps = model(x.permute(0, 3, 1, 2))
+                maps = det_maps(model(x.permute(0, 3, 1, 2)))
                 pooled = [t.float().mean((2, 3)).reshape(-1) for pair in maps for t in pair]
                 outs.append(torch.cat(pooled).cpu().numpy())
         return outs

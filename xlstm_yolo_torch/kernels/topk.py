@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..utils import at_least_fp32
 from ._build import CudaLibrary, check_tensor
 
 NEG_INF = -1e30
@@ -34,11 +35,11 @@ _LIB = CudaLibrary("topk.cu", {
 
 def rowwise_kth_value_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     """The kernel's plain version, over the last axis of any (..., N)
-    tensor -> (..., 1) fp32: k-1 passes that each suppress every entry equal
-    to the row max, then the max."""
+    tensor -> (..., 1) fp32 (fp64 for fp64 x): k-1 passes that each
+    suppress every entry equal to the row max, then the max."""
     if k < 1:
         raise ValueError(f"rowwise_kth_value: k must be at least 1, got {k}")
-    v = x.float()
+    v = at_least_fp32(x)
     for _ in range(k - 1):
         v = torch.where(v >= v.amax(dim=-1, keepdim=True), NEG_INF, v)
     return v.amax(dim=-1, keepdim=True)

@@ -1,17 +1,23 @@
 """YAML model graph -> torch module.
 
-Port of ``parse_model`` and ``GraphModel`` in ``xlstm_yolo_tpu/nn/graph.py``,
-restricted to the layer names the ViL-YOLO, YOLOv8 and YOLO11 graphs use
-and the ViL blocks of ``nn/vil_blocks.py`` (registered under their JAX
-names). As in JAX, a graph with a ``C3k2`` or ``A2C2f`` row (YOLO11, 12)
-builds its Detect head with ``legacy=False``. The
-YAML format is the Ultralytics one: ``backbone``/``head`` rows of
-``[from, repeats, module, args]`` plus ``nc`` and ``scales``; channels are
-resolved statically with the same width scaling and depth rounding. Layer
-``i`` is the submodule ``l{i}``, as in the JAX parameter tree. Channel
-Concat runs on dim 1 (NCHW). A layer's output may be an NCHW map, a (B, S,
-D) sequence or a list (a ViL backbone's partials); a "custom" block's own
-``parse`` resolves its channels from those of every input it reads.
+Port of ``parse_model``, ``Repeat`` and ``GraphModel`` in
+``xlstm_yolo_tpu/nn/graph.py`` for the detect task: every layer name of the
+detection YAMLs the port ships (YOLOv3, v5, v6, v8 and its ghost / P2 / P6
+variants, v9, v10, YOLO11, YOLO12, ViL-YOLO) and the ViL blocks of
+``nn/vil_blocks.py`` (registered under their JAX names). The names of the
+other JAX heads and families (``NOT_PORTED``) raise a ``KeyError`` that
+says what they wait on. As in JAX, a graph with a ``C3k2`` or ``A2C2f``
+row (YOLO11, 12) builds its Detect head with ``legacy=False``. The YAML
+format is the Ultralytics one: ``backbone``/``head`` rows of ``[from,
+repeats, module, args]`` plus ``nc`` and ``scales``; channels are resolved
+statically with the same width scaling and depth rounding. Layer ``i`` is
+the submodule ``l{i}``, as in the JAX parameter tree; a repeated row that
+is not a CSP block is a ``Repeat`` of copies ``l{i}.r{j}``. Channel Concat
+runs on dim 1 (NCHW). A layer's output may be an NCHW map, a (B, S, D)
+sequence or a list (a ViL backbone's partials, a ``CBLinear``'s maps,
+whose channel entry is then a tuple); a "custom" block's own ``parse``
+resolves its channels from those of every input it reads, in ``from``
+order (``CBFuse``'s target is the last).
 """
 from __future__ import annotations
 
@@ -28,25 +34,68 @@ from .vil_blocks import BLOCKS
 # name -> (module class, kind); kind decides channel/argument resolution:
 #   "conv"   args[0] is c2 (width-scaled)
 #   "csp"    like conv, with the depth-scaled repeat count inserted
-#   "plain"  c2 = c1
+#   "elan"   RepNCSPELAN4 [c2, c3, c4, n]: only c2 is width-scaled
+#   "plain"  c2 = c1, the row's arguments per layer name
 #   "concat" c2 = sum of the input channels
+#   "index"  c2 = args[0], the channels of the selected list element
 #   "head"   detection head over a list of taps
 #   "custom" the class's own ``parse``
 REGISTRY: dict[str, tuple[Any, str]] = {
     "Conv": (M.ConvBN, "conv"),
+    "DWConv": (M.DWConv, "conv"),
+    "GhostConv": (M.GhostConv, "conv"),
+    "ConvTranspose": (M.ConvTransposeBN, "conv"),
+    "Bottleneck": (M.Bottleneck, "conv"),
+    "GhostBottleneck": (M.GhostBottleneck, "conv"),
+    "SPP": (M.SPP, "conv"),
+    "SPPF": (M.SPPF, "conv"),
+    "SCDown": (M.SCDown, "conv"),
+    "ADown": (M.ADown, "conv"),
+    "AConv": (M.AConv, "conv"),
+    "RepConv": (M.RepConv, "conv"),
+    "RepVGGDW": (M.RepVGGDW, "conv"),
+    "PSA": (M.PSA, "conv"),
+    "C2": (M.C2, "csp"),
     "C2f": (M.C2f, "csp"),
+    "C3": (M.C3, "csp"),
+    "C3Ghost": (M.C3Ghost, "csp"),
     "C3k2": (M.C3k2, "csp"),
     "C2PSA": (M.C2PSA, "csp"),
-    "SPPF": (M.SPPF, "conv"),
+    "C2fCIB": (M.C2fCIB, "csp"),
+    "A2C2f": (M.A2C2f, "csp"),
+    "RepNCSPELAN4": (M.RepNCSPELAN4, "elan"),
+    "SPPELAN": (M.SPPELAN, "custom"),
+    "ELAN1": (M.ELAN1, "custom"),
+    "CBLinear": (M.CBLinear, "custom"),
+    "CBFuse": (M.CBFuse, "custom"),
     "Concat": (M.Concat, "concat"),
+    "Index": (M.Index, "index"),
     "nn.Upsample": (M.Upsample, "plain"),
+    "nn.MaxPool2d": (M.MaxPool, "plain"),
+    "MaxPool": (M.MaxPool, "plain"),
+    "nn.ZeroPad2d": (nn.ZeroPad2d, "plain"),
+    "nn.Identity": (nn.Identity, "plain"),
+    "Silence": (nn.Identity, "plain"),
     "Detect": (H.Detect, "head"),
+    "v10Detect": (H.v10Detect, "head"),
     **{name: (cls, "custom") for name, cls in BLOCKS.items()},
 }
 
 
 # names of the JAX graph the port refuses, with what they wait on
-NOT_PORTED = {"MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py"}
+_OTHER_TASKS = "the segment, pose, obb and classify tasks are not ported yet"
+NOT_PORTED = {
+    "MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py",
+    **{name: _OTHER_TASKS for name in ("Segment", "Pose", "OBB", "Classify", "ResNetLayer",
+                                       "TorchVision")},
+    **{name: "the RT-DETR family (nn/rtdetr.py) is not ported yet"
+       for name in ("HGStem", "HGBlock", "AIFI", "RTDETRDecoder", "RepC3", "LightConv")},
+    **{name: "the YOLO-World family (nn/world.py) is not ported yet"
+       for name in ("C2fAttn", "WorldDetect", "ImagePoolingAttn")},
+    **{name: "no detection YAML uses it; it is not ported yet"
+       for name in ("Focus", "Conv2", "C1", "C2fPSA", "C3x", "BottleneckCSP", "CBAM",
+                    "ChannelAttention", "SpatialAttention")},
+}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -63,13 +112,34 @@ class LayerSpec:
     c2: int
     args: tuple = ()
     kwargs: tuple = ()  # (k, v) pairs
+    n: int = 1  # copies of a repeated row that is not a CSP block
 
     def build(self) -> nn.Module:
+        return Repeat(self) if self.n > 1 else self.build_one(self.c1)
+
+    def build_one(self, c1) -> nn.Module:
         cls, kind = REGISTRY[self.name]
         kw = dict(self.kwargs)
-        if kind in ("conv", "csp"):
-            return cls(self.c1, *self.args, **kw)
+        if kind in ("conv", "csp", "elan"):
+            return cls(c1, *self.args, **kw)
         return cls(*self.args, **kw)
+
+
+class Repeat(nn.Module):
+    """``n`` copies of a row's module chained, ``r0`` ... (YAML repeats of a
+    row that is not a CSP block, e.g. YOLOv3's bottlenecks and YOLOv6's
+    convs): the first maps c1 to c2, the others c2 to c2."""
+
+    def __init__(self, spec: LayerSpec):
+        super().__init__()
+        self.n = spec.n
+        for j in range(spec.n):
+            setattr(self, f"r{j}", spec.build_one(spec.c1 if j == 0 else spec.c2))
+
+    def forward(self, x):
+        for j in range(self.n):
+            x = getattr(self, f"r{j}")(x)
+        return x
 
 
 @dataclass
@@ -116,30 +186,42 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_ch) * width, 8)
             margs = [c2, *args[1:]] if kind == "conv" else [c2, n_rep, *args[1:]]
+        elif kind == "elan":
+            c2 = make_divisible(min(args[0], max_ch) * width, 8)
+            margs = [c2, args[1], args[2], args[3] if len(args) > 3 else 1]
         elif kind == "concat":
             c2 = sum(channels[x + 1] for x in fs)
             margs = [args[0] if args else 1]  # YAML dims are NCHW already
+        elif kind == "index":
+            c2 = args[0] if args else 0
+            margs = list(args[1:])
         elif kind == "plain":
             c2 = c1
             margs = []
-            if len(args) >= 2 and args[1]:
-                kwargs["scale"] = int(args[1])
-            if len(args) >= 3 and args[2]:
-                kwargs["mode"] = str(args[2])
+            if cls is M.Upsample:  # [None, scale, mode]
+                if len(args) >= 2 and args[1]:
+                    kwargs["scale"] = int(args[1])
+                if len(args) >= 3 and args[2]:
+                    kwargs["mode"] = str(args[2])
+            elif cls is M.MaxPool:  # [k, s, p]: explicit padding is a ZeroPad2d row
+                margs = list(args[:2])
+            elif cls is nn.ZeroPad2d:  # [[left, right, top, bottom]]
+                margs = [tuple(args[0])]
         elif kind == "head":
             head_index = i
             c2 = 0
             margs = [args[0] if args else nc]
             kwargs["ch"] = tuple(channels[x + 1] for x in fs)
-            if not legacy_head:
+            if cls is H.Detect and not legacy_head:
                 kwargs["legacy"] = False
         else:
             ch_in = tuple(channels[x + 1] for x in fs)
             c2, margs, kwargs = cls.parse(args, ch_in, width=width, max_ch=max_ch, n=n_rep)
-        if kind not in ("csp", "custom") and n_rep > 1:
-            raise ValueError(f"layer {i}: repeats of {name!r} are not ported")
-        specs.append(LayerSpec(i=i, f=fs, name=name, c1=c1, c2=c2, args=tuple(margs),
-                               kwargs=tuple(sorted(kwargs.items()))))
+        if kind in ("csp", "elan", "custom"):
+            n_rep = 1  # the block takes its own repeat count
+        specs.append(LayerSpec(i=i, f=fs, name=name, c1=c1, c2=c2,
+                               args=tuple(margs),
+                               kwargs=tuple(sorted(kwargs.items())), n=n_rep))
         channels.append(c2)
         save.update(x for x in fs if x != i - 1 and x >= 0)
     return ParsedModel(specs=tuple(specs), save=tuple(sorted(save)), nc=nc, task="detect",

@@ -1,9 +1,13 @@
 """Conv blocks of the detection graphs, NCHW.
 
-Port of the blocks of ``xlstm_yolo_tpu/nn/modules.py`` that the ViL-YOLO,
-YOLOv8 and YOLO11 graphs use: ConvBN, Bottleneck, C2f, C3k, C3k2, SPPF,
-Concat, Upsample, and YOLO11's spatial attention (Attention, PSABlock,
-C2PSA).
+Port of the blocks of ``xlstm_yolo_tpu/nn/modules.py`` that the detection
+graphs use: ConvBN, Bottleneck, C2f, C3k, C3k2, SPPF, Concat, Upsample and
+YOLO11's spatial attention (Attention, PSABlock, C2PSA); then the rest of
+the zoo: YOLOv3 / v5 / v6 / v8 variants (DWConv, C3, C2, MaxPool, Index,
+GhostConv, GhostBottleneck, C3Ghost, ConvTransposeBN, SPP; the graph
+builds torch's ``nn.ZeroPad2d`` and ``nn.Identity`` itself), YOLOv9 (ADown, AConv, RepConv, RepBottleneck,
+RepCSP, RepNCSPELAN4, SPPELAN, ELAN1, CBLinear, CBFuse), YOLOv10 (SCDown,
+RepVGGDW, CIB, C2fCIB, PSA) and YOLO12 (AAttn, ABlock, A2C2f).
 Submodule names follow the JAX parameter tree (``conv``/``bn``, ``cv1``,
 ``m0``...), so ``utils.jax_weights`` maps one onto the other by path.
 Unlike flax, a torch module is built knowing its input channels ``c1``.
@@ -21,6 +25,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils import at_least_fp32
 
 BN_EPS = 1e-3  # the JAX ConvBN's BatchNorm epsilon
 BN_MOMENTUM = 0.03  # torch convention: flax's momentum 0.97 keeps 0.97 of the old value
@@ -94,8 +100,9 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     biased variance, and update the running statistics with that same
     biased variance (torch's own update uses the unbiased one) at the
     module's momentum. ``num_batches_tracked`` is not used. Computed in fp32
-    and returned in x's dtype; the statistics update in fp32."""
-    dt, x = x.dtype, x.float()
+    (fp64 for fp64 x) and returned in x's dtype; the statistics update in
+    that dtype."""
+    dt, x = x.dtype, at_least_fp32(x)
     y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps).to(dt)
     with torch.no_grad():
         var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
@@ -161,17 +168,20 @@ class C2f(nn.Module):
         return self.cv2(torch.cat(ys, dim=1))
 
 
-class C3k(nn.Module):
-    """C3 with a ``k`` x ``k`` kernel in both convs of its bottlenecks."""
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: ``cv1``, then n inner blocks, beside
+    ``cv2``, both into ``cv3``. The blocks are Bottlenecks of a 1x1 then a
+    3x3 conv, or what ``block(c_)`` builds (C3k, C3Ghost, RepCSP)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
-                 e: float = 0.5, k: int = 3):
+                 e: float = 0.5, block=None):
         super().__init__()
         c_ = int(c2 * e)
         self.n = n
         self.cv1 = ConvBN(c1, c_, 1, 1)
+        block = block or (lambda c: Bottleneck(c, c, shortcut, g, k=(1, 3), e=1.0))
         for i in range(n):
-            setattr(self, f"m{i}", Bottleneck(c_, c_, shortcut, g, k=(k, k), e=1.0))
+            setattr(self, f"m{i}", block(c_))
         self.cv2 = ConvBN(c1, c_, 1, 1)
         self.cv3 = ConvBN(2 * c_, c2, 1, 1)
 
@@ -180,6 +190,15 @@ class C3k(nn.Module):
         for i in range(self.n):
             a = getattr(self, f"m{i}")(a)
         return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+
+
+class C3k(C3):
+    """C3 with a ``k`` x ``k`` kernel in both convs of its bottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k: int = 3):
+        super().__init__(c1, c2, n, e=e,
+                         block=lambda c: Bottleneck(c, c, shortcut, g, k=(k, k), e=1.0))
 
 
 class C3k2(nn.Module):
@@ -266,7 +285,7 @@ class Attention(nn.Module):
         kd = self.key_dim
         qkv = self.qkv(x).view(B, self.num_heads, 2 * kd + self.head_dim, H * W)
         q, k, v = qkv.split([kd, kd, self.head_dim], dim=2)
-        attn = (q.float().transpose(-2, -1) @ k.float()) / math.sqrt(kd)  # (B, NH, N, N)
+        attn = (at_least_fp32(q).transpose(-2, -1) @ at_least_fp32(k)) / math.sqrt(kd)  # (B, NH, N, N)
         attn = attn.softmax(dim=-1).to(v.dtype)
         y = (v @ attn.transpose(-2, -1)).reshape(B, C, H, W)
         return self.proj(y + self.pe(v.reshape(B, C, H, W)))
@@ -308,3 +327,543 @@ class C2PSA(nn.Module):
         for i in range(self.n):
             b = getattr(self, f"m{i}")(b)
         return self.cv2(torch.cat([a, b], dim=1))
+
+
+# --- the rest of the detect zoo: YOLOv3, v5, v6, the v8 variants, v9, v10, YOLO12 ---
+
+
+class DWConv(ConvBN):
+    """A ConvBN grouped by gcd(c1, c2) (depthwise where c1 == c2); the
+    positional arguments are the JAX ``DWConv``'s (c2, k, s, d, act, p)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act: bool = True,
+                 p: int | None = None):
+        super().__init__(c1, c2, k, s, p, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: the bottlenecks run on one half of
+    ``cv1``'s output, the other half passes."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBN(c1, 2 * c, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0))
+        self.cv2 = ConvBN(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        for i in range(self.n):
+            a = getattr(self, f"m{i}")(a)
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class MaxPool(nn.Module):
+    """Max pool, padded by k // 2 where k is odd (explicit padding is a
+    ``ZeroPad2d`` row)."""
+
+    def __init__(self, k: int = 2, s: int = 2):
+        super().__init__()
+        self.k, self.s = k, s
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.k, self.s, self.k // 2 if self.k % 2 else 0)
+
+
+class Index(nn.Module):
+    """One element of a list input."""
+
+    def __init__(self, index: int = 0):
+        super().__init__()
+        self.index = index
+
+    def forward(self, xs):
+        return xs[self.index]
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a ConvBN to half the channels, and a depthwise
+    5x5 ConvBN of that half beside it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBN(c1, c_, k, s, act=act)
+        self.cv2 = ConvBN(c_, c_, 5, 1, g=c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], dim=1)
+
+
+class GhostBottleneck(nn.Module):
+    """Two GhostConvs (a depthwise strided conv between them where s is
+    2, and a depthwise + 1x1 shortcut), the input added where the shapes
+    agree."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.s = s
+        self.g1 = GhostConv(c1, c_, 1, 1)
+        if s == 2:
+            self.dw = DWConv(c_, c_, k, s, act=False)
+        self.g2 = GhostConv(c_, c2, 1, 1, act=False)
+        if s == 2:
+            self.sc1 = DWConv(c1, c1, k, s, act=False)
+            self.sc2 = ConvBN(c1, c2, 1, 1, act=False)
+
+    def forward(self, x):
+        y = self.g1(x)
+        if self.s == 2:
+            y = self.dw(y)
+            x = self.sc2(self.sc1(x))
+        y = self.g2(y)
+        return x + y if x.shape == y.shape else y
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottlenecks (``shortcut`` is taken for the YAML row's
+    sake and unused, as in the JAX block)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__(c1, c2, n, e=e, block=lambda c: GhostBottleneck(c, c))
+
+
+def conv_transpose_same_pad(k: int, s: int) -> tuple[int, int]:
+    """flax ``ConvTranspose``'s default ``"SAME"`` padding (lax's
+    ``_conv_transpose_padding``): the (before, after) padding of the
+    stride-dilated input, which gives an output of ``s`` times the input."""
+    pad_len = k + s - 2
+    before = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
+    return before, pad_len - before
+
+
+class ConvTransposeBN(nn.Module):
+    """Transposed conv (no bias) + BatchNorm + SiLU, with flax's
+    ``ConvTranspose`` semantics: an output of ``s`` times the input, and
+    the kernel not flipped (``utils.jax_weights`` flips the flax kernel
+    into torch's (in, out, kh, kw) layout, so torch's transposed conv,
+    which flips, computes the same)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, act: bool = True):
+        super().__init__()
+        self.k, self.s = k, s
+        self.conv = nn.ConvTranspose2d(c1, c2, k, s, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = act
+
+    def init_params(self, g: torch.Generator) -> None:
+        w = self.conv.weight  # (in, out, kh, kw): flax's fan-in is in * kh * kw
+        std = math.sqrt(1.0 / (w.shape[0] * w[0, 0].numel())) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+        if isinstance(self.bn, nn.BatchNorm2d):
+            self.bn.reset_parameters()
+
+    def forward(self, x):
+        conv = self.conv
+        y = F.conv_transpose2d(x, conv.weight.to(x.dtype), None, self.s)  # pads k - 1 a side
+        before, after = conv_transpose_same_pad(self.k, self.s)
+        h, w = x.shape[2] * self.s, x.shape[3] * self.s
+        start = self.k - 1 - before
+        y = y[..., start:start + h, start:start + w]
+        y = F.pad(y, (0, w - y.shape[3], 0, h - y.shape[2]))  # after > k - 1: zero rows
+        if conv.bias is not None:  # folded by fuse_conv_bn
+            y = y + conv.bias.to(x.dtype).reshape(1, -1, 1, 1)
+        if isinstance(self.bn, nn.BatchNorm2d):
+            y = batch_norm_train(y, self.bn) if self.training else batch_norm_eval(y, self.bn)
+        return F.silu(y) if self.act else y
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: parallel stride-1 max pools of kernels ``k``."""
+
+    def __init__(self, c1: int, c2: int, k: tuple = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        outs = [y] + [F.max_pool2d(y, k, 1, k // 2) for k in self.k]
+        return self.cv2(torch.cat(outs, dim=1))
+
+
+def pad_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """v9's 2x2 stride-1 average pool after one zero row and column at the
+    bottom and right, the pad counted: the size stays (flax's ``avg_pool``
+    with ``padding=((0, 1), (0, 1))``)."""
+    return F.avg_pool2d(F.pad(x, (0, 1, 0, 1)), 2, 1)
+
+
+class ADown(nn.Module):
+    """v9 downsample: after ``pad_avg_pool``, half the channels through a
+    strided 3x3 ConvBN, the other half through a 3x3 stride-2 max pool and
+    a 1x1 ConvBN."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        c = c2 // 2
+        self.cv1 = ConvBN(c1 // 2, c, 3, 2)
+        self.cv2 = ConvBN(c1 // 2, c, 1, 1)
+
+    def forward(self, x):
+        x1, x2 = pad_avg_pool(x).chunk(2, dim=1)
+        return torch.cat([self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))], dim=1)
+
+
+class AConv(nn.Module):
+    """v9-t/s downsample: ``pad_avg_pool``, then a strided 3x3 ConvBN."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 3, 2)
+
+    def forward(self, x):
+        return self.cv1(pad_avg_pool(x))
+
+
+class RepConv(nn.Module):
+    """A k x k and a 1x1 ConvBN (no activation) summed, then SiLU: the
+    train form of the re-parameterizable conv, as the JAX package keeps it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, act: bool = True):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, k, s, act=False)
+        self.conv2 = ConvBN(c1, c2, 1, s, act=False)
+        self.act = act
+
+    def forward(self, x):
+        y = self.conv1(x) + self.conv2(x)
+        return F.silu(y) if self.act else y
+
+
+class RepBottleneck(nn.Module):
+    """Bottleneck whose first conv is a RepConv."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = RepConv(c1, c_, 3, 1)
+        self.cv2 = ConvBN(c_, c2, 3, 1)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class RepCSP(C3):
+    """C3 with RepBottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, e=e, block=lambda c: RepBottleneck(c, c, True, e=1.0))
+
+
+class RepNCSPELAN4(nn.Module):
+    """YOLOv9's ELAN block, YAML args [c2, c3, c4, n]: ``cv1`` to c3
+    channels split in two; the second half through RepCSP + 3x3 ConvBN
+    twice; all four concatenated into ``cv4``."""
+
+    def __init__(self, c1: int, c2: int, c3: int = 64, c4: int = 32, n: int = 1):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c3, 1, 1)
+        self.csp1 = RepCSP(c3 // 2, c4, n)
+        self.cv2 = ConvBN(c4, c4, 3, 1)
+        self.csp2 = RepCSP(c4, c4, n)
+        self.cv3 = ConvBN(c4, c4, 3, 1)
+        self.cv4 = ConvBN(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x):
+        y1, y2 = self.cv1(x).chunk(2, dim=1)
+        y3 = self.cv2(self.csp1(y2))
+        y4 = self.cv3(self.csp2(y3))
+        return self.cv4(torch.cat([y1, y2, y3, y4], dim=1))
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN: ``cv1`` to c3 channels, three chained stride-1 max pools,
+    all four into ``cv5``. YAML args [c2, c3], both width-scaled."""
+
+    def __init__(self, c1: int, c2: int, c3: int = 0, k: int = 5):
+        super().__init__()
+        c3 = c3 or c2 // 2
+        self.k = k
+        self.cv1 = ConvBN(c1, c3, 1, 1)
+        self.cv5 = ConvBN(4 * c3, c2, 1, 1)
+
+    @classmethod
+    def parse(cls, args, ch_in, width=1.0, **kw):
+        from .graph import make_divisible
+
+        c2 = make_divisible(args[0] * width, 8)
+        c3 = make_divisible(args[1] * width, 8) if len(args) > 1 else 0
+        return c2, [ch_in[0], c2, c3, *args[2:]], {}
+
+    def forward(self, x):
+        outs = [self.cv1(x)]
+        for _ in range(3):
+            outs.append(F.max_pool2d(outs[-1], self.k, 1, self.k // 2))
+        return self.cv5(torch.cat(outs, dim=1))
+
+
+class ELAN1(nn.Module):
+    """YOLOv9-t's basic ELAN, YAML args [c2, c3, c4], all width-scaled."""
+
+    def __init__(self, c1: int, c2: int, c3: int = 0, c4: int = 0):
+        super().__init__()
+        c3 = c3 or c2 // 2
+        c4 = c4 or c3 // 2
+        self.cv1 = ConvBN(c1, c3, 1, 1)
+        self.cv2 = ConvBN(c3 // 2, c4, 3, 1)
+        self.cv3 = ConvBN(c4, c4, 3, 1)
+        self.cv4 = ConvBN(c3 + 2 * c4, c2, 1, 1)
+
+    @classmethod
+    def parse(cls, args, ch_in, width=1.0, **kw):
+        from .graph import make_divisible
+
+        scaled = [make_divisible(a * width, 8) for a in args[:3]]
+        return scaled[0], [ch_in[0], *scaled], {}
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        c = self.cv2(b)
+        d = self.cv3(c)
+        return self.cv4(torch.cat([a, b, c, d], dim=1))
+
+
+class CBLinear(nn.Module):
+    """YOLOv9-e's dual-branch projection: one conv (with bias) to
+    sum(c2s) channels, returned as a list of c2s-sized maps. YAML args
+    [c2s, k, s], c2s width-scaled; the layer's channels are the tuple."""
+
+    def __init__(self, c1: int, c2s: tuple, k: int = 1, s: int = 1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = nn.Conv2d(c1, sum(self.c2s), k, s, autopad(k))
+
+    @classmethod
+    def parse(cls, args, ch_in, width=1.0, **kw):
+        from .graph import make_divisible
+
+        c2s = tuple(make_divisible(c * width, 8) for c in args[0])
+        return c2s, [ch_in[0], c2s, *args[1:]], {}
+
+    def init_params(self, g: torch.Generator) -> None:
+        lecun_normal_(self.conv.weight, g)
+        nn.init.zeros_(self.conv.bias)
+
+    def forward(self, x):
+        return list(conv_in_dtype(self.conv, x).split(self.c2s, dim=1))
+
+
+class CBFuse(nn.Module):
+    """Sum of the last input (the target) and, from each earlier input (a
+    CBLinear's list), its map ``idx[i]`` resized to the target's size:
+    nearest with half-pixel centres (``"nearest-exact"``), as
+    ``jax.image.resize(..., "nearest")`` samples."""
+
+    def __init__(self, idx: tuple = ()):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    @classmethod
+    def parse(cls, args, ch_in, **kw):
+        return ch_in[-1], [], {"idx": tuple(args[0]) if args else ()}
+
+    def forward(self, xs):
+        target = xs[-1]
+        acc = target
+        for i, x in enumerate(xs[:-1]):
+            sel = x[self.idx[i]] if isinstance(x, (list, tuple)) else x
+            acc = acc + F.interpolate(sel, size=tuple(target.shape[2:]), mode="nearest-exact")
+        return acc
+
+
+class SCDown(nn.Module):
+    """v10 separable downsample: 1x1 ConvBN, then a depthwise strided
+    ConvBN without activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.cv2 = ConvBN(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """A 7x7 and a 3x3 DWConv (no activation) summed, then SiLU (the JAX
+    package's second ``RepVGGDW``, the one its name binds)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = DWConv(c1, c2, 7, 1, act=False)
+        self.conv1 = DWConv(c1, c2, 3, 1, act=False)
+
+    def forward(self, x):
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """v10's cheap inverted block: depthwise 3x3, 1x1 up, depthwise 3x3
+    (or a RepVGGDW where ``lk``), 1x1 down, depthwise 3x3; the input added
+    where ``shortcut`` and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, lk: bool = False,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv0 = ConvBN(c1, c1, 3, 1, g=c1)
+        self.cv1 = ConvBN(c1, 2 * c_, 1, 1)
+        if lk:
+            self.cv2lk = RepVGGDW(2 * c_, 2 * c_)
+        else:
+            self.cv2 = ConvBN(2 * c_, 2 * c_, 3, 1, g=2 * c_)
+        self.cv3 = ConvBN(2 * c_, c2, 1, 1)
+        self.cv4 = ConvBN(c2, c2, 3, 1, g=c2, act=False)
+        self.lk = lk
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(self.cv0(x))
+        y = self.cv2lk(y) if self.lk else self.cv2(y)
+        y = self.cv4(self.cv3(y))
+        return x + y if self.add else y
+
+
+class C2fCIB(nn.Module):
+    """C2f whose inner blocks are CIBs at full expansion."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False,
+                 e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBN(c1, 2 * c, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", CIB(c, c, shortcut, lk=lk, e=1.0))
+        self.cv2 = ConvBN((2 + n) * c, c2, 1, 1)
+
+    def forward(self, x):
+        ys = list(self.cv1(x).chunk(2, dim=1))
+        for i in range(self.n):
+            ys.append(getattr(self, f"m{i}")(ys[-1]))
+        return self.cv2(torch.cat(ys, dim=1))
+
+
+class PSA(nn.Module):
+    """v10's position-sensitive attention: on half of ``cv1``'s output an
+    Attention (one head per 64 channels) and a two-conv FFN, each with a
+    residual."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * c, 1, 1)
+        self.attn = Attention(c, num_heads=max(1, c // 64), attn_ratio=0.5)
+        self.ffn0 = ConvBN(c, 2 * c, 1)
+        self.ffn1 = ConvBN(2 * c, c, 1, act=False)
+        self.cv2 = ConvBN(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        b = b + self.attn(b)
+        b = b + self.ffn1(self.ffn0(b))
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class AAttn(nn.Module):
+    """YOLO12's area attention: full attention within ``area`` row-major
+    strips of each image's H*W tokens (one area where H*W % area != 0),
+    plus a depthwise 7x7 positional conv of v. The ``qkv`` channels are
+    (3, head, head_dim), the JAX block's NHWC reshape; scores and softmax
+    in fp32."""
+
+    def __init__(self, dim: int, num_heads: int = 8, area: int = 1):
+        super().__init__()
+        self.dim, self.num_heads, self.area = dim, num_heads, area
+        self.head_dim = dim // num_heads
+        self.qkv = ConvBN(dim, 3 * dim, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 7, 1, g=dim, act=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        n = H * W
+        area = self.area if n % self.area == 0 else 1
+        qkv = self.qkv(x).flatten(2).transpose(1, 2)  # (B, n, 3 dim): the NHWC order
+        qkv = qkv.reshape(B * area, n // area, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv.unbind(2)  # (B area, n', NH, hd)
+        attn = torch.einsum("bnhd,bmhd->bhnm", at_least_fp32(q),
+                            at_least_fp32(k)) / self.head_dim ** 0.5
+        attn = attn.softmax(dim=-1).to(v.dtype)
+        y = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        pe = self.pe(v.reshape(B, H, W, C).permute(0, 3, 1, 2))
+        return self.proj(y + pe)
+
+
+class ABlock(nn.Module):
+    """Area attention and a two-conv MLP, each with a residual."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        self.mlp0 = ConvBN(dim, int(dim * mlp_ratio), 1)
+        self.mlp1 = ConvBN(int(dim * mlp_ratio), dim, 1, act=False)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp1(self.mlp0(x))
+
+
+class A2C2f(nn.Module):
+    """YOLO12's area-attention CSP block, YAML args [c2, a2, area] (the
+    repeat count n goes after c2): ``cv1`` to c2 * e channels, then n pairs
+    of ABlocks (one head per 32 channels; ``a2``) or n ``C3k(c, c, 2)``,
+    every stage's output into ``cv2``. A non-positive ``area`` is one area;
+    ``residual`` (with ``a2`` and c1 == c2) adds the input back through a
+    per-channel ``gamma`` (init 0.01)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1,
+                 residual: bool = False, e: float = 0.5, mlp_ratio: float = 2.0):
+        super().__init__()
+        c = int(c2 * e)
+        self.n, self.a2 = n, a2
+        area = area if area and area > 0 else 1
+        self.cv1 = ConvBN(c1, c, 1, 1)
+        for i in range(n):
+            if a2:
+                for tag in "ab":
+                    setattr(self, f"m{i}{tag}", ABlock(c, max(1, c // 32), mlp_ratio, area))
+            else:
+                setattr(self, f"m{i}", C3k(c, c, 2, True))
+        self.cv2 = ConvBN((1 + n) * c, c2, 1)
+        if residual and a2 and c1 == c2:
+            self.gamma = nn.Parameter(torch.full((c2,), 0.01))
+        else:
+            self.gamma = None
+
+    def init_params(self, g: torch.Generator) -> None:
+        if self.gamma is not None:
+            nn.init.constant_(self.gamma, 0.01)
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for i in range(self.n):
+            if self.a2:
+                ys.append(getattr(self, f"m{i}b")(getattr(self, f"m{i}a")(ys[-1])))
+            else:
+                ys.append(getattr(self, f"m{i}")(ys[-1]))
+        out = self.cv2(torch.cat(ys, dim=1))
+        if self.gamma is not None:
+            out = x + self.gamma.to(out.dtype).reshape(1, -1, 1, 1) * out
+        return out

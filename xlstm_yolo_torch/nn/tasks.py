@@ -6,7 +6,10 @@ pytree): they are initialized from a ``torch.Generator`` seed with the JAX
 package's init scheme, or loaded from a JAX variable tree with
 ``utils.jax_weights.load_jax_variables``. ``predictions`` keeps the JAX
 boundary: NHWC images in, (B, N, 4 + nc) candidates out; ``loss`` is the
-forward plus the v8 detection loss on a padded-label batch.
+forward plus the v8 detection loss on a padded-label batch. A model whose
+head is ``v10Detect`` is end to end (``e2e``): its inference decodes the
+``one2one`` branch (then the usual NMS, as the JAX package serves it), and
+its loss is the one2many loss (TAL top-10) plus the one2one loss (top-1).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from ..cfg import load_model_yaml
 from ..utils import resolve_device
 from ..utils.loss import detection_loss
+from ..utils.tal import TOPK
 from . import heads as H
 from .graph import GraphModel, ParsedModel, parse_model
 from .modules import init_tree
@@ -41,6 +45,7 @@ class TaskModel(GraphModel):
         self.names = {i: f"{i}" for i in range(self.nc)}
         self.task = parsed.task
         self.reg_max = 16
+        self.e2e = parsed.head_index >= 0 and parsed.specs[parsed.head_index].name == "v10Detect"
         self.init_weights(seed)
         self.eval()
         self.strides = self._probe_strides()
@@ -56,13 +61,13 @@ class TaskModel(GraphModel):
     def _probe_strides(self, imgsz: int = 64) -> tuple:
         """Detection strides from a zero forward on the CPU (the model is
         still there when this runs)."""
-        out = self(torch.zeros(1, self.ch, imgsz, imgsz))
+        out = H.det_maps(self(torch.zeros(1, self.ch, imgsz, imgsz)))
         return tuple(imgsz // bm.shape[2] for bm, _ in out)
 
     def predictions(self, x: torch.Tensor) -> torch.Tensor:
         """Eval forward on NHWC images -> decoded (B, N, 4 + nc) candidates
         (pixel xywh + sigmoid scores)."""
-        raw = self(x.permute(0, 3, 1, 2))
+        raw = H.det_maps(self(x.permute(0, 3, 1, 2)))
         return H.decode_detections(raw, self.strides, self.nc, self.reg_max)
 
     def loss(self, batch: dict, gains=None):
@@ -73,12 +78,20 @@ class TaskModel(GraphModel):
         None). The forward runs in the module's mode: in train mode
         (``model.train()``, as the trainer sets it) BatchNorm uses the batch
         statistics and updates its running ones. Returns (total, {"box",
-        "cls", "dfl"})."""
+        "cls", "dfl"}). An end-to-end model (``e2e``) sums the one2many
+        loss at TAL top-10 and the one2one loss at top-1, term by term; its
+        head computes the one2many branch in train mode only, so its loss
+        needs train mode."""
         raw = self(batch["img"].permute(0, 3, 1, 2))
         kw = {} if gains is None else {"gains": tuple(gains)}
-        lo = detection_loss(raw, batch["cls_boxes"], batch["mask"], self.strides, self.reg_max,
-                            **kw)
-        return lo.total, {"box": lo.box, "cls": lo.cls, "dfl": lo.dfl}
+        if self.e2e:
+            branches = [(raw["one2many"], 10), (raw["one2one"], 1)]
+        else:
+            branches = [(raw, TOPK)]
+        los = [detection_loss(maps, batch["cls_boxes"], batch["mask"], self.strides,
+                              self.reg_max, tal_topk=k, **kw) for maps, k in branches]
+        return (sum(lo.total for lo in los),
+                {t: sum(getattr(lo, t) for lo in los) for t in ("box", "cls", "dfl")})
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

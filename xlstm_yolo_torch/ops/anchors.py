@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import at_least_fp32
+
 
 def make_anchors(feat_shapes, strides, grid_cell_offset: float = 0.5,
                  dtype=torch.float32, device=None):
@@ -41,7 +43,8 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
 
 
 def dfl_decode(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
-    """(..., 4*reg_max) logits -> (..., 4) fp32 expected distances: a softmax
+    """(..., 4*reg_max) logits -> (..., 4) fp32 (fp64 for fp64 logits)
+    expected distances: a softmax
     over each side's reg_max bins, dotted with the bin indices. bf16 logits
     take the JAX bf16 path: exp(x - the row's max over all 4*reg_max
     logits) rounded to bf16, then the numerator and denominator sums in
@@ -52,6 +55,6 @@ def dfl_decode(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
         e = torch.exp(x - x.amax(-1, keepdim=True)).bfloat16().float().unflatten(-1, (4, reg_max))
         bins = torch.arange(reg_max, dtype=e.dtype, device=e.device)
         return (e * bins).sum(-1) / e.sum(-1)
-    x = pred_dist.float().unflatten(-1, (4, reg_max)).softmax(-1)
+    x = at_least_fp32(pred_dist).unflatten(-1, (4, reg_max)).softmax(-1)
     bins = torch.arange(reg_max, dtype=x.dtype, device=x.device)
     return (x * bins).sum(-1)

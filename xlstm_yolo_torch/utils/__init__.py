@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the dtype the
+loss and the train-mode BatchNorm compute in."""
 from __future__ import annotations
 
 import torch
@@ -13,3 +14,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "device='cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' explicitly to run the plain CPU path")
     return dev
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or as it is when it is wider (fp64 stays fp64): the
+    dtype of the computations the port keeps in fp32 under bf16 autocast."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))

@@ -7,6 +7,11 @@ the layout conventions converted:
 * 3-D conv ``kernel`` (kd, kh, kw, in/groups, out) DHWIO -> ``weight``
   OIDHW;
 * 2-D conv ``kernel`` (kh, kw, in/groups, out) HWIO -> ``weight`` OIHW;
+* a flax ``ConvTranspose`` ``kernel`` (kh, kw, in, out), flipped in both
+  spatial axes -> torch's transposed-conv ``weight`` (in, out, kh, kw):
+  flax does not flip the kernel, torch's transposed conv does. The path
+  alone cannot tell it from a conv's, so the caller names the port's
+  ``nn.ConvTranspose2d`` modules (``transposed``; ``transposed_convs``);
 * 1-D conv ``kernel`` (k, in/groups, out) WIO -> ``weight`` (out, in/groups,
   k) OIW;
 * dense ``kernel`` (in, out) -> ``weight`` (out, in), the gate kernels
@@ -51,8 +56,15 @@ def flatten_variables(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
-def torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
-    """One flat JAX key and array -> (state_dict key, array in torch layout)."""
+def transposed_convs(model: nn.Module) -> frozenset:
+    """The names of ``model``'s ``nn.ConvTranspose2d`` modules."""
+    return frozenset(n for n, m in model.named_modules() if isinstance(m, nn.ConvTranspose2d))
+
+
+def torch_name(path: str, arr: np.ndarray, transposed: frozenset = frozenset()
+               ) -> tuple[str, np.ndarray]:
+    """One flat JAX key and array -> (state_dict key, array in torch layout);
+    ``transposed`` names the port's transposed-conv modules."""
     coll, *mods, leaf = path.split("/")
     if coll == "batch_stats":
         stat = {"mean": "running_mean", "var": "running_var"}
@@ -65,6 +77,11 @@ def torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
           and arr.ndim != (2 if leaf == "kernel" else 1)):  # not a plain Dense's
         arr = _dense_general(mods[-1], leaf, arr, path)
         leaf = "weight" if leaf == "kernel" else leaf
+    elif leaf == "kernel" and ".".join(mods) in transposed:
+        if arr.ndim != 4:
+            raise ValueError(f"unexpected transposed-conv kernel rank {arr.ndim} at {path!r}")
+        leaf = "weight"
+        arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
     elif leaf == "kernel":
         leaf = "weight"
         if arr.ndim == 5:
@@ -101,14 +118,15 @@ def _dense_general(part: str, leaf: str, arr: np.ndarray, path: str) -> np.ndarr
                      f"at {path!r}")
 
 
-def port_named(flat: Mapping[str, np.ndarray], collection: str = "params"
-               ) -> dict[str, np.ndarray]:
+def port_named(flat: Mapping[str, np.ndarray], collection: str = "params",
+               transposed: frozenset = frozenset()) -> dict[str, np.ndarray]:
     """A flattened tree shaped like the JAX ``collection`` (keys without the
     collection, as ``flatten_variables(grads)`` gives them) -> {port
-    state_dict name: array in the port's layout}."""
+    state_dict name: array in the port's layout}; ``transposed`` as for
+    ``torch_name``."""
     out = {}
     for path, arr in flat.items():
-        name, a = torch_name(f"{collection}/{path}", np.asarray(arr))
+        name, a = torch_name(f"{collection}/{path}", np.asarray(arr), transposed)
         if name in out:
             raise KeyError(f"two JAX keys map to {name!r}")
         out[name] = a
@@ -121,9 +139,10 @@ def load_jax_variables(model: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.M
     both ``params`` and ``batch_stats``; returns ``model``."""
     state = model.state_dict()
     targets = {k for k in state if not k.endswith("num_batches_tracked")}
+    transposed = transposed_convs(model)
     loaded = {}
     for path, arr in flat.items():
-        name, arr = torch_name(path, np.asarray(arr))
+        name, arr = torch_name(path, np.asarray(arr), transposed)
         if name in loaded:
             raise KeyError(f"two JAX keys map to {name!r}")
         loaded[name] = arr

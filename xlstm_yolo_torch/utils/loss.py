@@ -19,7 +19,7 @@ import torch
 from ..nn.heads import split_maps
 from ..ops.anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
 from ..ops.boxes import bbox_iou
-from . import tal
+from . import at_least_fp32, tal
 
 BOX_GAIN, CLS_GAIN, DFL_GAIN = 7.5, 0.5, 1.5
 
@@ -33,7 +33,7 @@ class DetectionLossOut(NamedTuple):
 
 def _bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Elementwise binary cross-entropy with logits, in the stable form."""
-    logits, targets = logits.float(), targets.float()
+    logits, targets = at_least_fp32(logits), at_least_fp32(targets)
     return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
 
 
@@ -52,18 +52,22 @@ def df_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int = 16) ->
         xc = (x - x.amax(-1, keepdim=True)).unflatten(-1, (4, reg_max))
         lse = torch.exp(xc).bfloat16().float().sum(-1).log()
         return (lse - (w * xc).bfloat16().float().sum(-1)).mean(-1)
-    logp = pred_dist.float().unflatten(-1, (4, reg_max)).log_softmax(-1)
+    logp = at_least_fp32(pred_dist).unflatten(-1, (4, reg_max)).log_softmax(-1)
     return -(w * logp).sum(-1).mean(-1)
 
 
 def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch.Tensor,
                    strides: Sequence[float], reg_max: int = 16,
-                   gains: Sequence[float] = (BOX_GAIN, CLS_GAIN, DFL_GAIN)) -> DetectionLossOut:
+                   gains: Sequence[float] = (BOX_GAIN, CLS_GAIN, DFL_GAIN),
+                   tal_topk: int = tal.TOPK) -> DetectionLossOut:
     """v8 detection loss over the Detect head's per-scale (box, cls) maps
-    (NCHW): BCE cls + CIoU box + DFL, TAL-assigned in pixel units, weighted
-    by ``gains`` (box, cls, dfl; the ``box`` / ``cls`` / ``dfl`` keys). The
+    (NCHW): BCE cls + CIoU box + DFL, TAL-assigned in pixel units (each
+    ground truth's ``tal_topk`` best anchors; YOLOv10's one2one branch takes
+    1), weighted by ``gains`` (box, cls, dfl; the ``box`` / ``cls`` /
+    ``dfl`` keys). The
     maps may be bf16 (the AMP step); the loss and the assigner compute in
-    fp32, the DFL decode and loss take their bf16 paths."""
+    fp32 (in fp64 for fp64 maps), the DFL decode and loss take their bf16
+    paths."""
     b = raw_maps[0][0].shape[0]
     feat_shapes = [tuple(bm.shape[2:4]) for bm, _ in raw_maps]
     dev = raw_maps[0][0].device
@@ -74,7 +78,7 @@ def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch
     gt_labels, gt_bboxes = targets[..., :1], targets[..., 1:5]
     _, target_bboxes, target_scores, fg_mask, _ = tal.assign(
         pred_scores_logits, pred_bboxes * stride_t, anchors * stride_t, gt_labels, gt_bboxes,
-        target_mask[..., None])
+        target_mask[..., None], topk=tal_topk)
     target_scores_sum = target_scores.sum().clamp(min=1.0)
 
     loss_cls = _bce_logits(pred_scores_logits, target_scores).sum() / target_scores_sum

@@ -3,7 +3,7 @@
 Port of ``select_candidates_in_gts``, ``topk_positive_mask``,
 ``select_highest_overlaps`` and ``assign`` in ``xlstm_yolo_tpu/utils/tal.py``
 (the TaskAlignedAssigner, with the fork's alpha 0.5, beta 6.0 and top-k
-10, on class logits). Ground truth arrives padded to (B, n_max, ...) with a
+10 by default, on class logits). Ground truth arrives padded to (B, n_max, ...) with a
 validity mask. Assignment carries no gradient: the predictions are
 detached, as the reference does before every assigner call. Per-anchor ground-truth lookups are ``torch.gather``; the JAX
 package's one-hot products were a TPU workaround and select the same values.
@@ -14,6 +14,7 @@ import torch
 
 from ..kernels.topk import rowwise_kth_value_plain
 from ..ops.boxes import bbox_iou
+from . import at_least_fp32
 
 TOPK = 10
 EPS = 1e-9
@@ -54,7 +55,8 @@ def select_highest_overlaps(mask_pos: torch.Tensor, overlaps: torch.Tensor, n_ma
 
 @torch.no_grad()
 def assign(pd_logits: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.Tensor,
-           gt_labels: torch.Tensor, gt_bboxes: torch.Tensor, mask_gt: torch.Tensor):
+           gt_labels: torch.Tensor, gt_bboxes: torch.Tensor, mask_gt: torch.Tensor,
+           topk: int = TOPK):
     """Task-aligned one-stage assignment (the JAX ``assign`` with
     ``scores_are_logits=True``).
 
@@ -63,8 +65,9 @@ def assign(pd_logits: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.T
     the units of pd_bboxes, mask_gt (B, n_max, 1) valid slots. Returns
     target_labels (B, n_anchors) int64, target_bboxes (B, n_anchors, 4),
     target_scores (B, n_anchors, nc), fg_mask (B, n_anchors) bool and
-    target_gt_idx (B, n_anchors)."""
-    pd_logits, pd_bboxes = pd_logits.detach().float(), pd_bboxes.detach().float()
+    target_gt_idx (B, n_anchors). ``topk`` anchors at most are candidates of
+    each ground truth."""
+    pd_logits, pd_bboxes = at_least_fp32(pd_logits.detach()), at_least_fp32(pd_bboxes.detach())
     n_anchors, nc = pd_logits.shape[1:]
     n_max = gt_bboxes.shape[1]
     mask_gt = mask_gt.float()[..., 0]  # (B, n_max)
@@ -81,7 +84,7 @@ def assign(pd_logits: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.T
     # candidates: inside the gt box, then top-k of the metric per gt
     mask_in_gts = select_candidates_in_gts(anc_points, gt_bboxes).float()
     candidate_metric = align_metric * mask_in_gts * mask_gt[..., None]
-    mask_topk = topk_positive_mask(candidate_metric, min(TOPK, n_anchors))
+    mask_topk = topk_positive_mask(candidate_metric, min(topk, n_anchors))
     mask_pos = mask_topk * mask_in_gts * mask_gt[..., None]
     target_gt_idx, fg_mask, mask_pos = select_highest_overlaps(mask_pos, overlaps, n_max)
 
