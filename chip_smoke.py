@@ -1200,6 +1200,7 @@ def zero_class_biases(model):
     import torch
 
     det = getattr(model, f"l{model.parsed.head_index}")
+    det = getattr(det, "detect", det)  # a segment, pose or OBB head's Detect
     with torch.no_grad():
         for name, m in det.named_children():
             if isinstance(m, torch.nn.Conv2d) and "cv3_" in name and name.endswith("_2"):
@@ -3752,59 +3753,77 @@ def zoo_train(model, batch):
 
 class SharedChoices:
     """A train step's discrete choices: each TAL assignment
-    (``utils.tal.assign``; an end-to-end model assigns twice) and each max
-    pool's argmax (``F.max_pool2d``), recorded in call order, or, given
-    ``replay`` (another step's ``SharedChoices``), taken from it: the
-    assigner's targets cast to this step's dtype, each pool the gather of
-    its input at the recorded indices (the same function and gradient, on
-    the other step's routing). Two steps that share them compute one
-    function; without, an fp32 step and an fp64 one can differ by a pool
-    argmax that a near-tie flips (``tools/zoo_grad_probe.py``)."""
+    (``utils.tal.assign``; an end-to-end model assigns twice; the rotated
+    ``assign_rotated`` of an OBB model), the segmentation loss's top-32 mask
+    anchors (``utils.loss.select_mask_anchors``) and each max pool's argmax
+    (``F.max_pool2d``), recorded in call order, or, given ``replay``
+    (another step's ``SharedChoices``), taken from it: the recorded outputs
+    cast to this step's dtype, each pool the gather of its input at the
+    recorded indices (the same function and gradient, on the other step's
+    routing). Two steps that share them compute one function; without, an
+    fp32 step and an fp64 one can differ by a pool argmax that a near-tie
+    flips (``tools/zoo_grad_probe.py``)."""
 
     def __init__(self, replay=None):
-        self.replay, self.assigned, self.pooled = replay, [], []
+        self.replay, self.assigned, self.pooled, self.mask_anchors = replay, [], [], []
+
+    def _recorded(self, real, log: list, replayed: list | None):
+        from xlstm_yolo_torch.utils import at_least_fp32
+
+        def fn(*args, **kw):
+            if replayed is None:
+                out = real(*args, **kw)
+            else:
+                dev, dt = args[0].device, at_least_fp32(args[0]).dtype
+                out = tuple(t.to(dev, dt) if t.is_floating_point() else t.to(dev)
+                            for t in replayed[len(log)])
+            log.append(tuple(t.detach().cpu() for t in out))
+            return out
+
+        return fn
 
     @contextmanager
     def active(self):
         import torch.nn.functional as F
 
+        import xlstm_yolo_torch.utils.loss as loss_mod
         import xlstm_yolo_torch.utils.tal as tal
-        from xlstm_yolo_torch.utils import at_least_fp32
 
-        real_assign, real_pool = tal.assign, F.max_pool2d
-
-        def assign(*args, **kw):
-            if self.replay is None:
-                out = real_assign(*args, **kw)
-            else:
-                dev, dt = args[0].device, at_least_fp32(args[0]).dtype
-                out = tuple(t.to(dev, dt) if t.is_floating_point() else t.to(dev)
-                            for t in self.replay.assigned[len(self.assigned)])
-            self.assigned.append(tuple(t.detach().cpu() for t in out))
-            return out
+        real_pool = F.max_pool2d
+        rp = self.replay
 
         def pool(x, k, s=None, p=0):
-            if self.replay is None:
+            if rp is None:
                 y, idx = real_pool(x, k, s, p, return_indices=True)
             else:
-                idx = self.replay.pooled[len(self.pooled)].to(x.device)
+                idx = rp.pooled[len(self.pooled)].to(x.device)
                 y = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
             self.pooled.append(idx.cpu())
             return y
 
-        with mock.patch.object(tal, "assign", assign), mock.patch.object(F, "max_pool2d", pool):
+        assign = self._recorded(tal.assign, self.assigned, rp and rp.assigned)
+        rotated = self._recorded(tal.assign_rotated, self.assigned, rp and rp.assigned)
+        anchors = self._recorded(loss_mod.select_mask_anchors, self.mask_anchors,
+                                 rp and rp.mask_anchors)
+        with mock.patch.object(tal, "assign", assign), \
+                mock.patch.object(tal, "assign_rotated", rotated), \
+                mock.patch.object(loss_mod, "select_mask_anchors", anchors), \
+                mock.patch.object(F, "max_pool2d", pool):
             yield self
 
     def flips(self, other) -> dict:
         """Anchors whose foreground flag or ground truth differ from
-        ``other``'s assignment, and pooled outputs whose argmax differs."""
+        ``other``'s assignment, mask anchors chosen otherwise, and pooled
+        outputs whose argmax differs."""
         fg = gt = 0
         for a, b in zip(self.assigned, other.assigned):
             fg += int((a[3] != b[3]).sum())
             gt += int(((a[4] != b[4]) & a[3] & b[3]).sum())
         pool = sum(int((a != b).sum()) for a, b in zip(self.pooled, other.pooled))
+        anchors = sum(int((a[1] != b[1]).sum()) for a, b in zip(self.mask_anchors,
+                                                                 other.mask_anchors))
         return {"fg_flips": fg, "gt_flips": gt, "pool_argmax_flips": pool,
-                "pooled": sum(a.numel() for a in self.pooled)}
+                "mask_anchor_flips": anchors, "pooled": sum(a.numel() for a in self.pooled)}
 
 
 def zoo_step(model, dev, dtype, batch, choices):
@@ -3966,6 +3985,372 @@ def phase_detect_zoo_path(smi_line):
     return {k: v for k, v in counts.items() if v}
 
 
+# tasks_path: the segment, pose and OBB tasks. The flagship of each at its
+# public configuration: (label, YAML, nc, kpt_shape, imgsz, strides, the JAX
+# TaskModel's parameters at that nc): yolo11n-seg on COCO (80 classes, 640
+# px), yolo11n-pose on COCO-pose (1 class, 17 keypoints, 640 px),
+# yolo11n-obb on DOTAv1 (15 classes, 1024 px, the size Ultralytics trains it
+# at); then the other ten -seg / -pose / -obb YAMLs at their own nc, first
+# scale (the P6 files named with it), 640 px
+TASK_FLAGSHIPS = [
+    ("yolo11n-seg", "yolo11n-seg.yaml", 80, None, 640, (8, 16, 32), 2_876_832),
+    ("yolo11n-pose", "yolo11n-pose.yaml", 1, (17, 3), 640, (8, 16, 32), 2_874_446),
+    ("yolo11n-obb", "yolo11n-obb.yaml", 15, None, 1024, (8, 16, 32), 2_664_416)]
+TASK_OTHERS = [("yolov8n-seg", "yolov8n-seg.yaml", None, (8, 16, 32), 3_409_952),
+               ("yolov8n-seg-p6", "yolov8-seg-p6.yaml", "n", (8, 16, 32, 64), 5_302_800),
+               ("yolo12n-seg", "yolo12n-seg.yaml", None, (8, 16, 32), 2_855_040),
+               ("yolov9c-seg", "yolov9c-seg.yaml", None, (8, 16, 32), 27_897_104),
+               ("yolov9e-seg", "yolov9e-seg.yaml", None, (8, 16, 32), 60_512_784),
+               ("yolov8n-pose", "yolov8n-pose.yaml", None, (8, 16, 32), 3_295_454),
+               ("yolov8n-pose-p6", "yolov8-pose-p6.yaml", "n", (8, 16, 32, 64), 5_182_136),
+               ("yolo12n-pose", "yolo12n-pose.yaml", None, (8, 16, 32), 2_886_699),
+               ("yolov8n-obb", "yolov8n-obb.yaml", None, (8, 16, 32), 3_228_851),
+               ("yolo12n-obb", "yolo12n-obb.yaml", None, (8, 16, 32), 2_673_939)]
+# Ultralytics' coco-pose.yaml flip_idx
+COCO_POSE_FLIP = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def task_model(cfg: str, nc=None, kpt_shape=None, device="cuda", scale=None):
+    """``TaskModel`` of a bundled task YAML at ``nc`` (its own when None) and
+    ``kpt_shape`` (a pose YAML's own when None), weights from seed 0."""
+    from xlstm_yolo_torch.cfg import load_model_yaml
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    d, s = load_model_yaml(cfg)
+    if kpt_shape is not None:
+        d["kpt_shape"] = list(kpt_shape)
+    return TaskModel(d, nc=nc, scale=scale or s, device=device, seed=0)
+
+
+def task_batch(model, device, batch: int, imgsz: int) -> dict:
+    """Seeded uint8 images and three labels an image for ``model``'s task:
+    boxes (an OBB model's rotated boxes, cls cx cy w h angle), the
+    overlap-encoded masks at imgsz / 4 (segment), keypoints inside each box
+    (pose)."""
+    import torch
+
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    f = imgsz / 640
+    boxes = np.float32([[1, 100, 100, 400, 400], [7, 320, 40, 600, 260], [0, 20, 380, 250, 630]])
+    boxes[:, 0] %= model.nc
+    boxes[:, 1:] *= f
+    mask = np.zeros((batch, N_LABELS), bool)
+    mask[:, :3] = True
+    if model.task == "obb":
+        cb = np.zeros((batch, N_LABELS, 6), np.float32)
+        cb[:, :3, 0] = boxes[:, 0]
+        cb[:, :3, 1:3] = (boxes[:, 1:3] + boxes[:, 3:5]) / 2
+        cb[:, :3, 3:5] = (boxes[:, 3:5] - boxes[:, 1:3]) * 0.7
+        cb[:, :3, 5] = [0.3, -0.6, 1.1]
+    else:
+        cb = np.zeros((batch, N_LABELS, 5), np.float32)
+        cb[:, :3] = boxes
+    out = {"img": imgs, "cls_boxes": cb, "mask": mask}
+    if model.task == "segment":
+        masks = np.zeros((batch, imgsz // 4, imgsz // 4), np.int32)
+        for j, (_, x1, y1, x2, y2) in enumerate((boxes / [1, 4, 4, 4, 4]).astype(int)):
+            masks[:, y1:y2, x1:x2] = j + 1
+        out["masks"] = masks
+    if model.task == "pose":
+        nk = model.kpt_shape[0]
+        kp = np.zeros((batch, N_LABELS, nk, 3), np.float32)
+        kp[:, :3, :, :2] = boxes[None, :, None, 1:3] + rng.uniform(0, 200 * f, (batch, 3, nk, 2))
+        kp[:, :3, :, 2] = 2.0
+        out["keypoints"] = kp
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def task_inference(model, frames, imgsz: int, iters: int = ZOO_INFER_TIMED) -> tuple:
+    """``Predictor`` inference of a fused copy of ``model`` on uint8
+    ``frames`` (on the card): letterbox, forward and decode
+    (``predictions_full``), NMS (``nms_rotated`` for OBB), then on the host
+    the masks assembled or the keypoints gathered for every image at its
+    own size; stage ms (CUDA events, the host stage by the clock), the
+    mean of ``iters`` after one warm-up, img/s and peak GiB."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    fused = fuse_conv_bn(zero_class_biases(copy.deepcopy(model).eval()))
+    pred = Predictor(fused, imgsz=imgsz, verbose=False)
+    torch.cuda.reset_peak_memory_stats()
+    times = {"letterbox": 0.0, "forward_decode": 0.0, "nms": 0.0, "masks_or_keypoints": 0.0}
+    n_valid, shapes_ok, finite = 0, True, True
+    h0, w0 = frames.shape[1:3]
+    with torch.inference_mode():
+        for it in range(1 + iters):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x, (r, px, py) = pred.preprocess(frames)
+            ev[1].record()
+            full = pred.decode(x)
+            ev[2].record()
+            dets, valid = pred.postprocess(full["cands"].float())
+            ev[3].record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = {k: v.float().cpu().numpy() for k, v in full.items()}
+            dn, vn = dets.cpu().numpy(), valid.cpu().numpy()
+            for b in range(len(dn)):
+                d = dn[b][vn[b]]
+                if fused.task == "segment" and len(d):
+                    m = pred._assemble_masks(d, host["cands"][b], host["coefs"][b],
+                                             host["proto"][b], (h0, w0), r, px, py)
+                    shapes_ok &= m.shape == (len(d), h0, w0)
+                elif fused.task == "pose" and len(d):
+                    k = pred._gather_kpts(d, host["cands"][b], host["kpts"][b], r, px, py)
+                    shapes_ok &= k.shape == (len(d), *fused.kpt_shape)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if it:
+                for k, (a, b) in zip(list(times)[:3], zip(ev[:3], ev[1:])):
+                    times[k] += a.elapsed_time(b) / iters
+                times["masks_or_keypoints"] += host_ms / iters
+    n_valid = int(valid.sum())
+    n_cand = sum((imgsz // s) ** 2 for s in fused.strides)
+    width = 5 + fused.nc if fused.task == "obb" else 4 + fused.nc
+    shapes_ok &= (tuple(full["cands"].shape) == (len(frames), n_cand, width)
+                  and tuple(dets.shape) == (len(frames), 300, 7 if fused.task == "obb" else 6))
+    finite = all(bool(torch.isfinite(v).all()) for v in full.values())
+    total_ms = sum(times.values())
+    ok = shapes_ok and finite and n_valid > 0
+    return ok, {"shapes_ok": bool(shapes_ok), "finite": finite, "valid_dets": n_valid,
+                "ms": times, "total_ms": total_ms, "img_per_s": len(frames) / total_ms * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def task_train(model, batch, amp: bool) -> tuple:
+    """``timed_step`` of a TrainStep (fp32, or bf16 AMP) over a copy of
+    ``model`` on ``batch``; the losses and gradients finite; peak GiB."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    step = TrainStep(copy.deepcopy(model), amp=amp)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    times = timed_step(step, batch, losses)
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in step.model.parameters() if p.grad is not None)
+    total_ms = sum(times.values())
+    ok = bool(np.isfinite(losses).all()) and grads_finite
+    return ok, {"losses": losses, "grads_finite": grads_finite, "ms": times,
+                "total_ms": total_ms, "img_per_s": len(batch["img"]) / total_ms * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def task_card_vs_cpu(model, imgsz: int) -> tuple:
+    """The card against the CPU on ``model``'s weights at batch
+    YOLO11_CPU_BATCH: the fused eval's decoded outputs (boxes, scores,
+    the angle, coefficients, prototypes, keypoints) each within TOL_REL of
+    its max; one fp32 train step's loss and every gradient, both steps on
+    the discrete choices of an fp64 step on the card (``SharedChoices``:
+    TAL or rotated TAL, the mask anchors, max-pool argmax), within TOL_REL
+    of the CPU's and of the fp64 step's."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    shape = (YOLO11_CPU_BATCH, imgsz, imgsz, 3)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, shape).astype(np.float32))
+    fused = fuse_conv_bn(zero_class_biases(copy.deepcopy(model).eval()))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            outs[dev] = {k: v.float().cpu() for k, v in
+                         copy.deepcopy(fused).to(dev).predictions_full(x.to(dev)).items()}
+    nc = fused.nc
+    parts = {"boxes": lambda o: o["cands"][..., :4], "scores": lambda o: o["cands"][..., 4:4 + nc]}
+    if fused.task == "obb":
+        parts["angle"] = lambda o: o["cands"][..., 4 + nc:]
+    for key in ("coefs", "proto", "kpts"):
+        if key in outs["cpu"]:
+            parts[key] = lambda o, key=key: o[key]
+    errs = {k: ((f(outs["cuda"]) - f(outs["cpu"])).abs().max()
+                / f(outs["cpu"]).abs().max().clamp(min=1e-30)).item() for k, f in parts.items()}
+    cpu_batch = {k: v.cpu() for k, v in task_batch(model, "cpu", YOLO11_CPU_BATCH, imgsz).items()}
+    ref = SharedChoices()
+    ref_loss, ref_grads = zoo_step(model, "cuda", torch.float64, cpu_batch, ref)
+    own = SharedChoices()
+    zoo_step(model, "cuda", torch.float32, cpu_batch, own)
+    steps = {dev: zoo_step(model, dev, torch.float32, cpu_batch, SharedChoices(replay=ref))
+             for dev in ("cuda", "cpu")}
+    worst_rel, worst_name, vanishing, gmax = grad_errors(steps["cuda"][1], steps["cpu"][1])
+    loss_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    vs64 = {dev: grad_errors(steps[dev][1], ref_grads)[:2] for dev in steps}
+    ok = (max(errs.values()) <= TOL_REL and loss_rel <= TOL_REL and worst_rel <= TOL_REL
+          and vs64["cuda"][0] <= TOL_REL)
+    return ok, {"decoded_maxrelerr_vs_cpu": errs, "loss": steps["cuda"][0],
+                "loss_cpu": steps["cpu"][0], "loss_fp64": ref_loss, "loss_relerr_vs_cpu": loss_rel,
+                "grad_maxrelerr_vs_cpu": worst_rel, "grad_worst": worst_name,
+                "grads_vanishing": vanishing, "grad_max": gmax,
+                "grad_maxrelerr_vs_fp64": {d: v[0] for d, v in vs64.items()},
+                "card_fp32_own_choices_vs_fp64": own.flips(ref)}
+
+
+def task_facade(smi_line) -> tuple:
+    """``YOLO`` on the card through the user's entry points for each task,
+    on PNGs ``make_synthetic_dataset(task=...)`` writes (640 x 480, 8 train
+    and 4 val images): one epoch at the defaults (bf16 AMP, mosaic), then
+    ``val`` and ``predict``. yolo11n-pose takes the set's 5 keypoints (a
+    copy of its YAML at ``kpt_shape`` [5, 3], as the JAX tests set it) and
+    trains with ``device_augment``: its first augmented batch is held
+    against the same augmentation on the CPU on the same draws."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.cfg import load_model_yaml
+    from xlstm_yolo_torch.data import device_augment as DA
+    from xlstm_yolo_torch.data.dataset import build_dataloader
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    out, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, cfg in (("segment", "yolo11n-seg.yaml"), ("pose", "yolo11n-pose.yaml"),
+                          ("obb", "yolo11n-obb.yaml")):
+            data = make_task_set(f"{tmp}/{task}", task)
+            kw = {}
+            if task == "pose":
+                d, _ = load_model_yaml(cfg)
+                d.pop("yaml_file", None)
+                d["kpt_shape"] = [5, 3]
+                cfg = f"{tmp}/yolo11n-pose.yaml"
+                Path(cfg).write_text(yaml.safe_dump(d))
+                kw["device_augment"] = True
+            m = YOLO(cfg)
+            recorded = []
+            real_aug = TrainStep.augment_batch
+
+            def record(step, batch, real_aug=real_aug, recorded=recorded):
+                if not recorded:  # this step's draws, before its update moves the count
+                    img = batch["img"]
+                    d = step.augment_draws(img.shape[0], img.shape[1], img.device)
+                    recorded.append((step, d, {k: v.clone() for k, v in batch.items()}))
+                res = real_aug(step, batch)
+                if len(recorded[0]) == 3:  # a copy: the step casts res["img"] in place (AMP)
+                    recorded[0] += ({k: v.clone() for k, v in res.items()},)
+                return res
+
+            t0 = time.perf_counter()
+            with mock.patch.object(TrainStep, "augment_batch", record):
+                m.train(data=data, epochs=1, imgsz=IMGSZ, batch=BATCH, plots=False,
+                        project=f"{tmp}/runs", name=task, **kw)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            metrics = m.val(data=data, imgsz=IMGSZ, batch=BATCH)
+            results = m.predict(str(Path(data).parent / "images" / "val"), imgsz=IMGSZ,
+                                conf=0.001, verbose=False)
+            field = {"segment": "masks", "pose": "keypoints", "obb": "obb"}[task]
+            fields_ok = all(getattr(r, field) is not None and len(getattr(r, field)) == len(r)
+                            for r in results if len(r))
+            key = {"segment": "mAP50(M)", "pose": "mAP50(P)", "obb": "mAP50"}[task]
+            entry = {"train_s": train_s, "val": {k: v for k, v in metrics.items()
+                                                  if isinstance(v, (int, float))},
+                     "predicted": sum(len(r) for r in results), f"results_{field}": fields_ok}
+            t_ok = key in metrics and np.isfinite(metrics[key]) and fields_ok and len(results) == 4
+            if task == "pose":
+                step, d, batch, res = recorded[0]
+                img = batch["img"]
+                cpu = DA.apply(img.cpu() * 255.0, batch["cls_boxes"].cpu(), batch["mask"].cpu(),
+                               d.to("cpu"), step.augment, keypoints=batch["keypoints"].cpu(),
+                               flip_idx=step.flip_idx)
+                mk = cpu[2]
+                errs = {"img": (res["img"].cpu() * 255.0 - cpu[0]).abs().max().item(),
+                        "cls_boxes": (res["cls_boxes"].cpu() - cpu[1])[mk].abs().max().item(),
+                        "mask_equal": bool(torch.equal(res["mask"].cpu(), mk)),
+                        "keypoints": (res["keypoints"].cpu() - cpu[3]).abs().max().item()}
+                entry["devaug_card_vs_cpu"] = errs
+                t_ok &= (errs["mask_equal"] and errs["cls_boxes"] <= 1e-3
+                         and errs["keypoints"] <= 1e-3 and errs["img"] <= 0.1)
+            entry["ok"] = bool(t_ok)
+            out[task] = entry
+            ok &= bool(t_ok)
+            del m
+            torch.cuda.empty_cache()
+    out["nvidia_smi"] = smi_line
+    return ok, out
+
+
+def make_task_set(root: str, task: str) -> str:
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+
+    return make_synthetic_dataset(root, n_train=8, n_val=4, width=FIT_WH[0], height=FIT_WH[1],
+                                  seed=0, task=task)
+
+
+def phase_tasks_path(smi_line):
+    """The three flagships at their public configurations (params and
+    strides, ``task_inference``, fp32 and AMP ``task_train`` at batch 8,
+    ``task_card_vs_cpu``), the other ten YAMLs (built, one inference and
+    one fp32 step at batch 8, 640 px), then ``task_facade``. No hand
+    kernel runs: the counts, set to 0 just before, stay 0."""
+    import torch
+
+    t_phase = time.perf_counter()
+    zero_all_kernel_counts()
+    failed, img_s = [], {}
+    for label, cfg, nc, kpt, imgsz, strides, params in TASK_FLAGSHIPS:
+        t0 = time.perf_counter()
+        model = task_model(cfg, nc=nc, kpt_shape=kpt)
+        built_ok = model.num_params() == params and model.strides == strides
+        frames = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
+        batch = task_batch(model, "cuda", BATCH, imgsz)
+        inf_ok, inf = task_inference(model, frames, imgsz)
+        fp32_ok, fp32 = task_train(model, batch, amp=False)
+        amp_ok, amp = task_train(model, batch, amp=True)
+        cpu_ok, vs_cpu = task_card_vs_cpu(model, imgsz)
+        ok = built_ok and inf_ok and fp32_ok and amp_ok and cpu_ok
+        emit({"phase": f"tasks_path.{label}", "yaml": cfg, "task": model.task, "nc": model.nc,
+              "kpt_shape": model.kpt_shape if model.task == "pose" else None,
+              "params": model.num_params(), "params_jax": params, "strides": model.strides,
+              "batch": BATCH, "imgsz": imgsz, "inference": inf, "train_fp32": fp32,
+              "train_amp": amp, **vs_cpu, "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            failed.append(label)
+        img_s[label] = (inf["img_per_s"], fp32["img_per_s"], amp["img_per_s"])
+        del model
+        torch.cuda.empty_cache()
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
+    for label, cfg, scale, strides, params in TASK_OTHERS:
+        t0 = time.perf_counter()
+        model = task_model(cfg, scale=scale)
+        built_ok = model.num_params() == params and model.strides == strides
+        inf_ok, inf = task_inference(model, frames, IMGSZ, iters=1)
+        train_ok, train = zoo_train(model, task_batch(model, "cuda", BATCH, IMGSZ))
+        ok = built_ok and inf_ok and train_ok
+        emit({"phase": f"tasks_path.{label}", "yaml": cfg, "task": model.task,
+              "params": model.num_params(), "params_jax": params, "strides": model.strides,
+              "inference_ms": inf["total_ms"], "train_ms": train["total_ms"],
+              "peak_gib": max(inf["peak_gib"], train["peak_gib"]),
+              "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            failed.append(label)
+        img_s[label] = (inf["img_per_s"], train["img_per_s"])
+        del model
+        torch.cuda.empty_cache()
+    facade_ok, facade = task_facade(smi_line)
+    counts = all_kernel_counts()
+    ok = not failed and facade_ok and not any(counts.values())
+    emit({"phase": "tasks_path", "models": len(TASK_FLAGSHIPS) + len(TASK_OTHERS),
+          "failed": failed, "img_per_s": img_s, "facade": facade, "launches": counts,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"tasks_path check failed: {failed or 'facade or launches'}")
+    return {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -4012,6 +4397,8 @@ def main() -> int:
         yolo11_launches = phase_yolo11_path()
         phase = "detect_zoo_path"
         zoo_launches = phase_detect_zoo_path(smi_line)
+        phase = "tasks_path"
+        tasks_launches = phase_tasks_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -4035,7 +4422,8 @@ def main() -> int:
                "detect_keys_path": keys_launches,
                "xlstm7b_path": xlstm7b_launches,
                "yolo11_path": yolo11_launches,
-               "detect_zoo_path": zoo_launches}
+               "detect_zoo_path": zoo_launches,
+               "tasks_path": tasks_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

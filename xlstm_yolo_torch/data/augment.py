@@ -1,11 +1,15 @@
-"""The detect train pipeline on the host: mosaic, random perspective, mixup,
-HSV and flip, and the letterbox of the eval path, in numpy on
+"""The train pipeline on the host: mosaic, random perspective, mixup,
+copy-paste, HSV and flip, and the letterbox of the eval path, in numpy on
 ``data.imgproc``.
 
 Port of ``letterbox``, ``random_hsv``, ``random_flip``,
-``random_perspective``, ``_box_candidates``, ``mosaic4``, ``mixup`` and the
-boxes of ``mosaic3_points`` / ``mosaic9_points`` (``mosaic3``,
-``mosaic9``) in ``xlstm_yolo_tpu/data/augment.py``. Every random number is drawn from the
+``random_perspective``, ``_box_candidates``, ``mosaic4``, ``mixup``,
+``mosaic4_points`` / ``mosaic3_points`` / ``mosaic9_points`` (``mosaic4``,
+``mosaic3``, ``mosaic9`` given ``extras``), ``_shift_points``,
+``_cat_extras``, ``copy_paste_flip`` and ``copy_paste_mix`` in
+``xlstm_yolo_tpu/data/augment.py``. The point tasks' annotations ride in
+an ``extra`` dict beside the labels: ``segments`` (a list of (k, 2)
+polygons), ``keypoints`` (n, K, 3) or ``corners`` (n, 4, 2), in pixels. Every random number is drawn from the
 ``np.random.Generator`` passed in, in the JAX package's order, so that one
 seed gives the same geometry and gains on both sides. Images are RGB uint8
 (H, W, 3); labels are (n, 5) float32 = (cls, x1, y1, x2, y2) in pixels of
@@ -152,14 +156,46 @@ def _box_candidates(box1, box2, wh_thr=2, ar_thr=100, area_thr=0.1, eps=1e-16):
     return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
 
 
-def mosaic4(images: list, labels_list: list, imgsz: int, rng: np.random.Generator | None = None):
-    """Four images on a 2x2 canvas of side 2 * imgsz around a random centre."""
+def shift_points(extra: dict, scale: float, dx: float, dy: float) -> dict:
+    """Every point set of ``extra`` scaled by ``scale`` and moved by (dx, dy)."""
+    out = {}
+    d = np.asarray([dx, dy], np.float32)
+    if "segments" in extra:
+        out["segments"] = [p * scale + d for p in extra["segments"]]
+    if "keypoints" in extra:
+        k = extra["keypoints"].copy()
+        k[..., 0] = k[..., 0] * scale + dx
+        k[..., 1] = k[..., 1] * scale + dy
+        out["keypoints"] = k
+    if "corners" in extra:
+        out["corners"] = extra["corners"] * scale + d
+    return out
+
+
+def cat_extras(extras: list) -> dict:
+    """Point sets of several images' labels, concatenated in order."""
+    keys = set().union(*[e.keys() for e in extras]) if extras else set()
+    out = {}
+    if "segments" in keys:
+        out["segments"] = [p for e in extras for p in e.get("segments", [])]
+    for key, empty in (("keypoints", (0, 1, 3)), ("corners", (0, 4, 2))):
+        if key in keys:
+            parts = [e[key] for e in extras if key in e and len(e[key])]
+            out[key] = np.concatenate(parts, 0) if parts else np.zeros(empty, np.float32)
+    return out
+
+
+def mosaic4(images: list, labels_list: list, imgsz: int, rng: np.random.Generator | None = None,
+            extras: list | None = None):
+    """Four images on a 2x2 canvas of side 2 * imgsz around a random centre
+    -> (canvas, labels), or with ``extras`` (one point dict an image) ->
+    (canvas, labels, extra)."""
     rng = rng or np.random.default_rng()
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
     xc = int(rng.uniform(s // 2, 2 * s - s // 2))
     canvas = np.full((s * 2, s * 2, 3), ip.BORDER, np.uint8)
-    out_labels = []
+    out_labels, out_extras = [], []
     for i, (img, labels) in enumerate(zip(images, labels_list)):
         h, w = img.shape[:2]
         r = min(s / h, s / w)
@@ -184,19 +220,24 @@ def mosaic4(images: list, labels_list: list, imgsz: int, rng: np.random.Generato
             lb[:, [1, 3]] += x1a - x1b
             lb[:, [2, 4]] += y1a - y1b
             out_labels.append(lb)
+            if extras is not None:
+                out_extras.append(shift_points(extras[i], r, x1a - x1b, y1a - y1b))
     labels = np.concatenate(out_labels, 0) if out_labels else np.zeros((0, 5), np.float32)
     np.clip(labels[:, 1:5:2], 0, 2 * s, out=labels[:, 1:5:2])
     np.clip(labels[:, 2:5:2], 0, 2 * s, out=labels[:, 2:5:2])
+    if extras is not None:
+        return canvas, labels, cat_extras(out_extras)
     return canvas, labels
 
 
-def _mosaic_grid(images: list, labels_list: list, imgsz: int, corner) -> tuple:
+def _mosaic_grid(images: list, labels_list: list, imgsz: int, corner, extras=None) -> tuple:
     """Images placed on a 3s x 3s canvas at ``corner(i, nw, nh)`` -> (x1,
     y1) of tile i (each image resized to fit s x s first), then the centre
-    2s x 2s cropped (the reference's border -s // 2 on the 3s canvas)."""
+    2s x 2s cropped (the reference's border -s // 2 on the 3s canvas);
+    ``extras`` as for ``mosaic4``."""
     s = imgsz
     canvas = np.full((s * 3, s * 3, 3), ip.BORDER, np.uint8)
-    out_labels = []
+    out_labels, out_extras = [], []
     for i, (img, labels) in enumerate(zip(images, labels_list)):
         h, w = img.shape[:2]
         r = min(s / h, s / w)
@@ -212,16 +253,20 @@ def _mosaic_grid(images: list, labels_list: list, imgsz: int, corner) -> tuple:
             lb[:, [1, 3]] += padw
             lb[:, [2, 4]] += padh
             out_labels.append(lb)
+            if extras is not None:
+                out_extras.append(shift_points(extras[i], r, padw, padh))
     off = s // 2
     canvas = canvas[off:off + 2 * s, off:off + 2 * s]
     labels = np.concatenate(out_labels, 0) if out_labels else np.zeros((0, 5), np.float32)
     labels[:, 1:5] -= off
     np.clip(labels[:, 1:5:2], 0, 2 * s, out=labels[:, 1:5:2])
     np.clip(labels[:, 2:5:2], 0, 2 * s, out=labels[:, 2:5:2])
+    if extras is not None:
+        return canvas, labels, cat_extras([shift_points(e, 1.0, -off, -off) for e in out_extras])
     return canvas, labels
 
 
-def mosaic3(images: list, labels_list: list, imgsz: int):
+def mosaic3(images: list, labels_list: list, imgsz: int, extras: list | None = None):
     """Three images in a row (the first in the centre, the second right of
     it, the third left) -> a 2s x 2s canvas and its labels. Draws nothing."""
     s = imgsz
@@ -232,10 +277,10 @@ def mosaic3(images: list, labels_list: list, imgsz: int):
             st["h0"], st["w0"] = nh, nw
         return [(s, s), (s + st["w0"], s), (s - nw, s + st["h0"] - nh)][i]
 
-    return _mosaic_grid(images, labels_list, imgsz, corner)
+    return _mosaic_grid(images, labels_list, imgsz, corner, extras)
 
 
-def mosaic9(images: list, labels_list: list, imgsz: int):
+def mosaic9(images: list, labels_list: list, imgsz: int, extras: list | None = None):
     """Nine images: the first in the centre, eight around it clockwise from
     the top, each aligned to the tile placed before it -> a 2s x 2s canvas
     and its labels. Draws nothing."""
@@ -251,7 +296,7 @@ def mosaic9(images: list, labels_list: list, imgsz: int):
                 (s + w0 - nw, s + h0), (s + w0 - wp - nw, s + h0), (s - nw, s + h0 - nh),
                 (s - nw, s + h0 - hp - nh)][i]
 
-    return _mosaic_grid(images, labels_list, imgsz, corner)
+    return _mosaic_grid(images, labels_list, imgsz, corner, extras)
 
 
 def mixup(img1, labels1, img2, labels2, rng: np.random.Generator | None = None):
@@ -260,3 +305,79 @@ def mixup(img1, labels1, img2, labels2, rng: np.random.Generator | None = None):
     r = rng.beta(32.0, 32.0)
     img = (img1.astype(np.float32) * r + img2.astype(np.float32) * (1 - r)).astype(np.uint8)
     return img, np.concatenate([labels1, labels2], 0)
+
+
+def _ioa_rows(boxes: np.ndarray, others: np.ndarray) -> np.ndarray:
+    """Intersection of each box (n, 4) xyxy with each of ``others`` (m, 4)
+    over the box's own area -> (n, m)."""
+    x1 = np.maximum(boxes[:, 0:1], others[None, :, 0])
+    y1 = np.maximum(boxes[:, 1:2], others[None, :, 1])
+    x2 = np.minimum(boxes[:, 2:3], others[None, :, 2])
+    y2 = np.minimum(boxes[:, 3:4], others[None, :, 3])
+    inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+    area = np.clip((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]), 1e-6, None)
+    return inter / area[:, None]
+
+
+def copy_paste_mix(img: np.ndarray, labels: np.ndarray, segments: list, img2: np.ndarray,
+                   labels2: np.ndarray, segments2: list, p: float = 0.5):
+    """Copy-paste, "mixup" mode: instances of a second image (resized to
+    this one's shape) pasted onto it, their pixels masked by their
+    polygons (``imgproc.fill_poly_cv``): those whose boxes cover under 0.3
+    of their area with every existing box, the least overlapping
+    ``round(p * n)`` of them. Draws nothing."""
+    if not len(labels2) or not segments2 or p <= 0:
+        return img, labels, segments
+    h, w = img.shape[:2]
+    h2, w2 = img2.shape[:2]
+    if (h2, w2) != (h, w):
+        sx, sy = w / w2, h / h2
+        img2 = ip.resize(img2, (w, h))
+        labels2 = labels2.copy()
+        labels2[:, [1, 3]] *= sx
+        labels2[:, [2, 4]] *= sy
+        segments2 = [np.stack([pg[:, 0] * sx, pg[:, 1] * sy], -1) for pg in segments2]
+    if len(labels):
+        ioa = _ioa_rows(labels2[:, 1:5], labels[:, 1:5])
+        eligible = np.nonzero((ioa < 0.30).all(1))[0]
+        eligible = eligible[np.argsort(ioa.max(1)[eligible])]
+    else:
+        eligible = np.arange(len(labels2))
+    take = eligible[:round(p * len(eligible))]
+    if not len(take):
+        return img, labels, segments
+    mask = np.zeros((h, w), np.uint8)
+    for j in take:
+        ip.fill_poly_cv(mask, segments2[j].astype(np.int32), 1)
+    img = np.where(mask[..., None] > 0, img2, img)
+    labels = np.concatenate([labels, labels2[take]], 0) if len(labels) else labels2[take]
+    return img, labels, list(segments) + [segments2[j] for j in take]
+
+
+def copy_paste_flip(img: np.ndarray, labels: np.ndarray, segments: list, p: float = 0.5,
+                    rng: np.random.Generator | None = None):
+    """Copy-paste, "flip" mode: ``max(1, round(p * n))`` instances, drawn by
+    a permutation, pasted left-right mirrored where the mirrored box covers
+    at most 0.3 of its area with every existing box."""
+    rng = rng or np.random.default_rng()
+    if not len(labels) or p <= 0:
+        return img, labels, segments
+    h, w = img.shape[:2]
+    n = max(1, round(len(labels) * p))
+    new_labels, new_segments = [], []
+    mirrored = img[:, ::-1]
+    for i in rng.permutation(len(labels))[:n]:
+        box = labels[i, 1:5]
+        fbox = np.asarray([w - box[2], box[1], w - box[0], box[3]], np.float32)
+        if _ioa_rows(fbox[None], labels[:, 1:5]).max() > 0.3:
+            continue
+        fpoly = np.stack([w - segments[i][:, 0], segments[i][:, 1]], -1)
+        mask = np.zeros((h, w), np.uint8)
+        ip.fill_poly_cv(mask, fpoly.astype(np.int32), 1)
+        img = np.where(mask[..., None] > 0, mirrored, img)
+        new_labels.append(np.concatenate([[labels[i, 0]], fbox]))
+        new_segments.append(fpoly)
+    if new_labels:
+        labels = np.concatenate([labels, np.stack(new_labels)], 0)
+        segments = list(segments) + new_segments
+    return img, labels, segments

@@ -1,9 +1,14 @@
-"""YOLO-format detection dataset and its fixed-shape batch loader.
+"""YOLO-format dataset of the detect, segment, pose and obb tasks, and its
+fixed-shape batch loader.
 
-Port of the detect part of ``xlstm_yolo_tpu/data/dataset.py``:
+Port of ``xlstm_yolo_tpu/data/dataset.py`` for those tasks:
 ``check_det_dataset``, ``img2label_path``, the label scan and its
 hash-checked ``.npz`` cache, ``YOLODataset`` (``load_image`` with ``cache``
-``ram`` / ``disk``, ``labels_px``, the detect sample, ``collate``),
+``ram`` / ``disk``, ``labels_px``, the detect sample, the point tasks'
+sample (``_get_sample_points``: mosaic or letterbox, copy-paste, HSV and
+the flip carrying polygons, keypoints with ``flip_idx``, and OBB corners,
+turned into (cx, cy, w, h, angle) by ``imgproc.min_area_rect`` at the end),
+``collate``),
 ``Loader`` (the seeded shuffle, the same batch order and per-sample random
 streams as JAX, the threaded prefetch) and ``build_dataloader``; the rect
 buckets of eval (``rect_groups``, the image shapes read from the files'
@@ -13,8 +18,13 @@ headers and cached beside the label cache). Images are read with
     img:       (B, imgsz, imgsz, 3) uint8 with ``uint8_images`` (normalized
                on the device), else float32 in [0, 1]; (B, h, w, 3) at a
                rect bucket's shape
-    cls_boxes: (B, max_labels, 5) = (cls, x1, y1, x2, y2) pixels
+    cls_boxes: (B, max_labels, 5) = (cls, x1, y1, x2, y2) pixels; obb:
+               (B, max_labels, 6) = (cls, cx, cy, w, h, angle in radians)
     mask:      (B, max_labels) bool
+    masks:     segment: (B, h / mask_ratio, w / mask_ratio) int32, slot + 1
+               of the instance per pixel (``imgproc.fill_poly_cv`` in slot
+               order: a later instance covers an earlier one), 0 elsewhere
+    keypoints: pose: (B, max_labels, nk, 3) pixels + visibility
 
 and, for an eval batch, ``ori_shape`` and ``im_idx``. With ``pin`` the
 loader's thread hands the arrays over as pinned torch tensors, ready for
@@ -34,7 +44,7 @@ import numpy as np
 import yaml
 
 from . import augment as A
-from .imgproc import IMG_FORMATS, image_shape, imread, resize
+from .imgproc import IMG_FORMATS, fill_poly_cv, image_shape, imread, min_area_rect, resize
 
 
 def check_det_dataset(data: str | dict) -> dict:
@@ -94,19 +104,43 @@ def _files_hash(files: list, stat_of=img2label_path) -> str:
     return h.hexdigest()
 
 
-def _pack_labels(labels: list) -> dict:
+def _pack_labels(labels: list, task: str = "detect") -> dict:
+    """Per-image label dicts -> flat arrays and counts (``np.savez`` without
+    pickle)."""
     counts = np.asarray([len(lb["cls"]) for lb in labels], np.int64)
-    return {"counts": counts,
-            "cls": (np.concatenate([lb["cls"] for lb in labels]) if counts.sum()
-                    else np.zeros(0, np.float32)),
-            "xywhn": (np.concatenate([lb["xywhn"] for lb in labels]) if counts.sum()
-                      else np.zeros((0, 4), np.float32))}
+    cat = lambda key, empty: (np.concatenate([lb[key] for lb in labels]) if counts.sum()
+                              else np.zeros(empty, np.float32))
+    out = {"counts": counts, "cls": cat("cls", 0), "xywhn": cat("xywhn", (0, 4))}
+    if task == "segment":
+        segs = [s for lb in labels for s in lb["segments"]]
+        out["seg_counts"] = np.asarray([len(lb["segments"]) for lb in labels], np.int64)
+        out["seg_lens"] = np.asarray([len(s) for s in segs], np.int64)
+        out["seg_pts"] = (np.concatenate(segs).astype(np.float32) if segs
+                          else np.zeros((0, 2), np.float32))
+    elif task == "pose":
+        out["keypoints"] = cat("keypoints", (0, 1, 3))
+    elif task == "obb":
+        out["obb_corners"] = cat("obb_corners", (0, 4, 2))
+    return out
 
 
-def _unpack_labels(z) -> list:
+def _unpack_labels(z, task: str = "detect") -> list:
     offs = np.concatenate([[0], np.cumsum(z["counts"])])
-    return [{"cls": z["cls"][a:b].astype(np.float32), "xywhn": z["xywhn"][a:b].astype(np.float32)}
-            for a, b in zip(offs[:-1], offs[1:])]
+    if task == "segment":
+        seg_offs = np.concatenate([[0], np.cumsum(z["seg_counts"])])
+        pt_offs = np.concatenate([[0], np.cumsum(z["seg_lens"])])
+    labels = []
+    for i, (a, b) in enumerate(zip(offs[:-1], offs[1:])):
+        lb = {"cls": z["cls"][a:b].astype(np.float32), "xywhn": z["xywhn"][a:b].astype(np.float32)}
+        if task == "segment":
+            lb["segments"] = [z["seg_pts"][pt_offs[k]:pt_offs[k + 1]].astype(np.float32)
+                              for k in range(seg_offs[i], seg_offs[i + 1])]
+        elif task == "pose":
+            lb["keypoints"] = z["keypoints"][a:b].astype(np.float32)
+        elif task == "obb":
+            lb["obb_corners"] = z["obb_corners"][a:b].astype(np.float32)
+        labels.append(lb)
+    return labels
 
 
 def rect_groups(shapes: np.ndarray, batch: int, imgsz: int, stride: int = 32,
@@ -129,8 +163,11 @@ def rect_groups(shapes: np.ndarray, batch: int, imgsz: int, stride: int = 32,
 
 
 class YOLODataset:
-    """Detection dataset over a YOLO-format tree (``images/`` beside
-    ``labels/``, one ``cls cx cy w h`` line per object, normalized).
+    """Dataset over a YOLO-format tree (``images/`` beside ``labels/``, one
+    line per object, normalized): ``task`` detect ``cls cx cy w h``,
+    segment ``cls x1 y1 x2 y2 ...`` (a polygon; its box derived), pose
+    ``cls cx cy w h`` + ``kpt_shape[0]`` keypoints of ``kpt_shape[1]``
+    values (2: visibility 2 added), obb ``cls`` + 4 corners.
     ``augment`` selects the train pipeline (mosaic of ``mosaic_n`` 3, 4 or
     9 images, perspective, mixup, HSV, flip); without it a sample is
     letterboxed (no upscale). ``cache`` ``"ram"`` (or True) keeps the
@@ -141,7 +178,8 @@ class YOLODataset:
     def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, hyp=None,
                  max_labels: int = 128, single_cls: bool = False, fraction: float = 1.0,
                  cache: str | bool = False, rect: bool = False, stride: int = 32,
-                 pad: float = 0.5):
+                 pad: float = 0.5, task: str = "detect", kpt_shape: tuple = (17, 3),
+                 mask_ratio: int = 4):
         self.imgsz = imgsz
         self.cache = "ram" if cache is True else (cache or "")
         self._im_cache: dict[int, np.ndarray] = {}
@@ -149,7 +187,9 @@ class YOLODataset:
         self.hyp = hyp or {}
         self.max_labels = max_labels
         self.single_cls = single_cls
-        self.task = "detect"
+        self.task = task
+        self.kpt_shape = tuple(kpt_shape)
+        self.mask_ratio = int(mask_ratio)
         self.files = self._scan(img_path)
         if fraction < 1.0:
             self.files = self.files[: max(1, round(len(self.files) * fraction))]
@@ -181,13 +221,12 @@ class YOLODataset:
             return files
         raise FileNotFoundError(f"invalid dataset path {img_path}")
 
-    @staticmethod
-    def _cache_path(img_path) -> Path | None:
+    def _cache_path(self, img_path) -> Path | None:
         p = Path(img_path[0] if isinstance(img_path, (list, tuple)) else img_path)
         base = p if p.is_dir() else p.parent
         try:
             base.mkdir(parents=True, exist_ok=True)
-            return base / "labels_detect.cache.npz"
+            return base / f"labels_{self.task}.cache.npz"
         except OSError:
             return None
 
@@ -201,13 +240,13 @@ class YOLODataset:
                 with np.load(cp, allow_pickle=False) as z:
                     if (int(z["version"]) == _CACHE_VERSION and str(z["hash"]) == want
                             and int(z["counts"].shape[0]) == len(self.files)):
-                        return _unpack_labels(z)
+                        return _unpack_labels(z, self.task)
             except (OSError, ValueError, KeyError):
                 pass  # a corrupt or stale cache: rescan below
         labels = [self._load_label(f) for f in self.files]
         if cp is not None:
             try:
-                np.savez(cp, version=_CACHE_VERSION, hash=want, **_pack_labels(labels))
+                np.savez(cp, version=_CACHE_VERSION, hash=want, **_pack_labels(labels, self.task))
             except OSError:
                 pass  # a read-only dataset: scan on every run
         return labels
@@ -251,7 +290,9 @@ class YOLODataset:
         return rect_groups(self.image_shapes(), batch, self.imgsz, self.stride, self.pad)
 
     def _load_label(self, img_file: str) -> dict:
-        """{"cls": (n,), "xywhn": (n, 4)} from the image's label file."""
+        """{"cls": (n,), "xywhn": (n, 4)} from the image's label file, and
+        the task's points: "segments" (a list of (k, 2)), "keypoints" (n,
+        nk, 3) or "obb_corners" (n, 4, 2), normalized."""
         lp = img2label_path(img_file)
         rows = []
         if os.path.exists(lp):
@@ -260,11 +301,38 @@ class YOLODataset:
                     parts = [float(x) for x in line.split()]
                     if len(parts) >= 5:
                         rows.append(parts)
-        out = {"cls": np.zeros(len(rows), np.float32),
-               "xywhn": np.zeros((len(rows), 4), np.float32)}
+        n = len(rows)
+        out = {"cls": np.zeros(n, np.float32), "xywhn": np.zeros((n, 4), np.float32)}
+        nk, nd = self.kpt_shape
+        if self.task == "segment":
+            out["segments"] = []
+        elif self.task == "pose":
+            out["keypoints"] = np.zeros((n, nk, 3), np.float32)
+        elif self.task == "obb":
+            out["obb_corners"] = np.zeros((n, 4, 2), np.float32)
         for i, parts in enumerate(rows):
             out["cls"][i] = 0 if self.single_cls else parts[0]
+            pts = None
+            if self.task == "segment" and len(parts) > 5:
+                pts = np.asarray(parts[1:], np.float32).reshape(-1, 2)
+                out["segments"].append(pts)
+            elif self.task == "obb" and len(parts) >= 9:
+                pts = out["obb_corners"][i] = np.asarray(parts[1:9], np.float32).reshape(4, 2)
+            if pts is not None:
+                (x1, y1), (x2, y2) = pts.min(0), pts.max(0)
+                out["xywhn"][i] = [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
+                continue
             out["xywhn"][i] = parts[1:5]
+            if self.task == "pose" and len(parts) > 5:
+                k = np.asarray(parts[5:5 + nk * nd], np.float32).reshape(nk, nd)
+                if nd == 2:
+                    k = np.concatenate([k, np.full((nk, 1), 2, np.float32)], -1)
+                out["keypoints"][i] = k
+            elif self.task == "segment":  # a box line: its rectangle
+                cx, cy, w, h = parts[1:5]
+                out["segments"].append(np.asarray(
+                    [[cx - w / 2, cy - h / 2], [cx + w / 2, cy - h / 2],
+                     [cx + w / 2, cy + h / 2], [cx - w / 2, cy + h / 2]], np.float32))
         return out
 
     def __len__(self):
@@ -325,12 +393,111 @@ class YOLODataset:
                             np.float32)
         return {"ori_shape": shapes, "im_idx": np.asarray(idxs, np.int32)}
 
+    def points_px(self, i: int, shape) -> dict:
+        """Image ``i``'s point annotations in pixels of ``shape`` (h, w)."""
+        lb = self.labels[i]
+        h0, w0 = shape
+        wh = np.asarray([w0, h0], np.float32)
+        if self.task == "segment":
+            return {"segments": [p * wh for p in lb["segments"]]}
+        if self.task == "pose":
+            k = lb["keypoints"].copy()
+            k[..., 0] *= w0
+            k[..., 1] *= h0
+            return {"keypoints": k}
+        if self.task == "obb":
+            return {"corners": lb["obb_corners"] * wh}
+        return {}
+
+    def _get_sample_points(self, i: int, rng: np.random.Generator, shape=None) -> tuple:
+        """Sample ``i`` of a point task -> (img, labels, extra): the mosaic
+        (of ``mosaic_n`` images, halved to ``imgsz``) or the letterbox,
+        copy-paste (segment, ``copy_paste`` of mode ``copy_paste_mode``),
+        HSV and the left-right flip (keypoints reordered by the hyp's
+        ``flip_idx``); no perspective, as in JAX. OBB corners become
+        ``extra["rbox"]`` (n, 5) = (cx, cy, w, h, angle in radians)."""
+        hyp = self.hyp
+        get = lambda k, d: hyp.get(k, d) if isinstance(hyp, dict) else getattr(hyp, k, d)
+        g = lambda k, d: float(get(k, d))
+        if self.augment and rng.random() < g("mosaic", 1.0):
+            n = int(g("mosaic_n", 4))
+            idxs = [i] + [int(rng.integers(self.ni)) for _ in range(max(n, 3) - 1)]
+            imgs, lbs, pts = [], [], []
+            for j in idxs:
+                im = self.load_image(j)
+                imgs.append(im)
+                lbs.append(self.labels_px(j, im.shape[:2]))
+                pts.append(self.points_px(j, im.shape[:2]))
+            if n in (3, 9):
+                img, labels, extra = (A.mosaic3 if n == 3 else A.mosaic9)(imgs, lbs, self.imgsz,
+                                                                         extras=pts)
+            else:
+                img, labels, extra = A.mosaic4(imgs, lbs, self.imgsz, rng, extras=pts)
+            img = resize(img, (self.imgsz, self.imgsz))  # the 2s canvas halved
+            labels = labels.copy()
+            labels[:, 1:5] *= 0.5
+            extra = A.shift_points(extra, 0.5, 0.0, 0.0)
+        else:
+            img = self.load_image(i)
+            labels = self.labels_px(i, img.shape[:2])
+            pts = self.points_px(i, img.shape[:2])
+            img, labels, (r, px, py) = A.letterbox(img, shape or self.imgsz, labels,
+                                                   scaleup=self.augment)
+            extra = A.shift_points(pts, r, px, py)
+
+        if self.task == "segment" and self.augment and g("copy_paste", 0.0) > 0:
+            if (get("copy_paste_mode", "flip") or "flip") == "mixup":
+                j = int(rng.integers(self.ni))
+                im2 = self.load_image(j)
+                lb2 = self.labels_px(j, im2.shape[:2])
+                pts2 = self.points_px(j, im2.shape[:2])
+                im2, lb2, (r2, px2, py2) = A.letterbox(im2, self.imgsz, lb2)
+                segs2 = A.shift_points(pts2, r2, px2, py2).get("segments", [])
+                img, labels, segs = A.copy_paste_mix(img, labels, extra.get("segments", []), im2,
+                                                     lb2, segs2, p=g("copy_paste", 0.0))
+            else:
+                img, labels, segs = A.copy_paste_flip(img, labels, extra.get("segments", []),
+                                                      p=g("copy_paste", 0.0), rng=rng)
+            extra["segments"] = segs
+
+        if self.augment:
+            img = A.random_hsv(img, g("hsv_h", 0.015), g("hsv_s", 0.7), g("hsv_v", 0.4), rng)
+            if g("fliplr", 0.5) and rng.random() < g("fliplr", 0.5):
+                w = img.shape[1]
+                img = np.ascontiguousarray(img[:, ::-1])
+                if len(labels):
+                    x1 = labels[:, 1].copy()
+                    labels[:, 1] = w - labels[:, 3]
+                    labels[:, 3] = w - x1
+                if "segments" in extra:
+                    extra["segments"] = [np.stack([w - p[:, 0], p[:, 1]], -1)
+                                         for p in extra["segments"]]
+                if "keypoints" in extra:
+                    k = extra["keypoints"]
+                    k[..., 0] = w - k[..., 0]
+                    flip_idx = hyp.get("flip_idx") if isinstance(hyp, dict) else None
+                    extra["keypoints"] = k[:, list(flip_idx)] if flip_idx else k
+                if "corners" in extra:
+                    extra["corners"][..., 0] = w - extra["corners"][..., 0]
+        if self.task == "obb":
+            # the angle is defined once the geometry is done
+            corners = extra.pop("corners", np.zeros((0, 4, 2), np.float32))
+            rb = np.zeros((len(corners), 5), np.float32)
+            for ci, c in enumerate(corners):
+                (cx, cy), (w, h), ang = min_area_rect(c)
+                rb[ci] = [cx, cy, w, h, ang * math.pi / 180.0]
+            extra["rbox"] = rb
+        return img, labels, extra
+
     def get_sample(self, i: int, rng: np.random.Generator, shape=None) -> tuple:
-        """Sample ``i`` -> (img, labels): the train pipeline (mosaic of
+        """Sample ``i`` -> (img, labels) (a point task's: (img, labels,
+        extra), ``_get_sample_points``): the train pipeline (mosaic of
         ``mosaic_n`` images, 3, 9 or else 4, with perspective, or letterbox
         with perspective; mixup; HSV; flip) drawing from ``rng``, or the
         letterbox alone, to ``shape`` (h, w) when given (a rect bucket),
         else square ``imgsz``."""
+        if self.task != "detect":
+            return self._get_sample_points(i, rng, shape)
         hyp = self.hyp
         g = lambda k, d: float(hyp.get(k, d) if isinstance(hyp, dict) else getattr(hyp, k, d))
         if self.augment and rng.random() < g("mosaic", 1.0):
@@ -378,13 +545,22 @@ class YOLODataset:
     def collate(self, samples: list, idxs=None) -> dict:
         """Samples (of one shape: square ``imgsz`` or a rect bucket's) -> a
         fixed-shape batch: boxes narrower or lower than a pixel dropped,
-        the rest in ``max_labels`` padded slots."""
+        the rest in ``max_labels`` padded slots, with the task's ``masks``
+        (polygons times 1 / ``mask_ratio``, to int32, filled in slot order)
+        or ``keypoints``; an OBB batch's boxes are (cls, rbox)."""
         b = len(samples)
         sh, sw = samples[0][0].shape[:2] if samples else (self.imgsz, self.imgsz)
         imgs = np.zeros((b, sh, sw, 3), np.uint8 if self.uint8_images else np.float32)
-        boxes = np.zeros((b, self.max_labels, 5), np.float32)
+        boxes = np.zeros((b, self.max_labels, 6 if self.task == "obb" else 5), np.float32)
         mask = np.zeros((b, self.max_labels), bool)
-        for bi, (img, labels) in enumerate(samples):
+        extras = {}
+        if self.task == "segment":
+            extras["masks"] = np.zeros((b, sh // self.mask_ratio, sw // self.mask_ratio), np.int32)
+        elif self.task == "pose":
+            extras["keypoints"] = np.zeros((b, self.max_labels, self.kpt_shape[0], 3), np.float32)
+        for bi, sample in enumerate(samples):
+            img, labels = sample[:2]
+            extra = sample[2] if len(sample) > 2 else {}
             imgs[bi] = img if self.uint8_images else img.astype(np.float32) / 255.0
             keep = np.arange(len(labels))
             if len(labels):
@@ -392,11 +568,22 @@ class YOLODataset:
                 keep = np.nonzero((wh > 1).all(-1))[0]
             keep = keep[: self.max_labels]
             n = len(keep)
-            if n:
-                mask[bi, :n] = True
+            if not n:
+                continue
+            mask[bi, :n] = True
+            if self.task == "obb":
+                boxes[bi, :n, 0] = labels[keep, 0]
+                boxes[bi, :n, 1:6] = extra["rbox"][keep]
+            else:
                 boxes[bi, :n] = labels[keep]
+            if self.task == "segment":
+                for slot, gi in enumerate(keep):
+                    poly = (extra["segments"][gi] * (1.0 / self.mask_ratio)).astype(np.int32)
+                    fill_poly_cv(extras["masks"][bi], poly, slot + 1)
+            elif self.task == "pose":
+                extras["keypoints"][bi, :n] = extra["keypoints"][keep]
         meta = {} if (idxs is None or self.augment) else self._batch_meta(idxs)
-        return {"img": imgs, "cls_boxes": boxes, "mask": mask, **meta}
+        return {"img": imgs, "cls_boxes": boxes, "mask": mask, **extras, **meta}
 
 
 def _pinned(batch: dict) -> dict:
@@ -529,14 +716,21 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
                      max_labels: int = 128, seed: int = 0, fraction: float = 1.0,
                      single_cls: bool = False, cache: str | bool = False,
                      workers: int = 0, rect: bool = False, stride: int = 32,
-                     pad: float = 0.5) -> tuple[Loader, dict]:
+                     pad: float = 0.5, task: str = "detect",
+                     mask_ratio: int = 4) -> tuple[Loader, dict]:
     """Dataset YAML (or dict) -> (Loader, dataset dict). The train split
     augments and shuffles and drops the last partial batch; the others keep
     every image in order. ``rect`` (without ``augment``): aspect-ratio
-    buckets aligned to ``stride``, padded by ``pad`` strides."""
+    buckets aligned to ``stride``, padded by ``pad`` strides. ``task``
+    selects the labels' format; a pose dataset's ``kpt_shape`` (default
+    (17, 3)) comes from its YAML, and its ``flip_idx`` joins a dict
+    ``hyp``."""
     augment = (split == "train") if augment is None else augment
     d = check_det_dataset(data_yaml)
+    if isinstance(hyp, dict) and d.get("flip_idx"):
+        hyp = {**hyp, "flip_idx": d["flip_idx"]}
     ds = YOLODataset(d[split], imgsz=imgsz, augment=augment, hyp=hyp, max_labels=max_labels,
                      single_cls=single_cls, fraction=fraction, cache=cache, rect=rect,
-                     stride=stride, pad=pad)
+                     stride=stride, pad=pad, task=task,
+                     kpt_shape=tuple(d.get("kpt_shape", (17, 3))), mask_ratio=mask_ratio)
     return Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers), d

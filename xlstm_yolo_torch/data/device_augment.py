@@ -21,7 +21,12 @@ Pipeline, as in the JAX module (the reference's hyp names):
 Labels are padded (B, M, 5) cls + xyxy pixel boxes with a (B, M) mask; the
 mosaic concatenates the four partners' slots (4M), the affine re-clips and
 filters them (the reference's box candidates), and the first M valid slots
-are packed to the front.
+are packed to the front. A segment batch's slot-encoded masks (B, ms, ms)
+and a pose batch's keypoints (B, M, K, 3) ride the same geometry: the
+mosaic's slot concatenation (partner j's slot ids shifted by j * M), the
+affine (nearest sampling for the mask ids, out-of-canvas keypoints made
+invisible), the packing's slot permutation, and the flip (``flip_idx``
+reorders the keypoints).
 
 The random choices are apart from the arithmetic: ``draw`` returns them as
 tensors (``Draws``) from an explicit ``torch.Generator`` on the step's
@@ -29,8 +34,7 @@ device; ``apply`` computes the rest from them. So a test can hand the JAX
 module's own draws to ``apply`` (torch cannot reproduce ``jax.random``).
 ``step_generator`` seeds a step's draws from (seed, update count), as the
 JAX step folds the update count into its key: a resumed run draws what the
-uninterrupted run draws. Seg masks and keypoints are not ported (the port
-has the detect task only).
+uninterrupted run draws.
 """
 from __future__ import annotations
 
@@ -178,10 +182,57 @@ def _transform_boxes(boxes: torch.Tensor, mask: torch.Tensor, fwd: torch.Tensor,
 
 
 def _pack_first(cls_boxes: torch.Tensor, mask: torch.Tensor, m_out: int):
-    """Valid slots to the front, in order, cut to ``m_out``."""
+    """Valid slots to the front, in order, cut to ``m_out``; and the kept
+    slots' old indices (B, m_out)."""
     order = torch.argsort((~mask).to(torch.uint8), dim=1, stable=True)[:, :m_out]
     cb = cls_boxes.gather(1, order[..., None].expand(-1, -1, cls_boxes.shape[-1]))
-    return cb, mask.gather(1, order)
+    return cb, mask.gather(1, order), order
+
+
+def _sample_mask_nearest(masks: torch.Tensor, inv: torch.Tensor, S: int, M: int,
+                         mosaic: torch.Tensor | None = None) -> torch.Tensor:
+    """Slot-encoded masks (B, ms, ms) warped with each image's output ->
+    source affine ``inv`` at mask resolution (a mask pixel is S / ms image
+    pixels), nearest (round half to even), 0 outside the source. With
+    ``mosaic`` the source is the (2ms, 2ms) mask canvas of the image and its
+    partners, partner j's ids shifted by j * M (image i's own mask alone in
+    the top-left where ``mosaic`` is unset)."""
+    B, ms = masks.shape[:2]
+    ratio = S / ms
+    dev = masks.device
+    W = ms if mosaic is None else 2 * ms
+    ar = torch.arange(ms, device=dev, dtype=torch.float32) * ratio
+    ys, xs = ar.repeat_interleave(ms), ar.repeat(ms)
+    row = lambda i: inv[:, i, :, None]
+    sx = (row(0)[:, 0] * xs + row(0)[:, 1] * ys + row(0)[:, 2]) / ratio
+    sy = (row(1)[:, 0] * xs + row(1)[:, 1] * ys + row(1)[:, 2]) / ratio
+    xi, yi = torch.round(sx).long(), torch.round(sy).long()
+    inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < W)
+    xi, yi = xi.clamp(0, W - 1), yi.clamp(0, W - 1)
+    img_of = torch.arange(B, device=dev)[:, None].expand_as(xi)
+    shift = torch.zeros_like(xi)
+    if mosaic is not None:
+        right, lower = xi >= ms, yi >= ms
+        quad = 2 * lower + right
+        img_of = torch.where(mosaic[:, None], (img_of + quad) % B, img_of)
+        shift = torch.where(mosaic[:, None], quad * M, 0)
+        inb = inb & (mosaic[:, None] | ~(right | lower))
+        xi, yi = xi - ms * right, yi - ms * lower
+    v = masks.reshape(-1)[(img_of * ms + yi) * ms + xi]
+    v = torch.where(v > 0, v + shift, 0)
+    return torch.where(inb, v, 0).reshape(B, ms, ms)
+
+
+def _transform_kpts(kpts: torch.Tensor, fwd: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Keypoints (B, K', nk, 3) pixels + visibility through each image's
+    affine ``fwd``; a point leaving the (out_size, out_size) canvas gets
+    visibility 0."""
+    x, y, vis = kpts.unbind(-1)
+    f = lambda i, j: fwd[:, i, j, None, None]
+    nx = f(0, 0) * x + f(0, 1) * y + f(0, 2)
+    ny = f(1, 0) * x + f(1, 1) * y + f(1, 2)
+    inb = (nx >= 0) & (nx < out_size) & (ny >= 0) & (ny < out_size)
+    return torch.stack([nx, ny, torch.where(inb, vis, 0.0)], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -257,28 +308,51 @@ def draw(B: int, S: int, hyp: dict, mosaic_p: float, generator: torch.Generator)
 
 
 def apply(imgs: torch.Tensor, cls_boxes: torch.Tensor, mask: torch.Tensor, d: Draws,
-          hyp: dict):
+          hyp: dict, masks: torch.Tensor | None = None, keypoints: torch.Tensor | None = None,
+          flip_idx=None):
     """The pipeline on ``d``'s choices: ``imgs`` (B, S, S, 3) 0..255,
     ``cls_boxes`` (B, M, 5) cls + xyxy pixels, ``mask`` (B, M) bool ->
-    (imgs fp32 0..255, cls_boxes, mask) of the same shapes. ``hyp`` as
-    ``aug_hyp``: ``mosaic`` > 0 selects the 2S canvas, the HSV gains scale
-    ``d.r``."""
+    (imgs fp32 0..255, cls_boxes, mask) of the same shapes, then the
+    augmented ``masks`` (B, ms, ms) and ``keypoints`` (B, M, K, 3) where
+    given. ``hyp`` as ``aug_hyp``: ``mosaic`` > 0 selects the 2S canvas,
+    the HSV gains scale ``d.r``."""
     B, S = imgs.shape[:2]
     M = cls_boxes.shape[1]
     imgs = imgs.float()
-    if hyp["mosaic"] > 0.0:
+    mos = d.mosaic if hyp["mosaic"] > 0.0 else None
+    if mos is not None:
         cb, mk = _mosaic_canvas(cls_boxes, mask, S)
-        mos = d.mosaic
         own_cb = torch.cat([cls_boxes, cls_boxes.new_zeros(B, 3 * M, 5)], 1)
         own_mk = torch.cat([mask, mask.new_zeros(B, 3 * M)], 1)
         cb = torch.where(mos[:, None, None], cb, own_cb)
         mk = torch.where(mos[:, None], mk, own_mk)
-        out = _sample_bilinear(imgs, d.inv, S, mos)
     else:
         cb, mk = cls_boxes, mask
-        out = _sample_bilinear(imgs, d.inv, S)
+    out = _sample_bilinear(imgs, d.inv, S, mos)
     boxes, mk = _transform_boxes(cb[..., 1:5], mk, d.fwd, S)
-    cb, mk = _pack_first(torch.cat([cb[..., :1], boxes], -1), mk, M)
+    cb, mk_new, order = _pack_first(torch.cat([cb[..., :1], boxes], -1), mk, M)
+    extras = []
+    if masks is not None:
+        warped = _sample_mask_nearest(masks, d.inv, S, M, mos)
+        # old slot id (1-based, before packing) -> packed id, 0 where dropped
+        remap = torch.zeros(B, mk.shape[1] + 1, dtype=warped.dtype, device=warped.device)
+        new_ids = torch.where(mk_new, torch.arange(1, M + 1, device=warped.device), 0)
+        remap.scatter_(1, order + 1, new_ids.to(warped.dtype))
+        extras.append(remap.gather(1, warped.reshape(B, -1)).reshape(warped.shape))
+    if keypoints is not None:
+        kp = keypoints.float()
+        if mos is not None:
+            quad = torch.arange(4, device=kp.device)
+            partner = (torch.arange(B, device=kp.device)[:, None] + quad) % B
+            off = torch.stack([(quad % 2) * float(S), (quad // 2) * float(S),
+                               torch.zeros(4, device=kp.device)], -1)  # (4, 3)
+            kq = (kp[partner] + off[:, None, None]).reshape(B, 4 * M, *kp.shape[2:])
+            k0 = torch.cat([kp, kp.new_zeros(B, 3 * M, *kp.shape[2:])], 1)
+            kp = torch.where(mos[:, None, None, None], kq, k0)
+        kp = _transform_kpts(kp, d.fwd, S)
+        kp = kp.gather(1, order[..., None, None].expand(-1, -1, *kp.shape[2:]))
+        extras.append(torch.where(mk_new[..., None, None], kp, 0.0))
+    mk = mk_new
 
     out = hsv_jitter(out, d.r, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"])
 
@@ -286,19 +360,35 @@ def apply(imgs: torch.Tensor, cls_boxes: torch.Tensor, mask: torch.Tensor, d: Dr
     out = torch.where(flip[:, None, None, None], out.flip(2), out)
     fb = torch.stack([cb[..., 0], S - cb[..., 3], cb[..., 2], S - cb[..., 1], cb[..., 4]], -1)
     cb = torch.where(flip[:, None, None], fb, cb)
-    return out, cb, mk
+    if masks is not None:
+        extras[0] = torch.where(flip[:, None, None], extras[0].flip(2), extras[0])
+    if keypoints is not None:
+        kp = extras[-1]
+        kf = torch.stack([torch.where(kp[..., 2] > 0, S - kp[..., 0], kp[..., 0]), kp[..., 1],
+                          kp[..., 2]], -1)
+        if flip_idx is not None:
+            kf = kf[:, :, list(flip_idx)]
+        extras[-1] = torch.where(flip[:, None, None, None], kf, kp)
+    return (out, cb, mk, *extras)
 
 
 def device_augment(batch: dict, generator: torch.Generator, hyp: dict | None = None,
-                   mosaic_p: float | None = None) -> dict:
+                   mosaic_p: float | None = None, flip_idx=None) -> dict:
     """Augment a collated batch on its device: ``batch`` {"img" (B, S, S, 3)
-    uint8 or fp32 0..255, "cls_boxes" (B, M, 5), "mask" (B, M)}; the draws
-    from ``generator`` (on the batch's device), ``mosaic_p`` defaulting to
-    ``hyp["mosaic"]``. Returns the batch with those three keys replaced
-    (img fp32 0..255); other keys pass through."""
+    uint8 or fp32 0..255, "cls_boxes" (B, M, 5), "mask" (B, M)}, and
+    "masks" / "keypoints" where present; the draws from ``generator`` (on
+    the batch's device), ``mosaic_p`` defaulting to ``hyp["mosaic"]``.
+    Returns the batch with those keys replaced (img fp32 0..255); other
+    keys pass through."""
     hyp = aug_hyp(hyp)
     img = batch["img"]
     d = draw(img.shape[0], img.shape[1], hyp, hyp["mosaic"] if mosaic_p is None else mosaic_p,
              generator)
-    img, cb, mk = apply(img, batch["cls_boxes"], batch["mask"], d, hyp)
-    return {**batch, "img": img, "cls_boxes": cb, "mask": mk}
+    res = apply(img, batch["cls_boxes"], batch["mask"], d, hyp, masks=batch.get("masks"),
+                keypoints=batch.get("keypoints"), flip_idx=flip_idx)
+    out = {**batch, "img": res[0], "cls_boxes": res[1], "mask": res[2]}
+    extra = iter(res[3:])
+    for key in ("masks", "keypoints"):
+        if key in batch:
+            out[key] = next(extra)
+    return out

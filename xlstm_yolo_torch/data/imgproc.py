@@ -30,6 +30,7 @@ tolerance it states.
 """
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from pathlib import Path
@@ -314,6 +315,37 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8).reshape(h_out, w_out, *img.shape[2:])
 
 
+def resize_linear_f32(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for a float32
+    (H, W) map: half-pixel centres, the taps clamped at the edges, the
+    horizontal then the vertical pass in float32. ``size`` is (width,
+    height)."""
+
+    def taps(n_in, n_out):
+        f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = f - s.astype(np.float32)
+        f[s < 0], s[s < 0] = 0.0, 0
+        edge = s >= n_in - 1
+        f[edge], s[edge] = 0.0, n_in - 1
+        return s, np.minimum(s + 1, n_in - 1), (np.float32(1) - f), f
+
+    img = np.asarray(img, np.float32)
+    x0, x1, a0, a1 = taps(img.shape[1], int(size[0]))
+    y0, y1, b0, b1 = taps(img.shape[0], int(size[1]))
+    rows = img[:, x0] * a0 + img[:, x1] * a1
+    return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
+
+
+def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_NEAREST)``: source
+    index floor(i * in / out); ``size`` is (width, height)."""
+    h, w = img.shape[:2]
+    ys = np.minimum(np.floor(np.arange(size[1]) * (h / size[1])).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(size[0]) * (w / size[0])).astype(np.int64), w - 1)
+    return img[ys][:, xs]
+
+
 # ---------------------------------------------------------------------------
 # warps (cv2 warpAffine / warpPerspective, bilinear, constant border)
 # ---------------------------------------------------------------------------
@@ -465,3 +497,261 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color) -> None:
         xcross = xa + (ys - ya) * (xb - xa) / (yb - ya)
         inside ^= crosses & (xs < xcross)
     img[inside] = color
+
+
+# ---------------------------------------------------------------------------
+# cv2.fillPoly of one polygon with int32 vertices (the masks of the
+# segment task), and cv2.minAreaRect / cv2.boxPoints (the OBB targets)
+# ---------------------------------------------------------------------------
+
+_XY_SHIFT = 16
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """``cv2.clipLine`` of a segment to the (w, h) image: (inside, x1, y1,
+    x2, y2), the coordinates moved as cv2 moves them (truncated)."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color) -> None:
+    """``cv2.line`` of width 1, 8-connected (Bresenham, drawn left to
+    right, clipped to the image)."""
+    h, w = img.shape[:2]
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        if not inside:
+            return
+    dx, dy, sy = x2 - x1, y2 - y1, 1
+    if dx < 0:
+        dx, dy, x1, y1 = -dx, -dy, x2, y2
+    if dy < 0:
+        dy, sy = -dy, -1
+    steep = dy > dx
+    if steep:
+        dx, dy = dy, dx
+    err, x, y = dx - 2 * dy, x1, y1
+    for _ in range(dx + 1):
+        img[y, x] = color
+        diag = err < 0
+        err += -2 * dy + (2 * dx if diag else 0)
+        if steep:
+            y, x = y + sy, x + diag
+        else:
+            x, y = x + 1, y + sy * diag
+    return
+
+
+def fill_poly_cv(img: np.ndarray, pts: np.ndarray, color) -> np.ndarray:
+    """``cv2.fillPoly(img, [pts], color)`` for one polygon of integer
+    vertices, pixel for pixel (OpenCV 5's rules): every edge drawn as an
+    8-connected line, then each row filled between pairs of edge
+    crossings, x in 16.16 fixed point, the left end rounded up and the
+    right end down. An edge that leaves the image runs along its clipped
+    segment's line (a segment clipped to one row keeps its clipped x for
+    every row). ``fill_poly`` is the other rule, pixel centres inside."""
+    h, w = img.shape[:2]
+    v = np.asarray(pts, np.int64).reshape(-1, 2)
+    edges = []
+    for i in range(len(v)):
+        (ax, ay), (bx, by) = v[i - 1].tolist(), v[i].tolist()
+        _line8(img, ax, ay, bx, by, color)
+        c0x, c0y, c1x, c1y = ax << _XY_SHIFT, ay, bx << _XY_SHIFT, by
+        if not (0 <= ax < w and 0 <= bx < w and 0 <= ay < h and 0 <= by < h):
+            _, cax, cay, cbx, cby = _clip_line(w, h, ax, ay, bx, by)
+            c0x, c1x = cax << _XY_SHIFT, cbx << _XY_SHIFT
+            if cay != cby:
+                c0y, c1y = cay, cby
+        if ay == by:
+            continue
+        num, den = c1x - c0x, c1y - c0y
+        dx = 0 if den == 0 else (abs(num) // abs(den)) * (1 if (num >= 0) == (den > 0) else -1)
+        if ay < by:
+            edges.append((ay, by, c0x + (ay - c0y) * dx, dx))
+        else:
+            edges.append((by, ay, c1x + (by - c1y) * dx, dx))
+    if len(edges) < 2:
+        return img
+    ends = [x for y0, y1, x, dx in edges for x in (x, x + (y1 - y0) * dx)]
+    if (max(e[1] for e in edges) < 0 or min(e[0] for e in edges) >= h or max(ends) < 0
+            or min(ends) >= (w << _XY_SHIFT)):
+        return img
+    one = (1 << _XY_SHIFT) - 1
+    for y in range(max(min(e[0] for e in edges), 0), min(max(e[1] for e in edges), h)):
+        xs = sorted(x + (y - y0) * dx for y0, y1, x, dx in edges if y0 <= y < y1)
+        for k in range(0, len(xs) - 1, 2):
+            x1, x2 = (xs[k] + one) >> _XY_SHIFT, xs[k + 1] >> _XY_SHIFT
+            if x1 < w and x2 >= 0:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+    return img
+
+
+def _convex_hull_order(pts: np.ndarray) -> list:
+    """The indices of ``cv2.convexHull(pts)`` (counter-clockwise), in its
+    order: from the last point in (x, y) order, rotated to start at the
+    least index where the indices run cyclically up (or the greatest where
+    they run down)."""
+    order = sorted(range(len(pts)), key=lambda i: (pts[i, 0], pts[i, 1]))
+    p = pts.astype(np.float64)
+
+    def cross(o, a, b):
+        return (p[a, 0] - p[o, 0]) * (p[b, 1] - p[o, 1]) - (p[a, 1] - p[o, 1]) * (p[b, 0] - p[o, 0])
+
+    lower, upper = [], []
+    for chain, seq in ((lower, order), (upper, order[::-1])):
+        for i in seq:
+            while len(chain) >= 2 and cross(chain[-2], chain[-1], i) <= 0:
+                chain.pop()
+            chain.append(i)
+    hull = lower[:-1] + upper[:-1] or order[:1]
+    k = hull.index(order[-1]) if order[-1] in hull else 0
+    hull = hull[k:] + hull[:k]
+    n = len(hull)
+    if n >= 3:
+        rising = sum(hull[i] < hull[(i + 1) % n] for i in range(n))
+        if rising in (1, n - 1):
+            k = hull.index(min(hull) if rising == n - 1 else max(hull))
+            hull = hull[k:] + hull[:k]
+    return hull
+
+
+def _calipers(pts: np.ndarray) -> np.ndarray:
+    """OpenCV's rotating calipers for the least-area rectangle of a convex
+    hull (n, 2) float32, in float32 as it computes them: (3, 2) = a corner,
+    the width vector, the height vector."""
+    f = np.float32
+    n = len(pts)
+    vect, inv_len = np.zeros((n, 2), f), np.zeros(n, f)
+    ext = [0, 0, 0, 0]  # bottom (least y), right, top, left
+    lo_x = hi_x = pts[0, 0]
+    lo_y = hi_y = pts[0, 1]
+    for i in range(n):
+        x, y = pts[i]
+        if x < lo_x:
+            lo_x, ext[3] = x, i
+        if x > hi_x:
+            hi_x, ext[1] = x, i
+        if y > hi_y:
+            hi_y, ext[2] = y, i
+        if y < lo_y:
+            lo_y, ext[0] = y, i
+        dx, dy = float(pts[(i + 1) % n, 0]) - float(x), float(pts[(i + 1) % n, 1]) - float(y)
+        vect[i] = (dx, dy)
+        inv_len[i] = 1.0 / math.sqrt(dx * dx + dy * dy)
+    orientation = f(0)
+    ax, ay = float(vect[-1, 0]), float(vect[-1, 1])
+    for bx, by in vect.astype(np.float64):
+        if ax * by - ay * bx != 0:
+            orientation = f(1.0 if ax * by - ay * bx > 0 else -1.0)
+            break
+        ax, ay = bx, by
+    base_a, base_b, seq = orientation, f(0), list(ext)
+    minarea, best = f(np.finfo(f).max), None
+    for _ in range(n):
+        v = [vect[s] for s in seq]
+        dp = [base_a * v[0][0] + base_b * v[0][1], -base_b * v[1][0] + base_a * v[1][1],
+              -base_a * v[2][0] - base_b * v[2][1], base_b * v[3][0] - base_a * v[3][1]]
+        main, maxcos = 0, dp[0] * inv_len[seq[0]]
+        for i in range(1, 4):
+            if dp[i] * inv_len[seq[i]] > maxcos:
+                main, maxcos = i, dp[i] * inv_len[seq[i]]
+        p = seq[main]
+        lx, ly = vect[p, 0] * inv_len[p], vect[p, 1] * inv_len[p]
+        base_a, base_b = ((lx, ly), (ly, -lx), (-lx, -ly), (-ly, lx))[main]
+        seq[main] = (seq[main] + 1) % n
+        width = ((pts[seq[1], 0] - pts[seq[3], 0]) * base_a
+                 + (pts[seq[1], 1] - pts[seq[3], 1]) * base_b)
+        height = (-(pts[seq[2], 0] - pts[seq[0], 0]) * base_b
+                  + (pts[seq[2], 1] - pts[seq[0], 1]) * base_a)
+        if width * height <= minarea:
+            minarea, best = width * height, (seq[3], base_a, width, base_b, height, seq[0])
+    left, a1, width, b1, height, bottom = best
+    a2, b2 = -b1, a1
+    c1 = a1 * pts[left, 0] + pts[left, 1] * b1
+    c2 = a2 * pts[bottom, 0] + pts[bottom, 1] * b2
+    idet = f(1.0) / (a1 * b2 - a2 * b1)
+    return np.array([[(c1 * b2 - c2 * b1) * idet, (a1 * c2 - a2 * c1) * idet],
+                     [a1 * width, b1 * width], [a2 * height, b2 * height]], f)
+
+
+def _rect_in_range(c, w, h, ang) -> tuple:
+    """A rectangle's (centre, size, angle) with the angle moved into [-90, 0)
+    by quarter turns, w and h swapped at each."""
+    while ang >= 0:
+        ang, w, h = ang - 90, h, w
+    while ang < -90:
+        ang, w, h = ang + 90, h, w
+    f = np.float32
+    return (float(f(c[0])), float(f(c[1]))), (float(f(w)), float(f(h))), float(f(ang))
+
+
+def min_area_rect(points: np.ndarray) -> tuple:
+    """``cv2.minAreaRect(points)``: ((cx, cy), (w, h), angle in degrees)
+    with OpenCV 5's convention, the angle in [-90, 0) (an axis-aligned w x h
+    box comes back as (h, w) at -90). OpenCV's rotating calipers run in
+    float32 on the convex hull (``_convex_hull_order``, ``_calipers``), as
+    cv2 runs them; their rectangle is checked against the least-area one
+    with a side on a hull edge, found in float64, and that one is taken
+    where the calipers' float32 rounding lost the minimum (some
+    near-rectangles). Where two different rectangles' areas tie to float32
+    rounding (a triangle, a parallelogram, a rectangle with rounded
+    corners), the one taken may be the other of the two."""
+    f = np.float32
+    pts = np.asarray(points, f).reshape(-1, 2)
+    hull = pts[_convex_hull_order(pts)] if len(pts) else pts
+    if len(hull) == 0:
+        return (0.0, 0.0), (0.0, 0.0), 0.0
+    if len(hull) == 1:
+        return (float(hull[0, 0]), float(hull[0, 1])), (0.0, 0.0), 0.0
+    h64 = hull.astype(np.float64)
+    best = None
+    for i in range(len(hull) if len(hull) > 2 else 1):
+        e = h64[(i + 1) % len(hull)] - h64[i]
+        u = e / math.hypot(e[0], e[1])
+        v = np.array([-u[1], u[0]])
+        pu, pv = h64 @ u, h64 @ v
+        w, h = pu.max() - pu.min(), pv.max() - pv.min()
+        if best is None or w * h < best[0]:
+            c = u * (pu.max() + pu.min()) / 2 + v * (pv.max() + pv.min()) / 2
+            best = (w * h, c, w, h, math.degrees(math.atan2(u[1], u[0])))
+    if len(hull) > 2:
+        out = _calipers(hull).astype(np.float64)
+        w, h = math.hypot(*out[1]), math.hypot(*out[2])
+        if abs(w * h - best[0]) <= 1e-6 * best[0]:
+            return _rect_in_range(out[0] + (out[1] + out[2]) * 0.5, w, h,
+                                  math.degrees(math.atan2(out[1, 1], out[1, 0])))
+    return _rect_in_range(*best[1:])
+
+
+def box_points(rect) -> np.ndarray:
+    """``cv2.boxPoints(((cx, cy), (w, h), angle))``: the (4, 2) float32
+    corners."""
+    (cx, cy), (w, h), ang = rect
+    a = ang * math.pi / 180.0
+    b, c = math.cos(a) * 0.5, math.sin(a) * 0.5
+    p0 = (cx - c * h - b * w, cy + b * h - c * w)
+    p1 = (cx + c * h - b * w, cy - b * h - c * w)
+    return np.asarray([p0, p1, (2 * cx - p0[0], 2 * cy - p0[1]),
+                       (2 * cx - p1[0], 2 * cy - p1[1])], np.float32)

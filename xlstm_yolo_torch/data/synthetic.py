@@ -1,8 +1,13 @@
-"""A synthetic YOLO-format detection dataset, written to disk as PNG.
+"""A synthetic YOLO-format dataset for every task the port has, written to
+disk as PNG.
 
-Port of ``make_synthetic_dataset`` (detect) in
-``xlstm_yolo_tpu/data/synthetic.py``, on ``data.imgproc``: coloured
-rectangles, circles and triangles (class = shape) on a noisy background.
+Port of ``make_synthetic_dataset`` in ``xlstm_yolo_tpu/data/synthetic.py``,
+on ``data.imgproc``: coloured rectangles, circles and triangles (class =
+shape) on a noisy background, drawn from the same seeded draws in the same
+order. Labels (``task``): detect ``cls cx cy w h``; segment the shape's
+polygon (4, 12 or 3 points); pose one class with 5 keypoints (the box's
+corners and centre, visible) and ``kpt_shape: [5, 3]`` in the YAML; obb the
+4 corners of a rotated rectangle (``imgproc.box_points``), all normalized.
 It writes PNG, which the port decodes without OpenCV or Pillow, and takes a
 width and a height, so that the images need not be square.
 """
@@ -20,11 +25,12 @@ CLASSES = ["rect", "circle", "triangle"]
 
 def make_synthetic_dataset(root: str | Path, n_train: int = 8, n_val: int = 4,
                            imgsz: int = 160, max_objs: int = 3, seed: int = 0,
-                           width: int | None = None, height: int | None = None) -> str:
+                           width: int | None = None, height: int | None = None,
+                           task: str = "detect") -> str:
     """Write ``images/{train,val}/*.png`` and ``labels/{train,val}/*.txt``
     (1 to ``max_objs`` objects an image) and ``data.yaml`` under ``root``;
     returns the YAML's path. Images are ``width`` x ``height`` (both
-    ``imgsz`` by default)."""
+    ``imgsz`` by default); ``task`` one of detect, segment, pose, obb."""
     root = Path(root)
     w, h = int(width or imgsz), int(height or imgsz)
     side = min(w, h)
@@ -44,17 +50,40 @@ def make_synthetic_dataset(root: str | Path, n_train: int = 8, n_val: int = 4,
                 color = [int(c) for c in rng.integers(150, 256, 3)]
                 x1, y1 = cx - size // 2, cy - size // 2
                 x2, y2 = cx + size // 2, cy + size // 2
+                if task == "obb":
+                    corners = ip.box_points(((cx, cy), (size, size * 0.6),
+                                             float(rng.uniform(-60, 60))))
+                    ip.fill_poly(img, corners, color)
+                    lines.append(f"{cls} " + " ".join(
+                        f"{x / w:.6f} {y / h:.6f}" for x, y in corners))
+                    continue
                 if cls == 0:
+                    poly = np.asarray([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.float32)
                     ip.fill_rect(img, x1, y1, x2, y2, color)
                 elif cls == 1:
+                    th = np.linspace(0, 2 * np.pi, 13)[:-1]
+                    poly = np.stack([cx + size / 2 * np.cos(th), cy + size / 2 * np.sin(th)],
+                                    -1).astype(np.float32)
                     ip.fill_circle(img, cx, cy, size // 2, color)
                 else:
-                    ip.fill_poly(img, np.asarray([[cx, y1], [x1, y2], [x2, y2]]), color)
-                lines.append(f"{cls} {cx / w:.6f} {cy / h:.6f} {size / w:.6f} {size / h:.6f}")
+                    poly = np.asarray([[cx, y1], [x1, y2], [x2, y2]], np.float32)
+                    ip.fill_poly(img, poly, color)
+                if task == "segment":
+                    lines.append(f"{cls} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in poly))
+                elif task == "pose":
+                    kpts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2), (cx, cy)]
+                    lines.append(f"0 {cx / w:.6f} {cy / h:.6f} {size / w:.6f} {size / h:.6f} "
+                                 + " ".join(f"{x / w:.6f} {y / h:.6f} 2" for x, y in kpts))
+                else:
+                    lines.append(f"{cls} {cx / w:.6f} {cy / h:.6f} {size / w:.6f} {size / h:.6f}")
             ip.imwrite(img_dir / f"{i:04d}.png", img)
             (lbl_dir / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    pose = task == "pose"
     d = {"path": str(root), "train": "images/train", "val": "images/val",
-         "names": dict(enumerate(CLASSES)), "nc": len(CLASSES)}
+         "names": {0: "person"} if pose else dict(enumerate(CLASSES)),
+         "nc": 1 if pose else len(CLASSES)}
+    if pose:
+        d["kpt_shape"] = [5, 3]
     yaml_path = root / "data.yaml"
     yaml_path.write_text(yaml.safe_dump(d))
     return str(yaml_path)

@@ -1,7 +1,9 @@
 """The user-facing model: ``YOLO("vil_yolon.yaml").train(...)``, ``.val``,
 ``.predict``.
 
-Port of ``Model`` in ``xlstm_yolo_tpu/engine/model.py`` for the detect task:
+Port of ``Model`` in ``xlstm_yolo_tpu/engine/model.py`` for the detect,
+segment, pose and obb tasks (the head of the YAML sets it; classify is not
+ported):
 built from a model YAML (weights from a seed) or from a checkpoint ``.pt``
 of the port (``utils.checkpoint``: its EMA weights), on ``device`` (the
 card unless the caller asks for ``"cpu"``). ``train`` runs
@@ -45,8 +47,12 @@ class Model:
             raise ValueError(f"unsupported model source {model!r} (a model .yaml or a checkpoint "
                              f".pt of this package)")
         self.task = task or self.model.task
-        if self.task != "detect":
-            raise ValueError(f"task {self.task!r}: the port has the detect task only")
+        if self.task not in ("detect", "segment", "pose", "obb"):
+            raise ValueError(f"task {self.task!r}: the port has the detect, segment, pose and "
+                             f"obb tasks; classify (its head, backbones, data and validation) "
+                             f"is not ported yet")
+        if self.task != self.model.task:
+            raise ValueError(f"task {self.task!r} does not match the model's {self.model.task!r}")
         self.predictor = None
         self.trainer = None
         self.metrics = None
@@ -174,4 +180,5 @@ class Model:
 
 
 class YOLO(Model):
-    """``YOLO("vil_yolon.yaml")``: the detect ``Model``."""
+    """``YOLO("vil_yolon.yaml")``, ``YOLO("yolo11n-seg.yaml")``: the
+    ``Model`` of the YAML's task."""

@@ -1,5 +1,5 @@
-"""Detection inference: batched on the device, and per source image with
-``Results``.
+"""Inference of the detect, segment, pose and OBB tasks: batched on the
+device, and per source image with ``Results``.
 
 Port of ``Predictor`` and ``load_source`` (files, directories and arrays) in
 ``xlstm_yolo_tpu/engine/predictor.py``. Two entries, told apart by what
@@ -19,6 +19,18 @@ Port of ``Predictor`` and ``load_source`` (files, directories and arrays) in
   (``ops.boxes.scale_boxes``) -> ``list[Results]``, or with ``stream`` a
   generator of them, as the JAX ``Predictor`` does.
 
+The other tasks, as the JAX ``Predictor``: the decode of
+``predictions_full``; OBB through ``nms_rotated`` (conf, iou, max_det; its
+rows un-letterboxed into ``Results.obb``, ``Results.boxes`` the axis-aligned
+(cx, cy, w, h) boxes of the same rows); segment and pose re-associate each
+kept box with a candidate by the L1 distance of the centres
+(``_match_candidates``): the masks are sigmoid(coefficients x prototypes),
+cropped to the box at mask resolution, the letterbox padding cut, resized
+bilinearly to the image (``imgproc.resize_linear_f32``) and thresholded at
+0.5; the keypoints are mapped back by the letterbox's gain and padding.
+The batch entry returns the task's decoded dict in place of ``cands``
+(``predictions_full``), dets of OBB's 7 columns.
+
 fp32 by default, as the JAX ``Predictor`` (the reference's ``half: False``).
 ``dtype="bfloat16"`` (or ``half=True``) serves in bf16 as the JAX bench
 does: the model's parameters cast to bf16 in place (``nn.fuse.cast_params``;
@@ -35,12 +47,12 @@ import numpy as np
 import torch
 
 from ..data.augment import letterbox
-from ..data.imgproc import IMG_FORMATS
+from ..data.imgproc import IMG_FORMATS, resize_linear_f32
 from ..data.loaders import LoadImagesAndVideos, LoadPilAndNumpy
 from ..nn.fuse import cast_params
 from ..ops.boxes import scale_boxes
 from ..ops.letterbox import letterbox_device
-from ..ops.nms import non_max_suppression
+from ..ops.nms import nms_rotated, non_max_suppression
 from ..utils.callbacks import default_callbacks
 from .results import Results
 
@@ -100,10 +112,22 @@ class Predictor:
         return letterbox_device(frames.to(self.device), imgsz=self.imgsz, dtype=self.dtype)
 
     def postprocess(self, cands: torch.Tensor):
-        """(B, N, 4 + nc) candidates -> (dets (B, max_det, 6), valid)."""
+        """(B, N, 4 + nc) candidates -> (dets (B, max_det, 6), valid); an
+        OBB model's (B, N, 5 + nc) -> ``nms_rotated``'s (dets (B, max_det,
+        7), valid)."""
+        if getattr(self.model, "task", "detect") == "obb":
+            return nms_rotated(cands, conf_thres=self.conf, iou_thres=self.iou,
+                               max_det=self.max_det)
         return non_max_suppression(cands, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det, pre_topk=self.pre_topk,
                                    fast_sel=True, class_agnostic=self.agnostic)
+
+    def decode(self, x: torch.Tensor):
+        """The forward and decode of a letterboxed batch: the candidates,
+        or a task model's ``predictions_full`` dict."""
+        if getattr(self.model, "task", "detect") == "detect":
+            return self.model.predictions(x)
+        return self.model.predictions_full(x)
 
     def __call__(self, source, stream: bool = False):
         """A batch of frames -> (dets, valid, cands, meta), dets boxes xyxy
@@ -114,15 +138,17 @@ class Predictor:
                                                 and source.ndim == 4):
             with torch.inference_mode():
                 x, meta = self.preprocess(source)
-                cands = self.model.predictions(x)
-                dets, valid = self.postprocess(cands)
-            return dets, valid, cands, meta
+                out = self.decode(x)
+                dets, valid = self.postprocess(out if isinstance(out, torch.Tensor)
+                                               else out["cands"].float())
+            return dets, valid, out, meta
         gen = self._results(source)
         return gen if stream else list(gen)
 
     def _results(self, source):
         self.callbacks.run("on_predict_start", self)
         names = getattr(self.model, "names", {}) or {}
+        task = getattr(self.model, "task", "detect")
         for path, orig in load_source(source):
             self.callbacks.run("on_predict_batch_start", self)
             t0 = time.perf_counter()
@@ -130,18 +156,42 @@ class Predictor:
             with torch.inference_mode():
                 x = torch.from_numpy(img).to(self.device)[None].float() / 255.0
                 t1 = time.perf_counter()
-                dets, valid = self.postprocess(self.model.predictions(x.to(self.dtype)).float())
+                out = self.decode(x.to(self.dtype))
+                full = ({"cands": out} if isinstance(out, torch.Tensor)
+                        else {k: v.float() for k, v in out.items()})
+                dets, valid = self.postprocess(full["cands"].float())
                 d = dets[0][valid[0]]
-                if self.classes is not None:
-                    d = d[torch.isin(d[:, 5].long(), torch.tensor(self.classes, device=d.device))]
+                if self.classes is not None and task != "obb":
+                    keep = torch.isin(d[:, 5].long(), torch.tensor(self.classes, device=d.device))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t2 = time.perf_counter()
-            d = torch.cat([scale_boxes(d[:, :4], (self.imgsz, self.imgsz), orig.shape[:2],
-                                       ratio_pad=(r, (px, py))), d[:, 4:]], 1)
-            res = Results(orig, path=path, names=names, boxes=d.cpu().numpy(),
+            kw = {}
+            if task == "obb":
+                d7 = d.cpu().numpy().astype(np.float32)
+                d7[:, 0], d7[:, 1] = (d7[:, 0] - px) / r, (d7[:, 1] - py) / r
+                d7[:, 2:4] /= r
+                kw["obb"] = d7
+                d = np.stack([d7[:, 0] - d7[:, 2] / 2, d7[:, 1] - d7[:, 3] / 2,
+                              d7[:, 0] + d7[:, 2] / 2, d7[:, 1] + d7[:, 3] / 2, d7[:, 5],
+                              d7[:, 6]], 1)
+            else:
+                dn = d.cpu().numpy()
+                if task == "segment" and len(dn):
+                    kw["masks"] = self._assemble_masks(dn, full["cands"][0].cpu().numpy(),
+                                                       full["coefs"][0].cpu().numpy(),
+                                                       full["proto"][0].cpu().numpy(),
+                                                       orig.shape[:2], r, px, py)
+                elif task == "pose" and len(dn):
+                    kw["keypoints"] = self._gather_kpts(dn, full["cands"][0].cpu().numpy(),
+                                                        full["kpts"][0].cpu().numpy(), r, px, py)
+                if self.classes is not None:  # after the masks and keypoints, as JAX
+                    d = d[keep]
+                d = torch.cat([scale_boxes(d[:, :4], (self.imgsz, self.imgsz), orig.shape[:2],
+                                           ratio_pad=(r, (px, py))), d[:, 4:]], 1).cpu().numpy()
+            res = Results(orig, path=path, names=names, boxes=d,
                           speed={"preprocess": (t1 - t0) * 1e3, "inference": (t2 - t1) * 1e3,
-                                 "postprocess": (time.perf_counter() - t2) * 1e3})
+                                 "postprocess": (time.perf_counter() - t2) * 1e3}, **kw)
             self.results = [res]
             self.callbacks.run("on_predict_postprocess_end", self)
             if self.verbose:
@@ -149,3 +199,39 @@ class Predictor:
             self.callbacks.run("on_predict_batch_end", self)
             yield res
         self.callbacks.run("on_predict_end", self)
+
+    @staticmethod
+    def _match_candidates(d: np.ndarray, cands: np.ndarray) -> np.ndarray:
+        """Each kept box's candidate: the least L1 distance between its
+        centre and the candidates' (x, y)."""
+        dxy = (d[:, :2] + d[:, 2:4]) / 2
+        return np.argmin(np.abs(cands[None, :, 0] - dxy[:, 0:1])
+                         + np.abs(cands[None, :, 1] - dxy[:, 1:2]), axis=1)
+
+    def _assemble_masks(self, d, cands, coefs, proto, orig_shape, r, px, py) -> np.ndarray:
+        """(n, H0, W0) boolean masks of the kept boxes ``d`` (letterboxed
+        xyxy); ``proto`` (nm, hm, wm)."""
+        nm, hm, wm = proto.shape
+        flat = proto.reshape(nm, -1).T
+        sx, sy = wm / self.imgsz, hm / self.imgsz
+        pxm, pym = int(px * sx), int(py * sy)
+        masks = []
+        for di, ci in enumerate(self._match_candidates(d, cands)):
+            m = (1 / (1 + np.exp(-(flat @ coefs[ci])))).reshape(hm, wm)
+            x1, y1, x2, y2 = d[di, :4]
+            xs, ys = int(x1 * sx), int(y1 * sy)
+            xe, ye = max(int(x2 * sx), xs + 1), max(int(y2 * sy), ys + 1)
+            crop = np.zeros_like(m)
+            crop[ys:ye, xs:xe] = m[ys:ye, xs:xe]
+            crop = crop[pym:hm - pym or hm, pxm:wm - pxm or wm]
+            masks.append(resize_linear_f32(crop, (orig_shape[1], orig_shape[0])) > 0.5)
+        return np.stack(masks)
+
+    def _gather_kpts(self, d, cands, kpts, r, px, py) -> np.ndarray:
+        """(n, K, nd) keypoints of the kept boxes, in the image's pixels (nd
+        3 where the row's width divides by 3, as JAX reads it)."""
+        nd = 3 if kpts.shape[-1] % 3 == 0 else 2
+        k = kpts[self._match_candidates(d, cands)].reshape(len(d), -1, nd).copy()
+        k[..., 0] = (k[..., 0] - px) / r
+        k[..., 1] = (k[..., 1] - py) / r
+        return k

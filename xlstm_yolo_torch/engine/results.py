@@ -1,9 +1,11 @@
 """Prediction results of one image, in numpy.
 
-Port of ``BaseNP``, ``Boxes`` and the detect part of ``Results`` in
-``xlstm_yolo_tpu/engine/results.py`` (without ``plot`` and the other
-tasks' containers): boxes in pixels of the original image, with their
-confidence and class, and the summaries built on them.
+Port of ``BaseNP``, ``Boxes``, ``Masks``, ``Keypoints``, ``OBB`` and
+``Results`` in ``xlstm_yolo_tpu/engine/results.py`` (without ``plot``,
+``Probs`` and tracking): boxes in pixels of the original image, with their
+confidence and class, the segment task's masks, the pose task's keypoints,
+the OBB task's rotated boxes, and the summaries built on the boxes.
+``Masks.xy`` / ``.xyn`` (polygons traced from the masks) are not ported.
 """
 from __future__ import annotations
 
@@ -83,28 +85,140 @@ class Boxes(BaseNP):
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+class Masks(BaseNP):
+    """(n, h, w) boolean instance masks at the original image's size."""
+
+    def __init__(self, masks, orig_shape):
+        masks = np.asarray(masks)
+        super().__init__(masks[None] if masks.ndim == 2 else masks, orig_shape)
+
+    @property
+    def xy(self):
+        raise NotImplementedError("Masks.xy (polygons traced from the masks) is not ported")
+
+    @property
+    def xyn(self):
+        raise NotImplementedError("Masks.xyn (polygons traced from the masks) is not ported")
+
+
+class Keypoints(BaseNP):
+    """(n, K, 2 or 3) keypoints in pixels of the original image; with a
+    visibility column, points under 0.5 are zeroed, as the reference."""
+
+    def __init__(self, keypoints, orig_shape):
+        keypoints = np.asarray(keypoints, np.float32)
+        if keypoints.ndim == 2:
+            keypoints = keypoints[None]
+        if keypoints.shape[-1] == 3:
+            keypoints = keypoints.copy()
+            keypoints[..., :2][keypoints[..., 2] < 0.5] = 0
+        super().__init__(keypoints, orig_shape)
+        self.has_visible = keypoints.shape[-1] == 3
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.xy / np.asarray([w, h], np.float32)
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.has_visible else None
+
+
+class OBB(BaseNP):
+    """(n, 7) = cx, cy, w, h, angle (radians), conf, cls in pixels of the
+    original image."""
+
+    def __init__(self, data, orig_shape):
+        data = np.asarray(data, np.float32)
+        if data.ndim == 1:
+            data = data.reshape(-1, data.shape[0] if data.size else 7)
+        data = data.reshape(-1, data.shape[-1])
+        if data.shape[-1] != 7:
+            raise ValueError(f"expected 7 columns (cx, cy, w, h, angle, conf, cls), got "
+                             f"{data.shape}")
+        super().__init__(data, orig_shape)
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, -2]
+
+    @property
+    def cls(self):
+        return self.data[:, -1]
+
+    @property
+    def xyxyxyxy(self):
+        """(n, 4, 2) corner points."""
+        cx, cy, w, h, r = (self.data[:, i] for i in range(5))
+        cos, sin = np.cos(r), np.sin(r)
+        dx1, dy1 = w / 2 * cos, w / 2 * sin
+        dx2, dy2 = -h / 2 * sin, h / 2 * cos
+        return np.stack([np.stack([cx + dx1 + dx2, cy + dy1 + dy2], -1),
+                         np.stack([cx + dx1 - dx2, cy + dy1 - dy2], -1),
+                         np.stack([cx - dx1 - dx2, cy - dy1 - dy2], -1),
+                         np.stack([cx - dx1 + dx2, cy - dy1 + dy2], -1)], 1).astype(np.float32)
+
+    @property
+    def xyxyxyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxyxyxy / np.asarray([w, h], np.float32)
+
+    @property
+    def xyxy(self):
+        """The axis-aligned boxes around the rotated ones."""
+        p = self.xyxyxyxy
+        return np.concatenate([p.min(1), p.max(1)], -1) if len(p) else np.zeros((0, 4), np.float32)
+
+
 class Results:
-    """One image's detections: the image, its path, the class names, the
-    ``Boxes`` and the stage times in ms (``speed``)."""
+    """One image's predictions: the image, its path, the class names, the
+    ``Boxes`` and, by task, the ``Masks``, ``Keypoints`` or ``OBB``, and
+    the stage times in ms (``speed``)."""
 
     def __init__(self, orig_img: np.ndarray, path: str = "", names: dict | None = None,
-                 boxes: np.ndarray | None = None, speed: dict | None = None):
+                 boxes: np.ndarray | None = None, speed: dict | None = None,
+                 masks: np.ndarray | None = None, keypoints: np.ndarray | None = None,
+                 obb: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names or {}
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = (Keypoints(keypoints, self.orig_shape) if keypoints is not None
+                          else None)
+        self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {}
 
     def __len__(self):
-        return len(self.boxes) if self.boxes is not None else 0
+        for v in (self.boxes, self.obb, self.masks, self.keypoints):
+            if v is not None:
+                return len(v)
+        return 0
 
     def __getitem__(self, idx):
-        return self.new(boxes=self.boxes.data[idx] if self.boxes is not None else None)
+        return self.new(**{k: getattr(self, k).data[idx] for k in ("boxes", "masks",
+                                                                   "keypoints", "obb")
+                           if getattr(self, k) is not None})
 
-    def update(self, boxes=None):
+    def update(self, boxes=None, masks=None, keypoints=None, obb=None):
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
+        if keypoints is not None:
+            self.keypoints = Keypoints(keypoints, self.orig_shape)
+        if obb is not None:
+            self.obb = OBB(obb, self.orig_shape)
 
     def new(self, **kw):
         """A new Results on the same image."""

@@ -1,4 +1,5 @@
-"""Detection training: one step, and the loop of steps around it.
+"""Training of the detect, segment, pose and obb tasks: one step, and the
+loop of steps around it.
 
 Port of the ``train_step`` that ``Trainer._build_step`` builds in
 ``xlstm_yolo_tpu/engine/trainer.py``, without mesh, and of the
@@ -26,7 +27,12 @@ keeping the last partial batch, under ``device_augment``), ``multi_scale``
 stride-aligned sizes, ``multi_scale_sizes`` and ``ms_rescale``), the
 model rebuilt to the dataset's class count with the weights of matching
 name and shape carried over, accumulation to a nominal batch of ``nbs``,
-the schedule and warm-up of ``fit_steps``, ``close_mosaic``, validation of
+the schedule and warm-up of ``fit_steps``, ``close_mosaic``, the task's
+batch keys (``masks`` at ``mask_ratio``, ``keypoints`` with the dataset's
+``flip_idx``; an OBB run augments on the host, as the JAX trainer falls
+back, whatever ``device_augment`` says; ``multi_scale`` resizes masks by
+nearest neighbour and scales keypoints), the ``pose`` / ``kobj`` gains,
+validation of
 the EMA parameters (with the live BatchNorm statistics) after every epoch,
 ``best.pt`` / ``last.pt``, ``resume`` from ``last.pt`` (weights, optimizer
 state, EMA, update count and the loader's epoch, so that a resumed run
@@ -81,10 +87,12 @@ class TrainStep:
     def __init__(self, model, lr: float = 0.01, momentum: float = 0.937,
                  weight_decay: float = 5e-4, optimizer: str = "auto", iterations: float = 1e5,
                  accumulate: int = 1, amp: bool = True, augment: dict | None = None,
-                 seed: int = 0, gains=None):
+                 seed: int = 0, gains=None, pose_gains=(12.0, 1.0), flip_idx=None):
         self.model = model.train()
         self.amp = amp
         self.gains = gains
+        self.pose_gains = tuple(pose_gains)
+        self.flip_idx = None if flip_idx is None else tuple(int(i) for i in flip_idx)
         self.update = StepUpdate(model, lr=lr, momentum=momentum, weight_decay=weight_decay,
                                  name=optimizer, nc=getattr(model, "nc", 80),
                                  iterations=iterations, accumulate=accumulate)
@@ -100,11 +108,19 @@ class TrainStep:
 
     def augment_batch(self, batch: dict) -> dict:
         """The batch (images fp32 in [0, 1]) augmented on its device, as the
-        JAX step augments it: on the images times 255, the result over 255."""
+        JAX step augments it: on the images times 255, the result over 255;
+        its masks and keypoints where it has them (``flip_idx``)."""
         img = batch["img"]
         d = self.augment_draws(img.shape[0], img.shape[1], img.device)
-        out, cb, mk = DA.apply(img * 255.0, batch["cls_boxes"], batch["mask"], d, self.augment)
-        return {**batch, "img": out / 255.0, "cls_boxes": cb, "mask": mk}
+        res = DA.apply(img * 255.0, batch["cls_boxes"], batch["mask"], d, self.augment,
+                       masks=batch.get("masks"), keypoints=batch.get("keypoints"),
+                       flip_idx=self.flip_idx)
+        out = {**batch, "img": res[0] / 255.0, "cls_boxes": res[1], "mask": res[2]}
+        extra = iter(res[3:])
+        for key in ("masks", "keypoints"):
+            if key in batch:
+                out[key] = next(extra)
+        return out
 
     def forward_loss(self, batch: dict):
         """Normalize uint8 images (/255, fp32), augment the batch when
@@ -118,6 +134,8 @@ class TrainStep:
             batch = self.augment_batch(batch)
         if self.amp:
             batch["img"] = batch["img"].to(torch.bfloat16)
+        if getattr(self.model, "task", "detect") == "pose":
+            return self.model.loss(batch, self.gains, pose_gains=self.pose_gains)
         return self.model.loss(batch, self.gains)
 
     def backward(self, total: torch.Tensor) -> None:
@@ -160,7 +178,7 @@ class TrainStep:
         return log
 
 
-BATCH_KEYS = ("img", "cls_boxes", "mask")
+BATCH_KEYS = ("img", "cls_boxes", "mask", "masks", "keypoints")
 
 
 def multi_scale_sizes(imgsz: int, multi_scale: bool, strides) -> list:
@@ -174,16 +192,29 @@ def multi_scale_sizes(imgsz: int, multi_scale: bool, strides) -> list:
                    for f in (1 - ms, 1 - ms / 2, 1.0, 1 + ms / 2, 1 + ms)})
 
 
-def ms_rescale(batch: dict, sz: int, imgsz: int) -> dict:
+def ms_rescale(batch: dict, sz: int, imgsz: int, mask_ratio: int = 4) -> dict:
     """A batch of ``imgsz`` images rescaled on its device to ``sz``: uint8
     images to fp32 / 255 first, resized as ``jax.image.resize`` bilinear;
-    the boxes scaled by sz / imgsz."""
+    the boxes' pixel coordinates scaled by sz / imgsz (an OBB box's angle
+    kept); masks to sz / ``mask_ratio`` by nearest neighbour (the source
+    index floor((i + 0.5) * in / out), as ``jax.image.resize``), keypoints'
+    x, y scaled."""
     img = batch["img"]
     if img.dtype == torch.uint8:
         img = img.float() / 255.0
+    f = sz / imgsz
     cb = batch["cls_boxes"]
-    return {**batch, "img": resize_bilinear(img, sz, sz),
-            "cls_boxes": torch.cat([cb[..., :1], cb[..., 1:] * (sz / imgsz)], -1)}
+    out = {**batch, "img": resize_bilinear(img, sz, sz),
+           "cls_boxes": torch.cat([cb[..., :1], cb[..., 1:5] * f, cb[..., 5:]], -1)}
+    if "masks" in batch:
+        m = batch["masks"]
+        n_in, n_out = m.shape[1], sz // mask_ratio
+        idx = ((torch.arange(n_out, device=m.device) + 0.5) * (n_in / n_out)).floor().long()
+        out["masks"] = m[:, idx.clamp(max=n_in - 1)][:, :, idx.clamp(max=n_in - 1)]
+    if "keypoints" in batch:
+        kp = batch["keypoints"]
+        out["keypoints"] = torch.cat([kp[..., :2] * f, kp[..., 2:]], -1)
+    return out
 
 
 class StepTrace:
@@ -328,7 +359,7 @@ class Trainer:
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
-                for k in BATCH_KEYS}
+                for k in BATCH_KEYS if k in batch}
 
     def train(self) -> dict:
         from ..data.dataset import build_dataloader
@@ -338,13 +369,19 @@ class Trainer:
         self.save_dir.mkdir(parents=True, exist_ok=True)
         self.run_callbacks("on_pretrain_routine_start")
         imgsz, batch, epochs = int(args.imgsz), int(args.batch), int(args.epochs)
+        task = self.model.task
         dev_aug = bool(args.device_augment)
+        if dev_aug and task not in ("detect", "segment", "pose"):
+            # the device path warps boxes, slot masks and keypoints, not OBB corners
+            print(f"WARNING: device_augment covers detect, segment and pose (got {task!r}); "
+                  f"augmenting on the host")
+            dev_aug = False
         # with the augmentation on the device the host path is letterbox-only
         self.loader, self.data = build_dataloader(
             args.data, "train", batch=batch, imgsz=imgsz, augment=False if dev_aug else None,
             hyp=dict(vars(args)), max_labels=int(args.max_labels), seed=int(args.seed),
             fraction=float(args.fraction), single_cls=bool(args.single_cls), cache=args.cache,
-            workers=int(args.workers or 0))
+            workers=int(args.workers or 0), task=task, mask_ratio=int(args.mask_ratio))
         self.loader.ds.uint8_images = True  # normalized on the device
         self.loader.pin = self.device.type == "cuda"
         resume = None
@@ -364,7 +401,9 @@ class Trainer:
                               weight_decay=args.weight_decay, optimizer=args.optimizer,
                               iterations=self.iterations, accumulate=accumulate, amp=amp_of(args),
                               augment=vars(args) if dev_aug else None, seed=int(args.seed),
-                              gains=(float(args.box), float(args.cls), float(args.dfl)))
+                              gains=(float(args.box), float(args.cls), float(args.dfl)),
+                              pose_gains=(float(args.pose), float(args.kobj)),
+                              flip_idx=self.data.get("flip_idx") if task == "pose" else None)
         # multi-scale: one size a batch, drawn on the host from a fixed bucket
         ms_sizes = multi_scale_sizes(imgsz, args.multi_scale, self.model.strides)
         ms_rng = np.random.default_rng(int(args.seed) + 4242)
@@ -410,17 +449,17 @@ class Trainer:
                         sz = int(ms_rng.choice(ms_sizes))
                         self._ms_sizes_used.add(sz)
                         if sz != imgsz:
-                            db = ms_rescale(db, sz, imgsz)
+                            db = ms_rescale(db, sz, imgsz, int(args.mask_ratio))
                     with self.trace.step():
                         total, aux = self.step(db, lr)
-                    terms.append(torch.stack([aux["box"], aux["cls"], aux["dfl"], total]))
+                    names = sorted([*aux, "loss"])  # the JAX trainer's (sorted) order
+                    terms.append(torch.stack([total if k == "loss" else aux[k] for k in names]))
                     step += 1
                     self.run_callbacks("optimizer_step")
                     self.run_callbacks("on_before_zero_grad")
                     self.run_callbacks("on_train_batch_end")
-                # the epoch's mean of each term, in the JAX trainer's (sorted) order
-                means = dict(zip(("box", "cls", "dfl", "loss"),
-                                 torch.stack(terms).double().cpu().numpy().mean(0).tolist()))
+                # the epoch's mean of each term
+                means = dict(zip(names, torch.stack(terms).double().cpu().numpy().mean(0).tolist()))
                 imps = nb * batch / (time.time() - t0)
 
                 fitness, val_metrics = None, {}
@@ -439,9 +478,9 @@ class Trainer:
                                "img_s": round(imps, 1)})
                 self.run_callbacks("on_train_epoch_end")
                 self.run_callbacks("on_fit_epoch_end")
-                print(f"epoch {epoch + 1}/{epochs}: loss {means['loss']:.3f} (box "
-                      f"{means['box']:.3f} cls {means['cls']:.3f} dfl {means['dfl']:.3f}) "
-                      f"{imps:.0f} img/s"
+                print(f"epoch {epoch + 1}/{epochs}: loss {means['loss']:.3f} ("
+                      + " ".join(f"{k} {v:.3f}" for k, v in means.items() if k != "loss")
+                      + f") {imps:.0f} img/s"
                       + (f" | fitness {fitness:.4f}" if fitness is not None else ""))
                 self._save("last", epoch)
                 if stopper(epoch, fitness):

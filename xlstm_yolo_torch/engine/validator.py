@@ -1,7 +1,8 @@
-"""Validator: mAP of a detection model over a dataset's val split.
+"""Validator: mAP of a detect, segment, pose or OBB model over a dataset's
+val split.
 
-Port of the detect path of ``Validator`` in
-``xlstm_yolo_tpu/engine/validator.py``: on the device, the eval forward,
+Port of ``Validator`` in ``xlstm_yolo_tpu/engine/validator.py`` for those
+tasks: on the device, the eval forward,
 the DFL decode and the fixed-shape multi-label NMS (conf 0.001, IoU 0.7,
 300 detections, a 1,024-candidate pool; ``exact_nms`` the greedy
 suppression); on the host, the greedy IoU matching at ten thresholds and
@@ -17,6 +18,15 @@ the images' own pixels to ``save_dir/predictions.json``; ``plots`` counts
 the confusion matrix and writes it and the PR / F1 / P / R curves to
 ``save_dir`` (matplotlib; without it one warning names the files not
 written).
+
+The other tasks, as in JAX: OBB through ``nms_rotated`` and probiou
+matching; segment adds the mask mAP (``mAP50(M)``, ``mAP50-95(M)``: each
+kept detection's mask, coefficients at its NMS source index times the
+prototypes, logit > 0 inside its box at mask resolution, against the
+ground truth's overlap-encoded masks, by mask IoU); pose the keypoint mAP
+(``mAP50(P)``, ``mAP50-95(P)``, by OKS with ``OKS_SIGMA`` at 17 points, 1
+/ nk otherwise, and the 0.53 area factor); their fitness is the mean of the
+box and the mask (or keypoint) fitness.
 """
 from __future__ import annotations
 
@@ -30,8 +40,10 @@ import torch
 
 from ..data.converter import coco80_to_coco91_class
 from ..data.dataset import build_dataloader, check_det_dataset
+from ..data.imgproc import resize_nearest
 from ..nn.fuse import cast_params
-from ..ops.nms import non_max_suppression
+from ..ops.nms import nms_rotated, non_max_suppression
+from ..utils.loss import OKS_SIGMA
 from ..utils import metrics as MET
 from ..utils import plotting as PLT
 from ..utils.callbacks import default_callbacks
@@ -58,18 +70,21 @@ class Validator:
         self.save_json, self.exact_nms, self.plots, self.rect = save_json, exact_nms, plots, rect
         self.save_dir = Path(save_dir) if save_dir else Path("runs/val")
         self.cm = None
+        self._plotted = False
 
     @torch.inference_mode()
     def __call__(self, data: str | dict | None = None) -> dict:
         self.callbacks.run("on_val_start", self)
+        self._plotted = False
         data = data or self.data
         if isinstance(data, (str, Path)):
             data = check_det_dataset(data)
         # rect buckets align to the coarsest stride, or the FPN's shapes would not meet
         stride = max(32, int(max(self.model.strides)))
+        task = self.model.task
         loader, _ = build_dataloader(data, "val", batch=self.batch, imgsz=self.imgsz,
                                      augment=False, max_labels=self.max_labels, rect=self.rect,
-                                     stride=stride)
+                                     stride=stride, task=task)
         loader.ds.uint8_images = True
         if self.plots:
             self.cm = MET.ConfusionMatrix(int(self.model.nc), conf=self.conf)
@@ -79,6 +94,8 @@ class Validator:
         if self.half:
             model = cast_params(copy.deepcopy(model), torch.bfloat16)
         device = next(model.parameters()).device
+        if task != "detect":
+            return self._call_task(model, loader, device, dtype)
         stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
         n_img = 0
         t0 = time.time()
@@ -119,26 +136,139 @@ class Validator:
             json_path = self.save_dir / "predictions.json"
             with open(json_path, "w") as f:
                 json.dump(jdict, f)
-        extra = {} if json_path is None else {"save_json_path": str(json_path)}
-        if not stats["tp"]:
-            self._plot_metrics()
-            self.callbacks.run("on_val_end", self)
-            return {"mAP50": 0.0, "mAP50-95": 0.0, "precision": 0.0, "recall": 0.0,
-                    "fitness": 0.0, "images": n_img, "img_s": round(n_img / dt, 1), **extra}
-        r = MET.ap_per_class(np.concatenate(stats["tp"]), np.concatenate(stats["conf"]),
-                             np.concatenate(stats["pred_cls"]),
-                             np.concatenate(stats["target_cls"]))
-        self._plot_metrics(r)
-        out = {"precision": r["mp"], "recall": r["mr"], "mAP50": r["map50"], "mAP50-95": r["map"],
-               "fitness": MET.fitness(r["map50"], r["map"]),
-               "images": n_img, "img_s": round(n_img / dt, 1), **extra}
-        if self.verbose:
+        out, r = self._finalize(stats, n_img, dt)
+        if json_path is not None:
+            out["save_json_path"] = str(json_path)
+        if self.verbose and r is not None:
             names = getattr(self.model, "names", {}) or {}
             for ci, c in enumerate(r["unique_classes"]):
                 print(f"  {names.get(int(c), c):>12}: n={r['nt'][ci]} P={r['p'][ci]:.3f} "
                       f"R={r['r'][ci]:.3f} AP50={r['ap50'][ci]:.3f} AP={r['ap'][ci].mean():.3f}")
-        self.callbacks.run("on_val_end", self)
         return out
+
+    def _images(self, batch, device, dtype) -> torch.Tensor:
+        img = torch.from_numpy(batch["img"]).to(device)
+        return (img.float() / 255.0).to(dtype)
+
+    def _call_task(self, model, loader, device, dtype) -> dict:
+        """The OBB, segment and pose paths (module docstring)."""
+        task = model.task
+        box_stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        extra_stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        nk = model.kpt_shape[0]
+        sigmas = np.asarray(OKS_SIGMA if nk == 17 else np.ones(nk) / nk)
+        n_img = 0
+        t0 = time.time()
+        for batch in loader:
+            self.callbacks.run("on_val_batch_start", self)
+            x = self._images(batch, device, dtype)
+            full = {k: v.float() for k, v in model.predictions_full(x).items()}
+            if task == "obb":
+                dets, valid = nms_rotated(full["cands"], conf_thres=self.conf,
+                                          iou_thres=self.iou, max_det=self.max_det)
+                src = None
+            else:
+                dets, valid, src = non_max_suppression(
+                    full["cands"], conf_thres=self.conf, iou_thres=self.iou,
+                    max_det=self.max_det, multi_label=True, exact=self.exact_nms,
+                    pre_topk=self.pre_topk, return_idx=True)
+                src = src.cpu().numpy()
+            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+            n_img += len(dets)
+            if task == "segment":
+                coefs, proto = full["coefs"].cpu().numpy(), full["proto"].cpu().numpy()
+                hm, wm = proto.shape[2:4]
+                sx, sy = wm / batch["img"].shape[2], hm / batch["img"].shape[1]
+            elif task == "pose":
+                kpts_all = full["kpts"].cpu().numpy()
+            for bi in range(len(dets)):
+                keep = valid[bi]
+                d = dets[bi][keep]
+                gt_mask = batch["mask"][bi]
+                gt = batch["cls_boxes"][bi][gt_mask]
+                gt_cls = gt[:, 0]
+                if task == "obb":  # d: (n, 7) = cx, cy, w, h, angle, conf, cls
+                    if self.cm is not None:
+                        self.cm.process_batch(d[:, [0, 1, 2, 3, 5, 6, 4]] if len(d) else None,
+                                              gt[:, 1:6], gt_cls)
+                    if len(d) == 0:
+                        if len(gt):
+                            box_stats["target_cls"].append(gt_cls)
+                        continue
+                    iou = (MET.batch_probiou_np(gt[:, 1:6].astype(np.float32), d[:, :5])
+                           if len(gt) else np.zeros((0, len(d))))
+                    self._append(box_stats, d[:, 6], d[:, 5], gt_cls, iou)
+                    continue
+                if self.cm is not None:
+                    self.cm.process_batch(d if len(d) else None, gt[:, 1:5], gt_cls)
+                if len(d) == 0:
+                    if len(gt):
+                        box_stats["target_cls"].append(gt_cls)
+                        extra_stats["target_cls"].append(gt_cls)
+                    continue
+                iou = MET.box_iou_np(gt[:, 1:5], d[:, :4]) if len(gt) else np.zeros((0, len(d)))
+                self._append(box_stats, d[:, 5], d[:, 4], gt_cls, iou)
+                if not len(gt):
+                    continue
+                if task == "segment":
+                    pm = np.einsum("nc,chw->nhw", coefs[bi, src[bi][keep]], proto[bi])
+                    db = d[:, :4] * [sx, sy, sx, sy]
+                    ys = np.arange(hm)[None, :, None]
+                    xs = np.arange(wm)[None, None, :]
+                    inbox = ((xs >= db[:, 0, None, None]) & (xs < db[:, 2, None, None])
+                             & (ys >= db[:, 1, None, None]) & (ys < db[:, 3, None, None]))
+                    pmask = (pm > 0.0) & inbox
+                    gtm = np.asarray(batch["masks"][bi])
+                    if gtm.shape != (hm, wm):
+                        gtm = resize_nearest(gtm.astype(np.float32), (wm, hm)).astype(np.int32)
+                    gflat = (gtm[None] == (np.arange(len(gt)) + 1)[:, None, None]).reshape(
+                        len(gt), -1).astype(np.float32)
+                    pflat = pmask.reshape(len(d), -1).astype(np.float32)
+                    inter = gflat @ pflat.T
+                    union = gflat.sum(1)[:, None] + pflat.sum(1)[None] - inter
+                    self._append(extra_stats, d[:, 5], d[:, 4], gt_cls,
+                                 inter / np.maximum(union, 1e-7))
+                else:
+                    pk = kpts_all[bi, src[bi][keep]].reshape(len(d), nk, -1)
+                    gk = np.asarray(batch["keypoints"][bi][gt_mask])
+                    area = (gt[:, 3] - gt[:, 1]) * (gt[:, 4] - gt[:, 2]) * 0.53
+                    self._append(extra_stats, d[:, 5], d[:, 4], gt_cls,
+                                 kpt_iou_np(gk, pk, sigmas, area))
+            self.callbacks.run("on_val_batch_end", self)
+        dt = time.time() - t0
+        out = self._finalize(box_stats, n_img, dt)[0]
+        if task == "obb":
+            return out
+        other = self._finalize(extra_stats, n_img, dt)[0]
+        tag = "M" if task == "segment" else "P"
+        out.update({f"mAP50({tag})": other["mAP50"], f"mAP50-95({tag})": other["mAP50-95"]})
+        out["fitness"] = 0.5 * out["fitness"] + 0.5 * other["fitness"]
+        return out
+
+    @staticmethod
+    def _append(stats: dict, pred_cls, conf, gt_cls, iou) -> None:
+        stats["tp"].append(MET.match_predictions(pred_cls, gt_cls, iou))
+        stats["conf"].append(conf)
+        stats["pred_cls"].append(pred_cls)
+        stats["target_cls"].append(gt_cls)
+
+    def _finalize(self, stats: dict, n_img: int, dt: float) -> tuple:
+        """(metrics, ``ap_per_class``'s result or None) of one set of
+        statistics; plots (once a call) and runs ``on_val_end``, as JAX's
+        does at each."""
+        if not stats["tp"]:
+            self._plot_metrics()
+            self.callbacks.run("on_val_end", self)
+            return {"mAP50": 0.0, "mAP50-95": 0.0, "precision": 0.0, "recall": 0.0,
+                    "fitness": 0.0, "images": n_img, "img_s": round(n_img / dt, 1)}, None
+        r = MET.ap_per_class(np.concatenate(stats["tp"]), np.concatenate(stats["conf"]),
+                             np.concatenate(stats["pred_cls"]),
+                             np.concatenate(stats["target_cls"]))
+        self._plot_metrics(r)
+        self.callbacks.run("on_val_end", self)
+        return {"precision": r["mp"], "recall": r["mr"], "mAP50": r["map50"],
+                "mAP50-95": r["map"], "fitness": MET.fitness(r["map50"], r["map"]),
+                "images": n_img, "img_s": round(n_img / dt, 1)}, r
 
     def _plot_metrics(self, r=None) -> None:
         """With ``plots``: the confusion matrix (counts and normalized) and,
@@ -150,6 +280,9 @@ class Validator:
         fnames = ["confusion_matrix.png", "confusion_matrix_normalized.png"] * (
             self.cm is not None) + ["PR_curve.png", "F1_curve.png", "P_curve.png",
                                    "R_curve.png"] * bool(curves)
+        if self._plotted:  # once a call: a segment or pose run finalizes twice
+            return
+        self._plotted = True
         if not PLT.have_matplotlib():
             print(f"WARNING: plots=True but matplotlib is not installed; not written to "
                   f"{self.save_dir}: {', '.join(fnames)}")
@@ -207,3 +340,18 @@ class Validator:
                           "bbox": [round(x1, 3), round(y1, 3), round(x2 - x1, 3),
                                    round(y2 - y1, 3)],
                           "score": round(float(conf), 5)})
+
+
+def kpt_iou_np(gt_kpts: np.ndarray, pred_kpts: np.ndarray, sigmas: np.ndarray, area: np.ndarray,
+               eps: float = 1e-7) -> np.ndarray:
+    """OKS (m_gt, n_pred): e = d^2 / ((2 sigma)^2 * area * 2), exp(-e)
+    averaged over each ground truth's visible keypoints."""
+    m, nk = gt_kpts.shape[:2]
+    out = np.zeros((m, pred_kpts.shape[0]), np.float32)
+    for gi in range(m):
+        vis = gt_kpts[gi, :, 2] != 0 if gt_kpts.shape[-1] > 2 else np.ones(nk, bool)
+        d2 = ((pred_kpts[:, :, 0] - gt_kpts[gi, :, 0]) ** 2
+              + (pred_kpts[:, :, 1] - gt_kpts[gi, :, 1]) ** 2)
+        e = d2 / ((2 * sigmas[None]) ** 2 * (area[gi] + eps) * 2)
+        out[gi] = (np.exp(-e) * vis[None]).sum(-1) / (vis.sum() + eps)
+    return out

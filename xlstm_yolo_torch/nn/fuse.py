@@ -5,7 +5,9 @@ BN affine and running statistics into the conv kernel and leaves an identity
 BN carrying the bias; here the folded bias moves onto the conv and the BN is
 replaced by ``nn.Identity``, so eval runs one op per ConvBN instead of two.
 A ``ConvTransposeBN`` folds the same way, along its weight's output
-channels, which are dim 1 of torch's (in, out, kh, kw).
+channels, which are dim 1 of torch's (in, out, kh, kw). The task heads'
+ConvBNs fold as any other; the Segment head's ``proto_up`` (a transposed
+conv with a bias and no BatchNorm) is left as it is, as in JAX.
 ``cast_params`` is the cast the JAX ``bench.py`` applies after folding for
 bf16 serving.
 """

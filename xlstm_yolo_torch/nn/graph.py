@@ -1,13 +1,17 @@
 """YAML model graph -> torch module.
 
 Port of ``parse_model``, ``Repeat`` and ``GraphModel`` in
-``xlstm_yolo_tpu/nn/graph.py`` for the detect task: every layer name of the
-detection YAMLs the port ships (YOLOv3, v5, v6, v8 and its ghost / P2 / P6
-variants, v9, v10, YOLO11, YOLO12, ViL-YOLO) and the ViL blocks of
-``nn/vil_blocks.py`` (registered under their JAX names). The names of the
-other JAX heads and families (``NOT_PORTED``) raise a ``KeyError`` that
-says what they wait on. As in JAX, a graph with a ``C3k2`` or ``A2C2f``
-row (YOLO11, 12) builds its Detect head with ``legacy=False``. The YAML
+``xlstm_yolo_tpu/nn/graph.py`` for the detect, segment, pose and obb tasks:
+every layer name of the YAMLs the port ships (YOLOv3, v5, v6, v8 and its
+ghost / P2 / P6 variants, v9, v10, YOLO11, YOLO12, ViL-YOLO, and the
+``-seg``, ``-pose`` and ``-obb`` files of v8, v9, 11 and 12) and the ViL
+blocks of ``nn/vil_blocks.py`` (registered under their JAX names). The
+head row sets the task: ``Segment`` (its third argument, the prototype
+channels, width-scaled), ``Pose`` (``kpt_shape`` from the YAML's top
+level, as a tuple) and ``OBB``. The names of the other JAX heads and
+families (``NOT_PORTED``) raise a ``KeyError`` that says what they wait
+on. As in JAX, a graph with a ``C3k2`` or ``A2C2f`` row (YOLO11, 12)
+builds its head with ``legacy=False``. The YAML
 format is the Ultralytics one: ``backbone``/``head`` rows of ``[from,
 repeats, module, args]`` plus ``nc`` and ``scales``; channels are resolved
 statically with the same width scaling and depth rounding. Layer ``i`` is
@@ -78,16 +82,18 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "Silence": (nn.Identity, "plain"),
     "Detect": (H.Detect, "head"),
     "v10Detect": (H.v10Detect, "head"),
+    "Segment": (H.Segment, "head"),
+    "Pose": (H.Pose, "head"),
+    "OBB": (H.OBB, "head"),
     **{name: (cls, "custom") for name, cls in BLOCKS.items()},
 }
 
 
 # names of the JAX graph the port refuses, with what they wait on
-_OTHER_TASKS = "the segment, pose, obb and classify tasks are not ported yet"
+_CLASSIFY = "the classify task (its head, backbones, data and validation) is not ported yet"
 NOT_PORTED = {
     "MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py",
-    **{name: _OTHER_TASKS for name in ("Segment", "Pose", "OBB", "Classify", "ResNetLayer",
-                                       "TorchVision")},
+    **{name: _CLASSIFY for name in ("Classify", "ResNetLayer", "TorchVision")},
     **{name: "the RT-DETR family (nn/rtdetr.py) is not ported yet"
        for name in ("HGStem", "HGBlock", "AIFI", "RTDETRDecoder", "RepC3", "LightConv")},
     **{name: "the YOLO-World family (nn/world.py) is not ported yet"
@@ -96,6 +102,11 @@ NOT_PORTED = {
        for name in ("Focus", "Conv2", "C1", "C2fPSA", "C3x", "BottleneckCSP", "CBAM",
                     "ChannelAttention", "SpatialAttention")},
 }
+
+
+# the task each head row sets
+TASKS = {"Detect": "detect", "v10Detect": "detect", "Segment": "segment", "Pose": "pose",
+         "OBB": "obb"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -167,6 +178,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
     save: set[int] = set()
     channels = [ch]
     head_index = -1
+    task = "detect"
     rows = list(cfg["backbone"]) + list(cfg.get("head", []))
     # the YOLO11 / 12 graphs switch the Detect class branch to its depthwise form
     legacy_head = not any(r[2] in ("C3k2", "A2C2f") for r in rows)
@@ -174,7 +186,8 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
         fs = tuple(f) if isinstance(f, (list, tuple)) else (f,)
         fs = tuple(x if x >= 0 else i + x for x in fs)
         n_rep = max(round(n * depth), 1) if n > 1 else n
-        args = [cfg.get(a, a) if isinstance(a, str) and a == "nc" else a for a in args]
+        args = [cfg.get(a, a) if isinstance(a, str) and a in ("nc", "kpt_shape") else a
+                for a in args]
         if name not in REGISTRY:
             why = f": {NOT_PORTED[name]}" if name in NOT_PORTED else ""
             raise KeyError(f"module {name!r} (layer {i}) is not ported{why}")
@@ -210,9 +223,15 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
         elif kind == "head":
             head_index = i
             c2 = 0
-            margs = [args[0] if args else nc]
+            task = TASKS[name]
+            margs = list(args) if args and name in ("Segment", "Pose", "OBB") else [
+                args[0] if args else nc]
+            if name == "Segment" and len(margs) > 2:  # the prototype channels width-scale
+                margs[2] = make_divisible(min(margs[2], max_ch) * width, 8)
+            if name == "Pose" and len(margs) > 1 and isinstance(margs[1], (list, tuple)):
+                margs[1] = tuple(margs[1])
             kwargs["ch"] = tuple(channels[x + 1] for x in fs)
-            if cls is H.Detect and not legacy_head:
+            if name != "v10Detect" and not legacy_head:
                 kwargs["legacy"] = False
         else:
             ch_in = tuple(channels[x + 1] for x in fs)
@@ -224,7 +243,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
                                kwargs=tuple(sorted(kwargs.items())), n=n_rep))
         channels.append(c2)
         save.update(x for x in fs if x != i - 1 and x >= 0)
-    return ParsedModel(specs=tuple(specs), save=tuple(sorted(save)), nc=nc, task="detect",
+    return ParsedModel(specs=tuple(specs), save=tuple(sorted(save)), nc=nc, task=task,
                        head_index=head_index, yaml=cfg)
 
 

@@ -1,12 +1,16 @@
-"""Detection model: a compiled YAML graph plus its task metadata.
+"""Task model: a compiled YAML graph plus its task metadata.
 
-Port of the detect path of ``TaskModel`` in ``xlstm_yolo_tpu/nn/tasks.py``.
+Port of ``TaskModel`` in ``xlstm_yolo_tpu/nn/tasks.py`` for the detect,
+segment, pose and obb tasks.
 The torch model owns its parameters (the JAX one keeps them outside as a
 pytree): they are initialized from a ``torch.Generator`` seed with the JAX
 package's init scheme, or loaded from a JAX variable tree with
 ``utils.jax_weights.load_jax_variables``. ``predictions`` keeps the JAX
-boundary: NHWC images in, (B, N, 4 + nc) candidates out; ``loss`` is the
-forward plus the v8 detection loss on a padded-label batch. A model whose
+boundary: NHWC images in, (B, N, 4 + nc) candidates out;
+``predictions_full`` adds the task's outputs (``coefs`` and ``proto``,
+``kpts``; an OBB model's candidates carry the angle last); ``loss`` is the
+forward plus the task's loss on a padded-label batch (the v8 detection
+loss, or the segmentation, pose or OBB loss built on it). A model whose
 head is ``v10Detect`` is end to end (``e2e``): its inference decodes the
 ``one2one`` branch (then the usual NMS, as the JAX package serves it), and
 its loss is the one2many loss (TAL top-10) plus the one2one loss (top-1).
@@ -17,7 +21,7 @@ import torch
 
 from ..cfg import load_model_yaml
 from ..utils import resolve_device
-from ..utils.loss import detection_loss
+from ..utils.loss import detection_loss, obb_loss, pose_loss, segmentation_loss
 from ..utils.tal import TOPK
 from . import heads as H
 from .graph import GraphModel, ParsedModel, parse_model
@@ -70,20 +74,69 @@ class TaskModel(GraphModel):
         raw = H.det_maps(self(x.permute(0, 3, 1, 2)))
         return H.decode_detections(raw, self.strides, self.nc, self.reg_max)
 
-    def loss(self, batch: dict, gains=None):
-        """Forward on ``batch["img"]`` (B, H, W, 3) float images plus the v8
-        detection loss against ``batch["cls_boxes"]`` (B, n_max, 5) = (cls,
-        x1, y1, x2, y2) pixels and ``batch["mask"]`` (B, n_max), its terms
-        weighted by ``gains`` (box, cls, dfl; the defaults 7.5, 0.5, 1.5 when
-        None). The forward runs in the module's mode: in train mode
-        (``model.train()``, as the trainer sets it) BatchNorm uses the batch
-        statistics and updates its running ones. Returns (total, {"box",
-        "cls", "dfl"}). An end-to-end model (``e2e``) sums the one2many
-        loss at TAL top-10 and the one2one loss at top-1, term by term; its
-        head computes the one2many branch in train mode only, so its loss
-        needs train mode."""
+    @property
+    def kpt_shape(self) -> tuple:
+        """The Pose head's (keypoints, dims); (17, 3) for the other heads."""
+        return tuple(self._head_attr("kpt_shape", (17, 3)))
+
+    def _head_attr(self, name: str, default):
+        """An argument of the head row: a keyword, or Pose's positional
+        ``kpt_shape`` (its second argument), else ``default``."""
+        spec = self.parsed.specs[self.parsed.head_index]
+        kwargs = dict(spec.kwargs)
+        if name in kwargs:
+            return kwargs[name]
+        if name == "kpt_shape" and len(spec.args) >= 2 and isinstance(spec.args[1], tuple):
+            return spec.args[1]
+        return default
+
+    def predictions_full(self, x: torch.Tensor) -> dict:
+        """Eval forward on NHWC images -> the task's decoded outputs:
+        ``cands`` (B, N, 4 + nc) (an OBB model's (B, N, 5 + nc): rotated
+        cx, cy, w, h, scores, then the angle), plus ``coefs`` (B, N, nm) and
+        ``proto`` (B, nm, Hm, Wm) for segment, ``kpts`` (B, N, nk * nd)
+        pixel keypoints for pose."""
+        out = self(x.permute(0, 3, 1, 2))
+        if self.task == "obb":
+            return {"cands": H.decode_obb(out["det"], out["angle"], self.strides, self.nc,
+                                          self.reg_max)}
+        res = {"cands": H.decode_detections(H.det_maps(out), self.strides, self.nc,
+                                            self.reg_max)}
+        if self.task == "segment":
+            res["coefs"] = H.flatten_maps(out["coefs"])
+            res["proto"] = out["proto"]
+        elif self.task == "pose":
+            res["kpts"] = H.decode_keypoints(out["kpts"], self.strides, self.kpt_shape)
+        return res
+
+    def loss(self, batch: dict, gains=None, pose_gains=(12.0, 1.0)):
+        """Forward on ``batch["img"]`` (B, H, W, 3) float images plus the
+        task's loss against ``batch["cls_boxes"]`` (B, n_max, 5) = (cls, x1,
+        y1, x2, y2) pixels (OBB: (B, n_max, 6) = cls, cx, cy, w, h, angle)
+        and ``batch["mask"]`` (B, n_max), plus ``batch["masks"]`` (segment)
+        or ``batch["keypoints"]`` (pose); its terms weighted by ``gains``
+        (box, cls, dfl; the defaults 7.5, 0.5, 1.5 when None) and, for pose,
+        ``pose_gains`` (pose, kobj). The forward runs in the module's mode:
+        in train mode (``model.train()``, as the trainer sets it) BatchNorm
+        uses the batch statistics and updates its running ones. Returns
+        (total, terms): {"box", "cls", "dfl"}, plus "seg", or "pose" and
+        "kobj". An end-to-end model (``e2e``) sums the one2many loss at TAL
+        top-10 and the one2one loss at top-1, term by term; its head
+        computes the one2many branch in train mode only, so its loss needs
+        train mode."""
         raw = self(batch["img"].permute(0, 3, 1, 2))
         kw = {} if gains is None else {"gains": tuple(gains)}
+        if self.task == "segment":
+            lo = segmentation_loss(raw, batch, self.strides, self.reg_max, **kw)
+            return lo.total, {"box": lo.box, "seg": lo.seg, "cls": lo.cls, "dfl": lo.dfl}
+        if self.task == "pose":
+            lo = pose_loss(raw, batch, self.strides, self.kpt_shape, self.reg_max, **kw,
+                           pose_gain=pose_gains[0], kobj_gain=pose_gains[1])
+            return lo.total, {"box": lo.box, "pose": lo.pose, "kobj": lo.kobj, "cls": lo.cls,
+                              "dfl": lo.dfl}
+        if self.task == "obb":
+            lo = obb_loss(raw, batch, self.strides, self.reg_max, **kw)
+            return lo.total, {"box": lo.box, "cls": lo.cls, "dfl": lo.dfl}
         if self.e2e:
             branches = [(raw["one2many"], 10), (raw["one2one"], 1)]
         else:

@@ -1,6 +1,7 @@
 """Anchor grid and distribution-focal decode.
 
-Port of ``make_anchors``, ``dist2bbox``, ``bbox2dist`` and ``dfl_decode`` in
+Port of ``make_anchors``, ``dist2bbox``, ``bbox2dist``, ``dist2rbox`` and
+``dfl_decode`` in
 ``xlstm_yolo_tpu/ops/anchors.py``.
 """
 from __future__ import annotations
@@ -40,6 +41,18 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
     to [0, reg_max - 0.01]."""
     x1y1, x2y2 = bbox.chunk(2, dim=-1)
     return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1).clamp(0, reg_max - 0.01)
+
+
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor, anchor_points: torch.Tensor,
+              dim: int = -1) -> torch.Tensor:
+    """(l, t, r, b) distances, the angle and the anchor centers -> rotated
+    boxes (cx, cy, w, h): the centre offset (r - l, b - t) / 2 turned by the
+    angle."""
+    lt, rb = pred_dist.chunk(2, dim=dim)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim=dim)
+    xy = torch.cat([xf * cos - yf * sin, xf * sin + yf * cos], dim=dim) + anchor_points
+    return torch.cat([xy, lt + rb], dim=dim)
 
 
 def dfl_decode(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Box geometry: format conversion, pairwise IoU and letterbox un-mapping.
 
 Port of ``xywh2xyxy``, ``xyxy2xywh``, ``xywhn2xyxy``, ``xyxy2xywhn``,
-``ltwh2xyxy``, ``xyxy2ltwh``, ``clip_boxes``, ``scale_boxes``, ``box_iou``
-and ``bbox_iou`` in ``xlstm_yolo_tpu/ops/boxes.py``. The format conversions
+``ltwh2xyxy``, ``xyxy2ltwh``, ``clip_boxes``, ``scale_boxes``, ``box_iou``,
+``bbox_iou``, and of the oriented boxes' ``probiou``, ``batch_probiou`` and
+``_covariance`` in ``xlstm_yolo_tpu/ops/boxes.py``. The format conversions
 take torch tensors and numpy arrays alike and return the same kind.
 """
 from __future__ import annotations
@@ -127,3 +128,33 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = EPS) -> torch.
     with torch.no_grad():
         alpha = v / (v - iou + (1 + eps))
     return iou - (rho2 / c2 + v * alpha)
+
+
+def _covariance(obb: torch.Tensor):
+    """The Gaussian covariance terms (a, b, c) of (..., 5) oriented boxes
+    (cx, cy, w, h, angle)."""
+    w, h, r = obb[..., 2], obb[..., 3], obb[..., 4]
+    a, b = w ** 2 / 12.0, h ** 2 / 12.0
+    cos, sin = torch.cos(r), torch.sin(r)
+    return a * cos ** 2 + b * sin ** 2, a * sin ** 2 + b * cos ** 2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Probabilistic IoU of broadcastable (..., 5) oriented boxes (cx, cy,
+    w, h, angle) -> (...): one minus the Hellinger distance of their
+    Gaussians, from the Bhattacharyya distance clipped to [eps, 100]."""
+    x1, y1, x2, y2 = obb1[..., 0], obb1[..., 1], obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _covariance(obb1)
+    a2, b2, c2 = _covariance(obb2)
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / (den + eps) * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / (den + eps) * 0.5
+    t3 = torch.log(den / (4 * torch.sqrt((a1 * b1 - c1 ** 2).clamp(min=0)
+                                         * (a2 * b2 - c2 ** 2).clamp(min=0)) + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    return 1 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+
+
+def batch_probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Pairwise ``probiou``: (..., M, 5) x (..., N, 5) -> (..., M, N)."""
+    return probiou(obb1[..., :, None, :], obb2[..., None, :, :], eps=eps)

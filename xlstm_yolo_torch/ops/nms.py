@@ -1,6 +1,7 @@
 """Fixed-shape, on-device NMS.
 
-Port of ``non_max_suppression`` in ``xlstm_yolo_tpu/ops/nms.py``: every
+Port of ``non_max_suppression`` and ``nms_rotated`` in
+``xlstm_yolo_tpu/ops/nms.py``: every
 image yields exactly ``max_det`` slots plus a validity mask; empty slots
 are zeros with class -1. Suppression is matrix "Fast-NMS" (keep i iff no
 higher-scoring box overlaps it above the threshold) or, with
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .boxes import box_iou, xywh2xyxy
+from .boxes import batch_probiou, box_iou, xywh2xyxy
 
 
 def _topk(x: torch.Tensor, k: int):
@@ -41,20 +42,22 @@ def _suppress_exact(iou: torch.Tensor, iou_thres: float) -> torch.Tensor:
 
 
 def _gather_top(boxes, final_scores, cls, max_det: int, conf_thres: float, src):
-    """Top-``max_det`` of (B, K) scores, zero-padded to ``max_det`` slots."""
+    """Top-``max_det`` of (B, K) scores, zero-padded to ``max_det`` slots;
+    ``boxes`` (B, K, D) of any width D."""
     b, n = final_scores.shape
     kk = min(max_det, n)
+    nd = boxes.shape[-1]
     out_scores, out_idx = _topk(final_scores, kk)
     out_valid = out_scores > conf_thres
     out_boxes = torch.where(out_valid[..., None],
-                            torch.gather(boxes, 1, out_idx[..., None].expand(b, kk, 4)), 0.0)
+                            torch.gather(boxes, 1, out_idx[..., None].expand(b, kk, nd)), 0.0)
     out_cls = torch.where(out_valid, torch.gather(cls, 1, out_idx), -1.0)
     out_src = torch.where(out_valid, torch.gather(src, 1, out_idx), -1)
     dets = torch.cat([out_boxes, torch.where(out_valid, out_scores, 0.0)[..., None],
                       out_cls[..., None]], dim=-1)
     if kk < max_det:
         pad = max_det - kk
-        pad_dets = torch.zeros((b, pad, 6), dtype=dets.dtype, device=dets.device)
+        pad_dets = torch.zeros((b, pad, nd + 2), dtype=dets.dtype, device=dets.device)
         pad_dets[..., -1] = -1.0
         dets = torch.cat([dets, pad_dets], dim=1)
         out_valid = torch.cat([out_valid, out_valid.new_zeros((b, pad))], dim=1)
@@ -106,4 +109,29 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
     dets, out_valid, out_src = _gather_top(boxes, final_scores, cls, max_det, conf_thres, src)
     if return_idx:
         return dets, out_valid, out_src
+    return dets, out_valid
+
+
+def nms_rotated(prediction: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                max_det: int = 300, pre_topk: int = 1024):
+    """Fixed-shape rotated-box NMS: (B, N, 5 + nc) = (cx, cy, w, h) + class
+    scores + angle (``nn.heads.decode_obb``'s layout) -> dets (B, max_det,
+    7) = (cx, cy, w, h, angle, score, cls) and valid (B, max_det). The
+    argmax class of each candidate, its ``pre_topk`` best, matrix Fast-NMS
+    on their pairwise ``probiou`` (the candidates under ``conf_thres``
+    zeroed first), across classes, as the JAX function does."""
+    b, n, no = prediction.shape
+    nc = no - 5
+    rboxes = torch.cat([prediction[..., :4], prediction[..., 4 + nc:]], dim=-1)
+    smax, cls_full = prediction[..., 4:4 + nc].max(dim=-1)
+    k = min(pre_topk, n)
+    scores, idx = _topk(smax, k)
+    boxes = torch.gather(rboxes, 1, idx[..., None].expand(b, k, 5))
+    cls = torch.gather(cls_full, 1, idx).to(torch.float32)
+    valid = scores > conf_thres
+    masked = torch.where(valid[..., None], boxes, 0.0)
+    keep = _suppress_fast(batch_probiou(masked, masked), iou_thres) & valid
+    final_scores = torch.where(keep, scores, 0.0)
+    dets, out_valid, _ = _gather_top(boxes, final_scores, cls, max_det, conf_thres,
+                                     idx.to(torch.int32))
     return dets, out_valid

@@ -11,7 +11,10 @@ the layout conventions converted:
   spatial axes -> torch's transposed-conv ``weight`` (in, out, kh, kw):
   flax does not flip the kernel, torch's transposed conv does. The path
   alone cannot tell it from a conv's, so the caller names the port's
-  ``nn.ConvTranspose2d`` modules (``transposed``; ``transposed_convs``);
+  ``nn.ConvTranspose2d`` modules (``transposed``; ``transposed_convs``),
+  a ``ConvTransposeBN``'s conv and the Segment head's bare ``proto_up``
+  (npr to npr channels: its kernel's shape reads the same either way, so
+  only the name keeps it from loading unflipped) alike;
 * 1-D conv ``kernel`` (k, in/groups, out) WIO -> ``weight`` (out, in/groups,
   k) OIW;
 * dense ``kernel`` (in, out) -> ``weight`` (out, in), the gate kernels

@@ -2,8 +2,8 @@
 confusion matrix and fitness, on the host in numpy.
 
 A copy of ``box_iou_np``, ``match_predictions``, ``compute_ap``,
-``ap_per_class``, ``fitness`` and ``ConfusionMatrix`` (without the
-oriented-box dispatch) of ``xlstm_yolo_tpu/utils/metrics.py``.
+``ap_per_class``, ``fitness``, ``batch_probiou_np`` and ``ConfusionMatrix``
+(with its oriented-box rows) of ``xlstm_yolo_tpu/utils/metrics.py``.
 """
 from __future__ import annotations
 
@@ -143,10 +143,37 @@ def fitness(map50: float, map5095: float) -> float:
     return 0.1 * map50 + 0.9 * map5095
 
 
+def batch_probiou_np(obb1: np.ndarray, obb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Pairwise probabilistic IoU of oriented boxes (cx, cy, w, h, angle):
+    (M, 5) x (N, 5) -> (M, N), the numpy form of ``ops.boxes.batch_probiou``."""
+
+    def cov(o):
+        w, h, r = o[..., 2], o[..., 3], o[..., 4]
+        a, b = (w ** 2) / 12.0, (h ** 2) / 12.0
+        c, s = np.cos(r), np.sin(r)
+        return a * c ** 2 + b * s ** 2, a * s ** 2 + b * c ** 2, (a - b) * c * s
+
+    o1, o2 = obb1[:, None, :], obb2[None, :, :]
+    x1, y1, x2, y2 = o1[..., 0], o1[..., 1], o2[..., 0], o2[..., 1]
+    a1, b1, c1 = cov(o1)
+    a2, b2, c2 = cov(o2)
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / den * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / den * 0.5
+    t3 = 0.5 * np.log(
+        ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+        / (4 * np.sqrt(np.clip(a1 * b1 - c1 ** 2, 0, None)
+                       * np.clip(a2 * b2 - c2 ** 2, 0, None)) + eps) + eps)
+    bd = np.clip(t1 + t2 + t3, eps, 100.0)
+    return 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
+
+
 class ConfusionMatrix:
     """Confusion matrix for detection and classification (reference
     utils/metrics.py:294): detection is (nc+1, nc+1) with a background
-    row/col; classification is (nc, nc)."""
+    row/col; classification is (nc, nc). Oriented detections come as (N,
+    7) = xyxy-slots cx, cy, w, h, conf, cls, angle with (M, 5) cx, cy, w,
+    h, angle ground truth, matched by probiou."""
 
     def __init__(self, nc: int, conf: float = 0.25, iou_thres: float = 0.45,
                  task: str = "detect"):
@@ -167,7 +194,8 @@ class ConfusionMatrix:
             self.matrix[p, t] += 1
 
     def process_batch(self, dets: np.ndarray, gt_boxes: np.ndarray, gt_cls: np.ndarray):
-        """dets (N, 6) = xyxy, conf, cls; gt (M, 4) xyxy, gt_cls (M,)."""
+        """dets (N, 6) = xyxy, conf, cls (or (N, 7) with a trailing angle,
+        OBB); gt (M, 4) xyxy (or (M, 5) cx, cy, w, h, angle), gt_cls (M,)."""
         if dets is None or len(dets) == 0:
             for c in gt_cls.astype(int):
                 self.matrix[self.nc, c] += 1
@@ -177,7 +205,10 @@ class ConfusionMatrix:
             for c in dets[:, 5].astype(int):
                 self.matrix[c, self.nc] += 1
             return
-        iou = box_iou_np(gt_boxes, dets[:, :4])
+        if dets.shape[1] == 7 and gt_boxes.shape[1] == 5:
+            iou = batch_probiou_np(gt_boxes, np.concatenate([dets[:, :4], dets[:, -1:]], -1))
+        else:
+            iou = box_iou_np(gt_boxes, dets[:, :4])
         matches = np.nonzero(iou > self.iou_thres)
         matches = np.stack(matches, 1)
         if matches.shape[0]:

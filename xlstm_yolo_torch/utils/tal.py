@@ -3,7 +3,9 @@
 Port of ``select_candidates_in_gts``, ``topk_positive_mask``,
 ``select_highest_overlaps`` and ``assign`` in ``xlstm_yolo_tpu/utils/tal.py``
 (the TaskAlignedAssigner, with the fork's alpha 0.5, beta 6.0 and top-k
-10 by default, on class logits). Ground truth arrives padded to (B, n_max, ...) with a
+10 by default, on class logits), and of its rotated variant,
+``rbox_corners``, ``select_candidates_in_rotated_gts`` and
+``assign_rotated`` (on class probabilities and ``probiou``). Ground truth arrives padded to (B, n_max, ...) with a
 validity mask. Assignment carries no gradient: the predictions are
 detached, as the reference does before every assigner call. Per-anchor ground-truth lookups are ``torch.gather``; the JAX
 package's one-hot products were a TPU workaround and select the same values.
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.topk import rowwise_kth_value_plain
-from ..ops.boxes import bbox_iou
+from ..ops.boxes import bbox_iou, probiou
 from . import at_least_fp32
 
 TOPK = 10
@@ -100,3 +102,70 @@ def assign(pd_logits: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.T
     norm_align = align_metric * (pos_overlap_max / (pos_align_max + EPS))
     target_scores = target_scores * norm_align.amax(dim=-2)[..., None]
     return target_labels, target_bboxes, target_scores, fg_mask, target_gt_idx
+
+
+def rbox_corners(rbox: torch.Tensor) -> torch.Tensor:
+    """(..., 5) = cx, cy, w, h, angle -> (..., 4, 2) corner points."""
+    cx, cy, w, h, a = rbox.unbind(-1)
+    cos, sin = torch.cos(a), torch.sin(a)
+    dx1, dy1 = (w / 2) * cos, (w / 2) * sin
+    dx2, dy2 = -(h / 2) * sin, (h / 2) * cos
+    return torch.stack([torch.stack([cx + dx1 + dx2, cy + dy1 + dy2], -1),
+                        torch.stack([cx + dx1 - dx2, cy + dy1 - dy2], -1),
+                        torch.stack([cx - dx1 - dx2, cy - dy1 - dy2], -1),
+                        torch.stack([cx - dx1 + dx2, cy - dy1 + dy2], -1)], dim=-2)
+
+
+def select_candidates_in_rotated_gts(xy_centers: torch.Tensor,
+                                     gt_rboxes: torch.Tensor) -> torch.Tensor:
+    """Anchors inside each rotated ground truth (the projections on two of
+    its sides within the side's length): centers (n_anchors, 2), boxes
+    (B, n_max, 5) -> (B, n_max, n_anchors) bool."""
+    corners = rbox_corners(gt_rboxes)
+    a, b, d = corners[..., 0, :], corners[..., 1, :], corners[..., 3, :]
+    ab, ad = b - a, d - a
+    ap = xy_centers - a[..., None, :]
+    norm_ab = (ab * ab).sum(-1, keepdim=True)
+    norm_ad = (ad * ad).sum(-1, keepdim=True)
+    ap_ab = (ap * ab[..., None, :]).sum(-1)
+    ap_ad = (ap * ad[..., None, :]).sum(-1)
+    return (ap_ab >= 0) & (ap_ab <= norm_ab) & (ap_ad >= 0) & (ap_ad <= norm_ad)
+
+
+@torch.no_grad()
+def assign_rotated(pd_scores: torch.Tensor, pd_rboxes: torch.Tensor, anc_points: torch.Tensor,
+                   gt_labels: torch.Tensor, gt_rboxes: torch.Tensor, mask_gt: torch.Tensor,
+                   topk: int = TOPK, alpha: float = 0.5, beta: float = 6.0):
+    """Rotated task-aligned assignment (the JAX ``assign_rotated``): class
+    probabilities pd_scores (B, n_anchors, nc), pd_rboxes (B, n_anchors, 5)
+    = cx, cy, w, h, angle, gt_rboxes (B, n_max, 5) in the same units, the
+    rest as ``assign``. The metric is score ^ alpha * probiou ^ beta (as
+    powers, as JAX writes them), the candidates the anchors inside the
+    rotated box. Returns target_labels, target_rboxes (B, n_anchors, 5),
+    target_scores, fg_mask and target_gt_idx."""
+    pd_scores, pd_rboxes = at_least_fp32(pd_scores.detach()), at_least_fp32(pd_rboxes.detach())
+    n_anchors, nc = pd_scores.shape[1:]
+    n_max = gt_rboxes.shape[1]
+    mask_gt = mask_gt.float()[..., 0]
+
+    gt_cls = gt_labels[..., 0].long().clamp(0, nc - 1)
+    bbox_scores = pd_scores.gather(2, gt_cls[:, None, :].expand(-1, n_anchors, -1)).transpose(1, 2)
+    overlaps = probiou(gt_rboxes[:, :, None, :], pd_rboxes[:, None, :, :]).clamp(min=0.0)
+    align_metric = bbox_scores.clamp(min=EPS).pow(alpha) * overlaps.pow(beta)
+
+    mask_in_gts = select_candidates_in_rotated_gts(anc_points, gt_rboxes).float()
+    candidate_metric = align_metric * mask_in_gts * mask_gt[..., None]
+    mask_topk = topk_positive_mask(candidate_metric, min(topk, n_anchors))
+    mask_pos = mask_topk * mask_in_gts * mask_gt[..., None]
+    target_gt_idx, fg_mask, mask_pos = select_highest_overlaps(mask_pos, overlaps, n_max)
+
+    target_labels = gt_cls.gather(1, target_gt_idx)
+    target_rboxes = at_least_fp32(gt_rboxes).gather(1, target_gt_idx[..., None].expand(-1, -1, 5))
+    target_scores = torch.nn.functional.one_hot(target_labels, nc).float() * fg_mask[..., None]
+
+    align_metric = align_metric * mask_pos
+    pos_align_max = align_metric.amax(dim=-1, keepdim=True)
+    pos_overlap_max = (overlaps * mask_pos).amax(dim=-1, keepdim=True)
+    norm_align = align_metric * pos_overlap_max / (pos_align_max + EPS)
+    target_scores = target_scores * norm_align.amax(dim=-2)[..., None]
+    return target_labels, target_rboxes, target_scores, fg_mask, target_gt_idx
