@@ -149,6 +149,20 @@ choices of an fp64 step on the card; ``card_vs_cpu``);
 validating and embedding PNGs the phase writes. No hand-written kernel
 runs (plain XLA in JAX).
 
+The classify task (``classify_path``, last): K3 and K2 (fp32, bf16) at the
+ViL classifier's grids at 224 px (S 784, 196, 49) against their plain
+versions; yolo11n-cls at ImageNet-1k's configuration (1000 classes, 224 px,
+batch 64: the JAX parameter count, fused ``Predictor`` inference on uint8
+375 x 500 frames, fp32 and AMP steps); the other five ``-cls`` YAMLs at 1000
+classes (one inference, one fp32 step); the ViL classifier
+(``vil_yolo.yaml`` rows 0-9 at scale n under ``Classify``: fp32 inference,
+bf16 serving, fp32 and AMP steps, each against its plain-forced twin; K3
+and K2 three times a pass); three models against the CPU; and
+``YOLO("yolo11n-cls.yaml")`` training, validating and predicting on PNG
+class folders it writes, its first batch held to the hash the CPU tests
+pin. Only the ViL classifier launches hand kernels (plain XLA for the six
+YAMLs in JAX).
+
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -1884,6 +1898,21 @@ def zero_kernel_counters():
 
     vil_layer_fwd.launches = vil_layer_fwd.launches_bf16 = 0
     mlstm_chunkwise_bwd.launches = mlstm_chunkwise_bwd.launches_bf16 = 0
+
+
+@contextmanager
+def uncounted():
+    """Launches of ``COUNTED`` inside compare a kernel with its plain version
+    in the middle of a path: the counts are put back as they were."""
+    from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd
+    from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd
+
+    saved = [int(v) for v in kernel_counters()]
+    try:
+        yield
+    finally:
+        (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16, mlstm_chunkwise_bwd.launches,
+         mlstm_chunkwise_bwd.launches_bf16) = saved
 
 
 @contextmanager
@@ -3826,19 +3855,27 @@ class SharedChoices:
                 "mask_anchor_flips": anchors, "pooled": sum(a.numel() for a in self.pooled)}
 
 
-def zoo_step(model, dev, dtype, batch, choices):
+def zoo_step(model, dev, dtype, batch, choices, host_divide: bool = False):
     """(loss, {name: gradient}) of one train step of a copy of ``model`` in
     ``dtype`` on ``dev`` (the trainer's step: images / 255 in fp32, then
     cast; BatchNorm, loss and assigner in fp64 when ``dtype`` is), its
-    discrete choices recorded or replayed by ``choices``."""
+    discrete choices recorded or replayed by ``choices``. ``host_divide``:
+    the images divided where ``batch`` lies, before the copy to ``dev``, so
+    that every step sees the same images (the card divides a tensor by a
+    scalar as a product with its reciprocal, which rounds some pixels one
+    fp32 ulp away from the CPU's quotient; an ill-conditioned gradient
+    moves by far more than that)."""
     import copy
 
     import torch
 
     m = copy.deepcopy(model).to(dev, dtype).train()
+    img = (batch["img"].float() / 255.0).to(dev, dtype) if host_divide else None
     batch = {k: t.to(dev) for k, t in batch.items()}
+    if img is None:
+        img = (batch["img"].float() / 255.0).to(dtype)
     with choices.active():
-        total, _ = m.loss({**batch, "img": (batch["img"].float() / 255.0).to(dtype)})
+        total, _ = m.loss({**batch, "img": img})
         total.backward()
     grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
     del m
@@ -4351,6 +4388,496 @@ def phase_tasks_path(smi_line):
     return {k: v for k, v in counts.items() if v}
 
 
+# classify_path: the classify task at ImageNet-1k's public configuration
+# (Ultralytics imagenet.yaml: 1000 classes; 224 px; batch 64, as cls_path runs
+# VisionLSTM2). The six -cls YAMLs at 1000 classes: (label, YAML, the JAX
+# TaskModel's parameters there; tests/test_torch_classify.py holds the port to
+# the same counts), yolo11n-cls first
+CLASSIFY_MODELS = [("yolo11n-cls", "yolo11n-cls.yaml", 2_812_104),
+                   ("yolov8n-cls", "yolov8n-cls.yaml", 2_719_288),
+                   ("yolo12n-cls", "yolo12n-cls.yaml", 2_999_496),
+                   ("yolov8-cls-resnet50", "yolov8-cls-resnet50.yaml", 27_413_032),
+                   ("yolov8-cls-resnet101", "yolov8-cls-resnet101.yaml", 46_405_160),
+                   ("yolo11-cls-resnet18", "yolo11-cls-resnet18.yaml", 13_115_432)]
+VIL_CLASSIFIER = "vil-classifier"  # vil_yolo.yaml rows 0-9 at scale n under Classify
+VIL_CLASSIFIER_PARAMS = 2_913_748
+CLASSIFY_SRC_HW = (375, 500)  # the size of a typical ImageNet photo
+# K3 and K2 at the ViL classifier's three stages at 224 px (name, S, DIM, INNER, NH, batch)
+CLASSIFY_CASES = [("cls224_P3_S784", 784, 64, 128, 2, CLS_BATCH),
+                  ("cls224_P4_S196", 196, 128, 256, 4, CLS_BATCH),
+                  ("cls224_P5_S49", 49, 256, 512, 8, CLS_BATCH)]
+CLASSIFY_VS_CPU = ("yolo11n-cls", "yolov8-cls-resnet50", VIL_CLASSIFIER)
+# fixed limits of the fp32 gradients against the CPU where the exact gradient is
+# ill-conditioned: ResNet-50's train-mode step at batch 2 moves by 0.13-0.15 of a
+# tensor's max in fp64 when every weight moves one fp32 ulp (classify_card_vs_cpu
+# prints it as ulp_spread), and its fp32 steps lie 0.15-0.27 from fp64
+CLASSIFY_GRAD_TOL = {"yolov8-cls-resnet50": 0.5}
+FP64_TOL = 1e-6  # the card's fp64 step against the CPU's on the same choices
+# the first train batch of make_classify_dataset(seed=0) through
+# build_dataloader(task="classify", batch=8, imgsz=64, seed=0) at the default
+# keys: SHA-256 of its float32 img bytes then its int64 label bytes, the value
+# tests/test_torch_classify_data.py pins on the CPU
+CLASSIFY_BATCH_SHA256 = "4a2b4809f6b44db067772a0796d301ceecf4e60cfa2223cca993eb95683e22e2"
+CLASSIFY_FACADE_IMGSZ = 64
+
+
+def vil_classifier_graph() -> dict:
+    """The ViL-YOLO-n backbone (``vil_yolo.yaml`` rows 0-9) under a
+    ``Classify`` head at 1000 classes: the dict the JAX graph builds too."""
+    import copy
+
+    from xlstm_yolo_torch.cfg import load_model_yaml
+
+    cfg, _ = load_model_yaml("vil_yolon.yaml")
+    return {"nc": 1000, "scales": cfg["scales"], "backbone": copy.deepcopy(cfg["backbone"]),
+            "head": [[-1, 1, "Classify", ["nc"]]]}
+
+
+def classify_model(label: str, cfg=None, device="cuda"):
+    """``TaskModel`` of a CLASSIFY_MODELS YAML at 1000 classes, or the ViL
+    classifier with seeded gate kernels; weights from seed 0."""
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    if label == VIL_CLASSIFIER:
+        return seed_gates(TaskModel(vil_classifier_graph(), scale="n", device=device, seed=0))
+    return TaskModel(cfg, nc=1000, device=device, seed=0)
+
+
+def classify_batch(device, batch: int = CLS_BATCH, imgsz: int = CLS_HW) -> dict:
+    """Seeded uint8 images and labels of the 1000 classes."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    return {"img": torch.from_numpy(rng.integers(0, 256, (batch, imgsz, imgsz, 3),
+                                                 dtype=np.uint8)).to(device),
+            "label": torch.from_numpy(rng.integers(0, 1000, batch)).to(device)}
+
+
+def classify_inference(model, frames, dtype: str = "float32", iters: int = ZOO_INFER_TIMED):
+    """``Predictor`` inference of a fused copy of ``model`` on uint8 ``frames``
+    (on the card): letterbox, then forward and softmax; the probabilities'
+    checks (shape, finite, rows summing to 1), the first call's launches of
+    COUNTED, stage ms (CUDA events, the mean of ``iters`` after that call),
+    img/s and peak GiB. Returns (ok,
+    numbers, the first call's probabilities, the predictor)."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    fused = fuse_conv_bn(copy.deepcopy(model).eval())
+    pred = Predictor(fused, imgsz=CLS_HW, dtype=dtype, verbose=False)
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_counters()
+    dets, _, out, _ = pred(frames)
+    torch.cuda.synchronize()
+    first_call = tuple((kernel_counters() - before).tolist())
+    probs = out["probs"].float()
+    sums = (probs.sum(-1) - 1).abs().max().item()
+    shapes_ok = dets is None and tuple(probs.shape) == (len(frames), fused.nc)
+    finite = bool(torch.isfinite(probs).all())
+    times = {"letterbox": 0.0, "forward_softmax": 0.0}
+    with torch.inference_mode():
+        for it in range(1 + iters):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            x, _ = pred.preprocess(frames)
+            ev[1].record()
+            pred.decode(x)
+            ev[2].record()
+            torch.cuda.synchronize()
+            if it:
+                for k, (a, b) in zip(times, zip(ev[:2], ev[1:])):
+                    times[k] += a.elapsed_time(b) / iters
+    total_ms = sum(times.values())
+    ok = shapes_ok and finite and sums <= (1e-2 if dtype == "bfloat16" else 1e-4)
+    return ok, {"shapes_ok": shapes_ok, "finite": finite, "row_sum_max_err": sums,
+                "launches_first_call": first_call, "ms": times, "total_ms": total_ms,
+                "img_per_s": len(frames) / total_ms * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, probs, pred
+
+
+def classify_kernel_parity() -> dict:
+    """K3 and K2, fp32 and bf16, at CLASSIFY_CASES against their plain
+    versions (``kernel_parity``: fp32 within TOL_REL, bf16 by
+    ``compare_bf16``), on seeded layer arguments and the activations and
+    carry states K3 leaves for them; not counted. Returns {kernel: {case:
+    ms}}."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_bwd import (KERNEL_CS, mlstm_chunkwise_bwd,
+                                                    mlstm_chunkwise_bwd_plain)
+    from xlstm_yolo_torch.kernels.vil_cell import Cfg
+    from xlstm_yolo_torch.kernels.vil_layer import _launch, vil_layer_fwd, vil_layer_ref
+
+    dev = torch.device("cuda")
+    timed = lambda case: case[5]
+    nw = lambda args: sum(a.numel() for a in args[2:])
+
+    def layer_case(bf16):
+        def make(B, case):
+            a = layer_args(B, *case[1:5], seed=case[1] + B + 50, device=dev)
+            return [a[0].bfloat16(), a[1].bfloat16(), *a[2:]] if bf16 else a
+        return make
+
+    def bwd_case(bf16):
+        def make(B, case):
+            a = layer_case(bf16)(B, case)
+            _, (_, q, k, v, ig, fg), carry = _launch(a, Cfg(case[4]), bf16)
+            dh = torch.from_numpy(np.random.default_rng(case[1] + B + 51).normal(
+                size=(B, case[1], case[3])).astype(np.float32)).to(dev)
+            return (q, k, v, ig, fg, dh), carry
+        return make
+
+    run_k2 = lambda args, case: mlstm_chunkwise_bwd(*args[0], case[4], carry=args[1])
+    out = {}
+    for name, res in (
+            ("vil_layer_fwd", kernel_parity(
+                "vil_layer_fwd", CLASSIFY_CASES, layer_case(False),
+                lambda args, case: (vil_layer_fwd(*args, case[4], chunk_size=CHUNK),),
+                lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=CHUNK),),
+                lambda args, case: vil_bound("layer", case[5], *case[1:5], nw(args)),
+                batch_of=timed)),
+            ("mlstm_chunkwise_bwd", kernel_parity(
+                "mlstm_chunkwise_bwd", CLASSIFY_CASES, bwd_case(False), run_k2,
+                lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4]),
+                lambda args, case: bwd_bound(case[5], case[1], case[3], case[4]),
+                batch_of=timed)),
+            ("vil_layer_fwd_bf16", kernel_parity(
+                "vil_layer_fwd_bf16", CLASSIFY_CASES, layer_case(True),
+                lambda args, case: (vil_layer_fwd(*args, case[4]),),
+                lambda args, case: (vil_layer_ref(*args, case[4], chunk_size=KERNEL_CS,
+                                                  keep_fp32=True),),
+                lambda args, case: bf16_vil_bound(case[5], *case[1:5], nw(args)),
+                batch_of=timed, cmp=compare_bf16, metric=BF16_METRIC)),
+            ("mlstm_chunkwise_bwd_bf16", kernel_parity(
+                "mlstm_chunkwise_bwd_bf16", CLASSIFY_CASES, bwd_case(True), run_k2,
+                lambda args, case: mlstm_chunkwise_bwd_plain(*args[0], case[4], keep_fp32=True),
+                lambda args, case: bf16_bwd_bound(case[5], case[1], case[3], case[4]),
+                batch_of=timed, cmp=compare_bf16, tol=TOL_BF16_GRAD, metric=BF16_METRIC))):
+        out[name] = res["ms_by_case"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def vil_classifier_vs_plain(model, frames, batch) -> tuple:
+    """The ViL classifier against its plain-forced twin at the model
+    boundary. (a) fp32 ``Predictor`` inference: the probabilities within
+    TOL_REL of their max. (b) bf16 serving (``dtype="bfloat16"``): the
+    probabilities within TOL_REL absolute (as ``main_path_bf16`` holds its
+    scores), the relative L2 of the logits printed beside the plain
+    versions' own fp32-vs-bf16 gap. (c) An fp32 step (forward,
+    cross-entropy, backward), the plain-forced one on the kernels' step's
+    max-pool argmax (``SharedChoices``: the SPPF's pools over the 7 x 7 map
+    flip under the kernels' other rounding, and a flip moved a gradient by
+    9e-2 of its max): the loss within TOL_REL, every gradient within
+    TOL_REL of its own max (``grad_errors``). (d) An AMP step: the
+    loss within 1e-2, the gradient no further from the plain-forced AMP
+    step's than 1.5 times the plain-forced fp32 step's distance from it
+    (``grad_dist``), and each ViL layer call of it against its plain version
+    on the inputs and output gradient it saw (``bf16_layer_grads``), as
+    ``train_loop_amp``. Launches per run: K3 3 (a), K3 bf16 3 (b), K3 3 and
+    K2 3 (c), K3 bf16 3 and K2 bf16 3 (d); none plain-forced. Returns (ok,
+    numbers)."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    n = 3
+    out, ok = {}, True
+    # (a), (b): inference
+    for dtype, expect in (("float32", (n, 0, 0, 0)), ("bfloat16", (0, n, 0, 0))):
+        inf_ok, inf, probs, pred = classify_inference(model, frames, dtype=dtype, iters=3)
+        launches = inf["launches_first_call"]
+        with torch.inference_mode():
+            x, _ = pred.preprocess(frames)
+            logits_k = pred.model(x.permute(0, 3, 1, 2)).float()
+            before = kernel_counters()
+            with plain_vil_kernels():
+                ref = pred.decode(x)["probs"].float()
+                logits_p = pred.model(x.permute(0, 3, 1, 2)).float()
+            plain_launches = tuple((kernel_counters() - before).tolist())
+        entry = {"launches": launches, "expected_launches": expect, "inference": inf}
+        if dtype == "float32":
+            rel = ((probs - ref).abs().max() / ref.abs().max()).item()
+            entry["probs_maxrelerr_vs_plain"] = rel
+            good = rel <= TOL_REL
+        else:
+            fused32 = fuse_conv_bn(copy.deepcopy(model).eval())
+            with plain_vil_kernels(), torch.inference_mode():
+                logits32 = fused32(pred.preprocess(frames)[0].float().permute(0, 3, 1, 2))
+            abs_err = (probs - ref).abs().max().item()
+            l2 = lambda a, b: ((a - b).norm() / b.norm()).item()
+            entry.update({"probs_max_abs_err_vs_plain": abs_err,
+                          "logits_rel_l2_vs_plain": l2(logits_k, logits_p),
+                          "logits_rel_l2_plain_fp32_gap": l2(logits32.float(), logits_p),
+                          "top1_agree_with_plain": (probs.argmax(-1) == ref.argmax(-1))
+                          .float().mean().item()})
+            good = abs_err <= TOL_REL
+            del fused32
+        entry["ok"] = bool(inf_ok and good and launches == expect
+                           and plain_launches == (0, 0, 0, 0))
+        out[f"inference_{dtype}"] = entry
+        ok &= entry["ok"]
+        del pred
+    # (c): the fp32 step, the plain-forced one on the kernels' step's max-pool argmax
+    steps, choices = {}, SharedChoices()
+    for kind in ("kernels", "plain"):
+        step = TrainStep(copy.deepcopy(model), amp=False)
+        shared = (choices if kind == "kernels" else SharedChoices(replay=choices)).active()
+        with plain_vil_kernels() if kind == "plain" else nullcontext(), shared:
+            before = kernel_counters()
+            total, _ = step.forward_loss(batch)
+            step.backward(total)
+            torch.cuda.synchronize()
+            launches = tuple((kernel_counters() - before).tolist())
+        steps[kind] = (float(total.detach()), {k: p.grad for k, p in step.model.named_parameters()},
+                       launches)
+        del step
+    (loss_k, grads_k, launches), (loss_p, grads_p, plain_launches) = (steps["kernels"],
+                                                                      steps["plain"])
+    worst_rel, worst_name, vanishing, gmax = grad_errors(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    good = (launches == (n, 0, n, 0) and plain_launches == (0, 0, 0, 0) and loss_rel <= TOL_REL
+            and worst_rel <= TOL_REL and all(bool(torch.isfinite(g).all())
+                                             for g in grads_k.values()))
+    out["step_fp32"] = {"launches": launches, "loss": loss_k, "loss_plain": loss_p,
+                        "loss_relerr": loss_rel, "grad_maxrelerr": worst_rel,
+                        "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+                        "ok": bool(good)}
+    ok &= good
+    del steps, grads_k, grads_p
+    # (d): the AMP step
+    first, calls = {}, []
+    for kind in ("kernels", "plain", "plain_fp32"):
+        step = TrainStep(copy.deepcopy(model), amp=kind != "plain_fp32")
+        record = recording_vil_layers(calls) if kind == "kernels" else nullcontext()
+        with plain_vil_kernels() if kind != "kernels" else nullcontext(), record:
+            before = kernel_counters()
+            total, _ = step.forward_loss(batch)
+            step.backward(total)
+            torch.cuda.synchronize()
+            launches = tuple((kernel_counters() - before).tolist())
+        first[kind] = (float(total.detach()),
+                       {k: p.grad for k, p in step.model.named_parameters()}, launches)
+        del step
+    (loss_k, grads_k, launches), (loss_p, grads_p, plain_launches) = (first["kernels"],
+                                                                      first["plain"])
+    loss_32, grads_32, _ = first["plain_fp32"]
+    dist, gap = grad_dist(grads_k, grads_p), grad_dist(grads_32, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del first, grads_k, grads_p, grads_32
+    with uncounted():
+        layers = [bf16_layer_grads(**c) for c in calls]
+    del calls
+    good = (launches == (0, n, 0, n) and plain_launches == (0, 0, 0, 0) and loss_rel <= 1e-2
+            and dist <= 1.5 * gap and len(layers) == n and all(lay["ok"] for lay in layers))
+    out["step_amp"] = {"launches": launches, "loss": loss_k, "loss_plain": loss_p,
+                       "loss_plain_fp32": loss_32, "loss_relerr": loss_rel, "grad_dist": dist,
+                       "grad_dist_fp32_gap": gap, "vil_layers": layers, "ok": bool(good)}
+    ok &= good
+    torch.cuda.empty_cache()
+    return bool(ok), out
+
+
+def classify_card_vs_cpu(model, grad_tol: float = TOL_REL) -> tuple:
+    """The card against the CPU on ``model``'s weights at batch
+    YOLO11_CPU_BATCH, 224 px: the fused eval's probabilities within TOL_REL
+    of their max; one fp32 train step's loss within TOL_REL and every
+    gradient (``zoo_step``) within ``grad_tol`` of its own max, both steps
+    on one set of discrete choices (``SharedChoices``: the max pools'
+    argmax), those of an fp64 step on the card, held to that step too;
+    every step on the same images (``zoo_step``'s ``host_divide``).
+    Without ViL layers, the fp64 step also on the CPU: its loss and
+    gradients within FP64_TOL of the card's; and the card's fp64 step on
+    weights one fp32 ulp up, whose distance from it (``ulp_spread``) is the
+    gradient's own conditioning. The ViL classifier's kernels take no fp64:
+    there the choices are the fp32 card step's own, and its gradients are
+    held to the CPU's."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (YOLO11_CPU_BATCH, CLS_HW, CLS_HW, 3)).astype(np.float32))
+    fused = fuse_conv_bn(copy.deepcopy(model).eval())
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            probs[dev] = copy.deepcopy(fused).to(dev).predictions_full(x.to(dev))["probs"].cpu()
+    probs_rel = ((probs["cuda"] - probs["cpu"]).abs().max() / probs["cpu"].abs().max()).item()
+    batch = {k: v.cpu() for k, v in classify_batch("cpu", YOLO11_CPU_BATCH).items()}
+    vil = any(m.__class__.__name__ == "MatrixLSTMCell" for m in model.modules())
+    ref = SharedChoices()
+    ref_loss, ref_grads = zoo_step(model, "cuda", torch.float32 if vil else torch.float64,
+                                   batch, ref, host_divide=True)
+    fp64 = {}
+    if not vil:
+        cpu_loss, cpu_grads = zoo_step(model, "cpu", torch.float64, batch,
+                                       SharedChoices(replay=ref), host_divide=True)
+        nudged = copy.deepcopy(model)
+        with torch.no_grad():
+            for p in nudged.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+        ulp_grads = zoo_step(nudged, "cuda", torch.float64, batch, SharedChoices(replay=ref),
+                             host_divide=True)[1]
+        del nudged
+        fp64 = {"fp64_loss_relerr_vs_cpu": abs(cpu_loss - ref_loss) / abs(ref_loss),
+                "fp64_grad_maxrelerr_vs_cpu": grad_errors(cpu_grads, ref_grads)[0],
+                "ulp_spread": grad_errors(ulp_grads, ref_grads)[:2],
+                "ulp_spread_rel_l2": grad_dist(ulp_grads, ref_grads)}
+        del cpu_grads, ulp_grads
+    steps = {dev: zoo_step(model, dev, torch.float32, batch, SharedChoices(replay=ref),
+                           host_divide=True) for dev in ("cuda", "cpu")}
+    worst_rel, worst_name, vanishing, gmax = grad_errors(steps["cuda"][1], steps["cpu"][1])
+    loss_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    vs_ref = {dev: grad_errors(steps[dev][1], ref_grads)[:2] for dev in steps}
+    ok = (probs_rel <= TOL_REL and loss_rel <= TOL_REL and worst_rel <= grad_tol
+          and (vil or (vs_ref["cuda"][0] <= grad_tol
+                       and fp64["fp64_loss_relerr_vs_cpu"] <= FP64_TOL
+                       and fp64["fp64_grad_maxrelerr_vs_cpu"] <= FP64_TOL)))
+    return ok, {"probs_maxrelerr_vs_cpu": probs_rel, **fp64, "grad_tol": grad_tol,
+                "grad_rel_l2_vs_cpu": grad_dist(steps["cuda"][1], steps["cpu"][1]),
+                "loss": steps["cuda"][0],
+                "loss_cpu": steps["cpu"][0], "loss_reference": ref_loss,
+                "reference": "card fp32, own choices" if vil else "card fp64",
+                "loss_relerr_vs_cpu": loss_rel, "grad_maxrelerr_vs_cpu": worst_rel,
+                "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+                "grad_maxrelerr_vs_reference": {d: v[0] for d, v in vs_ref.items()},
+                "pooled": len(ref.pooled)}
+
+
+def classify_facade(smi_line) -> tuple:
+    """``YOLO("yolo11n-cls.yaml")`` on the card through the user's entry
+    points, on a PNG class set it writes (``make_classify_dataset``: three
+    classes, 8 train and 4 val images each at four sizes and aspect
+    ratios): the set's first train batch at the default keys against the
+    hash the CPU tests pin (CLASSIFY_BATCH_SHA256); two epochs at the
+    defaults (bf16 AMP, RandAugment, erasing) at 64 px, batch 8; ``val``
+    with ``accuracy_top1`` and ``accuracy_top5``; ``predict`` of a val
+    folder with ``Results.probs``."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.cfg import DEFAULT_CFG_DICT
+    from xlstm_yolo_torch.data.dataset import build_dataloader
+    from xlstm_yolo_torch.data.synthetic import make_classify_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = make_classify_dataset(f"{tmp}/set", n_train=8, n_val=4, seed=0)
+        loader, _ = build_dataloader(root, "train", batch=8, imgsz=CLASSIFY_FACADE_IMGSZ,
+                                     hyp=dict(DEFAULT_CFG_DICT), task="classify", seed=0)
+        first = list(loader)[0]
+        digest = hashlib.sha256(first["img"].tobytes() + first["label"].tobytes()).hexdigest()
+        m = YOLO("yolo11n-cls.yaml")
+        t0 = time.perf_counter()
+        train_metrics = m.train(data=root, epochs=2, imgsz=CLASSIFY_FACADE_IMGSZ, batch=8,
+                                plots=False, project=f"{tmp}/runs", name="cls")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        metrics = m.val(data=root, imgsz=CLASSIFY_FACADE_IMGSZ, batch=8)
+        results = m.predict(f"{root}/val/circle", imgsz=CLASSIFY_FACADE_IMGSZ, verbose=False)
+    probs_ok = all(r.probs is not None and r.probs.data.shape == (3,) and r.boxes is None
+                   and 0 <= r.probs.top1 < 3 and sorted(r.probs.top5) == [0, 1, 2]
+                   for r in results)
+    ok = (digest == CLASSIFY_BATCH_SHA256 and m.model.nc == 3 and len(results) == 4 and probs_ok
+          and {"accuracy_top1", "accuracy_top5"} <= set(metrics)
+          and metrics["images"] == 12 and metrics["accuracy_top5"] == 1.0)
+    return ok, {"batch_sha256": digest, "batch_sha256_expected": CLASSIFY_BATCH_SHA256,
+                "batch_labels": first["label"].tolist(), "train_s": train_s,
+                "train_metrics": train_metrics,
+                "val": {k: v for k, v in metrics.items() if isinstance(v, (int, float))},
+                "predicted": [{"top1": r.probs.top1, "top5": r.probs.top5,
+                               "top1conf": float(r.probs.top1conf)} for r in results],
+                "nvidia_smi": smi_line}
+
+
+def phase_classify_path(smi_line):
+    """The classify task. K3 and K2 (fp32, bf16) at the ViL classifier's
+    grids against their plain versions (``classify_kernel_parity``,
+    uncounted); then, the counts set to 0: yolo11n-cls at ImageNet-1k's
+    configuration (1000 classes, 224 px, batch 64: parameters equal to
+    JAX's, fused ``Predictor`` inference on uint8 375 x 500 frames, fp32
+    and AMP train steps, each launching no hand kernel); the other five
+    YAMLs (built, one inference and one fp32 step); the ViL classifier
+    against its plain-forced twin (``vil_classifier_vs_plain``) and timed;
+    yolo11n-cls, yolov8-cls-resnet50 and the ViL classifier against the CPU
+    (``classify_card_vs_cpu``); ``classify_facade``. Returns (the path's
+    kernel counts, {kernel: {case: ms}})."""
+    import torch
+
+    t_phase = time.perf_counter()
+    ms_by_case = classify_kernel_parity()
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (CLS_BATCH, *CLASSIFY_SRC_HW, 3), dtype=np.uint8)).cuda()
+    batch = classify_batch("cuda")
+    zero_all_kernel_counts()
+    failed, img_s = [], {}
+    for i, (label, cfg, params) in enumerate(CLASSIFY_MODELS):
+        t0 = time.perf_counter()
+        model = classify_model(label, cfg)
+        before = all_kernel_counts()
+        inf_ok, inf, _, _ = classify_inference(model, frames,
+                                               iters=ZOO_INFER_TIMED if i == 0 else 1)
+        fp32_ok, fp32 = task_train(model, batch, amp=False)
+        amp_ok, amp = task_train(model, batch, amp=True) if i == 0 else (True, None)
+        cpu_ok, vs_cpu = (classify_card_vs_cpu(model, CLASSIFY_GRAD_TOL.get(label, TOL_REL))
+                          if label in CLASSIFY_VS_CPU else (True, {}))
+        launched = {k: v - before[k] for k, v in all_kernel_counts().items() if v != before[k]}
+        ok = (model.num_params() == params and model.task == "classify" and inf_ok and fp32_ok
+              and amp_ok and cpu_ok and not launched)
+        emit({"phase": f"classify_path.{label}", "yaml": cfg, "nc": model.nc,
+              "params": model.num_params(), "params_jax": params, "batch": CLS_BATCH,
+              "imgsz": CLS_HW, "src_hw": list(CLASSIFY_SRC_HW), "inference": inf,
+              "train_fp32": fp32, **({"train_amp": amp} if amp else {}), **vs_cpu,
+              "launches": launched, "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            failed.append(label)
+        img_s[label] = (inf["img_per_s"], fp32["img_per_s"], *([amp["img_per_s"]] if amp else []))
+        del model
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = classify_model(VIL_CLASSIFIER)
+    twin_ok, twin = vil_classifier_vs_plain(model, frames, batch)
+    timed = {}
+    for amp in (False, True):
+        step_ok, timed[f"train_{'amp' if amp else 'fp32'}"] = task_train(model, batch, amp=amp)
+        twin_ok &= step_ok
+    cpu_ok, vs_cpu = classify_card_vs_cpu(model)
+    ok = model.num_params() == VIL_CLASSIFIER_PARAMS and twin_ok and cpu_ok
+    emit({"phase": f"classify_path.{VIL_CLASSIFIER}", "graph": "vil_yolo.yaml rows 0-9, scale n, "
+          "Classify [1000]", "params": model.num_params(), "params_jax": VIL_CLASSIFIER_PARAMS,
+          "batch": CLS_BATCH, "imgsz": CLS_HW, **twin, **timed, **vs_cpu,
+          "seconds": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        failed.append(VIL_CLASSIFIER)
+    img_s[VIL_CLASSIFIER] = (twin["inference_float32"]["inference"]["img_per_s"],
+                             twin["inference_bfloat16"]["inference"]["img_per_s"],
+                             timed["train_fp32"]["img_per_s"], timed["train_amp"]["img_per_s"])
+    del model
+    torch.cuda.empty_cache()
+    facade_ok, facade = classify_facade(smi_line)
+    counts = {k: v for k, v in all_kernel_counts().items() if v}
+    ok = not failed and facade_ok and set(counts) == {
+        "vil_layer_fwd", "vil_layer_fwd_bf16", "mlstm_chunkwise_bwd", "mlstm_chunkwise_bwd_bf16"}
+    emit({"phase": "classify_path", "models": len(CLASSIFY_MODELS) + 1, "failed": failed,
+          "img_per_s": img_s, "facade": facade, "launches": counts,
+          "classify_ms_by_case": ms_by_case, "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"classify_path check failed: {failed or 'facade or launches'}")
+    return counts, ms_by_case
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -4399,6 +4926,8 @@ def main() -> int:
         zoo_launches = phase_detect_zoo_path(smi_line)
         phase = "tasks_path"
         tasks_launches = phase_tasks_path(smi_line)
+        phase = "classify_path"
+        classify_launches, classify_ms = phase_classify_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -4423,7 +4952,8 @@ def main() -> int:
                "xlstm7b_path": xlstm7b_launches,
                "yolo11_path": yolo11_launches,
                "detect_zoo_path": zoo_launches,
-               "tasks_path": tasks_launches}
+               "tasks_path": tasks_launches,
+               "classify_path": classify_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran
@@ -4444,7 +4974,8 @@ def main() -> int:
                    if name in small_dh else {}),
                 **({"no_outnorm_ms_by_case": no_outnorm[name]["ms_by_case"]}
                    if name in no_outnorm else {}),
-                **({"rect_ms_by_case": rect[name]} if name in rect else {})}
+                **({"rect_ms_by_case": rect[name]} if name in rect else {}),
+                **({"classify_ms_by_case": classify_ms[name]} if name in classify_ms else {})}
 
     emit({"kernels": [
         entry("vil_layer_fwd", "vil_layer.cu", "mlstm_pallas.py:1142 (_kernel_vil_layer)",

@@ -8,7 +8,7 @@ with other summation orders and chunk lengths than the plain version; each
 gradient is held to its own max.
 """
 import copy
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import pytest
@@ -1956,3 +1956,120 @@ def test_detect_zoo_blocks_on_card_match_cpu(cuda_device, name):
         assert len(got) == len(want) > 0
         for gt, wt in zip(got, want):
             assert _rel(gt.cpu(), wt) <= 1e-4
+
+
+# the ViL classifier at 224 px (vil_yolo.yaml rows 0-9 at scale n under Classify):
+# its three ViL stages' grids (S, DIM, NH of 64)
+CLASSIFY_GRIDS = [(784, 64, 2), (196, 128, 4), (49, 256, 8)]
+
+
+@pytest.mark.parametrize("S,DIM,NH", CLASSIFY_GRIDS, ids=["P3_S784", "P4_S196", "P5_S49"])
+@pytest.mark.parametrize("which", ["layer", "layer_bf16", "bwd", "bwd_bf16"])
+def test_vil_kernels_at_classify_grids_match_plain(cuda_device, which, S, DIM, NH):
+    """K3 and K2, fp32 and bf16, at the ViL classifier's grids at 224 px
+    (28 x 28: twelve chunks of 64 and a partial one; 14 x 14; 7 x 7, shorter
+    than one chunk), batch 4, against their plain versions: fp32 within
+    TOL_REL of each output's max, bf16 by ``_rel_bf16`` (TOL_BF16_FWD /
+    TOL_BF16_GRAD and MAX_EXCESS); each call launches its own entry once."""
+    from xlstm_yolo_torch.kernels.vil_layer import _launch
+
+    bf16 = which.endswith("bf16")
+    args = (_bf16_layer_args if bf16 else _layer_args)(4, S, DIM, NH, cuda_device, seed=S + 41)
+    if which.startswith("layer"):
+        before = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+        got = [vil_layer_fwd(*args, NH, chunk_size=128)]
+        want = [vil_layer_ref(*args, NH, chunk_size=64 if bf16 else 128, keep_fp32=bf16)]
+        after = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+    else:
+        _, (_, q, k, v, ig, fg), carry = _launch(args, Cfg(NH), bf16)
+        dh = torch.randn(4, S, NH * 64, device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(S))
+        before = (mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
+        got = mlstm_chunkwise_bwd(q, k, v, ig, fg, dh, NH, carry=carry)
+        want = mlstm_chunkwise_bwd_plain(q, k, v, ig, fg, dh, NH, keep_fp32=bf16)
+        after = (mlstm_chunkwise_bwd.launches, mlstm_chunkwise_bwd.launches_bf16)
+    torch.cuda.synchronize()
+    assert after == ((before[0], before[1] + 1) if bf16 else (before[0] + 1, before[1]))
+    for i, (g_, w) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g_).all()), i
+        if bf16:
+            rel_l2, excess = _rel_bf16(g_, w)
+            tol = TOL_BF16_FWD if which == "layer_bf16" else TOL_BF16_GRAD
+            assert rel_l2 <= tol and excess <= MAX_EXCESS, (i, rel_l2, excess)
+        else:
+            assert _rel(g_, w) <= TOL_REL, i
+
+
+@contextmanager
+def _pool_choices(log: list, replay: list | None = None):
+    """``F.max_pool2d`` recording each call's argmax into ``log`` or, given
+    ``replay`` (another run's log), gathering its input at those indices:
+    the same function on the other run's routing."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    real = F.max_pool2d
+
+    def pool(x, k, s=None, p=0):
+        if replay is None:
+            y, idx = real(x, k, s, p, return_indices=True)
+        else:
+            idx = replay[len(log)].to(x.device)
+            y = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        log.append(idx.cpu())
+        return y
+
+    with mock.patch.object(F, "max_pool2d", pool):
+        yield
+
+
+def test_vil_classifier_step_on_card_matches_cpu(cuda_device):
+    """The ViL classifier (1000 classes, 224 px, batch 2, seeded gate
+    kernels): one fp32 train-mode forward, cross-entropy and backward on
+    the card (K3 and K2 once a ViL stage) against the same step on the CPU
+    (the plain versions), the CPU's SPPF pools on the card's argmax (a flip
+    under the other rounding moves a gradient by far more than the
+    tolerance): the loss within TOL_REL, every gradient within TOL_REL of
+    its own max (a gradient that is zero up to rounding, behind a
+    train-mode BatchNorm, of the model's largest); then eval
+    probabilities within TOL_REL."""
+    from xlstm_yolo_torch.cfg import load_model_yaml
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+    from xlstm_yolo_torch.nn.vil import MatrixLSTMCell
+
+    cfg, _ = load_model_yaml("vil_yolon.yaml")
+    graph = {"nc": 1000, "scales": cfg["scales"], "backbone": copy.deepcopy(cfg["backbone"]),
+             "head": [[-1, 1, "Classify", ["nc"]]]}
+    cpu = TaskModel(graph, scale="n", device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, MatrixLSTMCell):
+                for lin in (m.igate, m.fgate):
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+    rng = np.random.default_rng(3)
+    batch = {"img": torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3)).astype(np.float32)),
+             "label": torch.tensor([7, 912])}
+    steps, card_pools = {}, []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(cpu).to(dev).train()
+        before = (vil_layer_fwd.launches, mlstm_chunkwise_bwd.launches)
+        with _pool_choices(card_pools if dev == "cuda" else [],
+                           None if dev == "cuda" else card_pools):
+            total, _ = m.loss({k: t.to(dev) for k, t in batch.items()})
+            total.backward()
+        launched = (vil_layer_fwd.launches - before[0], mlstm_chunkwise_bwd.launches - before[1])
+        with torch.no_grad():
+            probs = m.eval().predictions_full(batch["img"].to(dev))["probs"].cpu()
+        steps[dev] = (float(total), {n: p.grad.cpu() for n, p in m.named_parameters()}, probs,
+                      launched)
+    assert steps["cuda"][3] == (3, 3) and steps["cpu"][3] == (0, 0)
+    assert abs(steps["cuda"][0] - steps["cpu"][0]) <= TOL_REL * abs(steps["cpu"][0])
+    grads_k, grads_p = steps["cuda"][1], steps["cpu"][1]
+    gmax = max(t.abs().max().item() for t in grads_p.values())
+    for n, gp in grads_p.items():
+        scale = gp.abs().max().item()
+        err = (grads_k[n] - gp).abs().max().item()
+        assert err <= TOL_REL * (scale if scale >= 1e-6 * gmax else gmax), n
+    assert _rel(steps["cuda"][2], steps["cpu"][2]) <= TOL_REL

@@ -26,7 +26,10 @@ On the CPU, fp32, torch on one thread:
   folds it, ``proto_up`` (a bare transposed conv with a bias) left as it
   is, the fused outputs equal to the unfused ones;
 * ``YOLO`` of each task through train / val / predict / info / embed /
-  fuse / save / load / reset_weights on the CPU.
+  fuse / save / load / reset_weights on the CPU;
+* the graph takes the ``Classify`` head and still refuses the names of
+  ``NOT_PORTED`` with their reason (the classify task itself:
+  ``tests/test_torch_classify.py``).
 """
 import copy
 from pathlib import Path
@@ -97,9 +100,16 @@ def test_param_count_and_strides_match_jax(name):
 
 
 def test_classify_still_refused():
+    """Named when the port refused the ``Classify`` head: the graph now takes
+    it (the task classify, the head over one map at the YAML's nc), and a
+    name still in ``NOT_PORTED`` is refused with its reason."""
     cfg = {"nc": 10, "backbone": [[-1, 1, "Conv", [16, 3, 2]]],
            "head": [[-1, 1, "Classify", ["nc"]]]}
-    with pytest.raises(KeyError, match="classify task"):
+    parsed = parse_model(cfg)
+    assert parsed.task == "classify" and parsed.head_index == 1
+    assert parsed.specs[1].args == (16, 10)
+    cfg["backbone"][0][2] = "HGStem"
+    with pytest.raises(KeyError, match="RT-DETR family"):
         parse_model(cfg)
 
 

@@ -2,7 +2,7 @@
 of ``default.yaml`` and the model YAMLs under ``cfg/models``.
 
 Port of ``get_cfg``, ``check_cfg``, ``check_dict_alignment``, ``yaml_load``,
-``model_yaml_path`` and ``load_model_yaml`` in
+``model_yaml_path``, ``load_model_yaml``, ``TASKS`` and ``TASK2METRIC`` in
 ``xlstm_yolo_tpu/cfg/__init__.py``: defaults, then overrides, typed
 validation and did-you-mean errors for mistyped keys. The keys of the JAX
 package's device mesh are accepted at their defaults and refused otherwise
@@ -20,6 +20,16 @@ import yaml
 
 CFG_DIR = Path(__file__).parent
 MODELS_DIR = CFG_DIR / "models"
+
+TASKS = ("detect", "segment", "classify", "pose", "obb")
+# the headline validation metric of each task, as the JAX package names it
+TASK2METRIC = {
+    "detect": "metrics/mAP50-95(B)",
+    "segment": "metrics/mAP50-95(M)",
+    "classify": "metrics/accuracy_top1",
+    "pose": "metrics/mAP50-95(P)",
+    "obb": "metrics/mAP50-95(B)",
+}
 
 # typed key groups (the JAX package's, which follow the reference's)
 CFG_FLOAT_KEYS = {"warmup_epochs", "box", "cls", "dfl", "degrees", "shear", "time", "pose", "kobj",

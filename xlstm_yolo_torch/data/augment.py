@@ -1,13 +1,18 @@
 """The train pipeline on the host: mosaic, random perspective, mixup,
 copy-paste, HSV and flip, and the letterbox of the eval path, in numpy on
-``data.imgproc``.
+``data.imgproc``; and the classify transforms.
 
 Port of ``letterbox``, ``random_hsv``, ``random_flip``,
 ``random_perspective``, ``_box_candidates``, ``mosaic4``, ``mixup``,
 ``mosaic4_points`` / ``mosaic3_points`` / ``mosaic9_points`` (``mosaic4``,
 ``mosaic3``, ``mosaic9`` given ``extras``), ``_shift_points``,
 ``_cat_extras``, ``copy_paste_flip`` and ``copy_paste_mix`` in
-``xlstm_yolo_tpu/data/augment.py``. The point tasks' annotations ride in
+``xlstm_yolo_tpu/data/augment.py``, and of its classify transforms:
+``classify_eval_transform``, ``random_resized_crop``, the RandAugment op
+space (``_rand_augment_op`` over ``RA_OPS``), ``rand_augment``,
+``augmix``, ``autoaugment_imagenet``, ``random_erasing``,
+``color_jitter`` and ``classify_train_transform``, equal to the JAX ones
+(on cv2) to the level. The point tasks' annotations ride in
 an ``extra`` dict beside the labels: ``segments`` (a list of (k, 2)
 polygons), ``keypoints`` (n, K, 3) or ``corners`` (n, 4, 2), in pixels. Every random number is drawn from the
 ``np.random.Generator`` passed in, in the JAX package's order, so that one
@@ -381,3 +386,256 @@ def copy_paste_flip(img: np.ndarray, labels: np.ndarray, segments: list, p: floa
         labels = np.concatenate([labels, np.stack(new_labels)], 0)
         segments = list(segments) + new_segments
     return img, labels, segments
+
+
+# ---------------------------------------------------------------------------
+# the classify transforms: uint8 RGB (H, W, 3) in and out, normalized later
+# ---------------------------------------------------------------------------
+
+def classify_eval_transform(img: np.ndarray, size: int, crop_fraction: float = 1.0) -> np.ndarray:
+    """Resize the short edge to ``size / crop_fraction`` (aspect kept),
+    then centre-crop ``size`` x ``size``."""
+    h, w = img.shape[:2]
+    scale_size = math.floor(size / crop_fraction)
+    r = scale_size / min(h, w)
+    nh, nw = max(scale_size, int(round(h * r))), max(scale_size, int(round(w * r)))
+    img = ip.resize(img, (nw, nh))
+    y0, x0 = (nh - size) // 2, (nw - size) // 2
+    return np.ascontiguousarray(img[y0: y0 + size, x0: x0 + size])
+
+
+def random_resized_crop(img: np.ndarray, size: int, scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3),
+                        rng: np.random.Generator | None = None) -> np.ndarray:
+    """torchvision's ``RandomResizedCrop``: 10 attempts at an area drawn in
+    ``scale`` times the image's and a log-uniform aspect in ``ratio``, else
+    the largest centre crop whose aspect ``ratio`` allows; resized to
+    ``size`` x ``size``."""
+    rng = rng or np.random.default_rng()
+    h, w = img.shape[:2]
+    area = h * w
+    for _ in range(10):
+        target = area * rng.uniform(*scale)
+        ar = math.exp(rng.uniform(math.log(ratio[0]), math.log(ratio[1])))
+        cw = int(round(math.sqrt(target * ar)))
+        ch = int(round(math.sqrt(target / ar)))
+        if 0 < cw <= w and 0 < ch <= h:
+            x0 = int(rng.integers(0, w - cw + 1))
+            y0 = int(rng.integers(0, h - ch + 1))
+            return ip.resize(np.ascontiguousarray(img[y0: y0 + ch, x0: x0 + cw]), (size, size))
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        cw, ch = int(round(h * ratio[1])), h
+    else:
+        cw, ch = w, h
+    x0, y0 = (w - cw) // 2, (h - ch) // 2
+    return ip.resize(np.ascontiguousarray(img[y0: y0 + ch, x0: x0 + cw]), (size, size))
+
+
+def _blend(img1: np.ndarray, img2: np.ndarray, factor: float) -> np.ndarray:
+    """PIL's enhance blend, img2 + factor (img1 - img2) in fp32, clipped and
+    truncated to uint8."""
+    out = img2.astype(np.float32) + factor * (img1.astype(np.float32) - img2.astype(np.float32))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _autocontrast(img: np.ndarray) -> np.ndarray:
+    """Each channel stretched from its own min and max to 0-255."""
+    out = img.copy()
+    for c in range(img.shape[2]):
+        ch = img[..., c]
+        lo, hi = int(ch.min()), int(ch.max())
+        if hi > lo:
+            lut = np.clip((np.arange(256, dtype=np.float32) - lo) * (255.0 / (hi - lo)), 0, 255)
+            out[..., c] = lut.astype(np.uint8)[ch]
+    return out
+
+
+def _equalize(img: np.ndarray) -> np.ndarray:
+    return np.stack([ip.equalize_hist(img[..., c]) for c in range(img.shape[2])], -1)
+
+
+def _rand_augment_op(img: np.ndarray, op: str, mag: float, rng) -> np.ndarray:
+    """One RandAugment op at magnitude ``mag`` in [0, 1] of its maximum,
+    its sign drawn first (even for the ops that ignore it, so that every
+    later draw stays in step)."""
+    h, w = img.shape[:2]
+    sign = -1.0 if rng.random() < 0.5 else 1.0
+    if op == "Identity":
+        return img
+    if op in ("ShearX", "ShearY"):
+        s = sign * mag * 0.3
+        M = np.float32([[1, s if op == "ShearX" else 0, 0], [s if op == "ShearY" else 0, 1, 0]])
+        return ip.warp_affine(img, M, (w, h))
+    if op in ("TranslateX", "TranslateY"):
+        t = sign * mag * 150.0 / 331.0 * (w if op == "TranslateX" else h)
+        M = np.float32([[1, 0, t if op == "TranslateX" else 0],
+                        [0, 1, t if op == "TranslateY" else 0]])
+        return ip.warp_affine(img, M, (w, h))
+    if op == "Rotate":
+        return ip.warp_affine(img, ip.rotation_matrix_2d((w / 2, h / 2), sign * mag * 30.0), (w, h))
+    if op == "Brightness":
+        return _blend(img, np.zeros_like(img), 1.0 + sign * mag * 0.9)
+    if op == "Color":
+        return _blend(img, ip.rgb2gray(img)[..., None].repeat(3, -1), 1.0 + sign * mag * 0.9)
+    if op == "Contrast":
+        mean = np.full_like(img, int(ip.rgb2gray(img).mean()))
+        return _blend(img, mean, 1.0 + sign * mag * 0.9)
+    if op == "Sharpness":
+        return _blend(img, ip.gaussian_blur3(img), 1.0 + sign * mag * 0.9)
+    if op == "Posterize":
+        bits = 8 - int(round(mag * 4))
+        lut = (np.arange(256, dtype=np.uint8) >> (8 - bits)) << (8 - bits)
+        return lut[img]
+    if op == "Solarize":
+        thr = 255.0 - mag * 255.0
+        return np.where(img >= thr, 255 - img, img)
+    if op == "AutoContrast":
+        return _autocontrast(img)
+    if op == "Equalize":
+        return _equalize(img)
+    return img
+
+
+RA_OPS = ("Identity", "ShearX", "ShearY", "TranslateX", "TranslateY", "Rotate", "Brightness",
+          "Color", "Contrast", "Sharpness", "Posterize", "Solarize", "AutoContrast", "Equalize")
+
+
+def rand_augment(img: np.ndarray, rng: np.random.Generator | None = None, num_ops: int = 2,
+                 magnitude: int = 9) -> np.ndarray:
+    """RandAugment: ``num_ops`` ops drawn from RA_OPS at ``magnitude`` of
+    30 (torchvision's defaults, 2 and 9)."""
+    rng = rng or np.random.default_rng()
+    mag = magnitude / 30.0
+    for _ in range(num_ops):
+        img = _rand_augment_op(img, RA_OPS[int(rng.integers(len(RA_OPS)))], mag, rng)
+    return img
+
+
+def augmix(img: np.ndarray, rng: np.random.Generator | None = None, severity: int = 3,
+           mixture_width: int = 3, alpha: float = 1.0) -> np.ndarray:
+    """AugMix: ``mixture_width`` chains of 1-3 ops (RA_OPS but Identity)
+    mixed with Dirichlet weights, then blended with the image by a Beta
+    weight."""
+    rng = rng or np.random.default_rng()
+    ws = rng.dirichlet([alpha] * mixture_width).astype(np.float32)
+    m = float(rng.beta(alpha, alpha))
+    mag = severity / 10.0
+    mix = np.zeros(img.shape, np.float32)
+    ops = [o for o in RA_OPS if o != "Identity"]
+    for i in range(mixture_width):
+        aug = img.copy()
+        for _ in range(int(rng.integers(1, 4))):
+            aug = _rand_augment_op(aug, ops[int(rng.integers(len(ops)))], mag, rng)
+        mix += ws[i] * aug.astype(np.float32)
+    out = (1 - m) * img.astype(np.float32) + m * mix
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# (op, probability, magnitude) pairs of the AutoAugment ImageNet policy, the
+# JAX package's subset
+_AA_POLICY = [
+    (("Posterize", 0.4, 8 / 10), ("Rotate", 0.6, 9 / 10)),
+    (("Solarize", 0.6, 5 / 10), ("AutoContrast", 0.6, 0)),
+    (("Equalize", 0.8, 0), ("Equalize", 0.6, 0)),
+    (("Posterize", 0.6, 7 / 10), ("Posterize", 0.6, 6 / 10)),
+    (("Equalize", 0.4, 0), ("Solarize", 0.2, 4 / 10)),
+    (("Equalize", 0.4, 0), ("Rotate", 0.8, 8 / 10)),
+    (("Solarize", 0.6, 3 / 10), ("Equalize", 0.6, 0)),
+    (("Posterize", 0.8, 5 / 10), ("Equalize", 1.0, 0)),
+    (("Rotate", 0.2, 3 / 10), ("Solarize", 0.6, 8 / 10)),
+    (("Equalize", 0.6, 0), ("Posterize", 0.4, 6 / 10)),
+    (("Rotate", 0.8, 8 / 10), ("Color", 0.4, 0)),
+    (("Rotate", 0.4, 9 / 10), ("Equalize", 0.6, 0)),
+    (("Equalize", 0.0, 0), ("Equalize", 0.8, 0)),
+    (("Color", 0.6, 4 / 10), ("Contrast", 1.0, 8 / 10)),
+    (("Color", 0.8, 8 / 10), ("Solarize", 0.8, 7 / 10)),
+    (("Sharpness", 0.4, 7 / 10), ("Invert", 0.6, 0)),
+    (("ShearX", 0.6, 5 / 10), ("Equalize", 1.0, 0)),
+    (("Color", 0.4, 0), ("Equalize", 0.6, 0)),
+]
+
+
+def autoaugment_imagenet(img: np.ndarray, rng: np.random.Generator | None = None) -> np.ndarray:
+    """AutoAugment's ImageNet policy: one drawn sub-policy, each of its two
+    ops applied with its probability."""
+    rng = rng or np.random.default_rng()
+    for op, p, mag in _AA_POLICY[int(rng.integers(len(_AA_POLICY)))]:
+        if rng.random() < p:
+            img = 255 - img if op == "Invert" else _rand_augment_op(img, op, mag, rng)
+    return img
+
+
+def random_erasing(img: np.ndarray, p: float = 0.4, scale=(0.02, 0.33), ratio=(0.3, 3.3),
+                   rng: np.random.Generator | None = None) -> np.ndarray:
+    """RandomErasing with probability ``p``: a drawn rectangle filled with
+    the ImageNet mean (124, 116, 104), on uint8 before normalization."""
+    rng = rng or np.random.default_rng()
+    if rng.random() >= p:
+        return img
+    h, w = img.shape[:2]
+    area = h * w
+    for _ in range(10):
+        target = area * rng.uniform(*scale)
+        ar = math.exp(rng.uniform(math.log(ratio[0]), math.log(ratio[1])))
+        eh = int(round(math.sqrt(target / ar)))
+        ew = int(round(math.sqrt(target * ar)))
+        if eh < h and ew < w:
+            y0 = int(rng.integers(0, h - eh + 1))
+            x0 = int(rng.integers(0, w - ew + 1))
+            img = img.copy()
+            img[y0: y0 + eh, x0: x0 + ew] = (124, 116, 104)
+            return img
+    return img
+
+
+def color_jitter(img: np.ndarray, brightness: float = 0.4, contrast: float = 0.4,
+                 saturation: float = 0.4, hue: float = 0.015,
+                 rng: np.random.Generator | None = None) -> np.ndarray:
+    """torchvision's ``ColorJitter``: brightness, contrast and saturation
+    blends and a hue shift (on cv2's HSV), in a drawn order."""
+    rng = rng or np.random.default_rng()
+    for t in rng.permutation(4):
+        if t == 0 and brightness > 0:
+            img = _blend(img, np.zeros_like(img),
+                         rng.uniform(max(0, 1 - brightness), 1 + brightness))
+        elif t == 1 and contrast > 0:
+            mean = np.full_like(img, int(ip.rgb2gray(img).mean()))
+            img = _blend(img, mean, rng.uniform(max(0, 1 - contrast), 1 + contrast))
+        elif t == 2 and saturation > 0:
+            gray = ip.rgb2gray(img)[..., None].repeat(3, -1)
+            img = _blend(img, gray, rng.uniform(max(0, 1 - saturation), 1 + saturation))
+        elif t == 3 and hue > 0:
+            hsv = ip.rgb2hsv(img)
+            shift = rng.uniform(-hue, hue) * 180
+            hsv[..., 0] = (hsv[..., 0].astype(np.int32) + int(shift)) % 180
+            img = ip.hsv2rgb(hsv)
+    return img
+
+
+def classify_train_transform(img: np.ndarray, size: int, rng: np.random.Generator,
+                             scale=(0.08, 1.0), hflip: float = 0.5, vflip: float = 0.0,
+                             auto_augment: str | None = "randaugment", hsv_h: float = 0.015,
+                             hsv_s: float = 0.4, hsv_v: float = 0.4, erasing: float = 0.0,
+                             force_color_jitter: bool = False) -> np.ndarray:
+    """RandomResizedCrop, the flips, the ``auto_augment`` policy
+    (randaugment, augmix, autoaugment; color jitter from the HSV gains when
+    there is none), then RandomErasing."""
+    img = random_resized_crop(img, size, scale=scale, rng=rng)
+    if hflip > 0 and rng.random() < hflip:
+        img = np.ascontiguousarray(img[:, ::-1])
+    if vflip > 0 and rng.random() < vflip:
+        img = np.ascontiguousarray(img[::-1])
+    if auto_augment == "randaugment":
+        img = rand_augment(img, rng)
+    elif auto_augment == "augmix":
+        img = augmix(img, rng)
+    elif auto_augment == "autoaugment":
+        img = autoaugment_imagenet(img, rng)
+    if force_color_jitter or not auto_augment:
+        img = color_jitter(img, brightness=hsv_v, contrast=hsv_v, saturation=hsv_s, hue=hsv_h,
+                           rng=rng)
+    if erasing > 0:
+        img = random_erasing(img, p=erasing, rng=rng)
+    return img

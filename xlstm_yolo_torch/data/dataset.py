@@ -1,5 +1,6 @@
-"""YOLO-format dataset of the detect, segment, pose and obb tasks, and its
-fixed-shape batch loader.
+"""YOLO-format dataset of the detect, segment, pose and obb tasks, the
+classify task's folder-per-class dataset, and their fixed-shape batch
+loader.
 
 Port of ``xlstm_yolo_tpu/data/dataset.py`` for those tasks:
 ``check_det_dataset``, ``img2label_path``, the label scan and its
@@ -8,7 +9,7 @@ hash-checked ``.npz`` cache, ``YOLODataset`` (``load_image`` with ``cache``
 sample (``_get_sample_points``: mosaic or letterbox, copy-paste, HSV and
 the flip carrying polygons, keypoints with ``flip_idx``, and OBB corners,
 turned into (cx, cy, w, h, angle) by ``imgproc.min_area_rect`` at the end),
-``collate``),
+``collate``), ``ClassificationDataset``,
 ``Loader`` (the seeded shuffle, the same batch order and per-sample random
 streams as JAX, the threaded prefetch) and ``build_dataloader``; the rect
 buckets of eval (``rect_groups``, the image shapes read from the files'
@@ -711,6 +712,68 @@ class Loader:
             stop.set()
 
 
+class ClassificationDataset:
+    """A folder per class (torchvision's ImageFolder layout): classes are the
+    sorted subfolders of ``root``, samples their images (any depth), sorted,
+    in class order; ``fraction`` < 1 keeps the first samples of that order
+    (so whole classes drop out, as in JAX). ``get_sample`` reads an image
+    (RGB uint8) and transforms it: ``augment.classify_train_transform``
+    from the hyp keys ``scale`` (the crop's area in (1 - scale, 1)),
+    ``fliplr``, ``flipud``, ``auto_augment``, ``hsv_h`` / ``hsv_s`` /
+    ``hsv_v`` and ``erasing``, or ``classify_eval_transform`` at
+    ``crop_fraction``. A batch: ``img`` (B, imgsz, imgsz, 3) float32 in [0,
+    1], ``label`` (B,) int64."""
+
+    rect = False  # the loader's aspect-ratio buckets are a detection dataset's
+
+    def __init__(self, root: str, imgsz: int = 224, augment: bool = False, hyp=None,
+                 fraction: float = 1.0):
+        self.root = Path(root)
+        self.imgsz = imgsz
+        self.augment = augment
+        self.hyp = hyp or {}
+        self.task = "classify"
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.names = dict(enumerate(classes))
+        self.samples = [(str(f), self.class_to_idx[c]) for c in classes
+                        for f in sorted((self.root / c).rglob("*"))
+                        if f.suffix.lower() in IMG_FORMATS]
+        if fraction < 1.0:
+            self.samples = self.samples[: max(1, round(len(self.samples) * fraction))]
+        self.ni = len(self.samples)
+        if self.ni == 0:
+            raise FileNotFoundError(f"no class folders with images under {root}")
+        self.files = [f for f, _ in self.samples]
+
+    def __len__(self):
+        return self.ni
+
+    def _hyp(self, key: str, default):
+        h = self.hyp
+        return h.get(key, default) if isinstance(h, dict) else getattr(h, key, default)
+
+    def get_sample(self, i: int, rng: np.random.Generator, shape=None) -> tuple:
+        path, label = self.samples[i]
+        img = imread(path)
+        g = self._hyp
+        if self.augment:
+            img = A.classify_train_transform(
+                img, self.imgsz, rng, scale=(1.0 - float(g("scale", 0.5)), 1.0),
+                hflip=float(g("fliplr", 0.5)), vflip=float(g("flipud", 0.0)),
+                auto_augment=g("auto_augment", "randaugment") or None,
+                hsv_h=float(g("hsv_h", 0.015)), hsv_s=float(g("hsv_s", 0.4)),
+                hsv_v=float(g("hsv_v", 0.4)), erasing=float(g("erasing", 0.4)))
+        else:
+            img = A.classify_eval_transform(img, self.imgsz,
+                                            crop_fraction=float(g("crop_fraction", 1.0)))
+        return img, label
+
+    def collate(self, samples: list, idxs=None) -> dict:
+        return {"img": np.stack([s[0] for s in samples]).astype(np.float32) / 255.0,
+                "label": np.asarray([s[1] for s in samples], np.int64)}
+
+
 def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 16,
                      imgsz: int = 640, augment: bool | None = None, hyp=None,
                      max_labels: int = 128, seed: int = 0, fraction: float = 1.0,
@@ -724,8 +787,17 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
     buckets aligned to ``stride``, padded by ``pad`` strides. ``task``
     selects the labels' format; a pose dataset's ``kpt_shape`` (default
     (17, 3)) comes from its YAML, and its ``flip_idx`` joins a dict
-    ``hyp``."""
+    ``hyp``. ``task="classify"``: ``data_yaml`` is a directory of class
+    folders, ``root/{split}`` where it exists, else ``root`` itself; the
+    dict is {names, nc, path: root}."""
     augment = (split == "train") if augment is None else augment
+    if task == "classify":
+        root = Path(str(data_yaml))
+        split_dir = root / split if (root / split).exists() else root
+        ds = ClassificationDataset(str(split_dir), imgsz=imgsz, augment=augment, hyp=hyp,
+                                   fraction=fraction)
+        return (Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers),
+                {"names": ds.names, "nc": len(ds.names), "path": root})
     d = check_det_dataset(data_yaml)
     if isinstance(hyp, dict) and d.get("flip_idx"):
         hyp = {**hyp, "flip_idx": d["flip_idx"]}

@@ -16,11 +16,17 @@ neither OpenCV nor Pillow).
   vectorized vertical pass; an exact 2x reduction is cv2's 2x2 mean).
 * ``warp_affine`` / ``warp_perspective``: ``cv2.warpAffine`` /
   ``cv2.warpPerspective`` (bilinear, constant border) as OpenCV 5 computes
-  them: fp32 source positions and weights, rounded to the nearest level.
+  them: fp32 source positions, fused lerps of the four taps, rounded to
+  the nearest level (``warp_affine`` exactly, its positions fused
+  multiply-adds too).
 * ``rgb2hsv`` / ``hsv2rgb``: ``cv2.cvtColor`` ``COLOR_RGB2HSV`` /
   ``COLOR_HSV2RGB`` on uint8 (hue on cv2's 0-179 scale), with cv2's integer
-  tables one way and its fp32 sector formula (truncated, as its vectorized
-  loop) the other; ``lut`` is ``cv2.LUT``.
+  tables one way and its fp32 sector formula (truncated in its vectorized
+  loop, rounded in its scalar one) the other; ``lut`` is ``cv2.LUT``.
+* ``rgb2gray``, ``gaussian_blur3``, ``equalize_hist``,
+  ``rotation_matrix_2d``: ``cv2.cvtColor(COLOR_RGB2GRAY)``,
+  ``cv2.GaussianBlur(img, (3, 3), 0)``, ``cv2.equalizeHist`` and
+  ``cv2.getRotationMatrix2D``, the ops of the classify transforms, exact.
 * ``fill_rect``, ``fill_circle``, ``fill_poly``: the shape fills of the
   synthetic dataset writer (pixel centres inside the shape; not cv2's
   rasterizer, which nothing compares against).
@@ -279,19 +285,22 @@ def imwrite(path: str | Path, img: np.ndarray) -> Path:
 # resize (cv2 INTER_LINEAR on uint8)
 # ---------------------------------------------------------------------------
 
-def _linear_taps(n_in: int, n_out: int):
+def _linear_taps(n_in: int, n_out: int, clamp_weights: bool = True):
     """Per output index: the two source indices and their 11-bit weights,
-    as cv2 computes them (fp32 positions, half-pixel centres, edge clamp)."""
+    as cv2 computes them (fp32 positions, half-pixel centres). Past an edge
+    the indices clamp; along x (``clamp_weights``) the weights become (1,
+    0) there too, while along y cv2 keeps the weights and blends the
+    clamped row with itself."""
     scale = 1.0 / (n_out / n_in)
     fx = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
     sx = np.floor(fx).astype(np.int64)
     fx = fx - sx.astype(np.float32)
-    edge = (sx < 0) | (sx >= n_in - 1)
-    fx[edge] = 0.0
-    sx = np.where(sx < 0, 0, np.minimum(sx, n_in - 1))
+    if clamp_weights:
+        fx[(sx < 0) | (sx >= n_in - 1)] = 0.0
+        sx = np.where(sx < 0, 0, np.minimum(sx, n_in - 1))
     a1 = np.rint(fx * np.float32(2048)).astype(np.int64)
     a0 = np.rint((np.float32(1) - fx) * np.float32(2048)).astype(np.int64)
-    return sx, np.minimum(sx + 1, n_in - 1), a0, a1
+    return np.clip(sx, 0, n_in - 1), np.clip(sx + 1, 0, n_in - 1), a0, a1
 
 
 def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
@@ -305,7 +314,7 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
         s = img.reshape(h_out, 2, w_out, 2, -1).astype(np.int32).sum(axis=(1, 3))
         return ((s + 2) >> 2).astype(np.uint8).reshape(h_out, w_out, *img.shape[2:])
     x0, x1, a0, a1 = _linear_taps(w, w_out)
-    y0, y1, b0, b1 = _linear_taps(h, h_out)
+    y0, y1, b0, b1 = _linear_taps(h, h_out, clamp_weights=False)
     src = img.astype(np.int64).reshape(h, w, -1)
     hor = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]  # (H, w_out, C)
     # the vertical pass of cv2's vectorized loop: each row sum >> 4, a high
@@ -350,10 +359,18 @@ def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 # warps (cv2 warpAffine / warpPerspective, bilinear, constant border)
 # ---------------------------------------------------------------------------
 
+def _fma(a, b, c) -> np.ndarray:
+    """fp32 ``a * b + c`` rounded once (a fused multiply-add): the fp32
+    product is exact in fp64."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
 def _remap(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border: int) -> np.ndarray:
     """Bilinear sample of uint8 ``img`` at the fp32 source positions (sx,
     sy) (arrays of the output's shape), taps outside the image reading
-    ``border``, rounded to the nearest level: cv2's remap of uint8."""
+    ``border``, blended as OpenCV 5's warps blend them (two fused lerps
+    along x, then one along y) and rounded to the nearest level."""
     h, w = img.shape[:2]
     src = img.reshape(h, w, -1)
     c = src.shape[2]
@@ -368,11 +385,12 @@ def _remap(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border: int) -> np.n
     # a tap outside the image reads the padding ring (its index clamped there)
     cx0, cx1 = np.clip(ix + 1, 0, w + 1), np.clip(ix + 2, 0, w + 1)
     cy0, cy1 = np.clip(iy + 1, 0, h + 1), np.clip(iy + 2, 0, h + 1)
-    one = np.float32(1)
-    acc = np.zeros((*sx.shape, c), np.float32)
-    for yy, wy in ((cy0, one - ay), (cy1, ay)):
-        for xx, wx in ((cx0, one - ax), (cx1, ax)):
-            acc += flat[yy * (w + 2) + xx] * (wy * wx)[..., None]
+    tap = lambda yy, xx: flat[yy * (w + 2) + xx].astype(np.float32)
+    a, b = ax[..., None], ay[..., None]
+    top, bot = tap(cy0, cx0), tap(cy1, cx0)
+    top = _fma(a, tap(cy0, cx1) - top, top)
+    bot = _fma(a, tap(cy1, cx1) - bot, bot)
+    acc = _fma(b, bot - top, top)
     return np.clip(np.rint(acc), 0, 255).astype(np.uint8).reshape(*sx.shape, *img.shape[2:])
 
 
@@ -384,8 +402,13 @@ def _grid(size: tuple[int, int]):
 
 def warp_affine(img: np.ndarray, M: np.ndarray, size: tuple[int, int],
                 border: int = BORDER) -> np.ndarray:
-    """``cv2.warpAffine(img, M, size, borderValue=(border,) * 3)`` for uint8:
-    ``M`` (2, 3) maps source to destination; ``size`` is (width, height)."""
+    """``cv2.warpAffine(img, M, size, borderValue=(border,) * 3)`` for uint8,
+    exactly as OpenCV 5 computes it: ``M`` (2, 3) maps source to
+    destination, inverted in fp64 and cast to fp32; each row's first
+    multiple of WARP_BLOCK pixels (its vectorized loop) take their source
+    position as a fused multiply-add of x onto the row's fp32 offset, the
+    rest (its scalar loop) as fma(x, m0, y m1) + m2; then ``_remap``'s
+    lerps. ``size`` is (width, height)."""
     m = np.asarray(M, np.float64).reshape(2, 3)
     d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
     d = 1.0 / d if d != 0 else 0.0
@@ -394,8 +417,13 @@ def warp_affine(img: np.ndarray, M: np.ndarray, size: tuple[int, int],
     a[1, 2] = -a[1, 0] * m[0, 2] - a[1, 1] * m[1, 2]
     a = a.astype(np.float32)
     xs, ys = _grid(size)
-    return _remap(img, a[0, 0] * xs + a[0, 1] * ys + a[0, 2],
-                  a[1, 0] * xs + a[1, 1] * ys + a[1, 2], border)
+    vec = xs < xs.shape[1] // WARP_BLOCK * WARP_BLOCK
+    src = [np.where(vec, _fma(r[0], xs, r[1] * ys + r[2]), _fma(xs, r[0], ys * r[1]) + r[2])
+           for r in a]
+    return _remap(img, *src, border)
+
+
+WARP_BLOCK = 16  # pixels a step of OpenCV 5's vectorized warpAffine loop takes (AVX2 build)
 
 
 def warp_perspective(img: np.ndarray, M: np.ndarray, size: tuple[int, int],
@@ -441,10 +469,23 @@ def rgb2hsv(img: np.ndarray) -> np.ndarray:
 _SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
 
 
+HSV_BLOCK = 32  # pixels a step of cv2's vectorized HSV -> RGB loop takes (AVX2 build)
+
+
+def _one_minus(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """fp32 ``1 - a * b`` rounded once, as the fused multiply-subtract cv2's
+    build computes it: the fp32 product is exact in fp64, and over the
+    uint8 HSV domain the fp64 difference rounds to the fp32 the fused
+    operation gives (checked on every HSV triple)."""
+    return (1.0 - a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
+
+
 def hsv2rgb(img: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` for uint8 HSV (..., 3), in
-    cv2's fp32 arithmetic, truncated to a level as its vectorized loop (the
-    one images wider than a pixel take) does."""
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` for uint8 HSV (H, W, 3) (or
+    any (..., W, 3)), exactly: cv2's fp32 sector formula with its fused
+    ``1 - s h`` terms; each row's first multiple of HSV_BLOCK pixels go
+    through its vectorized loop, which truncates to a level, the rest of
+    the row through its scalar loop, which rounds."""
     f32 = np.float32
     h = img[..., 0].astype(f32) * f32(6.0 / 180.0)
     s = img[..., 1].astype(f32) * f32(1.0 / 255.0)
@@ -454,14 +495,78 @@ def hsv2rgb(img: np.ndarray) -> np.ndarray:
     h = h - sector.astype(f32)
     bad = (sector < 0) | (sector >= 6)
     sector, h = np.where(bad, 0, sector), np.where(bad, f32(0), h)
-    tab = np.stack([v, v * (f32(1) - s), v * (f32(1) - s * h), v * (f32(1) - s * (f32(1) - h))],
+    tab = np.stack([v, v * (f32(1) - s), v * _one_minus(s, h), v * _one_minus(s, f32(1) - h)],
                    axis=-1)
     idx = _SECTORS[sector]  # (..., 3) = which tab entry is b, g, r
     bgr = np.take_along_axis(tab, idx, axis=-1)
     gray = (s == 0)[..., None]
     bgr = np.where(gray, v[..., None], bgr)
     rgb = bgr[..., ::-1] * f32(255.0)
-    return np.clip(np.trunc(rgb), 0, 255).astype(np.uint8)  # cv2's vectorized path truncates
+    width = img.shape[-2] if img.ndim >= 2 else 1
+    vectorized = (np.arange(width) < width // HSV_BLOCK * HSV_BLOCK)[:, None]
+    return np.clip(np.where(vectorized, np.trunc(rgb), np.rint(rgb)), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# the classify transforms' ops (cv2 COLOR_RGB2GRAY, GaussianBlur 3x3,
+# equalizeHist, getRotationMatrix2D)
+# ---------------------------------------------------------------------------
+
+def rgb2gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` for uint8 RGB (..., 3):
+    OpenCV 5's 15-bit fixed point, (9798 R + 19235 G + 3735 B + 2^14) >>
+    15 (equal to cv2 on every colour)."""
+    x = img.astype(np.int32)
+    return ((9798 * x[..., 0] + 19235 * x[..., 1] + 3735 * x[..., 2] + (1 << 14)) >> 15
+            ).astype(np.uint8)
+
+
+def _reflect101(n: int) -> np.ndarray:
+    """Source indices -1 .. n of an axis of length n under cv2's
+    BORDER_REFLECT_101 (one pixel: itself)."""
+    idx = np.arange(-1, n + 1)
+    if n == 1:
+        return np.zeros(3, np.int64)
+    idx[0], idx[-1] = 1, n - 2
+    return idx
+
+
+def gaussian_blur3(img: np.ndarray) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (3, 3), 0)`` for uint8 (H, W) or (H, W, C):
+    the separable [1, 2, 1] / 4 kernel, summed exactly and rounded once,
+    (sum + 8) >> 4, BORDER_REFLECT_101 at the edges."""
+    x = img.astype(np.int32)
+    h, w = x.shape[:2]
+    p = x[_reflect101(h)][:, _reflect101(w)]
+    row = p[:, :-2] + 2 * p[:, 1:-1] + p[:, 2:]
+    return ((row[:-2] + 2 * row[1:-1] + row[2:] + 8) >> 4).astype(np.uint8)
+
+
+def equalize_hist(ch: np.ndarray) -> np.ndarray:
+    """``cv2.equalizeHist`` of one uint8 channel: from the first non-empty
+    bin, the cumulative count times the fp32 255 / (total - that bin's
+    count), rounded to the nearest level (half to even); an image of one
+    value is returned as it is."""
+    hist = np.bincount(ch.reshape(-1), minlength=256)
+    first = int(np.argmax(hist > 0))
+    if hist[first] == ch.size:
+        return ch.copy()
+    scale = np.float32(255.0) / np.float32(ch.size - hist[first])
+    lut = np.rint((np.cumsum(hist) - hist[first]).astype(np.float32) * scale)
+    lut = np.clip(lut, 0, 255).astype(np.uint8)
+    lut[:first + 1] = 0
+    return lut[ch]
+
+
+def rotation_matrix_2d(center: tuple, angle: float, scale: float = 1.0) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: the (2, 3) fp64
+    matrix of a rotation by ``angle`` degrees (counter-clockwise) about
+    ``center`` (x, y)."""
+    a = math.radians(angle)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
 
 
 def lut(img: np.ndarray, table: np.ndarray) -> np.ndarray:

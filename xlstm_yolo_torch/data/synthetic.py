@@ -10,6 +10,8 @@ corners and centre, visible) and ``kpt_shape: [5, 3]`` in the YAML; obb the
 4 corners of a rotated rectangle (``imgproc.box_points``), all normalized.
 It writes PNG, which the port decodes without OpenCV or Pillow, and takes a
 width and a height, so that the images need not be square.
+``make_classify_dataset`` writes the classify task's folder-per-class set
+of the same shapes, one an image, at several sizes and aspect ratios.
 """
 from __future__ import annotations
 
@@ -87,3 +89,40 @@ def make_synthetic_dataset(root: str | Path, n_train: int = 8, n_val: int = 4,
     yaml_path = root / "data.yaml"
     yaml_path.write_text(yaml.safe_dump(d))
     return str(yaml_path)
+
+
+# (width, height) of the classify set's images: square, wide and tall, none
+# of them the training size
+CLASSIFY_SIZES = ((72, 72), (96, 64), (56, 88), (120, 80))
+
+
+def make_classify_dataset(root: str | Path, n_train: int = 8, n_val: int = 4,
+                          sizes=CLASSIFY_SIZES, seed: int = 0) -> str:
+    """Write a folder-per-class classify set as PNG, ``root/{train,val}/
+    {rect,circle,triangle}/*.png``: each image one shape of its class
+    (coloured, at a drawn size and place) on a noisy background, its size
+    drawn from ``sizes`` (width, height). Returns ``root`` (what
+    ``build_dataloader(task="classify")`` and ``YOLO(...).train(data=)``
+    take)."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for cls, name in enumerate(CLASSES):
+            d = root / split / name
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                w, h = sizes[int(rng.integers(len(sizes)))]
+                img = rng.integers(0, 60, (h, w, 3)).astype(np.uint8) + 60
+                size = int(rng.integers(min(w, h) // 3, min(w, h) * 3 // 4))
+                cx = int(rng.integers(size // 2 + 2, w - size // 2 - 2))
+                cy = int(rng.integers(size // 2 + 2, h - size // 2 - 2))
+                color = [int(c) for c in rng.integers(150, 256, 3)]
+                x1, y1, x2, y2 = cx - size // 2, cy - size // 2, cx + size // 2, cy + size // 2
+                if cls == 0:
+                    ip.fill_rect(img, x1, y1, x2, y2, color)
+                elif cls == 1:
+                    ip.fill_circle(img, cx, cy, size // 2, color)
+                else:
+                    ip.fill_poly(img, np.asarray([[cx, y1], [x1, y2], [x2, y2]], np.float32), color)
+                ip.imwrite(d / f"{i:04d}.png", img)
+    return str(root)

@@ -2,8 +2,7 @@
 ``.predict``.
 
 Port of ``Model`` in ``xlstm_yolo_tpu/engine/model.py`` for the detect,
-segment, pose and obb tasks (the head of the YAML sets it; classify is not
-ported):
+segment, pose, obb and classify tasks (the head of the YAML sets it):
 built from a model YAML (weights from a seed) or from a checkpoint ``.pt``
 of the port (``utils.checkpoint``: its EMA weights), on ``device`` (the
 card unless the caller asks for ``"cpu"``). ``train`` runs
@@ -14,7 +13,8 @@ the BatchNorm statistics, rebuilt to the dataset's classes); ``val`` runs
 generator of them). ``fuse`` folds the BatchNorms into the convolutions,
 ``info`` describes the model, ``load`` reads a checkpoint of the port into
 it, ``reset_weights`` starts it again from its seed, ``embed`` gives an
-image's pooled head maps. Not ported: ``track``, ``export``,
+image's pooled head maps (a classify model has none: it raises, as the
+JAX ``embed`` fails on its (B, nc) logits). Not ported: ``track``, ``export``,
 ``benchmark``, ``tune`` and reference torch ``.pt`` weights.
 """
 from __future__ import annotations
@@ -24,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from ..cfg import TASKS
 
 class Model:
     def __init__(self, model: str | Path = "vil_yolon.yaml", task: str | None = None,
@@ -47,10 +48,8 @@ class Model:
             raise ValueError(f"unsupported model source {model!r} (a model .yaml or a checkpoint "
                              f".pt of this package)")
         self.task = task or self.model.task
-        if self.task not in ("detect", "segment", "pose", "obb"):
-            raise ValueError(f"task {self.task!r}: the port has the detect, segment, pose and "
-                             f"obb tasks; classify (its head, backbones, data and validation) "
-                             f"is not ported yet")
+        if self.task not in TASKS:
+            raise ValueError(f"task {self.task!r}: the port has the {', '.join(TASKS)} tasks")
         if self.task != self.model.task:
             raise ValueError(f"task {self.task!r} does not match the model's {self.model.task!r}")
         self.predictor = None
@@ -167,6 +166,9 @@ class Model:
         from ..nn.heads import det_maps
         from .predictor import load_source
 
+        if self.task == "classify":
+            raise ValueError("embed pools a detection head's maps; a classify model's output is "
+                             "(B, nc) logits, which the JAX Model.embed cannot pool either")
         model = self.model.eval()
         outs = []
         for _, orig in load_source(source):

@@ -1,5 +1,5 @@
-"""Inference of the detect, segment, pose and OBB tasks: batched on the
-device, and per source image with ``Results``.
+"""Inference of the detect, segment, pose, OBB and classify tasks: batched
+on the device, and per source image with ``Results``.
 
 Port of ``Predictor`` and ``load_source`` (files, directories and arrays) in
 ``xlstm_yolo_tpu/engine/predictor.py``. Two entries, told apart by what
@@ -29,7 +29,10 @@ cropped to the box at mask resolution, the letterbox padding cut, resized
 bilinearly to the image (``imgproc.resize_linear_f32``) and thresholded at
 0.5; the keypoints are mapped back by the letterbox's gain and padding.
 The batch entry returns the task's decoded dict in place of ``cands``
-(``predictions_full``), dets of OBB's 7 columns.
+(``predictions_full``), dets of OBB's 7 columns. A classify model, as in
+JAX, letterboxes (it does not centre-crop) and takes the forward's
+softmax: no decode and no NMS; its ``Results`` carry ``probs`` and no
+boxes, and the batch entry returns (None, None, {"probs"}, meta).
 
 fp32 by default, as the JAX ``Predictor`` (the reference's ``half: False``).
 ``dtype="bfloat16"`` (or ``half=True``) serves in bf16 as the JAX bench
@@ -139,6 +142,8 @@ class Predictor:
             with torch.inference_mode():
                 x, meta = self.preprocess(source)
                 out = self.decode(x)
+                if getattr(self.model, "task", "detect") == "classify":
+                    return None, None, out, meta
                 dets, valid = self.postprocess(out if isinstance(out, torch.Tensor)
                                                else out["cands"].float())
             return dets, valid, out, meta
@@ -159,15 +164,18 @@ class Predictor:
                 out = self.decode(x.to(self.dtype))
                 full = ({"cands": out} if isinstance(out, torch.Tensor)
                         else {k: v.float() for k, v in out.items()})
-                dets, valid = self.postprocess(full["cands"].float())
-                d = dets[0][valid[0]]
-                if self.classes is not None and task != "obb":
+                if task != "classify":
+                    dets, valid = self.postprocess(full["cands"].float())
+                    d = dets[0][valid[0]]
+                if self.classes is not None and task not in ("obb", "classify"):
                     keep = torch.isin(d[:, 5].long(), torch.tensor(self.classes, device=d.device))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t2 = time.perf_counter()
             kw = {}
-            if task == "obb":
+            if task == "classify":
+                kw["probs"], d = full["probs"][0].cpu().numpy(), None
+            elif task == "obb":
                 d7 = d.cpu().numpy().astype(np.float32)
                 d7[:, 0], d7[:, 1] = (d7[:, 0] - px) / r, (d7[:, 1] - py) / r
                 d7[:, 2:4] /= r

@@ -1,10 +1,12 @@
 """Prediction results of one image, in numpy.
 
-Port of ``BaseNP``, ``Boxes``, ``Masks``, ``Keypoints``, ``OBB`` and
-``Results`` in ``xlstm_yolo_tpu/engine/results.py`` (without ``plot``,
-``Probs`` and tracking): boxes in pixels of the original image, with their
+Port of ``BaseNP``, ``Boxes``, ``Masks``, ``Keypoints``, ``Probs``, ``OBB``
+and ``Results`` in ``xlstm_yolo_tpu/engine/results.py`` (without ``plot``
+and tracking): boxes in pixels of the original image, with their
 confidence and class, the segment task's masks, the pose task's keypoints,
-the OBB task's rotated boxes, and the summaries built on the boxes.
+the OBB task's rotated boxes, the classify task's probabilities (a
+classify result has no boxes and a length of 0, as in JAX), and the
+summaries built on them.
 ``Masks.xy`` / ``.xyn`` (polygons traced from the masks) are not ported.
 """
 from __future__ import annotations
@@ -129,6 +131,30 @@ class Keypoints(BaseNP):
         return self.data[..., 2] if self.has_visible else None
 
 
+class Probs(BaseNP):
+    """(nc,) class probabilities, with the top-1 and top-5 classes and their
+    probabilities."""
+
+    def __init__(self, probs, orig_shape=None):
+        super().__init__(np.asarray(probs, np.float32).reshape(-1), orig_shape or (0, 0))
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list:
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self):
+        return self.data[self.top1]
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
 class OBB(BaseNP):
     """(n, 7) = cx, cy, w, h, angle (radians), conf, cls in pixels of the
     original image."""
@@ -181,13 +207,13 @@ class OBB(BaseNP):
 
 class Results:
     """One image's predictions: the image, its path, the class names, the
-    ``Boxes`` and, by task, the ``Masks``, ``Keypoints`` or ``OBB``, and
-    the stage times in ms (``speed``)."""
+    ``Boxes`` and, by task, the ``Masks``, ``Keypoints``, ``OBB`` or
+    ``Probs``, and the stage times in ms (``speed``)."""
 
     def __init__(self, orig_img: np.ndarray, path: str = "", names: dict | None = None,
                  boxes: np.ndarray | None = None, speed: dict | None = None,
                  masks: np.ndarray | None = None, keypoints: np.ndarray | None = None,
-                 obb: np.ndarray | None = None):
+                 probs: np.ndarray | None = None, obb: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -196,6 +222,7 @@ class Results:
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = (Keypoints(keypoints, self.orig_shape) if keypoints is not None
                           else None)
+        self.probs = Probs(probs) if probs is not None else None
         self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {}
 
@@ -210,11 +237,13 @@ class Results:
                                                                    "keypoints", "obb")
                            if getattr(self, k) is not None})
 
-    def update(self, boxes=None, masks=None, keypoints=None, obb=None):
+    def update(self, boxes=None, masks=None, probs=None, obb=None, keypoints=None):
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs)
         if keypoints is not None:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
         if obb is not None:
@@ -226,7 +255,12 @@ class Results:
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list:
         """One dict per detection: name, class, confidence and the box corners
-        (normalized by the image's size with ``normalize``)."""
+        (normalized by the image's size with ``normalize``); a classify
+        result's one dict of its top-1 class."""
+        if self.probs is not None:
+            c = self.probs.top1
+            return [{"name": self.names.get(c, str(c)), "class": c,
+                     "confidence": round(float(self.probs.top1conf), decimals)}]
         if self.boxes is None:
             return []
         h, w = self.orig_shape if normalize else (1, 1)
@@ -258,6 +292,9 @@ class Results:
         Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
 
     def verbose(self) -> str:
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(c, c)} {self.probs.data[c]:.2f}"
+                             for c in self.probs.top5)
         if self.boxes is None or len(self.boxes) == 0:
             return "(no detections)"
         counts = {}

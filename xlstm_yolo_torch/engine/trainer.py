@@ -1,5 +1,5 @@
-"""Training of the detect, segment, pose and obb tasks: one step, and the
-loop of steps around it.
+"""Training of the detect, segment, pose, obb and classify tasks: one step,
+and the loop of steps around it.
 
 Port of the ``train_step`` that ``Trainer._build_step`` builds in
 ``xlstm_yolo_tpu/engine/trainer.py``, without mesh, and of the
@@ -42,7 +42,12 @@ with the JAX trainer's columns, the loss gains of the ``box`` / ``cls`` /
 matrix and curves into the run's directory), ``profile`` (a
 ``torch.profiler`` trace of the first three steps, each in one
 ``train_step`` span, written to ``<run>/profile/trace.json``), and the
-callbacks.
+callbacks. A classify run, as the JAX trainer's: the folder-per-class
+loader with the run's keys as its hyp (``auto_augment``, ``erasing``,
+``scale``, the flips and HSV gains; ``dropout`` is read by neither
+trainer), float32 batches of ``img`` and ``label``, the augmentation on
+the host whatever ``device_augment`` says, the ``Classify`` linear rebuilt
+to the dataset's classes; per-epoch validation takes the set's root.
 """
 from __future__ import annotations
 
@@ -68,7 +73,8 @@ from ..utils.train_utils import (EarlyStopping, StepUpdate, lr_schedule, warmup_
 
 
 class TrainStep:
-    """``TrainStep(model)(batch) -> (loss, {"box", "cls", "dfl"})``; puts
+    """``TrainStep(model)(batch) -> (loss, {"box", "cls", "dfl"})`` (the
+    task's terms: a classify model's {"cls"}); puts
     ``model`` in train mode. ``amp`` (default, as the JAX ``dtype`` key
     defaults to bfloat16): activations in bf16, parameters, optimizer state
     and EMA fp32; ``amp=False``: fp32 throughout. The optimizer
@@ -178,7 +184,7 @@ class TrainStep:
         return log
 
 
-BATCH_KEYS = ("img", "cls_boxes", "mask", "masks", "keypoints")
+BATCH_KEYS = ("img", "cls_boxes", "mask", "masks", "keypoints", "label")
 
 
 def multi_scale_sizes(imgsz: int, multi_scale: bool, strides) -> list:
@@ -187,7 +193,7 @@ def multi_scale_sizes(imgsz: int, multi_scale: bool, strides) -> list:
     largest stride (at least 32); none when off."""
     if not multi_scale:
         return []
-    ms, gs = 0.5, max(32, int(max(strides)))
+    ms, gs = 0.5, max(32, int(max(strides, default=32)))
     return sorted({max(gs, int(round(imgsz * f / gs)) * gs)
                    for f in (1 - ms, 1 - ms / 2, 1.0, 1 + ms / 2, 1 + ms)})
 
@@ -196,16 +202,17 @@ def ms_rescale(batch: dict, sz: int, imgsz: int, mask_ratio: int = 4) -> dict:
     """A batch of ``imgsz`` images rescaled on its device to ``sz``: uint8
     images to fp32 / 255 first, resized as ``jax.image.resize`` bilinear;
     the boxes' pixel coordinates scaled by sz / imgsz (an OBB box's angle
-    kept); masks to sz / ``mask_ratio`` by nearest neighbour (the source
-    index floor((i + 0.5) * in / out), as ``jax.image.resize``), keypoints'
-    x, y scaled."""
+    kept), where the batch has boxes; masks to sz / ``mask_ratio`` by
+    nearest neighbour (the source index floor((i + 0.5) * in / out), as
+    ``jax.image.resize``), keypoints' x, y scaled."""
     img = batch["img"]
     if img.dtype == torch.uint8:
         img = img.float() / 255.0
     f = sz / imgsz
-    cb = batch["cls_boxes"]
-    out = {**batch, "img": resize_bilinear(img, sz, sz),
-           "cls_boxes": torch.cat([cb[..., :1], cb[..., 1:5] * f, cb[..., 5:]], -1)}
+    out = {**batch, "img": resize_bilinear(img, sz, sz)}
+    if "cls_boxes" in batch:
+        cb = batch["cls_boxes"]
+        out["cls_boxes"] = torch.cat([cb[..., :1], cb[..., 1:5] * f, cb[..., 5:]], -1)
     if "masks" in batch:
         m = batch["masks"]
         n_in, n_out = m.shape[1], sz // mask_ratio
@@ -372,7 +379,8 @@ class Trainer:
         task = self.model.task
         dev_aug = bool(args.device_augment)
         if dev_aug and task not in ("detect", "segment", "pose"):
-            # the device path warps boxes, slot masks and keypoints, not OBB corners
+            # the device path warps boxes, slot masks and keypoints, not OBB
+            # corners, and has no classify crop or policy
             print(f"WARNING: device_augment covers detect, segment and pose (got {task!r}); "
                   f"augmenting on the host")
             dev_aug = False
@@ -382,7 +390,8 @@ class Trainer:
             hyp=dict(vars(args)), max_labels=int(args.max_labels), seed=int(args.seed),
             fraction=float(args.fraction), single_cls=bool(args.single_cls), cache=args.cache,
             workers=int(args.workers or 0), task=task, mask_ratio=int(args.mask_ratio))
-        self.loader.ds.uint8_images = True  # normalized on the device
+        if hasattr(self.loader.ds, "uint8_images"):  # a classify batch ships float32
+            self.loader.ds.uint8_images = True  # normalized on the device
         self.loader.pin = self.device.type == "cuda"
         resume = None
         if args.resume:

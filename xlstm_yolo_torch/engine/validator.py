@@ -1,5 +1,5 @@
 """Validator: mAP of a detect, segment, pose or OBB model over a dataset's
-val split.
+val split, or the top-1 / top-5 accuracy of a classify model.
 
 Port of ``Validator`` in ``xlstm_yolo_tpu/engine/validator.py`` for those
 tasks: on the device, the eval forward,
@@ -26,7 +26,12 @@ prototypes, logit > 0 inside its box at mask resolution, against the
 ground truth's overlap-encoded masks, by mask IoU); pose the keypoint mAP
 (``mAP50(P)``, ``mAP50-95(P)``, by OKS with ``OKS_SIGMA`` at 17 points, 1
 / nk otherwise, and the 0.53 area factor); their fitness is the mean of the
-box and the mask (or keypoint) fitness.
+box and the mask (or keypoint) fitness. Classify, as in JAX: the val split
+of a folder-per-class set (``data`` its root, or the trainer's dict with
+its ``path``), centre-cropped (``classify_eval_transform``), the softmax
+on the device; ``accuracy_top1`` (also the fitness) and ``accuracy_top5``
+on the host, and with ``plots`` the (nc, nc) confusion matrix of the top-1
+classes.
 """
 from __future__ import annotations
 
@@ -77,6 +82,8 @@ class Validator:
         self.callbacks.run("on_val_start", self)
         self._plotted = False
         data = data or self.data
+        if self.model.task == "classify":
+            return self._call_classify(data)
         if isinstance(data, (str, Path)):
             data = check_det_dataset(data)
         # rect buckets align to the coarsest stride, or the FPN's shapes would not meet
@@ -89,11 +96,7 @@ class Validator:
         if self.plots:
             self.cm = MET.ConfusionMatrix(int(self.model.nc), conf=self.conf)
         jdict, files, class_map = [], loader.ds.files, self._class_map(data)
-        model = self.model.eval()
-        dtype = torch.bfloat16 if self.half else torch.float32
-        if self.half:
-            model = cast_params(copy.deepcopy(model), torch.bfloat16)
-        device = next(model.parameters()).device
+        model, device, dtype = self._eval_model()
         if task != "detect":
             return self._call_task(model, loader, device, dtype)
         stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
@@ -145,6 +148,45 @@ class Validator:
                 print(f"  {names.get(int(c), c):>12}: n={r['nt'][ci]} P={r['p'][ci]:.3f} "
                       f"R={r['r'][ci]:.3f} AP50={r['ap50'][ci]:.3f} AP={r['ap'][ci].mean():.3f}")
         return out
+
+    def _eval_model(self) -> tuple:
+        """(the model in eval mode, a bf16 copy of it with ``half``; its
+        device; the images' dtype)."""
+        model = self.model.eval()
+        if self.half:
+            model = cast_params(copy.deepcopy(model), torch.bfloat16)
+        dtype = torch.bfloat16 if self.half else torch.float32
+        return model, next(model.parameters()).device, dtype
+
+    def _call_classify(self, data) -> dict:
+        """The classify path (module docstring) -> {accuracy_top1,
+        accuracy_top5, fitness, images, img_s}."""
+        root = data.get("path") if isinstance(data, dict) else data
+        loader, _ = build_dataloader(root, "val", batch=self.batch, imgsz=self.imgsz,
+                                     augment=False, task="classify")
+        model, device, dtype = self._eval_model()
+        if self.plots:
+            self.cm = MET.ConfusionMatrix(int(model.nc), conf=self.conf, task="classify")
+        correct1 = correct5 = total = 0
+        t0 = time.time()
+        for batch in loader:
+            self.callbacks.run("on_val_batch_start", self)
+            x = torch.from_numpy(batch["img"]).to(device, dtype)
+            probs = model.predictions_full(x)["probs"].float().cpu().numpy()
+            labels = batch["label"]
+            top5 = np.argsort(-probs, axis=-1)[:, :5]
+            if self.cm is not None:
+                self.cm.process_cls_preds(top5, labels)
+            correct1 += int((top5[:, 0] == labels).sum())
+            correct5 += int((top5 == labels[:, None]).any(-1).sum())
+            total += len(labels)
+            self.callbacks.run("on_val_batch_end", self)
+        dt = time.time() - t0
+        self._plot_metrics()
+        self.callbacks.run("on_val_end", self)
+        top1 = correct1 / max(total, 1)
+        return {"accuracy_top1": top1, "accuracy_top5": correct5 / max(total, 1),
+                "fitness": top1, "images": total, "img_s": round(total / dt, 1)}
 
     def _images(self, batch, device, dtype) -> torch.Tensor:
         img = torch.from_numpy(batch["img"]).to(device)

@@ -1,14 +1,16 @@
 """YAML model graph -> torch module.
 
 Port of ``parse_model``, ``Repeat`` and ``GraphModel`` in
-``xlstm_yolo_tpu/nn/graph.py`` for the detect, segment, pose and obb tasks:
-every layer name of the YAMLs the port ships (YOLOv3, v5, v6, v8 and its
-ghost / P2 / P6 variants, v9, v10, YOLO11, YOLO12, ViL-YOLO, and the
-``-seg``, ``-pose`` and ``-obb`` files of v8, v9, 11 and 12) and the ViL
-blocks of ``nn/vil_blocks.py`` (registered under their JAX names). The
-head row sets the task: ``Segment`` (its third argument, the prototype
-channels, width-scaled), ``Pose`` (``kpt_shape`` from the YAML's top
-level, as a tuple) and ``OBB``. The names of the other JAX heads and
+``xlstm_yolo_tpu/nn/graph.py`` for the detect, segment, pose, obb and
+classify tasks: every layer name of the YAMLs the port ships (YOLOv3, v5,
+v6, v8 and its ghost / P2 / P6 variants, v9, v10, YOLO11, YOLO12, ViL-YOLO,
+the ``-seg``, ``-pose`` and ``-obb`` files of v8, v9, 11 and 12, and the
+six ``-cls`` files with their ``ResNetLayer`` and ``TorchVision``
+backbones) and the ViL blocks of ``nn/vil_blocks.py`` (registered under
+their JAX names). The head row sets the task: ``Segment`` (its third
+argument, the prototype channels, width-scaled), ``Pose`` (``kpt_shape``
+from the YAML's top level, as a tuple), ``OBB`` and ``Classify`` (its one
+argument, the class count, or the YAML's ``nc``). The names of the other JAX heads and
 families (``NOT_PORTED``) raise a ``KeyError`` that says what they wait
 on. As in JAX, a graph with a ``C3k2`` or ``A2C2f`` row (YOLO11, 12)
 builds its head with ``legacy=False``. The YAML
@@ -85,15 +87,16 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "Segment": (H.Segment, "head"),
     "Pose": (H.Pose, "head"),
     "OBB": (H.OBB, "head"),
+    "Classify": (M.Classify, "head"),
+    "ResNetLayer": (M.ResNetLayer, "custom"),
+    "TorchVision": (M.TorchVision, "custom"),
     **{name: (cls, "custom") for name, cls in BLOCKS.items()},
 }
 
 
 # names of the JAX graph the port refuses, with what they wait on
-_CLASSIFY = "the classify task (its head, backbones, data and validation) is not ported yet"
 NOT_PORTED = {
     "MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py",
-    **{name: _CLASSIFY for name in ("Classify", "ResNetLayer", "TorchVision")},
     **{name: "the RT-DETR family (nn/rtdetr.py) is not ported yet"
        for name in ("HGStem", "HGBlock", "AIFI", "RTDETRDecoder", "RepC3", "LightConv")},
     **{name: "the YOLO-World family (nn/world.py) is not ported yet"
@@ -106,7 +109,7 @@ NOT_PORTED = {
 
 # the task each head row sets
 TASKS = {"Detect": "detect", "v10Detect": "detect", "Segment": "segment", "Pose": "pose",
-         "OBB": "obb"}
+         "OBB": "obb", "Classify": "classify"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -230,9 +233,12 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
                 margs[2] = make_divisible(min(margs[2], max_ch) * width, 8)
             if name == "Pose" and len(margs) > 1 and isinstance(margs[1], (list, tuple)):
                 margs[1] = tuple(margs[1])
-            kwargs["ch"] = tuple(channels[x + 1] for x in fs)
-            if name != "v10Detect" and not legacy_head:
-                kwargs["legacy"] = False
+            if name == "Classify":  # one map in, its channels first
+                margs = [c1, *margs]
+            else:
+                kwargs["ch"] = tuple(channels[x + 1] for x in fs)
+                if name != "v10Detect" and not legacy_head:
+                    kwargs["legacy"] = False
         else:
             ch_in = tuple(channels[x + 1] for x in fs)
             c2, margs, kwargs = cls.parse(args, ch_in, width=width, max_ch=max_ch, n=n_rep)

@@ -1,4 +1,4 @@
-"""Conv blocks of the detection graphs, NCHW.
+"""Conv blocks of the detection and classification graphs, NCHW.
 
 Port of the blocks of ``xlstm_yolo_tpu/nn/modules.py`` that the detection
 graphs use: ConvBN, Bottleneck, C2f, C3k, C3k2, SPPF, Concat, Upsample and
@@ -7,7 +7,9 @@ the zoo: YOLOv3 / v5 / v6 / v8 variants (DWConv, C3, C2, MaxPool, Index,
 GhostConv, GhostBottleneck, C3Ghost, ConvTransposeBN, SPP; the graph
 builds torch's ``nn.ZeroPad2d`` and ``nn.Identity`` itself), YOLOv9 (ADown, AConv, RepConv, RepBottleneck,
 RepCSP, RepNCSPELAN4, SPPELAN, ELAN1, CBLinear, CBFuse), YOLOv10 (SCDown,
-RepVGGDW, CIB, C2fCIB, PSA) and YOLO12 (AAttn, ABlock, A2C2f).
+RepVGGDW, CIB, C2fCIB, PSA) and YOLO12 (AAttn, ABlock, A2C2f); the
+classify task's head (Classify) and backbones (ResNetBlock, ResNetLayer,
+BasicResBlock, TorchVision).
 Submodule names follow the JAX parameter tree (``conv``/``bn``, ``cv1``,
 ``m0``...), so ``utils.jax_weights`` maps one onto the other by path.
 Unlike flax, a torch module is built knowing its input channels ``c1``.
@@ -111,12 +113,29 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y
 
 
+def activation(x: torch.Tensor, act) -> torch.Tensor:
+    """The JAX ``_act``: True or "silu" SiLU; False, None or "identity" none;
+    "relu", "sigmoid", "gelu" (flax's tanh approximation)."""
+    if act is True or act == "silu":
+        return F.silu(x)
+    if act is False or act is None or act == "identity":
+        return x
+    if act == "relu":
+        return F.relu(x)
+    if act == "sigmoid":
+        return torch.sigmoid(x)
+    if act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown act {act!r}")
+
+
 class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm (eps 1e-3) + SiLU: the JAX ``ConvBN``.
-    In train mode the BatchNorm follows ``batch_norm_train``."""
+    """Conv2d (no bias) + BatchNorm (eps 1e-3) + activation (``act``, as
+    ``activation`` reads it; SiLU by default): the JAX ``ConvBN``. In train
+    mode the BatchNorm follows ``batch_norm_train``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
-                 g: int = 1, d: int = 1, act: bool = True):
+                 g: int = 1, d: int = 1, act: bool | str = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -131,7 +150,7 @@ class ConvBN(nn.Module):
         x = conv_in_dtype(self.conv, x)
         if isinstance(self.bn, nn.BatchNorm2d):  # an Identity after fuse_conv_bn
             x = batch_norm_train(x, self.bn) if self.training else batch_norm_eval(x, self.bn)
-        return F.silu(x) if self.act else x
+        return activation(x, self.act)
 
 
 class Bottleneck(nn.Module):
@@ -867,3 +886,140 @@ class A2C2f(nn.Module):
         if self.gamma is not None:
             out = x + self.gamma.to(out.dtype).reshape(1, -1, 1, 1) * out
         return out
+
+
+class Classify(nn.Module):
+    """The classification head: ``conv`` (a 1x1 ConvBN to 1280 channels),
+    the mean over H and W, then the ``linear`` Dense to ``nc`` logits. No
+    dropout, as in the JAX ``Classify`` (the reference's has one)."""
+
+    def __init__(self, c1: int, nc: int, c_: int = 1280):
+        super().__init__()
+        self.conv = ConvBN(c1, c_, 1, 1)
+        self.linear = nn.Linear(c_, nc)
+
+    def init_params(self, g: torch.Generator) -> None:
+        lecun_normal_(self.linear.weight, g)
+        nn.init.zeros_(self.linear.bias)
+
+    def forward(self, x):
+        # flax's Dense(dtype=None) promotes: bf16 activations meet fp32
+        # parameters in fp32 (the logits of an AMP step are fp32)
+        x = self.conv(x).mean((2, 3))
+        w, b = self.linear.weight, self.linear.bias
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return F.linear(x.to(dt), w.to(dt), b.to(dt))
+
+
+class ResNetBlock(nn.Module):
+    """The ResNet bottleneck: ``cv1`` 1x1, ``cv2`` 3x3 at stride ``s``
+    (both ReLU), ``cv3`` 1x1 to e * c2, and a ``shortcut`` 1x1 ConvBN where
+    the stride or the channels change; ReLU of the sum."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = ConvBN(c1, c2, 1, 1, act="relu")
+        self.cv2 = ConvBN(c2, c2, 3, s, act="relu")
+        self.cv3 = ConvBN(c2, c3, 1, act=False)
+        self.shortcut = ConvBN(c1, c3, 1, s, act=False) if s != 1 or c1 != c3 else None
+
+    def forward(self, x):
+        y = self.cv3(self.cv2(self.cv1(x)))
+        return F.relu((x if self.shortcut is None else self.shortcut(x)) + y)
+
+
+class ResNetLayer(nn.Module):
+    """A ResNet stage, YAML args [c2, s, is_first, n] (c2 not width-scaled):
+    with ``is_first`` the ``stem`` (a 7x7 stride-2 ConvBN padded by 3, ReLU)
+    and a 3x3 stride-2 max pool padded by 1; else n ResNetBlocks ``b0`` ...
+    (the first at stride ``s``), out e * c2 channels."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1,
+                 e: int = 4):
+        super().__init__()
+        self.is_first, self.n = is_first, n
+        if is_first:
+            self.stem = ConvBN(c1, c2, 7, 2, p=3, act="relu")
+        else:
+            for i in range(n):
+                setattr(self, f"b{i}", ResNetBlock(c1 if i == 0 else e * c2, c2,
+                                                   s if i == 0 else 1, e))
+
+    @classmethod
+    def parse(cls, args, ch_in, **kw):
+        c2 = int(args[0])
+        s = int(args[1]) if len(args) > 1 else 1
+        is_first = bool(args[2]) if len(args) > 2 else False
+        n = int(args[3]) if len(args) > 3 else 1
+        return (c2 if is_first else 4 * c2), [ch_in[0], c2, s, is_first, n], {}
+
+    def forward(self, x):
+        if self.is_first:
+            return F.max_pool2d(self.stem(x), 3, 2, 1)
+        for i in range(self.n):
+            x = getattr(self, f"b{i}")(x)
+        return x
+
+
+class BasicResBlock(nn.Module):
+    """The resnet18 / 34 block: ``conv1`` 3x3 at stride ``s`` (ReLU),
+    ``conv2`` 3x3, a ``down`` 1x1 ConvBN where the stride or the channels
+    change; ReLU of the sum."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, 3, s, act="relu")
+        self.conv2 = ConvBN(c2, c2, 3, 1, act=False)
+        self.down = ConvBN(c1, c2, 1, s, act=False) if s != 1 or c1 != c2 else None
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        return F.relu((x if self.down is None else self.down(x)) + y)
+
+
+class TorchVision(nn.Module):
+    """The JAX package's stand-in for the reference's ``TorchVision`` row,
+    YAML args [c2, model, weights, unwrap, truncate, split]: the named
+    torchvision ResNet (resnet18, 34, 50, 101, 152) built here, truncated
+    before avgpool and fc (``truncate=2``, ``unwrap=True``), so the P5/32
+    map: the ``stem`` and its max pool, then ``s{si}b{bi}`` blocks
+    (BasicResBlock, or ResNetBlock for 50 and up). ``weights`` is ignored:
+    nothing is downloaded. Another model, ``split``, ``unwrap=False`` or
+    another ``truncate`` raises, as in JAX."""
+
+    CFG = {"resnet18": ((2, 2, 2, 2), False), "resnet34": ((3, 4, 6, 3), False),
+           "resnet50": ((3, 4, 6, 3), True), "resnet101": ((3, 4, 23, 3), True),
+           "resnet152": ((3, 8, 36, 3), True)}
+
+    def __init__(self, c1: int, c2: int, model: str = "resnet18", weights: str | None = "DEFAULT",
+                 unwrap: bool = True, truncate: int = 2, split: bool = False):
+        super().__init__()
+        if model not in self.CFG:
+            raise NotImplementedError(
+                f"TorchVision stand-in supports {sorted(self.CFG)}, got {model!r}")
+        if split or not unwrap or truncate != 2:
+            raise NotImplementedError(
+                "TorchVision stand-in supports unwrap=True, truncate=2, split=False")
+        blocks, bottleneck = self.CFG[model]
+        self.stem = ConvBN(c1, 64, 7, 2, p=3, act="relu")
+        self.names = []
+        c, cin = 64, 64
+        for si, n in enumerate(blocks):
+            for bi in range(n):
+                s = 2 if (si > 0 and bi == 0) else 1
+                block = ResNetBlock(cin, c, s, 4) if bottleneck else BasicResBlock(cin, c, s)
+                setattr(self, f"s{si}b{bi}", block)
+                self.names.append(f"s{si}b{bi}")
+                cin = 4 * c if bottleneck else c
+            c *= 2
+
+    @classmethod
+    def parse(cls, args, ch_in, **kw):
+        return int(args[0]), [ch_in[0], *args], {}
+
+    def forward(self, x):
+        x = F.max_pool2d(self.stem(x), 3, 2, 1)
+        for name in self.names:
+            x = getattr(self, name)(x)
+        return x

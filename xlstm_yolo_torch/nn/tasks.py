@@ -1,16 +1,18 @@
 """Task model: a compiled YAML graph plus its task metadata.
 
 Port of ``TaskModel`` in ``xlstm_yolo_tpu/nn/tasks.py`` for the detect,
-segment, pose and obb tasks.
+segment, pose, obb and classify tasks.
 The torch model owns its parameters (the JAX one keeps them outside as a
 pytree): they are initialized from a ``torch.Generator`` seed with the JAX
 package's init scheme, or loaded from a JAX variable tree with
 ``utils.jax_weights.load_jax_variables``. ``predictions`` keeps the JAX
 boundary: NHWC images in, (B, N, 4 + nc) candidates out;
 ``predictions_full`` adds the task's outputs (``coefs`` and ``proto``,
-``kpts``; an OBB model's candidates carry the angle last); ``loss`` is the
-forward plus the task's loss on a padded-label batch (the v8 detection
-loss, or the segmentation, pose or OBB loss built on it). A model whose
+``kpts``; an OBB model's candidates carry the angle last; a classify
+model's ``probs``, the softmax of its logits); ``loss`` is the forward
+plus the task's loss on a padded-label batch (the v8 detection loss, or
+the segmentation, pose or OBB loss built on it), or a classify model's
+cross-entropy against ``label``. A classify model has no strides. A model whose
 head is ``v10Detect`` is end to end (``e2e``): its inference decodes the
 ``one2one`` branch (then the usual NMS, as the JAX package serves it), and
 its loss is the one2many loss (TAL top-10) plus the one2one loss (top-1).
@@ -21,7 +23,8 @@ import torch
 
 from ..cfg import load_model_yaml
 from ..utils import resolve_device
-from ..utils.loss import detection_loss, obb_loss, pose_loss, segmentation_loss
+from ..utils.loss import (classification_loss, detection_loss, obb_loss, pose_loss,
+                          segmentation_loss)
 from ..utils.tal import TOPK
 from . import heads as H
 from .graph import GraphModel, ParsedModel, parse_model
@@ -64,7 +67,9 @@ class TaskModel(GraphModel):
     @torch.no_grad()
     def _probe_strides(self, imgsz: int = 64) -> tuple:
         """Detection strides from a zero forward on the CPU (the model is
-        still there when this runs)."""
+        still there when this runs); none for a classify model."""
+        if self.task == "classify":
+            return ()
         out = H.det_maps(self(torch.zeros(1, self.ch, imgsz, imgsz)))
         return tuple(imgsz // bm.shape[2] for bm, _ in out)
 
@@ -95,8 +100,10 @@ class TaskModel(GraphModel):
         ``cands`` (B, N, 4 + nc) (an OBB model's (B, N, 5 + nc): rotated
         cx, cy, w, h, scores, then the angle), plus ``coefs`` (B, N, nm) and
         ``proto`` (B, nm, Hm, Wm) for segment, ``kpts`` (B, N, nk * nd)
-        pixel keypoints for pose."""
+        pixel keypoints for pose; {"probs": (B, nc)} for classify."""
         out = self(x.permute(0, 3, 1, 2))
+        if self.task == "classify":
+            return {"probs": out.softmax(-1)}
         if self.task == "obb":
             return {"cands": H.decode_obb(out["det"], out["angle"], self.strides, self.nc,
                                           self.reg_max)}
@@ -120,11 +127,16 @@ class TaskModel(GraphModel):
         in train mode (``model.train()``, as the trainer sets it) BatchNorm
         uses the batch statistics and updates its running ones. Returns
         (total, terms): {"box", "cls", "dfl"}, plus "seg", or "pose" and
-        "kobj". An end-to-end model (``e2e``) sums the one2many loss at TAL
+        "kobj"; a classify model's is the cross-entropy of its logits against
+        ``batch["label"]`` (B,) int64, (total, {"cls": total}). An
+        end-to-end model (``e2e``) sums the one2many loss at TAL
         top-10 and the one2one loss at top-1, term by term; its head
         computes the one2many branch in train mode only, so its loss needs
         train mode."""
         raw = self(batch["img"].permute(0, 3, 1, 2))
+        if self.task == "classify":
+            total = classification_loss(raw, batch["label"])
+            return total, {"cls": total}
         kw = {} if gains is None else {"gains": tuple(gains)}
         if self.task == "segment":
             lo = segmentation_loss(raw, batch, self.strides, self.reg_max, **kw)

@@ -263,8 +263,8 @@ def obb_loss(out: dict, batch: dict, strides: Sequence[float], reg_max: int = 16
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Cross-entropy of (B, C) logits against (B,) integer labels, taken in
-    fp32 and averaged over the batch."""
-    logp = logits.float().log_softmax(-1)
+    fp32 (fp64 logits in fp64) and averaged over the batch."""
+    logp = at_least_fp32(logits).log_softmax(-1)
     return -logp.gather(-1, labels[:, None]).mean()
 
 
