@@ -163,6 +163,19 @@ class folders it writes, its first batch held to the hash the CPU tests
 pin. Only the ViL classifier launches hand kernels (plain XLA for the six
 YAMLs in JAX).
 
+RT-DETR (``rtdetr_path``, last): rtdetr-l at COCO's configuration (80
+classes, 640 px, batch 8) with the JAX parameter count: fused ``Predictor``
+inference in fp32 (img/s, forward ms, device-busy ms) and bf16, the fp32
+and AMP train steps with denoising queries, and the card against the CPU
+at 320 px on one fp64 step's discrete choices (the query selection, the
+deformable sampling's grid cells, the six Hungarian matches, HGStem's
+max-pool argmax, the ReLUs' signs; the denoising draws made once for
+both); rtdetr-x, the two ResNet RT-DETRs and yolov8-rtdetr at n (built,
+one inference, timed fp32 steps); ``YOLO("rtdetr-l.yaml")`` training
+an epoch without validation on PNGs it writes, predicting, saved and
+reloaded to the same predictions, its ``val`` refused. No hand kernel runs
+(plain XLA in JAX).
+
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -477,8 +490,9 @@ def phase_device():
                          timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not available"
     name = torch.cuda.get_device_name(0)
-    # the port decodes PNG and BMP itself; JPEG needs one of these two
-    found = {m: importable(m) for m in ("cv2", "PIL")}
+    # the port decodes PNG and BMP itself; JPEG needs cv2 or PIL; RT-DETR's
+    # Hungarian match needs scipy
+    found = {m: importable(m) for m in ("cv2", "PIL", "scipy")}
     emit({"phase": "device", "nvidia_smi": smi_line, "name": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "importable": found})
@@ -579,6 +593,25 @@ def grad_errors(grads_k, grads_p):
         if rel > worst_rel:
             worst_rel, worst_name = rel, n
     return worst_rel, worst_name, vanishing, gmax
+
+
+def grad_spread(grads_k, grads_p) -> dict:
+    """Two measures of the gradients ``grads_k`` against ``grads_p`` that a
+    few ill-conditioned entries do not rule: the largest error of any entry
+    over the model's largest gradient (``abs_over_grad_max``), and the worst
+    tensor's relative L2 error, ||k - p|| / ||p|| (``rel_l2``, its name
+    ``rel_l2_worst``; a tensor that is zero up to rounding, below 1e-6 of the
+    model's largest gradient, is left to the first measure)."""
+    gmax = max(g.abs().max().item() for g in grads_p.values())
+    absmax, rel_l2, worst = 0.0, 0.0, None
+    for n, gp in grads_p.items():
+        d = (grads_k[n] - gp).double()
+        absmax = max(absmax, d.abs().max().item())
+        if gp.abs().max().item() >= 1e-6 * gmax:
+            r = (d.norm() / gp.double().norm()).item()
+            if r > rel_l2:
+                rel_l2, worst = r, n
+    return {"abs_over_grad_max": absmax / gmax, "rel_l2": rel_l2, "rel_l2_worst": worst}
 
 
 def bwd_bound(B, S, INNER, NH, gate_matrix: bool = False):
@@ -3784,37 +3817,49 @@ class SharedChoices:
     """A train step's discrete choices: each TAL assignment
     (``utils.tal.assign``; an end-to-end model assigns twice; the rotated
     ``assign_rotated`` of an OBB model), the segmentation loss's top-32 mask
-    anchors (``utils.loss.select_mask_anchors``) and each max pool's argmax
-    (``F.max_pool2d``), recorded in call order, or, given ``replay``
-    (another step's ``SharedChoices``), taken from it: the recorded outputs
-    cast to this step's dtype, each pool the gather of its input at the
-    recorded indices (the same function and gradient, on the other step's
-    routing). Two steps that share them compute one function; without, an
-    fp32 step and an fp64 one can differ by a pool argmax that a near-tie
-    flips (``tools/zoo_grad_probe.py``)."""
+    anchors (``utils.loss.select_mask_anchors``), each max pool's argmax
+    (``F.max_pool2d``), RT-DETR's query and postprocess selections
+    (``nn.rtdetr.ranked``), the grid cells of its deformable sampling
+    (``nn.rtdetr.cell``) and its Hungarian matches (``nn.rtdetr.hungarian``),
+    recorded in call order, or, given ``replay`` (another step's
+    ``SharedChoices``), taken from it: the recorded outputs cast to this
+    step's dtype, each pool the gather of its input at the recorded indices
+    (the same function and gradient, on the other step's routing). The
+    sampler's bilinear fraction is left unclipped inside the map, where the
+    recorded cell is one that rounding may put a hair off the coordinate
+    (``nn.rtdetr._corner`` clips it as JAX does, which would cut the
+    gradient there). Two steps that share them compute one function;
+    without, an fp32 step and an fp64 one can differ by a pool argmax that
+    a near-tie flips (``tools/zoo_grad_probe.py``)."""
 
     def __init__(self, replay=None):
         self.replay, self.assigned, self.pooled, self.mask_anchors = replay, [], [], []
+        self.ranked, self.cells, self.matched = [], [], []
 
-    def _recorded(self, real, log: list, replayed: list | None):
+    def _recorded(self, real, log: list, replayed: list | None, single: bool = False):
+        """``real`` recorded into ``log``, or replayed from ``replayed``;
+        ``single``: it returns one tensor, not a tuple."""
         from xlstm_yolo_torch.utils import at_least_fp32
 
         def fn(*args, **kw):
             if replayed is None:
                 out = real(*args, **kw)
+                out = (out,) if single else out
             else:
                 dev, dt = args[0].device, at_least_fp32(args[0]).dtype
                 out = tuple(t.to(dev, dt) if t.is_floating_point() else t.to(dev)
                             for t in replayed[len(log)])
             log.append(tuple(t.detach().cpu() for t in out))
-            return out
+            return out[0] if single else out
 
         return fn
 
     @contextmanager
     def active(self):
+        import torch
         import torch.nn.functional as F
 
+        import xlstm_yolo_torch.nn.rtdetr as rtdetr
         import xlstm_yolo_torch.utils.loss as loss_mod
         import xlstm_yolo_torch.utils.tal as tal
 
@@ -3834,9 +3879,23 @@ class SharedChoices:
         rotated = self._recorded(tal.assign_rotated, self.assigned, rp and rp.assigned)
         anchors = self._recorded(loss_mod.select_mask_anchors, self.mask_anchors,
                                  rp and rp.mask_anchors)
+        ranked = self._recorded(rtdetr.ranked, self.ranked, rp and rp.ranked, single=True)
+        cells = self._recorded(rtdetr.cell, self.cells, rp and rp.cells, single=True)
+        matched = self._recorded(rtdetr.hungarian, self.matched, rp and rp.matched, single=True)
+
+        def corner(f, size):
+            fl = cells(f)
+            c = rtdetr._clip(fl, 0, size - 1)
+            a = f - c
+            a = torch.where((fl < 0) | (fl > size - 1), rtdetr._clip(a, 0.0, 1.0), a)
+            return c, a[..., None]
+
         with mock.patch.object(tal, "assign", assign), \
                 mock.patch.object(tal, "assign_rotated", rotated), \
                 mock.patch.object(loss_mod, "select_mask_anchors", anchors), \
+                mock.patch.object(rtdetr, "ranked", ranked), \
+                mock.patch.object(rtdetr, "_corner", corner), \
+                mock.patch.object(rtdetr, "hungarian", matched), \
                 mock.patch.object(F, "max_pool2d", pool):
             yield self
 
@@ -3851,8 +3910,12 @@ class SharedChoices:
         pool = sum(int((a != b).sum()) for a, b in zip(self.pooled, other.pooled))
         anchors = sum(int((a[1] != b[1]).sum()) for a, b in zip(self.mask_anchors,
                                                                  other.mask_anchors))
+        differ = lambda xs, ys: sum(int((a[0] != b[0]).sum()) for a, b in zip(xs, ys))
         return {"fg_flips": fg, "gt_flips": gt, "pool_argmax_flips": pool,
-                "mask_anchor_flips": anchors, "pooled": sum(a.numel() for a in self.pooled)}
+                "mask_anchor_flips": anchors, "pooled": sum(a.numel() for a in self.pooled),
+                "ranked_flips": differ(self.ranked, other.ranked),
+                "cell_flips": differ(self.cells, other.cells),
+                "match_flips": differ(self.matched, other.matched)}
 
 
 def zoo_step(model, dev, dtype, batch, choices, host_divide: bool = False):
@@ -3871,13 +3934,16 @@ def zoo_step(model, dev, dtype, batch, choices, host_divide: bool = False):
 
     m = copy.deepcopy(model).to(dev, dtype).train()
     img = (batch["img"].float() / 255.0).to(dev, dtype) if host_divide else None
-    batch = {k: t.to(dev) for k, t in batch.items()}
+    batch = {k: tuple(x.to(dev) for x in t) if isinstance(t, tuple) else t.to(dev)
+             for k, t in batch.items()}
     if img is None:
         img = (batch["img"].float() / 255.0).to(dtype)
     with choices.active():
         total, _ = m.loss({**batch, "img": img})
         total.backward()
-    grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+    # a parameter the loss does not reach (RT-DETR's encoder heads) has no gradient
+    grads = {n: p.grad.detach().cpu() if p.grad is not None else torch.zeros(p.shape, dtype=dtype)
+             for n, p in m.named_parameters()}
     del m
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -4043,6 +4109,14 @@ TASK_OTHERS = [("yolov8n-seg", "yolov8n-seg.yaml", None, (8, 16, 32), 3_409_952)
                ("yolo12n-pose", "yolo12n-pose.yaml", None, (8, 16, 32), 2_886_699),
                ("yolov8n-obb", "yolov8n-obb.yaml", None, (8, 16, 32), 3_228_851),
                ("yolo12n-obb", "yolo12n-obb.yaml", None, (8, 16, 32), 2_673_939)]
+# the flagships' fp32 gradients on the card against the CPU's and an fp64
+# step's (``task_card_vs_cpu``): TOL_REL, but for yolo11n-obb, whose exact
+# gradient is ill-conditioned. Set from ``tools/zoo_grad_probe.py
+# yolo11n-obb --nudges 4 --tensor l23.cv4_2_2.bias`` on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W): fp64 on weights moved by 2^-24 moves the angle branch's
+# last bias 2.4e-4, 1.05e-3, 1.16e-3 and 1.73e-3 over four draws; the
+# card's fp32 step on shared choices reads 3.6e-4 from the CPU's
+TASK_GRAD_TOL = {"yolo11n-obb": 5e-3}
 # Ultralytics' coco-pose.yaml flip_idx
 COCO_POSE_FLIP = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 
@@ -4181,14 +4255,14 @@ def task_train(model, batch, amp: bool) -> tuple:
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def task_card_vs_cpu(model, imgsz: int) -> tuple:
+def task_card_vs_cpu(model, imgsz: int, grad_tol: float = TOL_REL) -> tuple:
     """The card against the CPU on ``model``'s weights at batch
     YOLO11_CPU_BATCH: the fused eval's decoded outputs (boxes, scores,
     the angle, coefficients, prototypes, keypoints) each within TOL_REL of
-    its max; one fp32 train step's loss and every gradient, both steps on
-    the discrete choices of an fp64 step on the card (``SharedChoices``:
-    TAL or rotated TAL, the mask anchors, max-pool argmax), within TOL_REL
-    of the CPU's and of the fp64 step's."""
+    its max; one fp32 train step's loss within TOL_REL and every gradient
+    within ``grad_tol``, both steps on the discrete choices of an fp64 step
+    on the card (``SharedChoices``: TAL or rotated TAL, the mask anchors,
+    max-pool argmax), of the CPU's and of the fp64 step's."""
     import copy
 
     import torch
@@ -4222,11 +4296,11 @@ def task_card_vs_cpu(model, imgsz: int) -> tuple:
     worst_rel, worst_name, vanishing, gmax = grad_errors(steps["cuda"][1], steps["cpu"][1])
     loss_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
     vs64 = {dev: grad_errors(steps[dev][1], ref_grads)[:2] for dev in steps}
-    ok = (max(errs.values()) <= TOL_REL and loss_rel <= TOL_REL and worst_rel <= TOL_REL
-          and vs64["cuda"][0] <= TOL_REL)
+    ok = (max(errs.values()) <= TOL_REL and loss_rel <= TOL_REL and worst_rel <= grad_tol
+          and vs64["cuda"][0] <= grad_tol)
     return ok, {"decoded_maxrelerr_vs_cpu": errs, "loss": steps["cuda"][0],
                 "loss_cpu": steps["cpu"][0], "loss_fp64": ref_loss, "loss_relerr_vs_cpu": loss_rel,
-                "grad_maxrelerr_vs_cpu": worst_rel, "grad_worst": worst_name,
+                "grad_maxrelerr_vs_cpu": worst_rel, "grad_tol": grad_tol, "grad_worst": worst_name,
                 "grads_vanishing": vanishing, "grad_max": gmax,
                 "grad_maxrelerr_vs_fp64": {d: v[0] for d, v in vs64.items()},
                 "card_fp32_own_choices_vs_fp64": own.flips(ref)}
@@ -4346,7 +4420,7 @@ def phase_tasks_path(smi_line):
         inf_ok, inf = task_inference(model, frames, imgsz)
         fp32_ok, fp32 = task_train(model, batch, amp=False)
         amp_ok, amp = task_train(model, batch, amp=True)
-        cpu_ok, vs_cpu = task_card_vs_cpu(model, imgsz)
+        cpu_ok, vs_cpu = task_card_vs_cpu(model, imgsz, TASK_GRAD_TOL.get(label, TOL_REL))
         ok = built_ok and inf_ok and fp32_ok and amp_ok and cpu_ok
         emit({"phase": f"tasks_path.{label}", "yaml": cfg, "task": model.task, "nc": model.nc,
               "kpt_shape": model.kpt_shape if model.task == "pose" else None,
@@ -4878,6 +4952,298 @@ def phase_classify_path(smi_line):
     return counts, ms_by_case
 
 
+# rtdetr_path: RT-DETR at COCO's configuration, as the rt-detr YAMLs set it
+# and Ultralytics trains and serves it (80 classes, 640 px), at batch 8:
+# (label, YAML, scale, the JAX TaskModel's parameters at 80 classes;
+# tests/test_torch_rtdetr.py holds the port to the same counts), rtdetr-l
+# first
+RTDETR_MODELS = [("rtdetr-l", "rtdetr-l.yaml", None, 32_970_476),
+                 ("rtdetr-x", "rtdetr-x.yaml", None, 67_467_852),
+                 ("rtdetr-resnet50", "rtdetr-resnet50.yaml", None, 42_925_132),
+                 ("rtdetr-resnet101", "rtdetr-resnet101.yaml", None, 61_917_260),
+                 ("yolov8n-rtdetr", "yolov8-rtdetr.yaml", "n", 9_643_868)]
+RTDETR_CPU_IMGSZ = 320  # the card against the CPU: a size the CPU steps rtdetr-l at in seconds
+# rtdetr-l's fp32 gradients against the CPU's and the fp64 step's, on shared
+# choices (sampling cells, selections, matches, pool argmax): the largest
+# error of any entry over the model's largest gradient (``grad_spread``).
+# On seeded weights the train-mode network amplifies a relative perturbation
+# about 1e6-fold from the stem to the last decoder layer, so each tensor of
+# its own max is no measure: one-ulp weight moves change a box head's fp64
+# gradient by a third. From ``tools/zoo_grad_probe.py rtdetr-l --nudges 4``
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W): fp32 steps on weights moved
+# below fp32's resolution stand 0.051-0.064 from the unmoved fp32 step
+# (fp64 ones 0.020-0.025), the card's fp32 step 0.054-0.072 from the
+# CPU's; TF32 convolutions and products would stand far beyond. The same
+# function on both devices is held in fp64 instead: the CPU's fp64 step on
+# the card's fp64 choices within RTDETR_FP64_TOL of the card's, each tensor
+# of its own max
+RTDETR_GRAD_TOL = 0.1
+RTDETR_FP64_TOL = 1e-6
+# an AMP step's loss against the fp32 step's on the same weights and batch:
+# the bound tests/test_torch_detect_zoo.py holds the zoo's AMP steps to
+AMP_LOSS_TOL = 5e-2
+
+
+def device_busy_ms(fn, calls: int = 2) -> float:
+    """The device's busy ms a call of ``fn`` (the sum of its kernels' device
+    times under ``torch.profiler``), after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+
+
+def rtdetr_inference(model, frames, dtype: str = "float32", iters: int = ZOO_INFER_TIMED):
+    """``Predictor`` inference of a fused copy of ``model`` in ``dtype`` on
+    uint8 ``frames`` (on the card): letterbox, the forward with its NMS-free
+    decode (``predictions_full``), the conf filter; stage ms (CUDA events,
+    the mean of ``iters`` after one warm-up), img/s, the device's busy ms a
+    forward (profiler), peak GiB; the dets finite, (B, 300, 6), some above
+    conf."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    fused = fuse_conv_bn(copy.deepcopy(model).eval())
+    pred = Predictor(fused, imgsz=IMGSZ, dtype=dtype, verbose=False)
+    torch.cuda.reset_peak_memory_stats()
+    times = {"letterbox": 0.0, "forward_decode": 0.0, "conf_filter": 0.0}
+    with torch.inference_mode():
+        for it in range(1 + iters):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x, _ = pred.preprocess(frames)
+            ev[1].record()
+            full = pred.decode(x)
+            ev[2].record()
+            dets, valid = pred.postprocess(full)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if it:
+                for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                    times[k] += a.elapsed_time(b) / iters
+        busy = device_busy_ms(lambda: pred.decode(x))
+    total_ms = sum(times.values())
+    shapes_ok = tuple(dets.shape) == (len(frames), 300, 6)
+    finite = bool(torch.isfinite(dets).all())
+    n_valid = int(valid.sum())
+    return shapes_ok and finite and n_valid > 0, {
+        "dtype": dtype, "shapes_ok": shapes_ok, "finite": finite, "valid_dets": n_valid,
+        "ms": times, "total_ms": total_ms, "img_per_s": len(frames) / total_ms * 1e3,
+        "forward_device_busy_ms": busy, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def rtdetr_batch(model, device, batch: int, imgsz: int) -> dict:
+    """``train_batch``'s images and labels at ``imgsz`` (the boxes scaled),
+    with denoising queries drawn once (3 groups, seeded) for every step that
+    takes the batch."""
+    import torch
+
+    from xlstm_yolo_torch.nn import rtdetr as R
+
+    b = train_batch("cpu", batch=batch)
+    f = imgsz / IMGSZ
+    cb = b["cls_boxes"].clone()
+    cb[..., 1:] *= f
+    img = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8))
+    gt_cls, gt_box = R._gt_targets({"cls_boxes": cb}, float(imgsz), torch.float32)
+    dn = R.get_cdn_group(gt_cls, gt_box, b["mask"].float(), model.nc,
+                         torch.Generator().manual_seed(0))[:2]
+    return {"img": img.to(device), "cls_boxes": cb.to(device), "mask": b["mask"].to(device),
+            "dn_queries": tuple(t.to(device) for t in dn)}
+
+
+def rtdetr_card_vs_cpu(model, imgsz: int = RTDETR_CPU_IMGSZ) -> tuple:
+    """The card against the CPU on ``model``'s weights at batch
+    YOLO11_CPU_BATCH and ``imgsz``: the fused eval's dets (boxes and
+    scores within TOL_REL of their max, classes equal) with the card on the
+    CPU's selections; one fp32 train step's loss within TOL_REL and its
+    gradients within RTDETR_GRAD_TOL of the CPU's and of the fp64 step's
+    (``grad_spread``'s largest error over the model's largest gradient;
+    each tensor's error over its own max printed beside); the CPU's fp64
+    step within RTDETR_FP64_TOL of the card's (loss and every gradient, each
+    tensor of its own max); all steps on the discrete choices of an fp64
+    step on the card (``SharedChoices``: the query selection, the
+    deformable sampling's grid cells, the Hungarian matches, HGStem's
+    max-pool argmax) and on one draw of the denoising queries. Beside: the
+    choices that the card's fp32 step and eval, left to make their own,
+    make otherwise."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    shape = (YOLO11_CPU_BATCH, imgsz, imgsz, 3)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, shape).astype(np.float32))
+    fused = fuse_conv_bn(copy.deepcopy(model).eval())
+    rec = SharedChoices()
+    with torch.no_grad():
+        with rec.active():
+            want = copy.deepcopy(fused).cpu().predictions_full(x)["dets"]
+        with SharedChoices(replay=rec).active():
+            got = copy.deepcopy(fused).cuda().predictions_full(x.cuda())["dets"].cpu()
+        own = SharedChoices()
+        with own.active():
+            copy.deepcopy(fused).cuda().predictions_full(x.cuda())
+    rel = lambda g, w: ((g - w).abs().max() / w.abs().max()).item()
+    errs = {"boxes": rel(got[..., :4], want[..., :4]), "scores": rel(got[..., 4], want[..., 4]),
+            "class_mismatches": int((got[..., 5] != want[..., 5]).sum())}
+    batch = rtdetr_batch(model, "cpu", YOLO11_CPU_BATCH, imgsz)
+    # every step on images divided on the host (the card's x / 255 rounds
+    # some pixels an ulp apart, which this network amplifies)
+    ref = SharedChoices()
+    ref_loss, ref_grads = zoo_step(model, "cuda", torch.float64, batch, ref, host_divide=True)
+    own_step = SharedChoices()
+    zoo_step(model, "cuda", torch.float32, batch, own_step, host_divide=True)
+    steps = {dev: zoo_step(model, dev, torch.float32, batch, SharedChoices(replay=ref),
+                           host_divide=True) for dev in ("cuda", "cpu")}
+    worst_rel, worst_name, vanishing, gmax = grad_errors(steps["cuda"][1], steps["cpu"][1])
+    spread = grad_spread(steps["cuda"][1], steps["cpu"][1])
+    loss_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    vs64 = {dev: grad_errors(steps[dev][1], ref_grads)[:2] for dev in steps}
+    spread64 = {dev: grad_spread(steps[dev][1], ref_grads) for dev in steps}
+    cpu64_loss, cpu64_grads = zoo_step(model, "cpu", torch.float64, batch,
+                                       SharedChoices(replay=ref), host_divide=True)
+    fp64_rel, fp64_worst, _, _ = grad_errors(cpu64_grads, ref_grads)
+    ok = (errs["boxes"] <= TOL_REL and errs["scores"] <= TOL_REL
+          and errs["class_mismatches"] == 0 and loss_rel <= TOL_REL
+          and spread["abs_over_grad_max"] <= RTDETR_GRAD_TOL
+          and spread64["cuda"]["abs_over_grad_max"] <= RTDETR_GRAD_TOL
+          and fp64_rel <= RTDETR_FP64_TOL
+          and abs(cpu64_loss - ref_loss) <= RTDETR_FP64_TOL * abs(ref_loss))
+    return ok, {"cpu_imgsz": imgsz, "dets_maxrelerr_vs_cpu": errs,
+                "eval_card_own_choices_vs_cpu": own.flips(rec),
+                "loss": steps["cuda"][0], "loss_cpu": steps["cpu"][0], "loss_fp64": ref_loss,
+                "loss_relerr_vs_cpu": loss_rel, "grad_spread_vs_cpu": spread,
+                "grad_spread_vs_fp64": spread64, "grad_tol": RTDETR_GRAD_TOL,
+                "grad_maxrelerr_vs_cpu": worst_rel,
+                "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+                "grad_maxrelerr_vs_fp64": {d: v[0] for d, v in vs64.items()},
+                "grad_worst_vs_fp64": {d: v[1] for d, v in vs64.items()},
+                "fp64_cpu_vs_card": {"loss_relerr": abs(cpu64_loss - ref_loss) / abs(ref_loss),
+                                     "grad_maxrelerr": fp64_rel, "grad_worst": fp64_worst,
+                                     "tol": RTDETR_FP64_TOL},
+                "card_fp32_own_choices_vs_fp64": own_step.flips(ref)}
+
+
+def rtdetr_facade(smi_line) -> tuple:
+    """``YOLO("rtdetr-l.yaml")`` on the card through the user's entry points,
+    on PNGs the phase writes (640 x 480, 8 train and 4 val images): ``val``
+    refused (the JAX package cannot validate RT-DETR), one epoch at the
+    defaults with ``val=False`` (bf16 AMP, denoising), ``predict``, then
+    saved and reloaded: the same predictions."""
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_dataset(f"{tmp}/ds", n_train=8, n_val=4, width=FIT_WH[0],
+                                      height=FIT_WH[1], seed=0)
+        val_dir = str(Path(data).parent / "images" / "val")
+        m = YOLO("rtdetr-l.yaml")
+        try:
+            m.val(data=data, imgsz=IMGSZ)
+            refused = False
+        except ValueError:
+            refused = True
+        t0 = time.perf_counter()
+        m.train(data=data, epochs=1, imgsz=IMGSZ, batch=BATCH, val=False, plots=False,
+                project=f"{tmp}/runs", name="rtdetr")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        results = m.predict(val_dir, imgsz=IMGSZ, conf=0.25, verbose=False)
+        m.save(f"{tmp}/w.pt")
+        again = YOLO(f"{tmp}/w.pt").predict(val_dir, imgsz=IMGSZ, conf=0.25, verbose=False)
+    same = len(again) == len(results) and all(
+        a.boxes.data.shape == b.boxes.data.shape
+        and np.allclose(a.boxes.data, b.boxes.data, rtol=1e-5, atol=1e-4)
+        for a, b in zip(again, results))
+    n_boxes = sum(len(r) for r in results)
+    ok = (refused and m.model.task == "rtdetr" and np.isfinite(m.metrics["train_loss"])
+          and len(results) == 4 and n_boxes > 0 and same)
+    return ok, {"val_refused": refused, "train_s": train_s, "train_loss": m.metrics["train_loss"],
+                "nc": m.model.nc, "images": len(results), "boxes": n_boxes,
+                "reloaded_predictions_equal": same, "nvidia_smi": smi_line}
+
+
+def phase_rtdetr_path(smi_line):
+    """rtdetr-l at COCO's configuration (the JAX parameter count and
+    strides; fp32 and bf16 ``rtdetr_inference``; fp32 and AMP train steps
+    at batch 8 with denoising, the AMP loss within AMP_LOSS_TOL of the fp32
+    one; ``rtdetr_card_vs_cpu``), the other four YAMLs (built, one
+    inference and timed fp32 steps at batch 8, 640 px), ``rtdetr_facade``.
+    No hand kernel runs: the counts, set to 0 just before, stay 0."""
+    import torch
+
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    t_phase = time.perf_counter()
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
+    batch = train_batch("cuda")
+    zero_all_kernel_counts()
+    failed, img_s = [], {}
+    for i, (label, cfg, scale, params) in enumerate(RTDETR_MODELS):
+        t0 = time.perf_counter()
+        model = TaskModel(cfg, scale=scale, device="cuda", seed=0)
+        built_ok = (model.task == "rtdetr" and model.num_params() == params
+                    and model.strides == (8, 16, 32))
+        gflop = forward_gflop(model)
+        inf_ok, inf = rtdetr_inference(model, frames, iters=ZOO_INFER_TIMED if i == 0 else 1)
+        inf["forward_tflop_per_s"] = BATCH * gflop / inf["ms"]["forward_decode"]
+        entry = {"phase": f"rtdetr_path.{label}", "yaml": cfg, "scale": model.scale,
+                 "nc": model.nc, "params": model.num_params(), "params_jax": params,
+                 "strides": model.strides, "batch": BATCH, "imgsz": IMGSZ,
+                 "forward_gflop_per_image": gflop, "inference": inf}
+        if i == 0:
+            bf_ok, bf16 = rtdetr_inference(model, frames, "bfloat16")
+            fp32_ok, fp32 = task_train(model, batch, amp=False)
+            amp_ok, amp = task_train(model, batch, amp=True)
+            amp_rel = abs(amp["losses"][0] - fp32["losses"][0]) / abs(fp32["losses"][0])
+            cpu_ok, vs_cpu = rtdetr_card_vs_cpu(model)
+            ok = (built_ok and inf_ok and bf_ok and fp32_ok and amp_ok
+                  and amp_rel <= AMP_LOSS_TOL and cpu_ok)
+            entry.update({"inference_bf16": bf16, "train_fp32": fp32, "train_amp": amp,
+                          "amp_loss_relerr_vs_fp32": amp_rel, "amp_loss_tol": AMP_LOSS_TOL,
+                          **vs_cpu})
+            img_s[label] = (inf["img_per_s"], bf16["img_per_s"], fp32["img_per_s"],
+                            amp["img_per_s"])
+        else:
+            train_ok, train = task_train(model, batch, amp=False)
+            ok = built_ok and inf_ok and train_ok
+            entry["train_fp32"] = train
+            img_s[label] = (inf["img_per_s"], train["img_per_s"])
+        emit({**entry, "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            failed.append(label)
+        del model
+        torch.cuda.empty_cache()
+    facade_ok, facade = rtdetr_facade(smi_line)
+    counts = all_kernel_counts()
+    ok = not failed and facade_ok and not any(counts.values())
+    emit({"phase": "rtdetr_path", "models": len(RTDETR_MODELS), "failed": failed,
+          "img_per_s": img_s, "facade": facade, "launches": counts,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"rtdetr_path check failed: {failed or 'facade or launches'}")
+    return {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -4928,6 +5294,8 @@ def main() -> int:
         tasks_launches = phase_tasks_path(smi_line)
         phase = "classify_path"
         classify_launches, classify_ms = phase_classify_path(smi_line)
+        phase = "rtdetr_path"
+        rtdetr_launches = phase_rtdetr_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -4953,7 +5321,8 @@ def main() -> int:
                "yolo11_path": yolo11_launches,
                "detect_zoo_path": zoo_launches,
                "tasks_path": tasks_launches,
-               "classify_path": classify_launches}
+               "classify_path": classify_launches,
+               "rtdetr_path": rtdetr_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

@@ -2073,3 +2073,121 @@ def test_vil_classifier_step_on_card_matches_cpu(cuda_device):
         err = (grads_k[n] - gp).abs().max().item()
         assert err <= TOL_REL * (scale if scale >= 1e-6 * gmax else gmax), n
     assert _rel(steps["cuda"][2], steps["cpu"][2]) <= TOL_REL
+
+
+# RT-DETR at rtdetr-l's widths, 640 px: three levels of 256 channels at
+# strides 8, 16, 32; 8 heads of 32, 3 levels x 4 points, 300 queries
+RTDETR_SHAPES = [(80, 80), (40, 40), (20, 20)]
+
+
+def test_rtdetr_deform_sample_on_card_matches_cpu(cuda_device):
+    """``deform_sample`` (the JAX gather written in torch) at rtdetr-l's
+    shapes, locations inside and outside [0, 1]: the output and the
+    gradients with respect to the value, the locations and the weights on
+    the card within 1e-4 of the CPU's, each tensor of its own max."""
+    from xlstm_yolo_torch.nn.rtdetr import deform_sample
+
+    rng = np.random.default_rng(3)
+    n = sum(h * w for h, w in RTDETR_SHAPES)
+    cpu = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(2, n, 8, 32)), rng.uniform(-0.2, 1.2, (2, 300, 8, 3, 4, 2)),
+        rng.uniform(0, 1, (2, 300, 8, 12)))]
+    cot = torch.from_numpy(rng.normal(size=(2, 300, 256)).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", "cuda"):
+        args = [a.detach().to(dev).requires_grad_() for a in cpu]
+        out = deform_sample(args[0], RTDETR_SHAPES, args[1], args[2])
+        (out * cot.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append([a.grad.cpu() for a in args])
+    assert _rel(outs[1], outs[0]) <= 1e-4
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) <= 1e-4
+
+
+def test_rtdetr_selection_on_card_matches_cpu(cuda_device):
+    """``ranked`` (a stable descending sort) picks the same indices in the
+    same order on the card as on the CPU, ties included: 8400 anchor
+    scores of which a tenth share one value, and 300 x 80 postprocess
+    scores on a coarse grid."""
+    from xlstm_yolo_torch.nn.rtdetr import ranked
+
+    rng = np.random.default_rng(4)
+    scores = rng.normal(size=(8, 8400)).astype(np.float32)
+    scores[:, rng.choice(8400, 840, replace=False)] = 1.5
+    coarse = rng.integers(0, 50, (8, 24000)).astype(np.float32) / 50
+    for x, k in ((scores, 300), (coarse, 300)):
+        t = torch.from_numpy(x)
+        assert torch.equal(ranked(t.cuda(), k).cpu(), ranked(t, k))
+
+
+def test_rtdetr_decoder_on_card_matches_cpu(cuda_device, monkeypatch):
+    """An ``RTDETRDecoder`` at rtdetr-l's widths (80 classes, hd 256, 6
+    layers) on seeded 640-px maps at batch 2, in eval (BatchNorm folded) and
+    in train mode with 3 denoising groups of 8 ground-truth slots, the card
+    taking the CPU's discrete choices (the query selection and the
+    sampler's grid cells; how many the card, left to its own, takes
+    otherwise is printed). In fp64 every output within 1e-9 of the CPU's;
+    in fp32 the encoder's outputs and the first layer's boxes within 1e-4
+    (each of its own max). The six layers amplify a difference about
+    fivefold each on these weights: the last layer's fp32 boxes stand 1e-2
+    from fp64 on either device, so fp32 is held where that leaves room."""
+    import xlstm_yolo_torch.nn.rtdetr as R
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+    from xlstm_yolo_torch.nn.modules import init_tree
+
+    base = R.RTDETRDecoder(nc=80, ch=(256, 256, 256))
+    init_tree(base, 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in base.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    rng = np.random.default_rng(5)
+    feats = [torch.from_numpy(rng.normal(size=(2, 256, h, w)).astype(np.float32))
+             for h, w in RTDETR_SHAPES]
+    gt = torch.from_numpy(rng.uniform(0.2, 0.8, (2, 8, 4)).astype(np.float32))
+    gt[..., 2:] *= 0.3
+    dn = R.get_cdn_group(torch.from_numpy(rng.integers(0, 80, (2, 8))), gt, torch.ones(2, 8), 80,
+                         torch.Generator().manual_seed(2))[:2]
+    real = {"ranked": R.ranked, "cell": R.cell}
+
+    def recording(name, log):
+        return lambda *a: log.append(real[name](*a)) or log[-1]
+
+    def replaying(log):
+        it = iter(log)
+        return lambda *a: (lambda t: t.to(a[0].device, a[0].dtype) if t.is_floating_point()
+                           else t.to(a[0].device))(next(it))
+
+    for train in (False, True):
+        model = copy.deepcopy(base).train() if train else fuse_conv_bn(copy.deepcopy(base).eval())
+        for dt in (torch.float64, torch.float32):
+            kw = {"dn": (*dn, 3)} if train else {}
+            logs, own = {n: [] for n in real}, {n: [] for n in real}
+            for name in real:
+                monkeypatch.setattr(R, name, recording(name, logs[name]))
+            with torch.no_grad():
+                want = copy.deepcopy(model).to(dt)([f.to(dt) for f in feats], **kw)
+            card = copy.deepcopy(model).cuda().to(dt)
+            card_in = [f.cuda().to(dt) for f in feats]
+            card_kw = {"dn": (dn[0].cuda(), dn[1].cuda(), 3)} if train else {}
+            for name in real:
+                monkeypatch.setattr(R, name, recording(name, own[name]))
+            with torch.no_grad():
+                card(card_in, **card_kw)
+            differ = {name: sum(int((a.cpu() != b).sum()) for a, b in zip(own[name], logs[name]))
+                      for name in real}
+            print(f"{'train' if train else 'eval'} {dt}: the card's own choices differ in "
+                  f"{differ}")
+            for name in real:
+                monkeypatch.setattr(R, name, replaying(logs[name]))
+            with torch.no_grad():
+                got = card(card_in, **card_kw)
+            if dt == torch.float64:
+                for k, w in want.items():
+                    if w is not None:
+                        assert _rel(got[k].cpu(), w) <= 1e-9, k
+            else:
+                for k in ("enc_boxes", "enc_scores"):
+                    assert _rel(got[k].cpu(), want[k]) <= 1e-4, k
+                assert _rel(got["aux_boxes"][0].cpu(), want["aux_boxes"][0]) <= 1e-4

@@ -2,7 +2,7 @@
 ``.predict``.
 
 Port of ``Model`` in ``xlstm_yolo_tpu/engine/model.py`` for the detect,
-segment, pose, obb and classify tasks (the head of the YAML sets it):
+segment, pose, obb, classify and rtdetr tasks (the head of the YAML sets it):
 built from a model YAML (weights from a seed) or from a checkpoint ``.pt``
 of the port (``utils.checkpoint``: its EMA weights), on ``device`` (the
 card unless the caller asks for ``"cpu"``). ``train`` runs
@@ -14,8 +14,11 @@ generator of them). ``fuse`` folds the BatchNorms into the convolutions,
 ``info`` describes the model, ``load`` reads a checkpoint of the port into
 it, ``reset_weights`` starts it again from its seed, ``embed`` gives an
 image's pooled head maps (a classify model has none: it raises, as the
-JAX ``embed`` fails on its (B, nc) logits). Not ported: ``track``, ``export``,
-``benchmark``, ``tune`` and reference torch ``.pt`` weights.
+JAX ``embed`` fails on its (B, nc) logits; an RT-DETR model has no maps
+either, and it cannot be validated: ``val``, and ``train`` with its
+default ``val=True``, raise, as the JAX package cannot validate one). Not
+ported: ``track``, ``export``, ``benchmark``, ``tune`` and reference torch
+``.pt`` weights.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ class Model:
             raise ValueError(f"unsupported model source {model!r} (a model .yaml or a checkpoint "
                              f".pt of this package)")
         self.task = task or self.model.task
-        if self.task not in TASKS:
+        # RT-DETR is not among the JAX cfg's TASKS either; the model's own task passes
+        if self.task not in TASKS and not self.task == self.model.task == "rtdetr":
             raise ValueError(f"task {self.task!r}: the port has the {', '.join(TASKS)} tasks")
         if self.task != self.model.task:
             raise ValueError(f"task {self.task!r} does not match the model's {self.model.task!r}")
@@ -94,8 +98,10 @@ class Model:
     def val(self, data: str | None = None, **kwargs) -> dict:
         """mAP over ``data``'s val split; ``kwargs`` go to ``Validator``
         (imgsz, batch, conf, iou, half, ...)."""
-        from .validator import Validator
+        from .validator import RTDETR_NO_VAL, Validator
 
+        if self.task == "rtdetr":
+            raise ValueError(RTDETR_NO_VAL)
         self.metrics = Validator(self.model, callbacks=self.callbacks, **kwargs)(data=data)
         return self.metrics
 
@@ -166,9 +172,9 @@ class Model:
         from ..nn.heads import det_maps
         from .predictor import load_source
 
-        if self.task == "classify":
-            raise ValueError("embed pools a detection head's maps; a classify model's output is "
-                             "(B, nc) logits, which the JAX Model.embed cannot pool either")
+        if self.task in ("classify", "rtdetr"):
+            raise ValueError(f"embed pools a detection head's maps; a {self.task} model has none "
+                             f"(the JAX Model.embed cannot pool its output either)")
         model = self.model.eval()
         outs = []
         for _, orig in load_source(source):

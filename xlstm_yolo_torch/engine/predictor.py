@@ -32,7 +32,11 @@ The batch entry returns the task's decoded dict in place of ``cands``
 (``predictions_full``), dets of OBB's 7 columns. A classify model, as in
 JAX, letterboxes (it does not centre-crop) and takes the forward's
 softmax: no decode and no NMS; its ``Results`` carry ``probs`` and no
-boxes, and the batch entry returns (None, None, {"probs"}, meta).
+boxes, and the batch entry returns (None, None, {"probs"}, meta). An
+RT-DETR model takes no NMS either: its dets are ``predictions_full``'s
+top 300 (query, class) pairs, kept where the score passes ``conf``
+(``max_det``, ``iou`` and ``agnostic_nms`` are not read, as in JAX); the
+batch entry's valid is that test.
 
 fp32 by default, as the JAX ``Predictor`` (the reference's ``half: False``).
 ``dtype="bfloat16"`` (or ``half=True``) serves in bf16 as the JAX bench
@@ -114,11 +118,15 @@ class Predictor:
                              f"{tuple(frames.shape)}")
         return letterbox_device(frames.to(self.device), imgsz=self.imgsz, dtype=self.dtype)
 
-    def postprocess(self, cands: torch.Tensor):
+    def postprocess(self, cands):
         """(B, N, 4 + nc) candidates -> (dets (B, max_det, 6), valid); an
         OBB model's (B, N, 5 + nc) -> ``nms_rotated``'s (dets (B, max_det,
-        7), valid)."""
-        if getattr(self.model, "task", "detect") == "obb":
+        7), valid); an RT-DETR model's {"dets"} -> (dets, score > conf)."""
+        task = getattr(self.model, "task", "detect")
+        if task == "rtdetr":
+            dets = cands["dets"].float()
+            return dets, dets[..., 4] > self.conf
+        if task == "obb":
             return nms_rotated(cands, conf_thres=self.conf, iou_thres=self.iou,
                                max_det=self.max_det)
         return non_max_suppression(cands, conf_thres=self.conf, iou_thres=self.iou,
@@ -144,8 +152,7 @@ class Predictor:
                 out = self.decode(x)
                 if getattr(self.model, "task", "detect") == "classify":
                     return None, None, out, meta
-                dets, valid = self.postprocess(out if isinstance(out, torch.Tensor)
-                                               else out["cands"].float())
+                dets, valid = self.postprocess(self._candidates(out))
             return dets, valid, out, meta
         gen = self._results(source)
         return gen if stream else list(gen)
@@ -165,7 +172,7 @@ class Predictor:
                 full = ({"cands": out} if isinstance(out, torch.Tensor)
                         else {k: v.float() for k, v in out.items()})
                 if task != "classify":
-                    dets, valid = self.postprocess(full["cands"].float())
+                    dets, valid = self.postprocess(self._candidates(full))
                     d = dets[0][valid[0]]
                 if self.classes is not None and task not in ("obb", "classify"):
                     keep = torch.isin(d[:, 5].long(), torch.tensor(self.classes, device=d.device))
@@ -207,6 +214,12 @@ class Predictor:
             self.callbacks.run("on_predict_batch_end", self)
             yield res
         self.callbacks.run("on_predict_end", self)
+
+    def _candidates(self, out):
+        """What ``postprocess`` takes from ``decode``'s output."""
+        if isinstance(out, torch.Tensor):
+            return out
+        return out if getattr(self.model, "task", "detect") == "rtdetr" else out["cands"].float()
 
     @staticmethod
     def _match_candidates(d: np.ndarray, cands: np.ndarray) -> np.ndarray:

@@ -47,7 +47,12 @@ loader with the run's keys as its hyp (``auto_augment``, ``erasing``,
 ``scale``, the flips and HSV gains; ``dropout`` is read by neither
 trainer), float32 batches of ``img`` and ``label``, the augmentation on
 the host whatever ``device_augment`` says, the ``Classify`` linear rebuilt
-to the dataset's classes; per-epoch validation takes the set's root.
+to the dataset's classes; per-epoch validation takes the set's root. An
+RT-DETR run (task ``rtdetr``), as the JAX trainer's: the dataset assembles
+its samples as the point tasks' with no points (the mosaic halved, no
+perspective; ``cls_boxes`` as detect's), the augmentation on the host
+whatever ``device_augment`` says, the loss with its denoising groups; it
+cannot be validated, so ``val=True`` raises before the first step.
 """
 from __future__ import annotations
 
@@ -377,6 +382,10 @@ class Trainer:
         self.run_callbacks("on_pretrain_routine_start")
         imgsz, batch, epochs = int(args.imgsz), int(args.batch), int(args.epochs)
         task = self.model.task
+        if task == "rtdetr" and args.val:
+            from .validator import RTDETR_NO_VAL
+
+            raise ValueError(RTDETR_NO_VAL)
         dev_aug = bool(args.device_augment)
         if dev_aug and task not in ("detect", "segment", "pose"):
             # the device path warps boxes, slot masks and keypoints, not OBB

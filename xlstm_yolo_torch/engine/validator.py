@@ -31,7 +31,9 @@ of a folder-per-class set (``data`` its root, or the trainer's dict with
 its ``path``), centre-cropped (``classify_eval_transform``), the softmax
 on the device; ``accuracy_top1`` (also the fitness) and ``accuracy_top5``
 on the host, and with ``plots`` the (nc, nc) confusion matrix of the top-1
-classes.
+classes. An RT-DETR model has no validation: the JAX ``Validator``
+reads the Detect head's maps, which its decoder does not give, so the
+JAX package cannot validate one; the port raises a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,11 @@ from ..utils import plotting as PLT
 from ..utils.callbacks import default_callbacks
 
 
+RTDETR_NO_VAL = ("an RT-DETR model cannot be validated: the JAX package's Validator reads the "
+                 "Detect head's maps, which RT-DETR's decoder does not give; train with "
+                 "val=False and predict")
+
+
 class Validator:
     """``Validator(model, data=...)()`` -> {precision, recall, mAP50,
     mAP50-95, fitness, images, img_s} (and ``save_json_path``); runs on the
@@ -65,6 +72,8 @@ class Validator:
                  half: bool = False, save_json: bool = False, save_dir: str | Path | None = None,
                  exact_nms: bool = False, pre_topk: int = 1024, plots: bool = False,
                  rect: bool = False):
+        if getattr(model, "task", "detect") == "rtdetr":
+            raise ValueError(RTDETR_NO_VAL)
         self.callbacks = callbacks if callbacks is not None else default_callbacks()
         self.model = model
         self.half = half

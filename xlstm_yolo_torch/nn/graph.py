@@ -1,16 +1,21 @@
 """YAML model graph -> torch module.
 
 Port of ``parse_model``, ``Repeat`` and ``GraphModel`` in
-``xlstm_yolo_tpu/nn/graph.py`` for the detect, segment, pose, obb and
-classify tasks: every layer name of the YAMLs the port ships (YOLOv3, v5,
-v6, v8 and its ghost / P2 / P6 variants, v9, v10, YOLO11, YOLO12, ViL-YOLO,
-the ``-seg``, ``-pose`` and ``-obb`` files of v8, v9, 11 and 12, and the
-six ``-cls`` files with their ``ResNetLayer`` and ``TorchVision``
-backbones) and the ViL blocks of ``nn/vil_blocks.py`` (registered under
-their JAX names). The head row sets the task: ``Segment`` (its third
-argument, the prototype channels, width-scaled), ``Pose`` (``kpt_shape``
-from the YAML's top level, as a tuple), ``OBB`` and ``Classify`` (its one
-argument, the class count, or the YAML's ``nc``). The names of the other JAX heads and
+``xlstm_yolo_tpu/nn/graph.py`` for the detect, segment, pose, obb,
+classify and rtdetr tasks: every layer name of the YAMLs the port ships
+(YOLOv3, v5, v6, v8 and its ghost / P2 / P6 variants, v9, v10, YOLO11,
+YOLO12, ViL-YOLO, the ``-seg``, ``-pose`` and ``-obb`` files of v8, v9, 11
+and 12, the six ``-cls`` files with their ``ResNetLayer`` and
+``TorchVision`` backbones, and the five RT-DETR files with ``HGStem``,
+``HGBlock`` (arguments raw, the row's repeat count its chain length),
+``AIFI``, ``RepC3`` and ``LightConv``) and the ViL blocks of
+``nn/vil_blocks.py`` (registered under their JAX names). The head row sets
+the task: ``Segment`` (its third argument, the prototype channels,
+width-scaled), ``Pose`` (``kpt_shape`` from the YAML's top level, as a
+tuple), ``OBB``, ``Classify`` (its one argument, the class count, or the
+YAML's ``nc``) and ``RTDETRDecoder``. ``GraphModel.forward`` hands the
+head row its keyword arguments (``head_kwargs``: RT-DETR's denoising
+queries). The names of the other JAX heads and
 families (``NOT_PORTED``) raise a ``KeyError`` that says what they wait
 on. As in JAX, a graph with a ``C3k2`` or ``A2C2f`` row (YOLO11, 12)
 builds its head with ``legacy=False``. The YAML
@@ -35,6 +40,7 @@ import torch.nn as nn
 
 from . import heads as H
 from . import modules as M
+from . import rtdetr as R
 from .vil_blocks import BLOCKS
 
 # name -> (module class, kind); kind decides channel/argument resolution:
@@ -60,6 +66,7 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "AConv": (M.AConv, "conv"),
     "RepConv": (M.RepConv, "conv"),
     "RepVGGDW": (M.RepVGGDW, "conv"),
+    "LightConv": (M.LightConv, "conv"),
     "PSA": (M.PSA, "conv"),
     "C2": (M.C2, "csp"),
     "C2f": (M.C2f, "csp"),
@@ -69,6 +76,7 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "C2PSA": (M.C2PSA, "csp"),
     "C2fCIB": (M.C2fCIB, "csp"),
     "A2C2f": (M.A2C2f, "csp"),
+    "RepC3": (M.RepC3, "csp"),
     "RepNCSPELAN4": (M.RepNCSPELAN4, "elan"),
     "SPPELAN": (M.SPPELAN, "custom"),
     "ELAN1": (M.ELAN1, "custom"),
@@ -88,6 +96,10 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "Pose": (H.Pose, "head"),
     "OBB": (H.OBB, "head"),
     "Classify": (M.Classify, "head"),
+    "RTDETRDecoder": (R.RTDETRDecoder, "head"),
+    "HGStem": (R.HGStem, "custom"),
+    "HGBlock": (R.HGBlock, "custom"),
+    "AIFI": (R.AIFI, "custom"),
     "ResNetLayer": (M.ResNetLayer, "custom"),
     "TorchVision": (M.TorchVision, "custom"),
     **{name: (cls, "custom") for name, cls in BLOCKS.items()},
@@ -97,8 +109,6 @@ REGISTRY: dict[str, tuple[Any, str]] = {
 # names of the JAX graph the port refuses, with what they wait on
 NOT_PORTED = {
     "MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py",
-    **{name: "the RT-DETR family (nn/rtdetr.py) is not ported yet"
-       for name in ("HGStem", "HGBlock", "AIFI", "RTDETRDecoder", "RepC3", "LightConv")},
     **{name: "the YOLO-World family (nn/world.py) is not ported yet"
        for name in ("C2fAttn", "WorldDetect", "ImagePoolingAttn")},
     **{name: "no detection YAML uses it; it is not ported yet"
@@ -109,7 +119,7 @@ NOT_PORTED = {
 
 # the task each head row sets
 TASKS = {"Detect": "detect", "v10Detect": "detect", "Segment": "segment", "Pose": "pose",
-         "OBB": "obb", "Classify": "classify"}
+         "OBB": "obb", "Classify": "classify", "RTDETRDecoder": "rtdetr"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -237,7 +247,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
                 margs = [c1, *margs]
             else:
                 kwargs["ch"] = tuple(channels[x + 1] for x in fs)
-                if name != "v10Detect" and not legacy_head:
+                if name not in ("v10Detect", "RTDETRDecoder") and not legacy_head:
                     kwargs["legacy"] = False
         else:
             ch_in = tuple(channels[x + 1] for x in fs)
@@ -255,7 +265,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
 
 class GraphModel(nn.Module):
     """Replays a parsed graph, caching the outputs later layers read.
-    Returns the head's output."""
+    Returns the head's output; ``head_kwargs`` go to the head row."""
 
     def __init__(self, parsed: ParsedModel):
         super().__init__()
@@ -263,7 +273,7 @@ class GraphModel(nn.Module):
         for spec in parsed.specs:
             setattr(self, f"l{spec.i}", spec.build())
 
-    def forward(self, x):
+    def forward(self, x, head_kwargs: dict | None = None):
         cache = {}
         prev = x
         save = set(self.parsed.save)
@@ -272,7 +282,8 @@ class GraphModel(nn.Module):
                 inp = prev if spec.f[0] == spec.i - 1 else cache[spec.f[0]]
             else:
                 inp = [prev if j == spec.i - 1 else cache[j] for j in spec.f]
-            prev = getattr(self, f"l{spec.i}")(inp)
+            extra = head_kwargs if head_kwargs and spec.i == self.parsed.head_index else {}
+            prev = getattr(self, f"l{spec.i}")(inp, **extra)
             if spec.i in save:
                 cache[spec.i] = prev
         return prev

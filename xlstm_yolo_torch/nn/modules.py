@@ -7,7 +7,8 @@ the zoo: YOLOv3 / v5 / v6 / v8 variants (DWConv, C3, C2, MaxPool, Index,
 GhostConv, GhostBottleneck, C3Ghost, ConvTransposeBN, SPP; the graph
 builds torch's ``nn.ZeroPad2d`` and ``nn.Identity`` itself), YOLOv9 (ADown, AConv, RepConv, RepBottleneck,
 RepCSP, RepNCSPELAN4, SPPELAN, ELAN1, CBLinear, CBFuse), YOLOv10 (SCDown,
-RepVGGDW, CIB, C2fCIB, PSA) and YOLO12 (AAttn, ABlock, A2C2f); the
+RepVGGDW, CIB, C2fCIB, PSA), YOLO12 (AAttn, ABlock, A2C2f) and RT-DETR's
+neck (LightConv, RepC3; its other blocks are in ``nn/rtdetr.py``); the
 classify task's head (Classify) and backbones (ResNetBlock, ResNetLayer,
 BasicResBlock, TorchVision).
 Submodule names follow the JAX parameter tree (``conv``/``bn``, ``cv1``,
@@ -561,6 +562,44 @@ class RepConv(nn.Module):
     def forward(self, x):
         y = self.conv1(x) + self.conv2(x)
         return F.silu(y) if self.act else y
+
+
+class RepC3(nn.Module):
+    """RT-DETR's neck block: ``cv1`` and ``cv2`` (1x1 to c2), ``n`` RepConvs
+    ``m{i}`` chained on ``cv1``'s branch at c2 * e channels, the two
+    branches summed, then ``cv3`` (1x1 to c2) where c2 * e != c2. As in
+    JAX, the sum adds c2 * e channels to c2 ones: it broadcasts where c2 * e
+    rounds to 1 and raises for any other e below 1."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", RepConv(c2 if i == 0 else c_, c_, 3))
+        self.cv2 = ConvBN(c1, c2, 1, 1)
+        self.cv3 = ConvBN(c2, c2, 1, 1) if c_ != c2 else None
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m{i}")(a)
+        y = a + self.cv2(x)
+        return y if self.cv3 is None else self.cv3(y)
+
+
+class LightConv(nn.Module):
+    """A 1x1 ConvBN without activation (``conv1``), then a depthwise k x k
+    ReLU ConvBN (``conv2``)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act="relu")
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
 
 
 class RepBottleneck(nn.Module):

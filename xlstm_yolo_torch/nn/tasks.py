@@ -1,7 +1,7 @@
 """Task model: a compiled YAML graph plus its task metadata.
 
 Port of ``TaskModel`` in ``xlstm_yolo_tpu/nn/tasks.py`` for the detect,
-segment, pose, obb and classify tasks.
+segment, pose, obb, classify and rtdetr tasks.
 The torch model owns its parameters (the JAX one keeps them outside as a
 pytree): they are initialized from a ``torch.Generator`` seed with the JAX
 package's init scheme, or loaded from a JAX variable tree with
@@ -12,7 +12,10 @@ boundary: NHWC images in, (B, N, 4 + nc) candidates out;
 model's ``probs``, the softmax of its logits); ``loss`` is the forward
 plus the task's loss on a padded-label batch (the v8 detection loss, or
 the segmentation, pose or OBB loss built on it), or a classify model's
-cross-entropy against ``label``. A classify model has no strides. A model whose
+cross-entropy against ``label``. A classify model has no strides. An
+RT-DETR model (task ``rtdetr``) has the strides (8, 16, 32) without a
+probe, its ``predictions_full`` is {"dets"} (NMS-free), and its loss adds
+the denoising loss in train mode. A model whose
 head is ``v10Detect`` is end to end (``e2e``): its inference decodes the
 ``one2one`` branch (then the usual NMS, as the JAX package serves it), and
 its loss is the one2many loss (TAL top-10) plus the one2one loss (top-1).
@@ -27,6 +30,7 @@ from ..utils.loss import (classification_loss, detection_loss, obb_loss, pose_lo
                           segmentation_loss)
 from ..utils.tal import TOPK
 from . import heads as H
+from . import rtdetr as R
 from .graph import GraphModel, ParsedModel, parse_model
 from .modules import init_tree
 
@@ -67,15 +71,22 @@ class TaskModel(GraphModel):
     @torch.no_grad()
     def _probe_strides(self, imgsz: int = 64) -> tuple:
         """Detection strides from a zero forward on the CPU (the model is
-        still there when this runs); none for a classify model."""
+        still there when this runs); none for a classify model, (8, 16, 32)
+        for an RT-DETR one, as JAX sets them."""
         if self.task == "classify":
             return ()
+        if self.task == "rtdetr":
+            return (8, 16, 32)
         out = H.det_maps(self(torch.zeros(1, self.ch, imgsz, imgsz)))
         return tuple(imgsz // bm.shape[2] for bm, _ in out)
 
     def predictions(self, x: torch.Tensor) -> torch.Tensor:
         """Eval forward on NHWC images -> decoded (B, N, 4 + nc) candidates
-        (pixel xywh + sigmoid scores)."""
+        (pixel xywh + sigmoid scores). Not for an RT-DETR model, whose head
+        gives no maps (as the JAX ``predictions`` fails on it): its decode is
+        ``predictions_full``."""
+        if self.task == "rtdetr":
+            raise ValueError("an RT-DETR model decodes through predictions_full (NMS-free dets)")
         raw = H.det_maps(self(x.permute(0, 3, 1, 2)))
         return H.decode_detections(raw, self.strides, self.nc, self.reg_max)
 
@@ -100,8 +111,12 @@ class TaskModel(GraphModel):
         ``cands`` (B, N, 4 + nc) (an OBB model's (B, N, 5 + nc): rotated
         cx, cy, w, h, scores, then the angle), plus ``coefs`` (B, N, nm) and
         ``proto`` (B, nm, Hm, Wm) for segment, ``kpts`` (B, N, nk * nd)
-        pixel keypoints for pose; {"probs": (B, nc)} for classify."""
+        pixel keypoints for pose; {"probs": (B, nc)} for classify; for
+        rtdetr {"dets": (B, 300, 6)}, ``rtdetr_postprocess``'s pixel xyxy,
+        score and class of the top (query, class) pairs."""
         out = self(x.permute(0, 3, 1, 2))
+        if self.task == "rtdetr":
+            return {"dets": R.rtdetr_postprocess(out, float(x.shape[1]))}
         if self.task == "classify":
             return {"probs": out.softmax(-1)}
         if self.task == "obb":
@@ -132,7 +147,15 @@ class TaskModel(GraphModel):
         end-to-end model (``e2e``) sums the one2many loss at TAL
         top-10 and the one2one loss at top-1, term by term; its head
         computes the one2many branch in train mode only, so its loss needs
-        train mode."""
+        train mode. An RT-DETR model's loss is ``rtdetr_loss`` plus, in
+        train mode, ``cdn_loss`` on 3 denoising groups (terms "box", "cls",
+        "aux", "dn_box", "dn_cls"; ``gains`` are not read, as in JAX): the
+        groups from ``batch["dn_queries"]`` (dn_cls, dn_box) where given,
+        else drawn from a generator on the images' device seeded 0 on every
+        call (the JAX loss's
+        ``PRNGKey(0)`` without a ``dn_key``)."""
+        if self.task == "rtdetr":
+            return self._rtdetr_loss(batch)
         raw = self(batch["img"].permute(0, 3, 1, 2))
         if self.task == "classify":
             total = classification_loss(raw, batch["label"])
@@ -157,6 +180,30 @@ class TaskModel(GraphModel):
                               self.reg_max, tal_topk=k, **kw) for maps, k in branches]
         return (sum(lo.total for lo in los),
                 {t: sum(getattr(lo, t) for lo in los) for t in ("box", "cls", "dfl")})
+
+    def _rtdetr_loss(self, batch: dict):
+        img = batch["img"]
+        imgsz = float(img.shape[1])
+        head_kwargs, dn_meta = None, None
+        if self.training and batch.get("cls_boxes") is not None:
+            num_group = 3
+            gt_cls, gt_box = R._gt_targets(batch, imgsz, torch.float32)
+            mask = batch["mask"].float()
+            if batch.get("dn_queries") is not None:
+                dn_cls, dn_box = (t.to(img.device) for t in batch["dn_queries"])
+                dn_pos, dn_valid, dn_gt_idx, _ = R.cdn_meta(mask, num_group)
+            else:
+                gen = torch.Generator(device=img.device).manual_seed(0)
+                dn_cls, dn_box, dn_pos, dn_valid, dn_gt_idx = R.get_cdn_group(
+                    gt_cls, gt_box, mask, self.nc, gen, num_group)
+            head_kwargs = {"dn": (dn_cls, dn_box, num_group)}
+            dn_meta = (dn_pos, dn_valid, dn_gt_idx)
+        out = self(img.permute(0, 3, 1, 2), head_kwargs=head_kwargs)
+        total, aux = R.rtdetr_loss(out, batch, self.nc, imgsz)
+        if dn_meta is not None:
+            dn_total, dn_aux = R.cdn_loss(out, dn_meta, batch, self.nc, imgsz)
+            total, aux = total + dn_total, {**aux, **dn_aux}
+        return total, aux
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -2,7 +2,7 @@
 
 Port of ``xywh2xyxy``, ``xyxy2xywh``, ``xywhn2xyxy``, ``xyxy2xywhn``,
 ``ltwh2xyxy``, ``xyxy2ltwh``, ``clip_boxes``, ``scale_boxes``, ``box_iou``,
-``bbox_iou``, and of the oriented boxes' ``probiou``, ``batch_probiou`` and
+``bbox_iou`` (CIoU on xyxy boxes, and IoU or GIoU on xywh boxes), and of the oriented boxes' ``probiou``, ``batch_probiou`` and
 ``_covariance`` in ``xlstm_yolo_tpu/ops/boxes.py``. The format conversions
 take torch tensors and numpy arrays alike and return the same kind.
 """
@@ -128,6 +128,29 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = EPS) -> torch.
     with torch.no_grad():
         alpha = v / (v - iou + (1 + eps))
     return iou - (rho2 / c2 + v * alpha)
+
+
+def bbox_iou_xywh(box1: torch.Tensor, box2: torch.Tensor, giou: bool = False,
+                  eps: float = EPS) -> torch.Tensor:
+    """Elementwise IoU, or with ``giou`` the generalized IoU, of
+    broadcastable (..., 4) (cx, cy, w, h) boxes -> (...): the JAX
+    ``bbox_iou(..., xywh=True)`` and ``bbox_iou(..., xywh=True, GIoU=True)``
+    that RT-DETR's matcher and loss use. GIoU subtracts the share of the
+    enclosing box that the union leaves empty."""
+    b1x1, b1y1, b1x2, b1y2 = xywh2xyxy(box1).unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = xywh2xyxy(box2).unbind(-1)
+    w1, h1 = b1x2 - b1x1, (b1y2 - b1y1) + eps
+    w2, h2 = b2x2 - b2x1, (b2y2 - b2y1) + eps
+    inter = ((torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0)
+             * (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not giou:
+        return iou
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    c_area = cw * ch + eps
+    return iou - (c_area - union) / c_area
 
 
 def _covariance(obb: torch.Tensor):
