@@ -3821,7 +3821,10 @@ class SharedChoices:
     (``F.max_pool2d``), RT-DETR's query and postprocess selections
     (``nn.rtdetr.ranked``), the grid cells of its deformable sampling
     (``nn.rtdetr.cell``) and its Hungarian matches (``nn.rtdetr.hungarian``),
-    recorded in call order, or, given ``replay`` (another step's
+    YOLO-World's maxima (``nn.world.tied_max``: which texts win each
+    pixel's max, which entries of each pooled bin are maximal; replayed as
+    the mean over the recorded maxima, which splits the gradient as the max
+    does), recorded in call order, or, given ``replay`` (another step's
     ``SharedChoices``), taken from it: the recorded outputs cast to this
     step's dtype, each pool the gather of its input at the recorded indices
     (the same function and gradient, on the other step's routing). The
@@ -3834,7 +3837,7 @@ class SharedChoices:
 
     def __init__(self, replay=None):
         self.replay, self.assigned, self.pooled, self.mask_anchors = replay, [], [], []
-        self.ranked, self.cells, self.matched = [], [], []
+        self.ranked, self.cells, self.matched, self.maxima = [], [], [], []
 
     def _recorded(self, real, log: list, replayed: list | None, single: bool = False):
         """``real`` recorded into ``log``, or replayed from ``replayed``;
@@ -3860,11 +3863,23 @@ class SharedChoices:
         import torch.nn.functional as F
 
         import xlstm_yolo_torch.nn.rtdetr as rtdetr
+        import xlstm_yolo_torch.nn.world as world
         import xlstm_yolo_torch.utils.loss as loss_mod
         import xlstm_yolo_torch.utils.tal as tal
 
         real_pool = F.max_pool2d
         rp = self.replay
+
+        def tied_max(x, dims):
+            if rp is None:
+                mask = x == torch.amax(x, dim=dims, keepdim=True)
+            else:
+                mask = rp.maxima[len(self.maxima)].to(x.device)
+            self.maxima.append(mask.cpu())
+            if rp is None:
+                return torch.amax(x, dim=dims)
+            w = mask.to(x.dtype)
+            return (x * w).sum(dims) / w.sum(dims)
 
         def pool(x, k, s=None, p=0):
             if rp is None:
@@ -3896,6 +3911,7 @@ class SharedChoices:
                 mock.patch.object(rtdetr, "ranked", ranked), \
                 mock.patch.object(rtdetr, "_corner", corner), \
                 mock.patch.object(rtdetr, "hungarian", matched), \
+                mock.patch.object(world, "tied_max", tied_max), \
                 mock.patch.object(F, "max_pool2d", pool):
             yield self
 
@@ -3915,7 +3931,9 @@ class SharedChoices:
                 "mask_anchor_flips": anchors, "pooled": sum(a.numel() for a in self.pooled),
                 "ranked_flips": differ(self.ranked, other.ranked),
                 "cell_flips": differ(self.cells, other.cells),
-                "match_flips": differ(self.matched, other.matched)}
+                "match_flips": differ(self.matched, other.matched),
+                "maxima_flips": sum(int((a != b).sum()) for a, b in zip(self.maxima,
+                                                                        other.maxima))}
 
 
 def zoo_step(model, dev, dtype, batch, choices, host_divide: bool = False):
@@ -5244,6 +5262,460 @@ def phase_rtdetr_path(smi_line):
     return {k: v for k, v in counts.items() if v}
 
 
+# world_path: YOLO-World at COCO's open-vocabulary configuration (Ultralytics'
+# yolov8-world YAMLs: 80 class prompts, 640 px, batch 8), the CLIP text tower
+# at ViT-B/32's published text widths, NAS and FastSAM. (label, YAML, scale,
+# the JAX TaskModel's parameters; tests/test_torch_world.py holds the port to
+# the same counts), yolov8l-world first
+WORLD_MODELS = [("yolov8l-world", "yolov8-world.yaml", "l", 49_391_786),
+                ("yolov8l-worldv2", "yolov8-worldv2.yaml", "l", 48_669_866)]
+WORLD_OTHERS = [("yolov8n-world", "yolov8-world.yaml", "n", 6_032_922),
+                ("yolov8s-world", "yolov8-world.yaml", "s", 16_285_258),
+                ("yolov8m-world", "yolov8-world.yaml", "m", 31_844_922),
+                ("yolov8x-world", "yolov8-world.yaml", "x", 74_598_426),
+                ("yolov8n-worldv2", "yolov8-worldv2.yaml", "n", 5_931_418),
+                ("yolov8s-worldv2", "yolov8-worldv2.yaml", "s", 16_006_986),
+                ("yolov8m-worldv2", "yolov8-worldv2.yaml", "m", 31_353_018),
+                ("yolov8x-worldv2", "yolov8-worldv2.yaml", "x", 73_552_282),
+                ("yolo_nas_s", "yolo_nas.yaml", "s", 11_343_216),
+                ("yolo_nas_m", "yolo_nas.yaml", "m", 20_274_192),
+                ("yolo_nas_l", "yolo_nas.yaml", "l", 36_504_368)]
+# CLIP ViT-B/32's text tower (the widths the reference downloads)
+CLIP_B32 = dict(vocab_size=49408, context_length=77, width=512, heads=8, layers=12, embed_dim=512)
+COCO_NAMES = (
+    "person bicycle car motorcycle airplane bus train truck boat traffic_light fire_hydrant "
+    "stop_sign parking_meter bench bird cat dog horse sheep cow elephant bear zebra giraffe "
+    "backpack umbrella handbag tie suitcase frisbee skis snowboard sports_ball kite "
+    "baseball_bat baseball_glove skateboard surfboard tennis_racket bottle wine_glass cup fork "
+    "knife spoon bowl banana apple sandwich orange broccoli carrot hot_dog pizza donut cake "
+    "chair couch potted_plant bed dining_table toilet tv laptop mouse remote keyboard "
+    "cell_phone microwave oven toaster sink refrigerator book clock vase scissors teddy_bear "
+    "hair_drier toothbrush").split()
+WORLD_PADDED = 20  # a batch guide's padded slots (the empty text's one embedding), of 80
+WORLD_CPU_IMGSZ = 320  # the card against the CPU: a size the CPU steps yolov8l-world at in seconds
+WORLD_GRAD_TOL = TOL_REL
+WORLD_FP64_TOL = 1e-6  # the CPU's fp64 step against the card's, on shared choices
+
+
+def coco_prompts() -> list:
+    """The 80 COCO class names as CLIP prompts."""
+    assert len(COCO_NAMES) == 80
+    return [f"a photo of a {n.replace('_', ' ')}" for n in COCO_NAMES]
+
+
+def write_merges(path, texts) -> str:
+    """A merge list in the published format (a header, then one pair a
+    line) that joins each word of ``texts`` into one token, left to right."""
+    from xlstm_yolo_torch.nn.clip_text import split_words
+
+    merges, seen = [], set()
+    for w in sorted({w for t in texts for w in split_words(t.lower())}):
+        syms = list(w[:-1]) + [w[-1] + "</w>"]
+        cur = syms[0]
+        for sym in syms[1:]:
+            if (cur, sym) not in seen:
+                seen.add((cur, sym))
+                merges.append((cur, sym))
+            cur += sym
+    Path(path).write_text("\n".join(["#version: world_path"] + [f"{a} {b}" for a, b in merges])
+                          + "\n", encoding="utf-8")
+    return str(path)
+
+
+def world_tower(bpe: str) -> tuple:
+    """The text tower at ViT-B/32's widths, seeded, on the card and on the
+    CPU: the 80 prompts' features on the card within 1e-5 of the CPU's max;
+    the card's encode ms (CUDA events, the mean of 3 after a warm-up) and
+    device-busy ms; the tower's GFLOP (meta device). Returns (ok, numbers,
+    the card's encoder)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from xlstm_yolo_torch.nn.clip_text import CLIPTextTower, ClipTextEncoder
+
+    prompts = coco_prompts()
+    encs = {dev: ClipTextEncoder(bpe, tower=CLIPTextTower(**CLIP_B32), n_merges=None,
+                                 device=dev, seed=0) for dev in ("cuda", "cpu")}
+    want = encs["cpu"].features(prompts)
+    got = encs["cuda"].features(prompts).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    ms = cuda_time_ms(lambda: encs["cuda"].features(prompts), iters=3, warmup=1)
+    busy = device_busy_ms(lambda: encs["cuda"].features(prompts))
+    tokens = encs["cpu"].tokenizer(prompts, CLIP_B32["context_length"])
+    with torch.device("meta"):
+        with FlopCounterMode(display=False) as counter:
+            CLIPTextTower(**CLIP_B32)(torch.zeros(tokens.shape, dtype=torch.long))
+    gflop = counter.get_total_flops() / 1e9
+    feats = encs["cuda"](prompts)
+    ok = (rel <= 1e-5 and tuple(got.shape) == (80, 512) and bool(np.isfinite(feats).all())
+          and int(tokens.max()) < CLIP_B32["vocab_size"])
+    return ok, {"prompts": len(prompts), "tokens": list(tokens.shape),
+                "eot_id": int(encs["cpu"].tokenizer.eot), "features_maxrelerr_vs_cpu": rel,
+                "encode_ms": ms, "encode_device_busy_ms": busy, "gflop": gflop,
+                "tflop_per_s": gflop / ms}, encs["cuda"]
+
+
+def zero_biases(model):
+    """Detections clear the confidence threshold: a world head's
+    contrastive biases set to 0 (its logits then sigmoid around 0.5), a
+    Detect head's class biases (``zero_class_biases``). Returns the model."""
+    import torch
+
+    if model.task != "world":
+        return zero_class_biases(model)
+    head = getattr(model, f"l{model.parsed.head_index}")
+    with torch.no_grad():
+        for i in range(head.nl):
+            getattr(head, f"cv4_{i}_attn").bias.zero_()
+    return model
+
+
+def world_forward_gflop(model) -> float:
+    """``forward_gflop`` with the model's guide on the meta device."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from xlstm_yolo_torch.nn.graph import GraphModel
+
+    guide = None if model.txt_feats is None else torch.zeros(model.txt_feats.shape)
+    with torch.device("meta"):
+        graph = GraphModel(model.parsed).eval()
+        with FlopCounterMode(display=False) as counter:
+            graph(torch.zeros(1, 3, IMGSZ, IMGSZ),
+                  guide=None if guide is None else guide.to("meta"))
+    return counter.get_total_flops() / 1e9
+
+
+def world_inference(model, frames, dtype: str = "float32", iters: int = ZOO_INFER_TIMED):
+    """``Predictor`` inference of a fused copy of ``model`` (``zero_biases``)
+    in ``dtype`` on uint8 ``frames``: letterbox, forward and decode against
+    the model's guide (fp32 in bf16 serving, as JAX leaves it), NMS; stage
+    ms (CUDA events, the mean of ``iters`` after one warm-up), img/s, the
+    forward's device-busy ms (profiler), peak GiB; the candidates (B, N, 4
+    + nc) and dets finite, some valid."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    fused = fuse_conv_bn(zero_biases(copy.deepcopy(model).eval()))
+    pred = Predictor(fused, imgsz=IMGSZ, dtype=dtype, verbose=False)
+    torch.cuda.reset_peak_memory_stats()
+    times = {"letterbox": 0.0, "forward_decode": 0.0, "nms": 0.0}
+    with torch.inference_mode():
+        for it in range(1 + iters):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x, _ = pred.preprocess(frames)
+            ev[1].record()
+            cands = pred.decode(x)
+            ev[2].record()
+            dets, valid = pred.postprocess(cands.float())
+            ev[3].record()
+            torch.cuda.synchronize()
+            if it:
+                for k, (a, b) in zip(times, zip(ev[:3], ev[1:])):
+                    times[k] += a.elapsed_time(b) / iters
+        busy = device_busy_ms(lambda: pred.decode(x))
+    n_cand = sum((IMGSZ // s) ** 2 for s in fused.strides)
+    shapes_ok = (tuple(cands.shape) == (len(frames), n_cand, 4 + fused.nc)
+                 and tuple(dets.shape) == (len(frames), 300, 6))
+    finite = bool(torch.isfinite(cands).all() and torch.isfinite(dets).all())
+    n_valid = int(valid.sum())
+    total_ms = sum(times.values())
+    return shapes_ok and finite and n_valid > 0, {
+        "dtype": dtype, "cands_dtype": str(cands.dtype), "shapes_ok": shapes_ok,
+        "finite": finite, "valid_dets": n_valid, "ms": times, "total_ms": total_ms,
+        "img_per_s": len(frames) / total_ms * 1e3, "forward_device_busy_ms": busy,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def world_batch(device, batch: int, imgsz: int, nt: int = 80) -> dict:
+    """``train_batch``'s images and labels at ``imgsz`` (the boxes scaled)
+    and a per-batch guide ``txt_feats`` (batch, nt, 512), seeded, whose last
+    WORLD_PADDED slots share one embedding, as a MultiModalDataset batch's
+    padded texts."""
+    import torch
+
+    b = train_batch("cpu", batch=batch)
+    cb = b["cls_boxes"].clone()
+    cb[..., 1:] *= imgsz / IMGSZ
+    img = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8))
+    txt = np.random.default_rng(6).normal(size=(batch, nt, 512)).astype(np.float32)
+    txt[:, nt - WORLD_PADDED:] = txt[:, nt - WORLD_PADDED:nt - WORLD_PADDED + 1]
+    return {"img": img.to(device), "cls_boxes": cb.to(device), "mask": b["mask"].to(device),
+            "txt_feats": torch.from_numpy(txt).to(device)}
+
+
+def world_card_vs_cpu(model, imgsz: int = WORLD_CPU_IMGSZ) -> tuple:
+    """The card against the CPU on ``model``'s weights at batch
+    YOLO11_CPU_BATCH and ``imgsz``: the fused eval's candidates (boxes of
+    their max, scores absolute) within TOL_REL; one fp32 train step on a
+    batch guide with padded slots, its loss within TOL_REL and every
+    gradient within WORLD_GRAD_TOL of the CPU's and of the fp64 step's,
+    each tensor of its own max; the CPU's fp64 step within WORLD_FP64_TOL
+    of the card's; all steps on the discrete choices of an fp64 step on the
+    card (``SharedChoices``: TAL, SPPF's argmax, the text maxima and pooled
+    bins) and on images divided on the host."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.nn.fuse import fuse_conv_bn
+
+    shape = (YOLO11_CPU_BATCH, imgsz, imgsz, 3)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, shape).astype(np.float32))
+    fused = fuse_conv_bn(zero_biases(copy.deepcopy(model).eval()))
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            preds[dev] = copy.deepcopy(fused).to(dev).predictions(x.to(dev)).cpu()
+    got, want = preds["cuda"], preds["cpu"]
+    box_rel = ((got[..., :4] - want[..., :4]).abs().max() / want[..., :4].abs().max()).item()
+    score_abs = (got[..., 4:] - want[..., 4:]).abs().max().item()
+    batch = world_batch("cpu", YOLO11_CPU_BATCH, imgsz)
+    ref = SharedChoices()
+    ref_loss, ref_grads = zoo_step(model, "cuda", torch.float64, batch, ref, host_divide=True)
+    own = SharedChoices()
+    zoo_step(model, "cuda", torch.float32, batch, own, host_divide=True)
+    steps = {dev: zoo_step(model, dev, torch.float32, batch, SharedChoices(replay=ref),
+                           host_divide=True) for dev in ("cuda", "cpu")}
+    worst_rel, worst_name, vanishing, gmax = grad_errors(steps["cuda"][1], steps["cpu"][1])
+    loss_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    vs64 = {dev: grad_errors(steps[dev][1], ref_grads)[:2] for dev in steps}
+    cpu64_loss, cpu64_grads = zoo_step(model, "cpu", torch.float64, batch,
+                                       SharedChoices(replay=ref), host_divide=True)
+    fp64_rel, fp64_worst, _, _ = grad_errors(cpu64_grads, ref_grads)
+    ok = (box_rel <= TOL_REL and score_abs <= TOL_REL and loss_rel <= TOL_REL
+          and worst_rel <= WORLD_GRAD_TOL and vs64["cuda"][0] <= WORLD_GRAD_TOL
+          and fp64_rel <= WORLD_FP64_TOL
+          and abs(cpu64_loss - ref_loss) <= WORLD_FP64_TOL * abs(ref_loss))
+    return ok, {"cpu_imgsz": imgsz, "cands_box_maxrelerr_vs_cpu": box_rel,
+                "cands_score_max_abs_err_vs_cpu": score_abs, "loss": steps["cuda"][0],
+                "loss_cpu": steps["cpu"][0], "loss_fp64": ref_loss, "loss_relerr_vs_cpu": loss_rel,
+                "grad_maxrelerr_vs_cpu": worst_rel, "grad_tol": WORLD_GRAD_TOL,
+                "grad_worst": worst_name, "grads_vanishing": vanishing, "grad_max": gmax,
+                "grad_spread_vs_cpu": grad_spread(steps["cuda"][1], steps["cpu"][1]),
+                "grad_maxrelerr_vs_fp64": {d: v[0] for d, v in vs64.items()},
+                "grad_worst_vs_fp64": {d: v[1] for d, v in vs64.items()},
+                "fp64_cpu_vs_card": {"loss_relerr": abs(cpu64_loss - ref_loss) / abs(ref_loss),
+                                     "grad_maxrelerr": fp64_rel, "grad_worst": fp64_worst,
+                                     "tol": WORLD_FP64_TOL},
+                "card_fp32_own_choices_vs_fp64": own.flips(ref)}
+
+
+def world_facade(smi_line, encoder) -> tuple:
+    """``YOLO("yolov8s-world.yaml")`` on the card through the user's entry
+    points, on PNGs the phase writes (640 x 480, 8 train and 4 val images),
+    with the text tower as ``text_encoder``: one epoch at the defaults with
+    validation (the model rebuilt to the set's 3 classes; each batch's guide
+    the tower's features of its sampled texts), ``val``, ``predict`` (the
+    contrastive biases set to 0 first, so that boxes clear conf), then
+    saved and reloaded (the checkpoint holds no guide: the reload's default
+    one is the trained model's, as both come from seed 0): the same
+    predictions."""
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_dataset(f"{tmp}/ds", n_train=8, n_val=4, width=FIT_WH[0],
+                                      height=FIT_WH[1], seed=0)
+        val_dir = str(Path(data).parent / "images" / "val")
+        m = YOLO("yolov8s-world.yaml")
+        calls = []
+
+        def enc(texts):
+            calls.append(len(texts))
+            return encoder(texts)
+
+        t0 = time.perf_counter()
+        m.train(data=data, epochs=1, imgsz=IMGSZ, batch=BATCH, plots=False, text_encoder=enc,
+                project=f"{tmp}/runs", name="world")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        metrics = m.val(data=data, imgsz=IMGSZ, batch=BATCH)
+        zero_biases(m.model)  # the predictions clear the confidence threshold
+        results = m.predict(val_dir, imgsz=IMGSZ, conf=0.001, verbose=False)
+        m.save(f"{tmp}/w.pt")
+        again_model = YOLO(f"{tmp}/w.pt")
+        same_guide = bool(torch.equal(again_model.model.txt_feats, m.model.txt_feats))
+        again = again_model.predict(val_dir, imgsz=IMGSZ, conf=0.001, verbose=False)
+    same = len(again) == len(results) and all(
+        a.boxes.data.shape == b.boxes.data.shape
+        and np.allclose(a.boxes.data, b.boxes.data, rtol=1e-5, atol=1e-4)
+        for a, b in zip(again, results))
+    n_boxes = sum(len(r) for r in results)
+    ok = (m.model.task == "world" and m.model.nc == 3 and calls and np.isfinite(
+        m.trainer.metrics["fitness"]) and np.isfinite(metrics["fitness"]) and len(results) == 4
+        and n_boxes > 0 and same and same_guide)
+    return ok, {"train_s": train_s, "encoder_calls": len(calls), "texts_a_call": calls[:1],
+                "train_val": {k: v for k, v in m.trainer.metrics.items()
+                              if isinstance(v, (int, float))},
+                "val": {k: v for k, v in metrics.items() if isinstance(v, (int, float))},
+                "nc": m.model.nc, "images": len(results), "boxes": n_boxes,
+                "reloaded_guide_equal": same_guide, "reloaded_predictions_equal": same,
+                "nvidia_smi": smi_line}
+
+
+def nas_and_fastsam(frames, encoder) -> tuple:
+    """``NAS("yolo_nas_s.yaml").predict`` on two frames (class biases
+    zeroed, so that boxes clear the confidence threshold) and its ``train``
+    refused; ``FastSAM`` (yolov8s-seg, one class, class biases zeroed so
+    that its segments clear conf 0.4) ``everything`` at 640 px on two
+    letterboxed frames, then the box prompt (a kept box: it keeps itself),
+    the point prompt (a pixel of its mask) and the text prompt (the
+    tower's embeddings of three prompts as crops, one as the text: it ranks
+    itself first)."""
+    import torch
+
+    from xlstm_yolo_torch.models_extra import FastSAM
+    from xlstm_yolo_torch.models_nas import NAS
+    from xlstm_yolo_torch.ops.letterbox import letterbox_device
+
+    nas = NAS("yolo_nas_s.yaml")
+    zero_class_biases(nas.model)
+    res = nas.predict([f for f in frames[:2].cpu().numpy()], imgsz=IMGSZ, conf=0.001,
+                      verbose=False)
+    try:
+        nas.train(data="unused.yaml")
+        refused = False
+    except NotImplementedError:
+        refused = True
+    sam = FastSAM()
+    zero_class_biases(sam.model)
+    # on seeded weights the activations shrink layer by layer to mask logits
+    # of about 1e-7, which fp32's sigmoid rounds to 0.5: every mask would be
+    # empty; the coefficient convs scaled by 1e4 give masks with pixels
+    head = getattr(sam.model, f"l{sam.model.parsed.head_index}")
+    with torch.no_grad():
+        for j in range(head.nl):
+            for t in getattr(head, f"cv4_{j}_2").parameters():
+                t.mul_(1e4)
+    x, _ = letterbox_device(frames[:2], imgsz=IMGSZ, dtype=torch.float32)
+    t0 = time.perf_counter()
+    dets, valid, masks = sam.everything(x, conf=0.4, iou=0.9, max_det=100)
+    sam_s = time.perf_counter() - t0
+    kept = [int(i) for i in np.flatnonzero(valid[0]) if masks[0, i].any()]
+    box_keep, point_keep = [], []
+    if kept:  # a kept detection with a non-empty mask: each prompt keeps it
+        i = kept[0]
+        box_keep = FastSAM.box_prompt(dets[0], valid[0], masks[0], dets[0, i, :4])
+        ys, xs = np.nonzero(masks[0, i])
+        hm = masks.shape[2]
+        pt = (float(xs[0] + 0.5) * IMGSZ / hm, float(ys[0] + 0.5) * IMGSZ / hm)
+        point_keep = FastSAM.point_prompt(dets[0], valid[0], masks[0], [pt],
+                                          img_shape=(IMGSZ, IMGSZ))
+    emb = encoder(["a photo of a cat", "a photo of a dog", "a photo of a bus"])
+    text_rank = FastSAM.text_prompt(emb, emb[2], topk=3)
+    ok = (refused and len(res) == 2 and nas.model.num_params() == 11_343_216
+          and dets.shape == (2, 100, 6) and masks.shape == (2, 100, IMGSZ // 4, IMGSZ // 4)
+          and sum(len(r) for r in res) > 0 and kept and kept[0] in box_keep
+          and kept[0] in point_keep and text_rank[0] == 2)
+    return ok, {"nas_predicted": [len(r) for r in res], "nas_train_refused": refused,
+                "fastsam_kept": [int(v.sum()) for v in valid], "fastsam_everything_s": sam_s,
+                "box_prompt_kept": len(box_keep), "point_prompt_kept": len(point_keep),
+                "text_prompt_rank": text_rank}
+
+
+def phase_world_path(smi_line):
+    """The text tower at ViT-B/32's widths (``world_tower``) and the 80 COCO
+    prompts as yolov8l-world's classes; yolov8l-world at COCO's
+    configuration (the JAX parameter count and strides; fp32 and bf16
+    ``world_inference``; fp32 and AMP train steps at batch 8 on a batch
+    guide (8, 80, 512) with padded slots, the AMP loss within AMP_LOSS_TOL
+    of the fp32 one; ``world_card_vs_cpu``), yolov8l-worldv2 (inference and
+    the fp32 step), the other eight world YAMLs and YOLO-NAS s / m / l
+    (built with the JAX counts, one inference each), ``world_facade``,
+    ``nas_and_fastsam``. No hand kernel runs: the counts, set to 0 just
+    before, stay 0."""
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    t_phase = time.perf_counter()
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)).cuda()
+    zero_all_kernel_counts()
+    failed, img_s = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe = write_merges(f"{tmp}/bpe.txt", coco_prompts())
+        tower_ok, tower, encoder = world_tower(bpe)
+    emit({"phase": "world_path.clip_text_tower", **CLIP_B32, **tower, "ok": tower_ok})
+    if not tower_ok:
+        failed.append("clip_text_tower")
+    for i, (label, cfg, scale, params) in enumerate(WORLD_MODELS):
+        t0 = time.perf_counter()
+        model = TaskModel(cfg, scale=scale, device="cuda", seed=0)
+        built_ok = (model.task == "world" and model.num_params() == params
+                    and model.strides == (8, 16, 32))
+        model.set_classes(coco_prompts(), encoder=encoder)
+        guide_ok = (tuple(model.txt_feats.shape) == (1, 80, 512) and model.nc == 80
+                    and model.txt_feats.dtype == torch.float32)
+        gflop = world_forward_gflop(model)
+        inf_ok, inf = world_inference(model, frames, iters=ZOO_INFER_TIMED if i == 0 else 1)
+        inf["forward_tflop_per_s"] = BATCH * gflop / inf["ms"]["forward_decode"]
+        batch = world_batch("cuda", BATCH, IMGSZ)
+        fp32_ok, fp32 = task_train(model, batch, amp=False)
+        entry = {"phase": f"world_path.{label}", "yaml": cfg, "scale": scale, "nc": model.nc,
+                 "params": model.num_params(), "params_jax": params, "strides": model.strides,
+                 "batch": BATCH, "imgsz": IMGSZ, "forward_gflop_per_image": gflop,
+                 "inference": inf, "train_fp32": fp32}
+        ok = built_ok and guide_ok and inf_ok and fp32_ok
+        if i == 0:
+            bf_ok, bf16 = world_inference(model, frames, "bfloat16")
+            amp_ok, amp = task_train(model, batch, amp=True)
+            amp_rel = abs(amp["losses"][0] - fp32["losses"][0]) / abs(fp32["losses"][0])
+            cpu_ok, vs_cpu = world_card_vs_cpu(model)
+            ok = ok and bf_ok and amp_ok and amp_rel <= AMP_LOSS_TOL and cpu_ok
+            entry.update({"inference_bf16": bf16, "train_amp": amp,
+                          "amp_loss_relerr_vs_fp32": amp_rel, "amp_loss_tol": AMP_LOSS_TOL,
+                          **vs_cpu})
+            img_s[label] = (inf["img_per_s"], bf16["img_per_s"], fp32["img_per_s"],
+                            amp["img_per_s"])
+        else:
+            img_s[label] = (inf["img_per_s"], fp32["img_per_s"])
+        emit({**entry, "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            failed.append(label)
+        del model, batch
+        torch.cuda.empty_cache()
+    for label, cfg, scale, params in WORLD_OTHERS:
+        t0 = time.perf_counter()
+        model = TaskModel(cfg, scale=scale, device="cuda", seed=0)
+        built_ok = model.num_params() == params and model.strides == (8, 16, 32)
+        inf_ok, inf = world_inference(model, frames, iters=1)
+        ok = built_ok and inf_ok
+        emit({"phase": f"world_path.{label}", "yaml": cfg, "task": model.task,
+              "params": model.num_params(), "params_jax": params, "strides": model.strides,
+              "inference_ms": inf["total_ms"], "forward_device_busy_ms":
+              inf["forward_device_busy_ms"], "peak_gib": inf["peak_gib"],
+              "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            failed.append(label)
+        img_s[label] = inf["img_per_s"]
+        del model
+        torch.cuda.empty_cache()
+    facade_ok, facade = world_facade(smi_line, encoder)
+    extra_ok, extra = nas_and_fastsam(frames, encoder)
+    counts = all_kernel_counts()
+    ok = not failed and facade_ok and extra_ok and not any(counts.values())
+    emit({"phase": "world_path", "models": len(WORLD_MODELS) + len(WORLD_OTHERS),
+          "failed": failed, "img_per_s": img_s, "facade": facade, "nas_fastsam": extra,
+          "launches": counts, "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"world_path check failed: {failed or 'facade, NAS / FastSAM or launches'}")
+    return {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -5296,6 +5768,8 @@ def main() -> int:
         classify_launches, classify_ms = phase_classify_path(smi_line)
         phase = "rtdetr_path"
         rtdetr_launches = phase_rtdetr_path(smi_line)
+        phase = "world_path"
+        world_launches = phase_world_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -5322,7 +5796,8 @@ def main() -> int:
                "detect_zoo_path": zoo_launches,
                "tasks_path": tasks_launches,
                "classify_path": classify_launches,
-               "rtdetr_path": rtdetr_launches}
+               "rtdetr_path": rtdetr_launches,
+               "world_path": world_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

@@ -2191,3 +2191,68 @@ def test_rtdetr_decoder_on_card_matches_cpu(cuda_device, monkeypatch):
                 for k in ("enc_boxes", "enc_scores"):
                     assert _rel(got[k].cpu(), want[k]) <= 1e-4, k
                 assert _rel(got["aux_boxes"][0].cpu(), want["aux_boxes"][0]) <= 1e-4
+
+
+def _world_block(name):
+    from xlstm_yolo_torch.nn import world as TW
+
+    feats = [(2, 128, 80, 80), (2, 256, 40, 40), (2, 512, 20, 20)]
+    return {"C2fAttn": (lambda: TW.C2fAttn(256, 256, n=3, ec=128, nh=4), [(2, 256, 80, 80)]),
+            "ImagePoolingAttn": (lambda: TW.ImagePoolingAttn((128, 256, 512), ec=256), feats),
+            "WorldDetect": (lambda: TW.WorldDetect(512, ch=(128, 256, 512)), feats),
+            "WorldDetect_bn": (lambda: TW.WorldDetect(512, ch=(128, 256, 512), with_bn=True),
+                               feats)}[name]
+
+
+@pytest.mark.parametrize("name", ["C2fAttn", "ImagePoolingAttn", "WorldDetect", "WorldDetect_bn"])
+def test_world_blocks_on_card_match_cpu(cuda_device, name):
+    """YOLO-World's blocks (plain torch) at yolov8l-world's widths, fp32, on
+    the card against the CPU: forward and the gradients of every parameter
+    and input, with an 80-text guide whose last 40 slots are padding (one
+    shared embedding: the max over texts ties there), each within 1e-4 of
+    its own max (a gradient that is zero up to rounding, its max below 1e-6
+    of the module's largest, as ``chip_smoke.grad_errors``: of that
+    largest)."""
+    from xlstm_yolo_torch.nn.modules import init_tree
+
+    make, shapes = _world_block(name)
+    cpu = make()
+    init_tree(cpu, 0)
+    rng = np.random.default_rng(3)
+    guide = rng.normal(size=(2, 80, 512)).astype(np.float32)
+    guide[:, 40:] = guide[:, 40:41]
+    xs = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in shapes]
+    card = copy.deepcopy(cpu).cuda()
+    outs, grads = [], []
+    for mod, dev in ((cpu, "cpu"), (card, "cuda")):
+        mod.eval()
+        ins = [x.clone().to(dev).requires_grad_(True) for x in xs]
+        g = torch.from_numpy(guide).clone().to(dev).requires_grad_(True)
+        out = _leaves(mod(ins if len(ins) > 1 else ins[0], g))
+        r = [torch.from_numpy(np.random.default_rng(4 + i).normal(size=tuple(o.shape))
+                              .astype(np.float32)).to(dev) for i, o in enumerate(out)]
+        sum((o * w).sum() for o, w in zip(out, r)).backward()
+        outs.append([o.detach().cpu() for o in out])
+        grads.append([t.grad.cpu() for t in [*ins, g, *mod.parameters()]])
+    for got, want in zip(outs[1], outs[0]):
+        assert _rel(got, want) <= 1e-4
+    gmax = max(float(w.abs().max()) for w in grads[0])
+    for got, want in zip(grads[1], grads[0]):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * (scale if scale >= 1e-6 * gmax else gmax)
+
+
+def test_clip_text_tower_on_card_matches_cpu(cuda_device, tmp_path):
+    """The CLIP text tower at ViT-B/32's text widths (vocab 49,408, context
+    77, width 512, 8 heads, 12 layers), seeded, fp32: 80 prompts' features
+    on the card within 1e-5 of the CPU's max."""
+    from xlstm_yolo_torch.nn.clip_text import ClipTextEncoder
+
+    bpe = tmp_path / "bpe.txt"
+    bpe.write_text("#version: test\nt h\nth e</w>\np e\npe r\nper s\npers o\nperso n</w>\n")
+    texts = [f"a photo of a person number {i}" for i in range(80)]
+    cpu = ClipTextEncoder(bpe, device="cpu", n_merges=None)
+    card = ClipTextEncoder(bpe, device="cuda", n_merges=None)
+    want, got = cpu.features(texts), card.features(texts).cpu()
+    assert got.shape == (80, 512)
+    assert _rel(got, want) <= 1e-5

@@ -108,8 +108,8 @@ def test_classify_still_refused():
     parsed = parse_model(cfg)
     assert parsed.task == "classify" and parsed.head_index == 1
     assert parsed.specs[1].args == (16, 10)
-    cfg["backbone"][0][2] = "C2fAttn"
-    with pytest.raises(KeyError, match="YOLO-World family"):
+    cfg["backbone"][0][2] = "Focus"
+    with pytest.raises(KeyError, match="no detection YAML uses it"):
         parse_model(cfg)
 
 

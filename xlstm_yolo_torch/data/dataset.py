@@ -588,9 +588,12 @@ class YOLODataset:
 
 
 def _pinned(batch: dict) -> dict:
+    """The batch's arrays as pinned tensors; other entries (a world batch's
+    ``texts``) as they are."""
     import torch
 
-    return {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+    return {k: torch.from_numpy(v).pin_memory() if isinstance(v, np.ndarray) else v
+            for k, v in batch.items()}
 
 
 class Loader:
@@ -780,7 +783,8 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
                      single_cls: bool = False, cache: str | bool = False,
                      workers: int = 0, rect: bool = False, stride: int = 32,
                      pad: float = 0.5, task: str = "detect",
-                     mask_ratio: int = 4) -> tuple[Loader, dict]:
+                     mask_ratio: int = 4, embed_fn=None,
+                     text_cfg: dict | None = None) -> tuple[Loader, dict]:
     """Dataset YAML (or dict) -> (Loader, dataset dict). The train split
     augments and shuffles and drops the last partial batch; the others keep
     every image in order. ``rect`` (without ``augment``): aspect-ratio
@@ -789,7 +793,11 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
     (17, 3)) comes from its YAML, and its ``flip_idx`` joins a dict
     ``hyp``. ``task="classify"``: ``data_yaml`` is a directory of class
     folders, ``root/{split}`` where it exists, else ``root`` itself; the
-    dict is {names, nc, path: root}."""
+    dict is {names, nc, path: root}. ``task="world"``: a
+    ``multimodal.MultiModalDataset`` over the detect labels (its batches
+    carry ``texts`` and, with ``embed_fn``, ``txt_feats``; ``text_cfg``
+    sets its ``RandomLoadText``; ``cache`` and ``rect`` are not read, as in
+    JAX)."""
     augment = (split == "train") if augment is None else augment
     if task == "classify":
         root = Path(str(data_yaml))
@@ -801,8 +809,15 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
     d = check_det_dataset(data_yaml)
     if isinstance(hyp, dict) and d.get("flip_idx"):
         hyp = {**hyp, "flip_idx": d["flip_idx"]}
-    ds = YOLODataset(d[split], imgsz=imgsz, augment=augment, hyp=hyp, max_labels=max_labels,
-                     single_cls=single_cls, fraction=fraction, cache=cache, rect=rect,
-                     stride=stride, pad=pad, task=task,
-                     kpt_shape=tuple(d.get("kpt_shape", (17, 3))), mask_ratio=mask_ratio)
+    if task == "world":
+        from .multimodal import MultiModalDataset
+
+        ds = MultiModalDataset(d[split], d["names"], text_cfg=text_cfg, embed_fn=embed_fn,
+                               imgsz=imgsz, augment=augment, hyp=hyp, max_labels=max_labels,
+                               single_cls=single_cls, fraction=fraction)
+    else:
+        ds = YOLODataset(d[split], imgsz=imgsz, augment=augment, hyp=hyp, max_labels=max_labels,
+                         single_cls=single_cls, fraction=fraction, cache=cache, rect=rect,
+                         stride=stride, pad=pad, task=task,
+                         kpt_shape=tuple(d.get("kpt_shape", (17, 3))), mask_ratio=mask_ratio)
     return Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers), d

@@ -2,7 +2,7 @@
 ``.predict``.
 
 Port of ``Model`` in ``xlstm_yolo_tpu/engine/model.py`` for the detect,
-segment, pose, obb, classify and rtdetr tasks (the head of the YAML sets it):
+segment, pose, obb, classify, rtdetr and world tasks (the head of the YAML sets it):
 built from a model YAML (weights from a seed) or from a checkpoint ``.pt``
 of the port (``utils.checkpoint``: its EMA weights), on ``device`` (the
 card unless the caller asks for ``"cpu"``). ``train`` runs
@@ -16,7 +16,11 @@ it, ``reset_weights`` starts it again from its seed, ``embed`` gives an
 image's pooled head maps (a classify model has none: it raises, as the
 JAX ``embed`` fails on its (B, nc) logits; an RT-DETR model has no maps
 either, and it cannot be validated: ``val``, and ``train`` with its
-default ``val=True``, raise, as the JAX package cannot validate one). Not
+default ``val=True``, raise, as the JAX package cannot validate one). A
+world model's ``train`` takes the trainer's ``text_encoder`` as a
+keyword; ``save`` keeps its class count and names but
+not its ``txt_feats``, as the JAX checkpoint, so a reloaded world model
+has the default guide of its class count. Not
 ported: ``track``, ``export``, ``benchmark``, ``tune`` and reference torch
 ``.pt`` weights.
 """
@@ -31,7 +35,7 @@ from ..cfg import TASKS
 
 class Model:
     def __init__(self, model: str | Path = "vil_yolon.yaml", task: str | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0, scale: str | None = None):
         from ..nn.tasks import TaskModel
         from ..utils import resolve_device
         from ..utils.callbacks import default_callbacks
@@ -41,7 +45,7 @@ class Model:
         self.model_path = str(model)
         self.ckpt = None
         if self.model_path.endswith((".yaml", ".yml")):
-            self.model = TaskModel(self.model_path, device=self.device, seed=seed)
+            self.model = TaskModel(self.model_path, device=self.device, seed=seed, scale=scale)
         elif self.model_path.endswith(".pt"):
             from ..utils.checkpoint import load_checkpoint
 
@@ -51,8 +55,9 @@ class Model:
             raise ValueError(f"unsupported model source {model!r} (a model .yaml or a checkpoint "
                              f".pt of this package)")
         self.task = task or self.model.task
-        # RT-DETR is not among the JAX cfg's TASKS either; the model's own task passes
-        if self.task not in TASKS and not self.task == self.model.task == "rtdetr":
+        # RT-DETR and YOLO-World are not among the JAX cfg's TASKS either; the model's
+        # own task passes
+        if self.task not in TASKS and not self.task == self.model.task in ("rtdetr", "world"):
             raise ValueError(f"task {self.task!r}: the port has the {', '.join(TASKS)} tasks")
         if self.task != self.model.task:
             raise ValueError(f"task {self.task!r} does not match the model's {self.model.task!r}")
@@ -105,13 +110,15 @@ class Model:
         self.metrics = Validator(self.model, callbacks=self.callbacks, **kwargs)(data=data)
         return self.metrics
 
-    def train(self, data: str | None = None, **kwargs) -> dict:
+    def train(self, data: str | None = None, text_encoder=None, **kwargs) -> dict:
         """Train on ``data`` with ``cfg/default.yaml``'s keys as ``kwargs``;
-        the model becomes the trained one (EMA weights)."""
+        the model becomes the trained one (EMA weights). A world model's
+        run takes ``text_encoder`` (``Trainer``'s)."""
         from .trainer import Trainer
 
         self.trainer = Trainer(self.model, overrides={"data": data, "device": str(self.device),
                                                       **kwargs}, callbacks=self.callbacks)
+        self.trainer.text_encoder = text_encoder
         result = self.trainer.train()
         self.model = self.trainer.model
         self.predictor = None
@@ -152,7 +159,8 @@ class Model:
 
     def reset_weights(self):
         """The model rebuilt from its graph with fresh weights from the seed
-        (unfused, BatchNorm statistics reset); returns the model."""
+        (unfused, BatchNorm statistics reset; a world model's guide kept);
+        returns the model."""
         from ..nn.tasks import TaskModel
 
         m = self.model
@@ -160,6 +168,8 @@ class Model:
         self.model = TaskModel(m.yaml, ch=m.ch, nc=m.nc, scale=m.scale, device=self.device,
                                seed=self.seed)
         self.model.names = names
+        if m.txt_feats is not None:  # a world model keeps its guide, as the JAX model object
+            self.model.txt_feats = m.txt_feats
         self.predictor = None
         return self
 

@@ -43,7 +43,10 @@ fp32 by default, as the JAX ``Predictor`` (the reference's ``half: False``).
 does: the model's parameters cast to bf16 in place (``nn.fuse.cast_params``;
 BatchNorm statistics stay fp32), the letterbox computed in bf16, the forward
 in bf16 (the ViL layers through their bf16 kernel on the card); decode and
-NMS stay fp32.
+NMS stay fp32. A YOLO-World model takes the detect path against its
+``txt_feats``, which the cast leaves fp32 (it is not a parameter, as the
+JAX predictor casts ``params`` and not the guide): what the guide touches
+promotes to fp32, as in JAX.
 """
 from __future__ import annotations
 
@@ -136,7 +139,7 @@ class Predictor:
     def decode(self, x: torch.Tensor):
         """The forward and decode of a letterboxed batch: the candidates,
         or a task model's ``predictions_full`` dict."""
-        if getattr(self.model, "task", "detect") == "detect":
+        if getattr(self.model, "task", "detect") in ("detect", "world"):
             return self.model.predictions(x)
         return self.model.predictions_full(x)
 

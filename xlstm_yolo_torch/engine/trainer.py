@@ -52,7 +52,15 @@ RT-DETR run (task ``rtdetr``), as the JAX trainer's: the dataset assembles
 its samples as the point tasks' with no points (the mosaic halved, no
 perspective; ``cls_boxes`` as detect's), the augmentation on the host
 whatever ``device_augment`` says, the loss with its denoising groups; it
-cannot be validated, so ``val=True`` raises before the first step.
+cannot be validated, so ``val=True`` raises before the first step. A
+YOLO-World run (task ``world``), as the JAX trainer's: the loader is a
+``MultiModalDataset`` that samples each image's class texts (with no
+``text_cfg``, as in JAX: unseeded) and, with the trainer's
+``text_encoder`` (a ``list[str] -> (n, C)`` callable, e.g.
+``nn.clip_text.ClipTextEncoder``), attaches their embeddings as the step's
+guide ``txt_feats``; the host-only ``texts`` stay on the host; the
+augmentation on the host whatever ``device_augment`` says; validation
+scores against the model's own ``txt_feats``.
 """
 from __future__ import annotations
 
@@ -189,7 +197,7 @@ class TrainStep:
         return log
 
 
-BATCH_KEYS = ("img", "cls_boxes", "mask", "masks", "keypoints", "label")
+BATCH_KEYS = ("img", "cls_boxes", "mask", "masks", "keypoints", "label", "txt_feats")
 
 
 def multi_scale_sizes(imgsz: int, multi_scale: bool, strides) -> list:
@@ -332,6 +340,7 @@ class Trainer:
         self.save_dir = Path(self.args.project or "runs/detect") / (self.args.name or "train")
         self.csv = self.save_dir / "results.csv"
         self.callbacks = callbacks if callbacks is not None else default_callbacks()
+        self.text_encoder = None  # a world run's text tower (module docstring)
 
     def add_callback(self, event: str, func) -> None:
         self.callbacks.add(event, func)
@@ -398,7 +407,8 @@ class Trainer:
             args.data, "train", batch=batch, imgsz=imgsz, augment=False if dev_aug else None,
             hyp=dict(vars(args)), max_labels=int(args.max_labels), seed=int(args.seed),
             fraction=float(args.fraction), single_cls=bool(args.single_cls), cache=args.cache,
-            workers=int(args.workers or 0), task=task, mask_ratio=int(args.mask_ratio))
+            workers=int(args.workers or 0), task=task, mask_ratio=int(args.mask_ratio),
+            embed_fn=self.text_encoder)
         if hasattr(self.loader.ds, "uint8_images"):  # a classify batch ships float32
             self.loader.ds.uint8_images = True  # normalized on the device
         self.loader.pin = self.device.type == "cuda"

@@ -33,7 +33,11 @@ on the device; ``accuracy_top1`` (also the fitness) and ``accuracy_top5``
 on the host, and with ``plots`` the (nc, nc) confusion matrix of the top-1
 classes. An RT-DETR model has no validation: the JAX ``Validator``
 reads the Detect head's maps, which its decoder does not give, so the
-JAX package cannot validate one; the port raises a ``ValueError``.
+JAX package cannot validate one; the port raises a ``ValueError``. A
+YOLO-World model takes the detect path, scored against its own
+``txt_feats``; its val loader is the JAX one's ``MultiModalDataset``
+(unseeded ``RandomLoadText``, no embeddings), which remaps each image's
+label classes to their sampled text slots, as in JAX.
 """
 from __future__ import annotations
 
@@ -106,7 +110,7 @@ class Validator:
             self.cm = MET.ConfusionMatrix(int(self.model.nc), conf=self.conf)
         jdict, files, class_map = [], loader.ds.files, self._class_map(data)
         model, device, dtype = self._eval_model()
-        if task != "detect":
+        if task not in ("detect", "world"):
             return self._call_task(model, loader, device, dtype)
         stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
         n_img = 0

@@ -8,14 +8,19 @@ YOLO12, ViL-YOLO, the ``-seg``, ``-pose`` and ``-obb`` files of v8, v9, 11
 and 12, the six ``-cls`` files with their ``ResNetLayer`` and
 ``TorchVision`` backbones, and the five RT-DETR files with ``HGStem``,
 ``HGBlock`` (arguments raw, the row's repeat count its chain length),
-``AIFI``, ``RepC3`` and ``LightConv``) and the ViL blocks of
+``AIFI``, ``RepC3`` and ``LightConv``), YOLO-World's (``C2fAttn`` ``[c2,
+ec, nh]``, c2 and ec width-scaled, the row's repeat count its inner
+Bottlenecks; ``ImagePoolingAttn`` ``[ec]``, ec width-scaled, its output the
+512-wide guide) and the ViL blocks of
 ``nn/vil_blocks.py`` (registered under their JAX names). The head row sets
 the task: ``Segment`` (its third argument, the prototype channels,
 width-scaled), ``Pose`` (``kpt_shape`` from the YAML's top level, as a
 tuple), ``OBB``, ``Classify`` (its one argument, the class count, or the
-YAML's ``nc``) and ``RTDETRDecoder``. ``GraphModel.forward`` hands the
+YAML's ``nc``), ``RTDETRDecoder`` and ``WorldDetect`` (``[nc, embed_dim,
+with_bn]``, task ``world``; its class count is the guide's). ``GraphModel.forward`` hands the
 head row its keyword arguments (``head_kwargs``: RT-DETR's denoising
-queries). The names of the other JAX heads and
+queries) and threads the text guide (``guide``, YOLO-World's text
+embeddings) through the rows that take it. The names of the other JAX heads and
 families (``NOT_PORTED``) raise a ``KeyError`` that says what they wait
 on. As in JAX, a graph with a ``C3k2`` or ``A2C2f`` row (YOLO11, 12)
 builds its head with ``legacy=False``. The YAML
@@ -41,6 +46,7 @@ import torch.nn as nn
 from . import heads as H
 from . import modules as M
 from . import rtdetr as R
+from . import world as W
 from .vil_blocks import BLOCKS
 
 # name -> (module class, kind); kind decides channel/argument resolution:
@@ -51,6 +57,8 @@ from .vil_blocks import BLOCKS
 #   "concat" c2 = sum of the input channels
 #   "index"  c2 = args[0], the channels of the selected list element
 #   "head"   detection head over a list of taps
+#   "world"  C2fAttn [c2, ec, nh]: c2 and ec width-scaled, the repeats internal
+#   "world_pool" ImagePoolingAttn [ec]: ec width-scaled, c2 the 512-wide guide
 #   "custom" the class's own ``parse``
 REGISTRY: dict[str, tuple[Any, str]] = {
     "Conv": (M.ConvBN, "conv"),
@@ -97,6 +105,9 @@ REGISTRY: dict[str, tuple[Any, str]] = {
     "OBB": (H.OBB, "head"),
     "Classify": (M.Classify, "head"),
     "RTDETRDecoder": (R.RTDETRDecoder, "head"),
+    "WorldDetect": (W.WorldDetect, "head"),
+    "C2fAttn": (W.C2fAttn, "world"),
+    "ImagePoolingAttn": (W.ImagePoolingAttn, "world_pool"),
     "HGStem": (R.HGStem, "custom"),
     "HGBlock": (R.HGBlock, "custom"),
     "AIFI": (R.AIFI, "custom"),
@@ -109,8 +120,6 @@ REGISTRY: dict[str, tuple[Any, str]] = {
 # names of the JAX graph the port refuses, with what they wait on
 NOT_PORTED = {
     "MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py",
-    **{name: "the YOLO-World family (nn/world.py) is not ported yet"
-       for name in ("C2fAttn", "WorldDetect", "ImagePoolingAttn")},
     **{name: "no detection YAML uses it; it is not ported yet"
        for name in ("Focus", "Conv2", "C1", "C2fPSA", "C3x", "BottleneckCSP", "CBAM",
                     "ChannelAttention", "SpatialAttention")},
@@ -119,7 +128,10 @@ NOT_PORTED = {
 
 # the task each head row sets
 TASKS = {"Detect": "detect", "v10Detect": "detect", "Segment": "segment", "Pose": "pose",
-         "OBB": "obb", "Classify": "classify", "RTDETRDecoder": "rtdetr"}
+         "OBB": "obb", "Classify": "classify", "RTDETRDecoder": "rtdetr",
+         "WorldDetect": "world"}
+
+GUIDE_DIM = 512  # the guide's width where no WorldDetect row names one, and ImagePoolingAttn's
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -144,7 +156,7 @@ class LayerSpec:
     def build_one(self, c1) -> nn.Module:
         cls, kind = REGISTRY[self.name]
         kw = dict(self.kwargs)
-        if kind in ("conv", "csp", "elan"):
+        if kind in ("conv", "csp", "elan", "world"):
             return cls(c1, *self.args, **kw)
         return cls(*self.args, **kw)
 
@@ -195,6 +207,10 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
     rows = list(cfg["backbone"]) + list(cfg.get("head", []))
     # the YOLO11 / 12 graphs switch the Detect class branch to its depthwise form
     legacy_head = not any(r[2] in ("C3k2", "A2C2f") for r in rows)
+    # the guide's width: the WorldDetect row's embed_dim (the default text
+    # embeddings' width) until an ImagePoolingAttn row replaces it
+    guide_dim = next((int(r[3][1]) if len(r[3]) > 1 else GUIDE_DIM
+                      for r in rows if r[2] == "WorldDetect"), GUIDE_DIM)
     for i, (f, n, name, args) in enumerate(rows):
         fs = tuple(f) if isinstance(f, (list, tuple)) else (f,)
         fs = tuple(x if x >= 0 else i + x for x in fs)
@@ -215,6 +231,18 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
         elif kind == "elan":
             c2 = make_divisible(min(args[0], max_ch) * width, 8)
             margs = [c2, args[1], args[2], args[3] if len(args) > 3 else 1]
+        elif kind == "world":
+            c2 = make_divisible(min(args[0], max_ch) * width, 8)
+            ec = make_divisible(min(args[1], max_ch) * width, 8) if len(args) > 1 else 128
+            margs = [c2]
+            kwargs = {"ec": ec, "nh": int(args[2]) if len(args) > 2 else 1, "n": n_rep,
+                      "gc": guide_dim}
+        elif kind == "world_pool":
+            c2 = GUIDE_DIM
+            margs = [tuple(channels[x + 1] for x in fs)]
+            kwargs = {"ec": make_divisible(min(args[0] if args else 256, max_ch) * width, 8),
+                      "gc": guide_dim}
+            guide_dim = c2
         elif kind == "concat":
             c2 = sum(channels[x + 1] for x in fs)
             margs = [args[0] if args else 1]  # YAML dims are NCHW already
@@ -239,6 +267,9 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
             task = TASKS[name]
             margs = list(args) if args and name in ("Segment", "Pose", "OBB") else [
                 args[0] if args else nc]
+            if name == "WorldDetect":  # [nc, embed_dim, with_bn]: nc is the guide's
+                margs = [int(args[1]) if len(args) > 1 else GUIDE_DIM]
+                kwargs["with_bn"] = bool(args[2]) if len(args) > 2 else False
             if name == "Segment" and len(margs) > 2:  # the prototype channels width-scale
                 margs[2] = make_divisible(min(margs[2], max_ch) * width, 8)
             if name == "Pose" and len(margs) > 1 and isinstance(margs[1], (list, tuple)):
@@ -247,12 +278,12 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
                 margs = [c1, *margs]
             else:
                 kwargs["ch"] = tuple(channels[x + 1] for x in fs)
-                if name not in ("v10Detect", "RTDETRDecoder") and not legacy_head:
+                if name not in ("v10Detect", "RTDETRDecoder", "WorldDetect") and not legacy_head:
                     kwargs["legacy"] = False
         else:
             ch_in = tuple(channels[x + 1] for x in fs)
             c2, margs, kwargs = cls.parse(args, ch_in, width=width, max_ch=max_ch, n=n_rep)
-        if kind in ("csp", "elan", "custom"):
+        if kind in ("csp", "elan", "custom", "world", "world_pool"):
             n_rep = 1  # the block takes its own repeat count
         specs.append(LayerSpec(i=i, f=fs, name=name, c1=c1, c2=c2,
                                args=tuple(margs),
@@ -265,7 +296,11 @@ def parse_model(cfg: dict, ch: int = 3, scale: str | None = None) -> ParsedModel
 
 class GraphModel(nn.Module):
     """Replays a parsed graph, caching the outputs later layers read.
-    Returns the head's output; ``head_kwargs`` go to the head row."""
+    Returns the head's output; ``head_kwargs`` go to the head row. A row
+    whose module sets ``needs_guide`` takes the running ``guide`` (B | 1,
+    nt, C) after its input (without one, zeros (B, 1, 512), as the JAX
+    graph's init-time fallback); one that sets ``updates_guide`` replaces it
+    for every later row."""
 
     def __init__(self, parsed: ParsedModel):
         super().__init__()
@@ -273,7 +308,7 @@ class GraphModel(nn.Module):
         for spec in parsed.specs:
             setattr(self, f"l{spec.i}", spec.build())
 
-    def forward(self, x, head_kwargs: dict | None = None):
+    def forward(self, x, head_kwargs: dict | None = None, guide=None):
         cache = {}
         prev = x
         save = set(self.parsed.save)
@@ -283,7 +318,15 @@ class GraphModel(nn.Module):
             else:
                 inp = [prev if j == spec.i - 1 else cache[j] for j in spec.f]
             extra = head_kwargs if head_kwargs and spec.i == self.parsed.head_index else {}
-            prev = getattr(self, f"l{spec.i}")(inp, **extra)
+            mod = getattr(self, f"l{spec.i}")
+            if getattr(mod, "needs_guide", False):
+                if guide is None:
+                    guide = x.new_zeros((x.shape[0], 1, GUIDE_DIM))
+                prev = mod(inp, guide, **extra)
+                if getattr(mod, "updates_guide", False):
+                    guide = prev
+            else:
+                prev = mod(inp, **extra)
             if spec.i in save:
                 cache[spec.i] = prev
         return prev

@@ -1,7 +1,7 @@
 """Task model: a compiled YAML graph plus its task metadata.
 
 Port of ``TaskModel`` in ``xlstm_yolo_tpu/nn/tasks.py`` for the detect,
-segment, pose, obb, classify and rtdetr tasks.
+segment, pose, obb, classify, rtdetr and world tasks.
 The torch model owns its parameters (the JAX one keeps them outside as a
 pytree): they are initialized from a ``torch.Generator`` seed with the JAX
 package's init scheme, or loaded from a JAX variable tree with
@@ -19,6 +19,18 @@ the denoising loss in train mode. A model whose
 head is ``v10Detect`` is end to end (``e2e``): its inference decodes the
 ``one2one`` branch (then the usual NMS, as the JAX package serves it), and
 its loss is the one2many loss (TAL top-10) plus the one2one loss (top-1).
+
+A YOLO-World model (task ``world``, head ``WorldDetect``) scores its
+classes against text embeddings, the guide: ``txt_feats`` (1, nc, embed),
+raw normal draws from a generator seeded 0 by default, as the JAX model
+draws them from ``PRNGKey(0)`` (a plain attribute that follows the model's
+device and dtype moves, neither a parameter nor a buffer: the JAX
+variables do not hold it, and a checkpoint does not either);
+``set_classes`` swaps in other embeddings, L2-normalized, or class names
+through a text encoder. ``predictions`` and ``predictions_full`` take the
+model's guide, ``loss`` a batch's ``txt_feats`` (B, nt, embed) where the
+batch has one; the class count of the maps, and so of the v8 detection
+loss, is the guide's nt.
 """
 from __future__ import annotations
 
@@ -57,10 +69,57 @@ class TaskModel(GraphModel):
         self.task = parsed.task
         self.reg_max = 16
         self.e2e = parsed.head_index >= 0 and parsed.specs[parsed.head_index].name == "v10Detect"
+        self.txt_feats = None
+        if self.task == "world":
+            embed = int(parsed.specs[parsed.head_index].args[0])
+            self.txt_feats = torch.randn((1, self.nc, embed),
+                                         generator=torch.Generator().manual_seed(0))
         self.init_weights(seed)
         self.eval()
         self.strides = self._probe_strides()
         self.to(dev)
+
+    def _apply(self, fn, *args, **kwargs):
+        """Module moves and casts (``to``, ``cuda``, ``double``) take the
+        guide along."""
+        super()._apply(fn, *args, **kwargs)
+        if self.txt_feats is not None:
+            self.txt_feats = fn(self.txt_feats)
+        return self
+
+    def forward(self, x, head_kwargs: dict | None = None, guide=None):
+        """The graph on NCHW ``x``; a world model's guide is ``guide`` where
+        given, else ``txt_feats``."""
+        if guide is None:
+            guide = self.txt_feats
+        if guide is not None:
+            guide = torch.as_tensor(guide).to(x.device)
+        return super().forward(x, head_kwargs, guide)
+
+    @torch.no_grad()
+    def set_classes(self, embeddings, encoder=None) -> None:
+        """A world model's guide from ``embeddings`` ((nt, embed) or (1, nt,
+        embed) vectors) or from a list of class names, which ``encoder``
+        (``nn.clip_text.ClipTextEncoder``, or any ``list[str] -> (nt,
+        embed)`` callable) embeds; L2-normalized (the norm clipped at 1e-6),
+        fp32, on the model's device. ``nc`` becomes nt, ``names`` the class
+        names (or their indices). Names without an encoder raise."""
+        names = None
+        if isinstance(embeddings, (list, tuple)) and embeddings and isinstance(embeddings[0], str):
+            if encoder is None:
+                raise ValueError("set_classes received strings but no text encoder; pass "
+                                 "encoder=ClipTextEncoder(...) (nn/clip_text.py) or precomputed "
+                                 "embeddings")
+            names = dict(enumerate(embeddings))
+            embeddings = encoder(list(embeddings))
+        e = torch.as_tensor(embeddings, dtype=torch.float32)
+        if e.ndim == 2:
+            e = e[None]
+        dev = next(self.parameters()).device
+        self.txt_feats = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True).clamp_min(1e-6)
+                          ).to(dev)
+        self.nc = int(e.shape[1])
+        self.names = names or {i: f"{i}" for i in range(self.nc)}
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
@@ -143,7 +202,9 @@ class TaskModel(GraphModel):
         uses the batch statistics and updates its running ones. Returns
         (total, terms): {"box", "cls", "dfl"}, plus "seg", or "pose" and
         "kobj"; a classify model's is the cross-entropy of its logits against
-        ``batch["label"]`` (B,) int64, (total, {"cls": total}). An
+        ``batch["label"]`` (B,) int64, (total, {"cls": total}). A world
+        model's guide is ``batch["txt_feats"]`` where the batch has one,
+        else its own ``txt_feats``. An
         end-to-end model (``e2e``) sums the one2many loss at TAL
         top-10 and the one2one loss at top-1, term by term; its head
         computes the one2many branch in train mode only, so its loss needs
@@ -156,7 +217,7 @@ class TaskModel(GraphModel):
         ``PRNGKey(0)`` without a ``dn_key``)."""
         if self.task == "rtdetr":
             return self._rtdetr_loss(batch)
-        raw = self(batch["img"].permute(0, 3, 1, 2))
+        raw = self(batch["img"].permute(0, 3, 1, 2), guide=batch.get("txt_feats"))
         if self.task == "classify":
             total = classification_loss(raw, batch["label"])
             return total, {"cls": total}

@@ -30,8 +30,10 @@ the layout conventions converted:
   -> ``running_mean``/``running_var``;
 * everything else (biases, norm scales, headwise (nh, dh, dh) weights,
   ``learnable_skip``, the sLSTM ``recurrent_kernel`` (nh, dh, 4, dh) and
-  ``bias`` (nh, 4, dh)) keeps its name and shape. The layout rules apply to
-  leaves named ``kernel`` only.
+  ``bias`` (nh, 4, dh), YOLO-World's 0-d ``bias``, ``logit_scale`` and
+  ``scale``, a BatchNorm's ``scale`` under another name than ``bn``, which
+  the port keeps as ``scale``) keeps its name and shape. The layout rules
+  apply to leaves named ``kernel`` only.
 
 Any missing or extra key, or a shape mismatch, raises. ``port_named`` maps
 any tree shaped like ``params`` (gradients, an optimizer trace, an EMA) to
@@ -101,7 +103,8 @@ def torch_name(path: str, arr: np.ndarray, transposed: frozenset = frozenset()
         leaf = "weight"
     elif leaf == "embedding":
         leaf = "weight"
-    return ".".join([*mods, leaf]), np.ascontiguousarray(arr)
+    # np.ascontiguousarray makes a 0-d leaf (a scalar parameter) 1-d
+    return ".".join([*mods, leaf]), np.ascontiguousarray(arr) if arr.ndim else np.array(arr)
 
 
 ATTENTION_PARTS = ("query", "key", "value", "out")  # flax MultiHeadDotProductAttention's
