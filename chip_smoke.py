@@ -176,6 +176,18 @@ an epoch without validation on PNGs it writes, predicting, saved and
 reloaded to the same predictions, its ``val`` refused. No hand kernel runs
 (plain XLA in JAX).
 
+SAM and SAM2 (``sam_path``, last): SAM ViT-B at Segment Anything's
+``build_sam_vit_b`` widths, 1024 px, on a uint8 540 x 810 frame with seeded
+perturbed weights: ``SAMPredictor.set_image`` and ``predict`` (a point, a
+box) split into host and device ms, the encoder alone at batch 8 (img/s,
+TFLOP/s, device-busy ms), ``SAMAutoMaskGenerator.generate`` at its defaults
+and at stride 8 with the thresholds off; vit_l, vit_h and mobile_sam built
+with the JAX counts, one ``set_image`` and ``predict`` each; SAM2.1-tiny
+through ``SAM2Predictor`` and ``SAM2VideoPredictor`` over 10 frames (the
+ring buffer full from frame 7), TinyViT once; both families against the
+CPU at 256 px, the video's ring state included. No hand kernel runs (plain
+XLA in JAX).
+
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -5716,6 +5728,370 @@ def phase_world_path(smi_line):
     return {k: v for k, v in counts.items() if v}
 
 
+# sam_path: SAM ViT-B (Segment Anything's build_sam_vit_b widths: 1024 px, dim 768, 12 blocks,
+# 12 heads, window 14, global attention at 2, 5, 8, 11; prompt dim 256) and SAM2.1-tiny
+# (Hiera-T: embed 96, stages 1-2-7-2, windows 8-4-14-7, global 5, 7, 9; d_model 256, mem_dim 64,
+# 7 memory slots) at 1024 px on seeded perturbed weights; the JAX parameter counts
+# (jax.eval_shape of the JAX init; tests/test_torch_sam.py holds the port to the same)
+SAM_COUNTS = {"vit_b": 93_993_572, "vit_l": 312_600_932, "vit_h": 641_308_260,
+              "mobile_sam": 7_810_916, "sam2_t": 38_185_380}
+SAM_SIZE, SAM_ENC_BATCH, SAM_ENC_TIMED = 1024, 8, 3
+SAM_VIDEO_FRAMES = 10
+SAM_CPU_SIZE, SAM2_CPU_FRAMES = 256, 4  # the card against the CPU: ViT-B / Hiera-T widths at 256 px
+SAM_NEAR = 0.01  # the share of a mask's pixels that may lie within TOL_REL of its threshold
+
+
+def sam_perturb(model, seed: int, std: float = 0.02):
+    """Seeded noise on every parameter, drawn on the CPU: the rel-pos
+    tables and the memory's temporal table start at zero, which would leave
+    their paths undriven."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+    return model
+
+
+def sam_tflop(variant: str, call) -> float:
+    """TFLOP of ``call(model)`` (2 per multiply-add; ``torch.utils.flop_counter``)
+    on the meta device, ``variant`` built by ``build_sam``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from xlstm_yolo_torch.models_sam2 import build_sam
+
+    with torch.device("meta"):
+        model = build_sam(variant, device="meta")
+        with FlopCounterMode(display=False) as counter:
+            call(model)
+    return counter.get_total_flops() / 1e12
+
+
+def events_ms(fn):
+    """(fn(), its ms between two CUDA events, its host wall ms to the sync)."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def rel_err(got, want) -> float:
+    """``compare``'s relative error, of two tensors on any devices."""
+    return compare(got.detach().cpu(), want.detach().cpu())[1]
+
+
+def bool_near(got, want, want_float, thresh: float = 0.0) -> dict:
+    """Boolean masks against the reference's: differing pixels away from the
+    threshold (must be 0), pixels within TOL_REL of the max of the
+    threshold (a share bounded by SAM_NEAR), differing pixels in all."""
+    f = np.abs(np.asarray(want_float, np.float64) - thresh)
+    near = f <= TOL_REL * f.max()
+    diff = np.asarray(got) != np.asarray(want)
+    return {"far_mismatches": int((diff & ~near).sum()), "near_share": float(near.mean()),
+            "mismatches": int(diff.sum())}
+
+
+def sam_predict_timed(pred, frame, prompts: dict) -> tuple:
+    """``pred.set_image`` then ``predict`` for each prompt, each split into
+    its host and device ms (a warm-up call first): set_image's letterbox
+    (host) and encode (device, events); predict's decode (events, prompts
+    mapped on the host and copied in) and the masks to the original size
+    (host: the transfer and the two float cv2-linear resizes)."""
+    pred.set_image(frame)
+    t0 = time.perf_counter()
+    lb = pred.preprocess(frame)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _, dev_ms, _ = events_ms(lambda: pred.encode(lb))
+    out = {"set_image": {"host_ms": host_ms, "device_ms": dev_ms}}
+    oh, ow = frame.shape[:2]
+    ok = True
+    for name, kw in prompts.items():
+        multi = kw.get("multimask_output", True)
+        args = {k: v for k, v in kw.items() if k != "multimask_output"}
+        pred.predict(**kw)
+        (masks, iou), dev_ms, _ = events_ms(lambda: pred.decode(**args))
+        t0 = time.perf_counter()
+        bm, scores = pred.postprocess(masks, iou, multi)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        good = (bm.dtype == bool and bm.shape == ((4 if multi else 1), oh, ow)
+                and bool(np.isfinite(scores).all()) and bool(masks.isfinite().all()))
+        ok = ok and good
+        out[name] = {"device_ms": dev_ms, "host_ms": host_ms, "masks": list(bm.shape),
+                     "mask_share": float(bm.mean()), "iou": scores.tolist(), "ok": good}
+    return ok, out
+
+
+def sam_prompts(frame) -> dict:
+    oh, ow = frame.shape[:2]
+    return {"point": {"points": [[ow * 0.5, oh * 0.4]], "point_labels": [1]},
+            "box": {"boxes": [ow * 0.2, oh * 0.2, ow * 0.7, oh * 0.8],
+                    "multimask_output": False}}
+
+
+def sam_amg(pred, frame, **kw) -> tuple:
+    """``SAMAutoMaskGenerator(pred, **kw).generate`` on ``frame`` (crop layers
+    0), after a warm-up call: the device stage (``crop_batches``: encode,
+    every point batch's decode, stability, boxes and keep flags, the kept
+    masks' copy out; events and wall ms) and the host stage (NMS, uncrop;
+    ms), the prompts, batches and masks kept."""
+    from xlstm_yolo_torch.data.augment import letterbox
+    from xlstm_yolo_torch.models_sam import SAMAutoMaskGenerator
+
+    gen = SAMAutoMaskGenerator(pred, **kw)
+    gen.generate(frame)
+    lb, _, meta = letterbox(frame, pred.img_size)
+    per_crop, dev_ms, dev_wall_ms = events_ms(lambda: gen.crop_batches(lb))
+    t0 = time.perf_counter()
+    masks, scores, boxes = gen.host_stage(per_crop, frame.shape[:2], meta)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    oh, ow = frame.shape[:2]
+    n_prompts = gen.points_stride ** 2
+    candidates = sum(len(c[2]) for c in per_crop if c[2] is not None)
+    ok = bool(masks.shape == (len(scores), oh, ow) and len(boxes) == len(scores)
+              and np.isfinite(scores).all()
+              and (not len(boxes) or (boxes[:, [0, 2]].min() >= 0 and boxes[:, 2].max() <= ow
+                                      and boxes[:, 3].max() <= oh)))
+    return ok, {"points_stride": gen.points_stride, "prompts": n_prompts,
+                "batches": -(-n_prompts // gen.points_batch_size),
+                "device_stage_ms": dev_ms, "device_stage_wall_ms": dev_wall_ms,
+                "host_stage_ms": host_ms, "candidates_kept_on_device": candidates,
+                "masks_kept": len(scores), "ok": ok}
+
+
+def sam_vit_b(frame) -> tuple:
+    """SAM ViT-B at 1024: the count, ``SAMPredictor`` timed (point, box),
+    the encoder alone at batch 8 (img/s, TFLOP/s, device-busy ms, peak
+    GiB), the automatic generator at its defaults and at stride 8 with the
+    thresholds off."""
+    import torch
+
+    from xlstm_yolo_torch.models_sam import SAMPredictor
+    from xlstm_yolo_torch.models_sam2 import build_sam
+
+    model = sam_perturb(build_sam("vit_b", device="cuda", seed=0), 1)
+    params = sum(p.numel() for p in model.parameters())
+    pred = SAMPredictor(model, img_size=SAM_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    pred_ok, timed = sam_predict_timed(pred, frame, sam_prompts(frame))
+    peak_predict = torch.cuda.max_memory_allocated() / 2**30
+    tflop = sam_tflop("vit_b", lambda m: m.encode_image(torch.zeros(1, SAM_SIZE, SAM_SIZE, 3)))
+    x = torch.rand(SAM_ENC_BATCH, SAM_SIZE, SAM_SIZE, 3, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        emb = model.encode_image(x)
+        ms = sum(events_ms(lambda: model.encode_image(x))[1]
+                 for _ in range(SAM_ENC_TIMED)) / SAM_ENC_TIMED
+        busy = device_busy_ms(lambda: model.encode_image(x), calls=1)
+    enc = {"batch": SAM_ENC_BATCH, "ms": ms, "img_per_s": SAM_ENC_BATCH / ms * 1e3,
+           "tflop_per_image": tflop, "tflop_per_s": SAM_ENC_BATCH * tflop / ms * 1e3,
+           "device_busy_ms": busy, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "finite": bool(emb.isfinite().all())}
+    del emb, x
+    amg_ok, amg = sam_amg(pred, frame)
+    amg8_ok, amg8 = sam_amg(pred, frame, points_stride=8, conf_thres=-1e9,
+                            stability_score_thresh=-1.0)
+    ok = (params == SAM_COUNTS["vit_b"] and pred_ok and enc["finite"] and amg_ok and amg8_ok
+          and amg8["masks_kept"] > 0)
+    del pred, model
+    torch.cuda.empty_cache()
+    return ok, {"params": params, "params_jax": SAM_COUNTS["vit_b"], **timed,
+                "predict_peak_gib": peak_predict, "encoder": enc, "amg_default": amg,
+                "amg_stride8_thresholds_off": amg8}
+
+
+def sam_other_variants(frame) -> tuple:
+    """vit_l, vit_h and mobile_sam at 1024: the JAX count, one set_image and
+    one point predict each (a warm-up first)."""
+    import torch
+
+    from xlstm_yolo_torch.models_sam import SAMPredictor
+    from xlstm_yolo_torch.models_sam2 import build_sam
+
+    out, ok = {}, True
+    for variant in ("vit_l", "vit_h", "mobile_sam"):
+        t0 = time.perf_counter()
+        model = build_sam(variant, device="cuda", seed=0)
+        build_s = time.perf_counter() - t0
+        params = sum(p.numel() for p in model.parameters())
+        good, timed = sam_predict_timed(SAMPredictor(model, img_size=SAM_SIZE), frame,
+                                        {"point": sam_prompts(frame)["point"]})
+        good = good and params == SAM_COUNTS[variant]
+        ok = ok and good
+        out[variant] = {"params": params, "params_jax": SAM_COUNTS[variant], "build_s": build_s,
+                        **timed, "ok": good}
+        del model
+        torch.cuda.empty_cache()
+    return ok, out
+
+
+def sam2_tiny(frame) -> tuple:
+    """SAM2.1-tiny at 1024: the count, ``SAM2Predictor`` timed (point), then
+    ``SAM2VideoPredictor`` over SAM_VIDEO_FRAMES frames with a point on the
+    first (after a warm-up video): each frame's host prep, device step
+    (events) and readback ms, the ring's state (7 valid slots from frame 7),
+    peak GiB; TinyViT at its defaults once."""
+    import torch
+
+    from xlstm_yolo_torch.models_sam2 import SAM2Predictor, SAM2VideoPredictor, TinyViT, build_sam
+
+    model = sam_perturb(build_sam("sam2_t", device="cuda", seed=0), 2)
+    params = sum(p.numel() for p in model.parameters())
+    pred_ok, timed = sam_predict_timed(SAM2Predictor(model, img_size=SAM_SIZE), frame,
+                                       {"point": sam_prompts(frame)["point"]})
+    rng = np.random.default_rng(7)
+    frames = [frame] + [rng.integers(0, 256, frame.shape, dtype=np.uint8)
+                        for _ in range(SAM_VIDEO_FRAMES - 1)]
+    point = sam_prompts(frame)["point"]
+    vp = SAM2VideoPredictor(model, img_size=SAM_SIZE).init_state()
+    vp.track(frames[0], **point)
+    vp.track(frames[1])
+    vp.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    per_frame, valid_after, finite = [], [], True
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        x = vp._prep(f)
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        kw = dict(points=point["points"], point_labels=point["point_labels"],
+                  frame_shape=f.shape) if i == 0 else {}
+        (masks, iou), dev_ms, _ = events_ms(lambda: vp.step(x, **kw))
+        t0 = time.perf_counter()
+        best = masks[0, int(np.argmax(iou[0].cpu().numpy()))].cpu().numpy()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        finite = finite and bool(np.isfinite(best).all())
+        per_frame.append({"prep_ms": prep_ms, "device_ms": dev_ms, "readback_ms": read_ms})
+        valid_after.append(int(vp._state["valid"].sum()))
+    tflop_full = sam_tflop("sam2_t", lambda m: m.track_step(
+        torch.zeros(1, SAM_SIZE, SAM_SIZE, 3), torch.zeros(1, 7, (SAM_SIZE // 16) ** 2, 64),
+        torch.zeros(1, 7, dtype=torch.int32), torch.ones(1, 7, dtype=torch.bool),
+        torch.zeros(1, 1, 2), torch.ones(1, 1)))
+    dev = [p["device_ms"] for p in per_frame]
+    video = {"frames": len(frames), "per_frame": per_frame, "valid_slots_after": valid_after,
+             "ptr": vp._state["ptr"], "ages": vp._state["age"][0].tolist(),
+             "device_ms_mean_after_frame_0": float(np.mean(dev[1:])),
+             "track_step_tflop": tflop_full,
+             "tflop_per_s": tflop_full / np.mean(dev[1:]) * 1e3,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    ring_ok = (valid_after == [min(i + 1, 7) for i in range(len(frames))]
+               and vp._state["ptr"] == len(frames) - 1)
+    del vp, model
+    torch.cuda.empty_cache()
+    tiny = TinyViT(device="cuda", seed=0)
+    x = torch.rand(1, SAM_SIZE, SAM_SIZE, 3, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(1))
+    with torch.inference_mode():
+        tiny(x)
+        y, tiny_ms, _ = events_ms(lambda: tiny(x))
+    tiny_ok = tuple(y.shape) == (1, SAM_SIZE // 16, SAM_SIZE // 16, 256) and bool(
+        y.isfinite().all())
+    ok = params == SAM_COUNTS["sam2_t"] and pred_ok and finite and ring_ok and tiny_ok
+    return ok, {"params": params, "params_jax": SAM_COUNTS["sam2_t"], "predictor": timed,
+                "video": video, "ring_ok": ring_ok,
+                "tinyvit": {"ms": tiny_ms, "shape": list(y.shape), "ok": tiny_ok}}
+
+
+def sam_card_vs_cpu(frame) -> tuple:
+    """SAM at ViT-B widths and SAM2 at Hiera-T widths at 256 px, fp32, one
+    set of seeded perturbed weights built on the CPU and copied to the
+    card, inputs divided by 255 on the host: SAM's embedding, masks and IoU
+    (point and box), its predictor's booleans by the near-threshold rule;
+    SAM2's masks, IoU, bank, ages, validity and pointer over
+    SAM2_CPU_FRAMES video frames, a point on the first."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.data.augment import letterbox
+    from xlstm_yolo_torch.data.imgproc import resize
+    from xlstm_yolo_torch.models_sam import SAM, letterbox_meta_prompts, mask_to_image
+    from xlstm_yolo_torch.models_sam2 import SAM2, SAM2VideoPredictor
+
+    S = SAM_CPU_SIZE
+    cpu = sam_perturb(SAM(img_size=S, device="cpu", seed=0), 3)
+    card = copy.deepcopy(cpu).cuda()
+    lb, _, meta = letterbox(frame, S)
+    x = torch.from_numpy(lb)[None].float() / 255.0
+    errs, bools = {}, {}
+    with torch.inference_mode():
+        ec, eg = cpu.encode_image(x), card.encode_image(x.cuda())
+        errs["embedding"] = rel_err(eg, ec)
+        for name, kw in sam_prompts(frame).items():
+            p, lab, bx = letterbox_meta_prompts(meta, kw.get("points"), kw.get("point_labels"),
+                                                kw.get("boxes"))
+            args = [None if a is None else torch.as_tensor(a) for a in (p, lab, bx)]
+            mc, ic = cpu.decode(ec, *args)
+            mg, ig = card.decode(eg, *[None if a is None else a.cuda() for a in args])
+            errs[f"{name}_masks"], errs[f"{name}_iou"] = rel_err(mg, mc), rel_err(ig, ic)
+            for k in range(mc.shape[1]):
+                fc = mask_to_image(mc[0, k].numpy(), S, meta, frame.shape[:2])
+                fg = mask_to_image(mg[0, k].cpu().numpy(), S, meta, frame.shape[:2])
+                bools[f"{name}_{k}"] = bool_near(fg > 0, fc > 0, fc)
+    cpu2 = sam_perturb(SAM2(img_size=S, device="cpu", seed=0), 4)
+    vc = SAM2VideoPredictor(cpu2, img_size=S).init_state()
+    vg = SAM2VideoPredictor(copy.deepcopy(cpu2).cuda(), img_size=S).init_state()
+    rng = np.random.default_rng(8)
+    point = sam_prompts(frame)["point"]
+    state_equal = True
+    for i in range(SAM2_CPU_FRAMES):
+        f = frame if i == 0 else rng.integers(0, 256, frame.shape, dtype=np.uint8)
+        xf = torch.from_numpy(resize(f, (S, S)))[None].float() / 255.0
+        kw = dict(points=point["points"], point_labels=point["point_labels"],
+                  frame_shape=f.shape) if i == 0 else {}
+        mc, ic = vc.step(xf, **kw)
+        mg, ig = vg.step(xf.cuda(), **kw)
+        errs[f"video{i}_masks"], errs[f"video{i}_iou"] = rel_err(mg, mc), rel_err(ig, ic)
+        errs[f"video{i}_bank"] = rel_err(vg._state["bank"], vc._state["bank"])
+        state_equal = state_equal and vg._state["ptr"] == vc._state["ptr"] and all(
+            torch.equal(vg._state[k].cpu(), vc._state[k]) for k in ("age", "valid"))
+    worst = max(errs.values())
+    far = sum(b["far_mismatches"] for b in bools.values())
+    near = max(b["near_share"] for b in bools.values())
+    ok = worst <= TOL_REL and far == 0 and near <= SAM_NEAR and state_equal
+    return ok, {"card_vs_cpu_imgsz": S, "tol": TOL_REL, "max_rel_err": worst, "rel_err": errs,
+                "bool_far_mismatches": far, "bool_mismatches": sum(
+                    b["mismatches"] for b in bools.values()), "bool_near_share_max": near,
+                "ring_state_equal": state_equal, "ok": ok}
+
+
+def phase_sam_path(smi_line):
+    """SAM ViT-B (``sam_vit_b``), vit_l / vit_h / mobile_sam
+    (``sam_other_variants``), SAM2.1-tiny and TinyViT (``sam2_tiny``) at
+    1024 px on a uint8 540 x 810 frame, and ``sam_card_vs_cpu``. No hand
+    kernel runs (plain XLA in JAX): the counts, set to 0 just before, stay
+    0."""
+    import torch
+
+    t_phase = time.perf_counter()
+    frame = np.random.default_rng(0).integers(0, 256, (*SRC_HW, 3), dtype=np.uint8)
+    zero_all_kernel_counts()
+    failed = []
+    for label, part in (("vit_b", sam_vit_b), ("variants", sam_other_variants),
+                        ("sam2_tiny", sam2_tiny), ("card_vs_cpu", sam_card_vs_cpu)):
+        t0 = time.perf_counter()
+        ok, entry = part(frame)
+        ok = bool(ok)
+        emit({"phase": f"sam_path.{label}", **entry, "seconds": time.perf_counter() - t0,
+              "ok": ok})
+        if not ok:
+            failed.append(label)
+        torch.cuda.empty_cache()
+    counts = all_kernel_counts()
+    ok = not failed and not any(counts.values())
+    emit({"phase": "sam_path", "failed": failed, "launches": counts, "smi": smi_line,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"sam_path check failed: {failed or 'launches'}")
+    return {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -5770,6 +6146,8 @@ def main() -> int:
         rtdetr_launches = phase_rtdetr_path(smi_line)
         phase = "world_path"
         world_launches = phase_world_path(smi_line)
+        phase = "sam_path"
+        sam_launches = phase_sam_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -5797,7 +6175,8 @@ def main() -> int:
                "tasks_path": tasks_launches,
                "classify_path": classify_launches,
                "rtdetr_path": rtdetr_launches,
-               "world_path": world_launches}
+               "world_path": world_launches,
+               "sam_path": sam_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

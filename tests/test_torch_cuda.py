@@ -2256,3 +2256,56 @@ def test_clip_text_tower_on_card_matches_cpu(cuda_device, tmp_path):
     want, got = cpu.features(texts), card.features(texts).cpu()
     assert got.shape == (80, 512)
     assert _rel(got, want) <= 1e-5
+
+
+def _perturbed(model, seed, std=0.02):
+    """Seeded noise on every parameter (the rel-pos and temporal tables
+    start at zero)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * std)
+    return model
+
+
+def test_sam_decoder_on_card_matches_cpu(cuda_device):
+    """SAM's prompt encoder and two-way decoder at ViT-B's prompt width
+    (256, 8 heads) on a 64 x 64 embedding, points with a padded label and
+    a box, batch 2, fp32: masks and IoU within 1e-3 of their max."""
+    from xlstm_yolo_torch.models_sam import SAM
+
+    cpu = _perturbed(SAM(img_size=128, encoder_dim=64, encoder_depth=1, device="cpu"), 0)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.normal(size=(2, 64, 64, 256)).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(0, 128, (2, 3, 2)).astype(np.float32))
+    lab = torch.tensor([[1, 0, -1], [0, 1, 1]])
+    box = torch.tensor([[[10.0, 12.0], [90.0, 100.0]], [[3.0, 30.0], [60.0, 120.0]]])
+    with torch.inference_mode():
+        want = cpu.decode(emb, pts, lab, box)
+        got = card.decode(*(t.to(cuda_device) for t in (emb, pts, lab, box)))
+    for g, w in zip(got, want):
+        assert _rel(g.cpu(), w) <= TOL_REL
+
+
+def test_sam2_track_step_on_card_matches_cpu(cuda_device):
+    """SAM2's ``track_step`` at Hiera-T widths, 256 px, batch 2 with a point
+    each: one row with no valid slot (``x + no_mem_embed``), one with some;
+    masks, IoU and the new memory within 1e-3 of their max."""
+    from xlstm_yolo_torch.models_sam2 import SAM2
+
+    cpu = _perturbed(SAM2(img_size=256, device="cpu"), 1)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(1)
+    hw = (256 // 16) ** 2
+    args = (torch.from_numpy(rng.random((2, 256, 256, 3)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(2, 7, hw, 64)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 9, (2, 7)).astype(np.int32)),
+            torch.tensor([[False] * 7, [True, False, True, True, False, False, True]]),
+            torch.tensor([[[60.0, 80.0]], [[200.0, 40.0]]]), torch.tensor([[1.0], [0.0]]))
+    with torch.inference_mode():
+        want = cpu.track_step(*args)
+        got = card.track_step(*(t.to(cuda_device) for t in args))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel(g.cpu(), w) <= TOL_REL

@@ -324,26 +324,35 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8).reshape(h_out, w_out, *img.shape[2:])
 
 
+def _linear_taps_f32(n_in: int, n_out: int):
+    """cv2's float INTER_LINEAR taps: the source position (i + 0.5) * scale
+    - 0.5 in fp64 with scale = 1 / (n_out / n_in), its floor, and the
+    fraction rounded to fp32 once; past an edge the index clamps and the
+    fraction is 0."""
+    f = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    s = np.floor(f).astype(np.int64)
+    frac = (f - s).astype(np.float32)
+    frac[s < 0], s[s < 0] = 0.0, 0
+    edge = s >= n_in - 1
+    frac[edge], s[edge] = 0.0, n_in - 1
+    return s, np.minimum(s + 1, n_in - 1), frac
+
+
 def resize_linear_f32(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for a float32
-    (H, W) map: half-pixel centres, the taps clamped at the edges, the
-    horizontal then the vertical pass in float32. ``size`` is (width,
-    height)."""
-
-    def taps(n_in, n_out):
-        f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
-        s = np.floor(f).astype(np.int64)
-        f = f - s.astype(np.float32)
-        f[s < 0], s[s < 0] = 0.0, 0
-        edge = s >= n_in - 1
-        f[edge], s[edge] = 0.0, n_in - 1
-        return s, np.minimum(s + 1, n_in - 1), (np.float32(1) - f), f
-
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for float32
+    (H, W) or (H, W, C), bit for bit with OpenCV 5: each pass is a fused
+    ``fma(b - a, frac, a)`` between the two taps (``_linear_taps_f32``),
+    horizontal then vertical. An exact 2x shrink takes the same taps (0.5
+    each): OpenCV 5 keeps INTER_LINEAR there for float maps (its uint8 path
+    takes the 2 x 2 area mean, ``resize``). ``size`` is (width, height)."""
     img = np.asarray(img, np.float32)
-    x0, x1, a0, a1 = taps(img.shape[1], int(size[0]))
-    y0, y1, b0, b1 = taps(img.shape[0], int(size[1]))
-    rows = img[:, x0] * a0 + img[:, x1] * a1
-    return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
+    x0, x1, fx = _linear_taps_f32(img.shape[1], int(size[0]))
+    y0, y1, fy = _linear_taps_f32(img.shape[0], int(size[1]))
+    ex = (slice(None),) + (None,) * (img.ndim - 2)
+    left = img[:, x0]
+    rows = _fma(img[:, x1] - left, fx[ex], left)
+    top = rows[y0]
+    return _fma(rows[y1] - top, fy[(slice(None), None) + ex[1:]], top)
 
 
 def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:

@@ -63,11 +63,14 @@ def wang_init_(w: torch.Tensor, dim: int, num_blocks: int, g: torch.Generator) -
         w.normal_(0.0, 2.0 / max(num_blocks, 1) / math.sqrt(dim), generator=g)
 
 
-def init_tree(model: nn.Module, seed: int) -> torch.Generator:
+def init_tree(model: nn.Module, seed: int, device: torch.device | None = None) -> torch.Generator:
     """Initialize every submodule that has ``init_params`` from a generator
-    seeded with ``seed``; returns the generator, for what the model itself
-    still draws."""
-    g = torch.Generator().manual_seed(seed)
+    seeded with ``seed``, on ``device`` where the parameters were built
+    there (the CPU's otherwise, and for the meta device, which draws
+    nothing); returns the generator, for what the model itself still
+    draws."""
+    on = device if device is not None and device.type != "meta" else "cpu"
+    g = torch.Generator(on).manual_seed(seed)
     for m in model.modules():
         if hasattr(m, "init_params"):
             m.init_params(g)
