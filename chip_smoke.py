@@ -188,6 +188,21 @@ ring buffer full from frame 7), TinyViT once; both families against the
 CPU at 256 px, the video's ring state included. No hand kernel runs (plain
 XLA in JAX).
 
+Export and serving (``export_path``, last): ViL-YOLO-n as
+``build_main_model`` builds it, batch 8, 640 px, through
+``Exporter(format="pt2")`` (``torch.export`` with the ViL kernels as the
+registered ops ``xlstm_yolo::vil_layer_fwd``): the fp32 program's 3 K3
+nodes and 3 fp32 launches a call reloaded through ``AutoBackend``, against
+the plain-forced model, timed beside eager ``predictions``; ``half=True``
+(3 bf16 launches, against native bf16 serving by ``compare_bf16``);
+``nms=True`` against ``non_max_suppression`` of the eager candidates;
+yolo11n through the ``torch`` format and ``YOLO(pt)``; ``serve_model`` of
+the fp32 program on localhost against ``RemoteModel``, ms a request;
+``Model.benchmark``, ``profile_model``, ``profile_layers`` against
+``FlopCounterMode``; ``autobatch_fit`` of the fp32 step (the fit's batch
+and bytes, the measured peak of the batch it keeps within 0.6 of the
+card's memory); two ``Model.tune`` iterations of one fp32 epoch.
+
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -6092,6 +6107,293 @@ def phase_sam_path(smi_line):
     return {k: v for k, v in counts.items() if v}
 
 
+EXPORT_FORMATS_GATED = ("onnx", "savedmodel", "tflite")  # need packages the card's machine lacks
+EXPORT_REQUESTS = 3  # timed requests to the model server
+AUTOBATCH_FRACTION = 0.6
+TUNE_ITERATIONS = 2
+
+
+def graph_ops(path, name: str = "vil_layer_fwd") -> tuple:
+    """(nodes of the saved program at ``path`` that call ``xlstm_yolo::name``,
+    its operator nodes in all)."""
+    import torch
+
+    import xlstm_yolo_torch.kernels.vil_conv  # noqa: F401  (registers the ops)
+
+    target = getattr(torch.ops.xlstm_yolo, name).default
+    nodes = [n for n in torch.export.load(str(path)).graph.nodes if n.op == "call_function"]
+    return sum(1 for n in nodes if n.target is target), len(nodes)
+
+
+def counted_call(fn, *args):
+    """``fn(*args)`` -> (output, {kernel: launches} of the kernels it
+    launched, read from the counts just before and just after)."""
+    import torch
+
+    before = all_kernel_counts()
+    with torch.inference_mode():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in all_kernel_counts().items() if v > before[k]}
+
+
+def export_programs(model, x, tmp: str) -> tuple:
+    """(a) fp32 ``pt2``: 3 K3 nodes, 3 fp32 launches a call of the program
+    reloaded through ``AutoBackend``, within TOL_REL of the plain-forced
+    model, event ms beside eager ``predictions``. (b) ``half``: 3 bf16
+    launches and none fp32, held to native bf16 serving (``compare_bf16``).
+    (c) ``nms``: dets and valid of the program against ``non_max_suppression``
+    of the eager candidates. Returns (ok, entry, the fp32 program's path)."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.exporter import Exporter
+    from xlstm_yolo_torch.nn.autobackend import AutoBackend
+    from xlstm_yolo_torch.nn.fuse import cast_params
+    from xlstm_yolo_torch.ops.nms import non_max_suppression
+
+    common = dict(imgsz=IMGSZ, batch=BATCH, device="cuda")
+    t0 = time.perf_counter()
+    path = Exporter(model, output_dir=f"{tmp}/fp32", **common)()
+    export_s = time.perf_counter() - t0
+    nodes, graph_nodes = graph_ops(path)
+    backend = AutoBackend(path, imgsz=IMGSZ, device="cuda")
+    got, launches = counted_call(backend._fn, x)
+    with plain_vil_kernels(), torch.inference_mode():
+        ref = model.predictions(x)
+    box_rel = ((got[..., :4] - ref[..., :4]).abs().max() / ref[..., :4].abs().max()).item()
+    score_abs = (got[..., 4:] - ref[..., 4:]).abs().max().item()
+    with torch.inference_mode():
+        eager = model.predictions(x)
+        program_ms = cuda_time_ms(lambda: backend._fn(x), iters=10)
+        eager_ms = cuda_time_ms(lambda: model.predictions(x), iters=10)
+    eager_diff = (got - eager).abs().max().item()
+    fp32_ok = (nodes == len(STAGES) and launches == {"vil_layer_fwd": len(STAGES)}
+               and box_rel <= TOL_REL and score_abs <= TOL_REL
+               and bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(ref.shape))
+
+    half_path = Exporter(model, half=True, output_dir=f"{tmp}/bf16", **common)()
+    half_nodes = graph_ops(half_path)[0]
+    half = AutoBackend(half_path, imgsz=IMGSZ, device="cuda")
+    got16, launches16 = counted_call(half._fn, x)
+    model16 = cast_params(copy.deepcopy(model), torch.bfloat16)
+    with torch.inference_mode():
+        want16 = model16.predictions(x.bfloat16()).float()
+        half_ms = cuda_time_ms(lambda: half._fn(x), iters=10)
+        eager16_ms = cuda_time_ms(lambda: model16.predictions(x.bfloat16()), iters=10)
+    err16, rel_l2_16, ok16 = compare_bf16(got16, want16)
+    half_ok = (half_nodes == len(STAGES) and launches16 == {"vil_layer_fwd_bf16": len(STAGES)}
+               and ok16)
+    del model16
+
+    nms_path = Exporter(model, nms=True, output_dir=f"{tmp}/nms", **common)()
+    (dets, valid), nms_launches = counted_call(AutoBackend(nms_path, imgsz=IMGSZ)._fn, x)
+    with torch.inference_mode():
+        want_dets, want_valid = non_max_suppression(eager, conf_thres=0.25, iou_thres=0.7,
+                                                    max_det=300)
+    dets_err = (dets - want_dets).abs().max().item()
+    nms_ok = (tuple(dets.shape) == (BATCH, 300, 6) and torch.equal(valid, want_valid)
+              and dets_err <= TOL_REL * want_dets.abs().max().item() and int(valid.sum()) > 0
+              and nms_launches == {"vil_layer_fwd": len(STAGES)})
+    entry = {"export_s": export_s, "k3_nodes": nodes, "graph_nodes": graph_nodes,
+             "launches_a_call": launches,
+             "cands_box_maxrelerr": box_rel, "cands_score_max_abs_err": score_abs,
+             "vs_eager_kernels_max_abs": eager_diff, "program_ms": program_ms,
+             "eager_predictions_ms": eager_ms, "fp32_ok": fp32_ok,
+             "half": {"k3_nodes": half_nodes, "launches_a_call": launches16,
+                      "max_abs_err_beyond_rounding": err16, "rel_l2": rel_l2_16,
+                      "program_ms": half_ms, "eager_bf16_predictions_ms": eager16_ms,
+                      "ok": half_ok},
+             "nms": {"dets_max_abs_err": dets_err, "valid": int(valid.sum()),
+                     "valid_equal": bool(torch.equal(valid, want_valid)),
+                     "launches_a_call": nms_launches, "ok": nms_ok}}
+    return fp32_ok and half_ok and nms_ok, entry, path
+
+
+def export_torch_format(tmp: str) -> tuple:
+    """yolo11n (80 classes) through ``Exporter(format="torch")`` and back
+    through ``Model(pt)``: its predictions against the source model's."""
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.engine.exporter import Exporter
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    src = TaskModel("yolo11n.yaml", device="cuda", seed=0)
+    pt = Exporter(src, format="torch", imgsz=IMGSZ, output_dir=f"{tmp}/torch", device="cuda")()
+    back = YOLO(pt, device="cuda")
+    x = torch.rand((2, IMGSZ, IMGSZ, 3), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    with torch.inference_mode():
+        want, got = src.predictions(x), back.model.predictions(x)
+    err = (got - want).abs().max().item()
+    ok = back.task == "detect" and back.model.nc == 80 and err <= 1e-5 * want.abs().max().item()
+    return ok, {"model": "yolo11n.yaml", "max_abs_err": err, "exact": err == 0.0, "ok": ok}
+
+
+def export_serving(path, x) -> tuple:
+    """``serve_model`` of the fp32 program on localhost: ``RemoteModel``
+    against the server's own ``AutoBackend``, ms a request (batch 8 at 640
+    px: 39 MB of npz in, 22.6 MB out)."""
+    from xlstm_yolo_torch.utils.remote import RemoteModel, serve_model
+
+    server = serve_model(path, imgsz=IMGSZ, device="cuda")
+    try:
+        host, port = server.server_address
+        rm = RemoteModel(f"http://{host}:{port}")
+        img = x.cpu().numpy()
+        remote, counts = counted_call(rm, img)
+        local = server.backend.forward(img)
+        t0 = time.perf_counter()
+        for _ in range(EXPORT_REQUESTS):
+            rm(img)
+        ms = (time.perf_counter() - t0) / EXPORT_REQUESTS * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+    err = float(np.abs(remote - local).max())
+    ok = remote.shape == local.shape and err == 0.0 and rm.meta.get("nc") == 80 \
+        and counts == {"vil_layer_fwd": len(STAGES)}
+    return ok, {"ms_a_request": ms, "batch": int(img.shape[0]), "max_abs_err": err,
+                "launches_a_request": counts, "meta": {k: rm.meta.get(k) for k in
+                                                        ("task", "nc", "imgsz", "batch")},
+                "ok": ok}
+
+
+def export_profiling(model, tmp: str) -> tuple:
+    """``Model.benchmark`` (batch 1: the pt2 row within 0.05, an error row
+    for the torch format (a ViL model has no reference names) and each
+    gated format); ``profile_model`` img/s at batch 8; ``profile_layers`` at
+    batch 1 against ``FlopCounterMode`` of the whole forward."""
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.utils.benchmarks import forward_flops, profile_layers, profile_model
+
+    facade = YOLO("vil_yolon.yaml", device="cuda")
+    facade.model = model
+    rows = facade.benchmark(imgsz=IMGSZ, output_dir=f"{tmp}/bench", verbose=False)
+    by = {r["format"]: r for r in rows}
+    bench_ok = (by["pt2"]["ok"] and "error" in by["torch"]
+                and all("ImportError" in by[f].get("error", "") for f in EXPORT_FORMATS_GATED))
+    prof = profile_model(model, imgsz=IMGSZ, batch=BATCH, n=10)
+    layers = profile_layers(model, imgsz=IMGSZ, batch=1, n=3)
+    total = forward_flops(model, torch.zeros((1, 3, IMGSZ, IMGSZ), device="cuda"))
+    layer_sum = sum(r["gflops"] for r in layers) * 1e9
+    vil = [r["gflops"] for r in layers if r["name"] == "ViLBlockPairBlock"]
+    ok = (bench_ok and prof["img_s"] > 0 and len(layers) == len(model.parsed.specs)
+          and abs(layer_sum - total) <= 1e-6 * total and len(vil) == len(STAGES)
+          and min(vil) > 0)
+    return ok, {"benchmark": rows, "profile_model": prof, "forward_gflops": total / 1e9,
+                "layers_gflops_sum": layer_sum / 1e9, "vil_layers_gflops": vil,
+                "layers": [{k: r[k] for k in ("i", "name", "ms", "gflops")} for r in layers],
+                "ok": ok}
+
+
+def export_autobatch() -> tuple:
+    """``autobatch_fit`` on the fp32 train step of ViL-YOLO-n at 640 px
+    (probes 1 and 4; fraction 0.6): the fit's batch and bytes, and the
+    measured peak of one step at the batch it keeps (the fit's, halved
+    while the peak passes the budget), at most 0.6 of the card's memory."""
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.utils.autobatch import autobatch_fit
+
+    step = TrainStep(build_main_model("cuda", train=True), amp=False)
+
+    def step_fn(img):
+        b = train_batch("cuda", img.shape[0])
+        b["img"] = (img * 255).round().to(torch.uint8)
+        return step(b)
+
+    fit = autobatch_fit(step_fn, imgsz=IMGSZ, fraction=AUTOBATCH_FRACTION)
+    del step
+    torch.cuda.empty_cache()
+    total, peak = fit["total"], fit["measured_peak_bytes"]
+    ok = fit["predicted_bytes"] is not None and peak <= AUTOBATCH_FRACTION * total
+    return ok, {"fit_batch": fit["fit_batch"], "batch": fit["batch"],
+                "readings": fit["readings"], "fixed": fit["fixed"],
+                "per_image": fit["per_image"], "predicted_bytes": fit["predicted_bytes"],
+                "measured_peak_bytes": peak, "total_bytes": total,
+                "peak_share": peak / total, "ok": ok}
+
+
+def export_tune(tmp: str) -> tuple:
+    """``Model.tune``: two iterations of one fp32 epoch on fit_path's PNG set
+    (written again); the CSV's JAX columns and two rows."""
+    import csv
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+    from xlstm_yolo_torch.engine.tuner import SPACE
+
+    data = make_synthetic_dataset(f"{tmp}/ds", n_train=FIT_IMAGES[0], n_val=FIT_IMAGES[1],
+                                  width=FIT_WH[0], height=FIT_WH[1], seed=0)
+    t0 = time.perf_counter()
+    res = YOLO("vil_yolon.yaml", device="cuda").tune(
+        data=data, iterations=TUNE_ITERATIONS, epochs=1, batch=BATCH, imgsz=IMGSZ,
+        dtype="float32", project=f"{tmp}/tune", plots=False, seed=0, mosaic=0.0)
+    with open(f"{tmp}/tune/tune_results.csv") as f:
+        rows = list(csv.DictReader(f))
+    ok = (len(rows) == TUNE_ITERATIONS and list(rows[0]) == ["iter", "fitness", *SPACE]
+          and res["best_hyp"] is not None)
+    return ok, {"seconds": time.perf_counter() - t0, "best_fitness": res["best_fitness"],
+                "fitness": [float(r["fitness"]) for r in rows], "ok": ok}
+
+
+def phase_export_path(smi_line):
+    """Export and serving (``export_path``): ViL-YOLO-n as
+    ``build_main_model`` builds it, batch 8, 640 px, on the letterboxed
+    seeded frames of ``main_path``: the programs (``export_programs``), the
+    torch format on yolo11n, the model server, benchmark and profiling,
+    autobatch and ``Model.tune``. Every kernel count is set to 0 just before
+    the parts run and read just after; the plain-forced comparisons launch
+    none."""
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch.engine.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    model = build_main_model("cuda")
+    frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        x, _ = Predictor(model, imgsz=IMGSZ).preprocess(torch.from_numpy(frames).cuda())
+    failed, program = [], []
+    zero_all_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        def programs():
+            ok, entry, path = export_programs(model, x, tmp)
+            program.append(path)
+            return ok, entry
+
+        for label, part in (("programs", programs),
+                            ("torch_format", lambda: export_torch_format(tmp)),
+                            ("serving", lambda: export_serving(program[0], x)),
+                            ("profiling", lambda: export_profiling(model, tmp)),
+                            ("autobatch", export_autobatch), ("tune", lambda: export_tune(tmp))):
+            t0 = time.perf_counter()
+            before = all_kernel_counts()
+            ok, entry = part()
+            launches = {k: v - before[k] for k, v in all_kernel_counts().items() if v > before[k]}
+            emit({"phase": f"export_path.{label}", **entry, "launches": launches,
+                  "seconds": time.perf_counter() - t0, "ok": bool(ok)})
+            if not ok:
+                failed.append(label)
+            torch.cuda.empty_cache()
+    counts = {k: v for k, v in all_kernel_counts().items() if v}
+    ok = not failed and counts.get("vil_layer_fwd", 0) > 0 and counts.get(
+        "vil_layer_fwd_bf16", 0) > 0 and counts.get("mlstm_chunkwise_bwd", 0) > 0
+    emit({"phase": "export_path", "failed": failed, "launches": counts, "smi": smi_line,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"export_path check failed: {failed or 'launches'}")
+    return counts
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -6148,6 +6450,8 @@ def main() -> int:
         world_launches = phase_world_path(smi_line)
         phase = "sam_path"
         sam_launches = phase_sam_path(smi_line)
+        phase = "export_path"
+        export_launches = phase_export_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -6176,7 +6480,8 @@ def main() -> int:
                "classify_path": classify_launches,
                "rtdetr_path": rtdetr_launches,
                "world_path": world_launches,
-               "sam_path": sam_launches}
+               "sam_path": sam_launches,
+               "export_path": export_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

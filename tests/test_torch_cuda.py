@@ -2309,3 +2309,50 @@ def test_sam2_track_step_on_card_matches_cpu(cuda_device):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert _rel(g.cpu(), w) <= TOL_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_vil_layer_op_opcheck_on_card(cuda_device, dtype):
+    """The registered op ``xlstm_yolo::vil_layer_fwd`` on CUDA tensors at P4's
+    shape: schema, fake tensor, autograd registration and AOT dispatch
+    (``torch.library.opcheck``); the op launches the kernel of the
+    activations' dtype."""
+    from xlstm_yolo_torch.kernels.vil_cell import OPS, cfg_args
+
+    args = _layer_args(2, 1600, 128, 4, cuda_device, seed=11)
+    args[:2] = [a.to(dtype) for a in args[:2]]
+    before = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+    torch.library.opcheck(OPS["vil_layer_fwd"], (*args, *cfg_args(Cfg(4, 128))))
+    after = (vil_layer_fwd.launches, vil_layer_fwd.launches_bf16)
+    bf = dtype == torch.bfloat16
+    assert after[int(bf)] > before[int(bf)] and after[int(not bf)] == before[int(not bf)]
+
+
+def test_exported_vil_layer_on_card_matches_plain(cuda_device, tmp_path):
+    """One ``ViLLayer`` at P4's widths through ``torch.export`` (saved and
+    loaded): one ``xlstm_yolo::vil_layer_fwd`` node, one launch a call of the
+    loaded program, within TOL_REL of the plain version."""
+    import xlstm_yolo_torch.kernels.vil_cell as vc
+    from xlstm_yolo_torch.nn.modules import init_tree
+    from xlstm_yolo_torch.nn.vil import ViLLayer
+
+    layer = ViLLayer(128, qkv_block_size=64, chunk_size=128, seqlens=(40, 40))
+    init_tree(layer, 0)
+    layer = layer.to(cuda_device).eval()
+    x = torch.randn(2, 1600, 128, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    with torch.no_grad():
+        program = torch.export.export(layer, (x,))
+    torch.export.save(program, str(tmp_path / "layer.pt2"))
+    loaded = torch.export.load(str(tmp_path / "layer.pt2"))
+    target = torch.ops.xlstm_yolo.vil_layer_fwd.default
+    assert sum(n.target is target for n in loaded.graph.nodes) == 1
+    before = vil_layer_fwd.launches
+    with torch.no_grad():
+        got = loaded.module()(x)
+        torch.cuda.synchronize()
+        assert vil_layer_fwd.launches == before + 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(vc, "_on_card", lambda t: False)
+            want = layer(x)
+    assert _rel(got, want) <= TOL_REL

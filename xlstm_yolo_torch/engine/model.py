@@ -3,16 +3,19 @@
 
 Port of ``Model`` in ``xlstm_yolo_tpu/engine/model.py`` for the detect,
 segment, pose, obb, classify, rtdetr and world tasks (the head of the YAML sets it):
-built from a model YAML (weights from a seed) or from a checkpoint ``.pt``
-of the port (``utils.checkpoint``: its EMA weights), on ``device`` (the
-card unless the caller asks for ``"cpu"``). ``train`` runs
+built from a model YAML (weights from a seed) or from a ``.pt``, told
+apart by its content: a checkpoint of the port (``utils.checkpoint``: its
+EMA weights) or an Ultralytics-layout interchange file with its YAML
+(``Exporter(format="torch")`` of either package;
+``utils.torch_import.load_torch_model``), on ``device`` (the card unless
+the caller asks for ``"cpu"``). ``train`` runs
 ``engine.trainer.Trainer`` and keeps its final model (the EMA weights and
 the BatchNorm statistics, rebuilt to the dataset's classes); ``val`` runs
 ``engine.validator.Validator``; ``predict`` (and calling the model) runs
 ``engine.predictor.Predictor`` and returns ``Results`` (with ``stream`` a
 generator of them). ``fuse`` folds the BatchNorms into the convolutions,
-``info`` describes the model, ``load`` reads a checkpoint of the port into
-it, ``reset_weights`` starts it again from its seed, ``embed`` gives an
+``info`` describes the model, ``load`` reads either kind of ``.pt`` into
+it (an interchange file may be a bare state dict), ``reset_weights`` starts it again from its seed, ``embed`` gives an
 image's pooled head maps (a classify model has none: it raises, as the
 JAX ``embed`` fails on its (B, nc) logits; an RT-DETR model has no maps
 either, and it cannot be validated: ``val``, and ``train`` with its
@@ -20,9 +23,10 @@ default ``val=True``, raise, as the JAX package cannot validate one). A
 world model's ``train`` takes the trainer's ``text_encoder`` as a
 keyword; ``save`` keeps its class count and names but
 not its ``txt_feats``, as the JAX checkpoint, so a reloaded world model
-has the default guide of its class count. Not
-ported: ``track``, ``export``, ``benchmark``, ``tune`` and reference torch
-``.pt`` weights.
+has the default guide of its class count. ``export`` runs
+``engine.exporter.Exporter`` (``pt2`` by default), ``benchmark``
+``utils.benchmarks.benchmark`` and ``tune`` ``engine.tuner.Tuner``, each on
+the model's device. Not ported: ``track``.
 """
 from __future__ import annotations
 
@@ -47,13 +51,15 @@ class Model:
         if self.model_path.endswith((".yaml", ".yml")):
             self.model = TaskModel(self.model_path, device=self.device, seed=seed, scale=scale)
         elif self.model_path.endswith(".pt"):
+            from ..nn.autobackend import sniff_pt
             from ..utils.checkpoint import load_checkpoint
+            from ..utils.torch_import import load_torch_model
 
-            self.model, self.ckpt = load_checkpoint(self.model_path, use_ema=True,
-                                                    device=self.device)
+            load = load_checkpoint if sniff_pt(self.model_path) == "ckpt" else load_torch_model
+            self.model, self.ckpt = load(self.model_path, device=self.device)
         else:
-            raise ValueError(f"unsupported model source {model!r} (a model .yaml or a checkpoint "
-                             f".pt of this package)")
+            raise ValueError(f"unsupported model source {model!r} (a model .yaml, or a .pt: a "
+                             f"checkpoint of this package or an Ultralytics-layout file)")
         self.task = task or self.model.task
         # RT-DETR and YOLO-World are not among the JAX cfg's TASKS either; the model's
         # own task passes
@@ -144,18 +150,61 @@ class Model:
         return self.model.info()
 
     def load(self, weights: str | Path):
-        """The parameters and BatchNorm statistics (the EMA parameters) of a
-        checkpoint ``.pt`` of the port, into this model, whose graph must
-        match it; its class names too. Returns the model."""
+        """The weights of a ``.pt`` into this model: the parameters and
+        BatchNorm statistics (the EMA parameters) and class names of a
+        checkpoint of the port, whose graph must match the model; or the
+        tensors of an Ultralytics-layout file (a bare state dict too) by
+        the name rules of ``utils.torch_import`` (the names that match
+        nothing are printed). Returns the model."""
+        from ..nn.autobackend import sniff_pt
         from ..utils.checkpoint import load_checkpoint
+        from ..utils.torch_import import load_torch_weights
 
         if not str(weights).endswith(".pt"):
-            raise ValueError(f"load takes a checkpoint .pt of this package, not {weights!r}")
-        loaded, self.ckpt = load_checkpoint(weights, use_ema=True, device="cpu")
-        self.model.load_state_dict(loaded.state_dict())
-        self.model.names = dict(loaded.names)
+            raise ValueError(f"load takes a .pt (a checkpoint of this package or an "
+                             f"Ultralytics-layout file), not {weights!r}")
+        if sniff_pt(weights) == "torch":
+            load_torch_weights(self.model, weights)
+        else:
+            loaded, self.ckpt = load_checkpoint(weights, use_ema=True, device="cpu")
+            self.model.load_state_dict(loaded.state_dict())
+            self.model.names = dict(loaded.names)
         self.predictor = None
         return self
+
+    def export(self, **kwargs) -> str:
+        """``engine.exporter.Exporter`` of the model (``format``, ``imgsz``,
+        ``batch``, ``nms``, ``half``, ...; on the model's device unless
+        ``device`` says otherwise); returns the artifact's path."""
+        from .exporter import Exporter
+
+        kwargs.setdefault("device", self.device)
+        return Exporter(self.model, callbacks=self.callbacks, **kwargs)()
+
+    def benchmark(self, data: str | None = None, **kwargs) -> list:
+        """Export, reload and time each format (``utils.benchmarks.benchmark``)."""
+        from ..utils.benchmarks import benchmark
+
+        kwargs.setdefault("device", self.device)
+        return benchmark(self.model, data=data, **kwargs)
+
+    def tune(self, data: str | None = None, iterations: int = 10, **kwargs) -> dict:
+        """Genetic hyperparameter evolution (``engine.tuner.Tuner``): each
+        iteration trains a fresh model of this graph (weights from the
+        seed) on ``data`` with ``kwargs`` as the trainer's keys, into
+        ``project`` (``runs/tune``)."""
+        from ..nn.tasks import TaskModel
+        from .tuner import Tuner
+
+        m = self.model
+        overrides = {"data": data, "device": str(self.device), **kwargs}
+
+        def model_fn():
+            return TaskModel(m.cfg_name or m.yaml, ch=m.ch, nc=m.nc, scale=m.scale,
+                             device=self.device, seed=self.seed)
+
+        return Tuner(model_fn, overrides, save_dir=str(kwargs.get("project", "runs/tune")))(
+            iterations)
 
     def reset_weights(self):
         """The model rebuilt from its graph with fresh weights from the seed

@@ -5,7 +5,10 @@ compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (named by the content hash of the source and the ``csrc/*.cuh``
 headers, so an edited source or header rebuilds) and loaded with
 ``ctypes``. Nothing happens at import time: the package imports on hosts
-with no CUDA toolkit, where only the kernels' plain versions run.
+with no CUDA toolkit, where only the kernels' plain versions run. Building
+and loading hold one process-wide lock: the threads of a server may be the
+first callers, and two threads of one process would write the same
+temporary file.
 """
 from __future__ import annotations
 
@@ -14,12 +17,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+_LOCK = threading.RLock()  # build_library and CudaLibrary.load, process-wide
 
 
 def find_nvcc() -> str:
@@ -38,6 +43,11 @@ def build_library(source: str, extra_flags: tuple = ()) -> Path:
     content hash of the source and of the headers beside it) and return its
     path. nvcc's output (ptxas register and shared memory counts included)
     is kept beside it as ``.log``; a failed build raises with that output."""
+    with _LOCK:
+        return _build(source, extra_flags)
+
+
+def _build(source: str, extra_flags: tuple) -> Path:
     src = CSRC_DIR / source
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
@@ -84,11 +94,12 @@ class CudaLibrary:
         self._lib = None
 
     def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build_library(self.source)))
-            for name, (restype, argtypes) in self.declare.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = list(argtypes)
-            self._lib = lib
-        return self._lib
+        with _LOCK:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(build_library(self.source)))
+                for name, (restype, argtypes) in self.declare.items():
+                    fn = getattr(lib, name)
+                    fn.restype = restype
+                    fn.argtypes = list(argtypes)
+                self._lib = lib
+            return self._lib

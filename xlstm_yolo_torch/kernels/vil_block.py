@@ -31,8 +31,8 @@ import torch.nn.functional as F
 
 from ._build import check_tensor
 from .mlstm_native import mm_f32, mm_round
-from .vil_cell import (BLOCK, Cfg, Member, Workspace, _cell_plain, call_member, cell_bwd,
-                       cell_kernel_args, check_call, run_kernel)
+from .vil_cell import (BLOCK, CELL_ARGS, Cfg, Member, Workspace, _cell_plain, call_member,
+                       cell_bwd, cell_kernel_args, check_call, register_op, run_kernel)
 
 N_CELL = 10  # the cell's weights and biases among a call's arguments
 
@@ -173,7 +173,10 @@ def _launch(args, cfg: Cfg, save: bool = True):
     return out, (ws.h(), *cell_acts), carry
 
 
-_BLOCK = Member("vil_block_fwd", _block_plain, _launch, block_bwd)
+TAIL_ARGS = ("nscale", "nbias", "skip", "wd", "bd")
+_BLOCK = Member("vil_block_fwd", _block_plain, _launch, block_bwd,
+                ("conv_act", "x_mlstm", "z", "x_res", *CELL_ARGS[2:], *TAIL_ARGS), out_like=3)
+register_op(_BLOCK)
 
 
 def vil_block_fwd(conv_act, x_mlstm, z, x_res, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,

@@ -30,8 +30,10 @@ tensor to a plain version.
 
 This module also holds what the four functions share (the cell, the block,
 the layer and the conv-fused layer, ``kernels.vil_conv``): the library
-binding, the workspace views, and the autograd Function and device dispatch
-(``Member``, ``call_member``).
+binding, the workspace views, the autograd Function, each member's
+registration as a torch op (``xlstm_yolo::<name>``, what ``torch.export``
+keeps) and the device dispatch (``Member``, ``register_op``,
+``call_member``).
 """
 from __future__ import annotations
 
@@ -299,11 +301,16 @@ class Member(NamedTuple):
     """One function of the family for ``call_member``: ``plain(args, cfg)
     -> (out, acts)``, ``launch(args, cfg, save) -> (out, acts, carry)``
     (``save``: the backward will read ``acts``) and ``bwd(args, acts, gout,
-    cfg, mlstm_bwd) -> grads``."""
+    cfg, mlstm_bwd) -> grads``; ``args`` names its tensor arguments, in
+    order, and its output has the shape of argument ``out_like`` and its
+    dtype, or ``out_dtype`` (``register_op``)."""
     name: str
     plain: Callable
     launch: Callable
     bwd: Callable
+    args: tuple
+    out_like: int = 0
+    out_dtype: torch.dtype | None = None
 
 
 def _on_card(t) -> bool:
@@ -341,22 +348,101 @@ class _MemberFunction(torch.autograd.Function):
         return (None, None, *(None if a is None else g.to(a.dtype) for g, a in zip(grads, args)))
 
 
+OP_NAMESPACE = "xlstm_yolo"
+OPS: dict = {}  # member name -> its registered op (register_op)
+# the optional tensors of a member's schema: the outnorm affine, None with cfg.outnorm False
+OPTIONAL_ARGS = ("nscale", "nbias")
+CFG_SCHEMA = ("int num_heads, int chunk_size, str igate_act, float eps, float norm_eps, "
+              "float rms_eps, int[]? seqlens, bool outnorm")
+
+
+def cfg_args(cfg: Cfg) -> tuple:
+    """``cfg`` as the op schema's plain arguments (``CFG_SCHEMA``)."""
+    return (int(cfg.num_heads), int(cfg.chunk_size), str(cfg.igate_act), float(cfg.eps),
+            float(cfg.norm_eps), float(cfg.rms_eps),
+            None if cfg.seqlens is None else [int(s) for s in cfg.seqlens], bool(cfg.outnorm))
+
+
+def _cfg_of(a) -> Cfg:
+    return Cfg(a[0], a[1], a[2], a[3], a[4], a[5], None if a[6] is None else tuple(a[6]), a[7])
+
+
+def vil_macs(dim: int, inner: int, nh: int, tail: bool, head: bool, conv: bool) -> int:
+    """Multiply-adds a token of a member's products: the cell's headwise
+    q/k/v, its two gate dots and, per head, the causal half of the
+    intra-chunk q k^T and E v products over the kernel's chunk length and
+    the inter-chunk q C and chunk-summary k v^T products; the tail's
+    proj_down; the head's proj_up (both halves); the depthwise 3x3 conv.
+    The count ``chip_smoke.vil_bound`` and ``conv_bound`` hold the kernels
+    to; elementwise work is left out."""
+    dh = inner // nh
+    macs = 3 * inner * dh + 6 * inner * nh + nh * ((KERNEL_CS + 1) * dh + 2 * dh * dh)
+    macs += inner * dim * (int(tail) + 2 * int(head)) + 9 * inner * int(conv)
+    return macs
+
+
+def register_op(member: Member):
+    """Register ``member`` as the op ``xlstm_yolo::<name>``: its tensor
+    arguments, then ``cfg`` as plain ints, floats, a str and a bool
+    (``CFG_SCHEMA``), one tensor out. The CPU implementation is the plain
+    forward, the CUDA one launches the kernel (and counts the launch, so a
+    call of an exported program counts too); the fake one gives the
+    output's shape and dtype without touching the library, so
+    ``torch.export`` keeps the op as one node of its graph. A FLOP formula
+    (``vil_macs``) lets ``FlopCounterMode`` count it."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    n = len(member.args)
+    tensors = ", ".join(f"Tensor{'?' if a in OPTIONAL_ARGS else ''} {a}" for a in member.args)
+
+    def plain(*a):
+        return member.plain(a[:n], _cfg_of(a[n:]))[0].contiguous()
+
+    def kernel(*a):
+        return member.launch(a[:n], _cfg_of(a[n:]), False)[0]
+
+    def fake(*a):
+        like = a[member.out_like]
+        return like.new_empty(like.shape, dtype=member.out_dtype or like.dtype)
+
+    def flops(*shapes, out_shape=None, **kw):
+        s = dict(zip(member.args, shapes))
+        nh, dh = s["wq"][:2]
+        dim = s["bd"][0] if "bd" in s else 0
+        B, S = shapes[0][:2]
+        return 2 * B * S * vil_macs(dim, nh * dh, nh, "bd" in s, "wu" in s, "wc" in s)
+
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{member.name}", plain, mutates_args=(),
+                                 device_types="cpu", schema=f"({tensors}, {CFG_SCHEMA}) -> Tensor")
+    op.register_kernel("cuda", kernel)
+    op.register_fake(fake)
+    register_flop_formula(getattr(getattr(torch.ops, OP_NAMESPACE), member.name))(flops)
+    OPS[member.name] = op
+    return op
+
+
 def call_member(member: Member, cfg: Cfg, args):
     """The device dispatch of the family: CPU tensors take the plain
     version, CUDA tensors launch the kernel or raise, any other device is
     refused. When gradients are needed the call goes through the autograd
-    Function with the hand-written backward. An argument a call does not
-    read (the outnorm affine with ``cfg.outnorm`` False) may be None."""
+    Function with the hand-written backward; without, through the member's
+    registered op (``register_op``), which ``torch.export`` keeps as a node.
+    A run that forces the plain versions on the card (``_on_card``) takes
+    them here. An argument a call does not read (the outnorm affine with
+    ``cfg.outnorm`` False) may be None."""
     if args[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"{member.name}: unsupported device {args[0].device}")
     if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
         return _MemberFunction.apply(member, cfg, *args)
-    if _on_card(args[0]):
-        return member.launch(args, cfg, False)[0]
-    return member.plain(args, cfg)[0]
+    if args[0].device.type == "cuda" and not _on_card(args[0]):
+        return member.plain(args, cfg)[0]
+    return OPS[member.name](*args, *cfg_args(cfg))
 
 
-_CELL = Member("vil_cell_fwd", lambda args, cfg: _cell_plain(*args, cfg), _launch, cell_bwd)
+CELL_ARGS = ("conv_act", "x_mlstm", "wq", "bq", "wk", "bk", "wv", "bv", "wgi", "bgi", "wgf", "bgf")
+_CELL = Member("vil_cell_fwd", lambda args, cfg: _cell_plain(*args, cfg), _launch, cell_bwd,
+               CELL_ARGS, out_dtype=torch.float32)
+register_op(_CELL)
 
 
 def vil_cell_fwd(conv_act, x_mlstm, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf, bgf,

@@ -39,9 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_tensor
-from .vil_block import N_CELL, _block_plain, block_bwd, tail_kernel_args
-from .vil_cell import (CONV, Cfg, Member, Workspace, call_member, cell_kernel_args, check_call,
-                       run_kernel)
+from .vil_block import N_CELL, TAIL_ARGS, _block_plain, block_bwd, tail_kernel_args
+from .vil_cell import (CELL_ARGS, CONV, Cfg, Member, Workspace, call_member, cell_kernel_args,
+                       check_call, register_op, run_kernel)
 from .vil_layer import _head, _norm, head_bwd
 
 N_HEAD = 6  # x, rms_scale, wu, bu, wc, bc: a call's arguments before the cell's
@@ -146,7 +146,9 @@ def _launch(args, cfg: Cfg, save: bool = True):
     return out, (ws.h(), *cell_acts, *ws.conv_acts()), carry
 
 
-_CONV = Member("vil_layer_conv_fwd", _conv_plain, _launch, conv_layer_bwd)
+_CONV = Member("vil_layer_conv_fwd", _conv_plain, _launch, conv_layer_bwd,
+               ("x", "rms_scale", "wu", "bu", "wc", "bc", *CELL_ARGS[2:], *TAIL_ARGS))
+register_op(_CONV)
 
 
 def vil_layer_conv_fwd(x, rms_scale, wu, bu, wc, bc, wq, bq, wk, bk, wv, bv, wgi, bgi, wgf,

@@ -39,9 +39,10 @@ import torch
 from ._build import check_tensor
 from .mlstm_bwd import KERNEL_CS, CarryStates, mlstm_chunkwise_bwd_plain
 from .mlstm_native import mm_f32, mm_round
-from .vil_block import N_CELL, _block_plain, block_bwd, tail_kernel_args, tail_plain
-from .vil_cell import (LAYER, LAYER_BF16, Cfg, Member, Workspace, _cell_plain, call_member,
-                       cell_kernel_args, check_call, run_kernel)
+from .vil_block import (N_CELL, TAIL_ARGS, _block_plain, block_bwd, tail_kernel_args,
+                        tail_plain)
+from .vil_cell import (CELL_ARGS, LAYER, LAYER_BF16, Cfg, Member, Workspace, _cell_plain,
+                       call_member, cell_kernel_args, check_call, register_op, run_kernel)
 
 # the names of the forward's launches, as a profiler trace shows them: the fp32
 # stages, and the prefix of the bf16 ones
@@ -220,7 +221,9 @@ def _launch(args, cfg: Cfg, save: bool = True):
     return out, (saved[3], *saved[:3], *ws.gate_preacts()), carry
 
 
-_LAYER = Member("vil_layer_fwd", _layer_plain, _launch, layer_bwd)
+_LAYER = Member("vil_layer_fwd", _layer_plain, _launch, layer_bwd,
+                ("x", "conv_act", "rms_scale", "wu", "bu", *CELL_ARGS[2:], *TAIL_ARGS))
+register_op(_LAYER)
 
 
 def vil_layer_fwd(x, conv_act, rms_scale, wu, bu, wq, bq, wk, bk, wv, bv,

@@ -300,7 +300,9 @@ class GraphModel(nn.Module):
     whose module sets ``needs_guide`` takes the running ``guide`` (B | 1,
     nt, C) after its input (without one, zeros (B, 1, 512), as the JAX
     graph's init-time fallback); one that sets ``updates_guide`` replaces it
-    for every later row."""
+    for every later row. ``upto`` stops the replay after layer ``upto`` and
+    returns that layer's output (the truncated replay per-layer profiling
+    times, as the JAX graph's ``upto``)."""
 
     def __init__(self, parsed: ParsedModel):
         super().__init__()
@@ -308,7 +310,7 @@ class GraphModel(nn.Module):
         for spec in parsed.specs:
             setattr(self, f"l{spec.i}", spec.build())
 
-    def forward(self, x, head_kwargs: dict | None = None, guide=None):
+    def forward(self, x, head_kwargs: dict | None = None, guide=None, upto: int | None = None):
         cache = {}
         prev = x
         save = set(self.parsed.save)
@@ -329,4 +331,6 @@ class GraphModel(nn.Module):
                 prev = mod(inp, **extra)
             if spec.i in save:
                 cache[spec.i] = prev
+            if upto is not None and spec.i >= upto:
+                break
         return prev

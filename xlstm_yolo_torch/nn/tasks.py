@@ -54,6 +54,7 @@ class TaskModel(GraphModel):
     def __init__(self, cfg: str | dict, ch: int = 3, nc: int | None = None,
                  scale: str | None = None, device: str | torch.device = "cuda", seed: int = 0):
         dev = resolve_device(device)
+        cfg_name = cfg if isinstance(cfg, str) else None
         if isinstance(cfg, str):
             yaml_dict, yscale = load_model_yaml(cfg)
             scale = scale or yscale
@@ -64,6 +65,7 @@ class TaskModel(GraphModel):
         parsed: ParsedModel = parse_model(yaml_dict, ch=ch, scale=scale)
         super().__init__(parsed)
         self.yaml, self.scale, self.ch = yaml_dict, scale, ch
+        self.cfg_name = cfg_name  # the YAML name it was built from, as the JAX model keeps it
         self.nc = parsed.nc
         self.names = {i: f"{i}" for i in range(self.nc)}
         self.task = parsed.task
@@ -87,14 +89,14 @@ class TaskModel(GraphModel):
             self.txt_feats = fn(self.txt_feats)
         return self
 
-    def forward(self, x, head_kwargs: dict | None = None, guide=None):
+    def forward(self, x, head_kwargs: dict | None = None, guide=None, upto: int | None = None):
         """The graph on NCHW ``x``; a world model's guide is ``guide`` where
-        given, else ``txt_feats``."""
+        given, else ``txt_feats``; ``upto`` as ``GraphModel.forward``."""
         if guide is None:
             guide = self.txt_feats
         if guide is not None:
             guide = torch.as_tensor(guide).to(x.device)
-        return super().forward(x, head_kwargs, guide)
+        return super().forward(x, head_kwargs, guide, upto)
 
     @torch.no_grad()
     def set_classes(self, embeddings, encoder=None) -> None:

@@ -37,8 +37,10 @@ the layout conventions converted:
 
 Any missing or extra key, or a shape mismatch, raises. ``port_named`` maps
 any tree shaped like ``params`` (gradients, an optimizer trace, an EMA) to
-port names and layouts the same way. This module reads plain numpy arrays
-and imports nothing of JAX.
+port names and layouts the same way. ``jax_named`` runs the rules backwards:
+a port model's state as the flat JAX variable tree (what the interchange
+formats of ``utils.torch_import`` read and write). This module reads plain
+numpy arrays and imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -165,3 +167,62 @@ def load_jax_variables(model: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.M
                              f"JAX {arr.shape}")
         dst.copy_(torch.from_numpy(arr.copy()).to(dst.dtype))
     return model
+
+
+def _jax_leaf(mod: nn.Module, parent: nn.Module | None, mname: str, leaf: str,
+              arr: np.ndarray) -> tuple[str, str, np.ndarray]:
+    """One parameter or buffer ``leaf`` of module ``mod`` (named ``mname``
+    in ``parent``) -> (collection, JAX leaf name, array in JAX layout):
+    ``torch_name``'s rules backwards, told apart by the module's class."""
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", leaf[len("running_"):], arr
+    if leaf != "weight":
+        return "params", leaf, arr
+    if isinstance(mod, nn.modules.batchnorm._BatchNorm) and mname == "bn":
+        return "params", "scale", arr
+    if isinstance(mod, nn.Embedding):
+        return "params", "embedding", arr
+    if isinstance(mod, nn.ConvTranspose2d):
+        return "params", "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+        return "params", "kernel", arr.transpose(*{3: (2, 1, 0), 4: (2, 3, 1, 0),
+                                                   5: (2, 3, 4, 1, 0)}[arr.ndim])
+    if isinstance(mod, nn.Linear):
+        nh = getattr(parent, "num_heads", None)
+        if mname in ATTENTION_PARTS and nh:  # flax attention's DenseGeneral
+            if mname == "out":  # (D, NH*hd) -> (NH, hd, D)
+                return "params", "kernel", arr.T.reshape(nh, -1, arr.shape[0])
+            return "params", "kernel", arr.T.reshape(arr.shape[1], nh, -1)
+        return "params", "kernel", arr.T
+    return "params", leaf, arr
+
+
+def jax_named(model: nn.Module) -> dict[str, np.ndarray]:
+    """``model``'s parameters and BatchNorm statistics as the flattened JAX
+    variable tree ({"params/l0/conv/kernel": array in JAX layout, ...}):
+    ``torch_name`` backwards, each key checked by running it forward again
+    (a leaf whose way back is not the way there raises). An attention part
+    (``query``, ``key``, ``value``, ``out``) whose parent sets
+    ``num_heads`` is a flax ``DenseGeneral``; its bias (NH, hd) but
+    ``out``'s."""
+    mods = dict(model.named_modules())
+    transposed = transposed_convs(model)
+    out = {}
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        *path, leaf = name.split(".")
+        owner = ".".join(path)
+        parent = mods.get(".".join(path[:-1])) if path else None
+        arr = t.detach().cpu().float().numpy()
+        coll, jleaf, jarr = _jax_leaf(mods[owner], parent, path[-1] if path else "", leaf, arr)
+        nh = getattr(parent, "num_heads", None)
+        if (jleaf == "bias" and path and path[-1] in ATTENTION_PARTS[:3] and nh
+                and isinstance(mods[owner], nn.Linear)):
+            jarr = jarr.reshape(nh, -1)
+        key = "/".join([coll, *path, jleaf])
+        back, barr = torch_name(key, np.ascontiguousarray(jarr), transposed)
+        if back != name or barr.shape != arr.shape or not np.array_equal(barr, arr):
+            raise ValueError(f"{name!r}: no JAX key maps back to it (tried {key!r})")
+        out[key] = np.ascontiguousarray(jarr)
+    return out
