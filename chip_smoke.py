@@ -203,6 +203,26 @@ the fp32 program on localhost against ``RemoteModel``, ms a request;
 and bytes, the measured peak of the batch it keeps within 0.6 of the
 card's memory); two ``Model.tune`` iterations of one fp32 epoch.
 
+The parallel stack (``parallel_path``, last; ``xlstm_yolo_torch/parallel``):
+two data-parallel ranks share the card in a gloo world (gloo moves CUDA
+tensors for all-reduce and broadcast, which dp needs; NCCL refuses two
+ranks on one device), ViL-YOLO-n at 640 px, batch 2 a rank, one fp32 step
+through ``TrainStep(mesh=...)`` (BatchNorm statistics and loss normalizers
+over the global batch, gradients summed over dp) against one process on
+the global batch of 4, the one process's TAL and max-pool choices replayed
+in the ranks, which report through files; ViL-YOLO-l (2 pairs a ViL row)
+switched by ``enable_pipeline`` to the stacked layout with pp 2 and no mesh
+against the unstacked model on the same weights (candidates, and a step
+with cuDNN held to its deterministic algorithms, gated at 1e-5 plus three
+times the unstacked step's spread against itself: the CUDA backward of
+max-pool and nearest upsampling adds with atomics); the
+sequence-parallel mLSTM's three plain functions over 2 and 5 segments at
+ViL-YOLO-n's P3 against the unsplit run; the MoEFFN graph of the JAX ep
+trainer test at 640 px on the card against the CPU; ``Trainer.train`` in a
+child process that torchrun's variables put in a one-rank NCCL world,
+started once the dp ranks' timed steps are done (its own seconds are timed
+inside it). K3 and K2 launch in every rank.
+
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -6393,6 +6413,359 @@ def phase_export_path(smi_line):
         raise PhaseError(f"export_path check failed: {failed or 'launches'}")
     return counts
 
+# parallel_path: the parallel stack on the one card (module docstring)
+PAR_RANKS = 2  # data-parallel ranks sharing the card under gloo
+PAR_DP_BATCH = 2  # images a rank: the one-process step takes the global batch of 4
+PAR_LOSS_RTOL = 1e-4  # the JAX test_dp_training_matches_single_device's
+PAR_SP = (8, 2, 6400, 64, 128)  # B, NH, S, DH, chunk: ViL-YOLO-n's P3
+PAR_SP_SEGMENTS = (2, 5)
+PAR_SP_TOL = 3e-4  # rtol = atol, the JAX test_sequence_parallel_mlstm's
+PAR_PP_CFG = "vil_yolol.yaml"  # the smallest scale with 2 pairs a ViL row
+PAR_PP_BATCH = 2
+PAR_PP_GRAD_TOL = 1e-5  # stacked vs unstacked, beyond 3x the unstacked step's own spread
+PAR_MOE_BATCH = 2
+# tests/test_pp_ep.py:test_model_train_mesh_ep's graph, with COCO's 80 classes
+MOE_GRAPH = {"nc": 80, "backbone": [[-1, 1, "Conv", [32, 3, 2]], [-1, 1, "Conv", [64, 3, 2]],
+                                    [-1, 1, "MoEFFN", [4, 2]], [-1, 1, "Conv", [64, 3, 2]],
+                                    [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "SPPF", [64, 5]]],
+             "head": [[[2, 4, 5], 1, "Detect", ["nc"]]]}
+NCCL_TRAIN = r"""
+import time
+t0 = time.perf_counter()
+import json, sys, torch, torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+from xlstm_yolo_torch.engine.trainer import Trainer
+from xlstm_yolo_torch.kernels.mlstm_bwd import mlstm_chunkwise_bwd as k2
+from xlstm_yolo_torch.kernels.vil_layer import vil_layer_fwd as k3
+from xlstm_yolo_torch.nn.tasks import TaskModel
+root = sys.argv[1]
+data = make_synthetic_dataset(root + "/ds", n_train=8, n_val=4, imgsz=320)
+tr = Trainer(TaskModel("vil_yolon.yaml"), overrides={
+    "data": data, "epochs": 1, "imgsz": 320, "batch": 4, "mesh_dp": 1, "workers": 0,
+    "project": root, "name": "nccl", "plots": False})
+metrics = tr.train()
+out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "mesh": repr(tr.mesh),
+       "device": str(tr.device), "fitness": float(metrics["fitness"]),
+       "launches": {"vil_layer_fwd": k3.launches, "vil_layer_fwd_bf16": k3.launches_bf16,
+                    "mlstm_chunkwise_bwd": k2.launches,
+                    "mlstm_chunkwise_bwd_bf16": k2.launches_bf16}}
+dist.destroy_process_group()
+out["seconds"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def sliced_choices(rec, lo: int, hi: int):
+    """A ``SharedChoices`` to replay the rows [lo, hi) of a recorded
+    step's batch: its TAL assignments and max-pool argmaxes (the choices
+    of a detection step) sliced along the batch."""
+    part = SharedChoices()
+    part.assigned = [tuple(t[lo:hi] for t in a) for a in rec["assigned"]]
+    part.pooled = [t[lo:hi] for t in rec["pooled"]]
+    return part
+
+
+def parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One data-parallel rank of ``parallel_path``: ViL-YOLO-n on the
+    parent's weights, its dp slice of the global batch, the one-process
+    step's choices for those rows, one fp32 step's loss and gradients
+    through ``TrainStep(mesh=...)`` in a gloo world on the card; reports to
+    ``tmp/rank{rank}.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+    from xlstm_yolo_torch.parallel.mesh import build_mesh, shard_batch, shard_params
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    mesh = build_mesh(dp=world)
+    model = build_main_model("cuda", train=True)
+    model.load_state_dict(torch.load(f"{tmp}/weights.pt", weights_only=True))
+    shard_params(mesh, model)
+    step = TrainStep(model, amp=False, mesh=mesh)
+    batch = shard_batch(mesh, train_batch("cuda", batch=PAR_DP_BATCH * world))
+    lo = mesh.index("dp") * PAR_DP_BATCH
+    replay = sliced_choices(torch.load(f"{tmp}/choices.pt", weights_only=True), lo,
+                            lo + PAR_DP_BATCH)
+    zero_kernel_counters()
+    ms = []
+    for it in range(2):  # the checked step (cold), then the same step warm, timed
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with SharedChoices(replay=replay).active():
+            part, _ = step.forward_loss(batch)
+            step.backward(part)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        if it == 0:
+            counts = dict(zip(COUNTED, (int(c) for c in kernel_counters())))
+            grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    loss = part.detach().clone()
+    dist.all_reduce(loss)
+    out = {"rank": rank, "device": str(next(model.parameters()).device),
+           "loss_share": float(part.detach()), "loss": float(loss),
+           "launches": {k: v for k, v in counts.items() if v}, "step_ms": ms,
+           "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        out["grads"] = grads
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_dp(tmp: str) -> tuple:
+    """The 2-rank dp step of ViL-YOLO-n at 640 px against one process on
+    the global batch: loss and every gradient (``grad_errors``, TOL_REL),
+    the one process's TAL and max-pool choices replayed in the ranks.
+    Returns (ok, numbers, launches of the ranks)."""
+    import copy
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    model = build_main_model("cuda", train=True)
+    torch.save(model.state_dict(), f"{tmp}/weights.pt")
+    one = TrainStep(copy.deepcopy(model), amp=False)
+    rec = SharedChoices()
+    with rec.active():
+        total, _ = one.forward_loss(train_batch("cuda", batch=PAR_DP_BATCH * PAR_RANKS))
+        one.backward(total)
+    torch.save({"assigned": rec.assigned, "pooled": rec.pooled}, f"{tmp}/choices.pt")
+    one_grads = {n: p.grad.detach().cpu() for n, p in one.model.named_parameters()}
+    one_loss = float(total.detach())
+    del one, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(parallel_rank, args=(PAR_RANKS, tmp), nprocs=PAR_RANKS)  # a failed rank raises
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(PAR_RANKS)]
+    worst, worst_name, vanishing, gmax = grad_errors(ranks[0]["grads"], one_grads)
+    loss_rel = abs(ranks[0]["loss"] - one_loss) / abs(one_loss)
+    k_ok = all(r["launches"].get("vil_layer_fwd", 0) > 0
+               and r["launches"].get("mlstm_chunkwise_bwd", 0) > 0 for r in ranks)
+    ok = loss_rel <= PAR_LOSS_RTOL and worst <= TOL_REL and k_ok
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return ok, {"ranks": PAR_RANKS, "batch_a_rank": PAR_DP_BATCH,
+                "loss_by_rank": [r["loss_share"] for r in ranks], "loss": ranks[0]["loss"],
+                "loss_one_process": one_loss, "loss_relerr": loss_rel, "loss_rtol": PAR_LOSS_RTOL,
+                "grad_maxrelerr": worst, "grad_worst": worst_name, "grad_tol": TOL_REL,
+                "grads_vanishing": vanishing, "grad_max": gmax,
+                "launches_by_rank": [r["launches"] for r in ranks],
+                "devices": [r["device"] for r in ranks],
+                "step_ms_cold_warm_by_rank": [r["step_ms"] for r in ranks],
+                "rank_seconds": [r["seconds"] for r in ranks], "spawn_wall_seconds": wall}, launches
+
+
+def parallel_pp() -> tuple:
+    """ViL-YOLO-l with ``enable_pipeline`` at pp 2 in the stacked layout (no
+    mesh: the pairs in sequence) against the unstacked model on the same
+    weights: eval candidates, then one fp32 step's loss and gradients (a
+    stacked tensor against its pairs' stacked), the unstacked step's
+    choices replayed, cuDNN deterministic. The gradients are held to
+    PAR_PP_GRAD_TOL beyond three times the spread of the unstacked step
+    run twice (CUDA's max-pool and upsampling backward add in no fixed
+    order)."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.engine.trainer import TrainStep
+
+    big = build_main_model("cuda", train=True, cfg=PAR_PP_CFG)
+    stacked = copy.deepcopy(big)
+    n = stacked.enable_pipeline(stages=2)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (PAR_PP_BATCH, IMGSZ, IMGSZ, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        want = copy.deepcopy(big).eval().predictions(x)
+        got = copy.deepcopy(stacked).eval().predictions(x)
+    cand_rel = ((got - want).abs().max() / want.abs().max()).item()
+    batch = train_batch("cuda", batch=PAR_PP_BATCH)
+    steps, rec = {}, SharedChoices()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, m, ch in (("unstacked", big, rec), ("again", copy.deepcopy(big),
+                                                     SharedChoices(replay=rec)),
+                           ("stacked", stacked, SharedChoices(replay=rec))):
+            st = TrainStep(m, amp=False)
+            with ch.active():
+                total, _ = st.forward_loss(batch)
+                st.backward(total)
+            steps[tag] = (float(total.detach()), {k: p.grad.detach().cpu()
+                                                  for k, p in m.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref, mine = steps["unstacked"][1], steps["stacked"][1]
+    want = {k: torch.stack([ref[k.replace(".pairs.", f".pair{i}.")] for i in range(g.shape[0])])
+            if ".pairs." in k else ref[k] for k, g in mine.items()}
+    worst, worst_name, _, _ = grad_errors(mine, want)
+    noise, noise_name, _, _ = grad_errors(steps["again"][1], ref)
+    loss_rel = abs(steps["stacked"][0] - steps["unstacked"][0]) / abs(steps["unstacked"][0])
+    grad_tol = PAR_PP_GRAD_TOL + 3 * noise
+    ok = n == 3 and cand_rel <= 1e-5 and loss_rel <= 1e-6 and worst <= grad_tol
+    del big, stacked
+    torch.cuda.empty_cache()
+    return ok, {"model": PAR_PP_CFG, "stacked_rows": n, "batch": PAR_PP_BATCH,
+                "cands_maxrelerr": cand_rel, "loss": steps["stacked"][0],
+                "loss_relerr": loss_rel, "grad_maxrelerr": worst, "grad_worst": worst_name,
+                "grad_tol": grad_tol, "cudnn_deterministic": True,
+                "unstacked_again_grad_maxrelerr": noise, "unstacked_again_worst": noise_name}
+
+
+def parallel_sp() -> tuple:
+    """The sequence-parallel mLSTM's three plain functions over 2 and 5
+    segments at ViL-YOLO-n's P3 shape, on the card, against the unsplit
+    ``mlstm_chunkwise``."""
+    import torch
+
+    from xlstm_yolo_torch.kernels.mlstm_native import mlstm_chunkwise
+    from xlstm_yolo_torch.kernels.mlstm_sp import exclusive_prefix, seeded_pass, segment_summary
+
+    B, NH, S, DH, CS = PAR_SP
+    g = torch.Generator("cuda").manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    q, k, v, i, f = mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S), \
+        mk(B, NH, S) + 2.0
+    with torch.no_grad():
+        want = mlstm_chunkwise(q, k, v, i, f, chunk_size=CS)
+        errs, ok = {}, True
+        for segs in PAR_SP_SEGMENTS:
+            n = S // segs
+            parts = [[t[:, :, j * n:(j + 1) * n] for t in (q, k, v, i, f)] for j in range(segs)]
+            states = exclusive_prefix([segment_summary(*p, chunk_size=CS) for p in parts])
+            got = torch.cat([seeded_pass(*p, st, chunk_size=CS) for p, st in zip(parts, states)],
+                            2)
+            excess = ((got - want).abs() - PAR_SP_TOL * (1 + want.abs())).max().item()
+            errs[str(segs)] = (got - want).abs().max().item()
+            ok = ok and excess <= 0 and bool(torch.isfinite(got).all())
+    return ok, {"shape": dict(zip(("B", "NH", "S", "DH", "chunk"), PAR_SP)),
+                "max_abs_err_by_segments": errs, "tol": PAR_SP_TOL}
+
+
+def parallel_moe() -> tuple:
+    """The MoEFFN graph at 640 px on the card against the CPU: eval
+    candidates, then one fp32 step's loss (with the load-balance loss) and
+    gradients (``zoo_step``; the card's TAL and max-pool choices replayed
+    on the CPU)."""
+    import copy
+
+    import torch
+
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    model = TaskModel(MOE_GRAPH, device="cuda", seed=0)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (PAR_MOE_BATCH, IMGSZ, IMGSZ, 3)).astype(np.float32))
+    with torch.no_grad():
+        got = copy.deepcopy(model).eval().predictions(x.cuda()).cpu()
+        want = copy.deepcopy(model).cpu().eval().predictions(x)
+    box_rel = ((got[..., :4] - want[..., :4]).abs().max() / want[..., :4].abs().max()).item()
+    score_abs = (got[..., 4:] - want[..., 4:]).abs().max().item()
+    batch = train_batch("cpu", batch=PAR_MOE_BATCH)
+    rec = SharedChoices()
+    card = zoo_step(model, "cuda", torch.float32, batch, rec)
+    cpu = zoo_step(model, "cpu", torch.float32, batch, SharedChoices(replay=rec))
+    worst, worst_name, vanishing, _ = grad_errors(card[1], cpu[1])
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    ok = box_rel <= TOL_REL and score_abs <= TOL_REL and loss_rel <= TOL_REL and worst <= TOL_REL
+    return ok, {"batch": PAR_MOE_BATCH, "cands_box_maxrelerr_vs_cpu": box_rel,
+                "cands_score_max_abs_err_vs_cpu": score_abs, "loss": card[0],
+                "loss_relerr_vs_cpu": loss_rel, "grad_maxrelerr_vs_cpu": worst,
+                "grad_worst": worst_name, "grads_vanishing": vanishing}
+
+
+def start_nccl(tmp: str):
+    """``Trainer.train`` in a child process that torchrun's variables put in
+    a one-rank NCCL world (mesh_dp 1; one epoch of ViL-YOLO-n on 8 PNGs at
+    320 px, validated); started after the dp check, read last by
+    ``parallel_nccl``."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    return subprocess.Popen([sys.executable, "-c", NCCL_TRAIN, f"{tmp}/nccl"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=str(Path(__file__).resolve().parent))
+
+
+def parallel_nccl(proc) -> tuple:
+    """The NCCL trainer's report: NCCL, a world of one, this rank's card,
+    the kernels launched, its seconds (timed in the child); and the
+    seconds this process waited for it."""
+    t0 = time.perf_counter()
+    stdout, stderr = proc.communicate(timeout=600)
+    wait = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise PhaseError(f"the NCCL trainer exited {proc.returncode}: {stderr[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    ok = (out["backend"] == "nccl" and out["world"] == 1 and out["device"] == "cuda:0"
+          and out["launches"]["vil_layer_fwd_bf16"] > 0)
+    return ok, {**out, "wait_seconds": wait}
+
+
+def phase_parallel_path(smi_line):
+    """The parallel stack on the one card (module docstring): the 2-rank dp
+    step, the stacked ViL-YOLO-l, the sp segments, MoEFFN against the CPU,
+    and a one-rank NCCL Trainer, which starts after the dp ranks' timed
+    steps and runs beside the pp, sp and MoE checks (their ``seconds``
+    share the card with it). Returns the launches of the phase's runs
+    (this process's and the ranks')."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    zero_all_kernel_counts()
+    parts, failed, rank_launches = {}, [], {}
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for label, fn in (("dp", lambda: parallel_dp(tmp)), ("pp", parallel_pp),
+                              ("sp", parallel_sp), ("moe", parallel_moe),
+                              ("nccl", lambda: parallel_nccl(procs[0]))):
+                t0 = time.perf_counter()
+                ok, numbers, *extra = fn()
+                if extra:
+                    rank_launches = extra[0]
+                parts[label] = {"seconds": time.perf_counter() - t0, **numbers, "ok": bool(ok)}
+                if not ok:
+                    failed.append(label)
+                if label == "dp":  # the ranks' steps are timed: the child starts after them
+                    procs.append(start_nccl(tmp))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    counts = {k: v for k, v in all_kernel_counts().items() if v}
+    for k, v in {**rank_launches}.items():
+        counts[k] = counts.get(k, 0) + v
+    for k, v in parts["nccl"]["launches"].items():
+        counts[k] = counts.get(k, 0) + v
+    ok = not failed and counts.get("vil_layer_fwd", 0) > 0 and counts.get(
+        "mlstm_chunkwise_bwd", 0) > 0
+    emit({"phase": "parallel_path", **parts, "failed": failed, "launches": counts,
+          "smi": smi_line, "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"parallel_path check failed: {failed or 'launches'}")
+    return counts
+
 
 def main() -> int:
     t_run = time.perf_counter()
@@ -6452,6 +6825,8 @@ def main() -> int:
         sam_launches = phase_sam_path(smi_line)
         phase = "export_path"
         export_launches = phase_export_path(smi_line)
+        phase = "parallel_path"
+        parallel_launches = phase_parallel_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -6481,7 +6856,8 @@ def main() -> int:
                "rtdetr_path": rtdetr_launches,
                "world_path": world_launches,
                "sam_path": sam_launches,
-               "export_path": export_launches}
+               "export_path": export_launches,
+               "parallel_path": parallel_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

@@ -2356,3 +2356,66 @@ def test_exported_vil_layer_on_card_matches_plain(cuda_device, tmp_path):
             mp.setattr(vc, "_on_card", lambda t: False)
             want = layer(x)
     assert _rel(got, want) <= TOL_REL
+
+
+@pytest.mark.parametrize("segments", [2, 5])
+def test_sp_segments_on_card_match_unsplit(cuda_device, segments):
+    """The sequence-parallel mLSTM's plain functions (summary, exclusive
+    prefix, seeded pass) over ``segments`` segments at ViL-YOLO-n's P3
+    shape (B 8, NH 2, S 6400, DH 64, chunk 128) on the card, against the
+    unsplit ``mlstm_chunkwise``: rtol = atol = 3e-4, the JAX sp test's."""
+    from xlstm_yolo_torch.kernels.mlstm_native import mlstm_chunkwise
+    from xlstm_yolo_torch.kernels.mlstm_sp import (exclusive_prefix, seeded_pass,
+                                                   segment_summary)
+
+    B, NH, S, DH, CS = 8, 2, 6400, 64, 128
+    g = torch.Generator(cuda_device).manual_seed(segments)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
+    q, k, v, i, f = mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S, DH), mk(B, NH, S), \
+        mk(B, NH, S) + 2.0
+    want = mlstm_chunkwise(q, k, v, i, f, chunk_size=CS)
+    n = S // segments
+    parts = [[t[:, :, j * n:(j + 1) * n] for t in (q, k, v, i, f)] for j in range(segments)]
+    states = exclusive_prefix([segment_summary(*p, chunk_size=CS) for p in parts])
+    got = torch.cat([seeded_pass(*p, s, chunk_size=CS) for p, s in zip(parts, states)], 2)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
+def test_moeffn_on_card_matches_cpu(cuda_device):
+    """The MoEFFN graph of the JAX ep trainer test (80 classes) at 256 px,
+    batch 2: eval candidates and one fp32 step's loss (the load-balance
+    loss in it) and gradients on the card against the same weights on the
+    CPU, each gradient of its own max (a vanishing one of the model's
+    largest), TOL_REL."""
+    from xlstm_yolo_torch.nn.tasks import TaskModel
+
+    graph = {"nc": 80, "backbone": [[-1, 1, "Conv", [32, 3, 2]], [-1, 1, "Conv", [64, 3, 2]],
+                                    [-1, 1, "MoEFFN", [4, 2]], [-1, 1, "Conv", [64, 3, 2]],
+                                    [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "SPPF", [64, 5]]],
+             "head": [[[2, 4, 5], 1, "Detect", ["nc"]]]}
+    model = TaskModel(graph, device="cpu", seed=0)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (2, 256, 256, 3)).astype(
+        np.float32))
+    cb = torch.zeros(2, 8, 5)
+    cb[:, 0] = torch.tensor([3.0, 20, 30, 120, 140])
+    cb[:, 1] = torch.tensor([7.0, 100, 60, 240, 200])
+    mask = torch.zeros(2, 8, dtype=torch.bool)
+    mask[:, :2] = True
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = copy.deepcopy(model).to(dev)
+        with torch.no_grad():
+            cands = m.eval().predictions(x.to(dev)).cpu()
+        m.train()
+        total, aux = m.loss({"img": x.to(dev), "cls_boxes": cb.to(dev), "mask": mask.to(dev)})
+        total.backward()
+        out[str(dev)] = (cands, float(total.detach()), float(aux["moe_aux"].detach()),
+                         {n: p.grad.cpu() for n, p in m.named_parameters()})
+    (c0, l0, a0, g0), (c1, l1, a1, g1) = out["cpu"], out[str(cuda_device)]
+    assert _rel(c1, c0) <= TOL_REL
+    assert abs(l1 - l0) <= TOL_REL * abs(l0) and abs(a1 - a0) <= TOL_REL * abs(a0)
+    gmax = max(g.abs().max().item() for g in g0.values())
+    for n, g in g0.items():  # a tensor that vanishes is held to the model's largest gradient
+        scale = g.abs().max().item()
+        scale = scale if scale >= 1e-6 * gmax else gmax
+        assert (g1[n] - g).abs().max().item() <= TOL_REL * scale, n

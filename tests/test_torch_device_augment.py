@@ -352,11 +352,15 @@ def test_resize_matches_jax_image_resize(size):
 
 
 def test_cfg_takes_both_keys_and_still_refuses_the_mesh():
+    """Both keys are taken; the mesh keys, refused while the port ran on one
+    card, are ints now (``parallel.mesh``): a value that is not one is
+    still refused."""
     args = get_cfg(overrides={"device_augment": True, "multi_scale": True})
     assert args.device_augment is True and args.multi_scale is True
     for key, value in (("mesh_dp", 2), ("mesh_tp", 2), ("pp_microbatches", 4)):
-        with pytest.raises(ValueError, match=key):
-            get_cfg(overrides={key: value})
+        assert getattr(get_cfg(overrides={key: value}), key) == value
+        with pytest.raises(TypeError, match=key):
+            get_cfg(overrides={key: value + 0.5})
 
 
 def test_multi_scale_bucket():

@@ -235,9 +235,17 @@ def test_fusion_and_mlstm_vision_blocks_in_one_graph_match_jax():
 
 
 def test_moeffn_is_refused_with_what_it_waits_on():
+    """Named when the port refused MoEFFN: the graph builds it now
+    (``parallel/moe.py``), channel-preserving over an NCHW map, and refuses
+    a top k above its expert count."""
     cfg = {"nc": 2, "backbone": [[-1, 1, "MoEFFN", [4, 1]]]}
-    with pytest.raises(KeyError, match="parallel/moe.py"):
-        parse_model(cfg, ch=8)
+    g = GraphModel(parse_model(cfg, ch=8))
+    assert tuple(g.l0.moe.w_gate.shape) == (4, 8, 64)
+    with torch.no_grad():
+        assert tuple(g(torch.zeros(2, 8, 4, 4)).shape) == (2, 8, 4, 4)
+    cfg["backbone"][0][3] = [4, 5]
+    with pytest.raises(ValueError, match="top_k=5"):
+        GraphModel(parse_model(cfg, ch=8))
 
 
 def test_fusion_block_mixer_needs_its_token_count():

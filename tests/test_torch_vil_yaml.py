@@ -91,22 +91,21 @@ def _pair(jmod, tmod, *xs, seed=0, nchw_in=(), nchw_out=False, tol=TOL, jit=Fals
 def test_registry_has_the_jax_names():
     """The port's graph compiler takes the ViL block names the JAX package
     registers, ``VisionLSTM``, ``FusionViLLayerBlock``, ``VilLayerUpdated``
-    and ``mLSTMVisionBlock`` included; the one left for later, ``MoEFFN``,
-    is refused with what it waits on."""
+    and ``mLSTMVisionBlock`` included, and ``MoEFFN`` (the last of them,
+    refused until ``parallel/moe.py`` was ported)."""
     for name in ("ViLBlockPairBlock", "SequenceToImage", "ImageToSequence", "PermuteBlock",
                  "FeatureSplitIndex", "VitPatchEmbedBlock", "VitPosEmbedBlock",
                  "FlattenPosEmbedBlock", "SequenceConv2dBlock", "PatchMergeBlock", "PatchMerging",
                  "VisionClueMerge", "PatchMerger", "ViLLayerNormBlock", "MultiScaleFusionBlock",
                  "ViLFusionBlock", "VisionLSTM", "FusionViLLayerBlock", "VilLayerUpdated",
-                 "mLSTMVisionBlock"):
+                 "mLSTMVisionBlock", "MoEFFN"):
         assert REGISTRY[name][1] == "custom", name
     from xlstm_yolo_tpu.nn.graph import REGISTRY as JAX_REGISTRY
 
     jax_vil = {n for n, (cls, _) in JAX_REGISTRY.items() if cls.__module__ == JB.__name__}
-    assert len(jax_vil) == 21 and jax_vil - set(REGISTRY) == {"MoEFFN"}
+    assert len(jax_vil) == 21 and not jax_vil - set(REGISTRY)
     cfg = {"nc": 2, "backbone": [[-1, 1, "MoEFFN", [4, 1]]]}
-    with pytest.raises(KeyError, match="not ported: .*parallel/moe.py"):
-        parse_model(cfg, ch=8)
+    assert parse_model(cfg, ch=8).specs[0].name == "MoEFFN"
 
 
 def test_sequence_image_views():

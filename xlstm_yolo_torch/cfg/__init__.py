@@ -5,9 +5,9 @@ Port of ``get_cfg``, ``check_cfg``, ``check_dict_alignment``, ``yaml_load``,
 ``model_yaml_path``, ``load_model_yaml``, ``TASKS`` and ``TASK2METRIC`` in
 ``xlstm_yolo_tpu/cfg/__init__.py``: defaults, then overrides, typed
 validation and did-you-mean errors for mistyped keys. The keys of the JAX
-package's device mesh are accepted at their defaults and refused otherwise
-(``UNSUPPORTED``); the ``dtype`` key picks the train step's arithmetic
-(``amp_of``).
+package's device mesh (``mesh_dp`` ... ``mesh_ep``, ``pp_microbatches``) are
+ints the trainer builds its mesh from (``parallel.mesh``); the ``dtype``
+key picks the train step's arithmetic (``amp_of``).
 """
 from __future__ import annotations
 
@@ -40,15 +40,14 @@ CFG_FRACTION_KEYS = {"dropout", "lr0", "lrf", "momentum", "weight_decay", "warmu
                      "conf", "iou", "fraction", "erasing", "crop_fraction"}
 CFG_INT_KEYS = {"epochs", "patience", "workers", "seed", "close_mosaic", "mask_ratio",
                 "max_det", "vid_stride", "line_width", "nbs", "save_period", "imgsz",
-                "mesh_dp", "mesh_tp", "mesh_sp", "max_labels", "mosaic_n"}
+                "mesh_dp", "mesh_tp", "mesh_sp", "mesh_pp", "mesh_ep", "pp_microbatches",
+                "max_labels", "mosaic_n"}
 CFG_BOOL_KEYS = {"save", "exist_ok", "verbose", "deterministic", "single_cls", "rect", "cos_lr",
                  "overlap_mask", "val", "save_json", "save_hybrid", "half", "dnn", "plots",
                  "show", "save_txt", "save_conf", "save_crop", "save_frames", "show_labels",
                  "show_conf", "visualize", "augment", "agnostic_nms", "retina_masks",
                  "show_boxes", "keras", "optimize", "int8", "dynamic", "simplify", "nms",
                  "profile", "multi_scale", "stream_buffer", "device_augment"}
-# keys of the JAX package that the port refuses away from their defaults: one card
-UNSUPPORTED = ("mesh_dp", "mesh_tp", "mesh_sp", "mesh_pp", "mesh_ep", "pp_microbatches")
 DTYPES = ("bfloat16", "float32")
 
 
@@ -99,8 +98,7 @@ for _k, _v in DEFAULT_CFG_DICT.items():
 
 def check_cfg(cfg: dict, hard: bool = True) -> dict:
     """Typed validation: floats, fractions in [0, 1], ints, bools; then the
-    port's refusals (``UNSUPPORTED`` away from its default, an unknown
-    ``dtype``)."""
+    refusal of an unknown ``dtype``."""
     for k, v in list(cfg.items()):
         if v is None:
             continue
@@ -126,10 +124,6 @@ def check_cfg(cfg: dict, hard: bool = True) -> dict:
                     cfg[k] = v.lower() == "true"
                 else:
                     _type_err(k, v, "bool", hard)
-    for k in UNSUPPORTED:
-        if k in cfg and cfg[k] != DEFAULT_CFG_DICT[k]:
-            raise ValueError(f"'{k}={cfg[k]}' is not supported by the PyTorch port (one "
-                             f"card); leave it at {DEFAULT_CFG_DICT[k]!r}")
     if cfg.get("dtype") not in (None, *DTYPES):
         raise ValueError(f"'dtype={cfg['dtype']}' must be one of {DTYPES}")
     return cfg

@@ -39,6 +39,7 @@ import os
 import queue
 import threading
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -242,12 +243,13 @@ class YOLODataset:
                     if (int(z["version"]) == _CACHE_VERSION and str(z["hash"]) == want
                             and int(z["counts"].shape[0]) == len(self.files)):
                         return _unpack_labels(z, self.task)
-            except (OSError, ValueError, KeyError):
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile):
                 pass  # a corrupt or stale cache: rescan below
         labels = [self._load_label(f) for f in self.files]
         if cp is not None:
             try:
-                np.savez(cp, version=_CACHE_VERSION, hash=want, **_pack_labels(labels, self.task))
+                _savez_atomic(cp, version=_CACHE_VERSION, hash=want,
+                              **_pack_labels(labels, self.task))
             except OSError:
                 pass  # a read-only dataset: scan on every run
         return labels
@@ -268,7 +270,7 @@ class YOLODataset:
                     if str(z["hash"]) == want and z["shapes"].shape[0] == self.ni:
                         self._shapes = z["shapes"]
                         return self._shapes
-            except (OSError, ValueError, KeyError):
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile):
                 pass  # a corrupt or stale cache: read the headers again
         shapes = np.zeros((self.ni, 2), np.int32)
         for i, f in enumerate(self.files):
@@ -278,7 +280,7 @@ class YOLODataset:
                 shapes[i] = (self.imgsz, self.imgsz)
         if sp is not None:
             try:
-                np.savez(sp, hash=want, shapes=shapes)
+                _savez_atomic(sp, hash=want, shapes=shapes)
             except OSError:
                 pass  # a read-only dataset
         self._shapes = shapes
@@ -596,6 +598,15 @@ def _pinned(batch: dict) -> dict:
             for k, v in batch.items()}
 
 
+def _savez_atomic(path: Path, **arrays) -> None:
+    """``np.savez`` to a file of this process's, renamed over ``path``: the
+    ranks of a data-parallel run scan one dataset at once, and a reader
+    never sees half a file."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
 class Loader:
     """Epoch iterator with a background prefetch thread. The shuffle of
     epoch e is seeded ``seed + e`` (``epoch`` counts finished passes; set it
@@ -606,11 +617,18 @@ class Loader:
     holds the host's seconds to assemble each batch of the last pass (read,
     augment, collate, pin). On a ``rect`` dataset the batches are its
     buckets at this loader's batch size, in order (a shuffle is refused);
-    with ``drop_last`` the short bucket goes unless it is the only one."""
+    with ``drop_last`` the short bucket goes unless it is the only one.
+    ``shard_index`` of ``num_shards`` (a data-parallel rank's shard, the
+    JAX loader's): the epoch's index order strided, ``[shard_index ::
+    num_shards]`` (with ``drop_last`` every shard keeps len // num_shards of
+    them, so that all shards give as many batches), or every
+    ``num_shards``-th rect bucket; ``batch_size`` is then the shard's."""
 
     def __init__(self, dataset: YOLODataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2, workers: int = 0,
-                 pin: bool = False):
+                 pin: bool = False, shard_index: int = 0, num_shards: int = 1):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards}")
         if dataset.rect and shuffle:
             raise ValueError("shuffle=True on a rect dataset: a rect batch is one aspect-ratio "
                              "bucket in order; build the dataset with rect=False to shuffle")
@@ -622,6 +640,7 @@ class Loader:
         self.prefetch = prefetch
         self.workers = max(0, int(workers))
         self.pin = pin
+        self.shard_index, self.num_shards = shard_index, num_shards
         self.epoch = 0
         self.batch_seconds: list[float] = []
         self._rect = None
@@ -629,7 +648,7 @@ class Loader:
     def rect_batches(self) -> list:
         """This loader's rect buckets, [(indices, (h, w)), ...]."""
         if self._rect is None:
-            groups = self.ds.rect_batches(self.bs)
+            groups = self.ds.rect_batches(self.bs)[self.shard_index::self.num_shards]
             if self.drop_last:
                 groups = [g for g in groups if len(g[0]) == self.bs] or groups
             self._rect = groups
@@ -638,8 +657,12 @@ class Loader:
     def __len__(self):
         if self.ds.rect:
             return len(self.rect_batches())
-        n = len(self.ds)
+        n = self._shard_len()
         return n // self.bs if self.drop_last else math.ceil(n / self.bs)
+
+    def _shard_len(self) -> int:
+        n, k = len(self.ds), self.num_shards
+        return n // k if self.drop_last else len(range(self.shard_index, n, k))
 
     def __iter__(self):
         rng = np.random.default_rng(self.seed + self.epoch)
@@ -649,6 +672,7 @@ class Loader:
             idxs = np.arange(len(self.ds))
             if self.shuffle:
                 rng.shuffle(idxs)
+            idxs = idxs[self.shard_index::self.num_shards][:self._shard_len()]
             batches = [(idxs[b * self.bs:(b + 1) * self.bs], None) for b in range(len(self))]
         self.batch_seconds = []
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -784,7 +808,7 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
                      workers: int = 0, rect: bool = False, stride: int = 32,
                      pad: float = 0.5, task: str = "detect",
                      mask_ratio: int = 4, embed_fn=None,
-                     text_cfg: dict | None = None) -> tuple[Loader, dict]:
+                     text_cfg: dict | None = None, shard: tuple = (0, 1)) -> tuple[Loader, dict]:
     """Dataset YAML (or dict) -> (Loader, dataset dict). The train split
     augments and shuffles and drops the last partial batch; the others keep
     every image in order. ``rect`` (without ``augment``): aspect-ratio
@@ -797,14 +821,17 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
     ``multimodal.MultiModalDataset`` over the detect labels (its batches
     carry ``texts`` and, with ``embed_fn``, ``txt_feats``; ``text_cfg``
     sets its ``RandomLoadText``; ``cache`` and ``rect`` are not read, as in
-    JAX)."""
+    JAX). ``shard`` = (index, count): a data-parallel rank's shard of the
+    set (``Loader``'s ``shard_index`` / ``num_shards``), ``batch`` its
+    share of the global batch."""
     augment = (split == "train") if augment is None else augment
     if task == "classify":
         root = Path(str(data_yaml))
         split_dir = root / split if (root / split).exists() else root
         ds = ClassificationDataset(str(split_dir), imgsz=imgsz, augment=augment, hyp=hyp,
                                    fraction=fraction)
-        return (Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers),
+        return (Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers,
+                       shard_index=shard[0], num_shards=shard[1]),
                 {"names": ds.names, "nc": len(ds.names), "path": root})
     d = check_det_dataset(data_yaml)
     if isinstance(hyp, dict) and d.get("flip_idx"):
@@ -820,4 +847,5 @@ def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 1
                          single_cls=single_cls, fraction=fraction, cache=cache, rect=rect,
                          stride=stride, pad=pad, task=task,
                          kpt_shape=tuple(d.get("kpt_shape", (17, 3))), mask_ratio=mask_ratio)
-    return Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers), d
+    return Loader(ds, batch, shuffle=augment, seed=seed, drop_last=augment, workers=workers,
+                  shard_index=shard[0], num_shards=shard[1]), d

@@ -69,7 +69,7 @@ import csv
 import json
 import math
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -101,13 +101,20 @@ class TrainStep:
     ``n_updates``); whether the mosaic canvas is used is fixed here by
     ``augment["mosaic"]`` > 0, and ``mosaic_p``, the chance an image takes
     it, starts at that value (``close_mosaic`` zeros it). ``gains`` (box,
-    cls, dfl) weight the loss's terms (the model's defaults when None)."""
+    cls, dfl) weight the loss's terms (the model's defaults when None).
+    With a ``mesh`` (``parallel.mesh.Mesh``, the model's parameters already
+    sharded by ``shard_params``) the forward runs in its ``step_context``
+    (the dp group's reductions, the tp shards gathered), the gradients are
+    summed over dp before the update, the clip's norm is over every shard,
+    and the loss and terms returned are the global batch's."""
 
     def __init__(self, model, lr: float = 0.01, momentum: float = 0.937,
                  weight_decay: float = 5e-4, optimizer: str = "auto", iterations: float = 1e5,
                  accumulate: int = 1, amp: bool = True, augment: dict | None = None,
-                 seed: int = 0, gains=None, pose_gains=(12.0, 1.0), flip_idx=None):
+                 seed: int = 0, gains=None, pose_gains=(12.0, 1.0), flip_idx=None,
+                 mesh=None):
         self.model = model.train()
+        self.mesh = mesh
         self.amp = amp
         self.gains = gains
         self.pose_gains = tuple(pose_gains)
@@ -115,6 +122,9 @@ class TrainStep:
         self.update = StepUpdate(model, lr=lr, momentum=momentum, weight_decay=weight_decay,
                                  name=optimizer, nc=getattr(model, "nc", 80),
                                  iterations=iterations, accumulate=accumulate)
+        if mesh is not None:
+            self.update.sq_norm_reduce = (
+                lambda sq: mesh.global_sq_norm(model, self.update.names, sq))
         self.n_updates = 0
         self.augment = None if augment is None else DA.aug_hyp(augment)
         self.mosaic_p = None if augment is None else self.augment["mosaic"]
@@ -153,14 +163,16 @@ class TrainStep:
             batch = self.augment_batch(batch)
         if self.amp:
             batch["img"] = batch["img"].to(torch.bfloat16)
-        if getattr(self.model, "task", "detect") == "pose":
-            return self.model.loss(batch, self.gains, pose_gains=self.pose_gains)
-        return self.model.loss(batch, self.gains)
+        kw = {"pose_gains": self.pose_gains} if getattr(self.model, "task", "") == "pose" else {}
+        with self.mesh.step_context(self.model) if self.mesh is not None else nullcontext():
+            return self.model.loss(batch, self.gains, **kw)
 
     def backward(self, total: torch.Tensor) -> None:
         for p in self.update.params:
             p.grad = None
         total.backward()
+        if self.mesh is not None:
+            self.mesh.reduce_grads(self.update.params)
 
     def apply_update(self, lr: float | None = None) -> None:
         """One call of the update at ``lr`` (the optimizer's own when None)."""
@@ -171,7 +183,13 @@ class TrainStep:
         total, aux = self.forward_loss(batch)
         self.backward(total)
         self.apply_update(lr)
-        return total.detach(), {k: v.detach() for k, v in aux.items()}
+        total, aux = total.detach(), {k: v.detach() for k, v in aux.items()}
+        group = None if self.mesh is None else self.mesh.group_of("dp")
+        if group is not None:  # the ranks' shares summed: the global batch's values
+            vals = torch.stack([total, *aux.values()])
+            torch.distributed.all_reduce(vals, group=group)
+            total, aux = vals[0], dict(zip(aux, vals[1:]))
+        return total, aux
 
     def fit_steps(self, batches, epochs: int, nb: int | None = None, lrf: float = 0.01,
                   warmup_epochs: float = 3.0, cos_lr: bool = False) -> list:
@@ -341,6 +359,7 @@ class Trainer:
         self.csv = self.save_dir / "results.csv"
         self.callbacks = callbacks if callbacks is not None else default_callbacks()
         self.text_encoder = None  # a world run's text tower (module docstring)
+        self.mesh, self._main = None, True  # set by train (_build_mesh)
 
     def add_callback(self, event: str, func) -> None:
         self.callbacks.add(event, func)
@@ -370,7 +389,13 @@ class Trainer:
     def ema_model(self):
         """A copy of the model holding the EMA parameters and the live
         BatchNorm statistics, in eval mode: what validation and the final
-        model read. The training model is left as it is."""
+        model read. The training model is left as it is. Under a mesh that
+        shards or stacks parameters the copy is whole and unstacked (every
+        rank of the mesh calls it: the shards are gathered)."""
+        if self._split():
+            model = self.mesh.unsharded(self.step.model, self.step.update.ema)
+            model.disable_pipeline()
+            return model.eval().requires_grad_(False)
         model = copy.deepcopy(self.step.model)
         with torch.no_grad():
             for p, e in zip(model.parameters(), self.step.update.ema):
@@ -378,18 +403,66 @@ class Trainer:
                 p.copy_(e)
         return model.eval().requires_grad_(False)
 
+    def _split(self) -> bool:
+        """Whether the run's parameters are sharded or stacked (tp, pp, ep)."""
+        return self.mesh is not None and (bool(getattr(self.step.model, "_shards", {}))
+                                          or self.mesh.shape["pp"] > 1)
+
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
                 for k in BATCH_KEYS if k in batch}
 
+    def _build_mesh(self, batch: int):
+        """The run's mesh from the ``mesh_*`` keys over torchrun's world
+        (``parallel.distributed.ensure_initialized``; one process without
+        it): dp = -1 fills the world, and shrinks, with a warning, until it
+        divides ``batch``; the ranks it leaves out sit idle."""
+        from ..parallel.distributed import ensure_initialized
+        from ..parallel.mesh import build_mesh
+
+        args = self.args
+        _, world = ensure_initialized(self.device)
+        tp, sp, pp, ep = (int(args.mesh_tp), int(args.mesh_sp), int(args.mesh_pp),
+                          int(args.mesh_ep))
+        dp = int(args.mesh_dp)
+        if dp == -1:
+            dp = world // (tp * sp * pp * ep)
+        dp_want = dp
+        while dp > 1 and batch % dp != 0:  # dp must divide the global batch
+            dp -= 1
+        if dp != dp_want:
+            print(f"WARNING: batch={batch} is not divisible by dp={dp_want}; shrinking to "
+                  f"dp={dp} — {(dp_want - dp) * tp * sp * pp * ep} rank(s) will sit IDLE. "
+                  f"Pick batch as a multiple of dp to use every card.")
+        n = dp * tp * sp * pp * ep
+        if n > world:
+            raise ValueError(f"a mesh of {n} ranks (dp={dp} tp={tp} sp={sp} pp={pp} ep={ep}) "
+                             f"needs a world of {n} processes, this one has {world}: launch "
+                             f"with torchrun --nproc_per_node {n}")
+        return build_mesh(dp, tp, sp, pp, ep, ranks=range(n))
+
     def train(self) -> dict:
         from ..data.dataset import build_dataloader
+        from ..parallel.mesh import shard_params
         from .validator import Validator
 
         args = self.args
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        self.run_callbacks("on_pretrain_routine_start")
         imgsz, batch, epochs = int(args.imgsz), int(args.batch), int(args.epochs)
+        self.mesh = mesh = self._build_mesh(batch)
+        if not mesh.member:
+            print(f"rank {torch.distributed.get_rank()} is outside the {mesh} mesh: it sits "
+                  f"idle for this run")
+            self.metrics = {}
+            return self.metrics
+        self._main = mesh.group is None or torch.distributed.get_rank() == mesh.ranks[0]
+        dp, dp_index = mesh.shape["dp"], mesh.index("dp")
+        if args.resume and max(mesh.shape[a] for a in ("tp", "pp", "ep")) > 1:
+            raise ValueError("resume under a mesh that shards or stacks parameters (mesh_tp, "
+                             "mesh_pp or mesh_ep > 1) is not supported; its checkpoints hold "
+                             "the whole model, without optimizer state")
+        if self._main:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+        self.run_callbacks("on_pretrain_routine_start")
         task = self.model.task
         if task == "rtdetr" and args.val:
             from .validator import RTDETR_NO_VAL
@@ -404,11 +477,12 @@ class Trainer:
             dev_aug = False
         # with the augmentation on the device the host path is letterbox-only
         self.loader, self.data = build_dataloader(
-            args.data, "train", batch=batch, imgsz=imgsz, augment=False if dev_aug else None,
+            args.data, "train", batch=batch // dp, imgsz=imgsz,
+            augment=False if dev_aug else None,
             hyp=dict(vars(args)), max_labels=int(args.max_labels), seed=int(args.seed),
             fraction=float(args.fraction), single_cls=bool(args.single_cls), cache=args.cache,
             workers=int(args.workers or 0), task=task, mask_ratio=int(args.mask_ratio),
-            embed_fn=self.text_encoder)
+            embed_fn=self.text_encoder, shard=(dp_index, dp))
         if hasattr(self.loader.ds, "uint8_images"):  # a classify batch ships float32
             self.loader.ds.uint8_images = True  # normalized on the device
         self.loader.pin = self.device.type == "cuda"
@@ -422,16 +496,24 @@ class Trainer:
         if self.model.nc != self.data["nc"]:
             self.model = self.rebuild(self.data["nc"])
         self.model.names = self.data["names"] or self.model.names
+        if mesh.shape["pp"] > 1:
+            n_piped = self.model.enable_pipeline(mesh, microbatches=int(args.pp_microbatches))
+            if self._main:
+                print(f"pipeline parallelism: {n_piped} ViL stage(s) over pp={mesh.shape['pp']}")
+        mesh.broadcast_params(self.model)
+        shard_params(mesh, self.model)
         nb = len(self.loader)
         accumulate = max(round(args.nbs / batch), 1)
         self.iterations = math.ceil(nb / accumulate) * epochs
         self.step = TrainStep(self.model, lr=args.lr0, momentum=args.momentum,
                               weight_decay=args.weight_decay, optimizer=args.optimizer,
                               iterations=self.iterations, accumulate=accumulate, amp=amp_of(args),
-                              augment=vars(args) if dev_aug else None, seed=int(args.seed),
+                              augment=vars(args) if dev_aug else None,
+                              seed=int(args.seed) + dp_index,
                               gains=(float(args.box), float(args.cls), float(args.dfl)),
                               pose_gains=(float(args.pose), float(args.kobj)),
-                              flip_idx=self.data.get("flip_idx") if task == "pose" else None)
+                              flip_idx=self.data.get("flip_idx") if task == "pose" else None,
+                              mesh=mesh if mesh.device_mesh is not None else None)
         # multi-scale: one size a batch, drawn on the host from a fixed bucket
         ms_sizes = multi_scale_sizes(imgsz, args.multi_scale, self.model.strides)
         ms_rng = np.random.default_rng(int(args.seed) + 4242)
@@ -447,18 +529,21 @@ class Trainer:
         sched = lr_schedule(self.lr0, args.lrf, epochs, cos_lr=bool(args.cos_lr))
         warmup = warmup_steps_for(args.warmup_epochs, nb, epochs)
         stopper = EarlyStopping(patience=int(args.patience))
-        print(f"training {self.model.task} model: {epochs} epochs x {nb} batches (batch {batch}, "
-              f"imgsz {imgsz}, optimizer {self.step.update.name}, lr0 {self.lr0}, accumulate "
-              f"{accumulate}, {'bf16 AMP' if self.step.amp else 'fp32'}, {self.device}"
-              + (", device augmentation" if dev_aug else "")
-              + (f", multi-scale {ms_sizes}" if ms_sizes else "") + ")")
+        if self._main:
+            print(f"training {self.model.task} model: {epochs} epochs x {nb} batches (batch "
+                  f"{batch}, imgsz {imgsz}, optimizer {self.step.update.name}, lr0 {self.lr0}, "
+                  f"accumulate {accumulate}, {'bf16 AMP' if self.step.amp else 'fp32'}, "
+                  f"{self.device}" + (", device augmentation" if dev_aug else "")
+                  + (f", multi-scale {ms_sizes}" if ms_sizes else "")
+                  + (f", {mesh}" if mesh.size > 1 else "") + ")")
         self.run_callbacks("on_pretrain_routine_end")
         self.run_callbacks("on_train_start")
 
         step = self.start_epoch * nb
         t_start = time.time()
         means, val_metrics, lr = {"loss": float("nan")}, {}, 0.0
-        self.trace = StepTrace(self.save_dir / "profile", 3 if args.profile else 0, self.device)
+        self.trace = StepTrace(self.save_dir / "profile", 3 if args.profile and self._main else 0,
+                               self.device)
         with self.trace:
             for epoch in range(self.start_epoch, epochs):
                 self.epoch = epoch
@@ -492,24 +577,32 @@ class Trainer:
 
                 fitness, val_metrics = None, {}
                 if args.val:
+                    # the first rank validates over the whole set, as JAX's one
+                    # process does, and shares the metrics so early stopping agrees;
                     # plots on the last epoch only, as the JAX trainer
-                    val_metrics = Validator(self.ema_model(), data=self.data, imgsz=imgsz,
-                                            max_labels=int(args.max_labels),
-                                            callbacks=self.callbacks, save_dir=self.save_dir,
-                                            plots=bool(args.plots) and epoch == epochs - 1)()
+                    ema = self.ema_model() if self._main or self._split() else None
+                    if self._main:
+                        val_metrics = Validator(ema, data=self.data, imgsz=imgsz,
+                                                max_labels=int(args.max_labels),
+                                                callbacks=self.callbacks, save_dir=self.save_dir,
+                                                plots=bool(args.plots) and epoch == epochs - 1)()
+                    val_metrics = mesh.broadcast_object(val_metrics)
                     fitness = val_metrics["fitness"]
                     if fitness >= self.best_fitness:
                         self.best_fitness = fitness
                         self._save("best", epoch)
-                self._log_csv({"epoch": epoch, **{f"train/{k}": v for k, v in means.items()},
-                               **{f"metrics/{k}": v for k, v in val_metrics.items()}, "lr": lr,
-                               "img_s": round(imps, 1)})
+                if self._main:
+                    self._log_csv({"epoch": epoch,
+                                   **{f"train/{k}": v for k, v in means.items()},
+                                   **{f"metrics/{k}": v for k, v in val_metrics.items()},
+                                   "lr": lr, "img_s": round(imps, 1)})
                 self.run_callbacks("on_train_epoch_end")
                 self.run_callbacks("on_fit_epoch_end")
-                print(f"epoch {epoch + 1}/{epochs}: loss {means['loss']:.3f} ("
-                      + " ".join(f"{k} {v:.3f}" for k, v in means.items() if k != "loss")
-                      + f") {imps:.0f} img/s"
-                      + (f" | fitness {fitness:.4f}" if fitness is not None else ""))
+                if self._main:
+                    print(f"epoch {epoch + 1}/{epochs}: loss {means['loss']:.3f} ("
+                          + " ".join(f"{k} {v:.3f}" for k, v in means.items() if k != "loss")
+                          + f") {imps:.0f} img/s"
+                          + (f" | fitness {fitness:.4f}" if fitness is not None else ""))
                 self._save("last", epoch)
                 if stopper(epoch, fitness):
                     print(f"early stopping at epoch {epoch} (best {stopper.best_epoch})")
@@ -519,16 +612,31 @@ class Trainer:
         self.metrics = val_metrics if args.val else {"train_loss": means["loss"]}
         self.run_callbacks("on_params_update")
         self.run_callbacks("on_train_end")
-        print(f"done in {(time.time() - t_start) / 3600:.2f} h; results -> {self.save_dir}")
+        if self._main:
+            print(f"done in {(time.time() - t_start) / 3600:.2f} h; results -> {self.save_dir}")
         self.run_callbacks("teardown")
         return self.metrics
 
     def _save(self, name: str, epoch: int) -> None:
+        """The first rank writes; under a mesh that shards or stacks
+        parameters every rank first joins in gathering the whole live and
+        EMA models, which the checkpoint then holds (unstacked, without
+        optimizer state)."""
         if not self.args.save:
             return
-        self.run_callbacks("on_model_save")
-        save_checkpoint(self.save_dir / f"{name}.pt", self.step, epoch=epoch,
-                        best_fitness=self.best_fitness)
+        if self._split():
+            live = self.mesh.unsharded(self.step.model)
+            live.disable_pipeline()
+            ema = self.ema_model()
+            if self._main:
+                self.run_callbacks("on_model_save")
+                save_checkpoint(self.save_dir / f"{name}.pt", live, epoch=epoch,
+                                best_fitness=self.best_fitness, ema=ema)
+            return
+        if self._main:
+            self.run_callbacks("on_model_save")
+            save_checkpoint(self.save_dir / f"{name}.pt", self.step, epoch=epoch,
+                            best_fitness=self.best_fitness)
 
     def _log_csv(self, row: dict) -> None:
         new = not self.csv.exists()

@@ -8,7 +8,9 @@ headers, so an edited source or header rebuilds) and loaded with
 with no CUDA toolkit, where only the kernels' plain versions run. Building
 and loading hold one process-wide lock: the threads of a server may be the
 first callers, and two threads of one process would write the same
-temporary file.
+temporary file. Processes (the ranks of a torchrun world on one host) each
+write files of their own and rename them into place, so that none reads or
+writes half a library.
 """
 from __future__ import annotations
 
@@ -62,7 +64,9 @@ def _build(source: str, extra_flags: tuple) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src.name}:\n"
                            f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    log = out.with_suffix(f".{os.getpid()}.log")
+    log.write_text(proc.stdout + proc.stderr)
+    os.replace(log, out.with_suffix(".log"))
     os.replace(tmp, out)
     return out
 

@@ -119,7 +119,6 @@ REGISTRY: dict[str, tuple[Any, str]] = {
 
 # names of the JAX graph the port refuses, with what they wait on
 NOT_PORTED = {
-    "MoEFFN": "the mixture-of-experts FFN waits on the port of parallel/moe.py",
     **{name: "no detection YAML uses it; it is not ported yet"
        for name in ("Focus", "Conv2", "C1", "C2fPSA", "C3x", "BottleneckCSP", "CBAM",
                     "ChannelAttention", "SpatialAttention")},

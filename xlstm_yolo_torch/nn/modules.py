@@ -68,12 +68,18 @@ def init_tree(model: nn.Module, seed: int, device: torch.device | None = None) -
     seeded with ``seed``, on ``device`` where the parameters were built
     there (the CPU's otherwise, and for the meta device, which draws
     nothing); returns the generator, for what the model itself still
-    draws."""
+    draws. A module that sets ``stacked_init`` initializes the modules
+    below it itself (a stacked pair tree)."""
     on = device if device is not None and device.type != "meta" else "cpu"
     g = torch.Generator(on).manual_seed(seed)
-    for m in model.modules():
+    skip = ()
+    for name, m in model.named_modules():
+        if skip and name.startswith(skip):
+            continue
         if hasattr(m, "init_params"):
             m.init_params(g)
+        if getattr(m, "stacked_init", False):
+            skip += (name + ".",)
     return g
 
 
@@ -107,14 +113,44 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     biased variance (torch's own update uses the unbiased one) at the
     module's momentum. ``num_batches_tracked`` is not used. Computed in fp32
     (fp64 for fp64 x) and returned in x's dtype; the statistics update in
-    that dtype."""
+    that dtype. Under a data-parallel group (``parallel.distributed.
+    data_parallel``) the mean and the biased variance are those of the
+    global batch, each rank's sums reduced over the group (count-weighted,
+    differentiably), for the normalization and the running statistics
+    alike, as the JAX step's BatchNorm over a dp-sharded batch computes
+    them."""
+    from ..parallel.distributed import dp_group, dp_sum
+
     dt, x = x.dtype, at_least_fp32(x)
+    if dp_group() is not None:
+        return batch_norm_global(x, bn.weight, bn.bias, bn.eps, bn.momentum, bn.running_mean,
+                                 bn.running_var, dp_sum).to(dt)
     y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps).to(dt)
     with torch.no_grad():
         var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
         bn.running_mean.lerp_(mean, bn.momentum)
         bn.running_var.lerp_(var, bn.momentum)
     return y
+
+
+def batch_norm_global(x: torch.Tensor, weight, bias, eps: float, momentum: float,
+                      running_mean, running_var, reduce) -> torch.Tensor:
+    """Train-mode BatchNorm of NCHW ``x`` on statistics over the ranks that
+    ``reduce`` sums across: the mean from the summed per-channel sums and
+    counts, then the biased variance from the summed squared deviations; the
+    running statistics move toward them at ``momentum``."""
+    c = x.shape[1]
+    count = torch.tensor([x.numel() / c], dtype=x.dtype, device=x.device)
+    sums = reduce(torch.cat([x.sum((0, 2, 3)), count]))
+    n = sums[c]
+    mean = sums[:c] / n
+    xc = x - mean[None, :, None, None]
+    var = reduce((xc * xc).sum((0, 2, 3))) / n
+    with torch.no_grad():
+        running_mean.lerp_(mean.detach().to(running_mean.dtype), momentum)
+        running_var.lerp_(var.detach().to(running_var.dtype), momentum)
+    inv = torch.rsqrt(var + eps)
+    return xc * (inv * weight)[None, :, None, None] + bias[None, :, None, None]
 
 
 def activation(x: torch.Tensor, act) -> torch.Tensor:

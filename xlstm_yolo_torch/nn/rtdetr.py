@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.boxes import bbox_iou_xywh
+from ..parallel.distributed import dp_total
 from ..utils import at_least_fp32
 from .modules import ConvBN, lecun_normal_, linear_in_dtype
 
@@ -633,7 +634,7 @@ def rtdetr_loss(out: dict, batch: dict, nc: int, imgsz: float, cls_gain: float =
     mask = batch["mask"].to(dt)
     n_valid = mask.sum(1).long()
     gt_cls, gt_box = _gt_targets(batch, imgsz, dt)
-    n_total = mask.sum().clamp(min=1.0)
+    n_total = dp_total(mask.sum()).clamp(min=1.0)  # the global batch's under dp
 
     def one_level(boxes, scores):
         b, nq, _ = scores.shape
@@ -690,7 +691,7 @@ def cdn_loss(out: dict, dn_meta: tuple, batch: dict, nc: int, imgsz: float,
 
     l1 = (boxes - tgt_box).abs().sum(-1)
     giou = 1 - bbox_iou_xywh(boxes, tgt_box, giou=True)
-    n_pos = dn_pos.sum().clamp(min=1.0)
+    n_pos = dp_total(dn_pos.sum()).clamp(min=1.0)
     box_loss = ((l1_gain * l1 + giou_gain * giou) * dn_pos).sum() / n_pos
 
     nq_dn = scores.shape[1]

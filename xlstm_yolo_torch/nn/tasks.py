@@ -46,6 +46,8 @@ from . import rtdetr as R
 from .graph import GraphModel, ParsedModel, parse_model
 from .modules import init_tree
 
+MOE_AUX = 0.01  # the weight of the MoE load-balance loss (the JAX hyp.moe_aux default)
+
 
 class TaskModel(GraphModel):
     """``TaskModel("vil_yolon.yaml", device="cuda")``: the graph on
@@ -192,7 +194,53 @@ class TaskModel(GraphModel):
             res["kpts"] = H.decode_keypoints(out["kpts"], self.strides, self.kpt_shape)
         return res
 
+    def enable_pipeline(self, mesh=None, microbatches: int = 0, stages: int | None = None) -> int:
+        """Switch every ViLBlockPairBlock to the stacked layout
+        (``ViLBlockPairBlock.stack``, the weights carried over), pipelined
+        over ``mesh``'s pp axis in ``microbatches`` (0: pp) microbatches;
+        ``stages`` (default: the mesh's pp) without a mesh gives the
+        stacked layout applied in sequence. Call it before the parameters
+        are sharded or an optimizer reads them. Returns the number of
+        blocks switched (0 when pp is 1); a block whose pair count does not
+        divide by pp raises, and then none is switched."""
+        pp = int(mesh.shape["pp"] if stages is None else stages)
+        if pp <= 1:
+            return 0
+        blocks = [(s.i, getattr(self, f"l{s.i}")) for s in self.parsed.specs
+                  if s.name == "ViLBlockPairBlock"]
+        for i, blk in blocks:
+            if blk.n % pp:
+                raise ValueError(f"layer {i}: {blk.n} ViL pairs not divisible by pp={pp} "
+                                 f"(pick a model scale with n % pp == 0)")
+        for _, blk in blocks:
+            blk.stack(pp, microbatches, mesh)
+        return len(blocks)
+
+    def disable_pipeline(self) -> None:
+        """Every stacked ViLBlockPairBlock back to its pair modules (the
+        layout of the YAML, which checkpoints hold)."""
+        for s in self.parsed.specs:
+            if s.name == "ViLBlockPairBlock":
+                getattr(self, f"l{s.i}").unstack()
+
     def loss(self, batch: dict, gains=None, pose_gains=(12.0, 1.0)):
+        """The task loss (``_task_loss``), plus, for a model with MoE FFN
+        blocks (``MoEFFN``), their load-balance losses weighted by
+        ``MOE_AUX``, reported as the term ``moe_aux``."""
+        from ..parallel.moe import MoEFeedForward
+
+        moes = [m for m in self.modules() if isinstance(m, MoEFeedForward)]
+        for m in moes:
+            m.aux = None
+        total, aux = self._task_loss(batch, gains, pose_gains)
+        if moes:
+            moe = sum(m.aux for m in moes)
+            total, aux = total + MOE_AUX * moe, {**aux, "moe_aux": moe}
+            for m in moes:  # the graph stays with the loss, not the modules
+                m.aux = None
+        return total, aux
+
+    def _task_loss(self, batch: dict, gains=None, pose_gains=(12.0, 1.0)):
         """Forward on ``batch["img"]`` (B, H, W, 3) float images plus the
         task's loss against ``batch["cls_boxes"]`` (B, n_max, 5) = (cls, x1,
         y1, x2, y2) pixels (OBB: (B, n_max, 6) = cls, cx, cy, w, h, angle)

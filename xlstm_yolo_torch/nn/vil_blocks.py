@@ -7,9 +7,8 @@ VitPatchEmbedBlock, VitPosEmbedBlock, FlattenPosEmbedBlock,
 SequenceConv2dBlock, PatchMergeBlock, PatchMerging, VisionClueMerge,
 PatchMerger, ViLLayerNormBlock, MultiScaleFusionBlock, ViLFusionBlock (with
 RGBlock and LSBlock), VisionLSTM (``VisionLSTMBlock``), FusionViLLayerBlock,
-and VilLayerUpdated / mLSTMVisionBlock (both ``mLSTMVisionBlockWrap``).
-The JAX package's MoEFFN is the one ViL name left (it waits on the port of
-``parallel/moe.py``). Layouts: a
+VilLayerUpdated / mLSTMVisionBlock (both ``mLSTMVisionBlockWrap``), and
+MoEFFN (``MoEFFNBlock``, over ``parallel/moe.py``). Layouts: a
 sequence is (B, S, D) with tokens in row-major (H, W) order, as in the JAX
 package; an image is NCHW, as every other layer of the port (the JAX blocks
 are NHWC), so SequenceToImage gives (B, D, H, W) and ImageToSequence takes
@@ -30,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.moe import MoEFeedForward
 from . import vil as V
 from .modules import (BN_EPS, BN_MOMENTUM, ConvBN, batch_norm_eval, batch_norm_train,
                       conv_in_dtype, lecun_normal_, linear_in_dtype)
@@ -59,24 +59,40 @@ class ViLBlockPairBlock(nn.Module):
     grid from its shape; a (B, S, D) sequence takes ``seqlens`` (a square
     grid without it). ``backend`` is the ViL layers' ``mlstm_backend``:
     "auto" and "pallas" run the kernels on the card ("pallas" refuses the
-    CPU), "native" the plain torch versions."""
+    CPU), "native" the plain torch versions.
+
+    ``stack(stages, microbatches, mesh)`` (``TaskModel.enable_pipeline``)
+    switches the n pairs to the JAX stacked layout: one pair module
+    ``pairs`` whose every parameter holds the n pairs' tensors stacked on a
+    leading axis (the weights carried over), each pair applied with its
+    slice (``torch.func.functional_call``). With a mesh whose pp axis has
+    ``stages`` ranks and a local batch that divides into the microbatches
+    (``pp_microbatches``, or ``stages`` when 0), the pairs run as a GPipe
+    pipeline (``parallel.pipeline``), n / stages a rank, on this rank's
+    stage (``shard_params`` stores only it); otherwise, or without a mesh,
+    the stacked pairs apply one after another: the same parameters and the
+    same numbers."""
+
+    stacked_init = False  # init_tree initializes a stacked block's pairs itself
 
     def __init__(self, c2: int, config: dict | None = None, n: int = 1):
         super().__init__()
         cfg = dict(config or {})
         self.n = n
         self.seqlens = _seqlens(cfg)
+        self.pair_kwargs = dict(
+            dim=c2,
+            qkv_block_size=int(cfg.get("qkv_block_size", 16)),
+            seqlens=self.seqlens,
+            chunk_size=int(cfg.get("chunk_size", 256)),
+            conv_kernel_size=int(cfg.get("conv_kernel_size", 3)),
+            igate_act=str(cfg.get("igate_act", "exp")),
+            bidirectional=bool(cfg.get("bidirectional", False)),
+            mlstm_backend=str(cfg.get("backend", "auto")),
+        )
+        self.pp_stages, self.pp_microbatches, self.pp_mesh = 0, 0, None
         for i in range(n):
-            setattr(self, f"pair{i}", V.ViLBlockPair(
-                dim=c2,
-                qkv_block_size=int(cfg.get("qkv_block_size", 16)),
-                seqlens=self.seqlens,
-                chunk_size=int(cfg.get("chunk_size", 256)),
-                conv_kernel_size=int(cfg.get("conv_kernel_size", 3)),
-                igate_act=str(cfg.get("igate_act", "exp")),
-                bidirectional=bool(cfg.get("bidirectional", False)),
-                mlstm_backend=str(cfg.get("backend", "auto")),
-            ))
+            setattr(self, f"pair{i}", V.ViLBlockPair(**self.pair_kwargs))
 
     @classmethod
     def parse(cls, args, ch_in, width: float = 1.0, max_ch: float = float("inf"), n: int = 1):
@@ -89,16 +105,128 @@ class ViLBlockPairBlock(nn.Module):
         c2 = make_divisible(min(c2, max_ch) * width, 8)
         return c2, [c2], {"config": config, "n": n}
 
+    @torch.no_grad()
+    def stack(self, stages: int, microbatches: int = 0, mesh=None) -> None:
+        """Switch to the stacked layout (``stages`` > 1; see the class)."""
+        if self.n % stages:
+            raise ValueError(f"pipeline over pp={stages} needs the pair count ({self.n}) "
+                             f"divisible — use a scale with n % pp == 0 blocks per stage")
+        if self.pp_stages == 0:
+            pairs = [getattr(self, f"pair{i}") for i in range(self.n)]
+            for name, p in list(pairs[0].named_parameters()):
+                path, _, leaf = name.rpartition(".")
+                stacked = torch.stack([q.get_parameter(name) for q in pairs])
+                setattr(pairs[0].get_submodule(path), leaf,
+                        nn.Parameter(stacked, requires_grad=p.requires_grad))
+            for i in range(self.n):
+                delattr(self, f"pair{i}")
+            self.pairs = pairs[0]
+            self.stacked_init = True
+        self.pp_stages, self.pp_microbatches, self.pp_mesh = stages, int(microbatches), mesh
+
+    @torch.no_grad()
+    def unstack(self) -> None:
+        """Back to the n pair modules ``pair{i}`` (the whole stack must be
+        held here), off any pipeline."""
+        if self.pp_stages == 0:
+            return
+        stacked = dict(self.pairs.named_parameters())
+        for i in range(self.n):
+            pair = V.ViLBlockPair(**self.pair_kwargs).to(next(iter(stacked.values())).device)
+            for name, p in pair.named_parameters():
+                p.copy_(stacked[name][i])
+                p.requires_grad_(stacked[name].requires_grad)
+            setattr(self, f"pair{i}", pair)
+        del self.pairs
+        self.stacked_init = False
+        self.pp_stages, self.pp_microbatches, self.pp_mesh = 0, 0, None
+
+    def leave_mesh(self) -> None:
+        self.pp_mesh = None
+
+    @torch.no_grad()
+    def init_params(self, g: torch.Generator) -> None:
+        if self.pp_stages == 0:
+            return  # the pairs' own modules initialize themselves
+        for i in range(self.n):
+            pair = V.ViLBlockPair(**self.pair_kwargs)
+            for m in pair.modules():
+                if hasattr(m, "init_params"):
+                    m.init_params(g)
+            for name, p in pair.named_parameters():
+                self.pairs.get_parameter(name)[i].copy_(p)
+
+    def _apply_pair(self, params: dict, i, x, seqlens):
+        return torch.func.functional_call(self.pairs, {k: v[i] for k, v in params.items()},
+                                          (x, seqlens))
+
+    def _run(self, x, seqlens):
+        if self.pp_stages == 0:
+            for i in range(self.n):
+                x = getattr(self, f"pair{i}")(x, seqlens)
+            return x
+        from ..parallel.distributed import gather_shard
+        from ..parallel.pipeline import pipeline_apply_nested
+
+        pp, mesh = self.pp_stages, self.pp_mesh
+        stacked = dict(self.pairs.named_parameters())
+        n_loc = next(iter(stacked.values())).shape[0]
+        M = self.pp_microbatches or pp
+        group = None if mesh is None else mesh.group_of("pp")
+        if group is not None and mesh.shape["pp"] == pp and x.shape[0] % M == 0:
+            per = self.n // pp
+            if n_loc == self.n:  # the whole stack held here: this rank's stage of it
+                r = mesh.index("pp")
+                stacked = {k: v[r * per:(r + 1) * per] for k, v in stacked.items()}
+
+            def stage_fn(ps, a):
+                for k in range(per):
+                    a = self._apply_pair(ps, k, a, seqlens)
+                return a
+
+            return pipeline_apply_nested(mesh, stage_fn, stacked, x, num_microbatches=M)
+        if n_loc != self.n:  # a stage held here, run sequentially: gather the stack
+            if group is None:
+                raise ValueError(f"{n_loc} of {self.n} stacked pairs held and no pp group")
+            stacked = {k: gather_shard(v, group, 0) for k, v in stacked.items()}
+        for i in range(self.n):
+            x = self._apply_pair(stacked, i, x, seqlens)
+        return x
+
     def forward(self, x):
         if x.dim() == 3:  # (B, S, D)
-            for i in range(self.n):
-                x = getattr(self, f"pair{i}")(x, self.seqlens)
-            return x
+            return self._run(x, self.seqlens)
         b, c, h, w = x.shape
         seq = x.flatten(2).transpose(1, 2)  # (B, H*W, C), token index h*W + w
-        for i in range(self.n):
-            seq = getattr(self, f"pair{i}")(seq, (h, w))
+        seq = self._run(seq, (h, w))
         return seq.transpose(1, 2).reshape(b, c, h, w)
+
+
+class MoEFFNBlock(nn.Module):
+    """Mixture-of-experts FFN as a YAML block, residual over tokens:
+    ``[-1, 1, MoEFFN, [num_experts, top_k]]`` (4 and 1 by default),
+    channel-preserving; an NCHW map's tokens in row-major (H, W) order, a
+    (B, S, D) sequence as it is. The experts shard over the mesh's ep axis
+    (``parallel.moe``); the load-balance loss joins the task loss
+    (``TaskModel.loss``)."""
+
+    def __init__(self, c2: int, num_experts: int = 4, top_k: int = 1):
+        super().__init__()
+        self.moe = MoEFeedForward(c2, num_experts=num_experts, top_k=top_k)
+
+    @classmethod
+    def parse(cls, args, ch_in, **kw):
+        c1 = ch_in[0]
+        return c1, [c1], {"num_experts": int(args[0]) if args else 4,
+                          "top_k": int(args[1]) if len(args) > 1 else 1}
+
+    def forward(self, x):
+        tokens = _nchw_to_seq(x)
+        y = tokens + self.moe(tokens)
+        if x.dim() == 3:
+            return y
+        b, c, h, w = x.shape
+        return y.transpose(1, 2).reshape(b, c, h, w)
 
 
 class SequenceToImage(nn.Module):
@@ -613,10 +741,10 @@ class mLSTMVisionBlockWrap(nn.Module):
         return _untokens(self.block(seq, seqlens), x)
 
 
-# the graph compiler's names (graph.REGISTRY); the JAX package's MoEFFN is
-# not ported (graph.NOT_PORTED)
+# the graph compiler's names (graph.REGISTRY)
 BLOCKS = {
     "ViLBlockPairBlock": ViLBlockPairBlock,
+    "MoEFFN": MoEFFNBlock,
     "SequenceToImage": SequenceToImage,
     "ImageToSequence": ImageToSequence,
     "PermuteBlock": PermuteBlock,

@@ -30,8 +30,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.distributed import dp_group, dp_sum
 from ..utils import at_least_fp32
-from .modules import BN_EPS, BN_MOMENTUM, Bottleneck, ConvBN, conv_in_dtype, lecun_normal_
+from .modules import (BN_EPS, BN_MOMENTUM, Bottleneck, ConvBN, batch_norm_global, conv_in_dtype,
+                      lecun_normal_)
 from .rtdetr import LayerNorm, _dense, _init_dense
 
 
@@ -120,6 +122,9 @@ class ScaleBatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(xf, self.running_mean.to(xf.dtype), self.running_var.to(xf.dtype),
                                 w, b, False, 0.0, BN_EPS).to(dt)
+        if dp_group() is not None:  # the global batch's statistics (modules.batch_norm_train)
+            return batch_norm_global(xf, w, b, BN_EPS, BN_MOMENTUM, self.running_mean,
+                                     self.running_var, dp_sum).to(dt)
         y = F.batch_norm(xf, None, None, w, b, True, 0.0, BN_EPS).to(dt)
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)

@@ -20,11 +20,12 @@ import torch
 VERSION = "0.1.0"
 
 
-def save_checkpoint(path: str | Path, step, epoch: int = -1, best_fitness: float = 0.0) -> Path:
+def save_checkpoint(path: str | Path, step, epoch: int = -1, best_fitness: float = 0.0,
+                    ema=None) -> Path:
     """Write ``step`` (an ``engine.trainer.TrainStep``: its model, update and
     ``n_updates``; or a bare ``TaskModel``, whose parameters then stand for
-    the EMA and which has no optimizer state) at ``epoch`` to ``path``;
-    returns the path."""
+    the EMA unless ``ema``, a model of the same graph, holds it, and which
+    has no optimizer state) at ``epoch`` to ``path``; returns the path."""
     model = step if isinstance(step, torch.nn.Module) else step.model
     ckpt = {
         "yaml": {k: v for k, v in model.yaml.items() if k != "yaml_file"},
@@ -35,7 +36,7 @@ def save_checkpoint(path: str | Path, step, epoch: int = -1, best_fitness: float
         "date": datetime.datetime.now().isoformat(), "version": VERSION,
     }
     if step is model:
-        ckpt["ema"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        ckpt["ema"] = {n: p.detach().cpu() for n, p in (ema or model).named_parameters()}
     else:
         update = step.update
         ckpt["ema"] = {n: e.detach().cpu() for n, e in zip(update.names, update.ema)}

@@ -28,6 +28,12 @@ the layout conventions converted:
 * an embedding table ``embedding`` (vocab, dim) -> ``weight``, not transposed;
 * BatchNorm ``bn/scale`` -> ``bn.weight``; ``batch_stats`` ``mean``/``var``
   -> ``running_mean``/``running_var``;
+* a leaf under ``pairs`` (the stacked layout of a pipelined
+  ``ViLBlockPairBlock``: every pair's tensor stacked on a leading axis n)
+  takes the rule of its pair's leaf slice by slice, the leading axis kept;
+* the mixture-of-experts leaves ``w_gate`` / ``w_up`` (E, D, F) and
+  ``w_down`` (E, F, D) are raw parameters and keep their layout (the
+  ``router``'s kernel is a dense kernel);
 * everything else (biases, norm scales, headwise (nh, dh, dh) weights,
   ``learnable_skip``, the sLSTM ``recurrent_kernel`` (nh, dh, 4, dh) and
   ``bias`` (nh, 4, dh), YOLO-World's 0-d ``bias``, ``logit_scale`` and
@@ -68,10 +74,22 @@ def transposed_convs(model: nn.Module) -> frozenset:
     return frozenset(n for n, m in model.named_modules() if isinstance(m, nn.ConvTranspose2d))
 
 
+STACKED = "pairs"  # the module name of a stacked (pipelined) ViL pair tree
+
+
 def torch_name(path: str, arr: np.ndarray, transposed: frozenset = frozenset()
                ) -> tuple[str, np.ndarray]:
     """One flat JAX key and array -> (state_dict key, array in torch layout);
     ``transposed`` names the port's transposed-conv modules."""
+    if STACKED in path.split("/")[1:-1]:  # one pair's rule on each slice
+        if arr.ndim == 0:
+            raise ValueError(f"a stacked leaf without its leading axis at {path!r}")
+        parts = [_torch_leaf(path, a, transposed) for a in arr]
+        return parts[0][0], np.stack([a for _, a in parts])
+    return _torch_leaf(path, arr, transposed)
+
+
+def _torch_leaf(path: str, arr: np.ndarray, transposed: frozenset) -> tuple[str, np.ndarray]:
     coll, *mods, leaf = path.split("/")
     if coll == "batch_stats":
         stat = {"mean": "running_mean", "var": "running_var"}
@@ -199,7 +217,14 @@ def _jax_leaf(mod: nn.Module, parent: nn.Module | None, mname: str, leaf: str,
 
 def jax_named(model: nn.Module) -> dict[str, np.ndarray]:
     """``model``'s parameters and BatchNorm statistics as the flattened JAX
-    variable tree ({"params/l0/conv/kernel": array in JAX layout, ...}):
+    variable tree ({"params/l0/conv/kernel": array in JAX layout, ...}); see
+    ``jax_items``."""
+    return {key: jarr for _, key, jarr in jax_items(model)}
+
+
+def jax_items(model: nn.Module):
+    """(state_dict name, flat JAX key, array in JAX layout) for each of
+    ``model``'s parameters and BatchNorm statistics, in state_dict order.
     ``torch_name`` backwards, each key checked by running it forward again
     (a leaf whose way back is not the way there raises). An attention part
     (``query``, ``key``, ``value``, ``out``) whose parent sets
@@ -207,7 +232,6 @@ def jax_named(model: nn.Module) -> dict[str, np.ndarray]:
     ``out``'s."""
     mods = dict(model.named_modules())
     transposed = transposed_convs(model)
-    out = {}
     for name, t in model.state_dict().items():
         if name.endswith("num_batches_tracked"):
             continue
@@ -215,14 +239,18 @@ def jax_named(model: nn.Module) -> dict[str, np.ndarray]:
         owner = ".".join(path)
         parent = mods.get(".".join(path[:-1])) if path else None
         arr = t.detach().cpu().float().numpy()
-        coll, jleaf, jarr = _jax_leaf(mods[owner], parent, path[-1] if path else "", leaf, arr)
+        slices = list(arr) if STACKED in path else [arr]
         nh = getattr(parent, "num_heads", None)
-        if (jleaf == "bias" and path and path[-1] in ATTENTION_PARTS[:3] and nh
-                and isinstance(mods[owner], nn.Linear)):
-            jarr = jarr.reshape(nh, -1)
+        jarrs = []
+        for a in slices:
+            coll, jleaf, jarr = _jax_leaf(mods[owner], parent, path[-1] if path else "", leaf, a)
+            if (jleaf == "bias" and path and path[-1] in ATTENTION_PARTS[:3] and nh
+                    and isinstance(mods[owner], nn.Linear)):
+                jarr = jarr.reshape(nh, -1)
+            jarrs.append(np.ascontiguousarray(jarr))
+        jarr = np.stack(jarrs) if STACKED in path else jarrs[0]
         key = "/".join([coll, *path, jleaf])
-        back, barr = torch_name(key, np.ascontiguousarray(jarr), transposed)
-        if back != name or barr.shape != arr.shape or not np.array_equal(barr, arr):
+        back, barr = torch_name(key, jarr, transposed)
+        if back != name or barr.shape != arr.shape or not np.array_equal(barr, arr, equal_nan=True):
             raise ValueError(f"{name!r}: no JAX key maps back to it (tried {key!r})")
-        out[key] = np.ascontiguousarray(jarr)
-    return out
+        yield name, key, jarr

@@ -14,6 +14,13 @@ loss assigns with ``tal.assign_rotated`` on (B, n_max, 6) = (cls, cx, cy,
 w, h, angle) labels and scores its boxes by ``probiou``. ``lm_loss`` is the mean token cross-entropy the JAX package's language
 model tests train with (``optax.softmax_cross_entropy_with_integer_labels``
 averaged over batch and positions).
+
+Under a data-parallel group (``parallel.distributed.data_parallel``) every
+batch-wide normalizer is the global batch's: the target-score sum ``tss``,
+the batch size the total is scaled by, the count of selected mask anchors,
+the foreground count of the pose terms and the classify batch; a rank's
+loss and terms are then its share of the one-process loss on the global
+batch, and the shares sum to it.
 """
 from __future__ import annotations
 
@@ -28,9 +35,18 @@ from ..nn.heads import flatten_maps, split_maps
 from ..ops.anchors import bbox2dist, dfl_decode, dist2bbox, dist2rbox, make_anchors
 from ..ops.boxes import bbox_iou, probiou
 from ..ops.nms import _topk
+from ..parallel.distributed import dp_group, dp_total
 from . import at_least_fp32, tal
 
 BOX_GAIN, CLS_GAIN, DFL_GAIN = 7.5, 0.5, 1.5
+
+
+def _global_batch(b: int, like: torch.Tensor):
+    """The batch size the total is scaled by: ``b``, or under a
+    data-parallel group the sum of the ranks' batches."""
+    if dp_group() is None:
+        return b
+    return dp_total(torch.tensor(float(b), dtype=like.dtype, device=like.device))
 
 
 class DetectionLossOut(NamedTuple):
@@ -79,7 +95,7 @@ def _detection_core(raw_maps: Sequence, targets: torch.Tensor, target_mask: torc
     _, target_bboxes, target_scores, fg_mask, target_gt_idx = tal.assign(
         pred_scores_logits, pred_bboxes * stride_t, anchors * stride_t, targets[..., :1],
         targets[..., 1:5], target_mask[..., None], topk=tal_topk)
-    tss = target_scores.sum().clamp(min=1.0)
+    tss = dp_total(target_scores.sum()).clamp(min=1.0)
     loss_cls = _bce_logits(pred_scores_logits, target_scores).sum() / tss
     target_bboxes_g = target_bboxes / stride_t
     weight = target_scores.sum(-1) * fg_mask.float()
@@ -107,8 +123,8 @@ def detection_loss(raw_maps: Sequence, targets: torch.Tensor, target_mask: torch
     core = _detection_core(raw_maps, targets, target_mask, strides, reg_max, tal_topk)
     box, cls, dfl_l = (core["loss_box"] * gains[0], core["loss_cls"] * gains[1],
                        core["loss_dfl"] * gains[2])
-    return DetectionLossOut(total=(box + cls + dfl_l) * raw_maps[0][0].shape[0], box=box, cls=cls,
-                            dfl=dfl_l)
+    b = _global_batch(raw_maps[0][0].shape[0], box)
+    return DetectionLossOut(total=(box + cls + dfl_l) * b, box=box, cls=cls, dfl=dfl_l)
 
 
 class SegmentationLossOut(NamedTuple):
@@ -161,12 +177,13 @@ def segmentation_loss(out: dict, batch: dict, strides: Sequence[float], reg_max:
     bce = _bce_logits(pred_masks, gt_masks) * in_box
     area = ((mx2 - mx1) * (my2 - my1) / (wm * hm)).clamp(min=1e-4)
     per_anchor = bce.mean((2, 3)) / area
-    loss_seg = (per_anchor * sel_valid).sum() / sel_valid.sum().clamp(min=1)
+    loss_seg = (per_anchor * sel_valid).sum() / dp_total(sel_valid.sum()).clamp(min=1)
 
     box, cls, dfl_l = (core["loss_box"] * gains[0], core["loss_cls"] * gains[1],
                        core["loss_dfl"] * gains[2])
     seg = loss_seg * gains[0]
-    return SegmentationLossOut((box + seg + cls + dfl_l) * b, box, seg, cls, dfl_l)
+    return SegmentationLossOut((box + seg + cls + dfl_l) * _global_batch(b, box), box, seg, cls,
+                               dfl_l)
 
 
 # COCO's 17 keypoint sigmas; other keypoint counts take 1 / nk each
@@ -213,10 +230,10 @@ def pose_loss(out: dict, batch: dict, strides: Sequence[float], kpt_shape: tuple
     err = d2 / (2 * sigmas) ** 2 / (area + 1e-9) / 2.0
     kpt_mask = vis * fg[..., None]
     factor = nk / (kpt_mask.sum(-1, keepdim=True) + 1e-9)
-    n_fg = fg.sum().clamp(min=1.0)
-    loss_pose = (factor * (1 - torch.exp(-err)) * kpt_mask).sum() / n_fg
+    fg_total = dp_total(fg.sum())
+    loss_pose = (factor * (1 - torch.exp(-err)) * kpt_mask).sum() / fg_total.clamp(min=1.0)
     if nd == 3:
-        loss_kobj = (_bce_logits(pk[..., 2], vis) * fg[..., None]).sum() / (fg.sum() * nk).clamp(
+        loss_kobj = (_bce_logits(pk[..., 2], vis) * fg[..., None]).sum() / (fg_total * nk).clamp(
             min=1.0)
     else:
         loss_kobj = torch.zeros((), dtype=kmaps.dtype, device=kmaps.device)
@@ -224,7 +241,8 @@ def pose_loss(out: dict, batch: dict, strides: Sequence[float], kpt_shape: tuple
     box, cls, dfl_l = (core["loss_box"] * gains[0], core["loss_cls"] * gains[1],
                        core["loss_dfl"] * gains[2])
     pose, kobj = loss_pose * pose_gain, loss_kobj * kobj_gain
-    return PoseLossOut((box + pose + kobj + cls + dfl_l) * b, box, pose, kobj, cls, dfl_l)
+    return PoseLossOut((box + pose + kobj + cls + dfl_l) * _global_batch(b, box), box, pose, kobj,
+                       cls, dfl_l)
 
 
 def obb_loss(out: dict, batch: dict, strides: Sequence[float], reg_max: int = 16,
@@ -246,7 +264,7 @@ def obb_loss(out: dict, batch: dict, strides: Sequence[float], reg_max: int = 16
         torch.sigmoid(at_least_fp32(pred_scores_logits)),
         torch.cat([pred_rbox * stride_t, pred_angle], -1), anchors * stride_t, gt[..., :1],
         gt[..., 1:6], batch["mask"][..., None])
-    tss = target_scores.sum().clamp(min=1.0)
+    tss = dp_total(target_scores.sum()).clamp(min=1.0)
     loss_cls = _bce_logits(pred_scores_logits, target_scores).sum() / tss
     weight = target_scores.sum(-1) * fg_mask.float()
     t_scaled = torch.cat([target_rbox[..., :4] / stride_t, target_rbox[..., 4:5]], -1)
@@ -258,14 +276,19 @@ def obb_loss(out: dict, batch: dict, strides: Sequence[float], reg_max: int = 16
     loss_dfl = (dfl * weight).sum() / tss
 
     box, cls, dfl_l = loss_box * gains[0], loss_cls * gains[1], loss_dfl * gains[2]
-    return DetectionLossOut(total=(box + cls + dfl_l) * b, box=box, cls=cls, dfl=dfl_l)
+    return DetectionLossOut(total=(box + cls + dfl_l) * _global_batch(b, box), box=box, cls=cls,
+                            dfl=dfl_l)
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Cross-entropy of (B, C) logits against (B,) integer labels, taken in
-    fp32 (fp64 logits in fp64) and averaged over the batch."""
+    fp32 (fp64 logits in fp64) and averaged over the batch (the global
+    batch under a data-parallel group)."""
     logp = at_least_fp32(logits).log_softmax(-1)
-    return -logp.gather(-1, labels[:, None]).mean()
+    picked = logp.gather(-1, labels[:, None])
+    if dp_group() is None:
+        return -picked.mean()
+    return -picked.sum() / _global_batch(picked.shape[0], picked)
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -63,7 +63,9 @@ class StepUpdate:
     ``trace`` (SGD's and RMSProp's momentum), ``mu``/``nu`` (the Adam
     family's moments; ``nu`` also RMSProp's), ``acc`` (the running gradient
     mean), ``count`` (optimizer steps taken), ``mini_step`` and ``ema``
-    (the averaged parameters; BatchNorm statistics are not averaged)."""
+    (the averaged parameters; BatchNorm statistics are not averaged).
+    ``sq_norm_reduce`` (None: local) sums the gradients' squared norms over
+    the ranks that hold shards of them, for the clip's global norm."""
 
     def __init__(self, model: nn.Module, lr: float = 0.01, momentum: float = 0.937,
                  weight_decay: float = 5e-4, name: str = "SGD", nc: int = 80,
@@ -87,6 +89,9 @@ class StepUpdate:
         self.acc = zeros() if accumulate > 1 else []
         self.count = self.mini_step = 0
         self.ema = [p.detach().clone() for p in self.params]
+        # the squared global norm from the local gradients' squared norms, for
+        # parameters sharded over a mesh (parallel.mesh.Mesh.global_sq_norm)
+        self.sq_norm_reduce = None
 
     STATE = ("trace", "mu", "nu", "acc", "ema")
 
@@ -137,7 +142,11 @@ class StepUpdate:
         is p + u * lr): optax's clip_by_global_norm, the masked coupled
         decay, then the optimizer's chain."""
         # optax.clip_by_global_norm: unchanged below the limit, else g / |g| * limit
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.sq_norm_reduce is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:  # sharded parameters: the norm over every rank's shards
+            norm = self.sq_norm_reduce(norms * norms).sqrt()
         scale = torch.where(norm < CLIP_NORM, torch.ones_like(norm), CLIP_NORM / norm)
         g = torch._foreach_mul(grads, scale)
         dec = [i for i, d in enumerate(self.decayed) if d]
