@@ -223,6 +223,22 @@ child process that torchrun's variables put in a one-rank NCCL world,
 started once the dp ranks' timed steps are done (its own seconds are timed
 inside it). K3 and K2 launch in every rank.
 
+Multi-object tracking (``track_path``, last; ``xlstm_yolo_torch/trackers``):
+24 PNG frames of 480 x 640 the phase writes (a seeded texture panned 3 px a
+frame, four bright squares on straight paths) through
+``YOLO("vil_yolo.yaml", scale="n").track`` at 640 px, fp32, with
+``bytetrack.yaml`` and then ``botsort.yaml`` (camera motion by the numpy
+``sparseOptFlow``), the detector shaped so that a few hundred scores an
+image clear conf 0.1 (``track_detector``): K3 3 times a frame; each frame's
+detections against the plain-forced ``Predictor`` (rows within TOL_REL of
+conf set aside where the counts differ); both trackers again on the CPU on
+the card's detections and frames, tracks identical; the squares' true
+boxes with seeded noise through ``BOTSORT``, one id a square across the
+pan and GMC's pan within 1.5 px of 3; the native val batches (a non-rect
+loader at 640 and batch 16 against its Python collate, within one level,
+host ms a batch of each) and ``Validator`` on them. ms a frame of the
+predictor, the tracker and GMC.
+
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``, printed only when every phase passed. Exits
@@ -6767,6 +6783,355 @@ def phase_parallel_path(smi_line):
     return counts
 
 
+# track_path: ByteTrack and BoT-SORT over ViL-YOLO-n on PNG frames the phase writes
+TRACK_FRAMES, TRACK_HW, TRACK_PAN = 24, (480, 640), 3  # frames, (h, w), px the camera pans a frame
+TRACK_SQUARES = [((60, 70), (6, 3), 70), ((420, 90), (-5, 4), 80), ((150, 300), (4, -3), 60),
+                 ((480, 330), (-3, -2), 75)]  # (start x, y), px a frame, side
+TRACK_CLS = (0.1, -12.0)  # class weights' std and biases: some dozens of detections at
+# conf 0.1 an image, some of them above 0.25
+TRACK_VAL = 32  # val PNGs of the native-batch check, two batches of 16
+TRACK_GMC_TOL = 1.5  # px: GMC's pan against the true 3 px (tests/test_trackers.py's bound)
+
+
+def track_scene(root: Path) -> tuple:
+    """TRACK_FRAMES PNGs of TRACK_HW under ``root``: a seeded texture panned
+    TRACK_PAN px a frame to the left (the camera moves right) with the four
+    bright squares of TRACK_SQUARES on straight paths; -> (frames, (frames,
+    4, 4) true boxes x1 y1 x2 y2)."""
+    from scipy.ndimage import gaussian_filter
+
+    from xlstm_yolo_torch.data.imgproc import imwrite
+
+    h, w = TRACK_HW
+    rng = np.random.default_rng(0)
+    tex = gaussian_filter(rng.uniform(0, 255, (h, w + TRACK_PAN * TRACK_FRAMES, 3)), (2, 2, 0))
+    tex = np.clip((tex - tex.mean()) * 6 + 128, 0, 255).astype(np.uint8)
+    frames, boxes = [], np.zeros((TRACK_FRAMES, len(TRACK_SQUARES), 4), np.float32)
+    root.mkdir(parents=True, exist_ok=True)
+    for f in range(TRACK_FRAMES):
+        img = tex[:, TRACK_PAN * f:TRACK_PAN * f + w].copy()
+        for k, ((x0, y0), (vx, vy), side) in enumerate(TRACK_SQUARES):
+            x, y = x0 + vx * f, y0 + vy * f
+            img[y:y + side, x:x + side] = (250, 210 + 10 * k, 40 + 50 * k)
+            boxes[f, k] = (x, y, x + side, y + side)
+        imwrite(root / f"{f:03d}.png", img)
+        frames.append(img)
+    return frames, boxes
+
+
+def track_detector(model):
+    """``model`` (a ViL-YOLO-n ``TaskModel``) shaped in place as
+    ``shaped_detector`` shapes its model, but with small class weights and
+    low biases (TRACK_CLS): some dozens of scores an image clear conf 0.1,
+    a part of them 0.25."""
+    import torch
+
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_((torch.randn(p.shape, generator=g) * 0.05).to(p.device))
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+        det = getattr(model, f"l{model.parsed.head_index}")
+        for i in range(det.nl):
+            cls, box = getattr(det, f"cv3_{i}_2"), getattr(det, f"cv2_{i}_2")
+            cls.weight.copy_(torch.randn(cls.weight.shape, generator=g) * TRACK_CLS[0])
+            cls.bias.fill_(TRACK_CLS[1])
+            box.bias.copy_(torch.arange(16.0).repeat(4) * -0.9
+                           + torch.randn(box.bias.shape, generator=g) * 0.4)
+            box.weight.copy_(torch.randn(box.weight.shape, generator=g) * 0.02)
+    return model.eval()
+
+
+@contextmanager
+def recorded_trackers(log: list):
+    """``Model.track``'s tracker as it is, each ``update`` recorded in
+    ``log`` as (detections, frame, tracks out, ms, GMC ms or None)."""
+    import xlstm_yolo_torch.trackers as trackers
+
+    make = trackers.create_tracker
+
+    def create(name):
+        tracker = make(name)
+        update, gmc = tracker.update, getattr(tracker, "gmc", None)
+        gmc_ms = []
+        if gmc is not None:
+            apply = gmc.apply
+
+            def timed_apply(img, detections=None):
+                t0 = time.perf_counter()
+                out = apply(img, detections)
+                gmc_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            gmc.apply = timed_apply
+
+        def timed_update(dets, img=None):
+            d = np.array(dets, np.float32, copy=True)
+            t0 = time.perf_counter()
+            out = update(dets, img)
+            ms = (time.perf_counter() - t0) * 1e3
+            log.append((d, img, out.copy(), ms, gmc_ms.pop() if gmc_ms else None))
+            return out
+        tracker.update = timed_update
+        return tracker
+
+    with mock.patch.object(trackers, "create_tracker", create):
+        yield
+
+
+def dets_match(got, want, conf: float = 0.1) -> tuple:
+    """(ok, max box error over the largest box value, max score error, rows
+    set aside) of two frames' detections (x1 y1 x2 y2 conf cls) as sets:
+    each row of ``want`` paired with the nearest unpaired row of ``got`` of
+    its class. The predictor's scores are the bf16 roundings of its fp32
+    scores (the fast selection, as in JAX), so two scores TOL_REL apart
+    may round one bf16 step (2^-8 below 1) apart; where the counts differ,
+    the rows that close to ``conf`` are set aside on both sides."""
+    step = 2.0 ** -8
+    near = 0
+    if got.shape != want.shape:
+        keep_g, keep_w = np.abs(got[:, 4] - conf) > step, np.abs(want[:, 4] - conf) > step
+        near = int((~keep_g).sum() + (~keep_w).sum())
+        got, want = got[keep_g], want[keep_w]
+        if got.shape != want.shape:
+            return False, float("inf"), float("inf"), near
+    if not len(want):
+        return True, 0.0, 0.0, near
+    scale = float(np.abs(want[:, :4]).max())
+    free = np.ones(len(got), bool)
+    box, score = 0.0, 0.0
+    for row in want:
+        d = np.abs(got[:, :4] - row[:4]).max(1)
+        d[~free | (got[:, 5] != row[5])] = np.inf
+        j = int(np.argmin(d))
+        if not np.isfinite(d[j]):
+            return False, float("inf"), float("inf"), near
+        free[j] = False
+        box, score = max(box, float(d[j]) / scale), max(score, abs(float(got[j, 4] - row[4])))
+    return bool(box <= TOL_REL and score <= step + 1e-7), box, score, near
+
+
+def cands_vs_plain(model, frames) -> tuple:
+    """The candidates of each frame's letterboxed input, with the kernels
+    and with the plain versions forced in, at the main path's tolerance:
+    (max box error over the largest box value, max score error)."""
+    import torch
+
+    from xlstm_yolo_torch.data.augment import letterbox
+
+    box, score = 0.0, 0.0
+    for frame in frames:
+        img, _, _ = letterbox(frame, IMGSZ)
+        x = torch.from_numpy(img).to(next(model.parameters()).device)[None].float() / 255.0
+        with torch.inference_mode():
+            got = model.predictions(x)
+            with plain_vil_kernels():
+                want = model.predictions(x)
+        box = max(box, ((got[..., :4] - want[..., :4]).abs().max()
+                        / want[..., :4].abs().max()).item())
+        score = max(score, (got[..., 4:] - want[..., 4:]).abs().max().item())
+    return box, score
+
+
+def track_true_boxes(frames, boxes) -> tuple:
+    """The squares' true boxes with seeded noise through ``BOTSORT``
+    (``sparseOptFlow``): (ids persist, every square keeps one id from its
+    first frame, GMC's pan per frame, ms a frame)."""
+    from xlstm_yolo_torch.trackers import BOTSORT
+
+    rng = np.random.default_rng(1)
+    tracker = BOTSORT()
+    pans, ids_by_square, ms = [], [set() for _ in TRACK_SQUARES], []
+    for f, img in enumerate(frames):
+        dets = np.concatenate([boxes[f] + rng.normal(0, 1.0, boxes[f].shape),
+                               rng.uniform(0.6, 0.95, (len(boxes[f]), 1)),
+                               np.zeros((len(boxes[f]), 1))], 1).astype(np.float32)
+        t0 = time.perf_counter()
+        h = tracker.gmc.apply(img)
+        tracker.gmc.apply = lambda img, detections=None, h=h: h  # update applies this frame's
+        out = tracker.update(dets, img)
+        del tracker.gmc.apply
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if f:
+            pans.append([float(h[0, 2]), float(h[1, 2])])
+        for row in out:
+            iou = [box_iou(row[:4], b) for b in boxes[f]]
+            ids_by_square[int(np.argmax(iou))].add(int(row[4]))
+    persist = all(len(s) == 1 for s in ids_by_square) and len(set().union(*ids_by_square)) == 4
+    return persist, [sorted(s) for s in ids_by_square], pans, ms
+
+
+def box_iou(a, b) -> float:
+    w = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    h = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = w * h
+    return inter / ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+
+
+def track_native_val(model, tmp: str) -> tuple:
+    """The native batches: a non-rect val loader at 640 and batch 16 on
+    TRACK_VAL synthetic PNGs (640 x 480) against the Python collate of the
+    same batches (within one level), the host ms a batch of each, then
+    ``Validator`` on ViL-YOLO-n over them (K3 launches a batch, the
+    validator's own loader took native batches)."""
+    from xlstm_yolo_torch import native
+    from xlstm_yolo_torch.data.dataset import build_dataloader
+    from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
+    from xlstm_yolo_torch.engine.validator import Validator
+
+    data = make_synthetic_dataset(f"{tmp}/val", n_train=1, n_val=TRACK_VAL, width=640,
+                                  height=480, seed=0)
+    available = native.available()
+    t0 = time.perf_counter()
+    native.get_lib()  # the g++ build, on first use
+    build_s = time.perf_counter() - t0
+    nat, _ = build_dataloader(data, "val", batch=16, imgsz=IMGSZ, augment=False)
+    py, _ = build_dataloader(data, "val", batch=16, imgsz=IMGSZ, augment=False)
+    py.ds.uint8_images = True  # the loader's Python collate
+    levels, n, same = 0.0, 0, True
+    for a, b in zip(nat, py, strict=True):  # also reads the files once into the page cache
+        levels = max(levels, float(np.abs(a["img"] * 255.0 - b["img"]).max()))
+        n += int(a["mask"].sum())
+        same = same and all(np.array_equal(a[k], b[k]) for k in ("mask", "ori_shape", "im_idx"))
+    ms = {"native": [], "python": []}
+    for kind in ("native", "python", "python", "native"):  # in turns, files warm
+        loader = nat if kind == "native" else py
+        for _ in loader:
+            pass
+        ms[kind] += [1e3 * s for s in loader.batch_seconds]
+    marks, per_batch = [], []
+    validator = Validator(model, imgsz=IMGSZ, batch=16)
+    validator.callbacks.add("on_val_batch_start", lambda v: marks.append(kernel_counters()))
+    validator.callbacks.add("on_val_batch_end",
+                            lambda v: per_batch.append(kernel_counters() - marks[-1]))
+    metrics = validator(data)
+    per_batch = sorted({tuple(c.tolist()) for c in per_batch})
+    ok = (available and nat.native_batches == 3 * TRACK_VAL // 16 and py.native_batches == 0
+          and levels <= 1.0 + 1e-3 and same and validator.loader.native_batches == TRACK_VAL // 16
+          and per_batch == [(len(STAGES), 0, 0, 0)]
+          and all(np.isfinite(metrics[k]) for k in FIT_METRICS))
+    return ok, {"available": available, "build_s": build_s,
+                "native_batches": nat.native_batches,
+                "native_ms_per_batch": ms["native"], "python_ms_per_batch": ms["python"],
+                "native_ms_mean": float(np.mean(ms["native"])),
+                "python_ms_mean": float(np.mean(ms["python"])),
+                "max_levels_apart": levels, "labels": n,
+                "validator_native_batches": validator.loader.native_batches,
+                "validator_launches_per_batch": per_batch, "metrics": metrics,
+                "val_img_s": metrics["img_s"]}
+
+
+def phase_track_path(smi_line):
+    """Multi-object tracking on the card (module docstring): ``Model.track``
+    with ``bytetrack.yaml`` and ``botsort.yaml`` over the scene's PNGs (K3 3
+    times a frame), each frame's detections against the plain-forced
+    predictor, both trackers again on the CPU on the card's detections and
+    frames, the true boxes through ``BOTSORT``, the native val batches.
+    Returns the phase's K3 launches."""
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO
+    from xlstm_yolo_torch.engine.predictor import Predictor
+    from xlstm_yolo_torch.trackers import create_tracker
+    from xlstm_yolo_torch.trackers.track import trackable
+
+    t_phase = time.perf_counter()
+    n = len(STAGES)
+    parts, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        frames, boxes = track_scene(Path(tmp) / "frames")
+        model = YOLO("vil_yolo.yaml", scale="n")
+        track_detector(model.model)
+        zero_all_kernel_counts()
+        runs = {}
+        for name in ("bytetrack", "botsort"):
+            log, t0 = [], time.perf_counter()
+            before = kernel_counters()
+            with recorded_trackers(log):
+                results = model.track(Path(tmp) / "frames", tracker=f"{name}.yaml", imgsz=IMGSZ,
+                                      verbose=False)
+            torch.cuda.synchronize()
+            launches = (kernel_counters() - before).tolist()
+            runs[name] = (results, log)
+            pred_ms = [sum(r.speed.values()) for r in results]  # after the PNG decode
+            parts[name] = {
+                "seconds": time.perf_counter() - t0, "frames": len(results),
+                "launches": launches, "expected_launches": [n * TRACK_FRAMES, 0, 0, 0],
+                "detections": [len(d) for d, *_ in log], "tracks": [len(o) for _, _, o, *_ in log],
+                "ids": len({int(i) for r in results for i in r.track_ids}),
+                "predictor_ms_first_frame": pred_ms[0],
+                "predictor_ms_per_frame": float(np.median(pred_ms[1:])),
+                "tracker_ms_per_frame": float(np.median([m for *_, m, _ in log])),
+                "gmc_ms_per_frame": (float(np.median([g for *_, g in log[1:]]))
+                                     if name == "botsort" else None)}
+            if launches != parts[name]["expected_launches"] or len(results) != TRACK_FRAMES:
+                failed.append(f"{name}_launches")
+            if not parts[name]["ids"]:
+                failed.append(f"{name}_no_tracks")
+        path_launches = {k: v for k, v in zip(COUNTED, kernel_counters().tolist()) if v}
+        # each frame's candidates and detections against the plain-forced model
+        with uncounted():
+            cand_box, cand_score = cands_vs_plain(model.model, frames)
+            with plain_vil_kernels():
+                plain = Predictor(model.model, imgsz=IMGSZ, conf=0.1, verbose=False)(frames)
+        errs = [dets_match(d, trackable(p.boxes.data))
+                for (d, *_), p in zip(runs["bytetrack"][1], plain)]
+        same_dets = all(np.array_equal(a[0], b[0]) for a, b in zip(runs["bytetrack"][1],
+                                                                   runs["botsort"][1]))
+        parts["vs_plain"] = {"cands_box_maxrelerr": cand_box, "cands_score_max_abs_err": cand_score,
+                             "frames_ok": sum(e[0] for e in errs),
+                             "dets_box_maxrelerr": max(e[1] for e in errs),
+                             "dets_score_max_abs_err": max(e[2] for e in errs),
+                             "rows_at_conf_set_aside": sum(e[3] for e in errs),
+                             # boxes clipped to nothing at the frame's edge, not tracked
+                             "zero_area_detections": sum(len(p) - len(trackable(p.boxes.data))
+                                                         for p in plain),
+                             "both_runs_same_detections": same_dets}
+        if (not all(e[0] for e in errs) or not same_dets or cand_box > TOL_REL
+                or cand_score > TOL_REL):
+            failed.append("vs_plain")
+        # both trackers again on the CPU, on the card's detections and frames
+        replay = {}
+        for name, (_, log) in runs.items():
+            tracker = create_tracker(f"{name}.yaml")
+            t0 = time.perf_counter()
+            outs = [tracker.update(d, img) for d, img, *_ in log]
+            replay[name] = {"identical": all(np.array_equal(o, rec[2]) for o, rec in
+                                             zip(outs, log)),
+                            "ms_per_frame": (time.perf_counter() - t0) * 1e3 / len(log)}
+            if not replay[name]["identical"]:
+                failed.append(f"{name}_replay")
+        parts["cpu_replay"] = replay
+        # the squares' true boxes through BoT-SORT: ids across the pan, GMC's pan
+        persist, ids, pans, ms = track_true_boxes(frames, boxes)
+        pan_err = max(max(abs(px + TRACK_PAN), abs(py)) for px, py in pans)
+        parts["true_boxes"] = {"ids_per_square": ids, "persist": persist,
+                               "gmc_pan_mean": np.mean(pans, 0).tolist(), "gmc_pan_max_err": pan_err,
+                               "ms_per_frame": float(np.mean(ms))}
+        if not persist or pan_err > TRACK_GMC_TOL:
+            failed.append("true_boxes")
+        # the native val batches, and validation on them
+        zero_kernel_counters()
+        val_ok, parts["native_val"] = track_native_val(model.model, tmp)
+        for k, v in zip(COUNTED, kernel_counters().tolist()):
+            if v:
+                path_launches[k] = path_launches.get(k, 0) + v
+        if not val_ok:
+            failed.append("native_val")
+    ok = not failed and path_launches.get("vil_layer_fwd", 0) == 2 * n * TRACK_FRAMES + n * (
+        TRACK_VAL // 16)
+    emit({"phase": "track_path", "model": "vil_yolo.yaml scale n", "card": smi_line,
+          "frames": TRACK_FRAMES, "hw": list(TRACK_HW), "imgsz": IMGSZ, "pan_px": TRACK_PAN,
+          **parts, "failed": failed, "launches": path_launches,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"track_path check failed: {failed or 'launches'}")
+    return path_launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -6827,6 +7192,8 @@ def main() -> int:
         export_launches = phase_export_path(smi_line)
         phase = "parallel_path"
         parallel_launches = phase_parallel_path(smi_line)
+        phase = "track_path"
+        track_launches = phase_track_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -6857,7 +7224,8 @@ def main() -> int:
                "world_path": world_launches,
                "sam_path": sam_launches,
                "export_path": export_launches,
-               "parallel_path": parallel_launches}
+               "parallel_path": parallel_launches,
+               "track_path": track_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

@@ -9,7 +9,8 @@ hash-checked ``.npz`` cache, ``YOLODataset`` (``load_image`` with ``cache``
 sample (``_get_sample_points``: mosaic or letterbox, copy-paste, HSV and
 the flip carrying polygons, keypoints with ``flip_idx``, and OBB corners,
 turned into (cx, cy, w, h, angle) by ``imgproc.min_area_rect`` at the end),
-``collate``), ``ClassificationDataset``,
+``collate``, ``collate_native``: an eval batch through the native C++
+letterbox, ``native``), ``ClassificationDataset``,
 ``Loader`` (the seeded shuffle, the same batch order and per-sample random
 streams as JAX, the threaded prefetch) and ``build_dataloader``; the rect
 buckets of eval (``rect_groups``, the image shapes read from the files'
@@ -48,12 +49,18 @@ import yaml
 from . import augment as A
 from .imgproc import IMG_FORMATS, fill_poly_cv, image_shape, imread, min_area_rect, resize
 
+DATASETS_DIR = Path(__file__).resolve().parent.parent / "cfg" / "datasets"
+
 
 def check_det_dataset(data: str | dict) -> dict:
     """A dataset YAML (or dict) -> its dict with absolute split paths,
-    ``names`` as {index: name} and ``nc``. No download: paths must exist."""
+    ``names`` as {index: name} and ``nc``. A path that does not exist
+    resolves by its name against the bundled descriptors (``cfg/datasets``,
+    e.g. ``"coco8.yaml"``). No download: paths must exist."""
     if isinstance(data, (str, Path)):
         path = Path(data)
+        if not path.exists() and (DATASETS_DIR / path.name).exists():
+            path = DATASETS_DIR / path.name
         with open(path, errors="ignore") as f:
             d = yaml.safe_load(f)
         root = Path(d.get("path", path.parent))
@@ -396,6 +403,32 @@ class YOLODataset:
                             np.float32)
         return {"ori_shape": shapes, "im_idx": np.asarray(idxs, np.int32)}
 
+    def collate_native(self, idxs) -> dict | None:
+        """The eval batch of ``idxs`` through the native letterbox
+        (``native.letterbox_batch``, no upscale): float32 images in [0, 1]
+        and the labels moved by each image's gain and padding; None where
+        no g++ is found (the loader then assembles the batch in Python)."""
+        from .. import native
+
+        if not native.available():
+            return None
+        imgs = [self.load_image(int(i)) for i in idxs]
+        batch_imgs, metas = native.letterbox_batch(imgs, self.imgsz, scaleup=False)
+        boxes = np.zeros((len(idxs), self.max_labels, 5), np.float32)
+        mask = np.zeros((len(idxs), self.max_labels), bool)
+        for bi, i in enumerate(idxs):
+            lb = self.labels_px(int(i), imgs[bi].shape[:2])
+            r, px, py = metas[bi]
+            if len(lb):
+                lb[:, 1:5] *= r
+                lb[:, [1, 3]] += px
+                lb[:, [2, 4]] += py
+                wh = lb[:, 3:5] - lb[:, 1:3]
+                lb = lb[(wh > 1).all(-1)][: self.max_labels]
+            boxes[bi, :len(lb)] = lb
+            mask[bi, :len(lb)] = True
+        return {"img": batch_imgs, "cls_boxes": boxes, "mask": mask, **self._batch_meta(idxs)}
+
     def points_px(self, i: int, shape) -> dict:
         """Image ``i``'s point annotations in pixels of ``shape`` (h, w)."""
         lb = self.labels[i]
@@ -615,7 +648,10 @@ class Loader:
     so the stream does not depend on the threads' order; with 0 the samples
     draw one after another from the epoch's generator. ``batch_seconds``
     holds the host's seconds to assemble each batch of the last pass (read,
-    augment, collate, pin). On a ``rect`` dataset the batches are its
+    augment, collate, pin). An eval batch of a square detect dataset
+    without ``uint8_images`` goes through the native letterbox
+    (``collate_native``) where g++ is found; ``native_batches`` counts those
+    batches over the loader's life. On a ``rect`` dataset the batches are its
     buckets at this loader's batch size, in order (a shuffle is refused);
     with ``drop_last`` the short bucket goes unless it is the only one.
     ``shard_index`` of ``num_shards`` (a data-parallel rank's shard, the
@@ -643,6 +679,7 @@ class Loader:
         self.shard_index, self.num_shards = shard_index, num_shards
         self.epoch = 0
         self.batch_seconds: list[float] = []
+        self.native_batches = 0
         self._rect = None
 
     def rect_batches(self) -> list:
@@ -695,17 +732,26 @@ class Loader:
 
             pool = ThreadPoolExecutor(self.workers, thread_name_prefix="loader")
 
+        # the native letterbox gives float32 batches: taken where the JAX
+        # loader takes it, for an eval detect batch that is square and not uint8
+        use_native = (getattr(self.ds, "task", None) == "detect" and not self.ds.augment
+                      and not self.ds.rect and not getattr(self.ds, "uint8_images", False))
+
         def _assemble(batch_idx, shape):
             t0 = time.perf_counter()
-            if pool is not None:
-                seeds = rng.integers(0, 2**31 - 1, len(batch_idx))
-                samples = list(pool.map(
-                    lambda a: self.ds.get_sample(int(a[0]), np.random.default_rng(int(a[1])),
-                                                 shape),
-                    zip(batch_idx, seeds)))
+            batch = self.ds.collate_native(batch_idx) if use_native else None
+            if batch is not None:
+                self.native_batches += 1
             else:
-                samples = [self.ds.get_sample(int(i), rng, shape) for i in batch_idx]
-            batch = self.ds.collate(samples, batch_idx)
+                if pool is not None:
+                    seeds = rng.integers(0, 2**31 - 1, len(batch_idx))
+                    samples = list(pool.map(
+                        lambda a: self.ds.get_sample(int(a[0]), np.random.default_rng(int(a[1])),
+                                                     shape),
+                        zip(batch_idx, seeds)))
+                else:
+                    samples = [self.ds.get_sample(int(i), rng, shape) for i in batch_idx]
+                batch = self.ds.collate(samples, batch_idx)
             batch = _pinned(batch) if self.pin else batch
             self.batch_seconds.append(time.perf_counter() - t0)
             return batch
@@ -799,6 +845,10 @@ class ClassificationDataset:
     def collate(self, samples: list, idxs=None) -> dict:
         return {"img": np.stack([s[0] for s in samples]).astype(np.float32) / 255.0,
                 "label": np.asarray([s[1] for s in samples], np.int64)}
+
+    def collate_native(self, idxs):
+        """No native path for classify batches: the loader collates them."""
+        return None
 
 
 def build_dataloader(data_yaml: str | dict, split: str = "train", batch: int = 16,

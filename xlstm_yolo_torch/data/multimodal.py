@@ -96,6 +96,10 @@ class MultiModalDataset(YOLODataset):
     def collate(self, samples: list, idxs=None) -> dict:
         return self._attach_texts(super().collate(samples, idxs))
 
+    def collate_native(self, idxs) -> dict | None:
+        batch = super().collate_native(idxs)
+        return None if batch is None else self._attach_texts(batch)
+
     def _attach_texts(self, batch: dict) -> dict:
         cb, mask = batch["cls_boxes"], batch["mask"]
         all_texts = []

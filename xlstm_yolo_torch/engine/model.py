@@ -26,7 +26,8 @@ not its ``txt_feats``, as the JAX checkpoint, so a reloaded world model
 has the default guide of its class count. ``export`` runs
 ``engine.exporter.Exporter`` (``pt2`` by default), ``benchmark``
 ``utils.benchmarks.benchmark`` and ``tune`` ``engine.tuner.Tuner``, each on
-the model's device. Not ported: ``track``.
+the model's device. ``track`` runs ``predict`` through a ByteTrack or
+BoT-SORT tracker (``trackers``).
 """
 from __future__ import annotations
 
@@ -105,6 +106,27 @@ class Model:
 
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
+
+    def track(self, source=None, tracker: str = "bytetrack.yaml", stream: bool = False,
+              **kwargs):
+        """``predict`` with multi-object tracking: a fresh ``Predictor``
+        (``conf`` 0.1 unless given: the tracker takes low-confidence
+        detections too) streams ``source`` into the ``tracker`` (a name or
+        tracker YAML, ``trackers.create_tracker``) -> ``Results`` with the
+        tracks' boxes and ``track_ids`` (``trackers.track_results``), in a
+        list or, with ``stream``, from a generator."""
+        from ..trackers import create_tracker, track_results
+        from .predictor import Predictor
+
+        if source is None:
+            raise ValueError("track needs a source: an image file, a directory or arrays")
+        kwargs.setdefault("conf", 0.1)
+        model = self.model.eval()
+        if kwargs.get("half") or kwargs.get("dtype") == "bfloat16":
+            model = copy.deepcopy(model)  # the Predictor casts its model's parameters
+        predictor = Predictor(model, callbacks=self.callbacks, **kwargs)
+        gen = track_results(create_tracker(tracker), predictor(source, stream=True))
+        return gen if stream else list(gen)
 
     def val(self, data: str | None = None, **kwargs) -> dict:
         """mAP over ``data``'s val split; ``kwargs`` go to ``Validator``

@@ -1,8 +1,8 @@
 """Prediction results of one image, in numpy.
 
 Port of ``BaseNP``, ``Boxes``, ``Masks``, ``Keypoints``, ``Probs``, ``OBB``
-and ``Results`` in ``xlstm_yolo_tpu/engine/results.py`` (without ``plot``
-and tracking): boxes in pixels of the original image, with their
+and ``Results`` in ``xlstm_yolo_tpu/engine/results.py`` (without ``plot``):
+boxes in pixels of the original image, with their
 confidence and class, the segment task's masks, the pose task's keypoints,
 the OBB task's rotated boxes, the classify task's probabilities (a
 classify result has no boxes and a length of 0, as in JAX), and the
@@ -49,16 +49,20 @@ class BaseNP:
 
 
 class Boxes(BaseNP):
-    """(n, 6) = x1, y1, x2, y2, conf, cls in pixels of the original image."""
+    """(n, 6) = x1, y1, x2, y2, conf, cls in pixels of the original image,
+    or (n, 7) with a track id before conf (``is_track``, ``id``); an empty
+    (0, 7) keeps its 7 columns."""
 
     def __init__(self, data: np.ndarray, orig_shape: tuple):
         data = np.asarray(data, np.float32)
         if data.ndim == 1:
             data = data.reshape(-1, data.shape[0] if data.size else 6)
         data = data.reshape(-1, data.shape[-1])
-        if data.shape[-1] != 6:
-            raise ValueError(f"expected 6 columns (x1, y1, x2, y2, conf, cls), got {data.shape}")
+        if data.shape[-1] not in (6, 7):
+            raise ValueError(f"expected 6 columns (x1, y1, x2, y2, conf, cls) or 7 (with a "
+                             f"track id before conf), got {data.shape}")
         super().__init__(data, orig_shape)
+        self.is_track = data.shape[-1] == 7
 
     @property
     def xyxy(self):
@@ -71,6 +75,11 @@ class Boxes(BaseNP):
     @property
     def cls(self):
         return self.data[:, -1]
+
+    @property
+    def id(self):
+        """The track ids of a 7-column form, else None."""
+        return self.data[:, -3] if self.is_track else None
 
     @property
     def xywh(self):
@@ -157,17 +166,19 @@ class Probs(BaseNP):
 
 class OBB(BaseNP):
     """(n, 7) = cx, cy, w, h, angle (radians), conf, cls in pixels of the
-    original image."""
+    original image, or (n, 8) with a track id before conf (``is_track``,
+    ``id``)."""
 
     def __init__(self, data, orig_shape):
         data = np.asarray(data, np.float32)
         if data.ndim == 1:
             data = data.reshape(-1, data.shape[0] if data.size else 7)
         data = data.reshape(-1, data.shape[-1])
-        if data.shape[-1] != 7:
-            raise ValueError(f"expected 7 columns (cx, cy, w, h, angle, conf, cls), got "
-                             f"{data.shape}")
+        if data.shape[-1] not in (7, 8):
+            raise ValueError(f"expected 7 columns (cx, cy, w, h, angle, conf, cls) or 8 (with a "
+                             f"track id before conf), got {data.shape}")
         super().__init__(data, orig_shape)
+        self.is_track = data.shape[-1] == 8
 
     @property
     def xywhr(self):
@@ -180,6 +191,11 @@ class OBB(BaseNP):
     @property
     def cls(self):
         return self.data[:, -1]
+
+    @property
+    def id(self):
+        """The track ids of an 8-column form, else None."""
+        return self.data[:, -3] if self.is_track else None
 
     @property
     def xyxyxyxy(self):

@@ -6,10 +6,12 @@ tasks: on the device, the eval forward,
 the DFL decode and the fixed-shape multi-label NMS (conf 0.001, IoU 0.7,
 300 detections, a 1,024-candidate pool; ``exact_nms`` the greedy
 suppression); on the host, the greedy IoU matching at ten thresholds and
-the 101-point AP (``utils.metrics``). The batches ship uint8 and are
-normalized on the device. fp32 by default, as the reference's ``half:
-False``; ``half=True`` validates a bf16 copy of the model
-(``nn.fuse.cast_params``, as the port's ``Predictor``).
+the 101-point AP (``utils.metrics``). A square detect batch comes from the
+native letterbox (float32 in [0, 1], the JAX validator's batch) where g++
+is found; the other batches ship uint8 and are normalized on the device.
+fp32 by default, as the reference's ``half: False``; ``half=True``
+validates a bf16 copy of the model (``nn.fuse.cast_params``, as the port's
+``Predictor``).
 
 ``rect`` letterboxes each batch to its aspect-ratio bucket (aligned to the
 model's coarsest stride, padded half a stride) instead of the square
@@ -49,6 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import native
 from ..data.converter import coco80_to_coco91_class
 from ..data.dataset import build_dataloader, check_det_dataset
 from ..data.imgproc import resize_nearest
@@ -88,6 +91,7 @@ class Validator:
         self.save_json, self.exact_nms, self.plots, self.rect = save_json, exact_nms, plots, rect
         self.save_dir = Path(save_dir) if save_dir else Path("runs/val")
         self.cm = None
+        self.loader = None
         self._plotted = False
 
     @torch.inference_mode()
@@ -105,7 +109,11 @@ class Validator:
         loader, _ = build_dataloader(data, "val", batch=self.batch, imgsz=self.imgsz,
                                      augment=False, max_labels=self.max_labels, rect=self.rect,
                                      stride=stride, task=task)
-        loader.ds.uint8_images = True
+        self.loader = loader  # its native_batches and batch_seconds, for the callbacks
+        # a square detect batch takes the native letterbox (float32, as the JAX
+        # val loader's); the others ship uint8 and are normalized on the device
+        loader.ds.uint8_images = not (loader.ds.task == "detect" and not loader.ds.rect
+                                      and native.available())
         if self.plots:
             self.cm = MET.ConfusionMatrix(int(self.model.nc), conf=self.conf)
         jdict, files, class_map = [], loader.ds.files, self._class_map(data)
@@ -117,8 +125,7 @@ class Validator:
         t0 = time.time()
         for batch in loader:
             self.callbacks.run("on_val_batch_start", self)
-            img = torch.from_numpy(batch["img"]).to(device)
-            x = (img.float() / 255.0).to(dtype)
+            x = self._images(batch, device, dtype)
             dets, valid = non_max_suppression(
                 model.predictions(x).float(), conf_thres=self.conf, iou_thres=self.iou,
                 max_det=self.max_det, multi_label=True, exact=self.exact_nms,
@@ -130,7 +137,7 @@ class Validator:
                 if self.save_json:
                     self._pred_to_json(jdict, d, files, int(batch["im_idx"][bi]),
                                        tuple(np.asarray(batch["ori_shape"][bi])),
-                                       tuple(img.shape[1:3]), class_map, load_sz=self.imgsz)
+                                       tuple(x.shape[1:3]), class_map, load_sz=self.imgsz)
                 gt = batch["cls_boxes"][bi][batch["mask"][bi]]  # (m, 5) cls xyxy
                 gt_cls = gt[:, 0]
                 if self.cm is not None:
@@ -203,7 +210,7 @@ class Validator:
 
     def _images(self, batch, device, dtype) -> torch.Tensor:
         img = torch.from_numpy(batch["img"]).to(device)
-        return (img.float() / 255.0).to(dtype)
+        return (img.float() / 255.0 if img.dtype == torch.uint8 else img).to(dtype)
 
     def _call_task(self, model, loader, device, dtype) -> dict:
         """The OBB, segment and pose paths (module docstring)."""
