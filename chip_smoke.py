@@ -223,7 +223,7 @@ child process that torchrun's variables put in a one-rank NCCL world,
 started once the dp ranks' timed steps are done (its own seconds are timed
 inside it). K3 and K2 launch in every rank.
 
-Multi-object tracking (``track_path``, last; ``xlstm_yolo_torch/trackers``):
+Multi-object tracking (``track_path``; ``xlstm_yolo_torch/trackers``):
 24 PNG frames of 480 x 640 the phase writes (a seeded texture panned 3 px a
 frame, four bright squares on straight paths) through
 ``YOLO("vil_yolo.yaml", scale="n").track`` at 640 px, fp32, with
@@ -238,6 +238,29 @@ pan and GMC's pan within 1.5 px of 3; the native val batches (a non-rect
 loader at 640 and batch 16 against its Python collate, within one level,
 host ms a batch of each) and ``Validator`` on them. ms a frame of the
 predictor, the tracker and GMC.
+
+The host side of prediction and the command line (``cli_path``, last;
+``xlstm_yolo_torch/__main__.py``, ``native/jpeg.cpp``, ``utils/annotator.py``,
+``ops/contours.py``): 16 scene frames of 480 x 640 the phase writes as JPEGs
+with the port's encoder (and as PNGs), with YOLO labels and a data YAML; a
+ViL-YOLO-n checkpoint shaped as ``track_detector`` shapes its model;
+``entrypoint(["detect", "predict", ..., "save=True", "save_txt=True",
+"save_conf=True", "save_crop=True"])`` in the process at the conf of the
+first frame's CLI_BOXES-th score (K3 3 times a frame), then ``detect val``
+on the JPEGs (3 a batch of 16), then ``segment predict`` of a yolo11n-seg
+checkpoint shaped by ``seg_shaped`` with ``save_txt=True``, whose masks are
+traced on the host, then one ``python -m xlstm_yolo_torch detect predict``
+in a child process (the package's ``__main__`` run as ``-m`` runs it,
+through ``runpy``, printing its TF32 flags after), whose label file must
+equal the in-process one as text and match its detections as sets, with
+TF32 off in the child; beside it, whether the in-process labels of the
+same frame change with cuDNN and matmul in TF32. Each frame's detections
+against the plain-forced ``Predictor`` as sets; every label file equal to
+``Results.save_txt`` of the same results; every annotated frame and crop
+byte-equal to the port's encoder on ``Results.plot()`` and on the crop;
+every traced polygon point on its mask's border. ms a frame of the JPEG decode against the numpy PNG
+decode of the same frame, of the encode and of ``plot``; ms a validation
+batch of 16 JPEGs against 16 PNGs.
 
 Every phase prints one JSON line; then come the run's seconds, the
 kernels line, the card's name and power limit as nvidia-smi gives them, and
@@ -553,8 +576,8 @@ def phase_device():
                          timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not available"
     name = torch.cuda.get_device_name(0)
-    # the port decodes PNG and BMP itself; JPEG needs cv2 or PIL; RT-DETR's
-    # Hungarian match needs scipy
+    # the port decodes PNG and BMP itself, JPEG with its g++-built codec;
+    # neither cv2 nor PIL is needed; RT-DETR's Hungarian match needs scipy
     found = {m: importable(m) for m in ("cv2", "PIL", "scipy")}
     emit({"phase": "device", "nvidia_smi": smi_line, "name": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -6147,6 +6170,7 @@ EXPORT_FORMATS_GATED = ("onnx", "savedmodel", "tflite")  # need packages the car
 EXPORT_REQUESTS = 3  # timed requests to the model server
 AUTOBATCH_FRACTION = 0.6
 TUNE_ITERATIONS = 2
+TUNE_IMAGES = (16, 8)  # train, val PNGs of the tuner's epochs (a quarter of fit_path's 64 + 16)
 
 
 def graph_ops(path, name: str = "vil_layer_fwd") -> tuple:
@@ -6357,15 +6381,15 @@ def export_autobatch() -> tuple:
 
 
 def export_tune(tmp: str) -> tuple:
-    """``Model.tune``: two iterations of one fp32 epoch on fit_path's PNG set
-    (written again); the CSV's JAX columns and two rows."""
+    """``Model.tune``: two iterations of one fp32 epoch on TUNE_IMAGES of
+    fit_path's PNG set (written again); the CSV's JAX columns and two rows."""
     import csv
 
     from xlstm_yolo_torch import YOLO
     from xlstm_yolo_torch.data.synthetic import make_synthetic_dataset
     from xlstm_yolo_torch.engine.tuner import SPACE
 
-    data = make_synthetic_dataset(f"{tmp}/ds", n_train=FIT_IMAGES[0], n_val=FIT_IMAGES[1],
+    data = make_synthetic_dataset(f"{tmp}/ds", n_train=TUNE_IMAGES[0], n_val=TUNE_IMAGES[1],
                                   width=FIT_WH[0], height=FIT_WH[1], seed=0)
     t0 = time.perf_counter()
     res = YOLO("vil_yolon.yaml", device="cuda").tune(
@@ -7132,6 +7156,341 @@ def phase_track_path(smi_line):
     return path_launches
 
 
+# cli_path: the command line and the host side of prediction on the card's
+# machine (no cv2, no Pillow)
+CLI_FRAMES, CLI_HW = 16, (480, 640)  # JPEG frames the phase writes, (h, w)
+# boxes a frame: the predict's conf is the CLI_BOXES-th score of the first
+# frame (the shaped detector clears 0.25 some 250 times a frame, and each
+# box is drawn, labelled and cropped)
+CLI_BOXES = 30
+CLI_SEG = ("conf=0.01", "max_det=8")  # seg_shaped's scores lie near sigmoid(-1)
+# the child: ``python -m xlstm_yolo_torch`` as runpy runs it, then its TF32 flags
+CLI_CHILD = ("import json, runpy, sys, torch\n"
+             "try:\n"
+             "    runpy.run_module('xlstm_yolo_torch', run_name='__main__', alter_sys=True)\n"
+             "finally:\n"
+             "    print(json.dumps({'cudnn_allow_tf32': torch.backends.cudnn.allow_tf32,\n"
+             "                      'matmul_allow_tf32': torch.backends.cuda.matmul.allow_tf32}),\n"
+             "          file=sys.stderr)\n")
+SEG_COEF = 2e4  # the seeded prototypes are ~6e-5: mask logits of order one
+
+
+def cli_scene(root: Path) -> tuple:
+    """CLI_FRAMES frames of CLI_HW (track_scene's texture and squares) under
+    ``root/jpg/images/val`` as JPEGs (the port's encoder, quality 95) and
+    ``root/png/images/val`` as PNGs, each with YOLO labels (a square's class
+    is its index) and a ``data.yaml``; -> (frames, {kind: data.yaml})."""
+    from scipy.ndimage import gaussian_filter
+
+    from xlstm_yolo_torch.data.imgproc import imwrite
+
+    h, w = CLI_HW
+    rng = np.random.default_rng(1)
+    tex = gaussian_filter(rng.uniform(0, 255, (h, w + 8 * CLI_FRAMES, 3)), (2, 2, 0))
+    tex = np.clip((tex - tex.mean()) * 6 + 128, 0, 255).astype(np.uint8)
+    frames, yamls = [], {}
+    for f in range(CLI_FRAMES):
+        img = tex[:, 8 * f:8 * f + w].copy()
+        lines = []
+        for k, ((x0, y0), (vx, vy), side) in enumerate(TRACK_SQUARES):
+            x, y = x0 + 2 * vx * f, y0 + 2 * vy * f
+            img[y:y + side, x:x + side] = (250, 210 + 10 * k, 40 + 50 * k)
+            lines.append(f"{k} {(x + side / 2) / w:.6f} {(y + side / 2) / h:.6f} "
+                         f"{side / w:.6f} {side / h:.6f}")
+        frames.append(img)
+        for kind in ("jpg", "png"):
+            d = root / kind
+            for sub in ("images", "labels"):
+                (d / sub / "val").mkdir(parents=True, exist_ok=True)
+            imwrite(d / "images" / "val" / f"{f:03d}.{kind}", img)
+            (d / "labels" / "val" / f"{f:03d}.txt").write_text("\n".join(lines) + "\n")
+    for kind in ("jpg", "png"):
+        yamls[kind] = root / kind / "data.yaml"
+        yamls[kind].write_text(json.dumps({"path": str(root / kind), "train": "images/val",
+                                           "val": "images/val",
+                                           "names": {i: f"c{i}" for i in range(4)}}))
+    return frames, yamls
+
+
+def seg_shaped(model):
+    """A seeded yolo11n-seg ``TaskModel`` shaped so that its masks have
+    contours: class scores near sigmoid(-1), boxes of several strides, and
+    mask coefficients of N(0, SEG_COEF) (the seed's masks are empty: its
+    prototypes are of order 1e-4)."""
+    import torch
+
+    head = getattr(model, f"l{model.parsed.head_index}")
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for i in range(head.detect.nl):
+            for name, w_std, bias in (("cv3", 300.0, None), ("cv2", 0.02, None), ("cv4", 0.3, None)):
+                c = getattr(head.detect if name != "cv4" else head, f"{name}_{i}_2")
+                c.weight.copy_((torch.randn(c.weight.shape, generator=g) * w_std).to(c.weight.device))
+                if name == "cv3":
+                    c.bias.fill_(-1.0)
+                elif name == "cv2":
+                    c.bias.copy_((torch.arange(16.0).repeat(4) * -0.3 + torch.randn(
+                        c.bias.shape, generator=g) * 0.4).to(c.bias.device))
+                else:
+                    c.bias.copy_((torch.randn(c.bias.shape, generator=g) * SEG_COEF).to(
+                        c.bias.device))
+    return model
+
+
+def on_border(mask, pts) -> bool:
+    """Every (x, y) of ``pts`` is an object pixel of ``mask`` with a
+    4-neighbour outside it (or on the image's edge)."""
+    m = np.pad(mask, 1)
+    xs, ys = pts[:, 0].astype(int) + 1, pts[:, 1].astype(int) + 1
+    inner = m[ys - 1, xs] & m[ys + 1, xs] & m[ys, xs - 1] & m[ys, xs + 1]
+    return bool(m[ys, xs].all() and not inner.any())
+
+
+@contextmanager
+def tf32_allowed():
+    """cuDNN and matmul in TF32 inside, as PyTorch has them by default."""
+    import torch
+
+    was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def label_dets(text: str, hw) -> np.ndarray:
+    """``save_txt`` lines (cls xc yc w h conf, normalised) as detection rows
+    (x1 y1 x2 y2 conf cls) in the pixels of an ``hw`` frame."""
+    rows = np.array([[float(v) for v in ln.split()] for ln in text.splitlines() if ln.strip()],
+                    np.float64).reshape(-1, 6)
+    h, w = hw
+    xc, yc, bw, bh = rows[:, 1] * w, rows[:, 2] * h, rows[:, 3] * w, rows[:, 4] * h
+    return np.stack([xc - bw / 2, yc - bh / 2, xc + bw / 2, yc + bh / 2, rows[:, 5], rows[:, 0]],
+                    1)
+
+
+@contextmanager
+def written_results(log: list):
+    """The predictor's ``_write_results`` as it is, each (path, Results)
+    recorded in ``log``."""
+    from xlstm_yolo_torch.engine.predictor import Predictor
+
+    write = Predictor._write_results
+
+    def recorded(self, path, res):
+        log.append((path, res))
+        return write(self, path, res)
+
+    with mock.patch.object(Predictor, "_write_results", recorded):
+        yield
+
+
+def cli_host_times(frames, yamls, results) -> dict:
+    """ms a frame of the JPEG decode (native) and the numpy PNG decode of
+    the same frames, of the encode and of ``Results.plot``; ms a validation
+    batch of 16 JPEGs against 16 PNGs (non-rect loader at 640, in turns,
+    files warm)."""
+    from xlstm_yolo_torch import native
+    from xlstm_yolo_torch.data.dataset import build_dataloader
+    from xlstm_yolo_torch.data.imgproc import imread
+
+    out = {}
+    for kind in ("jpg", "png"):
+        files = sorted((Path(yamls[kind]).parent / "images" / "val").glob(f"*.{kind}"))
+        blobs = [f.read_bytes() for f in files]
+        t0 = time.perf_counter()
+        for f in files:
+            imread(f)
+        out[f"{kind}_decode_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(files)
+        out[f"{kind}_bytes_per_frame"] = float(np.mean([len(b) for b in blobs]))
+    t0 = time.perf_counter()
+    for img in frames:
+        native.jpeg_encode(img)
+    out["jpg_encode_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    for r in results:
+        r.plot()
+    out["plot_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(results)
+    loaders = {kind: build_dataloader(str(yamls[kind]), "val", batch=16, imgsz=IMGSZ,
+                                      augment=False)[0] for kind in ("jpg", "png")}
+    ms = {"jpg": [], "png": []}
+    for kind in ("jpg", "png", "png", "jpg"):
+        for _ in loaders[kind]:
+            pass
+        ms[kind] += [1e3 * t for t in loaders[kind].batch_seconds]
+    out.update({"val_batch_ms_jpg": ms["jpg"], "val_batch_ms_png": ms["png"],
+                "val_batch_ms_jpg_mean": float(np.mean(ms["jpg"])),
+                "val_batch_ms_png_mean": float(np.mean(ms["png"]))})
+    return out
+
+
+def phase_cli_path(smi_line):
+    """The command line and the host side of prediction (module docstring):
+    predict with every save flag through ``entrypoint`` in the process,
+    ``detect val`` on the JPEGs, ``python -m xlstm_yolo_torch`` in a child,
+    ``segment predict`` with traced masks. Returns the phase's launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_torch import YOLO, native
+    from xlstm_yolo_torch.__main__ import entrypoint
+    from xlstm_yolo_torch.engine.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    n = len(STAGES)
+    parts, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        frames, yamls = cli_scene(root / "scene")
+        jpg_dir = Path(yamls["jpg"]).parent / "images" / "val"
+        model = YOLO("vil_yolo.yaml", scale="n")
+        track_detector(model.model)
+        ckpt = model.save(root / "vil_yolon_shaped.pt")
+        with uncounted():
+            first = Predictor(model.model.eval(), imgsz=IMGSZ, verbose=False)([frames[0]])[0]
+        scores = np.sort(first.boxes.conf)[::-1]
+        conf = (float(np.floor(scores[min(CLI_BOXES, len(scores)) - 1] * 1e3) / 1e3)
+                if len(scores) else 0.25)
+        zero_all_kernel_counts()
+        # predict with every save flag, in the process
+        log, t0 = [], time.perf_counter()
+        before = kernel_counters()
+        with written_results(log):
+            entrypoint(["detect", "predict", f"model={ckpt}", f"source={jpg_dir}", "save=True",
+                        "save_txt=True", "save_conf=True", "save_crop=True", f"project={root}",
+                        "name=pred", f"imgsz={IMGSZ}", f"conf={conf}", "verbose=False"])
+        torch.cuda.synchronize()
+        pred_launches = (kernel_counters() - before).tolist()
+        out = root / "pred"
+        results = [r for _, r in log]
+        crop_files = sorted((out / "crops").rglob("*.jpg"))
+        labels_same = True
+        for p, r in log:
+            r.save_txt(root / "check.txt", save_conf=True)
+            labels_same &= ((out / "labels" / f"{Path(p).stem}.txt").read_text()
+                            == (root / "check.txt").read_text())
+        plots_same = all((out / f"{Path(p).stem}.jpg").read_bytes()
+                         == native.jpeg_encode(r.plot()) for p, r in log)
+        crops_same, crops_seen = True, 0
+        for p, r in log:
+            for bi in range(len(r.boxes)):
+                x1, y1, x2, y2 = np.asarray(r.boxes.xyxy[bi]).astype(int)
+                crop = r.orig_img[max(0, y1):y2, max(0, x1):x2]
+                if crop.size:
+                    f = out / "crops" / r.names[int(r.boxes.cls[bi])] / f"{Path(p).stem}_{bi}.jpg"
+                    crops_same &= f.read_bytes() == native.jpeg_encode(crop)
+                    crops_seen += 1
+        parts["predict"] = {"seconds": time.perf_counter() - t0, "frames": len(log), "conf": conf,
+                            "launches": pred_launches,
+                            "expected_launches": [n * CLI_FRAMES, 0, 0, 0],
+                            "detections": [len(r) for r in results], "crops": len(crop_files),
+                            "labels_equal_save_txt": labels_same, "plots_equal_encoder": plots_same,
+                            "crops_equal_encoder": crops_same and crops_seen == len(crop_files)}
+        if (pred_launches != parts["predict"]["expected_launches"] or len(log) != CLI_FRAMES
+                or not labels_same or not plots_same or not crops_same
+                or crops_seen != len(crop_files) or not sum(len(r) for r in results)):
+            failed.append("predict")
+        path_launches = {k: v for k, v in zip(COUNTED, kernel_counters().tolist()) if v}
+        # each frame's detections against the plain-forced predictor
+        with uncounted(), plain_vil_kernels():
+            plain = Predictor(model.model.eval(), imgsz=IMGSZ, conf=conf, verbose=False)(
+                [r.orig_img for r in results])
+        errs = [dets_match(r.boxes.data, p.boxes.data, conf=conf) for r, p in zip(results, plain)]
+        parts["vs_plain"] = {"frames_ok": sum(e[0] for e in errs),
+                             "dets_box_maxrelerr": max(e[1] for e in errs),
+                             "dets_score_max_abs_err": max(e[2] for e in errs),
+                             "rows_at_conf_set_aside": sum(e[3] for e in errs),
+                             "jpeg_max_levels_from_source": max(
+                                 int(np.abs(r.orig_img.astype(int) - f).max())
+                                 for r, f in zip(results, frames))}
+        if not all(e[0] for e in errs):
+            failed.append("vs_plain")
+        # detect val on the JPEGs
+        before, t0 = kernel_counters(), time.perf_counter()
+        entrypoint(["detect", "val", f"model={ckpt}", f"data={yamls['jpg']}", f"imgsz={IMGSZ}",
+                    "batch=16"])
+        torch.cuda.synchronize()
+        val_launches = (kernel_counters() - before).tolist()
+        parts["val"] = {"seconds": time.perf_counter() - t0, "launches": val_launches,
+                        "expected_launches": [n * (CLI_FRAMES // 16), 0, 0, 0]}
+        if val_launches != parts["val"]["expected_launches"]:
+            failed.append("val")
+        for k, v in zip(COUNTED, (kernel_counters() - before).tolist()):
+            if v:
+                path_launches[k] = path_launches.get(k, 0) + v
+        # segment predict: the card's masks traced on the host
+        seg_log, t0 = [], time.perf_counter()
+        seg = YOLO("yolo11n-seg.yaml")
+        seg_shaped(seg.model)
+        seg_ckpt = seg.save(root / "yolo11n_seg_shaped.pt")
+        before = kernel_counters()
+        with written_results(seg_log):
+            entrypoint(["segment", "predict", f"model={seg_ckpt}", f"source={jpg_dir}",
+                        "save_txt=True", f"project={root}", "name=seg", f"imgsz={IMGSZ}",
+                        "verbose=False", *CLI_SEG])
+        seg_launches = (kernel_counters() - before).tolist()
+        masks = [(r.masks.data, r.masks.xy) for _, r in seg_log if r.masks is not None]
+        n_poly = sum(len(p) > 0 for _, xy in masks for p in xy)
+        border_ok = all(on_border(m, xy) for data, segs in masks for m, xy in zip(data, segs)
+                        if len(xy))
+        seg_txt_ok = all((root / "seg" / "labels" / f"{Path(p).stem}.txt").is_file()
+                         for p, _ in seg_log)
+        parts["segment"] = {"seconds": time.perf_counter() - t0, "frames": len(seg_log),
+                            "masks": sum(len(d) for d, _ in masks), "polygons": n_poly,
+                            "polygon_points": sum(len(p) for _, xy in masks for p in xy),
+                            "points_on_border": border_ok, "labels_written": seg_txt_ok,
+                            "launches": seg_launches}
+        if not (n_poly and border_ok and seg_txt_ok and len(seg_log) == CLI_FRAMES
+                and not any(seg_launches)):
+            failed.append("segment")
+        # the module entry in a child process, on one frame
+        t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+        child = subprocess.run([sys.executable, "-c", CLI_CHILD, "detect", "predict",
+                                f"model={ckpt}", f"source={jpg_dir / '000.jpg'}", "save_txt=True",
+                                "save_conf=True", f"project={root}", "name=child",
+                                f"imgsz={IMGSZ}", f"conf={conf}"], capture_output=True,
+                               text=True, env=env, timeout=600)
+        child_txt = root / "child" / "labels" / "000.txt"
+        child_ok = child.returncode == 0 and child_txt.is_file() and child_txt.read_text() != ""
+        tail = child.stderr.strip().splitlines()[-1:]
+        flags = json.loads(tail[0]) if tail and tail[0].startswith("{") else {}
+        r000 = next(r for p, r in log if Path(p).stem == "000")
+        child_ok_dets, box_err, score_err, _ = (dets_match(
+            label_dets(child_txt.read_text(), r000.orig_img.shape[:2]), r000.boxes.data, conf=conf)
+            if child_ok else (False, float("inf"), float("inf"), 0))
+        text_equal = child_ok and child_txt.read_text() == (out / "labels" / "000.txt").read_text()
+        # the same frame in the process with cuDNN and matmul in TF32 (the
+        # PyTorch default the port turns off), to show what the pin guards
+        with uncounted(), tf32_allowed():
+            r_tf32 = Predictor(model.model.eval(), imgsz=IMGSZ, conf=conf, verbose=False)(
+                [r000.orig_img])[0]
+        r_tf32.save_txt(root / "tf32.txt", save_conf=True)
+        parts["module_entry"] = {
+            "seconds": time.perf_counter() - t0, "rc": child.returncode, "child_flags": flags,
+            "labels_equal_in_process": text_equal, "dets_match_in_process": child_ok_dets,
+            "dets_box_maxrelerr": box_err, "dets_score_max_abs_err": score_err,
+            "labels_equal_with_tf32_in_process": (root / "tf32.txt").read_text() == (
+                out / "labels" / "000.txt").read_text(),
+            "stderr_tail": child.stderr[-400:] if not child_ok else ""}
+        if not (child_ok and text_equal and child_ok_dets
+                and flags == {"cudnn_allow_tf32": False, "matmul_allow_tf32": False}):
+            failed.append("module_entry")
+        # host times of the codec, the plot and a validation batch
+        parts["host"] = cli_host_times(frames, yamls, results)
+    ok = not failed and path_launches.get("vil_layer_fwd", 0) == n * CLI_FRAMES + n * (
+        CLI_FRAMES // 16)
+    emit({"phase": "cli_path", "model": "vil_yolo.yaml scale n", "card": smi_line,
+          "frames": CLI_FRAMES, "hw": list(CLI_HW), "imgsz": IMGSZ, **parts, "failed": failed,
+          "launches": path_launches, "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise PhaseError(f"cli_path check failed: {failed or 'launches'}")
+    return path_launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     phase = "device"
@@ -7194,6 +7553,8 @@ def main() -> int:
         parallel_launches = phase_parallel_path(smi_line)
         phase = "track_path"
         track_launches = phase_track_path(smi_line)
+        phase = "cli_path"
+        cli_launches = phase_cli_path(smi_line)
     except Exception as e:  # report the failed phase, print no result
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
@@ -7225,7 +7586,8 @@ def main() -> int:
                "sam_path": sam_launches,
                "export_path": export_launches,
                "parallel_path": parallel_launches,
-               "track_path": track_launches}
+               "track_path": track_launches,
+               "cli_path": cli_launches}
 
     def entry(name, source, replaces, path, k, library_ms=None, fp32=None):
         """``launches`` is the count on ``path``, the first path that ran

@@ -14,7 +14,8 @@
   HSV gains through their LUTs within one level on all but 0.05%; the
   letterbox (the JAX one, on cv2) within one level and its labels and meta equal; PNG and BMP
   decoding equal to ``cv2.imread``; PNG and BMP written then read back
-  equal; a JPEG read through ``cv2`` as the JAX package reads it.
+  equal; a JPEG read (by the port's native decoder) as ``cv2`` reads it for
+  the JAX package.
 * ``utils.metrics`` against ``xlstm_yolo_tpu.utils.metrics`` on seeded
   random detections: within 1e-12.
 * The dataset on the JAX synthetic set (JPEG, 96 px), the same seed:

@@ -134,8 +134,9 @@ def test_predict_classes_agnostic_stream_match_jax(case):
     # the same images without the class filter hold class-1 boxes: it filters
     everything = ours.predict(files, **{**kw, "classes": None})
     assert any((r.boxes.cls == 1).any() for r in everything)
-    with pytest.raises(ValueError, match="save_crop"):
-        Predictor(ours.model, save_crop=True)
+    # the save flags are ported; what stays unported is named
+    with pytest.raises(ValueError, match="video, stream and screen"):
+        Predictor(ours.model, vid_stride=2)
 
 
 def test_info_matches_jax(case):

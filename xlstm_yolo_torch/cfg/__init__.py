@@ -2,7 +2,7 @@
 of ``default.yaml`` and the model YAMLs under ``cfg/models``.
 
 Port of ``get_cfg``, ``check_cfg``, ``check_dict_alignment``, ``yaml_load``,
-``model_yaml_path``, ``load_model_yaml``, ``TASKS`` and ``TASK2METRIC`` in
+``model_yaml_path``, ``load_model_yaml``, ``TASKS``, ``MODES`` and ``TASK2METRIC`` in
 ``xlstm_yolo_tpu/cfg/__init__.py``: defaults, then overrides, typed
 validation and did-you-mean errors for mistyped keys. The keys of the JAX
 package's device mesh (``mesh_dp`` ... ``mesh_ep``, ``pp_microbatches``) are
@@ -22,6 +22,7 @@ CFG_DIR = Path(__file__).parent
 MODELS_DIR = CFG_DIR / "models"
 
 TASKS = ("detect", "segment", "classify", "pose", "obb")
+MODES = ("train", "val", "predict", "export", "track", "benchmark")
 # the headline validation metric of each task, as the JAX package names it
 TASK2METRIC = {
     "detect": "metrics/mAP50-95(B)",

@@ -4,10 +4,14 @@ neither OpenCV nor Pillow).
 
 * ``imread`` / ``imwrite``: PNG (8-bit gray, gray+alpha, RGB, RGBA, palette;
   not interlaced) and BMP (8-bit palette, 24- and 32-bit, uncompressed) are
-  decoded and encoded here, with the standard library's ``zlib``. Every
-  other format of ``IMG_FORMATS`` (JPEG above all) goes through ``cv2`` or
-  Pillow, imported inside ``imread``; where neither is installed it raises
-  an error that names the format and the packages. ``image_shape`` reads
+  decoded and encoded here, with the standard library's ``zlib``. JPEG goes
+  through the native codec (``native/jpeg.cpp``): decoded as
+  ``cv2.imread(..., IMREAD_COLOR)`` decodes it, EXIF orientation applied,
+  and written as ``cv2.imwrite`` writes it (quality 95 by default). Only
+  where no g++ exists, and for the other formats of ``IMG_FORMATS``,
+  ``imread`` goes through ``cv2`` or Pillow, imported inside it; where
+  neither is installed it raises an error that names the format and the
+  packages. ``image_shape`` reads
   (h, w) from a PNG, BMP or JPEG header without decoding. Images are RGB uint8
   (H, W, 3), as ``cv2.imread`` then ``COLOR_BGR2RGB`` gives them: alpha is
   dropped, gray is repeated.
@@ -175,10 +179,75 @@ def _bmp_encode(img: np.ndarray) -> bytes:
             + body)
 
 
+def _tiff_orientation(tiff: bytes) -> int:
+    """The Orientation tag (0x0112) of a TIFF header's first IFD, 1 where
+    there is none or it is out of 1-8."""
+    order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
+    if order is None or len(tiff) < 8:
+        return 1
+    ifd = struct.unpack(order + "I", tiff[4:8])[0]
+    if ifd + 2 > len(tiff):
+        return 1
+    count = struct.unpack(order + "H", tiff[ifd:ifd + 2])[0]
+    for i in range(count):
+        entry = tiff[ifd + 2 + 12 * i:ifd + 14 + 12 * i]
+        if len(entry) < 12:
+            break
+        tag, typ = struct.unpack(order + "HH", entry[:4])
+        if tag == 0x0112 and typ == 3:
+            value = struct.unpack(order + "H", entry[8:10])[0]
+            return value if 1 <= value <= 8 else 1
+    return 1
+
+
+def exif_orientation(data: bytes) -> int:
+    """A JPEG stream's EXIF orientation (1-8) from its first ``Exif`` APP1
+    segment before the first scan; 1 without one."""
+    pos, n = 2, len(data)
+    while pos + 4 <= n:
+        if data[pos] != 0xFF:
+            return 1
+        m = data[pos + 1]
+        if m == 0xFF:
+            pos += 1
+            continue
+        if m in (0xD8, 0x01) or 0xD0 <= m <= 0xD7:
+            pos += 2
+            continue
+        if m in (0xD9, 0xDA):
+            return 1
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos + 4:pos + 2 + length]
+        if m == 0xE1 and seg[:6] == b"Exif\0\0":
+            return _tiff_orientation(seg[6:])
+        pos += 2 + length
+    return 1
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """Turn a decoded image upright by its EXIF orientation, as OpenCV's
+    ``IMREAD_COLOR`` does (flips, then for 5-8 a transpose first)."""
+    if orientation >= 5:
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    if flip:
+        img = np.flip(img, flip)
+    return np.ascontiguousarray(img)
+
+
+def _jpeg_read(data: bytes) -> np.ndarray:
+    from .. import native
+
+    return apply_orientation(native.jpeg_decode(data), exif_orientation(data))
+
+
 def imread(path: str | Path) -> np.ndarray:
-    """Read an image file as RGB uint8 (H, W, 3). PNG and BMP are decoded
-    here; the other formats through ``cv2`` (as the JAX package reads them)
-    or else Pillow, imported here; neither installed raises."""
+    """Read an image file as RGB uint8 (H, W, 3). PNG, BMP and (with g++)
+    JPEG are decoded here; the other formats through ``cv2`` (as the JAX
+    package reads them) or else Pillow, imported here; neither installed
+    raises."""
+    from .. import native
+
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"cannot read image {p}")
@@ -187,6 +256,11 @@ def imread(path: str | Path) -> np.ndarray:
         return _png_decode(data, p)
     if data[:2] == b"BM":
         return _bmp_decode(data, p)
+    if data[:2] == b"\xff\xd8" and native.available():
+        try:
+            return _jpeg_read(data)
+        except ValueError as e:
+            raise ValueError(f"cannot read image {p}: {e}") from None
     try:
         import cv2
     except ImportError:
@@ -201,7 +275,8 @@ def imread(path: str | Path) -> np.ndarray:
     except ImportError:
         raise ImportError(
             f"reading {p.suffix or 'this'} images ({p}) needs OpenCV (cv2) or Pillow, and "
-            f"neither is installed; the port decodes .png and .bmp itself") from None
+            f"neither is installed; the port decodes .png and .bmp itself, and JPEG where "
+            f"g++ is on PATH") from None
     with Image.open(p) as im:
         return np.asarray(im.convert("RGB"))
 
@@ -268,16 +343,23 @@ def image_shape(path: str | Path) -> tuple[int, int]:
     return imread(p).shape[:2]
 
 
-def imwrite(path: str | Path, img: np.ndarray) -> Path:
-    """Write RGB (H, W, 3) or gray (H, W) uint8 as ``.png`` or ``.bmp``."""
+def imwrite(path: str | Path, img: np.ndarray, quality: int = 95) -> Path:
+    """Write RGB (H, W, 3) or gray (H, W) uint8 as ``.png``, ``.bmp`` or
+    ``.jpg`` / ``.jpeg`` (baseline, 4:2:0, ``quality`` as cv2's
+    ``IMWRITE_JPEG_QUALITY``: the bytes ``cv2.imwrite`` writes)."""
+    from .. import native
+
     p = Path(path)
     img = np.ascontiguousarray(img, np.uint8)
-    if p.suffix.lower() == ".png":
+    suffix = p.suffix.lower()
+    if suffix == ".png":
         p.write_bytes(_png_encode(img))
-    elif p.suffix.lower() == ".bmp":
+    elif suffix == ".bmp":
         p.write_bytes(_bmp_encode(img))
+    elif suffix in (".jpg", ".jpeg"):
+        p.write_bytes(native.jpeg_encode(img, quality))
     else:
-        raise ValueError(f"the port writes .png and .bmp, not {p.suffix!r}")
+        raise ValueError(f"the port writes .png, .bmp, .jpg and .jpeg, not {p.suffix!r}")
     return p
 
 

@@ -38,6 +38,13 @@ top 300 (query, class) pairs, kept where the score passes ``conf``
 (``max_det``, ``iou`` and ``agnostic_nms`` are not read, as in JAX); the
 batch entry's valid is that test.
 
+With ``save``, ``save_txt`` or ``save_crop`` the image entry writes each
+result under ``project/name`` (``runs/predict/exp``, incremented unless
+``exist_ok``) as the JAX predictor does for image sources: the annotated
+``{stem}.jpg``, ``labels/{stem}.txt`` (with the confidence under
+``save_conf``) and ``crops/{class}/{stem}_{i}.jpg``, the JPEGs through
+``data.imgproc.imwrite`` (the bytes ``cv2.imwrite`` writes at quality 95).
+
 fp32 by default, as the JAX ``Predictor`` (the reference's ``half: False``).
 ``dtype="bfloat16"`` (or ``half=True``) serves in bf16 as the JAX bench
 does: the model's parameters cast to bf16 in place (``nn.fuse.cast_params``;
@@ -57,12 +64,13 @@ import numpy as np
 import torch
 
 from ..data.augment import letterbox
-from ..data.imgproc import IMG_FORMATS, resize_linear_f32
+from ..data.imgproc import IMG_FORMATS, imwrite, resize_linear_f32
 from ..data.loaders import LoadImagesAndVideos, LoadPilAndNumpy
 from ..nn.fuse import cast_params
 from ..ops.boxes import scale_boxes
 from ..ops.letterbox import letterbox_device
 from ..ops.nms import nms_rotated, non_max_suppression
+from ..utils import increment_path
 from ..utils.callbacks import default_callbacks
 from .results import Results
 
@@ -93,11 +101,13 @@ class Predictor:
     def __init__(self, model, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
                  max_det: int = 300, classes=None, agnostic_nms: bool = False,
                  verbose: bool = True, pre_topk: int = 512, dtype: str = "float32",
-                 half: bool = False, callbacks=None, **unported):
+                 half: bool = False, callbacks=None, save: bool = False,
+                 save_txt: bool = False, save_conf: bool = False, save_crop: bool = False,
+                 project: str | None = None, name: str | None = None, exist_ok: bool = False,
+                 **unported):
         if unported:
-            raise ValueError(f"Predictor does not take {sorted(unported)}: writing results "
-                             f"(save, save_txt, save_crop) and video or stream options are not "
-                             f"ported")
+            raise ValueError(f"Predictor does not take {sorted(unported)}: video, stream and "
+                             f"screen options are not ported")
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
         self.classes = None if classes is None else [int(c) for c in np.atleast_1d(classes)]
@@ -109,6 +119,12 @@ class Predictor:
         self.conf, self.iou, self.max_det, self.pre_topk = conf, iou, max_det, pre_topk
         self.callbacks = callbacks if callbacks is not None else default_callbacks()
         self.device = next(model.parameters()).device
+        self.save, self.save_txt, self.save_conf, self.save_crop = (save, save_txt, save_conf,
+                                                                    save_crop)
+        self.save_dir = None
+        if save or save_txt or save_crop:
+            self.save_dir = increment_path(Path(project or "runs/predict") / (name or "exp"),
+                                           exist_ok=exist_ok, mkdir=True)
 
     def preprocess(self, frames) -> tuple[torch.Tensor, tuple]:
         """uint8 (B, H, W, 3) frames (numpy or tensor) -> letterboxed
@@ -212,11 +228,35 @@ class Predictor:
                                  "postprocess": (time.perf_counter() - t2) * 1e3}, **kw)
             self.results = [res]
             self.callbacks.run("on_predict_postprocess_end", self)
+            if self.save_dir is not None:
+                self._write_results(path, res)
             if self.verbose:
                 print(f"{path}: {res.verbose()} ({res.speed['inference']:.1f}ms inference)")
             self.callbacks.run("on_predict_batch_end", self)
             yield res
         self.callbacks.run("on_predict_end", self)
+
+    def _write_results(self, path: str, res: Results):
+        """Under ``save_dir``: ``{stem}.jpg`` (``res.plot()``) with ``save``,
+        ``labels/{stem}.txt`` (``res.save_txt``) with ``save_txt``, and
+        ``crops/{class name}/{stem}_{i}.jpg`` (each box's pixels, its corners
+        cut to ints) with ``save_crop``; the JAX predictor's file tree. An
+        array source's stem is ``image_<hash>``, as there."""
+        stem = Path(path).stem if Path(path).suffix else f"image_{abs(hash(path)) % 10**8}"
+        if self.save:
+            imwrite(self.save_dir / f"{stem}.jpg", res.plot())
+        if self.save_txt:
+            (self.save_dir / "labels").mkdir(exist_ok=True)
+            res.save_txt(self.save_dir / "labels" / f"{stem}.txt", save_conf=self.save_conf)
+        if self.save_crop and res.boxes is not None and len(res.boxes):
+            for bi in range(len(res.boxes)):
+                xyxy = np.asarray(res.boxes.xyxy[bi]).astype(int)
+                c = int(res.boxes.cls[bi])
+                crop = res.orig_img[max(0, xyxy[1]):xyxy[3], max(0, xyxy[0]):xyxy[2]]
+                if crop.size:
+                    d = self.save_dir / "crops" / str(res.names.get(c, str(c)))
+                    d.mkdir(parents=True, exist_ok=True)
+                    imwrite(d / f"{stem}_{bi}.jpg", crop)
 
     def _candidates(self, out):
         """What ``postprocess`` takes from ``decode``'s output."""

@@ -1,13 +1,16 @@
 """Prediction results of one image, in numpy.
 
 Port of ``BaseNP``, ``Boxes``, ``Masks``, ``Keypoints``, ``Probs``, ``OBB``
-and ``Results`` in ``xlstm_yolo_tpu/engine/results.py`` (without ``plot``):
-boxes in pixels of the original image, with their
-confidence and class, the segment task's masks, the pose task's keypoints,
-the OBB task's rotated boxes, the classify task's probabilities (a
-classify result has no boxes and a length of 0, as in JAX), and the
-summaries built on them.
-``Masks.xy`` / ``.xyn`` (polygons traced from the masks) are not ported.
+and ``Results`` in ``xlstm_yolo_tpu/engine/results.py``: boxes in pixels of
+the original image, with their confidence and class, the segment task's
+masks (``Masks.xy`` / ``.xyn``: the contour with the most points, traced by
+``ops.contours`` as ``cv2.findContours`` traces it), the pose task's
+keypoints, the OBB task's rotated boxes, the classify task's probabilities
+(a classify result has no boxes and a length of 0, as in JAX); drawn by
+``plot`` (``utils.annotator``), written by ``save`` / ``save_crop`` (JPEG
+through ``data.imgproc.imwrite``, the bytes ``cv2.imwrite`` writes) and
+``save_txt``, and serialized by ``summary``, ``to_json``, ``to_df``,
+``to_csv``, ``to_xml`` and ``to_sql`` (pandas imported inside, as in JAX).
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ from pathlib import Path
 
 import numpy as np
 
+from ..data.imgproc import imwrite
 from ..ops.boxes import xyxy2xywh
+from ..ops.contours import masks2segments
 
 
 class BaseNP:
@@ -97,19 +102,33 @@ class Boxes(BaseNP):
 
 
 class Masks(BaseNP):
-    """(n, h, w) boolean instance masks at the original image's size."""
+    """(n, h, w) boolean instance masks; ``xy`` / ``xyn`` give per mask the
+    (N, 2) polygon of its contour with the most points, scaled from mask
+    space to the original image's pixels (or normalized by its size)."""
 
     def __init__(self, masks, orig_shape):
         masks = np.asarray(masks)
         super().__init__(masks[None] if masks.ndim == 2 else masks, orig_shape)
 
-    @property
-    def xy(self):
-        raise NotImplementedError("Masks.xy (polygons traced from the masks) is not ported")
+    def _segments(self, normalize: bool) -> list:
+        mh, mw = self.data.shape[1:]
+        oh, ow = self.orig_shape
+        sx, sy = ow / mw, oh / mh
+        out = []
+        for seg in masks2segments(np.asarray(self.data, np.uint8)):
+            seg = seg * np.asarray([sx, sy], np.float32)
+            if normalize:
+                seg = seg / np.asarray([ow, oh], np.float32)
+            out.append(seg)
+        return out
 
     @property
-    def xyn(self):
-        raise NotImplementedError("Masks.xyn (polygons traced from the masks) is not ported")
+    def xy(self) -> list:
+        return self._segments(normalize=False)
+
+    @property
+    def xyn(self) -> list:
+        return self._segments(normalize=True)
 
 
 class Keypoints(BaseNP):
@@ -269,38 +288,198 @@ class Results:
         """A new Results on the same image."""
         return Results(self.orig_img, path=self.path, names=self.names, speed=self.speed, **kw)
 
+    # ------------------------------------------------------------------
+    # drawing and writing
+    # ------------------------------------------------------------------
+    def plot(self, line_width: int | None = None, font_scale: float | None = None,
+             labels: bool = True, conf: bool = True, boxes: bool = True,
+             masks: bool = True, kpt_line: bool = True) -> np.ndarray:
+        """A copy of the image (RGB) with the masks, the rotated or upright
+        boxes and their labels, the keypoint skeletons and a classify
+        result's top-5 drawn by ``utils.annotator.Annotator``, as JAX draws
+        them."""
+        from ..utils.annotator import Annotator, colors
+
+        ann = Annotator(self.orig_img, line_width=line_width, font_scale=font_scale)
+        if self.masks is not None and masks and len(self.masks):
+            cls_of = (lambda mi: int(self.boxes.cls[mi])
+                      if self.boxes is not None and mi < len(self.boxes) else mi)
+            ann.masks(self.masks.data, [colors(cls_of(mi)) for mi in range(len(self.masks.data))])
+        if self.obb is not None and len(self.obb) and boxes:
+            for oi, pts in enumerate(self.obb.xyxyxyxy):
+                cl, cf = int(self.obb.cls[oi]), float(self.obb.conf[oi])
+                name = self.names.get(cl, str(cl))
+                if self.obb.is_track:
+                    name = f"id:{int(self.obb.id[oi])} {name}"
+                txt = (f"{name} {cf:.2f}" if conf else name) if labels else ""
+                ann.box_label(pts, txt, color=colors(cl), rotated=True)
+        if self.boxes is not None and self.obb is None and boxes:
+            for row in self.boxes.data:
+                cl, cf = int(row[-1]), float(row[-2])
+                name = self.names.get(cl, str(cl))
+                if self.boxes.is_track:
+                    name = f"id:{int(row[4])} {name}"
+                txt = (f"{name} {cf:.2f}" if conf else name) if labels else ""
+                ann.box_label(row[:4], txt, color=colors(cl))
+        if self.keypoints is not None:
+            for inst in self.keypoints.data:
+                ann.kpts(inst, kpt_line=kpt_line)
+        if self.probs is not None and labels:
+            for li, c in enumerate(self.probs.top5):
+                ann.text((8, 28 + 24 * li), f"{self.names.get(c, c)} {self.probs.data[c]:.2f}",
+                         box_style=True)
+        return ann.result()
+
+    def save(self, filename: str):
+        """Write ``plot()`` to ``filename`` (.jpg at quality 95, .png or .bmp)."""
+        imwrite(filename, self.plot())
+        return filename
+
+    def save_crop(self, save_dir, file_name: str | Path = Path("im.jpg")):
+        """Write each box's crop, grown by 2% and 10 px about its centre, to
+        ``save_dir/<class name>/<stem><i or ''>.jpg``; a classify or OBB
+        result warns and writes nothing, as in JAX."""
+        from ..utils import LOGGER
+
+        if self.probs is not None:
+            LOGGER.warning("save_crop: classify task not supported")
+            return
+        if self.obb is not None:
+            LOGGER.warning("save_crop: OBB task not supported")
+            return
+        if self.boxes is None:
+            return
+        h, w = self.orig_shape
+        for i in range(len(self.boxes)):
+            x1, y1, x2, y2 = self.boxes.xyxy[i]
+            bw, bh = (x2 - x1) * 1.02 + 10, (y2 - y1) * 1.02 + 10
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            xa, xb = int(max(cx - bw / 2, 0)), int(min(cx + bw / 2, w))
+            ya, yb = int(max(cy - bh / 2, 0)), int(min(cy + bh / 2, h))
+            crop = self.orig_img[ya:yb, xa:xb]
+            if crop.size == 0:
+                continue
+            name = self.names.get(int(self.boxes.cls[i]), str(int(self.boxes.cls[i])))
+            d = Path(save_dir) / name
+            d.mkdir(parents=True, exist_ok=True)
+            imwrite(d / f"{Path(file_name).stem}{i if i else ''}.jpg", crop)
+
+    # ------------------------------------------------------------------
+    # serialization
+    # ------------------------------------------------------------------
     def summary(self, normalize: bool = False, decimals: int = 5) -> list:
-        """One dict per detection: name, class, confidence and the box corners
-        (normalized by the image's size with ``normalize``); a classify
-        result's one dict of its top-1 class."""
+        """One dict per detection: name, class, confidence, the box's corners
+        (an OBB's four, normalized by the image's size with ``normalize``),
+        and where present the track id, the mask's segment and the
+        keypoints; a classify result's one dict of its top-1 class."""
         if self.probs is not None:
             c = self.probs.top1
             return [{"name": self.names.get(c, str(c)), "class": c,
                      "confidence": round(float(self.probs.top1conf), decimals)}]
-        if self.boxes is None:
+        is_obb = self.obb is not None
+        data = self.obb if is_obb else self.boxes
+        if data is None:
             return []
         h, w = self.orig_shape if normalize else (1, 1)
+        mask_xy = self.masks.xy if self.masks is not None else None
         out = []
-        for i in range(len(self.boxes)):
-            c = int(self.boxes.cls[i])
-            box = {f"{axis}{j + 1}": round(float(v) / (w if axis == "x" else h), decimals)
-                   for j, xy in enumerate(self.boxes.xyxy[i].reshape(2, 2))
-                   for axis, v in zip("xy", xy)}
-            out.append({"name": self.names.get(c, str(c)), "class": c,
-                        "confidence": round(float(self.boxes.conf[i]), decimals), "box": box})
+        for i in range(len(data)):
+            cls_i, conf = int(data.cls[i]), round(float(data.conf[i]), decimals)
+            box = (data.xyxyxyxy[i] if is_obb else data.xyxy[i]).reshape(-1, 2)
+            xy = {}
+            for j, (bx, by) in enumerate(box):
+                xy[f"x{j + 1}"] = round(float(bx) / w, decimals)
+                xy[f"y{j + 1}"] = round(float(by) / h, decimals)
+            rec = {"name": self.names.get(cls_i, str(cls_i)), "class": cls_i,
+                   "confidence": conf, "box": xy}
+            if data.is_track:
+                rec["track_id"] = int(data.id[i])
+            if mask_xy is not None and i < len(mask_xy):
+                rec["segments"] = {"x": np.round(mask_xy[i][:, 0] / w, decimals).tolist(),
+                                   "y": np.round(mask_xy[i][:, 1] / h, decimals).tolist()}
+            if self.keypoints is not None and i < len(self.keypoints):
+                kp = self.keypoints.data[i]
+                rec["keypoints"] = {"x": np.round(kp[:, 0] / w, decimals).tolist(),
+                                    "y": np.round(kp[:, 1] / h, decimals).tolist()}
+                if self.keypoints.has_visible:
+                    rec["keypoints"]["visible"] = np.round(kp[:, 2], decimals).tolist()
+            out.append(rec)
         return out
+
+    def to_df(self, normalize: bool = False, decimals: int = 5):
+        """The summary as a pandas DataFrame."""
+        import pandas as pd
+
+        return pd.DataFrame(self.summary(normalize=normalize, decimals=decimals))
+
+    def to_csv(self, normalize: bool = False, decimals: int = 5, *args, **kwargs):
+        return self.to_df(normalize=normalize, decimals=decimals).to_csv(*args, **kwargs)
+
+    def to_xml(self, normalize: bool = False, decimals: int = 5, *args, **kwargs):
+        df = self.to_df(normalize=normalize, decimals=decimals)
+        if df.empty:
+            return '<?xml version="1.0" encoding="utf-8"?>\n<root></root>'
+        return df.to_xml(*args, **kwargs)
 
     def to_json(self, normalize: bool = False, decimals: int = 5) -> str:
         return json.dumps(self.summary(normalize=normalize, decimals=decimals), indent=2)
 
+    def to_sql(self, table_name: str = "results", normalize: bool = False,
+               decimals: int = 5, db_path: str = "results.db"):
+        """Append the summary to a sqlite table (class name, confidence, and
+        the box, segments and keypoints as JSON)."""
+        import sqlite3
+
+        data = self.summary(normalize=normalize, decimals=decimals)
+        conn = sqlite3.connect(db_path)
+        try:
+            cur = conn.cursor()
+            cur.execute(f"CREATE TABLE IF NOT EXISTS {table_name} (id INTEGER PRIMARY KEY "
+                        "AUTOINCREMENT, class_name TEXT, confidence REAL, box TEXT, "
+                        "masks TEXT, kpts TEXT)")
+            for item in data:
+                cur.execute(f"INSERT INTO {table_name} (class_name, confidence, box, masks, "
+                            "kpts) VALUES (?, ?, ?, ?, ?)",
+                            (item.get("name"), item.get("confidence"),
+                             json.dumps(item.get("box", {})),
+                             json.dumps(item.get("segments", {})),
+                             json.dumps(item.get("keypoints", {}))))
+            conn.commit()
+        finally:
+            conn.close()
+
     def save_txt(self, txt_file: str, save_conf: bool = False):
-        """YOLO-format lines: class and normalized (cx, cy, w, h), and the
-        confidence with ``save_conf``."""
+        """YOLO-format label lines: a classify result's top-5 ("prob name");
+        an OBB's class and normalized corners; else the class and the mask's
+        normalized segment, or the normalized (cx, cy, w, h), then the
+        keypoints (x, y normalized, visibility); the confidence last with
+        ``save_conf``."""
         lines = []
-        if self.boxes is not None:
+        h, w = self.orig_shape
+        if self.probs is not None:
+            for c in self.probs.top5:
+                lines.append(f"{self.probs.data[c]:.2f} {self.names.get(c, c)}")
+        elif self.obb is not None:
+            for i in range(len(self.obb)):
+                pts = self.obb.xyxyxyxyn[i].reshape(-1).tolist()
+                line = f"{int(self.obb.cls[i])} " + " ".join(f"{x:.6f}" for x in pts)
+                if save_conf:
+                    line += f" {self.obb.conf[i]:.6f}"
+                lines.append(line)
+        elif self.boxes is not None:
+            seg_xyn = self.masks.xyn if self.masks is not None else None
             for i in range(len(self.boxes)):
-                coords = " ".join(f"{x:.6f}" for x in self.boxes.xywhn[i])
-                line = f"{int(self.boxes.cls[i])} {coords}"
+                if seg_xyn is not None and i < len(seg_xyn) and len(seg_xyn[i]):
+                    coords = seg_xyn[i].reshape(-1)
+                else:
+                    coords = self.boxes.xywhn[i]
+                line = f"{int(self.boxes.cls[i])} " + " ".join(f"{x:.6f}" for x in coords)
+                if self.keypoints is not None and i < len(self.keypoints):
+                    kp = self.keypoints.data[i]
+                    kxyn = kp[:, :2] / np.asarray([w, h], np.float32)
+                    cols = (np.concatenate([kxyn, kp[:, 2:3]], 1).reshape(-1)
+                            if self.keypoints.has_visible else kxyn.reshape(-1))
+                    line += " " + " ".join(f"{x:.6f}" for x in cols)
                 if save_conf:
                     line += f" {self.boxes.conf[i]:.6f}"
                 lines.append(line)

@@ -1,16 +1,21 @@
 """The plots of a detect run: the validation's PR / F1 / P / R curves and
 confusion matrix, and the training curves and label statistics, each
-written as a PNG through matplotlib's Agg backend.
+written as a PNG through matplotlib's Agg backend; and a batch's annotated
+mosaic and a feature map's channel grid, drawn without matplotlib.
 
 Port of ``smooth``, ``plot_pr_curve``, ``plot_mc_curve``,
-``plot_confusion_matrix``, ``plot_results`` and ``plot_labels`` in
-``xlstm_yolo_tpu/utils/plotting.py`` (``plot_images`` and
-``feature_visualization`` draw through OpenCV there and are not ported).
-matplotlib is imported when a plot is drawn, not with this module: a
-machine without it can still import, train and validate. There
-``have_matplotlib()`` is False and each plot function raises ImportError;
-the ``Validator`` checks first and prints one warning that names the files
-it did not write.
+``plot_confusion_matrix``, ``plot_results``, ``plot_labels``,
+``plot_images`` and ``feature_visualization`` in
+``xlstm_yolo_tpu/utils/plotting.py``. matplotlib is imported when a curve
+is drawn, not with this module: a machine without it can still import,
+train and validate. There ``have_matplotlib()`` is False and each curve
+function raises ImportError; the ``Validator`` checks first and prints one
+warning that names the files it did not write. ``plot_images`` draws the
+boxes and labels as JAX's cv2 calls do (one-pixel LINE_8 boxes, font 0 at
+0.4) with ``utils.annotator`` and writes through ``data.imgproc.imwrite``
+(a ``.jpg`` the bytes ``cv2.imwrite`` writes); ``feature_visualization``
+tiles the first channels, each min-max scaled through a viridis table,
+where JAX draws them with matplotlib's ``imshow``.
 """
 from __future__ import annotations
 
@@ -178,3 +183,70 @@ def plot_labels(cls: np.ndarray, boxes_xywhn: np.ndarray, names: dict | None = N
         ax.set_xlim(0, 1)
         ax.set_ylim(0, 1)
     return _save(fig, plt, fname, bbox_inches="tight")
+
+
+def plot_images(batch: dict, names: dict | None = None, fname: str | Path = "batch.jpg",
+                max_images: int = 16) -> Path:
+    """A grid of the batch's first ``max_images`` images ("img": (B, S, S, 3)
+    in [0, 1]) with each valid box ("cls_boxes" rows cls, x1, y1, x2, y2;
+    "mask") and its class name drawn as JAX draws them, on white."""
+    from ..data.imgproc import imwrite
+    from .annotator import _put_text, _rectangle
+
+    imgs = np.asarray(batch["img"][:max_images])
+    n = len(imgs)
+    cols = int(np.ceil(np.sqrt(n)))
+    rows = int(np.ceil(n / cols))
+    sz = imgs.shape[1]
+    canvas = np.full((rows * sz, cols * sz, 3), 255, np.uint8)
+    for i in range(n):
+        r, c = divmod(i, cols)
+        img = (imgs[i] * 255).astype(np.uint8).copy()
+        boxes = np.asarray(batch["cls_boxes"][i])
+        mask = np.asarray(batch["mask"][i])
+        for (cls, x1, y1, x2, y2), m in zip(boxes[:, :5], mask):
+            if not m:
+                continue
+            _rectangle(img, (int(x1), int(y1)), (int(x2), int(y2)), (255, 64, 64), 1)
+            label = (names or {}).get(int(cls), str(int(cls)))
+            _put_text(img, str(label), (int(x1), max(int(y1) - 2, 8)), 0.4, (255, 64, 64), 1)
+        canvas[r * sz:(r + 1) * sz, c * sz:(c + 1) * sz] = img
+    fname = Path(fname)
+    fname.parent.mkdir(parents=True, exist_ok=True)
+    imwrite(fname, canvas)
+    return fname
+
+
+# viridis at 0, 1/8, ..., 1 (linearly interpolated between)
+_VIRIDIS = np.array([(68, 1, 84), (71, 45, 123), (59, 82, 139), (44, 114, 142), (33, 145, 140),
+                     (40, 174, 128), (94, 201, 98), (173, 220, 48), (253, 231, 37)], np.float64)
+
+
+def feature_visualization(feats, fname: str | Path = "features.png", n: int = 16) -> Path:
+    """A grid of the first ``n`` channels of a (1, H, W, C) or (H, W, C)
+    feature map, each scaled to its own min and max and coloured through
+    viridis, with a 2-px white gutter; written by ``imwrite``."""
+    from ..data.imgproc import imwrite
+
+    f = np.asarray(feats.detach().float().cpu() if hasattr(feats, "detach") else feats,
+                   np.float64)
+    if f.ndim == 4:
+        f = f[0]
+    c = min(n, f.shape[-1])
+    cols = int(np.ceil(np.sqrt(c)))
+    rows = int(np.ceil(c / cols))
+    h, w, g = f.shape[0], f.shape[1], 2
+    canvas = np.full((rows * (h + g) + g, cols * (w + g) + g, 3), 255, np.uint8)
+    t = np.linspace(0, 1, len(_VIRIDIS))
+    for i in range(c):
+        ch = f[..., i]
+        lo, hi = ch.min(), ch.max()
+        x = (ch - lo) / (hi - lo) if hi > lo else np.zeros_like(ch)
+        rgb = np.stack([np.interp(x, t, _VIRIDIS[:, k]) for k in range(3)], -1)
+        r, q = divmod(i, cols)
+        y0, x0 = g + r * (h + g), g + q * (w + g)
+        canvas[y0:y0 + h, x0:x0 + w] = np.floor(rgb + 0.5).astype(np.uint8)
+    fname = Path(fname)
+    fname.parent.mkdir(parents=True, exist_ok=True)
+    imwrite(fname, canvas)
+    return fname
